@@ -1,0 +1,60 @@
+"""Converters from the JAX package's objects to the port's, with explicit
+dtypes. They take numpy arrays, or anything ``np.asarray`` accepts (JAX
+arrays included), and never import jax. Integer arrays may arrive as
+int64 (the JAX package turns on x64); bf16 arrays arrive as
+``ml_dtypes.bfloat16`` and are widened to f32 on the host, which is exact.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from legion_tpu_torch.data.device_synthetic import DeviceDataset
+from legion_tpu_torch.sampling.sampler import SampleBatch
+
+
+def _i32(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.int32)).to(device)
+
+
+def _f32(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+
+
+def params_from_jax(tree, device: torch.device = "cpu"
+                    ) -> Dict[str, torch.Tensor]:
+    """``{"layers": [{"w_self", "w_neigh", "b"}, ...]}`` -> a GraphSAGE
+    ``state_dict`` (f32; padded arrays are copied as they are)."""
+    out = {}
+    for i, layer in enumerate(tree["layers"]):
+        for name in ("w_self", "w_neigh", "b"):
+            out[f"layers.{i}.{name}"] = _f32(layer[name], device)
+    return out
+
+
+def batch_from_jax(batch, device: torch.device = "cpu") -> SampleBatch:
+    """A JAX ``SampleBatch`` (fields as arrays) -> the port's, int32."""
+    return SampleBatch(
+        node_ids=_i32(batch.node_ids, device),
+        num_nodes=_i32(batch.num_nodes, device),
+        edge_src=tuple(_i32(e, device) for e in batch.edge_src),
+        edge_dst=tuple(_i32(e, device) for e in batch.edge_dst),
+        num_edges=_i32(batch.num_edges, device),
+        hop_offsets=_i32(batch.hop_offsets, device))
+
+
+def dataset_from_jax(ds, device: torch.device = "cpu") -> DeviceDataset:
+    """A JAX ``DeviceDataset`` -> the port's, on ``device``. ``meta`` is
+    rebuilt as the port's own ``DatasetMeta`` from the same fields."""
+    from dataclasses import asdict
+    from legion_tpu_torch.config import DatasetMeta
+    return DeviceDataset.from_numpy(
+        meta=DatasetMeta(**asdict(ds.meta)),
+        indptr=np.asarray(ds.csr.indptr), indices=np.asarray(ds.csr.indices),
+        features=np.asarray(ds.features).astype(np.float32),
+        labels=np.asarray(ds.labels), train_ids=np.asarray(ds.train_ids),
+        valid_ids=np.asarray(ds.valid_ids), test_ids=np.asarray(ds.test_ids),
+        device=device)

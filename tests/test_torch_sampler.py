@@ -1,0 +1,262 @@
+"""Parity of the port's sampler with the JAX package, on the CPU.
+
+K3 (``windowed_draw``) runs its plain version here; its deterministic half
+``windowed_select`` is fed the exact block choices and in-block offsets
+that JAX draws, and must reproduce ``WindowedCSRAccess.sample_neighbors``.
+The port's own random words are held by distribution. ``SampleBatch``
+parity injects JAX's per-hop candidates. Graphs are made with numpy.
+"""
+
+from dataclasses import asdict
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from scipy import stats
+
+from legion_tpu.config import SamplerConfig as JSamplerConfig
+from legion_tpu.graph import CSRGraph
+from legion_tpu.sampling.access import WindowedCSRAccess as JWindowed
+from legion_tpu.sampling.sampler import NeighborSampler as JSampler
+from legion_tpu_torch.cache.hotness import presample_hotness
+from legion_tpu_torch.config import SamplerConfig
+from legion_tpu_torch.data.device_synthetic import synthesize_device_dataset
+from legion_tpu_torch.graph import DeviceCSR
+from legion_tpu_torch.sampling import access
+from legion_tpu_torch.sampling.sampler import NeighborSampler
+
+
+def _graph(seed=0, V=400, E=6000):
+    """Skewed random graph: some long rows (span many blocks), some
+    vertices with no edges."""
+    rng = np.random.default_rng(seed)
+    src = np.minimum((rng.pareto(1.2, E) * 8).astype(np.int64), V - 1)
+    src = rng.permutation(V)[src]
+    dst = rng.integers(0, V, E)
+    g = CSRGraph.from_edges(src, dst, V)
+    return g, DeviceCSR.from_numpy(g.indptr, g.indices, "cpu")
+
+
+@pytest.fixture(scope="module")
+def graph():
+    return _graph()
+
+
+def _frontier(g, rng, F):
+    deg = g.degrees()
+    f = rng.integers(0, g.num_nodes, F).astype(np.int32)
+    f[: F // 8] = np.flatnonzero(deg == 0)[0]      # degree-0 slots
+    f[F // 8: F // 4] = int(np.argmax(deg))        # the longest row
+    f[rng.random(F) < 0.1] = -1                    # pads
+    return f
+
+
+@pytest.mark.parametrize("window,fanout", [(16, 7), (64, 3)])
+def test_windowed_select_matches_jax_draws(graph, window, fanout):
+    """windowed_select(r0, off) with the r0/off JAX draws (the same
+    split/randint calls as access.py:209-227) == JAX sample_neighbors."""
+    g, csr = graph
+    ja = JWindowed.from_csr(g.to_device(), window)
+    pa = access.WindowedCSRAccess.from_csr(csr, window)
+    np.testing.assert_array_equal(pa.row_pairs.numpy(),
+                                  np.asarray(ja.row_pairs))
+    np.testing.assert_array_equal(pa.indices2d.numpy(),
+                                  np.asarray(ja.indices2d))
+    rng = np.random.default_rng(window)
+    F = 256
+    front = _frontier(g, rng, F)
+    key = jax.random.PRNGKey(11)
+    ref = np.asarray(ja.sample_neighbors(jnp.asarray(front), fanout, key))
+
+    # JAX's random draws, recomputed outside the JAX function
+    rp = np.asarray(ja.row_pairs).astype(np.int64)
+    pd = rp[np.clip(front, 0, g.num_nodes - 1)]
+    start = np.where(front >= 0, pd[:, 0], 0)
+    deg = np.where(front >= 0, pd[:, 1], 0)
+    k0, k1 = jax.random.split(key)
+    r0 = np.asarray(jax.random.randint(k0, (F,), 0, np.maximum(deg, 1),
+                                       dtype=jnp.int32))
+    base = (start + r0) // window * window
+    lo = np.maximum(base, start) - base
+    hi = np.minimum(base + window, start + deg) - base
+    off = lo[None, :] + np.asarray(jax.random.randint(
+        k1, (fanout, F), 0, np.maximum(hi - lo, 1)[None, :],
+        dtype=jnp.int32))
+    r0, off = torch.from_numpy(r0.copy()), torch.from_numpy(off)
+    out = access.windowed_select(pa.row_pairs, pa.indices2d,
+                                 torch.from_numpy(front), r0, off)
+    assert out.dtype == torch.int32
+    np.testing.assert_array_equal(out.numpy(), ref)
+    # int64 pair tables (graphs of 2**31 edges or more) select the same
+    out64 = access.windowed_select(pa.row_pairs.long(), pa.indices2d,
+                                   torch.from_numpy(front), r0, off)
+    np.testing.assert_array_equal(out64.numpy(), ref)
+
+
+def test_hash_words_match_uint32_reference():
+    """The int64 mirror of the kernel's hash (and its Python-int form)
+    equals straightforward wrapping uint32 arithmetic."""
+    def ref_hash(x):
+        x = x.astype(np.uint32)
+        with np.errstate(over="ignore"):
+            x ^= x >> np.uint32(16)
+            x *= np.uint32(0x7FEB352D)
+            x ^= x >> np.uint32(15)
+            x *= np.uint32(0x846CA68B)
+            x ^= x >> np.uint32(16)
+        return x
+
+    rng = np.random.default_rng(5)
+    x = rng.integers(0, 2 ** 32, 10000, dtype=np.uint64)
+    got = access.hash32(torch.from_numpy(x.astype(np.int64)))
+    np.testing.assert_array_equal(got.numpy(), ref_hash(x).astype(np.int64))
+    assert [access.hash32(int(v)) for v in x[:50]] == \
+        ref_hash(x[:50]).astype(np.int64).tolist()
+    ka, kb = access.stream_keys(123456789, 1)
+    lanes = np.arange(1000, dtype=np.uint64)
+    words = access.hash_words(ka, kb, torch.from_numpy(lanes.astype(np.int64)))
+    expect = ref_hash(ref_hash(lanes ^ np.uint64(ka)) ^ np.uint32(kb))
+    np.testing.assert_array_equal(words.numpy(), expect.astype(np.int64))
+
+
+def test_windowed_draw_neighbors_pads_determinism(graph):
+    g, csr = graph
+    pa = access.WindowedCSRAccess.from_csr(csr, 16)
+    rng = np.random.default_rng(6)
+    front = _frontier(g, rng, 128)
+    ft = torch.from_numpy(front)
+    a = pa.sample_neighbors(ft, 5, 99).numpy().reshape(5, 128)
+    b = pa.sample_neighbors(ft, 5, 99).numpy().reshape(5, 128)
+    c = pa.sample_neighbors(ft, 5, 100).numpy().reshape(5, 128)
+    assert np.array_equal(a, b) and not np.array_equal(a, c)
+    for i, v in enumerate(front):
+        nbrs = set(g.neighbors(int(v)).tolist()) if v >= 0 else set()
+        if nbrs:
+            assert set(a[:, i].tolist()) <= nbrs
+        else:
+            assert np.all(a[:, i] == -1)
+
+
+@pytest.mark.parametrize("window", [0, 4])
+def test_draw_marginal_is_one_over_degree(graph, window):
+    """Per-draw marginal of the hash draws ~ multiplicity/deg, by
+    chi-square (windowed, and the per-slot DeviceCSRAccess draws). One
+    draw per slot: a slot's windowed draws share one block, so only draws
+    of different slots are independent."""
+    g, csr = graph
+    acc = access.WindowedCSRAccess.from_csr(csr, window) if window \
+        else access.DeviceCSRAccess(csr)
+    v = int(np.argmax(g.degrees()))
+    d = int(g.degrees()[v])
+    assert d > 4 * 4                          # spans many 4-blocks
+    uniq, mult = np.unique(g.neighbors(v), return_counts=True)
+    draws = acc.sample_neighbors(torch.full((20000,), v, dtype=torch.int32),
+                                 1, 2024).numpy()
+    counts = np.array([(draws == u).sum() for u in uniq])
+    assert counts.sum() == draws.size
+    _, p = stats.chisquare(counts, draws.size * mult / d)
+    assert p > 1e-3, p
+
+
+def _run_jax(jsampler, jaccess, seeds, key):
+    """JAX's batch (one jitted sample) and the per-hop frontiers and
+    candidates it drew (the same draws, recomputed per hop)."""
+    batch, _ = jsampler.sample(jaccess, jnp.asarray(seeds),
+                               jsampler.init_state(), key)
+    draw = jax.jit(jaccess.sample_neighbors, static_argnums=1)
+    ids, cum = np.asarray(batch.node_ids), np.asarray(batch.num_nodes)
+    fronts, cands = [], []
+    for k in range(jsampler.config.num_hops):
+        # hop k saw the slots filled before it (positions < cum[k]); the
+        # rest of its frontier window was still -1 then
+        off = int(np.asarray(batch.hop_offsets)[k])
+        pos = off + np.arange(jsampler.frontier_sizes[k])
+        f = np.where(pos < cum[k], ids[pos], -1).astype(np.int32)
+        fronts.append(f)
+        cands.append(np.array(draw(jnp.asarray(f), jsampler.config.fanouts[k],
+                                   jax.random.fold_in(key, k))))
+    return batch, fronts, cands
+
+
+@pytest.mark.parametrize("aligned", [False, True])
+@pytest.mark.parametrize("caps", [None, (24, 40, 100)])
+def test_sample_batch_matches_jax(graph, aligned, caps):
+    """Given JAX's per-hop candidates, the port's SampleBatch is identical
+    (sort dedup; aligned last hop or not; worst-case sizes or tight caps
+    that drop the largest new ids)."""
+    g, csr = graph
+    kw = dict(fanouts=(5, 3), batch_size=24, dedup="sort",
+              neighbor_window=16, dedup_last_hop=not aligned,
+              node_caps=caps)
+    js, ps = JSampler(JSamplerConfig(**kw), g.num_nodes), \
+        NeighborSampler(SamplerConfig(**kw), g.num_nodes)
+    assert ps.ids_len == js.ids_len
+    rng = np.random.default_rng(7)
+    seeds = rng.choice(np.flatnonzero(g.degrees() > 0), 24,
+                       replace=False).astype(np.int32)
+    seeds[-3:] = -1
+    jb, fronts, cands = _run_jax(js, JWindowed.from_csr(g.to_device(), 16),
+                                 seeds, jax.random.PRNGKey(3))
+    carry = ps.begin(torch.from_numpy(seeds))
+    for k in range(2):
+        np.testing.assert_array_equal(ps.hop_frontier(carry, k).numpy(),
+                                      fronts[k])
+        carry = ps.hop_absorb(carry, k, torch.from_numpy(cands[k]))
+    pb = ps.finish(carry)
+    if caps is not None:
+        # the tight cap did bind: some new ids were dropped
+        assert int(np.asarray(jb.num_nodes)[1]) == caps[1]
+    for name in ("node_ids", "num_nodes", "num_edges", "hop_offsets"):
+        got = getattr(pb, name)
+        assert got.dtype == torch.int32, name
+        np.testing.assert_array_equal(got.numpy(),
+                                      np.asarray(getattr(jb, name)), name)
+    for k in range(2):
+        np.testing.assert_array_equal(pb.edge_src[k].numpy(),
+                                      np.asarray(jb.edge_src[k]))
+        np.testing.assert_array_equal(pb.edge_dst[k].numpy(),
+                                      np.asarray(jb.edge_dst[k]))
+
+
+def test_synthetic_graph_structure_and_presample():
+    """The port's generator: valid CSR (int32 offsets, no self loops,
+    in-range ids), the JAX recipe's seed sets, and presample maxima that
+    bound every sampled batch."""
+    from legion_tpu.data.device_synthetic import synthesize_device_dataset \
+        as jax_synth
+    V, E = 3000, 40000
+    ds = synthesize_device_dataset("cpu", num_nodes=V, num_edges=E,
+                                   feature_dim=20, num_classes=4,
+                                   batch_size=32, valid_size=100,
+                                   test_size=100, seed=3)
+    jds = jax_synth(num_nodes=V, num_edges=E, feature_dim=20, num_classes=4,
+                    batch_size=32, valid_size=100, test_size=100, seed=3)
+    csr = ds.csr
+    ip, ix = csr.indptr.numpy(), csr.indices.numpy()
+    assert csr.indptr.dtype == torch.int32 and ix.dtype == np.int32
+    assert ip[0] == 0 and ip[-1] == E and np.all(np.diff(ip) >= 0)
+    assert ix.min() >= 0 and ix.max() < V
+    src = np.repeat(np.arange(V), np.diff(ip))
+    assert not np.any(src == ix)
+    # power-law skew: the top 1% of vertices hold a large in-edge share
+    top = np.sort(np.bincount(ix, minlength=V))[::-1][: V // 100].sum()
+    assert top > 0.15 * E
+    np.testing.assert_array_equal(ds.labels.numpy(), np.asarray(jds.labels))
+    for name in ("train_ids", "valid_ids", "test_ids"):
+        np.testing.assert_array_equal(getattr(ds, name),
+                                      np.asarray(getattr(jds, name)))
+    assert asdict(ds.meta) == asdict(jds.meta)
+
+    scfg = SamplerConfig(fanouts=(5, 3), batch_size=32, dedup="sort",
+                         neighbor_window=16, dedup_last_hop=False)
+    sampler = NeighborSampler(scfg, V)
+    acc = access.WindowedCSRAccess.from_csr(csr, 16)
+    bank = torch.from_numpy(ds.train_ids[:4 * 32].copy())
+    na, ea, mx = presample_hotness(sampler, acc, bank, 4, 17)
+    nums = np.stack([sampler.sample(acc, bank[i * 32:(i + 1) * 32],
+                                    access.fold_in(17, i)).num_nodes.numpy()
+                     for i in range(4)])
+    np.testing.assert_array_equal(mx.numpy(), nums.max(axis=0))
+    assert int(ea.sum()) > 0 and int(na.sum()) >= int(nums[:, -1].sum())
