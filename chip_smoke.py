@@ -4,15 +4,26 @@ Run from the repository root: ``python3 chip_smoke.py``. It needs one
 CUDA card, nvcc (``$CUDA_HOME`` or ``/usr/local/cuda``) and no network.
 
   1. builds the hand-written kernels from ``legion_tpu_torch/csrc``;
-  2. holds each kernel against its plain PyTorch version on the card, at
-     the shapes the main path gives it, and times both;
+  2. holds K1-K3 against their plain PyTorch versions on the card, at
+     the shapes the main path gives them, and times both;
   3. drives the main path through the public API at the bench
      configuration (``bench.py`` defaults: 2.4M vertices, 120M edges,
      GraphSAGE [25,10], batch 8000, hidden 256, bf16 features, 64-wide
      windowed draws, sort dedup with a lane-aligned last hop, measured
      caps): train steps, then an eval pass, counting kernel launches;
   4. checks the whole slice on the card against the same slice on the
-     CPU (plain versions) at a small size.
+     CPU (plain versions) at a small size;
+  5. builds the host-resident dataset of ``bench.py --features host``
+     (2.4M vertices, about 120M edges, f32 features in host RAM) and its
+     trainers: H (features on the host, a 200 MB bf16 cache planned by
+     hotness), HT (features and topology on the host, the same budget
+     split by the cost model); holds K4 and K5 against their plain
+     versions at HT's shapes and times both;
+  6. drives H, HT and the same dataset with the cache off (everything
+     copied to the card), each for train steps and an eval pass, with
+     per-step times and hit counters, and the launches of each path;
+  7. checks a small HT slice on the card against the same slice on the
+     CPU.
 
 Prints the card's ``name, power.limit`` line, the per-kernel JSON line and,
 last, ``{"ok": true, "device": ...}`` only when every phase passed. Any
@@ -30,6 +41,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 TRAIN_STEPS = 5
 WARMUP_STEPS = 3
 TIMING_ITERS = 20
+# bench.py --features host defaults
+HOST_NODES, HOST_AVG_DEGREE, CACHE_BYTES = 2_400_000, 50, 200_000_000
 
 KERNELS = {
     "gather_rows": dict(source="legion_tpu_torch/csrc/gather_rows.cu",
@@ -38,7 +51,22 @@ KERNELS = {
                         replaces="legion_tpu/ops/pallas_segment.py:132"),
     "windowed_draw": dict(source="legion_tpu_torch/csrc/windowed_draw.cu",
                           replaces="legion_tpu/sampling/access.py:201"),
+    "cached_gather": dict(source="legion_tpu_torch/csrc/cached_gather.cu",
+                          replaces="legion_tpu/cache/unified_cache.py:261"),
+    "csr_draw": dict(source="legion_tpu_torch/csrc/csr_draw.cu",
+                     replaces="legion_tpu/sampling/access.py:299"),
 }
+# the kernels each path must launch, and the path whose launches the
+# kernel line reports
+PATH_KERNELS = {
+    "device": ("gather_rows", "segment_sum", "windowed_draw"),
+    "H": ("gather_rows", "segment_sum", "windowed_draw", "cached_gather"),
+    "HT": ("gather_rows", "segment_sum", "cached_gather", "csr_draw"),
+    "cache-off": ("gather_rows", "segment_sum", "windowed_draw"),
+}
+REPORTED_PATH = {"gather_rows": "device", "segment_sum": "device",
+                 "windowed_draw": "device", "cached_gather": "H",
+                 "csr_draw": "HT"}
 
 
 def fail(msg):
@@ -94,7 +122,8 @@ def f32_atomic_order(k, p):
     return diff.max().item(), ok
 
 
-def bench_config(ds):
+def bench_config(ds, cache_bytes=0, feature_residency="hbm",
+                 topo_residency="hbm"):
     from legion_tpu_torch.config import (CacheConfig, LegionConfig,
                                          MeshConfig, SamplerConfig,
                                          TrainConfig)
@@ -104,8 +133,9 @@ def bench_config(ds):
                               auto_compact=True, eval_batch_size=512,
                               dedup="sort", cap_headroom=1.03,
                               neighbor_window=64, dedup_last_hop=False),
-        cache=CacheConfig(presample_steps=8, cache_bytes=0,
-                          feature_residency="hbm"),
+        cache=CacheConfig(presample_steps=8, cache_bytes=cache_bytes,
+                          feature_residency=feature_residency,
+                          topo_residency=topo_residency),
         train=TrainConfig(model="graphsage", hidden_dim=256, epochs=1,
                           lr=3e-3, dropout=0.5, fused_steps=1),
         mesh=MeshConfig.for_devices(1))
@@ -186,8 +216,11 @@ def phase_kernels(tr, torch):
     return results
 
 
-def phase_slice(tr, torch):
-    """The main path through the public API; returns the launch counts."""
+def phase_slice(tr, torch, path):
+    """One path through the public API: warm-up steps, timed train steps
+    (per-step times from CUDA events at the step boundaries, no sync
+    inside the loop), then an eval pass. Fails unless every kernel of the
+    path launched. Returns the launch counts and the mean step ms."""
     from legion_tpu_torch.ops import kernels
     from legion_tpu_torch.pipeline import Mode
     state = tr.init_state()
@@ -195,40 +228,101 @@ def phase_slice(tr, torch):
     for _ in range(WARMUP_STEPS):
         state, loss = tr.train_step(state)
     torch.cuda.synchronize()
-    losses, edges = [], []
+    losses, counters = [], []
+    ev = [torch.cuda.Event(enable_timing=True)
+          for _ in range(TRAIN_STEPS + 1)]
     t0 = time.perf_counter()
-    for _ in range(TRAIN_STEPS):
+    ev[0].record()
+    for i in range(TRAIN_STEPS):
         state, loss = tr.train_step(state)
+        ev[i + 1].record()
         losses.append(loss)
-        edges.append(tr.last_edges)
+        counters.append(torch.stack([
+            tr.last_edges, tr.last_feat_hits, tr.last_slots,
+            tr.last_topo_hits, tr.last_topo_total]))
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
     state, acc = tr.run_eval(state, Mode.VALID)
     torch.cuda.synchronize()
     counts = dict(kernels.LAUNCHES)
     losses = [float(x) for x in losses]
-    edges = [int(x) for x in edges]
+    F = tr.dataset.meta.feature_dim
+    tot = [0] * 5
+    for i, c in enumerate(counters):
+        e, fh, sl, th, tt = (int(v) for v in c.cpu())
+        tot = [a + b for a, b in zip(tot, (e, fh, sl, th, tt))]
+        print(f"  step {i}: {ev[i].elapsed_time(ev[i + 1]):.3f} ms | valid "
+              f"edges {e} | feature hits {fh}/{sl} slots | topology hits "
+              f"{th}/{tt} | host feature reads {(sl - fh) * F * 4 / 1e6:.3f}"
+              f" MB")
+    edges, hits, slots = tot[0], tot[1], tot[2]
     print(f"  losses {losses}")
     print(f"  mean step {step_ms:.3f} ms over {TRAIN_STEPS} steps (after "
-          f"{WARMUP_STEPS} warm-up) | valid edges/step {edges}")
-    print(f"  trained edges/s {sum(edges) / (step_ms / 1e3 * TRAIN_STEPS):.1f}"
-          f" | valid acc after {WARMUP_STEPS + TRAIN_STEPS} steps {acc:.4f}"
-          f" | peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    print(f"  launches on the main path: {counts}")
+          f"{WARMUP_STEPS} warm-up) | trained edges/s "
+          f"{edges / (step_ms / 1e3 * TRAIN_STEPS):.1f}")
+    print(f"  feature hit rate {hits / max(slots, 1):.4f} | topology hit rate"
+          f" {tot[3] / max(tot[4], 1):.4f} | host feature MB/step "
+          f"{(slots - hits) * F * 4 / 1e6 / TRAIN_STEPS:.3f} | valid acc "
+          f"after {WARMUP_STEPS + TRAIN_STEPS} steps {acc:.4f} | peak mem "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"  launches on the {path} path: {counts}")
     if not all(math.isfinite(x) for x in losses):
-        fail(f"non-finite loss {losses}")
+        fail(f"{path}: non-finite loss {losses}")
     if not 0.0 <= acc <= 1.0 or int(state["total"]) == 0:
-        fail(f"eval pass counted nothing (acc {acc})")
-    for name, n in counts.items():
-        if n <= 0:
-            fail(f"kernel {name} was not launched on the main path")
-    return counts
+        fail(f"{path}: eval pass counted nothing (acc {acc})")
+    for name in PATH_KERNELS[path]:
+        if counts[name] <= 0:
+            fail(f"kernel {name} was not launched on the {path} path")
+    if path == "H" and not 0 < hits < slots:
+        fail(f"H: feature hit rate {hits}/{slots} is not strictly between "
+             "0 and 1")
+    return counts, step_ms
+
+
+def compare_slices(trs, torch, label):
+    """The slice on the card (kernels) against the slice on the CPU (plain
+    versions): the same caps, identical batches (the draws are bit-exact
+    and sort dedup deterministic), and matching losses and parameters
+    over 3 steps."""
+    if trs[0].compact_caps != trs[1].compact_caps:
+        fail(f"{label}: caps differ: {trs[0].compact_caps} "
+             f"{trs[1].compact_caps}")
+    states = [t.init_state() for t in trs]
+    states[1]["model"].load_state_dict(states[0]["model"].state_dict())
+    bs = trs[0].sampler_t.config.batch_size
+    b = [t.sampler_t.sample(t.graph_access, t.train_bank[:bs], 99)
+         for t in trs]
+    for f in ("node_ids", "num_nodes", "num_edges", "hop_offsets"):
+        if not torch.equal(getattr(b[0], f), getattr(b[1], f).cpu()):
+            fail(f"{label}: small batch differs in {f}")
+    losses, counters = [[], []], [[], []]
+    for _ in range(3):
+        for i, t in enumerate(trs):
+            states[i], loss = t.train_step(states[i])
+            losses[i].append(float(loss))
+            counters[i].append([int(t.last_feat_hits), int(t.last_slots),
+                                int(t.last_topo_hits),
+                                int(t.last_topo_total)])
+    if counters[0] != counters[1]:
+        fail(f"{label}: hit counters differ: {counters}")
+    rel = max(abs(a - c) / abs(a) for a, c in zip(*losses))
+    pdiff = max(
+        ((p.detach().cpu() - q.detach()).norm() / q.detach().norm()).item()
+        for p, q in zip(states[1]["model"].parameters(),
+                        states[0]["model"].parameters()))
+    print(f"  cpu losses {losses[0]}\n  gpu losses {losses[1]}\n  max loss "
+          f"rel diff {rel:.3g} | max param rel diff {pdiff:.3g} (3 steps) | "
+          f"hit counters (feature hits, slots, topology hits, total) "
+          f"{counters[1]}")
+    # bf16 activations may round differently where f32 sums differ in
+    # order (cuBLAS vs CPU GEMM, f32 atomics): bf16-level tolerance
+    if rel > 2e-2 or pdiff > 2e-2:
+        fail(f"{label}: small-input slice on the card disagrees with the "
+             "CPU slice")
 
 
 def phase_reference(torch):
-    """The slice on the card (kernels) against the slice on the CPU (plain
-    versions) at a small size: identical batches (K3 is bit-exact and sort
-    dedup deterministic) and matching losses and parameters."""
+    """Phase 4: the device-dataset slice, card against CPU, small size."""
     from dataclasses import replace
     from legion_tpu_torch.data import DeviceDataset, synthesize_device_dataset
     from legion_tpu_torch.train import Trainer
@@ -242,32 +336,164 @@ def phase_reference(torch):
     cfg = bench_config(small)
     cfg = replace(cfg, sampler=replace(cfg.sampler, batch_size=256),
                   train=replace(cfg.train, dropout=0.0))
-    trs = [Trainer(small, cfg, device="cpu"), Trainer(gpu_ds, cfg, "cuda")]
-    if trs[0].compact_caps != trs[1].compact_caps:
-        fail(f"caps differ: {trs[0].compact_caps} {trs[1].compact_caps}")
-    states = [t.init_state() for t in trs]
-    states[1]["model"].load_state_dict(states[0]["model"].state_dict())
-    b = [t.sampler_t.sample(t.graph_access, t.train_bank[:256], 99)
-         for t in trs]
-    for f in ("node_ids", "num_nodes", "num_edges", "hop_offsets"):
-        if not torch.equal(getattr(b[0], f), getattr(b[1], f).cpu()):
-            fail(f"small batch differs in {f}")
-    losses = [[], []]
-    for _ in range(3):
-        for i, t in enumerate(trs):
-            states[i], loss = t.train_step(states[i])
-            losses[i].append(float(loss))
-    rel = max(abs(a - c) / abs(a) for a, c in zip(*losses))
-    pdiff = max(
-        ((p.detach().cpu() - q.detach()).norm() / q.detach().norm()).item()
-        for p, q in zip(states[1]["model"].parameters(),
-                        states[0]["model"].parameters()))
-    print(f"  cpu losses {losses[0]}\n  gpu losses {losses[1]}\n  max loss "
-          f"rel diff {rel:.3g} | max param rel diff {pdiff:.3g} (3 steps)")
-    # bf16 activations may round differently where f32 sums differ in
-    # order (cuBLAS vs CPU GEMM, f32 atomics): bf16-level tolerance
-    if rel > 2e-2 or pdiff > 2e-2:
-        fail("small-input slice on the card disagrees with the CPU slice")
+    compare_slices([Trainer(small, cfg, device="cpu"),
+                    Trainer(gpu_ds, cfg, "cuda")], torch, "device")
+
+
+def host_trainer(ds, torch, name, **cache_kw):
+    """A trainer on the host dataset, with its set-up time, plan and
+    device memory."""
+    from legion_tpu_torch.train import Trainer
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = Trainer(ds, bench_config(ds, **cache_kw), device="cuda")
+    torch.cuda.synchronize()
+    msg = (f"  {name}: set-up {time.perf_counter() - t0:.2f} s ("
+           + ", ".join(f"{k} {v:.2f} s" for k, v in tr.setup_s.items())
+           + f") | caps {tr.compact_caps} | device memory "
+           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB (peak "
+           f"{torch.cuda.max_memory_allocated() / 2**30:.2f})")
+    p = tr.cache_plan
+    if p is not None:
+        c = tr.cache
+        edges = 0 if c.sub_indices is None else c.sub_indices.shape[0]
+        msg += (f"\n    plan: alpha {p.alpha:.2f} | feature rows "
+                f"{p.feature_capacity} | topology rows {p.topo_capacity} "
+                f"({edges} edges) | est. saved bytes per presample run: "
+                f"features {p.est_feat_saved_bytes:.4g}, topology "
+                f"{p.est_topo_saved_bytes:.4g}")
+    print(msg)
+    return tr
+
+
+def phase_host_kernels(tr_h, tr_ht, torch):
+    """K4 and K5 against their plain versions at HT's shapes (from one
+    real HT batch): K4 exactly (rows and hit count); K5 bit for bit on
+    both hops, on a hit-heavy frontier, an all-miss frontier and in its
+    DeviceCSRAccess form (H's device CSR), which must all equal HT's own
+    draws."""
+    from legion_tpu_torch.cache.unified_cache import (cached_gather,
+                                                      cached_gather_plain)
+    from legion_tpu_torch.sampling import access
+    s, acc = tr_ht.sampler_t, tr_ht.graph_access
+    g = torch.Generator(device="cuda")
+    g.manual_seed(4321)
+    results, main = {}, {}
+    seeds = tr_ht.train_bank[:s.config.batch_size]
+    carry = s.begin(seeds)
+    f0 = s.hop_frontier(carry, 0)
+    carry = s.hop_absorb(carry, 0, acc.sample_neighbors(f0, 25, 77))
+    f1 = s.hop_frontier(carry, 1)
+    carry = s.hop_absorb(carry, 1, acc.sample_neighbors(f1, 10, 78))
+    batch = s.finish(carry)
+
+    host = (acc.host_indptr, acc.host_indices)
+    cached = (acc.row_map, acc.sub_indptr, acc.sub_indices)
+    dev_host = tuple(t.device for t in host)
+
+    def k5(front, fo, key, tables):
+        return lambda: access.csr_draw(front, fo, key, *tables)
+
+    def p5(front, fo, key, tables):
+        return lambda: access.csr_draw_plain(front, fo, key, *tables)
+
+    def hit_share(front):
+        hit = (acc.row_map[front.clamp(min=0).long()] >= 0) & (front >= 0)
+        return float(hit.sum()) / max(float((front >= 0).sum()), 1.0)
+
+    for f, fo, key in ((f0, 25, 5), (f1, 10, 6)):
+        main.setdefault("csr_draw", []).append(compare(
+            "csr_draw", k5(f, fo, key, host + cached),
+            p5(f, fo, key, dev_host + cached), exact, results, torch,
+            f"HT frontier {f.shape[0]} x {fo}, {hit_share(f):.3f} cached"))
+    ref = access.csr_draw(f1, 10, 6, *host, *cached)
+    if not bool((acc.row_map >= 0).any()):
+        # HT's plan gave the topology cache no rows: hold K5's hit path
+        # on a topology-only cache of the same budget, filled in HT's
+        # topology order (the alpha = 0 end of the cost model's sweep)
+        import numpy as np
+        from legion_tpu_torch.cache.cost_model import CostModelResult
+        from legion_tpu_torch.cache.unified_cache import UnifiedCache
+        p, hg = tr_ht.cache_plan, tr_ht.dataset.graph
+        row_bytes = 8 + 4 * np.diff(hg.indptr)[p.topo_order]
+        cap = int(np.searchsorted(np.cumsum(row_bytes), CACHE_BYTES,
+                                  side="right"))
+        tc = UnifiedCache.build_from_host(
+            CostModelResult(0, cap, 0.0, p.feature_order, p.topo_order, 0.0,
+                            0.0), None, hg.indptr, hg.indices,
+            hg.num_nodes, device="cuda")
+        cached = (tc.row_map, tc.sub_indptr, tc.sub_indices)
+        print(f"  csr_draw: HT's plan cached no topology rows; hit paths "
+              f"below use a topology-only cache of {cap} rows "
+              f"({tc.sub_indices.shape[0]} edges)")
+    rows = torch.nonzero(cached[0] >= 0).flatten().to(torch.int32)
+    fh = rows[torch.randint(0, rows.numel(), f1.shape, generator=g,
+                            device="cuda")]
+    compare("csr_draw", k5(fh, 10, 6, host + cached),
+            p5(fh, 10, 6, dev_host + cached), exact, results, torch,
+            f"hit-heavy frontier {fh.shape[0]} x 10, all cached")
+    compare("csr_draw", k5(f1, 10, 6, host), p5(f1, 10, 6, dev_host),
+            exact, results, torch, f"all-miss frontier {f1.shape[0]} x 10")
+    csr = tr_h.csr
+    compare("csr_draw", k5(f1, 10, 6, (csr.indptr, csr.indices)),
+            p5(f1, 10, 6, (csr.indptr, csr.indices)), exact, results,
+            torch, f"DeviceCSRAccess form {f1.shape[0]} x 10")
+    # a cached row and its host row give the same neighbour
+    for tables, what in ((host + cached, "cached"), (host, "all-miss"),
+                         ((csr.indptr, csr.indices), "DeviceCSRAccess")):
+        if not torch.equal(access.csr_draw(f1, 10, 6, *tables), ref):
+            fail(f"csr_draw: the {what} draws differ from HT's draws")
+
+    for tr, name in ((tr_ht, "HT"), (tr_h, "H")):
+        nid = batch.node_ids[:s.max_ids]
+        cache, ht = tr.cache, tr.feature_source.host
+        kh = cached_gather(cache, ht, nid)[1]
+        ph = cached_gather_plain(cache, ht.device, nid)[1]
+        if int(kh) != int(ph):
+            fail(f"cached_gather {name}: hit count {int(kh)} != plain "
+                 f"{int(ph)}")
+        t = compare(
+            "cached_gather", lambda: cached_gather(cache, ht, nid)[0],
+            lambda: cached_gather_plain(cache, ht.device, nid)[0], exact,
+            results, torch,
+            f"{name} fetch {nid.shape[0]} ids, "
+            f"{int(kh) / max(int((nid >= 0).sum()), 1):.3f} hits")
+        if name == "HT":
+            main["cached_gather"] = [t]
+    # per train step of HT: K4 once (the fetch), K5 once per hop
+    for name, times in main.items():
+        results[name].update(ms=sum(t[0] for t in times),
+                             plain_ms=sum(t[1] for t in times))
+    return results
+
+
+def phase_host_reference(torch):
+    """Phase 7: a small HT slice, card against CPU: the same presampled
+    hotness gives the same plan and caches, then as ``compare_slices``."""
+    from dataclasses import replace
+    from legion_tpu_torch.data import synthesize_dataset
+    from legion_tpu_torch.train import Trainer
+    small = synthesize_dataset(num_nodes=20_000, avg_degree=20,
+                               feature_dim=100, num_classes=32,
+                               batch_size=256, train_frac=0.08, seed=3)
+    cfg = bench_config(small, cache_bytes=1_600_000,
+                       feature_residency="host", topo_residency="host")
+    cfg = replace(cfg, sampler=replace(cfg.sampler, batch_size=256),
+                  train=replace(cfg.train, dropout=0.0))
+    trs = [Trainer(small, cfg, device="cpu"), Trainer(small, cfg, "cuda")]
+    plans = [(t.cache_plan.feature_capacity, t.cache_plan.topo_capacity,
+              t.cache_plan.alpha) for t in trs]
+    print(f"  plan (feature rows, topology rows, alpha): cpu {plans[0]}, "
+          f"gpu {plans[1]}")
+    if plans[0] != plans[1]:
+        fail("small HT: the card's plan differs from the CPU's")
+    for name in ("slot_map", "row_map"):
+        a, b = (getattr(t.cache, name) for t in trs)
+        if (a is None) != (b is None) or (
+                a is not None and not torch.equal(a, b.cpu())):
+            fail(f"small HT: cache {name} differs")
+    compare_slices(trs, torch, "small HT")
+    trs[1].close()
 
 
 def main():
@@ -318,15 +544,58 @@ def main():
     results = phase_kernels(tr, torch)
 
     print("phase 3: the main path (train steps, then an eval pass)")
-    counts = phase_slice(tr, torch)
+    counts = {"device": phase_slice(tr, torch, "device")[0]}
 
     print("phase 4: small-input slice, card vs CPU")
     del tr, ds
     torch.cuda.empty_cache()
     phase_reference(torch)
 
+    print("set-up: host-resident dataset (bench.py --features host) and "
+          "trainers")
+    from legion_tpu_torch.data import synthesize_dataset
+    t0 = time.perf_counter()
+    hds = synthesize_dataset(num_nodes=HOST_NODES,
+                             avg_degree=HOST_AVG_DEGREE, feature_dim=100,
+                             num_classes=32, batch_size=8000,
+                             train_frac=0.08, seed=0)
+    g = hds.graph
+    print(f"  datagen {time.perf_counter() - t0:.2f} s (numpy, host) | V "
+          f"{hds.meta.num_nodes} E {hds.meta.num_edges} | host features "
+          f"{hds.features.nbytes / 1e9:.3f} GB f32 | host CSR "
+          f"{(g.indptr.nbytes + g.indices.nbytes) / 1e9:.3f} GB")
+    tr_h = host_trainer(hds, torch, "H", cache_bytes=CACHE_BYTES,
+                        feature_residency="host")
+    tr_ht = host_trainer(hds, torch, "HT", cache_bytes=CACHE_BYTES,
+                         feature_residency="host", topo_residency="host")
+
+    print("phase 5: K4 and K5 against their plain versions at HT's shapes")
+    results.update(phase_host_kernels(tr_h, tr_ht, torch))
+
+    print("phase 6: host-resident slice: H, HT, then the cache off")
+    step_ms = {}
+    for name, tr in (("H", tr_h), ("HT", tr_ht)):
+        print(f" {name}:")
+        counts[name], step_ms[name] = phase_slice(tr, torch, name)
+        tr.close()
+    del tr, tr_h, tr_ht
+    torch.cuda.empty_cache()
+    tr = host_trainer(hds, torch, "cache-off")
+    print(" cache-off:")
+    counts["cache-off"], step_ms["cache-off"] = phase_slice(
+        tr, torch, "cache-off")
+    del tr
+    torch.cuda.empty_cache()
+    print("  step ms H / cache-off "
+          f"{step_ms['H'] / step_ms['cache-off']:.3f} | HT / cache-off "
+          f"{step_ms['HT'] / step_ms['cache-off']:.3f} (one call; no claim)")
+
+    print("phase 7: small-input HT slice, card vs CPU")
+    phase_host_reference(torch)
+
     kern = [dict(name=n, route="cuda", source=KERNELS[n]["source"],
-                 replaces=KERNELS[n]["replaces"], launches=counts[n],
+                 replaces=KERNELS[n]["replaces"],
+                 launches=counts[REPORTED_PATH[n]][n],
                  max_abs_err=results[n]["max_abs_err"],
                  ms=results[n]["ms"], plain_ms=results[n]["plain_ms"])
             for n in KERNELS]

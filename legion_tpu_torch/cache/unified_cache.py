@@ -1,17 +1,31 @@
-"""Feature sources (port of ``legion_tpu/cache/unified_cache.py``).
+"""Feature sources and the unified cache (port of
+``legion_tpu/cache/unified_cache.py``).
 
-Only the device-resident source is ported: the whole feature table lives
-on the card (the reference's in-memory mode). The host-resident caches
-(``CachedFeatureSource``, ``UnifiedCache``) are ROADMAP items.
+``DeviceFeatureSource``: the whole feature table on the card (the
+reference's in-memory mode), fetched through K1.
+
+``UnifiedCache``: the hot feature rows and the hot-vertex sub-CSR in
+device memory, planned by the cost model (``cache/cost_model.py``) and
+filled once from host storage (UnifiedCache::FillUp, cache.cu:553-611).
+Lookups are direct [V] int32 tables: ``slot_map[v]`` (feature cache slot)
+and ``row_map[v]`` (sub-CSR row), -1 for a vertex not cached.
+
+``CachedFeatureSource``: cache hits from device memory, misses read by K4
+(``csrc/cached_gather.cu``) straight from the pinned host table, inside
+the kernel, with no host sync and no staging copy.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from dataclasses import dataclass
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
+from legion_tpu_torch.cache.cost_model import CostModelResult
 from legion_tpu_torch.ops import kernels
+from legion_tpu_torch.ops.host_memory import HostTable
 
 
 class DeviceFeatureSource:
@@ -25,3 +39,153 @@ class DeviceFeatureSource:
         Through K1; features are data, so no gradient is taken."""
         rows = kernels.gather_rows(self.features, ids)
         return rows, (ids >= 0).sum(dtype=torch.int32)
+
+
+def _id_map(ids: np.ndarray, num_nodes: int) -> torch.Tensor:
+    """[V] int32 map: m[ids[j]] = j, -1 elsewhere."""
+    m = torch.full((num_nodes,), -1, dtype=torch.int32)
+    m[torch.from_numpy(ids)] = torch.arange(len(ids), dtype=torch.int32)
+    return m
+
+
+@dataclass
+class UnifiedCache:
+    """Device-resident unified cache of one device."""
+
+    cache_rows: Optional[torch.Tensor]    # [C_f, F] f32 or bf16
+    slot_map: Optional[torch.Tensor]      # [V] int32, -1 = miss
+    sub_indptr: Optional[torch.Tensor]    # [C_t+1] int64
+    sub_indices: Optional[torch.Tensor]   # [E_c] int32
+    row_map: Optional[torch.Tensor]       # [V] int32, -1 = miss
+    feature_capacity: int
+    topo_capacity: int
+
+    @classmethod
+    def build_from_host(cls, plan: CostModelResult,
+                        host_features: Optional[np.ndarray],
+                        host_indptr: Optional[np.ndarray],
+                        host_indices: Optional[np.ndarray],
+                        num_nodes: int, feat_dtype: str = "float32",
+                        device: torch.device = "cpu") -> "UnifiedCache":
+        """FillUp from host storage: the hot feature rows and the hot
+        sub-CSR are gathered on the host and copied to ``device`` once
+        (FeatFillUp/TopoFillUp, cache_impl.cuh:183-188,
+        graph_storage_impl.cuh:27-53). feat_dtype="bfloat16" stores the
+        cache in bf16, rounded to nearest even as ``lg_gather_rows_bf16``
+        rounds (pair with plan_cache(bytes_per_feat=2))."""
+        cache_rows = slot_map = None
+        sub_indptr = sub_indices = row_map = None
+        V = num_nodes
+        if plan.feature_capacity > 0 and host_features is not None:
+            qf = np.asarray(plan.feature_order[:plan.feature_capacity],
+                            np.int64)
+            rows = torch.from_numpy(
+                np.asarray(host_features, np.float32)[qf])
+            if feat_dtype == "bfloat16":
+                rows = rows.to(torch.bfloat16)
+            cache_rows = rows.to(device)
+            slot_map = _id_map(qf, V).to(device)
+        if plan.topo_capacity > 0 and host_indptr is not None:
+            qt = np.asarray(plan.topo_order[:plan.topo_capacity], np.int64)
+            deg = host_indptr[qt + 1] - host_indptr[qt]
+            offs = np.cumsum(deg)
+            starts = offs - deg
+            total = int(offs[-1]) if len(offs) else 0
+            j = np.arange(total, dtype=np.int64)
+            row = np.searchsorted(offs, j, side="right")
+            src_pos = host_indptr[qt[row]] + (j - starts[row])
+            sub_idx = np.asarray(host_indices)[src_pos].astype(np.int32)
+            sub_ip = np.concatenate([[0], offs]).astype(np.int64)
+            sub_indptr = torch.from_numpy(sub_ip).to(device)
+            sub_indices = torch.from_numpy(sub_idx).to(device)
+            row_map = _id_map(qt, V).to(device)
+        return cls(cache_rows=cache_rows, slot_map=slot_map,
+                   sub_indptr=sub_indptr, sub_indices=sub_indices,
+                   row_map=row_map, feature_capacity=plan.feature_capacity,
+                   topo_capacity=plan.topo_capacity)
+
+    # ---- feature path ------------------------------------------------
+    def find_feat(self, ids: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """ids -> (slot, hit); pad/-1 ids miss. (FindFeat, cache.cu:180)"""
+        V = self.slot_map.shape[0]
+        slot = torch.where(ids >= 0, self.slot_map[ids.clamp(0, V - 1)
+                                                   .long()], -1)
+        return slot, slot >= 0
+
+    def gather_cached(self, slot: torch.Tensor) -> torch.Tensor:
+        c = slot.clamp(0, self.cache_rows.shape[0] - 1).long()
+        return self.cache_rows[c]
+
+
+# ---------------------------------------------------------------------------
+# K4 cached_gather
+# ---------------------------------------------------------------------------
+
+def cached_gather_plain(cache: UnifiedCache, host_rows: torch.Tensor,
+                        ids: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rows in the cache's dtype: cached rows for hits, the f32 host row
+    (cast to the cache's dtype, round to nearest even) for misses, zero
+    rows for ids < 0 and past the host table; and the hit count."""
+    slot, hit = cache.find_feat(ids)
+    cached = cache.gather_cached(slot)
+    from_host = (ids >= 0) & ~hit & (ids < host_rows.shape[0])
+    miss = host_rows[torch.where(from_host, ids, 0).long()].to(
+        cached.dtype)
+    rows = torch.where(hit[:, None], cached,
+                       torch.where(from_host[:, None], miss,
+                                   torch.zeros_like(miss)))
+    return rows, hit.sum(dtype=torch.int32)
+
+
+def cached_gather(cache: UnifiedCache, host: HostTable, ids: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4. cache rows [C, F] (bf16 or f32) and slot_map [V] on the card,
+    host [V, F] f32 registered host memory, ids [N] int32 -> (rows [N, F]
+    in the cache's dtype, hit count as a device int32 scalar)."""
+    rows_c, slot_map = cache.cache_rows, cache.slot_map
+    if ids.dtype != torch.int32 or ids.dim() != 1:
+        raise ValueError(f"cached_gather: ids {ids.dtype} "
+                         f"{tuple(ids.shape)}")
+    host_t = host.on(ids.device)     # raises if not readable there
+    if ids.device.type == "cpu":
+        return cached_gather_plain(cache, host_t, ids)
+    if not (rows_c.device == slot_map.device == ids.device):
+        raise ValueError("cached_gather: cache and ids on different "
+                         "devices")
+    if rows_c.dtype not in (torch.bfloat16, torch.float32) \
+            or host_t.dtype != torch.float32 \
+            or slot_map.dtype != torch.int32 \
+            or rows_c.shape[1] != host_t.shape[1]:
+        raise ValueError(
+            f"cached_gather: cache {rows_c.dtype} {tuple(rows_c.shape)}, "
+            f"host {host_t.dtype} {tuple(host_t.shape)}, slot_map "
+            f"{slot_map.dtype}")
+    rows_c, slot_map = rows_c.contiguous(), slot_map.contiguous()
+    ids = ids.contiguous()
+    F = rows_c.shape[1]
+    out = torch.empty((ids.shape[0], F), dtype=rows_c.dtype,
+                      device=ids.device)
+    hits = torch.zeros((), dtype=torch.int32, device=ids.device)
+    rc = kernels.lib().lt_cached_gather(
+        rows_c.data_ptr(), slot_map.data_ptr(), slot_map.shape[0],
+        host_t.data_ptr(), host_t.shape[0], ids.data_ptr(), ids.shape[0], F,
+        int(rows_c.dtype == torch.bfloat16), out.data_ptr(),
+        hits.data_ptr(), kernels.stream_handle())
+    kernels.check("cached_gather", rc)
+    return out, hits
+
+
+class CachedFeatureSource:
+    """Device hot-row cache + host-memory fallback through K4: Legion's
+    zero-copy UVA feature read (multiGPU_feat_cache_lookup's gidx < 0
+    branch, cache_impl.cuh:239-272), with no host round trip."""
+
+    def __init__(self, cache: UnifiedCache, host: HostTable):
+        self.cache = cache
+        self.host = host          # [V, F] float32
+
+    def fetch(self, ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(rows [N, F] in the cache's dtype, count of cache hits)."""
+        return cached_gather(self.cache, self.host, ids)

@@ -1,0 +1,170 @@
+"""Host tables read in place by the kernels (zero-copy, Legion's UVA path).
+
+The reference keeps its full CSR and feature table in pinned host memory
+and reads a cache miss over PCIe from inside the kernel
+(``cache_impl.cuh:239-272``). The JAX package could not: a TPU kernel does
+not read host memory, so it went through ``pure_callback``. Here a host
+table is an existing numpy buffer, pinned where it lies with
+``cudaHostRegister`` (``csrc/host_memory.cu``) and mapped into the card's
+address space. It is never copied: ``tensor.pin_memory()`` would copy,
+which doubles host RAM at billion scale, and a failed registration
+raises rather than falls back to a copy on the device.
+
+A registration covers exactly the array's bytes: rounding it out to whole
+pages would also register the neighbouring heap bytes, and the driver
+then refuses a pageable copy that straddles the edge. Two trainers may
+register the same array, which the driver refuses to register twice, so
+``_PINNED`` keeps the registered byte ranges with reference counts (one
+registry per process, as the driver's registrations are per process): a
+table registers only the bytes not registered yet and holds a reference
+on every range it covers. The device address of registered memory is its
+host address (unified addressing, as on every 64-bit Linux system with a
+Hopper card); registration checks it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import warnings
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from legion_tpu_torch.ops import kernels
+
+# registered range start -> [end, references]
+_PINNED: Dict[int, List[int]] = {}
+
+_TYPESTR = {np.dtype(np.float32): "<f4", np.dtype(np.int64): "<i8",
+            np.dtype(np.int32): "<i4"}
+
+
+def _register(lo: int, hi: int, read_only: bool) -> None:
+    dev = ctypes.c_void_p()
+    rc = kernels.lib().lt_host_register(lo, hi - lo, int(read_only),
+                                        ctypes.byref(dev))
+    if rc != 0:
+        msg = kernels.lib().lt_error_string(rc).decode()
+        hint = " (a read-only mapping needs cudaHostRegisterReadOnly, " \
+            "which not every platform supports)" if read_only else ""
+        raise RuntimeError(f"cudaHostRegister of {hi - lo} bytes at "
+                           f"{lo:#x} failed: {msg} ({rc}){hint}")
+    if dev.value != lo:
+        _unregister(lo)
+        raise RuntimeError("registered host memory has a device address "
+                           "other than its host address (no unified "
+                           "addressing); host tables need it")
+
+
+def _unregister(lo: int) -> None:
+    rc = kernels.lib().lt_host_unregister(lo)
+    if rc != 0:
+        msg = kernels.lib().lt_error_string(rc).decode()
+        raise RuntimeError(f"cudaHostUnregister at {lo:#x} failed: {msg}")
+
+
+def pin_range(lo: int, nbytes: int, read_only: bool) -> List[int]:
+    """Register the bytes of [lo, lo + nbytes) that are not registered
+    yet, add a reference to every registered range that covers them, and
+    return the starts of those ranges (for ``unpin_ranges``)."""
+    hi = lo + nbytes
+    gaps, held, cur = [], [], lo
+    for start in sorted(_PINNED):
+        end = _PINNED[start][0]
+        if end <= cur or start >= hi:
+            continue
+        if start > cur:
+            gaps.append((cur, start))
+        held.append(start)
+        cur = end
+    if cur < hi:
+        gaps.append((cur, hi))
+    done = []
+    try:
+        for a, b in gaps:
+            _register(a, b, read_only)
+            done.append(a)
+            _PINNED[a] = [b, 0]
+    except Exception:
+        for a in done:
+            del _PINNED[a]
+            _unregister(a)
+        raise
+    held += done
+    for start in held:
+        _PINNED[start][1] += 1
+    return held
+
+
+def unpin_ranges(starts: List[int]) -> None:
+    """Drop one reference on each range; unregister the unreferenced."""
+    for start in starts:
+        _PINNED[start][1] -= 1
+        if _PINNED[start][1] == 0:
+            del _PINNED[start]
+            _unregister(start)
+
+
+class _DeviceArray:
+    """A device address as ``__cuda_array_interface__``, for a zero-copy
+    torch view of registered host memory."""
+
+    def __init__(self, ptr: int, array: np.ndarray):
+        self.__cuda_array_interface__ = {
+            "shape": tuple(array.shape), "typestr": _TYPESTR[array.dtype],
+            "data": (ptr, False), "version": 3, "strides": None}
+
+
+class HostTable:
+    """A C-contiguous numpy array in host RAM that kernels read in place.
+
+    ``host`` is a CPU tensor over the same memory (no copy). With
+    ``pin=True`` the array is registered with the card, and ``device`` is
+    a CUDA tensor over the same memory: reading it crosses PCIe. The array
+    stays referenced for as long as it is registered. ``close()`` (or the
+    trainer's ``close()``) unregisters it."""
+
+    def __init__(self, array: np.ndarray, pin: bool):
+        if not array.flags.c_contiguous:
+            raise ValueError("a host table must be C-contiguous: make it so "
+                             "(np.ascontiguousarray) before registering")
+        if array.dtype not in _TYPESTR:
+            raise ValueError(f"host table dtype {array.dtype}")
+        self.array = array
+        with warnings.catch_warnings():
+            # a read-only memmap: torch warns that it may not write to it
+            warnings.simplefilter("ignore", UserWarning)
+            self.host = torch.from_numpy(array)
+        self.device: Optional[torch.Tensor] = None
+        self._ranges: List[int] = []
+        if pin and array.nbytes:
+            ptr = array.ctypes.data
+            self._ranges = pin_range(ptr, array.nbytes,
+                                    read_only=not array.flags.writeable)
+            self.device = torch.as_tensor(_DeviceArray(ptr, array),
+                                          device="cuda")
+
+    @property
+    def shape(self):
+        return self.host.shape
+
+    def on(self, device: torch.device) -> torch.Tensor:
+        """The table as a tensor that ``device`` reads in place."""
+        device = torch.device(device)
+        if device.type == "cpu":
+            return self.host
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        if self.device is None or self.device.device != device:
+            raise ValueError(
+                f"host table not registered for {device}: kernels read "
+                "host tables in place (HostTable(..., pin=True)); it is "
+                "never copied to the device")
+        return self.device
+
+    def close(self) -> None:
+        self.device = None
+        if self._ranges:
+            unpin_ranges(self._ranges)
+            self._ranges = []

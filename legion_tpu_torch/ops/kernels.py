@@ -1,10 +1,11 @@
 """Hand-written CUDA kernels: build, bind, and the K1/K2 wrappers.
 
 Build (route (b) of the port's kernel rule): at first use, nvcc compiles
-``legion_tpu_torch/csrc/*.cu`` into one shared library with a plain C
-interface under ``legion_tpu_torch/_build/``, named by a hash of the
-sources and flags, so an edited source rebuilds. ctypes loads it. Nothing
-falls back: a missing nvcc, a failed build or a refused launch raises.
+each ``legion_tpu_torch/csrc/*.cu`` in parallel (one nvcc per source) and
+links them into one shared library with a plain C interface under
+``legion_tpu_torch/_build/``, named by a hash of the sources and flags, so
+an edited source rebuilds. ctypes loads it. Nothing falls back: a missing
+nvcc, a failed build or a refused launch raises.
 
 Each wrapper runs its plain PyTorch version for CPU tensors only (the CPU
 tests use it, and ``chip_smoke.py`` compares the kernel with it on the
@@ -13,7 +14,9 @@ adds one to ``LAUNCHES[name]``.
 
 K1 ``gather_rows`` replaces ``legion_tpu/ops/pallas_segment.py::
 gather_rows_pallas``; K2 ``segment_sum`` replaces ``segment_sum_pallas``.
-K3 ``windowed_draw`` lives with its caller in ``sampling/access.py``. The
+K3 ``windowed_draw`` and K5 ``csr_draw`` live with their callers in
+``sampling/access.py``, K4 ``cached_gather`` in ``cache/unified_cache.py``;
+host-memory registration for K4 and K5 is ``ops/host_memory.py``. The
 headers of ``csrc/*.cu`` say what bounds each kernel on the card.
 """
 
@@ -35,13 +38,15 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = GENCODE + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                        "-Xptxas", "-v")
 
 # launches per kernel since the last reset (chip_smoke.py reads these to
 # show that the main path went through every kernel)
 LAUNCHES: Dict[str, int] = {"gather_rows": 0, "segment_sum": 0,
-                            "windowed_draw": 0}
+                            "windowed_draw": 0, "cached_gather": 0,
+                            "csr_draw": 0}
 
 
 def reset_launch_counts() -> None:
@@ -75,31 +80,41 @@ def library_path() -> Path:
     return BUILD_DIR / f"liblegion_tpu_torch_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds):
+    """Run the commands together; raise on the first failure. Returns the
+    concatenated output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for c, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({p.returncode}):\n{' '.join(c)}\n{out}")
+    return "".join(outs)
+
+
 def build() -> Tuple[float, str]:
-    """Compile csrc/*.cu unless the library for these sources exists.
-    Returns the seconds spent compiling and nvcc's report (registers and
-    spills per kernel, from ``-Xptxas -v``); (0.0, "") when it was built
-    already."""
+    """Compile csrc/*.cu unless the library for these sources exists: one
+    nvcc per source, all started together, then one link. Returns the
+    seconds spent and nvcc's report (registers and spills per kernel, from
+    ``-Xptxas -v``); (0.0, "") when it was built already."""
     so = library_path()
     if so.exists():
         return 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
     t0 = time.time()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, cu)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-                f"{res.stdout}\n{res.stderr}")
-        os.replace(tmp, so)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return time.time() - t0, res.stdout + res.stderr
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, p.stem + ".o") for p in cu]
+        report = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(p)]
+                           for p, o in zip(cu, objs)])
+        lib_tmp = os.path.join(tmp, so.name)
+        report += _run_all([[nvcc, *GENCODE, "-shared", "-o", lib_tmp,
+                             *objs]])
+        os.replace(lib_tmp, so)
+    return time.time() - t0, report
 
 
 @functools.cache
@@ -115,9 +130,18 @@ def lib() -> ctypes.CDLL:
     for fn in (so.lt_windowed_draw_i32, so.lt_windowed_draw_i64):
         fn.argtypes = [p, p, p, p, i64, i32, i32, i64, u32, u32, u32, u32,
                        p]
+    so.lt_cached_gather.argtypes = [p, p, i64, p, i64, p, i64, i64, i32, p,
+                                    p, p]
+    for fn in (so.lt_csr_draw_i32, so.lt_csr_draw_i64):
+        fn.argtypes = [p, i64, i32, p, p, p, p, p, i64, u32, u32, p, p]
+    so.lt_host_register.argtypes = [p, i64, i32,
+                                     ctypes.POINTER(ctypes.c_void_p)]
+    so.lt_host_unregister.argtypes = [p]
     for fn in (so.lt_gather_rows, so.lt_segment_sum_f32,
                so.lt_segment_sum_bf16, so.lt_windowed_draw_i32,
-               so.lt_windowed_draw_i64):
+               so.lt_windowed_draw_i64, so.lt_cached_gather,
+               so.lt_csr_draw_i32, so.lt_csr_draw_i64, so.lt_host_register,
+               so.lt_host_unregister):
         fn.restype = ctypes.c_int
     so.lt_error_string.argtypes = [ctypes.c_int]
     so.lt_error_string.restype = ctypes.c_char_p

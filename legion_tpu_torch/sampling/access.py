@@ -1,14 +1,15 @@
 """Graph access strategies for the sampler (port of
-``legion_tpu/sampling/access.py``: ``DeviceCSRAccess`` and
-``WindowedCSRAccess``), plus the port's counter-based random words.
+``legion_tpu/sampling/access.py``: ``DeviceCSRAccess``,
+``WindowedCSRAccess`` and ``CachedTopoAccess``), plus the port's
+counter-based random words.
 
 Randomness: a draw is a pure function of an integer key and a lane,
-``hash_words(ka, kb, lane)``, so the CUDA kernel and its plain version
+``hash_words(ka, kb, lane)``, so the CUDA kernels and their plain versions
 give the same bits. Keys are Python ints derived with ``fold_in`` from
 one int64 seed per step (the trainer takes it from its
 ``torch.Generator``), the analog of the JAX package's key folding. The
 bits differ from JAX's threefry stream; parity tests inject JAX's draws
-into ``windowed_select``.
+into ``windowed_select`` and ``csr_select``.
 
 ``hash32`` and friends work on Python ints and on int64 tensors holding
 values in [0, 2**32): every product is split so it stays below 2**63.
@@ -16,12 +17,13 @@ values in [0, 2**32): every product is split so it stays below 2**63.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from legion_tpu_torch.graph import DeviceCSR
 from legion_tpu_torch.ops import kernels
+from legion_tpu_torch.ops.host_memory import HostTable
 
 M32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9
@@ -89,31 +91,180 @@ def _frontier_rows(row_pairs: torch.Tensor, frontier: torch.Tensor,
         torch.where(fvalid, pd[:, 1], zero)
 
 
+# ---------------------------------------------------------------------------
+# K5 csr_draw
+# ---------------------------------------------------------------------------
+
+def _draw_rows(frontier: torch.Tensor, indptr: torch.Tensor,
+               row_map: Optional[torch.Tensor],
+               sub_indptr: Optional[torch.Tensor]
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(start, deg, hit) per frontier slot, int64/int64/bool: the row of
+    the cached sub-CSR where ``row_map`` holds the vertex (hit), else the
+    row of the full CSR; deg 0 for invalid slots."""
+    V = indptr.shape[0] - 1
+    fvalid = frontier >= 0
+    safe = frontier.clamp(0, V - 1).long()
+    start, end = indptr[safe].long(), indptr[safe + 1].long()
+    hit = torch.zeros_like(fvalid)
+    if row_map is not None:
+        hit = fvalid & (row_map[safe] >= 0)
+        row = row_map[safe].clamp(min=0).long()
+        start = torch.where(hit, sub_indptr[row], start)
+        end = torch.where(hit, sub_indptr[row + 1], end)
+    zero = torch.zeros((), dtype=torch.int64, device=frontier.device)
+    return torch.where(fvalid, start, zero), \
+        torch.where(fvalid, end - start, zero), hit
+
+
+def _select(start, deg, hit, r, indices, sub_indices) -> torch.Tensor:
+    pos = start[None, :] + r.long()
+    ok = (deg > 0)[None, :].expand_as(pos)
+    hit = hit[None, :].expand_as(pos)
+    nbr = indices[torch.where(ok & ~hit, pos, 0)]
+    if sub_indices is not None:
+        nbr = torch.where(hit, sub_indices[torch.where(ok & hit, pos, 0)],
+                          nbr)
+    return torch.where(ok, nbr, torch.full_like(nbr, -1)).reshape(-1)
+
+
+def csr_select(frontier: torch.Tensor, r: torch.Tensor,
+               indptr: torch.Tensor, indices: torch.Tensor,
+               row_map: Optional[torch.Tensor] = None,
+               sub_indptr: Optional[torch.Tensor] = None,
+               sub_indices: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The deterministic half of a per-slot draw: given in-row offsets r
+    [fanout, F] (in [0, max(deg, 1)) of each slot's row), return the
+    fanout-major neighbour ids [fanout*F], -1 for an invalid slot or
+    degree 0. A slot whose vertex ``row_map`` holds reads the cached
+    sub-CSR (``CachedTopoAccess.lookup``'s gather at
+    ``legion_tpu/sampling/access.py:285-296`` for the same r), any other
+    slot the full CSR."""
+    start, deg, hit = _draw_rows(frontier, indptr, row_map, sub_indptr)
+    return _select(start, deg, hit, r, indices, sub_indices)
+
+
+def csr_draw_plain(frontier: torch.Tensor, fanout: int, key: int,
+                   indptr: torch.Tensor, indices: torch.Tensor,
+                   row_map: Optional[torch.Tensor] = None,
+                   sub_indptr: Optional[torch.Tensor] = None,
+                   sub_indices: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
+    """Plain PyTorch K5: r = bounded(word of lane f*F + i, deg) with the
+    words of stream 0 of ``key``, then ``csr_select``. Bit-identical to
+    the kernel."""
+    F = frontier.shape[0]
+    start, deg, hit = _draw_rows(frontier, indptr, row_map, sub_indptr)
+    lanes = torch.arange(fanout * F, dtype=torch.int64,
+                         device=frontier.device).view(fanout, F)
+    ka, kb = stream_keys(key, 0)
+    r = bounded(hash_words(ka, kb, lanes),
+                deg.clamp(1, 2 ** 31 - 1)[None, :])
+    return _select(start, deg, hit, r, indices, sub_indices)
+
+
+def _table(t, device: torch.device) -> torch.Tensor:
+    return t.on(device) if isinstance(t, HostTable) else t
+
+
+def csr_draw(frontier: torch.Tensor, fanout: int, key: int,
+             indptr, indices, row_map: Optional[torch.Tensor] = None,
+             sub_indptr: Optional[torch.Tensor] = None,
+             sub_indices: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K5. frontier [F] int32 -> [fanout*F] int32, fanout-major. The full
+    CSR (``indptr`` [V+1] int32/int64, ``indices`` [E] int32) is a device
+    tensor or a registered ``HostTable``; ``row_map`` [V] int32,
+    ``sub_indptr`` [C+1] int64 and ``sub_indices`` int32 are the device
+    topology cache, or None for none."""
+    dev = frontier.device
+    indptr, indices = _table(indptr, dev), _table(indices, dev)
+    if dev.type == "cpu":
+        return csr_draw_plain(frontier, fanout, key, indptr, indices,
+                              row_map, sub_indptr, sub_indices)
+    cached = (row_map, sub_indptr, sub_indices)
+    if any(t is not None and t.device != dev
+           for t in (indptr, indices) + cached):
+        raise ValueError("csr_draw: tensors on different devices")
+    if (row_map is None) != (sub_indptr is None) \
+            or (row_map is None) != (sub_indices is None):
+        raise ValueError("csr_draw: row_map, sub_indptr and sub_indices "
+                         "come together")
+    if frontier.dtype != torch.int32 or indices.dtype != torch.int32 \
+            or indptr.dtype not in (torch.int32, torch.int64) \
+            or frontier.dim() != 1 or indptr.dim() != 1 \
+            or (row_map is not None and (
+                row_map.dtype != torch.int32
+                or sub_indptr.dtype != torch.int64
+                or sub_indices.dtype != torch.int32
+                or row_map.shape[0] != indptr.shape[0] - 1)):
+        raise ValueError("csr_draw: dtypes/shapes " + ", ".join(
+            f"{t.dtype}{tuple(t.shape)}" for t in
+            (frontier, indptr, indices) + cached if t is not None))
+    tabs = [None if t is None else t.contiguous()
+            for t in (frontier,) + cached + (indptr, indices)]
+    ptrs = [0 if t is None else t.data_ptr() for t in tabs]
+    F = frontier.shape[0]
+    out = torch.empty((fanout * F,), dtype=torch.int32, device=dev)
+    ka, kb = stream_keys(key, 0)
+    lib = kernels.lib()
+    fn = lib.lt_csr_draw_i32 if indptr.dtype == torch.int32 \
+        else lib.lt_csr_draw_i64
+    rc = fn(ptrs[0], F, fanout, *ptrs[1:], indptr.shape[0] - 1, ka, kb,
+            out.data_ptr(), kernels.stream_handle())
+    kernels.check("csr_draw", rc)
+    return out
+
+
 class DeviceCSRAccess(GraphAccess):
     """Full CSR on the device, one independent draw per slot
-    (``neighbor_window=0``). Plain PyTorch: its kernel is still to port."""
+    (``neighbor_window=0``), through K5."""
 
     def __init__(self, csr: DeviceCSR):
         self.csr = csr
         self.num_nodes = csr.num_nodes
 
     def sample_neighbors(self, frontier, fanout, key):
-        csr = self.csr
-        F = frontier.shape[0]
-        fvalid = frontier >= 0
-        safe = frontier.clamp(0, self.num_nodes - 1).long()
-        zero = torch.zeros((), dtype=torch.int64, device=frontier.device)
-        start = torch.where(fvalid, csr.indptr[safe].long(), zero)
-        deg = torch.where(fvalid, csr.indptr[safe + 1].long() - start, zero)
-        lanes = torch.arange(fanout * F, dtype=torch.int64,
-                             device=frontier.device).view(fanout, F)
-        ka, kb = stream_keys(key, 0)
-        r = bounded(hash_words(ka, kb, lanes),
-                    deg.clamp(1, 2 ** 31 - 1)[None, :])
-        pos = (start[None, :] + r).clamp(0, max(csr.num_edges - 1, 0))
-        nbr = csr.indices[pos.reshape(-1)]
-        return torch.where((deg > 0).repeat(fanout), nbr,
-                           torch.full_like(nbr, -1))
+        return csr_draw(frontier, fanout, key, self.csr.indptr,
+                        self.csr.indices)
+
+
+class CachedTopoAccess(GraphAccess):
+    """Hot sub-CSR on the device + the full CSR in host memory, through K5
+    (port of ``legion_tpu/sampling/access.py::CachedTopoAccess``).
+
+    Parity: topo_cache_hit + random_sample's cached branch
+    (cache_impl.cuh:89-101, operator_impl.cu:224-243); a miss reads the
+    pinned host CSR in the kernel, the reference's UVA branch. A cached
+    row is a copy of its host row and both draw with the same words, so
+    the draws equal ``DeviceCSRAccess``'s on the whole graph bit for bit,
+    whatever the cache holds. (The JAX package draws its misses with
+    ``native.sample_neighbors``'s own generator instead.) Like the JAX
+    package, it ignores ``neighbor_window``."""
+
+    def __init__(self, row_map: torch.Tensor, sub_indptr: torch.Tensor,
+                 sub_indices: torch.Tensor, host_indptr: HostTable,
+                 host_indices: HostTable):
+        self.row_map = row_map
+        self.sub_indptr = sub_indptr
+        self.sub_indices = sub_indices
+        self.host_indptr = host_indptr
+        self.host_indices = host_indices
+        self.num_nodes = int(row_map.shape[0])
+
+    @classmethod
+    def all_miss(cls, host_indptr: HostTable, host_indices: HostTable,
+                 device: torch.device) -> "CachedTopoAccess":
+        """No row cached: every draw reads the host CSR (presampling)."""
+        V = host_indptr.shape[0] - 1
+        return cls(torch.full((V,), -1, dtype=torch.int32, device=device),
+                   torch.zeros((2,), dtype=torch.int64, device=device),
+                   torch.full((1,), -1, dtype=torch.int32, device=device),
+                   host_indptr, host_indices)
+
+    def sample_neighbors(self, frontier, fanout, key):
+        return csr_draw(frontier, fanout, key, self.host_indptr,
+                        self.host_indices, self.row_map, self.sub_indptr,
+                        self.sub_indices)
 
 
 # ---------------------------------------------------------------------------

@@ -9,11 +9,15 @@ draws with ``fold_in(key, k)``; dropout masks come from a device
 generator seeded with ``fold_in(key, 7)``, as the JAX step folds 7 into
 its key for dropout.
 
-Ported: the HBM branch of storage setup (device dataset, measured buffer
-caps from presampling, bf16 feature table padded to 128 columns), the
-one-step train step, the eval step, ``run_eval`` and ``fit``. Not ported
-(ROADMAP): host-resident caches, meshes, ``interbatch``, ``fused_steps``,
-checkpoints.
+Ported: storage set-up on one device (``_setup_storage``) for a device
+dataset and for a host ``LegionDataset``: measured buffer caps from
+presampling; with the cache off, the whole graph and a bf16 feature table
+padded to 128 columns on the card; with the cache on, the hotness-planned
+unified cache on the card and the graph and features left in host RAM,
+their misses read by K4/K5 in place. Also the one-step train step, the
+eval step, ``run_eval`` and ``fit``. Not ported (ROADMAP): the staged
+host pipeline (a TPU-runtime workaround), meshes and clique caches,
+``interbatch``, ``fused_steps``, checkpoints.
 """
 
 from __future__ import annotations
@@ -26,12 +30,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from legion_tpu_torch.cache.cost_model import plan_cache
 from legion_tpu_torch.cache.hotness import presample_hotness
-from legion_tpu_torch.cache.unified_cache import DeviceFeatureSource
+from legion_tpu_torch.cache.unified_cache import (CachedFeatureSource,
+                                                  DeviceFeatureSource,
+                                                  UnifiedCache)
 from legion_tpu_torch.config import LegionConfig
 from legion_tpu_torch.models.common import make_model
+from legion_tpu_torch.ops.host_memory import HostTable
 from legion_tpu_torch.pipeline.schedule import Mode, Schedule
-from legion_tpu_torch.sampling.access import (DeviceCSRAccess,
+from legion_tpu_torch.sampling.access import (CachedTopoAccess,
+                                              DeviceCSRAccess,
                                               WindowedCSRAccess, fold_in)
 from legion_tpu_torch.sampling.sampler import NeighborSampler, SampleBatch
 from legion_tpu_torch.utils.metrics import StepMetrics
@@ -79,16 +88,18 @@ class Trainer:
         self.config = config
         self.dataset = dataset
         self.device = torch.device(device)
+        self._host_tables: List[HostTable] = []
         if config.mesh.num_devices != 1:
             raise NotImplementedError(
                 "the port trains on one device; multi-GPU is a ROADMAP item")
-        if not hasattr(dataset, "device_arrays"):
+        if config.cache.enabled and config.cache.host_transfer not in (
+                "auto", "callback"):
+            # "auto" and "callback" both mean the zero-copy kernels here
             raise NotImplementedError(
-                "the port needs a device-resident dataset; host datasets "
-                "and caches are ROADMAP items")
-        if config.cache.enabled:
-            raise NotImplementedError(
-                "host-resident caches are a ROADMAP item")
+                f"host_transfer={config.cache.host_transfer!r}: the port "
+                "reads host misses in place inside its kernels; the staged "
+                "split-program pipeline exists for TPU runtimes and is not "
+                "ported")
         if config.train.fused_steps != 1 or config.train.interbatch:
             raise NotImplementedError(
                 "fused_steps and interbatch are ROADMAP items")
@@ -96,23 +107,29 @@ class Trainer:
         V = meta.num_nodes
         scfg = config.sampler
 
-        train_sets, valid_sets, test_sets = dataset.seed_sets(1)
+        device_ds = hasattr(dataset, "device_arrays")
+        if device_ds:
+            train_sets, valid_sets, test_sets = dataset.seed_sets(1)
+            labels_np = dataset.labels.cpu().numpy()
+        else:
+            train_sets, valid_sets, test_sets = (
+                [dataset.seeds_for_partition(w, 0, 1)]
+                for w in ("train", "valid", "test"))
+            labels_np = np.asarray(dataset.labels[:V], np.int32)
         self.schedule = Schedule.build(
             [len(s) for s in train_sets], [len(s) for s in valid_sets],
             [len(s) for s in test_sets], scfg.batch_size,
             config.train.epochs, scfg.eval_batch_size)
         sch = self.schedule
 
-        # device seed banks, and label banks gathered once from the
-        # device label table
-        labels = dataset.labels
-
+        # device seed banks, and label banks gathered once on the host:
+        # device label state is O(seeds), not O(V)
         def _banks(sets, steps, static_bs, batch_sizes):
-            bank = torch.from_numpy(_build_bank(
-                [np.asarray(s) for s in sets], steps, static_bs,
-                batch_sizes)[0]).to(self.device)
-            y = labels[bank.clamp(0, V - 1).long()].to(torch.int32)
-            return bank, torch.where(bank >= 0, y, torch.zeros_like(y))
+            bank = _build_bank([np.asarray(s) for s in sets], steps,
+                               static_bs, batch_sizes)[0]
+            y = np.where(bank >= 0, labels_np[np.clip(bank, 0, V - 1)], 0)
+            return torch.from_numpy(bank).to(self.device), \
+                torch.from_numpy(y.astype(np.int32)).to(self.device)
 
         self.train_bank, self.train_ybank = _banks(
             train_sets, sch.train_step, scfg.batch_size,
@@ -147,45 +164,160 @@ class Trainer:
         self.test_acc: Optional[float] = None
 
     # ------------------------------------------------------------------
+    def _host_table(self, array: np.ndarray, dtype) -> HostTable:
+        """A host array the kernels read in place, pinned when the
+        trainer runs on a card; unpinned by ``close()``."""
+        t = HostTable(np.ascontiguousarray(array, dtype),
+                      pin=self.device.type == "cuda")
+        self._host_tables.append(t)
+        return t
+
     def _setup_storage(self) -> None:
-        """HBM residency: graph access, measured caps (presample ->
-        per-hop max unique nodes x headroom, rounded to 128), and the
-        feature table cast to bf16 and padded to 128 columns."""
-        config = self.config
+        """Residency and the PreSc pipeline (``legion_tpu/train.py::
+        Trainer._setup_storage``, its single-device, non-staged branch):
+        presample hotness and per-hop maxima -> measured caps (max unique
+        nodes x headroom, rounded to 128) -> cost model -> cache FillUp ->
+        cached access paths.
+
+        With the cache off, the graph and the feature table go to the
+        device (bf16, padded to 128 columns). With it on, the graph and
+        features of a host dataset stay in host RAM; the device holds the
+        planned caches and their [V] maps, and misses are read in place
+        by K4 (features) and K5 (topology)."""
+        dataset, config = self.dataset, self.config
+        meta = dataset.meta
+        V = meta.num_nodes
         scfg = config.sampler
-        V = self.dataset.meta.num_nodes
-        self.csr, feats, _ = self.dataset.device_arrays()
-        if scfg.neighbor_window:
-            self.graph_access = WindowedCSRAccess.from_csr(
-                self.csr, scfg.neighbor_window)
-        else:
-            self.graph_access = DeviceCSRAccess(self.csr)
-
+        cache_cfg = config.cache
+        dev = self.device
+        self.cache_plan = None
+        self.cache: Optional[UnifiedCache] = None
         self.compact_caps = None
-        if scfg.auto_compact and scfg.node_caps is None:
-            steps = config.cache.presample_steps or self.schedule.train_step
-            steps = max(1, min(steps, self.schedule.train_step))
-            _, _, mx = presample_hotness(
-                self.sampler_t, self.graph_access, self.train_bank, steps,
-                config.train.seed + _PRESAMPLE_OFFSET)
-            mxv = mx.cpu().numpy()
-            caps = [scfg.batch_size]
-            for k in range(1, len(mxv)):
-                c = max(int(mxv[k] * scfg.cap_headroom) + 8, caps[-1] + 1)
-                caps.append(-(-c // 128) * 128)
-            scfg = replace(scfg, node_caps=tuple(caps))
-            self.sampler_t = NeighborSampler(scfg, V)
-            self.compact_caps = tuple(caps)
+        feat_host = cache_cfg.enabled and \
+            cache_cfg.feature_residency == "host"
+        topo_host = cache_cfg.enabled and cache_cfg.topo_residency == "host"
 
-        F_log = self.dataset.meta.feature_dim
+        def _hbm_access(csr):
+            if scfg.neighbor_window:
+                return WindowedCSRAccess.from_csr(csr, scfg.neighbor_window)
+            return DeviceCSRAccess(csr)
+
+        host_feats = host_indptr = host_indices = None
+        if hasattr(dataset, "device_arrays"):
+            if cache_cfg.enabled:
+                raise ValueError("host-cached storage needs a host dataset")
+            self.csr, feats, _ = dataset.device_arrays()
+            base_access = _hbm_access(self.csr)
+            degrees = self.csr.degrees()
+        else:
+            feats = host_feats = np.ascontiguousarray(dataset.features,
+                                                      np.float32)
+            if topo_host:
+                # presampling reads adjacency from host memory, as the
+                # reference's UVA pre_sample (operator_impl.cu:301-397)
+                self.csr = None
+                host_indptr = self._host_table(dataset.graph.indptr,
+                                               np.int64)
+                host_indices = self._host_table(dataset.graph.indices,
+                                                np.int32)
+                base_access = CachedTopoAccess.all_miss(
+                    host_indptr, host_indices, dev)
+                degrees = dataset.graph.degrees()
+            else:
+                self.csr = dataset.graph.to_device(dev)
+                base_access = _hbm_access(self.csr)
+                degrees = self.csr.degrees()
+
+        want_compact = scfg.auto_compact and scfg.node_caps is None
+        na = ea = None
+        # set-up seconds by stage (presampling reads the host CSR in HT)
+        self.setup_s: Dict[str, float] = {}
+        if cache_cfg.enabled or want_compact:
+            t0 = time.perf_counter()
+            steps = cache_cfg.presample_steps or self.schedule.train_step
+            steps = max(1, min(steps, self.schedule.train_step))
+            na, ea, mx = presample_hotness(
+                self.sampler_t, base_access, self.train_bank, steps,
+                config.train.seed + _PRESAMPLE_OFFSET)
+            mxv = mx.cpu().numpy()      # waits for the presample batches
+            self.setup_s["presample"] = time.perf_counter() - t0
+            if want_compact:
+                caps = [scfg.batch_size]
+                for k in range(1, len(mxv)):
+                    c = max(int(mxv[k] * scfg.cap_headroom) + 8,
+                            caps[-1] + 1)
+                    caps.append(-(-c // 128) * 128)
+                scfg = replace(scfg, node_caps=tuple(caps))
+                self.sampler_t = NeighborSampler(scfg, V)
+                self.compact_caps = tuple(caps)
+
+        # 128-column padding of the device feature table (cache off only;
+        # the cache keeps the logical width, as in the JAX package)
+        F_log = meta.feature_dim
         self.feat_pad = -(-F_log // 128) * 128 \
-            if config.train.pad_feature_dim else F_log
-        table = feats
-        if config.train.compute_dtype == "bfloat16":
-            table = table.to(torch.bfloat16)
-        if self.feat_pad != F_log:
-            table = F.pad(table, (0, self.feat_pad - F_log))
-        self.feature_source = DeviceFeatureSource(table.contiguous())
+            if config.train.pad_feature_dim and not cache_cfg.enabled \
+            else F_log
+
+        if not cache_cfg.enabled:
+            self.graph_access = base_access
+            table = torch.from_numpy(feats).to(dev) \
+                if isinstance(feats, np.ndarray) else feats
+            if config.train.compute_dtype == "bfloat16":
+                table = table.to(torch.bfloat16)
+            if self.feat_pad != F_log:
+                table = F.pad(table, (0, self.feat_pad - F_log))
+            self.feature_source = DeviceFeatureSource(table.contiguous())
+            return
+
+        # a cache stored in bf16 holds twice the rows of a byte budget
+        feat_dtype = "bfloat16" \
+            if config.train.compute_dtype == "bfloat16" else "float32"
+        bpf = 2 if feat_dtype == "bfloat16" else 4
+        ea_eff = ea if topo_host else torch.zeros_like(ea)
+        na_eff = na if feat_host else torch.zeros_like(na)
+        t0 = time.perf_counter()
+        plan = plan_cache(na_eff, ea_eff, degrees, cache_cfg.cache_bytes,
+                          F_log, cache_cfg.alpha_step, bytes_per_feat=bpf)
+        self.cache_plan = plan
+        t1 = time.perf_counter()
+        cache = UnifiedCache.build_from_host(
+            plan, host_feats if feat_host else None,
+            dataset.graph.indptr if topo_host else None,
+            dataset.graph.indices if topo_host else None, V,
+            feat_dtype=feat_dtype, device=dev)
+        self.cache = cache
+        self.setup_s.update(plan=t1 - t0, fill=time.perf_counter() - t1)
+
+        if topo_host:
+            if cache.row_map is None:
+                self.graph_access = base_access
+            else:
+                self.graph_access = CachedTopoAccess(
+                    cache.row_map, cache.sub_indptr, cache.sub_indices,
+                    host_indptr, host_indices)
+        else:
+            self.graph_access = base_access
+        if feat_host:
+            if cache.slot_map is None:
+                raise ValueError("feature cache budget resolved to zero "
+                                 "rows")
+            self.feature_source = CachedFeatureSource(
+                cache, self._host_table(host_feats, np.float32))
+        else:
+            self.feature_source = DeviceFeatureSource(
+                torch.from_numpy(host_feats).to(dev))
+
+    def close(self) -> None:
+        """Unregister the host tables. Safe to call more than once."""
+        for t in self._host_tables:
+            t.close()
+        self._host_tables = []
+
+    def __del__(self):  # pragma: no cover
+        try:
+            self.close()
+        except Exception:
+            pass
 
     # ------------------------------------------------------------------
     def init_state(self) -> Dict:
@@ -243,13 +375,36 @@ class Trainer:
         seeds = self.train_bank[lid * bs:(lid + 1) * bs]
         y = self.train_ybank[lid * bs:(lid + 1) * bs]
         loss = self._train_on(state, batch, x, seeds, y, key)
-        # per-step counters (device scalars): trained edges and fetched id
-        # slots, all served from device memory (no topology cache, so the
-        # JAX step's topology-hit counters have nothing to count)
+        # per-step counters (device scalars, the live PCM analog): trained
+        # edges, fetched id slots, the slots the feature cache served, and
+        # the adjacency reads the topology cache served
+        nid = batch.node_ids[:sampler.max_ids]
         self.last_edges = batch.num_edges.sum(dtype=torch.int32)
-        self.last_slots = feat_hits
+        self.last_slots = (nid >= 0).sum(dtype=torch.int32)
+        self.last_feat_hits = feat_hits
+        self.last_topo_hits, self.last_topo_total = self._topo_hit_count(
+            batch, self.graph_access)
         state["train_ctr"] += 1
         return state, loss
+
+    def _topo_hit_count(self, batch: SampleBatch, access,
+                        sampler: Optional[NeighborSampler] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(hits, total) over the expanded frontier prefix of the ids
+        buffer, every vertex whose adjacency was read this batch (seeds
+        and hops 0..L-2 occupy ids[:cum_caps[L-1]]): the vertices the
+        topology cache served, and all of them. Single-device form of
+        ``legion_tpu/train.py::Trainer._topo_hit_count``."""
+        sampler = sampler or self.sampler_t
+        L = sampler.config.num_hops
+        prefix = batch.node_ids[:sampler.cum_caps[L - 1]]
+        pvalid = prefix >= 0
+        total = pvalid.sum(dtype=torch.int32)
+        row_map = getattr(access, "row_map", None)
+        if row_map is None:
+            return total, total    # all device-resident
+        rm = row_map[prefix.clamp(0, row_map.shape[0] - 1).long()]
+        return (pvalid & (rm >= 0)).sum(dtype=torch.int32), total
 
     @torch.no_grad()
     def _eval_step(self, state: Dict, mode: Mode) -> None:
@@ -294,31 +449,40 @@ class Trainer:
         sch = self.schedule
         stats: List[EpochStats] = []
         self.epoch_metrics: List[StepMetrics] = []
+        cache_on = self.cache_plan is not None
         for epoch in range(sch.epochs):
             t0 = time.time()
-            losses, edges, slots = [], [], []
+            losses, hits, edges, slots = [], [], [], []
             sm = StepMetrics(feat_dim=self.dataset.meta.feature_dim)
             for _ in range(sch.train_step):
                 state, loss = self.train_step(state)
                 losses.append(loss)
+                hits.append(self.last_feat_hits)
                 edges.append(self.last_edges)
                 slots.append(self.last_slots)
             train_loss = float(torch.stack(losses).mean())
-            te, ts = (int(v) for v in torch.stack(
-                [torch.stack(edges).sum(), torch.stack(slots).sum()]).cpu())
+            # the counters come off the device once per epoch
+            th, te, ts = (int(v) for v in torch.stack(
+                [torch.stack(hits).sum(), torch.stack(edges).sum(),
+                 torch.stack(slots).sum()]).cpu())
             sm.steps = len(losses)
-            sm.edges = te
-            sm.nodes = sm.feat_total = sm.feat_hits = ts
+            sm.edges, sm.feat_hits = te, th
+            sm.nodes = sm.feat_total = ts
+            if not cache_on:
+                sm.feat_hits = ts   # all slots served from device memory
             sm.stop()
             state, acc = self.run_eval(state, Mode.VALID)
             dt = time.time() - t0
             stats.append(EpochStats(epoch, train_loss, acc, dt))
             self.epoch_metrics.append(sm)
             if verbose:
+                hit_info = (f" | hit rate {sm.hit_rate:.3f} | host "
+                            f"{sm.host_bytes / 1e6:.1f}MB") if cache_on \
+                    else ""
                 print(f"Epoch {epoch:03d} | time {dt:.2f}s | "
                       f"loss {train_loss:.4f} | val acc {acc:.4f} | "
                       f"{sm.edges_per_s / 1e6:.1f}M edges/s | "
-                      f"{sm.nodes_per_s / 1e6:.1f}M nodes/s")
+                      f"{sm.nodes_per_s / 1e6:.1f}M nodes/s{hit_info}")
         state, self.test_acc = self.run_eval(state, Mode.TEST)
         if verbose:
             print(f"Test acc {self.test_acc:.4f}")

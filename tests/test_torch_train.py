@@ -6,6 +6,7 @@ import ast
 import os
 import subprocess
 import sys
+from dataclasses import replace
 from pathlib import Path
 
 import jax
@@ -15,22 +16,31 @@ import optax
 import pytest
 import torch
 
+from legion_tpu.cache.cost_model import CostModelResult as JPlan
+from legion_tpu.cache.unified_cache import CachedFeatureSource as JCached
 from legion_tpu.cache.unified_cache import DeviceFeatureSource as JSource
+from legion_tpu.cache.unified_cache import UnifiedCache as JCache
 from legion_tpu.config import SamplerConfig as JSamplerConfig
 from legion_tpu.config import TrainConfig as JTrainConfig
+from legion_tpu.data import synthesize_dataset as jax_host_synth
 from legion_tpu.data.device_synthetic import synthesize_device_dataset \
     as jax_synth
 from legion_tpu.models import make_model as jax_make_model
+from legion_tpu.sampling.access import CachedTopoAccess as JTopo
 from legion_tpu.sampling.access import WindowedCSRAccess as JWindowed
 from legion_tpu.sampling.sampler import NeighborSampler as JSampler
 from legion_tpu.train import _masked_ce as jax_masked_ce
+from legion_tpu_torch.cache.unified_cache import CachedFeatureSource
 from legion_tpu_torch.config import (CacheConfig, LegionConfig, MeshConfig,
                                      SamplerConfig, TrainConfig)
+from legion_tpu_torch.data import synthesize_dataset as host_synth
 from legion_tpu_torch.data import synthesize_device_dataset
 from legion_tpu_torch.ops import kernels
 from legion_tpu_torch.pipeline import Mode
 from legion_tpu_torch.train import Trainer
-from legion_tpu_torch.utils.convert import (batch_from_jax, dataset_from_jax,
+from legion_tpu_torch.utils.convert import (batch_from_jax, cache_from_jax,
+                                            dataset_from_jax,
+                                            legion_dataset_from_jax,
                                             params_from_jax)
 
 REPO = Path(__file__).resolve().parent.parent
@@ -133,6 +143,142 @@ def test_one_train_step_matches_jax(jax_dataset, compute_dtype):
             g_rel = _rel(layer[k].grad, grads_j["layers"][i][k])
             p_rel = _rel(layer[k], new_j["layers"][i][k])
             assert g_rel <= tol and p_rel <= tol, (i, k, g_rel, p_rel)
+
+
+@pytest.fixture(scope="module")
+def jax_host_dataset():
+    return jax_host_synth(num_nodes=1500, avg_degree=12, feature_dim=100,
+                          num_classes=8, batch_size=32, seed=2)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_one_host_cached_train_step_matches_jax(jax_host_dataset,
+                                                compute_dtype):
+    """Host features and host topology with the cache on: the same cache
+    (cache_from_jax), the same batch (JAX's, drawn through its
+    CachedTopoAccess), the same parameters and dropout 0. The fetch equals
+    JAX's CachedFeatureSource.fetch exactly; the loss, gradients and
+    updated parameters equal JAX's within the one-step tolerances."""
+    jds = jax_host_dataset
+    V = jds.meta.num_nodes
+    g = jds.graph
+    kw = dict(fanouts=(5, 3), batch_size=32, eval_batch_size=32,
+              dedup="sort", dedup_last_hop=False, node_caps=(32, 128, 0))
+    tkw = dict(hidden_dim=64, dropout=0.0, lr=3e-3,
+               compute_dtype=compute_dtype)
+    feat_dtype = "bfloat16" if compute_dtype == "bfloat16" else "float32"
+    jcfg = JSamplerConfig(**kw)
+
+    # --- JAX pieces: a plan with both caches, host misses by callback ---
+    qf = np.argsort(-np.bincount(g.indices, minlength=V), kind="stable")
+    qt = np.argsort(-g.degrees(), kind="stable")
+    plan = JPlan(feature_capacity=400, topo_capacity=300, alpha=0.5,
+                 feature_order=qf, topo_order=qt, est_feat_saved_bytes=0.0,
+                 est_topo_saved_bytes=0.0)
+    jc = JCache.build_from_host(plan, jds.features, g.indptr, g.indices, V,
+                                feat_dtype=feat_dtype)
+    sampler = JSampler(jcfg, V)
+    seeds = np.asarray(jds.train_ids[:32], np.int32)
+    jb, _ = sampler.sample(
+        JTopo(jc.row_map, jc.sub_indptr, jc.sub_indices, g.indptr,
+              g.indices), jnp.asarray(seeds), sampler.init_state(),
+        jax.random.PRNGKey(4))
+    xj, hj = JCached(jc, jds.features).fetch(jb.node_ids[:sampler.max_ids])
+    model = jax_make_model(JTrainConfig(**tkw), jcfg, 100, 8, in_dim_pad=100)
+    params = model.init(jax.random.PRNGKey(0))
+    y = np.asarray(jds.labels)[seeds]
+
+    def loss_fn(p):
+        logits = model.apply(p, xj, jb, train=True, rng=None)
+        return jax_masked_ce(logits, jnp.asarray(y), jnp.asarray(seeds >= 0))
+
+    tx = optax.adam(3e-3)
+
+    @jax.jit
+    def jax_step(p):
+        loss, grads = jax.value_and_grad(loss_fn)(p)
+        updates, _ = tx.update(grads, tx.init(p), p)
+        return loss, grads, optax.apply_updates(p, updates)
+
+    loss_j, grads_j, new_j = jax_step(params)
+
+    # --- the port: a cached trainer on the same host data ---
+    ds = legion_dataset_from_jax(jds)
+    cfg = LegionConfig(dataset=ds.meta, sampler=SamplerConfig(**kw),
+                       cache=CacheConfig(cache_bytes=60_000,
+                                         presample_steps=2,
+                                         feature_residency="host",
+                                         topo_residency="host"),
+                       train=TrainConfig(**tkw),
+                       mesh=MeshConfig.for_devices(1))
+    tr = Trainer(ds, cfg, device="cpu")
+    assert tr.feat_pad == 100 and tr.cache_plan is not None
+    tr.feature_source = CachedFeatureSource(cache_from_jax(jc),
+                                            tr.feature_source.host)
+    state = tr.init_state()
+    state["model"].load_state_dict(params_from_jax(params))
+    pb = batch_from_jax(jb)
+    xp, hp = tr.feature_source.fetch(pb.node_ids[:tr.sampler_t.max_ids])
+    np.testing.assert_array_equal(_np(xp), _np(xj))
+    assert int(hp) == int(hj)
+    loss_p = tr._train_on(state, pb, xp, torch.from_numpy(seeds),
+                          tr.train_ybank[:32], key=0)
+
+    tol = F32_RTOL if compute_dtype == "float32" else BF16_RTOL
+    assert abs(float(loss_p) - float(loss_j)) <= tol * abs(float(loss_j))
+    for i in range(2):
+        layer = state["model"].layers[i]
+        for k in ("w_self", "w_neigh", "b"):
+            g_rel = _rel(layer[k].grad, grads_j["layers"][i][k])
+            p_rel = _rel(layer[k], new_j["layers"][i][k])
+            assert g_rel <= tol and p_rel <= tol, (i, k, g_rel, p_rel)
+    tr.close()
+
+
+@pytest.mark.parametrize("topo_residency", ["hbm", "host"])
+def test_cached_trainer_steps_evaluates_and_fits_on_cpu(topo_residency):
+    """A Trainer on a host LegionDataset with a partial feature cache
+    (and a host topology): the graph and features stay host numpy arrays
+    (not copied), train steps are finite, the cache serves some but not
+    all fetched slots (last_feat_hits < last_slots), and fit's epoch
+    metrics count the same hits."""
+    ds = host_synth(num_nodes=3000, avg_degree=20, feature_dim=100,
+                    num_classes=8, batch_size=64, train_frac=0.08, seed=0)
+    cfg = replace(_tiny_config(ds), cache=CacheConfig(
+        presample_steps=3, cache_bytes=300 * 200, feature_residency="host",
+        topo_residency=topo_residency))
+    tr = Trainer(ds, cfg, device="cpu")
+    plan = tr.cache_plan
+    assert 0 < plan.feature_capacity < 3000 and tr.feat_pad == 100
+    assert tr.feature_source.host.array is ds.features
+    if topo_residency == "host":
+        assert tr.csr is None
+        assert tr.graph_access.host_indptr.array is ds.graph.indptr
+    state = tr.init_state()
+    for _ in range(2):
+        state, loss = tr.train_step(state)
+        hits, slots = int(tr.last_feat_hits), int(tr.last_slots)
+        assert np.isfinite(float(loss)) and 0 < hits < slots
+        assert 0 <= int(tr.last_topo_hits) <= int(tr.last_topo_total) > 0
+    state, acc = tr.run_eval(state, Mode.VALID)
+    assert 0.0 <= acc <= 1.0 and int(state["total"]) == 60
+    state, stats = tr.fit(state, verbose=False)
+    sm = tr.epoch_metrics[0]
+    assert 0 < sm.feat_hits < sm.feat_total and sm.host_bytes > 0
+    assert np.isfinite(stats[0].train_loss) and tr.test_acc is not None
+    tr.close()
+
+
+def test_staged_host_transfer_is_refused():
+    """The staged split-program pipeline is a TPU-runtime workaround; the
+    port refuses it rather than fall back to a copy."""
+    ds = host_synth(num_nodes=500, avg_degree=8, feature_dim=16,
+                    num_classes=4, batch_size=64, seed=0)
+    cfg = replace(_tiny_config(ds), cache=CacheConfig(
+        cache_bytes=10_000, feature_residency="host",
+        host_transfer="staged"))
+    with pytest.raises(NotImplementedError, match="staged"):
+        Trainer(ds, cfg, device="cpu")
 
 
 def _tiny_config(ds, **sampler_kw):
