@@ -1,4 +1,4 @@
-"""Drive the legion_tpu_torch GraphSAGE training slice once on one GPU.
+"""Drive the legion_tpu_torch training slices once on one GPU.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one
 CUDA card, nvcc (``$CUDA_HOME`` or ``/usr/local/cuda``) and no network.
@@ -11,8 +11,15 @@ CUDA card, nvcc (``$CUDA_HOME`` or ``/usr/local/cuda``) and no network.
      GraphSAGE [25,10], batch 8000, hidden 256, bf16 features, 64-wide
      windowed draws, sort dedup with a lane-aligned last hop, measured
      caps): train steps, then an eval pass, counting kernel launches;
+  3b. on the same device dataset, at ``bench.py --model X`` settings:
+     GAT (heads (8,1), feature and attention dropout 0.6, aligned last
+     hop), after holding K6 and K7 against their plain versions at its
+     shapes, forward and backward, with and without attention dropout;
+     GCN (exact last-hop dedup), after holding K7 at the exact-dedup GAT
+     layer-0 shape of one of its batches; link-prediction SAGE (batch
+     7998, eval batch 510); each for train steps and an eval pass;
   4. checks the whole slice on the card against the same slice on the
-     CPU (plain versions) at a small size;
+     CPU (plain versions) at a small size, for GraphSAGE, GAT and GCN;
   5. builds the host-resident dataset of ``bench.py --features host``
      (2.4M vertices, about 120M edges, f32 features in host RAM) and its
      trainers: H (features on the host, a 200 MB bf16 cache planned by
@@ -55,6 +62,10 @@ KERNELS = {
                           replaces="legion_tpu/cache/unified_cache.py:261"),
     "csr_draw": dict(source="legion_tpu_torch/csrc/csr_draw.cu",
                      replaces="legion_tpu/sampling/access.py:299"),
+    "gat_attend": dict(source="legion_tpu_torch/csrc/gat_attend.cu",
+                       replaces="legion_tpu/models/gat.py:83"),
+    "hop_attention": dict(source="legion_tpu_torch/csrc/hop_attention.cu",
+                          replaces="legion_tpu/ops/hop_agg.py:95"),
 }
 # the kernels each path must launch, and the path whose launches the
 # kernel line reports
@@ -63,46 +74,57 @@ PATH_KERNELS = {
     "H": ("gather_rows", "segment_sum", "windowed_draw", "cached_gather"),
     "HT": ("gather_rows", "segment_sum", "cached_gather", "csr_draw"),
     "cache-off": ("gather_rows", "segment_sum", "windowed_draw"),
+    "gat": ("gather_rows", "segment_sum", "windowed_draw", "gat_attend",
+            "gat_attend_bwd", "hop_attention", "hop_attention_bwd"),
+    "gcn": ("gather_rows", "segment_sum", "windowed_draw"),
+    "lp_sage": ("gather_rows", "segment_sum", "windowed_draw"),
 }
 REPORTED_PATH = {"gather_rows": "device", "segment_sum": "device",
                  "windowed_draw": "device", "cached_gather": "H",
-                 "csr_draw": "HT"}
+                 "csr_draw": "HT", "gat_attend": "gat",
+                 "hop_attention": "gat"}
+# bench.py --model X: lp_sage batches divide into thirds, GCN dedups the
+# last hop exactly
+MODEL_SAMPLER = {"gat": {}, "gcn": dict(dedup_last_hop=True),
+                 "lp_sage": dict(batch_size=7998, eval_batch_size=510)}
 
 
 def fail(msg):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def cuda_ms(fn, torch):
-    """Mean milliseconds per call of fn over TIMING_ITERS launches."""
+def cuda_ms(fn, torch, iters=TIMING_ITERS):
+    """Mean milliseconds per call of fn over ``iters`` launches."""
     for _ in range(3):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
-    for _ in range(TIMING_ITERS):
+    for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / TIMING_ITERS
+    return start.elapsed_time(end) / iters
 
 
-def compare(name, kernel, plain, tol, results, torch, shape_note):
+def compare(name, kernel, plain, tol, results, torch, shape_note,
+            iters=TIMING_ITERS):
     """Run kernel and plain once, check, then time plain, kernel, kernel,
     plain. tol(k, p) -> (max_abs_err, ok)."""
     k, p = kernel(), plain()
     torch.cuda.synchronize()
     err, ok = tol(k, p)
+    del k, p
     if not ok:
         fail(f"{name} {shape_note}: kernel disagrees with its plain "
              f"version (max abs err {err})")
-    tp1 = cuda_ms(plain, torch)
-    tk1 = cuda_ms(kernel, torch)
-    tk2 = cuda_ms(kernel, torch)
-    tp2 = cuda_ms(plain, torch)
+    tp1 = cuda_ms(plain, torch, iters)
+    tk1 = cuda_ms(kernel, torch, iters)
+    tk2 = cuda_ms(kernel, torch, iters)
+    tp2 = cuda_ms(plain, torch, iters)
     ms, plain_ms = (tk1 + tk2) / 2, (tp1 + tp2) / 2
-    print(f"  {name:14s} {shape_note:44s} max_abs_err {err:.3g} | kernel "
+    print(f"  {name:14s} {shape_note:52s} max_abs_err {err:.3g} | kernel "
           f"{ms:.4f} ms | plain {plain_ms:.4f} ms")
     r = results.setdefault(name, {"max_abs_err": 0.0})
     r["max_abs_err"] = max(r["max_abs_err"], err)
@@ -122,21 +144,103 @@ def f32_atomic_order(k, p):
     return diff.max().item(), ok
 
 
+def close_f32(k, p):
+    """f32 outputs: rtol 1e-4, atol 1e-5 * max|ref| (sums and expf taken
+    in another order)."""
+    diff = (k.float() - p.float()).abs()
+    ok = bool((diff <= 1e-4 * p.float().abs()
+               + 1e-5 * p.float().abs().max()).all().item())
+    return diff.max().item(), ok
+
+
+def ulp_bf16(v):
+    """One bf16 ulp (8 significant bits) of each element of v."""
+    return (v.float().abs().clamp(min=1e-30).log2().floor() - 7).exp2()
+
+
+def bf16_ulp(k, p, atol=1e-5):
+    """bf16 outputs of f32 sums taken in another order (or by atomics),
+    rounded once: one bf16 ulp of the larger value, elementwise, plus an
+    atol of ``atol`` * max|ref| (K2's 1e-5 by default)."""
+    kf, pf = k.float(), p.float()
+    diff = (kf - pf).abs()
+    ulp = ulp_bf16(kf.abs().maximum(pf.abs()))
+    ok = bool((diff <= ulp + atol * pf.abs().max()).all().item())
+    return diff.max().item(), ok
+
+
+def k6_bf16_tol(args, torch):
+    """K6 in bf16 against its plain version, outputs (xw,) or (xw, du_l,
+    du_r). Both round each score x @ u, alpha and d alpha to bf16 from f32
+    sums taken in different orders; where such a sum lies within f32
+    rounding of a bf16 rounding midpoint the two round it one bf16 ulp
+    apart, which moves the outputs by more than one of their own ulps. So
+    the check is taken in stages:
+      - alpha before dropout (K6 saves it for its backward) equals the
+        plain version's within f32 rounding (rtol 1e-4, atol 1e-6) in
+        every (row, head) but those where a score rounded apart, at most
+        one in 1000; there it is within the first-order effect of one
+        bf16 ulp in each score, 4 alpha (ulp(el) + ulp(er));
+      - xw is within one bf16 ulp, elementwise, of the plain contraction
+        of K6's own alpha;
+      - du_l and du_r, x^T d_el over about 1M products in both versions,
+        are within one bf16 ulp plus 2^-11 max|ref|, elementwise: each
+        score or d alpha rounded apart moves every element of the sum by
+        a like absolute amount."""
+    from legion_tpu_torch.ops import kernels
+    x, u_l, u_r, src, off, fo, ao, slope, keep = args
+    xw = kernels.gat_attend(*args)
+    alpha = xw.grad_fn.saved_tensors[3]  # (x, src, offset, alpha, neg, mask)
+    with torch.no_grad():
+        el, er, alpha_p = kernels.gat_scores_plain(x, u_l, u_r, src, off, fo,
+                                                   ao, slope)
+        ref = kernels.gat_contract_plain(x, alpha, keep, ao)
+    diff = (alpha - alpha_p).abs()
+    noise = 1e-4 * alpha_p + 1e-6
+    apart = (diff > noise).any(dim=0)                     # [F, H]
+    step = ulp_bf16(el).amax(dim=0) + ulp_bf16(er)        # [F, H]
+    lim = torch.where(apart[None], noise + 4 * alpha_p * step[None], noise)
+    n_apart = int(apart.sum())
+    ok_alpha = (n_apart <= apart.numel() // 1000
+                and bool((diff <= lim).all().item()))
+    print(f"    K6 alpha: scores rounded apart in {n_apart} of "
+          f"{apart.numel()} (row, head) pairs; within bound: {ok_alpha}")
+    del xw
+
+    def tol(ks, ps):
+        errs = [(k.float() - p.float()).abs().max().item()
+                for k, p in zip(ks, ps)]
+        oks = [ok_alpha, bf16_ulp(ks[0], ref)[1]]
+        oks += [bf16_ulp(k, p, atol=2.0 ** -11)[1]
+                for k, p in zip(ks[1:], ps[1:])]
+        return max(errs), all(oks)
+    return tol
+
+
+def tuple_tol(*tols):
+    """Apply tols[i] to output i of tuples; the max err over outputs."""
+    def tol(ks, ps):
+        errs, oks = zip(*(t(k, p) for t, k, p in zip(tols, ks, ps)))
+        return max(errs), all(oks)
+    return tol
+
+
 def bench_config(ds, cache_bytes=0, feature_residency="hbm",
-                 topo_residency="hbm"):
+                 topo_residency="hbm", model="graphsage"):
     from legion_tpu_torch.config import (CacheConfig, LegionConfig,
                                          MeshConfig, SamplerConfig,
                                          TrainConfig)
+    skw = dict(fanouts=(25, 10), batch_size=8000, auto_compact=True,
+               eval_batch_size=512, dedup="sort", cap_headroom=1.03,
+               neighbor_window=64, dedup_last_hop=False)
+    skw.update(MODEL_SAMPLER.get(model, {}))
     return LegionConfig(
         dataset=ds.meta,
-        sampler=SamplerConfig(fanouts=(25, 10), batch_size=8000,
-                              auto_compact=True, eval_batch_size=512,
-                              dedup="sort", cap_headroom=1.03,
-                              neighbor_window=64, dedup_last_hop=False),
+        sampler=SamplerConfig(**skw),
         cache=CacheConfig(presample_steps=8, cache_bytes=cache_bytes,
                           feature_residency=feature_residency,
                           topo_residency=topo_residency),
-        train=TrainConfig(model="graphsage", hidden_dim=256, epochs=1,
+        train=TrainConfig(model=model, hidden_dim=256, epochs=1,
                           lr=3e-3, dropout=0.5, fused_steps=1),
         mesh=MeshConfig.for_devices(1))
 
@@ -260,16 +364,19 @@ def phase_slice(tr, torch, path):
     print(f"  mean step {step_ms:.3f} ms over {TRAIN_STEPS} steps (after "
           f"{WARMUP_STEPS} warm-up) | trained edges/s "
           f"{edges / (step_ms / 1e3 * TRAIN_STEPS):.1f}")
+    metric = "valid mean loss" if tr.is_lp else "valid acc"
     print(f"  feature hit rate {hits / max(slots, 1):.4f} | topology hit rate"
           f" {tot[3] / max(tot[4], 1):.4f} | host feature MB/step "
-          f"{(slots - hits) * F * 4 / 1e6 / TRAIN_STEPS:.3f} | valid acc "
+          f"{(slots - hits) * F * 4 / 1e6 / TRAIN_STEPS:.3f} | {metric} "
           f"after {WARMUP_STEPS + TRAIN_STEPS} steps {acc:.4f} | peak mem "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(f"  launches on the {path} path: {counts}")
     if not all(math.isfinite(x) for x in losses):
         fail(f"{path}: non-finite loss {losses}")
-    if not 0.0 <= acc <= 1.0 or int(state["total"]) == 0:
-        fail(f"{path}: eval pass counted nothing (acc {acc})")
+    # lp_sage's valid metric is its mean loss over valid anchors
+    ok = math.isfinite(acc) and acc > 0 if tr.is_lp else 0.0 <= acc <= 1.0
+    if not ok or float(state["total"]) == 0:
+        fail(f"{path}: eval pass counted nothing (metric {acc})")
     for name in PATH_KERNELS[path]:
         if counts[name] <= 0:
             fail(f"kernel {name} was not launched on the {path} path")
@@ -277,6 +384,159 @@ def phase_slice(tr, torch, path):
         fail(f"H: feature hit rate {hits}/{slots} is not strictly between "
              "0 and 1")
     return counts, step_ms
+
+
+def one_batch(tr, torch, key=77):
+    """One train batch of ``tr`` through its public sampler, and its
+    fetched features."""
+    s = tr.sampler_t
+    seeds = tr.train_bank[:s.config.batch_size]
+    batch = s.sample(tr.graph_access, seeds, key)
+    x, _ = tr.feature_source.fetch(batch.node_ids[:s.max_ids])
+    torch.cuda.synchronize()
+    return batch, x
+
+
+def attn_pair(fn, args, grads_of, g_out, torch):
+    """fn(*args) forward only, and forward + backward with the gradients
+    of ``grads_of`` (leaf tensors in args) for upstream ``g_out``."""
+    def fwd():
+        with torch.no_grad():
+            return (fn(*args),)
+
+    def fwd_bwd():
+        out = fn(*args)
+        return (out,) + torch.autograd.grad(out, grads_of, g_out)
+    return fwd, fwd_bwd
+
+
+def k6_compares(tr, torch, results, main):
+    """K6 against its plain version at GAT layer 0 (one real batch: the
+    aligned last hop's lanes of the fetched bf16 table), forward and
+    forward + backward, bf16 (the path's dtype, held as ``k6_bf16_tol``
+    sets out) and f32 (``close_f32``), with attention dropout in its u8
+    regime and without."""
+    from legion_tpu_torch.models.common import dropout_keep
+    from legion_tpu_torch.ops import kernels
+    tr.init_state()                     # the initial parameters, not zeros
+    batch, x = one_batch(tr, torch)
+    scfg = tr.sampler_t.config
+    p = tr.model.layers[0]
+    g = torch.Generator(device="cuda")
+    g.manual_seed(11)
+    src, off = batch.edge_src[1], batch.hop_offsets[1]
+    fo, ao = scfg.fanouts[1], scfg.aligned_hop_offset(1)
+    F, d_in = src.shape[0] // fo, x.shape[1]
+    H = p["attn_l"].shape[0]
+    keep = dropout_keep((fo, F, H), 0.6, g, "cuda")
+    for dt in (torch.bfloat16, torch.float32):
+        w = p["w"].detach().to(dt)
+        u = [torch.einsum("khd,hd->kh", w, p[a].detach().to(dt))
+             .contiguous().requires_grad_() for a in ("attn_l", "attn_r")]
+        xd = x.to(dt)
+        g_out = torch.randn((F, H, d_in), generator=g, device="cuda").to(dt)
+        for kp in (keep, None):
+            args = (xd, u[0], u[1], src, off, fo, ao, 0.2, kp)
+            tol = k6_bf16_tol(args, torch) if dt == torch.bfloat16 \
+                else tuple_tol(close_f32, close_f32, close_f32)
+            kf, kb = attn_pair(kernels.gat_attend, args, u, g_out, torch)
+            pf, pb = attn_pair(kernels.gat_attend_plain, args, u, g_out,
+                               torch)
+            note = (f"L0 {F}x{fo}x{H}x{d_in} {str(dt)[6:]}"
+                    f"{' drop u8' if kp else ''}")
+            compare("gat_attend", kf, pf, tol, results, torch, note + " fwd")
+            t_b = compare("gat_attend", kb, pb, tol, results, torch,
+                          note + " fwd+bwd")
+            if dt == torch.bfloat16 and kp is not None:
+                main["gat_attend"] = [t_b]
+
+
+def k7_compares(tr, torch, results, main):
+    """K7 against its plain version at GAT layer 1 (one real batch of the
+    GAT path: 8000 x 25 lanes, 1 head, z [S1, classes]), forward and
+    forward + backward, bf16 and f32, with attention dropout in its
+    uniform regime and without; and once on an aligned hop."""
+    from legion_tpu_torch.models.common import dropout_keep
+    from legion_tpu_torch.ops import hop_agg, kernels
+    batch, _ = one_batch(tr, torch)
+    scfg = tr.sampler_t.config
+    S = scfg.cum_sizes()
+    src, off = batch.edge_src[0], batch.hop_offsets[0]
+    fo = scfg.fanouts[0]
+    F = src.shape[0] // fo
+    H, d = tr.model.layers[1]["attn_l"].shape
+    g = torch.Generator(device="cuda")
+    g.manual_seed(12)
+    keep = dropout_keep((fo, F, H), 0.6, g, "cuda")
+    z0 = torch.randn((S[1], H, d), generator=g, device="cuda")
+    sc = torch.randn((fo, F, H), generator=g, device="cuda") \
+        .requires_grad_()
+    g_out = torch.randn((S[0], H, d), generator=g, device="cuda")
+    cases = [(torch.bfloat16, kp, None, src) for kp in (keep, None)] + \
+        [(torch.float32, kp, None, src) for kp in (keep, None)]
+    # the aligned form: lanes at S0 + lane, the same pads
+    a_src = torch.where(src >= 0, S[0] + torch.arange(
+        src.shape[0], device="cuda", dtype=torch.int32), -1)
+    cases.append((torch.bfloat16, keep, S[0], a_src))
+    for dt, kp, ao, sl in cases:
+        n = S[0] + sl.shape[0] if ao is not None else S[1]
+        z = (z0 if ao is None else torch.randn(
+            (n, H, d), generator=g, device="cuda")).to(dt).requires_grad_()
+        kern = (lambda z, sc, sl=sl, ao=ao, kp=kp: kernels.hop_attention(
+            z.reshape(z.shape[0], -1), sc, sl, fo, off, S[0], H, ao, kp))
+        plain = (lambda z, sc, sl=sl, ao=ao, kp=kp:
+                 hop_agg.hop_softmax_attention_plain(z, sc, sl, fo, off,
+                                                     S[0], kp, ao))
+        kf, kb = attn_pair(kern, (z, sc), (z, sc), g_out, torch)
+        pf, pb = attn_pair(plain, (z, sc), (z, sc), g_out, torch)
+        dz_tol = bf16_ulp if dt == torch.bfloat16 \
+            else f32_atomic_order
+        note = (f"L1 {F}x{fo}x{H}x{d} z[{n}] {str(dt)[6:]}"
+                f"{' drop' if kp else ''}{' aligned' if ao else ''}")
+        compare("hop_attention", kf, pf, tuple_tol(close_f32), results,
+                torch, note + " fwd")
+        t_b = compare("hop_attention", kb, pb,
+                      tuple_tol(close_f32, dz_tol, close_f32), results,
+                      torch, note + " fwd+bwd")
+        if dt == torch.bfloat16 and kp is not None and ao is None:
+            main["hop_attention"] = [t_b]
+
+
+def k7_exact_compares(tr, torch, results):
+    """K7 at the exact-dedup GAT layer 0: a batch sampled with
+    ``dedup_last_hop=True`` (the GCN trainer's), its hop-1 lanes x 8
+    heads x 256 over z [S2, 2048] bf16, where JAX needs its chunked scan;
+    forward and forward + backward, with u8-regime dropout and without."""
+    from legion_tpu_torch.models.common import dropout_keep
+    from legion_tpu_torch.ops import hop_agg, kernels
+    batch, _ = one_batch(tr, torch)
+    scfg = tr.sampler_t.config
+    S = scfg.cum_sizes()
+    src, off = batch.edge_src[1], batch.hop_offsets[1]
+    fo, H, d = scfg.fanouts[1], 8, 256
+    F = src.shape[0] // fo
+    g = torch.Generator(device="cuda")
+    g.manual_seed(13)
+    keep = dropout_keep((fo, F, H), 0.6, g, "cuda")
+    z = torch.randn((S[2], H, d), generator=g, device="cuda") \
+        .to(torch.bfloat16).requires_grad_()
+    sc = torch.randn((fo, F, H), generator=g, device="cuda") \
+        .requires_grad_()
+    g_out = torch.randn((S[1], H, d), generator=g, device="cuda")
+    for kp in (keep, None):
+        kern = (lambda z, sc, kp=kp: kernels.hop_attention(
+            z.reshape(z.shape[0], -1), sc, src, fo, off, S[1], H, None, kp))
+        plain = (lambda z, sc, kp=kp: hop_agg.hop_softmax_attention_plain(
+            z, sc, src, fo, off, S[1], kp))
+        kf, kb = attn_pair(kern, (z, sc), (z, sc), g_out, torch)
+        pf, pb = attn_pair(plain, (z, sc), (z, sc), g_out, torch)
+        note = (f"exact L0 {F}x{fo}x{H}x{d} z[{S[2]}] bf16"
+                f"{' drop u8' if kp else ''}")
+        compare("hop_attention", kf, pf, tuple_tol(close_f32), results,
+                torch, note + " fwd", iters=5)
+        compare("hop_attention", kb, pb,
+                tuple_tol(close_f32, bf16_ulp, close_f32), results,
+                torch, note + " fwd+bwd", iters=5)
 
 
 def compare_slices(trs, torch, label):
@@ -306,10 +566,14 @@ def compare_slices(trs, torch, label):
     if counters[0] != counters[1]:
         fail(f"{label}: hit counters differ: {counters}")
     rel = max(abs(a - c) / abs(a) for a, c in zip(*losses))
-    pdiff = max(
-        ((p.detach().cpu() - q.detach()).norm() / q.detach().norm()).item()
-        for p, q in zip(states[1]["model"].parameters(),
-                        states[0]["model"].parameters()))
+    per = {n: ((p.detach().cpu() - q.detach()).norm()
+               / q.detach().norm()).item()
+           for (n, p), q in zip(states[1]["model"].named_parameters(),
+                                states[0]["model"].parameters())}
+    pdiff = max(per.values())
+    worst = sorted(per.items(), key=lambda kv: -kv[1])[:3]
+    print("  largest param rel diffs: " + ", ".join(
+        f"{n} {v:.3g}" for n, v in worst))
     print(f"  cpu losses {losses[0]}\n  gpu losses {losses[1]}\n  max loss "
           f"rel diff {rel:.3g} | max param rel diff {pdiff:.3g} (3 steps) | "
           f"hit counters (feature hits, slots, topology hits, total) "
@@ -322,7 +586,8 @@ def compare_slices(trs, torch, label):
 
 
 def phase_reference(torch):
-    """Phase 4: the device-dataset slice, card against CPU, small size."""
+    """Phase 4: the device-dataset slices of GraphSAGE, GAT and GCN, card
+    against CPU, small size, dropout 0."""
     from dataclasses import replace
     from legion_tpu_torch.data import DeviceDataset, synthesize_device_dataset
     from legion_tpu_torch.train import Trainer
@@ -333,11 +598,15 @@ def phase_reference(torch):
         small.meta, small.csr.indptr.numpy(), small.csr.indices.numpy(),
         small.features.numpy(), small.labels.numpy(), small.train_ids,
         small.valid_ids, small.test_ids, device="cuda")
-    cfg = bench_config(small)
-    cfg = replace(cfg, sampler=replace(cfg.sampler, batch_size=256),
-                  train=replace(cfg.train, dropout=0.0))
-    compare_slices([Trainer(small, cfg, device="cpu"),
-                    Trainer(gpu_ds, cfg, "cuda")], torch, "device")
+    for model in ("graphsage", "gat", "gcn"):
+        cfg = bench_config(small, model=model)
+        cfg = replace(cfg, sampler=replace(cfg.sampler, batch_size=256),
+                      train=replace(cfg.train, dropout=0.0, gat_feat_drop=0.0,
+                                    gat_attn_drop=0.0))
+        print(f" {model}:")
+        compare_slices([Trainer(small, cfg, device="cpu"),
+                        Trainer(gpu_ds, cfg, "cuda")], torch,
+                       f"device {model}")
 
 
 def host_trainer(ds, torch, name, **cache_kw):
@@ -545,9 +814,39 @@ def main():
 
     print("phase 3: the main path (train steps, then an eval pass)")
     counts = {"device": phase_slice(tr, torch, "device")[0]}
+    del tr
+    torch.cuda.empty_cache()
 
-    print("phase 4: small-input slice, card vs CPU")
-    del tr, ds
+    print("phase 3b: GAT, GCN and lp_sage on the device dataset "
+          "(bench.py --model X)")
+    main_ms = {}
+    for model in ("gat", "gcn", "lp_sage"):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tr = Trainer(ds, bench_config(ds, model=model), device="cuda")
+        torch.cuda.synchronize()
+        s = tr.sampler_t
+        print(f" {model}: set-up {time.perf_counter() - t0:.2f} s | caps "
+              f"{tr.compact_caps} | frontier sizes {s.frontier_sizes} | "
+              f"edge sizes {s.edge_sizes} | max_ids {s.max_ids}")
+        if model == "gat":
+            k6_compares(tr, torch, results, main_ms)
+            k7_compares(tr, torch, results, main_ms)
+        elif model == "gcn":
+            k7_exact_compares(tr, torch, results)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        counts[model] = phase_slice(tr, torch, model)[0]
+        del tr
+        torch.cuda.empty_cache()
+    for name, times in main_ms.items():
+        results[name].update(ms=sum(t[0] for t in times),
+                             plain_ms=sum(t[1] for t in times))
+    for name in ("gat_attend", "hop_attention"):
+        counts["gat"][name] += counts["gat"][name + "_bwd"]
+
+    print("phase 4: small-input slices, card vs CPU")
+    del ds
     torch.cuda.empty_cache()
     phase_reference(torch)
 

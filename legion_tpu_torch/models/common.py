@@ -51,52 +51,85 @@ def xavier_uniform_padded(logical_in: int, padded_in: int,
     return out
 
 
-def dropout(x: torch.Tensor, rate: float,
-            generator: Optional[torch.Generator], train: bool
-            ) -> torch.Tensor:
-    """Inverted dropout in the three regimes of the JAX package (the masks
-    come from ``generator``, so the bits differ from JAX's):
+def dropout_keep(shape: Tuple[int, ...], rate: float,
+                 generator: Optional[torch.Generator],
+                 device: Optional[torch.device] = None
+                 ) -> Optional[Tuple[torch.Tensor, float]]:
+    """The keep mask (bool, ``shape``) and the scale of kept entries for
+    inverted dropout, in the three regimes of the JAX package (the masks
+    come from ``generator``, so the bits differ from JAX's); None when
+    nothing is dropped:
       - rate 0.5 on [N, d] with d % 32 == 0: one random bit per element,
         unpacked from 32-bit words;
       - 2**20 elements or more: u8 draws against a threshold, keep rate
         quantised to 1/256 and the scale taken from the quantised rate;
       - otherwise a uniform draw per element."""
-    if not train or rate <= 0.0 or generator is None:
-        return x
+    if rate <= 0.0 or generator is None:
+        return None
     keep = 1.0 - rate
-    zero = torch.zeros((), dtype=x.dtype, device=x.device)
-    if rate == 0.5 and x.dim() == 2 and x.shape[-1] % 32 == 0:
-        words = torch.randint(-2 ** 31, 2 ** 31,
-                              (x.shape[0], x.shape[1] // 32),
+    n = math.prod(shape)
+    if rate == 0.5 and len(shape) == 2 and shape[-1] % 32 == 0:
+        words = torch.randint(-2 ** 31, 2 ** 31, (shape[0], shape[1] // 32),
                               dtype=torch.int32, generator=generator,
-                              device=x.device)
-        shifts = torch.arange(32, dtype=torch.int32, device=x.device)
-        mask = ((words[:, :, None] >> shifts) & 1).reshape(x.shape) != 0
-        return torch.where(mask, x / keep, zero)
-    if x.dim() >= 2 and x.numel() >= (1 << 20):
+                              device=device)
+        shifts = torch.arange(32, dtype=torch.int32, device=device)
+        mask = ((words[:, :, None] >> shifts) & 1).reshape(shape) != 0
+        return mask, 1.0 / keep
+    if len(shape) >= 2 and n >= (1 << 20):
         kq = min(max(round(keep * 256), 1), 255)
-        bits = torch.randint(0, 256, x.shape, dtype=torch.uint8,
-                             generator=generator, device=x.device)
-        return torch.where(bits < kq, x * (256.0 / kq), zero)
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-    return torch.where(mask, x / keep, zero)
+        bits = torch.randint(0, 256, shape, dtype=torch.uint8,
+                             generator=generator, device=device)
+        return bits < kq, 256.0 / kq
+    mask = torch.rand(shape, generator=generator, device=device) < keep
+    return mask, 1.0 / keep
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator], train: bool
+            ) -> torch.Tensor:
+    """Inverted dropout with the mask of ``dropout_keep``."""
+    if not train:
+        return x
+    keep = dropout_keep(tuple(x.shape), rate, generator, x.device)
+    if keep is None:
+        return x
+    mask, scale = keep
+    return torch.where(mask, x * scale, torch.zeros((), dtype=x.dtype,
+                                                    device=x.device))
 
 
 def make_model(train_cfg: TrainConfig, sampler_cfg: SamplerConfig,
                in_dim: int, num_classes: int, device: torch.device,
                in_dim_pad: Optional[int] = None):
-    """GraphSAGE only, for now; the other models are ROADMAP items."""
+    """Factory with the arguments of ``legion_tpu/models/common.py::
+    make_model``. The port's models take the sampler config at ``forward``
+    (one module serves the train and the eval shapes); ``sampler_cfg``
+    gives the layer count and, for GCN, the last hop's alignment."""
+    from legion_tpu_torch.models.gat import GAT
+    from legion_tpu_torch.models.gcn import GCN
     from legion_tpu_torch.models.graphsage import GraphSAGE
+    from legion_tpu_torch.models.lp_sage import LinkPredSAGE
 
     name = train_cfg.model.lower()
+    L = sampler_cfg.num_hops
     if name == "graphsage":
         return GraphSAGE(in_dim, train_cfg.hidden_dim, num_classes,
-                         num_layers=sampler_cfg.num_hops,
-                         dropout=train_cfg.dropout,
+                         num_layers=L, dropout=train_cfg.dropout,
                          compute_dtype=train_cfg.compute_dtype,
                          in_dim_pad=in_dim_pad, device=device)
-    if name in ("gcn", "gat", "lp_sage"):
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet (ROADMAP queue A, item 9: "
-            "model breadth)")
+    if name == "gcn":
+        return GCN(sampler_cfg, in_dim, train_cfg.hidden_dim, num_classes,
+                   dropout=train_cfg.dropout, in_dim_pad=in_dim_pad,
+                   device=device)
+    if name == "gat":
+        return GAT(in_dim, train_cfg.hidden_dim, num_classes, num_layers=L,
+                   heads=train_cfg.gat_heads,
+                   feat_drop=train_cfg.gat_feat_drop,
+                   attn_drop=train_cfg.gat_attn_drop,
+                   in_dim_pad=in_dim_pad,
+                   compute_dtype=train_cfg.compute_dtype, device=device)
+    if name == "lp_sage":
+        return LinkPredSAGE(in_dim, train_cfg.hidden_dim, num_layers=L,
+                            dropout=train_cfg.dropout,
+                            in_dim_pad=in_dim_pad, device=device)
     raise ValueError(f"unknown model {train_cfg.model!r}")

@@ -1,4 +1,4 @@
-"""Hand-written CUDA kernels: build, bind, and the K1/K2 wrappers.
+"""Hand-written CUDA kernels: build, bind, and the K1/K2/K6/K7 wrappers.
 
 Build (route (b) of the port's kernel rule): at first use, nvcc compiles
 each ``legion_tpu_torch/csrc/*.cu`` in parallel (one nvcc per source) and
@@ -14,6 +14,11 @@ adds one to ``LAUNCHES[name]``.
 
 K1 ``gather_rows`` replaces ``legion_tpu/ops/pallas_segment.py::
 gather_rows_pallas``; K2 ``segment_sum`` replaces ``segment_sum_pallas``.
+K6 ``gat_attend`` replaces the XLA attention of ``legion_tpu/models/gat.py::
+gat_layer_aligned_streaming`` and K7 ``hop_attention`` the XLA
+``legion_tpu/ops/hop_agg.py::hop_softmax_attention``, each with a backward
+kernel (its launches counted under ``<name>_bwd``); K7's plain version
+lives with its caller in ``ops/hop_agg.py``.
 K3 ``windowed_draw`` and K5 ``csr_draw`` live with their callers in
 ``sampling/access.py``, K4 ``cached_gather`` in ``cache/unified_cache.py``;
 host-memory registration for K4 and K5 is ``ops/host_memory.py``. The
@@ -46,7 +51,9 @@ NVCC_FLAGS = GENCODE + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 # show that the main path went through every kernel)
 LAUNCHES: Dict[str, int] = {"gather_rows": 0, "segment_sum": 0,
                             "windowed_draw": 0, "cached_gather": 0,
-                            "csr_draw": 0}
+                            "csr_draw": 0, "gat_attend": 0,
+                            "gat_attend_bwd": 0, "hop_attention": 0,
+                            "hop_attention_bwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -122,8 +129,8 @@ def lib() -> ctypes.CDLL:
     """The built kernel library (built on first call)."""
     build()
     so = ctypes.CDLL(str(library_path()))
-    p, i64, i32, u32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
-                        ctypes.c_uint32)
+    p, i64, i32, u32, f32 = (ctypes.c_void_p, ctypes.c_int64,
+                             ctypes.c_int32, ctypes.c_uint32, ctypes.c_float)
     so.lt_gather_rows.argtypes = [p, p, p, i64, i64, i64, p]
     so.lt_segment_sum_f32.argtypes = [p, p, p, i64, i64, i64, p]
     so.lt_segment_sum_bf16.argtypes = [p, p, p, i64, i64, i64, p]
@@ -134,6 +141,14 @@ def lib() -> ctypes.CDLL:
                                     p, p]
     for fn in (so.lt_csr_draw_i32, so.lt_csr_draw_i64):
         fn.argtypes = [p, i64, i32, p, p, p, p, p, i64, u32, u32, p, p]
+    so.lt_gat_attend_fwd.argtypes = [p, p, p, p, p, p, f32, f32, p, p, p,
+                                     i64, i32, i32, i32, i64, i32, p]
+    so.lt_gat_attend_bwd.argtypes = [p, p, p, p, p, p, f32, f32, p, p, i64,
+                                     i32, i32, i32, i64, i32, p]
+    so.lt_hop_attention_fwd.argtypes = [p, p, p, p, p, f32, p, p, i64, i32,
+                                        i32, i32, i64, i64, i32, p]
+    so.lt_hop_attention_bwd.argtypes = [p, p, p, p, p, p, f32, p, p, i64,
+                                        i32, i32, i32, i64, i64, i32, p]
     so.lt_host_register.argtypes = [p, i64, i32,
                                      ctypes.POINTER(ctypes.c_void_p)]
     so.lt_host_unregister.argtypes = [p]
@@ -141,7 +156,9 @@ def lib() -> ctypes.CDLL:
                so.lt_segment_sum_bf16, so.lt_windowed_draw_i32,
                so.lt_windowed_draw_i64, so.lt_cached_gather,
                so.lt_csr_draw_i32, so.lt_csr_draw_i64, so.lt_host_register,
-               so.lt_host_unregister):
+               so.lt_host_unregister, so.lt_gat_attend_fwd,
+               so.lt_gat_attend_bwd, so.lt_hop_attention_fwd,
+               so.lt_hop_attention_bwd):
         fn.restype = ctypes.c_int
     so.lt_error_string.argtypes = [ctypes.c_int]
     so.lt_error_string.restype = ctypes.c_char_p
@@ -258,3 +275,267 @@ class GatherRows(torch.autograd.Function):
         (ids,) = ctx.saved_tensors
         g = segment_sum(grad_out, ids, ctx.num_rows)
         return g.to(ctx.table_dtype), None
+
+
+# ---------------------------------------------------------------------------
+# K6 gat_attend and K7 hop_attention (GAT attention, forward and backward)
+# ---------------------------------------------------------------------------
+
+MAX_ATTN_FANOUT = 64
+MAX_ATTN_HEADS = 16
+
+
+def _attn_checks(name: str, fanout: int, heads: int, src: torch.Tensor,
+                 hop_offset: torch.Tensor, device: torch.device) -> None:
+    _require(0 < fanout <= MAX_ATTN_FANOUT and 0 < heads <= MAX_ATTN_HEADS,
+             f"{name}: fanout {fanout} (max {MAX_ATTN_FANOUT}), heads "
+             f"{heads} (max {MAX_ATTN_HEADS})")
+    _require(src.dim() == 1 and src.dtype == torch.int32
+             and src.shape[0] % fanout == 0 and src.device == device,
+             f"{name}: edge_src {src.dtype} {tuple(src.shape)} on "
+             f"{src.device}")
+    _require(hop_offset.numel() == 1 and hop_offset.dtype == torch.int32
+             and hop_offset.device == device,
+             f"{name}: hop_offset {hop_offset.dtype} "
+             f"{tuple(hop_offset.shape)} on {hop_offset.device}")
+
+
+def _mask_arg(name: str, mask, shape, device) -> Tuple[object, object]:
+    """(mask tensor kept alive, pointer or None) for a bool keep mask."""
+    if mask is None:
+        return None, None
+    _require(mask.dtype == torch.bool and tuple(mask.shape) == tuple(shape)
+             and mask.device == device,
+             f"{name}: keep mask {mask.dtype} {tuple(mask.shape)} on "
+             f"{mask.device}, want bool {tuple(shape)}")
+    mask = mask.contiguous()
+    return mask, mask.data_ptr()
+
+
+def slice_rows(t: torch.Tensor, offset: torch.Tensor, n: int
+                ) -> torch.Tensor:
+    """t[offset : offset + n] for a device scalar offset (no host sync)."""
+    return t.index_select(0, offset.reshape(()).long()
+                          + torch.arange(n, device=t.device))
+
+
+def gat_scores_plain(x: torch.Tensor, u_l: torch.Tensor, u_r: torch.Tensor,
+                     edge_src: torch.Tensor, hop_offset: torch.Tensor,
+                     fanout: int, aligned_offset: int, slope: float
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K6's scores with the casts of ``gat.py:83-93``: el [fanout, F, H]
+    and er [F, H] are x @ u in x's dtype, widened to f32; alpha [fanout,
+    F, H] f32 is the masked fanout softmax of their LeakyReLU, before
+    dropout."""
+    E = edge_src.shape[0]
+    F = E // fanout
+    H = u_l.shape[1]
+    valid = (edge_src >= 0).reshape(fanout, F)[..., None]
+    er = (slice_rows(x, hop_offset, F) @ u_r).float()
+    el = (x[aligned_offset:aligned_offset + E] @ u_l).float() \
+        .reshape(fanout, F, H)
+    alpha = masked_fanout_softmax(leaky_relu(el + er[None], slope), valid)
+    return el, er, alpha
+
+
+def gat_contract_plain(x: torch.Tensor, alpha: torch.Tensor, keep,
+                       aligned_offset: int) -> torch.Tensor:
+    """K6's fanout contraction (``gat.py:94-99``): alpha [fanout, F, H]
+    f32 through attention dropout, cast to x's dtype, then xw[i, h, k] =
+    sum_f alpha[f, i, h] x[aligned_offset + f*F + i, k] in x's dtype."""
+    fanout, F, _ = alpha.shape
+    if keep is not None:
+        alpha = torch.where(keep[0], alpha * keep[1], 0.0)
+    x_lanes = x[aligned_offset:aligned_offset + fanout * F]
+    return torch.einsum("fih,fik->ihk", alpha.to(x.dtype),
+                        x_lanes.reshape(fanout, F, x.shape[1]))
+
+
+def gat_attend_plain(x: torch.Tensor, u_l: torch.Tensor, u_r: torch.Tensor,
+                     edge_src: torch.Tensor, hop_offset: torch.Tensor,
+                     fanout: int, aligned_offset: int, slope: float,
+                     keep=None) -> torch.Tensor:
+    """K6's plain version, with the casts of ``gat.py:83-99``. Returns xw
+    [F, H, d_in] in x's dtype."""
+    alpha = gat_scores_plain(x, u_l, u_r, edge_src, hop_offset, fanout,
+                             aligned_offset, slope)[2]
+    return gat_contract_plain(x, alpha, keep, aligned_offset)
+
+
+def leaky_relu(x: torch.Tensor, slope: float) -> torch.Tensor:
+    """JAX's form, whose slope at 0 is 1 (torch's is ``slope``): GAT's
+    scores sit at 0 exactly where a zero bias meets a zero row."""
+    return torch.where(x >= 0, x, x * slope)
+
+
+def masked_fanout_softmax(s: torch.Tensor, valid: torch.Tensor
+                          ) -> torch.Tensor:
+    """Softmax over the leading (fanout) axis with invalid lanes left out
+    (alpha 0; a row with no valid lane gives zeros), as the JAX layers
+    take it (``hop_agg.py:111-119``)."""
+    fi = torch.finfo(s.dtype)
+    s = torch.where(valid, s, fi.min)
+    m = s.max(dim=0, keepdim=True).values.detach()
+    e = torch.where(valid, torch.exp(s - m), 0.0)
+    return e / e.sum(dim=0, keepdim=True).clamp(min=fi.tiny)
+
+
+class GatAttend(torch.autograd.Function):
+    """K6, backward K6's second kernel: d_el [fanout, F, H] and d_er
+    [F, H], then du_l = x_lanes^T d_el and du_r = x_dst^T d_er by
+    ``torch.matmul`` in x's dtype, as JAX's transpose of ``x @ u``. x gets
+    no gradient (it is the fetched feature table)."""
+
+    @staticmethod
+    def forward(ctx, x, u_l, u_r, edge_src, hop_offset, fanout,
+                aligned_offset, slope, mask, scale):
+        E = edge_src.shape[0]
+        F = E // fanout
+        d_in, H = u_l.shape
+        xw = torch.empty((F, H, d_in), dtype=x.dtype, device=x.device)
+        alpha = torch.empty((fanout, F, H), dtype=torch.float32,
+                            device=x.device)
+        neg = torch.empty((fanout, F, H), dtype=torch.uint8,
+                          device=x.device)
+        mask, mptr = _mask_arg("gat_attend", mask, (fanout, F, H), x.device)
+        rc = lib().lt_gat_attend_fwd(
+            x.data_ptr(), u_l.data_ptr(), u_r.data_ptr(), edge_src.data_ptr(),
+            hop_offset.data_ptr(), mptr, scale, slope, xw.data_ptr(),
+            alpha.data_ptr(), neg.data_ptr(), F, fanout, H, d_in,
+            aligned_offset, int(x.dtype == torch.bfloat16), stream_handle())
+        check("gat_attend", rc)
+        ctx.save_for_backward(x, edge_src, hop_offset, alpha, neg, mask)
+        ctx.cfg = (fanout, aligned_offset, slope, scale)
+        return xw
+
+    @staticmethod
+    def backward(ctx, dxw):
+        x, edge_src, hop_offset, alpha, neg, mask = ctx.saved_tensors
+        fanout, aligned_offset, slope, scale = ctx.cfg
+        E = edge_src.shape[0]
+        F = E // fanout
+        H = alpha.shape[2]
+        d_in = x.shape[1]
+        dxw = dxw.to(x.dtype).contiguous()
+        d_el = torch.empty_like(alpha)
+        d_er = torch.empty((F, H), dtype=torch.float32, device=x.device)
+        rc = lib().lt_gat_attend_bwd(
+            dxw.data_ptr(), x.data_ptr(), edge_src.data_ptr(),
+            alpha.data_ptr(), neg.data_ptr(),
+            None if mask is None else mask.data_ptr(), scale, slope,
+            d_el.data_ptr(), d_er.data_ptr(), F, fanout, H, d_in,
+            aligned_offset, int(x.dtype == torch.bfloat16), stream_handle())
+        check("gat_attend_bwd", rc)
+        x_lanes = x[aligned_offset:aligned_offset + E]
+        du_l = x_lanes.t() @ d_el.reshape(E, H).to(x.dtype)
+        du_r = slice_rows(x, hop_offset, F).t() @ d_er.to(x.dtype)
+        return (None, du_l, du_r) + (None,) * 7
+
+
+def gat_attend(x: torch.Tensor, u_l: torch.Tensor, u_r: torch.Tensor,
+               edge_src: torch.Tensor, hop_offset: torch.Tensor, fanout: int,
+               aligned_offset: int, slope: float, keep=None) -> torch.Tensor:
+    """K6. x [N, d_in] (bf16 or f32; lanes at aligned_offset + f*F + i,
+    destinations at hop_offset + i), u_l/u_r [d_in, H] in x's dtype,
+    edge_src [fanout*F] int32 (-1 pads), keep = (bool mask [fanout, F, H],
+    scale) or None -> xw [F, H, d_in] in x's dtype."""
+    _require(x.dim() == 2 and u_l.dim() == 2 and u_l.shape == u_r.shape
+             and u_l.shape[0] == x.shape[1],
+             f"gat_attend: x {tuple(x.shape)}, u_l {tuple(u_l.shape)}, "
+             f"u_r {tuple(u_r.shape)}")
+    _require(x.dtype in (torch.bfloat16, torch.float32)
+             and u_l.dtype == x.dtype and u_r.dtype == x.dtype,
+             f"gat_attend: x {x.dtype}, u {u_l.dtype}/{u_r.dtype}")
+    _require(aligned_offset + edge_src.shape[0] <= x.shape[0],
+             "gat_attend: the aligned lanes run past x")
+    tensors = (x, u_l, u_r, edge_src, hop_offset)
+    if all(t.device.type == "cpu" for t in tensors):
+        return gat_attend_plain(x, u_l, u_r, edge_src, hop_offset, fanout,
+                                aligned_offset, slope, keep)
+    _require(x.is_cuda and u_l.device == x.device and u_r.device == x.device,
+             f"gat_attend: x on {x.device}, u_l on {u_l.device}, u_r on "
+             f"{u_r.device}")
+    _attn_checks("gat_attend", fanout, u_l.shape[1], edge_src, hop_offset,
+                 x.device)
+    _require(not x.requires_grad,
+             "gat_attend: x must not require grad (the aligned hop feeds "
+             "layer 0, whose input is the fetched feature table)")
+    mask, scale = keep if keep is not None else (None, 1.0)
+    return GatAttend.apply(x.contiguous(), u_l.contiguous(),
+                           u_r.contiguous(), edge_src.contiguous(),
+                           hop_offset, fanout, int(aligned_offset),
+                           float(slope), mask, float(scale))
+
+
+class HopAttention(torch.autograd.Function):
+    """K7 with its backward kernel: dscores [fanout, F, H] and dz, summed
+    in f32 (atomics on a gathered hop, stores on an aligned one) and cast
+    to z's dtype."""
+
+    @staticmethod
+    def forward(ctx, z2, scores, src_l, hop_offset, fanout, num_dst, heads,
+                aligned_offset, mask, scale):
+        fo, F, H = scores.shape
+        d = z2.shape[1] // heads
+        out = torch.zeros((num_dst, H, d), dtype=torch.float32,
+                          device=z2.device)
+        alpha = torch.empty_like(scores)
+        mask, mptr = _mask_arg("hop_attention", mask, scores.shape,
+                               z2.device)
+        rc = lib().lt_hop_attention_fwd(
+            z2.data_ptr(), scores.data_ptr(), src_l.data_ptr(),
+            hop_offset.data_ptr(), mptr, scale, out.data_ptr(),
+            alpha.data_ptr(), F, fanout, H, d, num_dst, aligned_offset,
+            int(z2.dtype == torch.bfloat16), stream_handle())
+        check("hop_attention", rc)
+        ctx.save_for_backward(z2, src_l, hop_offset, alpha, mask)
+        ctx.cfg = (fanout, num_dst, aligned_offset, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        z2, src_l, hop_offset, alpha, mask = ctx.saved_tensors
+        fanout, num_dst, aligned_offset, scale = ctx.cfg
+        fo, F, H = alpha.shape
+        d = z2.shape[1] // H
+        dout = dout.float().contiguous()
+        dscores = torch.empty_like(alpha)
+        dz = torch.zeros(z2.shape, dtype=torch.float32, device=z2.device)
+        rc = lib().lt_hop_attention_bwd(
+            dout.data_ptr(), z2.data_ptr(), src_l.data_ptr(),
+            hop_offset.data_ptr(), alpha.data_ptr(),
+            None if mask is None else mask.data_ptr(), scale,
+            dscores.data_ptr(), dz.data_ptr(), F, fanout, H, d, num_dst,
+            aligned_offset, int(z2.dtype == torch.bfloat16), stream_handle())
+        check("hop_attention_bwd", rc)
+        return (dz.to(z2.dtype), dscores) + (None,) * 8
+
+
+def hop_attention(z2: torch.Tensor, scores: torch.Tensor,
+                  src_l: torch.Tensor, fanout: int, hop_offset: torch.Tensor,
+                  num_dst: int, heads: int, aligned_offset=None, keep=None
+                  ) -> torch.Tensor:
+    """K7 on CUDA tensors (the CPU path is ``ops/hop_agg.py::
+    hop_softmax_attention_plain``). z2 [N, H*d] bf16 or f32, scores
+    [fanout, F, H] f32 -> [num_dst, H, d] f32, zero outside
+    [offset, offset + F)."""
+    _require(z2.is_cuda and scores.device == z2.device,
+             f"hop_attention: z on {z2.device}, scores on {scores.device}")
+    _require(z2.dim() == 2 and z2.dtype in (torch.bfloat16, torch.float32)
+             and z2.shape[1] % heads == 0,
+             f"hop_attention: z {z2.dtype} {tuple(z2.shape)}, heads {heads}")
+    _attn_checks("hop_attention", fanout, heads, src_l, hop_offset,
+                 z2.device)
+    F = src_l.shape[0] // fanout
+    _require(scores.dtype == torch.float32
+             and tuple(scores.shape) == (fanout, F, heads),
+             f"hop_attention: scores {scores.dtype} {tuple(scores.shape)}")
+    _require(aligned_offset is None
+             or aligned_offset + src_l.shape[0] <= z2.shape[0],
+             "hop_attention: the aligned lanes run past z")
+    mask, scale = keep if keep is not None else (None, 1.0)
+    return HopAttention.apply(
+        z2.contiguous(), scores.contiguous(), src_l.contiguous(), hop_offset,
+        fanout, num_dst, heads,
+        -1 if aligned_offset is None else int(aligned_offset), mask,
+        float(scale))

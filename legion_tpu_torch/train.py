@@ -1,5 +1,8 @@
-"""Single-device trainer: sample -> feature fetch -> GraphSAGE -> Adam
-(port of the fused one-step path of ``legion_tpu/train.py``).
+"""Single-device trainer: sample -> feature fetch -> model -> Adam (port
+of the fused one-step path of ``legion_tpu/train.py``), for GraphSAGE,
+GCN, GAT and link-prediction SAGE (``lp_sage``: loss over (anchor,
+positive, negative) thirds of each batch; its valid metric is the mean
+loss over valid anchors).
 
 One step on one card, eager PyTorch, no host syncs inside the step: seed
 and label banks live on the device, per-step counters stay device
@@ -37,6 +40,7 @@ from legion_tpu_torch.cache.unified_cache import (CachedFeatureSource,
                                                   UnifiedCache)
 from legion_tpu_torch.config import LegionConfig
 from legion_tpu_torch.models.common import make_model
+from legion_tpu_torch.models.lp_sage import check_thirds
 from legion_tpu_torch.ops.host_memory import HostTable
 from legion_tpu_torch.pipeline.schedule import Mode, Schedule
 from legion_tpu_torch.sampling.access import (CachedTopoAccess,
@@ -106,6 +110,10 @@ class Trainer:
         meta = dataset.meta
         V = meta.num_nodes
         scfg = config.sampler
+        self.is_lp = config.train.model.lower() == "lp_sage"
+        if self.is_lp:
+            check_thirds(scfg.batch_size)
+            check_thirds(scfg.eval_batch_size)
 
         device_ds = hasattr(dataset, "device_arrays")
         if device_ds:
@@ -332,7 +340,9 @@ class Trainer:
         gen, eval_gen = torch.Generator(), torch.Generator()
         gen.manual_seed(tcfg.seed + 1)
         eval_gen.manual_seed(tcfg.seed + 2)
-        zero = lambda: torch.zeros((), dtype=torch.int32,  # noqa: E731
+        # lp_sage sums a loss into "correct": f32 counters
+        mdt = torch.float32 if self.is_lp else torch.int32
+        zero = lambda: torch.zeros((), dtype=mdt,  # noqa: E731
                                    device=self.device)
         return {"model": self.model, "opt": opt, "gen": gen,
                 "eval_gen": eval_gen, "train_ctr": 0, "valid_ctr": 0,
@@ -357,8 +367,12 @@ class Trainer:
         model, opt = state["model"], state["opt"]
         model.train()
         self._drop_gen.manual_seed(fold_in(key, _DROPOUT_TAG) & (2**63 - 1))
-        logits = model(x, batch, self.sampler_t.config, self._drop_gen)
-        loss = _masked_ce(logits, y, seeds >= 0)
+        scfg = self.sampler_t.config
+        if self.is_lp:
+            loss = model.loss(x, batch, scfg, seeds >= 0, self._drop_gen)
+        else:
+            logits = model(x, batch, scfg, self._drop_gen)
+            loss = _masked_ce(logits, y, seeds >= 0)
         opt.zero_grad(set_to_none=True)
         loss.backward()
         opt.step()
@@ -423,10 +437,17 @@ class Trainer:
         y = ybank[lid * bs:(lid + 1) * bs]
         model = state["model"]
         model.eval()
-        pred = model(x, batch, sampler.config).argmax(dim=-1)
         valid = seeds >= 0
-        state["correct"] += ((pred == y) & valid).sum(dtype=torch.int32)
-        state["total"] += valid.sum(dtype=torch.int32)
+        if self.is_lp:
+            # the reference's valid_one_step (lp_sage.py:99-115,206-215)
+            t = valid[:bs // 3].sum(dtype=torch.int32).float()
+            loss = model.loss(x, batch, sampler.config, valid)
+            state["correct"] += loss * t
+            state["total"] += t
+        else:
+            pred = model(x, batch, sampler.config).argmax(dim=-1)
+            state["correct"] += ((pred == y) & valid).sum(dtype=torch.int32)
+            state["total"] += valid.sum(dtype=torch.int32)
         state[ctr] += 1
 
     def run_eval(self, state: Dict, mode: Mode) -> Tuple[Dict, float]:

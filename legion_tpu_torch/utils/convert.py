@@ -31,13 +31,13 @@ def _f32(a, device) -> torch.Tensor:
 
 def params_from_jax(tree, device: torch.device = "cpu"
                     ) -> Dict[str, torch.Tensor]:
-    """``{"layers": [{"w_self", "w_neigh", "b"}, ...]}`` -> a GraphSAGE
-    ``state_dict`` (f32; padded arrays are copied as they are)."""
-    out = {}
-    for i, layer in enumerate(tree["layers"]):
-        for name in ("w_self", "w_neigh", "b"):
-            out[f"layers.{i}.{name}"] = _f32(layer[name], device)
-    return out
+    """``{"layers": [{name: array, ...}, ...]}`` of any of the four models
+    -> the port's ``state_dict``: every array of layer i under
+    ``layers.{i}.{name}``, f32, in its own shape (GAT's ``w`` stays
+    [d_in, H, d_out]; padded arrays are copied as they are)."""
+    return {f"layers.{i}.{name}": _f32(arr, device)
+            for i, layer in enumerate(tree["layers"])
+            for name, arr in layer.items()}
 
 
 def batch_from_jax(batch, device: torch.device = "cpu") -> SampleBatch:
