@@ -5,7 +5,10 @@ CUDA card, nvcc (``$CUDA_HOME`` or ``/usr/local/cuda``) and no network.
 
   1. builds the hand-written kernels from ``legion_tpu_torch/csrc``;
   2. holds K1-K3 against their plain PyTorch versions on the card, at
-     the shapes the main path gives them, and times both;
+     the shapes the main path gives them, and times both, beside each
+     kernel's bound (the least time the card could take for the same
+     bytes and operations) and, where one PyTorch call computes the same
+     function, that call;
   3. drives the main path through the public API at the bench
      configuration (``bench.py`` defaults: 2.4M vertices, 120M edges,
      GraphSAGE [25,10], batch 8000, hidden 256, bf16 features, 64-wide
@@ -14,7 +17,9 @@ CUDA card, nvcc (``$CUDA_HOME`` or ``/usr/local/cuda``) and no network.
   3b. on the same device dataset, at ``bench.py --model X`` settings:
      GAT (heads (8,1), feature and attention dropout 0.6, aligned last
      hop), after holding K6 and K7 against their plain versions at its
-     shapes, forward and backward, with and without attention dropout;
+     shapes, forward and backward, with and without attention dropout,
+     and K6 at the edges of its shapes (heads, widths and fanouts inside
+     and outside its tensor-core path, both dtypes);
      GCN (exact last-hop dedup), after holding K7 at the exact-dedup GAT
      layer-0 shape of one of its batches; link-prediction SAGE (batch
      7998, eval batch 510); each for train steps and an eval pass;
@@ -24,8 +29,12 @@ CUDA card, nvcc (``$CUDA_HOME`` or ``/usr/local/cuda``) and no network.
      (2.4M vertices, about 120M edges, f32 features in host RAM) and its
      trainers: H (features on the host, a 200 MB bf16 cache planned by
      hotness), HT (features and topology on the host, the same budget
-     split by the cost model); holds K4 and K5 against their plain
-     versions at HT's shapes and times both;
+     split by the cost model); measures what the link gives (a bulk copy
+     and bare reads of one HT batch's miss rows from the registered
+     table); holds K4 and K5 against their plain versions at HT's shapes
+     and times both, and K4 at the edges of its shapes (widths, dtypes,
+     misaligned tables, pads and ids past the tables, all hits, all
+     misses, no ids);
   6. drives H, HT and the same dataset with the cache off (everything
      copied to the card), each for train steps and an eval pass, with
      per-step times and hit counters, and the launches of each path;
@@ -35,6 +44,11 @@ CUDA card, nvcc (``$CUDA_HOME`` or ``/usr/local/cuda``) and no network.
 Prints the card's ``name, power.limit`` line, the per-kernel JSON line and,
 last, ``{"ok": true, "device": ...}`` only when every phase passed. Any
 failure exits non-zero without that line.
+
+``python3 chip_smoke.py --profile gat,H,HT`` runs none of the phases: it
+takes the named paths (of device, gat, gcn, lp_sage, H, HT, cache-off)
+through ``torch.profiler`` and prints where a train step's device time
+goes (``phase_profile``).
 """
 
 import json
@@ -89,6 +103,50 @@ MODEL_SAMPLER = {"gat": {}, "gcn": dict(dedup_last_hop=True),
                  "lp_sage": dict(batch_size=7998, eval_batch_size=510)}
 
 
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense): device
+# memory bytes/s, and operations/s by input type
+HBM_BPS = 3.35e12
+PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
+
+
+def nb(*tensors):
+    """Bytes of the tensors."""
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def distinct(ids):
+    """How many distinct valid ids."""
+    return int(ids[ids >= 0].unique().numel())
+
+
+def bound(dev_bytes, ops=0.0, peak="f32", link_bytes=0.0, link_bps=None):
+    """The least milliseconds the card could take, and what sets it: the
+    larger of the bytes the function must move (each input read once, each
+    output written once; device memory at its peak rate, and bytes that
+    cross PCIe at the rate a bulk copy from the same registered memory
+    reached in this run) and its operations at the peak rate of their
+    type. Returns (ms, "bytes" | "operations")."""
+    t_bytes = dev_bytes / HBM_BPS
+    if link_bytes:
+        t_bytes = max(t_bytes, link_bytes / link_bps)
+    t_ops = ops / PEAK_OPS[peak]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def add_main(results, main):
+    """Per train step of a kernel's path: the sums over its launches there
+    of kernel, plain, bound and library-call times (None where a launch
+    has no library call)."""
+    for name, times in main.items():
+        lib = [t[3] for t in times]
+        results[name].update(
+            ms=sum(t[0] for t in times), plain_ms=sum(t[1] for t in times),
+            bound_ms=sum(t[2][0] for t in times),
+            bound_by=max(times, key=lambda t: t[2][0])[2][1],
+            library_ms=None if None in lib else sum(lib))
+
+
 def fail(msg):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
@@ -109,9 +167,12 @@ def cuda_ms(fn, torch, iters=TIMING_ITERS):
 
 
 def compare(name, kernel, plain, tol, results, torch, shape_note,
-            iters=TIMING_ITERS):
+            iters=TIMING_ITERS, least=None, library=None):
     """Run kernel and plain once, check, then time plain, kernel, kernel,
-    plain. tol(k, p) -> (max_abs_err, ok)."""
+    plain. tol(k, p) -> (max_abs_err, ok). ``least`` is the kernel's
+    ``bound`` for these inputs, ``library`` one PyTorch call that computes
+    the same function (timed, used nowhere else). Returns (kernel ms,
+    plain ms, least, library ms or None)."""
     k, p = kernel(), plain()
     torch.cuda.synchronize()
     err, ok = tol(k, p)
@@ -124,11 +185,18 @@ def compare(name, kernel, plain, tol, results, torch, shape_note,
     tk2 = cuda_ms(kernel, torch, iters)
     tp2 = cuda_ms(plain, torch, iters)
     ms, plain_ms = (tk1 + tk2) / 2, (tp1 + tp2) / 2
-    print(f"  {name:14s} {shape_note:52s} max_abs_err {err:.3g} | kernel "
-          f"{ms:.4f} ms | plain {plain_ms:.4f} ms")
+    lib_ms = None if library is None else cuda_ms(library, torch, iters)
+    msg = (f"  {name:14s} {shape_note:52s} max_abs_err {err:.3g} | kernel "
+           f"{ms:.4f} ms | plain {plain_ms:.4f} ms")
+    if least is not None:
+        msg += (f" | bound {least[0]:.4f} ms by {least[1]} (share "
+                f"{least[0] / ms:.3f})")
+    if lib_ms is not None:
+        msg += f" | library call {lib_ms:.4f} ms"
+    print(msg)
     r = results.setdefault(name, {"max_abs_err": 0.0})
     r["max_abs_err"] = max(r["max_abs_err"], err)
-    return ms, plain_ms
+    return ms, plain_ms, least, lib_ms
 
 
 def exact(k, p):
@@ -169,7 +237,7 @@ def bf16_ulp(k, p, atol=1e-5):
     return diff.max().item(), ok
 
 
-def k6_bf16_tol(args, torch):
+def k6_bf16_tol(args, torch, allow=None, du_atol=2.0 ** -11, quiet=False):
     """K6 in bf16 against its plain version, outputs (xw,) or (xw, du_l,
     du_r). Both round each score x @ u, alpha and d alpha to bf16 from f32
     sums taken in different orders; where such a sum lies within f32
@@ -179,14 +247,17 @@ def k6_bf16_tol(args, torch):
       - alpha before dropout (K6 saves it for its backward) equals the
         plain version's within f32 rounding (rtol 1e-4, atol 1e-6) in
         every (row, head) but those where a score rounded apart, at most
-        one in 1000; there it is within the first-order effect of one
-        bf16 ulp in each score, 4 alpha (ulp(el) + ulp(er));
+        one in 1000 (``allow`` pairs where given: a small shape has too
+        few pairs for a share); there it is within the first-order effect
+        of one bf16 ulp in each score, 4 alpha (ulp(el) + ulp(er));
       - xw is within one bf16 ulp, elementwise, of the plain contraction
         of K6's own alpha;
       - du_l and du_r, x^T d_el over about 1M products in both versions,
         are within one bf16 ulp plus 2^-11 max|ref|, elementwise: each
         score or d alpha rounded apart moves every element of the sum by
-        a like absolute amount."""
+        a like absolute amount (``du_atol`` where given: a small shape
+        sums a few thousand products, and one d alpha rounded apart is a
+        larger share of so short a sum)."""
     from legion_tpu_torch.ops import kernels
     x, u_l, u_r, src, off, fo, ao, slope, keep = args
     xw = kernels.gat_attend(*args)
@@ -201,18 +272,22 @@ def k6_bf16_tol(args, torch):
     step = ulp_bf16(el).amax(dim=0) + ulp_bf16(er)        # [F, H]
     lim = torch.where(apart[None], noise + 4 * alpha_p * step[None], noise)
     n_apart = int(apart.sum())
-    ok_alpha = (n_apart <= apart.numel() // 1000
-                and bool((diff <= lim).all().item()))
-    print(f"    K6 alpha: scores rounded apart in {n_apart} of "
-          f"{apart.numel()} (row, head) pairs; within bound: {ok_alpha}")
+    if allow is None:
+        allow = apart.numel() // 1000
+    ok_alpha = n_apart <= allow and bool((diff <= lim).all().item())
+    if not quiet:
+        print(f"    K6 alpha: scores rounded apart in {n_apart} of "
+              f"{apart.numel()} (row, head) pairs; within bound: {ok_alpha}")
     del xw
 
     def tol(ks, ps):
         errs = [(k.float() - p.float()).abs().max().item()
                 for k, p in zip(ks, ps)]
         oks = [ok_alpha, bf16_ulp(ks[0], ref)[1]]
-        oks += [bf16_ulp(k, p, atol=2.0 ** -11)[1]
+        oks += [bf16_ulp(k, p, atol=du_atol)[1]
                 for k, p in zip(ks[1:], ps[1:])]
+        if not all(oks):
+            print(f"    K6 within bound (alpha, xw, du_l, du_r): {oks}")
         return max(errs), all(oks)
     return tol
 
@@ -266,22 +341,38 @@ def phase_kernels(tr, torch):
 
     # K3: bit for bit, both hops
     for f, fo, key in ((f0, 25, 5), (f1, 10, 6)):
+        # the frontier, a (start, degree) pair per valid slot, one int32
+        # per draw read and one written
+        valid = int((f >= 0).sum())
+        least = bound(nb(f) + valid * 2 * acc.row_pairs.element_size()
+                      + 4 * valid * fo + 4 * f.shape[0] * fo)
         main.setdefault("windowed_draw", []).append(compare(
             "windowed_draw",
             lambda: access.windowed_draw(acc.row_pairs, acc.indices2d, f,
                                          fo, key),
             lambda: access.windowed_draw_plain(acc.row_pairs, acc.indices2d,
                                                f, fo, key),
-            exact, results, torch, f"frontier {f.shape[0]} fanout {fo}"))
+            exact, results, torch, f"frontier {f.shape[0]} fanout {fo}",
+            least=least))
 
     # K1: exact
     table = tr.feature_source.features
     nid = batch.node_ids[:s.max_ids]
+    def k1_least(tbl, ids):
+        # the ids, each distinct row read once, every output row written
+        row = tbl.shape[1] * tbl.element_size()
+        return bound(nb(ids) + (distinct(ids) + ids.shape[0]) * row)
+
+    def k1_library(tbl, ids):
+        idx = ids.clamp(min=0).long()
+        return lambda: tbl.index_select(0, idx)
+
     main["gather_rows"] = [compare(
         "gather_rows", lambda: kernels.gather_rows(table, nid),
         lambda: kernels.gather_rows_plain(table, nid), exact, results,
         torch, f"fetch [{table.shape[0]},{table.shape[1]}] bf16 x "
-               f"{nid.shape[0]}")]
+               f"{nid.shape[0]}", least=k1_least(table, nid),
+        library=k1_library(table, nid))]
     ids = torch.randint(0, table.shape[0], (1_247_232,), generator=g,
                         device=dev, dtype=torch.int32)
     ids[torch.rand(ids.shape, generator=g, device=dev) < 0.05] = -1
@@ -294,15 +385,24 @@ def phase_kernels(tr, torch):
     main["gather_rows"].append(compare(
         "gather_rows", lambda: kernels.gather_rows(hp, src0),
         lambda: kernels.gather_rows_plain(hp, src0), exact, results, torch,
-        f"layer-1 msgs [{S1},128] bf16 x {src0.shape[0]}"))
+        f"layer-1 msgs [{S1},128] bf16 x {src0.shape[0]}",
+        least=k1_least(hp, src0), library=k1_library(hp, src0)))
 
     # K2: f32 atomic order
     dmsg = torch.randn((src0.shape[0], 128), generator=g,
                        device=dev).to(torch.bfloat16)
+    # the rows and their segments read, the f32 sums written; one add per
+    # valid element
+    seg_idx = torch.where(src0 >= 0, src0, S1).long()
+    dmsg32 = dmsg.float()
     main["segment_sum"] = [compare(
         "segment_sum", lambda: kernels.segment_sum(dmsg, src0, S1),
         lambda: kernels.segment_sum_plain(dmsg, src0, S1), f32_atomic_order,
-        results, torch, f"layer-1 bwd E {src0.shape[0]} -> S {S1} bf16")]
+        results, torch, f"layer-1 bwd E {src0.shape[0]} -> S {S1} bf16",
+        least=bound(nb(dmsg, src0) + 4 * S1 * 128,
+                    ops=int((src0 >= 0).sum()) * 128),
+        library=lambda: torch.zeros(
+            (S1 + 1, 128), device=dev).index_add_(0, seg_idx, dmsg32))]
     seg = torch.randint(-1, 8192, (200_704,), generator=g, device=dev,
                         dtype=torch.int32)
     for dt in (torch.float32, torch.bfloat16):
@@ -314,9 +414,7 @@ def phase_kernels(tr, torch):
     # per train step: the sum over the main path's launches of a kernel
     # (K3: both hops; K1: feature fetch + layer-1 message gather; K2: the
     # layer-1 backward)
-    for name, times in main.items():
-        results[name].update(ms=sum(t[0] for t in times),
-                             plain_ms=sum(t[1] for t in times))
+    add_main(results, main)
     return results
 
 
@@ -335,6 +433,7 @@ def phase_slice(tr, torch, path):
     losses, counters = [], []
     ev = [torch.cuda.Event(enable_timing=True)
           for _ in range(TRAIN_STEPS + 1)]
+    before = dict(kernels.LAUNCHES)
     t0 = time.perf_counter()
     ev[0].record()
     for i in range(TRAIN_STEPS):
@@ -346,6 +445,8 @@ def phase_slice(tr, torch, path):
             tr.last_topo_hits, tr.last_topo_total]))
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+    per_step = {k: (v - before[k]) / TRAIN_STEPS
+                for k, v in kernels.LAUNCHES.items()}
     state, acc = tr.run_eval(state, Mode.VALID)
     torch.cuda.synchronize()
     counts = dict(kernels.LAUNCHES)
@@ -370,7 +471,9 @@ def phase_slice(tr, torch, path):
           f"{(slots - hits) * F * 4 / 1e6 / TRAIN_STEPS:.3f} | {metric} "
           f"after {WARMUP_STEPS + TRAIN_STEPS} steps {acc:.4f} | peak mem "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    print(f"  launches on the {path} path: {counts}")
+    print(f"  launches on the {path} path: {counts}\n  launches per train "
+          f"step: { {k: v for k, v in per_step.items() if v} }")
+    counts["per_step"] = per_step
     if not all(math.isfinite(x) for x in losses):
         fail(f"{path}: non-finite loss {losses}")
     # lp_sage's valid metric is its mean loss over valid anchors
@@ -429,6 +532,25 @@ def k6_compares(tr, torch, results, main):
     F, d_in = src.shape[0] // fo, x.shape[1]
     H = p["attn_l"].shape[0]
     keep = dropout_keep((fo, F, H), 0.6, g, "cuda")
+
+    def least(es, kp, bwd):
+        """K6's bound. Forward: the lanes and the destinations, u, the lane
+        ids and the mask read; xw, alpha and the sign written. Backward
+        (with its two du GEMMs): dxw, the lanes, the destinations, alpha,
+        the sign, the ids and the mask read; du written."""
+        rows, flags = (fo + 1) * F * d_in * es, fo * F * H
+        m = flags if kp is not None else 0
+        peak = "bf16" if es == 2 else "f32"
+        fwd = bound(rows + 2 * d_in * H * es + nb(src) + m
+                    + F * H * d_in * es + 5 * flags,
+                    ops=2 * F * d_in * H * (2 * fo + 1), peak=peak)
+        if not bwd:
+            return fwd
+        b = bound(F * H * d_in * es + rows + 5 * flags + nb(src) + m
+                  + 2 * d_in * H * es,
+                  ops=2 * F * d_in * H * (2 * fo + 1), peak=peak)
+        return fwd[0] + b[0], fwd[1]
+
     for dt in (torch.bfloat16, torch.float32):
         w = p["w"].detach().to(dt)
         u = [torch.einsum("khd,hd->kh", w, p[a].detach().to(dt))
@@ -444,11 +566,69 @@ def k6_compares(tr, torch, results, main):
                                torch)
             note = (f"L0 {F}x{fo}x{H}x{d_in} {str(dt)[6:]}"
                     f"{' drop u8' if kp else ''}")
-            compare("gat_attend", kf, pf, tol, results, torch, note + " fwd")
+            es = xd.element_size()
+            compare("gat_attend", kf, pf, tol, results, torch, note + " fwd",
+                    least=least(es, kp, False))
             t_b = compare("gat_attend", kb, pb, tol, results, torch,
-                          note + " fwd+bwd")
+                          note + " fwd+bwd", least=least(es, kp, True))
             if dt == torch.bfloat16 and kp is not None:
                 main["gat_attend"] = [t_b]
+
+
+def k6_edges(torch, results):
+    """K6 at the edges of its shapes, forward and backward against the
+    plain version on random inputs, 517 rows: heads 1, 3, 8; widths 100,
+    128, 602; fanouts 1, 10, 33 (the tensor-core path takes bf16 at width
+    128 and fanouts 1 and 10; the general kernels the rest); bf16 (as
+    ``k6_bf16_tol``, with up to 8 + 1/200 of the pairs apart and du within
+    one ulp plus 2^-7 max|ref|) and f32 (``close_f32``); with the dropout mask and without; a tenth of the
+    lanes invalid, and one row with no valid lane."""
+    from legion_tpu_torch.models.common import dropout_keep
+    from legion_tpu_torch.ops import kernels
+    g = torch.Generator(device="cuda")
+    g.manual_seed(14)
+    F, n, worst = 517, 0, 0.0
+    for H in (1, 3, 8):
+        for d_in in (100, 128, 602):
+            for fo in (1, 10, 33):
+                ao = F + 11
+                N = ao + fo * F
+                x32 = torch.randn((N, d_in), generator=g, device="cuda")
+                u32 = [torch.randn((d_in, H), generator=g, device="cuda")
+                       * 0.1 for _ in range(2)]
+                src = torch.randint(0, N, (fo * F,), generator=g,
+                                    device="cuda", dtype=torch.int32)
+                src[torch.rand(src.shape, generator=g, device="cuda")
+                    < 0.1] = -1
+                src.view(fo, F)[:, 3] = -1
+                off = torch.tensor(7, dtype=torch.int32, device="cuda")
+                keep = dropout_keep((fo, F, H), 0.6, g, "cuda")
+                g32 = torch.randn((F, H, d_in), generator=g, device="cuda")
+                for dt in (torch.bfloat16, torch.float32):
+                    u = [t.to(dt).requires_grad_() for t in u32]
+                    for kp in (keep, None):
+                        args = (x32.to(dt), u[0], u[1], src, off, fo, ao,
+                                0.2, kp)
+                        tol = k6_bf16_tol(args, torch, F * H // 200 + 8,
+                                          2.0 ** -7, quiet=True) \
+                            if dt == torch.bfloat16 \
+                            else tuple_tol(close_f32, close_f32, close_f32)
+                        kb = attn_pair(kernels.gat_attend, args, u,
+                                       g32.to(dt), torch)[1]
+                        pb = attn_pair(kernels.gat_attend_plain, args, u,
+                                       g32.to(dt), torch)[1]
+                        err, ok = tol(kb(), pb())
+                        if not ok:
+                            fail(f"gat_attend edge H {H} d_in {d_in} fanout "
+                                 f"{fo} {dt} mask {kp is not None}: kernel "
+                                 f"disagrees with its plain version (max "
+                                 f"abs err {err})")
+                        n, worst = n + 1, max(worst, err)
+    print(f"  gat_attend     {n} edge cases (heads 1/3/8, widths "
+          f"100/128/602, fanouts 1/10/33, bf16 and f32, mask or none), "
+          f"fwd+bwd: all within tolerance, max_abs_err {worst:.3g}")
+    r = results["gat_attend"]
+    r["max_abs_err"] = max(r["max_abs_err"], worst)
 
 
 def k7_compares(tr, torch, results, main):
@@ -493,11 +673,23 @@ def k7_compares(tr, torch, results, main):
             else f32_atomic_order
         note = (f"L1 {F}x{fo}x{H}x{d} z[{n}] {str(dt)[6:]}"
                 f"{' drop' if kp else ''}{' aligned' if ao else ''}")
+        # forward: each distinct source row of z, the scores, the lane ids
+        # and the mask read; the destinations and alpha written. Backward:
+        # the same rows, d out, alpha, the ids and the mask read; d scores
+        # and dz written.
+        zrow, flags = H * d * z.element_size(), fo * F * H
+        m = flags if kp is not None else 0
+        zrows = (sl.shape[0] if ao is not None else distinct(sl)) * zrow
+        fwd = bound(zrows + 8 * flags + nb(sl) + m + S[0] * H * d * 4,
+                    ops=2 * flags * d)
+        bwd = bound(zrows + F * H * d * 4 + 8 * flags + nb(sl) + m
+                    + n * zrow, ops=4 * flags * d)
         compare("hop_attention", kf, pf, tuple_tol(close_f32), results,
-                torch, note + " fwd")
+                torch, note + " fwd", least=fwd)
         t_b = compare("hop_attention", kb, pb,
                       tuple_tol(close_f32, dz_tol, close_f32), results,
-                      torch, note + " fwd+bwd")
+                      torch, note + " fwd+bwd",
+                      least=(fwd[0] + bwd[0], fwd[1]))
         if dt == torch.bfloat16 and kp is not None and ao is None:
             main["hop_attention"] = [t_b]
 
@@ -670,11 +862,25 @@ def phase_host_kernels(tr_h, tr_ht, torch):
         hit = (acc.row_map[front.clamp(min=0).long()] >= 0) & (front >= 0)
         return float(hit.sum()) / max(float((front >= 0).sum()), 1.0)
 
+    nid = batch.node_ids[:s.max_ids]
+    feat_host = tr_ht.feature_source.host
+    _, hit = tr_ht.cache.find_feat(nid)
+    miss = nid[(nid >= 0) & ~hit & (nid < feat_host.shape[0])].contiguous()
+    link_bps = link_probe(feat_host, miss, torch)
+
     for f, fo, key in ((f0, 25, 5), (f1, 10, 6)):
+        # a cached slot reads its row's two offsets and one int32 per draw
+        # from device memory, any other the same over PCIe
+        valid = int((f >= 0).sum())
+        n_hit = round(hit_share(f) * valid)
+        per = 16 + 4 * fo
+        least = bound(nb(f) + 4 * valid + n_hit * per + 4 * f.shape[0] * fo,
+                      link_bytes=(valid - n_hit) * per, link_bps=link_bps)
         main.setdefault("csr_draw", []).append(compare(
             "csr_draw", k5(f, fo, key, host + cached),
             p5(f, fo, key, dev_host + cached), exact, results, torch,
-            f"HT frontier {f.shape[0]} x {fo}, {hit_share(f):.3f} cached"))
+            f"HT frontier {f.shape[0]} x {fo}, {hit_share(f):.3f} cached",
+            least=least))
     ref = access.csr_draw(f1, 10, 6, *host, *cached)
     if not bool((acc.row_map >= 0).any()):
         # HT's plan gave the topology cache no rows: hold K5's hit path
@@ -714,26 +920,136 @@ def phase_host_kernels(tr_h, tr_ht, torch):
             fail(f"csr_draw: the {what} draws differ from HT's draws")
 
     for tr, name in ((tr_ht, "HT"), (tr_h, "H")):
-        nid = batch.node_ids[:s.max_ids]
         cache, ht = tr.cache, tr.feature_source.host
         kh = cached_gather(cache, ht, nid)[1]
         ph = cached_gather_plain(cache, ht.device, nid)[1]
         if int(kh) != int(ph):
             fail(f"cached_gather {name}: hit count {int(kh)} != plain "
                  f"{int(ph)}")
+        # device memory: the ids, a slot per valid id, each distinct cached
+        # row read, every output row written; PCIe: each distinct missed
+        # row once
+        _, hit = cache.find_feat(nid)
+        from_host = (nid >= 0) & ~hit & (nid < ht.shape[0])
+        row_c = cache.cache_rows.shape[1] * cache.cache_rows.element_size()
+        least = bound(nb(nid) + 4 * int((nid >= 0).sum())
+                      + (distinct(nid[hit]) + nid.shape[0]) * row_c,
+                      link_bytes=distinct(nid[from_host]) * ht.shape[1] * 4,
+                      link_bps=link_bps)
+        rows_host, idx = ht.device, nid[from_host].long()
         t = compare(
             "cached_gather", lambda: cached_gather(cache, ht, nid)[0],
             lambda: cached_gather_plain(cache, ht.device, nid)[0], exact,
             results, torch,
             f"{name} fetch {nid.shape[0]} ids, "
-            f"{int(kh) / max(int((nid >= 0).sum()), 1):.3f} hits")
+            f"{int(kh) / max(int((nid >= 0).sum()), 1):.3f} hits",
+            least=least, library=lambda: rows_host[idx])
         if name == "HT":
             main["cached_gather"] = [t]
+    k4_edges(torch)
     # per train step of HT: K4 once (the fetch), K5 once per hop
-    for name, times in main.items():
-        results[name].update(ms=sum(t[0] for t in times),
-                             plain_ms=sum(t[1] for t in times))
+    add_main(results, main)
     return results
+
+
+def link_probe(ht, miss, torch):
+    """What the link gives from a registered host table: a bulk copy of as
+    many bytes as the miss rows hold (the copy engine), and bare reads of
+    the rows by the SMs as K4's miss path reads them (a warp a row, nothing
+    converted or stored), in batch order, sorted, and each distinct row
+    once, each with the row's own bytes asked for and with whole 128-byte
+    lines; and, as the two ends of what address order is worth, as many
+    contiguous rows and uniform random rows. Returns the bulk copy's bytes
+    per second."""
+    from legion_tpu_torch.ops import host_memory
+    host_t = ht.device
+    row = host_t.shape[1] * host_t.element_size()
+    words = miss.numel() * host_t.shape[1]
+    dst = torch.empty(words, dtype=host_t.dtype, device="cuda")
+    flat = host_t.view(-1)
+    ms = cuda_ms(lambda: dst.copy_(flat[:words], non_blocking=True), torch)
+    bps = words * host_t.element_size() / ms * 1e3
+    print(f"  link: bulk copy of {words * host_t.element_size()} B from the "
+          f"registered table {ms:.4f} ms, {bps / 1e9:.2f} GB/s")
+    uniq = miss.unique().to(torch.int32)
+    print(f"  link: {miss.numel()} miss slots, {uniq.numel()} distinct rows "
+          f"(share {uniq.numel() / max(miss.numel(), 1):.4f})")
+    n, rows = uniq.numel(), host_t.shape[0]
+    g = torch.Generator(device="cuda")
+    g.manual_seed(6)
+    for what, ids, aligns in (
+            ("miss slots in batch order", miss, (16, 128)),
+            ("miss slots sorted", miss.sort().values, (16, 128)),
+            ("distinct missed rows, sorted", uniq, (16, 128)),
+            ("contiguous rows", torch.arange(
+                n, dtype=torch.int32, device="cuda") % rows, (16,)),
+            ("uniform random rows", torch.randint(
+                0, rows, (n,), generator=g, device="cuda",
+                dtype=torch.int32), (16,))):
+        for align in aligns:
+            ms = cuda_ms(lambda: host_memory.read_probe(ht, ids, align),
+                         torch, 10)
+            print(f"  link: SM reads of {ids.numel()} rows of {row} B, "
+                  f"{what}, {align}-byte spans: {ms:.4f} ms, "
+                  f"{ids.numel() * row / ms / 1e6:.2f} GB/s of row bytes")
+    return bps
+
+
+def k4_edges(torch):
+    """K4 at the edges of its shapes, rows and hit count exact against the
+    plain version: widths 1, 100, 128, 602; bf16 and f32 caches; a host
+    table of 1000 rows whose base is 128-byte aligned, 16-byte aligned
+    only, and 4-byte aligned only, registered to its last byte; a slot map
+    longer than the host table; ids with duplicates, pads, ids past the
+    host table and past the slot map, the table's first and last rows as
+    misses; all hits; all misses; no ids."""
+    import numpy as np
+    from legion_tpu_torch.cache.unified_cache import (UnifiedCache,
+                                                      cached_gather,
+                                                      cached_gather_plain)
+    from legion_tpu_torch.ops.host_memory import HostTable
+    rng = np.random.default_rng(5)
+    rows_h, V, C, n = 1000, 1200, 300, 0
+    hot = 1 + rng.permutation(rows_h - 2)[:C]       # rows 0 and 999 miss
+    cold = np.setdiff1d(np.arange(rows_h), hot)
+    slot_map = torch.full((V,), -1, dtype=torch.int32)
+    slot_map[torch.from_numpy(hot)] = torch.arange(C, dtype=torch.int32)
+    slot_map[V - 1] = 0                     # ids past the map clamp to a hit
+    mixed = rng.integers(0, rows_h, 1003)
+    mixed[rng.random(1003) < 0.1] = -1
+    mixed[:8] = (0, rows_h - 1, rows_h, V - 2, V - 1, V + 5, 2**31 - 1, 0)
+    id_sets = {"mixed": mixed, "all hits": rng.choice(hot, 257),
+               "all misses": np.concatenate([[0, rows_h - 1],
+                                             rng.choice(cold, 94)]),
+               "no ids": np.zeros(0)}
+    for F in (1, 100, 128, 602):
+        for shift in (0, 16, 4):
+            buf = np.empty(rows_h * F + 64, np.float32)
+            base = (-buf.ctypes.data) % 128 // 4 + shift // 4
+            arr = buf[base:base + rows_h * F].reshape(rows_h, F)
+            arr[:] = rng.standard_normal((rows_h, F), dtype=np.float32)
+            if arr.ctypes.data % 128 != shift:
+                fail("cached_gather edges: the table's base is not where "
+                     "the case wants it")
+            ht = HostTable(arr, pin=True)
+            for dt in (torch.bfloat16, torch.float32):
+                cache = UnifiedCache(
+                    torch.from_numpy(arr[hot]).to(dt).cuda(),
+                    slot_map.cuda(), None, None, None, C, 0)
+                for what, ids in id_sets.items():
+                    ids = torch.from_numpy(ids.astype(np.int32)).cuda()
+                    k, kh = cached_gather(cache, ht, ids)
+                    p, ph = cached_gather_plain(cache, ht.device, ids)
+                    if not exact(k, p)[1] or int(kh) != int(ph):
+                        fail(f"cached_gather edge F {F} base % 128 = {shift}"
+                             f" {dt} {what}: kernel differs from its plain "
+                             f"version (hits {int(kh)} / {int(ph)})")
+                    n += 1
+            torch.cuda.synchronize()
+            ht.close()
+    print(f"  cached_gather  {n} edge cases (widths 1/100/128/602, table "
+          f"base 128-/16-/4-byte aligned, bf16 and f32, mixed ids / all "
+          f"hits / all misses / no ids): all exact")
 
 
 def phase_host_reference(torch):
@@ -765,6 +1081,83 @@ def phase_host_reference(torch):
     trs[1].close()
 
 
+def phase_profile(names, torch):
+    """Where a train step's device time goes on the named paths: after 5
+    warm-up steps, three unprofiled runs of 10 steps (host clock, ms per
+    step), then 5 steps under ``torch.profiler``: the kernels' summed
+    device time and the span from the first kernel's start to the last
+    one's end (both per step; what is left of the span is the device's
+    idle time, an upper bound, since the profiler slows the host), the
+    largest device costs by the torch op that launched them, and every
+    hand-written kernel (they are launched outside any torch op)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from legion_tpu_torch.data import (synthesize_dataset,
+                                       synthesize_device_dataset)
+    from legion_tpu_torch.train import Trainer
+    host_kw = {"H": dict(cache_bytes=CACHE_BYTES, feature_residency="host"),
+               "HT": dict(cache_bytes=CACHE_BYTES, feature_residency="host",
+                          topo_residency="host"), "cache-off": {}}
+    ds = hds = None
+    for name in names:
+        if name in host_kw:
+            hds = hds or synthesize_dataset(
+                num_nodes=HOST_NODES, avg_degree=HOST_AVG_DEGREE,
+                feature_dim=100, num_classes=32, batch_size=8000,
+                train_frac=0.08, seed=0)
+            tr = Trainer(hds, bench_config(hds, **host_kw[name]), "cuda")
+        else:
+            ds = ds or synthesize_device_dataset("cuda")
+            model = "graphsage" if name == "device" else name
+            tr = Trainer(ds, bench_config(ds, model=model), "cuda")
+        state = tr.init_state()
+        for _ in range(5):
+            state, _ = tr.train_step(state)
+        torch.cuda.synchronize()
+        runs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(10):
+                state, _ = tr.train_step(state)
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) / 10 * 1e3)
+        steps = 5
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                state, _ = tr.train_step(state)
+            torch.cuda.synchronize()
+        on_card = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+        busy = sum(e.time_range.elapsed_us() for e in on_card)
+        span = (max(e.time_range.end for e in on_card)
+                - min(e.time_range.start for e in on_card))
+        print(f" {name}: unprofiled ms/step "
+              + ", ".join(f"{r:.3f}" for r in runs)
+              + f" | profiled: kernels {busy / steps / 1e3:.3f} ms/step "
+              f"over a span of {span / steps / 1e3:.3f} ms/step, "
+              f"{len(on_card) / steps:.0f} kernels and copies a step")
+
+        def per_step(r):
+            return r.self_device_time_total / steps / 1e3
+
+        rows = prof.key_averages()
+        ops = sorted((r for r in rows if r.device_type == DeviceType.CPU
+                      and r.self_device_time_total > 0),
+                     key=lambda r: -r.self_device_time_total)[:12]
+        for r in ops:
+            print(f"    {r.key[:48]:48s} {per_step(r):8.3f} ms/step "
+                  f"({r.count / steps:g} calls)")
+        for r in rows:
+            if r.device_type == DeviceType.CUDA and any(
+                    k in r.key for k in KERNELS):
+                print(f"    kernel {r.key[:41]:41s} {per_step(r):8.3f} "
+                      f"ms/step ({r.count / steps:g} launches)")
+        tr.close()
+        del tr, state
+        torch.cuda.empty_cache()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -782,6 +1175,11 @@ def main():
           f"{torch.cuda.get_device_name(0)}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:2] == ["--profile"]:
+        from legion_tpu_torch.ops import kernels
+        kernels.lib()
+        phase_profile(sys.argv[2].split(","), torch)
+        return
 
     from legion_tpu_torch.data import synthesize_device_dataset
     from legion_tpu_torch.ops import kernels
@@ -831,6 +1229,7 @@ def main():
               f"edge sizes {s.edge_sizes} | max_ids {s.max_ids}")
         if model == "gat":
             k6_compares(tr, torch, results, main_ms)
+            k6_edges(torch, results)
             k7_compares(tr, torch, results, main_ms)
         elif model == "gcn":
             k7_exact_compares(tr, torch, results)
@@ -839,11 +1238,11 @@ def main():
         counts[model] = phase_slice(tr, torch, model)[0]
         del tr
         torch.cuda.empty_cache()
-    for name, times in main_ms.items():
-        results[name].update(ms=sum(t[0] for t in times),
-                             plain_ms=sum(t[1] for t in times))
+    add_main(results, main_ms)
     for name in ("gat_attend", "hop_attention"):
         counts["gat"][name] += counts["gat"][name + "_bwd"]
+        counts["gat"]["per_step"][name] += \
+            counts["gat"]["per_step"][name + "_bwd"]
 
     print("phase 4: small-input slices, card vs CPU")
     del ds
@@ -895,9 +1294,21 @@ def main():
     kern = [dict(name=n, route="cuda", source=KERNELS[n]["source"],
                  replaces=KERNELS[n]["replaces"],
                  launches=counts[REPORTED_PATH[n]][n],
+                 launches_per_step=counts[REPORTED_PATH[n]]["per_step"][n],
                  max_abs_err=results[n]["max_abs_err"],
-                 ms=results[n]["ms"], plain_ms=results[n]["plain_ms"])
+                 ms=results[n]["ms"], plain_ms=results[n]["plain_ms"],
+                 bound_ms=results[n]["bound_ms"],
+                 bound_by=results[n]["bound_by"],
+                 library_ms=results[n]["library_ms"])
             for n in KERNELS]
+    print("per train step of each kernel's path (the sums over its launches "
+          "there):")
+    for k in kern:
+        lib = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f}"
+        print(f"  {k['name']:14s} launches {k['launches_per_step']:g} | "
+              f"kernel {k['ms']:.4f} ms | bound {k['bound_ms']:.4f} ms by "
+              f"{k['bound_by']} (share {k['bound_ms'] / k['ms']:.3f}) | plain "
+              f"{k['plain_ms']:.4f} ms | library call {lib} ms")
     print(json.dumps({"kernels": kern}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

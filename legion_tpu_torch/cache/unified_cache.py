@@ -12,7 +12,9 @@ and ``row_map[v]`` (sub-CSR row), -1 for a vertex not cached.
 
 ``CachedFeatureSource``: cache hits from device memory, misses read by K4
 (``csrc/cached_gather.cu``) straight from the pinned host table, inside
-the kernel, with no host sync and no staging copy.
+the kernel, with no host sync and no staging copy. The wrapper sorts the
+ids first, so that the kernel reads each distinct missed row once, in
+address order.
 """
 
 from __future__ import annotations
@@ -139,11 +141,20 @@ def cached_gather_plain(cache: UnifiedCache, host_rows: torch.Tensor,
     return rows, hit.sum(dtype=torch.int32)
 
 
+def sort_ids(ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4's order: (the ids ascending, the position of each in ``ids``).
+    The kernel writes the row of ``sorted_ids[j]`` to ``out[order[j]]``."""
+    return torch.sort(ids)
+
+
 def cached_gather(cache: UnifiedCache, host: HostTable, ids: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4. cache rows [C, F] (bf16 or f32) and slot_map [V] on the card,
     host [V, F] f32 registered host memory, ids [N] int32 -> (rows [N, F]
-    in the cache's dtype, hit count as a device int32 scalar)."""
+    in the cache's dtype, hit count as a device int32 scalar). The ids are
+    sorted here (values and positions, on the card, no sync): equal ids
+    become neighbours, and the kernel reads a missed host row once for all
+    of them, in address order."""
     rows_c, slot_map = cache.cache_rows, cache.slot_map
     if ids.dtype != torch.int32 or ids.dim() != 1:
         raise ValueError(f"cached_gather: ids {ids.dtype} "
@@ -163,14 +174,15 @@ def cached_gather(cache: UnifiedCache, host: HostTable, ids: torch.Tensor
             f"host {host_t.dtype} {tuple(host_t.shape)}, slot_map "
             f"{slot_map.dtype}")
     rows_c, slot_map = rows_c.contiguous(), slot_map.contiguous()
-    ids = ids.contiguous()
+    sorted_ids, order = sort_ids(ids)
     F = rows_c.shape[1]
     out = torch.empty((ids.shape[0], F), dtype=rows_c.dtype,
                       device=ids.device)
     hits = torch.zeros((), dtype=torch.int32, device=ids.device)
     rc = kernels.lib().lt_cached_gather(
         rows_c.data_ptr(), slot_map.data_ptr(), slot_map.shape[0],
-        host_t.data_ptr(), host_t.shape[0], ids.data_ptr(), ids.shape[0], F,
+        host_t.data_ptr(), host_t.shape[0], sorted_ids.data_ptr(),
+        order.data_ptr(), ids.shape[0], F,
         int(rows_c.dtype == torch.bfloat16), out.data_ptr(),
         hits.data_ptr(), kernels.stream_handle())
     kernels.check("cached_gather", rc)

@@ -3,10 +3,10 @@
 //
 // Replaces legion_tpu/cache/unified_cache.py::CachedFeatureSource.fetch
 // (:261-271), which on the TPU was a slot_map gather, a pure_callback
-// into native.gather_rows for the misses and a where. Per (id, word):
+// into native.gather_rows for the misses and a where. Per id:
 //   id < 0             -> a zero row;
 //   slot = slot_map[min(id, V-1)];
-//   slot >= 0          -> the word of cache row `slot` (device memory);
+//   slot >= 0          -> cache row `slot` (device memory);
 //   otherwise          -> the host f32 row `id` (a zero row past the host
 //                         table), converted to bf16 with round-to-nearest-
 //                         even for a bf16 cache, as lg_gather_rows_bf16
@@ -15,69 +15,199 @@
 // block into a device int32 scalar: no host sync.
 //
 // Bound on this card: the PCIe reads of the miss rows (400 B of f32 per
-// 100-wide row, at tens of GB/s against 3.35 TB/s for a cached row).
-// Design: one thread per output word, as K1. A word is as wide as the row
-// and the pointers allow (16, 8, 4 or 2 bytes); for a bf16 cache one word
-// of N bf16 values comes from N f32 values of the host row, read as one
-// aligned vector. Neighbouring threads read neighbouring parts of a row,
-// so a warp's host reads of one row merge into full PCIe requests.
-#include <cstring>
-
+// 100-wide row; the link moves tens of GB/s against 3.35 TB/s for a cached
+// row). What the card showed (NVIDIA H100 80GB HBM3 at 700 W; the link
+// probe of chip_smoke.py): loads made by the SMs move scattered 400-byte
+// rows of mapped host memory at 21-22 GB/s and rows in address order at
+// 24-31 GB/s, whatever the alignment of the requests and however many are
+// in flight, against 51 GB/s for the copy engine; a row asked for again
+// right after it arrived costs next to nothing. So the design reads as few
+// rows as it can, in address order.
+//
+// Design: the wrapper sorts the ids (values and positions), and a warp
+// owns 32 consecutive sorted ids.
+//   1. Each lane classifies one id (slot, zero row or miss).
+//   2. The warp copies its cached and zero rows to their positions as
+//      words (16, 8, 4 or 2 bytes, as the row width and pointers allow), at
+//      device-memory speed: no lane waits on the host here.
+//   3. Equal ids are neighbours now. The warp reads each distinct miss row
+//      of its 32 once (a run cut by the warp's edge twice), kMissRows rows
+//      at a time, one 16-byte chunk a lane, every load started before the
+//      first conversion or store, and writes it to every position of its
+//      run. A host table or width that 16-byte chunks do not fit (base not
+//      16-byte aligned, width not a multiple of 4) is read a float a lane,
+//      in this kernel.
 #include "common.cuh"
 
-template <int N>
-struct alignas(4 * N) HostChunk {
-  float v[N];
-};
+constexpr int kMissRows = 4;      // miss rows in flight per warp
+constexpr int kMissIters = 2;     // 16-byte chunks per lane per row and pass
+constexpr int kHitUnroll = 4;     // cached words in flight per lane
+constexpr int32_t kZeroRow = -1;  // a lane's class when not a cache slot
+constexpr int32_t kMissRow = -2;
 
-__device__ __forceinline__ uint16_t bf16_rne(float x) {
+__device__ __forceinline__ uint32_t bf16_rne(float x) {
   const uint32_t bits = __float_as_uint(x);
-  return (uint16_t)((bits + 0x7fffu + ((bits >> 16) & 1u)) >> 16);
+  return (bits + 0x7fffu + ((bits >> 16) & 1u)) >> 16;
 }
 
-// Word = the output word; N = f32 host values per word.
-template <typename Word, bool kBf16>
-__global__ void cached_gather_kernel(
-    const Word* __restrict__ cache, const int32_t* __restrict__ slot_map,
-    int64_t num_nodes,
-    const HostChunk<sizeof(Word) / (kBf16 ? 2 : 4)>* __restrict__ host,
-    int64_t host_rows, const int32_t* __restrict__ ids,
-    Word* __restrict__ out, int64_t n, int64_t words_per_row,
-    int32_t* __restrict__ hits) {
-  constexpr int N = sizeof(Word) / (kBf16 ? 2 : 4);
-  const int64_t total = n * words_per_row;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  int local = 0;
-  for (int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-       t < total; t += stride) {
-    const int64_t row = t / words_per_row;
-    const int64_t w = t - row * words_per_row;
-    const int32_t id = ids[row];
-    Word v{};
-    if (id >= 0) {
-      const int32_t slot = slot_map[id < num_nodes ? id : num_nodes - 1];
-      if (slot >= 0) {
-        v = cache[(int64_t)slot * words_per_row + w];
-        local += (w == 0);
-      } else if (id < host_rows) {
-        const HostChunk<N> c = host[(int64_t)id * words_per_row + w];
-        if constexpr (kBf16) {
-          uint16_t h[N];
+// Step 2: the rows of this warp's `cnt` ids that are cached (cls >= 0) or
+// zero, as words, each to its position; word t of the warp's run of words
+// belongs to id t / wpr.
+template <typename Word>
+__device__ __forceinline__ void copy_device_rows(
+    const void* __restrict__ cache, void* __restrict__ out, int cnt, int wpr,
+    int32_t cls, int32_t pos, int lane) {
+  const Word* c = reinterpret_cast<const Word*>(cache);
+  Word* o = reinterpret_cast<Word*>(out);
+  const int total = cnt * wpr;
+  for (int t0 = 0; t0 < total; t0 += 32 * kHitUnroll) {
+    Word v[kHitUnroll];
+    int64_t at[kHitUnroll];
 #pragma unroll
-          for (int j = 0; j < N; ++j) h[j] = bf16_rne(c.v[j]);
-          memcpy(&v, h, sizeof(Word));
-        } else {
-          memcpy(&v, &c, sizeof(Word));
+    for (int j = 0; j < kHitUnroll; ++j) {
+      const int t = t0 + 32 * j + lane;
+      const int r = min(t / wpr, 31);
+      const int32_t s = __shfl_sync(0xffffffffu, cls, r);
+      const int32_t p = __shfl_sync(0xffffffffu, pos, r);
+      const int w = t - r * wpr;
+      at[j] = t < total && s != kMissRow ? (int64_t)p * wpr + w : -1;
+      v[j] = Word{};
+      if (at[j] >= 0 && s >= 0) v[j] = c[(int64_t)s * wpr + w];
+    }
+#pragma unroll
+    for (int j = 0; j < kHitUnroll; ++j)
+      if (at[j] >= 0) o[at[j]] = v[j];
+  }
+}
+
+// Four f32 host values into the output row at column `col`.
+template <bool kBf16>
+__device__ __forceinline__ void store_chunk(char* orow, int col, float4 v) {
+  if constexpr (kBf16) {
+    uint2 w;
+    w.x = bf16_rne(v.x) | (bf16_rne(v.y) << 16);
+    w.y = bf16_rne(v.z) | (bf16_rne(v.w) << 16);
+    *reinterpret_cast<uint2*>(orow + 2 * (int64_t)col) = w;
+  } else {
+    *reinterpret_cast<float4*>(orow + 4 * (int64_t)col) = v;
+  }
+}
+
+template <bool kBf16>
+__global__ void __launch_bounds__(kThreads) cached_gather_kernel(
+    const void* __restrict__ cache, const int32_t* __restrict__ slot_map,
+    int64_t num_nodes, const float* __restrict__ host, int64_t host_rows,
+    const int32_t* __restrict__ ids, const int64_t* __restrict__ order,
+    void* __restrict__ out, int64_t n, int F, int word_bytes, bool chunks,
+    int32_t* __restrict__ hits) {
+  constexpr int es = kBf16 ? 2 : 4;
+  const int lane = threadIdx.x & 31;
+  const int64_t warps = (int64_t)gridDim.x * (blockDim.x >> 5);
+  const int64_t groups = (n + 31) / 32;
+  const int wpr = F * es / word_bytes;
+  const int nch = F / 4;            // 16-byte chunks of a host row
+  char* obase = reinterpret_cast<char*>(out);
+  int local = 0;
+  for (int64_t g = (int64_t)blockIdx.x * (blockDim.x >> 5)
+                   + (threadIdx.x >> 5);
+       g < groups; g += warps) {
+    const int64_t first = g * 32;
+    const int cnt = (int)min((int64_t)32, n - first);
+    // 1. classify
+    int32_t id = -1, pos = 0, cls = kZeroRow;
+    if (lane < cnt) {
+      id = ids[first + lane];
+      pos = (int32_t)order[first + lane];
+      if (id >= 0) {
+        const int32_t slot = slot_map[id < num_nodes ? id : num_nodes - 1];
+        cls = slot >= 0 ? slot : (id < host_rows ? kMissRow : kZeroRow);
+      }
+    }
+    local += cls >= 0;
+    // 2. cached and zero rows
+    switch (word_bytes) {
+      case 16: copy_device_rows<uint4>(cache, out, cnt, wpr, cls, pos, lane);
+        break;
+      case 8: copy_device_rows<uint2>(cache, out, cnt, wpr, cls, pos, lane);
+        break;
+      case 4: copy_device_rows<uint32_t>(cache, out, cnt, wpr, cls, pos,
+                                         lane);
+        break;
+      default: copy_device_rows<uint16_t>(cache, out, cnt, wpr, cls, pos,
+                                          lane);
+        break;
+    }
+    // 3. each distinct miss row once, to every position of its run of
+    // equal ids (lanes past cnt hold id -1, which ends the last run)
+    const int32_t before = __shfl_up_sync(0xffffffffu, id, 1);
+    const bool starts = lane == 0 || id != before;
+    const unsigned edges = __ballot_sync(0xffffffffu, starts);
+    unsigned heads = __ballot_sync(0xffffffffu, starts && cls == kMissRow);
+    while (heads) {
+      int r[kMissRows], end[kMissRows];
+      const float* row[kMissRows];
+#pragma unroll
+      for (int j = 0; j < kMissRows; ++j) {
+        r[j] = heads ? __ffs(heads) - 1 : -1;
+        heads &= heads - 1;   // 0 stays 0
+        const int at = r[j] & 31;
+        const unsigned rest = at < 31 ? edges >> (at + 1) : 0u;
+        end[j] = r[j] < 0 ? 0 : (rest ? at + __ffs(rest) : 32);
+        row[j] = host + (int64_t)__shfl_sync(0xffffffffu, id, at) * F;
+      }
+      if (chunks) {
+        for (int c0 = 0; c0 < nch; c0 += 32 * kMissIters) {
+          float4 v[kMissRows][kMissIters];
+#pragma unroll
+          for (int j = 0; j < kMissRows; ++j)
+#pragma unroll
+            for (int k = 0; k < kMissIters; ++k) {
+              const int c = c0 + 32 * k + lane;
+              v[j][k] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+              if (r[j] >= 0 && c < nch)
+                v[j][k] = __ldcs(reinterpret_cast<const float4*>(row[j]) + c);
+            }
+#pragma unroll
+          for (int j = 0; j < kMissRows; ++j)
+            for (int m = max(r[j], 0); m < end[j]; ++m) {
+              char* orow = obase + (int64_t)__shfl_sync(0xffffffffu, pos, m)
+                                   * F * es;
+#pragma unroll
+              for (int k = 0; k < kMissIters; ++k) {
+                const int c = c0 + 32 * k + lane;
+                if (c < nch) store_chunk<kBf16>(orow, 4 * c, v[j][k]);
+              }
+            }
+        }
+      } else {
+        for (int c0 = 0; c0 < F; c0 += 32) {
+          const int c = c0 + lane;
+          float v[kMissRows];
+#pragma unroll
+          for (int j = 0; j < kMissRows; ++j)
+            v[j] = r[j] >= 0 && c < F ? __ldcs(row[j] + c) : 0.0f;
+#pragma unroll
+          for (int j = 0; j < kMissRows; ++j)
+            for (int m = max(r[j], 0); m < end[j]; ++m) {
+              char* orow = obase + (int64_t)__shfl_sync(0xffffffffu, pos, m)
+                                   * F * es;
+              if (c < F) {
+                if constexpr (kBf16)
+                  reinterpret_cast<uint16_t*>(orow)[c] =
+                      (uint16_t)bf16_rne(v[j]);
+                else
+                  reinterpret_cast<float*>(orow)[c] = v[j];
+              }
+            }
         }
       }
     }
-    out[t] = v;
   }
   // one atomic per block: warp sums, then the block's sum
   for (int o = 16; o > 0; o >>= 1)
     local += __shfl_down_sync(0xffffffffu, local, o);
   __shared__ int warp_sums[kThreads / 32];
-  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = local;
+  if (lane == 0) warp_sums[threadIdx.x >> 5] = local;
   __syncthreads();
   if (threadIdx.x == 0) {
     int s = 0;
@@ -86,60 +216,52 @@ __global__ void cached_gather_kernel(
   }
 }
 
-template <typename Word, bool kBf16>
+template <bool kBf16>
 static int launch(const void* cache, const int32_t* slot_map,
                   int64_t num_nodes, const float* host, int64_t host_rows,
-                  const int32_t* ids, void* out, int64_t n,
-                  int64_t row_bytes, int32_t* hits, cudaStream_t stream) {
-  constexpr int N = sizeof(Word) / (kBf16 ? 2 : 4);
-  const int64_t wpr = row_bytes / (int64_t)sizeof(Word);
-  cached_gather_kernel<Word, kBf16><<<lt_grid(n * wpr), kThreads, 0,
-                                      stream>>>(
-      (const Word*)cache, slot_map, num_nodes,
-      (const HostChunk<N>*)host, host_rows, ids, (Word*)out, n, wpr, hits);
+                  const int32_t* ids, const int64_t* order, void* out,
+                  int64_t n, int64_t F, int32_t* hits, cudaStream_t stream) {
+  const int64_t row_bytes = F * (kBf16 ? 2 : 4);
+  // the widest word that the row width, the cache and the output allow
+  int word = kBf16 ? 2 : 4;
+  for (int wb = 16; wb > word; wb >>= 1)
+    if (row_bytes % wb == 0 && (uintptr_t)cache % wb == 0 &&
+        (uintptr_t)out % wb == 0) {
+      word = wb;
+      break;
+    }
+  // 16-byte host chunks land on whole groups of four output values
+  const bool chunks = F % 4 == 0 && (uintptr_t)host % 16 == 0 &&
+                      (uintptr_t)out % 16 == 0;
+  // a warp takes 32 ids at a time: enough blocks to fill the card, and the
+  // warps walk the rest
+  const int64_t warps_per_block = kThreads / 32;
+  int64_t blocks = ((n + 31) / 32 + warps_per_block - 1) / warps_per_block;
+  const int64_t cap = 132 * 8;
+  blocks = blocks < cap ? blocks : cap;
+  cached_gather_kernel<kBf16><<<(unsigned int)blocks, kThreads, 0, stream>>>(
+      cache, slot_map, num_nodes, host, host_rows, ids, order, out, n,
+      (int)F, word, chunks, hits);
   return (int)cudaGetLastError();
-}
-
-template <bool kBf16>
-static int dispatch(const void* cache, const int32_t* slot_map,
-                    int64_t num_nodes, const float* host, int64_t host_rows,
-                    const int32_t* ids, void* out, int64_t n, int64_t F,
-                    int32_t* hits, cudaStream_t s) {
-  const int64_t es = kBf16 ? 2 : 4;
-  const int64_t row_bytes = F * es;
-  // the widest word that the row width and all three tables allow
-  auto fits = [&](int64_t wb) {
-    const int64_t hb = wb / es * 4;  // host bytes behind one word
-    return row_bytes % wb == 0 && (uintptr_t)cache % wb == 0 &&
-           (uintptr_t)out % wb == 0 && (uintptr_t)host % hb == 0;
-  };
-  if (fits(16))
-    return launch<uint4, kBf16>(cache, slot_map, num_nodes, host, host_rows,
-                                ids, out, n, row_bytes, hits, s);
-  if (fits(8))
-    return launch<uint2, kBf16>(cache, slot_map, num_nodes, host, host_rows,
-                                ids, out, n, row_bytes, hits, s);
-  if (fits(4) || !kBf16)
-    return launch<uint32_t, kBf16>(cache, slot_map, num_nodes, host,
-                                   host_rows, ids, out, n, row_bytes, hits,
-                                   s);
-  return launch<uint16_t, true>(cache, slot_map, num_nodes, host, host_rows,
-                                ids, out, n, row_bytes, hits, s);
 }
 
 // cache [C, F] (bf16 if bf16 else f32), slot_map [num_nodes] int32,
 // host [host_rows, F] f32 (a device address of registered host memory),
-// ids [n] int32 -> out [n, F] in the cache's dtype; *hits += hit count.
+// ids [n] int32 in ascending order with order [n] int64, the position of
+// each in the caller's batch (a permutation of 0 .. n-1) -> out [n, F] in
+// the cache's dtype, out[order[j]] the row of ids[j]; *hits += hit count.
 // All contiguous.
 LT_EXPORT int lt_cached_gather(const void* cache, const int32_t* slot_map,
                                int64_t num_nodes, const float* host,
                                int64_t host_rows, const int32_t* ids,
-                               int64_t n, int64_t F, int bf16, void* out,
-                               int32_t* hits, void* stream) {
+                               const int64_t* order, int64_t n, int64_t F,
+                               int bf16, void* out, int32_t* hits,
+                               void* stream) {
   if (n == 0 || F == 0) return (int)cudaSuccess;
+  if (F > (1 << 24) || n > INT32_MAX) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  return bf16 ? dispatch<true>(cache, slot_map, num_nodes, host, host_rows,
-                               ids, out, n, F, hits, s)
-              : dispatch<false>(cache, slot_map, num_nodes, host, host_rows,
-                                ids, out, n, F, hits, s);
+  return bf16 ? launch<true>(cache, slot_map, num_nodes, host, host_rows,
+                             ids, order, out, n, F, hits, s)
+              : launch<false>(cache, slot_map, num_nodes, host, host_rows,
+                              ids, order, out, n, F, hits, s);
 }

@@ -9,22 +9,37 @@
 // that is about ten launches over [fanout, F, H] tensors and a batched
 // H x fanout @ fanout x d_in product per row.
 //
-// Bound on this card: device-memory bytes (the lanes, d_in wide, and the
-// [F, H, d_in] output) and shared-memory instructions. Design: one warp per
-// frontier row i, up to eight rows to a block, no block barrier after the
-// set-up. The block keeps u_l and u_r (f32, transposed to [H, ld]) in
-// shared memory; each warp stages its row's fanout lanes
-// x[aligned + f*F + i] and its destination row x[*hop_offset + i] once, as
-// f32, in its own slice of shared memory. Every inner loop reads shared
-// memory four floats at a time:
-//   - a score is a dot product of length d_in: the warp's lanes split into
-//     H' groups of G = 32 / H' lanes (H' = H rounded up to a power of two),
-//     so all heads of one row reduce at once, by shuffles inside a group;
-//   - the contraction gives each lane four columns of a head and sums the
-//     fanout rows with alpha read as a broadcast.
-// Rows are zero-padded to a multiple of four and strided by ld, a multiple
-// of 32 plus 4G when G < 8, so the H' groups' 16-byte reads of one
-// quarter-warp land in distinct banks.
+// Bound on this card: device-memory bytes. A row reads its fanout lanes and
+// its destination (d_in wide each) and writes [H, d_in]; at 10 lanes, 8
+// heads and 128 bf16 columns that is 5.3 KB a row against about 41 kFLOP,
+// so the arithmetic has to stay out of the loads' way.
+//
+// Design, bf16 with H <= 8, fanout <= 15 and d_in = 128 (the path's
+// shape; the kernels take the width as a template constant): one warp per
+// frontier row i, persistent, eight warps a block.
+//   - A warp keeps kMmaStages row sets in flight in its own ring in shared
+//     memory, staged in bf16 by 16-byte cp.async copies: the loads of rows
+//     i + stride and i + 2 stride run under the arithmetic of row i. The
+//     per-row flags (lane validity, the dropout mask; in the backward also
+//     alpha and the LeakyReLU sign) are loaded one row ahead into registers.
+//   - Both small products run on the tensor cores (mma.sync m16n8k16, bf16
+//     in, f32 accumulation). Scores: [u_l | u_r]^T (16 rows = 8 + 8 heads,
+//     held in registers for the whole kernel) times the staged rows (B from
+//     ldmatrix); its accumulator is laid out as the A operand of the
+//     contraction alpha [heads, fanout] x rows [fanout, d_in] (B from
+//     ldmatrix.trans), so alpha never leaves registers. The softmax over
+//     the fanout is four values a lane and two shuffles.
+//   - xw goes back through the warp's consumed stage and out as 16-byte
+//     stores.
+// The backward kernel has the same ring (lanes and dxw[i]) and takes
+// d alpha = dxw[i] x rows^T on the tensor cores.
+//
+// Every other shape and f32 take the general kernels below: one warp per
+// row, the row staged once as f32 in shared memory (zero-padded to a
+// multiple of four, strided by ld, a multiple of 32 plus 4G when G < 8, so
+// that the head groups' 16-byte reads land in distinct banks), scores by
+// head groups of G = 32 / H' lanes with shuffles, the contraction four
+// columns a lane.
 //
 // Rounding mirrors the JAX layer: the scores el, er are f32 dot products
 // rounded to x's dtype (JAX's x @ u in bf16), then widened; alpha after
@@ -344,6 +359,448 @@ __global__ void __launch_bounds__(kGatWarps * 32, 2) gat_attend_bwd_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 tensor-core path (see the header)
+// ---------------------------------------------------------------------------
+
+constexpr int kMmaStages = 3;     // row sets in flight per warp
+constexpr int kMmaPad = 8;        // bf16 of padding a staged row: ldmatrix's
+                                  // eight rows then fall in distinct banks
+constexpr int kMmaMaxFanout = 15; // fanout lanes + the destination: 16 rows
+constexpr int kMmaMaxHeads = 8;
+constexpr int kMmaWidth = 128;    // d_in of the path; a multiple of 16
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr)
+      : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr)
+      : "memory");
+}
+// d += a [16 x 16, row-major] * b [16 x 8, column-major], bf16 in, f32 out
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// two f32 as one register of two bf16, the first in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+// A lane (g = lane / 4, q = lane % 4) of an accumulator holds head g and
+// the four fanout lanes lane_f(q, 0..3).
+__device__ __forceinline__ int lane_f(int q, int t) {
+  return 2 * q + (t & 1) + 8 * (t >> 1);
+}
+
+// The shared bytes of one stage of `rows` rows of D bf16.
+template <int D>
+__host__ __device__ constexpr int stage_bytes(int rows) {
+  return rows * (D + kMmaPad) * 2;
+}
+
+// Rows row_of(0 .. rows-1) of x (D wide) into the stage, 16 bytes a copy.
+template <int D, typename RowOf>
+__device__ __forceinline__ void stage_async(RowOf row_of, int rows,
+                                            __nv_bfloat16* st, int lane) {
+  constexpr int kChunks = D / 8, LD = D + kMmaPad;
+  for (int c = lane; c < rows * kChunks; c += 32) {
+    const int r = c / kChunks, k = c - r * kChunks;
+    cp_async16(st + r * LD + 8 * k, row_of(r) + 8 * k);
+  }
+}
+
+// What a lane needs of row i beside the staged rows, loaded a row ahead.
+struct FwdFlags {
+  int32_t src[4];
+  uint8_t keep[4];
+};
+
+__device__ __forceinline__ void load_flags(
+    FwdFlags& fl, const int32_t* __restrict__ src,
+    const uint8_t* __restrict__ mask, int64_t i, int64_t F, int fanout,
+    int H, int g, int q) {
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    const int f = lane_f(q, t);
+    fl.src[t] = -1;
+    fl.keep[t] = 1;
+    if (f < fanout) {
+      fl.src[t] = src[(int64_t)f * F + i];
+      if (mask != nullptr && g < H)
+        fl.keep[t] = mask[((int64_t)f * F + i) * H + g];
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kGatWarps * 32, 2) gat_attend_fwd_mma_kernel(
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ u_l,
+    const __nv_bfloat16* __restrict__ u_r, const int32_t* __restrict__ src,
+    const int32_t* __restrict__ hop_offset, const uint8_t* __restrict__ mask,
+    float scale, float slope, __nv_bfloat16* __restrict__ xw,
+    float* __restrict__ alpha_pre, uint8_t* __restrict__ neg, int64_t F,
+    int fanout, int H, int64_t aligned) {
+  constexpr int LD = D + kMmaPad, KS = D / 16, kChunks = D / 8;
+  extern __shared__ uint4 smem16[];
+  __nv_bfloat16* zero_row = reinterpret_cast<__nv_bfloat16*>(smem16);
+  const int rows = max(fanout + 1, H);   // a stage also carries xw out
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+  char* ring = reinterpret_cast<char*>(smem16) + stage_bytes<D>(1)
+               + (size_t)warp * kMmaStages * stage_bytes<D>(rows);
+  for (int t = threadIdx.x; t < LD; t += blockDim.x)
+    zero_row[t] = __float2bfloat16(0.0f);
+  // [u_l | u_r]^T as the A operand of every k step: rows 0-7 the heads of
+  // u_l, rows 8-15 the heads of u_r; u is [D, H] row-major
+  uint32_t ua[KS][4];
+  {
+    const uint16_t* ul = reinterpret_cast<const uint16_t*>(u_l);
+    const uint16_t* ur = reinterpret_cast<const uint16_t*>(u_r);
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      const int k0 = 16 * ks + 2 * q;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int k = k0 + 8 * half;
+        uint32_t l = 0, r = 0;
+        if (g < H) {
+          l = (uint32_t)ul[k * H + g] | ((uint32_t)ul[(k + 1) * H + g] << 16);
+          r = (uint32_t)ur[k * H + g] | ((uint32_t)ur[(k + 1) * H + g] << 16);
+        }
+        ua[ks][2 * half] = l;
+        ua[ks][2 * half + 1] = r;
+      }
+    }
+  }
+  __syncthreads();
+  const int64_t off = *hop_offset;
+  const int64_t stride = (int64_t)gridDim.x * kGatWarps;
+  const int64_t i0 = (int64_t)blockIdx.x * kGatWarps + warp;
+  auto stage = [&](int64_t i, int slot) {
+    stage_async<D>([&](int r) {
+      return x + (r < fanout ? aligned + (int64_t)r * F + i : off + i) * D;
+    }, fanout + 1, reinterpret_cast<__nv_bfloat16*>(
+        ring + slot * stage_bytes<D>(rows)), lane);
+  };
+#pragma unroll
+  for (int s = 0; s < kMmaStages - 1; ++s) {
+    if (i0 + s * stride < F) stage(i0 + s * stride, s);
+    cp_async_commit();
+  }
+  FwdFlags cur, nxt;
+  if (i0 < F) load_flags(cur, src, mask, i0, F, fanout, H, g, q);
+  // ldmatrix row addresses of this lane (matrix m = lane / 8, row lane % 8)
+  const int lm = lane >> 3, lr = lane & 7;
+  // scores' B operand: matrices (f 0-7, k 0-7), (f 0-7, k 8-15),
+  // (f 8-15, k 0-7), (f 8-15, k 8-15); rows past the destination repeat it
+  const int sc_row = min(lr + 8 * (lm >> 1), fanout);
+  const int sc_off = (sc_row * LD + 8 * (lm & 1)) * 2;
+  // contraction's B operand (transposed on load): matrices (f 0-7, n),
+  // (f 8-15, n), (f 0-7, n + 8), (f 8-15, n + 8); rows past the fanout
+  // are the zero row
+  const int ct_row = lr + 8 * (lm & 1);
+  const int ct_col = 8 * (lm >> 1);
+  int slot = 0;
+  for (int64_t i = i0; i < F; i += stride) {
+    {
+      const int64_t ahead = i + (kMmaStages - 1) * stride;
+      if (ahead < F) stage(ahead, (slot + kMmaStages - 1) % kMmaStages);
+      cp_async_commit();
+    }
+    if (i + stride < F)
+      load_flags(nxt, src, mask, i + stride, F, fanout, H, g, q);
+    cp_async_wait<kMmaStages - 1>();
+    __syncwarp();
+    __nv_bfloat16* st = reinterpret_cast<__nv_bfloat16*>(
+        ring + slot * stage_bytes<D>(rows));
+    // scores: s0 lanes 0-7, s1 lanes 8-15; [0], [1] against u_l (el),
+    // [2], [3] against u_r (er, wanted for the destination row only)
+    float s0[4] = {0.0f, 0.0f, 0.0f, 0.0f}, s1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    {
+      const uint32_t base = smem_u32(st) + sc_off;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t b[4];
+        ldmatrix_x4(b, base + 32 * ks);
+        mma_bf16(s0, ua[ks], b[0], b[1]);
+        mma_bf16(s1, ua[ks], b[2], b[3]);
+      }
+    }
+    // er[g]: the u_r row of column `fanout`, held by lane (g, (fanout%8)/2)
+    const float er_mine = (fanout & 8) ? ((fanout & 1) ? s1[3] : s1[2])
+                                       : ((fanout & 1) ? s0[3] : s0[2]);
+    const float er = round_bf16(__shfl_sync(
+        0xffffffffu, er_mine, (lane & ~3) | ((fanout & 7) >> 1)));
+    const float el[4] = {s0[0], s0[1], s1[0], s1[1]};
+    float a[4];
+    bool ng[4], valid[4];
+    float m = -INFINITY;
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const float pre = round_bf16(el[t]) + er;
+      ng[t] = pre < 0.0f;
+      a[t] = ng[t] ? pre * slope : pre;
+      valid[t] = cur.src[t] >= 0;
+      if (valid[t]) m = fmaxf(m, a[t]);
+    }
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+    float sum = 0.0f;
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      a[t] = valid[t] ? expf(a[t] - m) : 0.0f;
+      sum += a[t];
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const float den = fmaxf(sum, 1.17549435e-38f);
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int f = lane_f(q, t);
+      const float p = a[t] / den;
+      if (f < fanout && g < H) {
+        const int64_t idx = ((int64_t)f * F + i) * H + g;
+        alpha_pre[idx] = p;
+        neg[idx] = ng[t];
+      }
+      const float kp = mask == nullptr ? 1.0f : (cur.keep[t] ? scale : 0.0f);
+      a[t] = round_bf16(p * kp);
+    }
+    // contraction: alpha [heads 0-7 | none, lanes 0-15] x rows
+    const uint32_t pa[4] = {pack_bf16(a[0], a[1]), 0u, pack_bf16(a[2], a[3]),
+                            0u};
+    uint32_t o[KS][2];
+    {
+      const uint32_t base = ct_row < fanout
+          ? smem_u32(st) + (ct_row * LD + ct_col) * 2
+          : smem_u32(zero_row) + ct_col * 2;
+      // the zero row is one row: its columns past 8 wrap into the pad
+      const uint32_t step = ct_row < fanout ? 32 : 0;
+#pragma unroll
+      for (int np = 0; np < KS; ++np) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, base + step * np);
+        float c0[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        float c1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        mma_bf16(c0, pa, b[0], b[1]);
+        mma_bf16(c1, pa, b[2], b[3]);
+        o[np][0] = pack_bf16(c0[0], c0[1]);
+        o[np][1] = pack_bf16(c1[0], c1[1]);
+      }
+    }
+    __syncwarp();
+    // xw[i] through the consumed stage: head g, columns 16 np + 2q (+ 8)
+    if (g < H) {
+      uint32_t* orow = reinterpret_cast<uint32_t*>(st + g * LD) + q;
+#pragma unroll
+      for (int np = 0; np < KS; ++np) {
+        orow[8 * np] = o[np][0];
+        orow[8 * np + 4] = o[np][1];
+      }
+    }
+    __syncwarp();
+    __nv_bfloat16* out = xw + i * H * D;
+    for (int c = lane; c < H * kChunks; c += 32) {
+      const int h = c / kChunks, k = c - h * kChunks;
+      *reinterpret_cast<uint4*>(out + h * D + 8 * k) =
+          *reinterpret_cast<const uint4*>(st + h * LD + 8 * k);
+    }
+    __syncwarp();
+    cur = nxt;
+    slot = (slot + 1) % kMmaStages;
+  }
+}
+
+struct BwdFlags {
+  int32_t src[4];
+  float p[4];
+  uint8_t keep[4];
+  uint8_t neg[4];
+};
+
+__device__ __forceinline__ void load_flags(
+    BwdFlags& fl, const int32_t* __restrict__ src,
+    const float* __restrict__ alpha_pre, const uint8_t* __restrict__ neg,
+    const uint8_t* __restrict__ mask, int64_t i, int64_t F, int fanout,
+    int H, int g, int q) {
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    const int f = lane_f(q, t);
+    fl.src[t] = -1;
+    fl.p[t] = 0.0f;
+    fl.keep[t] = 1;
+    fl.neg[t] = 0;
+    if (f < fanout) {
+      fl.src[t] = src[(int64_t)f * F + i];
+      if (g < H) {
+        const int64_t idx = ((int64_t)f * F + i) * H + g;
+        fl.p[t] = alpha_pre[idx];
+        fl.neg[t] = neg[idx];
+        if (mask != nullptr) fl.keep[t] = mask[idx];
+      }
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kGatWarps * 32, 2) gat_attend_bwd_mma_kernel(
+    const __nv_bfloat16* __restrict__ dxw, const __nv_bfloat16* __restrict__ x,
+    const int32_t* __restrict__ src, const float* __restrict__ alpha_pre,
+    const uint8_t* __restrict__ neg, const uint8_t* __restrict__ mask,
+    float scale, float slope, float* __restrict__ d_el,
+    float* __restrict__ d_er, int64_t F, int fanout, int H, int64_t aligned) {
+  constexpr int LD = D + kMmaPad, KS = D / 16;
+  extern __shared__ uint4 smem16[];
+  __nv_bfloat16* zero_row = reinterpret_cast<__nv_bfloat16*>(smem16);
+  const int rows = fanout + H;           // the lanes, then dxw[i]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+  char* ring = reinterpret_cast<char*>(smem16) + stage_bytes<D>(1)
+               + (size_t)warp * kMmaStages * stage_bytes<D>(rows);
+  for (int t = threadIdx.x; t < LD; t += blockDim.x)
+    zero_row[t] = __float2bfloat16(0.0f);
+  __syncthreads();
+  const int64_t stride = (int64_t)gridDim.x * kGatWarps;
+  const int64_t i0 = (int64_t)blockIdx.x * kGatWarps + warp;
+  auto stage = [&](int64_t i, int slot) {
+    stage_async<D>([&](int r) {
+      return r < fanout ? x + (aligned + (int64_t)r * F + i) * D
+                        : dxw + (i * H + (r - fanout)) * D;
+    }, rows, reinterpret_cast<__nv_bfloat16*>(
+        ring + slot * stage_bytes<D>(rows)), lane);
+  };
+#pragma unroll
+  for (int s = 0; s < kMmaStages - 1; ++s) {
+    if (i0 + s * stride < F) stage(i0 + s * stride, s);
+    cp_async_commit();
+  }
+  BwdFlags cur, nxt;
+  if (i0 < F)
+    load_flags(cur, src, alpha_pre, neg, mask, i0, F, fanout, H, g, q);
+  const int lm = lane >> 3, lr = lane & 7;
+  // A operand, dxw[i] [heads, k]: matrices (h 0-7, k 0-7), (h 8-15, k 0-7),
+  // (h 0-7, k 8-15), (h 8-15, k 8-15); heads past H are the zero row
+  const bool a_on = (lm & 1) == 0 && lr < H;
+  const int a_off = ((fanout + lr) * LD + 8 * (lm >> 1)) * 2;
+  // B operand, the lanes [k, f]: as the forward's scores, rows past the
+  // fanout the zero row
+  const int b_row = lr + 8 * (lm >> 1);
+  const bool b_on = b_row < fanout;
+  const int b_off = (b_row * LD + 8 * (lm & 1)) * 2;
+  const uint32_t zero_at = smem_u32(zero_row);
+  int slot = 0;
+  for (int64_t i = i0; i < F; i += stride) {
+    {
+      const int64_t ahead = i + (kMmaStages - 1) * stride;
+      if (ahead < F) stage(ahead, (slot + kMmaStages - 1) % kMmaStages);
+      cp_async_commit();
+    }
+    if (i + stride < F)
+      load_flags(nxt, src, alpha_pre, neg, mask, i + stride, F, fanout, H,
+                 g, q);
+    cp_async_wait<kMmaStages - 1>();
+    __syncwarp();
+    const uint32_t st = smem_u32(ring + slot * stage_bytes<D>(rows));
+    // d alpha after dropout [head g, lanes]: d0 lanes 0-7, d1 lanes 8-15
+    float d0[4] = {0.0f, 0.0f, 0.0f, 0.0f}, d1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t a[4], b[4];
+      ldmatrix_x4(a, a_on ? st + a_off + 32 * ks : zero_at);
+      ldmatrix_x4(b, b_on ? st + b_off + 32 * ks : zero_at);
+      mma_bf16(d0, a, b[0], b[1]);
+      mma_bf16(d1, a, b[2], b[3]);
+    }
+    const float dv[4] = {d0[0], d0[1], d1[0], d1[1]};
+    float da[4];
+    float s = 0.0f;
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const float kp = mask == nullptr ? 1.0f : (cur.keep[t] ? scale : 0.0f);
+      // d alpha before dropout, rounded to bf16 as the products are
+      da[t] = cur.src[t] >= 0 ? round_bf16(dv[t]) * kp : 0.0f;
+      s += cur.p[t] * da[t];
+    }
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    s += __shfl_xor_sync(0xffffffffu, s, 2);
+    float der = 0.0f;
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int f = lane_f(q, t);
+      const float dpre = cur.p[t] * (da[t] - s) * (cur.neg[t] ? slope : 1.0f);
+      if (f < fanout && g < H) d_el[((int64_t)f * F + i) * H + g] = dpre;
+      der += dpre;
+    }
+    der += __shfl_xor_sync(0xffffffffu, der, 1);
+    der += __shfl_xor_sync(0xffffffffu, der, 2);
+    if (q == 0 && g < H) d_er[i * H + g] = der;
+    __syncwarp();
+    cur = nxt;
+    slot = (slot + 1) % kMmaStages;
+  }
+}
+
+// Whether a call takes the tensor-core path.
+static bool mma_ok(int fanout, int H, int d_in, const void* a, const void* b) {
+  return fanout <= kMmaMaxFanout && H <= kMmaMaxHeads &&
+         d_in == kMmaWidth && (uintptr_t)a % 16 == 0 &&
+         (uintptr_t)b % 16 == 0;
+}
+
+// Launch a persistent tensor-core kernel: as many blocks as stay resident.
+template <typename K, typename... Args>
+static int launch_mma(K kernel, size_t smem, int64_t F, void* stream,
+                      Args... args) {
+  int rc = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (rc != 0) return rc;
+  int per_sm = 0;
+  rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kernel, kGatWarps * 32, smem);
+  if (rc != 0) return rc;
+  if (per_sm < 1) return (int)cudaErrorInvalidValue;
+  int64_t blocks = (F + kGatWarps - 1) / kGatWarps;
+  blocks = blocks < 132 * (int64_t)per_sm ? blocks : 132 * (int64_t)per_sm;
+  kernel<<<(unsigned int)blocks, kGatWarps * 32, smem,
+           (cudaStream_t)stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+static size_t mma_smem(int rows) {
+  return stage_bytes<D>(1)
+         + (size_t)kGatWarps * kMmaStages * stage_bytes<D>(rows);
+}
+
 // Warps per block that fit the shared memory (at most kGatWarps; 0 when
 // not even one does), and the dynamic shared bytes for them.
 static int fit_warps(size_t block_floats, size_t warp_floats, size_t* smem) {
@@ -430,6 +887,16 @@ LT_EXPORT int lt_gat_attend_fwd(const void* x, const void* u_l,
                                 int64_t aligned, int is_bf16, void* stream) {
   if (fanout > kGatMaxFanout || H > kGatMaxHeads)
     return (int)cudaErrorInvalidValue;
+  if (F == 0) return (int)cudaSuccess;
+  if (is_bf16 && mma_ok(fanout, H, d_in, x, xw)) {
+    const int rows = fanout + 1 > H ? fanout + 1 : H;
+    return launch_mma(gat_attend_fwd_mma_kernel<kMmaWidth>,
+                      mma_smem<kMmaWidth>(rows), F, stream,
+                      (const __nv_bfloat16*)x, (const __nv_bfloat16*)u_l,
+                      (const __nv_bfloat16*)u_r, src, hop_offset, mask, scale,
+                      slope, (__nv_bfloat16*)xw, alpha_pre, neg, F, fanout, H,
+                      aligned);
+  }
   return is_bf16
       ? launch_fwd<__nv_bfloat16>(x, u_l, u_r, src, hop_offset, mask, scale,
                                   slope, xw, alpha_pre, neg, F, fanout, H,
@@ -448,6 +915,14 @@ LT_EXPORT int lt_gat_attend_bwd(const void* dxw, const void* x,
                                 void* stream) {
   if (fanout > kGatMaxFanout || H > kGatMaxHeads)
     return (int)cudaErrorInvalidValue;
+  if (F == 0) return (int)cudaSuccess;
+  if (is_bf16 && mma_ok(fanout, H, d_in, x, dxw)) {
+    return launch_mma(gat_attend_bwd_mma_kernel<kMmaWidth>,
+                      mma_smem<kMmaWidth>(fanout + H), F, stream,
+                      (const __nv_bfloat16*)dxw, (const __nv_bfloat16*)x, src,
+                      alpha_pre, neg, mask, scale, slope, d_el, d_er, F,
+                      fanout, H, aligned);
+  }
   return is_bf16
       ? launch_bwd<__nv_bfloat16>(dxw, x, src, alpha_pre, neg, mask, scale,
                                   slope, d_el, d_er, F, fanout, H, d_in,

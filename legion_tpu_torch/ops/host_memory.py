@@ -168,3 +168,25 @@ class HostTable:
         if self._ranges:
             unpin_ranges(self._ranges)
             self._ranges = []
+
+
+def read_probe(host: HostTable, ids: torch.Tensor, align: int) -> None:
+    """Read rows ``ids`` (int32, on the card, all inside the table) of a
+    registered 2-D host table as K4's miss path does, a warp a row, each
+    row asked for as its ``align``-aligned span (16 = the row's own bytes),
+    and drop them: a measurement of the link's rate for scattered rows, not
+    a step of any path. Time it with CUDA events around the call."""
+    t = host.on(ids.device)
+    if not t.is_cuda or t.dim() != 2 or ids.dtype != torch.int32 \
+            or ids.dim() != 1:
+        raise ValueError(f"read_probe: table {tuple(t.shape)} on {t.device}, "
+                         f"ids {ids.dtype} {tuple(ids.shape)}")
+    ids = ids.contiguous()
+    sink = torch.zeros((), dtype=torch.int32, device=ids.device)
+    rc = kernels.lib().lt_host_read_probe(
+        t.data_ptr(), t.shape[0], t.shape[1] * t.element_size(),
+        ids.data_ptr(), ids.shape[0], align, sink.data_ptr(),
+        kernels.stream_handle())
+    if rc != 0:
+        msg = kernels.lib().lt_error_string(rc).decode()
+        raise RuntimeError(f"read_probe launch failed: {msg} ({rc})")

@@ -137,8 +137,8 @@ def lib() -> ctypes.CDLL:
     for fn in (so.lt_windowed_draw_i32, so.lt_windowed_draw_i64):
         fn.argtypes = [p, p, p, p, i64, i32, i32, i64, u32, u32, u32, u32,
                        p]
-    so.lt_cached_gather.argtypes = [p, p, i64, p, i64, p, i64, i64, i32, p,
-                                    p, p]
+    so.lt_cached_gather.argtypes = [p, p, i64, p, i64, p, p, i64, i64, i32,
+                                    p, p, p]
     for fn in (so.lt_csr_draw_i32, so.lt_csr_draw_i64):
         fn.argtypes = [p, i64, i32, p, p, p, p, p, i64, u32, u32, p, p]
     so.lt_gat_attend_fwd.argtypes = [p, p, p, p, p, p, f32, f32, p, p, p,
@@ -152,11 +152,13 @@ def lib() -> ctypes.CDLL:
     so.lt_host_register.argtypes = [p, i64, i32,
                                      ctypes.POINTER(ctypes.c_void_p)]
     so.lt_host_unregister.argtypes = [p]
+    so.lt_host_read_probe.argtypes = [p, i64, i64, p, i64, i32, p, p]
     for fn in (so.lt_gather_rows, so.lt_segment_sum_f32,
                so.lt_segment_sum_bf16, so.lt_windowed_draw_i32,
                so.lt_windowed_draw_i64, so.lt_cached_gather,
                so.lt_csr_draw_i32, so.lt_csr_draw_i64, so.lt_host_register,
-               so.lt_host_unregister, so.lt_gat_attend_fwd,
+               so.lt_host_unregister, so.lt_host_read_probe,
+               so.lt_gat_attend_fwd,
                so.lt_gat_attend_bwd, so.lt_hop_attention_fwd,
                so.lt_hop_attention_bwd):
         fn.restype = ctypes.c_int

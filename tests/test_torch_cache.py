@@ -27,7 +27,9 @@ from legion_tpu_torch.cache.cost_model import CostModelResult, plan_cache
 from legion_tpu_torch.cache.unified_cache import (CachedFeatureSource,
                                                   DeviceFeatureSource,
                                                   UnifiedCache,
-                                                  cached_gather)
+                                                  cached_gather,
+                                                  cached_gather_plain,
+                                                  sort_ids)
 from legion_tpu_torch.config import (CacheConfig, LegionConfig, MeshConfig,
                                      SamplerConfig, TrainConfig)
 from legion_tpu_torch.data import (LegionDataset, infer_meta,
@@ -161,6 +163,117 @@ def test_cached_fetch_matches_jax(jds, feat_dtype):
         table = table.to(torch.bfloat16)
     xd, _ = DeviceFeatureSource(table).fetch(torch.from_numpy(ids))
     np.testing.assert_array_equal(_bits(xp), _bits(xd))
+
+
+def _edge_ids(plan, cap, rng, pattern):
+    """K4's id patterns: duplicates, pads, the table's first and last rows
+    (kept out of the cache by ``_edge_plan``); all hits; all misses."""
+    hot = plan.feature_order[:cap]
+    cold = plan.feature_order[cap:]
+    if pattern == "all hits":
+        ids = rng.choice(hot, 257)
+    elif pattern == "all misses":
+        ids = np.concatenate([[0, V - 1], rng.choice(cold, 94)])
+    else:
+        ids = np.concatenate([rng.choice(hot, 400), rng.choice(cold, 400),
+                              rng.choice(cold, 100), [0, V - 1, 0],
+                              np.full(100, -1)])
+        ids = rng.permutation(ids)
+    return ids.astype(np.int32)
+
+
+def _edge_plan(jds, cap):
+    """``_plan`` with rows 0 and V-1 moved to the cold end, so that they
+    miss."""
+    jplan, plan = _plan(jds, cap, 0)
+    order = np.asarray(plan.feature_order)
+    order = np.concatenate([order[~np.isin(order, [0, V - 1])], [0, V - 1]])
+    kw = dict(feature_capacity=cap, topo_capacity=0, alpha=0.5,
+              feature_order=order, topo_order=plan.topo_order,
+              est_feat_saved_bytes=0.0, est_topo_saved_bytes=0.0)
+    return JPlan(**kw), CostModelResult(**kw)
+
+
+@pytest.mark.parametrize("pattern", ["mixed", "all hits", "all misses"])
+@pytest.mark.parametrize("feat_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("width", [1, 100, 128, 602])
+def test_cached_fetch_matches_jax_at_kernel_edges(jds, width, feat_dtype,
+                                                  pattern):
+    """K4's plain version against JAX's fetch at the widths, cache dtypes
+    and id patterns that ``chip_smoke.py`` holds the kernel to on the card
+    (chunked and float-a-lane host reads; 16-, 8-, 4- and 2-byte cache
+    words): the same rows bit for bit and the same hit count."""
+    rng = np.random.default_rng(width)
+    feats = rng.standard_normal((V, width)).astype(np.float32)
+    jplan, plan = _edge_plan(jds, 500)
+    jc = JCache.build_from_host(jplan, feats, None, None, V,
+                                feat_dtype=feat_dtype)
+    ids = _edge_ids(plan, 500, rng, pattern)
+    xj, hj = JCached(jc, feats).fetch(jnp.asarray(ids))
+    xp, hp = cached_gather(cache_from_jax(jc), HostTable(feats, pin=False),
+                           torch.from_numpy(ids))
+    np.testing.assert_array_equal(_bits(xp), _bits(xj))
+    assert int(hp) == int(hj)
+    n_valid = int((ids >= 0).sum())
+    assert int(hp) == {"all hits": n_valid, "all misses": 0}.get(
+        pattern, int(hp))
+    if pattern == "mixed":
+        assert 0 < int(hp) < n_valid
+
+
+@pytest.mark.parametrize("feat_dtype", ["float32", "bfloat16"])
+def test_cached_gather_plain_past_the_tables_and_empty(jds, feat_dtype):
+    """Where JAX's fetch is not defined the plain version is the kernel's
+    contract: an id past the host table misses into a zero row, an id past
+    the slot map takes the map's last entry, and no ids give no rows."""
+    rng = np.random.default_rng(11)
+    rows_h = V - 200                         # the host table ends early
+    feats = rng.standard_normal((rows_h, 100)).astype(np.float32)
+    _, plan = _edge_plan(jds, 300)
+    hot = plan.feature_order[:300]
+    hot = hot[hot < rows_h]
+    c = UnifiedCache.build_from_host(
+        CostModelResult(len(hot), 0, 0.5, hot, plan.topo_order, 0.0, 0.0),
+        feats, None, None, V, feat_dtype=feat_dtype)
+    c.slot_map[V - 1] = 0                    # ids past the map clamp to a hit
+    cold = int(next(v for v in plan.feature_order[300:] if v < rows_h))
+    ids = torch.tensor([cold, rows_h, V - 2, V - 1, V + 5, 2**31 - 1, -1,
+                        int(hot[3])], dtype=torch.int32)
+    x, h = cached_gather_plain(c, torch.from_numpy(feats), ids)
+    dt = c.cache_rows.dtype
+    assert int(h) == 4 and x.dtype == dt
+    assert torch.equal(x[0], torch.from_numpy(feats[cold]).to(dt))
+    assert not x[1].any() and not x[2].any() and not x[6].any()
+    for i in (3, 4, 5):
+        assert torch.equal(x[i], c.cache_rows[0])
+    assert torch.equal(x[7], c.cache_rows[3])
+    x0, h0 = cached_gather(c, HostTable(feats, pin=False),
+                           torch.zeros(0, dtype=torch.int32))
+    assert x0.shape == (0, 100) and x0.dtype == dt and int(h0) == 0
+
+
+@pytest.mark.parametrize("feat_dtype", ["float32", "bfloat16"])
+def test_sorted_order_places_rows_like_plain(jds, feat_dtype):
+    """The torch-side step of K4's wrapper: the kernel gathers the sorted
+    ids and writes the row of ``sorted_ids[j]`` to ``out[order[j]]``. With
+    the plain gather in the kernel's place that equals the plain version
+    on the ids as given, duplicates and pads included."""
+    rng = np.random.default_rng(12)
+    _, plan = _edge_plan(jds, 400)
+    c = UnifiedCache.build_from_host(plan, jds.features, None, None, V,
+                                     feat_dtype=feat_dtype)
+    host = torch.from_numpy(jds.features)
+    ids = torch.from_numpy(_edge_ids(plan, 400, rng, "mixed"))
+    sorted_ids, order = sort_ids(ids)
+    assert torch.equal(ids[order], sorted_ids)
+    assert bool((sorted_ids[1:] >= sorted_ids[:-1]).all())
+    assert torch.equal(order.sort().values, torch.arange(ids.shape[0]))
+    rows, hits = cached_gather_plain(c, host, sorted_ids)
+    out = torch.empty_like(rows)
+    out[order] = rows
+    ref, ref_hits = cached_gather_plain(c, host, ids)
+    np.testing.assert_array_equal(_bits(out), _bits(ref))
+    assert int(hits) == int(ref_hits)
 
 
 @pytest.fixture(scope="module")

@@ -191,6 +191,49 @@ def test_gat_layer_aligned_streaming_matches_jax(dtype, drop, monkeypatch):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,d_in,fanout", [(3, 100, 10), (1, 128, 1),
+                                           (8, 128, 10), (8, 100, 33)])
+def test_gat_attend_plain_matches_jax_at_kernel_edges(H, d_in, fanout, dtype,
+                                                      monkeypatch):
+    """K6's plain version inside the aligned layer at the heads, widths and
+    fanouts that ``chip_smoke.py`` holds the kernel to on the card (inside
+    and outside its tensor-core path), with injected attention dropout:
+    output and gradients, F32_RTOL in f32 and BF16_RTOL in bf16."""
+    rng = np.random.default_rng(5)
+    F, d_out = 10, 8
+    num_dst, offset = 25, 5
+    n_src = num_dst + fanout * F
+    src = _lanes(rng, fanout, F, n_src, num_dst)
+    h = rng.standard_normal((n_src, d_in)).astype(np.float32)
+    p = {k: v.astype(np.float32) for k, v in
+         _gat_params(rng, d_in, H, d_out).items()}
+    p["w"] *= (16 / d_in) ** 0.5        # scores of order one at any width
+    w_out = rng.standard_normal((num_dst, H, d_out)).astype(np.float32)
+    keep = _inject(monkeypatch, jgat, rng.random((fanout, F, H)) < KEEP)
+    cdt_j = jnp.bfloat16 if dtype == "bfloat16" else None
+
+    def jfn(params):
+        out = jgat.gat_layer_aligned_streaming(
+            params, jnp.asarray(h, jdt(dtype)), jnp.asarray(src), fanout,
+            jnp.int32(offset), num_dst, num_dst, 0.2, 1 - KEEP, True,
+            jax.random.PRNGKey(0), cdt_j)
+        return jnp.sum(out * w_out), out
+
+    (_, out_j), g_j = jax.value_and_grad(jfn, has_aux=True)(
+        {k: jnp.asarray(v) for k, v in p.items()})
+    pt = {k: torch.from_numpy(v).requires_grad_() for k, v in p.items()}
+    out_p = gat_layer_aligned_streaming(
+        pt, torch.from_numpy(h).to(tdt(dtype)), torch.from_numpy(src),
+        fanout, torch.tensor(offset, dtype=torch.int32), num_dst, num_dst,
+        0.2, keep, torch.bfloat16 if dtype == "bfloat16" else None)
+    (out_p * torch.from_numpy(w_out)).sum().backward()
+    tol = F32_RTOL if dtype == "float32" else BF16_RTOL
+    close(out_p, out_j, tol, "out")
+    for k in p:
+        close(pt[k].grad, g_j[k], tol, f"d {k}")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("hop", ["gathered", "aligned"])
 def test_gat_layer_apply_matches_jax(hop, dtype):
     """``gat_layer_apply`` (el through K1's plain version, then K7's):
