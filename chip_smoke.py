@@ -18,8 +18,9 @@ CUDA card, nvcc (``$CUDA_HOME`` or ``/usr/local/cuda``) and no network.
      GAT (heads (8,1), feature and attention dropout 0.6, aligned last
      hop), after holding K6 and K7 against their plain versions at its
      shapes, forward and backward, with and without attention dropout,
-     and K6 at the edges of its shapes (heads, widths and fanouts inside
-     and outside its tensor-core path, both dtypes);
+     and each at the edges of its shapes (heads, widths and fanouts inside
+     and outside K6's tensor-core path and K7's small-row kernels, both
+     dtypes);
      GCN (exact last-hop dedup), after holding K7 at the exact-dedup GAT
      layer-0 shape of one of its batches; link-prediction SAGE (batch
      7998, eval batch 510); each for train steps and an eval pass;
@@ -29,12 +30,15 @@ CUDA card, nvcc (``$CUDA_HOME`` or ``/usr/local/cuda``) and no network.
      (2.4M vertices, about 120M edges, f32 features in host RAM) and its
      trainers: H (features on the host, a 200 MB bf16 cache planned by
      hotness), HT (features and topology on the host, the same budget
-     split by the cost model); measures what the link gives (a bulk copy
-     and bare reads of one HT batch's miss rows from the registered
-     table); holds K4 and K5 against their plain versions at HT's shapes
-     and times both, and K4 at the edges of its shapes (widths, dtypes,
-     misaligned tables, pads and ids past the tables, all hits, all
-     misses, no ids);
+     split by the cost model); measures what the link gives (a bulk copy,
+     bare reads of one HT batch's miss rows from the registered table,
+     and bare reads of the offsets and neighbour words that K5 asks for
+     on both hops, beside the frontier's degree figures); holds K4 and K5
+     against their plain versions at HT's shapes and times both, and each
+     at the edges of its shapes (K4: widths, dtypes, misaligned tables,
+     pads and ids past the tables, all hits, all misses, no ids; K5:
+     fanouts, frontier sizes, degrees from 0 to 70,000, offset types, a
+     misaligned host table, with and without a cache);
   6. drives H, HT and the same dataset with the cache off (everything
      copied to the card), each for train steps and an eval pass, with
      per-step times and hit counters, and the launches of each path;
@@ -166,13 +170,32 @@ def cuda_ms(fn, torch, iters=TIMING_ITERS):
     return start.elapsed_time(end) / iters
 
 
+def queued_ms(fn, torch, iters=50):
+    """Mean milliseconds per call of fn with the calls queued behind a
+    kernel that holds the card for some 100 ms, so that the host's time to
+    launch them is hidden: the card's own time for the work of one call."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(180_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def compare(name, kernel, plain, tol, results, torch, shape_note,
-            iters=TIMING_ITERS, least=None, library=None):
+            iters=TIMING_ITERS, least=None, library=None, queued=False):
     """Run kernel and plain once, check, then time plain, kernel, kernel,
     plain. tol(k, p) -> (max_abs_err, ok). ``least`` is the kernel's
     ``bound`` for these inputs, ``library`` one PyTorch call that computes
-    the same function (timed, used nowhere else). Returns (kernel ms,
-    plain ms, least, library ms or None)."""
+    the same function (timed, used nowhere else). ``queued`` also times the
+    kernel with the host's launch time hidden (``queued_ms``), for a kernel
+    that the host cannot launch as fast as the card runs it. Returns
+    (kernel ms, plain ms, least, library ms or None)."""
     k, p = kernel(), plain()
     torch.cuda.synchronize()
     err, ok = tol(k, p)
@@ -193,6 +216,8 @@ def compare(name, kernel, plain, tol, results, torch, shape_note,
                 f"{least[0] / ms:.3f})")
     if lib_ms is not None:
         msg += f" | library call {lib_ms:.4f} ms"
+    if queued:
+        msg += f" | queued {queued_ms(kernel, torch):.4f} ms"
     print(msg)
     r = results.setdefault(name, {"max_abs_err": 0.0})
     r["max_abs_err"] = max(r["max_abs_err"], err)
@@ -631,6 +656,22 @@ def k6_edges(torch, results):
     r["max_abs_err"] = max(r["max_abs_err"], worst)
 
 
+def k7_least(sl, z, fo, H, d, num_dst, kp, aligned):
+    """K7's bounds, (forward, forward + backward). Forward: each distinct
+    source row of z, the scores, the lane ids and the mask read; the
+    destinations and alpha written. Backward: the same rows, d out, alpha,
+    the ids and the mask read; d scores and dz written."""
+    F = sl.shape[0] // fo
+    zrow, flags = H * d * z.element_size(), fo * F * H
+    m = flags if kp is not None else 0
+    zrows = (sl.shape[0] if aligned else distinct(sl)) * zrow
+    fwd = bound(zrows + 8 * flags + nb(sl) + m + num_dst * H * d * 4,
+                ops=2 * flags * d)
+    bwd = bound(zrows + F * H * d * 4 + 8 * flags + nb(sl) + m
+                + z.shape[0] * zrow, ops=4 * flags * d)
+    return fwd, (fwd[0] + bwd[0], fwd[1])
+
+
 def k7_compares(tr, torch, results, main):
     """K7 against its plain version at GAT layer 1 (one real batch of the
     GAT path: 8000 x 25 lanes, 1 head, z [S1, classes]), forward and
@@ -673,23 +714,12 @@ def k7_compares(tr, torch, results, main):
             else f32_atomic_order
         note = (f"L1 {F}x{fo}x{H}x{d} z[{n}] {str(dt)[6:]}"
                 f"{' drop' if kp else ''}{' aligned' if ao else ''}")
-        # forward: each distinct source row of z, the scores, the lane ids
-        # and the mask read; the destinations and alpha written. Backward:
-        # the same rows, d out, alpha, the ids and the mask read; d scores
-        # and dz written.
-        zrow, flags = H * d * z.element_size(), fo * F * H
-        m = flags if kp is not None else 0
-        zrows = (sl.shape[0] if ao is not None else distinct(sl)) * zrow
-        fwd = bound(zrows + 8 * flags + nb(sl) + m + S[0] * H * d * 4,
-                    ops=2 * flags * d)
-        bwd = bound(zrows + F * H * d * 4 + 8 * flags + nb(sl) + m
-                    + n * zrow, ops=4 * flags * d)
+        fwd, both = k7_least(sl, z, fo, H, d, S[0], kp, ao is not None)
         compare("hop_attention", kf, pf, tuple_tol(close_f32), results,
-                torch, note + " fwd", least=fwd)
+                torch, note + " fwd", least=fwd, queued=True)
         t_b = compare("hop_attention", kb, pb,
                       tuple_tol(close_f32, dz_tol, close_f32), results,
-                      torch, note + " fwd+bwd",
-                      least=(fwd[0] + bwd[0], fwd[1]))
+                      torch, note + " fwd+bwd", least=both, queued=True)
         if dt == torch.bfloat16 and kp is not None and ao is None:
             main["hop_attention"] = [t_b]
 
@@ -724,11 +754,101 @@ def k7_exact_compares(tr, torch, results):
         pf, pb = attn_pair(plain, (z, sc), (z, sc), g_out, torch)
         note = (f"exact L0 {F}x{fo}x{H}x{d} z[{S[2]}] bf16"
                 f"{' drop u8' if kp else ''}")
+        fwd, both = k7_least(src, z, fo, H, d, S[1], kp, False)
         compare("hop_attention", kf, pf, tuple_tol(close_f32), results,
-                torch, note + " fwd", iters=5)
+                torch, note + " fwd", iters=5, least=fwd)
         compare("hop_attention", kb, pb,
                 tuple_tol(close_f32, bf16_ulp, close_f32), results,
-                torch, note + " fwd+bwd", iters=5)
+                torch, note + " fwd+bwd", iters=5, least=both)
+
+
+def k7_edges(torch, results):
+    """K7 at the edges of its shapes, forward and backward against the
+    plain version on random inputs, 203 frontier rows placed at offset 7 of
+    214 destinations: heads 1, 2, 8, 16; head widths 8, 32, 33, 64, 256;
+    fanouts 1, 25, 32, 33, 64 (the small-row kernels take fanouts up to 32
+    at a head's slice of 16 to 128 bytes, the general kernels the rest);
+    gathered and aligned; bf16 and f32; with the keep mask and without; a
+    tenth of the lanes invalid, and one row with no valid lane. And z at a
+    base that is not 16-byte aligned, which the general kernels take.
+    Tolerances as at the path's shapes: out and d scores ``close_f32``, dz
+    ``bf16_ulp`` or ``f32_atomic_order``; at fanout 1, where d scores is
+    zero but for rounding, it is held within 1e-5 d max|d out| max|z|."""
+    from legion_tpu_torch.models.common import dropout_keep
+    from legion_tpu_torch.ops import hop_agg, kernels
+    g = torch.Generator(device="cuda")
+    g.manual_seed(15)
+    F, num_dst, n, worst = 203, 214, 0, 0.0
+    off = torch.tensor(7, dtype=torch.int32, device="cuda")
+    lanes = torch.arange(64 * F, device="cuda", dtype=torch.int32)
+
+    def one(z, sc, src, fo, H, ao, kp, g_out, what):
+        nonlocal n, worst
+        kern = (lambda z, sc: kernels.hop_attention(
+            z.reshape(z.shape[0], -1), sc, src, fo, off, num_dst, H, ao, kp))
+        plain = (lambda z, sc: hop_agg.hop_softmax_attention_plain(
+            z, sc, src, fo, off, num_dst, kp, ao))
+        kb = attn_pair(kern, (z, sc), (z, sc), g_out, torch)[1]
+        pb = attn_pair(plain, (z, sc), (z, sc), g_out, torch)[1]
+        dz_tol = bf16_ulp if z.dtype == torch.bfloat16 else f32_atomic_order
+        ds_tol = close_f32
+        if fo == 1:
+            # a softmax over one lane: d scores is zero but for rounding,
+            # so hold it against the size of d alpha, not of itself
+            lim = 1e-5 * z.shape[2] * float(g_out.abs().max()
+                                            * z.detach().abs().max())
+            ds_tol = (lambda k, p: ((k - p).abs().max().item(), bool(
+                (k - p).abs().max() <= lim)))
+        err, ok = tuple_tol(close_f32, dz_tol, ds_tol)(kb(), pb())
+        if not ok:
+            fail(f"hop_attention edge {what}: kernel disagrees with its "
+                 f"plain version (max abs err {err})")
+        n, worst = n + 1, max(worst, err)
+
+    for H in (1, 2, 8, 16):
+        for d in (8, 32, 33, 64, 256):
+            for fo in (1, 25, 32, 33, 64):
+                E = fo * F
+                src = torch.randint(0, 300, (E,), generator=g, device="cuda",
+                                    dtype=torch.int32)
+                src[torch.rand((E,), generator=g, device="cuda") < 0.1] = -1
+                src.view(fo, F)[:, 3] = -1
+                sc = torch.randn((fo, F, H), generator=g, device="cuda") \
+                    .requires_grad_()
+                keep = dropout_keep((fo, F, H), 0.6, g, "cuda")
+                g_out = torch.randn((num_dst, H, d), generator=g,
+                                    device="cuda")
+                for ao in (None, num_dst + 5):
+                    N = 300 if ao is None else ao + E
+                    sl = src if ao is None else torch.where(
+                        src >= 0, ao + lanes[:E], -1)
+                    z32 = torch.randn((N, H, d), generator=g, device="cuda")
+                    for dt in (torch.bfloat16, torch.float32):
+                        z = z32.to(dt).requires_grad_()
+                        for kp in (keep, None):
+                            one(z, sc, sl, fo, H, ao, kp, g_out,
+                                f"H {H} d {d} fanout {fo} {dt} aligned "
+                                f"{ao} mask {kp is not None}")
+    # a z whose first byte is not 16-byte aligned: the general kernels
+    H, d, fo = 1, 32, 25
+    src = torch.randint(0, 300, (fo * F,), generator=g, device="cuda",
+                        dtype=torch.int32)
+    sc = torch.randn((fo, F, H), generator=g, device="cuda").requires_grad_()
+    g_out = torch.randn((num_dst, H, d), generator=g, device="cuda")
+    for dt in (torch.bfloat16, torch.float32):
+        flat = torch.randn((300 * H * d + 1,), generator=g,
+                           device="cuda").to(dt)
+        z = flat[1:].view(300, H, d).requires_grad_()
+        if z.data_ptr() % 16 == 0:
+            fail("hop_attention edges: z is 16-byte aligned where the case "
+                 "wants it not")
+        one(z, sc, src, fo, H, None, None, g_out, f"misaligned z {dt}")
+    print(f"  hop_attention  {n} edge cases (heads 1/2/8/16, head widths "
+          f"8/32/33/64/256, fanouts 1/25/32/33/64, gathered and aligned, "
+          f"bf16 and f32, mask or none, misaligned z), fwd+bwd: all within "
+          f"tolerance, max_abs_err {worst:.3g}")
+    r = results["hop_attention"]
+    r["max_abs_err"] = max(r["max_abs_err"], worst)
 
 
 def compare_slices(trs, torch, label):
@@ -867,8 +987,10 @@ def phase_host_kernels(tr_h, tr_ht, torch):
     _, hit = tr_ht.cache.find_feat(nid)
     miss = nid[(nid >= 0) & ~hit & (nid < feat_host.shape[0])].contiguous()
     link_bps = link_probe(feat_host, miss, torch)
+    link_unit(acc.host_indices, torch)
 
     for f, fo, key in ((f0, 25, 5), (f1, 10, 6)):
+        k5_link(acc, f, fo, key, f"K5 {f.shape[0]} x {fo}", torch)
         # a cached slot reads its row's two offsets and one int32 per draw
         # from device memory, any other the same over PCIe
         valid = int((f >= 0).sum())
@@ -947,9 +1069,177 @@ def phase_host_kernels(tr_h, tr_ht, torch):
         if name == "HT":
             main["cached_gather"] = [t]
     k4_edges(torch)
+    k5_edges(torch)
     # per train step of HT: K4 once (the fetch), K5 once per hop
     add_main(results, main)
     return results
+
+
+def k5_link(acc, f, fo, key, what, torch):
+    """What K5's host path asks of the link on frontier ``f``: the degree
+    figures of its slots; per slot, the distinct 32-byte sectors and
+    128-byte lines its draws fall on against the lines its whole row spans;
+    and bare reads of exactly those addresses by the SMs (nothing stored),
+    a thread a word in K5's slot-major order: the offsets alone, the
+    neighbour words alone, one after the other, and one word per distinct
+    (slot, sector) and (slot, line)."""
+    from legion_tpu_torch.ops import host_memory
+    from legion_tpu_torch.sampling import access
+    hp, hi = acc.host_indptr, acc.host_indices
+    F = f.shape[0]
+    start, deg, _ = access._draw_rows(f, hp.device, None, None)
+    some = deg > 0
+    lanes = torch.arange(fo * F, dtype=torch.int64,
+                         device="cuda").view(fo, F)
+    ka, kb = access.stream_keys(key, 0)
+    pos = start[None, :] + access.bounded(
+        access.hash_words(ka, kb, lanes), deg.clamp(1, 2 ** 31 - 1)[None, :])
+    addr = hi.device.data_ptr() + 4 * pos            # [fanout, F] bytes
+
+    def first_of(unit):
+        """Per slot, its draws sorted by address, and which of them is the
+        first on its ``unit``-byte block."""
+        a = addr.sort(dim=0).values
+        new = torch.ones_like(a, dtype=torch.bool)
+        new[1:] = a[1:] // unit != a[:-1] // unit
+        return a, new & some[None, :]
+
+    dv = deg[some].float().sort().values
+    n = dv.numel()
+    sec, lin = (int(first_of(u)[1].sum()) for u in (32, 128))
+    lo = hi.device.data_ptr() + 4 * start[some]
+    span = int(((lo + 4 * deg[some] - 1) // 128 - lo // 128 + 1).sum())
+    hdr = hp.device.data_ptr() + 8 * f[some].long()
+    hdr_lines = int(((hdr + 15) // 128 - hdr // 128 + 1).sum())
+    print(f"  link: {what}: {n} slots with neighbours | degree median "
+          f"{dv[n // 2]:.0f}, p90 {dv[n * 9 // 10]:.0f}, share <= 32 "
+          f"{float((dv <= 32).sum()) / n:.4f}, <= 64 "
+          f"{float((dv <= 64).sum()) / n:.4f}, <= 128 "
+          f"{float((dv <= 128).sum()) / n:.4f} | per slot, its {fo} draws "
+          f"fall on {sec / n:.3f} sectors of 32 B and {lin / n:.3f} lines "
+          f"of 128 B; its whole row spans {span / n:.3f} lines; its offsets "
+          f"{hdr_lines / n:.3f}")
+
+    def slot_major(a, keep):
+        return torch.where(keep, (a - hi.device.data_ptr()) // 4,
+                           -1).t().reshape(-1)
+
+    vid = torch.where(some, f.long(), -1)
+    offs = torch.stack([torch.where(some, 2 * vid, -1),
+                        torch.where(some, 2 * vid + 2, -1)], 1).reshape(-1)
+    words = slot_major(addr, some[None, :].expand_as(addr))
+    reads = [("the offsets alone", lambda: host_memory.word_probe(hp, offs),
+              hdr_lines),
+             ("the neighbour words alone",
+              lambda: host_memory.word_probe(hi, words), lin),
+             ("the offsets, then the neighbour words",
+              lambda: (host_memory.word_probe(hp, offs),
+                       host_memory.word_probe(hi, words)), hdr_lines + lin)]
+    for unit, name in ((32, "sector"), (128, "line")):
+        one = slot_major(*first_of(unit))
+        reads.append((f"one word per distinct (slot, {name})",
+                      lambda one=one: host_memory.word_probe(hi, one),
+                      lin))
+    for name, fn, lines in reads:
+        ms = cuda_ms(fn, torch, 10)
+        print(f"  link: {what}: SM reads of {name}: {ms:.4f} ms, "
+              f"{lines / ms / 1e3:.1f} M lines/s")
+
+
+def link_unit(hi, torch):
+    """What unit the link moves for the SMs: a million random 128-byte
+    lines of the host ``indices``, with one, four (one a sector) or eight
+    words of each asked for by neighbouring threads."""
+    from legion_tpu_torch.ops import host_memory
+    g = torch.Generator(device="cuda")
+    g.manual_seed(7)
+    n, base = 1_000_000, hi.device.data_ptr()
+    line = torch.randint(1, hi.shape[0] // 32 - 1, (n,), generator=g,
+                         device="cuda")
+    word = (line * 128 - base % 128) // 4
+    for places in ((0,), (0, 8, 16, 24), (0, 4, 8, 12, 16, 20, 24, 28)):
+        at = (word[:, None] + torch.tensor(places, device="cuda")[None, :]) \
+            .reshape(-1)
+        ms = cuda_ms(lambda: host_memory.word_probe(hi, at), torch, 10)
+        print(f"  link: SM reads of {len(places)} word(s) of each of {n} "
+              f"random 128-byte lines: {ms:.4f} ms, {n / ms / 1e3:.1f} M "
+              f"lines/s")
+
+
+def k5_edges(torch):
+    """K5 at the edges of its shapes, bit for bit against the plain
+    version: fanouts 1, 10, 16, 17, 25, 32, 33, 64 (lane groups of 1 to 32,
+    and more draws than a group has lanes); frontiers of 0, 1, 31, 33 and
+    1000 slots; a graph of 600 vertices with degrees 0, 1, 2, 31, 32, 33
+    (either side of a 128-byte line), 63 to 65, 127 to 129 and one row of
+    70,000, whose first and last rows have neighbours; pads, ids at and
+    past the number of vertices; the host CSR (int64 offsets, ``indices``
+    at a base that is 4-byte but not 16-byte aligned, registered to its
+    last byte) with no map, with a map and all hits, all misses or both;
+    the device CSR with int32 and int64 offsets."""
+    import numpy as np
+    from legion_tpu_torch.ops.host_memory import HostTable
+    from legion_tpu_torch.sampling import access
+    rng = np.random.default_rng(8)
+    V = 600
+    deg = np.resize([0, 1, 2, 31, 32, 33, 63, 64, 65, 127, 128, 129], V)
+    deg[[0, V - 1]] = 5, 7
+    deg[300] = 70_000
+    indptr = np.zeros(V + 1, np.int64)
+    indptr[1:] = np.cumsum(deg)
+    E = int(indptr[-1])
+    buf = np.empty(E + 8, np.int32)
+    at = (-buf.ctypes.data) % 16 // 4 + 1
+    indices = buf[at:at + E]
+    indices[:] = rng.integers(0, V, E)
+    if indices.ctypes.data % 16 != 4:
+        fail("csr_draw edges: indices' base is not where the case wants it")
+    hot = np.sort(rng.permutation(V)[:200])
+    cold = np.setdiff1d(np.arange(V), hot)
+    row_map = np.full(V, -1, np.int32)
+    row_map[hot] = np.arange(hot.size)
+    sub_indptr = np.zeros(hot.size + 1, np.int64)
+    sub_indptr[1:] = np.cumsum(deg[hot])
+    sub_indices = np.concatenate([indices[indptr[v]:indptr[v + 1]]
+                                  for v in hot]).astype(np.int32)
+    cached = tuple(torch.from_numpy(a).cuda()
+                   for a in (row_map, sub_indptr, sub_indices))
+    host = (HostTable(indptr, pin=True), HostTable(indices, pin=True))
+    dev = (torch.from_numpy(indptr).cuda(), torch.from_numpy(indices).cuda())
+    forms = {"host CSR, no map": (host, (), None),
+             "host CSR, mixed": (host, cached, None),
+             "host CSR, all hits": (host, cached, hot),
+             "host CSR, all misses": (host, cached, cold),
+             "device CSR int64": (dev, (), None),
+             "device CSR int32": ((dev[0].int(), dev[1]), (), None)}
+    n = 0
+    for F in (0, 1, 31, 33, 1000):
+        for what, (tabs, cache, pool) in forms.items():
+            ids = rng.integers(0, V, F) if pool is None \
+                else rng.choice(pool, F)
+            if pool is None and F:
+                ids[rng.random(F) < 0.1] = -1
+                special = (V - 1, 0, 300, V, V + 5, 2 ** 31 - 1, -1)
+                ids[:len(special)] = special[:F]
+            front = torch.from_numpy(ids.astype(np.int32)).cuda()
+            plain_tabs = tuple(t.device if isinstance(t, HostTable) else t
+                               for t in tabs)
+            for fo in (1, 10, 16, 17, 25, 32, 33, 64):
+                k = access.csr_draw(front, fo, 40 + fo, *tabs, *cache)
+                p_ = access.csr_draw_plain(front, fo, 40 + fo, *plain_tabs,
+                                           *cache)
+                if not exact(k, p_)[1]:
+                    fail(f"csr_draw edge F {F} fanout {fo} {what}: kernel "
+                         f"differs from its plain version")
+                n += 1
+    torch.cuda.synchronize()
+    for t in host:
+        t.close()
+    print(f"  csr_draw       {n} edge cases (fanouts 1/10/16/17/25/32/33/64,"
+          f" frontiers of 0/1/31/33/1000, degrees 0 to 70,000, pads and ids "
+          f"past the graph, host CSR with no map / mixed / all hits / all "
+          f"misses at a 4-byte-aligned base, device CSR int32 / int64): "
+          f"all exact")
 
 
 def link_probe(ht, miss, torch):
@@ -1231,6 +1521,7 @@ def main():
             k6_compares(tr, torch, results, main_ms)
             k6_edges(torch, results)
             k7_compares(tr, torch, results, main_ms)
+            k7_edges(torch, results)
         elif model == "gcn":
             k7_exact_compares(tr, torch, results)
         torch.cuda.empty_cache()

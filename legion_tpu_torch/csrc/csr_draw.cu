@@ -18,56 +18,98 @@
 // PyTorch version (sampling/access.py::csr_draw_plain) agrees bit for bit,
 // and a cached row and its host row give the same neighbour.
 //
-// Bound on this card: latency of two dependent random reads per lane
-// (the row's offsets, then one neighbour id), over PCIe for a row that
-// misses the cache. Design: one thread per lane, the lanes of one slot in
-// neighbouring threads, so a warp reads a slot's offsets once (one
-// request, broadcast) instead of once per draw; the writes scatter by F,
-// in device memory. The full CSR's offsets are int32 or int64 (templated);
-// host offsets are int64.
+// Bound on this card: for a row that misses the cache, the link's request
+// rate. What the card showed (NVIDIA H100 80GB HBM3 at 700 W; the link
+// lines of chip_smoke.py's phase 5): loads made by the SMs from mapped host
+// memory cost one request per distinct 128-byte line of a warp's
+// load, about 250 M requests a second, whether one word of the line
+// is asked for or all of it; the bytes hardly matter. A slot needs one
+// request for its two offsets and one for each line its draws fall on (2.3
+// of the 2.5 lines of a 50-neighbour row at fanout 10, so reading the row
+// whole asks for more, not fewer), and the second waits for the first.
+//
+// Design: a group of G lanes (the least power of two >= the fanout, at
+// most 32) owns kPasses consecutive frontier slots at a time. Lane u of the
+// group reads slot u's vertex, map entry and offsets, once for all of the
+// slot's draws: no slot's offsets are asked for by two warps, and no lane
+// divides. The group then draws for its slots, a lane a draw (a loop where
+// the fanout exceeds 32), with each slot's offsets from its owner by
+// shuffle, and every neighbour load of the kPasses slots is started before
+// the first store. The writes scatter by F, in device memory. The full
+// CSR's offsets are int32 or int64 (templated); host offsets are int64.
+//
+// Reading a short host row whole would ask for more lines than its draws
+// fall on, and one 16-byte load of both offsets asks for the same line as
+// two 8-byte loads: neither is done.
 #include "common.cuh"
 
+constexpr int kPasses = 4;  // slots of a lane group in flight
+
 template <typename Off>
-__global__ void csr_draw_kernel(const int32_t* __restrict__ frontier,
-                                int64_t F, int32_t fanout,
-                                const int32_t* __restrict__ row_map,
-                                const int64_t* __restrict__ sub_indptr,
-                                const int32_t* __restrict__ sub_indices,
-                                const Off* __restrict__ indptr,
-                                const int32_t* __restrict__ indices,
-                                int64_t num_nodes, uint32_t ka, uint32_t kb,
-                                int32_t* __restrict__ out) {
-  const int64_t total = F * fanout;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-       t < total; t += stride) {
-    const int64_t i = t / fanout;
-    const int64_t lane = (t - i * fanout) * F + i;
-    const int32_t v = frontier[i];
-    int32_t result = -1;
-    if (v >= 0) {
-      const int64_t vc = v < num_nodes ? v : num_nodes - 1;
-      const int32_t row = row_map != nullptr ? row_map[vc] : -1;
-      int64_t start, end;
-      const int32_t* idx;
-      if (row >= 0) {
-        start = sub_indptr[row];
-        end = sub_indptr[row + 1];
-        idx = sub_indices;
-      } else {
-        start = (int64_t)indptr[vc];
-        end = (int64_t)indptr[vc + 1];
-        idx = indices;
-      }
-      const int64_t deg = end - start;
-      if (deg > 0) {
-        const int64_t deg32 = deg < 2147483647LL ? deg : 2147483647LL;
-        const uint32_t r =
-            lt_bounded(lt_word(ka, kb, (uint32_t)lane), (uint32_t)deg32);
-        result = idx[start + r];
+__global__ void __launch_bounds__(kThreads) csr_draw_kernel(
+    const int32_t* __restrict__ frontier, int64_t F, int32_t fanout,
+    const int32_t* __restrict__ row_map,
+    const int64_t* __restrict__ sub_indptr,
+    const int32_t* __restrict__ sub_indices, const Off* __restrict__ indptr,
+    const int32_t* __restrict__ indices, int64_t num_nodes, uint32_t ka,
+    uint32_t kb, int32_t* __restrict__ out, int gshift) {
+  const int lane = threadIdx.x & 31;
+  const int G = 1 << gshift;                  // lanes of a group
+  const int sub = lane >> gshift;             // this lane's group
+  const int gl = lane & (G - 1);              // and its place there
+  const int P = G < kPasses ? G : kPasses;    // slots of a group at a time
+  const int spw = (32 >> gshift) * P;         // slots of a warp at a time
+  const int64_t warps = (int64_t)gridDim.x * (blockDim.x >> 5);
+  const int64_t chunks = (F + spw - 1) / spw;
+  for (int64_t chunk = (int64_t)blockIdx.x * (blockDim.x >> 5)
+                       + (threadIdx.x >> 5);
+       chunk < chunks; chunk += warps) {
+    const int64_t i0 = chunk * spw + sub * P;  // the group's first slot
+    // lane u < P of the group: the row of slot i0 + u (degree 0 for a pad
+    // or past F)
+    long long start = 0;
+    uint32_t deg = 0;
+    int hit = 0;
+    if (gl < P && i0 + gl < F) {
+      const int32_t v = frontier[i0 + gl];
+      if (v >= 0) {
+        const int64_t vc = v < num_nodes ? v : num_nodes - 1;
+        const int32_t row = row_map != nullptr ? row_map[vc] : -1;
+        long long end;
+        if (row >= 0) {
+          start = sub_indptr[row];
+          end = sub_indptr[row + 1];
+          hit = 1;
+        } else {
+          start = (long long)indptr[vc];
+          end = (long long)indptr[vc + 1];
+        }
+        const long long d = end - start;
+        deg = d <= 0 ? 0u : (uint32_t)(d < 2147483647LL ? d : 2147483647LL);
       }
     }
-    out[lane] = result;
+    for (int fb = 0; fb < fanout; fb += G) {
+      const int f = fb + gl;
+      int64_t at[kPasses];
+      int32_t res[kPasses];
+#pragma unroll
+      for (int u = 0; u < kPasses; ++u) {
+        const int owner = (sub << gshift) + (u < P ? u : 0);
+        const long long st = __shfl_sync(0xffffffffu, start, owner);
+        const uint32_t dg = __shfl_sync(0xffffffffu, deg, owner);
+        const int h = __shfl_sync(0xffffffffu, hit, owner);
+        const int64_t i = i0 + u;
+        at[u] = u < P && i < F && f < fanout ? (int64_t)f * F + i : -1;
+        res[u] = -1;
+        if (at[u] >= 0 && dg > 0) {
+          const uint32_t r = lt_bounded(lt_word(ka, kb, (uint32_t)at[u]), dg);
+          res[u] = (h ? sub_indices : indices)[st + r];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kPasses; ++u)
+        if (at[u] >= 0) out[at[u]] = res[u];
+    }
   }
 }
 
@@ -78,10 +120,14 @@ static int launch(const int32_t* frontier, int64_t F, int32_t fanout,
                   const int32_t* indices, int64_t num_nodes, uint32_t ka,
                   uint32_t kb, int32_t* out, void* stream) {
   if (F == 0 || fanout == 0) return (int)cudaSuccess;
-  csr_draw_kernel<Off><<<lt_grid(F * fanout), kThreads, 0,
+  int gshift = 0;
+  while (gshift < 5 && (1 << gshift) < fanout) ++gshift;
+  // a warp takes (32 >> gshift) * min(kPasses, 1 << gshift) slots at a time
+  const int64_t spw = (32 >> gshift) * (gshift < 2 ? 1 << gshift : kPasses);
+  csr_draw_kernel<Off><<<lt_grid((F + spw - 1) / spw * 32), kThreads, 0,
                          (cudaStream_t)stream>>>(
       frontier, F, fanout, row_map, sub_indptr, sub_indices, indptr, indices,
-      num_nodes, ka, kb, out);
+      num_nodes, ka, kb, out, gshift);
   return (int)cudaGetLastError();
 }
 

@@ -108,3 +108,32 @@ LT_EXPORT int lt_host_read_probe(const void* host, int64_t host_rows,
       (const char*)host, host_rows, row_bytes, ids, n, align, sink);
   return (int)cudaGetLastError();
 }
+
+// The link's practical rate for scattered words, as K5's miss path asks for
+// them: thread t reads the 4-byte word `at[t]` of a registered host table
+// (none where at[t] < 0) and folds it into a value that is never stored, so
+// no load is dropped. Neighbouring threads are one warp's load,
+// as in K5.
+__global__ void __launch_bounds__(kThreads) host_word_probe_kernel(
+    const int32_t* __restrict__ host, const int64_t* __restrict__ at,
+    int64_t n, uint32_t* __restrict__ sink) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  uint32_t acc = 0;
+  for (int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; t < n;
+       t += stride) {
+    const int64_t a = at[t];
+    if (a >= 0) acc ^= (uint32_t)__ldcs(host + a);
+  }
+  for (int o = 16; o > 0; o >>= 1) acc ^= __shfl_xor_sync(0xffffffffu, acc, o);
+  if ((threadIdx.x & 31) == 0) atomicXor(sink, acc);
+}
+
+// at [n] int64 word offsets inside the table (or negative: no load).
+LT_EXPORT int lt_host_word_probe(const void* host, const int64_t* at,
+                                 int64_t n, uint32_t* sink, void* stream) {
+  if (n == 0) return (int)cudaSuccess;
+  if ((uintptr_t)host % 4) return (int)cudaErrorInvalidValue;
+  host_word_probe_kernel<<<lt_grid(n), kThreads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)host, at, n, sink);
+  return (int)cudaGetLastError();
+}

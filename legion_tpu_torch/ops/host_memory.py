@@ -190,3 +190,24 @@ def read_probe(host: HostTable, ids: torch.Tensor, align: int) -> None:
     if rc != 0:
         msg = kernels.lib().lt_error_string(rc).decode()
         raise RuntimeError(f"read_probe launch failed: {msg} ({rc})")
+
+
+def word_probe(host: HostTable, at: torch.Tensor) -> None:
+    """Read the 4-byte words ``at`` (int64 word offsets from the table's
+    first byte, on the card, all inside the table; negative: no load) of a
+    registered host table, a thread a word in the order given, as K5's miss
+    path asks for offsets and neighbour ids, and drop them: a measurement
+    of the link's rate for scattered words, not a step of any path. Time
+    it with CUDA events around the call."""
+    t = host.on(at.device)
+    if not t.is_cuda or at.dtype != torch.int64 or at.dim() != 1:
+        raise ValueError(f"word_probe: table on {t.device}, offsets "
+                         f"{at.dtype} {tuple(at.shape)}")
+    at = at.contiguous()
+    sink = torch.zeros((), dtype=torch.int32, device=at.device)
+    rc = kernels.lib().lt_host_word_probe(
+        t.data_ptr(), at.data_ptr(), at.shape[0], sink.data_ptr(),
+        kernels.stream_handle())
+    if rc != 0:
+        msg = kernels.lib().lt_error_string(rc).decode()
+        raise RuntimeError(f"word_probe launch failed: {msg} ({rc})")

@@ -153,12 +153,13 @@ def lib() -> ctypes.CDLL:
                                      ctypes.POINTER(ctypes.c_void_p)]
     so.lt_host_unregister.argtypes = [p]
     so.lt_host_read_probe.argtypes = [p, i64, i64, p, i64, i32, p, p]
+    so.lt_host_word_probe.argtypes = [p, p, i64, p, p]
     for fn in (so.lt_gather_rows, so.lt_segment_sum_f32,
                so.lt_segment_sum_bf16, so.lt_windowed_draw_i32,
                so.lt_windowed_draw_i64, so.lt_cached_gather,
                so.lt_csr_draw_i32, so.lt_csr_draw_i64, so.lt_host_register,
                so.lt_host_unregister, so.lt_host_read_probe,
-               so.lt_gat_attend_fwd,
+               so.lt_host_word_probe, so.lt_gat_attend_fwd,
                so.lt_gat_attend_bwd, so.lt_hop_attention_fwd,
                so.lt_hop_attention_bwd):
         fn.restype = ctypes.c_int
@@ -470,16 +471,18 @@ def gat_attend(x: torch.Tensor, u_l: torch.Tensor, u_r: torch.Tensor,
 
 
 class HopAttention(torch.autograd.Function):
-    """K7 with its backward kernel: dscores [fanout, F, H] and dz, summed
-    in f32 (atomics on a gathered hop, stores on an aligned one) and cast
-    to z's dtype."""
+    """K7 with its backward kernel: dscores [fanout, F, H] and dz. On a
+    gathered hop dz is summed in f32 by atomics and cast to z's dtype
+    once; on an aligned hop every lane owns its row, and the kernel
+    stores dz in z's dtype. The forward kernel writes every row of out
+    (zeros outside the hop), so out is not zero-filled here."""
 
     @staticmethod
     def forward(ctx, z2, scores, src_l, hop_offset, fanout, num_dst, heads,
                 aligned_offset, mask, scale):
         fo, F, H = scores.shape
         d = z2.shape[1] // heads
-        out = torch.zeros((num_dst, H, d), dtype=torch.float32,
+        out = torch.empty((num_dst, H, d), dtype=torch.float32,
                           device=z2.device)
         alpha = torch.empty_like(scores)
         mask, mptr = _mask_arg("hop_attention", mask, scores.shape,
@@ -502,7 +505,8 @@ class HopAttention(torch.autograd.Function):
         d = z2.shape[1] // H
         dout = dout.float().contiguous()
         dscores = torch.empty_like(alpha)
-        dz = torch.zeros(z2.shape, dtype=torch.float32, device=z2.device)
+        dz = torch.zeros(z2.shape, device=z2.device, dtype=torch.float32
+                         if aligned_offset < 0 else z2.dtype)
         rc = lib().lt_hop_attention_bwd(
             dout.data_ptr(), z2.data_ptr(), src_l.data_ptr(),
             hop_offset.data_ptr(), alpha.data_ptr(),

@@ -20,7 +20,9 @@ from legion_tpu.config import SamplerConfig as JSamplerConfig
 from legion_tpu.data import synthesize_dataset as jax_synth
 from legion_tpu.data import write_legion_dataset as jax_write
 from legion_tpu.data.format import LegionDataset as JLegionDataset
+from legion_tpu.graph import DeviceCSR as JDeviceCSR
 from legion_tpu.sampling.access import CachedTopoAccess as JTopo
+from legion_tpu.sampling.access import DeviceCSRAccess as JDeviceAccess
 from legion_tpu.sampling.sampler import NeighborSampler as JSampler
 from legion_tpu.train import Trainer as JTrainer
 from legion_tpu_torch.cache.cost_model import CostModelResult, plan_cache
@@ -325,6 +327,81 @@ def test_cached_topo_hit_lanes_match_jax(jds, topo):
     m = np.tile(hit, fanout)
     np.testing.assert_array_equal(got.numpy()[m], lanes[m])
     np.testing.assert_array_equal(full[m], lanes[m])
+
+
+@pytest.fixture(scope="module")
+def edge_csr():
+    """The graph ``chip_smoke.py`` holds K5 to at its edges: degrees 0, 1,
+    2, either side of a 128-byte line of neighbour ids (31 to 33, 63 to
+    65, 127 to 129), one row of 70,000, first and last rows with
+    neighbours; a third of the rows cached, in both packages."""
+    rng = np.random.default_rng(8)
+    Ve = 600
+    deg = np.resize([0, 1, 2, 31, 32, 33, 63, 64, 65, 127, 128, 129], Ve)
+    deg[[0, Ve - 1]] = 5, 7
+    deg[300] = 70_000
+    indptr = np.zeros(Ve + 1, np.int64)
+    indptr[1:] = np.cumsum(deg)
+    indices = rng.integers(0, Ve, int(indptr[-1])).astype(np.int32)
+    hot = np.sort(np.concatenate([[300], rng.permutation(Ve)[:200]]))
+    kw = dict(feature_capacity=0, topo_capacity=len(np.unique(hot)),
+              alpha=0.5, feature_order=np.arange(Ve),
+              topo_order=np.concatenate([np.unique(hot), np.setdiff1d(
+                  np.arange(Ve), hot)]),
+              est_feat_saved_bytes=0.0, est_topo_saved_bytes=0.0)
+    jc = JCache.build_from_host(JPlan(**kw), None, indptr, indices, Ve)
+    return indptr, indices, jc
+
+
+@pytest.mark.parametrize("offsets", ["int32", "int64"])
+@pytest.mark.parametrize("fanout", [1, 10, 16, 17, 25, 32, 33, 64])
+def test_csr_select_matches_jax_at_kernel_edges(edge_csr, fanout, offsets):
+    """K5's plain version at the fanouts (lane groups of 1 to 32 on the
+    card, and more draws than a group has lanes), degrees and offset types
+    that ``chip_smoke.py`` holds the kernel to: JAX's in-row offsets,
+    recomputed with the same key, fed to ``csr_select``, give JAX's
+    ``DeviceCSRAccess`` draws on the full CSR and ``CachedTopoAccess.
+    lookup``'s lanes on the cached rows, exactly."""
+    indptr, indices, jc = edge_csr
+    Ve, F = indptr.shape[0] - 1, 96
+    rng = np.random.default_rng(fanout)
+    front = rng.integers(0, Ve, F).astype(np.int32)
+    front[rng.random(F) < 0.1] = -1
+    front[:16] = np.arange(16)                   # every edge degree
+    front[16:20] = (Ve - 1, 0, 300, -1)
+    key = jax.random.PRNGKey(fanout)
+    odt = np.int32 if offsets == "int32" else np.int64
+    jcsr = JDeviceCSR(jnp.asarray(indptr.astype(odt)), jnp.asarray(indices),
+                      Ve, int(indptr[-1]))
+    assert jcsr.indptr.dtype == odt
+
+    def offsets_for(deg):
+        return np.array(jax.random.randint(
+            key, (fanout, F), 0,
+            jnp.asarray(np.maximum(deg, 1).astype(np.int32))[None, :],
+            dtype=jnp.int32))
+
+    safe = np.clip(front, 0, Ve - 1)
+    deg = np.where(front >= 0, indptr[safe + 1] - indptr[safe], 0)
+    tabs = (torch.from_numpy(indptr.astype(odt)), torch.from_numpy(indices))
+    ft = torch.from_numpy(front)
+    full = np.asarray(JDeviceAccess(jcsr).sample_neighbors(
+        jnp.asarray(front), fanout, key))
+    got = access.csr_select(ft, torch.from_numpy(offsets_for(deg)), *tabs)
+    assert got.dtype == torch.int32 and got.shape == (fanout * F,)
+    np.testing.assert_array_equal(got.numpy(), full)
+    assert np.all(got.numpy().reshape(fanout, F)[:, deg == 0] == -1)
+    # the cached rows: JAX draws within the cached row's degree
+    ja = JTopo(jc.row_map, jc.sub_indptr, jc.sub_indices, indptr, indices)
+    lanes, hit = ja.lookup(jnp.asarray(front), fanout, key)
+    lanes, hit = np.asarray(lanes), np.asarray(hit)
+    assert 0 < hit.sum() < (front >= 0).sum()
+    pc = cache_from_jax(jc)
+    got = access.csr_select(ft, torch.from_numpy(
+        offsets_for(np.where(hit, deg, 0))), *tabs, pc.row_map,
+        pc.sub_indptr, pc.sub_indices)
+    m = np.tile(hit, fanout)
+    np.testing.assert_array_equal(got.numpy()[m], lanes[m])
 
 
 def test_cached_topo_miss_lanes_are_uniform_neighbours(jds, topo):

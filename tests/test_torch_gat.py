@@ -108,6 +108,51 @@ def test_hop_softmax_attention_matches_jax(branch, hop, dtype):
     close(st.grad, gs_j, tol, "d scores")
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,d,fanout,hop", [
+    (1, 32, 25, "gathered"), (2, 8, 1, "aligned"), (8, 64, 32, "gathered"),
+    (16, 33, 33, "aligned"), (1, 256, 64, "gathered"),
+    (8, 32, 33, "gathered"), (2, 64, 32, "aligned")])
+def test_hop_softmax_attention_plain_matches_jax_at_kernel_edges(
+        H, d, fanout, hop, dtype):
+    """K7's plain version against ``hop_softmax_attention`` at heads, head
+    widths and fanouts that ``chip_smoke.py`` holds the kernel to on the
+    card, on both sides of its small-row kernels' shapes (fanout <= 32, a
+    head's slice of a row 16 to 128 bytes): output and gradients for z
+    and the scores, F32_RTOL in f32 and BF16_RTOL in bf16."""
+    rng = np.random.default_rng(7)
+    F, num_dst, offset = 6, 12, 4
+    n_src = num_dst + fanout * F
+    aoff = num_dst if hop == "aligned" else None
+    src = _lanes(rng, fanout, F, n_src, aoff)
+    z = rng.standard_normal((n_src, H, d)).astype(np.float32)
+    scores = 2 * rng.standard_normal((fanout, F, H)).astype(np.float32)
+    w = rng.standard_normal((num_dst, H, d)).astype(np.float32)
+
+    def jfn(zz, ss):
+        out = jhop.hop_softmax_attention(zz, ss, jnp.asarray(src), fanout,
+                                         jnp.int32(offset), num_dst,
+                                         aligned_offset=aoff)
+        return jnp.sum(out.astype(jnp.float32) * w), out
+
+    (_, out_j), (gz_j, gs_j) = jax.jit(jax.value_and_grad(
+        jfn, argnums=(0, 1), has_aux=True))(jnp.asarray(z, jdt(dtype)),
+                                           jnp.asarray(scores))
+    zt = torch.from_numpy(z).to(tdt(dtype)).requires_grad_()
+    st = torch.from_numpy(scores).requires_grad_()
+    out_p = hop_agg.hop_softmax_attention_plain(
+        zt, st, torch.from_numpy(src), fanout,
+        torch.tensor(offset, dtype=torch.int32), num_dst, None, aoff)
+    (out_p * torch.from_numpy(w)).sum().backward()
+    assert torch.all(out_p[offset + 3] == 0)
+    assert torch.all(out_p[:offset] == 0) and torch.all(
+        out_p[offset + F:] == 0)
+    tol = F32_RTOL if dtype == "float32" else BF16_RTOL
+    close(out_p, out_j, tol, "out")
+    close(zt.grad, gz_j, tol, "d z")
+    close(st.grad, gs_j, tol, "d scores")
+
+
 def test_hop_softmax_attention_dropout_matches_jax(monkeypatch):
     """The same keep mask given to both sides: output and gradients."""
     rng = np.random.default_rng(1)
