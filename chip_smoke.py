@@ -4,11 +4,16 @@ Run from the repository root: ``python3 chip_smoke.py``. It needs one
 CUDA card, nvcc (``$CUDA_HOME`` or ``/usr/local/cuda``) and no network.
 
   1. builds the hand-written kernels from ``legion_tpu_torch/csrc``;
-  2. holds K1-K3 against their plain PyTorch versions on the card, at
-     the shapes the main path gives them, and times both, beside each
-     kernel's bound (the least time the card could take for the same
-     bytes and operations) and, where one PyTorch call computes the same
-     function, that call;
+  2. times an empty kernel through the port's ctypes route
+     (``launch_floor``); holds K1-K3 against their plain PyTorch versions
+     on the card, at the shapes the main path gives them, and times both,
+     beside each kernel's bound (the least time the card could take for
+     the same bytes and operations) and, where one PyTorch call computes
+     the same function, that call; K2 and K3 also with the host's launch
+     time hidden (``queued_ms``) and in the host's own time per call
+     (``host_us``); K2 at the main path's size under other skews of its
+     segments; K2 and K3 at the edges of their shapes (``k2_edges``,
+     ``k3_edges``);
   3. drives the main path through the public API at the bench
      configuration (``bench.py`` defaults: 2.4M vertices, 120M edges,
      GraphSAGE [25,10], batch 8000, hidden 256, bf16 features, 64-wide
@@ -22,7 +27,8 @@ CUDA card, nvcc (``$CUDA_HOME`` or ``/usr/local/cuda``) and no network.
      and outside K6's tensor-core path and K7's small-row kernels, both
      dtypes);
      GCN (exact last-hop dedup), after holding K7 at the exact-dedup GAT
-     layer-0 shape of one of its batches; link-prediction SAGE (batch
+     layer-0 shape of one of its batches and K2 at its out-degree shape
+     (one column); link-prediction SAGE (batch
      7998, eval batch 510); each for train steps and an eval pass;
   4. checks the whole slice on the card against the same slice on the
      CPU (plain versions) at a small size, for GraphSAGE, GAT and GCN;
@@ -52,7 +58,8 @@ failure exits non-zero without that line.
 ``python3 chip_smoke.py --profile gat,H,HT`` runs none of the phases: it
 takes the named paths (of device, gat, gcn, lp_sage, H, HT, cache-off)
 through ``torch.profiler`` and prints where a train step's device time
-goes (``phase_profile``).
+goes (``phase_profile``). ``python3 chip_smoke.py --kernels`` stops after
+phase 2 and K2's out-degree shape, for work on K1-K3.
 """
 
 import json
@@ -141,14 +148,15 @@ def bound(dev_bytes, ops=0.0, peak="f32", link_bytes=0.0, link_bps=None):
 def add_main(results, main):
     """Per train step of a kernel's path: the sums over its launches there
     of kernel, plain, bound and library-call times (None where a launch
-    has no library call)."""
+    has no library call; the queued time where every launch has one)."""
     for name, times in main.items():
-        lib = [t[3] for t in times]
+        lib, queued = [t[3] for t in times], [t[4] for t in times]
         results[name].update(
             ms=sum(t[0] for t in times), plain_ms=sum(t[1] for t in times),
             bound_ms=sum(t[2][0] for t in times),
             bound_by=max(times, key=lambda t: t[2][0])[2][1],
-            library_ms=None if None in lib else sum(lib))
+            library_ms=None if None in lib else sum(lib),
+            queued_ms=None if None in queued else sum(queued))
 
 
 def fail(msg):
@@ -173,18 +181,52 @@ def cuda_ms(fn, torch, iters=TIMING_ITERS):
 def queued_ms(fn, torch, iters=50):
     """Mean milliseconds per call of fn with the calls queued behind a
     kernel that holds the card for some 100 ms, so that the host's time to
-    launch them is hidden: the card's own time for the work of one call."""
+    launch them is hidden: the card's own time for the work of one call.
+    The least of three takes: a host that stalls past the hold lets the
+    queue drain, and that take reads the host again."""
     fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    takes = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(180_000_000)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        takes.append(start.elapsed_time(end) / iters)
+    return min(takes)
+
+
+def host_us(fn, torch, calls=1000):
+    """Microseconds of the host's time per call of fn: ``calls`` calls with
+    no sync between them (``time.perf_counter``), a sync at the end."""
+    fn()
     torch.cuda.synchronize()
-    torch.cuda._sleep(180_000_000)
-    start.record()
-    for _ in range(iters):
+    t0 = time.perf_counter()
+    for _ in range(calls):
         fn()
-    end.record()
+    dt = time.perf_counter() - t0
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return dt / calls * 1e6
+
+
+def launch_floor(torch):
+    """The least a launch through the port's ctypes route costs: an empty
+    kernel (``csrc/noop.cu``), as the host launches it, queued behind a
+    kernel that holds the card, and in the host's own time. No kernel's
+    queued time can go under the second figure. Returns it."""
+    from legion_tpu_torch.ops import kernels
+    ms = cuda_ms(kernels.noop, torch, 200)
+    queued = queued_ms(kernels.noop, torch, 200)
+    print(f"  launch_floor: an empty kernel {ms:.4f} ms as the host launches "
+          f"it | queued {queued:.4f} ms | host_us_per_call "
+          f"{host_us(kernels.noop, torch):.2f}")
+    if not 0 < queued <= ms * 1.5:
+        fail(f"launch_floor: queued {queued} ms against {ms} ms as launched")
+    return queued
 
 
 def compare(name, kernel, plain, tol, results, torch, shape_note,
@@ -195,7 +237,7 @@ def compare(name, kernel, plain, tol, results, torch, shape_note,
     the same function (timed, used nowhere else). ``queued`` also times the
     kernel with the host's launch time hidden (``queued_ms``), for a kernel
     that the host cannot launch as fast as the card runs it. Returns
-    (kernel ms, plain ms, least, library ms or None)."""
+    (kernel ms, plain ms, least, library ms or None, queued ms or None)."""
     k, p = kernel(), plain()
     torch.cuda.synchronize()
     err, ok = tol(k, p)
@@ -216,12 +258,13 @@ def compare(name, kernel, plain, tol, results, torch, shape_note,
                 f"{least[0] / ms:.3f})")
     if lib_ms is not None:
         msg += f" | library call {lib_ms:.4f} ms"
+    q_ms = queued_ms(kernel, torch) if queued else None
     if queued:
-        msg += f" | queued {queued_ms(kernel, torch):.4f} ms"
+        msg += f" | queued {q_ms:.4f} ms"
     print(msg)
     r = results.setdefault(name, {"max_abs_err": 0.0})
     r["max_abs_err"] = max(r["max_abs_err"], err)
-    return ms, plain_ms, least, lib_ms
+    return ms, plain_ms, least, lib_ms, q_ms
 
 
 def exact(k, p):
@@ -364,6 +407,8 @@ def phase_kernels(tr, torch):
     carry = s.hop_absorb(carry, 1, acc.sample_neighbors(f1, 10, 78))
     batch = s.finish(carry)
 
+    floor = launch_floor(torch)
+
     # K3: bit for bit, both hops
     for f, fo, key in ((f0, 25, 5), (f1, 10, 6)):
         # the frontier, a (start, degree) pair per valid slot, one int32
@@ -371,14 +416,20 @@ def phase_kernels(tr, torch):
         valid = int((f >= 0).sum())
         least = bound(nb(f) + valid * 2 * acc.row_pairs.element_size()
                       + 4 * valid * fo + 4 * f.shape[0] * fo)
-        main.setdefault("windowed_draw", []).append(compare(
-            "windowed_draw",
-            lambda: access.windowed_draw(acc.row_pairs, acc.indices2d, f,
-                                         fo, key),
+
+        def k3():
+            return access.windowed_draw(acc.row_pairs, acc.indices2d, f, fo,
+                                        key)
+        t = compare(
+            "windowed_draw", k3,
             lambda: access.windowed_draw_plain(acc.row_pairs, acc.indices2d,
                                                f, fo, key),
             exact, results, torch, f"frontier {f.shape[0]} fanout {fo}",
-            least=least))
+            least=least, queued=True)
+        main.setdefault("windowed_draw", []).append(t)
+        print(f"  windowed_draw  frontier {f.shape[0]} fanout {fo}: queued "
+              f"{t[4] / floor:.2f} x launch_floor | host_us_per_call "
+              f"{host_us(k3, torch):.2f}")
 
     # K1: exact
     table = tr.feature_source.features
@@ -416,18 +467,48 @@ def phase_kernels(tr, torch):
     # K2: f32 atomic order
     dmsg = torch.randn((src0.shape[0], 128), generator=g,
                        device=dev).to(torch.bfloat16)
-    # the rows and their segments read, the f32 sums written; one add per
-    # valid element
-    seg_idx = torch.where(src0 >= 0, src0, S1).long()
     dmsg32 = dmsg.float()
-    main["segment_sum"] = [compare(
-        "segment_sum", lambda: kernels.segment_sum(dmsg, src0, S1),
-        lambda: kernels.segment_sum_plain(dmsg, src0, S1), f32_atomic_order,
-        results, torch, f"layer-1 bwd E {src0.shape[0]} -> S {S1} bf16",
-        least=bound(nb(dmsg, src0) + 4 * S1 * 128,
-                    ops=int((src0 >= 0).sum()) * 128),
-        library=lambda: torch.zeros(
-            (S1 + 1, 128), device=dev).index_add_(0, seg_idx, dmsg32))]
+    def k2_compare(seg, note):
+        # the rows and their segments read, the f32 sums written; one add
+        # per valid element
+        idx = torch.where(seg >= 0, seg, S1).long()
+        return compare(
+            "segment_sum", lambda: kernels.segment_sum(dmsg, seg, S1),
+            lambda: kernels.segment_sum_plain(dmsg, seg, S1),
+            f32_atomic_order, results, torch,
+            f"E {seg.shape[0]} -> S {S1} bf16, {note}",
+            least=bound(nb(dmsg, seg) + 4 * S1 * 128,
+                        ops=int((seg >= 0).sum()) * 128),
+            library=lambda: torch.zeros(
+                (S1 + 1, 128), device=dev).index_add_(0, idx, dmsg32),
+            queued=True)
+
+    # how the batch's own segments are skewed, and what the zero-fill of
+    # the accumulator costs inside every time below
+    full = torch.bincount(src0[src0 >= 0].long(), minlength=S1)
+    zero_ms = cuda_ms(lambda: torch.zeros((S1, 128), device=dev), torch)
+    print(f"  segment_sum    the batch's segments: {int(full.sum())} valid "
+          f"lanes on {int((full > 0).sum())} distinct rows; the fullest "
+          f"rows hold {full.sort(descending=True).values[:4].tolist()} | "
+          f"zero-fill of [{S1},128] f32 alone {zero_ms:.4f} ms")
+    main["segment_sum"] = [k2_compare(src0, "layer-1 bwd (the batch's own)")]
+    # 200 calls: each is two launches, and the launch queue must not fill
+    print(f"  segment_sum    layer-1 bwd: host_us_per_call "
+          f"{host_us(lambda: kernels.segment_sum(dmsg, src0, S1), torch, 200):.2f}")
+    # the same E, F, S under other skews: uniform segments; every lane in
+    # one; 1% of the segments taking half of the lanes
+    E = src0.shape[0]
+    uniform = torch.randint(0, S1, (E,), generator=g, device=dev,
+                            dtype=torch.int32)
+    hot = torch.randperm(S1, generator=g, device=dev)[:S1 // 100]
+    hubs = hot[torch.randint(0, hot.numel(), (E,), generator=g,
+                             device=dev)].to(torch.int32)
+    half = torch.rand((E,), generator=g, device=dev) < 0.5
+    for seg, note in ((uniform, "uniform segments"),
+                      (torch.full_like(src0, S1 // 2), "one segment"),
+                      (torch.where(half, hubs, uniform),
+                       "1% of segments take half")):
+        k2_compare(seg, note)
     seg = torch.randint(-1, 8192, (200_704,), generator=g, device=dev,
                         dtype=torch.int32)
     for dt in (torch.float32, torch.bfloat16):
@@ -436,11 +517,152 @@ def phase_kernels(tr, torch):
                 lambda: kernels.segment_sum_plain(data, seg, 8192),
                 f32_atomic_order, results, torch,
                 f"bench E 200704 -> S 8192 {str(dt)[6:]}")
+    k2_edges(torch, results)
+    k3_edges(torch)
     # per train step: the sum over the main path's launches of a kernel
     # (K3: both hops; K1: feature fetch + layer-1 message gather; K2: the
     # layer-1 backward)
     add_main(results, main)
     return results
+
+
+def k2_edges(torch, results):
+    """K2 at the edges of its shapes against the plain version
+    (``f32_atomic_order``): widths 1, 3, 4, 8, 100, 128, 130, 256 (chunks
+    of eight, of four and of one column), bf16 and f32, 1003 lanes into
+    37 segments: uniform ids with a tenth dropped, all -1, all >= S, one
+    hub, one segment (S = 1), no lane, one lane; and data that is
+    misaligned: a view that slices one column off a wider tensor (rows a
+    stride apart, read in place) and a contiguous one whose first byte is
+    one element past a 16-byte boundary."""
+    from legion_tpu_torch.ops import kernels
+    g = torch.Generator(device="cuda")
+    g.manual_seed(16)
+    E, S, n, worst = 1003, 37, 0, 0.0
+
+    def rand(shape, dt):
+        return torch.randn(shape, generator=g, device="cuda").to(dt)
+
+    uniform = torch.randint(0, S, (E,), generator=g, device="cuda",
+                            dtype=torch.int32)
+    uniform[torch.rand((E,), generator=g, device="cuda") < 0.1] = -1
+    segs = {"uniform": (uniform, S),
+            "all -1": (torch.full_like(uniform, -1), S),
+            "all >= S": (uniform.clamp(min=0) + S, S),
+            "one hub": (torch.full_like(uniform, 5), S),
+            "S = 1": (uniform.clamp(max=0), 1),
+            "E = 0": (uniform[:0], S), "E = 1": (uniform[:1] * 0 + 3, S)}
+    for F in (1, 3, 4, 8, 100, 128, 130, 256):
+        for dt in (torch.bfloat16, torch.float32):
+            cases = [(what, rand((seg.shape[0], F), dt), seg, num)
+                     for what, (seg, num) in segs.items()]
+            sliced = rand((E, F + 1), dt)[:, 1:]
+            shifted = rand((E * F + 1,), dt)[1:].view(E, F)
+            if sliced.data_ptr() % 16 == 0 or shifted.data_ptr() % 16 == 0:
+                fail("segment_sum edges: the views are not misaligned as "
+                     "the cases want them")
+            cases += [("a column sliced off", sliced, uniform, S),
+                      ("a misaligned base", shifted, uniform, S)]
+            for what, data, seg, num in cases:
+                k = kernels.segment_sum(data, seg, num)
+                p_ = kernels.segment_sum_plain(data, seg, num)
+                err, ok = f32_atomic_order(k, p_)
+                if not ok or k.shape != p_.shape:
+                    fail(f"segment_sum edge F {F} {dt} {what}: kernel "
+                         f"disagrees with its plain version (max abs err "
+                         f"{err})")
+                n, worst = n + 1, max(worst, err)
+    torch.cuda.synchronize()
+    print(f"  segment_sum    {n} edge cases (widths 1/3/4/8/100/128/130/256,"
+          f" bf16 and f32, uniform / all -1 / all >= S / one hub / S = 1 / "
+          f"E = 0 / E = 1, a column sliced off, a misaligned base): all "
+          f"within tolerance, max_abs_err {worst:.3g}")
+    r = results["segment_sum"]
+    r["max_abs_err"] = max(r["max_abs_err"], worst)
+
+
+def k3_edges(torch):
+    """K3 at the edges of its shapes, bit for bit against the plain
+    version: fanouts 1, 10, 16, 25, 32, 33 (one to four draws of a slot in
+    a step, and more draws than a step has lanes); windows 4 and 64;
+    frontiers of 0, 1, 31, 32, 33 and 1000 slots; int32 and int64
+    ``row_pairs``; a graph of 300 vertices whose rows have degree 0, degree
+    1, lie inside one block, straddle two blocks or many, and whose last
+    row ends in the padded last block; pads, ids at and past the number of
+    vertices. A frontier of one slot is run once for each of those kinds."""
+    import numpy as np
+    from legion_tpu_torch.graph import DeviceCSR
+    from legion_tpu_torch.sampling import access
+    rng = np.random.default_rng(9)
+    V, n = 300, 0
+    deg = np.resize([0, 1, 3, 2, 5, 7, 61, 64, 70, 130, 1, 4], V)
+    deg[V - 1] = 3
+    indptr = np.zeros(V + 1, np.int64)
+    indptr[1:] = np.cumsum(deg)
+    E = int(indptr[-1])
+    indices = rng.integers(0, V, E).astype(np.int32)
+    csr = DeviceCSR.from_numpy(indptr.astype(np.int32), indices, "cuda")
+    for W in (4, 64):
+        if E % W == 0:
+            fail("windowed_draw edges: the last block has no padding")
+        lo_b, hi_b = indptr[:-1] // W, (indptr[1:] - 1) // W
+        kinds = {"degree 0": np.flatnonzero(deg == 0)[0],
+                 "degree 1": np.flatnonzero(deg == 1)[0],
+                 "inside one block": np.flatnonzero(
+                     (deg > 1) & (lo_b == hi_b))[0],
+                 "straddling two blocks": np.flatnonzero(
+                     (deg > 1) & (hi_b == lo_b + 1))[0],
+                 "ending in the padded block": V - 1,
+                 "a pad": -1, "the number of vertices": V,
+                 "past the vertices": 2 ** 31 - 1}
+        acc = access.WindowedCSRAccess.from_csr(csr, W)
+        for pairs in (acc.row_pairs, acc.row_pairs.long()):
+            for F in (0, 1, 31, 32, 33, 1000):
+                special = list(kinds.values())
+                fronts = [[v] for v in special] if F == 1 else [None]
+                for front in fronts:
+                    if front is None:
+                        ids = rng.integers(0, V, F)
+                        ids[rng.random(F) < 0.1] = -1
+                        ids[:len(special)] = special[:F]
+                    else:
+                        ids = np.array(front)
+                    ft = torch.from_numpy(ids.astype(np.int32)).cuda()
+                    for fo in (1, 10, 16, 25, 32, 33):
+                        k = access.windowed_draw(pairs, acc.indices2d, ft,
+                                                 fo, 60 + fo)
+                        p_ = access.windowed_draw_plain(pairs, acc.indices2d,
+                                                        ft, fo, 60 + fo)
+                        if not exact(k, p_)[1]:
+                            fail(f"windowed_draw edge W {W} {pairs.dtype} F "
+                                 f"{F} fanout {fo} frontier {front}: kernel "
+                                 f"differs from its plain version")
+                        n += 1
+    torch.cuda.synchronize()
+    print(f"  windowed_draw  {n} edge cases (fanouts 1/10/16/25/32/33, "
+          f"windows 4/64, frontiers of 0/1/31/32/33/1000, int32 and int64 "
+          f"pairs, rows of degree 0 / 1 / inside a block / straddling / "
+          f"ending in the padded block, pads and ids past the graph): all "
+          f"exact")
+
+
+def k2_gcn_compare(tr, torch, results):
+    """K2 at GCN's out-degree shape: a column of ones over the hop-1 edge
+    list of one real batch of the GCN trainer (F = 1, a float an atomic),
+    as ``models/gcn.py::block_out_degree`` calls it. Counts are whole
+    numbers, so the sums are exact in any order."""
+    from legion_tpu_torch.ops import kernels
+    batch, _ = one_batch(tr, torch)
+    src, n_src = batch.edge_src[1], tr.sampler_t.config.cum_sizes()[2]
+    ones = torch.ones((src.shape[0], 1), device="cuda")
+    idx = torch.where(src >= 0, src, n_src).long()
+    compare("segment_sum", lambda: kernels.segment_sum(ones, src, n_src),
+            lambda: kernels.segment_sum_plain(ones, src, n_src), exact,
+            results, torch, f"GCN out-degree E {src.shape[0]} -> S {n_src} "
+            f"f32, F 1", least=bound(nb(ones, src) + 4 * n_src,
+                                     ops=int((src >= 0).sum())),
+            library=lambda: torch.zeros((n_src + 1, 1), device="cuda")
+            .index_add_(0, idx, ones), queued=True)
 
 
 def phase_slice(tr, torch, path):
@@ -1499,6 +1721,11 @@ def main():
 
     print("phase 2: kernels against their plain versions")
     results = phase_kernels(tr, torch)
+    if sys.argv[1:2] == ["--kernels"]:
+        del tr
+        tr = Trainer(ds, bench_config(ds, model="gcn"), device="cuda")
+        k2_gcn_compare(tr, torch, results)
+        return
 
     print("phase 3: the main path (train steps, then an eval pass)")
     counts = {"device": phase_slice(tr, torch, "device")[0]}
@@ -1524,6 +1751,7 @@ def main():
             k7_edges(torch, results)
         elif model == "gcn":
             k7_exact_compares(tr, torch, results)
+            k2_gcn_compare(tr, torch, results)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         counts[model] = phase_slice(tr, torch, model)[0]
@@ -1590,7 +1818,8 @@ def main():
                  ms=results[n]["ms"], plain_ms=results[n]["plain_ms"],
                  bound_ms=results[n]["bound_ms"],
                  bound_by=results[n]["bound_by"],
-                 library_ms=results[n]["library_ms"])
+                 library_ms=results[n]["library_ms"],
+                 queued_ms=results[n]["queued_ms"])
             for n in KERNELS]
     print("per train step of each kernel's path (the sums over its launches "
           "there):")

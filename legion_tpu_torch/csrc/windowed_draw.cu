@@ -15,49 +15,118 @@
 // The plain PyTorch version (sampling/access.py::windowed_draw_plain)
 // computes the same words, so the two agree bit for bit.
 //
-// Bound on this card: latency of two dependent random reads per lane
-// (the (start, deg) pair, then one int32 of the edge block), a few
-// hundred thousand to two million lanes per hop. Design: one thread per
-// output lane, no shared memory; the fanout lanes of one slot re-read the
-// same 8- or 16-byte pair, which L1/L2 serve.
+// Bound on this card: the launch. The card needs a few microseconds for
+// either hop of the main path (8000 x 25 and 96,576 x 10 draws), about
+// what an empty kernel takes, and the host needs several times that to
+// call it (chip_smoke.py prints both beside `launch_floor`). What the
+// kernel itself waits for is three dependent reads (the vertex, its
+// (start, deg) pair, one int32 of the edge block) and, by bytes, the
+// 32-byte sectors those reads and the scattered writes touch.
+//
+// Design: a warp owns 1 << sshift neighbouring frontier slots at a time (8
+// on the main path) and no slot straddles a warp. Lane j of the first
+// 1 << sshift reads slot j's vertex and its pair, once, as one 8- or
+// 16-byte load, and computes r0, the block's base, lo and hi - lo once; the
+// warp gets them by shuffle. Then a lane a draw: lane (q, j) makes draw
+// fb + q of slot j, so that a warp's store of one step covers whole
+// 32-byte sectors of out (8 neighbouring slots of one draw index), kSteps
+// steps' loads all issued before the first store, in a loop over fb that
+// takes any fanout. W is a power of two wherever the port builds the
+// blocks, and then the block is a shift (any other W divides). With int32
+// pairs all arithmetic but the final addresses is 32-bit and unsigned: the
+// edge count is below 2^31, so no sum here reaches 2^32.
 #include "common.cuh"
 
+constexpr int kSteps = 4;  // draws of a lane in flight
+
 template <typename Off>
-__global__ void windowed_draw_kernel(const Off* __restrict__ row_pairs,
-                                     const int32_t* __restrict__ blocks,
-                                     const int32_t* __restrict__ frontier,
-                                     int32_t* __restrict__ out, int64_t F,
-                                     int32_t fanout, int32_t W,
-                                     int64_t num_nodes, uint32_t ka0,
-                                     uint32_t kb0, uint32_t ka1,
-                                     uint32_t kb1) {
-  const int64_t total = F * fanout;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-       lane < total; lane += stride) {
-    const int64_t i = lane % F;
-    const int32_t v = frontier[i];
-    int32_t result = -1;
-    if (v >= 0) {
-      const int64_t vc = v < num_nodes ? v : num_nodes - 1;
-      const int64_t start = (int64_t)row_pairs[2 * vc];
-      const int64_t deg = (int64_t)row_pairs[2 * vc + 1];
-      if (deg > 0) {
-        const int64_t deg32 = deg < 2147483647LL ? deg : 2147483647LL;
-        const uint32_t r0 =
-            lt_bounded(lt_word(ka0, kb0, (uint32_t)i), (uint32_t)deg32);
-        const int64_t blk = (start + r0) / W;
-        const int64_t base = blk * W;
-        const int64_t lo = (start > base ? start : base) - base;
-        const int64_t end = start + deg;
-        const int64_t hi = (end < base + W ? end : base + W) - base;
-        const uint32_t m = (uint32_t)(hi - lo > 1 ? hi - lo : 1);
-        const int64_t off =
-            lo + lt_bounded(lt_word(ka1, kb1, (uint32_t)lane), m);
-        result = blocks[base + off];
+struct Pair;
+template <>
+struct Pair<int32_t> {
+  typedef uint32_t U;
+  typedef int2 V;
+};
+template <>
+struct Pair<int64_t> {
+  typedef uint64_t U;
+  typedef longlong2 V;
+};
+
+template <typename U>
+__device__ __forceinline__ U lt_shfl(U x, int src);
+template <>
+__device__ __forceinline__ uint32_t lt_shfl(uint32_t x, int src) {
+  return __shfl_sync(0xffffffffu, x, src);
+}
+template <>
+__device__ __forceinline__ uint64_t lt_shfl(uint64_t x, int src) {
+  return (uint64_t)__shfl_sync(0xffffffffu, (unsigned long long)x, src);
+}
+
+template <typename Off>
+__global__ void __launch_bounds__(kThreads) windowed_draw_kernel(
+    const Off* __restrict__ row_pairs, const int32_t* __restrict__ blocks,
+    const int32_t* __restrict__ frontier, int32_t* __restrict__ out,
+    int64_t F, int32_t fanout, int32_t W, int wshift, int sshift,
+    int64_t num_nodes, uint32_t ka0, uint32_t kb0, uint32_t ka1,
+    uint32_t kb1) {
+  typedef typename Pair<Off>::U U;
+  typedef typename Pair<Off>::V V;
+  const int lane = threadIdx.x & 31;
+  const int spw = 1 << sshift;       // slots of a warp at a time
+  const int j = lane & (spw - 1);    // this lane's slot among them
+  const int q = lane >> sshift;      // and its draw among a step's
+  const int dps = 32 >> sshift;      // draws of a slot in a step
+  const int64_t warps = (int64_t)gridDim.x * (blockDim.x >> 5);
+  const int64_t chunks = (F + spw - 1) >> sshift;
+  for (int64_t chunk = (int64_t)blockIdx.x * (blockDim.x >> 5)
+                       + (threadIdx.x >> 5);
+       chunk < chunks; chunk += warps) {
+    const int64_t i = (chunk << sshift) + j;  // this lane's slot
+    // lanes q == 0: the chosen block of slot i: its first edge, the row's
+    // first place in it and how many places the row has there (0: no draw)
+    U base = 0;
+    uint32_t lo = 0, m = 0;
+    if (q == 0 && i < F) {
+      const int32_t v = frontier[i];
+      if (v >= 0) {
+        const int64_t vc = v < num_nodes ? v : num_nodes - 1;
+        const V p = reinterpret_cast<const V*>(row_pairs)[vc];
+        if (p.y > 0) {
+          const U start = (U)p.x, deg = (U)p.y;
+          const uint32_t deg32 =
+              deg < (U)2147483647u ? (uint32_t)deg : 2147483647u;
+          const U at =
+              start + lt_bounded(lt_word(ka0, kb0, (uint32_t)i), deg32);
+          base = wshift >= 0 ? (at >> wshift) << wshift : at / (U)W * (U)W;
+          const U end = start + deg;
+          lo = start > base ? (uint32_t)(start - base) : 0u;
+          m = (end - base < (U)W ? (uint32_t)(end - base) : (uint32_t)W) - lo;
+        }
       }
     }
-    out[lane] = result;
+    base = lt_shfl<U>(base, j);
+    lo = lt_shfl<uint32_t>(lo, j);
+    m = lt_shfl<uint32_t>(m, j);
+    const uint32_t lane0 = (uint32_t)F * (uint32_t)q + (uint32_t)i;
+    for (int fb = 0; fb < fanout; fb += kSteps * dps) {
+      int32_t res[kSteps];
+#pragma unroll
+      for (int u = 0; u < kSteps; ++u) {
+        const int f = fb + u * dps + q;
+        res[u] = -1;
+        if (f < fanout && m > 0) {
+          // the hashed lane is f*F + i mod 2^32
+          const uint32_t hl = lane0 + (uint32_t)F * (uint32_t)(fb + u * dps);
+          res[u] = blocks[base + lo + lt_bounded(lt_word(ka1, kb1, hl), m)];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kSteps; ++u) {
+        const int f = fb + u * dps + q;
+        if (f < fanout && i < F) out[(int64_t)f * F + i] = res[u];
+      }
+    }
   }
 }
 
@@ -67,10 +136,19 @@ static int launch(const Off* row_pairs, const int32_t* blocks,
                   int32_t fanout, int32_t W, int64_t num_nodes, uint32_t ka0,
                   uint32_t kb0, uint32_t ka1, uint32_t kb1, void* stream) {
   if (F == 0 || fanout == 0) return (int)cudaSuccess;
-  windowed_draw_kernel<Off><<<lt_grid(F * fanout), kThreads, 0,
+  if (W <= 0 || (uintptr_t)row_pairs % (2 * sizeof(Off)))
+    return (int)cudaErrorInvalidValue;
+  int wshift = -1;
+  if ((W & (W - 1)) == 0)
+    for (wshift = 0; (1 << wshift) < W; ++wshift) {}
+  // 8 slots a warp and 4 draws a step; with one or two draws a slot, more
+  // slots a warp so that no lane of a step idles
+  const int sshift = fanout >= 4 ? 3 : fanout >= 2 ? 4 : 5;
+  const int64_t chunks = (F + (1 << sshift) - 1) >> sshift;
+  windowed_draw_kernel<Off><<<lt_grid(chunks * 32), kThreads, 0,
                               (cudaStream_t)stream>>>(
-      row_pairs, blocks, frontier, out, F, fanout, W, num_nodes, ka0, kb0,
-      ka1, kb1);
+      row_pairs, blocks, frontier, out, F, fanout, W, wshift, sshift,
+      num_nodes, ka0, kb0, ka1, kb1);
   return (int)cudaGetLastError();
 }
 

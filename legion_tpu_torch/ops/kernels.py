@@ -23,6 +23,7 @@ K3 ``windowed_draw`` and K5 ``csr_draw`` live with their callers in
 ``sampling/access.py``, K4 ``cached_gather`` in ``cache/unified_cache.py``;
 host-memory registration for K4 and K5 is ``ops/host_memory.py``. The
 headers of ``csrc/*.cu`` say what bounds each kernel on the card.
+``noop`` launches an empty kernel, the yardstick of a launch's cost.
 """
 
 from __future__ import annotations
@@ -132,8 +133,8 @@ def lib() -> ctypes.CDLL:
     p, i64, i32, u32, f32 = (ctypes.c_void_p, ctypes.c_int64,
                              ctypes.c_int32, ctypes.c_uint32, ctypes.c_float)
     so.lt_gather_rows.argtypes = [p, p, p, i64, i64, i64, p]
-    so.lt_segment_sum_f32.argtypes = [p, p, p, i64, i64, i64, p]
-    so.lt_segment_sum_bf16.argtypes = [p, p, p, i64, i64, i64, p]
+    so.lt_segment_sum_f32.argtypes = [p, p, p, i64, i64, i64, i64, p]
+    so.lt_segment_sum_bf16.argtypes = [p, p, p, i64, i64, i64, i64, p]
     for fn in (so.lt_windowed_draw_i32, so.lt_windowed_draw_i64):
         fn.argtypes = [p, p, p, p, i64, i32, i32, i64, u32, u32, u32, u32,
                        p]
@@ -154,7 +155,8 @@ def lib() -> ctypes.CDLL:
     so.lt_host_unregister.argtypes = [p]
     so.lt_host_read_probe.argtypes = [p, i64, i64, p, i64, i32, p, p]
     so.lt_host_word_probe.argtypes = [p, p, i64, p, p]
-    for fn in (so.lt_gather_rows, so.lt_segment_sum_f32,
+    so.lt_noop.argtypes = [p]
+    for fn in (so.lt_noop, so.lt_gather_rows, so.lt_segment_sum_f32,
                so.lt_segment_sum_bf16, so.lt_windowed_draw_i32,
                so.lt_windowed_draw_i64, so.lt_cached_gather,
                so.lt_csr_draw_i32, so.lt_csr_draw_i64, so.lt_host_register,
@@ -183,6 +185,16 @@ def check(name: str, rc: int) -> None:
 def _require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)
+
+
+def noop() -> None:
+    """Launch the empty kernel (``csrc/noop.cu``) on the current stream:
+    the yardstick for what one launch through this ctypes route costs.
+    On no path, and not counted in ``LAUNCHES``."""
+    rc = lib().lt_noop(stream_handle())
+    if rc != 0:
+        msg = lib().lt_error_string(rc).decode()
+        raise RuntimeError(f"noop kernel launch failed: {msg} ({rc})")
 
 
 # ---------------------------------------------------------------------------
@@ -251,13 +263,20 @@ def segment_sum(data: torch.Tensor, seg: torch.Tensor,
         return segment_sum_plain(data, seg, num_segments)
     _require(data.is_cuda and seg.device == data.device,
              f"segment_sum: data on {data.device}, seg on {seg.device}")
-    data, seg = data.contiguous(), seg.contiguous()
-    out = torch.zeros((num_segments, data.shape[1]), dtype=torch.float32,
+    E, F = data.shape
+    # rows a fixed stride apart (a column slice of a wider tensor) are read
+    # in place; any other layout is copied
+    if E > 1 and F > 1 and data.stride(1) == 1 and data.stride(0) >= F:
+        ld = data.stride(0)
+    else:
+        data, ld = data.contiguous(), F
+    seg = seg.contiguous()
+    out = torch.zeros((num_segments, F), dtype=torch.float32,
                       device=data.device)
     fn = lib().lt_segment_sum_f32 if data.dtype == torch.float32 \
         else lib().lt_segment_sum_bf16
-    rc = fn(data.data_ptr(), seg.data_ptr(), out.data_ptr(), data.shape[0],
-            data.shape[1], num_segments, stream_handle())
+    rc = fn(data.data_ptr(), seg.data_ptr(), out.data_ptr(), E, F, ld,
+            num_segments, stream_handle())
     check("segment_sum", rc)
     return out
 

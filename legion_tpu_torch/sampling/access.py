@@ -57,6 +57,12 @@ def stream_keys(key: int, stream: int) -> Tuple[int, int]:
     return k & M32, k >> 32
 
 
+def draw_keys(key: int) -> Tuple[int, int, int, int]:
+    """K3's four 32-bit keys: (ka0, kb0) of stream 0 for the block choice,
+    (ka1, kb1) of stream 1 for the in-block draws."""
+    return stream_keys(key, 0) + stream_keys(key, 1)
+
+
 def hash_words(ka: int, kb: int, lanes: torch.Tensor) -> torch.Tensor:
     """Random 32-bit words (as int64) for int64 ``lanes``
     (csrc/common.cuh::lt_word)."""
@@ -299,8 +305,7 @@ def windowed_draw_plain(row_pairs: torch.Tensor, indices2d: torch.Tensor,
     F = frontier.shape[0]
     dev = frontier.device
     start, deg = _frontier_rows(row_pairs, frontier, V)
-    ka0, kb0 = stream_keys(key, 0)
-    ka1, kb1 = stream_keys(key, 1)
+    ka0, kb0, ka1, kb1 = draw_keys(key)
     r0 = bounded(hash_words(ka0, kb0, torch.arange(F, device=dev)),
                  deg.clamp(1, 2 ** 31 - 1))
     base = (start + r0) // W * W
@@ -316,12 +321,14 @@ def windowed_draw(row_pairs: torch.Tensor, indices2d: torch.Tensor,
                   frontier: torch.Tensor, fanout: int, key: int
                   ) -> torch.Tensor:
     """K3. row_pairs [V, 2] int32/int64 (start, degree), indices2d
-    [ceil(E/W), W] int32, frontier [F] int32 -> [fanout*F] int32."""
-    if frontier.device.type == "cpu":
+    [ceil(E/W), W] int32, both contiguous as ``WindowedCSRAccess.from_csr``
+    builds them, frontier [F] int32 -> [fanout*F] int32."""
+    dev = frontier.device
+    if dev.type == "cpu":
         return windowed_draw_plain(row_pairs, indices2d, frontier, fanout,
                                    key)
-    if not (frontier.is_cuda and row_pairs.device == frontier.device
-            and indices2d.device == frontier.device):
+    if dev.type != "cuda" or row_pairs.device != dev \
+            or indices2d.device != dev:
         raise ValueError("windowed_draw: tensors on different devices")
     if row_pairs.dim() != 2 or row_pairs.shape[1] != 2 \
             or indices2d.dim() != 2 or frontier.dim() != 1:
@@ -333,19 +340,20 @@ def windowed_draw(row_pairs: torch.Tensor, indices2d: torch.Tensor,
         raise ValueError("windowed_draw: dtypes "
                          f"{row_pairs.dtype}/{indices2d.dtype}/"
                          f"{frontier.dtype}")
-    row_pairs, indices2d = row_pairs.contiguous(), indices2d.contiguous()
+    # the kernel reads a (start, degree) pair as one load
+    if not (row_pairs.is_contiguous() and indices2d.is_contiguous()) \
+            or row_pairs.data_ptr() % (2 * row_pairs.element_size()):
+        raise ValueError("windowed_draw: row_pairs and indices2d must be "
+                         "contiguous, row_pairs aligned to a pair")
     frontier = frontier.contiguous()
     F = frontier.shape[0]
-    out = torch.empty((fanout * F,), dtype=torch.int32,
-                      device=frontier.device)
-    ka0, kb0 = stream_keys(key, 0)
-    ka1, kb1 = stream_keys(key, 1)
+    out = torch.empty((fanout * F,), dtype=torch.int32, device=dev)
     lib = kernels.lib()
     fn = lib.lt_windowed_draw_i32 if row_pairs.dtype == torch.int32 \
         else lib.lt_windowed_draw_i64
     rc = fn(row_pairs.data_ptr(), indices2d.data_ptr(), frontier.data_ptr(),
             out.data_ptr(), F, fanout, indices2d.shape[1],
-            row_pairs.shape[0], ka0, kb0, ka1, kb1, kernels.stream_handle())
+            row_pairs.shape[0], *draw_keys(key), kernels.stream_handle())
     kernels.check("windowed_draw", rc)
     return out
 

@@ -81,6 +81,64 @@ def test_segment_sum_matches_pallas_and_masked_segment_sum():
     np.testing.assert_allclose(_np(out2), _np(ref2), rtol=0, atol=F32_ATOL)
 
 
+def _edge_segments(rng, kind, E, S):
+    """Segment ids at the edges K2's kernel takes apart: uniform ids with
+    pads, every lane on one hub row, every lane dropped, ids past S."""
+    if kind == "uniform":
+        return _ids(rng, E, S)
+    if kind == "one hub":
+        return np.full(E, S // 2, np.int32)
+    if kind == "all dropped":
+        return np.full(E, -1, np.int32)
+    seg = _ids(rng, E, S)                     # "ids >= S": half of them
+    seg[::2] = S + rng.integers(0, 5, seg[::2].shape).astype(np.int32)
+    return seg
+
+
+@pytest.mark.parametrize("kind", ["uniform", "one hub", "all dropped",
+                                  "ids >= S"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("F", [1, 4, 100, 128, 130])
+def test_segment_sum_plain_matches_jax_at_kernel_edges(F, dtype, kind):
+    """K2's plain version at the widths its kernel takes as chunks of four
+    columns (4, 100, 128) or a column at a time (1, 130) and at the skews
+    it combines or drops, against JAX's ``masked_segment_sum`` and, where
+    it is defined (width 128, ids below S), ``segment_sum_pallas`` in
+    interpret mode. f32: 1e-5 of the largest sum. bf16: the port sums in
+    f32 and casts once (JAX sums in bf16), so it is held to JAX's sum of
+    the same values widened to f32 within 1e-5, and to JAX's own bf16 sum
+    within BF16_RTOL where a sum is short (the uniform ids)."""
+    rng = np.random.default_rng(1000 * F + len(kind))
+    E, S = 512, 24
+    seg = _edge_segments(rng, kind, E, S)
+    data = rng.standard_normal((E, F)).astype(np.float32)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    dj = jnp.asarray(data, jdt)
+    dt_ = torch.from_numpy(data).to(tdt)
+    np.testing.assert_array_equal(_np(dt_), _np(dj))
+    out = kernels.segment_sum(dt_, torch.from_numpy(seg), S)
+    assert out.dtype == torch.float32 and out.shape == (S, F)
+    ref = _np(jseg.masked_segment_sum(dj.astype(jnp.float32),
+                                      jnp.asarray(seg), S))
+    atol = F32_ATOL * max(1.0, np.abs(ref).max())
+    np.testing.assert_allclose(_np(out), ref, rtol=0, atol=atol)
+    out2 = masked_segment_sum(dt_, torch.from_numpy(seg), S)
+    assert out2.dtype == tdt
+    if dtype == "float32":
+        np.testing.assert_allclose(_np(out2), ref, rtol=0, atol=atol)
+    elif kind != "one hub":
+        ref2 = _np(jseg.masked_segment_sum(dj, jnp.asarray(seg), S))
+        np.testing.assert_allclose(_np(out2), ref2, rtol=BF16_RTOL,
+                                   atol=BF16_RTOL * max(1.0,
+                                                        np.abs(ref2).max()))
+    if F % 128 == 0 and kind != "ids >= S":
+        with pltpu.force_tpu_interpret_mode():
+            refp = segment_sum_pallas(dj, jnp.asarray(seg), S, chunk=E)
+        np.testing.assert_allclose(_np(out), _np(refp), rtol=0, atol=atol)
+    assert kernels.LAUNCHES["segment_sum"] == 0   # CPU tensors: plain path
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_gather_rows_backward_matches_jax_grad(dtype):
     """GatherRows' backward (K2 into the table, cast to its dtype) equals

@@ -53,6 +53,27 @@ def _frontier(g, rng, F):
     return f
 
 
+def _jax_draws(ja, g, front, fanout, key, window):
+    """JAX's random draws of one ``sample_neighbors`` call, recomputed
+    outside the JAX function (the same split/randint calls as
+    ``legion_tpu/sampling/access.py:209-227``): r0 [F], off [fanout, F]."""
+    F = front.shape[0]
+    rp = np.asarray(ja.row_pairs).astype(np.int64)
+    pd = rp[np.clip(front, 0, g.num_nodes - 1)]
+    start = np.where(front >= 0, pd[:, 0], 0)
+    deg = np.where(front >= 0, pd[:, 1], 0)
+    k0, k1 = jax.random.split(key)
+    r0 = np.asarray(jax.random.randint(k0, (F,), 0, np.maximum(deg, 1),
+                                       dtype=jnp.int32))
+    base = (start + r0) // window * window
+    lo = np.maximum(base, start) - base
+    hi = np.minimum(base + window, start + deg) - base
+    off = lo[None, :] + np.asarray(jax.random.randint(
+        k1, (fanout, F), 0, np.maximum(hi - lo, 1)[None, :],
+        dtype=jnp.int32))
+    return r0, off
+
+
 @pytest.mark.parametrize("window,fanout", [(16, 7), (64, 3)])
 def test_windowed_select_matches_jax_draws(graph, window, fanout):
     """windowed_select(r0, off) with the r0/off JAX draws (the same
@@ -70,20 +91,7 @@ def test_windowed_select_matches_jax_draws(graph, window, fanout):
     key = jax.random.PRNGKey(11)
     ref = np.asarray(ja.sample_neighbors(jnp.asarray(front), fanout, key))
 
-    # JAX's random draws, recomputed outside the JAX function
-    rp = np.asarray(ja.row_pairs).astype(np.int64)
-    pd = rp[np.clip(front, 0, g.num_nodes - 1)]
-    start = np.where(front >= 0, pd[:, 0], 0)
-    deg = np.where(front >= 0, pd[:, 1], 0)
-    k0, k1 = jax.random.split(key)
-    r0 = np.asarray(jax.random.randint(k0, (F,), 0, np.maximum(deg, 1),
-                                       dtype=jnp.int32))
-    base = (start + r0) // window * window
-    lo = np.maximum(base, start) - base
-    hi = np.minimum(base + window, start + deg) - base
-    off = lo[None, :] + np.asarray(jax.random.randint(
-        k1, (fanout, F), 0, np.maximum(hi - lo, 1)[None, :],
-        dtype=jnp.int32))
+    r0, off = _jax_draws(ja, g, front, fanout, key, window)
     r0, off = torch.from_numpy(r0.copy()), torch.from_numpy(off)
     out = access.windowed_select(pa.row_pairs, pa.indices2d,
                                  torch.from_numpy(front), r0, off)
@@ -95,29 +103,135 @@ def test_windowed_select_matches_jax_draws(graph, window, fanout):
     np.testing.assert_array_equal(out64.numpy(), ref)
 
 
+def _edge_graph():
+    """A graph whose rows have degree 0, degree 1, lie inside one block,
+    straddle two blocks or many (windows 4 and 64), and whose edge count
+    is no multiple of either window (the last block is padded)."""
+    V = 120
+    rng = np.random.default_rng(9)
+    deg = np.resize([0, 1, 3, 2, 5, 7, 61, 64, 70, 130, 1, 4], V)
+    deg[V - 1] = 3
+    indptr = np.zeros(V + 1, np.int64)
+    indptr[1:] = np.cumsum(deg)
+    indices = rng.integers(0, V, int(indptr[-1])).astype(np.int32)
+    g = CSRGraph(indptr, indices)
+    assert g.num_edges % 64 and g.num_edges % 4
+    return g, DeviceCSR.from_numpy(indptr, indices, "cpu")
+
+
+def _edge_frontier(g, rng, F, window):
+    """Pads, ids at and past the number of vertices, and one row of each
+    kind first; then random vertices."""
+    deg, ip = g.degrees(), g.indptr
+    lo_b, hi_b = ip[:-1] // window, (ip[1:] - 1) // window
+    special = [np.flatnonzero(deg == 0)[0], np.flatnonzero(deg == 1)[0],
+               np.flatnonzero((deg > 1) & (lo_b == hi_b))[0],
+               np.flatnonzero((deg > 1) & (hi_b == lo_b + 1))[0],
+               np.flatnonzero(hi_b > lo_b + 1)[0], g.num_nodes - 1, -1,
+               g.num_nodes, 2 ** 31 - 1]
+    f = rng.integers(0, g.num_nodes, F)
+    f[rng.random(F) < 0.1] = -1
+    f[:len(special)] = special
+    return f.astype(np.int32)
+
+
+def _ref_hash(x):
+    """lowbias32 in wrapping uint32 arithmetic."""
+    x = x.astype(np.uint32)
+    with np.errstate(over="ignore"):
+        x ^= x >> np.uint32(16)
+        x *= np.uint32(0x7FEB352D)
+        x ^= x >> np.uint32(15)
+        x *= np.uint32(0x846CA68B)
+        x ^= x >> np.uint32(16)
+    return x
+
+
+def _ref_bounded(ka, kb, lanes, m):
+    """(word * m) >> 32 for the keyed double hash of uint32 lanes."""
+    w = _ref_hash(_ref_hash(lanes.astype(np.uint32) ^ np.uint32(ka))
+                  ^ np.uint32(kb))
+    return ((w.astype(np.uint64) * m.astype(np.uint64))
+            >> np.uint64(32)).astype(np.int64)
+
+
+@pytest.mark.parametrize("window", [4, 64])
+@pytest.mark.parametrize("fanout", [1, 25, 33])
+def test_windowed_select_matches_jax_at_kernel_edges(fanout, window):
+    """windowed_select with JAX's injected r0 and off equals JAX's gather
+    (``legion_tpu/sampling/access.py:219-233``) at the fanouts K3 takes in
+    one step, several steps and more draws than a step has lanes, on rows
+    of every kind, exactly."""
+    g, csr = _edge_graph()
+    ja = JWindowed.from_csr(g.to_device(), window)
+    pa = access.WindowedCSRAccess.from_csr(csr, window)
+    rng = np.random.default_rng(100 * fanout + window)
+    F = 96
+    front = _edge_frontier(g, rng, F, window)
+    key = jax.random.PRNGKey(fanout)
+    ref = np.asarray(ja.sample_neighbors(jnp.asarray(front), fanout, key))
+    r0, off = _jax_draws(ja, g, front, fanout, key, window)
+    for pairs in (pa.row_pairs, pa.row_pairs.long()):
+        out = access.windowed_select(pairs, pa.indices2d,
+                                     torch.from_numpy(front),
+                                     torch.from_numpy(r0.copy()),
+                                     torch.from_numpy(off))
+        np.testing.assert_array_equal(out.numpy(), ref)
+    valid = (front >= 0) & (
+        g.degrees()[np.clip(front, 0, g.num_nodes - 1)] > 0)
+    assert np.all(ref.reshape(fanout, F)[:, ~valid] == -1)
+    assert np.all(ref.reshape(fanout, F)[:, valid] >= 0)
+
+
+@pytest.mark.parametrize("window", [4, 64])
+@pytest.mark.parametrize("fanout", [1, 25, 33])
+def test_windowed_draw_plain_matches_uint32_reference(fanout, window):
+    """windowed_draw_plain equals a NumPy reference of the kernel's own
+    arithmetic (uint32 hash words: r0 from stream 0 at lane i, the
+    in-block offset from stream 1 at lane f*F + i), exactly, for int32 and
+    int64 pairs."""
+    g, csr = _edge_graph()
+    pa = access.WindowedCSRAccess.from_csr(csr, window)
+    rng = np.random.default_rng(200 * fanout + window)
+    F, V = 96, g.num_nodes
+    front = _edge_frontier(g, rng, F, window)
+    key = 0x5DEECE66D + fanout
+    ka0, kb0, ka1, kb1 = access.draw_keys(key)
+    assert (ka0, kb0) == access.stream_keys(key, 0)
+    assert (ka1, kb1) == access.stream_keys(key, 1)
+    vc = np.clip(front.astype(np.int64), 0, V - 1)
+    start = np.where(front >= 0, g.indptr[vc], 0)
+    deg = np.where(front >= 0, g.degrees()[vc], 0)
+    i = np.arange(F)
+    at = start + _ref_bounded(ka0, kb0, i, np.maximum(deg, 1))
+    base = at // window * window
+    lo = np.maximum(base, start) - base
+    m = np.maximum(np.minimum(base + window, start + deg) - base - lo, 1)
+    blocks = pa.indices2d.numpy().reshape(-1)
+    lanes = np.arange(fanout * F).reshape(fanout, F)
+    pos = (base + lo)[None, :] + _ref_bounded(ka1, kb1, lanes, m[None, :])
+    ok = np.broadcast_to((deg > 0)[None, :], pos.shape)
+    ref = np.where(ok, blocks[np.where(ok, pos, 0)], -1).reshape(-1)
+    for pairs in (pa.row_pairs, pa.row_pairs.long()):
+        out = access.windowed_draw_plain(pairs, pa.indices2d,
+                                         torch.from_numpy(front), fanout, key)
+        assert out.dtype == torch.int32
+        np.testing.assert_array_equal(out.numpy(), ref)
+
+
 def test_hash_words_match_uint32_reference():
     """The int64 mirror of the kernel's hash (and its Python-int form)
     equals straightforward wrapping uint32 arithmetic."""
-    def ref_hash(x):
-        x = x.astype(np.uint32)
-        with np.errstate(over="ignore"):
-            x ^= x >> np.uint32(16)
-            x *= np.uint32(0x7FEB352D)
-            x ^= x >> np.uint32(15)
-            x *= np.uint32(0x846CA68B)
-            x ^= x >> np.uint32(16)
-        return x
-
     rng = np.random.default_rng(5)
     x = rng.integers(0, 2 ** 32, 10000, dtype=np.uint64)
     got = access.hash32(torch.from_numpy(x.astype(np.int64)))
-    np.testing.assert_array_equal(got.numpy(), ref_hash(x).astype(np.int64))
+    np.testing.assert_array_equal(got.numpy(), _ref_hash(x).astype(np.int64))
     assert [access.hash32(int(v)) for v in x[:50]] == \
-        ref_hash(x[:50]).astype(np.int64).tolist()
+        _ref_hash(x[:50]).astype(np.int64).tolist()
     ka, kb = access.stream_keys(123456789, 1)
     lanes = np.arange(1000, dtype=np.uint64)
     words = access.hash_words(ka, kb, torch.from_numpy(lanes.astype(np.int64)))
-    expect = ref_hash(ref_hash(lanes ^ np.uint64(ka)) ^ np.uint32(kb))
+    expect = _ref_hash(_ref_hash(lanes ^ np.uint64(ka)) ^ np.uint32(kb))
     np.testing.assert_array_equal(words.numpy(), expect.astype(np.int64))
 
 
