@@ -13,12 +13,17 @@ CUDA card, nvcc (``$CUDA_HOME`` or ``/usr/local/cuda``) and no network.
      time hidden (``queued_ms``) and in the host's own time per call
      (``host_us``); K2 at the main path's size under other skews of its
      segments; K2 and K3 at the edges of their shapes (``k2_edges``,
-     ``k3_edges``);
+     ``k3_edges``); K8 (sort dedup after the sort) and K9 (map dedup:
+     register, hop, clear) at hop 0 of the bench batch, bit for bit, timed
+     the same three ways, and at the edges of their shapes (``k8_edges``,
+     ``k9_edges``);
   3. drives the main path through the public API at the bench
      configuration (``bench.py`` defaults: 2.4M vertices, 120M edges,
      GraphSAGE [25,10], batch 8000, hidden 256, bf16 features, 64-wide
      windowed draws, sort dedup with a lane-aligned last hop, measured
-     caps): train steps, then an eval pass, counting kernel launches;
+     caps): train steps, then an eval pass, counting kernel launches; then
+     the same with map dedup, the config's default (``device-map``),
+     checking that the position map is clean after it;
   3b. on the same device dataset, at ``bench.py --model X`` settings:
      GAT (heads (8,1), feature and attention dropout 0.6, aligned last
      hop), after holding K6 and K7 against their plain versions at its
@@ -27,11 +32,13 @@ CUDA card, nvcc (``$CUDA_HOME`` or ``/usr/local/cuda``) and no network.
      and outside K6's tensor-core path and K7's small-row kernels, both
      dtypes);
      GCN (exact last-hop dedup), after holding K7 at the exact-dedup GAT
-     layer-0 shape of one of its batches and K2 at its out-degree shape
-     (one column); link-prediction SAGE (batch
+     layer-0 shape of one of its batches, K2 at its out-degree shape
+     (one column), and K8 and K9 at its hop 1 (965,760 lanes);
+     link-prediction SAGE (batch
      7998, eval batch 510); each for train steps and an eval pass;
   4. checks the whole slice on the card against the same slice on the
-     CPU (plain versions) at a small size, for GraphSAGE, GAT and GCN;
+     CPU (plain versions) at a small size, for GraphSAGE (sort and map
+     dedup), GAT and GCN;
   5. builds the host-resident dataset of ``bench.py --features host``
      (2.4M vertices, about 120M edges, f32 features in host RAM) and its
      trainers: H (features on the host, a 200 MB bf16 cache planned by
@@ -56,10 +63,12 @@ last, ``{"ok": true, "device": ...}`` only when every phase passed. Any
 failure exits non-zero without that line.
 
 ``python3 chip_smoke.py --profile gat,H,HT`` runs none of the phases: it
-takes the named paths (of device, gat, gcn, lp_sage, H, HT, cache-off)
-through ``torch.profiler`` and prints where a train step's device time
-goes (``phase_profile``). ``python3 chip_smoke.py --kernels`` stops after
-phase 2 and K2's out-degree shape, for work on K1-K3.
+takes the named paths (of device, device-map, gat, gcn, lp_sage, H, HT,
+cache-off) through ``torch.profiler`` and prints where a train step's
+device time goes (``phase_profile``); it fails if a step calls
+``torch.cummax`` (the plain sort dedup). ``python3 chip_smoke.py
+--kernels`` stops after phase 2 and the GCN shapes of K2, K8 and K9, for
+work on K1-K3, K8 and K9.
 """
 
 import json
@@ -91,23 +100,38 @@ KERNELS = {
                        replaces="legion_tpu/models/gat.py:83"),
     "hop_attention": dict(source="legion_tpu_torch/csrc/hop_attention.cu",
                           replaces="legion_tpu/ops/hop_agg.py:95"),
+    "dedup_sort": dict(source="legion_tpu_torch/csrc/dedup_sort.cu",
+                       replaces="legion_tpu/sampling/sampler.py:222"),
+    "dedup_map": dict(source="legion_tpu_torch/csrc/dedup_map.cu",
+                      replaces="legion_tpu/sampling/sampler.py:190"),
 }
+# the names of the kernels' device functions, as the profiler lists them
+KERNEL_SYMBOLS = tuple(KERNELS) + tuple(
+    f"map_{k}_kernel" for k in ("register", "claim", "count", "assign",
+                                "read", "clear"))
 # the kernels each path must launch, and the path whose launches the
 # kernel line reports
 PATH_KERNELS = {
-    "device": ("gather_rows", "segment_sum", "windowed_draw"),
-    "H": ("gather_rows", "segment_sum", "windowed_draw", "cached_gather"),
-    "HT": ("gather_rows", "segment_sum", "cached_gather", "csr_draw"),
-    "cache-off": ("gather_rows", "segment_sum", "windowed_draw"),
+    "device": ("gather_rows", "segment_sum", "windowed_draw", "dedup_sort"),
+    "device-map": ("gather_rows", "segment_sum", "windowed_draw",
+                   "dedup_map"),
+    "H": ("gather_rows", "segment_sum", "windowed_draw", "cached_gather",
+          "dedup_sort"),
+    "HT": ("gather_rows", "segment_sum", "cached_gather", "csr_draw",
+           "dedup_sort"),
+    "cache-off": ("gather_rows", "segment_sum", "windowed_draw",
+                  "dedup_sort"),
     "gat": ("gather_rows", "segment_sum", "windowed_draw", "gat_attend",
-            "gat_attend_bwd", "hop_attention", "hop_attention_bwd"),
-    "gcn": ("gather_rows", "segment_sum", "windowed_draw"),
-    "lp_sage": ("gather_rows", "segment_sum", "windowed_draw"),
+            "gat_attend_bwd", "hop_attention", "hop_attention_bwd",
+            "dedup_sort"),
+    "gcn": ("gather_rows", "segment_sum", "windowed_draw", "dedup_sort"),
+    "lp_sage": ("gather_rows", "segment_sum", "windowed_draw", "dedup_sort"),
 }
 REPORTED_PATH = {"gather_rows": "device", "segment_sum": "device",
                  "windowed_draw": "device", "cached_gather": "H",
                  "csr_draw": "HT", "gat_attend": "gat",
-                 "hop_attention": "gat"}
+                 "hop_attention": "gat", "dedup_sort": "device",
+                 "dedup_map": "device-map"}
 # bench.py --model X: lp_sage batches divide into thirds, GCN dedups the
 # last hop exactly
 MODEL_SAMPLER = {"gat": {}, "gcn": dict(dedup_last_hop=True),
@@ -369,12 +393,12 @@ def tuple_tol(*tols):
 
 
 def bench_config(ds, cache_bytes=0, feature_residency="hbm",
-                 topo_residency="hbm", model="graphsage"):
+                 topo_residency="hbm", model="graphsage", dedup="sort"):
     from legion_tpu_torch.config import (CacheConfig, LegionConfig,
                                          MeshConfig, SamplerConfig,
                                          TrainConfig)
     skw = dict(fanouts=(25, 10), batch_size=8000, auto_compact=True,
-               eval_batch_size=512, dedup="sort", cap_headroom=1.03,
+               eval_batch_size=512, dedup=dedup, cap_headroom=1.03,
                neighbor_window=64, dedup_last_hop=False)
     skw.update(MODEL_SAMPLER.get(model, {}))
     return LegionConfig(
@@ -519,9 +543,13 @@ def phase_kernels(tr, torch):
                 f"bench E 200704 -> S 8192 {str(dt)[6:]}")
     k2_edges(torch, results)
     k3_edges(torch)
+    # K8 and K9 at hop 0 of the bench batch, and at their edges
+    dedup_compares(tr, torch, results, main)
+    dedup_edges(torch, results)
     # per train step: the sum over the main path's launches of a kernel
     # (K3: both hops; K1: feature fetch + layer-1 message gather; K2: the
-    # layer-1 backward)
+    # layer-1 backward; K8: hop 0; K9: register, hop 0 and the clear, on
+    # the device-map path)
     add_main(results, main)
     return results
 
@@ -646,6 +674,251 @@ def k3_edges(torch):
           f"exact")
 
 
+def k8_compare(note, skey, stag, P, cum, ids, cap, results, torch,
+               main=None):
+    """K8 against its plain version (exact: src_l, n_new and the ids
+    buffer) on one hop's sorted keys, with its bound, queued time and the
+    host's time a call. No single PyTorch call computes these positions,
+    so there is no library call. Each call rewrites the same ids block, so
+    repeated calls do the same work."""
+    from legion_tpu_torch.sampling import sampler as smp
+    ids_k, ids_p = ids.clone(), ids.clone()
+
+    def kern():
+        return smp.dedup_sort(skey, stag, P, cum, ids_k, cap) + (ids_k,)
+
+    def plain():
+        return smp.dedup_sort_plain(skey, stag, P, cum, ids_p, cap) + (ids_p,)
+    E = skey.shape[0] - P
+    # the sorted keys and tags read; src_l and the ids block written
+    least = bound(nb(skey, stag) + 4 * E + 4 * min(E, cap))
+    t = compare("dedup_sort", kern, plain, tuple_tol(exact, exact, exact),
+                results, torch, note, least=least, queued=True)
+    print(f"  dedup_sort     {note}: host_us_per_call "
+          f"{host_us(kern, torch, 200):.2f}")
+    if main is not None:
+        main.setdefault("dedup_sort", []).append(t)
+
+
+def k9_compare(note, seeds, cand, pos_map, cum, ids, cap, touched, results,
+               torch, main=None):
+    """K9 against its plain version, exact, on one unit of a batch's work
+    that leaves the map as it found it: (with ``seeds``) the seed
+    registration, the hop (claim, rank, resolve, read-back), then the clear
+    of ``touched`` (a slice of ids). The map between hop and clear is held
+    against the plain version's once; then the unit's outputs (src_l,
+    n_new, ids, map) and its times, bound, queued time and the host's time
+    a call. No single PyTorch call computes the positions: no library
+    call."""
+    from legion_tpu_torch.sampling import sampler as smp
+    bufs = {n: (pos_map.clone(), ids.clone()) for n in ("kernel", "plain")}
+    fns = {"kernel": (smp.map_register, smp.dedup_map, smp.map_clear),
+           "plain": (smp.map_register_plain, smp.dedup_map_plain,
+                     smp.map_clear_plain)}
+
+    def unit(name, clear=True):
+        pm, ib = bufs[name]
+        reg, hop, clr = fns[name]
+        if seeds is not None:
+            reg(pm, seeds)
+        src, n = hop(cand, pm, cum, ib, cap)
+        if clear:
+            clr(pm, ib[touched])
+        return src, n, ib, pm
+    mid = [unit(n, clear=False) for n in ("kernel", "plain")]
+    torch.cuda.synchronize()
+    if not all(exact(a, b)[1] for a, b in zip(*mid)):
+        fail(f"dedup_map {note}: the hop differs from its plain version")
+    n_new = int(mid[1][1])
+    for name, (_, _, clr) in fns.items():
+        clr(bufs[name][0], bufs[name][1][touched])
+    if not torch.equal(bufs["kernel"][0], pos_map):
+        fail(f"dedup_map {note}: the clear left the map changed")
+    # cand, the map entries of its distinct ids read once; src_l, the new
+    # ids' entries and ids written; the touched ids read and their entries
+    # reset; with seeds, the seeds read and their entries written
+    n_t = touched.stop - touched.start
+    reg_b = 8 * seeds.shape[0] if seeds is not None else 0
+    least = bound(nb(cand) + 4 * distinct(cand) + 4 * cand.shape[0]
+                  + 8 * n_new + 8 * n_t + reg_b)
+    t = compare("dedup_map", lambda: unit("kernel"), lambda: unit("plain"),
+                tuple_tol(exact, exact, exact, exact), results, torch, note,
+                least=least, queued=True)
+    print(f"  dedup_map      {note}: {n_new} new ids | host_us_per_call "
+          f"{host_us(lambda: unit('kernel'), torch, 200):.2f}")
+    if main is not None:
+        main.setdefault("dedup_map", []).append(t)
+
+
+def dedup_compares(tr, torch, results, main, gcn=False):
+    """K8 and K9 at a path's shapes, from one real batch of ``tr`` (the
+    Device trainer: hop 0, 8000 + 200,000 sorted entries and 200,000
+    lanes; the GCN trainer: hop 1, 104,576 + 965,760 entries and 965,760
+    lanes). K9 samples the same batch with a map-dedup sampler of the same
+    configuration; at hop 1 its unit is the hop and the clear of that
+    hop's new ids."""
+    from dataclasses import replace
+    from legion_tpu_torch.sampling.sampler import (NeighborSampler,
+                                                   dedup_sort_keys)
+    s, acc = tr.sampler_t, tr.graph_access
+    seeds = tr.train_bank[:s.config.batch_size]
+    fo = s.config.fanouts
+    sm = NeighborSampler(replace(s.config, dedup="map"), s.num_nodes)
+    for smp_, form in ((s, "sort"), (sm, "map")):
+        pm = smp_.init_state("cuda")
+        carry = smp_.begin(seeds, pm)
+        cand = acc.sample_neighbors(smp_.hop_frontier(carry, 0), fo[0], 77)
+        k = 0
+        if gcn:
+            carry = smp_.hop_absorb(carry, 0, cand)
+            cand = acc.sample_neighbors(smp_.hop_frontier(carry, 1), fo[1],
+                                        78)
+            k = 1
+        P, cap = s.cum_caps[k], s.cum_caps[k + 1]
+        prefix = f"P {P} + " if form == "sort" else ""
+        note = (f"{'GCN ' if gcn else ''}hop {k}: {prefix}E {cand.shape[0]} "
+                f"-> cap {cap}")
+        if form == "sort":
+            skey, stag = dedup_sort_keys(carry["ids"], cand, P)
+            # what stays torch before K8: the keys and their stable sort
+            keys = torch.empty_like(skey).scatter_(0, stag, skey)
+            t_keys = cuda_ms(lambda: dedup_sort_keys(carry["ids"], cand, P),
+                             torch)
+            t_sort = cuda_ms(lambda: torch.sort(keys, stable=True), torch)
+            print(f"  dedup_sort     {note}: before it, the keys and their "
+                  f"sort {t_keys:.4f} ms; torch.sort(stable=True) of the "
+                  f"{keys.shape[0]} keys alone {t_sort:.4f} ms")
+            k8_compare(note, skey, stag, P, carry["cum"], carry["ids"], cap,
+                       results, torch, None if gcn else main)
+        elif gcn:
+            cum = carry["cum"]
+            k9_compare(note + ", hop + clear of its new ids", None, cand, pm,
+                       cum, carry["ids"], cap, slice(int(cum), cap), results,
+                       torch)
+        else:
+            k9_compare(note + ", register + hop + clear", seeds, cand,
+                       smp_.init_state("cuda"), carry["cum"], carry["ids"],
+                       cap, slice(0, cap), results, torch, main)
+        del carry
+    torch.cuda.synchronize()
+
+
+def dedup_edge_case(case, rng, torch):
+    """(seeds, candidates, node_caps, V) of one edge case of K8/K9 at hop
+    0, on the card. Tiles hold 1024 sorted entries (K8) or lanes (K9)."""
+    import numpy as np
+    V, B, fo = 5000, 64, 40
+    if case == "a hub of 10,477 in 200,000 lanes":
+        V, B, fo = 300_000, 8000, 25
+    elif case == "exactly one tile":
+        B, fo = 32, 31                       # 32 + 992 = 1024 entries
+    elif case == "one past a tile":
+        B, fo = 25, 40                       # 25 + 1000 = 1025 entries
+    elif case == "below one tile":
+        B, fo = 8, 5
+    seeds = rng.choice(V, B, replace=False).astype(np.int32)
+    seeds[-max(1, B // 12):] = -1
+    E = B * fo
+    cand = rng.integers(0, V, E).astype(np.int32)
+    cand[rng.random(E) < 0.1] = -1
+    fresh = np.setdiff1d(np.arange(V), seeds)
+    caps = None
+    if case == "one new id in every lane":
+        cand[:] = fresh[7]
+    elif case == "one seed in every lane":
+        cand[:] = seeds[3]
+    elif case == "a run across a tile":
+        cand[rng.permutation(E)[:1500]] = fresh[11]
+    elif case == "all pads":
+        cand[:] = -1
+    elif case == "a cap that binds mid-run":
+        cand = rng.choice(np.arange(0, V, 50), E).astype(np.int32)
+        caps = (B, B + 50)
+    elif case == "a cap equal to cum":
+        seeds[:] = rng.choice(V, B, replace=False)
+        caps = (B, B)
+    elif case == "repeated seeds, pads among them":
+        seeds[5:9] = seeds[1]
+        seeds[12:15] = -1
+    elif case == "ids at and past V":
+        cand[:6] = (V, V + 5, 2 ** 31 - 1, V - 1, 0, V)
+    elif case == "a hub of 10,477 in 200,000 lanes":
+        cand[rng.permutation(E)[:10_477]] = fresh[3]
+    return (torch.from_numpy(seeds).cuda(), torch.from_numpy(cand).cuda(),
+            caps, V)
+
+
+DEDUP_EDGE_CASES = (
+    "random", "one new id in every lane", "one seed in every lane",
+    "a run across a tile", "all pads", "a cap that binds mid-run",
+    "a cap equal to cum", "below one tile", "exactly one tile",
+    "one past a tile", "repeated seeds, pads among them",
+    "ids at and past V", "a hub of 10,477 in 200,000 lanes")
+
+
+def dedup_edges(torch, results):
+    """K8 (``k8_edges``) and K9 (``k9_edges``) at the edges of their shapes,
+    bit for bit against their plain versions, one deduped hop each from
+    ``begin``: every case of ``DEDUP_EDGE_CASES`` (runs across tiles, caps
+    that bind or leave no room, M below, at and one past a tile, pads,
+    repeated seeds, ids past V, a 200,000-lane hub); K8 with int64 tags
+    (``torch.sort``'s) and int32 tags; K9 register, hop, the map between,
+    and the clear."""
+    import numpy as np
+    from legion_tpu_torch.config import SamplerConfig
+    from legion_tpu_torch.sampling import sampler as smp
+    rng = np.random.default_rng(17)
+    n8 = n9 = 0
+    for case in DEDUP_EDGE_CASES:
+        seeds, cand, caps, V = dedup_edge_case(case, rng, torch)
+        B = seeds.shape[0]
+        cfg = SamplerConfig(fanouts=(cand.shape[0] // B,), batch_size=B,
+                            dedup="sort", node_caps=caps)
+        s = smp.NeighborSampler(cfg, V)
+        P, cap = s.cum_caps[0], s.cum_caps[1]
+        carry = s.begin(seeds)
+        skey, stag = smp.dedup_sort_keys(carry["ids"], cand, P)
+        for tags in (stag, stag.int()):
+            ids_k, ids_p = carry["ids"].clone(), carry["ids"].clone()
+            k = smp.dedup_sort(skey, tags, P, carry["cum"], ids_k, cap)
+            p_ = smp.dedup_sort_plain(skey, tags, P, carry["cum"], ids_p, cap)
+            if not all(exact(a, b)[1] for a, b in zip(k + (ids_k,),
+                                                      p_ + (ids_p,))):
+                fail(f"dedup_sort edge {case} tags {tags.dtype}: kernel "
+                     f"differs from its plain version")
+            n8 += 1
+        ids0 = carry["ids"]
+        sm = smp.NeighborSampler(SamplerConfig(
+            fanouts=cfg.fanouts, batch_size=B, dedup="map", node_caps=caps),
+            V)
+        out = []
+        for reg, hop, clr in ((smp.map_register, smp.dedup_map,
+                               smp.map_clear),
+                              (smp.map_register_plain, smp.dedup_map_plain,
+                               smp.map_clear_plain)):
+            pm, ids = sm.init_state("cuda"), ids0[:sm.ids_len].clone()
+            reg(pm, seeds)
+            after_reg = pm.clone()
+            src, n = hop(cand, pm, carry["cum"], ids, sm.cum_caps[1])
+            mid = pm.clone()
+            clr(pm, ids[:sm.cum_caps[1]])
+            out.append((after_reg, src, n, ids, mid, pm))
+        if not all(exact(a, b)[1] for a, b in zip(*out)):
+            fail(f"dedup_map edge {case}: kernel differs from its plain "
+                 f"version")
+        if case != "repeated seeds, pads among them" and \
+                not bool((out[0][-1] == 2 ** 31 - 1).all()):
+            fail(f"dedup_map edge {case}: the map is not clean after the "
+                 "clear")
+        n9 += 1
+    torch.cuda.synchronize()
+    what = ", ".join(DEDUP_EDGE_CASES)
+    print(f"  dedup_sort     k8_edges: {n8} edge cases ({what}; int64 and "
+          f"int32 tags): all exact")
+    print(f"  dedup_map      k9_edges: {n9} edge cases ({what}; register, "
+          f"hop, the map between, clear): all exact")
+
+
 def k2_gcn_compare(tr, torch, results):
     """K2 at GCN's out-degree shape: a column of ones over the hop-1 edge
     list of one real batch of the GCN trainer (F = 1, a float an atomic),
@@ -669,7 +942,9 @@ def phase_slice(tr, torch, path):
     """One path through the public API: warm-up steps, timed train steps
     (per-step times from CUDA events at the step boundaries, no sync
     inside the loop), then an eval pass. Fails unless every kernel of the
-    path launched. Returns the launch counts and the mean step ms."""
+    path launched, if the other dedup mode's kernel did, or if a position
+    map is not clean after the pass. Returns the launch counts and the mean
+    step ms."""
     from legion_tpu_torch.ops import kernels
     from legion_tpu_torch.pipeline import Mode
     state = tr.init_state()
@@ -730,6 +1005,14 @@ def phase_slice(tr, torch, path):
     for name in PATH_KERNELS[path]:
         if counts[name] <= 0:
             fail(f"kernel {name} was not launched on the {path} path")
+    # the other dedup mode's kernel never runs, and the map is clean
+    other = "dedup_sort" if path == "device-map" else "dedup_map"
+    if counts[other]:
+        fail(f"{path}: {other} launched {counts[other]} times")
+    if not tr.sampler_t.sort_dedup and not bool(
+            (state["pos_map"] == 2 ** 31 - 1).all()):
+        fail(f"{path}: the position map is not clean after the steps and "
+             "the eval pass")
     if path == "H" and not 0 < hits < slots:
         fail(f"H: feature hit rate {hits}/{slots} is not strictly between "
              "0 and 1")
@@ -741,7 +1024,8 @@ def one_batch(tr, torch, key=77):
     fetched features."""
     s = tr.sampler_t
     seeds = tr.train_bank[:s.config.batch_size]
-    batch = s.sample(tr.graph_access, seeds, key)
+    batch = s.sample(tr.graph_access, seeds, key,
+                     pos_map=s.init_state("cuda"))
     x, _ = tr.feature_source.fetch(batch.node_ids[:s.max_ids])
     torch.cuda.synchronize()
     return batch, x
@@ -1084,8 +1368,9 @@ def compare_slices(trs, torch, label):
     states = [t.init_state() for t in trs]
     states[1]["model"].load_state_dict(states[0]["model"].state_dict())
     bs = trs[0].sampler_t.config.batch_size
-    b = [t.sampler_t.sample(t.graph_access, t.train_bank[:bs], 99)
-         for t in trs]
+    b = [t.sampler_t.sample(t.graph_access, t.train_bank[:bs], 99,
+                            pos_map=st["pos_map"])
+         for t, st in zip(trs, states)]
     for f in ("node_ids", "num_nodes", "num_edges", "hop_offsets"):
         if not torch.equal(getattr(b[0], f), getattr(b[1], f).cpu()):
             fail(f"{label}: small batch differs in {f}")
@@ -1132,15 +1417,16 @@ def phase_reference(torch):
         small.meta, small.csr.indptr.numpy(), small.csr.indices.numpy(),
         small.features.numpy(), small.labels.numpy(), small.train_ids,
         small.valid_ids, small.test_ids, device="cuda")
-    for model in ("graphsage", "gat", "gcn"):
-        cfg = bench_config(small, model=model)
+    for model, dedup in (("graphsage", "sort"), ("graphsage", "map"),
+                         ("gat", "sort"), ("gcn", "sort")):
+        cfg = bench_config(small, model=model, dedup=dedup)
         cfg = replace(cfg, sampler=replace(cfg.sampler, batch_size=256),
                       train=replace(cfg.train, dropout=0.0, gat_feat_drop=0.0,
                                     gat_attn_drop=0.0))
-        print(f" {model}:")
+        print(f" {model}, {dedup} dedup:")
         compare_slices([Trainer(small, cfg, device="cpu"),
                         Trainer(gpu_ds, cfg, "cuda")], torch,
-                       f"device {model}")
+                       f"device {model} {dedup}")
 
 
 def host_trainer(ds, torch, name, **cache_kw):
@@ -1620,8 +1906,10 @@ def phase_profile(names, torch):
             tr = Trainer(hds, bench_config(hds, **host_kw[name]), "cuda")
         else:
             ds = ds or synthesize_device_dataset("cuda")
-            model = "graphsage" if name == "device" else name
-            tr = Trainer(ds, bench_config(ds, model=model), "cuda")
+            model = "graphsage" if name.startswith("device") else name
+            tr = Trainer(ds, bench_config(
+                ds, model=model,
+                dedup="map" if name == "device-map" else "sort"), "cuda")
         state = tr.init_state()
         for _ in range(5):
             state, _ = tr.train_step(state)
@@ -1662,9 +1950,16 @@ def phase_profile(names, torch):
                   f"({r.count / steps:g} calls)")
         for r in rows:
             if r.device_type == DeviceType.CUDA and any(
-                    k in r.key for k in KERNELS):
+                    k in r.key for k in KERNEL_SYMBOLS):
                 print(f"    kernel {r.key[:41]:41s} {per_step(r):8.3f} "
                       f"ms/step ({r.count / steps:g} launches)")
+        for r in rows:
+            if r.key == "aten::sort" and r.device_type == DeviceType.CPU:
+                print(f"    the sort dedup's torch.sort: {per_step(r):.3f} "
+                      f"ms/step ({r.count / steps:g} calls)")
+        if any("cummax" in r.key for r in rows):
+            fail(f"{name}: a train step called torch.cummax (the plain "
+                 "sort dedup)")
         tr.close()
         del tr, state
         torch.cuda.empty_cache()
@@ -1725,10 +2020,17 @@ def main():
         del tr
         tr = Trainer(ds, bench_config(ds, model="gcn"), device="cuda")
         k2_gcn_compare(tr, torch, results)
+        dedup_compares(tr, torch, results, {}, gcn=True)
         return
 
     print("phase 3: the main path (train steps, then an eval pass)")
     counts = {"device": phase_slice(tr, torch, "device")[0]}
+    del tr
+    torch.cuda.empty_cache()
+    print(" device-map (the same with map dedup, the config's default):")
+    tr = Trainer(ds, bench_config(ds, dedup="map"), device="cuda")
+    print(f"  caps {tr.compact_caps} | ids_len {tr.sampler_t.ids_len}")
+    counts["device-map"] = phase_slice(tr, torch, "device-map")[0]
     del tr
     torch.cuda.empty_cache()
 
@@ -1752,6 +2054,7 @@ def main():
         elif model == "gcn":
             k7_exact_compares(tr, torch, results)
             k2_gcn_compare(tr, torch, results)
+            dedup_compares(tr, torch, results, main_ms, gcn=True)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         counts[model] = phase_slice(tr, torch, model)[0]

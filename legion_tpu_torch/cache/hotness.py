@@ -4,7 +4,8 @@
 node_access[v] counts batches whose id set holds v (feature hotness);
 edge_access[v] counts frontier expansions of v (adjacency hotness); the
 per-hop maximum of ``batch.num_nodes`` sizes the trainer's buffer caps.
-The counters are plain ``index_add_``.
+The counters are plain ``index_add_``. Map dedup samples with a fresh
+position map of its own, as JAX's presample does.
 """
 
 from __future__ import annotations
@@ -31,10 +32,11 @@ def presample_hotness(sampler: NeighborSampler, access,
     na = torch.zeros((V,), dtype=torch.int32, device=dev)
     ea = torch.zeros((V,), dtype=torch.int32, device=dev)
     mx = torch.zeros((L + 1,), dtype=torch.int32, device=dev)
+    pos_map = sampler.init_state(dev)
     for lid in range(num_steps):
         seeds = seed_bank[lid * bs:(lid + 1) * bs]
         batch = sampler.sample(access, seeds, fold_in(key, lid),
-                               edge_access=ea)
+                               edge_access=ea, pos_map=pos_map)
         count_ids(na, batch.node_ids)
         mx = torch.maximum(mx, batch.num_nodes)
     return na, ea, mx

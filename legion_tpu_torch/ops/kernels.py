@@ -20,7 +20,10 @@ gat_layer_aligned_streaming`` and K7 ``hop_attention`` the XLA
 kernel (its launches counted under ``<name>_bwd``); K7's plain version
 lives with its caller in ``ops/hop_agg.py``.
 K3 ``windowed_draw`` and K5 ``csr_draw`` live with their callers in
-``sampling/access.py``, K4 ``cached_gather`` in ``cache/unified_cache.py``;
+``sampling/access.py``, K4 ``cached_gather`` in ``cache/unified_cache.py``,
+K8 ``dedup_sort`` (sort dedup after its sort) and K9 ``dedup_map`` (the
+position map: seed registration, a hop's claim, rank and read-back, the
+clear; all counted under ``dedup_map``) in ``sampling/sampler.py``;
 host-memory registration for K4 and K5 is ``ops/host_memory.py``. The
 headers of ``csrc/*.cu`` say what bounds each kernel on the card.
 ``noop`` launches an empty kernel, the yardstick of a launch's cost.
@@ -54,7 +57,8 @@ LAUNCHES: Dict[str, int] = {"gather_rows": 0, "segment_sum": 0,
                             "windowed_draw": 0, "cached_gather": 0,
                             "csr_draw": 0, "gat_attend": 0,
                             "gat_attend_bwd": 0, "hop_attention": 0,
-                            "hop_attention_bwd": 0}
+                            "hop_attention_bwd": 0, "dedup_sort": 0,
+                            "dedup_map": 0}
 
 
 def reset_launch_counts() -> None:
@@ -155,6 +159,11 @@ def lib() -> ctypes.CDLL:
     so.lt_host_unregister.argtypes = [p]
     so.lt_host_read_probe.argtypes = [p, i64, i64, p, i64, i32, p, p]
     so.lt_host_word_probe.argtypes = [p, p, i64, p, p]
+    so.lt_dedup_sort.argtypes = [p, p, i32, i64, i64, p, i32, p, i64, p, p,
+                                 p, p]
+    so.lt_map_register.argtypes = [p, i64, p, i64, p]
+    so.lt_map_clear.argtypes = [p, i64, p, i64, p]
+    so.lt_dedup_map.argtypes = [p, i64, p, i64, p, i32, p, p, p, p, p]
     so.lt_noop.argtypes = [p]
     for fn in (so.lt_noop, so.lt_gather_rows, so.lt_segment_sum_f32,
                so.lt_segment_sum_bf16, so.lt_windowed_draw_i32,
@@ -163,7 +172,8 @@ def lib() -> ctypes.CDLL:
                so.lt_host_unregister, so.lt_host_read_probe,
                so.lt_host_word_probe, so.lt_gat_attend_fwd,
                so.lt_gat_attend_bwd, so.lt_hop_attention_fwd,
-               so.lt_hop_attention_bwd):
+               so.lt_hop_attention_bwd, so.lt_dedup_sort,
+               so.lt_map_register, so.lt_map_clear, so.lt_dedup_map):
         fn.restype = ctypes.c_int
     so.lt_error_string.argtypes = [ctypes.c_int]
     so.lt_error_string.restype = ctypes.c_char_p

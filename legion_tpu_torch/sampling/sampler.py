@@ -1,5 +1,5 @@
 """Multi-hop fanout sampling with static shapes (port of
-``legion_tpu/sampling/sampler.py``, sort-dedup mode).
+``legion_tpu/sampling/sampler.py``, both dedup modes).
 
 Same contract as the JAX sampler: -1 pads, seeds at local positions
 [0, batch), global dedup (a node seen at an earlier hop is not expanded
@@ -7,11 +7,26 @@ again), reversed edges (src = sampled neighbour, dst = frontier node),
 fanout-major lanes, and an optional lane-aligned last hop that skips
 dedup (``SamplerConfig.dedup_last_hop=False``).
 
+Two dedup modes, as in JAX. ``"map"`` (the config's default) is Legion's
+own algorithm: a [V] int32 position map (``init_state``), seeds registered
+in ``begin``, each hop's new ids claimed by their least lane and ranked in
+lane order, and only the touched entries reset in ``finish``; the map is
+changed in place and is all ``INT32_MAX`` again when ``finish`` returns.
+``"sort"`` needs no state: one stable sort of (assigned prefix ++
+candidates), new ids ranked in ascending id order. The two give the same
+sets in different position orders.
+
+The kernels: K9 ``dedup_map`` (``csrc/dedup_map.cu``: seed registration,
+a hop's claim / rank / resolve / read-back, the clear) and K8
+``dedup_sort`` (``csrc/dedup_sort.cu``: everything after the sort). Their
+wrappers and plain versions live here; a wrapper runs the plain version
+for CPU tensors only.
+
 Dynamic offsets (the frontier slice, the compacted-block write) are index
-tensors ``offset + arange(width)``, never ``.item()``, so a step makes no
-host sync. The ``ids_len`` slack rule guarantees those windows stay inside
-the buffer, which is where JAX's ``dynamic_slice`` would have clamped.
-Map dedup (``_dedup_map``) is not ported yet.
+tensors ``offset + arange(width)`` or pointers read by a kernel, never
+``.item()``, so a step makes no host sync. The ``ids_len`` slack rule
+guarantees those windows stay inside the buffer, which is where JAX's
+``dynamic_slice`` would have clamped.
 """
 
 from __future__ import annotations
@@ -22,9 +37,15 @@ from typing import Optional, Tuple
 import torch
 
 from legion_tpu_torch.config import SamplerConfig
+from legion_tpu_torch.ops import kernels
 from legion_tpu_torch.sampling.access import fold_in
 
 INT32_MAX = 2 ** 31 - 1
+INT32_MIN = -2 ** 31
+# position-map claim tags live above any valid local index (ids_len < 2**30)
+CLAIM_BASE = 1 << 30
+# entries of a tile of the dedup kernels (csrc/dedup.cuh::kTile)
+_DEDUP_TILE = 1024
 
 
 @dataclass
@@ -48,16 +69,271 @@ def _i32(x, device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.int32, device=device)
 
 
+def _check_i32(name: str, *tensors: torch.Tensor) -> None:
+    """All int32 of at most one dimension, on one device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.dtype != torch.int32 or t.dim() > 1 or t.device != dev:
+            raise ValueError(f"{name}: want 1-D int32 tensors on one device, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _cuda_args(name: str, *tensors: torch.Tensor) -> bool:
+    """False for CPU tensors (the plain version runs); True for CUDA
+    tensors, which must be contiguous; anything else raises."""
+    dev = tensors[0].device
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: tensors on {dev}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: tensors must be contiguous")
+    return True
+
+
+def _tiles(n: int) -> int:
+    """Tiles of the dedup kernels over n entries (at least one)."""
+    return max(1, -(-n // _DEDUP_TILE))
+
+
+def _outputs(E: int, n_scratch: int, device
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """src_l [E], n_new [] and the kernel's scratch, int32, carved from
+    one allocation (the host's time a call counts: the step is
+    host-bound)."""
+    buf = torch.empty((E + 1 + n_scratch,), dtype=torch.int32,
+                      device=device)
+    return buf[:E], buf[E], buf[E + 1:]
+
+
+# ---------------------------------------------------------------------------
+# K8 dedup_sort: everything after the sort of sort dedup
+# ---------------------------------------------------------------------------
+
+def dedup_sort_keys(ids: torch.Tensor, cand: torch.Tensor, P: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The one stable sort of sort dedup: keys (assigned prefix ids[:P] ++
+    candidates, INT32_MAX for pads) and their tags. Tag < P: the existing
+    entry at position tag; tag >= P: lane tag - P. A stable sort puts each
+    id's authority first (the existing entry, else the lowest lane)."""
+    imax = _i32(INT32_MAX, cand.device)
+    prefix = ids[:P]
+    keys = torch.cat([torch.where(prefix >= 0, prefix, imax),
+                      torch.where(cand >= 0, cand, imax)])
+    return torch.sort(keys, stable=True)
+
+
+def dedup_sort_plain(skey: torch.Tensor, stag: torch.Tensor, P: int,
+                     cum: torch.Tensor, ids: torch.Tensor, cap_k: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain K8 (``legion_tpu/sampling/sampler.py:259-293`` after the sort):
+    ``skey``/``stag`` are the stably sorted keys and tags of (assigned
+    prefix of length P ++ E_k candidates), INT32_MAX for pads. Runs of an
+    equal id lead with their authority (the existing entry, else the
+    lowest lane); new runs get positions cum + rank in ascending-id order,
+    up to ``cap_k``; positions go back to lane order. Writes the kept new
+    ids and then -1 into ``ids[cum:cum+W]``, W = min(E_k, cap_k), in place.
+    Returns (src_l [E_k] int32, n_new int32 scalar)."""
+    dev = skey.device
+    M = skey.shape[0]
+    E_k = M - P
+    W = min(E_k, cap_k)
+    stag = stag.to(torch.int32)
+    valid_s = skey != INT32_MAX
+    prev = torch.cat([_i32([-1], dev), skey[:-1]])
+    run_start = valid_s & (skey != prev)
+    is_exist = stag < P
+
+    new_head = run_start & ~is_exist
+    rank = torch.cumsum(new_head, 0, dtype=torch.int32) - 1
+    pos_new = cum + rank
+    kept_head = new_head & (pos_new < cap_k)
+    minus1 = _i32(-1, dev)
+    head_pos = torch.where(is_exist, stag,
+                           torch.where(kept_head, pos_new, minus1))
+    # fill-forward each run head's position across its run: the last
+    # run start at or before j, by a running max of run-start indices
+    starts = torch.where(run_start,
+                         torch.arange(M, dtype=torch.int64, device=dev),
+                         torch.zeros((), dtype=torch.int64, device=dev))
+    last_start = torch.cummax(starts, 0).values
+    src_pos = torch.where(valid_s, head_pos[last_start], minus1)
+
+    # back to lane order: candidate entry with tag t goes to lane
+    # t - P (existing entries land in a dump slot past the end)
+    lane_idx = torch.where(is_exist, _i32(E_k, dev), stag - P).long()
+    src_l = torch.empty((E_k + 1,), dtype=torch.int32, device=dev)
+    src_l.scatter_(0, lane_idx, src_pos)
+
+    # compact the kept new ids to the front in position order
+    n_new = kept_head.sum(dtype=torch.int32)
+    block_idx = torch.where(kept_head, rank, _i32(W, dev)).long()
+    new_block = torch.full((W + 1,), -1, dtype=torch.int32, device=dev)
+    new_block.scatter_(0, block_idx, skey)
+    ids.index_copy_(0, cum.long() + torch.arange(W, device=dev),
+                    new_block[:W])
+    return src_l[:E_k], n_new
+
+
+def dedup_sort(skey: torch.Tensor, stag: torch.Tensor, P: int,
+               cum: torch.Tensor, ids: torch.Tensor, cap_k: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K8, as ``dedup_sort_plain``: skey [M] int32 ascending, stag [M]
+    int32 or int64 (``torch.sort``'s indices: a permutation of [0, M)),
+    cum int32 scalar on the device (read by the kernel), ids [ids_len]
+    int32 with ``cum_max + min(M - P, cap_k) <= ids_len``."""
+    _check_i32("dedup_sort", skey, cum, ids)
+    if stag.shape != skey.shape or stag.dtype not in (torch.int32,
+                                                      torch.int64):
+        raise ValueError(f"dedup_sort: stag {stag.dtype} "
+                         f"{tuple(stag.shape)}, skey {tuple(skey.shape)}")
+    M = skey.shape[0]
+    if not 0 <= P <= M or M >= 2 ** 31 - 1 or cum.numel() != 1:
+        raise ValueError(f"dedup_sort: P {P}, M {M}, cum {tuple(cum.shape)}")
+    if not _cuda_args("dedup_sort", skey, stag, cum, ids):
+        return dedup_sort_plain(skey, stag, P, cum, ids, cap_k)
+    E_k = M - P
+    src_l, n_new, scratch = _outputs(E_k, 2 * _tiles(M), skey.device)
+    rc = kernels.lib().lt_dedup_sort(
+        skey.data_ptr(), stag.data_ptr(), int(stag.dtype == torch.int64), M,
+        P, cum.data_ptr(), cap_k, ids.data_ptr(), ids.shape[0],
+        src_l.data_ptr(), n_new.data_ptr(), scratch.data_ptr(),
+        kernels.stream_handle())
+    kernels.check("dedup_sort", rc)
+    return src_l, n_new
+
+
+# ---------------------------------------------------------------------------
+# K9 dedup_map: Legion's position map
+# ---------------------------------------------------------------------------
+
+def _scatter_min(pos_map: torch.Tensor, idx: torch.Tensor,
+                 val: torch.Tensor, keep: torch.Tensor) -> None:
+    """pos_map[idx] = min(pos_map[idx], val) where ``keep``, in place."""
+    pos_map.scatter_reduce_(0, torch.where(keep, idx, 0).long(),
+                            torch.where(keep, val, INT32_MAX), "amin")
+
+
+def _scatter_unset(pos_map: torch.Tensor, idx: torch.Tensor,
+                   keep: torch.Tensor) -> None:
+    """pos_map[idx] = INT32_MAX where ``keep``, in place."""
+    pos_map.scatter_reduce_(
+        0, torch.where(keep, idx, 0).long(),
+        torch.where(keep, _i32(INT32_MAX, idx.device),
+                    _i32(INT32_MIN, idx.device)), "amax")
+
+
+def _in_map(pos_map: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return (idx >= 0) & (idx < pos_map.shape[0])
+
+
+def map_register_plain(pos_map: torch.Tensor, seeds: torch.Tensor) -> None:
+    """Plain K9 register (``legion_tpu/sampling/sampler.py:315-318``):
+    pos_map[seed] = its lane for every seed in [0, V); a seed that occurs
+    twice keeps its least lane (JAX's scatter leaves that order open)."""
+    lane = torch.arange(seeds.shape[0], dtype=torch.int32,
+                        device=seeds.device)
+    _scatter_min(pos_map, seeds, lane, _in_map(pos_map, seeds))
+
+
+def map_register(pos_map: torch.Tensor, seeds: torch.Tensor) -> None:
+    """K9's seed registration, in place on a clean map."""
+    _check_i32("map_register", pos_map, seeds)
+    if not _cuda_args("map_register", pos_map, seeds):
+        return map_register_plain(pos_map, seeds)
+    rc = kernels.lib().lt_map_register(
+        seeds.data_ptr(), seeds.shape[0], pos_map.data_ptr(),
+        pos_map.shape[0], kernels.stream_handle())
+    kernels.check("dedup_map", rc)
+
+
+def dedup_map_plain(cand: torch.Tensor, pos_map: torch.Tensor,
+                    cum: torch.Tensor, ids: torch.Tensor, cap_k: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain K9 hop (``legion_tpu/sampling/sampler.py:190-220``): a new
+    candidate id (map entry INT32_MAX) is claimed by its least lane
+    (scatter-min of CLAIM_BASE + lane), winners are ranked in lane order,
+    a winner at cum + rank < cap_k is kept (map entry and ids[cum + rank]
+    set), claims past the cap are cleared, and every lane reads its id's
+    position back (-1 where none). Candidates outside [0, V) count as
+    pads. pos_map and ids change in place. Returns (src_l [E] int32, n_new
+    int32 scalar)."""
+    dev = cand.device
+    E = cand.shape[0]
+    imax = _i32(INT32_MAX, dev)
+    e_valid = _in_map(pos_map, cand)
+    safe = torch.where(e_valid, cand, 0).long()
+    cur = torch.where(e_valid, pos_map[safe], imax)
+    is_new = e_valid & (cur == INT32_MAX)
+    lane = torch.arange(E, dtype=torch.int32, device=dev)
+    claim = CLAIM_BASE + lane
+    _scatter_min(pos_map, cand, claim, is_new)
+    won = is_new & (pos_map[safe] == claim)
+    rank = torch.cumsum(won, 0, dtype=torch.int32) - 1
+    local_new = cum + rank
+    kept = won & (local_new < cap_k)
+    n_new = kept.sum(dtype=torch.int32)
+    # a claimed entry holds CLAIM_BASE + lane > any position
+    _scatter_min(pos_map, cand, local_new, kept)
+    ext = torch.cat([ids, _i32([-1], dev)])
+    ext.scatter_(0, torch.where(kept, local_new, ids.shape[0]).long(), cand)
+    ids.copy_(ext[:-1])
+    # winners past the cap: clear their claim tags
+    stale = e_valid & (pos_map[safe] >= CLAIM_BASE)
+    _scatter_unset(pos_map, cand, stale)
+    src_l = torch.where(e_valid, pos_map[safe], imax)
+    return torch.where(src_l == INT32_MAX, _i32(-1, dev), src_l), n_new
+
+
+def dedup_map(cand: torch.Tensor, pos_map: torch.Tensor, cum: torch.Tensor,
+              ids: torch.Tensor, cap_k: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K9's hop, as ``dedup_map_plain``: claim, count, assign (rank,
+    positions, ids, the unkept winners' reset, n_new) and read-back, four
+    kernels in one call. cum is an int32 scalar on the device, read by the
+    kernels; cap_k <= ids.shape[0]."""
+    _check_i32("dedup_map", cand, pos_map, cum, ids)
+    E = cand.shape[0]
+    if E >= CLAIM_BASE or cum.numel() != 1 or cap_k > ids.shape[0]:
+        raise ValueError(f"dedup_map: E {E}, cum {tuple(cum.shape)}, cap "
+                         f"{cap_k}, ids {ids.shape[0]}")
+    if not _cuda_args("dedup_map", cand, pos_map, cum, ids):
+        return dedup_map_plain(cand, pos_map, cum, ids, cap_k)
+    src_l, n_new, scratch = _outputs(E, _tiles(E), cand.device)
+    rc = kernels.lib().lt_dedup_map(
+        cand.data_ptr(), E, pos_map.data_ptr(), pos_map.shape[0],
+        cum.data_ptr(), cap_k, ids.data_ptr(), src_l.data_ptr(),
+        n_new.data_ptr(), scratch.data_ptr(), kernels.stream_handle())
+    kernels.check("dedup_map", rc)
+    return src_l, n_new
+
+
+def map_clear_plain(pos_map: torch.Tensor, touched: torch.Tensor) -> None:
+    """Plain K9 clear (ClearPosMap, ``legion_tpu/sampling/sampler.py:
+    376-383``): pos_map[t] = INT32_MAX for every touched id in [0, V)."""
+    _scatter_unset(pos_map, touched, _in_map(pos_map, touched))
+
+
+def map_clear(pos_map: torch.Tensor, touched: torch.Tensor) -> None:
+    """K9's clear of only the touched entries, in place."""
+    _check_i32("map_clear", pos_map, touched)
+    if not _cuda_args("map_clear", pos_map, touched):
+        return map_clear_plain(pos_map, touched)
+    rc = kernels.lib().lt_map_clear(
+        touched.data_ptr(), touched.shape[0], pos_map.data_ptr(),
+        pos_map.shape[0], kernels.stream_handle())
+    kernels.check("dedup_map", rc)
+
+
 class NeighborSampler:
     """Fanout sampler over a device-resident graph access."""
 
     def __init__(self, config: SamplerConfig, num_nodes: int):
-        if config.dedup != "sort":
-            raise NotImplementedError(
-                f"dedup={config.dedup!r}: the port has sort dedup only; "
-                "map dedup is a ROADMAP item (queue A)")
+        if config.dedup not in ("map", "sort"):
+            raise ValueError(f"dedup={config.dedup!r}: 'map' or 'sort'")
         self.config = config
         self.num_nodes = num_nodes
+        self.sort_dedup = config.dedup == "sort"
         self.frontier_sizes = config.frontier_sizes()
         self.edge_sizes = config.edge_counts()
         self.cum_caps = config.cum_sizes()
@@ -69,89 +345,64 @@ class NeighborSampler:
         slack = max(self.frontier_sizes[1:], default=0) if self.capped \
             else 0
         self.ids_len = self.max_ids + slack
-        # each deduped hop writes its compacted block, static width W_k,
-        # at offset cum <= cum_caps[k]; the buffer must hold the window
         L = config.num_hops
-        for k in range(L):
-            if self.aligned_last and k == L - 1:
-                continue
-            W = min(self.edge_sizes[k], self.cum_caps[k + 1])
-            self.ids_len = max(self.ids_len, self.cum_caps[k] + W)
+        if self.sort_dedup:
+            # each deduped hop writes its compacted block, static width W_k,
+            # at offset cum <= cum_caps[k]; the buffer must hold the window
+            for k in range(L):
+                if self.aligned_last and k == L - 1:
+                    continue
+                W = min(self.edge_sizes[k], self.cum_caps[k + 1])
+                self.ids_len = max(self.ids_len, self.cum_caps[k] + W)
+        # claim tags (CLAIM_BASE + lane) must lie above every position
+        if self.ids_len >= CLAIM_BASE or max(self.edge_sizes) >= CLAIM_BASE:
+            raise ValueError(f"ids_len {self.ids_len} and edge sizes "
+                             f"{self.edge_sizes} must stay below 2**30")
 
-    def _dedup_sort(self, cand: torch.Tensor, e_valid: torch.Tensor,
-                    cum: torch.Tensor, ids: torch.Tensor, k: int):
+    @property
+    def state_size(self) -> int:
+        """Length of the sampler state: the [V] position map for "map"
+        dedup; a 1-element dummy for the stateless "sort" dedup."""
+        return 1 if self.sort_dedup else self.num_nodes
+
+    def init_state(self, device) -> torch.Tensor:
+        """Fresh sampler state on ``device`` (INT32_MAX = unseen)."""
+        return torch.full((self.state_size,), INT32_MAX, dtype=torch.int32,
+                          device=device)
+
+    def _dedup_sort(self, cand: torch.Tensor, cum: torch.Tensor,
+                    ids: torch.Tensor, k: int):
         """Sort-based dedup (``legion_tpu/sampling/sampler.py:222-293``):
-        one stable sort of (assigned prefix ++ candidates) puts each id's
-        authority first (the existing entry, else the lowest lane); new
-        runs get positions cum + rank in ascending-id order, up to the
-        cap (the largest new ids drop); positions go back to lanes and
-        the new ids are compacted into ``ids[cum:cum+W]``."""
-        dev = cand.device
-        E_k = cand.shape[0]
-        cap_k = self.cum_caps[k + 1]
+        one stable sort, then K8."""
         P = self.cum_caps[k]
-        W = min(E_k, cap_k)
-        M = P + E_k
-        imax = _i32(INT32_MAX, dev)
-
-        prefix = ids[:P]
-        keys = torch.cat([torch.where(prefix >= 0, prefix, imax),
-                          torch.where(e_valid, cand, imax)])
-        # tag < P: existing entry at position tag; tag >= P: lane tag - P.
-        # A stable sort keeps assigned-before-candidate and lane order.
-        skey, stag = torch.sort(keys, stable=True)
-        stag = stag.to(torch.int32)
-        valid_s = skey != INT32_MAX
-        prev = torch.cat([_i32([-1], dev), skey[:-1]])
-        run_start = valid_s & (skey != prev)
-        is_exist = stag < P
-
-        new_head = run_start & ~is_exist
-        rank = torch.cumsum(new_head, 0, dtype=torch.int32) - 1
-        pos_new = cum + rank
-        kept_head = new_head & (pos_new < cap_k)
-        minus1 = _i32(-1, dev)
-        head_pos = torch.where(is_exist, stag,
-                               torch.where(kept_head, pos_new, minus1))
-        # fill-forward each run head's position across its run: the last
-        # run start at or before j, by a running max of run-start indices
-        starts = torch.where(run_start,
-                             torch.arange(M, dtype=torch.int64, device=dev),
-                             torch.zeros((), dtype=torch.int64, device=dev))
-        last_start = torch.cummax(starts, 0).values
-        src_pos = torch.where(valid_s, head_pos[last_start], minus1)
-
-        # back to lane order: candidate entry with tag t goes to lane
-        # t - P (existing entries land in a dump slot past the end)
-        lane_idx = torch.where(is_exist, _i32(E_k, dev), stag - P).long()
-        src_l = torch.empty((E_k + 1,), dtype=torch.int32, device=dev)
-        src_l.scatter_(0, lane_idx, src_pos)
-        src_l = src_l[:E_k]
-
-        # compact the kept new ids to the front in position order
-        n_new = kept_head.sum(dtype=torch.int32)
-        block_idx = torch.where(kept_head, rank, _i32(W, dev)).long()
-        new_block = torch.full((W + 1,), -1, dtype=torch.int32, device=dev)
-        new_block.scatter_(0, block_idx, skey)
-        ids = ids.index_copy(
-            0, cum.long() + torch.arange(W, device=dev), new_block[:W])
-        return src_l, n_new, ids
+        skey, stag = dedup_sort_keys(ids, cand, P)
+        return dedup_sort(skey, stag, P, cum, ids, self.cum_caps[k + 1])
 
     # -- per-hop carry pieces, as in the JAX sampler ------------------------
 
-    def begin(self, seeds: torch.Tensor) -> dict:
-        """Register seeds and build the hop-loop carry."""
+    def begin(self, seeds: torch.Tensor,
+              pos_map: Optional[torch.Tensor] = None) -> dict:
+        """Register seeds (map dedup: into ``pos_map``, which must be
+        clean) and build the hop-loop carry."""
         batch_size = self.config.batch_size
         if tuple(seeds.shape) != (batch_size,):
             raise ValueError(f"seeds {tuple(seeds.shape)} != ({batch_size},)")
         dev = seeds.device
         seeds = seeds.to(torch.int32)
+        if not self.sort_dedup:
+            if pos_map is None or tuple(pos_map.shape) != (self.num_nodes,) \
+                    or pos_map.device != dev:
+                raise ValueError(
+                    "map dedup needs its [V] position map on the seeds' "
+                    f"device (sampler.init_state); got "
+                    f"{None if pos_map is None else tuple(pos_map.shape)}")
+            map_register(pos_map, seeds.contiguous())
         ids = torch.full((self.ids_len,), -1, dtype=torch.int32, device=dev)
         ids[:batch_size] = seeds
         n_seeds = (seeds >= 0).sum(dtype=torch.int32)
-        return dict(ids=ids, cum=n_seeds, frontier_off=_i32(0, dev),
-                    num_nodes=(n_seeds,), num_edges=(), edge_src=(),
-                    edge_dst=(), hop_offsets=())
+        return dict(ids=ids, pos_map=pos_map, cum=n_seeds,
+                    frontier_off=_i32(0, dev), num_nodes=(n_seeds,),
+                    num_edges=(), edge_src=(), edge_dst=(), hop_offsets=())
 
     def hop_frontier(self, carry: dict, k: int) -> torch.Tensor:
         idx = carry["frontier_off"].long() + torch.arange(
@@ -159,30 +410,33 @@ class NeighborSampler:
         return carry["ids"][idx]
 
     def hop_absorb(self, carry: dict, k: int, cand: torch.Tensor) -> dict:
-        """Dedup hop k's candidates and record its edge lists."""
+        """Dedup hop k's candidates and record its edge lists. The carry
+        owns its ids buffer (and the map): both change in place."""
         dev = cand.device
         F_k = self.frontier_sizes[k]
         E_k = self.edge_sizes[k]
         L = self.config.num_hops
         ids = carry["ids"]
         cum, frontier_off = carry["cum"], carry["frontier_off"]
-        e_valid = cand >= 0
         lane = torch.arange(E_k, dtype=torch.int32, device=dev)
 
         if self.aligned_last and k == L - 1:
             # lane-aligned last hop: no dedup, position = P_last + lane
-            # (written in place: the carry owns its ids buffer)
+            e_valid = cand >= 0
             P_last = self.cum_caps[k]
             ids[P_last:P_last + E_k] = cand
             src_l = torch.where(e_valid, P_last + lane, _i32(-1, dev))
             n_new = e_valid.sum(dtype=torch.int32)
+        elif self.sort_dedup:
+            src_l, n_new = self._dedup_sort(cand, cum, ids, k)
         else:
-            src_l, n_new, ids = self._dedup_sort(cand, e_valid, cum, ids, k)
+            src_l, n_new = dedup_map(cand.contiguous(), carry["pos_map"],
+                                     cum, ids, self.cum_caps[k + 1])
 
         e_ok = src_l >= 0
         dst_l = torch.where(e_ok, frontier_off + lane % F_k, _i32(-1, dev))
         return dict(
-            ids=ids, cum=cum + n_new, frontier_off=cum,
+            carry, cum=cum + n_new, frontier_off=cum,
             num_nodes=carry["num_nodes"] + (cum + n_new,),
             num_edges=carry["num_edges"] + (e_ok.sum(dtype=torch.int32),),
             edge_src=carry["edge_src"] + (src_l,),
@@ -190,8 +444,17 @@ class NeighborSampler:
             hop_offsets=carry["hop_offsets"] + (frontier_off,))
 
     def finish(self, carry: dict) -> SampleBatch:
+        """ClearPosMap (map dedup) and the SampleBatch."""
+        ids = carry["ids"]
+        if not self.sort_dedup:
+            # reset only the touched entries; an aligned last hop never
+            # touches the map, so its lanes are skipped
+            L = self.config.num_hops
+            touched = ids[:self.cum_caps[L - 1]] if self.aligned_last \
+                else ids
+            map_clear(carry["pos_map"], touched)
         return SampleBatch(
-            node_ids=carry["ids"],
+            node_ids=ids,
             num_nodes=torch.stack(carry["num_nodes"]),
             edge_src=carry["edge_src"],
             edge_dst=carry["edge_dst"],
@@ -199,11 +462,14 @@ class NeighborSampler:
             hop_offsets=torch.stack(carry["hop_offsets"]))
 
     def sample(self, access, seeds: torch.Tensor, key: int,
-               edge_access: Optional[torch.Tensor] = None) -> SampleBatch:
+               edge_access: Optional[torch.Tensor] = None,
+               pos_map: Optional[torch.Tensor] = None) -> SampleBatch:
         """Sample one batch. ``key`` is an int64 (hop k draws with
-        ``fold_in(key, k)``). When ``edge_access`` [V] int32 is given,
-        each expanded frontier vertex adds one to it (presampling)."""
-        carry = self.begin(seeds)
+        ``fold_in(key, k)``). Map dedup needs ``pos_map`` (``init_state``),
+        clean again on return; sort dedup ignores it. When ``edge_access``
+        [V] int32 is given, each expanded frontier vertex adds one to it
+        (presampling)."""
+        carry = self.begin(seeds, pos_map)
         for k in range(self.config.num_hops):
             frontier = self.hop_frontier(carry, k)
             if edge_access is not None:

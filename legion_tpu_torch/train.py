@@ -17,10 +17,13 @@ dataset and for a host ``LegionDataset``: measured buffer caps from
 presampling; with the cache off, the whole graph and a bf16 feature table
 padded to 128 columns on the card; with the cache on, the hotness-planned
 unified cache on the card and the graph and features left in host RAM,
-their misses read by K4/K5 in place. Also the one-step train step, the
-eval step, ``run_eval`` and ``fit``. Not ported (ROADMAP): the staged
-host pipeline (a TPU-runtime workaround), meshes and clique caches,
-``interbatch``, ``fused_steps``, checkpoints.
+their misses read by K4/K5 in place. Both dedup modes: with map dedup
+(the config's default) the state holds the sampler's [V] position map
+(``state["pos_map"]``), shared by the train and eval samplers and clean
+between batches. Also the one-step train step, the eval step,
+``run_eval`` and ``fit``. Not ported (ROADMAP): the staged host pipeline
+(a TPU-runtime workaround), meshes and clique caches, ``interbatch``,
+``fused_steps``, checkpoints.
 """
 
 from __future__ import annotations
@@ -330,7 +333,9 @@ class Trainer:
     # ------------------------------------------------------------------
     def init_state(self) -> Dict:
         """Fresh parameters (from ``train.seed``), a fresh Adam, zeroed
-        counters and the step-key generators."""
+        counters, the step-key generators and the sampler state
+        (``pos_map``: the [V] position map of map dedup, a 1-element dummy
+        for sort dedup, as in ``legion_tpu/train.py:498-505``)."""
         tcfg = self.config.train
         g = torch.Generator(device=self.device)
         g.manual_seed(tcfg.seed)
@@ -346,15 +351,17 @@ class Trainer:
                                    device=self.device)
         return {"model": self.model, "opt": opt, "gen": gen,
                 "eval_gen": eval_gen, "train_ctr": 0, "valid_ctr": 0,
-                "test_ctr": 0, "correct": zero(), "total": zero()}
+                "test_ctr": 0, "correct": zero(), "total": zero(),
+                "pos_map": self.sampler_t.init_state(self.device)}
 
     # ------------------------------------------------------------------
-    def _sample_fetch(self, sampler: NeighborSampler, bank: torch.Tensor,
-                      lid: int, key: int
+    def _sample_fetch(self, state: Dict, sampler: NeighborSampler,
+                      bank: torch.Tensor, lid: int, key: int
                       ) -> Tuple[SampleBatch, torch.Tensor, torch.Tensor]:
         bs = sampler.config.batch_size
         seeds = bank[lid * bs:(lid + 1) * bs]
-        batch = sampler.sample(self.graph_access, seeds, key)
+        batch = sampler.sample(self.graph_access, seeds, key,
+                               pos_map=state["pos_map"])
         # fetch only the model-visible id prefix
         x, feat_hits = self.feature_source.fetch(
             batch.node_ids[:sampler.max_ids])
@@ -384,8 +391,8 @@ class Trainer:
         bs = sampler.config.batch_size
         lid = state["train_ctr"] % self.schedule.train_step
         key = _step_key(state["gen"])
-        batch, x, feat_hits = self._sample_fetch(sampler, self.train_bank,
-                                                 lid, key)
+        batch, x, feat_hits = self._sample_fetch(state, sampler,
+                                                 self.train_bank, lid, key)
         seeds = self.train_bank[lid * bs:(lid + 1) * bs]
         y = self.train_ybank[lid * bs:(lid + 1) * bs]
         loss = self._train_on(state, batch, x, seeds, y, key)
@@ -432,7 +439,7 @@ class Trainer:
                                    self.schedule.test_step, "test_ctr")
         lid = state[ctr] % n
         key = _step_key(state["eval_gen"])
-        batch, x, _ = self._sample_fetch(sampler, bank, lid, key)
+        batch, x, _ = self._sample_fetch(state, sampler, bank, lid, key)
         seeds = bank[lid * bs:(lid + 1) * bs]
         y = ybank[lid * bs:(lid + 1) * bs]
         model = state["model"]

@@ -7,6 +7,7 @@ The port's own random words are held by distribution. ``SampleBatch``
 parity injects JAX's per-hop candidates. Graphs are made with numpy.
 """
 
+import zlib
 from dataclasses import asdict
 
 import jax
@@ -25,7 +26,7 @@ from legion_tpu_torch.config import SamplerConfig
 from legion_tpu_torch.data.device_synthetic import synthesize_device_dataset
 from legion_tpu_torch.graph import DeviceCSR
 from legion_tpu_torch.sampling import access
-from legion_tpu_torch.sampling.sampler import NeighborSampler
+from legion_tpu_torch.sampling.sampler import INT32_MAX, NeighborSampler
 
 
 def _graph(seed=0, V=400, E=6000):
@@ -275,10 +276,11 @@ def test_draw_marginal_is_one_over_degree(graph, window):
 
 
 def _run_jax(jsampler, jaccess, seeds, key):
-    """JAX's batch (one jitted sample) and the per-hop frontiers and
-    candidates it drew (the same draws, recomputed per hop)."""
-    batch, _ = jsampler.sample(jaccess, jnp.asarray(seeds),
-                               jsampler.init_state(), key)
+    """JAX's batch (one jitted sample), the per-hop frontiers and
+    candidates it drew (the same draws, recomputed per hop) and its
+    sampler state after the batch."""
+    batch, state = jsampler.sample(jaccess, jnp.asarray(seeds),
+                                   jsampler.init_state(), key)
     draw = jax.jit(jaccess.sample_neighbors, static_argnums=1)
     ids, cum = np.asarray(batch.node_ids), np.asarray(batch.num_nodes)
     fronts, cands = [], []
@@ -291,29 +293,34 @@ def _run_jax(jsampler, jaccess, seeds, key):
         fronts.append(f)
         cands.append(np.array(draw(jnp.asarray(f), jsampler.config.fanouts[k],
                                    jax.random.fold_in(key, k))))
-    return batch, fronts, cands
+    return batch, fronts, cands, np.asarray(state)
 
 
+@pytest.mark.parametrize("dedup", ["sort", "map"])
 @pytest.mark.parametrize("aligned", [False, True])
 @pytest.mark.parametrize("caps", [None, (24, 40, 100)])
-def test_sample_batch_matches_jax(graph, aligned, caps):
+def test_sample_batch_matches_jax(graph, dedup, aligned, caps):
     """Given JAX's per-hop candidates, the port's SampleBatch is identical
-    (sort dedup; aligned last hop or not; worst-case sizes or tight caps
-    that drop the largest new ids)."""
+    (sort dedup or map dedup; aligned last hop or not; worst-case sizes or
+    tight caps that drop the largest new ids, or the last winners in lane
+    order); with map dedup the position map is JAX's after the batch, all
+    INT32_MAX."""
     g, csr = graph
-    kw = dict(fanouts=(5, 3), batch_size=24, dedup="sort",
+    kw = dict(fanouts=(5, 3), batch_size=24, dedup=dedup,
               neighbor_window=16, dedup_last_hop=not aligned,
               node_caps=caps)
     js, ps = JSampler(JSamplerConfig(**kw), g.num_nodes), \
         NeighborSampler(SamplerConfig(**kw), g.num_nodes)
-    assert ps.ids_len == js.ids_len
+    assert ps.ids_len == js.ids_len and ps.state_size == js.state_size
     rng = np.random.default_rng(7)
     seeds = rng.choice(np.flatnonzero(g.degrees() > 0), 24,
                        replace=False).astype(np.int32)
     seeds[-3:] = -1
-    jb, fronts, cands = _run_jax(js, JWindowed.from_csr(g.to_device(), 16),
-                                 seeds, jax.random.PRNGKey(3))
-    carry = ps.begin(torch.from_numpy(seeds))
+    jb, fronts, cands, jmap = _run_jax(
+        js, JWindowed.from_csr(g.to_device(), 16), seeds,
+        jax.random.PRNGKey(3))
+    pos_map = ps.init_state("cpu")
+    carry = ps.begin(torch.from_numpy(seeds), pos_map)
     for k in range(2):
         np.testing.assert_array_equal(ps.hop_frontier(carry, k).numpy(),
                                       fronts[k])
@@ -322,16 +329,120 @@ def test_sample_batch_matches_jax(graph, aligned, caps):
     if caps is not None:
         # the tight cap did bind: some new ids were dropped
         assert int(np.asarray(jb.num_nodes)[1]) == caps[1]
+    _assert_batches_equal(pb, jb)
+    np.testing.assert_array_equal(pos_map.numpy(), jmap)
+    assert np.all(jmap == INT32_MAX)
+
+
+def _assert_batches_equal(pb, jb):
     for name in ("node_ids", "num_nodes", "num_edges", "hop_offsets"):
         got = getattr(pb, name)
         assert got.dtype == torch.int32, name
         np.testing.assert_array_equal(got.numpy(),
                                       np.asarray(getattr(jb, name)), name)
-    for k in range(2):
+    for k in range(len(jb.edge_src)):
         np.testing.assert_array_equal(pb.edge_src[k].numpy(),
                                       np.asarray(jb.edge_src[k]))
         np.testing.assert_array_equal(pb.edge_dst[k].numpy(),
                                       np.asarray(jb.edge_dst[k]))
+
+
+@pytest.mark.parametrize("aligned", [False, True])
+@pytest.mark.parametrize("caps", [None, (24, 40, 100)])
+def test_position_map_cleared(graph, aligned, caps):
+    """Map dedup through ``sample`` (the port's own draws): the map is all
+    INT32_MAX after every batch, with tight caps that drop winners and
+    with an aligned last hop, whose lanes never touch it (the counterpart
+    of tests/test_sampler.py::test_position_map_cleared); the batch's ids
+    are distinct, and a map that is not given raises."""
+    g, csr = graph
+    ps = NeighborSampler(SamplerConfig(
+        fanouts=(5, 3), batch_size=24, neighbor_window=16,
+        dedup_last_hop=not aligned, node_caps=caps), g.num_nodes)
+    assert not ps.sort_dedup            # map is the default
+    acc = access.WindowedCSRAccess.from_csr(csr, 16)
+    pos_map = ps.init_state("cpu")
+    assert pos_map.shape == (g.num_nodes,)
+    rng = np.random.default_rng(8)
+    for step in range(3):
+        seeds = torch.from_numpy(rng.choice(g.num_nodes, 24, replace=False)
+                                 .astype(np.int32))
+        b = ps.sample(acc, seeds, 40 + step, pos_map=pos_map)
+        assert bool((pos_map == INT32_MAX).all()), step
+        deduped = b.node_ids[:ps.cum_caps[1] if aligned else ps.ids_len]
+        ids = deduped[deduped >= 0].numpy()
+        assert len(np.unique(ids)) == len(ids) > 24
+    with pytest.raises(ValueError, match="position map"):
+        ps.sample(acc, seeds, 0)
+
+
+def _edge_case(case, rng, V=5000, B=64, fanout=40):
+    """(seeds, candidates, node_caps) of one dedup edge case at hop 0: the
+    sorted entries (B + E = 2624) span three 1024-entry tiles."""
+    seeds = rng.choice(V, B, replace=False).astype(np.int32)
+    seeds[-5:] = -1
+    E = B * fanout
+    cand = rng.integers(0, V, E).astype(np.int32)
+    cand[rng.random(E) < 0.1] = -1
+    caps = None
+    if case == "one new id in every lane":
+        cand[:] = np.setdiff1d(np.arange(V), seeds)[7]
+    elif case == "one seed in every lane":
+        cand[:] = seeds[3]
+    elif case == "a run across a tile":
+        cand[rng.permutation(E)[:1500]] = np.setdiff1d(np.arange(V),
+                                                        seeds)[11]
+    elif case == "all pads":
+        cand[:] = -1
+    elif case == "a cap that binds mid-run":
+        # few distinct ids, long runs; room for 50 of about 100 new ids
+        cand = rng.choice(np.arange(0, V, 50), E).astype(np.int32)
+        caps = (B, B + 50)
+    elif case == "a cap equal to cum":
+        seeds[-5:] = rng.choice(np.setdiff1d(np.arange(V), seeds), 5,
+                                replace=False)
+        caps = (B, B)
+    elif case == "below one tile":
+        seeds, cand = seeds[:8].copy(), cand[:40].copy()
+        seeds[-1] = -1
+    return seeds, cand, caps
+
+
+@pytest.mark.parametrize("dedup", ["sort", "map"])
+@pytest.mark.parametrize("case", [
+    "random", "one new id in every lane", "one seed in every lane",
+    "a run across a tile", "all pads", "a cap that binds mid-run",
+    "a cap equal to cum", "below one tile"])
+def test_dedup_matches_jax_at_kernel_edges(dedup, case):
+    """One deduped hop (K8's plain version after the sort, or K9's plain
+    register, hop and clear) against JAX's ``begin`` / ``hop_absorb`` /
+    ``finish`` on injected candidates, exactly: ids, counts, edge lists and
+    the position map; at the edges of the kernels' tiles and caps."""
+    rng = np.random.default_rng(zlib.crc32(f"{dedup} {case}".encode()))
+    seeds, cand, caps = _edge_case(case, rng)
+    B, V = seeds.shape[0], 5000
+    kw = dict(fanouts=(cand.shape[0] // B,), batch_size=B, dedup=dedup,
+              node_caps=caps)
+    js, ps = JSampler(JSamplerConfig(**kw), V), \
+        NeighborSampler(SamplerConfig(**kw), V)
+    assert ps.ids_len == js.ids_len
+    jc = js.hop_absorb(js.begin(jnp.asarray(seeds), js.init_state()), 0,
+                       jnp.asarray(cand))
+    jb, jmap = js.finish(jc)
+    pos_map = ps.init_state("cpu")
+    pc = ps.hop_absorb(ps.begin(torch.from_numpy(seeds), pos_map), 0,
+                       torch.from_numpy(cand))
+    if dedup == "map":
+        np.testing.assert_array_equal(pc["pos_map"].numpy(),
+                                      np.asarray(jc["pos_map"]))
+    pb = ps.finish(pc)
+    _assert_batches_equal(pb, jb)
+    np.testing.assert_array_equal(pos_map.numpy(), np.asarray(jmap))
+    n = np.asarray(jb.num_nodes)
+    if case == "a cap that binds mid-run":
+        assert n[1] == B + 50
+    if case == "a cap equal to cum":
+        assert n[1] == n[0] == B
 
 
 def test_synthetic_graph_structure_and_presample():

@@ -77,14 +77,16 @@ def jax_dataset():
                      test_size=256, seed=1)
 
 
+@pytest.mark.parametrize("dedup", ["sort", "map"])
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
-def test_one_train_step_matches_jax(jax_dataset, compute_dtype):
+def test_one_train_step_matches_jax(jax_dataset, compute_dtype, dedup):
     """Same converted dataset, params and (injected) batch, dropout 0:
     the fetch, loss, gradients and Adam-updated params of the port's
-    train step equal the JAX pieces of train.py:601-623."""
+    train step equal the JAX pieces of train.py:601-623, for a batch of
+    either dedup mode."""
     jds = jax_dataset
     kw = dict(fanouts=(5, 3), batch_size=32, eval_batch_size=32,
-              dedup="sort", neighbor_window=16, dedup_last_hop=False,
+              dedup=dedup, neighbor_window=16, dedup_last_hop=False,
               node_caps=(32, 128, 0))
     tkw = dict(hidden_dim=256, dropout=0.0, lr=3e-3,
                compute_dtype=compute_dtype)
@@ -324,6 +326,43 @@ def test_trainer_steps_and_evaluates_on_cpu():
     assert len(stats) == 1 and np.isfinite(stats[0].train_loss)
     assert state["train_ctr"] == 3 + tr.schedule.train_step
     assert tr.epoch_metrics[0].edges > 0 and tr.test_acc is not None
+    assert kernels.LAUNCHES == {k: 0 for k in kernels.LAUNCHES}
+
+
+def test_default_map_dedup_trainer_steps_evaluates_and_fits_on_cpu():
+    """A SamplerConfig that does not name its dedup (so "map", Legion's
+    position map) builds a trainer that presamples, steps, evaluates and
+    fits on the CPU; the state's [V] map, shared by the train and eval
+    samplers, is all INT32_MAX between batches; no kernel was launched."""
+    ds = synthesize_device_dataset("cpu", num_nodes=3000, num_edges=60000,
+                                   feature_dim=100, num_classes=8,
+                                   batch_size=64, valid_size=256,
+                                   test_size=256)
+    cfg = replace(_tiny_config(ds), sampler=SamplerConfig(
+        fanouts=(25, 10), batch_size=64, eval_batch_size=64,
+        neighbor_window=64, dedup_last_hop=False, auto_compact=True,
+        cap_headroom=1.03))
+    assert cfg.sampler.dedup == "map"
+    kernels.reset_launch_counts()
+    tr = Trainer(ds, cfg, device="cpu")
+    assert not tr.sampler_t.sort_dedup and not tr.sampler_e.sort_dedup
+    state = tr.init_state()
+    pos_map = state["pos_map"]
+    assert pos_map.shape == (3000,) and pos_map.dtype == torch.int32
+
+    def clean():
+        return state["pos_map"] is pos_map and bool((pos_map == 2**31 - 1)
+                                                    .all())
+    assert clean()
+    for _ in range(3):
+        state, loss = tr.train_step(state)
+        assert np.isfinite(float(loss)) and int(tr.last_edges) > 0
+        assert clean()
+    state, acc = tr.run_eval(state, Mode.VALID)
+    assert 0.0 <= acc <= 1.0 and int(state["total"]) == 256 and clean()
+    state, stats = tr.fit(state, verbose=False)
+    assert np.isfinite(stats[0].train_loss) and tr.test_acc is not None
+    assert clean()
     assert kernels.LAUNCHES == {k: 0 for k in kernels.LAUNCHES}
 
 
