@@ -13,10 +13,12 @@ CUDA card, nvcc (``$CUDA_HOME`` or ``/usr/local/cuda``) and no network.
      time hidden (``queued_ms``) and in the host's own time per call
      (``host_us``); K2 at the main path's size under other skews of its
      segments; K2 and K3 at the edges of their shapes (``k2_edges``,
-     ``k3_edges``); K8 (sort dedup after the sort) and K9 (map dedup:
-     register, hop, clear) at hop 0 of the bench batch, bit for bit, timed
-     the same three ways, and at the edges of their shapes (``k8_edges``,
-     ``k9_edges``);
+     ``k3_edges``); an empty cooperative kernel with 0, 1 and 5 grid
+     barriers at K9's grid (``grid_sync``); K8 (sort dedup: its keys, and
+     everything after the sort) and K9 (map dedup: register, hop, clear, in
+     three calls and in the one cooperative call that the sampler makes)
+     at hop 0 of the bench batch, bit for bit, timed the same three ways,
+     and at the edges of their shapes (``k8_edges``, ``k9_edges``);
   3. drives the main path through the public API at the bench
      configuration (``bench.py`` defaults: 2.4M vertices, 120M edges,
      GraphSAGE [25,10], batch 8000, hidden 256, bf16 features, 64-wide
@@ -100,38 +102,39 @@ KERNELS = {
                        replaces="legion_tpu/models/gat.py:83"),
     "hop_attention": dict(source="legion_tpu_torch/csrc/hop_attention.cu",
                           replaces="legion_tpu/ops/hop_agg.py:95"),
+    "dedup_keys": dict(source="legion_tpu_torch/csrc/dedup_sort.cu",
+                       replaces="legion_tpu/sampling/sampler.py:250"),
     "dedup_sort": dict(source="legion_tpu_torch/csrc/dedup_sort.cu",
                        replaces="legion_tpu/sampling/sampler.py:222"),
     "dedup_map": dict(source="legion_tpu_torch/csrc/dedup_map.cu",
                       replaces="legion_tpu/sampling/sampler.py:190"),
 }
 # the names of the kernels' device functions, as the profiler lists them
-KERNEL_SYMBOLS = tuple(KERNELS) + tuple(
-    f"map_{k}_kernel" for k in ("register", "claim", "count", "assign",
-                                "read", "clear"))
+KERNEL_SYMBOLS = tuple(KERNELS) + ("map_register_kernel", "map_clear_kernel")
 # the kernels each path must launch, and the path whose launches the
 # kernel line reports
+SORT_DEDUP = ("dedup_keys", "dedup_sort")
 PATH_KERNELS = {
-    "device": ("gather_rows", "segment_sum", "windowed_draw", "dedup_sort"),
+    "device": ("gather_rows", "segment_sum", "windowed_draw") + SORT_DEDUP,
     "device-map": ("gather_rows", "segment_sum", "windowed_draw",
                    "dedup_map"),
-    "H": ("gather_rows", "segment_sum", "windowed_draw", "cached_gather",
-          "dedup_sort"),
-    "HT": ("gather_rows", "segment_sum", "cached_gather", "csr_draw",
-           "dedup_sort"),
-    "cache-off": ("gather_rows", "segment_sum", "windowed_draw",
-                  "dedup_sort"),
+    "H": ("gather_rows", "segment_sum", "windowed_draw", "cached_gather")
+    + SORT_DEDUP,
+    "HT": ("gather_rows", "segment_sum", "cached_gather", "csr_draw")
+    + SORT_DEDUP,
+    "cache-off": ("gather_rows", "segment_sum", "windowed_draw")
+    + SORT_DEDUP,
     "gat": ("gather_rows", "segment_sum", "windowed_draw", "gat_attend",
-            "gat_attend_bwd", "hop_attention", "hop_attention_bwd",
-            "dedup_sort"),
-    "gcn": ("gather_rows", "segment_sum", "windowed_draw", "dedup_sort"),
-    "lp_sage": ("gather_rows", "segment_sum", "windowed_draw", "dedup_sort"),
+            "gat_attend_bwd", "hop_attention", "hop_attention_bwd")
+    + SORT_DEDUP,
+    "gcn": ("gather_rows", "segment_sum", "windowed_draw") + SORT_DEDUP,
+    "lp_sage": ("gather_rows", "segment_sum", "windowed_draw") + SORT_DEDUP,
 }
 REPORTED_PATH = {"gather_rows": "device", "segment_sum": "device",
                  "windowed_draw": "device", "cached_gather": "H",
                  "csr_draw": "HT", "gat_attend": "gat",
-                 "hop_attention": "gat", "dedup_sort": "device",
-                 "dedup_map": "device-map"}
+                 "hop_attention": "gat", "dedup_keys": "device",
+                 "dedup_sort": "device", "dedup_map": "device-map"}
 # bench.py --model X: lp_sage batches divide into thirds, GCN dedups the
 # last hop exactly
 MODEL_SAMPLER = {"gat": {}, "gcn": dict(dedup_last_hop=True),
@@ -251,6 +254,21 @@ def launch_floor(torch):
     if not 0 < queued <= ms * 1.5:
         fail(f"launch_floor: queued {queued} ms against {ms} ms as launched")
     return queued
+
+
+def grid_sync(torch, blocks, what, floor):
+    """K9's yardstick: an empty cooperative kernel of ``blocks`` blocks of
+    256 threads (K9's grid for ``what``) with 0, 1 and 5 ``grid.sync()``
+    calls, queued (the card's own time), beside ``launch_floor``."""
+    from legion_tpu_torch.ops import kernels
+    if blocks <= 0:
+        fail(f"grid_sync: K9 cannot launch a cooperative grid for {what}")
+    q = {n: queued_ms(lambda: kernels.grid_sync_probe(n, blocks), torch, 200)
+         for n in (0, 1, 5)}
+    print(f"  grid_sync      {what}, {blocks} blocks: queued {q[0]:.4f} ms "
+          f"with no barrier, {q[1]:.4f} with 1, {q[5]:.4f} with 5 "
+          f"({(q[5] - q[0]) / 5 * 1e3:.2f} us a barrier) | launch_floor "
+          f"{floor:.4f} ms")
 
 
 def compare(name, kernel, plain, tol, results, torch, shape_note,
@@ -415,8 +433,10 @@ def bench_config(ds, cache_bytes=0, feature_residency="hbm",
 def phase_kernels(tr, torch):
     """Each kernel against its plain version at the main path's shapes
     (from one real batch) and at the JAX package's benchmark shapes."""
+    from dataclasses import replace
     from legion_tpu_torch.ops import kernels
     from legion_tpu_torch.sampling import access
+    from legion_tpu_torch.sampling.sampler import CLAIM_BASE, NeighborSampler
     s, acc = tr.sampler_t, tr.graph_access
     g = torch.Generator(device="cuda")
     g.manual_seed(1234)
@@ -432,6 +452,13 @@ def phase_kernels(tr, torch):
     batch = s.finish(carry)
 
     floor = launch_floor(torch)
+    sm = NeighborSampler(replace(s.config, dedup="map"), s.num_nodes)
+    for what, shape in (
+            ("the Device-map batch", (sm.edge_sizes[0],
+                                      s.config.batch_size, sm.touched_len)),
+            ("the card's resident limit", (CLAIM_BASE - 1, 0, 0))):
+        grid_sync(torch, kernels.lib().lt_dedup_map_grid(*shape), what,
+                  floor)
 
     # K3: bit for bit, both hops
     for f, fo, key in ((f0, 25, 5), (f1, 10, 6)):
@@ -548,8 +575,8 @@ def phase_kernels(tr, torch):
     dedup_edges(torch, results)
     # per train step: the sum over the main path's launches of a kernel
     # (K3: both hops; K1: feature fetch + layer-1 message gather; K2: the
-    # layer-1 backward; K8: hop 0; K9: register, hop 0 and the clear, on
-    # the device-map path)
+    # layer-1 backward; K8: hop 0's keys and its dedup; K9: the one call of
+    # the device-map path, register, hop 0 and the clear)
     add_main(results, main)
     return results
 
@@ -750,20 +777,75 @@ def k9_compare(note, seeds, cand, pos_map, cum, ids, cap, touched, results,
         main.setdefault("dedup_map", []).append(t)
 
 
+def k9_fused_compare(note, seeds, cand, pos_map, cum, ids, cap, clear_len,
+                     results, torch, main=None):
+    """K9 in one call, as ``NeighborSampler.sample`` makes it: the seeds'
+    registration, the hop and the clear of ids[:clear_len], on a map that
+    the unit leaves as it found it. Bit for bit against its plain
+    composition and against the three separate kernel calls (register,
+    hop, clear); then its times, bound, queued time and the host's time a
+    call, and those of the three calls beside them."""
+    from legion_tpu_torch.sampling import sampler as smp
+    bufs = {n: (pos_map.clone(), ids.clone())
+            for n in ("fused", "plain", "three calls")}
+
+    def unit(name):
+        pm, ib = bufs[name]
+        if name == "three calls":
+            smp.map_register(pm, seeds)
+            src, n = smp.dedup_map(cand, pm, cum, ib, cap)
+            smp.map_clear(pm, ib[:clear_len])
+        else:
+            fn = smp.dedup_map_fused if name == "fused" \
+                else smp.dedup_map_fused_plain
+            src, n = fn(cand, pm, cum, ib, cap, seeds, clear_len)
+        return src, n, ib, pm
+    outs = [unit(n) for n in bufs]
+    torch.cuda.synchronize()
+    for name, out in zip(list(bufs)[1:], outs[1:]):
+        if not all(exact(a, b)[1] for a, b in zip(outs[0], out)):
+            fail(f"dedup_map {note}: the fused call differs from {name}")
+    if not torch.equal(bufs["fused"][0], pos_map):
+        fail(f"dedup_map {note}: the call left the map changed")
+    n_new = int(outs[1][1])
+    touched = int((outs[1][2][:clear_len] >= 0).sum())
+    # cand, the map entries of its distinct ids read once; src_l, the new
+    # ids' entries and ids written; the seeds read and their entries
+    # written; ids[:clear_len] read and the valid ones' entries reset
+    least = bound(nb(cand) + 4 * distinct(cand) + 4 * cand.shape[0]
+                  + 8 * n_new + 8 * seeds.shape[0] + 4 * clear_len
+                  + 4 * touched)
+    t = compare("dedup_map", lambda: unit("fused"), lambda: unit("plain"),
+                tuple_tol(exact, exact, exact, exact), results, torch, note,
+                least=least, queued=True)
+    three = (cuda_ms(lambda: unit("three calls"), torch),
+             queued_ms(lambda: unit("three calls"), torch))
+    print(f"  dedup_map      {note}: {n_new} new ids | host_us_per_call "
+          f"{host_us(lambda: unit('fused'), torch, 200):.2f} | the three "
+          f"calls: {three[0]:.4f} ms, queued {three[1]:.4f} ms, "
+          f"host_us_per_call "
+          f"{host_us(lambda: unit('three calls'), torch, 200):.2f}")
+    if main is not None:
+        main.setdefault("dedup_map", []).append(t)
+
+
 def dedup_compares(tr, torch, results, main, gcn=False):
     """K8 and K9 at a path's shapes, from one real batch of ``tr`` (the
     Device trainer: hop 0, 8000 + 200,000 sorted entries and 200,000
     lanes; the GCN trainer: hop 1, 104,576 + 965,760 entries and 965,760
-    lanes). K9 samples the same batch with a map-dedup sampler of the same
-    configuration; at hop 1 its unit is the hop and the clear of that
-    hop's new ids."""
+    lanes). K8: its keys, then everything after the sort. K9 samples the
+    same batch with a map-dedup sampler of the same configuration; at hop 0
+    its unit is the registration, the hop and the clear of the batch, in
+    three calls and in the sampler's one call; at hop 1 the hop and the
+    clear of its new ids (three calls' unit without the first), and in one
+    call the registration of hop 0's ids (the map hop 0 leaves), the hop
+    and the clear of every id."""
     from dataclasses import replace
-    from legion_tpu_torch.sampling.sampler import (NeighborSampler,
-                                                   dedup_sort_keys)
+    from legion_tpu_torch.sampling import sampler as smp
     s, acc = tr.sampler_t, tr.graph_access
     seeds = tr.train_bank[:s.config.batch_size]
     fo = s.config.fanouts
-    sm = NeighborSampler(replace(s.config, dedup="map"), s.num_nodes)
+    sm = smp.NeighborSampler(replace(s.config, dedup="map"), s.num_nodes)
     for smp_, form in ((s, "sort"), (sm, "map")):
         pm = smp_.init_state("cuda")
         carry = smp_.begin(seeds, pm)
@@ -778,57 +860,100 @@ def dedup_compares(tr, torch, results, main, gcn=False):
         prefix = f"P {P} + " if form == "sort" else ""
         note = (f"{'GCN ' if gcn else ''}hop {k}: {prefix}E {cand.shape[0]} "
                 f"-> cap {cap}")
+        ids, E = carry["ids"], cand.shape[0]
         if form == "sort":
-            skey, stag = dedup_sort_keys(carry["ids"], cand, P)
-            # what stays torch before K8: the keys and their stable sort
-            keys = torch.empty_like(skey).scatter_(0, stag, skey)
-            t_keys = cuda_ms(lambda: dedup_sort_keys(carry["ids"], cand, P),
+            # the keys: ids[:P] and cand read, the keys written
+            t = compare("dedup_keys", lambda: smp.dedup_keys(ids, cand, P),
+                        lambda: smp.dedup_keys_plain(ids, cand, P), exact,
+                        results, torch, note,
+                        least=bound(4 * P + nb(cand) + 4 * (P + E)),
+                        queued=True)
+            print(f"  dedup_keys     {note}: host_us_per_call "
+                  f"{host_us(lambda: smp.dedup_keys(ids, cand, P), torch):.2f}")
+            if not gcn:
+                main.setdefault("dedup_keys", []).append(t)
+            keys = smp.dedup_keys(ids, cand, P)
+            skey, stag = smp.dedup_sort_keys(ids, cand, P)
+            # what stays torch before K8: the stable sort
+            t_keys = cuda_ms(lambda: smp.dedup_sort_keys(ids, cand, P),
                              torch)
             t_sort = cuda_ms(lambda: torch.sort(keys, stable=True), torch)
             print(f"  dedup_sort     {note}: before it, the keys and their "
                   f"sort {t_keys:.4f} ms; torch.sort(stable=True) of the "
                   f"{keys.shape[0]} keys alone {t_sort:.4f} ms")
-            k8_compare(note, skey, stag, P, carry["cum"], carry["ids"], cap,
+            k8_compare(note, skey, stag, P, carry["cum"], ids, cap,
                        results, torch, None if gcn else main)
         elif gcn:
             cum = carry["cum"]
+            n0 = int(cum)
             k9_compare(note + ", hop + clear of its new ids", None, cand, pm,
-                       cum, carry["ids"], cap, slice(int(cum), cap), results,
-                       torch)
+                       cum, ids, cap, slice(n0, cap), results, torch)
+            k9_fused_compare(
+                note + f", one call: register hop 0's {n0} ids + hop + "
+                f"clear of all {sm.touched_len}", ids[:n0].clone(), cand,
+                sm.init_state("cuda"), cum, ids, cap, sm.touched_len,
+                results, torch)
         else:
             k9_compare(note + ", register + hop + clear", seeds, cand,
-                       smp_.init_state("cuda"), carry["cum"], carry["ids"],
-                       cap, slice(0, cap), results, torch, main)
+                       smp_.init_state("cuda"), carry["cum"], ids, cap,
+                       slice(0, cap), results, torch)
+            k9_fused_compare(note + ", the same in one call", seeds, cand,
+                             smp_.init_state("cuda"), carry["cum"], ids,
+                             cap, sm.touched_len, results, torch, main)
         del carry
     torch.cuda.synchronize()
 
 
 def dedup_edge_case(case, rng, torch):
-    """(seeds, candidates, node_caps, V) of one edge case of K8/K9 at hop
-    0, on the card. Tiles hold 1024 sorted entries (K8) or lanes (K9)."""
+    """(seeds, candidates, node_caps, V, cap) of one edge case of K8/K9 at
+    hop 0, on the card; cap overrides the hop's cap where it is not None.
+    Tiles hold 2048 sorted entries (K8) or 1024 lanes (K9)."""
     import numpy as np
-    V, B, fo = 5000, 64, 40
+    V, B, fo, cap = 5000, 64, 40, None
     if case == "a hub of 10,477 in 200,000 lanes":
         V, B, fo = 300_000, 8000, 25
-    elif case == "exactly one tile":
-        B, fo = 32, 31                       # 32 + 992 = 1024 entries
-    elif case == "one past a tile":
-        B, fo = 25, 40                       # 25 + 1000 = 1025 entries
+    elif case == "exactly one K8 tile":
+        B, fo = 32, 63                       # 32 + 2016 = 2048 entries
+    elif case == "one past a K8 tile":
+        B, fo = 683, 2                       # 683 + 1366 = 2049 entries
+    elif case == "exactly one K9 tile":
+        B, fo = 32, 32                       # 1024 lanes
     elif case == "below one tile":
         B, fo = 8, 5
+    elif case in ("a new id over 66 tiles", "a seed over 66 tiles"):
+        fo = 2100                            # 64 + 134,400 entries
+    elif case == "3,000,000 lanes, more tiles than the grid":
+        V, B, fo = 4_000_000, 1000, 3000
+    elif case == "M = 1: one seed, no lanes":
+        B, fo = 1, 0
+    elif case == "E = 0":
+        fo = 0
     seeds = rng.choice(V, B, replace=False).astype(np.int32)
-    seeds[-max(1, B // 12):] = -1
+    if B > 1:
+        seeds[-max(1, B // 12):] = -1
     E = B * fo
     cand = rng.integers(0, V, E).astype(np.int32)
     cand[rng.random(E) < 0.1] = -1
-    fresh = np.setdiff1d(np.arange(V), seeds)
+    fresh = np.setdiff1d(np.arange(min(V, 100_000)), seeds)
     caps = None
-    if case == "one new id in every lane":
+    if case in ("one new id in every lane", "a new id over 66 tiles"):
         cand[:] = fresh[7]
-    elif case == "one seed in every lane":
+    elif case in ("one seed in every lane", "a seed over 66 tiles"):
         cand[:] = seeds[3]
     elif case == "a run across a tile":
         cand[rng.permutation(E)[:1500]] = fresh[11]
+    elif case == "a run starting in a tile's last entry":
+        # 2047 valid keys below 2000, then 300 lanes of 2000: the run
+        # starts at sorted entry 2047, the last of K8's tile 0
+        seeds[:-5] = rng.choice(1000, B - 5, replace=False)
+        low = rng.integers(0, 1000, 2047 - (B - 5))
+        high = rng.integers(2001, V, E - low.shape[0] - 300)
+        high[rng.random(high.shape[0]) < 0.1] = -1
+        cand = rng.permutation(np.concatenate(
+            [low, np.full(300, 2000), high])).astype(np.int32)
+    elif case == "only seeds and pads: no new id":
+        cand = rng.choice(seeds[seeds >= 0], E).astype(np.int32)
+        cand[rng.random(E) < 0.2] = -1
     elif case == "all pads":
         cand[:] = -1
     elif case == "a cap that binds mid-run":
@@ -837,6 +962,8 @@ def dedup_edge_case(case, rng, torch):
     elif case == "a cap equal to cum":
         seeds[:] = rng.choice(V, B, replace=False)
         caps = (B, B)
+    elif case == "cap 0":
+        cap = 0
     elif case == "repeated seeds, pads among them":
         seeds[5:9] = seeds[1]
         seeds[12:15] = -1
@@ -845,39 +972,55 @@ def dedup_edge_case(case, rng, torch):
     elif case == "a hub of 10,477 in 200,000 lanes":
         cand[rng.permutation(E)[:10_477]] = fresh[3]
     return (torch.from_numpy(seeds).cuda(), torch.from_numpy(cand).cuda(),
-            caps, V)
+            caps, V, cap)
 
 
 DEDUP_EDGE_CASES = (
     "random", "one new id in every lane", "one seed in every lane",
     "a run across a tile", "all pads", "a cap that binds mid-run",
-    "a cap equal to cum", "below one tile", "exactly one tile",
-    "one past a tile", "repeated seeds, pads among them",
-    "ids at and past V", "a hub of 10,477 in 200,000 lanes")
+    "a cap equal to cum", "below one tile", "exactly one K8 tile",
+    "one past a K8 tile", "exactly one K9 tile",
+    "repeated seeds, pads among them", "ids at and past V",
+    "a hub of 10,477 in 200,000 lanes", "a new id over 66 tiles",
+    "a seed over 66 tiles",
+    "a run starting in a tile's last entry",
+    "only seeds and pads: no new id", "cap 0", "M = 1: one seed, no lanes",
+    "E = 0", "3,000,000 lanes, more tiles than the grid")
 
 
 def dedup_edges(torch, results):
     """K8 (``k8_edges``) and K9 (``k9_edges``) at the edges of their shapes,
     bit for bit against their plain versions, one deduped hop each from
-    ``begin``: every case of ``DEDUP_EDGE_CASES`` (runs across tiles, caps
-    that bind or leave no room, M below, at and one past a tile, pads,
-    repeated seeds, ids past V, a 200,000-lane hub); K8 with int64 tags
-    (``torch.sort``'s) and int32 tags; K9 register, hop, the map between,
-    and the clear."""
+    ``begin``: every case of ``DEDUP_EDGE_CASES`` (runs across tiles and
+    over 66 tiles, a run that starts in a tile's last entry, no new id,
+    caps that bind, leave no room or are 0, M below, at and one past a
+    tile, M = 1, E = 0, pads, repeated seeds, ids past V, a 200,000-lane
+    hub, 3,000,000 lanes: more tiles than K9's grid has blocks); K8's keys,
+    and K8 with int64 tags (``torch.sort``'s) and int32 tags; K9's three
+    calls (register, hop, the map between, clear), and its one fused call
+    with the registration on and off and the clear on and off, against
+    its plain composition and the three calls. The map must be clean after
+    every clear (but where seeds repeat with pads among them, which JAX
+    leaves unclean too)."""
     import numpy as np
     from legion_tpu_torch.config import SamplerConfig
     from legion_tpu_torch.sampling import sampler as smp
     rng = np.random.default_rng(17)
-    n8 = n9 = 0
+    n8 = n9 = nf = 0
     for case in DEDUP_EDGE_CASES:
-        seeds, cand, caps, V = dedup_edge_case(case, rng, torch)
+        seeds, cand, caps, V, cap_o = dedup_edge_case(case, rng, torch)
         B = seeds.shape[0]
         cfg = SamplerConfig(fanouts=(cand.shape[0] // B,), batch_size=B,
                             dedup="sort", node_caps=caps)
         s = smp.NeighborSampler(cfg, V)
-        P, cap = s.cum_caps[0], s.cum_caps[1]
+        P = s.cum_caps[0]
+        cap = s.cum_caps[1] if cap_o is None else cap_o
         carry = s.begin(seeds)
-        skey, stag = smp.dedup_sort_keys(carry["ids"], cand, P)
+        keys = smp.dedup_keys(carry["ids"], cand, P)
+        if not exact(keys, smp.dedup_keys_plain(carry["ids"], cand, P))[1]:
+            fail(f"dedup_keys edge {case}: kernel differs from its plain "
+                 "version")
+        skey, stag = torch.sort(keys, stable=True)
         for tags in (stag, stag.int()):
             ids_k, ids_p = carry["ids"].clone(), carry["ids"].clone()
             k = smp.dedup_sort(skey, tags, P, carry["cum"], ids_k, cap)
@@ -891,6 +1034,7 @@ def dedup_edges(torch, results):
         sm = smp.NeighborSampler(SamplerConfig(
             fanouts=cfg.fanouts, batch_size=B, dedup="map", node_caps=caps),
             V)
+        clean = case != "repeated seeds, pads among them"
         out = []
         for reg, hop, clr in ((smp.map_register, smp.dedup_map,
                                smp.map_clear),
@@ -899,24 +1043,56 @@ def dedup_edges(torch, results):
             pm, ids = sm.init_state("cuda"), ids0[:sm.ids_len].clone()
             reg(pm, seeds)
             after_reg = pm.clone()
-            src, n = hop(cand, pm, carry["cum"], ids, sm.cum_caps[1])
+            src, n = hop(cand, pm, carry["cum"], ids, cap)
             mid = pm.clone()
-            clr(pm, ids[:sm.cum_caps[1]])
+            clr(pm, ids[:sm.touched_len])
             out.append((after_reg, src, n, ids, mid, pm))
         if not all(exact(a, b)[1] for a, b in zip(*out)):
             fail(f"dedup_map edge {case}: kernel differs from its plain "
                  f"version")
-        if case != "repeated seeds, pads among them" and \
-                not bool((out[0][-1] == 2 ** 31 - 1).all()):
+        if clean and not bool((out[0][-1] == 2 ** 31 - 1).all()):
             fail(f"dedup_map edge {case}: the map is not clean after the "
                  "clear")
         n9 += 1
+        for with_reg in (True, False):
+            for with_clear in (True, False):
+                clear_len = sm.touched_len if with_clear else 0
+                forms = []
+                for form in ("fused", "plain", "three calls"):
+                    pm, ids = sm.init_state("cuda"), ids0[:sm.ids_len].clone()
+                    if not with_reg:
+                        smp.map_register_plain(pm, seeds)
+                    sd = seeds if with_reg else None
+                    if form == "three calls":
+                        if with_reg:
+                            smp.map_register(pm, seeds)
+                        src, n = smp.dedup_map(cand, pm, carry["cum"], ids,
+                                               cap)
+                        smp.map_clear(pm, ids[:clear_len])
+                    else:
+                        fn = smp.dedup_map_fused if form == "fused" \
+                            else smp.dedup_map_fused_plain
+                        src, n = fn(cand, pm, carry["cum"], ids, cap, sd,
+                                    clear_len)
+                    forms.append((src, n, ids, pm))
+                for name, f in zip(("plain", "three calls"), forms[1:]):
+                    if not all(exact(a, b)[1] for a, b in zip(forms[0], f)):
+                        fail(f"dedup_map edge {case}, register {with_reg}, "
+                             f"clear {with_clear}: the fused call differs "
+                             f"from {name}")
+                if with_clear and clean and not bool(
+                        (forms[0][3] == 2 ** 31 - 1).all()):
+                    fail(f"dedup_map edge {case}, register {with_reg}: the "
+                         "map is not clean after the fused call")
+                nf += 1
     torch.cuda.synchronize()
     what = ", ".join(DEDUP_EDGE_CASES)
-    print(f"  dedup_sort     k8_edges: {n8} edge cases ({what}; int64 and "
-          f"int32 tags): all exact")
-    print(f"  dedup_map      k9_edges: {n9} edge cases ({what}; register, "
-          f"hop, the map between, clear): all exact")
+    print(f"  dedup_sort     k8_edges: {n8} edge cases ({what}; the keys; "
+          f"int64 and int32 tags): all exact")
+    print(f"  dedup_map      k9_edges: {n9} edge cases of the three calls "
+          f"(register, hop, the map between, clear) and {nf} of the fused "
+          f"call (register on and off, clear on and off; against its plain "
+          f"composition and the three calls): all exact")
 
 
 def k2_gcn_compare(tr, torch, results):
@@ -1005,10 +1181,15 @@ def phase_slice(tr, torch, path):
     for name in PATH_KERNELS[path]:
         if counts[name] <= 0:
             fail(f"kernel {name} was not launched on the {path} path")
-    # the other dedup mode's kernel never runs, and the map is clean
-    other = "dedup_sort" if path == "device-map" else "dedup_map"
-    if counts[other]:
-        fail(f"{path}: {other} launched {counts[other]} times")
+    # the other dedup mode's kernels never run, map dedup with an aligned
+    # last hop is one call (one launch) a batch, and the map is clean
+    others = SORT_DEDUP if path == "device-map" else ("dedup_map",)
+    for other in others:
+        if counts[other]:
+            fail(f"{path}: {other} launched {counts[other]} times")
+    if path == "device-map" and per_step["dedup_map"] != 1:
+        fail(f"device-map: {per_step['dedup_map']} dedup_map calls a train "
+             "step, not 1")
     if not tr.sampler_t.sort_dedup and not bool(
             (state["pos_map"] == 2 ** 31 - 1).all()):
         fail(f"{path}: the position map is not clean after the steps and "

@@ -21,12 +21,15 @@ kernel (its launches counted under ``<name>_bwd``); K7's plain version
 lives with its caller in ``ops/hop_agg.py``.
 K3 ``windowed_draw`` and K5 ``csr_draw`` live with their callers in
 ``sampling/access.py``, K4 ``cached_gather`` in ``cache/unified_cache.py``,
-K8 ``dedup_sort`` (sort dedup after its sort) and K9 ``dedup_map`` (the
+K8 ``dedup_sort`` (sort dedup around its sort: the keys, counted under
+``dedup_keys``, and everything after the sort) and K9 ``dedup_map`` (the
 position map: seed registration, a hop's claim, rank and read-back, the
-clear; all counted under ``dedup_map``) in ``sampling/sampler.py``;
+clear, or all of them in one cooperative launch; every call counted under
+``dedup_map``) in ``sampling/sampler.py``;
 host-memory registration for K4 and K5 is ``ops/host_memory.py``. The
 headers of ``csrc/*.cu`` say what bounds each kernel on the card.
-``noop`` launches an empty kernel, the yardstick of a launch's cost.
+``noop`` launches an empty kernel, the yardstick of a launch's cost, and
+``grid_sync_probe`` an empty cooperative one with grid barriers, K9's.
 """
 
 from __future__ import annotations
@@ -48,6 +51,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
+# K9's grid.sync() (cooperative groups) needs a cooperative launch and no
+# further flag: no -rdc since CUDA 11
 NVCC_FLAGS = GENCODE + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                         "-Xptxas", "-v")
 
@@ -57,8 +62,8 @@ LAUNCHES: Dict[str, int] = {"gather_rows": 0, "segment_sum": 0,
                             "windowed_draw": 0, "cached_gather": 0,
                             "csr_draw": 0, "gat_attend": 0,
                             "gat_attend_bwd": 0, "hop_attention": 0,
-                            "hop_attention_bwd": 0, "dedup_sort": 0,
-                            "dedup_map": 0}
+                            "hop_attention_bwd": 0, "dedup_keys": 0,
+                            "dedup_sort": 0, "dedup_map": 0}
 
 
 def reset_launch_counts() -> None:
@@ -159,12 +164,17 @@ def lib() -> ctypes.CDLL:
     so.lt_host_unregister.argtypes = [p]
     so.lt_host_read_probe.argtypes = [p, i64, i64, p, i64, i32, p, p]
     so.lt_host_word_probe.argtypes = [p, p, i64, p, p]
+    so.lt_dedup_keys.argtypes = [p, i64, p, i64, p, p]
     so.lt_dedup_sort.argtypes = [p, p, i32, i64, i64, p, i32, p, i64, p, p,
                                  p, p]
     so.lt_map_register.argtypes = [p, i64, p, i64, p]
     so.lt_map_clear.argtypes = [p, i64, p, i64, p]
     so.lt_dedup_map.argtypes = [p, i64, p, i64, p, i32, p, p, p, p, p]
+    so.lt_dedup_map_fused.argtypes = [p, i64, p, i64, p, i64, p, i32, p, p,
+                                      p, i64, p, p]
+    so.lt_dedup_map_grid.argtypes = [i64, i64, i64]
     so.lt_noop.argtypes = [p]
+    so.lt_grid_sync_probe.argtypes = [i32, i32, p]
     for fn in (so.lt_noop, so.lt_gather_rows, so.lt_segment_sum_f32,
                so.lt_segment_sum_bf16, so.lt_windowed_draw_i32,
                so.lt_windowed_draw_i64, so.lt_cached_gather,
@@ -172,8 +182,10 @@ def lib() -> ctypes.CDLL:
                so.lt_host_unregister, so.lt_host_read_probe,
                so.lt_host_word_probe, so.lt_gat_attend_fwd,
                so.lt_gat_attend_bwd, so.lt_hop_attention_fwd,
-               so.lt_hop_attention_bwd, so.lt_dedup_sort,
-               so.lt_map_register, so.lt_map_clear, so.lt_dedup_map):
+               so.lt_hop_attention_bwd, so.lt_dedup_keys, so.lt_dedup_sort,
+               so.lt_map_register, so.lt_map_clear, so.lt_dedup_map,
+               so.lt_dedup_map_fused, so.lt_dedup_map_grid,
+               so.lt_grid_sync_probe):
         fn.restype = ctypes.c_int
     so.lt_error_string.argtypes = [ctypes.c_int]
     so.lt_error_string.restype = ctypes.c_char_p
@@ -197,14 +209,25 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
+def _check_probe(name: str, rc: int) -> None:
+    if rc != 0:
+        msg = lib().lt_error_string(rc).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg} ({rc})")
+
+
 def noop() -> None:
     """Launch the empty kernel (``csrc/noop.cu``) on the current stream:
     the yardstick for what one launch through this ctypes route costs.
     On no path, and not counted in ``LAUNCHES``."""
-    rc = lib().lt_noop(stream_handle())
-    if rc != 0:
-        msg = lib().lt_error_string(rc).decode()
-        raise RuntimeError(f"noop kernel launch failed: {msg} ({rc})")
+    _check_probe("noop", lib().lt_noop(stream_handle()))
+
+
+def grid_sync_probe(n_syncs: int, blocks: int) -> None:
+    """Launch the empty cooperative kernel (``csrc/noop.cu``) of ``blocks``
+    blocks that calls ``grid.sync()`` ``n_syncs`` times: the yardstick of
+    K9's launch and barriers. On no path, not counted in ``LAUNCHES``."""
+    _check_probe("grid_sync_probe", lib().lt_grid_sync_probe(
+        n_syncs, blocks, stream_handle()))
 
 
 # ---------------------------------------------------------------------------

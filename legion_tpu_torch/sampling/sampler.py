@@ -17,10 +17,12 @@ candidates), new ids ranked in ascending id order. The two give the same
 sets in different position orders.
 
 The kernels: K9 ``dedup_map`` (``csrc/dedup_map.cu``: seed registration,
-a hop's claim / rank / resolve / read-back, the clear) and K8
-``dedup_sort`` (``csrc/dedup_sort.cu``: everything after the sort). Their
-wrappers and plain versions live here; a wrapper runs the plain version
-for CPU tensors only.
+a hop's claim / rank / resolve / read-back, the clear; ``sample`` folds a
+batch's registration and clear into its first and last map-deduped hops,
+so that a batch with a lane-aligned last hop is one cooperative launch)
+and K8 ``dedup_sort`` (``csrc/dedup_sort.cu``: the sort's keys, then
+everything after the sort in one pass). Their wrappers and plain versions
+live here; a wrapper runs the plain version for CPU tensors only.
 
 Dynamic offsets (the frontier slice, the compacted-block write) are index
 tensors ``offset + arange(width)`` or pointers read by a kernel, never
@@ -44,8 +46,9 @@ INT32_MAX = 2 ** 31 - 1
 INT32_MIN = -2 ** 31
 # position-map claim tags live above any valid local index (ids_len < 2**30)
 CLAIM_BASE = 1 << 30
-# entries of a tile of the dedup kernels (csrc/dedup.cuh::kTile)
-_DEDUP_TILE = 1024
+# entries of a tile of K9 (csrc/dedup.cuh::kTile) and of K8
+# (csrc/dedup_sort.cu::kSortTile)
+_MAP_TILE, _SORT_TILE = 1024, 2048
 
 
 @dataclass
@@ -91,24 +94,53 @@ def _cuda_args(name: str, *tensors: torch.Tensor) -> bool:
     return True
 
 
-def _tiles(n: int) -> int:
-    """Tiles of the dedup kernels over n entries (at least one)."""
-    return max(1, -(-n // _DEDUP_TILE))
+def _tiles(n: int, tile: int) -> int:
+    """Tiles of a dedup kernel over n entries (at least one)."""
+    return max(1, -(-n // tile))
 
 
 def _outputs(E: int, n_scratch: int, device
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """src_l [E], n_new [] and the kernel's scratch, int32, carved from
     one allocation (the host's time a call counts: the step is
-    host-bound)."""
-    buf = torch.empty((E + 1 + n_scratch,), dtype=torch.int32,
+    host-bound). The scratch comes first, at the allocation's aligned
+    start: the kernels keep 64-bit tile words there."""
+    buf = torch.empty((n_scratch + E + 1,), dtype=torch.int32,
                       device=device)
-    return buf[:E], buf[E], buf[E + 1:]
+    return buf[n_scratch:n_scratch + E], buf[n_scratch + E], buf[:n_scratch]
 
 
 # ---------------------------------------------------------------------------
 # K8 dedup_sort: everything after the sort of sort dedup
 # ---------------------------------------------------------------------------
+
+def dedup_keys_plain(ids: torch.Tensor, cand: torch.Tensor, P: int
+                     ) -> torch.Tensor:
+    """Plain K8 keys (``legion_tpu/sampling/sampler.py:250-254``): the
+    assigned prefix ids[:P] ++ the candidates, INT32_MAX for pads."""
+    imax = _i32(INT32_MAX, cand.device)
+    prefix = ids[:P]
+    return torch.cat([torch.where(prefix >= 0, prefix, imax),
+                      torch.where(cand >= 0, cand, imax)])
+
+
+def dedup_keys(ids: torch.Tensor, cand: torch.Tensor, P: int
+               ) -> torch.Tensor:
+    """K8's key build, as ``dedup_keys_plain``: one kernel in place of two
+    ``where`` and a ``cat``. ids [>= P] and cand [E] int32."""
+    _check_i32("dedup_keys", ids, cand)
+    if not 0 <= P <= ids.shape[0]:
+        raise ValueError(f"dedup_keys: P {P}, ids {ids.shape[0]}")
+    if not _cuda_args("dedup_keys", ids, cand):
+        return dedup_keys_plain(ids, cand, P)
+    keys = torch.empty((P + cand.shape[0],), dtype=torch.int32,
+                       device=cand.device)
+    rc = kernels.lib().lt_dedup_keys(ids.data_ptr(), P, cand.data_ptr(),
+                                     cand.shape[0], keys.data_ptr(),
+                                     kernels.stream_handle())
+    kernels.check("dedup_keys", rc)
+    return keys
+
 
 def dedup_sort_keys(ids: torch.Tensor, cand: torch.Tensor, P: int
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -116,11 +148,7 @@ def dedup_sort_keys(ids: torch.Tensor, cand: torch.Tensor, P: int
     candidates, INT32_MAX for pads) and their tags. Tag < P: the existing
     entry at position tag; tag >= P: lane tag - P. A stable sort puts each
     id's authority first (the existing entry, else the lowest lane)."""
-    imax = _i32(INT32_MAX, cand.device)
-    prefix = ids[:P]
-    keys = torch.cat([torch.where(prefix >= 0, prefix, imax),
-                      torch.where(cand >= 0, cand, imax)])
-    return torch.sort(keys, stable=True)
+    return torch.sort(dedup_keys(ids, cand, P), stable=True)
 
 
 def dedup_sort_plain(skey: torch.Tensor, stag: torch.Tensor, P: int,
@@ -193,7 +221,9 @@ def dedup_sort(skey: torch.Tensor, stag: torch.Tensor, P: int,
     if not _cuda_args("dedup_sort", skey, stag, cum, ids):
         return dedup_sort_plain(skey, stag, P, cum, ids, cap_k)
     E_k = M - P
-    src_l, n_new, scratch = _outputs(E_k, 2 * _tiles(M), skey.device)
+    # the tiles' 64-bit status words and the ticket
+    src_l, n_new, scratch = _outputs(E_k, 2 * (_tiles(M, _SORT_TILE) + 1),
+                                     skey.device)
     rc = kernels.lib().lt_dedup_sort(
         skey.data_ptr(), stag.data_ptr(), int(stag.dtype == torch.int64), M,
         P, cum.data_ptr(), cap_k, ids.data_ptr(), ids.shape[0],
@@ -285,25 +315,75 @@ def dedup_map_plain(cand: torch.Tensor, pos_map: torch.Tensor,
     return torch.where(src_l == INT32_MAX, _i32(-1, dev), src_l), n_new
 
 
+def _check_map_hop(name: str, cand: torch.Tensor, pos_map: torch.Tensor,
+                   cum: torch.Tensor, ids: torch.Tensor, cap_k: int) -> None:
+    _check_i32(name, cand, pos_map, cum, ids)
+    E = cand.shape[0]
+    if E >= CLAIM_BASE or cum.numel() != 1 or cap_k > ids.shape[0]:
+        raise ValueError(f"{name}: E {E}, cum {tuple(cum.shape)}, cap "
+                         f"{cap_k}, ids {ids.shape[0]}")
+
+
 def dedup_map(cand: torch.Tensor, pos_map: torch.Tensor, cum: torch.Tensor,
               ids: torch.Tensor, cap_k: int
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K9's hop, as ``dedup_map_plain``: claim, count, assign (rank,
-    positions, ids, the unkept winners' reset, n_new) and read-back, four
-    kernels in one call. cum is an int32 scalar on the device, read by the
-    kernels; cap_k <= ids.shape[0]."""
-    _check_i32("dedup_map", cand, pos_map, cum, ids)
-    E = cand.shape[0]
-    if E >= CLAIM_BASE or cum.numel() != 1 or cap_k > ids.shape[0]:
-        raise ValueError(f"dedup_map: E {E}, cum {tuple(cum.shape)}, cap "
-                         f"{cap_k}, ids {ids.shape[0]}")
+    """K9's hop, as ``dedup_map_plain``: claim, rank, assign (positions,
+    ids, the unkept winners' reset, n_new) and read-back in one
+    cooperative launch. cum is an int32 scalar on the device, read by the
+    kernel; cap_k <= ids.shape[0]."""
+    _check_map_hop("dedup_map", cand, pos_map, cum, ids, cap_k)
     if not _cuda_args("dedup_map", cand, pos_map, cum, ids):
         return dedup_map_plain(cand, pos_map, cum, ids, cap_k)
-    src_l, n_new, scratch = _outputs(E, _tiles(E), cand.device)
+    E = cand.shape[0]
+    src_l, n_new, scratch = _outputs(E, 2 * _tiles(E, _MAP_TILE), cand.device)
     rc = kernels.lib().lt_dedup_map(
         cand.data_ptr(), E, pos_map.data_ptr(), pos_map.shape[0],
         cum.data_ptr(), cap_k, ids.data_ptr(), src_l.data_ptr(),
         n_new.data_ptr(), scratch.data_ptr(), kernels.stream_handle())
+    kernels.check("dedup_map", rc)
+    return src_l, n_new
+
+
+def dedup_map_fused_plain(cand: torch.Tensor, pos_map: torch.Tensor,
+                          cum: torch.Tensor, ids: torch.Tensor, cap_k: int,
+                          seeds: Optional[torch.Tensor] = None,
+                          clear_len: int = 0
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain K9 of one call of ``sample``: ``map_register_plain(seeds)``
+    when seeds are given, the hop (``dedup_map_plain``), then
+    ``map_clear_plain(ids[:clear_len])``."""
+    if seeds is not None:
+        map_register_plain(pos_map, seeds)
+    src_l, n_new = dedup_map_plain(cand, pos_map, cum, ids, cap_k)
+    map_clear_plain(pos_map, ids[:clear_len])
+    return src_l, n_new
+
+
+def dedup_map_fused(cand: torch.Tensor, pos_map: torch.Tensor,
+                    cum: torch.Tensor, ids: torch.Tensor, cap_k: int,
+                    seeds: Optional[torch.Tensor] = None, clear_len: int = 0
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K9 as ``dedup_map_fused_plain``: the seeds' registration (when
+    given), the hop, and the clear of ids[:clear_len] (when clear_len >
+    0), in one cooperative launch. A launch the card refuses raises."""
+    _check_map_hop("dedup_map", cand, pos_map, cum, ids, cap_k)
+    if not 0 <= clear_len <= ids.shape[0]:
+        raise ValueError(f"dedup_map: clear_len {clear_len}, ids "
+                         f"{ids.shape[0]}")
+    if seeds is not None:
+        _check_i32("dedup_map", seeds, cand)
+    with_seeds = (cand,) if seeds is None else (cand, seeds)
+    if not _cuda_args("dedup_map", *with_seeds, pos_map, cum, ids):
+        return dedup_map_fused_plain(cand, pos_map, cum, ids, cap_k, seeds,
+                                     clear_len)
+    E = cand.shape[0]
+    src_l, n_new, scratch = _outputs(E, 2 * _tiles(E, _MAP_TILE), cand.device)
+    rc = kernels.lib().lt_dedup_map_fused(
+        None if seeds is None else seeds.data_ptr(),
+        0 if seeds is None else seeds.shape[0], cand.data_ptr(), E,
+        pos_map.data_ptr(), pos_map.shape[0], cum.data_ptr(), cap_k,
+        ids.data_ptr(), src_l.data_ptr(), n_new.data_ptr(), clear_len,
+        scratch.data_ptr(), kernels.stream_handle())
     kernels.check("dedup_map", rc)
     return src_l, n_new
 
@@ -358,6 +438,12 @@ class NeighborSampler:
         if self.ids_len >= CLAIM_BASE or max(self.edge_sizes) >= CLAIM_BASE:
             raise ValueError(f"ids_len {self.ids_len} and edge sizes "
                              f"{self.edge_sizes} must stay below 2**30")
+        # map dedup: the hops that go through the map (an aligned last hop
+        # never does), and the prefix of ids whose entries a batch touches
+        self.map_hops = () if self.sort_dedup else tuple(
+            k for k in range(L) if not (self.aligned_last and k == L - 1))
+        self.touched_len = self.cum_caps[L - 1] if self.aligned_last \
+            else self.ids_len
 
     @property
     def state_size(self) -> int:
@@ -384,6 +470,13 @@ class NeighborSampler:
               pos_map: Optional[torch.Tensor] = None) -> dict:
         """Register seeds (map dedup: into ``pos_map``, which must be
         clean) and build the hop-loop carry."""
+        return self._begin(seeds, pos_map, register=True)
+
+    def _begin(self, seeds: torch.Tensor, pos_map: Optional[torch.Tensor],
+               register: bool) -> dict:
+        """``begin``; with ``register`` False (``sample``) the seeds, which
+        the carry holds at ids[:batch_size], are registered by the first
+        map-deduped hop's call."""
         batch_size = self.config.batch_size
         if tuple(seeds.shape) != (batch_size,):
             raise ValueError(f"seeds {tuple(seeds.shape)} != ({batch_size},)")
@@ -396,7 +489,8 @@ class NeighborSampler:
                     "map dedup needs its [V] position map on the seeds' "
                     f"device (sampler.init_state); got "
                     f"{None if pos_map is None else tuple(pos_map.shape)}")
-            map_register(pos_map, seeds.contiguous())
+            if register:
+                map_register(pos_map, seeds.contiguous())
         ids = torch.full((self.ids_len,), -1, dtype=torch.int32, device=dev)
         ids[:batch_size] = seeds
         n_seeds = (seeds >= 0).sum(dtype=torch.int32)
@@ -412,6 +506,13 @@ class NeighborSampler:
     def hop_absorb(self, carry: dict, k: int, cand: torch.Tensor) -> dict:
         """Dedup hop k's candidates and record its edge lists. The carry
         owns its ids buffer (and the map): both change in place."""
+        return self._absorb(carry, k, cand, fused=False)
+
+    def _absorb(self, carry: dict, k: int, cand: torch.Tensor,
+                fused: bool) -> dict:
+        """``hop_absorb``; with ``fused`` (``sample``) the first
+        map-deduped hop also registers the seeds and the last clears the
+        batch's touched ids, in the same call and launch."""
         dev = cand.device
         F_k = self.frontier_sizes[k]
         E_k = self.edge_sizes[k]
@@ -429,6 +530,13 @@ class NeighborSampler:
             n_new = e_valid.sum(dtype=torch.int32)
         elif self.sort_dedup:
             src_l, n_new = self._dedup_sort(cand, cum, ids, k)
+        elif fused:
+            src_l, n_new = dedup_map_fused(
+                cand.contiguous(), carry["pos_map"], cum, ids,
+                self.cum_caps[k + 1],
+                seeds=ids[:self.config.batch_size]
+                if k == self.map_hops[0] else None,
+                clear_len=self.touched_len if k == self.map_hops[-1] else 0)
         else:
             src_l, n_new = dedup_map(cand.contiguous(), carry["pos_map"],
                                      cum, ids, self.cum_caps[k + 1])
@@ -445,14 +553,13 @@ class NeighborSampler:
 
     def finish(self, carry: dict) -> SampleBatch:
         """ClearPosMap (map dedup) and the SampleBatch."""
+        return self._finish(carry, clear=not self.sort_dedup)
+
+    def _finish(self, carry: dict, clear: bool) -> SampleBatch:
         ids = carry["ids"]
-        if not self.sort_dedup:
-            # reset only the touched entries; an aligned last hop never
-            # touches the map, so its lanes are skipped
-            L = self.config.num_hops
-            touched = ids[:self.cum_caps[L - 1]] if self.aligned_last \
-                else ids
-            map_clear(carry["pos_map"], touched)
+        if clear:
+            # reset only the touched entries
+            map_clear(carry["pos_map"], ids[:self.touched_len])
         return SampleBatch(
             node_ids=ids,
             num_nodes=torch.stack(carry["num_nodes"]),
@@ -468,16 +575,20 @@ class NeighborSampler:
         ``fold_in(key, k)``). Map dedup needs ``pos_map`` (``init_state``),
         clean again on return; sort dedup ignores it. When ``edge_access``
         [V] int32 is given, each expanded frontier vertex adds one to it
-        (presampling)."""
-        carry = self.begin(seeds, pos_map)
+        (presampling). Map dedup registers the seeds in its first
+        map-deduped hop's call and clears the touched ids in its last's:
+        one ``dedup_map`` call a map-deduped hop, and none besides (the
+        separate registration and clear run only when no hop dedups)."""
+        fused = bool(self.map_hops)
+        carry = self._begin(seeds, pos_map, register=not fused)
         for k in range(self.config.num_hops):
             frontier = self.hop_frontier(carry, k)
             if edge_access is not None:
                 count_ids(edge_access, frontier)
             cand = access.sample_neighbors(frontier, self.config.fanouts[k],
                                            fold_in(key, k))
-            carry = self.hop_absorb(carry, k, cand)
-        return self.finish(carry)
+            carry = self._absorb(carry, k, cand, fused)
+        return self._finish(carry, clear=not self.sort_dedup and not fused)
 
 
 def count_ids(counter: torch.Tensor, ids: torch.Tensor) -> None:

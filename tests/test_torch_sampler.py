@@ -26,6 +26,7 @@ from legion_tpu_torch.config import SamplerConfig
 from legion_tpu_torch.data.device_synthetic import synthesize_device_dataset
 from legion_tpu_torch.graph import DeviceCSR
 from legion_tpu_torch.sampling import access
+from legion_tpu_torch.sampling import sampler as smp
 from legion_tpu_torch.sampling.sampler import INT32_MAX, NeighborSampler
 
 
@@ -443,6 +444,181 @@ def test_dedup_matches_jax_at_kernel_edges(dedup, case):
         assert n[1] == B + 50
     if case == "a cap equal to cum":
         assert n[1] == n[0] == B
+
+
+_EDGE_CASES = ("random", "one new id in every lane", "one seed in every lane",
+               "a run across a tile", "all pads", "a cap that binds mid-run",
+               "a cap equal to cum", "below one tile")
+
+
+@pytest.fixture(scope="module")
+def jax_map_hops():
+    """JAX's map dedup of one hop per edge case, computed once: the map
+    after ``begin``'s registration, the carry after ``hop_absorb`` and the
+    batch and map after ``finish``'s ClearPosMap."""
+    out = {}
+
+    def get(case):
+        if case not in out:
+            rng = np.random.default_rng(zlib.crc32(f"fused {case}".encode()))
+            seeds, cand, caps = _edge_case(case, rng)
+            B = seeds.shape[0]
+            js = JSampler(JSamplerConfig(
+                fanouts=(cand.shape[0] // B,), batch_size=B, dedup="map",
+                node_caps=caps), 5000)
+            jc0 = js.begin(jnp.asarray(seeds), js.init_state())
+            jc1 = js.hop_absorb(jc0, 0, jnp.asarray(cand))
+            jb, jmap = js.finish(jc1)
+            out[case] = (seeds, cand, caps, np.asarray(jc0["pos_map"]),
+                         jc1, jb, np.asarray(jmap))
+        return out[case]
+    return get
+
+
+@pytest.mark.parametrize("clear", [True, False])
+@pytest.mark.parametrize("register", [True, False])
+@pytest.mark.parametrize("case", _EDGE_CASES)
+def test_dedup_map_fused_matches_jax(jax_map_hops, case, register, clear):
+    """K9's one call (``dedup_map_fused_plain``: the seeds' registration,
+    the hop, the clear of the touched ids, each on or off) equals the
+    three separate plain calls and JAX's ``begin`` registration,
+    ``_dedup_map`` and ``finish``'s ClearPosMap, exactly: src_l, n_new,
+    ids and the map (without the registration, the map comes registered;
+    without the clear, it is JAX's before ClearPosMap)."""
+    seeds, cand, caps, jreg, jc1, jb, jmap = jax_map_hops(case)
+    B = seeds.shape[0]
+    ps = NeighborSampler(SamplerConfig(
+        fanouts=(cand.shape[0] // B,), batch_size=B, dedup="map",
+        node_caps=caps), 5000)
+    seeds_t, cand_t = torch.from_numpy(seeds), torch.from_numpy(cand)
+    carry = ps.begin(seeds_t, ps.init_state("cpu"))
+    cap, clear_len = ps.cum_caps[1], ps.touched_len if clear else 0
+    outs = []
+    for fused in (True, False):
+        pos_map, ids = ps.init_state("cpu"), carry["ids"].clone()
+        if not register:
+            smp.map_register_plain(pos_map, seeds_t)
+            np.testing.assert_array_equal(pos_map.numpy(), jreg)
+        if fused:
+            src, n = smp.dedup_map_fused_plain(
+                cand_t, pos_map, carry["cum"], ids, cap,
+                seeds_t if register else None, clear_len)
+        else:
+            if register:
+                smp.map_register_plain(pos_map, seeds_t)
+            src, n = smp.dedup_map_plain(cand_t, pos_map, carry["cum"], ids,
+                                         cap)
+            smp.map_clear_plain(pos_map, ids[:clear_len])
+        outs.append((src, n, ids, pos_map))
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    src, n, ids, pos_map = outs[0]
+    np.testing.assert_array_equal(src.numpy(), np.asarray(jc1["edge_src"][0]))
+    assert int(n) == int(jc1["cum"]) - int(jc1["num_nodes"][0])
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(jb.node_ids))
+    np.testing.assert_array_equal(
+        pos_map.numpy(), jmap if clear else np.asarray(jc1["pos_map"]))
+    if clear:
+        assert np.all(jmap == INT32_MAX)
+
+
+class _InjectedAccess:
+    """A graph access whose draws are given, hop by hop (JAX's), and that
+    checks each frontier it is asked for."""
+
+    def __init__(self, fronts, cands):
+        self.fronts, self.cands, self.k = fronts, cands, 0
+
+    def sample_neighbors(self, frontier, fanout, key):
+        np.testing.assert_array_equal(frontier.numpy(), self.fronts[self.k])
+        self.k += 1
+        return torch.from_numpy(self.cands[self.k - 1])
+
+
+@pytest.mark.parametrize("hops", [1, 2, 3])
+@pytest.mark.parametrize("aligned", [False, True])
+@pytest.mark.parametrize("capped", [False, True])
+def test_sample_map_dedup_matches_jax(graph, monkeypatch, hops, aligned,
+                                      capped):
+    """``NeighborSampler.sample`` with map dedup, given JAX's per-hop
+    candidates, returns JAX's batch and leaves the map clean, through one
+    ``dedup_map`` call a map-deduped hop: the first registers the seeds,
+    the last clears the touched ids (all of ids, or those before an
+    aligned last hop), and no separate registration or clear runs unless
+    no hop dedups (one aligned hop)."""
+    g, _ = graph
+    fanouts = (5, 3, 2)[:hops]
+    caps = (24, 40, 100, 160)[:hops + 1] if capped else None
+    kw = dict(fanouts=fanouts, batch_size=24, dedup="map",
+              neighbor_window=16, dedup_last_hop=not aligned, node_caps=caps)
+    js, ps = JSampler(JSamplerConfig(**kw), g.num_nodes), \
+        NeighborSampler(SamplerConfig(**kw), g.num_nodes)
+    rng = np.random.default_rng(30 + hops)
+    seeds = rng.choice(np.flatnonzero(g.degrees() > 0), 24,
+                       replace=False).astype(np.int32)
+    seeds[-3:] = -1
+    jb, fronts, cands, jmap = _run_jax(
+        js, JWindowed.from_csr(g.to_device(), 16), seeds,
+        jax.random.PRNGKey(hops))
+    calls = {n: [] for n in ("dedup_map_fused", "dedup_map", "map_register",
+                             "map_clear")}
+    for name in calls:
+        def spy(*args, _name=name, _fn=getattr(smp, name), **kwargs):
+            calls[_name].append(kwargs)
+            return _fn(*args, **kwargs)
+        monkeypatch.setattr(smp, name, spy)
+    pos_map = ps.init_state("cpu")
+    pb = ps.sample(_InjectedAccess(fronts, cands), torch.from_numpy(seeds),
+                   0, pos_map=pos_map)
+    _assert_batches_equal(pb, jb)
+    np.testing.assert_array_equal(pos_map.numpy(), jmap)
+    assert bool((pos_map == INT32_MAX).all())
+    n_map = hops - 1 if aligned else hops
+    assert ps.map_hops == tuple(range(n_map))
+    assert len(calls["dedup_map_fused"]) == n_map and not calls["dedup_map"]
+    assert len(calls["map_register"]) == len(calls["map_clear"]) == \
+        (0 if n_map else 1)
+    if n_map:
+        fused = calls["dedup_map_fused"]
+        assert fused[0]["seeds"] is not None
+        assert all(c["seeds"] is None for c in fused[1:])
+        assert fused[-1]["clear_len"] == ps.touched_len == (
+            ps.cum_caps[hops - 1] if aligned else ps.ids_len)
+        assert all(c["clear_len"] == 0 for c in fused[:-1])
+
+
+@pytest.mark.parametrize("case", ["random", "no prefix", "no candidates",
+                                  "all pads", "pads in the prefix"])
+def test_dedup_keys_plain_matches_the_sort_keys(case):
+    """K8's key build (``dedup_keys_plain``) and ``dedup_sort_keys`` equal
+    what ``dedup_sort_keys`` computed before the key kernel (the assigned
+    prefix ids[:P] ++ the candidates, INT32_MAX for pads, then one stable
+    sort, ``legion_tpu/sampling/sampler.py:250-258``), exactly."""
+    rng = np.random.default_rng(zlib.crc32(case.encode()))
+    ids = rng.integers(0, 300, 200).astype(np.int32)
+    ids[150:] = -1
+    cand = rng.integers(0, 300, 500).astype(np.int32)
+    cand[rng.random(500) < 0.1] = -1
+    P = 150
+    if case == "no prefix":
+        P = 0
+    elif case == "no candidates":
+        cand = cand[:0]
+    elif case == "all pads":
+        cand[:] = -1
+    elif case == "pads in the prefix":
+        ids[rng.random(200) < 0.3] = -1
+    prefix = ids[:P]
+    ref = np.concatenate([np.where(prefix >= 0, prefix, INT32_MAX),
+                          np.where(cand >= 0, cand, INT32_MAX)])
+    ids_t, cand_t = torch.from_numpy(ids), torch.from_numpy(cand)
+    keys = smp.dedup_keys_plain(ids_t, cand_t, P)
+    assert keys.dtype == torch.int32
+    np.testing.assert_array_equal(keys.numpy(), ref)
+    skey, stag = smp.dedup_sort_keys(ids_t, cand_t, P)
+    order = np.argsort(ref, kind="stable")
+    np.testing.assert_array_equal(skey.numpy(), ref[order])
+    np.testing.assert_array_equal(stag.numpy(), order)
 
 
 def test_synthetic_graph_structure_and_presample():
