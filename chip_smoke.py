@@ -19,13 +19,20 @@ CUDA card, nvcc (``$CUDA_HOME`` or ``/usr/local/cuda``) and no network.
      three calls and in the one cooperative call that the sampler makes)
      at hop 0 of the bench batch, bit for bit, timed the same three ways,
      and at the edges of their shapes (``k8_edges``, ``k9_edges``);
+     K10 (the step keys from the device counters) at the main path's
+     hops and at 1,000 random (base key, counter) pairs, exactly;
   3. drives the main path through the public API at the bench
      configuration (``bench.py`` defaults: 2.4M vertices, 120M edges,
      GraphSAGE [25,10], batch 8000, hidden 256, bf16 features, 64-wide
      windowed draws, sort dedup with a lane-aligned last hop, measured
      caps): train steps, then an eval pass, counting kernel launches; then
      the same with map dedup, the config's default (``device-map``),
-     checking that the position map is clean after it;
+     checking that the position map is clean after it. After each of
+     Device, Device-map, GAT and HT, the same path with ``fused_steps = 4``
+     (CUDA-graph replays of one captured step) against as many eager steps
+     from the same state (``phase_fused``): every step's sampled ids and
+     dropout masks equal exactly, losses and parameters within the
+     atomics' order, the captured step's launches against ``PATH_KERNELS``;
   3b. on the same device dataset, at ``bench.py --model X`` settings:
      GAT (heads (8,1), feature and attention dropout 0.6, aligned last
      hop), after holding K6 and K7 against their plain versions at its
@@ -68,7 +75,10 @@ failure exits non-zero without that line.
 takes the named paths (of device, device-map, gat, gcn, lp_sage, H, HT,
 cache-off) through ``torch.profiler`` and prints where a train step's
 device time goes (``phase_profile``); it fails if a step calls
-``torch.cummax`` (the plain sort dedup). ``python3 chip_smoke.py
+``torch.cummax`` (the plain sort dedup). ``--profile PATHS --fused
+1,4,E,E,4,1`` does so for each ``fused_steps`` in turn (E: the epoch's
+``train_step``), an A/B of single steps against CUDA-graph replays in one
+call, and fails if a fused run's profile lacks a kernel of its path. ``python3 chip_smoke.py
 --kernels`` stops after phase 2 and the GCN shapes of K2, K8 and K9, for
 work on K1-K3, K8 and K9.
 """
@@ -108,33 +118,41 @@ KERNELS = {
                        replaces="legion_tpu/sampling/sampler.py:222"),
     "dedup_map": dict(source="legion_tpu_torch/csrc/dedup_map.cu",
                       replaces="legion_tpu/sampling/sampler.py:190"),
+    "step_keys": dict(source="legion_tpu_torch/csrc/step_keys.cu",
+                      replaces="legion_tpu/train.py:526"),
 }
-# the names of the kernels' device functions, as the profiler lists them
-KERNEL_SYMBOLS = tuple(KERNELS) + ("map_register_kernel", "map_clear_kernel")
 # the kernels each path must launch, and the path whose launches the
 # kernel line reports
 SORT_DEDUP = ("dedup_keys", "dedup_sort")
+# every path's step derives its keys by K10
 PATH_KERNELS = {
-    "device": ("gather_rows", "segment_sum", "windowed_draw") + SORT_DEDUP,
+    "device": ("gather_rows", "segment_sum", "windowed_draw", "step_keys")
+    + SORT_DEDUP,
     "device-map": ("gather_rows", "segment_sum", "windowed_draw",
-                   "dedup_map"),
-    "H": ("gather_rows", "segment_sum", "windowed_draw", "cached_gather")
-    + SORT_DEDUP,
-    "HT": ("gather_rows", "segment_sum", "cached_gather", "csr_draw")
-    + SORT_DEDUP,
-    "cache-off": ("gather_rows", "segment_sum", "windowed_draw")
+                   "dedup_map", "step_keys"),
+    "H": ("gather_rows", "segment_sum", "windowed_draw", "cached_gather",
+          "step_keys") + SORT_DEDUP,
+    "HT": ("gather_rows", "segment_sum", "cached_gather", "csr_draw",
+           "step_keys") + SORT_DEDUP,
+    "cache-off": ("gather_rows", "segment_sum", "windowed_draw", "step_keys")
     + SORT_DEDUP,
     "gat": ("gather_rows", "segment_sum", "windowed_draw", "gat_attend",
-            "gat_attend_bwd", "hop_attention", "hop_attention_bwd")
+            "gat_attend_bwd", "hop_attention", "hop_attention_bwd",
+            "step_keys") + SORT_DEDUP,
+    "gcn": ("gather_rows", "segment_sum", "windowed_draw", "step_keys")
     + SORT_DEDUP,
-    "gcn": ("gather_rows", "segment_sum", "windowed_draw") + SORT_DEDUP,
-    "lp_sage": ("gather_rows", "segment_sum", "windowed_draw") + SORT_DEDUP,
+    "lp_sage": ("gather_rows", "segment_sum", "windowed_draw", "step_keys")
+    + SORT_DEDUP,
 }
+# the paths whose CUDA-graph replays phase_fused holds against eager steps
+FUSED_PATHS = ("device", "device-map", "gat", "HT")
+FUSED_K = 4
 REPORTED_PATH = {"gather_rows": "device", "segment_sum": "device",
                  "windowed_draw": "device", "cached_gather": "H",
                  "csr_draw": "HT", "gat_attend": "gat",
                  "hop_attention": "gat", "dedup_keys": "device",
-                 "dedup_sort": "device", "dedup_map": "device-map"}
+                 "dedup_sort": "device", "dedup_map": "device-map",
+                 "step_keys": "device"}
 # bench.py --model X: lp_sage batches divide into thirds, GCN dedups the
 # last hop exactly
 MODEL_SAMPLER = {"gat": {}, "gcn": dict(dedup_last_hop=True),
@@ -460,8 +478,10 @@ def phase_kernels(tr, torch):
         grid_sync(torch, kernels.lib().lt_dedup_map_grid(*shape), what,
                   floor)
 
-    # K3: bit for bit, both hops
-    for f, fo, key in ((f0, 25, 5), (f1, 10, 6)):
+    # K3: bit for bit, both hops, its key words read from the card as the
+    # main path gives them (a row of K10's output)
+    for f, fo, key in ((f0, 25, access.key_tensor(5, dev)),
+                       (f1, 10, access.key_tensor(6, dev))):
         # the frontier, a (start, degree) pair per valid slot, one int32
         # per draw read and one written
         valid = int((f >= 0).sum())
@@ -481,6 +501,7 @@ def phase_kernels(tr, torch):
         print(f"  windowed_draw  frontier {f.shape[0]} fanout {fo}: queued "
               f"{t[4] / floor:.2f} x launch_floor | host_us_per_call "
               f"{host_us(k3, torch):.2f}")
+    k10_compares(tr, torch, results, main, floor)
 
     # K1: exact
     table = tr.feature_source.features
@@ -699,6 +720,53 @@ def k3_edges(torch):
           f"pairs, rows of degree 0 / 1 / inside a block / straddling / "
           f"ending in the padded block, pads and ids past the graph): all "
           f"exact")
+
+
+def k10_compares(tr, torch, results, main, floor):
+    """K10 against its plain version, exactly: at the main path's L (the
+    Device trainer's hops) from its base key, timed like the others (one
+    launch a train step), and at 1,000 random (base_key in [0, 2^63), ctr
+    in [0, 2^31)) pairs, both tags, each also checked for its counter's
+    increment; eight of them against the host's fold_in chain."""
+    import numpy as np
+    from legion_tpu_torch.sampling import access
+    L = tr.sampler_t.config.num_hops
+    dev = "cuda"
+    base = torch.full((), tr.config.train.seed + 1, dtype=torch.int64,
+                      device=dev)
+    ck = torch.full((), 12345, dtype=torch.int64, device=dev)
+    cp = ck.clone()
+
+    def k10():
+        return access.step_keys(base, ck, 0, L)
+    # the base key and the counter read, the counter and the words written
+    t = compare("step_keys", k10,
+                lambda: access.step_keys_plain(base, cp, 0, L), exact,
+                results, torch, f"L {L}, tag 0", least=bound(24 + 16 * L),
+                queued=True)
+    main["step_keys"] = [t]
+    print(f"  step_keys      L {L}: queued {t[4] / floor:.2f} x launch_floor "
+          f"| host_us_per_call {host_us(k10, torch):.2f}")
+    rng = np.random.default_rng(10)
+    n = 1000
+    bases = rng.integers(0, 2 ** 63, n, dtype=np.int64)
+    ctrs = rng.integers(0, 2 ** 31, n, dtype=np.int64)
+    b_d = torch.from_numpy(bases).to(dev)
+    c0 = torch.from_numpy(ctrs).to(dev)
+    c_k, c_p = c0.clone(), c0.clone()
+    out_k = torch.stack([access.step_keys(b_d[i], c_k[i], i % 2, L)
+                         for i in range(n)])
+    out_p = torch.stack([access.step_keys_plain(b_d[i], c_p[i], i % 2, L)
+                         for i in range(n)])
+    host = torch.stack([access.hop_keys(access.fold_in(access.fold_in(
+        int(bases[i]), int(ctrs[i])), i % 2), L, dev) for i in range(8)])
+    if not (torch.equal(out_k, out_p) and torch.equal(out_k[:8], host)):
+        fail("step_keys: the kernel's words differ from its plain "
+             "version's or the host chain's")
+    if not (torch.equal(c_k, c0 + 1) and torch.equal(c_p, c0 + 1)):
+        fail("step_keys: a counter was not advanced by one")
+    print(f"  step_keys      {n} random (base_key, ctr) pairs, tags 0 and 1: "
+          f"all exact, every counter advanced by one")
 
 
 def k8_compare(note, skey, stag, P, cum, ids, cap, results, torch,
@@ -1200,6 +1268,170 @@ def phase_slice(tr, torch, path):
     return counts, step_ms
 
 
+class StepRecorder:
+    """Records what each train step of ``tr`` sampled and which dropout
+    masks it drew, on the card, into rows indexed by the step's counter:
+    wrappers around the train sampler's ``sample`` and the models'
+    ``dropout_keep`` copy each batch's ids and per-hop edge counts, and a
+    checksum of each mask (its count of kept entries and the sum of their
+    flat positions), to row ``state["train_ctr_d"] - 1`` (K10 has advanced
+    the counter when the sampler runs). Inside a captured step the copies
+    are captured too, so a replay records its own step."""
+
+    MASKS = 8      # dropout calls a step at most
+
+    def __init__(self, tr, torch, steps):
+        from legion_tpu_torch.models import common, gat
+        s = tr.sampler_t
+        self.torch, self.steps = torch, steps
+        self.ids = torch.zeros((steps, s.ids_len), dtype=torch.int32,
+                               device="cuda")
+        self.edges = torch.zeros((steps, s.config.num_hops),
+                                 dtype=torch.int32, device="cuda")
+        self.masks = torch.zeros((steps, self.MASKS, 2), dtype=torch.int64,
+                                 device="cuda")
+        self.state, self.j = None, 0
+        orig_sample, orig_keep = s.sample, common.dropout_keep
+
+        def slot():
+            return (self.state["train_ctr_d"] - 1).remainder(steps).view(1)
+
+        def sample(*a, **kw):
+            b = orig_sample(*a, **kw)
+            self.j = 0
+            self.ids.index_copy_(0, slot(), b.node_ids.view(1, -1))
+            self.edges.index_copy_(0, slot(), b.num_edges.view(1, -1))
+            return b
+
+        def keep(*a, **kw):
+            out = orig_keep(*a, **kw)
+            if out is not None and self.state is not None:
+                m = out[0].reshape(-1)
+                pos = torch.arange(m.numel(), device="cuda")
+                row = torch.stack([m.sum(dtype=torch.int64),
+                                   torch.where(m, pos, 0).sum()])
+                self.masks[:, self.j].index_copy_(0, slot(), row.view(1, 2))
+                self.j += 1
+            return out
+        s.sample = sample
+        self._undo = [(s, "sample", orig_sample),
+                      (common, "dropout_keep", orig_keep),
+                      (gat, "dropout_keep", orig_keep)]
+        common.dropout_keep = gat.dropout_keep = keep
+
+    def bind(self, state):
+        self.state = state
+        for t in (self.ids, self.edges, self.masks):
+            t.zero_()
+
+    def take(self):
+        self.torch.cuda.synchronize()
+        return self.ids.clone(), self.edges.clone(), self.masks.clone()
+
+    def close(self):
+        for obj, name, orig in self._undo:
+            if name == "sample":
+                del obj.sample          # back to the class's method
+            else:
+                setattr(obj, name, orig)
+
+
+def phase_fused(tr, torch, path, calls=2):
+    """``fused_steps = FUSED_K`` on ``path``: ``calls`` train_step calls
+    (the first runs an eager step, captures one step and replays it
+    K-1 times; the next replays K times) against K * calls eager steps
+    from the same state (``init_state`` again: the same seeded weights,
+    counters, base key and a fresh Adam). Fails unless every step's
+    sampled ids and per-hop edge counts and every dropout mask's checksum
+    are equal exactly, the call losses and the parameters agree within
+    the tolerance below, the position map is clean (map dedup), and the
+    captured step launched every kernel of ``PATH_KERNELS[path]`` (the
+    launches a fused path's step counts are the captured ones: a replay
+    runs no Python).
+
+    Tolerance: K2's and K7's backward sum in f32 by atomics, in an order
+    that changes from run to run, so neither two eager runs nor a replay
+    and an eager run agree to the bit after the first backward; Adam
+    then divides each gradient by its own magnitude. Losses: relative
+    1e-3 of the eager mean; parameters: 2e-3 of the eager parameters'
+    norm, over all of them (norm-wise, as the CPU parity tests state
+    it). A replay that repeated a step's keys or masks, or skipped Adam's
+    update, moves them by far more, and the ids and masks are held
+    exactly besides."""
+    from legion_tpu_torch.ops import kernels
+    K = FUSED_K
+    steps = K * calls
+    rec = StepRecorder(tr, torch, steps)
+    try:
+        tr.fused_steps = 1
+        state = tr.init_state()
+        rec.bind(state)
+        eager = [tr.train_step(state)[1] for _ in range(steps)]
+        eager_loss = [float(torch.stack(eager[c * K:(c + 1) * K]).mean())
+                      for c in range(calls)]
+        params_e = [p.detach().clone() for p in tr.model.parameters()]
+        ids_e, edges_e, masks_e = rec.take()
+
+        tr.fused_steps = K
+        state = tr.init_state()
+        rec.bind(state)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        fused = [float(tr.train_step(state)[1]) for _ in range(calls)]
+        first_s = time.perf_counter() - t0
+        ids_f, edges_f, masks_f = rec.take()
+        graph = dict(tr.graph_launches)
+        launched = dict(kernels.LAUNCHES)
+    finally:
+        rec.close()
+        tr.fused_steps = 1
+    if state["train_ctr"] != steps or int(state["train_ctr_d"]) != steps:
+        fail(f"fused {path}: counters {state['train_ctr']} / "
+             f"{int(state['train_ctr_d'])} after {steps} steps")
+    bad = [i for i in range(steps) if not (
+        torch.equal(ids_e[i], ids_f[i]) and torch.equal(edges_e[i],
+                                                        edges_f[i]))]
+    if bad or not bool((edges_e.sum(1) > 0).all()):
+        fail(f"fused {path}: the sampled batches of steps {bad} differ from "
+             "the eager steps'")
+    n_masks = int((masks_e[0, :, 0] > 0).sum())
+    if not torch.equal(masks_e, masks_f):
+        fail(f"fused {path}: a replayed step's dropout masks differ from "
+             f"the eager step's")
+    params_f = [p.detach() for p in tr.model.parameters()]
+    num = sum(float((a.float() - b.float()).norm()) ** 2
+              for a, b in zip(params_f, params_e)) ** 0.5
+    den = sum(float(b.float().norm()) ** 2 for b in params_e) ** 0.5
+    p_rel = num / den
+    l_rel = max(abs(f - e) / abs(e) for f, e in zip(fused, eager_loss))
+    print(f"  fused {path}: K {K}, {calls} calls = {steps} steps against "
+          f"{steps} eager steps: ids and edge counts of every step exact, "
+          f"{n_masks} dropout masks a step exact | call losses {fused} vs "
+          f"eager {eager_loss} (max rel {l_rel:.3g}, tol 1e-3) | parameters "
+          f"norm-wise rel {p_rel:.3g} (tol 2e-3) | first call (eager step, "
+          f"capture, {K - 1} replays) + second {first_s:.3f} s")
+    if not (l_rel <= 1e-3 and p_rel <= 2e-3):
+        fail(f"fused {path}: losses (rel {l_rel}) or parameters (rel "
+             f"{p_rel}) differ from the eager steps' beyond tolerance")
+    if not tr.sampler_t.sort_dedup and not bool(
+            (state["pos_map"] == 2 ** 31 - 1).all()):
+        fail(f"fused {path}: the position map is not clean after replays")
+    per_step = {k: v for k, v in graph.items() if v}
+    print(f"  fused {path}: launches of the captured step {per_step}")
+    for name in PATH_KERNELS[path]:
+        if graph.get(name, 0) <= 0:
+            fail(f"fused {path}: the captured step launched no {name}")
+        # one eager step and the capture count; a replay adds nothing
+        if launched[name] != 2 * graph[name]:
+            fail(f"fused {path}: {launched[name]} {name} launches counted, "
+                 f"not the eager step's and the capture's {graph[name]} "
+                 "each")
+    if path == "device-map" and graph.get("dedup_map") != 1:
+        fail("fused device-map: the captured step is not one dedup_map "
+             "launch")
+    return graph
+
+
 def one_batch(tr, torch, key=77):
     """One train batch of ``tr`` through its public sampler, and its
     fetched features."""
@@ -1662,10 +1894,13 @@ def phase_host_kernels(tr_h, tr_ht, torch):
     dev_host = tuple(t.device for t in host)
 
     def k5(front, fo, key, tables):
-        return lambda: access.csr_draw(front, fo, key, *tables)
+        # the key words on the card, read by the kernel through a pointer
+        words = access.key_tensor(key, "cuda")
+        return lambda: access.csr_draw(front, fo, words, *tables)
 
     def p5(front, fo, key, tables):
-        return lambda: access.csr_draw_plain(front, fo, key, *tables)
+        words = access.key_tensor(key, "cuda")
+        return lambda: access.csr_draw_plain(front, fo, words, *tables)
 
     def hit_share(front):
         hit = (acc.row_map[front.clamp(min=0).long()] >= 0) & (front >= 0)
@@ -2060,17 +2295,129 @@ def phase_host_reference(torch):
     trs[1].close()
 
 
-def phase_profile(names, torch):
-    """Where a train step's device time goes on the named paths: after 5
-    warm-up steps, three unprofiled runs of 10 steps (host clock, ms per
-    step), then 5 steps under ``torch.profiler``: the kernels' summed
-    device time and the span from the first kernel's start to the last
-    one's end (both per step; what is left of the span is the device's
-    idle time, an upper bound, since the profiler slows the host), the
-    largest device costs by the torch op that launched them, and every
-    hand-written kernel (they are launched outside any torch op)."""
+def kernel_symbol(name, key):
+    """Whether the profiler's kernel name ``key`` is a device function of
+    the launch count ``name`` (``<kernel>_bwd`` names the backward)."""
+    base, bwd = (name[:-4], True) if name.endswith("_bwd") else (name, False)
+    return base in key and ("bwd" in key) == bwd
+
+
+def profile_run(tr, torch, name, K):
+    """One run of ``phase_profile`` with ``fused_steps = K`` from a fresh
+    state: warm-up calls (the capture among them), three unprofiled runs
+    of at least 10 steps (ms a step by the host clock ending in a sync,
+    and the host's microseconds a step before that sync), then at least 5
+    steps under ``torch.profiler``, peak memory since the state was made
+    (the graph's private pool included), and for K > 1 the host's
+    microseconds a bare graph replay. Fails if a fused run's profile lacks
+    a kernel of ``PATH_KERNELS[name]`` by its device symbol, or if a step
+    calls ``torch.cummax`` (the plain sort dedup)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    tr.fused_steps = K
+    state = tr.init_state()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    calls = -(-10 // K)
+    for _ in range(-(-5 // K)):
+        state, _ = tr.train_step(state)
+    torch.cuda.synchronize()
+    runs, host = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            state, _ = tr.train_step(state)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) / (calls * K) * 1e3)
+        host.append((t1 - t0) / (calls * K) * 1e6)
+    pcalls = -(-5 // K)
+    steps = pcalls * K
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(pcalls):
+            state, _ = tr.train_step(state)
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # the host's time of one replay on an idle queue (many queued replays
+    # would wait for room in the launch queue); the last, since replays
+    # outside train_step advance the device counter alone
+    replay = None
+    if K > 1:
+        takes = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr._graph.replay()
+            takes.append((time.perf_counter() - t0) * 1e6)
+        torch.cuda.synchronize()
+        replay = sorted(takes)[len(takes) // 2]
+    on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in on_card)
+    span = (max(e.time_range.end for e in on_card)
+            - min(e.time_range.start for e in on_card))
+    print(f" {name} fused_steps {K}: unprofiled ms/step "
+          + ", ".join(f"{r:.3f}" for r in runs)
+          + " | host us/step before the sync "
+          + ", ".join(f"{h:.1f}" for h in host)
+          + f" | profiled: kernels {busy / steps / 1e3:.3f} ms/step over a "
+          f"span of {span / steps / 1e3:.3f} ms/step (idle share "
+          f"{1 - busy / span:.3f}), {len(on_card) / steps:.0f} kernels and "
+          f"copies a step | peak mem {peak:.2f} GiB"
+          + ("" if replay is None else
+             f" | host us a replay (median of 20) {replay:.1f}"))
+
+    def per_step(r):
+        return r.self_device_time_total / steps / 1e3
+
+    rows = prof.key_averages()
+    if K == 1:
+        ops = sorted((r for r in rows if r.device_type == DeviceType.CPU
+                      and r.self_device_time_total > 0),
+                     key=lambda r: -r.self_device_time_total)[:12]
+        for r in ops:
+            print(f"    {r.key[:48]:48s} {per_step(r):8.3f} ms/step "
+                  f"({r.count / steps:g} calls)")
+    mine = {}     # the port's kernels by launch-count name
+    for r in rows:
+        if r.device_type != DeviceType.CUDA:
+            continue
+        for n in KERNELS:
+            for cand in (n, n + "_bwd"):
+                if kernel_symbol(cand, r.key):
+                    t, c = mine.get(cand, (0.0, 0))
+                    mine[cand] = (t + per_step(r), c + r.count / steps)
+    print(f"    {name} fused_steps {K} kernels ms/step (launches): "
+          + ", ".join(f"{n} {t:.4f} ({c:g})" for n, (t, c) in mine.items()))
+    for r in rows:
+        if r.key == "aten::sort" and r.device_type == DeviceType.CPU:
+            print(f"    the sort dedup's torch.sort: {per_step(r):.3f} "
+                  f"ms/step ({r.count / steps:g} calls)")
+    if any("cummax" in r.key for r in rows):
+        fail(f"{name}: a train step called torch.cummax (the plain sort "
+             "dedup)")
+    if K > 1:
+        keys = [r.key for r in rows if r.device_type == DeviceType.CUDA]
+        missing = [n for n in PATH_KERNELS[name]
+                   if not any(kernel_symbol(n, k) for k in keys)]
+        if missing:
+            fail(f"{name} fused_steps {K}: the replays' profile lists no "
+                 f"kernel of {missing}")
+        print(f"    every kernel of {name} runs inside the replays: "
+              f"{', '.join(PATH_KERNELS[name])}")
+    tr.fused_steps = 1
+
+
+def phase_profile(names, torch, fused=("1",)):
+    """Where a train step's device time goes on the named paths, for each
+    ``fused_steps`` of ``fused`` in turn on one trainer a path (an A/B
+    inside one call: 1,4,E,E,4,1 takes K = 4 and K = E, the epoch's
+    ``train_step``, between runs of single steps); see ``profile_run``.
+    The profiler's busy time is the kernels' summed device time and its
+    span runs from the first kernel's start to the last one's end; what is
+    left of the span is the device's idle time, an upper bound, since the
+    profiler slows the host. For single steps it also lists the largest
+    device costs by the torch op that launched them."""
     from legion_tpu_torch.data import (synthesize_dataset,
                                        synthesize_device_dataset)
     from legion_tpu_torch.train import Trainer
@@ -2091,58 +2438,11 @@ def phase_profile(names, torch):
             tr = Trainer(ds, bench_config(
                 ds, model=model,
                 dedup="map" if name == "device-map" else "sort"), "cuda")
-        state = tr.init_state()
-        for _ in range(5):
-            state, _ = tr.train_step(state)
-        torch.cuda.synchronize()
-        runs = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            for _ in range(10):
-                state, _ = tr.train_step(state)
-            torch.cuda.synchronize()
-            runs.append((time.perf_counter() - t0) / 10 * 1e3)
-        steps = 5
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(steps):
-                state, _ = tr.train_step(state)
-            torch.cuda.synchronize()
-        on_card = [e for e in prof.events()
-                   if e.device_type == DeviceType.CUDA]
-        busy = sum(e.time_range.elapsed_us() for e in on_card)
-        span = (max(e.time_range.end for e in on_card)
-                - min(e.time_range.start for e in on_card))
-        print(f" {name}: unprofiled ms/step "
-              + ", ".join(f"{r:.3f}" for r in runs)
-              + f" | profiled: kernels {busy / steps / 1e3:.3f} ms/step "
-              f"over a span of {span / steps / 1e3:.3f} ms/step, "
-              f"{len(on_card) / steps:.0f} kernels and copies a step")
-
-        def per_step(r):
-            return r.self_device_time_total / steps / 1e3
-
-        rows = prof.key_averages()
-        ops = sorted((r for r in rows if r.device_type == DeviceType.CPU
-                      and r.self_device_time_total > 0),
-                     key=lambda r: -r.self_device_time_total)[:12]
-        for r in ops:
-            print(f"    {r.key[:48]:48s} {per_step(r):8.3f} ms/step "
-                  f"({r.count / steps:g} calls)")
-        for r in rows:
-            if r.device_type == DeviceType.CUDA and any(
-                    k in r.key for k in KERNEL_SYMBOLS):
-                print(f"    kernel {r.key[:41]:41s} {per_step(r):8.3f} "
-                      f"ms/step ({r.count / steps:g} launches)")
-        for r in rows:
-            if r.key == "aten::sort" and r.device_type == DeviceType.CPU:
-                print(f"    the sort dedup's torch.sort: {per_step(r):.3f} "
-                      f"ms/step ({r.count / steps:g} calls)")
-        if any("cummax" in r.key for r in rows):
-            fail(f"{name}: a train step called torch.cummax (the plain "
-                 "sort dedup)")
+        for k in fused:
+            profile_run(tr, torch, name,
+                        tr.schedule.train_step if k == "E" else int(k))
         tr.close()
-        del tr, state
+        del tr
         torch.cuda.empty_cache()
 
 
@@ -2166,7 +2466,9 @@ def main():
     if sys.argv[1:2] == ["--profile"]:
         from legion_tpu_torch.ops import kernels
         kernels.lib()
-        phase_profile(sys.argv[2].split(","), torch)
+        fused = sys.argv[4].split(",") if sys.argv[3:4] == ["--fused"] \
+            else ("1",)
+        phase_profile(sys.argv[2].split(","), torch, fused)
         return
 
     from legion_tpu_torch.data import synthesize_device_dataset
@@ -2204,14 +2506,17 @@ def main():
         dedup_compares(tr, torch, results, {}, gcn=True)
         return
 
-    print("phase 3: the main path (train steps, then an eval pass)")
+    print("phase 3: the main path (train steps, then an eval pass), and "
+          f"its steps as CUDA-graph replays (fused_steps {FUSED_K})")
     counts = {"device": phase_slice(tr, torch, "device")[0]}
+    phase_fused(tr, torch, "device")
     del tr
     torch.cuda.empty_cache()
     print(" device-map (the same with map dedup, the config's default):")
     tr = Trainer(ds, bench_config(ds, dedup="map"), device="cuda")
     print(f"  caps {tr.compact_caps} | ids_len {tr.sampler_t.ids_len}")
     counts["device-map"] = phase_slice(tr, torch, "device-map")[0]
+    phase_fused(tr, torch, "device-map")
     del tr
     torch.cuda.empty_cache()
 
@@ -2239,6 +2544,8 @@ def main():
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         counts[model] = phase_slice(tr, torch, model)[0]
+        if model in FUSED_PATHS:
+            phase_fused(tr, torch, model)
         del tr
         torch.cuda.empty_cache()
     add_main(results, main_ms)
@@ -2278,6 +2585,8 @@ def main():
     for name, tr in (("H", tr_h), ("HT", tr_ht)):
         print(f" {name}:")
         counts[name], step_ms[name] = phase_slice(tr, torch, name)
+        if name in FUSED_PATHS:
+            phase_fused(tr, torch, name)
         tr.close()
     del tr, tr_h, tr_ht
     torch.cuda.empty_cache()

@@ -14,7 +14,10 @@
 //   otherwise -> the row [indptr[v], indptr[v+1]) of indices (the full
 //                CSR; host memory for a host-resident graph);
 //   deg = 0   -> -1, else indices[start + (word * deg >> 32)].
-// The random word is lt_word(ka, kb, f*F + i) (common.cuh), so the plain
+// The random word is lt_word(ka, kb, f*F + i) (common.cuh), with (ka, kb)
+// the first two of the hop's four key words on the card (`keys`: K10
+// step_keys' row for the hop, or words the wrapper uploaded), read once a
+// thread so that a replayed CUDA graph draws with each step's keys; the plain
 // PyTorch version (sampling/access.py::csr_draw_plain) agrees bit for bit,
 // and a cached row and its host row give the same neighbour.
 //
@@ -51,8 +54,10 @@ __global__ void __launch_bounds__(kThreads) csr_draw_kernel(
     const int32_t* __restrict__ row_map,
     const int64_t* __restrict__ sub_indptr,
     const int32_t* __restrict__ sub_indices, const Off* __restrict__ indptr,
-    const int32_t* __restrict__ indices, int64_t num_nodes, uint32_t ka,
-    uint32_t kb, int32_t* __restrict__ out, int gshift) {
+    const int32_t* __restrict__ indices, int64_t num_nodes,
+    const uint32_t* __restrict__ keys, int32_t* __restrict__ out,
+    int gshift) {
+  const uint32_t ka = keys[0], kb = keys[1];
   const int lane = threadIdx.x & 31;
   const int G = 1 << gshift;                  // lanes of a group
   const int sub = lane >> gshift;             // this lane's group
@@ -117,8 +122,8 @@ template <typename Off>
 static int launch(const int32_t* frontier, int64_t F, int32_t fanout,
                   const int32_t* row_map, const int64_t* sub_indptr,
                   const int32_t* sub_indices, const Off* indptr,
-                  const int32_t* indices, int64_t num_nodes, uint32_t ka,
-                  uint32_t kb, int32_t* out, void* stream) {
+                  const int32_t* indices, int64_t num_nodes,
+                  const uint32_t* keys, int32_t* out, void* stream) {
   if (F == 0 || fanout == 0) return (int)cudaSuccess;
   int gshift = 0;
   while (gshift < 5 && (1 << gshift) < fanout) ++gshift;
@@ -127,7 +132,7 @@ static int launch(const int32_t* frontier, int64_t F, int32_t fanout,
   csr_draw_kernel<Off><<<lt_grid((F + spw - 1) / spw * 32), kThreads, 0,
                          (cudaStream_t)stream>>>(
       frontier, F, fanout, row_map, sub_indptr, sub_indices, indptr, indices,
-      num_nodes, ka, kb, out, gshift);
+      num_nodes, keys, out, gshift);
   return (int)cudaGetLastError();
 }
 
@@ -137,11 +142,11 @@ LT_EXPORT int lt_csr_draw_i32(const int32_t* frontier, int64_t F,
                               const int64_t* sub_indptr,
                               const int32_t* sub_indices,
                               const int32_t* indptr, const int32_t* indices,
-                              int64_t num_nodes, uint32_t ka, uint32_t kb,
+                              int64_t num_nodes, const uint32_t* keys,
                               int32_t* out, void* stream) {
   return launch<int32_t>(frontier, F, fanout, row_map, sub_indptr,
-                         sub_indices, indptr, indices, num_nodes, ka, kb,
-                         out, stream);
+                         sub_indices, indptr, indices, num_nodes, keys, out,
+                         stream);
 }
 
 LT_EXPORT int lt_csr_draw_i64(const int32_t* frontier, int64_t F,
@@ -149,9 +154,9 @@ LT_EXPORT int lt_csr_draw_i64(const int32_t* frontier, int64_t F,
                               const int64_t* sub_indptr,
                               const int32_t* sub_indices,
                               const int64_t* indptr, const int32_t* indices,
-                              int64_t num_nodes, uint32_t ka, uint32_t kb,
+                              int64_t num_nodes, const uint32_t* keys,
                               int32_t* out, void* stream) {
   return launch<int64_t>(frontier, F, fanout, row_map, sub_indptr,
-                         sub_indices, indptr, indices, num_nodes, ka, kb,
-                         out, stream);
+                         sub_indices, indptr, indices, num_nodes, keys, out,
+                         stream);
 }

@@ -12,8 +12,11 @@
 //
 // Random words come from the keyed integer hash in common.cuh: r0 from
 // (ka0, kb0, lane i), the in-block draw from (ka1, kb1, lane f*F + i).
-// The plain PyTorch version (sampling/access.py::windowed_draw_plain)
-// computes the same words, so the two agree bit for bit.
+// The four key words are read from the card (`keys`, the hop's row of K10
+// step_keys' output, or words the wrapper uploaded), once a thread, so a
+// replayed CUDA graph draws with each step's own keys. The plain PyTorch
+// version (sampling/access.py::windowed_draw_plain) computes the same
+// words, so the two agree bit for bit.
 //
 // Bound on this card: the launch. The card needs a few microseconds for
 // either hop of the main path (8000 x 25 and 96,576 x 10 draws), about
@@ -68,9 +71,9 @@ __global__ void __launch_bounds__(kThreads) windowed_draw_kernel(
     const Off* __restrict__ row_pairs, const int32_t* __restrict__ blocks,
     const int32_t* __restrict__ frontier, int32_t* __restrict__ out,
     int64_t F, int32_t fanout, int32_t W, int wshift, int sshift,
-    int64_t num_nodes, uint32_t ka0, uint32_t kb0, uint32_t ka1,
-    uint32_t kb1) {
+    int64_t num_nodes, const uint32_t* __restrict__ keys) {
   typedef typename Pair<Off>::U U;
+  const uint32_t ka0 = keys[0], kb0 = keys[1], ka1 = keys[2], kb1 = keys[3];
   typedef typename Pair<Off>::V V;
   const int lane = threadIdx.x & 31;
   const int spw = 1 << sshift;       // slots of a warp at a time
@@ -133,8 +136,8 @@ __global__ void __launch_bounds__(kThreads) windowed_draw_kernel(
 template <typename Off>
 static int launch(const Off* row_pairs, const int32_t* blocks,
                   const int32_t* frontier, int32_t* out, int64_t F,
-                  int32_t fanout, int32_t W, int64_t num_nodes, uint32_t ka0,
-                  uint32_t kb0, uint32_t ka1, uint32_t kb1, void* stream) {
+                  int32_t fanout, int32_t W, int64_t num_nodes,
+                  const uint32_t* keys, void* stream) {
   if (F == 0 || fanout == 0) return (int)cudaSuccess;
   if (W <= 0 || (uintptr_t)row_pairs % (2 * sizeof(Off)))
     return (int)cudaErrorInvalidValue;
@@ -148,7 +151,7 @@ static int launch(const Off* row_pairs, const int32_t* blocks,
   windowed_draw_kernel<Off><<<lt_grid(chunks * 32), kThreads, 0,
                               (cudaStream_t)stream>>>(
       row_pairs, blocks, frontier, out, F, fanout, W, wshift, sshift,
-      num_nodes, ka0, kb0, ka1, kb1);
+      num_nodes, keys);
   return (int)cudaGetLastError();
 }
 
@@ -156,20 +159,18 @@ LT_EXPORT int lt_windowed_draw_i32(const int32_t* row_pairs,
                                    const int32_t* blocks,
                                    const int32_t* frontier, int32_t* out,
                                    int64_t F, int32_t fanout, int32_t W,
-                                   int64_t num_nodes, uint32_t ka0,
-                                   uint32_t kb0, uint32_t ka1, uint32_t kb1,
+                                   int64_t num_nodes, const uint32_t* keys,
                                    void* stream) {
   return launch<int32_t>(row_pairs, blocks, frontier, out, F, fanout, W,
-                         num_nodes, ka0, kb0, ka1, kb1, stream);
+                         num_nodes, keys, stream);
 }
 
 LT_EXPORT int lt_windowed_draw_i64(const int64_t* row_pairs,
                                    const int32_t* blocks,
                                    const int32_t* frontier, int32_t* out,
                                    int64_t F, int32_t fanout, int32_t W,
-                                   int64_t num_nodes, uint32_t ka0,
-                                   uint32_t kb0, uint32_t ka1, uint32_t kb1,
+                                   int64_t num_nodes, const uint32_t* keys,
                                    void* stream) {
   return launch<int64_t>(row_pairs, blocks, frontier, out, F, fanout, W,
-                         num_nodes, ka0, kb0, ka1, kb1, stream);
+                         num_nodes, keys, stream);
 }

@@ -51,6 +51,14 @@ def xavier_uniform_padded(logical_in: int, padded_in: int,
     return out
 
 
+def _u8_regime(shape: Tuple[int, ...], rate: float) -> bool:
+    """Dropout's second regime: u8 draws, for 2**20 elements or more
+    (rate 0.5 on a 32-multiple width takes the first regime first)."""
+    if rate == 0.5 and len(shape) == 2 and shape[-1] % 32 == 0:
+        return False
+    return len(shape) >= 2 and math.prod(shape) >= (1 << 20)
+
+
 def dropout_keep(shape: Tuple[int, ...], rate: float,
                  generator: Optional[torch.Generator],
                  device: Optional[torch.device] = None
@@ -67,7 +75,6 @@ def dropout_keep(shape: Tuple[int, ...], rate: float,
     if rate <= 0.0 or generator is None:
         return None
     keep = 1.0 - rate
-    n = math.prod(shape)
     if rate == 0.5 and len(shape) == 2 and shape[-1] % 32 == 0:
         words = torch.randint(-2 ** 31, 2 ** 31, (shape[0], shape[1] // 32),
                               dtype=torch.int32, generator=generator,
@@ -75,7 +82,7 @@ def dropout_keep(shape: Tuple[int, ...], rate: float,
         shifts = torch.arange(32, dtype=torch.int32, device=device)
         mask = ((words[:, :, None] >> shifts) & 1).reshape(shape) != 0
         return mask, 1.0 / keep
-    if len(shape) >= 2 and n >= (1 << 20):
+    if _u8_regime(shape, rate):
         kq = min(max(round(keep * 256), 1), 255)
         bits = torch.randint(0, 256, shape, dtype=torch.uint8,
                              generator=generator, device=device)
@@ -87,15 +94,25 @@ def dropout_keep(shape: Tuple[int, ...], rate: float,
 def dropout(x: torch.Tensor, rate: float,
             generator: Optional[torch.Generator], train: bool
             ) -> torch.Tensor:
-    """Inverted dropout with the mask of ``dropout_keep``."""
+    """Inverted dropout with the mask of ``dropout_keep``, as JAX applies
+    it (``legion_tpu/models/common.py:86``, ``:96``, ``:99``): kept entries
+    divided by keep, or in the u8 regime multiplied by 256 / kq, with the
+    constant in x's dtype (JAX's weakly typed scalar takes x's dtype) and
+    on x's device (a divisor on the host would turn the division into a
+    multiplication by its reciprocal on the card)."""
     if not train:
         return x
     keep = dropout_keep(tuple(x.shape), rate, generator, x.device)
     if keep is None:
         return x
     mask, scale = keep
-    return torch.where(mask, x * scale, torch.zeros((), dtype=x.dtype,
-                                                    device=x.device))
+
+    def const(v):
+        return torch.full((), v, dtype=x.dtype, device=x.device)
+
+    kept = x * const(scale) if _u8_regime(tuple(x.shape), rate) \
+        else x / const(1.0 - rate)
+    return torch.where(mask, kept, const(0.0))
 
 
 def make_model(train_cfg: TrainConfig, sampler_cfg: SamplerConfig,

@@ -19,8 +19,9 @@ gat_layer_aligned_streaming`` and K7 ``hop_attention`` the XLA
 ``legion_tpu/ops/hop_agg.py::hop_softmax_attention``, each with a backward
 kernel (its launches counted under ``<name>_bwd``); K7's plain version
 lives with its caller in ``ops/hop_agg.py``.
-K3 ``windowed_draw`` and K5 ``csr_draw`` live with their callers in
-``sampling/access.py``, K4 ``cached_gather`` in ``cache/unified_cache.py``,
+K3 ``windowed_draw``, K5 ``csr_draw`` and K10 ``step_keys`` (a step's
+key words from the device counters, for K3 and K5 to read) live with
+their callers in ``sampling/access.py``, K4 ``cached_gather`` in ``cache/unified_cache.py``,
 K8 ``dedup_sort`` (sort dedup around its sort: the keys, counted under
 ``dedup_keys``, and everything after the sort) and K9 ``dedup_map`` (the
 position map: seed registration, a hop's claim, rank and read-back, the
@@ -57,13 +58,15 @@ NVCC_FLAGS = GENCODE + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                         "-Xptxas", "-v")
 
 # launches per kernel since the last reset (chip_smoke.py reads these to
-# show that the main path went through every kernel)
+# show that the main path went through every kernel). A CUDA-graph replay
+# runs no Python: a captured step counts once, at capture, and the trainer
+# keeps that step's counts (``Trainer.graph_launches``)
 LAUNCHES: Dict[str, int] = {"gather_rows": 0, "segment_sum": 0,
                             "windowed_draw": 0, "cached_gather": 0,
                             "csr_draw": 0, "gat_attend": 0,
                             "gat_attend_bwd": 0, "hop_attention": 0,
                             "hop_attention_bwd": 0, "dedup_keys": 0,
-                            "dedup_sort": 0, "dedup_map": 0}
+                            "dedup_sort": 0, "dedup_map": 0, "step_keys": 0}
 
 
 def reset_launch_counts() -> None:
@@ -145,12 +148,11 @@ def lib() -> ctypes.CDLL:
     so.lt_segment_sum_f32.argtypes = [p, p, p, i64, i64, i64, i64, p]
     so.lt_segment_sum_bf16.argtypes = [p, p, p, i64, i64, i64, i64, p]
     for fn in (so.lt_windowed_draw_i32, so.lt_windowed_draw_i64):
-        fn.argtypes = [p, p, p, p, i64, i32, i32, i64, u32, u32, u32, u32,
-                       p]
+        fn.argtypes = [p, p, p, p, i64, i32, i32, i64, p, p]
     so.lt_cached_gather.argtypes = [p, p, i64, p, i64, p, p, i64, i64, i32,
                                     p, p, p]
     for fn in (so.lt_csr_draw_i32, so.lt_csr_draw_i64):
-        fn.argtypes = [p, i64, i32, p, p, p, p, p, i64, u32, u32, p, p]
+        fn.argtypes = [p, i64, i32, p, p, p, p, p, i64, p, p, p]
     so.lt_gat_attend_fwd.argtypes = [p, p, p, p, p, p, f32, f32, p, p, p,
                                      i64, i32, i32, i32, i64, i32, p]
     so.lt_gat_attend_bwd.argtypes = [p, p, p, p, p, p, f32, f32, p, p, i64,
@@ -173,6 +175,7 @@ def lib() -> ctypes.CDLL:
     so.lt_dedup_map_fused.argtypes = [p, i64, p, i64, p, i64, p, i32, p, p,
                                       p, i64, p, p]
     so.lt_dedup_map_grid.argtypes = [i64, i64, i64]
+    so.lt_step_keys.argtypes = [p, p, u32, i32, p, p]
     so.lt_noop.argtypes = [p]
     so.lt_grid_sync_probe.argtypes = [i32, i32, p]
     for fn in (so.lt_noop, so.lt_gather_rows, so.lt_segment_sum_f32,
@@ -185,7 +188,7 @@ def lib() -> ctypes.CDLL:
                so.lt_hop_attention_bwd, so.lt_dedup_keys, so.lt_dedup_sort,
                so.lt_map_register, so.lt_map_clear, so.lt_dedup_map,
                so.lt_dedup_map_fused, so.lt_dedup_map_grid,
-               so.lt_grid_sync_probe):
+               so.lt_grid_sync_probe, so.lt_step_keys):
         fn.restype = ctypes.c_int
     so.lt_error_string.argtypes = [ctypes.c_int]
     so.lt_error_string.restype = ctypes.c_char_p

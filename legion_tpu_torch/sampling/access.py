@@ -5,11 +5,14 @@ counter-based random words.
 
 Randomness: a draw is a pure function of an integer key and a lane,
 ``hash_words(ka, kb, lane)``, so the CUDA kernels and their plain versions
-give the same bits. Keys are Python ints derived with ``fold_in`` from
-one int64 seed per step (the trainer takes it from its
-``torch.Generator``), the analog of the JAX package's key folding. The
-bits differ from JAX's threefry stream; parity tests inject JAX's draws
-into ``windowed_select`` and ``csr_select``.
+give the same bits. A hop draws with four 32-bit key words,
+``draw_keys(hop_key)``. In a train or eval step K10 ``step_keys`` derives
+them on the card from the state's base key and step counter,
+``hop_key = fold_in(fold_in(fold_in(base_key, ctr), tag), k)``, the analog
+of the JAX package's ``_device_key``, and K3 and K5 read them through a
+pointer; ``hop_keys`` makes the same words on the host from an integer key
+(presampling, tests). The bits differ from JAX's threefry stream; parity
+tests inject JAX's draws into ``windowed_select`` and ``csr_select``.
 
 ``hash32`` and friends work on Python ints and on int64 tensors holding
 values in [0, 2**32): every product is split so it stays below 2**63.
@@ -43,11 +46,19 @@ def hash32(x):
     return x ^ (x >> 16)
 
 
-def fold_in(key: int, data: int) -> int:
-    """New 64-bit key from (key, data); host-side, no device work."""
-    lo, hi = key & M32, (key >> 32) & M32
+def fold_in_words(lo, hi, data):
+    """``fold_in`` on a key held as its 32-bit halves (lo, hi): ints, or
+    int64 tensors in [0, 2**32). ``data`` is an int or an int64 tensor;
+    its halves are taken with masks, which is right for negative values
+    and the arithmetic shift of int64 too. Returns the new (lo, hi)."""
     lo2 = hash32(lo ^ hash32((data & M32) ^ _GOLDEN))
     hi2 = hash32(hi ^ hash32(lo2 ^ ((data >> 32) & M32)))
+    return lo2, hi2
+
+
+def fold_in(key: int, data: int) -> int:
+    """New 64-bit key from (key, data); host-side, no device work."""
+    lo2, hi2 = fold_in_words(key & M32, (key >> 32) & M32, data)
     return (hi2 << 32) | lo2
 
 
@@ -63,7 +74,99 @@ def draw_keys(key: int) -> Tuple[int, int, int, int]:
     return stream_keys(key, 0) + stream_keys(key, 1)
 
 
-def hash_words(ka: int, kb: int, lanes: torch.Tensor) -> torch.Tensor:
+def _as_i32(words):
+    """uint32 values (int64 tensor or ints) as the int32 of the same bits."""
+    if isinstance(words, torch.Tensor):
+        return torch.where(words >= 2 ** 31, words - 2 ** 32,
+                           words).to(torch.int32)
+    return [w - 2 ** 32 if w >= 2 ** 31 else w for w in words]
+
+
+def key_tensor(keys, device) -> torch.Tensor:
+    """int32 tensor (uint32 bits) of ``draw_keys`` of each int key, made on
+    the host and copied to ``device`` once: [4] for one key, [n, 4] for a
+    list."""
+    rows = [_as_i32(draw_keys(k)) for k in
+            (keys if isinstance(keys, list) else [keys])]
+    t = torch.tensor(rows, dtype=torch.int32).to(device)
+    return t if isinstance(keys, list) else t[0]
+
+
+def hop_keys(key: int, num_hops: int, device) -> torch.Tensor:
+    """[num_hops, 4] int32 (uint32 bits): row k is ``draw_keys(fold_in(key,
+    k))``, hop k's words."""
+    return key_tensor([fold_in(key, k) for k in range(num_hops)], device)
+
+
+def key_words(key) -> Tuple:
+    """A hop's four key words (ka0, kb0, ka1, kb1) for the plain versions:
+    ints from an int key, 0-dim int64 tensors in [0, 2**32) from a [4]
+    int32 word tensor (no host sync)."""
+    if isinstance(key, torch.Tensor):
+        w = key.reshape(4).long() & M32
+        return tuple(w[i] for i in range(4))
+    return draw_keys(key)
+
+
+def _key_arg(name: str, key, device) -> torch.Tensor:
+    """The kernel's key operand: a [4] int32 word tensor on ``device`` (a
+    row of ``step_keys``/``hop_keys``), or an int key's words uploaded."""
+    if not isinstance(key, torch.Tensor):
+        return key_tensor(key, device)
+    if key.dtype != torch.int32 or key.numel() != 4 \
+            or key.device != device or not key.is_contiguous():
+        raise ValueError(f"{name}: key words {key.dtype} "
+                         f"{tuple(key.shape)} on {key.device}, want 4 "
+                         f"contiguous int32 on {device}")
+    return key
+
+
+# ---------------------------------------------------------------------------
+# K10 step_keys
+# ---------------------------------------------------------------------------
+
+def step_keys_plain(base_key: torch.Tensor, ctr: torch.Tensor, tag: int,
+                    num_hops: int) -> torch.Tensor:
+    """Plain K10 in int64 torch ops: with step = fold_in(fold_in(base_key,
+    ctr), tag), row k of the [num_hops, 4] int32 result is
+    ``draw_keys(fold_in(step, k))`` as uint32 bits; then ctr += 1 in
+    place. Equal bit for bit to the host chain ``hop_keys(fold_in(fold_in(
+    base, c), tag), num_hops)``."""
+    b, c = base_key.reshape(()), ctr.reshape(())
+    lo, hi = fold_in_words(b & M32, (b >> 32) & M32, c)
+    lo, hi = fold_in_words(lo, hi, tag)
+    hop = torch.arange(num_hops, dtype=torch.int64, device=ctr.device)
+    lo, hi = fold_in_words(lo, hi, hop)
+    words = fold_in_words(lo, hi, 0) + fold_in_words(lo, hi, 1)
+    ctr.add_(1)
+    return _as_i32(torch.stack(words, dim=1))
+
+
+def step_keys(base_key: torch.Tensor, ctr: torch.Tensor, tag: int,
+              num_hops: int) -> torch.Tensor:
+    """K10, as ``step_keys_plain``: base_key and ctr are int64 scalars on
+    one device; one launch writes the [num_hops, 4] key words and adds one
+    to ctr, with no host word in the launch (a captured step replays with
+    each step's keys)."""
+    if base_key.dtype != torch.int64 or ctr.dtype != torch.int64 \
+            or base_key.numel() != 1 or ctr.numel() != 1 \
+            or base_key.device != ctr.device or num_hops <= 0 \
+            or tag not in (0, 1):
+        raise ValueError(f"step_keys: base_key {base_key.dtype} "
+                         f"{tuple(base_key.shape)}, ctr {ctr.dtype} "
+                         f"{tuple(ctr.shape)}, tag {tag}, hops {num_hops}")
+    dev = ctr.device
+    if dev.type == "cpu":
+        return step_keys_plain(base_key, ctr, tag, num_hops)
+    out = torch.empty((num_hops, 4), dtype=torch.int32, device=dev)
+    rc = kernels.lib().lt_step_keys(base_key.data_ptr(), ctr.data_ptr(), tag,
+                                    num_hops, out.data_ptr(),
+                                    kernels.stream_handle())
+    kernels.check("step_keys", rc)
+    return out
+
+
+def hash_words(ka, kb, lanes: torch.Tensor) -> torch.Tensor:
     """Random 32-bit words (as int64) for int64 ``lanes``
     (csrc/common.cuh::lt_word)."""
     return hash32(hash32(lanes ^ ka) ^ kb)
@@ -80,10 +183,12 @@ class GraphAccess:
     num_nodes: int
 
     def sample_neighbors(self, frontier: torch.Tensor, fanout: int,
-                         key: int) -> torch.Tensor:
+                         key) -> torch.Tensor:
         """frontier [F] int32 (-1 pad) -> neighbours [fanout*F] int32 in
         FANOUT-MAJOR lane order (draw f of slot i at lane f*F + i), -1
-        where the slot is invalid or the vertex has no edges."""
+        where the slot is invalid or the vertex has no edges. ``key`` is
+        the hop's [4] int32 key words on the frontier's device, or an int
+        key."""
         raise NotImplementedError
 
 
@@ -150,20 +255,20 @@ def csr_select(frontier: torch.Tensor, r: torch.Tensor,
     return _select(start, deg, hit, r, indices, sub_indices)
 
 
-def csr_draw_plain(frontier: torch.Tensor, fanout: int, key: int,
+def csr_draw_plain(frontier: torch.Tensor, fanout: int, key,
                    indptr: torch.Tensor, indices: torch.Tensor,
                    row_map: Optional[torch.Tensor] = None,
                    sub_indptr: Optional[torch.Tensor] = None,
                    sub_indices: Optional[torch.Tensor] = None
                    ) -> torch.Tensor:
     """Plain PyTorch K5: r = bounded(word of lane f*F + i, deg) with the
-    words of stream 0 of ``key``, then ``csr_select``. Bit-identical to
-    the kernel."""
+    first two key words (stream 0 of an int ``key``), then ``csr_select``.
+    Bit-identical to the kernel."""
     F = frontier.shape[0]
     start, deg, hit = _draw_rows(frontier, indptr, row_map, sub_indptr)
     lanes = torch.arange(fanout * F, dtype=torch.int64,
                          device=frontier.device).view(fanout, F)
-    ka, kb = stream_keys(key, 0)
+    ka, kb = key_words(key)[:2]
     r = bounded(hash_words(ka, kb, lanes),
                 deg.clamp(1, 2 ** 31 - 1)[None, :])
     return _select(start, deg, hit, r, indices, sub_indices)
@@ -173,7 +278,7 @@ def _table(t, device: torch.device) -> torch.Tensor:
     return t.on(device) if isinstance(t, HostTable) else t
 
 
-def csr_draw(frontier: torch.Tensor, fanout: int, key: int,
+def csr_draw(frontier: torch.Tensor, fanout: int, key,
              indptr, indices, row_map: Optional[torch.Tensor] = None,
              sub_indptr: Optional[torch.Tensor] = None,
              sub_indices: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -181,7 +286,8 @@ def csr_draw(frontier: torch.Tensor, fanout: int, key: int,
     CSR (``indptr`` [V+1] int32/int64, ``indices`` [E] int32) is a device
     tensor or a registered ``HostTable``; ``row_map`` [V] int32,
     ``sub_indptr`` [C+1] int64 and ``sub_indices`` int32 are the device
-    topology cache, or None for none."""
+    topology cache, or None for none. ``key``: the hop's [4] int32 key
+    words on the device (the kernel reads the first two), or an int key."""
     dev = frontier.device
     indptr, indices = _table(indptr, dev), _table(indices, dev)
     if dev.type == "cpu":
@@ -211,12 +317,12 @@ def csr_draw(frontier: torch.Tensor, fanout: int, key: int,
     ptrs = [0 if t is None else t.data_ptr() for t in tabs]
     F = frontier.shape[0]
     out = torch.empty((fanout * F,), dtype=torch.int32, device=dev)
-    ka, kb = stream_keys(key, 0)
+    words = _key_arg("csr_draw", key, dev)
     lib = kernels.lib()
     fn = lib.lt_csr_draw_i32 if indptr.dtype == torch.int32 \
         else lib.lt_csr_draw_i64
-    rc = fn(ptrs[0], F, fanout, *ptrs[1:], indptr.shape[0] - 1, ka, kb,
-            out.data_ptr(), kernels.stream_handle())
+    rc = fn(ptrs[0], F, fanout, *ptrs[1:], indptr.shape[0] - 1,
+            words.data_ptr(), out.data_ptr(), kernels.stream_handle())
     kernels.check("csr_draw", rc)
     return out
 
@@ -296,7 +402,7 @@ def windowed_select(row_pairs: torch.Tensor, indices2d: torch.Tensor,
 
 
 def windowed_draw_plain(row_pairs: torch.Tensor, indices2d: torch.Tensor,
-                        frontier: torch.Tensor, fanout: int, key: int
+                        frontier: torch.Tensor, fanout: int, key
                         ) -> torch.Tensor:
     """Plain PyTorch K3: the kernel's random words, then
     ``windowed_select``. Bit-identical to the kernel."""
@@ -305,7 +411,7 @@ def windowed_draw_plain(row_pairs: torch.Tensor, indices2d: torch.Tensor,
     F = frontier.shape[0]
     dev = frontier.device
     start, deg = _frontier_rows(row_pairs, frontier, V)
-    ka0, kb0, ka1, kb1 = draw_keys(key)
+    ka0, kb0, ka1, kb1 = key_words(key)
     r0 = bounded(hash_words(ka0, kb0, torch.arange(F, device=dev)),
                  deg.clamp(1, 2 ** 31 - 1))
     base = (start + r0) // W * W
@@ -318,11 +424,12 @@ def windowed_draw_plain(row_pairs: torch.Tensor, indices2d: torch.Tensor,
 
 
 def windowed_draw(row_pairs: torch.Tensor, indices2d: torch.Tensor,
-                  frontier: torch.Tensor, fanout: int, key: int
+                  frontier: torch.Tensor, fanout: int, key
                   ) -> torch.Tensor:
     """K3. row_pairs [V, 2] int32/int64 (start, degree), indices2d
     [ceil(E/W), W] int32, both contiguous as ``WindowedCSRAccess.from_csr``
-    builds them, frontier [F] int32 -> [fanout*F] int32."""
+    builds them, frontier [F] int32 -> [fanout*F] int32. ``key``: the
+    hop's [4] int32 key words on the device, or an int key."""
     dev = frontier.device
     if dev.type == "cpu":
         return windowed_draw_plain(row_pairs, indices2d, frontier, fanout,
@@ -348,12 +455,13 @@ def windowed_draw(row_pairs: torch.Tensor, indices2d: torch.Tensor,
     frontier = frontier.contiguous()
     F = frontier.shape[0]
     out = torch.empty((fanout * F,), dtype=torch.int32, device=dev)
+    words = _key_arg("windowed_draw", key, dev)
     lib = kernels.lib()
     fn = lib.lt_windowed_draw_i32 if row_pairs.dtype == torch.int32 \
         else lib.lt_windowed_draw_i64
     rc = fn(row_pairs.data_ptr(), indices2d.data_ptr(), frontier.data_ptr(),
             out.data_ptr(), F, fanout, indices2d.shape[1],
-            row_pairs.shape[0], *draw_keys(key), kernels.stream_handle())
+            row_pairs.shape[0], words.data_ptr(), kernels.stream_handle())
     kernels.check("windowed_draw", rc)
     return out
 

@@ -40,7 +40,7 @@ import torch
 
 from legion_tpu_torch.config import SamplerConfig
 from legion_tpu_torch.ops import kernels
-from legion_tpu_torch.sampling.access import fold_in
+from legion_tpu_torch.sampling.access import hop_keys
 
 INT32_MAX = 2 ** 31 - 1
 INT32_MIN = -2 ** 31
@@ -68,8 +68,10 @@ class SampleBatch:
         return len(self.edge_src)
 
 
-def _i32(x, device) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.int32, device=device)
+def _i32(value: int, device, shape=()) -> torch.Tensor:
+    """An int32 constant made on ``device`` by a fill: no copy from the
+    host, which a captured CUDA graph could not hold."""
+    return torch.full(shape, value, dtype=torch.int32, device=device)
 
 
 def _check_i32(name: str, *tensors: torch.Tensor) -> None:
@@ -168,7 +170,7 @@ def dedup_sort_plain(skey: torch.Tensor, stag: torch.Tensor, P: int,
     W = min(E_k, cap_k)
     stag = stag.to(torch.int32)
     valid_s = skey != INT32_MAX
-    prev = torch.cat([_i32([-1], dev), skey[:-1]])
+    prev = torch.cat([_i32(-1, dev, (1,)), skey[:-1]])
     run_start = valid_s & (skey != prev)
     is_exist = stag < P
 
@@ -305,7 +307,7 @@ def dedup_map_plain(cand: torch.Tensor, pos_map: torch.Tensor,
     n_new = kept.sum(dtype=torch.int32)
     # a claimed entry holds CLAIM_BASE + lane > any position
     _scatter_min(pos_map, cand, local_new, kept)
-    ext = torch.cat([ids, _i32([-1], dev)])
+    ext = torch.cat([ids, _i32(-1, dev, (1,))])
     ext.scatter_(0, torch.where(kept, local_new, ids.shape[0]).long(), cand)
     ids.copy_(ext[:-1])
     # winners past the cap: clear their claim tags
@@ -568,10 +570,13 @@ class NeighborSampler:
             num_edges=torch.stack(carry["num_edges"]),
             hop_offsets=torch.stack(carry["hop_offsets"]))
 
-    def sample(self, access, seeds: torch.Tensor, key: int,
+    def sample(self, access, seeds: torch.Tensor, key,
                edge_access: Optional[torch.Tensor] = None,
                pos_map: Optional[torch.Tensor] = None) -> SampleBatch:
-        """Sample one batch. ``key`` is an int64 (hop k draws with
+        """Sample one batch. ``key`` is the [L, 4] int32 key words on the
+        seeds' device (row k for hop k: K10 ``step_keys``' output in a
+        train or eval step), or an int key, whose words ``hop_keys`` makes
+        on the host and copies over once (hop k then draws with
         ``fold_in(key, k)``). Map dedup needs ``pos_map`` (``init_state``),
         clean again on return; sort dedup ignores it. When ``edge_access``
         [V] int32 is given, each expanded frontier vertex adds one to it
@@ -579,14 +584,20 @@ class NeighborSampler:
         map-deduped hop's call and clears the touched ids in its last's:
         one ``dedup_map`` call a map-deduped hop, and none besides (the
         separate registration and clear run only when no hop dedups)."""
+        L = self.config.num_hops
+        keys = key if isinstance(key, torch.Tensor) \
+            else hop_keys(key, L, seeds.device)
+        if keys.dtype != torch.int32 or tuple(keys.shape) != (L, 4):
+            raise ValueError(f"sample: key words {keys.dtype} "
+                             f"{tuple(keys.shape)}, want int32 ({L}, 4)")
         fused = bool(self.map_hops)
         carry = self._begin(seeds, pos_map, register=not fused)
-        for k in range(self.config.num_hops):
+        for k in range(L):
             frontier = self.hop_frontier(carry, k)
             if edge_access is not None:
                 count_ids(edge_access, frontier)
             cand = access.sample_neighbors(frontier, self.config.fanouts[k],
-                                           fold_in(key, k))
+                                           keys[k])
             carry = self._absorb(carry, k, cand, fused)
         return self._finish(carry, clear=not self.sort_dedup and not fused)
 

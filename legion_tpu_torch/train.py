@@ -1,16 +1,26 @@
 """Single-device trainer: sample -> feature fetch -> model -> Adam (port
-of the fused one-step path of ``legion_tpu/train.py``), for GraphSAGE,
-GCN, GAT and link-prediction SAGE (``lp_sage``: loss over (anchor,
-positive, negative) thirds of each batch; its valid metric is the mean
-loss over valid anchors).
+of the fused-step path of ``legion_tpu/train.py``), for GraphSAGE, GCN,
+GAT and link-prediction SAGE (``lp_sage``: loss over (anchor, positive,
+negative) thirds of each batch; its valid metric is the mean loss over
+valid anchors).
 
-One step on one card, eager PyTorch, no host syncs inside the step: seed
-and label banks live on the device, per-step counters stay device
-tensors, and the step's random key is an int64 taken from the state's
-CPU ``torch.Generator`` (host-side, no device work). Hop k of the sampler
-draws with ``fold_in(key, k)``; dropout masks come from a device
-generator seeded with ``fold_in(key, 7)``, as the JAX step folds 7 into
-its key for dropout.
+A step reads only device state and makes no host sync: seed and label
+banks live on the device and are indexed by the device counter (lid =
+ctr % steps), per-step counters stay device tensors, and the step's keys
+come from the device counters as JAX's do (``legion_tpu/train.py::
+_device_key``): K10 ``step_keys`` derives hop k's key words from
+fold_in(fold_in(fold_in(base_key, ctr), tag), k), tag 0 for a train step
+and 1 for an eval step, and advances the counter, one launch a step. The
+host keeps Python twins of the counters, and from them seeds the dropout
+generator with fold_in(step key, 7), as the JAX step folds 7 into its key
+for dropout. So a state's counters alone fix every later batch.
+
+``TrainConfig.fused_steps`` = K: one ``train_step`` call takes K steps.
+On a card the first call runs an eager step, captures one step into a
+CUDA graph and replays it K-1 times; later calls replay it K times (the
+analog of JAX's ``lax.scan`` of K steps in one dispatch). On the CPU a
+call takes K eager steps. Either way the call returns the mean loss and
+sums the counters, and ``fit`` takes ``train_step // K`` calls an epoch.
 
 Ported: storage set-up on one device (``_setup_storage``) for a device
 dataset and for a host ``LegionDataset``: measured buffer caps from
@@ -20,10 +30,10 @@ unified cache on the card and the graph and features left in host RAM,
 their misses read by K4/K5 in place. Both dedup modes: with map dedup
 (the config's default) the state holds the sampler's [V] position map
 (``state["pos_map"]``), shared by the train and eval samplers and clean
-between batches. Also the one-step train step, the eval step,
-``run_eval`` and ``fit``. Not ported (ROADMAP): the staged host pipeline
-(a TPU-runtime workaround), meshes and clique caches, ``interbatch``,
-``fused_steps``, checkpoints.
+between batches. Also the train step (one step or ``fused_steps``), the
+eval step, ``run_eval`` and ``fit``. Not ported (ROADMAP): the staged host
+pipeline (a TPU-runtime workaround), meshes and clique caches,
+``interbatch``, checkpoints.
 """
 
 from __future__ import annotations
@@ -44,15 +54,19 @@ from legion_tpu_torch.cache.unified_cache import (CachedFeatureSource,
 from legion_tpu_torch.config import LegionConfig
 from legion_tpu_torch.models.common import make_model
 from legion_tpu_torch.models.lp_sage import check_thirds
+from legion_tpu_torch.ops import kernels
 from legion_tpu_torch.ops.host_memory import HostTable
 from legion_tpu_torch.pipeline.schedule import Mode, Schedule
 from legion_tpu_torch.sampling.access import (CachedTopoAccess,
                                               DeviceCSRAccess,
-                                              WindowedCSRAccess, fold_in)
+                                              WindowedCSRAccess, fold_in,
+                                              step_keys)
 from legion_tpu_torch.sampling.sampler import NeighborSampler, SampleBatch
 from legion_tpu_torch.utils.metrics import StepMetrics
 
-_DROPOUT_TAG = 7
+# fold_in tags, as in legion_tpu/train.py: a train step's key (:590, :606),
+# an eval step's (:765), dropout's (:612)
+_TRAIN_TAG, _EVAL_TAG, _DROPOUT_TAG = 0, 1, 7
 _PRESAMPLE_OFFSET = 17
 
 
@@ -85,10 +99,6 @@ def _build_bank(sets: List[np.ndarray], steps: int, static_bs: int,
     return bank
 
 
-def _step_key(gen: torch.Generator) -> int:
-    return int(torch.randint(0, 2 ** 62, (1,), generator=gen).item())
-
-
 class Trainer:
     def __init__(self, dataset, config: LegionConfig,
                  device: torch.device):
@@ -107,9 +117,19 @@ class Trainer:
                 "reads host misses in place inside its kernels; the staged "
                 "split-program pipeline exists for TPU runtimes and is not "
                 "ported")
-        if config.train.fused_steps != 1 or config.train.interbatch:
+        if config.train.interbatch:
             raise NotImplementedError(
-                "fused_steps and interbatch are ROADMAP items")
+                "interbatch is a ROADMAP item"
+                + (" (and fused_steps applies to the fused single-program "
+                   "path, legion_tpu/train.py:191-193)"
+                   if config.train.fused_steps > 1 else ""))
+        if config.train.fused_steps < 1:
+            raise ValueError(
+                f"fused_steps={config.train.fused_steps}: at least 1")
+        # train steps a ``train_step`` call takes (fit's unit of work)
+        self.fused_steps = config.train.fused_steps
+        self._graph = self._side_stream = None
+        self.graph_launches: Dict[str, int] = {}
         meta = dataset.meta
         V = meta.num_nodes
         scfg = config.sampler
@@ -332,35 +352,73 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def init_state(self) -> Dict:
-        """Fresh parameters (from ``train.seed``), a fresh Adam, zeroed
-        counters, the step-key generators and the sampler state
-        (``pos_map``: the [V] position map of map dedup, a 1-element dummy
-        for sort dedup, as in ``legion_tpu/train.py:498-505``)."""
+        """Fresh parameters (from ``train.seed``), a fresh Adam (capturable
+        on a card, so that eager and replayed steps run the same update),
+        zeroed counters (Python ints, and int64 twins on the device that
+        K10 reads and advances), the base key ``train.seed + 1`` on the
+        device (JAX's ``PRNGKey(seed + 1)``, ``legion_tpu/train.py:
+        507-508``) and the sampler state (``pos_map``: the [V] position
+        map of map dedup, a 1-element dummy for sort dedup, as in
+        ``legion_tpu/train.py:498-505``). A new state is captured anew by
+        the first fused ``train_step`` that takes it."""
         tcfg = self.config.train
-        g = torch.Generator(device=self.device)
+        dev = self.device
+        g = torch.Generator(device=dev)
         g.manual_seed(tcfg.seed)
         self.model.reset_parameters(g)
         opt = torch.optim.Adam(self.model.parameters(), lr=tcfg.lr,
-                               betas=(0.9, 0.999), eps=1e-8)
-        gen, eval_gen = torch.Generator(), torch.Generator()
-        gen.manual_seed(tcfg.seed + 1)
-        eval_gen.manual_seed(tcfg.seed + 2)
+                               betas=(0.9, 0.999), eps=1e-8,
+                               capturable=dev.type == "cuda")
+        self._graph = self._graph_state = None
         # lp_sage sums a loss into "correct": f32 counters
         mdt = torch.float32 if self.is_lp else torch.int32
         zero = lambda: torch.zeros((), dtype=mdt,  # noqa: E731
-                                   device=self.device)
-        return {"model": self.model, "opt": opt, "gen": gen,
-                "eval_gen": eval_gen, "train_ctr": 0, "valid_ctr": 0,
-                "test_ctr": 0, "correct": zero(), "total": zero(),
-                "pos_map": self.sampler_t.init_state(self.device)}
+                                   device=dev)
+        ctr = lambda: torch.zeros((), dtype=torch.int64,  # noqa: E731
+                                  device=dev)
+        return {"model": self.model, "opt": opt,
+                "base_key": torch.full((), self._base_key, dtype=torch.int64,
+                                       device=dev),
+                "train_ctr": 0, "valid_ctr": 0, "test_ctr": 0,
+                "train_ctr_d": ctr(), "valid_ctr_d": ctr(),
+                "test_ctr_d": ctr(), "correct": zero(), "total": zero(),
+                "pos_map": self.sampler_t.init_state(dev)}
 
     # ------------------------------------------------------------------
-    def _sample_fetch(self, state: Dict, sampler: NeighborSampler,
-                      bank: torch.Tensor, lid: int, key: int
-                      ) -> Tuple[SampleBatch, torch.Tensor, torch.Tensor]:
+    @property
+    def _base_key(self) -> int:
+        return self.config.train.seed + 1
+
+    def step_key(self, ctr: int, tag: int) -> int:
+        """The host's copy of a step's key, fold_in(fold_in(base_key,
+        ctr), tag): K10 derives the same on the card."""
+        return fold_in(fold_in(self._base_key, ctr), tag)
+
+    def _seed_dropout(self, key: int) -> None:
+        """Dropout draws from (fold_in(step key, 7), offset 0), as the JAX
+        step folds 7 into its key (``legion_tpu/train.py:612``)."""
+        self._drop_gen.manual_seed(fold_in(key, _DROPOUT_TAG) & (2**63 - 1))
+
+    def _batch_inputs(self, state: Dict, sampler: NeighborSampler,
+                      bank: torch.Tensor, ybank: torch.Tensor, n: int,
+                      ctr: str, tag: int):
+        """Seeds, labels and key words of the batch at the device counter
+        ``state[ctr + "_d"]``, read on the card (no host value enters):
+        lid = ctr % n selects the bank row, then K10 derives the keys and
+        advances the counter."""
         bs = sampler.config.batch_size
-        seeds = bank[lid * bs:(lid + 1) * bs]
-        batch = sampler.sample(self.graph_access, seeds, key,
+        ctr_d = state[ctr + "_d"]
+        lid = (ctr_d % n).reshape(1)
+        seeds = bank.view(n, bs).index_select(0, lid).reshape(bs)
+        y = ybank.view(n, bs).index_select(0, lid).reshape(bs)
+        keys = step_keys(state["base_key"], ctr_d, tag,
+                         sampler.config.num_hops)
+        return seeds, y, keys
+
+    def _sample_fetch(self, state: Dict, sampler: NeighborSampler,
+                      seeds: torch.Tensor, keys: torch.Tensor
+                      ) -> Tuple[SampleBatch, torch.Tensor, torch.Tensor]:
+        batch = sampler.sample(self.graph_access, seeds, keys,
                                pos_map=state["pos_map"])
         # fetch only the model-visible id prefix
         x, feat_hits = self.feature_source.fetch(
@@ -370,10 +428,17 @@ class Trainer:
     def _train_on(self, state: Dict, batch: SampleBatch, x: torch.Tensor,
                   seeds: torch.Tensor, y: torch.Tensor, key: int
                   ) -> torch.Tensor:
-        """Forward, backward and one Adam step on one batch."""
+        """Forward, backward and one Adam step on one batch, dropout from
+        the step key ``key``."""
+        self._seed_dropout(key)
+        return self._update(state, batch, x, seeds, y)
+
+    def _update(self, state: Dict, batch: SampleBatch, x: torch.Tensor,
+                seeds: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """Forward, backward and one Adam step with the dropout generator
+        as seeded (no host work: the captured part of a step)."""
         model, opt = state["model"], state["opt"]
         model.train()
-        self._drop_gen.manual_seed(fold_in(key, _DROPOUT_TAG) & (2**63 - 1))
         scfg = self.sampler_t.config
         if self.is_lp:
             loss = model.loss(x, batch, scfg, seeds >= 0, self._drop_gen)
@@ -385,27 +450,116 @@ class Trainer:
         opt.step()
         return loss.detach()
 
-    def train_step(self, state: Dict) -> Tuple[Dict, torch.Tensor]:
-        """One train step; the loss stays a device tensor."""
+    def _step_body(self, state: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One train step on device state alone (the unit a CUDA graph
+        captures): the batch at ``train_ctr_d``, its update, and the
+        per-step counters [edges, slots, feature hits, topology hits,
+        topology total] as one int32 tensor: trained edges, fetched id
+        slots, the slots the feature cache served, and the adjacency reads
+        the topology cache served (the live PCM analog)."""
         sampler = self.sampler_t
-        bs = sampler.config.batch_size
-        lid = state["train_ctr"] % self.schedule.train_step
-        key = _step_key(state["gen"])
-        batch, x, feat_hits = self._sample_fetch(state, sampler,
-                                                 self.train_bank, lid, key)
-        seeds = self.train_bank[lid * bs:(lid + 1) * bs]
-        y = self.train_ybank[lid * bs:(lid + 1) * bs]
-        loss = self._train_on(state, batch, x, seeds, y, key)
-        # per-step counters (device scalars, the live PCM analog): trained
-        # edges, fetched id slots, the slots the feature cache served, and
-        # the adjacency reads the topology cache served
+        seeds, y, keys = self._batch_inputs(
+            state, sampler, self.train_bank, self.train_ybank,
+            self.schedule.train_step, "train_ctr", _TRAIN_TAG)
+        batch, x, feat_hits = self._sample_fetch(state, sampler, seeds, keys)
+        loss = self._update(state, batch, x, seeds, y)
         nid = batch.node_ids[:sampler.max_ids]
-        self.last_edges = batch.num_edges.sum(dtype=torch.int32)
-        self.last_slots = (nid >= 0).sum(dtype=torch.int32)
-        self.last_feat_hits = feat_hits
-        self.last_topo_hits, self.last_topo_total = self._topo_hit_count(
-            batch, self.graph_access)
+        topo_hits, topo_total = self._topo_hit_count(batch, self.graph_access)
+        counts = torch.stack([batch.num_edges.sum(dtype=torch.int32),
+                              (nid >= 0).sum(dtype=torch.int32),
+                              feat_hits.to(torch.int32), topo_hits,
+                              topo_total])
+        return loss, counts
+
+    def _eager_step(self, state: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
+        self._seed_dropout(self.step_key(state["train_ctr"], _TRAIN_TAG))
+        out = self._step_body(state)
         state["train_ctr"] += 1
+        return out
+
+    def _capture(self, state: Dict, stream) -> None:
+        """Capture one step (``_step_body``, and the sums of its loss and
+        counters into static tensors) into a CUDA graph on ``stream`` with
+        a private memory pool, as PyTorch's whole-network recipe does. The
+        dropout generator is registered with the graph, so that a replay
+        draws from the seed and offset it holds when the replay starts."""
+        if not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
+            raise RuntimeError(
+                f"torch {torch.__version__} cannot register a generator "
+                "with a CUDA graph: replayed steps would repeat the first "
+                "step's dropout masks (fused_steps needs "
+                "CUDAGraph.register_generator_state)")
+        self._loss_sum = torch.zeros((), dtype=torch.float32,
+                                     device=self.device)
+        self._counts_sum = torch.zeros((5,), dtype=torch.int32,
+                                       device=self.device)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self._drop_gen)
+        before = dict(kernels.LAUNCHES)
+        with torch.cuda.graph(graph, stream=stream):
+            loss, counts = self._step_body(state)
+            self._loss_sum.add_(loss)
+            self._counts_sum.add_(counts)
+        self.graph_launches = {k: v - before[k]
+                               for k, v in kernels.LAUNCHES.items()}
+        self._graph, self._graph_state = graph, state
+
+    def _replay(self, state: Dict) -> None:
+        """One captured step: reseed dropout for this step, replay."""
+        self._seed_dropout(self.step_key(state["train_ctr"], _TRAIN_TAG))
+        self._graph.replay()
+        state["train_ctr"] += 1
+
+    def _fused_call(self, state: Dict, K: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """K steps as CUDA-graph replays. The first call for a state runs
+        one eager step on a side stream (it builds the library, finds K9's
+        grid, allocates Adam's state), sets the grads to None, captures one
+        step and replays it K-1 times; a later call replays K times.
+        Returns the mean loss and the summed counters."""
+        if self._graph is None or self._graph_state is not state:
+            # one side stream a trainer: cuBLAS keeps a workspace a stream
+            if self._side_stream is None:
+                self._side_stream = torch.cuda.Stream(device=self.device)
+            side = self._side_stream
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                loss0, counts0 = self._eager_step(state)
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            state["opt"].zero_grad(set_to_none=True)
+            self._graph = None
+            self._capture(state, side)
+            self._loss_sum.copy_(loss0)
+            self._counts_sum.copy_(counts0)
+            n = K - 1
+        else:
+            self._loss_sum.zero_()
+            self._counts_sum.zero_()
+            n = K
+        for _ in range(n):
+            self._replay(state)
+        return self._loss_sum / K, self._counts_sum.clone()
+
+    def train_step(self, state: Dict) -> Tuple[Dict, torch.Tensor]:
+        """``fused_steps`` train steps (one by default); the loss, their
+        mean, stays a device tensor. ``last_edges``, ``last_slots``,
+        ``last_feat_hits``, ``last_topo_hits`` and ``last_topo_total`` hold
+        the counters summed over the steps, as JAX's ``scan`` form sums
+        them (``legion_tpu/train.py:725-739``). On a card, K > 1 steps are
+        CUDA-graph replays of one captured step; on the CPU, K eager steps.
+        A capture or replay that fails raises: nothing falls back to eager
+        steps."""
+        K = self.fused_steps
+        if K > 1 and self.device.type == "cuda":
+            loss, counts = self._fused_call(state, K)
+        else:
+            outs = [self._eager_step(state) for _ in range(K)]
+            loss = outs[0][0] if K == 1 else \
+                torch.stack([o[0] for o in outs]).mean()
+            counts = outs[0][1] if K == 1 else \
+                torch.stack([o[1] for o in outs]).sum(0, dtype=torch.int32)
+        (self.last_edges, self.last_slots, self.last_feat_hits,
+         self.last_topo_hits, self.last_topo_total) = counts.unbind()
         return state, loss
 
     def _topo_hit_count(self, batch: SampleBatch, access,
@@ -429,6 +583,8 @@ class Trainer:
 
     @torch.no_grad()
     def _eval_step(self, state: Dict, mode: Mode) -> None:
+        """One eval batch, eager (JAX's eval step is unfused), keys from
+        (base_key, the mode's counter, tag 1) by K10."""
         sampler = self.sampler_e
         bs = sampler.config.batch_size
         if mode == Mode.VALID:
@@ -437,11 +593,9 @@ class Trainer:
         else:
             bank, ybank, n, ctr = (self.test_bank, self.test_ybank,
                                    self.schedule.test_step, "test_ctr")
-        lid = state[ctr] % n
-        key = _step_key(state["eval_gen"])
-        batch, x, _ = self._sample_fetch(state, sampler, bank, lid, key)
-        seeds = bank[lid * bs:(lid + 1) * bs]
-        y = ybank[lid * bs:(lid + 1) * bs]
+        seeds, y, keys = self._batch_inputs(state, sampler, bank, ybank, n,
+                                            ctr, _EVAL_TAG)
+        batch, x, _ = self._sample_fetch(state, sampler, seeds, keys)
         model = state["model"]
         model.eval()
         valid = seeds >= 0
@@ -478,11 +632,16 @@ class Trainer:
         stats: List[EpochStats] = []
         self.epoch_metrics: List[StepMetrics] = []
         cache_on = self.cache_plan is not None
+        K = self.fused_steps
+        if K > 1 and sch.train_step % K:
+            raise ValueError(
+                f"fused_steps={K} must divide the epoch's "
+                f"train_step={sch.train_step} for the exact schedule")
         for epoch in range(sch.epochs):
             t0 = time.time()
             losses, hits, edges, slots = [], [], [], []
             sm = StepMetrics(feat_dim=self.dataset.meta.feature_dim)
-            for _ in range(sch.train_step):
+            for _ in range(sch.train_step // K):
                 state, loss = self.train_step(state)
                 losses.append(loss)
                 hits.append(self.last_feat_hits)
@@ -493,7 +652,7 @@ class Trainer:
             th, te, ts = (int(v) for v in torch.stack(
                 [torch.stack(hits).sum(), torch.stack(edges).sum(),
                  torch.stack(slots).sum()]).cpu())
-            sm.steps = len(losses)
+            sm.steps = len(losses) * K
             sm.edges, sm.feat_hits = te, th
             sm.nodes = sm.feat_total = ts
             if not cache_on:
