@@ -65,7 +65,18 @@ CUDA card, nvcc (``$CUDA_HOME`` or ``/usr/local/cuda``) and no network.
      copied to the card), each for train steps and an eval pass, with
      per-step times and hit counters, and the launches of each path;
   7. checks a small HT slice on the card against the same slice on the
-     CPU.
+     CPU;
+  8. writes phase 5's host dataset to disk in Legion's layout and trains
+     it through the launcher (``legion_tpu_torch.run.main``, GraphSAGE at
+     full width, features on the host: the memmaps copied into RAM and
+     registered): one epoch with a checkpoint, two epochs unbroken, and
+     one epoch resumed in a fresh trainer, whose first batch must equal
+     the unbroken run's at the same counter exactly and whose loss and
+     parameters must agree with its second epoch within the atomics'
+     order; then the checkpoint restored for fused steps (CUDA-graph
+     replays) against eager steps, as ``phase_fused`` holds them. Prints
+     what ``cudaHostRegister`` returns for a copy-on-write file mapping
+     (``memmap_probe``; the port never registers one).
 
 Prints the card's ``name, power.limit`` line, the per-kernel JSON line and,
 last, ``{"ok": true, "device": ...}`` only when every phase passed. Any
@@ -88,6 +99,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -143,6 +155,9 @@ PATH_KERNELS = {
     + SORT_DEDUP,
     "lp_sage": ("gather_rows", "segment_sum", "windowed_draw", "step_keys")
     + SORT_DEDUP,
+    # the launcher on a dataset on disk, features on the host (phase 8)
+    "cli": ("gather_rows", "segment_sum", "windowed_draw", "cached_gather",
+            "step_keys") + SORT_DEDUP,
 }
 # the paths whose CUDA-graph replays phase_fused holds against eager steps
 FUSED_PATHS = ("device", "device-map", "gat", "HT")
@@ -1336,6 +1351,14 @@ class StepRecorder:
                 setattr(obj, name, orig)
 
 
+def rel_norm(params, ref):
+    """Norm-wise relative difference of two lists of parameters, over all
+    of them: ||params - ref|| / ||ref||."""
+    num = sum(float((a.detach().float() - b.float()).norm()) ** 2
+              for a, b in zip(params, ref)) ** 0.5
+    return num / sum(float(b.float().norm()) ** 2 for b in ref) ** 0.5
+
+
 def phase_fused(tr, torch, path, calls=2):
     """``fused_steps = FUSED_K`` on ``path``: ``calls`` train_step calls
     (the first runs an eager step, captures one step and replays it
@@ -1398,11 +1421,7 @@ def phase_fused(tr, torch, path, calls=2):
     if not torch.equal(masks_e, masks_f):
         fail(f"fused {path}: a replayed step's dropout masks differ from "
              f"the eager step's")
-    params_f = [p.detach() for p in tr.model.parameters()]
-    num = sum(float((a.float() - b.float()).norm()) ** 2
-              for a, b in zip(params_f, params_e)) ** 0.5
-    den = sum(float(b.float().norm()) ** 2 for b in params_e) ** 0.5
-    p_rel = num / den
+    p_rel = rel_norm(tr.model.parameters(), params_e)
     l_rel = max(abs(f - e) / abs(e) for f, e in zip(fused, eager_loss))
     print(f"  fused {path}: K {K}, {calls} calls = {steps} steps against "
           f"{steps} eager steps: ids and edge counts of every step exact, "
@@ -1842,6 +1861,13 @@ def phase_reference(torch):
                        f"device {model} {dedup}")
 
 
+def fmt_setup(setup_s):
+    """``Trainer.setup_s``: seconds by stage, and the bytes copied into
+    RAM for host tables."""
+    return ", ".join(f"{k} {v}" if k.endswith("_bytes") else f"{k} {v:.3f} s"
+                     for k, v in setup_s.items())
+
+
 def host_trainer(ds, torch, name, **cache_kw):
     """A trainer on the host dataset, with its set-up time, plan and
     device memory."""
@@ -1851,9 +1877,8 @@ def host_trainer(ds, torch, name, **cache_kw):
     tr = Trainer(ds, bench_config(ds, **cache_kw), device="cuda")
     torch.cuda.synchronize()
     msg = (f"  {name}: set-up {time.perf_counter() - t0:.2f} s ("
-           + ", ".join(f"{k} {v:.2f} s" for k, v in tr.setup_s.items())
-           + f") | caps {tr.compact_caps} | device memory "
-           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB (peak "
+           + fmt_setup(tr.setup_s) + f") | caps {tr.compact_caps} | device "
+           f"memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB (peak "
            f"{torch.cuda.max_memory_allocated() / 2**30:.2f})")
     p = tr.cache_plan
     if p is not None:
@@ -2295,6 +2320,264 @@ def phase_host_reference(torch):
     trs[1].close()
 
 
+# the launcher's flags in phase 8 (bench.py --features host widths)
+CLI_ARGS = ("--features", "host", "--cache-memory", str(CACHE_BYTES),
+            "--train-batch-size", "8000", "--fanout", "25", "10",
+            "--hidden", "256")
+
+
+class BatchAt:
+    """Records, through the launcher, the train batch sampled at counter
+    ``ctr`` in each run (``label``, set before the run: ids and per-hop
+    edge counts, copied on the card) and the counter of each run's first
+    train batch: a wrapper around ``Trainer._sample_fetch``, which a train
+    step calls with the train sampler before it advances the host
+    counter."""
+
+    def __init__(self, ctr):
+        from legion_tpu_torch.train import Trainer
+        self.ctr, self.label, self.at, self.first = ctr, None, {}, {}
+        self._orig = orig = Trainer._sample_fetch
+
+        def sample_fetch(tr, state, sampler, seeds, keys):
+            out = orig(tr, state, sampler, seeds, keys)
+            if sampler is tr.sampler_t:
+                self.first.setdefault(self.label, state["train_ctr"])
+                if state["train_ctr"] == self.ctr:
+                    self.at.setdefault(self.label, []).append(
+                        (out[0].node_ids.clone(), out[0].num_edges.clone()))
+            return out
+        Trainer._sample_fetch = sample_fetch
+
+    def close(self):
+        from legion_tpu_torch.train import Trainer
+        Trainer._sample_fetch = self._orig
+
+
+def memmap_probe(path):
+    """What a plain ``cudaHostRegister`` returns for a
+    copy-on-write mapping of a file (``np.memmap`` mode "c") of the whole
+    features file, and how long it takes: a record, not a path of the port
+    (which copies read-only tables into RAM). Never fails."""
+    import ctypes
+
+    import numpy as np
+    from legion_tpu_torch.ops import kernels
+    mm = np.memmap(path, np.float32, mode="c")
+    dev = ctypes.c_void_p()
+    t0 = time.perf_counter()
+    rc = kernels.lib().lt_host_register(mm.ctypes.data, mm.nbytes,
+                                        ctypes.byref(dev))
+    dt = time.perf_counter() - t0
+    if rc == 0:
+        kernels.lib().lt_host_unregister(mm.ctypes.data)
+    print(f"  memmap_probe: cudaHostRegister of a mode 'c' memmap of "
+          f"{mm.nbytes} bytes: {kernels.lib().lt_error_string(rc).decode()}"
+          f" ({rc}) in {dt:.3f} s")
+    del mm
+
+
+def cli_run(argv, torch, label):
+    """One ``legion_tpu_torch.run.main`` call on the card, in process:
+    fails on a non-finite loss or a valid accuracy outside [0, 1]. Returns
+    the trainer (closed: its host tables unpinned), the state, the epoch
+    stats and the kernels' launch counts of the run."""
+    from legion_tpu_torch import run
+    from legion_tpu_torch.ops import kernels
+    print(f" {label}: python -m legion_tpu_torch.run " + " ".join(argv))
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    tr, state, stats = run.main(argv + ["--device", "cuda"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    host = tr.feature_source.host
+    if host.device is None or not host.array.flags.writeable:
+        fail(f"{label}: the host feature table is not registered RAM")
+    if tr.setup_s["ram_copy_bytes"] != tr.dataset.features.nbytes:
+        fail(f"{label}: copied {tr.setup_s['ram_copy_bytes']} bytes into "
+             f"RAM, not the features' {tr.dataset.features.nbytes}")
+    tr.close()
+    for st, sm in zip(stats, tr.epoch_metrics):
+        if not (math.isfinite(st.train_loss) and 0.0 <= st.valid_acc <= 1.0):
+            fail(f"{label}: epoch {st.epoch} loss {st.train_loss}, valid acc "
+                 f"{st.valid_acc}")
+        print(f"  {label} epoch {st.epoch}: {st.seconds:.3f} s (train "
+              f"{sm.seconds / sm.steps * 1e3:.3f} ms/step over {sm.steps} "
+              f"steps) | loss {st.train_loss!r} | valid acc "
+              f"{st.valid_acc:.4f} | trained edges/s {sm.edges_per_s:.1f} | "
+              f"feature hit rate {sm.hit_rate:.4f}")
+    print(f"  {label}: {secs:.3f} s in all | set-up {fmt_setup(tr.setup_s)}"
+          f" | caps {tr.compact_caps} | train_ctr {state['train_ctr']}")
+    return tr, state, stats, counts
+
+
+def phase_cli(hds, torch, h_step_ms):
+    """Phase 8: the launcher from a dataset on disk. Writes ``hds`` (phase
+    5's host dataset) in Legion's layout to a temporary directory and
+    trains GraphSAGE at full width in host mode through
+    ``legion_tpu_torch.run.main`` (the memmaps copied into RAM and
+    registered, a 200 MB cache, misses read by K4): B1 one epoch with a
+    checkpoint, A two epochs unbroken, B2 one epoch resumed from B1's
+    checkpoint in a fresh trainer. Fails unless every run's losses are
+    finite and its valid accuracy in [0, 1], A launched every kernel of
+    ``PATH_KERNELS["cli"]``, B2's first batch has exactly the ids and edge
+    counts of A's batch at the same counter, and B2's epoch loss and
+    parameters agree with A's second epoch within ``phase_fused``'s
+    tolerance (K2's f32 atomics). Then restores B1's checkpoint into a
+    fresh trainer three times: ``FUSED_K`` steps as one fused call (a
+    first capture), as eager steps, and fused again (a capture after
+    one); the fused calls must equal the eager steps in every sampled id
+    and dropout mask, and in loss and parameters within the same
+    tolerance. Prints the dataset's write and load seconds, each run's
+    set-up by stage (the RAM copy's seconds and bytes among them) and
+    epochs, and the checkpoint's size and its save and restore seconds."""
+    from legion_tpu_torch import run
+    from legion_tpu_torch.data import (LegionDataset, infer_meta,
+                                       write_legion_dataset)
+    from legion_tpu_torch.train import Trainer
+    from legion_tpu_torch.utils import (latest_step, restore_checkpoint,
+                                        save_checkpoint)
+    with tempfile.TemporaryDirectory(prefix="legion_cli_") as tmp:
+        d, ck = os.path.join(tmp, "dataset"), os.path.join(tmp, "ckpt")
+        t0 = time.perf_counter()
+        write_legion_dataset(d, hds.graph, hds.features, hds.labels,
+                             hds.train_ids, hds.valid_ids, hds.test_ids)
+        t1 = time.perf_counter()
+        meta = infer_meta(d, batch_size=8000)
+        LegionDataset.load(meta)
+        t2 = time.perf_counter()
+        wrote = sum(os.path.getsize(os.path.join(d, f))
+                    for f in os.listdir(d))
+        print(f"  dataset on disk: {wrote} bytes written in {t1 - t0:.3f} s "
+              f"| infer_meta + load (memmaps) {t2 - t1:.3f} s | V "
+              f"{meta.num_nodes} E {meta.num_edges} F {meta.feature_dim} "
+              f"classes {meta.num_classes} train {meta.train_size}")
+        memmap_probe(os.path.join(d, "features"))
+        base = ["--dataset-name", "custom", "--dataset-path", d, *CLI_ARGS]
+        rec = None
+        try:
+            tr, st, _, _ = cli_run(
+                base + ["--epoch", "1", "--checkpoint-dir", ck], torch, "B1")
+            n = st["train_ctr"]
+            if latest_step(ck) != n:
+                fail(f"B1: latest checkpoint {latest_step(ck)}, not {n}")
+            del tr, st
+            torch.cuda.empty_cache()
+            rec = BatchAt(n)
+            rec.label = "A"
+            tr, _, stats_a, counts = cli_run(base + ["--epoch", "2"], torch,
+                                             "A")
+            params_a = [p.detach().clone() for p in tr.model.parameters()]
+            ms_a = tr.epoch_metrics[1].seconds / tr.epoch_metrics[1].steps \
+                * 1e3
+            del tr
+            torch.cuda.empty_cache()
+            rec.label = "B2"
+            tr, st, stats_b, _ = cli_run(
+                base + ["--epoch", "1", "--resume", "--checkpoint-dir", ck],
+                torch, "B2")
+            params_b = [p.detach() for p in tr.model.parameters()]
+        finally:
+            if rec is not None:
+                rec.close()
+        print("  launches of run A: "
+              f"{ {k: v for k, v in counts.items() if v} }")
+        for name in PATH_KERNELS["cli"]:
+            if counts[name] <= 0:
+                fail(f"kernel {name} was not launched by the launcher run")
+        if counts["dedup_map"]:
+            fail("the launcher's sort-dedup run launched dedup_map")
+        seen = {k: len(v) for k, v in rec.at.items()}
+        if rec.first != {"A": 0, "B2": n} or seen != {"A": 1, "B2": 1}:
+            fail(f"first train batches at {rec.first}, batches at train_ctr "
+                 f"{n} {seen}: want A at 0, B2 at {n}, one each")
+        (ids_a, e_a), (ids_b, e_b) = rec.at["A"][0], rec.at["B2"][0]
+        if not (torch.equal(ids_a, ids_b) and torch.equal(e_a, e_b)):
+            fail(f"B2's first batch differs from A's batch at train_ctr {n}")
+        l_a, l_b = stats_a[1].train_loss, stats_b[0].train_loss
+        l_rel = abs(l_b - l_a) / abs(l_a)
+        p_rel = rel_norm(params_b, params_a)
+        print(f"  resume: B2's first batch equals A's at train_ctr {n} "
+              f"({int(e_a.sum())} edges) | epoch loss B2 {l_b!r} vs A's "
+              f"second {l_a!r} (rel {l_rel:.3g}, tol 1e-3) | parameters "
+              f"norm-wise rel {p_rel:.3g} (tol 2e-3) | A's second epoch "
+              f"{ms_a:.3f} ms/step from disk, phase 6's H from memory "
+              f"{h_step_ms:.3f} ms/step (one call; no claim)")
+        if not (l_rel <= 1e-3 and p_rel <= 2e-3):
+            fail(f"resume: B2 differs from A's second epoch beyond "
+                 f"tolerance (loss rel {l_rel}, parameters rel {p_rel})")
+        del tr, st, params_b
+        torch.cuda.empty_cache()
+
+        cfg = run.build_config(run.parse_args(base + ["--epoch", "1"]))
+        tr = Trainer(LegionDataset.load(cfg.dataset), cfg, "cuda")
+        rec = StepRecorder(tr, torch, FUSED_K)
+        out, restore_s = {}, []
+        try:
+            for label, K in (("fused", FUSED_K), ("eager", 1),
+                             ("fused again", FUSED_K)):
+                t0 = time.perf_counter()
+                state = restore_checkpoint(ck, tr, step=n)
+                torch.cuda.synchronize()
+                restore_s.append(time.perf_counter() - t0)
+                rec.bind(state)
+                tr.fused_steps = K
+                loss = float(torch.stack([tr.train_step(state)[1]
+                                          for _ in range(FUSED_K // K)])
+                             .mean())
+                if state["train_ctr"] != n + FUSED_K or \
+                        int(state["train_ctr_d"]) != n + FUSED_K:
+                    fail(f"restore + {label}: counters {state['train_ctr']}"
+                         f" / {int(state['train_ctr_d'])}, not "
+                         f"{n + FUSED_K}")
+                out[label] = (loss, [p.detach().clone()
+                                     for p in tr.model.parameters()],
+                              rec.take(), tr._graph,
+                              dict(tr.graph_launches))
+                if label == "eager":
+                    ck2 = os.path.join(tmp, "ckpt2")
+                    t0 = time.perf_counter()
+                    save_checkpoint(ck2, state, state["train_ctr"])
+                    save_s = time.perf_counter() - t0
+                    size = sum(os.path.getsize(os.path.join(ck2, f))
+                               for f in os.listdir(ck2))
+        finally:
+            rec.close()
+            tr.fused_steps = 1
+        tr.close()
+        le, pe, (ids_e, edges_e, masks_e), _, _ = out["eager"]
+        for label in ("fused", "fused again"):
+            lf, pf, (ids_f, edges_f, masks_f), _, launches = out[label]
+            if not (torch.equal(ids_e, ids_f) and torch.equal(edges_e,
+                                                              edges_f)):
+                fail(f"restore + {label}: a replayed step sampled other ids "
+                     "than the eager steps from the same checkpoint")
+            if not torch.equal(masks_e, masks_f):
+                fail(f"restore + {label}: a replayed step's dropout masks "
+                     "differ from the eager steps'")
+            l_rel = abs(lf - le) / abs(le)
+            p_rel = rel_norm(pf, pe)
+            print(f"  restore + {label} (K {FUSED_K}) against {FUSED_K} "
+                  f"eager steps: ids, edge counts and dropout masks exact | "
+                  f"loss {lf!r} vs {le!r} (rel {l_rel:.3g}) | parameters "
+                  f"rel {p_rel:.3g}")
+            if not (l_rel <= 1e-3 and p_rel <= 2e-3):
+                fail(f"restore + {label}: loss (rel {l_rel}) or parameters "
+                     f"(rel {p_rel}) beyond tolerance")
+            for name in PATH_KERNELS["cli"]:
+                if launches.get(name, 0) <= 0:
+                    fail(f"restore + {label}: the captured step launched "
+                         f"no {name}")
+        if out["fused again"][3] is out["fused"][3]:
+            fail("a restored state replayed the graph captured for "
+                 "another state")
+        print(f"  checkpoint: {size} bytes | save {save_s:.3f} s | restore "
+              f"{', '.join(f'{x:.3f}' for x in restore_s)} s")
+        del tr, out
+        torch.cuda.empty_cache()
+
+
 def kernel_symbol(name, key):
     """Whether the profiler's kernel name ``key`` is a device function of
     the launch count ``name`` (``<kernel>_bwd`` names the backward)."""
@@ -2602,6 +2885,11 @@ def main():
 
     print("phase 7: small-input HT slice, card vs CPU")
     phase_host_reference(torch)
+
+    print("phase 8: the launcher from a dataset on disk (host mode, "
+          "checkpoint, resume)")
+    phase_cli(hds, torch, step_ms["H"])
+    del hds
 
     kern = [dict(name=n, route="cuda", source=KERNELS[n]["source"],
                  replaces=KERNELS[n]["replaces"],

@@ -4,20 +4,19 @@
 // The reference keeps its full graph and features in pinned host memory
 // and lets kernels read a miss over PCIe through a UVA pointer
 // (cache_impl.cuh:239-272). A host table here is an existing numpy buffer,
-// so it is pinned in place with cudaHostRegister (never copied:
-// tensor.pin_memory() would double host RAM) and mapped into the device's
-// address space. A read-only mapping (a memmapped dataset file) needs
-// cudaHostRegisterReadOnly; a platform without it refuses the
-// registration, and the caller raises. legion_tpu_torch/ops/host_memory.py
-// keeps the registry of registered ranges.
+// so it is pinned in place with cudaHostRegister (tensor.pin_memory() would
+// copy it a second time) and mapped into the device's address space. The
+// buffer is writable RAM: the trainer copies a read-only array (a memmapped
+// dataset file) into RAM once before it registers it. A refused
+// registration is returned to the caller, which raises.
+// legion_tpu_torch/ops/host_memory.py keeps the registry of registered
+// ranges.
 #include "common.cuh"
 
 // Pin [ptr, ptr + bytes) and return its device address in *dev_ptr.
-LT_EXPORT int lt_host_register(void* ptr, int64_t bytes, int read_only,
-                               void** dev_ptr) {
-  unsigned int flags = cudaHostRegisterMapped | cudaHostRegisterPortable;
-  if (read_only) flags |= cudaHostRegisterReadOnly;
-  cudaError_t e = cudaHostRegister(ptr, (size_t)bytes, flags);
+LT_EXPORT int lt_host_register(void* ptr, int64_t bytes, void** dev_ptr) {
+  cudaError_t e = cudaHostRegister(
+      ptr, (size_t)bytes, cudaHostRegisterMapped | cudaHostRegisterPortable);
   if (e == cudaSuccess) {
     e = cudaHostGetDevicePointer(dev_ptr, ptr, 0);
     if (e != cudaSuccess) cudaHostUnregister(ptr);

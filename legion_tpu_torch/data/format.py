@@ -16,12 +16,11 @@ storage_management_impl.cuh:46-159):
 
 All arrays are read as numpy memmaps so billion-scale files never have to fit
 in RAM at once (the reference used mmap + pinned copies for the same reason).
-The memmaps are read-only. Host residency registers a table in place
-(``ops/host_memory.py``), and a read-only mapping needs
-``cudaHostRegisterReadOnly``, which the H100 machine this port was brought
-up on refuses (error 801): until a dataset on disk can be loaded into RAM,
-host mode needs an in-memory dataset (``data/synthetic.py``, or arrays
-copied out of the memmaps).
+The memmaps are read-only. In host mode the trainer copies each table that
+the kernels read in place (the features, and with the topology on the host
+the CSR) into RAM once and registers the copy (``train.py::in_ram``,
+``ops/host_memory.py``); pinning would lock the same pages anyway. Arrays
+that go to the card are streamed from the memmaps as they are.
 """
 
 from __future__ import annotations

@@ -4,11 +4,14 @@ The reference keeps its full CSR and feature table in pinned host memory
 and reads a cache miss over PCIe from inside the kernel
 (``cache_impl.cuh:239-272``). The JAX package could not: a TPU kernel does
 not read host memory, so it went through ``pure_callback``. Here a host
-table is an existing numpy buffer, pinned where it lies with
+table is an existing numpy buffer in RAM, pinned where it lies with
 ``cudaHostRegister`` (``csrc/host_memory.cu``) and mapped into the card's
-address space. It is never copied: ``tensor.pin_memory()`` would copy,
+address space. It is not copied again: ``tensor.pin_memory()`` would copy,
 which doubles host RAM at billion scale, and a failed registration
-raises rather than falls back to a copy on the device.
+raises rather than falls back to a copy on the device. A table to be
+registered must be writable: the trainer copies a read-only array (the
+memmaps of a dataset on disk) into RAM once before it registers it
+(``train.py::in_ram``).
 
 A registration covers exactly the array's bytes: rounding it out to whole
 pages would also register the neighbouring heap bytes, and the driver
@@ -40,16 +43,13 @@ _TYPESTR = {np.dtype(np.float32): "<f4", np.dtype(np.int64): "<i8",
             np.dtype(np.int32): "<i4"}
 
 
-def _register(lo: int, hi: int, read_only: bool) -> None:
+def _register(lo: int, hi: int) -> None:
     dev = ctypes.c_void_p()
-    rc = kernels.lib().lt_host_register(lo, hi - lo, int(read_only),
-                                        ctypes.byref(dev))
+    rc = kernels.lib().lt_host_register(lo, hi - lo, ctypes.byref(dev))
     if rc != 0:
         msg = kernels.lib().lt_error_string(rc).decode()
-        hint = " (a read-only mapping needs cudaHostRegisterReadOnly, " \
-            "which not every platform supports)" if read_only else ""
         raise RuntimeError(f"cudaHostRegister of {hi - lo} bytes at "
-                           f"{lo:#x} failed: {msg} ({rc}){hint}")
+                           f"{lo:#x} failed: {msg} ({rc})")
     if dev.value != lo:
         _unregister(lo)
         raise RuntimeError("registered host memory has a device address "
@@ -64,7 +64,7 @@ def _unregister(lo: int) -> None:
         raise RuntimeError(f"cudaHostUnregister at {lo:#x} failed: {msg}")
 
 
-def pin_range(lo: int, nbytes: int, read_only: bool) -> List[int]:
+def pin_range(lo: int, nbytes: int) -> List[int]:
     """Register the bytes of [lo, lo + nbytes) that are not registered
     yet, add a reference to every registered range that covers them, and
     return the starts of those ranges (for ``unpin_ranges``)."""
@@ -83,7 +83,7 @@ def pin_range(lo: int, nbytes: int, read_only: bool) -> List[int]:
     done = []
     try:
         for a, b in gaps:
-            _register(a, b, read_only)
+            _register(a, b)
             done.append(a)
             _PINNED[a] = [b, 0]
     except Exception:
@@ -120,10 +120,11 @@ class HostTable:
     """A C-contiguous numpy array in host RAM that kernels read in place.
 
     ``host`` is a CPU tensor over the same memory (no copy). With
-    ``pin=True`` the array is registered with the card, and ``device`` is
-    a CUDA tensor over the same memory: reading it crosses PCIe. The array
-    stays referenced for as long as it is registered. ``close()`` (or the
-    trainer's ``close()``) unregisters it."""
+    ``pin=True`` the array, which must be writable, is registered with the
+    card, and ``device`` is a CUDA tensor over the same memory: reading it
+    crosses PCIe. The array stays referenced for as long as it is
+    registered. ``close()`` (or the trainer's ``close()``) unregisters
+    it."""
 
     def __init__(self, array: np.ndarray, pin: bool):
         if not array.flags.c_contiguous:
@@ -131,6 +132,10 @@ class HostTable:
                              "(np.ascontiguousarray) before registering")
         if array.dtype not in _TYPESTR:
             raise ValueError(f"host table dtype {array.dtype}")
+        if pin and not array.flags.writeable:
+            raise ValueError("a registered host table must be writable RAM: "
+                             "copy a read-only array (a memmap) into RAM "
+                             "first")
         self.array = array
         with warnings.catch_warnings():
             # a read-only memmap: torch warns that it may not write to it
@@ -140,8 +145,7 @@ class HostTable:
         self._ranges: List[int] = []
         if pin and array.nbytes:
             ptr = array.ctypes.data
-            self._ranges = pin_range(ptr, array.nbytes,
-                                    read_only=not array.flags.writeable)
+            self._ranges = pin_range(ptr, array.nbytes)
             self.device = torch.as_tensor(_DeviceArray(ptr, array),
                                           device="cuda")
 

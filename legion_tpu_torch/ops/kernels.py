@@ -161,8 +161,7 @@ def lib() -> ctypes.CDLL:
                                         i32, i32, i64, i64, i32, p]
     so.lt_hop_attention_bwd.argtypes = [p, p, p, p, p, p, f32, p, p, i64,
                                         i32, i32, i32, i64, i64, i32, p]
-    so.lt_host_register.argtypes = [p, i64, i32,
-                                     ctypes.POINTER(ctypes.c_void_p)]
+    so.lt_host_register.argtypes = [p, i64, ctypes.POINTER(ctypes.c_void_p)]
     so.lt_host_unregister.argtypes = [p]
     so.lt_host_read_probe.argtypes = [p, i64, i64, p, i64, i32, p, p]
     so.lt_host_word_probe.argtypes = [p, p, i64, p, p]

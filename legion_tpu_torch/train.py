@@ -33,11 +33,26 @@ their misses read by K4/K5 in place. Both dedup modes: with map dedup
 between batches. Also the train step (one step or ``fused_steps``), the
 eval step, ``run_eval`` and ``fit``. Not ported (ROADMAP): the staged host
 pipeline (a TPU-runtime workaround), meshes and clique caches,
-``interbatch``, checkpoints.
+``interbatch``.
+
+Host tables are writable RAM: a table the kernels read in place that is a
+read-only array or a file mapping (the memmaps of ``LegionDataset.load``)
+is copied into RAM once (``in_ram``) before it is registered. Pinning locks
+every page of a table in RAM anyway, so the copy costs the RAM that
+pinning the mapped pages would, and the page cache of the files stays
+reclaimable. ``setup_s`` records the copy's seconds and bytes, and the
+registration's seconds. A dataset's arrays that go to the card are copied
+there as they are.
+
+Checkpoints (``utils/checkpoint.py``): ``fit`` saves every
+``checkpoint_every`` epochs; a state restored into a trainer sets the
+host's base key (``step_key``, dropout) from the checkpoint, as K10 reads
+the state's.
 """
 
 from __future__ import annotations
 
+import mmap
 import time
 from dataclasses import dataclass, replace
 from typing import Dict, List, Optional, Tuple
@@ -62,12 +77,33 @@ from legion_tpu_torch.sampling.access import (CachedTopoAccess,
                                               WindowedCSRAccess, fold_in,
                                               step_keys)
 from legion_tpu_torch.sampling.sampler import NeighborSampler, SampleBatch
+from legion_tpu_torch.utils.checkpoint import save_checkpoint
 from legion_tpu_torch.utils.metrics import StepMetrics
 
 # fold_in tags, as in legion_tpu/train.py: a train step's key (:590, :606),
 # an eval step's (:765), dropout's (:612)
 _TRAIN_TAG, _EVAL_TAG, _DROPOUT_TAG = 0, 1, 7
 _PRESAMPLE_OFFSET = 17
+
+
+def _file_backed(array: np.ndarray) -> bool:
+    a = array
+    while a is not None:
+        if isinstance(a, (np.memmap, mmap.mmap)):
+            return True
+        a = getattr(a, "base", None)
+    return False
+
+
+def in_ram(array: np.ndarray, dtype) -> np.ndarray:
+    """``array`` as a writable, C-contiguous ``dtype`` array in RAM: the
+    array itself when it is one, else a copy (a read-only array, a file
+    mapping, another dtype or layout), the one rule for a host table."""
+    a = np.asarray(array)
+    if a.dtype == dtype and a.flags.c_contiguous and a.flags.writeable \
+            and not _file_backed(a):
+        return a
+    return np.array(a, dtype=dtype, order="C")
 
 
 def _masked_ce(logits: torch.Tensor, labels: torch.Tensor,
@@ -192,14 +228,30 @@ class Trainer:
                                 meta.feature_dim, meta.num_classes,
                                 device=self.device, in_dim_pad=self.feat_pad)
         self._drop_gen = torch.Generator(device=self.device)
+        # the host's copy of the base key of the state last made or
+        # restored, for ``step_key`` and dropout (K10 reads the state's)
+        self._base_key = config.train.seed + 1
         self.test_acc: Optional[float] = None
 
     # ------------------------------------------------------------------
+    def _in_ram(self, array: np.ndarray, dtype) -> np.ndarray:
+        """``in_ram``, with the copy's seconds and bytes added to
+        ``setup_s["ram_copy"]`` and ``setup_s["ram_copy_bytes"]``."""
+        t0 = time.perf_counter()
+        out = in_ram(array, dtype)
+        if out is not array:
+            self.setup_s["ram_copy"] += time.perf_counter() - t0
+            self.setup_s["ram_copy_bytes"] += out.nbytes
+        return out
+
     def _host_table(self, array: np.ndarray, dtype) -> HostTable:
-        """A host array the kernels read in place, pinned when the
-        trainer runs on a card; unpinned by ``close()``."""
-        t = HostTable(np.ascontiguousarray(array, dtype),
-                      pin=self.device.type == "cuda")
+        """A host array the kernels read in place, in RAM (``in_ram``),
+        pinned when the trainer runs on a card (its seconds added to
+        ``setup_s["register"]``); unpinned by ``close()``."""
+        array = self._in_ram(array, dtype)
+        t0 = time.perf_counter()
+        t = HostTable(array, pin=self.device.type == "cuda")
+        self.setup_s["register"] += time.perf_counter() - t0
         self._host_tables.append(t)
         return t
 
@@ -234,6 +286,11 @@ class Trainer:
             return DeviceCSRAccess(csr)
 
         host_feats = host_indptr = host_indices = None
+        # set-up seconds by stage (presampling reads the host CSR in HT),
+        # and the bytes copied into RAM for host tables
+        self.setup_s: Dict[str, float] = {"ram_copy": 0.0,
+                                          "ram_copy_bytes": 0,
+                                          "register": 0.0}
         if hasattr(dataset, "device_arrays"):
             if cache_cfg.enabled:
                 raise ValueError("host-cached storage needs a host dataset")
@@ -241,8 +298,10 @@ class Trainer:
             base_access = _hbm_access(self.csr)
             degrees = self.csr.degrees()
         else:
-            feats = host_feats = np.ascontiguousarray(dataset.features,
-                                                      np.float32)
+            # the table K4 reads is in RAM; to the card, the array as it is
+            feats = host_feats = self._in_ram(dataset.features, np.float32) \
+                if feat_host else np.ascontiguousarray(dataset.features,
+                                                       np.float32)
             if topo_host:
                 # presampling reads adjacency from host memory, as the
                 # reference's UVA pre_sample (operator_impl.cu:301-397)
@@ -261,8 +320,6 @@ class Trainer:
 
         want_compact = scfg.auto_compact and scfg.node_caps is None
         na = ea = None
-        # set-up seconds by stage (presampling reads the host CSR in HT)
-        self.setup_s: Dict[str, float] = {}
         if cache_cfg.enabled or want_compact:
             t0 = time.perf_counter()
             steps = cache_cfg.presample_steps or self.schedule.train_step
@@ -313,8 +370,8 @@ class Trainer:
         t1 = time.perf_counter()
         cache = UnifiedCache.build_from_host(
             plan, host_feats if feat_host else None,
-            dataset.graph.indptr if topo_host else None,
-            dataset.graph.indices if topo_host else None, V,
+            host_indptr.array if topo_host else None,
+            host_indices.array if topo_host else None, V,
             feat_dtype=feat_dtype, device=dev)
         self.cache = cache
         self.setup_s.update(plan=t1 - t0, fill=time.perf_counter() - t1)
@@ -356,11 +413,11 @@ class Trainer:
         on a card, so that eager and replayed steps run the same update),
         zeroed counters (Python ints, and int64 twins on the device that
         K10 reads and advances), the base key ``train.seed + 1`` on the
-        device (JAX's ``PRNGKey(seed + 1)``, ``legion_tpu/train.py:
-        507-508``) and the sampler state (``pos_map``: the [V] position
-        map of map dedup, a 1-element dummy for sort dedup, as in
-        ``legion_tpu/train.py:498-505``). A new state is captured anew by
-        the first fused ``train_step`` that takes it."""
+        device and on the host (JAX's ``PRNGKey(seed + 1)``,
+        ``legion_tpu/train.py:507-508``) and the sampler state
+        (``pos_map``: the [V] position map of map dedup, a 1-element dummy
+        for sort dedup, as in ``legion_tpu/train.py:498-505``). A new state
+        is captured anew by the first fused ``train_step`` that takes it."""
         tcfg = self.config.train
         dev = self.device
         g = torch.Generator(device=dev)
@@ -370,6 +427,7 @@ class Trainer:
                                betas=(0.9, 0.999), eps=1e-8,
                                capturable=dev.type == "cuda")
         self._graph = self._graph_state = None
+        self._base_key = tcfg.seed + 1
         # lp_sage sums a loss into "correct": f32 counters
         mdt = torch.float32 if self.is_lp else torch.int32
         zero = lambda: torch.zeros((), dtype=mdt,  # noqa: E731
@@ -385,10 +443,6 @@ class Trainer:
                 "pos_map": self.sampler_t.init_state(dev)}
 
     # ------------------------------------------------------------------
-    @property
-    def _base_key(self) -> int:
-        return self.config.train.seed + 1
-
     def step_key(self, ctr: int, tag: int) -> int:
         """The host's copy of a step's key, fold_in(fold_in(base_key,
         ctr), tag): K10 derives the same on the card."""
@@ -622,10 +676,13 @@ class Trainer:
         return state, acc
 
     # ------------------------------------------------------------------
-    def fit(self, state: Optional[Dict] = None, verbose: bool = True
+    def fit(self, state: Optional[Dict] = None, verbose: bool = True,
+            checkpoint_dir: str = "", checkpoint_every: int = 0
             ) -> Tuple[Dict, List[EpochStats]]:
         """The reference schedule: per epoch train then valid; test once
-        at the end."""
+        at the end. ``schedule.epochs`` epochs from the state's counters (a
+        restored state runs as many more). ``checkpoint_every`` > 0 saves
+        to ``checkpoint_dir`` after every N-th epoch, at ``train_ctr``."""
         if state is None:
             state = self.init_state()
         sch = self.schedule
@@ -670,6 +727,9 @@ class Trainer:
                       f"loss {train_loss:.4f} | val acc {acc:.4f} | "
                       f"{sm.edges_per_s / 1e6:.1f}M edges/s | "
                       f"{sm.nodes_per_s / 1e6:.1f}M nodes/s{hit_info}")
+            if checkpoint_dir and checkpoint_every > 0 and \
+                    (epoch + 1) % checkpoint_every == 0:
+                save_checkpoint(checkpoint_dir, state, state["train_ctr"])
         state, self.test_acc = self.run_eval(state, Mode.TEST)
         if verbose:
             print(f"Test acc {self.test_acc:.4f}")

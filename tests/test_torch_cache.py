@@ -507,13 +507,13 @@ def test_registered_ranges_are_shared_and_counted(monkeypatch):
     calls = []
     monkeypatch.setattr(host_memory, "_PINNED", {})
     monkeypatch.setattr(host_memory, "_register",
-                        lambda lo, hi, ro: calls.append(("reg", lo, hi)))
+                        lambda lo, hi: calls.append(("reg", lo, hi)))
     monkeypatch.setattr(host_memory, "_unregister",
                         lambda lo: calls.append(("unreg", lo)))
-    a = host_memory.pin_range(1000, 500, False)      # [1000, 1500)
-    b = host_memory.pin_range(1200, 600, False)      # [1200, 1800)
-    c = host_memory.pin_range(1100, 10, False)       # inside a
-    d = host_memory.pin_range(1800, 4, False)        # adjacent, not shared
+    a = host_memory.pin_range(1000, 500)      # [1000, 1500)
+    b = host_memory.pin_range(1200, 600)      # [1200, 1800)
+    c = host_memory.pin_range(1100, 10)       # inside a
+    d = host_memory.pin_range(1800, 4)        # adjacent, not shared
     assert calls == [("reg", 1000, 1500), ("reg", 1500, 1800),
                      ("reg", 1800, 1804)]
     assert a == c == [1000] and b == [1000, 1500] and d == [1800]
@@ -529,7 +529,8 @@ def test_registered_ranges_are_shared_and_counted(monkeypatch):
 def test_host_dataset_files_and_generator_match_jax(jds, tmp_path):
     """The copied generator gives the JAX generator's arrays for a seed;
     the copied writer/loader round-trips them as read-only memmaps that
-    the JAX loader reads the same."""
+    the JAX loader reads the same; a cached trainer reads a RAM copy of
+    them."""
     ds = synthesize_dataset(num_nodes=V, avg_degree=12, feature_dim=100,
                             num_classes=8, batch_size=64, seed=3)
     for name in ("features", "labels", "train_ids", "valid_ids",
@@ -557,7 +558,8 @@ def test_host_dataset_files_and_generator_match_jax(jds, tmp_path):
     t = HostTable(np.ascontiguousarray(loaded.features, np.float32),
                   pin=False)
     assert t.host.data_ptr() == loaded.features.ctypes.data  # no copy
-    # a cached trainer reads the memmaps in place and steps
+    # a cached trainer copies the read-only memmap into RAM once (the
+    # table it registers must be writable) and steps
     cfg = LegionConfig(
         dataset=meta,
         sampler=SamplerConfig(fanouts=(5, 3), batch_size=64,
@@ -568,8 +570,10 @@ def test_host_dataset_files_and_generator_match_jax(jds, tmp_path):
         train=TrainConfig(hidden_dim=16, epochs=1),
         mesh=MeshConfig.for_devices(1))
     tr = Trainer(loaded, cfg, device="cpu")
-    assert tr.feature_source.host.host.data_ptr() == \
-        loaded.features.ctypes.data
+    table = tr.feature_source.host.array
+    assert table.ctypes.data != loaded.features.ctypes.data
+    assert table.flags.writeable
+    np.testing.assert_array_equal(table, loaded.features)
     _, loss = tr.train_step(tr.init_state())
     assert np.isfinite(float(loss)) and 0 < int(tr.last_feat_hits) \
         < int(tr.last_slots)
