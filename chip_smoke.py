@@ -32,7 +32,15 @@ CUDA card, nvcc (``$CUDA_HOME`` or ``/usr/local/cuda``) and no network.
      (CUDA-graph replays of one captured step) against as many eager steps
      from the same state (``phase_fused``): every step's sampled ids and
      dropout masks equal exactly, losses and parameters within the
-     atomics' order, the captured step's launches against ``PATH_KERNELS``;
+     atomics' order, the captured step's launches against ``PATH_KERNELS``.
+     After each of Device-map, GAT, H and HT, the same path with
+     ``interbatch`` (the update on the carried batch on the current stream,
+     the next batch sampled and fetched on a side stream) against as many
+     plain steps (``phase_interbatch``), held as ``phase_fused`` holds its
+     replays, then an A/B (plain, interbatch, interbatch, plain) with the
+     time a step that the two streams run at once, from the profiler; in
+     host mode also K4 alone under grid caps from 1056 blocks to its own
+     66, and a plain and an interbatch run with K4 at 1056;
   3b. on the same device dataset, at ``bench.py --model X`` settings:
      GAT (heads (8,1), feature and attention dropout 0.6, aligned last
      hop), after holding K6 and K7 against their plain versions at its
@@ -97,6 +105,7 @@ work on K1-K3, K8 and K9.
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -162,6 +171,16 @@ PATH_KERNELS = {
 # the paths whose CUDA-graph replays phase_fused holds against eager steps
 FUSED_PATHS = ("device", "device-map", "gat", "HT")
 FUSED_K = 4
+# the paths that phase_interbatch takes with ``interbatch`` on: K9's
+# cooperative launch, K4 (and K5) and GAT's model beside the update
+INTERBATCH_PATHS = ("device-map", "gat", "H", "HT")
+IB_STEPS = 6         # interbatch steps held against plain ones
+AB_STEPS = 10        # timed steps of an A/B run, after WARMUP_STEPS
+AB_PROFILED = 3      # then steps under torch.profiler
+# K4 grid caps tried alone in host mode, in this order: 8, 4, 2 and 1
+# blocks an SM, and one block on half of the SMs
+K4_CAPS = (1056, 528, 264, 132, 66)
+K4_PAIRS = 5      # then the two ends in turn, this many times more
 REPORTED_PATH = {"gather_rows": "device", "segment_sum": "device",
                  "windowed_draw": "device", "cached_gather": "H",
                  "csr_draw": "HT", "gat_attend": "gat",
@@ -1290,8 +1309,10 @@ class StepRecorder:
     ``dropout_keep`` copy each batch's ids and per-hop edge counts, and a
     checksum of each mask (its count of kept entries and the sum of their
     flat positions), to row ``state["train_ctr_d"] - 1`` (K10 has advanced
-    the counter when the sampler runs). Inside a captured step the copies
-    are captured too, so a replay records its own step."""
+    the counter when the sampler runs; an ``interbatch`` state's batches
+    go to row ``state["carry_ctr_d"] - 1``, on the stream that samples
+    them). Inside a captured step the copies are captured too, so a
+    replay records its own step."""
 
     MASKS = 8      # dropout calls a step at most
 
@@ -1308,14 +1329,16 @@ class StepRecorder:
         self.state, self.j = None, 0
         orig_sample, orig_keep = s.sample, common.dropout_keep
 
-        def slot():
-            return (self.state["train_ctr_d"] - 1).remainder(steps).view(1)
+        def slot(ctr="train_ctr_d"):
+            return (self.state[ctr] - 1).remainder(steps).view(1)
 
         def sample(*a, **kw):
             b = orig_sample(*a, **kw)
             self.j = 0
-            self.ids.index_copy_(0, slot(), b.node_ids.view(1, -1))
-            self.edges.index_copy_(0, slot(), b.num_edges.view(1, -1))
+            row = slot("carry_ctr_d" if "carry_ctr_d" in self.state
+                       else "train_ctr_d")
+            self.ids.index_copy_(0, row, b.node_ids.view(1, -1))
+            self.edges.index_copy_(0, row, b.num_edges.view(1, -1))
             return b
 
         def keep(*a, **kw):
@@ -1335,6 +1358,7 @@ class StepRecorder:
         common.dropout_keep = gat.dropout_keep = keep
 
     def bind(self, state):
+        self.torch.cuda.synchronize()     # the side stream's copies too
         self.state = state
         for t in (self.ids, self.edges, self.masks):
             t.zero_()
@@ -1392,7 +1416,7 @@ def phase_fused(tr, torch, path, calls=2):
         eager = [tr.train_step(state)[1] for _ in range(steps)]
         eager_loss = [float(torch.stack(eager[c * K:(c + 1) * K]).mean())
                       for c in range(calls)]
-        params_e = [p.detach().clone() for p in tr.model.parameters()]
+        params_e = [p.detach().clone() for p in state["model"].parameters()]
         ids_e, edges_e, masks_e = rec.take()
 
         tr.fused_steps = K
@@ -1421,7 +1445,7 @@ def phase_fused(tr, torch, path, calls=2):
     if not torch.equal(masks_e, masks_f):
         fail(f"fused {path}: a replayed step's dropout masks differ from "
              f"the eager step's")
-    p_rel = rel_norm(tr.model.parameters(), params_e)
+    p_rel = rel_norm(state["model"].parameters(), params_e)
     l_rel = max(abs(f - e) / abs(e) for f, e in zip(fused, eager_loss))
     print(f"  fused {path}: K {K}, {calls} calls = {steps} steps against "
           f"{steps} eager steps: ids and edge counts of every step exact, "
@@ -1449,6 +1473,213 @@ def phase_fused(tr, torch, path, calls=2):
         fail("fused device-map: the captured step is not one dedup_map "
              "launch")
     return graph
+
+
+def union_us(iv):
+    """The length of the union of (start, end) intervals."""
+    iv = sorted(iv)
+    total, lo, hi = 0, iv[0][0], iv[0][1]
+    for a, b in iv[1:]:
+        if a > hi:
+            total += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    return total + hi - lo
+
+
+def device_windows(prof, steps):
+    """From a profile's device events (kernels, copies, memsets), in ms a
+    step: busy (their summed durations), union (the time at least one
+    runs), span (first start to last end) and overlap (the time kernels
+    of two streams run at once: the sum over streams of each stream's
+    union, less the union of all); and the number of streams."""
+    from torch.autograd import DeviceType
+    on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not on_card:
+        fail("the profiler recorded no device event")
+    by_stream = {}
+    for e in on_card:
+        by_stream.setdefault(e.device_resource_id, []).append(
+            (e.time_range.start, e.time_range.end))
+    iv = [t for v in by_stream.values() for t in v]
+    busy = sum(b - a for a, b in iv)
+    union = union_us(iv)
+    span = max(b for _, b in iv) - min(a for a, _ in iv)
+    overlap = sum(union_us(v) for v in by_stream.values()) - union
+    return [v / steps / 1e3 for v in (busy, union, span, overlap)], \
+        len(by_stream)
+
+
+def ab_run(tr, torch, interbatch):
+    """One run of ``phase_interbatch``'s A/B from a fresh state:
+    WARMUP_STEPS steps, AB_STEPS steps timed by the host clock ending in
+    a sync (ms a step, and the host's ms a step before the sync: what
+    launching a step costs it while the launch queue has room), then
+    AB_PROFILED steps under ``torch.profiler`` (``device_windows``)."""
+    from torch.profiler import ProfilerActivity, profile
+    tr.interbatch = interbatch
+    state = tr.init_state()
+    for _ in range(WARMUP_STEPS):
+        state, _ = tr.train_step(state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(AB_STEPS):
+        state, _ = tr.train_step(state)
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / AB_STEPS * 1e3
+    host = (t1 - t0) / AB_STEPS * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(AB_PROFILED):
+            state, _ = tr.train_step(state)
+        torch.cuda.synchronize()
+    tr.interbatch = False
+    return ms, host, *device_windows(prof, AB_PROFILED)
+
+
+def ab_line(label, ms, host, win, streams):
+    busy, union, span, overlap = win
+    return (f"    {label}: {ms:.3f} ms/step (host {host:.3f} before the "
+            f"sync) | profiled busy {busy:.3f} / span {span:.3f} ms/step "
+            f"(idle share {1 - union / span:.3f}), two streams at once "
+            f"{overlap:.3f} ms/step | {streams} stream(s)")
+
+
+def phase_interbatch(tr, torch, path):
+    """``interbatch`` on ``path``: IB_STEPS pipelined steps against as many
+    plain eager steps from a fresh ``init_state`` each (the same seeded
+    weights, counters and key), then a valid pass. Fails unless every
+    step's sampled ids and per-hop edge counts and every dropout mask's
+    checksum are equal exactly (``StepRecorder``; the carry's batches land
+    in the rows of their own counter), losses and parameters agree within
+    ``phase_fused``'s tolerance (K2's and K7's atomics), the launches of
+    the two runs are equal and cover ``PATH_KERNELS[path]``, the counters
+    count trained batches, and the position map is clean (map dedup).
+
+    Then an A/B in this call: plain, interbatch, interbatch, plain
+    (``ab_run``): ms a step, busy / span, the idle share and the time a
+    step in which the two streams run at once. In host mode (H, HT), K4
+    alone at the path's fetch under each grid cap of ``K4_CAPS``, then
+    under the two ends of the range in turn ``K4_PAIRS`` times more (its
+    ms, the two ends' medians, and exact against the trainer's grid),
+    then a plain and an interbatch run with K4's grid at the other end of
+    the range (1056 if the trainer's is smaller, else 66). Returns the
+    A/B's ms a step."""
+    from legion_tpu_torch.ops import kernels
+    from legion_tpu_torch.pipeline import Mode
+    t_phase = time.perf_counter()
+    n = IB_STEPS
+    rec = StepRecorder(tr, torch, n + 1)
+    got = {}
+    try:
+        for ib in (False, True):
+            tr.interbatch = ib
+            state = tr.init_state()
+            rec.bind(state)
+            tr.prime_carry(state)    # again, so that its batch is recorded
+            kernels.reset_launch_counts()
+            losses = [tr.train_step(state)[1] for _ in range(n)]
+            launched = dict(kernels.LAUNCHES)
+            ids, edges, masks = rec.take()
+            params = [p.detach().clone() for p in state["model"].parameters()]
+            ctrs = (state["train_ctr"], int(state["train_ctr_d"]),
+                    int(state.get("carry_ctr_d", n + 1)))
+            state, acc = tr.run_eval(state, Mode.VALID)
+            torch.cuda.synchronize()
+            clean = tr.sampler_t.sort_dedup or bool(
+                (state["pos_map"] == 2 ** 31 - 1).all())
+            got[ib] = ([float(x) for x in losses], params, ids[:n],
+                       edges[:n], masks[:n], launched, ctrs, acc, clean,
+                       int(state["train_ctr_d"]) == state["train_ctr"])
+            del state
+    finally:
+        rec.close()
+        tr.interbatch = False
+    (l_p, p_p, ids_p, e_p, m_p, la_p, _, acc_p, _, _) = got[False]
+    (l_i, p_i, ids_i, e_i, m_i, la_i, ctrs, acc_i, clean, ctr_ok) = got[True]
+    if ctrs != (n, n, n + 1) or not ctr_ok:
+        fail(f"interbatch {path}: counters (train_ctr, train_ctr_d, "
+             f"carry_ctr_d) {ctrs} after {n} steps, or train_ctr_d moved "
+             "in the eval pass")
+    bad = [i for i in range(n) if not (torch.equal(ids_p[i], ids_i[i])
+                                       and torch.equal(e_p[i], e_i[i]))]
+    if bad or not bool((e_p.sum(1) > 0).all()):
+        fail(f"interbatch {path}: the sampled batches of steps {bad} differ "
+             "from the plain steps'")
+    if not torch.equal(m_p, m_i):
+        fail(f"interbatch {path}: a step's dropout masks differ from the "
+             "plain step's")
+    n_masks = int((m_p[0, :, 0] > 0).sum())
+    l_rel = max(abs(a - b) / abs(b) for a, b in zip(l_i, l_p))
+    p_rel = rel_norm(p_i, p_p)
+    print(f"  interbatch {path}: {n} pipelined steps against {n} plain "
+          f"steps: ids and edge counts of every step exact, {n_masks} "
+          f"dropout masks a step exact | losses max rel {l_rel:.3g} (tol "
+          f"1e-3) | parameters norm-wise rel {p_rel:.3g} (tol 2e-3) | valid "
+          f"metric {acc_i:.4f} vs plain {acc_p:.4f}")
+    if not (l_rel <= 1e-3 and p_rel <= 2e-3):
+        fail(f"interbatch {path}: losses (rel {l_rel}) or parameters (rel "
+             f"{p_rel}) differ from the plain steps' beyond tolerance")
+    if not clean:
+        fail(f"interbatch {path}: the position map is not clean after the "
+             "steps and the eval pass")
+    if la_i != la_p:
+        fail(f"interbatch {path}: launches {la_i} differ from the plain "
+             f"steps' {la_p}")
+    missing = [k for k in PATH_KERNELS[path] if la_i[k] <= 0]
+    if missing:
+        fail(f"interbatch {path}: no launch of {missing}")
+    print(f"  interbatch {path}: launches in {n} steps (equal to the plain "
+          f"steps'): { {k: v for k, v in la_i.items() if v} }")
+
+    fs = tr.feature_source
+    grid = f", K4 grid {fs.max_blocks}" if hasattr(fs, "max_blocks") else ""
+    print(f"  interbatch {path}: A/B in turn, {AB_STEPS} steps each after "
+          f"{WARMUP_STEPS} warm-up, then {AB_PROFILED} profiled")
+    ab = {}
+    for ib in (False, True, True, False):
+        r = ab_run(tr, torch, ib)
+        label = ("interbatch" if ib else "plain") + grid
+        ab.setdefault(label, []).append(r)
+        print(ab_line(label, *r))
+    if grid:
+        from legion_tpu_torch.cache.unified_cache import cached_gather
+        grid = fs.max_blocks
+        batch, _ = one_batch(tr, torch)
+        ids = batch.node_ids[:tr.sampler_t.max_ids]
+        ref = cached_gather(fs.cache, fs.host, ids, grid)
+        ends = (K4_CAPS[0], K4_CAPS[-1])
+        k4_ms = {}
+        for cap in K4_CAPS + ends * K4_PAIRS:
+            out = cached_gather(fs.cache, fs.host, ids, cap)
+            if not (torch.equal(out[0], ref[0])
+                    and torch.equal(out[1], ref[1])):
+                fail(f"K4 with grid cap {cap} differs from grid {grid}")
+            k4_ms.setdefault(cap, []).append(cuda_ms(
+                lambda: cached_gather(fs.cache, fs.host, ids, cap), torch))
+        print(f"    K4 alone at {path}'s fetch ({ids.shape[0]} ids), ms by "
+              "grid cap, in turn (all exact): " + " | ".join(
+                  f"{c}: " + ", ".join(f"{t:.4f}" for t in v)
+                  for c, v in k4_ms.items()))
+        med = {c: statistics.median(k4_ms[c]) for c in ends}
+        print(f"    K4 alone at {path}'s fetch: median of {K4_PAIRS + 1} "
+              f"readings, grid {ends[0]} {med[ends[0]]:.4f} ms, grid "
+              f"{ends[1]} {med[ends[1]]:.4f} ms "
+              f"({med[ends[1]] / med[ends[0]] - 1:+.2%})")
+        other = ends[0] if grid < ends[0] else ends[1]
+        try:
+            fs.max_blocks = other
+            for ib in (False, True):
+                r = ab_run(tr, torch, ib)
+                ab.setdefault(f"{'interbatch' if ib else 'plain'}, K4 grid "
+                              f"{other}", []).append(r)
+                print(ab_line(f"{'interbatch' if ib else 'plain'}, K4 grid "
+                              f"{other}", *r))
+        finally:
+            fs.max_blocks = grid
+    print(f"  interbatch {path}: {time.perf_counter() - t_phase:.1f} s")
+    return {k: [r[0] for r in v] for k, v in ab.items()}
 
 
 def one_batch(tr, torch, key=77):
@@ -1484,10 +1715,9 @@ def k6_compares(tr, torch, results, main):
     regime and without."""
     from legion_tpu_torch.models.common import dropout_keep
     from legion_tpu_torch.ops import kernels
-    tr.init_state()                     # the initial parameters, not zeros
+    p = tr.init_state()["model"].layers[0]   # the initial parameters
     batch, x = one_batch(tr, torch)
     scfg = tr.sampler_t.config
-    p = tr.model.layers[0]
     g = torch.Generator(device="cuda")
     g.manual_seed(11)
     src, off = batch.edge_src[1], batch.hop_offsets[1]
@@ -1623,7 +1853,7 @@ def k7_compares(tr, torch, results, main):
     src, off = batch.edge_src[0], batch.hop_offsets[0]
     fo = scfg.fanouts[0]
     F = src.shape[0] // fo
-    H, d = tr.model.layers[1]["attn_l"].shape
+    H, d = tr.config.train.gat_heads[1], tr.dataset.meta.num_classes
     g = torch.Generator(device="cuda")
     g.manual_seed(12)
     keep = dropout_keep((fo, F, H), 0.6, g, "cuda")
@@ -2466,18 +2696,19 @@ def phase_cli(hds, torch, h_step_ms):
             torch.cuda.empty_cache()
             rec = BatchAt(n)
             rec.label = "A"
-            tr, _, stats_a, counts = cli_run(base + ["--epoch", "2"], torch,
-                                             "A")
-            params_a = [p.detach().clone() for p in tr.model.parameters()]
+            tr, st, stats_a, counts = cli_run(base + ["--epoch", "2"],
+                                              torch, "A")
+            params_a = [p.detach().clone()
+                        for p in st["model"].parameters()]
             ms_a = tr.epoch_metrics[1].seconds / tr.epoch_metrics[1].steps \
                 * 1e3
-            del tr
+            del tr, st
             torch.cuda.empty_cache()
             rec.label = "B2"
             tr, st, stats_b, _ = cli_run(
                 base + ["--epoch", "1", "--resume", "--checkpoint-dir", ck],
                 torch, "B2")
-            params_b = [p.detach() for p in tr.model.parameters()]
+            params_b = [p.detach() for p in st["model"].parameters()]
         finally:
             if rec is not None:
                 rec.close()
@@ -2532,7 +2763,7 @@ def phase_cli(hds, torch, h_step_ms):
                          f" / {int(state['train_ctr_d'])}, not "
                          f"{n + FUSED_K}")
                 out[label] = (loss, [p.detach().clone()
-                                     for p in tr.model.parameters()],
+                                     for p in state["model"].parameters()],
                               rec.take(), tr._graph,
                               dict(tr.graph_launches))
                 if label == "eager":
@@ -2800,6 +3031,7 @@ def main():
     print(f"  caps {tr.compact_caps} | ids_len {tr.sampler_t.ids_len}")
     counts["device-map"] = phase_slice(tr, torch, "device-map")[0]
     phase_fused(tr, torch, "device-map")
+    ib_ab = {"device-map": phase_interbatch(tr, torch, "device-map")}
     del tr
     torch.cuda.empty_cache()
 
@@ -2829,6 +3061,8 @@ def main():
         counts[model] = phase_slice(tr, torch, model)[0]
         if model in FUSED_PATHS:
             phase_fused(tr, torch, model)
+        if model in INTERBATCH_PATHS:
+            ib_ab[model] = phase_interbatch(tr, torch, model)
         del tr
         torch.cuda.empty_cache()
     add_main(results, main_ms)
@@ -2870,6 +3104,7 @@ def main():
         counts[name], step_ms[name] = phase_slice(tr, torch, name)
         if name in FUSED_PATHS:
             phase_fused(tr, torch, name)
+        ib_ab[name] = phase_interbatch(tr, torch, name)
         tr.close()
     del tr, tr_h, tr_ht
     torch.cuda.empty_cache()
@@ -2910,6 +3145,11 @@ def main():
               f"kernel {k['ms']:.4f} ms | bound {k['bound_ms']:.4f} ms by "
               f"{k['bound_by']} (share {k['bound_ms'] / k['ms']:.3f}) | plain "
               f"{k['plain_ms']:.4f} ms | library call {lib} ms")
+    print("interbatch A/B, ms/step by the host clock (one call; no claim):")
+    for path, runs in ib_ab.items():
+        print(f"  {path}: " + " | ".join(
+            f"{k} {', '.join(f'{v:.3f}' for v in ms)}"
+            for k, ms in runs.items()))
     print(json.dumps({"kernels": kern}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

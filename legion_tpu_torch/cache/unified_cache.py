@@ -147,14 +147,26 @@ def sort_ids(ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.sort(ids)
 
 
-def cached_gather(cache: UnifiedCache, host: HostTable, ids: torch.Tensor
+# K4's grid: one block of 256 threads on half of the H100's 132 SMs. K4's
+# time is the link's (about 250 M 128-byte lines a second, a few hundred
+# in flight are enough), and 66 blocks keep thousands in flight, so K4
+# alone takes as long as with 132 * 8 blocks, which hold every thread
+# slot of every SM for the whole run (the warps walk the ids grid-stride).
+# The other 66 SMs stay free for the update that an ``interbatch`` step
+# runs beside it on the other stream (PERF.md, `interbatch`).
+K4_BLOCKS = 66
+
+
+def cached_gather(cache: UnifiedCache, host: HostTable, ids: torch.Tensor,
+                  max_blocks: int = K4_BLOCKS
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4. cache rows [C, F] (bf16 or f32) and slot_map [V] on the card,
     host [V, F] f32 registered host memory, ids [N] int32 -> (rows [N, F]
     in the cache's dtype, hit count as a device int32 scalar). The ids are
     sorted here (values and positions, on the card, no sync): equal ids
     become neighbours, and the kernel reads a missed host row once for all
-    of them, in address order."""
+    of them, in address order. ``max_blocks`` (> 0) caps the kernel's
+    grid."""
     rows_c, slot_map = cache.cache_rows, cache.slot_map
     if ids.dtype != torch.int32 or ids.dim() != 1:
         raise ValueError(f"cached_gather: ids {ids.dtype} "
@@ -184,7 +196,7 @@ def cached_gather(cache: UnifiedCache, host: HostTable, ids: torch.Tensor
         host_t.data_ptr(), host_t.shape[0], sorted_ids.data_ptr(),
         order.data_ptr(), ids.shape[0], F,
         int(rows_c.dtype == torch.bfloat16), out.data_ptr(),
-        hits.data_ptr(), kernels.stream_handle())
+        hits.data_ptr(), int(max_blocks), kernels.stream_handle())
     kernels.check("cached_gather", rc)
     return out, hits
 
@@ -197,7 +209,9 @@ class CachedFeatureSource:
     def __init__(self, cache: UnifiedCache, host: HostTable):
         self.cache = cache
         self.host = host          # [V, F] float32
+        # K4's grid cap
+        self.max_blocks = K4_BLOCKS
 
     def fetch(self, ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """(rows [N, F] in the cache's dtype, count of cache hits)."""
-        return cached_gather(self.cache, self.host, ids)
+        return cached_gather(self.cache, self.host, ids, self.max_blocks)

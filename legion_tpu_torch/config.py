@@ -291,7 +291,9 @@ class TrainConfig:
     fused_steps: int = 1
     # Inter-batch pipelining: train on batch N while batch N+1 is sampled
     # and fetched (the reference's 2-deep producer/consumer pipeline,
-    # system_config.cuh:47-48). Not ported yet: the trainer refuses it.
+    # system_config.cuh:47-48). On a card the sampling runs on a second
+    # CUDA stream; on the CPU the two halves run in turn. The same losses,
+    # ids and keys as the plain step. Not with fused_steps > 1.
     interbatch: bool = False
 
 

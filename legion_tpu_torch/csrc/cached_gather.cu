@@ -37,6 +37,9 @@
 //      run. A host table or width that 16-byte chunks do not fit (base not
 //      16-byte aligned, width not a multiple of 4) is read a float a lane,
 //      in this kernel.
+// The grid is the wrapper's (cache/unified_cache.py::K4_BLOCKS): a block
+// on half of the SMs keeps far more link requests in flight than the link
+// serves, and leaves the other half to the kernels of another stream.
 #include "common.cuh"
 
 constexpr int kMissRows = 4;      // miss rows in flight per warp
@@ -220,7 +223,8 @@ template <bool kBf16>
 static int launch(const void* cache, const int32_t* slot_map,
                   int64_t num_nodes, const float* host, int64_t host_rows,
                   const int32_t* ids, const int64_t* order, void* out,
-                  int64_t n, int64_t F, int32_t* hits, cudaStream_t stream) {
+                  int64_t n, int64_t F, int32_t* hits, int64_t max_blocks,
+                  cudaStream_t stream) {
   const int64_t row_bytes = F * (kBf16 ? 2 : 4);
   // the widest word that the row width, the cache and the output allow
   int word = kBf16 ? 2 : 4;
@@ -233,12 +237,11 @@ static int launch(const void* cache, const int32_t* slot_map,
   // 16-byte host chunks land on whole groups of four output values
   const bool chunks = F % 4 == 0 && (uintptr_t)host % 16 == 0 &&
                       (uintptr_t)out % 16 == 0;
-  // a warp takes 32 ids at a time: enough blocks to fill the card, and the
-  // warps walk the rest
+  // a warp takes 32 ids at a time: at most max_blocks blocks (the
+  // wrapper's choice), and the warps walk the rest
   const int64_t warps_per_block = kThreads / 32;
   int64_t blocks = ((n + 31) / 32 + warps_per_block - 1) / warps_per_block;
-  const int64_t cap = 132 * 8;
-  blocks = blocks < cap ? blocks : cap;
+  blocks = blocks < max_blocks ? blocks : max_blocks;
   cached_gather_kernel<kBf16><<<(unsigned int)blocks, kThreads, 0, stream>>>(
       cache, slot_map, num_nodes, host, host_rows, ids, order, out, n,
       (int)F, word, chunks, hits);
@@ -250,18 +253,20 @@ static int launch(const void* cache, const int32_t* slot_map,
 // ids [n] int32 in ascending order with order [n] int64, the position of
 // each in the caller's batch (a permutation of 0 .. n-1) -> out [n, F] in
 // the cache's dtype, out[order[j]] the row of ids[j]; *hits += hit count.
-// All contiguous.
+// All contiguous. max_blocks (> 0) caps the grid.
 LT_EXPORT int lt_cached_gather(const void* cache, const int32_t* slot_map,
                                int64_t num_nodes, const float* host,
                                int64_t host_rows, const int32_t* ids,
                                const int64_t* order, int64_t n, int64_t F,
                                int bf16, void* out, int32_t* hits,
-                               void* stream) {
+                               int64_t max_blocks, void* stream) {
   if (n == 0 || F == 0) return (int)cudaSuccess;
-  if (F > (1 << 24) || n > INT32_MAX) return (int)cudaErrorInvalidValue;
+  if (F > (1 << 24) || n > INT32_MAX || max_blocks <= 0 ||
+      max_blocks > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   return bf16 ? launch<true>(cache, slot_map, num_nodes, host, host_rows,
-                             ids, order, out, n, F, hits, s)
+                             ids, order, out, n, F, hits, max_blocks, s)
               : launch<false>(cache, slot_map, num_nodes, host, host_rows,
-                              ids, order, out, n, F, hits, s);
+                              ids, order, out, n, F, hits, max_blocks, s);
 }

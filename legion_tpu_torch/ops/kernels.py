@@ -150,7 +150,7 @@ def lib() -> ctypes.CDLL:
     for fn in (so.lt_windowed_draw_i32, so.lt_windowed_draw_i64):
         fn.argtypes = [p, p, p, p, i64, i32, i32, i64, p, p]
     so.lt_cached_gather.argtypes = [p, p, i64, p, i64, p, p, i64, i64, i32,
-                                    p, p, p]
+                                    p, p, i64, p]
     for fn in (so.lt_csr_draw_i32, so.lt_csr_draw_i64):
         fn.argtypes = [p, i64, i32, p, p, p, p, p, i64, p, p, p]
     so.lt_gat_attend_fwd.argtypes = [p, p, p, p, p, p, f32, f32, p, p, p,

@@ -22,6 +22,22 @@ analog of JAX's ``lax.scan`` of K steps in one dispatch). On the CPU a
 call takes K eager steps. Either way the call returns the mean loss and
 sums the counters, and ``fit`` takes ``train_step // K`` calls an epoch.
 
+``TrainConfig.interbatch``: the state carries the next batch (sampled
+and fetched, with its seeds and labels), and a ``train_step`` trains on
+the carried batch N while it samples and fetches batch N+1 (JAX's
+pipelined step, ``legion_tpu/train.py:642-700``). On a card the update
+runs on the caller's stream and the sampling on the trainer's side
+stream; on the CPU the two halves run one after the other. The carry has
+a device counter of its own (``carry_ctr_d``, which K10 advances), so
+``train_ctr_d`` still counts trained batches, and a checkpoint means the
+same in both modes. Losses, parameters, ids, masks and counters equal the
+plain step's.
+
+Every state owns its parameters: ``init_state`` builds a new module and a
+new Adam, so a second ``init_state`` or a restore into the same trainer
+leaves a live state as it was. The host's copy of the base key lives in
+the state too (``base_key_h``), since dropout is seeded from it.
+
 Ported: storage set-up on one device (``_setup_storage``) for a device
 dataset and for a host ``LegionDataset``: measured buffer caps from
 presampling; with the cache off, the whole graph and a bf16 feature table
@@ -30,10 +46,10 @@ unified cache on the card and the graph and features left in host RAM,
 their misses read by K4/K5 in place. Both dedup modes: with map dedup
 (the config's default) the state holds the sampler's [V] position map
 (``state["pos_map"]``), shared by the train and eval samplers and clean
-between batches. Also the train step (one step or ``fused_steps``), the
-eval step, ``run_eval`` and ``fit``. Not ported (ROADMAP): the staged host
-pipeline (a TPU-runtime workaround), meshes and clique caches,
-``interbatch``.
+between batches. Also the train step (one step, ``fused_steps`` or
+``interbatch``), the eval step, ``run_eval`` and ``fit``. Not ported
+(ROADMAP): the staged host pipeline (a TPU-runtime workaround), meshes
+and clique caches.
 
 Host tables are writable RAM: a table the kernels read in place that is a
 read-only array or a file mapping (the memmaps of ``LegionDataset.load``)
@@ -45,13 +61,14 @@ registration's seconds. A dataset's arrays that go to the card are copied
 there as they are.
 
 Checkpoints (``utils/checkpoint.py``): ``fit`` saves every
-``checkpoint_every`` epochs; a state restored into a trainer sets the
-host's base key (``step_key``, dropout) from the checkpoint, as K10 reads
-the state's.
+``checkpoint_every`` epochs; a state restored into a trainer takes the
+checkpoint's base key on the device (K10) and on the host (dropout, and
+the trainer's ``step_key``), and its carry is primed anew.
 """
 
 from __future__ import annotations
 
+import contextlib
 import mmap
 import time
 from dataclasses import dataclass, replace
@@ -153,17 +170,18 @@ class Trainer:
                 "reads host misses in place inside its kernels; the staged "
                 "split-program pipeline exists for TPU runtimes and is not "
                 "ported")
-        if config.train.interbatch:
-            raise NotImplementedError(
-                "interbatch is a ROADMAP item"
-                + (" (and fused_steps applies to the fused single-program "
-                   "path, legion_tpu/train.py:191-193)"
-                   if config.train.fused_steps > 1 else ""))
         if config.train.fused_steps < 1:
             raise ValueError(
                 f"fused_steps={config.train.fused_steps}: at least 1")
-        # train steps a ``train_step`` call takes (fit's unit of work)
+        if config.train.interbatch and config.train.fused_steps > 1:
+            raise ValueError(
+                "fused_steps applies to the fused single-program path, not "
+                "to interbatch (legion_tpu/train.py:191-193)")
+        # train steps a ``train_step`` call takes (fit's unit of work), and
+        # whether a step trains on the carry while it samples the next
+        # batch; a state is made for one of the two modes (``init_state``)
         self.fused_steps = config.train.fused_steps
+        self.interbatch = config.train.interbatch
         self._graph = self._side_stream = None
         self.graph_launches: Dict[str, int] = {}
         meta = dataset.meta
@@ -224,12 +242,9 @@ class Trainer:
             self.sampler_e = NeighborSampler(
                 replace(eval_scfg, node_caps=ecaps), V)
 
-        self.model = make_model(config.train, self.sampler_t.config,
-                                meta.feature_dim, meta.num_classes,
-                                device=self.device, in_dim_pad=self.feat_pad)
         self._drop_gen = torch.Generator(device=self.device)
         # the host's copy of the base key of the state last made or
-        # restored, for ``step_key`` and dropout (K10 reads the state's)
+        # restored, for ``step_key`` (dropout reads the state's own)
         self._base_key = config.train.seed + 1
         self.test_acc: Optional[float] = None
 
@@ -409,21 +424,27 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def init_state(self) -> Dict:
-        """Fresh parameters (from ``train.seed``), a fresh Adam (capturable
-        on a card, so that eager and replayed steps run the same update),
-        zeroed counters (Python ints, and int64 twins on the device that
-        K10 reads and advances), the base key ``train.seed + 1`` on the
-        device and on the host (JAX's ``PRNGKey(seed + 1)``,
-        ``legion_tpu/train.py:507-508``) and the sampler state
-        (``pos_map``: the [V] position map of map dedup, a 1-element dummy
-        for sort dedup, as in ``legion_tpu/train.py:498-505``). A new state
-        is captured anew by the first fused ``train_step`` that takes it."""
+        """A new state that shares nothing with another: a new model with
+        fresh parameters (from ``train.seed``), a new Adam over them
+        (capturable on a card, so that eager and replayed steps run the
+        same update), zeroed counters (Python ints, and int64 twins on the
+        device that K10 reads and advances), the base key ``train.seed +
+        1`` on the device and on the host (JAX's ``PRNGKey(seed + 1)``,
+        ``legion_tpu/train.py:507-508``), the sampler state (``pos_map``:
+        the [V] position map of map dedup, a 1-element dummy for sort
+        dedup, as in ``legion_tpu/train.py:498-505``) and, under
+        ``interbatch``, the carry (``prime_carry``). A new state is
+        captured anew by the first fused ``train_step`` that takes it."""
         tcfg = self.config.train
         dev = self.device
+        meta = self.dataset.meta
+        model = make_model(tcfg, self.sampler_t.config, meta.feature_dim,
+                           meta.num_classes, device=dev,
+                           in_dim_pad=self.feat_pad)
         g = torch.Generator(device=dev)
         g.manual_seed(tcfg.seed)
-        self.model.reset_parameters(g)
-        opt = torch.optim.Adam(self.model.parameters(), lr=tcfg.lr,
+        model.reset_parameters(g)
+        opt = torch.optim.Adam(model.parameters(), lr=tcfg.lr,
                                betas=(0.9, 0.999), eps=1e-8,
                                capturable=dev.type == "cuda")
         self._graph = self._graph_state = None
@@ -434,24 +455,87 @@ class Trainer:
                                    device=dev)
         ctr = lambda: torch.zeros((), dtype=torch.int64,  # noqa: E731
                                   device=dev)
-        return {"model": self.model, "opt": opt,
-                "base_key": torch.full((), self._base_key, dtype=torch.int64,
-                                       device=dev),
-                "train_ctr": 0, "valid_ctr": 0, "test_ctr": 0,
-                "train_ctr_d": ctr(), "valid_ctr_d": ctr(),
-                "test_ctr_d": ctr(), "correct": zero(), "total": zero(),
-                "pos_map": self.sampler_t.init_state(dev)}
+        state = {"model": model, "opt": opt,
+                 "base_key": torch.full((), self._base_key,
+                                        dtype=torch.int64, device=dev),
+                 "base_key_h": self._base_key,
+                 "train_ctr": 0, "valid_ctr": 0, "test_ctr": 0,
+                 "train_ctr_d": ctr(), "valid_ctr_d": ctr(),
+                 "test_ctr_d": ctr(), "correct": zero(), "total": zero(),
+                 "pos_map": self.sampler_t.init_state(dev)}
+        return self.prime_carry(state)
+
+    def prime_carry(self, state: Dict) -> Dict:
+        """(Re)fill the ``interbatch`` carry: sample and fetch the batch
+        at ``state["train_ctr"]`` into the state (``carry_batch``,
+        ``carry_x``, ``carry_hits``, ``carry_seeds``, ``carry_y``), from a
+        carry counter of its own (``carry_ctr_d``, a copy of
+        ``train_ctr_d`` that K10 advances). A no-op unless
+        ``interbatch``. ``init_state`` and ``restore_checkpoint`` call it
+        (``legion_tpu/train.py:511-523``); the carry is not saved. On a
+        card it samples on the side stream, and the caller's stream waits
+        for it, so that whatever the caller then writes (a restore's
+        counters and key) comes after the prime's reads."""
+        if not self.interbatch:
+            return state
+        cuda = self.device.type == "cuda"
+        on_side = contextlib.nullcontext()
+        if cuda:
+            side, cur = self._side(), torch.cuda.current_stream(self.device)
+            side.wait_stream(cur)
+            # made on the caller's stream and written on the side one: not
+            # to be reused before the side stream is done with them
+            for k in ("pos_map", "base_key"):
+                state[k].record_stream(side)
+            on_side = torch.cuda.stream(side)
+        with on_side:
+            state["carry_ctr_d"] = state["train_ctr_d"].clone()
+            self._sample_ahead(state)
+        if cuda:
+            cur.wait_stream(side)
+        return state
+
+    def _sample_ahead(self, state: Dict) -> None:
+        """Sample and fetch the train batch at ``carry_ctr_d`` (K10
+        advances it) into the state's carry, on the current stream; on a
+        card, ``carry_ready`` marks the end of it there."""
+        sampler = self.sampler_t
+        seeds, y, keys = self._batch_inputs(
+            state, sampler, self.train_bank, self.train_ybank,
+            self.schedule.train_step, "carry_ctr", _TRAIN_TAG)
+        batch, x, hits = self._sample_fetch(state, sampler, seeds, keys)
+        state.update(carry_batch=batch, carry_x=x, carry_hits=hits,
+                     carry_seeds=seeds, carry_y=y)
+        if self.device.type == "cuda":
+            state["carry_ready"] = torch.cuda.Event()
+            state["carry_ready"].record()
+
+    def _side(self) -> "torch.cuda.Stream":
+        """The trainer's side stream, made at first use: the first step
+        and the capture of ``fused_steps``, and the sampling of
+        ``interbatch``. One a trainer: cuBLAS keeps a workspace a
+        stream."""
+        if self._side_stream is None:
+            self._side_stream = torch.cuda.Stream(device=self.device)
+        return self._side_stream
 
     # ------------------------------------------------------------------
     def step_key(self, ctr: int, tag: int) -> int:
         """The host's copy of a step's key, fold_in(fold_in(base_key,
-        ctr), tag): K10 derives the same on the card."""
+        ctr), tag), for the state last made or restored: K10 derives the
+        same on the card."""
         return fold_in(fold_in(self._base_key, ctr), tag)
 
     def _seed_dropout(self, key: int) -> None:
         """Dropout draws from (fold_in(step key, 7), offset 0), as the JAX
         step folds 7 into its key (``legion_tpu/train.py:612``)."""
         self._drop_gen.manual_seed(fold_in(key, _DROPOUT_TAG) & (2**63 - 1))
+
+    def _seed_train_dropout(self, state: Dict) -> None:
+        """``_seed_dropout`` for the train step at ``state["train_ctr"]``,
+        its key from the state's own base key."""
+        self._seed_dropout(fold_in(fold_in(state["base_key_h"],
+                                           state["train_ctr"]), _TRAIN_TAG))
 
     def _batch_inputs(self, state: Dict, sampler: NeighborSampler,
                       bank: torch.Tensor, ybank: torch.Tensor, n: int,
@@ -517,19 +601,59 @@ class Trainer:
             self.schedule.train_step, "train_ctr", _TRAIN_TAG)
         batch, x, feat_hits = self._sample_fetch(state, sampler, seeds, keys)
         loss = self._update(state, batch, x, seeds, y)
-        nid = batch.node_ids[:sampler.max_ids]
+        return loss, self._counts(batch, feat_hits)
+
+    def _counts(self, batch: SampleBatch, feat_hits: torch.Tensor
+                ) -> torch.Tensor:
+        """A trained batch's counters, as one int32 tensor."""
+        nid = batch.node_ids[:self.sampler_t.max_ids]
         topo_hits, topo_total = self._topo_hit_count(batch, self.graph_access)
-        counts = torch.stack([batch.num_edges.sum(dtype=torch.int32),
-                              (nid >= 0).sum(dtype=torch.int32),
-                              feat_hits.to(torch.int32), topo_hits,
-                              topo_total])
-        return loss, counts
+        return torch.stack([batch.num_edges.sum(dtype=torch.int32),
+                            (nid >= 0).sum(dtype=torch.int32),
+                            feat_hits.to(torch.int32), topo_hits,
+                            topo_total])
 
     def _eager_step(self, state: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
-        self._seed_dropout(self.step_key(state["train_ctr"], _TRAIN_TAG))
+        self._seed_train_dropout(state)
         out = self._step_body(state)
         state["train_ctr"] += 1
         return out
+
+    def _interbatch_step(self, state: Dict
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The pipelined step (``legion_tpu/train.py:642-669``): the update
+        on the carried batch N on the current stream, then the sampling
+        and fetch of batch N+1 into the carry, then the counters of batch
+        N. On a card the sampling runs on the side stream and overlaps the
+        update: the update waits for the end of batch N's fetch
+        (``carry_ready``), and the sampling waits for what the current
+        stream held before this update (the previous update, an eval pass
+        that wrote ``pos_map``), not for this update. Batch N's buffers
+        were allocated on the side stream; the carry that replaces them is
+        allocated there after that wait, so the allocator cannot hand them
+        out while the previous update still reads them (JAX's note on not
+        donating the carry, ``:674-677``)."""
+        self._seed_train_dropout(state)
+        cuda = self.device.type == "cuda"
+        if cuda:
+            cur = torch.cuda.current_stream(self.device)
+            cur.wait_event(state["carry_ready"])
+            before_update = torch.cuda.Event()
+            before_update.record(cur)
+        batch, x, hits, seeds, y = (state[k] for k in (
+            "carry_batch", "carry_x", "carry_hits", "carry_seeds",
+            "carry_y"))
+        state["train_ctr_d"].add_(1)    # what K10 does in the plain step
+        loss = self._update(state, batch, x, seeds, y)
+        if cuda:
+            side = self._side()
+            side.wait_event(before_update)
+            with torch.cuda.stream(side):
+                self._sample_ahead(state)
+        else:
+            self._sample_ahead(state)
+        state["train_ctr"] += 1
+        return loss, self._counts(batch, hits)
 
     def _capture(self, state: Dict, stream) -> None:
         """Capture one step (``_step_body``, and the sums of its loss and
@@ -560,7 +684,7 @@ class Trainer:
 
     def _replay(self, state: Dict) -> None:
         """One captured step: reseed dropout for this step, replay."""
-        self._seed_dropout(self.step_key(state["train_ctr"], _TRAIN_TAG))
+        self._seed_train_dropout(state)
         self._graph.replay()
         state["train_ctr"] += 1
 
@@ -572,10 +696,7 @@ class Trainer:
         step and replays it K-1 times; a later call replays K times.
         Returns the mean loss and the summed counters."""
         if self._graph is None or self._graph_state is not state:
-            # one side stream a trainer: cuBLAS keeps a workspace a stream
-            if self._side_stream is None:
-                self._side_stream = torch.cuda.Stream(device=self.device)
-            side = self._side_stream
+            side = self._side()
             side.wait_stream(torch.cuda.current_stream(self.device))
             with torch.cuda.stream(side):
                 loss0, counts0 = self._eager_step(state)
@@ -602,9 +723,12 @@ class Trainer:
         them (``legion_tpu/train.py:725-739``). On a card, K > 1 steps are
         CUDA-graph replays of one captured step; on the CPU, K eager steps.
         A capture or replay that fails raises: nothing falls back to eager
-        steps."""
+        steps. Under ``interbatch`` a call takes one pipelined step
+        (``_interbatch_step``) and the counters are the carried batch's."""
         K = self.fused_steps
-        if K > 1 and self.device.type == "cuda":
+        if self.interbatch:
+            loss, counts = self._interbatch_step(state)
+        elif K > 1 and self.device.type == "cuda":
             loss, counts = self._fused_call(state, K)
         else:
             outs = [self._eager_step(state) for _ in range(K)]
@@ -638,7 +762,11 @@ class Trainer:
     @torch.no_grad()
     def _eval_step(self, state: Dict, mode: Mode) -> None:
         """One eval batch, eager (JAX's eval step is unfused), keys from
-        (base_key, the mode's counter, tag 1) by K10."""
+        (base_key, the mode's counter, tag 1) by K10. Under ``interbatch``
+        on a card it first waits for the side stream, whose sampling
+        writes ``pos_map`` too."""
+        if self.interbatch and self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).wait_stream(self._side())
         sampler = self.sampler_e
         bs = sampler.config.batch_size
         if mode == Mode.VALID:
@@ -682,7 +810,9 @@ class Trainer:
         """The reference schedule: per epoch train then valid; test once
         at the end. ``schedule.epochs`` epochs from the state's counters (a
         restored state runs as many more). ``checkpoint_every`` > 0 saves
-        to ``checkpoint_dir`` after every N-th epoch, at ``train_ctr``."""
+        to ``checkpoint_dir`` after every N-th epoch, at ``train_ctr``.
+        Under ``interbatch`` a call is one step (``fused_steps`` is 1), and
+        the last step leaves a carry that is never trained, as in JAX."""
         if state is None:
             state = self.init_state()
         sch = self.schedule

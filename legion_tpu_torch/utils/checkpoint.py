@@ -6,8 +6,12 @@ parameters, Adam's state, the three schedule counters and the base key,
 everything that fixes the rest of a run. The step keys are a pure function
 of (base key, counter, tag) (``Trainer.step_key``, K10) and dropout is
 reseeded from the counter before every step, so no generator state is
-saved. The position map and the eval accumulators are scratch (the map is
-clean between batches) and come fresh from ``init_state``.
+saved. The position map, the eval accumulators and the ``interbatch``
+carry are scratch (the map is clean between batches; the carry is the
+batch at ``train_ctr``, sampled again after a restore) and come fresh
+from ``init_state``. ``train_ctr`` counts trained batches in both modes,
+so a checkpoint written under ``interbatch`` restores into a plain
+trainer, and the reverse.
 
 One file a step, ``<path>/ckpt_<step>.pt``, written under a temporary name
 and then renamed over, so a crash never leaves a partial checkpoint.
@@ -59,15 +63,19 @@ def latest_step(path: str) -> int:
 
 def restore_checkpoint(path: str, trainer, step: int = -1) -> Dict:
     """A fresh state of ``trainer`` (``init_state``) with the saved keys
-    of the checkpoint at ``step`` (the latest when negative).
+    of the checkpoint at ``step`` (the latest when negative); every other
+    state of the trainer is left as it was.
 
-    The parameters are loaded in place (their addresses, which a captured
-    step reads, stay); Adam keeps the trainer's ``capturable``, so its
-    step counts come back on the parameters' device; each counter is set
-    on the host and in its device twin (K10 reads the twin); the base key
-    is set in the state and as the trainer's host key (``step_key``,
-    dropout). The file is read onto the trainer's device, whatever device
-    wrote it."""
+    The parameters are loaded in place into the new state's own module;
+    Adam keeps the trainer's ``capturable``, so its step counts come back
+    on the parameters' device; each counter is set on the host and in its
+    device twin (K10 reads the twin); the base key is set in the state
+    (on the device and on the host, ``base_key_h``) and as the trainer's
+    ``step_key`` key; then the carry is primed at the restored
+    ``train_ctr`` (``Trainer.prime_carry``, a no-op unless
+    ``interbatch``), as ``legion_tpu/utils/checkpoint.py:57-59`` does.
+    The file is read onto the trainer's device, whatever device wrote
+    it."""
     path = os.path.abspath(path)
     if step < 0:
         step = latest_step(path)
@@ -86,5 +94,5 @@ def restore_checkpoint(path: str, trainer, step: int = -1) -> Dict:
         state[k] = int(ck[k])
         state[k + "_d"].fill_(state[k])
     state["base_key"].fill_(ck["base_key"])
-    trainer._base_key = int(ck["base_key"])
-    return state
+    state["base_key_h"] = trainer._base_key = int(ck["base_key"])
+    return trainer.prime_carry(state)

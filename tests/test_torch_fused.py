@@ -127,8 +127,8 @@ def ds():
     return _dataset()
 
 
-def _params(tr):
-    return [p.detach().clone() for p in tr.model.parameters()]
+def _params(state):
+    return [p.detach().clone() for p in state["model"].parameters()]
 
 
 @pytest.mark.parametrize("case", ["sort", "map", "gat"])
@@ -163,7 +163,7 @@ def test_fused_call_equals_single_steps(ds, case):
         assert s3["train_ctr"] == s1["train_ctr"]
         assert int(s3["train_ctr_d"]) == int(s1["train_ctr_d"]) \
             == s1["train_ctr"]
-        for a, b in zip(_params(fused), _params(one)):
+        for a, b in zip(_params(s3), _params(s1)):
             assert torch.equal(a, b)
     if case == "map":
         assert bool((s3["pos_map"] == 2 ** 31 - 1).all())
@@ -242,8 +242,9 @@ def test_eval_keys_come_from_the_eval_counter(ds):
 def test_fit_refuses_a_fused_steps_that_does_not_divide(ds):
     """fit asserts train_step % K == 0 as JAX does
     (legion_tpu/train.py:937-942) and takes train_step // K calls an epoch
-    for a K that divides; interbatch stays refused, alone and with
-    fused_steps."""
+    for a K that divides; interbatch is refused with fused_steps 2, as
+    JAX refuses it (``legion_tpu/train.py:191-193``), and with fused_steps
+    1 it builds and fits."""
     tr = Trainer(ds, _config(ds), "cpu")
     n = tr.schedule.train_step
     bad = next(k for k in range(2, n + 2) if n % k)
@@ -264,8 +265,14 @@ def test_fit_refuses_a_fused_steps_that_does_not_divide(ds):
     for fused in (1, 2):
         cfg = _config(ds, fused=fused)
         cfg = replace(cfg, train=replace(cfg.train, interbatch=True))
-        with pytest.raises(NotImplementedError, match="interbatch"):
-            Trainer(ds, cfg, "cpu")
+        if fused > 1:
+            with pytest.raises(ValueError, match="interbatch"):
+                Trainer(ds, cfg, "cpu")
+            continue
+        tr = Trainer(ds, cfg, "cpu")
+        state, stats = tr.fit(verbose=False)
+        assert state["train_ctr"] == int(state["train_ctr_d"]) == n
+        assert "carry_batch" in state and np.isfinite(stats[0].train_loss)
     assert kernels.LAUNCHES == {k: 0 for k in kernels.LAUNCHES}
 
 

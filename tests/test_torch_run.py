@@ -137,7 +137,7 @@ def ds():
 
 
 def _config(ds, dedup="sort", model="graphsage", fused=1, seed=0,
-            compact=True, epochs=2):
+            compact=True, epochs=2, interbatch=False):
     kw = dict(gat_heads=(2, 1)) if model == "gat" else {}
     return LegionConfig(
         dataset=ds.meta,
@@ -149,7 +149,8 @@ def _config(ds, dedup="sort", model="graphsage", fused=1, seed=0,
                               else (64, 448, 2304)),
         cache=CacheConfig(presample_steps=4),
         train=TrainConfig(model=model, hidden_dim=16, epochs=epochs,
-                          dropout=0.5, fused_steps=fused, seed=seed, **kw),
+                          dropout=0.5, fused_steps=fused, seed=seed,
+                          interbatch=interbatch, **kw),
         mesh=MeshConfig.for_devices(1))
 
 
@@ -161,47 +162,131 @@ def _steps(tr, st, calls):
     return st, losses
 
 
-def _params(tr):
-    return [p.detach().clone() for p in tr.model.parameters()]
+def _params(state):
+    return [p.detach().clone() for p in state["model"].parameters()]
+
+
+def _ptrs(state):
+    return [p.data_ptr() for p in state["model"].parameters()]
 
 
 @pytest.mark.parametrize("case", ["sort", "map", "sort-fused2",
-                                  "map-fused2", "gat"])
+                                  "map-fused2", "gat", "interbatch-sort",
+                                  "interbatch-map", "interbatch-to-plain",
+                                  "plain-to-interbatch"])
 def test_restore_continues_bit_for_bit(ds, case, tmp_path):
     """Train 3 calls, save, take 2 more; a fresh trainer restored from
     the checkpoint takes the same 2 calls to the same losses and
     parameters exactly (port of tests/test_checkpoint.py), for both dedup
-    modes, fused_steps 1 and 2, and GAT with feature and attention
-    dropout."""
-    dedup = "map" if case.startswith("map") else "sort"
+    modes, fused_steps 1 and 2, GAT with feature and attention dropout,
+    interbatch (the restored carry primed at the checkpoint's counter),
+    and a checkpoint of an interbatch trainer restored into a plain one
+    and the reverse (``train_ctr`` counts trained batches in both). The
+    restored state's parameters are its own: another live state of the
+    restoring trainer keeps its addresses and values."""
+    dedup = "map" if case.endswith("map") else "sort"
     model = "gat" if case == "gat" else "graphsage"
     fused = 2 if case.endswith("fused2") else 1
-    cfg = _config(ds, dedup=dedup, model=model, fused=fused)
+    save_ib = case.startswith("interbatch")
+    load_ib = save_ib and case != "interbatch-to-plain" \
+        or case == "plain-to-interbatch"
+    cfg = _config(ds, dedup=dedup, model=model, fused=fused,
+                  interbatch=save_ib)
     tr = Trainer(ds, cfg, "cpu")
     st, _ = _steps(tr, tr.init_state(), 3)
     ck = str(tmp_path / "ck")
     save_checkpoint(ck, st, st["train_ctr"])
     assert latest_step(ck) == 3 * fused == st["train_ctr"]
     st, la = _steps(tr, st, 2)
-    pa = _params(tr)
+    pa = _params(st)
 
-    tr2 = Trainer(ds, cfg, "cpu")
-    ptrs = [p.data_ptr() for p in tr2.model.parameters()]
+    tr2 = Trainer(ds, replace(cfg, train=replace(cfg.train,
+                                                 interbatch=load_ib)), "cpu")
+    live = tr2.init_state()
+    live_ptrs, live_params = _ptrs(live), _params(live)
     st2 = restore_checkpoint(ck, tr2)
-    assert [p.data_ptr() for p in tr2.model.parameters()] == ptrs
+    assert not set(_ptrs(st2)) & set(live_ptrs)
+    assert _ptrs(live) == live_ptrs
+    for a, b in zip(_params(live), live_params):
+        assert torch.equal(a, b)
     for k in ("train_ctr", "valid_ctr", "test_ctr"):
         assert st2[k] == int(st2[k + "_d"])
     assert st2["train_ctr"] == 3 * fused
+    assert ("carry_batch" in st2) == load_ib
+    if load_ib:
+        assert int(st2["carry_ctr_d"]) == 3 * fused + 1
     assert bool((st2["pos_map"] == INT32_MAX).all())
     st2, lb = _steps(tr2, st2, 2)
     for a, b in zip(la, lb):
         assert torch.equal(a, b)
-    for a, b in zip(pa, _params(tr2)):
+    for a, b in zip(pa, _params(st2)):
         assert torch.equal(a, b)
     assert st2["train_ctr"] == st["train_ctr"] \
         == int(st2["train_ctr_d"]) == 5 * fused
     if dedup == "map":
         assert bool((st2["pos_map"] == INT32_MAX).all())
+
+
+@pytest.mark.parametrize("interbatch", [False, True])
+def test_a_second_init_state_leaves_a_live_state_alone(ds, interbatch):
+    """States are values (as JAX's ``init_state`` returns fresh arrays,
+    ``legion_tpu/train.py:491-509``): a state trained 3 steps keeps its
+    parameters through a second ``init_state`` on the same trainer, and
+    its next 2 steps equal those of an unbroken run."""
+    cfg = _config(ds, dedup="map", interbatch=interbatch)
+    ref = Trainer(ds, cfg, "cpu")
+    sr, lr = _steps(ref, ref.init_state(), 5)
+    tr = Trainer(ds, cfg, "cpu")
+    st, la = _steps(tr, tr.init_state(), 3)
+    before = _params(st)
+    other = tr.init_state()
+    assert other["model"] is not st["model"]
+    assert not set(_ptrs(other)) & set(_ptrs(st))
+    for a, b in zip(before, _params(st)):
+        assert torch.equal(a, b)
+    st, lb = _steps(tr, st, 2)
+    for a, b in zip(lr, la + lb):
+        assert torch.equal(a, b)
+    for a, b in zip(_params(sr), _params(st)):
+        assert torch.equal(a, b)
+    # the new state starts where a fresh trainer does
+    for a, b in zip(_params(other), _params(ref.init_state())):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("interbatch", [False, True])
+def test_a_restore_leaves_a_live_state_alone(ds, interbatch, tmp_path):
+    """A ``restore_checkpoint`` into the trainer of a live state, from a
+    checkpoint of another seed (other weights, another base key), leaves
+    that state's parameters and its later steps (keys, dropout) as an
+    unbroken run's; the restored state continues the checkpoint's run."""
+    cfg = _config(ds, interbatch=interbatch)
+    other = replace(cfg, train=replace(cfg.train, seed=7))
+    src = Trainer(ds, other, "cpu")
+    ss, _ = _steps(src, src.init_state(), 2)
+    ck = str(tmp_path / "ck")
+    save_checkpoint(ck, ss, ss["train_ctr"])
+    ss, l_src = _steps(src, ss, 2)
+
+    ref = Trainer(ds, cfg, "cpu")
+    sr, lr = _steps(ref, ref.init_state(), 5)
+    tr = Trainer(ds, cfg, "cpu")
+    st, la = _steps(tr, tr.init_state(), 3)
+    before = _params(st)
+    rs = restore_checkpoint(ck, tr)
+    assert rs["base_key_h"] == int(rs["base_key"]) != st["base_key_h"]
+    for a, b in zip(before, _params(st)):
+        assert torch.equal(a, b)
+    st, lb = _steps(tr, st, 2)
+    for a, b in zip(lr, la + lb):
+        assert torch.equal(a, b)
+    for a, b in zip(_params(sr), _params(st)):
+        assert torch.equal(a, b)
+    rs, l_rs = _steps(tr, rs, 2)
+    for a, b in zip(l_src, l_rs):
+        assert torch.equal(a, b)
+    for a, b in zip(_params(ss), _params(rs)):
+        assert torch.equal(a, b)
 
 
 def test_restore_into_another_seed_continues_the_checkpoints_run(
@@ -230,7 +315,7 @@ def test_restore_into_another_seed_continues_the_checkpoints_run(
     st2, acc_b = tr2.run_eval(st2, Mode.VALID)
     for a, b in zip(la, lb):
         assert torch.equal(a, b)
-    for a, b in zip(_params(tr), _params(tr2)):
+    for a, b in zip(_params(st), _params(st2)):
         assert torch.equal(a, b)
     assert acc_a == acc_b
 
@@ -248,7 +333,7 @@ def test_fit_saves_every_epoch(ds, tmp_path):
     tr2 = Trainer(ds, _config(ds, epochs=1), "cpu")
     st2, _ = tr2.fit(restore_checkpoint(ck, tr2, step=n), verbose=False)
     assert st2["train_ctr"] == 2 * n
-    for a, b in zip(_params(tr), _params(tr2)):
+    for a, b in zip(_params(st), _params(st2)):
         assert torch.equal(a, b)
     with pytest.raises(FileNotFoundError):
         restore_checkpoint(str(tmp_path / "none"), tr2)
