@@ -84,7 +84,20 @@ CUDA card, nvcc (``$CUDA_HOME`` or ``/usr/local/cuda``) and no network.
      order; then the checkpoint restored for fused steps (CUDA-graph
      replays) against eager steps, as ``phase_fused`` holds them. Prints
      what ``cudaHostRegister`` returns for a copy-on-write file mapping
-     (``memmap_probe``; the port never registers one).
+     (``memmap_probe``; the port never registers one);
+  9. on the same host dataset, the clique caches with 4 members of one
+     clique on the card (``phase_clique``): clique-HT (features and
+     topology on the host, at 50 MB a member, or the least budget at
+     which the plan gives both caches 4 rows), whose batch holds K11
+     (hash map lookup), K12 (bucket by owner), K13 (the clique fetch) and
+     K14 (the owners' draws and their unsort) against their plain
+     versions, timed, and at the edges of their shapes; 10 steps and an
+     eval pass with hit counters, overflow lanes and exchange bytes, the
+     launches equal to ``PATH_KERNELS``; every member's fetched rows
+     against their host rows and every drawn neighbour against the CSR;
+     the same path with hash maps, and clique-H (the topology on the
+     card) against the same members with every feature on the card: the
+     same ids and rows in every step, the same first loss.
 
 Prints the card's ``name, power.limit`` line, the per-kernel JSON line and,
 last, ``{"ok": true, "device": ...}`` only when every phase passed. Any
@@ -92,14 +105,15 @@ failure exits non-zero without that line.
 
 ``python3 chip_smoke.py --profile gat,H,HT`` runs none of the phases: it
 takes the named paths (of device, device-map, gat, gcn, lp_sage, H, HT,
-cache-off) through ``torch.profiler`` and prints where a train step's
-device time goes (``phase_profile``); it fails if a step calls
-``torch.cummax`` (the plain sort dedup). ``--profile PATHS --fused
+cache-off, clique-HT, clique-H) through ``torch.profiler`` and prints
+where a train step's device time goes (``phase_profile``); it fails if a
+step calls ``torch.cummax`` (the plain sort dedup). ``--profile PATHS --fused
 1,4,E,E,4,1`` does so for each ``fused_steps`` in turn (E: the epoch's
 ``train_step``), an A/B of single steps against CUDA-graph replays in one
 call, and fails if a fused run's profile lacks a kernel of its path. ``python3 chip_smoke.py
 --kernels`` stops after phase 2 and the GCN shapes of K2, K8 and K9, for
-work on K1-K3, K8 and K9.
+work on K1-K3, K8 and K9. ``python3 chip_smoke.py --clique`` builds, makes
+the host dataset and runs phase 9 alone, for work on K11-K14.
 """
 
 import json
@@ -141,10 +155,21 @@ KERNELS = {
                       replaces="legion_tpu/sampling/sampler.py:190"),
     "step_keys": dict(source="legion_tpu_torch/csrc/step_keys.cu",
                       replaces="legion_tpu/train.py:526"),
+    "hash_lookup": dict(source="legion_tpu_torch/csrc/hash_lookup.cu",
+                        replaces="legion_tpu/cache/hashmap.py:96"),
+    "bucket_by_owner": dict(source="legion_tpu_torch/csrc/clique.cu",
+                            replaces="legion_tpu/cache/collective.py:76"),
+    "clique_gather": dict(source="legion_tpu_torch/csrc/cached_gather.cu",
+                          replaces="legion_tpu/cache/collective.py:160"),
+    "clique_draw": dict(source="legion_tpu_torch/csrc/clique.cu",
+                        replaces="legion_tpu/cache/collective.py:337"),
 }
 # the kernels each path must launch, and the path whose launches the
 # kernel line reports
 SORT_DEDUP = ("dedup_keys", "dedup_sort")
+CLIQUE_HT = ("gather_rows", "segment_sum", "csr_draw", "step_keys",
+             "bucket_by_owner", "clique_gather", "clique_draw",
+             "clique_draw_unsort") + SORT_DEDUP
 # every path's step derives its keys by K10
 PATH_KERNELS = {
     "device": ("gather_rows", "segment_sum", "windowed_draw", "step_keys")
@@ -167,6 +192,12 @@ PATH_KERNELS = {
     # the launcher on a dataset on disk, features on the host (phase 8)
     "cli": ("gather_rows", "segment_sum", "windowed_draw", "cached_gather",
             "step_keys") + SORT_DEDUP,
+    # 4 members of a clique on the card (phase 9): features and topology
+    # on the host; the same with hash maps; the topology on the card
+    "clique-HT": CLIQUE_HT,
+    "clique-HT-hash": CLIQUE_HT + ("hash_lookup",),
+    "clique-H": ("gather_rows", "segment_sum", "windowed_draw", "step_keys",
+                 "bucket_by_owner", "clique_gather") + SORT_DEDUP,
 }
 # the paths whose CUDA-graph replays phase_fused holds against eager steps
 FUSED_PATHS = ("device", "device-map", "gat", "HT")
@@ -186,7 +217,9 @@ REPORTED_PATH = {"gather_rows": "device", "segment_sum": "device",
                  "csr_draw": "HT", "gat_attend": "gat",
                  "hop_attention": "gat", "dedup_keys": "device",
                  "dedup_sort": "device", "dedup_map": "device-map",
-                 "step_keys": "device"}
+                 "step_keys": "device", "hash_lookup": "clique-HT-hash",
+                 "bucket_by_owner": "clique-HT", "clique_gather": "clique-HT",
+                 "clique_draw": "clique-HT"}
 # bench.py --model X: lp_sage batches divide into thirds, GCN dedups the
 # last hop exactly
 MODEL_SAMPLER = {"gat": {}, "gcn": dict(dedup_last_hop=True),
@@ -197,6 +230,9 @@ MODEL_SAMPLER = {"gat": {}, "gcn": dict(dedup_last_hop=True),
 # memory bytes/s, and operations/s by input type
 HBM_BPS = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
+# this run's measurements that later phases read: the link's bulk-copy
+# rate (phase 5)
+MEASURED = {}
 
 
 def nb(*tensors):
@@ -761,7 +797,10 @@ def k10_compares(tr, torch, results, main, floor):
     Device trainer's hops) from its base key, timed like the others (one
     launch a train step), and at 1,000 random (base_key in [0, 2^63), ctr
     in [0, 2^31)) pairs, both tags, each also checked for its counter's
-    increment; eight of them against the host's fold_in chain."""
+    increment; eight of them against the host's fold_in chain. The same
+    pairs again with the clique paths' CLIQUE_KG members ([Kg, L, 4], the
+    member index folded in after the tag), eight of them against the host
+    chain fold_in(fold_in(fold_in(base, ctr), tag), d)."""
     import numpy as np
     from legion_tpu_torch.sampling import access
     L = tr.sampler_t.config.num_hops
@@ -801,6 +840,27 @@ def k10_compares(tr, torch, results, main, floor):
         fail("step_keys: a counter was not advanced by one")
     print(f"  step_keys      {n} random (base_key, ctr) pairs, tags 0 and 1: "
           f"all exact, every counter advanced by one")
+    # the member fold of the clique paths: [Kg, L, 4], member d's words
+    # from fold_in(step, d), the device index folded in after the tag
+    Kg = CLIQUE_KG
+    c_k, c_p = c0.clone(), c0.clone()
+    out_k = torch.stack([access.step_keys(b_d[i], c_k[i], i % 2, L, Kg)
+                         for i in range(n)])
+    out_p = torch.stack([access.step_keys_plain(b_d[i], c_p[i], i % 2, L,
+                                                Kg) for i in range(n)])
+    host = torch.stack([torch.stack([access.hop_keys(access.fold_in(
+        access.fold_in(access.fold_in(int(bases[i]), int(ctrs[i])), i % 2),
+        d), L, dev) for d in range(Kg)]) for i in range(8)])
+    if tuple(out_k.shape) != (n, Kg, L, 4) or not (
+            torch.equal(out_k, out_p) and torch.equal(out_k[:8], host)):
+        fail(f"step_keys: with {Kg} members the kernel's words differ from "
+             f"its plain version's or the host chain's")
+    if not (torch.equal(c_k, c0 + 1) and torch.equal(c_p, c0 + 1)):
+        fail(f"step_keys: with {Kg} members a counter was not advanced by "
+             f"one")
+    print(f"  step_keys      {Kg} members [{Kg}, {L}, 4], the same {n} pairs, "
+          f"tags 0 and 1: all exact, eight equal to the host chain "
+          f"fold_in(fold_in(fold_in(base, ctr), tag), d)")
 
 
 def k8_compare(note, skey, stag, P, cum, ids, cap, results, torch,
@@ -2166,6 +2226,7 @@ def phase_host_kernels(tr_h, tr_ht, torch):
     _, hit = tr_ht.cache.find_feat(nid)
     miss = nid[(nid >= 0) & ~hit & (nid < feat_host.shape[0])].contiguous()
     link_bps = link_probe(feat_host, miss, torch)
+    MEASURED["link_bps"] = link_bps
     link_unit(acc.host_indices, torch)
 
     for f, fo, key in ((f0, 25, 5), (f1, 10, 6)):
@@ -2938,9 +2999,17 @@ def phase_profile(names, torch, fused=("1",)):
     host_kw = {"H": dict(cache_bytes=CACHE_BYTES, feature_residency="host"),
                "HT": dict(cache_bytes=CACHE_BYTES, feature_residency="host",
                           topo_residency="host"), "cache-off": {}}
+    clique_kw = {"clique-HT": {}, "clique-H": dict(topo_residency="hbm")}
     ds = hds = None
     for name in names:
-        if name in host_kw:
+        if name in clique_kw:
+            hds = hds or synthesize_dataset(
+                num_nodes=HOST_NODES, avg_degree=HOST_AVG_DEGREE,
+                feature_dim=100, num_classes=32, batch_size=8000,
+                train_frac=0.08, seed=0)
+            tr = Trainer(hds, clique_config(hds, CLIQUE_BYTES,
+                                            **clique_kw[name]), "cuda")
+        elif name in host_kw:
             hds = hds or synthesize_dataset(
                 num_nodes=HOST_NODES, avg_degree=HOST_AVG_DEGREE,
                 feature_dim=100, num_classes=32, batch_size=8000,
@@ -2958,6 +3027,605 @@ def phase_profile(names, torch, fused=("1",)):
         tr.close()
         del tr
         torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# The clique caches: Kg members on one card (phase 9)
+# ---------------------------------------------------------------------------
+
+CLIQUE_KG = 4
+CLIQUE_BYTES = 50_000_000     # a member's: a group of 200 MB, H's budget
+CLIQUE_STEPS = 10
+CLIQUE_AB_STEPS = 3           # the hash and clique-H runs, each side
+
+
+def clique_config(ds, cache_bytes, topo_residency="host",
+                  map_impl="direct", feature_residency="host"):
+    """The bench configuration (batch 8000 a member, [25,10], hidden 256,
+    bf16, sort dedup with the aligned last hop) for a clique of
+    CLIQUE_KG members on the card."""
+    from dataclasses import replace
+    from legion_tpu_torch.config import MeshConfig
+    cfg = bench_config(ds, cache_bytes=cache_bytes,
+                       feature_residency=feature_residency,
+                       topo_residency=topo_residency)
+    return replace(cfg, cache=replace(cfg.cache, map_impl=map_impl),
+                   mesh=MeshConfig(num_cliques=1, clique_size=CLIQUE_KG))
+
+
+def clique_trainer(hds, torch):
+    """clique-HT's trainer at CLIQUE_BYTES a member; if its plan gives the
+    feature or the topology cache fewer than Kg rows, trainers at twice
+    the budget, and twice again, until one's plan gives both Kg rows.
+    Returns (trainer, a member's budget)."""
+    from legion_tpu_torch.train import Trainer
+    budget = CLIQUE_BYTES
+    while True:
+        t0 = time.perf_counter()
+        tr = Trainer(hds, clique_config(hds, budget), device="cuda")
+        p = tr.cache_plan
+        group = budget * CLIQUE_KG
+        print(f"  clique-HT at {budget} B a member (group {group} B): "
+              f"set-up {time.perf_counter() - t0:.2f} s "
+              f"({fmt_setup(tr.setup_s)}) | plan: alpha {p.alpha:.2f}, "
+              f"feature rows {p.feature_capacity}, topology rows "
+              f"{p.topo_capacity} (group totals)")
+        if min(p.feature_capacity, p.topo_capacity) >= CLIQUE_KG:
+            return tr, budget
+        tr.close()
+        del tr
+        torch.cuda.empty_cache()
+        budget *= 2
+        if budget > 2 ** 40:
+            fail("clique-HT: no budget gives both caches Kg rows")
+
+
+def clique_batch(tr, torch, ctr=0):
+    """The pieces of one clique-HT train batch, as ``Trainer._member_step``
+    makes them: every member's seeds and key words at counter ``ctr``,
+    each hop's frontiers [Kg, F_k] with their routing, owners' requests and
+    misses' host draws, and the fetch's ids [Kg, max_ids]."""
+    from legion_tpu_torch.cache.hashmap import map_lookup
+    s, acc, fs = tr.sampler_t, tr.graph_access, tr.feature_source
+    state = {"base_key": torch.full((), tr.config.train.seed + 1,
+                                    dtype=torch.int64, device="cuda"),
+             "train_ctr_d": torch.full((), ctr, dtype=torch.int64,
+                                       device="cuda"),
+             "pos_map": tr._init_pos_map()}
+    seeds, _, keys = tr._member_inputs(state, s, tr.train_bank,
+                                       tr.train_ybank, tr.schedule.train_step,
+                                       "train_ctr", 0)
+    hops = []
+    carries = [s._begin(seeds[d], None, register=True)
+               for d in range(CLIQUE_KG)]
+    for k in range(s.config.num_hops):
+        fo = s.config.fanouts[k]
+        fr = torch.stack([s.hop_frontier(c, k) for c in carries])
+        req, row, _ = acc.route(fr)
+        miss = torch.where(row >= 0, -1, fr)
+        fill = torch.stack([acc.fallback.sample_neighbors(f, fo, kw)
+                            for f, kw in zip(miss, keys[:, k])])
+        hops.append(dict(frontier=fr, fanout=fo, keys=keys[:, k].contiguous(),
+                         slot=map_lookup(acc.row_map, fr), req=req, row=row,
+                         recv=acc.to_owners(req), fill=fill))
+        cand = acc.sample_neighbors(fr, fo, keys[:, k])
+        carries = [s._absorb(c, k, cand[d], False)
+                   for d, c in enumerate(carries)]
+    ids = torch.stack([s._finish(c, clear=False).node_ids[:s.max_ids]
+                       for c in carries])
+    slot = map_lookup(fs.slot_map, ids)
+    req, row, _ = fs.route(ids)
+    return hops, dict(ids=ids, slot=slot, req=req, row=row,
+                      back=fs._rows_back(req))
+
+
+def all_exact(name, got, ref, what, torch):
+    """Every output of a kernel's call equal to its plain version's."""
+    for a, b in zip(got, ref):
+        if a.shape != b.shape or not torch.equal(a, b):
+            fail(f"{name} {what}: kernel differs from its plain version")
+
+
+def hash_bound(m, ids, torch):
+    """K11's bytes for these ids: each id read and each value written once,
+    each bucket row that the early-ending probe reads (32 bytes) once, and
+    a value read for each hit."""
+    mask = m.n_buckets - 1
+    safe = ids.clamp(min=0).long()
+    b0 = (safe * 0x9E3779B1) & 0xFFFFFFFF & mask
+    active = ids >= 0
+    seen, hits = [], 0
+    for p in range(m.probes):
+        b = (b0 + p) & mask
+        seen.append(b[active])
+        krow = m.keys[b]
+        found = (krow == ids[..., None]).any(-1) & active
+        hits += int(found.sum())
+        active = active & ~found & ~(krow < 0).any(-1)
+    rows = int(torch.cat(seen).unique().numel())
+    return bound(8 * ids.numel() + 32 * rows + 4 * hits)
+
+
+def clique_kernels(tr, tr_hash, torch, results, main):
+    """K11-K14 against their plain versions at clique-HT's shapes (one real
+    batch of the Kg members), exact, timed, with their bounds; K12 beside
+    ``torch.sort(owner, stable=True)``. K11 on clique-HT-hash's maps."""
+    from legion_tpu_torch.cache import collective as co
+    from legion_tpu_torch.cache.hashmap import hash_lookup_plain
+    link_bps = MEASURED["link_bps"]
+    hops, fetch = clique_batch(tr, torch)
+    acc, fs = tr.graph_access, tr.feature_source
+    Kg = CLIQUE_KG
+
+    def owner_of(slot):
+        return torch.where(slot >= 0, slot % Kg, Kg)
+
+    # K11, at the fetch and both hops, on the hash path's maps
+    for m, ids, what in (
+            (tr_hash.feature_source.slot_map, fetch["ids"], "fetch ids"),
+            (tr_hash.graph_access.row_map, hops[0]["frontier"], "hop 0"),
+            (tr_hash.graph_access.row_map, hops[1]["frontier"], "hop 1")):
+        t = compare(
+            "hash_lookup", lambda: m.lookup(ids),
+            lambda: hash_lookup_plain(m.keys, m.vals, m.probes, ids), exact,
+            results, torch, f"{what} {tuple(ids.shape)}, {m.n_buckets} "
+            f"buckets, probes {m.probes}", least=hash_bound(m, ids, torch))
+        main.setdefault("hash_lookup", []).append(t)
+    # K12, at the fetch and both hops: req, row and pos exact, then the
+    # trainer's call (no pos) timed
+    for h, what in ((fetch, "fetch"), (hops[0], "hop 0"), (hops[1], "hop 1")):
+        slot = h["slot"].contiguous()
+        M, N = slot.shape
+        R_req = co.request_rows(N, Kg, 1.5)
+        all_exact("bucket_by_owner", co.bucket_by_owner(slot, Kg, R_req,
+                                                        True),
+                  co.bucket_by_owner_plain(slot, Kg, R_req), what, torch)
+        own = owner_of(slot)
+        t = compare(
+            "bucket_by_owner",
+            lambda: co.bucket_by_owner(slot, Kg, R_req)[1],
+            lambda: co.bucket_by_owner_plain(slot, Kg, R_req)[1],
+            exact, results, torch, f"{what} [{M}, {N}], R_req {R_req}",
+            least=bound(4 * M * N * 2 + 4 * M * Kg * R_req),
+            library=lambda: torch.sort(own, dim=1, stable=True))
+        main.setdefault("bucket_by_owner", []).append(t)
+    # K13, the fetch: rows and hits exact
+    ids, row, back = fetch["ids"], fetch["row"], fetch["back"]
+    host = fs.host
+    n, F = ids.numel(), back.shape[1]
+    hit = row >= 0
+    from_host = (ids >= 0) & ~hit & (ids < host.shape[0])
+    es = back.element_size()
+    # device memory: the sorted ids, their order (int64) and each lane's
+    # row read once, each served row read, every output row written; the
+    # link: each distinct missed row once
+    least = bound(4 * n * 2 + 8 * n + int(hit.sum()) * F * es + n * F * es,
+                  link_bytes=distinct(ids[from_host]) * F * 4,
+                  link_bps=link_bps)
+    print(f"  clique fetch: {n} lanes, {int(hit.sum())} served by the "
+          f"clique, {int(((fetch['slot'] >= 0) & ~hit).sum())} overflow, "
+          f"{int(from_host.sum())} from the host "
+          f"({distinct(ids[from_host])} distinct rows)")
+    all_exact("clique_gather", co.clique_gather(back, row, ids, host),
+              co.clique_gather_plain(back, row, ids, host.on("cuda")), "fetch",
+              torch)
+    t = compare("clique_gather",
+                lambda: co.clique_gather(back, row, ids, host)[0],
+                lambda: co.clique_gather_plain(back, row, ids,
+                                               host.on("cuda"))[0],
+                exact, results, torch, f"fetch [{Kg}, {ids.shape[1]}] x {F}",
+                least=least)
+    main["clique_gather"] = [t]
+    # the rest of the fetch: the owners' serve (K1 a member) and the two
+    # exchanges, and the whole fetch as the trainer calls it
+    req = fetch["req"]
+    ms_ex = cuda_ms(lambda: co.exchange(back.view(1, Kg, Kg, -1, F)), torch)
+    ms_serve = cuda_ms(lambda: fs._rows_back(req), torch)
+    ms_fetch = cuda_ms(lambda: fs.fetch(ids), torch)
+    print(f"  the exchange of the answers ({nb(back)} B) {ms_ex:.4f} ms | "
+          f"the owners' serve and both exchanges {ms_serve:.4f} ms | the "
+          f"whole fetch (map, K12, serve, exchanges, K13) {ms_fetch:.4f} ms")
+    # K14, both hops: the owners' draws, and the requesters' unsort with
+    # the host draws of the lanes not served
+    for h in hops:
+        recv, fo, keys = h["recv"], h["fanout"], h["keys"]
+        valid = int((recv >= 0).sum())
+        pe = tr.graph_access.member_pairs.element_size()
+        t = compare("clique_draw",
+                    lambda: co.clique_draw(acc.member_pairs,
+                                           acc.member_indices2d, recv, fo,
+                                           keys),
+                    lambda: co.clique_draw_plain(acc.member_pairs,
+                                                 acc.member_indices2d, recv,
+                                                 fo, keys),
+                    exact, results, torch,
+                    f"owners {tuple(recv.shape)} x {fo}, {valid} rows",
+                    least=bound(4 * recv.numel() + 2 * pe * valid
+                                + 4 * valid * fo + 4 * recv.numel() * fo))
+        main.setdefault("clique_draw", []).append(t)
+        drawn = co.clique_draw(acc.member_pairs, acc.member_indices2d, recv,
+                               fo, keys)
+        bk = co.exchange(drawn.view(1, Kg, Kg, -1, fo)).view(-1, fo)
+        r, fill = h["row"], h["fill"]
+        served = int((r >= 0).sum())
+        t = compare("clique_draw", lambda: co.clique_draw_unsort(bk, r, fill),
+                    lambda: co.clique_draw_unsort_plain(bk, r, fill), exact,
+                    results, torch, f"unsort {tuple(r.shape)} x {fo}, "
+                    f"{served} served",
+                    least=bound(4 * r.numel() * (1 + 2 * fo)
+                                + 4 * served * fo))
+        main["clique_draw"].append(t)
+        print(f"  hop {fo}: {int((h['frontier'] >= 0).sum())} frontier "
+              f"lanes, {int((h['slot'] >= 0).sum())} cached, {served} "
+              f"served, {int(((h['slot'] >= 0) & (r < 0)).sum())} overflow")
+
+
+def clique_edges(torch, results):
+    """K11-K14 at the edges of their shapes, exact against the plain
+    versions: K11 at loads needing 2+ probe rounds, all misses, pads, one
+    id; K12 at Kg 1, 4, 8 and 31, N from 1 to 1000 (and past one tile),
+    all misses, no misses, one owner past R_req; K13 with all misses, no
+    misses, overflow, an id that one member's lane finds and another's
+    overflows, no host table, f32 and bf16, widths 1, 100, 128 and 602;
+    K14 with degree-0 rows, no requests, int64 pairs, fanouts 1 and 25, a
+    window of 8 and one of 48 (not a power of two), two cliques."""
+    import numpy as np
+    from legion_tpu_torch.cache import collective as co
+    from legion_tpu_torch.cache.hashmap import HashMap32, hash_lookup_plain
+    from legion_tpu_torch.ops.host_memory import HostTable
+    rng = np.random.default_rng(12)
+    dev = "cuda"
+    n_cases = 0
+
+    def check(name, got, ref, what):
+        nonlocal n_cases
+        n_cases += 1
+        all_exact(name, got, ref, f"edge {what}", torch)
+
+    for n, load, q in ((5000, 0.97, "mixed"), (100, 0.5, "all miss"),
+                       (1, 0.5, "pads"), (3000, 0.9, "one")):
+        ids = rng.choice(10 ** 7, n, replace=False)
+        m = HashMap32.build(ids, rng.integers(0, 2 ** 31 - 1, n,
+                                              dtype=np.int64)
+                            .astype(np.int32), load=load, device=dev)
+        qs = {"mixed": np.concatenate([ids, rng.integers(0, 10 ** 7, n),
+                                       [-1, -5]]),
+              "all miss": np.setdiff1d(rng.integers(0, 10 ** 7, 999), ids),
+              "pads": np.full(77, -1), "one": ids[-1:]}[q]
+        qt = torch.from_numpy(qs.astype(np.int32)).to(dev)
+        check("hash_lookup", [m.lookup(qt)],
+              [hash_lookup_plain(m.keys, m.vals, m.probes, qt)],
+              f"{q}, probes {m.probes}")
+    for M, N, Kg, q in ((4, 1, 4, "mixed"), (4, 1000, 4, "all miss"),
+                        (4, 1000, 4, "no miss"), (4, 3000, 4, "skew"),
+                        (2, 700, 1, "mixed"), (3, 257, 8, "mixed"),
+                        (1, 5000, 31, "mixed"), (8, 20000, 4, "skew")):
+        slot = rng.integers(-1, 50 * Kg, (M, N)).astype(np.int32)
+        if q == "all miss":
+            slot[:] = -1
+        if q == "no miss":
+            slot = np.abs(slot)
+        if q == "skew":
+            slot[:, :N // 2] = Kg * rng.integers(0, 50, N // 2) + 1
+        st = torch.from_numpy(slot).to(dev)
+        R_req = co.request_rows(N, Kg, 1.5)
+        check("bucket_by_owner", co.bucket_by_owner(st, Kg, R_req, True),
+              co.bucket_by_owner_plain(st, Kg, R_req), f"{M}x{N} Kg {Kg} {q}")
+    V = 3000
+    for F, dt in ((100, torch.bfloat16), (128, torch.float32),
+                  (1, torch.float32), (602, torch.bfloat16)):
+        host_np = rng.standard_normal((V, F)).astype(np.float32)
+        host = HostTable(host_np, pin=True)
+        for q in ("mixed", "all miss", "no miss", "overflow", "shared"):
+            M, N, Kg = 4, 500, 4
+            ids = np.stack([rng.choice(V, N, replace=False)
+                            for _ in range(M)]).astype(np.int32)
+            ids[:, -7:] = -1
+            slot = np.where(rng.random((M, N)) < 0.6, ids % 400, -1)
+            if q == "all miss":
+                slot[:] = -1
+            if q == "no miss":
+                slot = ids % 400
+            if q in ("overflow", "shared"):
+                slot = (ids % 100) * Kg + 2
+            if q == "shared":
+                # the same ids in every member: early lanes served, late
+                # lanes past R_req, so runs of one id mix the two
+                ids[:] = ids[0]
+                ids[1] = ids[1][::-1]
+            slot = np.where(ids >= 0, slot, -1).astype(np.int32)
+            R_req = co.request_rows(N, Kg, 1.5)
+            _, row, _ = co.bucket_by_owner(torch.from_numpy(slot).to(dev),
+                                           Kg, R_req)
+            back = torch.randn((M * Kg * R_req, F), device=dev).to(dt)
+            it = torch.from_numpy(ids).to(dev)
+            for h in (host, None):
+                ref = co.clique_gather_plain(
+                    back, row, it, None if h is None else h.on("cuda"))
+                check("clique_gather", co.clique_gather(back, row, it, h),
+                      ref, f"{q} F {F} {dt} host {h is not None}")
+        host.close()
+    Vg = 5000
+    deg = rng.integers(0, 200, Vg)
+    deg[rng.random(Vg) < 0.2] = 0
+    indptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int64)
+    indices = rng.integers(0, Vg, indptr[-1]).astype(np.int32)
+    order = rng.permutation(Vg)
+    for Kc, Kg, fo, W, q in ((1, 4, 25, 64, "mixed"), (1, 4, 1, 8, "mixed"),
+                             (2, 2, 10, 48, "mixed"), (1, 4, 10, 64, "none"),
+                             (1, 4, 10, 64, "int64")):
+        row_map, pairs, blocks, R = co.build_clique_topo(
+            order, 3000, indptr, indices, Kg, window=W, device=dev)
+        if q == "int64":
+            pairs = pairs.long()
+        n = Kc * Kg
+        fr = rng.integers(-1, Vg, (n, 900)).astype(np.int32)
+        if q == "none":
+            fr[:] = -1
+        cache = co._Clique(row_map, Kg, Kc, 1.5)
+        req, row, _ = cache.route(torch.from_numpy(fr).to(dev))
+        recv = cache.to_owners(req)
+        keys = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (n, 4))
+                                .astype(np.int32)).to(dev)
+        drawn = co.clique_draw(pairs, blocks, recv, fo, keys)
+        check("clique_draw", [drawn],
+              [co.clique_draw_plain(pairs, blocks, recv, fo, keys)],
+              f"Kc {Kc} Kg {Kg} fanout {fo} W {W} {q}")
+        back = co.exchange(drawn.view(Kc, Kg, Kg, -1, fo)).view(-1, fo)
+        fill = torch.from_numpy(rng.integers(-1, Vg, (n, fo * 900))
+                                .astype(np.int32)).to(dev)
+        for fl in (None, fill):
+            check("clique_draw_unsort", [co.clique_draw_unsort(back, row, fl)],
+                  [co.clique_draw_unsort_plain(back, row, fl)],
+                  f"Kc {Kc} Kg {Kg} fanout {fo} fill {fl is not None}")
+    print(f"  clique_edges: {n_cases} cases of K11-K14, exact")
+
+
+class MemberRecorder:
+    """Wraps ``Trainer._member_sample_fetch``: for each train batch, the
+    members' ids [Kg, ids_len], feature hits and (``keep``) the batches
+    and the fetched rows."""
+
+    def __init__(self, tr, torch, keep=False):
+        self.tr, self.rec = tr, []
+        orig = tr._member_sample_fetch
+
+        def wrapped(state, sampler, seeds, keys):
+            out = orig(state, sampler, seeds, keys)
+            if sampler is tr.sampler_t:
+                ids = torch.stack([b.node_ids for b in out[0]]).clone()
+                self.rec.append((ids, out[2].clone()) + (
+                    (out[0], out[1].clone()) if keep else ()))
+            return out
+        tr._member_sample_fetch = wrapped
+
+    def close(self):
+        del self.tr._member_sample_fetch
+
+
+def clique_path(tr, torch, path, steps, warmup=WARMUP_STEPS, evaluate=True,
+                keep=False):
+    """``path``'s steps (after ``warmup``) and an eval pass from
+    ``init_state``, with the launches counted over exactly that run and
+    held against ``PATH_KERNELS[path]``: every kernel of the path
+    launched, none other. Returns (counts, ms a step, losses, the
+    recorder's records of the timed steps, the state)."""
+    from legion_tpu_torch.ops import kernels
+    from legion_tpu_torch.pipeline import Mode
+    rec = MemberRecorder(tr, torch, keep)
+    state = tr.init_state()
+    kernels.reset_launch_counts()
+    for _ in range(warmup):
+        state, _ = tr.train_step(state)
+    torch.cuda.synchronize()
+    rec.rec.clear()
+    before = dict(kernels.LAUNCHES)
+    losses, ctr = [], []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, loss = tr.train_step(state)
+        losses.append(loss)
+        ctr.append(torch.stack([tr.last_edges, tr.last_feat_hits,
+                                tr.last_slots, tr.last_topo_hits,
+                                tr.last_topo_total]))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
+    per_step = {k: (v - before[k]) / steps
+                for k, v in kernels.LAUNCHES.items()}
+    acc = None
+    if evaluate:
+        state, acc = tr.run_eval(state, Mode.VALID)
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    rec.close()
+    launched = {k for k, v in counts.items() if v}
+    if launched != set(PATH_KERNELS[path]):
+        fail(f"{path}: launched {sorted(launched)}, want "
+             f"{sorted(PATH_KERNELS[path])}")
+    losses = [float(x) for x in losses]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{path}: non-finite loss {losses}")
+    if evaluate and not (0.0 <= acc <= 1.0 and float(state["total"]) > 0):
+        fail(f"{path}: eval pass counted nothing (acc {acc})")
+    tot = torch.stack(ctr).sum(0).tolist()
+    print(f"  {path}: {step_ms:.3f} ms a step over {steps} steps (after "
+          f"{warmup}) | trained edges/s {tot[0] / (step_ms / 1e3 * steps):.1f}"
+          f" | feature hits {tot[1]}/{tot[2]} slots | topology hits "
+          f"{tot[3]}/{tot[4]} | losses {losses}"
+          + ("" if acc is None else f" | valid acc {acc:.4f}"))
+    nonzero = {k: v for k, v in counts.items() if v}
+    print(f"  launches on the {path} path: {nonzero}\n  launches per train "
+          f"step: { {k: v for k, v in per_step.items() if v} }")
+    counts["per_step"] = per_step
+    return counts, step_ms, losses, rec.rec, state, ctr
+
+
+def clique_checks(tr, hds, torch):
+    """One clique-HT step's results against the data: every member's
+    fetched rows equal its ids' host rows rounded to bf16 (to nearest
+    even, as K4 rounds) and zero rows for pads, exactly; every sampled
+    edge's neighbour lies in its vertex's CSR row."""
+    rec = clique_path(tr, torch, "clique-HT", 1, warmup=0, evaluate=False,
+                      keep=True)[3]
+    ids, _, batches, x = rec[0]
+    host = tr.feature_source.host.on("cuda")
+    fid = ids[:, :tr.sampler_t.max_ids]
+    ref = host[fid.clamp(min=0).long()].to(x.dtype)
+    ref[fid < 0] = 0
+    if not torch.equal(x, ref):
+        bad = int((x != ref).any(-1).sum())
+        fail(f"clique-HT: {bad} fetched rows differ from their host rows")
+    g = hds.graph
+    V = hds.meta.num_nodes
+    indptr = torch.from_numpy(g.indptr).to("cuda")
+    rows = torch.repeat_interleave(torch.arange(V, device="cuda"),
+                                   indptr[1:] - indptr[:-1])
+    keys = torch.sort(rows * V + torch.from_numpy(g.indices).to("cuda")
+                      .long()).values
+    del rows
+    n_edges = 0
+    for b in batches:
+        for k in range(b.num_hops):
+            src, dst = b.edge_src[k], b.edge_dst[k]
+            ok = src >= 0
+            u = b.node_ids[src[ok].long()].long()
+            v = b.node_ids[dst[ok].long()].long()
+            kq = v * V + u
+            at = torch.searchsorted(keys, kq).clamp(max=keys.numel() - 1)
+            if not bool((keys[at] == kq).all()):
+                fail(f"clique-HT: a drawn neighbour of hop {k} is not in "
+                     "its vertex's CSR row")
+            n_edges += int(ok.sum())
+    print(f"  clique-HT checks: {x.shape[0] * x.shape[1]} fetched rows equal"
+          f" their host rows (bf16, nearest even); {n_edges} sampled edges, "
+          "every neighbour in its vertex's CSR row")
+
+
+def clique_pair(tr_a, tr_b, torch, path_a, label):
+    """``path_a`` on tr_a (its launches held as ``clique_path`` holds them)
+    and as many steps of tr_b from init_state: every step's sampled ids
+    and fetched rows equal exactly; the first loss equal exactly (the same
+    parameters, rows and dropout), later losses and the parameters within
+    ``phase_fused``'s tolerance (K2's f32 atomics make two runs' updates
+    differ in their last bits)."""
+    counts, _, la, ra, sa, _ = clique_path(tr_a, torch, path_a,
+                                           CLIQUE_AB_STEPS, warmup=0,
+                                           evaluate=False, keep=True)
+    rec = MemberRecorder(tr_b, torch, keep=True)
+    sb = tr_b.init_state()
+    lb = []
+    for i in range(CLIQUE_AB_STEPS):
+        sb, loss = tr_b.train_step(sb)
+        lb.append(float(loss))
+        ids_a, _, _, xa = ra[i]
+        ids_b, _, _, xb = rec.rec[i]
+        if not torch.equal(ids_a, ids_b):
+            fail(f"{label}: step {i}'s sampled ids differ")
+        if not torch.equal(xa, xb):
+            fail(f"{label}: step {i}'s fetched rows differ")
+        rec.rec[i] = None
+        ra[i] = None
+    rec.close()
+    pa = [p.detach() for p in sa["model"].parameters()]
+    pdiff = rel_norm([p.detach() for p in sb["model"].parameters()], pa)
+    rel = max(abs(a - b) / abs(a) for a, b in zip(la, lb))
+    print(f"  {label}: ids and fetched rows equal in all "
+          f"{CLIQUE_AB_STEPS} steps | losses {la} against {lb} | first loss "
+          f"{'equal' if la[0] == lb[0] else 'DIFFERS'} | max loss rel "
+          f"{rel:.3g} | params rel {pdiff:.3g}")
+    if la[0] != lb[0] or rel > 1e-3 or pdiff > 2e-3:
+        fail(f"{label}: the two runs disagree")
+    return counts
+
+
+def phase_clique(hds, torch):
+    """Phase 9: the clique caches with Kg = 4 members on the card, on the
+    host dataset: K11-K14 against their plain versions at the clique-HT
+    path's shapes and at the edges of theirs; clique-HT (features and
+    topology on the host, direct maps) for CLIQUE_STEPS steps and an eval
+    pass, with its hit counters, overflow lanes and exchange bytes, and
+    the data checks of ``clique_checks``; clique-HT-hash (hash maps)
+    against clique-HT, and clique-H (the topology on the card) against
+    the same members with every feature on the card (``clique_pair``).
+    Returns (kernel results, launch counts by path, main-path times)."""
+    from legion_tpu_torch.cache.hashmap import map_lookup
+    from legion_tpu_torch.train import Trainer
+    results, main, counts = {}, {}, {}
+    tr, budget = clique_trainer(hds, torch)
+    tr_hash = Trainer(hds, clique_config(hds, budget, map_impl="hash"),
+                      device="cuda")
+    clique_kernels(tr, tr_hash, torch, results, main)
+    clique_edges(torch, results)
+    add_main(results, main)
+
+    print(" clique-HT:")
+    fs, acc = tr.feature_source, tr.graph_access
+    N = tr.sampler_t.max_ids
+    fb = fs.collective_bytes(N)
+    print(f"  exchange a member a step: fetch {fb} | " + " | ".join(
+        f"hop {k}: {acc.collective_bytes(f, fo)}" for k, (f, fo) in
+        enumerate(zip(tr.sampler_t.frontier_sizes,
+                      tr.sampler_t.config.fanouts))))
+    counts["clique-HT"], step_ms, _, rec, _, ctr = clique_path(
+        tr, torch, "clique-HT", CLIQUE_STEPS)
+    P = tr.sampler_t.cum_caps[tr.sampler_t.config.num_hops - 1]
+    for i, ((ids, hits), c) in enumerate(zip(rec, ctr)):
+        fid = ids[:, :N]
+        slot = map_lookup(fs.slot_map, fid)
+        cached = int((slot >= 0).sum())
+        resident = int((map_lookup(acc.row_map, ids[:, :P]) >= 0).sum())
+        print(f"  step {i}: feature lanes cached {cached}, served "
+              f"{int(hits)}, overflow {cached - int(hits)}, host rows read "
+              f"{distinct(fid[slot < 0])} distinct (all members) | topology"
+              f" lanes cached {resident}, served {int(c[3])}, overflow "
+              f"{resident - int(c[3])}")
+    clique_checks(tr, hds, torch)
+
+    print(" clique-HT-hash (hash maps) against clique-HT (direct):")
+    counts["clique-HT-hash"] = clique_pair(tr_hash, tr, torch,
+                                           "clique-HT-hash", "hash maps")
+    tr_hash.close()
+    tr.close()
+    del tr, tr_hash
+    torch.cuda.empty_cache()
+
+    print(" clique-H (the topology on the card) against the features on "
+          "the card:")
+    from dataclasses import replace
+    tr_c = Trainer(hds, clique_config(hds, CLIQUE_BYTES, topo_residency="hbm"),
+                   device="cuda")
+    p = tr_c.cache_plan
+    print(f"  clique-H plan: feature rows {p.feature_capacity}, topology rows "
+          f"{p.topo_capacity}")
+    cfg = clique_config(hds, 0, topo_residency="hbm", feature_residency="hbm")
+    tr_d = Trainer(hds, replace(cfg, train=replace(cfg.train,
+                                                   pad_feature_dim=False)),
+                   device="cuda")
+    counts["clique-H"] = clique_pair(tr_c, tr_d, torch, "clique-H",
+                                     "clique-H against device features")
+    tr_c.close()
+    del tr_c, tr_d
+    torch.cuda.empty_cache()
+    counts["clique-HT"]["clique_draw"] += \
+        counts["clique-HT"]["clique_draw_unsort"]
+    counts["clique-HT"]["per_step"]["clique_draw"] += \
+        counts["clique-HT"]["per_step"]["clique_draw_unsort"]
+    return results, counts, step_ms
+
+
+def bulk_link_bps(hds, torch):
+    """The bulk-copy rate from the registered feature table (as
+    ``link_probe`` measures it), for the bounds of ``--clique`` runs."""
+    from legion_tpu_torch.ops.host_memory import HostTable
+    ht = HostTable(hds.features, pin=True)
+    words = 466_475 * hds.meta.feature_dim
+    dst = torch.empty(words, dtype=torch.float32, device="cuda")
+    flat = ht.device.view(-1)
+    ms = cuda_ms(lambda: dst.copy_(flat[:words], non_blocking=True), torch)
+    ht.close()
+    bps = words * 4 / ms * 1e3
+    print(f"  link: bulk copy {bps / 1e9:.2f} GB/s")
+    return bps
 
 
 def main():
@@ -2996,6 +3664,23 @@ def main():
     for line in report.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print("  " + line.strip())
+
+    if sys.argv[1:2] == ["--clique"]:
+        from legion_tpu_torch.data import synthesize_dataset
+        hds = synthesize_dataset(num_nodes=HOST_NODES,
+                                 avg_degree=HOST_AVG_DEGREE, feature_dim=100,
+                                 num_classes=32, batch_size=8000,
+                                 train_frac=0.08, seed=0)
+        MEASURED["link_bps"] = bulk_link_bps(hds, torch)
+        res, counts, _ = phase_clique(hds, torch)
+        for n in ("hash_lookup", "bucket_by_owner", "clique_gather",
+                  "clique_draw"):
+            r, c = res[n], counts[REPORTED_PATH[n]]
+            print(f"  {n:16s} launches a step {c['per_step'][n]:g} | kernel "
+                  f"{r['ms']:.4f} ms | bound {r['bound_ms']:.4f} ms by "
+                  f"{r['bound_by']} | plain {r['plain_ms']:.4f} ms | library "
+                  f"{r['library_ms']}")
+        return
 
     print("set-up: bench dataset and trainer")
     t0 = time.perf_counter()
@@ -3124,6 +3809,11 @@ def main():
     print("phase 8: the launcher from a dataset on disk (host mode, "
           "checkpoint, resume)")
     phase_cli(hds, torch, step_ms["H"])
+
+    print(f"phase 9: the clique caches, {CLIQUE_KG} members on the card")
+    res_c, counts_c, step_ms["clique-HT"] = phase_clique(hds, torch)
+    results.update(res_c)
+    counts.update(counts_c)
     del hds
 
     kern = [dict(name=n, route="cuda", source=KERNELS[n]["source"],

@@ -51,21 +51,24 @@ def _order_and_prefix(node_access, edge_access, degrees, feat_row_bytes):
 
 def plan_cache(node_access, edge_access, degrees, cache_bytes: int,
                feat_dim: int, alpha_step: float = 0.01,
+               group_size: int = 1,
                bytes_per_feat: int = 4) -> CostModelResult:
     """Pick (feature_capacity, topo_capacity) maximizing saved bytes.
 
     ``node_access``/``edge_access`` are [V] hotness counts and ``degrees``
-    the [V] out-degrees, as numpy arrays or torch tensors.
-    bytes_per_feat=2 for bf16 cache storage doubles the rows a byte
-    budget holds. (The JAX function's ``group_size``, which pools a
-    clique's budgets, waits for the clique slice.)
+    the [V] out-degrees, as numpy arrays or torch tensors. group_size (Kg)
+    multiplies the budget: a clique pools its members' device memory
+    (cache.cu:375-389), and the capacities returned are group totals,
+    split across the members by ``cache/collective.py``'s interleaved
+    layout. bytes_per_feat=2 for bf16 cache storage doubles the rows a
+    byte budget holds.
     """
     V = int(_np(degrees).shape[0])
     feat_row_bytes = bytes_per_feat * feat_dim
     qf, qt, feat_saved, topo_saved, topo_bytes = _order_and_prefix(
         node_access, edge_access, degrees, float(feat_row_bytes))
 
-    total = cache_bytes
+    total = cache_bytes * group_size
     best = (-1.0, 0, 0, 0.0)  # (saved, feat_cap, topo_cap, alpha)
     alphas = np.arange(0.0, 1.0 + 1e-9, alpha_step)
     for alpha in alphas:

@@ -40,6 +40,21 @@
 // The grid is the wrapper's (cache/unified_cache.py::K4_BLOCKS): a block
 // on half of the SMs keeps far more link requests in flight than the link
 // serves, and leaves the other half to the kernels of another stream.
+//
+// K13 clique_gather, the requester side of the clique feature fetch, is
+// this kernel with the slot read by lane (kByLane): it replaces
+// legion_tpu/cache/collective.py::CliqueFeatureCache.fetch_cached's unsort
+// and fetch's host fallback (:160-218). The "cache" is then the rows the
+// owners sent back ([members * Kg * R_req, F]), and lane j's slot is
+// lane_row[order[j]] (K12 bucket_by_owner's flat row of the request, -1
+// where the id missed the clique cache or overflowed its owner's R_req);
+// a lane without a row reads its id's host row, as a K4 miss, or a zero
+// row without a host table (fetch_cached). The ids of all members are
+// sorted together, so an id that two members miss is read once over the
+// link. One member's lane may find an id in the clique while another's
+// overflowed, so a run of equal ids is cut where the lanes' class turns
+// between a miss and not one. Hits are counted by member (the lane's
+// position over group_len).
 #include "common.cuh"
 
 constexpr int kMissRows = 4;      // miss rows in flight per warp
@@ -96,13 +111,23 @@ __device__ __forceinline__ void store_chunk(char* orow, int col, float4 v) {
   }
 }
 
-template <bool kBf16>
-__global__ void __launch_bounds__(kThreads) cached_gather_kernel(
+constexpr int kMaxGroups = 64;   // members whose hits K13 counts apart
+
+// The body of K4 (kByLane false) and K13 (true); each has its own entry
+// point below, so that a profile names them apart.
+template <bool kBf16, bool kByLane>
+__device__ __forceinline__ void gather_body(
     const void* __restrict__ cache, const int32_t* __restrict__ slot_map,
     int64_t num_nodes, const float* __restrict__ host, int64_t host_rows,
     const int32_t* __restrict__ ids, const int64_t* __restrict__ order,
     void* __restrict__ out, int64_t n, int F, int word_bytes, bool chunks,
-    int32_t* __restrict__ hits) {
+    int32_t* __restrict__ hits, int64_t group_len, int n_groups) {
+  __shared__ int group_hits[kMaxGroups];
+  if (kByLane) {
+    for (int g = threadIdx.x; g < n_groups; g += blockDim.x)
+      group_hits[g] = 0;
+    __syncthreads();
+  }
   constexpr int es = kBf16 ? 2 : 4;
   const int lane = threadIdx.x & 31;
   const int64_t warps = (int64_t)gridDim.x * (blockDim.x >> 5);
@@ -122,11 +147,17 @@ __global__ void __launch_bounds__(kThreads) cached_gather_kernel(
       id = ids[first + lane];
       pos = (int32_t)order[first + lane];
       if (id >= 0) {
-        const int32_t slot = slot_map[id < num_nodes ? id : num_nodes - 1];
+        const int32_t slot =
+            kByLane ? slot_map[pos]
+                    : slot_map[id < num_nodes ? id : num_nodes - 1];
         cls = slot >= 0 ? slot : (id < host_rows ? kMissRow : kZeroRow);
       }
     }
-    local += cls >= 0;
+    if (kByLane) {
+      if (cls >= 0) atomicAdd(&group_hits[pos / group_len], 1);
+    } else {
+      local += cls >= 0;
+    }
     // 2. cached and zero rows
     switch (word_bytes) {
       case 16: copy_device_rows<uint4>(cache, out, cnt, wpr, cls, pos, lane);
@@ -143,7 +174,13 @@ __global__ void __launch_bounds__(kThreads) cached_gather_kernel(
     // 3. each distinct miss row once, to every position of its run of
     // equal ids (lanes past cnt hold id -1, which ends the last run)
     const int32_t before = __shfl_up_sync(0xffffffffu, id, 1);
-    const bool starts = lane == 0 || id != before;
+    // K13: an id that one member's lane finds in the clique may overflow
+    // for another member's, so a run also ends where the lanes' class
+    // turns between a miss and not one (K4's equal ids share a class)
+    const int32_t cls_before = __shfl_up_sync(0xffffffffu, cls, 1);
+    const bool starts =
+        lane == 0 || id != before ||
+        (kByLane && (cls == kMissRow) != (cls_before == kMissRow));
     const unsigned edges = __ballot_sync(0xffffffffu, starts);
     unsigned heads = __ballot_sync(0xffffffffu, starts && cls == kMissRow);
     while (heads) {
@@ -206,25 +243,55 @@ __global__ void __launch_bounds__(kThreads) cached_gather_kernel(
       }
     }
   }
-  // one atomic per block: warp sums, then the block's sum
-  for (int o = 16; o > 0; o >>= 1)
-    local += __shfl_down_sync(0xffffffffu, local, o);
-  __shared__ int warp_sums[kThreads / 32];
-  if (lane == 0) warp_sums[threadIdx.x >> 5] = local;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int s = 0;
-    for (int i = 0; i < (int)(blockDim.x >> 5); ++i) s += warp_sums[i];
-    if (s) atomicAdd(hits, s);
+  if (kByLane) {
+    __syncthreads();
+    for (int g = threadIdx.x; g < n_groups; g += blockDim.x)
+      if (group_hits[g]) atomicAdd(hits + g, group_hits[g]);
+  } else {
+    // one atomic per block: warp sums, then the block's sum
+    for (int o = 16; o > 0; o >>= 1)
+      local += __shfl_down_sync(0xffffffffu, local, o);
+    __shared__ int warp_sums[kThreads / 32];
+    if (lane == 0) warp_sums[threadIdx.x >> 5] = local;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      int s = 0;
+      for (int i = 0; i < (int)(blockDim.x >> 5); ++i) s += warp_sums[i];
+      if (s) atomicAdd(hits, s);
+    }
   }
 }
 
 template <bool kBf16>
+__global__ void __launch_bounds__(kThreads) cached_gather_kernel(
+    const void* __restrict__ cache, const int32_t* __restrict__ slot_map,
+    int64_t num_nodes, const float* __restrict__ host, int64_t host_rows,
+    const int32_t* __restrict__ ids, const int64_t* __restrict__ order,
+    void* __restrict__ out, int64_t n, int F, int word_bytes, bool chunks,
+    int32_t* __restrict__ hits, int64_t group_len, int n_groups) {
+  gather_body<kBf16, false>(cache, slot_map, num_nodes, host, host_rows, ids,
+                            order, out, n, F, word_bytes, chunks, hits,
+                            group_len, n_groups);
+}
+
+template <bool kBf16>
+__global__ void __launch_bounds__(kThreads) clique_gather_kernel(
+    const void* __restrict__ cache, const int32_t* __restrict__ slot_map,
+    int64_t num_nodes, const float* __restrict__ host, int64_t host_rows,
+    const int32_t* __restrict__ ids, const int64_t* __restrict__ order,
+    void* __restrict__ out, int64_t n, int F, int word_bytes, bool chunks,
+    int32_t* __restrict__ hits, int64_t group_len, int n_groups) {
+  gather_body<kBf16, true>(cache, slot_map, num_nodes, host, host_rows, ids,
+                           order, out, n, F, word_bytes, chunks, hits,
+                           group_len, n_groups);
+}
+
+template <bool kBf16, bool kByLane>
 static int launch(const void* cache, const int32_t* slot_map,
                   int64_t num_nodes, const float* host, int64_t host_rows,
                   const int32_t* ids, const int64_t* order, void* out,
                   int64_t n, int64_t F, int32_t* hits, int64_t max_blocks,
-                  cudaStream_t stream) {
+                  int64_t group_len, int n_groups, cudaStream_t stream) {
   const int64_t row_bytes = F * (kBf16 ? 2 : 4);
   // the widest word that the row width, the cache and the output allow
   int word = kBf16 ? 2 : 4;
@@ -242,9 +309,11 @@ static int launch(const void* cache, const int32_t* slot_map,
   const int64_t warps_per_block = kThreads / 32;
   int64_t blocks = ((n + 31) / 32 + warps_per_block - 1) / warps_per_block;
   blocks = blocks < max_blocks ? blocks : max_blocks;
-  cached_gather_kernel<kBf16><<<(unsigned int)blocks, kThreads, 0, stream>>>(
+  auto kernel = kByLane ? clique_gather_kernel<kBf16>
+                        : cached_gather_kernel<kBf16>;
+  kernel<<<(unsigned int)blocks, kThreads, 0, stream>>>(
       cache, slot_map, num_nodes, host, host_rows, ids, order, out, n,
-      (int)F, word, chunks, hits);
+      (int)F, word, chunks, hits, group_len, n_groups);
   return (int)cudaGetLastError();
 }
 
@@ -265,8 +334,39 @@ LT_EXPORT int lt_cached_gather(const void* cache, const int32_t* slot_map,
       max_blocks > INT32_MAX)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  return bf16 ? launch<true>(cache, slot_map, num_nodes, host, host_rows,
-                             ids, order, out, n, F, hits, max_blocks, s)
-              : launch<false>(cache, slot_map, num_nodes, host, host_rows,
-                              ids, order, out, n, F, hits, max_blocks, s);
+  return bf16 ? launch<true, false>(cache, slot_map, num_nodes, host,
+                                    host_rows, ids, order, out, n, F, hits,
+                                    max_blocks, n, 1, s)
+              : launch<false, false>(cache, slot_map, num_nodes, host,
+                                     host_rows, ids, order, out, n, F, hits,
+                                     max_blocks, n, 1, s);
+}
+
+// K13. rows [*, F] (bf16 if bf16 else f32): the rows the owners sent
+// back; lane_row [n] int32, the row of each lane in the caller's order
+// (-1: none); host [host_rows, F] f32 registered host memory, or null
+// with host_rows 0 (no host reads: zero rows); ids [n] int32 ascending
+// with order [n] int64 as for K4 -> out [n, F] in rows' dtype; hits
+// [n_groups] int32, hits[p / group_len] += 1 for each lane p served from
+// rows (n_groups <= 64). All contiguous.
+LT_EXPORT int lt_clique_gather(const void* rows, const int32_t* lane_row,
+                               const float* host, int64_t host_rows,
+                               const int32_t* ids, const int64_t* order,
+                               int64_t n, int64_t F, int bf16, void* out,
+                               int32_t* hits, int64_t group_len,
+                               int32_t n_groups, int64_t max_blocks,
+                               void* stream) {
+  if (n == 0 || F == 0) return (int)cudaSuccess;
+  if (F > (1 << 24) || n > INT32_MAX || max_blocks <= 0 ||
+      max_blocks > INT32_MAX || group_len <= 0 || n_groups <= 0 ||
+      n_groups > kMaxGroups || (n - 1) / group_len >= n_groups ||
+      (host == nullptr && host_rows != 0))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  return bf16 ? launch<true, true>(rows, lane_row, n, host, host_rows, ids,
+                                   order, out, n, F, hits, max_blocks,
+                                   group_len, n_groups, s)
+              : launch<false, true>(rows, lane_row, n, host, host_rows, ids,
+                                    order, out, n, F, hits, max_blocks,
+                                    group_len, n_groups, s);
 }

@@ -41,3 +41,19 @@ __device__ __forceinline__ uint32_t lt_word(uint32_t ka, uint32_t kb,
 __device__ __forceinline__ uint32_t lt_bounded(uint32_t w, uint32_t m) {
   return (uint32_t)(((uint64_t)w * (uint64_t)m) >> 32);
 }
+
+// fold_in on a 64-bit key held as its 32-bit halves (lo, hi), bit for bit
+// sampling/access.py::fold_in_words: data's low and high 32 bits,
+//   lo' = hash32(lo ^ hash32(data_lo ^ 0x9E3779B9))
+//   hi' = hash32(hi ^ hash32(lo' ^ data_hi)).
+struct LtKey {
+  uint32_t lo, hi;
+};
+
+__device__ __forceinline__ LtKey lt_fold_in(LtKey k, uint64_t data) {
+  LtKey r;
+  r.lo = lt_hash32(k.lo ^ lt_hash32((uint32_t)(data & 0xFFFFFFFFull) ^
+                                    0x9E3779B9u));
+  r.hi = lt_hash32(k.hi ^ lt_hash32(r.lo ^ (uint32_t)(data >> 32)));
+  return r;
+}

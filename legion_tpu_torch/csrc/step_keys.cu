@@ -12,52 +12,41 @@
 // Then it adds one to the counter. The step's keys are thus a pure
 // function of (base_key, ctr, tag), written where K3 and K5 read them,
 // with no host word in the launch: a captured step replays with new keys.
-// JAX also folds in the device index; on one card there is none.
+// With n_dev members (the clique's members on one card) JAX's device fold
+// comes after the tag, step_d = fold_in(step, d), and out is
+// [n_dev, L, 4]; with n_dev 0 (one device) no device index is folded in,
+// as before, and out is [L, 4].
 //
-// fold_in is sampling/access.py::fold_in, bit for bit: a 64-bit key is
-// (lo, hi) 32-bit halves, data its low and high 32 bits,
-//   lo' = hash32(lo ^ hash32(data_lo ^ 0x9E3779B9))
-//   hi' = hash32(hi ^ hash32(lo' ^ data_hi)).
-// Every half is an explicit uint32 cast of the 64-bit value, never an
-// arithmetic shift of a signed one.
+// fold_in is common.cuh::lt_fold_in (sampling/access.py::fold_in, bit for
+// bit). Every half is an explicit uint32 cast of the 64-bit value, never
+// an arithmetic shift of a signed one.
 //
 // Bound on this card: the launch. The work is 8 dependent hashes a hop
 // and 16 bytes a hop written; the card's time is an empty kernel's.
-// Design: one block of 32 threads, thread k computes hop k (a loop for
-// L > 32); every thread reads the counter before the barrier, and only
-// then thread 0 writes it back incremented.
+// Design: one block of 32 threads, thread t computes the (member, hop)
+// rows t, t + 32, ...; every thread reads the counter before the barrier,
+// and only then thread 0 writes it back incremented.
 #include "common.cuh"
 
 namespace {
 
-constexpr uint32_t kGolden = 0x9E3779B9u;
-
-struct Key {
-  uint32_t lo, hi;
-};
-
-__device__ __forceinline__ Key fold_in(Key k, uint64_t data) {
-  Key r;
-  r.lo = lt_hash32(k.lo ^ lt_hash32((uint32_t)(data & 0xFFFFFFFFull) ^
-                                    kGolden));
-  r.hi = lt_hash32(k.hi ^ lt_hash32(r.lo ^ (uint32_t)(data >> 32)));
-  return r;
-}
-
 __global__ void __launch_bounds__(32) step_keys_kernel(
     const int64_t* __restrict__ base_key, int64_t* __restrict__ ctr,
-    uint32_t tag, int32_t L, uint32_t* __restrict__ out) {
+    uint32_t tag, int32_t L, int32_t n_dev, uint32_t* __restrict__ out) {
   const uint64_t base = (uint64_t)base_key[0];
   const uint64_t c = (uint64_t)ctr[0];
-  Key k{(uint32_t)(base & 0xFFFFFFFFull), (uint32_t)(base >> 32)};
-  k = fold_in(fold_in(k, c), (uint64_t)tag);
-  for (int h = threadIdx.x; h < L; h += blockDim.x) {
-    const Key hk = fold_in(k, (uint64_t)h);
-    const Key s0 = fold_in(hk, 0), s1 = fold_in(hk, 1);
-    out[4 * h + 0] = s0.lo;
-    out[4 * h + 1] = s0.hi;
-    out[4 * h + 2] = s1.lo;
-    out[4 * h + 3] = s1.hi;
+  LtKey k{(uint32_t)(base & 0xFFFFFFFFull), (uint32_t)(base >> 32)};
+  k = lt_fold_in(lt_fold_in(k, c), (uint64_t)tag);
+  const int rows = (n_dev > 0 ? n_dev : 1) * L;
+  for (int t = threadIdx.x; t < rows; t += blockDim.x) {
+    const int d = t / L, h = t - d * L;
+    const LtKey sk = n_dev > 0 ? lt_fold_in(k, (uint64_t)d) : k;
+    const LtKey hk = lt_fold_in(sk, (uint64_t)h);
+    const LtKey s0 = lt_fold_in(hk, 0), s1 = lt_fold_in(hk, 1);
+    out[4 * t + 0] = s0.lo;
+    out[4 * t + 1] = s0.hi;
+    out[4 * t + 2] = s1.lo;
+    out[4 * t + 3] = s1.hi;
   }
   __syncthreads();
   if (threadIdx.x == 0) ctr[0] = (int64_t)(c + 1);
@@ -65,12 +54,13 @@ __global__ void __launch_bounds__(32) step_keys_kernel(
 
 }  // namespace
 
-// base_key and ctr: one int64 each on the card; out: [L, 4] uint32.
+// base_key and ctr: one int64 each on the card; out: [L, 4] uint32 when
+// n_dev is 0, else [n_dev, L, 4] with member d's device index folded in.
 LT_EXPORT int lt_step_keys(const int64_t* base_key, int64_t* ctr,
-                           uint32_t tag, int32_t L, uint32_t* out,
-                           void* stream) {
-  if (L <= 0) return (int)cudaErrorInvalidValue;
+                           uint32_t tag, int32_t L, int32_t n_dev,
+                           uint32_t* out, void* stream) {
+  if (L <= 0 || n_dev < 0) return (int)cudaErrorInvalidValue;
   step_keys_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(base_key, ctr, tag, L,
-                                                      out);
+                                                      n_dev, out);
   return (int)cudaGetLastError();
 }

@@ -27,6 +27,11 @@ K8 ``dedup_sort`` (sort dedup around its sort: the keys, counted under
 position map: seed registration, a hop's claim, rank and read-back, the
 clear, or all of them in one cooperative launch; every call counted under
 ``dedup_map``) in ``sampling/sampler.py``;
+K11 ``hash_lookup`` (the hash map's lookup) in ``cache/hashmap.py``; K12
+``bucket_by_owner`` (a clique request's routing to its owners), K13
+``clique_gather`` (the requester's rows, with the host misses) and K14
+``clique_draw`` (the owners' draws, and ``clique_draw_unsort`` on the
+requester's side) in ``cache/collective.py``;
 host-memory registration for K4 and K5 is ``ops/host_memory.py``. The
 headers of ``csrc/*.cu`` say what bounds each kernel on the card.
 ``noop`` launches an empty kernel, the yardstick of a launch's cost, and
@@ -44,7 +49,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -66,7 +71,10 @@ LAUNCHES: Dict[str, int] = {"gather_rows": 0, "segment_sum": 0,
                             "csr_draw": 0, "gat_attend": 0,
                             "gat_attend_bwd": 0, "hop_attention": 0,
                             "hop_attention_bwd": 0, "dedup_keys": 0,
-                            "dedup_sort": 0, "dedup_map": 0, "step_keys": 0}
+                            "dedup_sort": 0, "dedup_map": 0, "step_keys": 0,
+                            "hash_lookup": 0, "bucket_by_owner": 0,
+                            "clique_gather": 0, "clique_draw": 0,
+                            "clique_draw_unsort": 0}
 
 
 def reset_launch_counts() -> None:
@@ -174,7 +182,15 @@ def lib() -> ctypes.CDLL:
     so.lt_dedup_map_fused.argtypes = [p, i64, p, i64, p, i64, p, i32, p, p,
                                       p, i64, p, p]
     so.lt_dedup_map_grid.argtypes = [i64, i64, i64]
-    so.lt_step_keys.argtypes = [p, p, u32, i32, p, p]
+    so.lt_step_keys.argtypes = [p, p, u32, i32, i32, p, p]
+    so.lt_hash_lookup.argtypes = [p, p, i64, i32, p, i64, p, p]
+    so.lt_bucket_grid.argtypes = [i64, i64]
+    so.lt_bucket_by_owner.argtypes = [p, i64, i64, i32, i32, p, p, p, p, p]
+    so.lt_clique_gather.argtypes = [p, p, p, i64, p, p, i64, i64, i32, p, p,
+                                    i64, i32, i64, p]
+    for fn in (so.lt_clique_draw_i32, so.lt_clique_draw_i64):
+        fn.argtypes = [p, p, i64, i64, i32, p, i64, i32, i64, i32, p, p, p]
+    so.lt_clique_draw_unsort.argtypes = [p, p, p, i64, i64, i32, p, p]
     so.lt_noop.argtypes = [p]
     so.lt_grid_sync_probe.argtypes = [i32, i32, p]
     for fn in (so.lt_noop, so.lt_gather_rows, so.lt_segment_sum_f32,
@@ -187,7 +203,10 @@ def lib() -> ctypes.CDLL:
                so.lt_hop_attention_bwd, so.lt_dedup_keys, so.lt_dedup_sort,
                so.lt_map_register, so.lt_map_clear, so.lt_dedup_map,
                so.lt_dedup_map_fused, so.lt_dedup_map_grid,
-               so.lt_grid_sync_probe, so.lt_step_keys):
+               so.lt_grid_sync_probe, so.lt_step_keys, so.lt_hash_lookup,
+               so.lt_bucket_grid, so.lt_bucket_by_owner, so.lt_clique_gather,
+               so.lt_clique_draw_i32, so.lt_clique_draw_i64,
+               so.lt_clique_draw_unsort):
         fn.restype = ctypes.c_int
     so.lt_error_string.argtypes = [ctypes.c_int]
     so.lt_error_string.restype = ctypes.c_char_p
@@ -244,22 +263,32 @@ def gather_rows_plain(table: torch.Tensor, ids: torch.Tensor
     return torch.where((ids >= 0)[:, None], rows, torch.zeros_like(rows))
 
 
-def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """K1. table [V, F] (bf16 or f32), ids [N] int32 -> [N, F]."""
+def gather_rows(table: torch.Tensor, ids: torch.Tensor,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K1. table [V, F] (bf16 or f32), ids [N] int32 -> [N, F], written
+    into ``out`` (contiguous, [N, F] in the table's dtype) when given."""
     _require(table.dim() == 2 and ids.dim() == 1,
              f"gather_rows: table {tuple(table.shape)}, ids "
              f"{tuple(ids.shape)}")
     _require(ids.dtype == torch.int32, f"gather_rows: ids {ids.dtype}")
     _require(table.dtype in (torch.bfloat16, torch.float32),
              f"gather_rows: table {table.dtype}")
+    _require(out is None or (out.is_contiguous() and out.dtype == table.dtype
+                             and tuple(out.shape) == (ids.shape[0],
+                                                      table.shape[1])
+                             and out.device == table.device),
+             "gather_rows: out must be a contiguous [N, F] tensor of the "
+             "table's dtype and device")
     if table.device.type == "cpu" and ids.device.type == "cpu":
-        return gather_rows_plain(table, ids)
+        rows = gather_rows_plain(table, ids)
+        return rows if out is None else out.copy_(rows)
     _require(table.is_cuda and ids.device == table.device,
              f"gather_rows: table on {table.device}, ids on {ids.device}")
     _require(table.shape[0] > 0, "gather_rows: empty table")
     table, ids = table.contiguous(), ids.contiguous()
-    out = torch.empty((ids.shape[0], table.shape[1]), dtype=table.dtype,
-                      device=table.device)
+    if out is None:
+        out = torch.empty((ids.shape[0], table.shape[1]), dtype=table.dtype,
+                          device=table.device)
     rc = lib().lt_gather_rows(
         table.data_ptr(), ids.data_ptr(), out.data_ptr(), ids.shape[0],
         table.shape[0], table.shape[1] * table.element_size(),

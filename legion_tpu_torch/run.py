@@ -5,9 +5,11 @@ schedule and checkpoints, in one process on one card.
 It takes the JAX launcher's flags, with the same names and defaults, so a
 command line carries over, and adds ``--device`` (default ``cuda``; the
 counterpart of ``JAX_PLATFORMS``). A card that is asked for and absent
-raises: nothing carries on on the CPU. More than one device, clique
-caches and multi-host runs are not ported yet (``ROADMAP.md`` A.9, A.10)
-and raise.
+raises: nothing carries on on the CPU. More than one device and clique
+caches raise: the launcher's ``--devices`` will count processes, a member
+each (``ROADMAP.md`` A.4); the clique caches with their members in one
+process are ``Trainer``'s ``MeshConfig`` (A.3). Multi-host runs raise
+too (A.6).
 
   python -m legion_tpu_torch.run --dataset-name custom --dataset-path DIR \
       --features host --cache-memory 200000000 --train-batch-size 8000 \
@@ -47,8 +49,9 @@ def build_config(args):
     if args.devices > 1 or args.clique_size > 1:
         raise NotImplementedError(
             f"--devices {args.devices} --clique-size {args.clique_size}: the "
-            "port trains on one card; clique caches and multi-device data "
-            "parallelism are ROADMAP.md A.9 and A.10")
+            "launcher trains one member on one card; a process a member is "
+            "ROADMAP.md A.4 (the clique caches with their members in one "
+            "process are Trainer's MeshConfig, A.3)")
     cache_enabled = args.cache_memory > 0 and args.features == "host"
     return LegionConfig(
         dataset=meta,
@@ -93,12 +96,13 @@ def parse_args(argv=None):
     ap.add_argument("--lr", type=float, default=3e-3)
     # the JAX launcher's multi-device flags: only one device here
     ap.add_argument("--devices", type=int, default=0,
-                    help="0 = one card (more raise: ROADMAP.md A.10)")
+                    help="0 = one card (more raise: a process a member is "
+                         "ROADMAP.md A.4)")
     ap.add_argument("--clique-size", type=int, default=0,
-                    help="cache group size Kg (more than 1 raises: "
-                         "ROADMAP.md A.9)")
+                    help="cache group size Kg (more than 1 raises: ROADMAP.md "
+                         "A.4; in one process, Trainer's MeshConfig, A.3)")
     ap.add_argument("--coordinator", default="",
-                    help="multi-host runs raise (ROADMAP.md A.10)")
+                    help="multi-host runs raise (ROADMAP.md A.6)")
     ap.add_argument("--num-processes", type=int, default=0)
     ap.add_argument("--process-id", type=int, default=-1)
     ap.add_argument("--features", choices=["hbm", "host"], default="hbm")
@@ -136,7 +140,7 @@ def main(argv=None):
     if args.coordinator:
         raise NotImplementedError(
             "--coordinator: multi-host runs are not ported (ROADMAP.md "
-            "A.10)")
+            "A.6)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA card is "

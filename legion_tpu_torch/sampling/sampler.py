@@ -601,6 +601,41 @@ class NeighborSampler:
             carry = self._absorb(carry, k, cand, fused)
         return self._finish(carry, clear=not self.sort_dedup and not fused)
 
+    def sample_members(self, access, seeds: torch.Tensor, keys: torch.Tensor,
+                       pos_map: Optional[torch.Tensor] = None
+                       ) -> Tuple[SampleBatch, ...]:
+        """One batch for each of n members in lockstep: seeds [n, batch],
+        keys [n, L, 4] (K10's words of each member), pos_map [n, V] for
+        map dedup (row d is member d's map). Every member begins, then each
+        hop draws all members' frontiers in one call when the access takes
+        them together (``access.members``: the clique topology cache, whose
+        owners answer every member at once), else member by member; then
+        each member absorbs its candidates and finishes. Member d's batch
+        equals ``sample(access, seeds[d], keys[d], pos_map=pos_map[d])``
+        for an access that draws member by member."""
+        L = self.config.num_hops
+        n = seeds.shape[0]
+        if tuple(keys.shape) != (n, L, 4) or keys.dtype != torch.int32:
+            raise ValueError(f"sample_members: key words {keys.dtype} "
+                             f"{tuple(keys.shape)}, want int32 ({n}, {L}, 4)")
+        fused = bool(self.map_hops)
+        maps = [None] * n if pos_map is None else list(pos_map)
+        carries = [self._begin(seeds[d], maps[d], register=not fused)
+                   for d in range(n)]
+        for k in range(L):
+            fo = self.config.fanouts[k]
+            frontier = torch.stack([self.hop_frontier(c, k)
+                                    for c in carries])
+            if getattr(access, "members", False):
+                cand = access.sample_neighbors(frontier, fo, keys[:, k])
+            else:
+                cand = [access.sample_neighbors(f, fo, kw)
+                        for f, kw in zip(frontier, keys[:, k])]
+            carries = [self._absorb(c, k, cand[d], fused)
+                       for d, c in enumerate(carries)]
+        return tuple(self._finish(c, clear=not self.sort_dedup and not fused)
+                     for c in carries)
+
 
 def count_ids(counter: torch.Tensor, ids: torch.Tensor) -> None:
     """counter[v] += 1 for every valid id (in place; pads add 0)."""

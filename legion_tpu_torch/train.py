@@ -1,5 +1,5 @@
-"""Single-device trainer: sample -> feature fetch -> model -> Adam (port
-of the fused-step path of ``legion_tpu/train.py``), for GraphSAGE, GCN,
+"""Trainer: sample -> feature fetch -> model -> Adam (port of the
+fused-step path of ``legion_tpu/train.py``), for GraphSAGE, GCN,
 GAT and link-prediction SAGE (``lp_sage``: loss over (anchor, positive,
 negative) thirds of each batch; its valid metric is the mean loss over
 valid anchors).
@@ -48,8 +48,23 @@ their misses read by K4/K5 in place. Both dedup modes: with map dedup
 (``state["pos_map"]``), shared by the train and eval samplers and clean
 between batches. Also the train step (one step, ``fused_steps`` or
 ``interbatch``), the eval step, ``run_eval`` and ``fit``. Not ported
-(ROADMAP): the staged host pipeline (a TPU-runtime workaround), meshes
-and clique caches.
+(ROADMAP): the staged host pipeline (a TPU-runtime workaround).
+
+Members (``MeshConfig(num_cliques=Kc, clique_size=Kg)``, n_dev = Kc * Kg
+> 1): the devices of JAX's ("clique", "member") mesh are a leading axis
+on this one device, in one process. Member d draws its seeds from its own
+bank row (``seeds_for_partition(w, d, n_dev)``), its keys with d folded
+in after the tag (K10 writes [n_dev, L, 4] words), keeps its own row of
+``pos_map`` ([n_dev, S]) and seeds its dropout from fold_in(fold_in(step
+key, d), 7). The members sample in lockstep (``NeighborSampler.
+sample_members``: the clique topology cache answers every member's
+frontier of a hop at once) and fetch through the clique caches of
+``cache/collective.py`` (``_setup_clique``, JAX's
+``_setup_multidev_cache``). The loss is the members' mean, so one
+backward takes the mean of their gradients (``lax.pmean``), and one Adam
+step follows; counters and eval's correct and total are sums
+(``lax.psum``). ``fused_steps`` > 1 and ``interbatch`` take one member
+(ROADMAP A.7).
 
 Host tables are writable RAM: a table the kernels read in place that is a
 read-only array or a file mapping (the memmaps of ``LegionDataset.load``)
@@ -78,7 +93,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from legion_tpu_torch.cache.collective import (CliqueFeatureCache,
+                                               CliqueTopoCache,
+                                               build_clique_cache,
+                                               build_clique_topo)
 from legion_tpu_torch.cache.cost_model import plan_cache
+from legion_tpu_torch.cache.hashmap import map_lookup
 from legion_tpu_torch.cache.hotness import presample_hotness
 from legion_tpu_torch.cache.unified_cache import (CachedFeatureSource,
                                                   DeviceFeatureSource,
@@ -93,7 +113,8 @@ from legion_tpu_torch.sampling.access import (CachedTopoAccess,
                                               DeviceCSRAccess,
                                               WindowedCSRAccess, fold_in,
                                               step_keys)
-from legion_tpu_torch.sampling.sampler import NeighborSampler, SampleBatch
+from legion_tpu_torch.sampling.sampler import (INT32_MAX, NeighborSampler,
+                                               SampleBatch)
 from legion_tpu_torch.utils.checkpoint import save_checkpoint
 from legion_tpu_torch.utils.metrics import StepMetrics
 
@@ -121,6 +142,11 @@ def in_ram(array: np.ndarray, dtype) -> np.ndarray:
             and not _file_backed(a):
         return a
     return np.array(a, dtype=dtype, order="C")
+
+
+def _rows(ts: List[torch.Tensor]) -> torch.Tensor:
+    """The members' tensors stacked, [n, ...]; one member's as a view."""
+    return ts[0].unsqueeze(0) if len(ts) == 1 else torch.stack(ts)
 
 
 def _masked_ce(logits: torch.Tensor, labels: torch.Tensor,
@@ -159,9 +185,14 @@ class Trainer:
         self.dataset = dataset
         self.device = torch.device(device)
         self._host_tables: List[HostTable] = []
-        if config.mesh.num_devices != 1:
+        # the members of Kc cliques of Kg, a leading axis on this device
+        self.n_dev = config.mesh.num_devices
+        self.Kc, self.Kg = config.mesh.num_cliques, config.mesh.clique_size
+        if self.n_dev > 1 and (config.train.fused_steps > 1
+                               or config.train.interbatch):
             raise NotImplementedError(
-                "the port trains on one device; multi-GPU is a ROADMAP item")
+                "fused_steps > 1 and interbatch take one member; with "
+                f"{self.n_dev} members they are ROADMAP.md A.7")
         if config.cache.enabled and config.cache.host_transfer not in (
                 "auto", "callback"):
             # "auto" and "callback" both mean the zero-copy kernels here
@@ -193,12 +224,15 @@ class Trainer:
             check_thirds(scfg.eval_batch_size)
 
         device_ds = hasattr(dataset, "device_arrays")
+        n_dev = self.n_dev
         if device_ds:
-            train_sets, valid_sets, test_sets = dataset.seed_sets(1)
+            train_sets, valid_sets, test_sets = dataset.seed_sets(n_dev)
             labels_np = dataset.labels.cpu().numpy()
         else:
+            # member d draws its seeds from its own partition
             train_sets, valid_sets, test_sets = (
-                [dataset.seeds_for_partition(w, 0, 1)]
+                [dataset.seeds_for_partition(w, d, n_dev)
+                 for d in range(n_dev)]
                 for w in ("train", "valid", "test"))
             labels_np = np.asarray(dataset.labels[:V], np.int32)
         self.schedule = Schedule.build(
@@ -208,17 +242,20 @@ class Trainer:
         sch = self.schedule
 
         # device seed banks, and label banks gathered once on the host:
-        # device label state is O(seeds), not O(V)
+        # device label state is O(seeds), not O(V). One member: [steps *
+        # batch]; n members: [n, steps * batch], row d member d's
         def _banks(sets, steps, static_bs, batch_sizes):
             bank = _build_bank([np.asarray(s) for s in sets], steps,
-                               static_bs, batch_sizes)[0]
+                               static_bs, batch_sizes)
+            if n_dev == 1:
+                bank = bank[0]
             y = np.where(bank >= 0, labels_np[np.clip(bank, 0, V - 1)], 0)
             return torch.from_numpy(bank).to(self.device), \
                 torch.from_numpy(y.astype(np.int32)).to(self.device)
 
         self.train_bank, self.train_ybank = _banks(
             train_sets, sch.train_step, scfg.batch_size,
-            [sch.train_batch_size])
+            [sch.train_batch_size] * n_dev)
         self.valid_bank, self.valid_ybank = _banks(
             valid_sets, sch.valid_step, scfg.eval_batch_size,
             list(sch.valid_batch_sizes))
@@ -339,8 +376,10 @@ class Trainer:
             t0 = time.perf_counter()
             steps = cache_cfg.presample_steps or self.schedule.train_step
             steps = max(1, min(steps, self.schedule.train_step))
+            # member 0's bank, as JAX presamples (legion_tpu/train.py:281)
+            bank0 = self.train_bank if self.n_dev == 1 else self.train_bank[0]
             na, ea, mx = presample_hotness(
-                self.sampler_t, base_access, self.train_bank, steps,
+                self.sampler_t, base_access, bank0, steps,
                 config.train.seed + _PRESAMPLE_OFFSET)
             mxv = mx.cpu().numpy()      # waits for the presample batches
             self.setup_s["presample"] = time.perf_counter() - t0
@@ -380,9 +419,16 @@ class Trainer:
         na_eff = na if feat_host else torch.zeros_like(na)
         t0 = time.perf_counter()
         plan = plan_cache(na_eff, ea_eff, degrees, cache_cfg.cache_bytes,
-                          F_log, cache_cfg.alpha_step, bytes_per_feat=bpf)
+                          F_log, cache_cfg.alpha_step, group_size=self.Kg,
+                          bytes_per_feat=bpf)
         self.cache_plan = plan
         t1 = time.perf_counter()
+        if self.n_dev > 1:
+            self._setup_clique(plan, feat_host, topo_host, host_feats,
+                               host_indptr, host_indices, base_access,
+                               feat_dtype)
+            self.setup_s.update(plan=t1 - t0, fill=time.perf_counter() - t1)
+            return
         cache = UnifiedCache.build_from_host(
             plan, host_feats if feat_host else None,
             host_indptr.array if topo_host else None,
@@ -406,6 +452,50 @@ class Trainer:
                                  "rows")
             self.feature_source = CachedFeatureSource(
                 cache, self._host_table(host_feats, np.float32))
+        else:
+            self.feature_source = DeviceFeatureSource(
+                torch.from_numpy(host_feats).to(dev))
+
+    def _setup_clique(self, plan, feat_host: bool, topo_host: bool,
+                      host_feats, host_indptr, host_indices, base_access,
+                      feat_dtype: str) -> None:
+        """The members' caches (``legion_tpu/train.py::
+        _setup_multidev_cache``): the clique-aggregated caches over each
+        clique's Kg members, one copy of the shards for the Kc cliques.
+        The topology goes to the clique when Kg > 1 and the plan gives it
+        at least Kg rows (``CliqueTopoCache``, misses by K5 on the host
+        CSR); otherwise, with the topology on the host, every member reads
+        one hot sub-CSR (``CachedTopoAccess``). The features go to the
+        clique cache, a per-member cache at Kg = 1. The maps are direct
+        [V] tables or hash maps (``CacheConfig.resolve_map_impl``)."""
+        dev, Kc, Kg = self.device, self.Kc, self.Kg
+        V = self.dataset.meta.num_nodes
+        map_impl = self.config.cache.resolve_map_impl(V)
+        if topo_host and Kg > 1 and plan.topo_capacity >= Kg:
+            W = self.config.sampler.neighbor_window or 64
+            row_map, pairs, blocks, _ = build_clique_topo(
+                np.asarray(plan.topo_order), plan.topo_capacity,
+                host_indptr.array, host_indices.array, Kg, window=W,
+                map_impl=map_impl, device=dev)
+            self.graph_access = CliqueTopoCache(
+                row_map, pairs, blocks, base_access, Kg, Kc)
+        elif topo_host and plan.topo_capacity > 0:
+            cache_t = UnifiedCache.build_from_host(
+                plan, None, host_indptr.array, host_indices.array, V,
+                device=dev)
+            self.graph_access = CachedTopoAccess(
+                cache_t.row_map, cache_t.sub_indptr, cache_t.sub_indices,
+                host_indptr, host_indices)
+        else:
+            self.graph_access = base_access
+        if feat_host:
+            slot_map, rows, _ = build_clique_cache(
+                np.asarray(plan.feature_order), plan.feature_capacity,
+                host_feats, Kg, feat_dtype=feat_dtype, map_impl=map_impl,
+                device=dev)
+            self.feature_source = CliqueFeatureCache(
+                slot_map, rows, self._host_table(host_feats, np.float32),
+                Kg, Kc)
         else:
             self.feature_source = DeviceFeatureSource(
                 torch.from_numpy(host_feats).to(dev))
@@ -462,8 +552,17 @@ class Trainer:
                  "train_ctr": 0, "valid_ctr": 0, "test_ctr": 0,
                  "train_ctr_d": ctr(), "valid_ctr_d": ctr(),
                  "test_ctr_d": ctr(), "correct": zero(), "total": zero(),
-                 "pos_map": self.sampler_t.init_state(dev)}
+                 "pos_map": self._init_pos_map()}
         return self.prime_carry(state)
+
+    def _init_pos_map(self) -> torch.Tensor:
+        """The sampler state: one member's, or [n_dev, S], a row a member
+        (``legion_tpu/train.py:498-500``)."""
+        s = self.sampler_t
+        if self.n_dev == 1:
+            return s.init_state(self.device)
+        return torch.full((self.n_dev, s.state_size), INT32_MAX,
+                          dtype=torch.int32, device=self.device)
 
     def prime_carry(self, state: Dict) -> Dict:
         """(Re)fill the ``interbatch`` carry: sample and fetch the batch
@@ -603,15 +702,17 @@ class Trainer:
         loss = self._update(state, batch, x, seeds, y)
         return loss, self._counts(batch, feat_hits)
 
-    def _counts(self, batch: SampleBatch, feat_hits: torch.Tensor
-                ) -> torch.Tensor:
-        """A trained batch's counters, as one int32 tensor."""
-        nid = batch.node_ids[:self.sampler_t.max_ids]
+    def _counts(self, batch, feat_hits: torch.Tensor) -> torch.Tensor:
+        """A trained batch's counters (one SampleBatch, or the members'
+        summed), as one int32 tensor."""
+        batches = (batch,) if isinstance(batch, SampleBatch) else batch
+        n = self.sampler_t.max_ids
         topo_hits, topo_total = self._topo_hit_count(batch, self.graph_access)
-        return torch.stack([batch.num_edges.sum(dtype=torch.int32),
-                            (nid >= 0).sum(dtype=torch.int32),
-                            feat_hits.to(torch.int32), topo_hits,
-                            topo_total])
+        return torch.stack([
+            _rows([b.num_edges for b in batches]).sum(dtype=torch.int32),
+            (_rows([b.node_ids[:n] for b in batches]) >= 0).sum(
+                dtype=torch.int32),
+            feat_hits.to(torch.int32), topo_hits, topo_total])
 
     def _eager_step(self, state: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
         self._seed_train_dropout(state)
@@ -726,7 +827,9 @@ class Trainer:
         steps. Under ``interbatch`` a call takes one pipelined step
         (``_interbatch_step``) and the counters are the carried batch's."""
         K = self.fused_steps
-        if self.interbatch:
+        if self.n_dev > 1:
+            loss, counts = self._member_step(state)
+        elif self.interbatch:
             loss, counts = self._interbatch_step(state)
         elif K > 1 and self.device.type == "cuda":
             loss, counts = self._fused_call(state, K)
@@ -740,24 +843,154 @@ class Trainer:
          self.last_topo_hits, self.last_topo_total) = counts.unbind()
         return state, loss
 
-    def _topo_hit_count(self, batch: SampleBatch, access,
+    # -- the members of a clique (n_dev > 1), in one process ----------------
+
+    def _member_inputs(self, state: Dict, sampler: NeighborSampler,
+                       bank: torch.Tensor, ybank: torch.Tensor, n: int,
+                       ctr: str, tag: int):
+        """``_batch_inputs`` for every member: seeds and labels [n_dev,
+        batch] from each member's bank row at lid = ctr % n, and K10's
+        [n_dev, L, 4] words, member d's with its index folded in after the
+        tag (JAX's ``_device_key``)."""
+        bs = sampler.config.batch_size
+        ctr_d = state[ctr + "_d"]
+        lid = (ctr_d % n).reshape(1)
+        seeds = bank.view(self.n_dev, n, bs).index_select(1, lid) \
+            .reshape(self.n_dev, bs)
+        y = ybank.view(self.n_dev, n, bs).index_select(1, lid) \
+            .reshape(self.n_dev, bs)
+        keys = step_keys(state["base_key"], ctr_d, tag,
+                         sampler.config.num_hops, self.n_dev)
+        return seeds, y, keys
+
+    def _member_sample_fetch(self, state: Dict, sampler: NeighborSampler,
+                             seeds: torch.Tensor, keys: torch.Tensor):
+        """Every member's batch, sampled in lockstep (the clique topology
+        answers all members' frontiers of a hop at once), then one fetch
+        of all members' ids. Returns (batches, x [n_dev, max_ids, F], the
+        members' feature hits summed)."""
+        batches = sampler.sample_members(self.graph_access, seeds, keys,
+                                         pos_map=state["pos_map"])
+        ids = torch.stack([b.node_ids[:sampler.max_ids] for b in batches])
+        fs = self.feature_source
+        if isinstance(fs, CliqueFeatureCache):
+            x, hits = fs.fetch(ids)
+            return batches, x, hits.sum(dtype=torch.int32)
+        x, hits = fs.fetch(ids.reshape(-1))
+        return batches, x.view(self.n_dev, ids.shape[1], -1), hits
+
+    def _member_step(self, state: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One train step of all members (``legion_tpu/train.py:577-640``
+        in ``shard_map``): each member's batch and forward, its dropout
+        from fold_in(fold_in(step key, d), 7); the loss is the members'
+        mean (``lax.pmean``), so one backward gives the mean of their
+        gradients, and one Adam step follows. The counters are sums
+        (``lax.psum``)."""
+        sampler = self.sampler_t
+        key = fold_in(fold_in(state["base_key_h"], state["train_ctr"]),
+                      _TRAIN_TAG)
+        seeds, y, keys = self._member_inputs(
+            state, sampler, self.train_bank, self.train_ybank,
+            self.schedule.train_step, "train_ctr", _TRAIN_TAG)
+        batches, x, feat_hits = self._member_sample_fetch(state, sampler,
+                                                          seeds, keys)
+        model, opt = state["model"], state["opt"]
+        model.train()
+        scfg = sampler.config
+        losses = []
+        for d, batch in enumerate(batches):
+            self._seed_dropout(fold_in(key, d))
+            valid = seeds[d] >= 0
+            if self.is_lp:
+                losses.append(model.loss(x[d], batch, scfg, valid,
+                                         self._drop_gen))
+            else:
+                losses.append(_masked_ce(
+                    model(x[d], batch, scfg, self._drop_gen), y[d], valid))
+        loss = torch.stack(losses).mean()
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        state["train_ctr"] += 1
+        return loss.detach(), self._counts(batches, feat_hits)
+
+    def _eval_banks(self, mode: Mode):
+        """(seed bank, label bank, steps, counter name) of an eval mode."""
+        if mode == Mode.VALID:
+            return (self.valid_bank, self.valid_ybank,
+                    self.schedule.valid_step, "valid_ctr")
+        return (self.test_bank, self.test_ybank, self.schedule.test_step,
+                "test_ctr")
+
+    @torch.no_grad()
+    def _member_eval_step(self, state: Dict, mode: Mode) -> None:
+        """``_eval_step`` for every member; correct and total are sums."""
+        sampler = self.sampler_e
+        bs = sampler.config.batch_size
+        bank, ybank, n, ctr = self._eval_banks(mode)
+        seeds, y, keys = self._member_inputs(state, sampler, bank, ybank, n,
+                                             ctr, _EVAL_TAG)
+        batches, x, _ = self._member_sample_fetch(state, sampler, seeds,
+                                                  keys)
+        model = state["model"]
+        model.eval()
+        for d, batch in enumerate(batches):
+            valid = seeds[d] >= 0
+            if self.is_lp:
+                t = valid[:bs // 3].sum(dtype=torch.int32).float()
+                loss = model.loss(x[d], batch, sampler.config, valid)
+                state["correct"] += loss * t
+                state["total"] += t
+            else:
+                pred = model(x[d], batch, sampler.config).argmax(dim=-1)
+                state["correct"] += ((pred == y[d]) & valid).sum(
+                    dtype=torch.int32)
+                state["total"] += valid.sum(dtype=torch.int32)
+        state[ctr] += 1
+
+    def _topo_hit_count(self, batch, access,
                         sampler: Optional[NeighborSampler] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(hits, total) over the expanded frontier prefix of the ids
         buffer, every vertex whose adjacency was read this batch (seeds
         and hops 0..L-2 occupy ids[:cum_caps[L-1]]): the vertices the
-        topology cache served, and all of them. Single-device form of
-        ``legion_tpu/train.py::Trainer._topo_hit_count``."""
+        topology cache served, and all of them
+        (``legion_tpu/train.py:535-574``). For a clique cache, a hop's
+        lanes past an owner's R_req were not served: the rule of K12's
+        routing is replayed on each hop's window of the final ids buffer,
+        and its overflow taken off, from one map lookup of every slot the
+        prefix and the windows cover. ``batch`` is one SampleBatch or the
+        members' (summed: one map lookup for all of them)."""
+        batches = (batch,) if isinstance(batch, SampleBatch) else batch
         sampler = sampler or self.sampler_t
         L = sampler.config.num_hops
-        prefix = batch.node_ids[:sampler.cum_caps[L - 1]]
-        pvalid = prefix >= 0
-        total = pvalid.sum(dtype=torch.int32)
+        P = sampler.cum_caps[L - 1]
+        total = (_rows([b.node_ids[:P] for b in batches]) >= 0).sum(
+            dtype=torch.int32)
         row_map = getattr(access, "row_map", None)
         if row_map is None:
             return total, total    # all device-resident
-        rm = row_map[prefix.clamp(0, row_map.shape[0] - 1).long()]
-        return (pvalid & (rm >= 0)).sum(dtype=torch.int32), total
+        Kg = getattr(access, "Kg", 1)
+        n = P if Kg == 1 else min(
+            batches[0].node_ids.shape[0],
+            max(P, *(sampler.cum_caps[k] + sampler.frontier_sizes[k]
+                     for k in range(L))))
+        rm = map_lookup(row_map, _rows([b.node_ids[:n] for b in batches]))
+        hits = (rm[:, :P] >= 0).sum(dtype=torch.int32)
+        if Kg > 1:
+            dev = rm.device
+            owners = torch.arange(Kg, dtype=torch.int32, device=dev)
+            for k in range(L):
+                F_k = sampler.frontier_sizes[k]
+                lanes = torch.arange(F_k, device=dev)
+                win = _rows([b.hop_offsets[k].long() + lanes
+                             for b in batches])
+                rmk = rm.gather(1, win)
+                owner = torch.where(rmk >= 0, rmk % Kg, Kg)
+                cnt = (owner[..., None] == owners).sum(1)    # [n, Kg]
+                hits -= (cnt - access.R_req(F_k)).clamp(min=0).sum(
+                    dtype=torch.int32)
+        return hits, total
 
     @torch.no_grad()
     def _eval_step(self, state: Dict, mode: Mode) -> None:
@@ -765,16 +998,13 @@ class Trainer:
         (base_key, the mode's counter, tag 1) by K10. Under ``interbatch``
         on a card it first waits for the side stream, whose sampling
         writes ``pos_map`` too."""
+        if self.n_dev > 1:
+            return self._member_eval_step(state, mode)
         if self.interbatch and self.device.type == "cuda":
             torch.cuda.current_stream(self.device).wait_stream(self._side())
         sampler = self.sampler_e
         bs = sampler.config.batch_size
-        if mode == Mode.VALID:
-            bank, ybank, n, ctr = (self.valid_bank, self.valid_ybank,
-                                   self.schedule.valid_step, "valid_ctr")
-        else:
-            bank, ybank, n, ctr = (self.test_bank, self.test_ybank,
-                                   self.schedule.test_step, "test_ctr")
+        bank, ybank, n, ctr = self._eval_banks(mode)
         seeds, y, keys = self._batch_inputs(state, sampler, bank, ybank, n,
                                             ctr, _EVAL_TAG)
         batch, x, _ = self._sample_fetch(state, sampler, seeds, keys)

@@ -55,6 +55,29 @@ def test_step_keys_plain_equals_host_fold_in_chain(base, ctr, tag, L):
         words.numpy())
 
 
+@settings(max_examples=100, deadline=None)
+@given(base=st.integers(-2 ** 63, 2 ** 63 - 1),
+       ctr=st.integers(0, 2 ** 32 + 5), tag=st.sampled_from([0, 1]),
+       L=st.integers(1, 3), n_dev=st.sampled_from([2, 4, 8]))
+def test_step_keys_plain_members_equal_host_fold_in_chain(base, ctr, tag, L,
+                                                          n_dev):
+    """With n_dev members, K10's plain version writes [n_dev, L, 4]: member
+    d's rows are the host chain with d folded in after the tag, JAX's
+    ``_device_key`` order fold_in(fold_in(fold_in(base, ctr), tag), d), and
+    the counter advances once."""
+    c = torch.tensor(ctr, dtype=torch.int64)
+    words = step_keys(torch.tensor(base, dtype=torch.int64), c, tag, L, n_dev)
+    assert words.dtype == torch.int32 and tuple(words.shape) == (n_dev, L, 4)
+    step = fold_in(fold_in(base % 2 ** 64, ctr), tag)
+    for d in range(n_dev):
+        np.testing.assert_array_equal(
+            words[d].numpy(), hop_keys(fold_in(step, d), L, "cpu").numpy())
+    assert int(c) == ctr + 1
+    # member 0 is folded too: its words are not the one-device words
+    assert not torch.equal(words[0], step_keys_plain(
+        torch.tensor(base, dtype=torch.int64), torch.tensor(ctr), tag, L))
+
+
 def test_step_keys_plain_at_the_edges():
     """Counters and keys whose halves have the top bit set (where an
     arithmetic shift of int64 or an unmasked cast goes wrong), and a

@@ -63,6 +63,26 @@ def test_gather_rows_matches_pallas_and_fetch():
     assert kernels.LAUNCHES["gather_rows"] == 0   # CPU tensors: plain path
 
 
+def test_gather_rows_into_out():
+    """K1 writes into a given ``out`` (the clique owners serve into the
+    exchange's buffer), a slice of a larger tensor; a wrong ``out``
+    raises."""
+    rng = np.random.default_rng(2)
+    table = torch.from_numpy(rng.standard_normal((50, 24))
+                             .astype(np.float32)).to(torch.bfloat16)
+    ids = torch.from_numpy(_ids(rng, 40, 50))
+    buf = torch.full((3, 40, 24), 7.0, dtype=torch.bfloat16)
+    got = kernels.gather_rows(table, ids, out=buf[1])
+    assert got.data_ptr() == buf[1].data_ptr()
+    assert torch.equal(buf[1], kernels.gather_rows_plain(table, ids))
+    assert (buf[0] == 7).all() and (buf[2] == 7).all()
+    for bad in (torch.empty((40, 24)), torch.empty((39, 24),
+                                                   dtype=torch.bfloat16),
+                buf[:, 0]):
+        with pytest.raises(ValueError, match="out"):
+            kernels.gather_rows(table, ids, out=bad)
+
+
 def test_segment_sum_matches_pallas_and_masked_segment_sum():
     """K2's plain version == segment_sum_pallas (interpret mode) and
     == masked_segment_sum, f32, duplicate-heavy, -1 dropped."""

@@ -227,6 +227,44 @@ def test_restore_continues_bit_for_bit(ds, case, tmp_path):
         assert bool((st2["pos_map"] == INT32_MAX).all())
 
 
+@pytest.mark.parametrize("dedup", ["sort", "map"])
+def test_clique_members_restore_continues_bit_for_bit(dedup, tmp_path):
+    """A trainer of 4 members behind clique caches (features and topology
+    on the host) saves after 3 steps; a new trainer restored from the
+    checkpoint takes the next 2 steps to the unbroken run's losses and
+    parameters exactly, with a clean [4, S] position map."""
+    hds = synthesize_dataset(num_nodes=3000, avg_degree=10, feature_dim=32,
+                             num_classes=5, batch_size=64, train_frac=0.5,
+                             seed=3)
+    cfg = LegionConfig(
+        dataset=hds.meta,
+        sampler=SamplerConfig(fanouts=(4, 3), batch_size=64,
+                              eval_batch_size=64, dedup=dedup,
+                              dedup_last_hop=False, neighbor_window=8),
+        cache=CacheConfig(cache_bytes=40_000, presample_steps=2,
+                          feature_residency="host", topo_residency="host"),
+        train=TrainConfig(hidden_dim=16, epochs=1, dropout=0.5),
+        mesh=MeshConfig(num_cliques=1, clique_size=4))
+    tr = Trainer(hds, cfg, "cpu")
+    st, _ = _steps(tr, tr.init_state(), 3)
+    ck = str(tmp_path / "ck")
+    save_checkpoint(ck, st, st["train_ctr"])
+    st, la = _steps(tr, st, 2)
+    pa = _params(st)
+    tr2 = Trainer(hds, cfg, "cpu")
+    st2 = restore_checkpoint(ck, tr2)
+    assert tuple(st2["pos_map"].shape) == (4, tr2.sampler_t.state_size)
+    assert st2["train_ctr"] == 3 == int(st2["train_ctr_d"])
+    st2, lb = _steps(tr2, st2, 2)
+    for a, b in zip(la, lb):
+        assert torch.equal(a, b)
+    for a, b in zip(pa, _params(st2)):
+        assert torch.equal(a, b)
+    assert bool((st2["pos_map"] == INT32_MAX).all())
+    tr.close()
+    tr2.close()
+
+
 @pytest.mark.parametrize("interbatch", [False, True])
 def test_a_second_init_state_leaves_a_live_state_alone(ds, interbatch):
     """States are values (as JAX's ``init_state`` returns fresh arrays,
@@ -443,8 +481,9 @@ def test_trainer_copies_a_dataset_on_disk_into_ram(tmp_path):
 
 def test_new_modules_are_covered_by_the_no_jax_check():
     """``test_torch_train.py::test_port_never_imports_jax`` imports every
-    ``*.py`` under the package: the launcher, checkpoints and tools are
-    among them."""
+    ``*.py`` under the package: the launcher, checkpoints, tools and the
+    clique caches are among them."""
     found = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
     assert {"native.py", "run.py", "tools/prepare.py", "tools/__init__.py",
-            "utils/checkpoint.py"} <= found
+            "utils/checkpoint.py", "cache/hashmap.py",
+            "cache/collective.py"} <= found
