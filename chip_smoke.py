@@ -20,7 +20,9 @@ CUDA card, nvcc (``$CUDA_HOME`` or ``/usr/local/cuda``) and no network.
      at hop 0 of the bench batch, bit for bit, timed the same three ways,
      and at the edges of their shapes (``k8_edges``, ``k9_edges``);
      K10 (the step keys from the device counters) at the main path's
-     hops and at 1,000 random (base key, counter) pairs, exactly;
+     hops and at 1,000 random (base key, counter) pairs, exactly, also
+     with 4 members and at member offsets (a rank's members of a world
+     of 8);
   3. drives the main path through the public API at the bench
      configuration (``bench.py`` defaults: 2.4M vertices, 120M edges,
      GraphSAGE [25,10], batch 8000, hidden 256, bf16 features, 64-wide
@@ -97,7 +99,16 @@ CUDA card, nvcc (``$CUDA_HOME`` or ``/usr/local/cuda``) and no network.
      against their host rows and every drawn neighbour against the CSR;
      the same path with hash maps, and clique-H (the topology on the
      card) against the same members with every feature on the card: the
-     same ids and rows in every step, the same first loss.
+     same ids and rows in every step, the same first loss; K14 also for
+     each owner alone at its clique index (as a process of a clique
+     across processes draws);
+ 10. on phase 8's dataset on disk, the launcher's members
+     (``--devices 4 --clique-size 4``, features and topology on the host
+     behind the clique caches, one epoch at full width), first in one
+     process, then as a world of one rank under NCCL (``--coordinator
+     --num-processes 1 --process-id 0``), which makes every collective
+     call of a larger world: the same ids in every step, the same first
+     loss; the collective calls and bytes a step (``phase_dist``).
 
 Prints the card's ``name, power.limit`` line, the per-kernel JSON line and,
 last, ``{"ok": true, "device": ...}`` only when every phase passed. Any
@@ -113,7 +124,10 @@ step calls ``torch.cummax`` (the plain sort dedup). ``--profile PATHS --fused
 call, and fails if a fused run's profile lacks a kernel of its path. ``python3 chip_smoke.py
 --kernels`` stops after phase 2 and the GCN shapes of K2, K8 and K9, for
 work on K1-K3, K8 and K9. ``python3 chip_smoke.py --clique`` builds, makes
-the host dataset and runs phase 9 alone, for work on K11-K14.
+the host dataset and runs phase 9 alone, for work on K11-K14. ``python3
+chip_smoke.py --dist`` builds, holds K10 and K14 at their offsets (and
+K11-K14 at their edges), makes the host dataset and runs phase 10 alone,
+for work on ``legion_tpu_torch/parallel``.
 """
 
 import json
@@ -861,6 +875,44 @@ def k10_compares(tr, torch, results, main, floor):
     print(f"  step_keys      {Kg} members [{Kg}, {L}, 4], the same {n} pairs, "
           f"tags 0 and 1: all exact, eight equal to the host chain "
           f"fold_in(fold_in(fold_in(base, ctr), tag), d)")
+    k10_offsets(torch, L)
+
+
+def k10_offsets(torch, L, n=1000):
+    """K10 at non-zero member offsets, as the ranks of a run across
+    processes launch it: members first .. first + m - 1 of a world of 8
+    ((5, 1): one member alone on its rank; (2, 4)), at ``n`` random (base,
+    ctr) pairs, both tags, exact against the plain version and equal to
+    rows first:first+m of the all-members words."""
+    import numpy as np
+    from legion_tpu_torch.sampling import access
+    rng = np.random.default_rng(11)
+    b_d = torch.from_numpy(rng.integers(0, 2 ** 63, n, dtype=np.int64)
+                           ).to("cuda")
+    c0 = torch.from_numpy(rng.integers(0, 2 ** 31, n, dtype=np.int64)
+                          ).to("cuda")
+    n_dev = 8
+    for first, m in ((5, 1), (2, 4)):
+        c_k, c_p, c_f = c0.clone(), c0.clone(), c0.clone()
+        out_k = torch.stack([access.step_keys(b_d[i], c_k[i], i % 2, L,
+                                              n_dev, first, m)
+                             for i in range(n)])
+        out_p = torch.stack([access.step_keys_plain(b_d[i], c_p[i], i % 2, L,
+                                                    n_dev, first, m)
+                             for i in range(n)])
+        full = torch.stack([access.step_keys(b_d[i], c_f[i], i % 2, L, n_dev)
+                            for i in range(n)])
+        if tuple(out_k.shape) != (n, m, L, 4) or not (
+                torch.equal(out_k, out_p)
+                and torch.equal(out_k, full[:, first:first + m])):
+            fail(f"step_keys: members {first} .. {first + m - 1} of {n_dev}:"
+                 " the kernel's words differ from its plain version's or "
+                 "from those rows of all members' words")
+        if not torch.equal(c_k, c0 + 1):
+            fail("step_keys: at an offset a counter was not advanced by one")
+    print(f"  step_keys      at member offsets (5, 1 member) and (2, 4 "
+          f"members) of {n_dev}, {n} pairs each: exact, and the slices of "
+          "all members' words")
 
 
 def k8_compare(note, skey, stag, P, cum, ids, cap, results, torch,
@@ -2703,9 +2755,30 @@ def cli_run(argv, torch, label):
     return tr, state, stats, counts
 
 
-def phase_cli(hds, torch, h_step_ms):
-    """Phase 8: the launcher from a dataset on disk. Writes ``hds`` (phase
-    5's host dataset) in Legion's layout to a temporary directory and
+def cli_dataset(hds, tmp):
+    """Phase 5's host dataset written in Legion's layout under ``tmp``,
+    loaded once as the launcher loads it; returns its directory."""
+    from legion_tpu_torch.data import (LegionDataset, infer_meta,
+                                       write_legion_dataset)
+    d = os.path.join(tmp, "dataset")
+    t0 = time.perf_counter()
+    write_legion_dataset(d, hds.graph, hds.features, hds.labels,
+                         hds.train_ids, hds.valid_ids, hds.test_ids)
+    t1 = time.perf_counter()
+    meta = infer_meta(d, batch_size=8000)
+    LegionDataset.load(meta)
+    t2 = time.perf_counter()
+    wrote = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+    print(f"  dataset on disk: {wrote} bytes written in {t1 - t0:.3f} s "
+          f"| infer_meta + load (memmaps) {t2 - t1:.3f} s | V "
+          f"{meta.num_nodes} E {meta.num_edges} F {meta.feature_dim} "
+          f"classes {meta.num_classes} train {meta.train_size}")
+    return d
+
+
+def phase_cli(d, tmp, torch, h_step_ms):
+    """Phase 8: the launcher from a dataset on disk. Takes phase 5's host
+    dataset in Legion's layout in ``d`` (``cli_dataset``) and
     trains GraphSAGE at full width in host mode through
     ``legion_tpu_torch.run.main`` (the memmaps copied into RAM and
     registered, a 200 MB cache, misses read by K4): B1 one epoch with a
@@ -2720,154 +2793,139 @@ def phase_cli(hds, torch, h_step_ms):
     first capture), as eager steps, and fused again (a capture after
     one); the fused calls must equal the eager steps in every sampled id
     and dropout mask, and in loss and parameters within the same
-    tolerance. Prints the dataset's write and load seconds, each run's
-    set-up by stage (the RAM copy's seconds and bytes among them) and
-    epochs, and the checkpoint's size and its save and restore seconds."""
+    tolerance. Prints each run's set-up by stage (the RAM copy's seconds
+    and bytes among them) and epochs, and the checkpoint's size and its
+    save and restore seconds."""
     from legion_tpu_torch import run
-    from legion_tpu_torch.data import (LegionDataset, infer_meta,
-                                       write_legion_dataset)
+    from legion_tpu_torch.data import LegionDataset
     from legion_tpu_torch.train import Trainer
     from legion_tpu_torch.utils import (latest_step, restore_checkpoint,
                                         save_checkpoint)
-    with tempfile.TemporaryDirectory(prefix="legion_cli_") as tmp:
-        d, ck = os.path.join(tmp, "dataset"), os.path.join(tmp, "ckpt")
-        t0 = time.perf_counter()
-        write_legion_dataset(d, hds.graph, hds.features, hds.labels,
-                             hds.train_ids, hds.valid_ids, hds.test_ids)
-        t1 = time.perf_counter()
-        meta = infer_meta(d, batch_size=8000)
-        LegionDataset.load(meta)
-        t2 = time.perf_counter()
-        wrote = sum(os.path.getsize(os.path.join(d, f))
-                    for f in os.listdir(d))
-        print(f"  dataset on disk: {wrote} bytes written in {t1 - t0:.3f} s "
-              f"| infer_meta + load (memmaps) {t2 - t1:.3f} s | V "
-              f"{meta.num_nodes} E {meta.num_edges} F {meta.feature_dim} "
-              f"classes {meta.num_classes} train {meta.train_size}")
-        memmap_probe(os.path.join(d, "features"))
-        base = ["--dataset-name", "custom", "--dataset-path", d, *CLI_ARGS]
-        rec = None
-        try:
-            tr, st, _, _ = cli_run(
-                base + ["--epoch", "1", "--checkpoint-dir", ck], torch, "B1")
-            n = st["train_ctr"]
-            if latest_step(ck) != n:
-                fail(f"B1: latest checkpoint {latest_step(ck)}, not {n}")
-            del tr, st
-            torch.cuda.empty_cache()
-            rec = BatchAt(n)
-            rec.label = "A"
-            tr, st, stats_a, counts = cli_run(base + ["--epoch", "2"],
-                                              torch, "A")
-            params_a = [p.detach().clone()
-                        for p in st["model"].parameters()]
-            ms_a = tr.epoch_metrics[1].seconds / tr.epoch_metrics[1].steps \
-                * 1e3
-            del tr, st
-            torch.cuda.empty_cache()
-            rec.label = "B2"
-            tr, st, stats_b, _ = cli_run(
-                base + ["--epoch", "1", "--resume", "--checkpoint-dir", ck],
-                torch, "B2")
-            params_b = [p.detach() for p in st["model"].parameters()]
-        finally:
-            if rec is not None:
-                rec.close()
-        print("  launches of run A: "
-              f"{ {k: v for k, v in counts.items() if v} }")
-        for name in PATH_KERNELS["cli"]:
-            if counts[name] <= 0:
-                fail(f"kernel {name} was not launched by the launcher run")
-        if counts["dedup_map"]:
-            fail("the launcher's sort-dedup run launched dedup_map")
-        seen = {k: len(v) for k, v in rec.at.items()}
-        if rec.first != {"A": 0, "B2": n} or seen != {"A": 1, "B2": 1}:
-            fail(f"first train batches at {rec.first}, batches at train_ctr "
-                 f"{n} {seen}: want A at 0, B2 at {n}, one each")
-        (ids_a, e_a), (ids_b, e_b) = rec.at["A"][0], rec.at["B2"][0]
-        if not (torch.equal(ids_a, ids_b) and torch.equal(e_a, e_b)):
-            fail(f"B2's first batch differs from A's batch at train_ctr {n}")
-        l_a, l_b = stats_a[1].train_loss, stats_b[0].train_loss
-        l_rel = abs(l_b - l_a) / abs(l_a)
-        p_rel = rel_norm(params_b, params_a)
-        print(f"  resume: B2's first batch equals A's at train_ctr {n} "
-              f"({int(e_a.sum())} edges) | epoch loss B2 {l_b!r} vs A's "
-              f"second {l_a!r} (rel {l_rel:.3g}, tol 1e-3) | parameters "
-              f"norm-wise rel {p_rel:.3g} (tol 2e-3) | A's second epoch "
-              f"{ms_a:.3f} ms/step from disk, phase 6's H from memory "
-              f"{h_step_ms:.3f} ms/step (one call; no claim)")
-        if not (l_rel <= 1e-3 and p_rel <= 2e-3):
-            fail(f"resume: B2 differs from A's second epoch beyond "
-                 f"tolerance (loss rel {l_rel}, parameters rel {p_rel})")
-        del tr, st, params_b
+    ck = os.path.join(tmp, "ckpt")
+    memmap_probe(os.path.join(d, "features"))
+    base = ["--dataset-name", "custom", "--dataset-path", d, *CLI_ARGS]
+    rec = None
+    try:
+        tr, st, _, _ = cli_run(
+            base + ["--epoch", "1", "--checkpoint-dir", ck], torch, "B1")
+        n = st["train_ctr"]
+        if latest_step(ck) != n:
+            fail(f"B1: latest checkpoint {latest_step(ck)}, not {n}")
+        del tr, st
         torch.cuda.empty_cache()
-
-        cfg = run.build_config(run.parse_args(base + ["--epoch", "1"]))
-        tr = Trainer(LegionDataset.load(cfg.dataset), cfg, "cuda")
-        rec = StepRecorder(tr, torch, FUSED_K)
-        out, restore_s = {}, []
-        try:
-            for label, K in (("fused", FUSED_K), ("eager", 1),
-                             ("fused again", FUSED_K)):
-                t0 = time.perf_counter()
-                state = restore_checkpoint(ck, tr, step=n)
-                torch.cuda.synchronize()
-                restore_s.append(time.perf_counter() - t0)
-                rec.bind(state)
-                tr.fused_steps = K
-                loss = float(torch.stack([tr.train_step(state)[1]
-                                          for _ in range(FUSED_K // K)])
-                             .mean())
-                if state["train_ctr"] != n + FUSED_K or \
-                        int(state["train_ctr_d"]) != n + FUSED_K:
-                    fail(f"restore + {label}: counters {state['train_ctr']}"
-                         f" / {int(state['train_ctr_d'])}, not "
-                         f"{n + FUSED_K}")
-                out[label] = (loss, [p.detach().clone()
-                                     for p in state["model"].parameters()],
-                              rec.take(), tr._graph,
-                              dict(tr.graph_launches))
-                if label == "eager":
-                    ck2 = os.path.join(tmp, "ckpt2")
-                    t0 = time.perf_counter()
-                    save_checkpoint(ck2, state, state["train_ctr"])
-                    save_s = time.perf_counter() - t0
-                    size = sum(os.path.getsize(os.path.join(ck2, f))
-                               for f in os.listdir(ck2))
-        finally:
+        rec = BatchAt(n)
+        rec.label = "A"
+        tr, st, stats_a, counts = cli_run(base + ["--epoch", "2"],
+                                          torch, "A")
+        params_a = [p.detach().clone()
+                    for p in st["model"].parameters()]
+        ms_a = tr.epoch_metrics[1].seconds / tr.epoch_metrics[1].steps \
+            * 1e3
+        del tr, st
+        torch.cuda.empty_cache()
+        rec.label = "B2"
+        tr, st, stats_b, _ = cli_run(
+            base + ["--epoch", "1", "--resume", "--checkpoint-dir", ck],
+            torch, "B2")
+        params_b = [p.detach() for p in st["model"].parameters()]
+    finally:
+        if rec is not None:
             rec.close()
-            tr.fused_steps = 1
-        tr.close()
-        le, pe, (ids_e, edges_e, masks_e), _, _ = out["eager"]
-        for label in ("fused", "fused again"):
-            lf, pf, (ids_f, edges_f, masks_f), _, launches = out[label]
-            if not (torch.equal(ids_e, ids_f) and torch.equal(edges_e,
-                                                              edges_f)):
-                fail(f"restore + {label}: a replayed step sampled other ids "
-                     "than the eager steps from the same checkpoint")
-            if not torch.equal(masks_e, masks_f):
-                fail(f"restore + {label}: a replayed step's dropout masks "
-                     "differ from the eager steps'")
-            l_rel = abs(lf - le) / abs(le)
-            p_rel = rel_norm(pf, pe)
-            print(f"  restore + {label} (K {FUSED_K}) against {FUSED_K} "
-                  f"eager steps: ids, edge counts and dropout masks exact | "
-                  f"loss {lf!r} vs {le!r} (rel {l_rel:.3g}) | parameters "
-                  f"rel {p_rel:.3g}")
-            if not (l_rel <= 1e-3 and p_rel <= 2e-3):
-                fail(f"restore + {label}: loss (rel {l_rel}) or parameters "
-                     f"(rel {p_rel}) beyond tolerance")
-            for name in PATH_KERNELS["cli"]:
-                if launches.get(name, 0) <= 0:
-                    fail(f"restore + {label}: the captured step launched "
-                         f"no {name}")
-        if out["fused again"][3] is out["fused"][3]:
-            fail("a restored state replayed the graph captured for "
-                 "another state")
-        print(f"  checkpoint: {size} bytes | save {save_s:.3f} s | restore "
-              f"{', '.join(f'{x:.3f}' for x in restore_s)} s")
-        del tr, out
-        torch.cuda.empty_cache()
+    print("  launches of run A: "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    for name in PATH_KERNELS["cli"]:
+        if counts[name] <= 0:
+            fail(f"kernel {name} was not launched by the launcher run")
+    if counts["dedup_map"]:
+        fail("the launcher's sort-dedup run launched dedup_map")
+    seen = {k: len(v) for k, v in rec.at.items()}
+    if rec.first != {"A": 0, "B2": n} or seen != {"A": 1, "B2": 1}:
+        fail(f"first train batches at {rec.first}, batches at train_ctr "
+             f"{n} {seen}: want A at 0, B2 at {n}, one each")
+    (ids_a, e_a), (ids_b, e_b) = rec.at["A"][0], rec.at["B2"][0]
+    if not (torch.equal(ids_a, ids_b) and torch.equal(e_a, e_b)):
+        fail(f"B2's first batch differs from A's batch at train_ctr {n}")
+    l_a, l_b = stats_a[1].train_loss, stats_b[0].train_loss
+    l_rel = abs(l_b - l_a) / abs(l_a)
+    p_rel = rel_norm(params_b, params_a)
+    print(f"  resume: B2's first batch equals A's at train_ctr {n} "
+          f"({int(e_a.sum())} edges) | epoch loss B2 {l_b!r} vs A's "
+          f"second {l_a!r} (rel {l_rel:.3g}, tol 1e-3) | parameters "
+          f"norm-wise rel {p_rel:.3g} (tol 2e-3) | A's second epoch "
+          f"{ms_a:.3f} ms/step from disk, phase 6's H from memory "
+          f"{h_step_ms:.3f} ms/step (one call; no claim)")
+    if not (l_rel <= 1e-3 and p_rel <= 2e-3):
+        fail(f"resume: B2 differs from A's second epoch beyond "
+             f"tolerance (loss rel {l_rel}, parameters rel {p_rel})")
+    del tr, st, params_b
+    torch.cuda.empty_cache()
+
+    cfg = run.build_config(run.parse_args(base + ["--epoch", "1"]))
+    tr = Trainer(LegionDataset.load(cfg.dataset), cfg, "cuda")
+    rec = StepRecorder(tr, torch, FUSED_K)
+    out, restore_s = {}, []
+    try:
+        for label, K in (("fused", FUSED_K), ("eager", 1),
+                         ("fused again", FUSED_K)):
+            t0 = time.perf_counter()
+            state = restore_checkpoint(ck, tr, step=n)
+            torch.cuda.synchronize()
+            restore_s.append(time.perf_counter() - t0)
+            rec.bind(state)
+            tr.fused_steps = K
+            loss = float(torch.stack([tr.train_step(state)[1]
+                                      for _ in range(FUSED_K // K)])
+                         .mean())
+            if state["train_ctr"] != n + FUSED_K or \
+                    int(state["train_ctr_d"]) != n + FUSED_K:
+                fail(f"restore + {label}: counters {state['train_ctr']}"
+                     f" / {int(state['train_ctr_d'])}, not "
+                     f"{n + FUSED_K}")
+            out[label] = (loss, [p.detach().clone()
+                                 for p in state["model"].parameters()],
+                          rec.take(), tr._graph,
+                          dict(tr.graph_launches))
+            if label == "eager":
+                ck2 = os.path.join(tmp, "ckpt2")
+                t0 = time.perf_counter()
+                save_checkpoint(ck2, state, state["train_ctr"])
+                save_s = time.perf_counter() - t0
+                size = sum(os.path.getsize(os.path.join(ck2, f))
+                           for f in os.listdir(ck2))
+    finally:
+        rec.close()
+        tr.fused_steps = 1
+    tr.close()
+    le, pe, (ids_e, edges_e, masks_e), _, _ = out["eager"]
+    for label in ("fused", "fused again"):
+        lf, pf, (ids_f, edges_f, masks_f), _, launches = out[label]
+        if not (torch.equal(ids_e, ids_f) and torch.equal(edges_e,
+                                                          edges_f)):
+            fail(f"restore + {label}: a replayed step sampled other ids "
+                 "than the eager steps from the same checkpoint")
+        if not torch.equal(masks_e, masks_f):
+            fail(f"restore + {label}: a replayed step's dropout masks "
+                 "differ from the eager steps'")
+        l_rel = abs(lf - le) / abs(le)
+        p_rel = rel_norm(pf, pe)
+        print(f"  restore + {label} (K {FUSED_K}) against {FUSED_K} "
+              f"eager steps: ids, edge counts and dropout masks exact | "
+              f"loss {lf!r} vs {le!r} (rel {l_rel:.3g}) | parameters "
+              f"rel {p_rel:.3g}")
+        if not (l_rel <= 1e-3 and p_rel <= 2e-3):
+            fail(f"restore + {label}: loss (rel {l_rel}) or parameters "
+                 f"(rel {p_rel}) beyond tolerance")
+        for name in PATH_KERNELS["cli"]:
+            if launches.get(name, 0) <= 0:
+                fail(f"restore + {label}: the captured step launched "
+                     f"no {name}")
+    if out["fused again"][3] is out["fused"][3]:
+        fail("a restored state replayed the graph captured for "
+             "another state")
+    print(f"  checkpoint: {size} bytes | save {save_s:.3f} s | restore "
+          f"{', '.join(f'{x:.3f}' for x in restore_s)} s")
+    del tr, out
+    torch.cuda.empty_cache()
 
 
 def kernel_symbol(name, key):
@@ -3258,6 +3316,71 @@ def clique_kernels(tr, tr_hash, torch, results, main):
         print(f"  hop {fo}: {int((h['frontier'] >= 0).sum())} frontier "
               f"lanes, {int((h['slot'] >= 0).sum())} cached, {served} "
               f"served, {int(((h['slot'] >= 0) & (r < 0)).sum())} overflow")
+    clique_owners(tr, torch, hops, fetch)
+
+
+def clique_owners(tr, torch, hops, fetch):
+    """What each rank of a clique across processes (one member a card,
+    layout (b)) computes on its own, at clique-HT's shapes on one real
+    batch, with no process group: for each owner o, its shards built
+    alone (``owners=[o]``), its K1 serve of the requests it received, its
+    K14 draws at ``first_owner=o`` and its K10 words at member offset o.
+    Stacked over the owners and sent back as the clique's all-to-all
+    would, they must equal the all-owners caches' rows and draws, and
+    the members' words, exactly."""
+    import numpy as np
+    from legion_tpu_torch.cache import collective as co
+    from legion_tpu_torch.ops import kernels
+    from legion_tpu_torch.sampling import access
+    fs, acc, plan, Kg = tr.feature_source, tr.graph_access, tr.cache_plan, \
+        CLIQUE_KG
+    map_impl = tr.config.cache.resolve_map_impl(tr.dataset.meta.num_nodes)
+    dt = "bfloat16" if fs.member_rows.dtype == torch.bfloat16 else "float32"
+    recv_f = fs.to_owners(fetch["req"])             # [1, Kg, Q]
+    served, drawn = [], [[] for _ in hops]
+    L = tr.sampler_t.config.num_hops
+    keys = torch.stack([h["keys"] for h in hops], 1)        # [Kg, L, 4]
+    for o in range(Kg):
+        smap, rows, _ = co.build_clique_cache(
+            np.asarray(plan.feature_order), plan.feature_capacity,
+            fs.host.array, Kg,
+            feat_dtype=dt, map_impl=map_impl, device="cuda", owners=[o])
+        if not torch.equal(rows[0], fs.member_rows[o]):
+            fail(f"clique owners: owner {o}'s feature shard built alone "
+                 "differs from its shard of the whole build")
+        served.append(kernels.gather_rows(rows[0], recv_f[0, o]))
+        _, pairs, blocks, _ = co.build_clique_topo(
+            np.asarray(plan.topo_order), plan.topo_capacity,
+            acc.fallback.host_indptr.array, acc.fallback.host_indices.array,
+            Kg, window=acc.window, map_impl=map_impl, device="cuda",
+            owners=[o])
+        for k, h in enumerate(hops):
+            drawn[k].append(co.clique_draw(
+                pairs, blocks, h["recv"][:, o:o + 1].contiguous(),
+                h["fanout"], h["keys"][o:o + 1], first_owner=o))
+        base = torch.full((), tr.config.train.seed + 1, dtype=torch.int64,
+                          device="cuda")
+        ctr = torch.zeros((), dtype=torch.int64, device="cuda")
+        if not torch.equal(access.step_keys(base, ctr, 0, L, Kg, o, 1)[0],
+                           keys[o]):
+            fail(f"clique owners: K10 at member offset {o} differs from "
+                 f"member {o}'s words of the whole clique")
+        del smap
+    back = fs.to_members(torch.stack(served)[None])
+    if not torch.equal(back, fs._rows_back(fetch["req"])):
+        fail("clique owners: the owners' serves built alone, exchanged, "
+             "differ from the all-owners cache's served rows")
+    for k, h in enumerate(hops):
+        one = torch.cat(drawn[k], 1)                # [1, Kg, Q, fanout]
+        if not torch.equal(one, co.clique_draw(
+                acc.member_pairs, acc.member_indices2d, h["recv"],
+                h["fanout"], h["keys"])):
+            fail(f"clique owners: hop {k}: the owners' draws at their own "
+                 "offsets differ from the all-owners draw")
+    print(f"  each of {Kg} owners alone (one member a card, layout (b)): "
+          f"shards, K1 serves of {recv_f.shape[2]} requests, K14 draws of "
+          f"both hops and K10 words at its offset: exact against the "
+          "all-owners caches")
 
 
 def clique_edges(torch, results):
@@ -3268,7 +3391,9 @@ def clique_edges(torch, results):
     misses, overflow, an id that one member's lane finds and another's
     overflows, no host table, f32 and bf16, widths 1, 100, 128 and 602;
     K14 with degree-0 rows, no requests, int64 pairs, fanouts 1 and 25, a
-    window of 8 and one of 48 (not a power of two), two cliques."""
+    window of 8 and one of 48 (not a power of two), two cliques, and each
+    owner alone at its clique index (its shard only, the index folded in:
+    the slice of the all-owners draw)."""
     import numpy as np
     from legion_tpu_torch.cache import collective as co
     from legion_tpu_torch.cache.hashmap import HashMap32, hash_lookup_plain
@@ -3371,6 +3496,17 @@ def clique_edges(torch, results):
         check("clique_draw", [drawn],
               [co.clique_draw_plain(pairs, blocks, recv, fo, keys)],
               f"Kc {Kc} Kg {Kg} fanout {fo} W {W} {q}")
+        # one owner alone at its clique index o0 (a process of a clique
+        # across processes): its slice of the all-owners draw
+        for o0 in range(Kg):
+            args = (pairs[o0:o0 + 1], blocks[o0:o0 + 1],
+                    recv[:, o0:o0 + 1].contiguous(), fo,
+                    keys.view(Kc, Kg, 4)[:, o0].contiguous())
+            one = co.clique_draw(*args, first_owner=o0)
+            check("clique_draw", [one, one],
+                  [co.clique_draw_plain(*args, first_owner=o0),
+                   drawn[:, o0:o0 + 1]],
+                  f"Kc {Kc} Kg {Kg} fanout {fo} W {W} {q} owner {o0} alone")
         back = co.exchange(drawn.view(Kc, Kg, Kg, -1, fo)).view(-1, fo)
         fill = torch.from_numpy(rng.integers(-1, Vg, (n, fo * 900))
                                 .astype(np.int32)).to(dev)
@@ -3541,9 +3677,10 @@ def clique_pair(tr_a, tr_b, torch, path_a, label):
 def phase_clique(hds, torch):
     """Phase 9: the clique caches with Kg = 4 members on the card, on the
     host dataset: K11-K14 against their plain versions at the clique-HT
-    path's shapes and at the edges of theirs; clique-HT (features and
-    topology on the host, direct maps) for CLIQUE_STEPS steps and an eval
-    pass, with its hit counters, overflow lanes and exchange bytes, and
+    path's shapes and at the edges of theirs; each owner alone, as a rank
+    of a clique across processes holds it (``clique_owners``); clique-HT
+    (features and topology on the host, direct maps) for CLIQUE_STEPS
+    steps and an eval pass, with its hit counters, overflow lanes and exchange bytes, and
     the data checks of ``clique_checks``; clique-HT-hash (hash maps)
     against clique-HT, and clique-H (the topology on the card) against
     the same members with every feature on the card (``clique_pair``).
@@ -3613,6 +3750,175 @@ def phase_clique(hds, torch):
     return results, counts, step_ms
 
 
+# the launcher's flags of phase 10 (after CLI_ARGS): 4 members of one
+# clique on the card
+DIST_ARGS = ("--epoch", "1", "--devices", str(CLIQUE_KG), "--clique-size",
+             str(CLIQUE_KG))
+
+
+class DistRecorder:
+    """Through the launcher: the topology on the host as well (the
+    launcher has no flag for it, in either package: ``run.build_config``
+    is wrapped), and for each train step its counter, loss, counters
+    (edges, slots, feature hits, topology hits and total), the
+    collectives' calls and bytes it made, and the members' ids (on the
+    card)."""
+
+    def __init__(self, torch):
+        from dataclasses import replace
+
+        from legion_tpu_torch import run
+        from legion_tpu_torch.parallel import mesh as pmesh
+        from legion_tpu_torch.train import Trainer
+        self.steps, self.ids = [], []
+        self._orig = (run.build_config, Trainer.train_step,
+                      Trainer._member_sample_fetch)
+        build, step, fetch = self._orig
+
+        def build_config(args):
+            cfg = build(args)
+            return replace(cfg, cache=replace(cfg.cache,
+                                              topo_residency="host"))
+
+        def train_step(tr, state):
+            ctr = state["train_ctr"]
+            before = {k: dict(v) for k, v in pmesh.COLLECTIVES.items()}
+            out = step(tr, state)
+            coll = {k: {f: v[f] - before[k][f] for f in v}
+                    for k, v in pmesh.COLLECTIVES.items()}
+            self.steps.append((ctr, out[1].clone(), torch.stack(
+                [tr.last_edges, tr.last_slots, tr.last_feat_hits,
+                 tr.last_topo_hits, tr.last_topo_total]), coll))
+            return out
+
+        def member_sample_fetch(tr, state, sampler, seeds, keys):
+            out = fetch(tr, state, sampler, seeds, keys)
+            if sampler is tr.sampler_t:
+                self.ids.append(torch.stack([b.node_ids for b in out[0]])
+                                .clone())
+            return out
+        run.build_config = build_config
+        Trainer.train_step = train_step
+        Trainer._member_sample_fetch = member_sample_fetch
+
+    def close(self):
+        from legion_tpu_torch import run
+        from legion_tpu_torch.train import Trainer
+        (run.build_config, Trainer.train_step,
+         Trainer._member_sample_fetch) = self._orig
+
+
+def dist_run(argv, torch, label):
+    """One launcher run of the members on the card (``DistRecorder``):
+    fails on a non-finite loss, a valid accuracy outside [0, 1], caches
+    other than the clique's, or a kernel of ``PATH_KERNELS["clique-HT"]``
+    not launched (or another launched). Returns (the recorder, its steps'
+    ms, the collectives of the whole run)."""
+    from legion_tpu_torch import run
+    from legion_tpu_torch.cache.collective import (CliqueFeatureCache,
+                                                   CliqueTopoCache)
+    from legion_tpu_torch.ops import kernels
+    from legion_tpu_torch.parallel import mesh as pmesh
+    print(f" {label}: python -m legion_tpu_torch.run " + " ".join(argv)
+          + " (topology on the host)")
+    kernels.reset_launch_counts()
+    pmesh.reset_collective_counts()
+    rec = DistRecorder(torch)
+    try:
+        t0 = time.perf_counter()
+        tr, state, stats = run.main(argv + ["--device", "cuda"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        rec.close()
+    tr.close()
+    counts = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    coll = {k: dict(v) for k, v in pmesh.COLLECTIVES.items()}
+    if not (isinstance(tr.feature_source, CliqueFeatureCache)
+            and isinstance(tr.graph_access, CliqueTopoCache)):
+        fail(f"{label}: caches {type(tr.feature_source).__name__}, "
+             f"{type(tr.graph_access).__name__}, not the clique's")
+    if set(counts) != set(PATH_KERNELS["clique-HT"]):
+        fail(f"{label}: launched {sorted(counts)}, want "
+             f"{sorted(PATH_KERNELS['clique-HT'])}")
+    st, sm = stats[0], tr.epoch_metrics[0]
+    if not (math.isfinite(st.train_loss) and 0.0 <= st.valid_acc <= 1.0):
+        fail(f"{label}: loss {st.train_loss}, valid acc {st.valid_acc}")
+    tot = torch.stack([c for _, _, c, _ in rec.steps]).sum(0).tolist()
+    ms = sm.seconds / sm.steps * 1e3
+    p = tr.cache_plan
+    print(f"  {label}: {secs:.3f} s in all | set-up {fmt_setup(tr.setup_s)}"
+          f" | plan: alpha {p.alpha:.2f}, feature rows {p.feature_capacity},"
+          f" topology rows {p.topo_capacity} | mesh "
+          f"{None if tr.mesh is None else tr.mesh.shape}")
+    print(f"  {label} epoch: {st.seconds:.3f} s (train {ms:.3f} ms/step over "
+          f"{sm.steps} steps) | loss {st.train_loss!r} | valid acc "
+          f"{st.valid_acc:.4f} | test acc {tr.test_acc:.4f} | trained "
+          f"edges/s {sm.edges_per_s:.1f} | feature hits {tot[2]}/{tot[1]} "
+          f"slots | topology hits {tot[3]}/{tot[4]}")
+    print(f"  {label} launches: {counts}")
+    return rec, ms, coll
+
+
+def phase_dist(d, torch):
+    """Phase 10: the launcher's members and its process group. GraphSAGE
+    at full width from the dataset on disk (``cli_dataset``), one epoch,
+    ``--devices 4 --clique-size 4``, features and topology on the host
+    behind the clique caches (clique-HT through the launcher): first in
+    one process with no process group, then as a world of one rank under
+    NCCL (``--coordinator 127.0.0.1:<port> --num-processes 1
+    --process-id 0``), which makes every collective call of a larger world
+    (layout (a): the gradients, the loss and the counters each step, the
+    rank digest, eval's sums). The two runs must sample the same ids in
+    every step exactly and give the same first loss bit for bit; later
+    losses within ``phase_fused``'s tolerance (K2's f32 atomics). Prints
+    the collective calls and bytes a step, and the ms a step both ways.
+    The process group is destroyed at the end."""
+    import socket
+
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    base = ["--dataset-name", "custom", "--dataset-path", d, *CLI_ARGS,
+            *DIST_ARGS]
+    a, ms_a, _ = dist_run(base, torch, "members, no process group")
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    try:
+        b, ms_b, coll = dist_run(
+            base + ["--coordinator", f"127.0.0.1:{port}", "--num-processes",
+                    "1", "--process-id", "0"], torch,
+            "members, a world of one rank (NCCL)")
+        backend = dist.get_backend()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    if backend != "nccl":
+        fail(f"the world of one rank on the card ran on {backend}")
+    if [x[0] for x in a.steps] != [x[0] for x in b.steps] or \
+            len(a.ids) != len(b.ids):
+        fail("the two runs took other train steps")
+    for i, (x, y) in enumerate(zip(a.ids, b.ids)):
+        if not torch.equal(x, y):
+            fail(f"step {i}: the world of one rank sampled other ids")
+    la = [float(x[1]) for x in a.steps]
+    lb = [float(x[1]) for x in b.steps]
+    rel = max(abs(x - y) / abs(x) for x, y in zip(la, lb))
+    if la[0] != lb[0] or rel > 1e-3:
+        fail(f"losses {la} against {lb}: first equal {la[0] == lb[0]}, "
+             f"max rel {rel}")
+    per = [x[3] for x in b.steps]
+    calls = {k: sorted({c[k]["calls"] for c in per}) for k in per[0]}
+    nbytes = {k: sorted({c[k]["bytes"] for c in per}) for k in per[0]}
+    print(f"  world of one rank against no process group: ids equal in all "
+          f"{len(la)} steps | losses {la} against {lb} (first "
+          f"equal, max rel {rel:.3g}) | collectives a train step: calls "
+          f"{calls}, bytes {nbytes} | whole run: {coll} | ms a step "
+          f"{ms_a:.3f} without, {ms_b:.3f} with (one call; no claim)")
+    print(f"  phase 10 seconds: {time.perf_counter() - t0:.3f}")
+
+
 def bulk_link_bps(hds, torch):
     """The bulk-copy rate from the registered feature table (as
     ``link_probe`` measures it), for the bounds of ``--clique`` runs."""
@@ -3680,6 +3986,17 @@ def main():
                   f"{r['ms']:.4f} ms | bound {r['bound_ms']:.4f} ms by "
                   f"{r['bound_by']} | plain {r['plain_ms']:.4f} ms | library "
                   f"{r['library_ms']}")
+        return
+    if sys.argv[1:2] == ["--dist"]:
+        from legion_tpu_torch.data import synthesize_dataset
+        k10_offsets(torch, 2)
+        clique_edges(torch, {})
+        hds = synthesize_dataset(num_nodes=HOST_NODES,
+                                 avg_degree=HOST_AVG_DEGREE, feature_dim=100,
+                                 num_classes=32, batch_size=8000,
+                                 train_frac=0.08, seed=0)
+        with tempfile.TemporaryDirectory(prefix="legion_cli_") as tmp:
+            phase_dist(cli_dataset(hds, tmp), torch)
         return
 
     print("set-up: bench dataset and trainer")
@@ -3808,13 +4125,19 @@ def main():
 
     print("phase 8: the launcher from a dataset on disk (host mode, "
           "checkpoint, resume)")
-    phase_cli(hds, torch, step_ms["H"])
+    with tempfile.TemporaryDirectory(prefix="legion_cli_") as tmp:
+        d = cli_dataset(hds, tmp)
+        phase_cli(d, tmp, torch, step_ms["H"])
 
-    print(f"phase 9: the clique caches, {CLIQUE_KG} members on the card")
-    res_c, counts_c, step_ms["clique-HT"] = phase_clique(hds, torch)
-    results.update(res_c)
-    counts.update(counts_c)
-    del hds
+        print(f"phase 9: the clique caches, {CLIQUE_KG} members on the card")
+        res_c, counts_c, step_ms["clique-HT"] = phase_clique(hds, torch)
+        results.update(res_c)
+        counts.update(counts_c)
+        del hds
+
+        print(f"phase 10: the launcher's members ({CLIQUE_KG} on the card), "
+              "without and with a process group")
+        phase_dist(d, torch)
 
     kern = [dict(name=n, route="cuda", source=KERNELS[n]["source"],
                  replaces=KERNELS[n]["replaces"],

@@ -9,12 +9,16 @@ cache_impl.cuh:89-101, graph_storage.cu:76-111, operator_impl.cu:224-243).
 
 The JAX package runs a member a device inside ``shard_map``. Here the
 ``Kc * Kg`` members of ``Kc`` cliques are a leading axis of one process on
-one card (member d = c * Kg + g), and every call takes all of them:
+one card (member d = c * Kg + g), and every call takes all of them; or,
+with a clique group (``parallel/mesh.py``, layout (b)), a process is one
+member and one owner of a clique across processes, and holds only its own
+shard:
 
   slot lookup (direct [V] table, or K11 over a ``HashMap32``) ->
   K12 ``bucket_by_owner``: each member's fixed [Kg, R_req] request matrix
       of local rows, and each lane's row in the answers ->
-  ``exchange``: requests to their owners (a transpose of the member axes) ->
+  ``exchange``: requests to their owners (a transpose of the member axes,
+      or one ``all_to_all_single`` in the clique's group) ->
   the owners answer: K1 rows of their [R, F] shard (features), or K14
       ``clique_draw`` windowed draws of their sub-CSR (topology) ->
   ``exchange`` back ->
@@ -23,9 +27,8 @@ one card (member d = c * Kg + g), and every call takes all of them:
       ``clique_draw_unsort`` (topology: each lane's draws in fanout-major
       order, or the host draws of ``fallback`` for a miss).
 
-``exchange`` is the one place that a process a member replaces by
-``torch.distributed.all_to_all_single`` (ROADMAP A.4). The Kc cliques use
-one copy of the shards, which they would each hold.
+In one process the Kc cliques use one copy of the shards, which they
+would each hold.
 
 The builds are the JAX package's numpy, array for array; host rows are
 read with numpy (rounded to bf16 by torch, to nearest even, as the
@@ -44,6 +47,7 @@ from legion_tpu_torch.cache.hashmap import HashMap32, map_lookup
 from legion_tpu_torch.cache.unified_cache import K4_BLOCKS
 from legion_tpu_torch.ops import kernels
 from legion_tpu_torch.ops.host_memory import HostTable
+from legion_tpu_torch.parallel.mesh import all_to_all
 from legion_tpu_torch.sampling.access import (M32, bounded, fold_in_words,
                                               hash_words)
 
@@ -62,11 +66,12 @@ def _slot_map(hot: np.ndarray, V: int, map_impl: str, device):
 def build_clique_cache(feature_order: np.ndarray, group_capacity: int,
                        host_features: np.ndarray, group_size: int,
                        feat_dtype: str = "float32", map_impl: str = "direct",
-                       device="cpu"):
+                       device="cpu", owners=None):
     """Host-side FillUp (cache.cu:553-611). Returns (slot_map: id -> global
     slot, -1 absent, as a [V] int32 tensor or a HashMap32; member_rows
-    [Kg, R, F] in feat_dtype; R). Global slot i (the i-th hottest cached
-    vertex) lives on member i % Kg at local row i // Kg."""
+    [len(owners), R, F] in feat_dtype, the shards of ``owners`` (all Kg by
+    default); R). Global slot i (the i-th hottest cached vertex) lives on
+    member i % Kg at local row i // Kg."""
     V, F = host_features.shape
     Kg = group_size
     C = (group_capacity // Kg) * Kg  # whole rows a member
@@ -74,25 +79,27 @@ def build_clique_cache(feature_order: np.ndarray, group_capacity: int,
     hot = np.asarray(feature_order[:C], np.int32)
     slot_map = _slot_map(hot, V, map_impl, device)
     dt = torch.bfloat16 if feat_dtype == "bfloat16" else torch.float32
-    member_rows = torch.zeros((Kg, R, F), dtype=dt)
-    for j in range(Kg):
+    owners = range(Kg) if owners is None else owners
+    member_rows = torch.zeros((len(owners), R, F), dtype=dt)
+    for i, j in enumerate(owners):
         ids_j = hot[j::Kg].astype(np.int64)
         rows = torch.from_numpy(np.asarray(host_features[ids_j], np.float32))
-        member_rows[j, :len(ids_j)] = rows.to(dt)
+        member_rows[i, :len(ids_j)] = rows.to(dt)
     return slot_map, member_rows.to(device), R
 
 
 def build_clique_topo(topo_order: np.ndarray, group_capacity: int,
                       host_indptr: np.ndarray, host_indices: np.ndarray,
                       group_size: int, window: int = 64,
-                      map_impl: str = "direct", device="cpu"):
+                      map_impl: str = "direct", device="cpu", owners=None):
     """Host-side topology FillUp: the hot sub-CSR partitioned over the Kg
     members (cache_impl.cuh:89-101, graph_storage.cu:76-111). Member j
     owns global slot i iff i % Kg == j, at local row i // Kg; the shards
     are padded to a common edge budget (a multiple of ``window``). Returns
-    (row_map, member_pairs [Kg, R, 2] (start, degree) in the member's edge
+    (row_map, member_pairs [n, R, 2] (start, degree) in the member's edge
     space, int32 below 2^31 edges a member else int64, member_indices2d
-    [Kg, Eb // window, window] int32 (-1 pad), R)."""
+    [n, Eb // window, window] int32 (-1 pad), R) for the n shards of
+    ``owners`` (all Kg by default)."""
     V = host_indptr.shape[0] - 1
     Kg = group_size
     C = (group_capacity // Kg) * Kg
@@ -107,25 +114,27 @@ def build_clique_topo(topo_order: np.ndarray, group_capacity: int,
     Eb = max(max(budgets), 1)
     Eb = -(-Eb // window) * window
 
-    member_pairs = np.zeros((Kg, R, 2), np.int64)
-    member_indices = np.full((Kg, Eb), -1, np.int32)
-    for j in range(Kg):
+    owners = range(Kg) if owners is None else owners
+    n = len(owners)
+    member_pairs = np.zeros((n, R, 2), np.int64)
+    member_indices = np.full((n, Eb), -1, np.int32)
+    for i, j in enumerate(owners):
         ids_j = hot[j::Kg]
         deg_j = deg_all[ids_j]
         offs = np.cumsum(deg_j)
         starts = offs - deg_j
-        member_pairs[j, :len(ids_j), 0] = starts
-        member_pairs[j, :len(ids_j), 1] = deg_j
+        member_pairs[i, :len(ids_j), 0] = starts
+        member_pairs[i, :len(ids_j), 1] = deg_j
         total = int(offs[-1]) if len(offs) else 0
         if total:
             e = np.arange(total, dtype=np.int64)
             row = np.searchsorted(offs, e, side="right")
             src = host_indptr[ids_j[row]] + (e - starts[row])
-            member_indices[j, :total] = host_indices[src]
+            member_indices[i, :total] = host_indices[src]
     if Eb < 2 ** 31:
         member_pairs = member_pairs.astype(np.int32)
     return (row_map, torch.from_numpy(member_pairs).to(device),
-            torch.from_numpy(member_indices.reshape(Kg, Eb // window,
+            torch.from_numpy(member_indices.reshape(n, Eb // window,
                                                     window)).to(device), R)
 
 
@@ -135,11 +144,19 @@ def request_rows(n: int, group_size: int, slack: float) -> int:
     return int(-(-n * slack // group_size))
 
 
-def exchange(x: torch.Tensor) -> torch.Tensor:
+def exchange(x: torch.Tensor, group=None) -> torch.Tensor:
     """The all-to-all among each clique's members: x [Kc, Kg(from), Kg(to),
     ...] -> [Kc, Kg(to), Kg(from), ...], block (from, to) to member to. On
-    one card a transpose of the two member axes (a copy)."""
-    return x.transpose(1, 2).contiguous()
+    one card a transpose of the two member axes (a copy). With the clique's
+    process group, this process is one member: x is its [1, 1, Kg(to),
+    ...] block, and one ``all_to_all_single`` returns [1, 1, Kg(from),
+    ...]."""
+    if group is None:
+        return x.transpose(1, 2).contiguous()
+    if x.shape[0] != 1 or x.shape[1] != 1:
+        raise ValueError(f"exchange: a member's block {tuple(x.shape)}, "
+                         "want [1, 1, Kg, ...]")
+    return all_to_all(x.reshape(x.shape[2:]), group).view(x.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -294,12 +311,15 @@ def clique_gather(rows: torch.Tensor, lane_row: torch.Tensor,
 # K14 clique_draw and clique_draw_unsort
 # ---------------------------------------------------------------------------
 
-def owner_words(keys: torch.Tensor, Kg: int):
+def owner_words(keys: torch.Tensor, Kg: int, first: int = 0):
     """K14's words: member d = c * Kg + o's hop words (keys [Kc * Kg, 4]
-    int32), each (lo, hi) pair folded with o. Returns (ka0, kb0, ka1, kb1),
-    int64 tensors [Kc, Kg, 1] in [0, 2^32)."""
+    int32), each (lo, hi) pair folded with first + o (the owner's index in
+    its clique; ``first`` > 0 where a process holds owners from ``first``
+    on). Returns (ka0, kb0, ka1, kb1), int64 tensors [Kc, Kg, 1] in [0,
+    2^32)."""
     w = keys.reshape(-1, Kg, 4).long() & M32
-    o = torch.arange(Kg, dtype=torch.int64, device=keys.device)[None, :]
+    o = torch.arange(first, first + Kg, dtype=torch.int64,
+                     device=keys.device)[None, :]
     a0, b0 = fold_in_words(w[..., 0], w[..., 1], o)
     a1, b1 = fold_in_words(w[..., 2], w[..., 3], o)
     return tuple(x[..., None] for x in (a0, b0, a1, b1))
@@ -337,14 +357,15 @@ def clique_select(pairs: torch.Tensor, blocks: torch.Tensor,
 
 
 def clique_draw_plain(pairs: torch.Tensor, blocks: torch.Tensor,
-                      recv: torch.Tensor, fanout: int, keys: torch.Tensor
-                      ) -> torch.Tensor:
-    """Plain K14 draws: K3's scheme with ``owner_words``; r0 from lane q
-    (a request's index in its owner's [Kg * R_req]), draw f from lane
-    q * fanout + f, then ``clique_select``. Bit-identical to the kernel."""
+                      recv: torch.Tensor, fanout: int, keys: torch.Tensor,
+                      first_owner: int = 0) -> torch.Tensor:
+    """Plain K14 draws: K3's scheme with ``owner_words`` (from
+    ``first_owner``); r0 from lane q (a request's index in its owner's
+    [Kg * R_req]), draw f from lane q * fanout + f, then
+    ``clique_select``. Bit-identical to the kernel."""
     Kg, nblk, W = blocks.shape
     Q = recv.shape[2]
-    ka0, kb0, ka1, kb1 = owner_words(keys, Kg)
+    ka0, kb0, ka1, kb1 = owner_words(keys, Kg, first_owner)
     start, deg = _owner_rows(pairs, recv)
     q = torch.arange(Q, dtype=torch.int64, device=recv.device)
     r0 = bounded(hash_words(ka0, kb0, q), deg.clamp(1, 2 ** 31 - 1))
@@ -360,25 +381,27 @@ def clique_draw_plain(pairs: torch.Tensor, blocks: torch.Tensor,
 
 
 def clique_draw(pairs: torch.Tensor, blocks: torch.Tensor,
-                recv: torch.Tensor, fanout: int, keys: torch.Tensor
-                ) -> torch.Tensor:
+                recv: torch.Tensor, fanout: int, keys: torch.Tensor,
+                first_owner: int = 0) -> torch.Tensor:
     """K14, the owners' draws, as ``clique_draw_plain``: pairs [Kg, R, 2]
     int32/int64, blocks [Kg, nblk, W] int32, recv [Kc, Kg, Q] int32, keys
-    [Kc * Kg, 4] int32 (each member's hop words) -> [Kc, Kg, Q, fanout]
-    int32, in one launch for every owner of every clique."""
+    [Kc * Kg, 4] int32 (each member's hop words), owner o's index in its
+    clique first_owner + o -> [Kc, Kg, Q, fanout] int32, in one launch for
+    every owner of every clique."""
     Kg = blocks.shape[0]
     if pairs.dim() != 3 or pairs.shape[0] != Kg or pairs.shape[2] != 2 \
             or pairs.dtype not in (torch.int32, torch.int64) \
             or blocks.dim() != 3 or blocks.dtype != torch.int32 \
             or recv.dim() != 3 or recv.shape[1] != Kg \
             or recv.dtype != torch.int32 or keys.dtype != torch.int32 \
-            or keys.numel() != 4 * recv.shape[0] * Kg:
+            or keys.numel() != 4 * recv.shape[0] * Kg or first_owner < 0:
         raise ValueError(f"clique_draw: pairs {pairs.dtype} "
                          f"{tuple(pairs.shape)}, blocks {tuple(blocks.shape)}"
                          f", recv {recv.dtype} {tuple(recv.shape)}, keys "
                          f"{keys.dtype} {tuple(keys.shape)}")
     if recv.device.type == "cpu":
-        return clique_draw_plain(pairs, blocks, recv, fanout, keys)
+        return clique_draw_plain(pairs, blocks, recv, fanout, keys,
+                                 first_owner)
     if not (pairs.device == blocks.device == recv.device == keys.device):
         raise ValueError("clique_draw: tensors on different devices")
     Kc, _, Q = recv.shape
@@ -391,7 +414,8 @@ def clique_draw(pairs: torch.Tensor, blocks: torch.Tensor,
         else lib.lt_clique_draw_i64
     rc = fn(pairs.data_ptr(), blocks.data_ptr(), pairs.shape[1],
             blocks.shape[1], blocks.shape[2], recv.data_ptr(), Kc, Kg, Q,
-            fanout, keys.data_ptr(), out.data_ptr(), kernels.stream_handle())
+            fanout, keys.data_ptr(), first_owner, out.data_ptr(),
+            kernels.stream_handle())
     kernels.check("clique_draw", rc)
     return out
 
@@ -446,32 +470,54 @@ def clique_draw_unsort(back: torch.Tensor, lane_row: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 class _Clique:
-    """What the two caches share: the map, the member axes, the routing."""
+    """What the two caches share: the map, the member axes, the routing.
+    In one process the Kc cliques' Kg members are all here, and each holds
+    its owner's shard. With ``group`` (the process group of a clique across
+    processes) this process is one member, ``first_owner`` its index in the
+    clique, and Kc is 1."""
 
     def __init__(self, id_map, group_size: int, num_cliques: int,
-                 request_slack: float):
+                 request_slack: float, group=None, first_owner: int = 0):
         self.id_map = id_map
         self.Kg = group_size
         self.Kc = num_cliques
         self.slack = request_slack
+        self.group = group
+        self.first_owner = first_owner
+        # the members (and owners) of a clique that this process holds
+        self.local = group_size if group is None else 1
+        if group is not None and num_cliques != 1:
+            raise ValueError(f"{num_cliques} cliques in a process that holds "
+                             "one member of a clique across processes")
 
     def R_req(self, n: int) -> int:
         return request_rows(n, self.Kg, self.slack)
 
     def route(self, ids: torch.Tensor, with_pos: bool = False):
-        """ids [Kc * Kg, N] -> (req [Kc * Kg, Kg, R_req], lane_row [Kc *
-        Kg, N], pos or None) through the map and K12."""
-        if ids.dim() != 2 or ids.shape[0] != self.Kc * self.Kg:
+        """ids [Kc * local, N] -> (req [Kc * local, Kg, R_req], lane_row
+        [Kc * local, N], pos or None) through the map and K12."""
+        if ids.dim() != 2 or ids.shape[0] != self.Kc * self.local:
             raise ValueError(f"ids {tuple(ids.shape)}: want [{self.Kc} "
-                             f"cliques x {self.Kg} members, N]")
+                             f"cliques x {self.local} members, N]")
         slot = map_lookup(self.id_map, ids)
         return bucket_by_owner(slot, self.Kg, self.R_req(ids.shape[1]),
                                with_pos)
 
     def to_owners(self, req: torch.Tensor) -> torch.Tensor:
-        """[Kc * Kg, Kg, R_req] requests -> [Kc, Kg(owner), Kg * R_req]."""
-        Kc, Kg = self.Kc, self.Kg
-        return exchange(req.view(Kc, Kg, Kg, -1)).view(Kc, Kg, -1)
+        """[Kc * local, Kg, R_req] requests -> [Kc, local(owner), Kg *
+        R_req], what each owner here received from the Kg members."""
+        Kc, n = self.Kc, self.local
+        return exchange(req.view(Kc, n, self.Kg, -1), self.group).view(
+            Kc, n, -1)
+
+    def to_members(self, answers: torch.Tensor) -> torch.Tensor:
+        """[Kc, local(owner), Kg * R_req, ...] answers -> [Kc * local *
+        Kg * R_req, ...], member m's answer from owner o at row (m * Kg +
+        o) * R_req + pos."""
+        Kc, n = self.Kc, self.local
+        tail = answers.shape[3:]
+        return exchange(answers.view(Kc, n, self.Kg, -1, *tail),
+                        self.group).reshape(-1, *tail)
 
 
 class CliqueFeatureCache(_Clique):
@@ -481,9 +527,11 @@ class CliqueFeatureCache(_Clique):
 
     def __init__(self, slot_map, member_rows: torch.Tensor,
                  host: Optional[HostTable], group_size: int,
-                 num_cliques: int = 1, request_slack: float = 1.5):
-        super().__init__(slot_map, group_size, num_cliques, request_slack)
-        self.member_rows = member_rows     # [Kg, R, F]
+                 num_cliques: int = 1, request_slack: float = 1.5,
+                 group=None, first_owner: int = 0):
+        super().__init__(slot_map, group_size, num_cliques, request_slack,
+                         group, first_owner)
+        self.member_rows = member_rows     # [local, R, F]
         self.host = host                   # [V, F] float32
         self.R = member_rows.shape[1]
         self.feat_dim = member_rows.shape[2]
@@ -506,30 +554,30 @@ class CliqueFeatureCache(_Clique):
 
     def _rows_back(self, req: torch.Tensor) -> torch.Tensor:
         """Requests to owners, each owner's rows by K1 (zero rows for -1),
-        and back: [Kc * Kg * Kg * R_req, F], member m's row from owner o
+        and back: [Kc * local * Kg * R_req, F], member m's row from owner o
         at (m * Kg + o) * R_req + pos."""
         recv = self.to_owners(req)
-        Kc, Kg, Q = recv.shape
-        served = torch.empty((Kc, Kg, Q, self.feat_dim),
+        Kc, n, Q = recv.shape
+        served = torch.empty((Kc, n, Q, self.feat_dim),
                              dtype=self.member_rows.dtype,
                              device=recv.device)
         for c in range(Kc):
-            for o in range(Kg):
+            for o in range(n):
                 kernels.gather_rows(self.member_rows[o], recv[c, o],
                                     out=served[c, o])
-        back = exchange(served.view(Kc, Kg, Kg, Q // Kg, self.feat_dim))
-        return back.view(-1, self.feat_dim)
+        return self.to_members(served)
 
     def fetch_cached(self, ids: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The exchange alone: ids [Kc * Kg, N] (-1 pad) -> (rows [Kc *
-        Kg, N, F], zero rows where not served; served [Kc * Kg, N] bool)."""
+        """The exchange alone: ids [M, N] (-1 pad; M = Kc * local, the
+        members here) -> (rows [M, N, F], zero rows where not served;
+        served [M, N] bool)."""
         req, lane_row, _ = self.route(ids)
         rows, _ = clique_gather(self._rows_back(req), lane_row, ids, None)
         return rows, lane_row >= 0
 
     def fetch(self, ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """ids [Kc * Kg, N] -> (rows [Kc * Kg, N, F], hits [Kc * Kg] int32,
+        """ids [M, N] (M = Kc * local) -> (rows [M, N, F], hits [M] int32,
         the lanes the clique served); misses and overflow read their host
         rows."""
         req, lane_row, _ = self.route(ids)
@@ -540,18 +588,20 @@ class CliqueTopoCache(_Clique):
     """Neighbour draws from the clique-partitioned hot sub-CSR, each row
     drawn by its owner (K14) with the windowed scheme of K3; misses and
     overflow drawn by ``fallback`` (K5 on the pinned host CSR:
-    ``CachedTopoAccess.all_miss``). ``sample_neighbors`` takes every
-    member's frontier at once ([Kc * Kg, F]) and its hop words ([Kc * Kg,
-    4]); ``members`` tells the sampler so."""
+    ``CachedTopoAccess.all_miss``). ``sample_neighbors`` takes the
+    frontier of every member here at once ([Kc * local, F]) and their hop
+    words ([Kc * local, 4]); ``members`` tells the sampler so."""
 
     members = True
 
     def __init__(self, row_map, member_pairs: torch.Tensor,
                  member_indices2d: torch.Tensor, fallback, group_size: int,
-                 num_cliques: int = 1, request_slack: float = 1.5):
-        super().__init__(row_map, group_size, num_cliques, request_slack)
-        self.member_pairs = member_pairs           # [Kg, R, 2]
-        self.member_indices2d = member_indices2d   # [Kg, Eb // W, W]
+                 num_cliques: int = 1, request_slack: float = 1.5,
+                 group=None, first_owner: int = 0):
+        super().__init__(row_map, group_size, num_cliques, request_slack,
+                         group, first_owner)
+        self.member_pairs = member_pairs           # [local, R, 2]
+        self.member_indices2d = member_indices2d   # [local, Eb // W, W]
         self.fallback = fallback
         self.num_nodes = fallback.num_nodes
 
@@ -575,25 +625,24 @@ class CliqueTopoCache(_Clique):
 
     def _draws(self, req: torch.Tensor, fanout: int, keys: torch.Tensor,
                draws) -> torch.Tensor:
-        """The owners' draws, and back: [Kc * Kg * Kg * R_req, fanout].
-        ``draws`` = (r0, off) in ``clique_select``'s shapes replaces the
-        hashed draws (the tests inject the JAX package's)."""
+        """The owners' draws, and back: [Kc * local * Kg * R_req, fanout].
+        An owner draws with its own member's hop words (``keys``, the
+        members here). ``draws`` = (r0, off) in ``clique_select``'s shapes
+        replaces the hashed draws (the tests inject the JAX package's)."""
         recv = self.to_owners(req)
         if draws is None:
             drawn = clique_draw(self.member_pairs, self.member_indices2d,
-                                recv, fanout, keys)
+                                recv, fanout, keys, self.first_owner)
         else:
             drawn = clique_select(self.member_pairs, self.member_indices2d,
                                   recv, *draws)
-        Kc, Kg, Q = recv.shape
-        return exchange(drawn.view(Kc, Kg, Kg, Q // Kg, fanout)).view(
-            -1, fanout)
+        return self.to_members(drawn)
 
     def lookup(self, frontier: torch.Tensor, fanout: int, keys: torch.Tensor,
                draws=None) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The exchange alone: frontier [Kc * Kg, F] -> (nbr [Kc * Kg,
-        fanout * F] fanout-major, -1 on lanes not served; served [Kc * Kg,
-        F] bool)."""
+        """The exchange alone: frontier [Kc * local, F] -> (nbr [Kc *
+        local, fanout * F] fanout-major, -1 on lanes not served; served
+        [Kc * local, F] bool)."""
         req, lane_row, _ = self.route(frontier)
         nbr = clique_draw_unsort(self._draws(req, fanout, keys, draws),
                                  lane_row)
@@ -601,8 +650,9 @@ class CliqueTopoCache(_Clique):
 
     def sample_neighbors(self, frontier: torch.Tensor, fanout: int,
                          keys: torch.Tensor, draws=None) -> torch.Tensor:
-        """[Kc * Kg, F] -> [Kc * Kg, fanout * F]: the clique's draws, and
-        member m's misses drawn by the fallback with m's own hop words."""
+        """[Kc * local, F] -> [Kc * local, fanout * F]: the clique's draws,
+        and member m's misses drawn by the fallback with m's own hop
+        words."""
         req, lane_row, _ = self.route(frontier)
         miss = torch.where(lane_row >= 0, -1, frontier)
         fill = torch.stack([self.fallback.sample_neighbors(f, fanout, k)

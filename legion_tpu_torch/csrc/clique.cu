@@ -35,21 +35,23 @@
 // block's bases. Blocks also fill the unused request entries with -1.
 //
 // K14 clique_draw replaces collective.py::CliqueTopoCache._draw_local
-// (:337-370), and clique_draw_unsort the unsort of lookup (:383-407).
-// Owner o of clique c draws `fanout` neighbours for each received local
-// row of its shard (K3's windowed scheme): row r -> (start, deg) of its
-// [R, 2] pairs; r0 ~ U[0, max(deg, 1)) picks the W-wide block of its
-// [Eb / W, W] blocks holding start + r0; each draw is uniform over the
-// row's part of that block. -1 for no request (r < 0) or degree 0. The
-// words: owner member c * Kg + o's hop words, each (lo, hi) pair folded
-// with o (JAX's fold_in(key, axis_index)); r0 from lane q (the request's
-// index in the owner's [Kg, R_req] matrix), draw f from lane q * fanout +
-// f. Out: [Kc, Kg(owner), Kg * R_req, fanout], the draws of a request
-// together, as JAX returns them. Bound: the launch, as K3 (a few hundred
-// thousand draws); by bytes, the received rows, their pairs, one int32 of
-// the block a draw and the draws written. Design: a thread a draw, so
-// that the stores of a warp are one run of out; the request's row, pair
-// and r0 are recomputed by the fanout threads that share them (L1 hits).
+// (:337-370), and clique_draw_unsort the unsort of lookup (:383-407). Owner o
+// of clique c draws `fanout` neighbours for each received local row of its
+// shard (K3's windowed scheme): row r -> (start, deg) of its [R, 2] pairs; r0
+// ~ U[0, max(deg, 1)) picks the W-wide block of its [Eb / W, W] blocks holding
+// start + r0; each draw is uniform over the row's part of that block. -1 for
+// no request (r < 0) or degree 0. The words: owner member c * Kg + o's hop
+// words, each (lo, hi) pair folded with first_owner + o (JAX's fold_in(key,
+// axis_index); a process that holds one owner of a clique across processes
+// passes that owner's index, and its shard as the only one of pairs and
+// blocks); r0 from lane q (the request's index in the owner's [Kg, R_req]
+// matrix), draw f from lane q * fanout + f. Out: [Kc, Kg(owner), Kg * R_req,
+// fanout], the draws of a request together, as JAX returns them. Bound: the
+// launch, as K3 (a few hundred thousand draws); by bytes, the received rows,
+// their pairs, one int32 of the block a draw and the draws written. Design: a
+// thread a draw, so that the stores of a warp are one run of out; the
+// request's row, pair and r0 are recomputed by the fanout threads that share
+// them (L1 hits).
 //
 // clique_draw_unsort: lane i of member m takes draw f of its request,
 // back[row[m, i], f], into the fanout-major lane f * F + i, or fill's
@@ -158,7 +160,7 @@ __global__ void __launch_bounds__(kThreads) clique_draw_kernel(
     const Off* __restrict__ pairs, const int32_t* __restrict__ blocks,
     int64_t R, int64_t nblk, int32_t W, const int32_t* __restrict__ recv,
     int64_t Q, int32_t Kg, int32_t fanout, const uint32_t* __restrict__ keys,
-    int32_t* __restrict__ out, int64_t total) {
+    int32_t first_owner, int32_t* __restrict__ out, int64_t total) {
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
        t < total; t += stride) {
@@ -175,8 +177,9 @@ __global__ void __launch_bounds__(kThreads) clique_draw_kernel(
       const Off deg = pairs[2 * ((int64_t)o * R + rc) + 1];
       if (deg > 0) {
         const uint32_t* kw = keys + 4 * co;
-        const LtKey k0 = lt_fold_in(LtKey{kw[0], kw[1]}, (uint64_t)o);
-        const LtKey k1 = lt_fold_in(LtKey{kw[2], kw[3]}, (uint64_t)o);
+        const uint64_t og = (uint64_t)(first_owner + o);
+        const LtKey k0 = lt_fold_in(LtKey{kw[0], kw[1]}, og);
+        const LtKey k1 = lt_fold_in(LtKey{kw[2], kw[3]}, og);
         const uint32_t deg32 =
             deg < (Off)2147483647 ? (uint32_t)deg : 2147483647u;
         const int64_t at =
@@ -285,20 +288,23 @@ LT_EXPORT int lt_bucket_by_owner(const int32_t* slot, int64_t M, int64_t N,
 
 // K14, the owners' draws. pairs [Kg, R, 2] (Off), blocks [Kg, nblk, W]
 // int32, recv [Kc, Kg, Q] int32 (Q = Kg * R_req), keys [Kc * Kg, 4] uint32
-// (each member's hop words) -> out [Kc, Kg, Q, fanout] int32.
+// (each member's hop words), first_owner the clique index of owner 0 of
+// pairs -> out [Kc, Kg, Q, fanout] int32.
 template <typename Off>
 static int draw_launch(const Off* pairs, const int32_t* blocks, int64_t R,
                        int64_t nblk, int32_t W, const int32_t* recv,
                        int64_t Kc, int32_t Kg, int64_t Q, int32_t fanout,
-                       const uint32_t* keys, int32_t* out, void* stream) {
+                       const uint32_t* keys, int32_t first_owner,
+                       int32_t* out, void* stream) {
   const int64_t total = Kc * Kg * Q * fanout;
   if (total == 0) return (int)cudaSuccess;
   if (W <= 0 || R <= 0 || nblk <= 0 || fanout <= 0 || Kg < 1 ||
-      Q * fanout >= ((int64_t)1 << 32))
+      first_owner < 0 || Q * fanout >= ((int64_t)1 << 32))
     return (int)cudaErrorInvalidValue;
   clique_draw_kernel<Off><<<lt_grid(total), kThreads, 0,
                             (cudaStream_t)stream>>>(
-      pairs, blocks, R, nblk, W, recv, Q, Kg, fanout, keys, out, total);
+      pairs, blocks, R, nblk, W, recv, Q, Kg, fanout, keys, first_owner, out,
+      total);
   return (int)cudaGetLastError();
 }
 
@@ -306,20 +312,20 @@ LT_EXPORT int lt_clique_draw_i32(const int32_t* pairs, const int32_t* blocks,
                                  int64_t R, int64_t nblk, int32_t W,
                                  const int32_t* recv, int64_t Kc, int32_t Kg,
                                  int64_t Q, int32_t fanout,
-                                 const uint32_t* keys, int32_t* out,
-                                 void* stream) {
+                                 const uint32_t* keys, int32_t first_owner,
+                                 int32_t* out, void* stream) {
   return draw_launch<int32_t>(pairs, blocks, R, nblk, W, recv, Kc, Kg, Q,
-                              fanout, keys, out, stream);
+                              fanout, keys, first_owner, out, stream);
 }
 
 LT_EXPORT int lt_clique_draw_i64(const int64_t* pairs, const int32_t* blocks,
                                  int64_t R, int64_t nblk, int32_t W,
                                  const int32_t* recv, int64_t Kc, int32_t Kg,
                                  int64_t Q, int32_t fanout,
-                                 const uint32_t* keys, int32_t* out,
-                                 void* stream) {
+                                 const uint32_t* keys, int32_t first_owner,
+                                 int32_t* out, void* stream) {
   return draw_launch<int64_t>(pairs, blocks, R, nblk, W, recv, Kc, Kg, Q,
-                              fanout, keys, out, stream);
+                              fanout, keys, first_owner, out, stream);
 }
 
 // K14, the requesters' side. back [*, fanout] int32, row [M, F] int32,

@@ -12,10 +12,11 @@
 // Then it adds one to the counter. The step's keys are thus a pure
 // function of (base_key, ctr, tag), written where K3 and K5 read them,
 // with no host word in the launch: a captured step replays with new keys.
-// With n_dev members (the clique's members on one card) JAX's device fold
-// comes after the tag, step_d = fold_in(step, d), and out is
-// [n_dev, L, 4]; with n_dev 0 (one device) no device index is folded in,
-// as before, and out is [L, 4].
+// With members (the clique's members on one card) JAX's device fold comes
+// after the tag, step_d = fold_in(step, d), and out is [n, L, 4] for the n
+// members first .. first + n - 1 of the world (a rank of a run across
+// processes writes its own); with n 0 (one device) no device index is
+// folded in, as before, and out is [L, 4].
 //
 // fold_in is common.cuh::lt_fold_in (sampling/access.py::fold_in, bit for
 // bit). Every half is an explicit uint32 cast of the 64-bit value, never
@@ -32,7 +33,8 @@ namespace {
 
 __global__ void __launch_bounds__(32) step_keys_kernel(
     const int64_t* __restrict__ base_key, int64_t* __restrict__ ctr,
-    uint32_t tag, int32_t L, int32_t n_dev, uint32_t* __restrict__ out) {
+    uint32_t tag, int32_t L, int32_t n_dev, int64_t first,
+    uint32_t* __restrict__ out) {
   const uint64_t base = (uint64_t)base_key[0];
   const uint64_t c = (uint64_t)ctr[0];
   LtKey k{(uint32_t)(base & 0xFFFFFFFFull), (uint32_t)(base >> 32)};
@@ -40,7 +42,7 @@ __global__ void __launch_bounds__(32) step_keys_kernel(
   const int rows = (n_dev > 0 ? n_dev : 1) * L;
   for (int t = threadIdx.x; t < rows; t += blockDim.x) {
     const int d = t / L, h = t - d * L;
-    const LtKey sk = n_dev > 0 ? lt_fold_in(k, (uint64_t)d) : k;
+    const LtKey sk = n_dev > 0 ? lt_fold_in(k, (uint64_t)(first + d)) : k;
     const LtKey hk = lt_fold_in(sk, (uint64_t)h);
     const LtKey s0 = lt_fold_in(hk, 0), s1 = lt_fold_in(hk, 1);
     out[4 * t + 0] = s0.lo;
@@ -55,12 +57,13 @@ __global__ void __launch_bounds__(32) step_keys_kernel(
 }  // namespace
 
 // base_key and ctr: one int64 each on the card; out: [L, 4] uint32 when
-// n_dev is 0, else [n_dev, L, 4] with member d's device index folded in.
+// n_dev is 0, else [n_dev, L, 4], row d with the device index first + d
+// folded in.
 LT_EXPORT int lt_step_keys(const int64_t* base_key, int64_t* ctr,
                            uint32_t tag, int32_t L, int32_t n_dev,
-                           uint32_t* out, void* stream) {
-  if (L <= 0 || n_dev < 0) return (int)cudaErrorInvalidValue;
+                           int64_t first, uint32_t* out, void* stream) {
+  if (L <= 0 || n_dev < 0 || first < 0) return (int)cudaErrorInvalidValue;
   step_keys_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(base_key, ctr, tag, L,
-                                                      n_dev, out);
+                                                      n_dev, first, out);
   return (int)cudaGetLastError();
 }

@@ -182,14 +182,15 @@ def lib() -> ctypes.CDLL:
     so.lt_dedup_map_fused.argtypes = [p, i64, p, i64, p, i64, p, i32, p, p,
                                       p, i64, p, p]
     so.lt_dedup_map_grid.argtypes = [i64, i64, i64]
-    so.lt_step_keys.argtypes = [p, p, u32, i32, i32, p, p]
+    so.lt_step_keys.argtypes = [p, p, u32, i32, i32, i64, p, p]
     so.lt_hash_lookup.argtypes = [p, p, i64, i32, p, i64, p, p]
     so.lt_bucket_grid.argtypes = [i64, i64]
     so.lt_bucket_by_owner.argtypes = [p, i64, i64, i32, i32, p, p, p, p, p]
     so.lt_clique_gather.argtypes = [p, p, p, i64, p, p, i64, i64, i32, p, p,
                                     i64, i32, i64, p]
     for fn in (so.lt_clique_draw_i32, so.lt_clique_draw_i64):
-        fn.argtypes = [p, p, i64, i64, i32, p, i64, i32, i64, i32, p, p, p]
+        fn.argtypes = [p, p, i64, i64, i32, p, i64, i32, i64, i32, p, i32,
+                       p, p]
     so.lt_clique_draw_unsort.argtypes = [p, p, p, i64, i64, i32, p, p]
     so.lt_noop.argtypes = [p]
     so.lt_grid_sync_probe.argtypes = [i32, i32, p]

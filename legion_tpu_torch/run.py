@@ -1,19 +1,30 @@
 """Training launcher CLI (counterpart of ``legion_tpu/run.py``): dataset
 load, storage set-up (presampling, the cache plan and fill), the train
-schedule and checkpoints, in one process on one card.
+schedule and checkpoints, on one card a process.
 
-It takes the JAX launcher's flags, with the same names and defaults, so a
-command line carries over, and adds ``--device`` (default ``cuda``; the
-counterpart of ``JAX_PLATFORMS``). A card that is asked for and absent
-raises: nothing carries on on the CPU. More than one device and clique
-caches raise: the launcher's ``--devices`` will count processes, a member
-each (``ROADMAP.md`` A.4); the clique caches with their members in one
-process are ``Trainer``'s ``MeshConfig`` (A.3). Multi-host runs raise
-too (A.6).
+It takes the JAX launcher's flags, with the same names, defaults and
+meanings, so a command line carries over, and adds ``--device`` (default
+``cuda``; the counterpart of ``JAX_PLATFORMS``). A card that is asked for
+and absent raises: nothing carries on on the CPU.
+
+- ``--devices N``: the members (JAX's devices) this process drives, a
+  leading axis on its card; 0 means 1.
+- ``--clique-size K``: the members of a clique that pool their caches; 0
+  means ``--devices``, as in JAX.
+- ``--coordinator HOST:PORT --num-processes W --process-id R``: one
+  command a process, as JAX starts them; each joins ``torch.distributed``
+  (NCCL for a card, ``cuda:{R % cards}`` for ``--device cuda``; gloo for
+  ``--device cpu``), and the W * N members train as one data-parallel run.
+  A clique lies inside a process, or across processes of one member each
+  (``parallel/mesh.py::layout``); any other layout raises.
 
   python -m legion_tpu_torch.run --dataset-name custom --dataset-path DIR \
       --features host --cache-memory 200000000 --train-batch-size 8000 \
       --epoch 2 --checkpoint-dir CKPT [--resume]
+
+  # two cards, one member each, one clique across them: on each card r
+  python -m legion_tpu_torch.run ... --devices 1 --clique-size 2 \
+      --coordinator 127.0.0.1:29500 --num-processes 2 --process-id r
 """
 
 from __future__ import annotations
@@ -21,6 +32,9 @@ from __future__ import annotations
 import argparse
 
 import torch
+
+from legion_tpu_torch.parallel import mesh as pmesh
+from legion_tpu_torch.parallel import multihost
 
 
 def build_config(args):
@@ -46,12 +60,10 @@ def build_config(args):
         if args.write_meta_config:
             meta.to_meta_config()  # reference-compatible artifact
 
-    if args.devices > 1 or args.clique_size > 1:
-        raise NotImplementedError(
-            f"--devices {args.devices} --clique-size {args.clique_size}: the "
-            "launcher trains one member on one card; a process a member is "
-            "ROADMAP.md A.4 (the clique caches with their members in one "
-            "process are Trainer's MeshConfig, A.3)")
+    n_local = args.devices or 1
+    clique = args.clique_size or n_local
+    W = args.num_processes if args.coordinator else 1
+    pmesh.layout(W, n_local, clique)
     cache_enabled = args.cache_memory > 0 and args.features == "host"
     return LegionConfig(
         dataset=meta,
@@ -71,7 +83,7 @@ def build_config(args):
         train=TrainConfig(model=args.model, hidden_dim=args.hidden,
                           dropout=args.dropout, lr=args.lr,
                           epochs=args.epoch),
-        mesh=MeshConfig.for_devices(1),
+        mesh=MeshConfig.for_devices(W * n_local, clique_size=clique),
     )
 
 
@@ -94,15 +106,14 @@ def parse_args(argv=None):
     ap.add_argument("--hidden", type=int, default=256)
     ap.add_argument("--dropout", type=float, default=0.5)
     ap.add_argument("--lr", type=float, default=3e-3)
-    # the JAX launcher's multi-device flags: only one device here
+    # the JAX launcher's multi-device flags
     ap.add_argument("--devices", type=int, default=0,
-                    help="0 = one card (more raise: a process a member is "
-                         "ROADMAP.md A.4)")
+                    help="members this process drives on its card; 0 = 1")
     ap.add_argument("--clique-size", type=int, default=0,
-                    help="cache group size Kg (more than 1 raises: ROADMAP.md "
-                         "A.4; in one process, Trainer's MeshConfig, A.3)")
+                    help="cache group size Kg; 0 = --devices")
+    # one command a process (torch.distributed; NCCL on cards)
     ap.add_argument("--coordinator", default="",
-                    help="multi-host runs raise (ROADMAP.md A.6)")
+                    help="ip:port of process 0 for torch.distributed")
     ap.add_argument("--num-processes", type=int, default=0)
     ap.add_argument("--process-id", type=int, default=-1)
     ap.add_argument("--features", choices=["hbm", "host"], default="hbm")
@@ -137,16 +148,23 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.coordinator:
-        raise NotImplementedError(
-            "--coordinator: multi-host runs are not ported (ROADMAP.md "
-            "A.6)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA card is "
                            "visible to torch")
 
     cfg = build_config(args)
+    mesh = None
+    if args.coordinator:
+        W, r = args.num_processes, args.process_id
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", r % torch.cuda.device_count())
+        multihost.initialize(args.coordinator, W, r, device)
+        mesh = multihost.make_multihost_mesh(args.clique_size or None,
+                                             args.devices or 1)
+        print(f"process {r}/{W}: members {mesh.first_member} .. "
+              f"{mesh.first_member + mesh.n_local - 1} on {device} | mesh "
+              f"{mesh.shape}")
     if args.dataset_name == "synthetic":
         import dataclasses
 
@@ -161,30 +179,31 @@ def main(argv=None):
         ds = LegionDataset.load(cfg.dataset)
 
     from legion_tpu_torch.train import Trainer
-    trainer = Trainer(ds, cfg, device)
-    print(f"device: {device} | schedule: train "
+    trainer = Trainer(ds, cfg, device, mesh=mesh)
+    say = print if trainer.is_rank0 else (lambda *a, **k: None)
+    say(f"device: {device} | schedule: train "
           f"{trainer.schedule.train_step}/epoch, valid "
           f"{trainer.schedule.valid_step}, test {trainer.schedule.test_step}")
-    print("set-up: " + ", ".join(
+    say("set-up: " + ", ".join(
         f"{k} {v}" if k.endswith("_bytes") else f"{k} {v:.3f} s"
         for k, v in trainer.setup_s.items()))
     if trainer.compact_caps:
-        print(f"measured buffer caps: {trainer.compact_caps}")
+        say(f"measured buffer caps: {trainer.compact_caps}")
     if trainer.cache_plan:
         p = trainer.cache_plan
-        print(f"cache plan: alpha={p.alpha:.2f} feat_rows="
-              f"{p.feature_capacity} topo_rows={p.topo_capacity}")
-    from legion_tpu_torch.utils import restore_checkpoint, save_checkpoint
+        say(f"cache plan: alpha={p.alpha:.2f} feat_rows="
+            f"{p.feature_capacity} topo_rows={p.topo_capacity}")
+    from legion_tpu_torch.utils import restore_checkpoint
     state = None
     if args.resume:
         state = restore_checkpoint(args.checkpoint_dir, trainer)
-        print(f"resumed from {args.checkpoint_dir} at train_ctr "
-              f"{state['train_ctr']}")
+        say(f"resumed from {args.checkpoint_dir} at train_ctr "
+            f"{state['train_ctr']}")
     state, stats = trainer.fit(state, checkpoint_dir=args.checkpoint_dir,
                                checkpoint_every=args.checkpoint_every)
     if args.checkpoint_dir:
-        save_checkpoint(args.checkpoint_dir, state, state["train_ctr"])
-        print(f"checkpoint saved to {args.checkpoint_dir}")
+        trainer.save(args.checkpoint_dir, state)
+        say(f"checkpoint saved to {args.checkpoint_dir}")
     return trainer, state, stats
 
 

@@ -126,20 +126,25 @@ def _key_arg(name: str, key, device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def step_keys_plain(base_key: torch.Tensor, ctr: torch.Tensor, tag: int,
-                    num_hops: int, n_dev: int = 1) -> torch.Tensor:
+                    num_hops: int, n_dev: int = 1, first: int = 0,
+                    n: Optional[int] = None) -> torch.Tensor:
     """Plain K10 in int64 torch ops: with step = fold_in(fold_in(base_key,
     ctr), tag), row k of the [num_hops, 4] int32 result is
     ``draw_keys(fold_in(step, k))`` as uint32 bits; then ctr += 1 in
     place. Equal bit for bit to the host chain ``hop_keys(fold_in(fold_in(
-    base, c), tag), num_hops)``. With n_dev > 1 members the result is
-    [n_dev, num_hops, 4], member d's from fold_in(step, d) (JAX's
-    ``_device_key`` folds the device index after the tag); with one, no
-    device index is folded in."""
+    base, c), tag), num_hops)``. In a world of n_dev > 1 members the
+    result is [n, num_hops, 4] for the n members first .. first + n - 1 (all
+    n_dev by default), member d's from fold_in(step, d) (JAX's
+    ``_device_key`` folds the device index after the tag): a rank that
+    holds one member of many folds its own index. With one member in the
+    world no device index is folded in."""
+    n = _check_members(n_dev, first, n)
     b, c = base_key.reshape(()), ctr.reshape(())
     lo, hi = fold_in_words(b & M32, (b >> 32) & M32, c)
     lo, hi = fold_in_words(lo, hi, tag)
     if n_dev > 1:
-        dev = torch.arange(n_dev, dtype=torch.int64, device=ctr.device)
+        dev = torch.arange(first, first + n, dtype=torch.int64,
+                           device=ctr.device)
         lo, hi = fold_in_words(lo, hi, dev[:, None])
     hop = torch.arange(num_hops, dtype=torch.int64, device=ctr.device)
     lo, hi = fold_in_words(lo, hi, hop)
@@ -148,27 +153,39 @@ def step_keys_plain(base_key: torch.Tensor, ctr: torch.Tensor, tag: int,
     return _as_i32(torch.stack(words, dim=-1))
 
 
+def _check_members(n_dev: int, first: int, n: Optional[int]) -> int:
+    """The members a K10 launch writes for (n, by default n_dev - first),
+    or a ValueError unless 0 <= first < first + n <= n_dev."""
+    n = n_dev - first if n is None else n
+    if not (n_dev >= 1 and first >= 0 and n >= 1 and first + n <= n_dev):
+        raise ValueError(f"step_keys: members {first} .. {first + n - 1} of "
+                         f"{n_dev}")
+    return n
+
+
 def step_keys(base_key: torch.Tensor, ctr: torch.Tensor, tag: int,
-              num_hops: int, n_dev: int = 1) -> torch.Tensor:
+              num_hops: int, n_dev: int = 1, first: int = 0,
+              n: Optional[int] = None) -> torch.Tensor:
     """K10, as ``step_keys_plain``: base_key and ctr are int64 scalars on
-    one device; one launch writes the [num_hops, 4] key words ([n_dev,
-    num_hops, 4] for n_dev > 1 members) and adds one to ctr, with no host
-    word in the launch (a captured step replays with each step's keys)."""
+    one device; one launch writes the [num_hops, 4] key words ([n,
+    num_hops, 4] for members first .. first + n - 1 of n_dev > 1) and adds
+    one to ctr, with no host word in the launch (a captured step replays
+    with each step's keys)."""
     if base_key.dtype != torch.int64 or ctr.dtype != torch.int64 \
             or base_key.numel() != 1 or ctr.numel() != 1 \
             or base_key.device != ctr.device or num_hops <= 0 \
-            or tag not in (0, 1) or n_dev < 1:
+            or tag not in (0, 1):
         raise ValueError(f"step_keys: base_key {base_key.dtype} "
                          f"{tuple(base_key.shape)}, ctr {ctr.dtype} "
-                         f"{tuple(ctr.shape)}, tag {tag}, hops {num_hops}, "
-                         f"members {n_dev}")
+                         f"{tuple(ctr.shape)}, tag {tag}, hops {num_hops}")
+    n = _check_members(n_dev, first, n)
     dev = ctr.device
     if dev.type == "cpu":
-        return step_keys_plain(base_key, ctr, tag, num_hops, n_dev)
-    shape = (num_hops, 4) if n_dev == 1 else (n_dev, num_hops, 4)
+        return step_keys_plain(base_key, ctr, tag, num_hops, n_dev, first, n)
+    shape = (num_hops, 4) if n_dev == 1 else (n, num_hops, 4)
     out = torch.empty(shape, dtype=torch.int32, device=dev)
     rc = kernels.lib().lt_step_keys(base_key.data_ptr(), ctr.data_ptr(), tag,
-                                    num_hops, 0 if n_dev == 1 else n_dev,
+                                    num_hops, 0 if n_dev == 1 else n, first,
                                     out.data_ptr(), kernels.stream_handle())
     kernels.check("step_keys", rc)
     return out

@@ -66,6 +66,25 @@ step follows; counters and eval's correct and total are sums
 (``lax.psum``). ``fused_steps`` > 1 and ``interbatch`` take one member
 (ROADMAP A.7).
 
+Across processes (``mesh``, ``parallel/mesh.py``; one process a card, a
+rank of ``torch.distributed``): the n_dev members of JAX's mesh are laid
+over the W ranks, rank r holding members r * n_local .. r * n_local +
+n_local - 1. Every rank builds every member's seed sets, so the schedule
+is the same everywhere, and keeps its own members' bank rows; every rank
+presamples global member 0's bank and checks with one all-reduce that
+the caps and the plan agree. K10 folds each member's global index, and
+dropout too. A step's loss is the mean over the rank's members; after the
+backward one flat all-reduce of the gradients, divided by W, gives
+``lax.pmean``, so every rank runs the same Adam on the same bits. The loss
+is all-reduced the same way, the counters summed (one int32 vector a
+step), and eval's correct and total summed once at the end of
+``run_eval``. With cliques across ranks (layout (b)) a rank holds its own
+shard of each clique cache, and the exchange is an all-to-all in the
+clique's group. ``fit`` prints and writes checkpoints on rank 0, with a
+barrier after each write. A mesh with a world group makes every
+collective call even at W = 1; ``fused_steps`` > 1 and ``interbatch``
+refuse it.
+
 Host tables are writable RAM: a table the kernels read in place that is a
 read-only array or a file mapping (the memmaps of ``LegionDataset.load``)
 is copied into RAM once (``in_ram``) before it is registered. Pinning locks
@@ -86,6 +105,7 @@ from __future__ import annotations
 import contextlib
 import mmap
 import time
+import zlib
 from dataclasses import dataclass, replace
 from typing import Dict, List, Optional, Tuple
 
@@ -108,6 +128,7 @@ from legion_tpu_torch.models.common import make_model
 from legion_tpu_torch.models.lp_sage import check_thirds
 from legion_tpu_torch.ops import kernels
 from legion_tpu_torch.ops.host_memory import HostTable
+from legion_tpu_torch.parallel.mesh import Mesh, all_reduce, dp_size
 from legion_tpu_torch.pipeline.schedule import Mode, Schedule
 from legion_tpu_torch.sampling.access import (CachedTopoAccess,
                                               DeviceCSRAccess,
@@ -180,19 +201,35 @@ def _build_bank(sets: List[np.ndarray], steps: int, static_bs: int,
 
 class Trainer:
     def __init__(self, dataset, config: LegionConfig,
-                 device: torch.device):
+                 device: torch.device, mesh: Optional[Mesh] = None):
         self.config = config
         self.dataset = dataset
         self.device = torch.device(device)
         self._host_tables: List[HostTable] = []
-        # the members of Kc cliques of Kg, a leading axis on this device
+        # the members of Kc cliques of Kg; this process holds members
+        # first .. first + n_local - 1 as a leading axis on its device
+        self.mesh = mesh
         self.n_dev = config.mesh.num_devices
         self.Kc, self.Kg = config.mesh.num_cliques, config.mesh.clique_size
-        if self.n_dev > 1 and (config.train.fused_steps > 1
-                               or config.train.interbatch):
+        self.n_local, self.first = self.n_dev, 0
+        self._world = self._clique_group = None
+        if mesh is not None:
+            if dp_size(mesh) != self.n_dev or mesh.clique_size != self.Kg:
+                raise ValueError(
+                    f"mesh {mesh.shape} for a config of {self.Kc} cliques of "
+                    f"{self.Kg}")
+            if mesh.world > 1 and mesh.world_group is None:
+                raise ValueError(f"a mesh of {mesh.world} processes needs "
+                                 "torch.distributed (multihost.initialize)")
+            self.n_local, self.first = mesh.n_local, mesh.first_member
+            self._world, self._clique_group = (mesh.world_group,
+                                               mesh.clique_group)
+        if (self.n_dev > 1 or self._world is not None) and (
+                config.train.fused_steps > 1 or config.train.interbatch):
             raise NotImplementedError(
-                "fused_steps > 1 and interbatch take one member; with "
-                f"{self.n_dev} members they are ROADMAP.md A.7")
+                "fused_steps > 1 and interbatch take one member in one "
+                f"process; with {self.n_dev} members or a process group they "
+                "are ROADMAP.md A.7")
         if config.cache.enabled and config.cache.host_transfer not in (
                 "auto", "callback"):
             # "auto" and "callback" both mean the zero-copy kernels here
@@ -243,10 +280,13 @@ class Trainer:
 
         # device seed banks, and label banks gathered once on the host:
         # device label state is O(seeds), not O(V). One member: [steps *
-        # batch]; n members: [n, steps * batch], row d member d's
+        # batch]; n members: [n_local, steps * batch], row i member
+        # first + i's
+        local = slice(self.first, self.first + self.n_local)
+
         def _banks(sets, steps, static_bs, batch_sizes):
-            bank = _build_bank([np.asarray(s) for s in sets], steps,
-                               static_bs, batch_sizes)
+            bank = _build_bank([np.asarray(s) for s in sets[local]], steps,
+                               static_bs, batch_sizes[local])
             if n_dev == 1:
                 bank = bank[0]
             y = np.where(bank >= 0, labels_np[np.clip(bank, 0, V - 1)], 0)
@@ -268,7 +308,8 @@ class Trainer:
                             node_caps=None, auto_compact=False)
         self.sampler_e = NeighborSampler(eval_scfg, V)
 
-        self._setup_storage()
+        self._setup_storage(train_sets[0])
+        self._check_ranks_agree()
 
         if self.compact_caps is not None:
             # the measured train caps bound an eval batch's growth too
@@ -286,6 +327,29 @@ class Trainer:
         self.test_acc: Optional[float] = None
 
     # ------------------------------------------------------------------
+    def _check_ranks_agree(self) -> None:
+        """With a process group: one all-reduce (min of the digest and of
+        its negation) shows whether every rank measured the same caps and
+        planned the same caches; a ValueError if not."""
+        if self._world is None:
+            return
+        h = zlib.crc32(repr(self.compact_caps).encode())
+        p = self.cache_plan
+        if p is not None:
+            h = zlib.crc32(repr((p.feature_capacity, p.topo_capacity,
+                                 p.alpha)).encode(), h)
+            for order, cap in ((p.feature_order, p.feature_capacity),
+                               (p.topo_order, p.topo_capacity)):
+                h = zlib.crc32(np.ascontiguousarray(
+                    np.asarray(order)[:cap], np.int64).tobytes(), h)
+        d = all_reduce(torch.tensor([h, -h], dtype=torch.int64,
+                                    device=self.device), self._world,
+                       torch.distributed.ReduceOp.MIN).tolist()
+        if d[0] != -d[1]:
+            raise ValueError(
+                f"rank {self.mesh.rank}: the ranks measured other caps or "
+                f"planned other caches (digests {d[0]} .. {-d[1]})")
+
     def _in_ram(self, array: np.ndarray, dtype) -> np.ndarray:
         """``in_ram``, with the copy's seconds and bytes added to
         ``setup_s["ram_copy"]`` and ``setup_s["ram_copy_bytes"]``."""
@@ -307,7 +371,7 @@ class Trainer:
         self._host_tables.append(t)
         return t
 
-    def _setup_storage(self) -> None:
+    def _setup_storage(self, train_set0: np.ndarray) -> None:
         """Residency and the PreSc pipeline (``legion_tpu/train.py::
         Trainer._setup_storage``, its single-device, non-staged branch):
         presample hotness and per-hop maxima -> measured caps (max unique
@@ -318,7 +382,8 @@ class Trainer:
         device (bf16, padded to 128 columns). With it on, the graph and
         features of a host dataset stay in host RAM; the device holds the
         planned caches and their [V] maps, and misses are read in place
-        by K4 (features) and K5 (topology)."""
+        by K4 (features) and K5 (topology). ``train_set0`` holds global
+        member 0's train seeds, whose bank every rank presamples."""
         dataset, config = self.dataset, self.config
         meta = dataset.meta
         V = meta.num_nodes
@@ -376,8 +441,16 @@ class Trainer:
             t0 = time.perf_counter()
             steps = cache_cfg.presample_steps or self.schedule.train_step
             steps = max(1, min(steps, self.schedule.train_step))
-            # member 0's bank, as JAX presamples (legion_tpu/train.py:281)
-            bank0 = self.train_bank if self.n_dev == 1 else self.train_bank[0]
+            # global member 0's bank on every rank, as JAX presamples
+            # (legion_tpu/train.py:281); rank 0 alone holds it already
+            if self.first == 0:
+                bank0 = self.train_bank if self.n_dev == 1 \
+                    else self.train_bank[0]
+            else:
+                sch = self.schedule
+                bank0 = torch.from_numpy(_build_bank(
+                    [np.asarray(train_set0)], sch.train_step,
+                    scfg.batch_size, [sch.train_batch_size])[0]).to(dev)
             na, ea, mx = presample_hotness(
                 self.sampler_t, base_access, bank0, steps,
                 config.train.seed + _PRESAMPLE_OFFSET)
@@ -467,8 +540,17 @@ class Trainer:
         CSR); otherwise, with the topology on the host, every member reads
         one hot sub-CSR (``CachedTopoAccess``). The features go to the
         clique cache, a per-member cache at Kg = 1. The maps are direct
-        [V] tables or hash maps (``CacheConfig.resolve_map_impl``)."""
-        dev, Kc, Kg = self.device, self.Kc, self.Kg
+        [V] tables or hash maps (``CacheConfig.resolve_map_impl``). This
+        process's cliques are those of its members; with a clique group
+        it holds one member, and one shard of each clique cache."""
+        dev, Kg = self.device, self.Kg
+        group = self._clique_group
+        # (local cliques, the shards held here, their first's index)
+        if group is None:
+            Kc, owners, o0 = self.n_local // Kg, None, 0
+        else:
+            Kc, o0 = 1, self.first % Kg
+            owners = [o0]
         V = self.dataset.meta.num_nodes
         map_impl = self.config.cache.resolve_map_impl(V)
         if topo_host and Kg > 1 and plan.topo_capacity >= Kg:
@@ -476,9 +558,10 @@ class Trainer:
             row_map, pairs, blocks, _ = build_clique_topo(
                 np.asarray(plan.topo_order), plan.topo_capacity,
                 host_indptr.array, host_indices.array, Kg, window=W,
-                map_impl=map_impl, device=dev)
+                map_impl=map_impl, device=dev, owners=owners)
             self.graph_access = CliqueTopoCache(
-                row_map, pairs, blocks, base_access, Kg, Kc)
+                row_map, pairs, blocks, base_access, Kg, Kc, group=group,
+                first_owner=o0)
         elif topo_host and plan.topo_capacity > 0:
             cache_t = UnifiedCache.build_from_host(
                 plan, None, host_indptr.array, host_indices.array, V,
@@ -492,10 +575,10 @@ class Trainer:
             slot_map, rows, _ = build_clique_cache(
                 np.asarray(plan.feature_order), plan.feature_capacity,
                 host_feats, Kg, feat_dtype=feat_dtype, map_impl=map_impl,
-                device=dev)
+                device=dev, owners=owners)
             self.feature_source = CliqueFeatureCache(
                 slot_map, rows, self._host_table(host_feats, np.float32),
-                Kg, Kc)
+                Kg, Kc, group=group, first_owner=o0)
         else:
             self.feature_source = DeviceFeatureSource(
                 torch.from_numpy(host_feats).to(dev))
@@ -556,12 +639,12 @@ class Trainer:
         return self.prime_carry(state)
 
     def _init_pos_map(self) -> torch.Tensor:
-        """The sampler state: one member's, or [n_dev, S], a row a member
-        (``legion_tpu/train.py:498-500``)."""
+        """The sampler state: one member's, or [n_local, S], a row a member
+        here (``legion_tpu/train.py:498-500``)."""
         s = self.sampler_t
         if self.n_dev == 1:
             return s.init_state(self.device)
-        return torch.full((self.n_dev, s.state_size), INT32_MAX,
+        return torch.full((self.n_local, s.state_size), INT32_MAX,
                           dtype=torch.int32, device=self.device)
 
     def prime_carry(self, state: Dict) -> Dict:
@@ -674,7 +757,7 @@ class Trainer:
                 seeds: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         """Forward, backward and one Adam step with the dropout generator
         as seeded (no host work: the captured part of a step)."""
-        model, opt = state["model"], state["opt"]
+        model = state["model"]
         model.train()
         scfg = self.sampler_t.config
         if self.is_lp:
@@ -682,10 +765,29 @@ class Trainer:
         else:
             logits = model(x, batch, scfg, self._drop_gen)
             loss = _masked_ce(logits, y, seeds >= 0)
+        return self._backward_step(state, loss)
+
+    def _backward_step(self, state: Dict, loss: torch.Tensor
+                       ) -> torch.Tensor:
+        """The backward of ``loss`` and one Adam step; with a process group
+        the gradients and the returned loss are their means over the
+        ranks (``lax.pmean``): one flat all-reduce of the gradients, and
+        one of the loss."""
+        opt = state["opt"]
         opt.zero_grad(set_to_none=True)
         loss.backward()
+        loss = loss.detach()
+        if self._world is not None:
+            W = self.mesh.world
+            grads = [p.grad for p in state["model"].parameters()
+                     if p.grad is not None]
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            all_reduce(flat, self._world).div_(W)
+            for g, v in zip(grads, flat.split([g.numel() for g in grads])):
+                g.copy_(v.view_as(g))
+            loss = all_reduce(loss.clone(), self._world).div_(W)
         opt.step()
-        return loss.detach()
+        return loss
 
     def _step_body(self, state: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
         """One train step on device state alone (the unit a CUDA graph
@@ -839,35 +941,36 @@ class Trainer:
                 torch.stack([o[0] for o in outs]).mean()
             counts = outs[0][1] if K == 1 else \
                 torch.stack([o[1] for o in outs]).sum(0, dtype=torch.int32)
+        if self._world is not None:
+            counts = all_reduce(counts, self._world)
         (self.last_edges, self.last_slots, self.last_feat_hits,
          self.last_topo_hits, self.last_topo_total) = counts.unbind()
         return state, loss
 
-    # -- the members of a clique (n_dev > 1), in one process ----------------
+    # -- the members here (n_dev > 1) --------------------------------------
 
     def _member_inputs(self, state: Dict, sampler: NeighborSampler,
                        bank: torch.Tensor, ybank: torch.Tensor, n: int,
                        ctr: str, tag: int):
-        """``_batch_inputs`` for every member: seeds and labels [n_dev,
-        batch] from each member's bank row at lid = ctr % n, and K10's
-        [n_dev, L, 4] words, member d's with its index folded in after the
-        tag (JAX's ``_device_key``)."""
+        """``_batch_inputs`` for every member here: seeds and labels
+        [n_local, batch] from each member's bank row at lid = ctr % n, and
+        K10's [n_local, L, 4] words, member d's with its global index
+        folded in after the tag (JAX's ``_device_key``)."""
         bs = sampler.config.batch_size
+        m = self.n_local
         ctr_d = state[ctr + "_d"]
         lid = (ctr_d % n).reshape(1)
-        seeds = bank.view(self.n_dev, n, bs).index_select(1, lid) \
-            .reshape(self.n_dev, bs)
-        y = ybank.view(self.n_dev, n, bs).index_select(1, lid) \
-            .reshape(self.n_dev, bs)
+        seeds = bank.view(m, n, bs).index_select(1, lid).reshape(m, bs)
+        y = ybank.view(m, n, bs).index_select(1, lid).reshape(m, bs)
         keys = step_keys(state["base_key"], ctr_d, tag,
-                         sampler.config.num_hops, self.n_dev)
+                         sampler.config.num_hops, self.n_dev, self.first, m)
         return seeds, y, keys
 
     def _member_sample_fetch(self, state: Dict, sampler: NeighborSampler,
                              seeds: torch.Tensor, keys: torch.Tensor):
         """Every member's batch, sampled in lockstep (the clique topology
         answers all members' frontiers of a hop at once), then one fetch
-        of all members' ids. Returns (batches, x [n_dev, max_ids, F], the
+        of all members' ids. Returns (batches, x [n_local, max_ids, F], the
         members' feature hits summed)."""
         batches = sampler.sample_members(self.graph_access, seeds, keys,
                                          pos_map=state["pos_map"])
@@ -877,15 +980,16 @@ class Trainer:
             x, hits = fs.fetch(ids)
             return batches, x, hits.sum(dtype=torch.int32)
         x, hits = fs.fetch(ids.reshape(-1))
-        return batches, x.view(self.n_dev, ids.shape[1], -1), hits
+        return batches, x.view(self.n_local, ids.shape[1], -1), hits
 
     def _member_step(self, state: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
-        """One train step of all members (``legion_tpu/train.py:577-640``
-        in ``shard_map``): each member's batch and forward, its dropout
-        from fold_in(fold_in(step key, d), 7); the loss is the members'
-        mean (``lax.pmean``), so one backward gives the mean of their
-        gradients, and one Adam step follows. The counters are sums
-        (``lax.psum``)."""
+        """One train step of all members here (``legion_tpu/train.py:
+        577-640`` in ``shard_map``): each member's batch and forward, its
+        dropout from fold_in(fold_in(step key, d), 7) with its global d;
+        the loss is the members' mean (``lax.pmean``), so one backward
+        gives the mean of their gradients (and of the ranks', by
+        ``_backward_step``), and one Adam step follows. The counters are
+        sums (``lax.psum``)."""
         sampler = self.sampler_t
         key = fold_in(fold_in(state["base_key_h"], state["train_ctr"]),
                       _TRAIN_TAG)
@@ -894,12 +998,12 @@ class Trainer:
             self.schedule.train_step, "train_ctr", _TRAIN_TAG)
         batches, x, feat_hits = self._member_sample_fetch(state, sampler,
                                                           seeds, keys)
-        model, opt = state["model"], state["opt"]
+        model = state["model"]
         model.train()
         scfg = sampler.config
         losses = []
         for d, batch in enumerate(batches):
-            self._seed_dropout(fold_in(key, d))
+            self._seed_dropout(fold_in(key, self.first + d))
             valid = seeds[d] >= 0
             if self.is_lp:
                 losses.append(model.loss(x[d], batch, scfg, valid,
@@ -907,12 +1011,9 @@ class Trainer:
             else:
                 losses.append(_masked_ce(
                     model(x[d], batch, scfg, self._drop_gen), y[d], valid))
-        loss = torch.stack(losses).mean()
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        opt.step()
+        loss = self._backward_step(state, torch.stack(losses).mean())
         state["train_ctr"] += 1
-        return loss.detach(), self._counts(batches, feat_hits)
+        return loss, self._counts(batches, feat_hits)
 
     def _eval_banks(self, mode: Mode):
         """(seed bank, label bank, steps, counter name) of an eval mode."""
@@ -1030,10 +1131,28 @@ class Trainer:
             else self.schedule.test_step
         for _ in range(n):
             self._eval_step(state, mode)
+        if self._world is not None:
+            both = all_reduce(torch.stack([state["correct"],
+                                           state["total"]]), self._world)
+            state["correct"], state["total"] = both.unbind()
         acc = float(state["correct"]) / max(float(state["total"]), 1.0)
         return state, acc
 
     # ------------------------------------------------------------------
+    @property
+    def is_rank0(self) -> bool:
+        """Whether this process prints and writes for the run."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def save(self, checkpoint_dir: str, state: Dict) -> None:
+        """``save_checkpoint`` at ``train_ctr``, by rank 0 alone; with a
+        process group every rank then waits at a barrier (an all-reduce),
+        so that no rank restores before the file is there."""
+        if self.is_rank0:
+            save_checkpoint(checkpoint_dir, state, state["train_ctr"])
+        if self._world is not None:
+            all_reduce(torch.zeros(1, device=self.device), self._world)
+
     def fit(self, state: Optional[Dict] = None, verbose: bool = True,
             checkpoint_dir: str = "", checkpoint_every: int = 0
             ) -> Tuple[Dict, List[EpochStats]]:
@@ -1042,7 +1161,9 @@ class Trainer:
         restored state runs as many more). ``checkpoint_every`` > 0 saves
         to ``checkpoint_dir`` after every N-th epoch, at ``train_ctr``.
         Under ``interbatch`` a call is one step (``fused_steps`` is 1), and
-        the last step leaves a carry that is never trained, as in JAX."""
+        the last step leaves a carry that is never trained, as in JAX.
+        Across processes only rank 0 prints and writes (``save``)."""
+        verbose = verbose and self.is_rank0
         if state is None:
             state = self.init_state()
         sch = self.schedule
@@ -1089,7 +1210,7 @@ class Trainer:
                       f"{sm.nodes_per_s / 1e6:.1f}M nodes/s{hit_info}")
             if checkpoint_dir and checkpoint_every > 0 and \
                     (epoch + 1) % checkpoint_every == 0:
-                save_checkpoint(checkpoint_dir, state, state["train_ctr"])
+                self.save(checkpoint_dir, state)
         state, self.test_acc = self.run_eval(state, Mode.TEST)
         if verbose:
             print(f"Test acc {self.test_acc:.4f}")

@@ -1,6 +1,6 @@
 """Converters from the JAX package's objects to the port's, with explicit
 dtypes. They take numpy arrays, or anything ``np.asarray`` accepts (JAX
-arrays included), and never import jax. Integer arrays may arrive as
+arrays included), and never import JAX. Integer arrays may arrive as
 int64 (the JAX package turns on x64); bf16 arrays arrive as
 ``ml_dtypes.bfloat16`` and are widened to f32 on the host, which is exact.
 """

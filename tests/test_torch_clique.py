@@ -30,7 +30,9 @@ from legion_tpu_torch.cache.collective import (CliqueFeatureCache,
                                                CliqueTopoCache,
                                                bucket_by_owner,
                                                build_clique_cache,
-                                               build_clique_topo, exchange,
+                                               build_clique_topo,
+                                               clique_draw,
+                                               clique_draw_plain, exchange,
                                                request_rows)
 from legion_tpu_torch.cache.hashmap import HashMap32
 from legion_tpu_torch.config import (CacheConfig, LegionConfig, MeshConfig,
@@ -424,6 +426,55 @@ def test_clique_draws_are_neighbors():
     cached = np.isin(frontier, order[:cap])
     assert (served == cached).all()
     assert not (nbr[0] == nbr[1]).all()
+
+
+def test_builds_for_one_owner_are_its_slice(feats):
+    """A process of a clique across processes builds its own shard alone
+    (``owners=[o]``): the same rows, pairs and blocks as shard o of the
+    whole build, and the same maps."""
+    feats, order = feats
+    sm, rows, _ = build_clique_cache(order, 400, feats, Kg)
+    indptr, indices = _graph(V=300, seed=1)
+    t_order = np.argsort(-np.diff(indptr))
+    rm, pairs, blocks, _ = build_clique_topo(t_order, 120, indptr, indices,
+                                             Kg, window=8)
+    for o in range(Kg):
+        sm1, rows1, _ = build_clique_cache(order, 400, feats, Kg, owners=[o])
+        assert torch.equal(sm1, sm) and torch.equal(rows1, rows[o:o + 1])
+        rm1, p1, b1, _ = build_clique_topo(t_order, 120, indptr, indices, Kg,
+                                           window=8, owners=[o])
+        assert torch.equal(rm1, rm) and torch.equal(p1, pairs[o:o + 1])
+        assert torch.equal(b1, blocks[o:o + 1])
+
+
+@pytest.mark.parametrize("Kc", [1, 2])
+def test_one_owner_draws_its_slice_of_all_owners(Kc):
+    """K14 for one owner (its own shard, its clique index o0 folded into
+    the words), as a process of a clique across processes draws: equal to
+    that owner's slice of the all-owners draw, for every o0, plain and
+    wrapper; at offset 0 with all owners, today's draws."""
+    (indptr, indices, order, cap, fanout, jm, jp, jb, pcache, jcache,
+     frontier) = _topo_setup()
+    rng = np.random.default_rng(21)
+    pairs, blocks = pcache.member_pairs, pcache.member_indices2d
+    R = pairs.shape[1]
+    Q = 3 * Kg
+    recv = torch.from_numpy(rng.integers(-1, R, (Kc, Kg, Q))
+                            .astype(np.int32))
+    keys = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (Kc * Kg, 4))
+                            .astype(np.int32))
+    full = clique_draw_plain(pairs, blocks, recv, fanout, keys)
+    assert torch.equal(full, clique_draw(pairs, blocks, recv, fanout, keys,
+                                         0))
+    for o0 in range(Kg):
+        kw = keys.view(Kc, Kg, 4)[:, o0].contiguous()
+        args = (pairs[o0:o0 + 1], blocks[o0:o0 + 1],
+                recv[:, o0:o0 + 1].contiguous(), fanout, kw)
+        one = clique_draw_plain(*args, first_owner=o0)
+        assert torch.equal(one, full[:, o0:o0 + 1])
+        assert torch.equal(clique_draw(*args, first_owner=o0), one)
+        if o0:
+            assert not torch.equal(clique_draw_plain(*args), one)
 
 
 def test_topo_hit_count_equals_jax_overflow_rule():

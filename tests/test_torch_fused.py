@@ -78,6 +78,45 @@ def test_step_keys_plain_members_equal_host_fold_in_chain(base, ctr, tag, L,
         torch.tensor(base, dtype=torch.int64), torch.tensor(ctr), tag, L))
 
 
+@settings(max_examples=100, deadline=None)
+@given(base=st.integers(-2 ** 63, 2 ** 63 - 1),
+       ctr=st.integers(0, 2 ** 32 + 5), tag=st.sampled_from([0, 1]),
+       L=st.integers(1, 3), n_dev=st.sampled_from([2, 4, 8]),
+       data=st.data())
+def test_step_keys_plain_at_an_offset_is_a_slice_of_all_members(
+        base, ctr, tag, L, n_dev, data):
+    """A rank that holds members d0 .. d0 + n - 1 of n_dev: K10's plain
+    version writes rows d0:d0+n of the all-members result, each the host
+    chain fold_in(fold_in(fold_in(base, ctr), tag), d); one member alone
+    on its rank in a world of n_dev > 1 folds its global index (no
+    one-device words); offset 0 gives today's words."""
+    d0 = data.draw(st.integers(0, n_dev - 1))
+    n = data.draw(st.integers(1, n_dev - d0))
+    b = torch.tensor(base, dtype=torch.int64)
+    c_all, c = torch.tensor(ctr), torch.tensor(ctr)
+    full = step_keys(b, c_all, tag, L, n_dev)
+    part = step_keys(b, c, tag, L, n_dev, d0, n)
+    assert tuple(part.shape) == (n, L, 4) and int(c) == ctr + 1
+    assert torch.equal(part, full[d0:d0 + n])
+    step = fold_in(fold_in(base % 2 ** 64, ctr), tag)
+    for i in range(n):
+        np.testing.assert_array_equal(
+            part[i].numpy(), hop_keys(fold_in(step, d0 + i), L, "cpu").numpy())
+    alone = step_keys(b, torch.tensor(ctr), tag, L, n_dev, d0, 1)
+    assert torch.equal(alone[0], full[d0])
+    assert not torch.equal(alone[0], step_keys(b, torch.tensor(ctr), tag, L))
+    assert torch.equal(step_keys(b, torch.tensor(ctr), tag, L, n_dev, 0),
+                       full)
+
+
+def test_step_keys_refuses_members_outside_the_world():
+    b, c = torch.zeros((), dtype=torch.int64), torch.zeros((),
+                                                          dtype=torch.int64)
+    for n_dev, first, n in ((4, 3, 2), (4, -1, 1), (1, 1, 1), (4, 0, 0)):
+        with pytest.raises(ValueError, match="step_keys: members"):
+            step_keys(b, c, 0, 2, n_dev, first, n)
+
+
 def test_step_keys_plain_at_the_edges():
     """Counters and keys whose halves have the top bit set (where an
     arithmetic shift of int64 or an unmasked cast goes wrong), and a

@@ -113,12 +113,65 @@ def test_infer_meta_of_prepared_dir_matches_jax(tmp_path):
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
 
 
-@pytest.mark.parametrize("argv", [["--devices", "2"],
-                                  ["--clique-size", "2"],
-                                  ["--coordinator", "localhost:1234"]])
-def test_launcher_refuses_more_than_one_device(argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A"):
-        run.main(argv + ["--device", "cpu"])
+_SMALL = ["--dataset-name", "synthetic", "--nodes", "3000",
+          "--train-batch-size", "32", "--fanout", "4", "3", "--epoch", "1",
+          "--hidden", "16", "--no-compact", "--device", "cpu"]
+
+
+def test_launcher_trains_members_in_one_process():
+    """``--devices 2 --clique-size 2``: one clique of two members on one
+    device, behind the clique feature cache (JAX's flags, JAX's
+    meanings)."""
+    from legion_tpu_torch.cache.collective import CliqueFeatureCache
+    tr, st, stats = run.main(_SMALL + ["--devices", "2", "--clique-size",
+                                       "2", "--features", "host",
+                                       "--cache-memory", "20000"])
+    assert (tr.n_dev, tr.Kg, tr.n_local, tr.mesh) == (2, 2, 2, None)
+    assert isinstance(tr.feature_source, CliqueFeatureCache)
+    assert tuple(st["pos_map"].shape)[0] == 2
+    assert np.isfinite(stats[0].train_loss) and int(tr.last_feat_hits) > 0
+    tr.close()
+
+
+def test_launcher_one_rank_world_equals_no_world():
+    """``--coordinator 127.0.0.1:<port> --num-processes 1 --process-id 0``
+    (gloo on the CPU): every collective of a world runs, at one rank, and
+    the run equals the run without a process group bit for bit."""
+    import socket
+
+    import torch.distributed as dist
+
+    from legion_tpu_torch.parallel import mesh as pmesh
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    a, sa, stats_a = run.main(_SMALL)
+    pmesh.reset_collective_counts()
+    try:
+        b, sb, stats_b = run.main(_SMALL + [
+            "--coordinator", f"127.0.0.1:{port}", "--num-processes", "1",
+            "--process-id", "0"])
+    finally:
+        dist.destroy_process_group()
+    assert b.mesh.world == 1 and b.mesh.world_group is not None
+    n = b.schedule.train_step
+    # a step's gradients, loss and counters, the digest, eval's sums twice
+    assert pmesh.COLLECTIVES["all_reduce"]["calls"] == 3 * n + 1 + 2
+    assert [(x.train_loss, x.valid_acc) for x in stats_a] == \
+        [(x.train_loss, x.valid_acc) for x in stats_b]
+    assert a.test_acc == b.test_acc
+    for p, q in zip(_params(sa), _params(sb)):
+        assert torch.equal(p, q)
+
+
+@pytest.mark.parametrize("argv", [["--devices", "3", "--clique-size", "2"],
+                                  ["--devices", "2", "--clique-size", "4"]])
+def test_launcher_refuses_other_layouts(argv):
+    """A clique lies inside a process or across processes of one member
+    each; any other layout is refused before the run starts."""
+    with pytest.raises(ValueError, match="a clique lies either inside"):
+        run.main(_SMALL + argv)
 
 
 def test_launcher_cuda_without_a_card_raises(monkeypatch):
