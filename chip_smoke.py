@@ -62,13 +62,18 @@ CUDA card, nvcc (``$CUDA_HOME`` or ``/usr/local/cuda``) and no network.
      (2.4M vertices, about 120M edges, f32 features in host RAM) and its
      trainers: H (features on the host, a 200 MB bf16 cache planned by
      hotness), HT (features and topology on the host, the same budget
-     split by the cost model); measures what the link gives (a bulk copy,
-     bare reads of one HT batch's miss rows from the registered table,
-     and bare reads of the offsets and neighbour words that K5 asks for
-     on both hops, beside the frontier's degree figures); holds K4 and K5
-     against their plain versions at HT's shapes and times both, and each
-     at the edges of its shapes (K4: widths, dtypes, misaligned tables,
-     pads and ids past the tables, all hits, all misses, no ids; K5:
+     split by the cost model), whose misses read host tables of bf16
+     rows; measures what the link gives (a bulk copy, bare reads of one
+     HT batch's miss rows from the registered table and from f32 tables
+     of 400-, 200- and 256-byte rows, and bare reads of the offsets and
+     neighbour words that K5 asks for on both hops, beside the frontier's
+     degree figures), with the card's NUMA node, the process's CPUs and
+     the nodes of the table's pages; holds K4 (over the bf16 table and an
+     f32 table of the same rows, then the two in turns) and K5 against
+     their plain versions at HT's shapes and times both, and each at the
+     edges of its shapes (K4: widths, dtypes, f32 and bf16 tables at
+     misaligned bases and padded pitches, pads and ids past the tables,
+     all hits, all misses, no ids; K5:
      fanouts, frontier sizes, degrees from 0 to 70,000, offset types, a
      misaligned host table, with and without a cache);
   6. drives H, HT and the same dataset with the cache off (everything
@@ -91,7 +96,8 @@ CUDA card, nvcc (``$CUDA_HOME`` or ``/usr/local/cuda``) and no network.
      clique on the card (``phase_clique``): clique-HT (features and
      topology on the host, at 50 MB a member, or the least budget at
      which the plan gives both caches 4 rows), whose batch holds K11
-     (hash map lookup), K12 (bucket by owner), K13 (the clique fetch) and
+     (hash map lookup), K12 (bucket by owner), K13 (the clique fetch,
+     over the bf16 host table and an f32 one, then the two in turns) and
      K14 (the owners' draws and their unsort) against their plain
      versions, timed, and at the edges of their shapes; 10 steps and an
      eval pass with hit counters, overflow lanes and exchange bytes, the
@@ -125,9 +131,11 @@ call, and fails if a fused run's profile lacks a kernel of its path. ``python3 c
 --kernels`` stops after phase 2 and the GCN shapes of K2, K8 and K9, for
 work on K1-K3, K8 and K9. ``python3 chip_smoke.py --clique`` builds, makes
 the host dataset and runs phase 9 alone, for work on K11-K14. ``python3
-chip_smoke.py --dist`` builds, holds K10 and K14 at their offsets (and
-K11-K14 at their edges), makes the host dataset and runs phase 10 alone,
-for work on ``legion_tpu_torch/parallel``.
+chip_smoke.py --link`` builds, holds K4 and K11-K14 at their edges, makes
+the host dataset and runs phases 5 and 9, for work on the host reads of
+K4 and K13. ``python3 chip_smoke.py --dist`` builds, holds K10 and K14 at
+their offsets (and K11-K14 at their edges), makes the host dataset and
+runs phase 10 alone, for work on ``legion_tpu_torch/parallel``.
 """
 
 import json
@@ -1650,6 +1658,43 @@ def ab_run(tr, torch, interbatch):
     return ms, host, *device_windows(prof, AB_PROFILED)
 
 
+def table_step_ab(tr, torch, path):
+    """The path's train step over each of ``feature_tables`` (the
+    trainer's bf16 host table, an f32 table of the same rows: the table
+    before bf16 rows, and their bf16 rows unpadded), put in the feature
+    source in turns (these, then back), each from a fresh state: ms a
+    step by the host clock over AB_STEPS steps after WARMUP_STEPS, ending
+    in a sync."""
+    fs = tr.feature_source
+    own, tables = fs.host, feature_tables(tr)
+    labels = list(tables)
+    ms = {lb: [] for lb in labels}
+    try:
+        for lb in labels + labels[::-1]:
+            fs.host = tables[lb]
+            state = tr.init_state()
+            for _ in range(WARMUP_STEPS):
+                state, _ = tr.train_step(state)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(AB_STEPS):
+                state, loss = tr.train_step(state)
+            torch.cuda.synchronize()
+            ms[lb].append((time.perf_counter() - t0) / AB_STEPS * 1e3)
+            if not math.isfinite(float(loss)):
+                fail(f"{path} over the {lb} table: loss {float(loss)}")
+    finally:
+        fs.host = own
+        for t in list(tables.values())[:-1]:
+            t.close()
+    mean = {lb: statistics.mean(v) for lb, v in ms.items()}
+    print(f"  {path} train step by host table, in turns (these, then "
+          "back): " + " | ".join(
+              f"{lb} {', '.join(f'{x:.3f}' for x in ms[lb])} ms, mean "
+              f"{mean[lb]:.3f} ({mean[lb] - mean[labels[0]]:+.3f})"
+              for lb in labels) + " (one call; no claim)")
+
+
 def ab_line(label, ms, host, win, streams):
     busy, union, span, overlap = win
     return (f"    {label}: {ms:.3f} ms/step (host {host:.3f} before the "
@@ -2210,6 +2255,16 @@ def fmt_setup(setup_s):
                      for k, v in setup_s.items())
 
 
+def host_dataset():
+    """The host-resident dataset of ``bench.py --features host`` (numpy,
+    in host RAM)."""
+    from legion_tpu_torch.data import synthesize_dataset
+    return synthesize_dataset(num_nodes=HOST_NODES,
+                              avg_degree=HOST_AVG_DEGREE, feature_dim=100,
+                              num_classes=32, batch_size=8000,
+                              train_frac=0.08, seed=0)
+
+
 def host_trainer(ds, torch, name, **cache_kw):
     """A trainer on the host dataset, with its set-up time, plan and
     device memory."""
@@ -2235,26 +2290,69 @@ def host_trainer(ds, torch, name, **cache_kw):
     return tr
 
 
-def phase_host_kernels(tr_h, tr_ht, torch):
-    """K4 and K5 against their plain versions at HT's shapes (from one
-    real HT batch): K4 exactly (rows and hit count); K5 bit for bit on
-    both hops, on a hit-heavy frontier, an all-miss frontier and in its
-    DeviceCSRAccess form (H's device CSR), which must all equal HT's own
-    draws."""
-    from legion_tpu_torch.cache.unified_cache import (cached_gather,
-                                                      cached_gather_plain)
-    from legion_tpu_torch.sampling import access
+def table_turns(name, what, fns, torch):
+    """A kernel over host tables of the same rows, timed in turns (a, b,
+    c, c, b, a; ``fns`` {table: call}); prints each table's two takes,
+    their mean and its ratio to the first table's."""
+    labels = list(fns)
+    ms = {lb: [] for lb in labels}
+    for lb in labels + labels[::-1]:
+        ms[lb].append(cuda_ms(fns[lb], torch))
+    mean = {lb: statistics.mean(v) for lb, v in ms.items()}
+    print(f"  {name:14s} {what}, in turns (these, then back): "
+          + " | ".join(f"{lb} table {', '.join(f'{x:.4f}' for x in ms[lb])}"
+                       f" ms, mean {mean[lb]:.4f} "
+                       f"({mean[lb] / mean[labels[0]]:.3f})"
+                       for lb in labels))
+
+
+def feature_tables(tr):
+    """The host tables that K4 and K13 are timed over, of the same rows:
+    the dataset's f32 features, their bf16 rows at the width, and the
+    trainer's own table (bf16 rows at ``bf16_pitch``), last. Close all
+    but the last."""
+    from legion_tpu_torch.ops.host_memory import HostTable, bf16_rows
+    f = tr.dataset.features
+    own = tr.feature_source.host
+    return {f"f32 pitch {f.shape[1]}": HostTable(f, pin=True),
+            f"bf16 pitch {f.shape[1]}": HostTable(
+                bf16_rows(f, f.shape[1]), pin=True),
+            f"bf16 pitch {own.shape[1]}": own}
+
+
+def ht_batch(tr_ht):
+    """One HT train batch, sampled hop by hop: (hop 0's frontier, hop 1's,
+    the fetch's ids, the fetch's missed slots in batch order)."""
     s, acc = tr_ht.sampler_t, tr_ht.graph_access
-    g = torch.Generator(device="cuda")
-    g.manual_seed(4321)
-    results, main = {}, {}
     seeds = tr_ht.train_bank[:s.config.batch_size]
     carry = s.begin(seeds)
     f0 = s.hop_frontier(carry, 0)
     carry = s.hop_absorb(carry, 0, acc.sample_neighbors(f0, 25, 77))
     f1 = s.hop_frontier(carry, 1)
     carry = s.hop_absorb(carry, 1, acc.sample_neighbors(f1, 10, 78))
-    batch = s.finish(carry)
+    nid = s.finish(carry).node_ids[:s.max_ids]
+    _, hit = tr_ht.cache.find_feat(nid)
+    rows = tr_ht.feature_source.host.shape[0]
+    miss = nid[(nid >= 0) & ~hit & (nid < rows)].contiguous()
+    return f0, f1, nid, miss
+
+
+def phase_host_kernels(tr_h, tr_ht, torch):
+    """K4 and K5 against their plain versions at HT's shapes (from one
+    real HT batch): K4 exactly (rows and hit count) over the trainer's
+    bf16 host table and the other ``feature_tables``, also timed in
+    turns; K5 bit for bit on both hops, on a hit-heavy frontier,
+    an all-miss frontier and in its DeviceCSRAccess form (H's device CSR),
+    which must all equal HT's own draws."""
+    from legion_tpu_torch.cache.unified_cache import (cached_gather,
+                                                      cached_gather_plain)
+    from legion_tpu_torch.ops.host_memory import HostTable
+    from legion_tpu_torch.sampling import access
+    acc = tr_ht.graph_access
+    g = torch.Generator(device="cuda")
+    g.manual_seed(4321)
+    results, main = {}, {}
+    f0, f1, nid, miss = ht_batch(tr_ht)
 
     host = (acc.host_indptr, acc.host_indices)
     cached = (acc.row_map, acc.sub_indptr, acc.sub_indices)
@@ -2273,12 +2371,10 @@ def phase_host_kernels(tr_h, tr_ht, torch):
         hit = (acc.row_map[front.clamp(min=0).long()] >= 0) & (front >= 0)
         return float(hit.sum()) / max(float((front >= 0).sum()), 1.0)
 
-    nid = batch.node_ids[:s.max_ids]
-    feat_host = tr_ht.feature_source.host
-    _, hit = tr_ht.cache.find_feat(nid)
-    miss = nid[(nid >= 0) & ~hit & (nid < feat_host.shape[0])].contiguous()
-    link_bps = link_probe(feat_host, miss, torch)
+    link_bps = link_probe(tr_ht.feature_source.host, miss, torch)
     MEASURED["link_bps"] = link_bps
+    pitch_probe(miss.unique().to(torch.int32), tr_ht.dataset.meta.num_nodes,
+                "HT fetch", torch)
     link_unit(acc.host_indices, torch)
 
     for f, fo, key in ((f0, 25, 5), (f1, 10, 6)):
@@ -2333,33 +2429,54 @@ def phase_host_kernels(tr_h, tr_ht, torch):
         if not torch.equal(access.csr_draw(f1, 10, 6, *tables), ref):
             fail(f"csr_draw: the {what} draws differ from HT's draws")
 
+    # K4 over the trainer's table (bf16 rows for the bf16 cache), over an
+    # f32 table of the same rows (the dataset's features) and over their
+    # bf16 rows unpadded, each exact, then the three in turns
+    t0 = time.perf_counter()
+    f32_table = HostTable(tr_ht.dataset.features, pin=True)
+    print(f"  the f32 features as a host table (what the trainers "
+          f"registered before bf16 rows): {f32_table.array.nbytes} B, "
+          f"registered in {time.perf_counter() - t0:.3f} s | HT's bf16 "
+          f"table {tr_ht.setup_s['bf16_table_bytes']} B, built in "
+          f"{tr_ht.setup_s['bf16_table']:.3f} s")
+    f32_table.close()
     for tr, name in ((tr_ht, "HT"), (tr_h, "H")):
-        cache, ht = tr.cache, tr.feature_source.host
-        kh = cached_gather(cache, ht, nid)[1]
-        ph = cached_gather_plain(cache, ht.device, nid)[1]
+        cache, own = tr.cache, tr.feature_source.host
+        tables = feature_tables(tr)
+        kh = cached_gather(cache, own, nid)[1]
+        ph = cached_gather_plain(cache, own.device, nid)[1]
         if int(kh) != int(ph):
             fail(f"cached_gather {name}: hit count {int(kh)} != plain "
                  f"{int(ph)}")
         # device memory: the ids, a slot per valid id, each distinct cached
-        # row read, every output row written; PCIe: each distinct missed
-        # row once
+        # row read, every output row written; PCIe: the F values of each
+        # distinct missed row once, in the table's type
         _, hit = cache.find_feat(nid)
-        from_host = (nid >= 0) & ~hit & (nid < ht.shape[0])
-        row_c = cache.cache_rows.shape[1] * cache.cache_rows.element_size()
-        least = bound(nb(nid) + 4 * int((nid >= 0).sum())
-                      + (distinct(nid[hit]) + nid.shape[0]) * row_c,
-                      link_bytes=distinct(nid[from_host]) * ht.shape[1] * 4,
-                      link_bps=link_bps)
-        rows_host, idx = ht.device, nid[from_host].long()
-        t = compare(
-            "cached_gather", lambda: cached_gather(cache, ht, nid)[0],
-            lambda: cached_gather_plain(cache, ht.device, nid)[0], exact,
-            results, torch,
-            f"{name} fetch {nid.shape[0]} ids, "
-            f"{int(kh) / max(int((nid >= 0).sum()), 1):.3f} hits",
-            least=least, library=lambda: rows_host[idx])
-        if name == "HT":
-            main["cached_gather"] = [t]
+        from_host = (nid >= 0) & ~hit & (nid < own.shape[0])
+        F = cache.cache_rows.shape[1]
+        row_c = F * cache.cache_rows.element_size()
+        idx = nid[from_host].long()
+        for label, ht in tables.items():
+            least = bound(nb(nid) + 4 * int((nid >= 0).sum())
+                          + (distinct(nid[hit]) + nid.shape[0]) * row_c,
+                          link_bytes=distinct(nid[from_host]) * F
+                          * ht.device.element_size(), link_bps=link_bps)
+            t = compare(
+                "cached_gather",
+                lambda: cached_gather(cache, ht, nid)[0],
+                lambda: cached_gather_plain(cache, ht.device, nid)[0],
+                exact, results, torch,
+                f"{name} fetch {nid.shape[0]} ids, "
+                f"{int(kh) / max(int((nid >= 0).sum()), 1):.3f} hits, "
+                f"{label} table {tuple(ht.shape)}", least=least,
+                library=lambda: ht.device[idx, :F])
+            if name == "HT" and ht is own:
+                main["cached_gather"] = [t]
+        table_turns("cached_gather", f"{name} fetch", {
+            label: lambda ht=ht: cached_gather(cache, ht, nid)
+            for label, ht in tables.items()}, torch)
+        for ht in list(tables.values())[:-1]:
+            ht.close()
     k4_edges(torch)
     k5_edges(torch)
     # per train step of HT: K4 once (the fetch), K5 once per hop
@@ -2553,6 +2670,7 @@ def link_probe(ht, miss, torch):
     bps = words * host_t.element_size() / ms * 1e3
     print(f"  link: bulk copy of {words * host_t.element_size()} B from the "
           f"registered table {ms:.4f} ms, {bps / 1e9:.2f} GB/s")
+    numa_report(ht, torch)
     uniq = miss.unique().to(torch.int32)
     print(f"  link: {miss.numel()} miss slots, {uniq.numel()} distinct rows "
           f"(share {uniq.numel() / max(miss.numel(), 1):.4f})")
@@ -2577,19 +2695,161 @@ def link_probe(ht, miss, torch):
     return bps
 
 
+def cpu_ranges(cpus):
+    """A sorted CPU list as ranges: [0, 1, 2, 5] -> "0-2,5"."""
+    out, run = [], []
+    for c in cpus:
+        if run and c != run[-1] + 1:
+            out.append(run)
+            run = []
+        run.append(c)
+    if run:
+        out.append(run)
+    return ",".join(f"{r[0]}-{r[-1]}" if len(r) > 1 else f"{r[0]}"
+                    for r in out)
+
+
+def numa_report(ht, torch):
+    """Where the link's rate may come from, changing nothing: the card's
+    NUMA node (``/sys/bus/pci/devices/<bus id>/numa_node``, else the
+    "NUMA Affinity" of ``nvidia-smi topo -m``), this process's CPU
+    affinity, and the NUMA nodes that hold the pages of the registered
+    host table ``ht`` (the mappings of ``/proc/self/maps`` that overlap
+    it, their ``N<node>=<pages>`` in ``/proc/self/numa_maps``; a mapping
+    may hold more than the table)."""
+    p = torch.cuda.get_device_properties(0)
+    bus = (f"{getattr(p, 'pci_domain_id', 0):04x}:"
+           f"{getattr(p, 'pci_bus_id', 0):02x}:"
+           f"{getattr(p, 'pci_device_id', 0):02x}.0")
+    try:
+        with open(f"/sys/bus/pci/devices/{bus}/numa_node") as f:
+            node = f.read().strip()
+    except OSError as e:
+        topo = subprocess.run(["nvidia-smi", "topo", "-m"],
+                              capture_output=True, text=True, timeout=60)
+        head = [" ".join(ln.split()) for ln in topo.stdout.splitlines()[:2]]
+        node = (f"not readable in sysfs ({e.strerror}); nvidia-smi topo "
+                f"-m: {' / '.join(head)!r}")
+    lo = ht.array.ctypes.data
+    hi = lo + ht.array.nbytes
+    pages = {}
+    try:
+        starts = []
+        with open("/proc/self/maps") as f:
+            for line in f:
+                a, b = (int(x, 16) for x in line.split()[0].split("-"))
+                if a < hi and b > lo:
+                    starts.append(a)
+        found = 0
+        with open("/proc/self/numa_maps") as f:
+            for line in f:
+                fields = line.split()
+                if int(fields[0], 16) not in starts:
+                    continue
+                found += 1
+                for fld in fields[2:]:
+                    if fld[:1] == "N" and "=" in fld:
+                        k, v = fld.split("=")
+                        pages[k] = pages.get(k, 0) + int(v)
+        held = (", ".join(f"{k} {v} pages" for k, v in sorted(pages.items()))
+                or "no N<node> fields") + f" ({found} mapping(s))"
+    except (OSError, ValueError) as e:
+        held = f"not readable ({e})"
+    print(f"  link: card {bus} on NUMA node {node} | this process's CPUs "
+          f"{cpu_ranges(sorted(os.sched_getaffinity(0)))} | the host "
+          f"table's {ht.array.nbytes} B at {lo:#x}: {held}")
+
+
+# the widths of the f32 tables that ``pitch_probe`` reads: rows of 400,
+# 200 and 256 bytes
+PITCH_COLS = (100, 50, 64)
+
+
+def pitch_probe(ids, V, what, torch):
+    """The row pitch's effect on the link: bare SM reads (``read_probe``,
+    a warp a row, the row's own 16-byte chunks) of the rows ``ids``
+    (distinct, sorted, int32 on the card) of registered f32 host tables
+    of V rows and PITCH_COLS columns, 128-byte aligned, timed in turns
+    (100, 50, 64, 64, 50, 100 columns)."""
+    import numpy as np
+    from legion_tpu_torch.ops import host_memory
+    from legion_tpu_torch.ops.host_memory import HostTable
+    tables = {}
+    try:
+        for c in PITCH_COLS:
+            buf = np.full(V * c + 32, 1.0, np.float32)
+            at = (-buf.ctypes.data) % 128 // 4
+            tables[c] = HostTable(buf[at:at + V * c].reshape(V, c), pin=True)
+        ms = {c: [] for c in PITCH_COLS}
+        for c in PITCH_COLS + PITCH_COLS[::-1]:
+            ms[c].append(cuda_ms(
+                lambda: host_memory.read_probe(tables[c], ids, 16), torch,
+                10))
+        n, out = ids.numel(), {}
+        for c in PITCH_COLS:
+            rb, base = 4 * c, tables[c].array.ctypes.data
+            a = base + ids.long() * rb
+            lines = float(((a + rb - 1) // 128 - a // 128 + 1).double()
+                          .mean())
+            t = statistics.mean(ms[c])
+            out[rb] = t
+            print(f"  link: {what}: SM reads of {n} distinct rows of {rb} B "
+                  f"(base % 128 = {base % 128}, {lines:.3f} lines a row): "
+                  f"{', '.join(f'{x:.4f}' for x in ms[c])} ms, mean "
+                  f"{t:.4f} | {n * rb / t / 1e6:.2f} GB/s of row bytes, "
+                  f"{n * lines / t / 1e3:.1f} M lines/s | "
+                  f"{t / out[4 * PITCH_COLS[0]]:.3f} of the 400-B time")
+    finally:
+        for t in tables.values():
+            t.close()
+
+
+def aligned_table(values, shift, pitch=None):
+    """A registered host table of ``values`` ([V, F] f32) whose base lies
+    ``shift`` bytes past a 128-byte boundary: the f32 values (``pitch``
+    None), or their bf16 rows (``bf16_rows``) at ``pitch``, the pad
+    columns filled with bits that a kernel reading them would show."""
+    import numpy as np
+    from legion_tpu_torch.ops.host_memory import HostTable, bf16_rows
+    V, F = values.shape
+    src = values if pitch is None else bf16_rows(values, pitch)
+    if pitch is not None:
+        src[:, F:] = 0x7F81                          # a NaN
+    n, es = src.size, src.itemsize
+    buf = np.empty(n + 128 // es, src.dtype)
+    at = (-buf.ctypes.data) % 128 // es + shift // es
+    arr = buf[at:at + n].reshape(src.shape)
+    arr[:] = src
+    if arr.ctypes.data % 128 != shift:
+        fail("edges: a table's base is not where the case wants it")
+    return HostTable(arr, pin=True)
+
+
+# the bf16 tables of K4's and K13's edge cases: widths, bases (bytes past
+# a 128-byte boundary), and each width's pitches (the width, and padded:
+# to whole lines where bf16_pitch pads, else past them)
+EDGE_WIDTHS = (1, 100, 128, 602)
+EDGE_BF16_SHIFTS = (0, 16, 8, 2)
+
+
+def edge_pitches(F):
+    return (F, -(-(F + 1) // 64) * 64)
+
+
 def k4_edges(torch):
     """K4 at the edges of its shapes, rows and hit count exact against the
-    plain version: widths 1, 100, 128, 602; bf16 and f32 caches; a host
-    table of 1000 rows whose base is 128-byte aligned, 16-byte aligned
-    only, and 4-byte aligned only, registered to its last byte; a slot map
-    longer than the host table; ids with duplicates, pads, ids past the
-    host table and past the slot map, the table's first and last rows as
-    misses; all hits; all misses; no ids."""
+    plain version: widths 1, 100, 128, 602; f32 host tables whose base is
+    128-byte aligned, 16-byte aligned only, and 4-byte aligned only, with
+    bf16 and f32 caches; bf16 host tables (a bf16 cache) whose base is
+    128-, 16-, 8- and 2-byte aligned, at a pitch of the width and padded
+    (``edge_pitches``); every table registered to its last byte; a slot
+    map longer than the host table; ids with duplicates, pads, ids past
+    the host table and past the slot map, the table's first and last rows
+    as misses; all hits; all misses; no ids."""
     import numpy as np
     from legion_tpu_torch.cache.unified_cache import (UnifiedCache,
                                                       cached_gather,
                                                       cached_gather_plain)
-    from legion_tpu_torch.ops.host_memory import HostTable
     rng = np.random.default_rng(5)
     rows_h, V, C, n = 1000, 1200, 300, 0
     hot = 1 + rng.permutation(rows_h - 2)[:C]       # rows 0 and 999 miss
@@ -2604,34 +2864,37 @@ def k4_edges(torch):
                "all misses": np.concatenate([[0, rows_h - 1],
                                              rng.choice(cold, 94)]),
                "no ids": np.zeros(0)}
-    for F in (1, 100, 128, 602):
-        for shift in (0, 16, 4):
-            buf = np.empty(rows_h * F + 64, np.float32)
-            base = (-buf.ctypes.data) % 128 // 4 + shift // 4
-            arr = buf[base:base + rows_h * F].reshape(rows_h, F)
-            arr[:] = rng.standard_normal((rows_h, F), dtype=np.float32)
-            if arr.ctypes.data % 128 != shift:
-                fail("cached_gather edges: the table's base is not where "
-                     "the case wants it")
-            ht = HostTable(arr, pin=True)
-            for dt in (torch.bfloat16, torch.float32):
-                cache = UnifiedCache(
-                    torch.from_numpy(arr[hot]).to(dt).cuda(),
-                    slot_map.cuda(), None, None, None, C, 0)
-                for what, ids in id_sets.items():
-                    ids = torch.from_numpy(ids.astype(np.int32)).cuda()
-                    k, kh = cached_gather(cache, ht, ids)
-                    p, ph = cached_gather_plain(cache, ht.device, ids)
-                    if not exact(k, p)[1] or int(kh) != int(ph):
-                        fail(f"cached_gather edge F {F} base % 128 = {shift}"
-                             f" {dt} {what}: kernel differs from its plain "
-                             f"version (hits {int(kh)} / {int(ph)})")
-                    n += 1
-            torch.cuda.synchronize()
-            ht.close()
-    print(f"  cached_gather  {n} edge cases (widths 1/100/128/602, table "
-          f"base 128-/16-/4-byte aligned, bf16 and f32, mixed ids / all "
-          f"hits / all misses / no ids): all exact")
+    tables = []          # (F, shift, pitch or None: f32, cache dtypes)
+    for F in EDGE_WIDTHS:
+        tables += [(F, shift, None, (torch.bfloat16, torch.float32))
+                   for shift in (0, 16, 4)]
+        tables += [(F, shift, P, (torch.bfloat16,))
+                   for shift in EDGE_BF16_SHIFTS for P in edge_pitches(F)]
+    for F, shift, P, dts in tables:
+        vals = rng.standard_normal((rows_h, F), dtype=np.float32)
+        ht = aligned_table(vals, shift, P)
+        kind = "f32" if P is None else f"bf16 pitch {P}"
+        for dt in dts:
+            cache = UnifiedCache(
+                torch.from_numpy(vals[hot]).to(dt).cuda(),
+                slot_map.cuda(), None, None, None, C, 0)
+            for what, ids in id_sets.items():
+                ids = torch.from_numpy(ids.astype(np.int32)).cuda()
+                k, kh = cached_gather(cache, ht, ids)
+                p, ph = cached_gather_plain(cache, ht.device, ids)
+                if not exact(k, p)[1] or int(kh) != int(ph):
+                    fail(f"cached_gather edge F {F} {kind} table base % 128"
+                         f" = {shift} {dt} cache {what}: kernel differs "
+                         f"from its plain version (hits {int(kh)} / "
+                         f"{int(ph)})")
+                n += 1
+        torch.cuda.synchronize()
+        ht.close()
+    print(f"  cached_gather  {n} edge cases (widths 1/100/128/602; f32 "
+          f"tables at bases 128-/16-/4-byte aligned, bf16 and f32 caches; "
+          f"bf16 tables at bases 128-/16-/8-/2-byte aligned, pitch the "
+          f"width and padded; mixed ids / all hits / all misses / no ids): "
+          f"all exact")
 
 
 def phase_host_reference(torch):
@@ -2737,9 +3000,13 @@ def cli_run(argv, torch, label):
     host = tr.feature_source.host
     if host.device is None or not host.array.flags.writeable:
         fail(f"{label}: the host feature table is not registered RAM")
-    if tr.setup_s["ram_copy_bytes"] != tr.dataset.features.nbytes:
-        fail(f"{label}: copied {tr.setup_s['ram_copy_bytes']} bytes into "
-             f"RAM, not the features' {tr.dataset.features.nbytes}")
+    # a bf16 cache: the host table is the features' bf16 rows, built in
+    # RAM from the memmap, which is never copied whole
+    if tr.setup_s["ram_copy_bytes"] != 0 or host.host.dtype != \
+            torch.bfloat16 or tr.setup_s["bf16_table_bytes"] != \
+            host.array.nbytes:
+        fail(f"{label}: set-up {tr.setup_s}, a host table of "
+             f"{host.host.dtype}: not the bf16 table alone")
     tr.close()
     for st, sm in zip(stats, tr.epoch_metrics):
         if not (math.isfinite(st.train_loss) and 0.0 <= st.valid_acc <= 1.0):
@@ -3207,7 +3474,9 @@ def hash_bound(m, ids, torch):
 def clique_kernels(tr, tr_hash, torch, results, main):
     """K11-K14 against their plain versions at clique-HT's shapes (one real
     batch of the Kg members), exact, timed, with their bounds; K12 beside
-    ``torch.sort(owner, stable=True)``. K11 on clique-HT-hash's maps."""
+    ``torch.sort(owner, stable=True)``; K13 over the trainer's bf16 host
+    table and the other ``feature_tables``, also in turns. K11 on
+    clique-HT-hash's maps."""
     from legion_tpu_torch.cache import collective as co
     from legion_tpu_torch.cache.hashmap import hash_lookup_plain
     link_bps = MEASURED["link_bps"]
@@ -3247,33 +3516,45 @@ def clique_kernels(tr, tr_hash, torch, results, main):
             least=bound(4 * M * N * 2 + 4 * M * Kg * R_req),
             library=lambda: torch.sort(own, dim=1, stable=True))
         main.setdefault("bucket_by_owner", []).append(t)
-    # K13, the fetch: rows and hits exact
+    # K13, the fetch: rows and hits exact, over the trainer's table (bf16
+    # rows for the bf16 cache), an f32 table of the same rows and their
+    # bf16 rows unpadded, then the three timed in turns
     ids, row, back = fetch["ids"], fetch["row"], fetch["back"]
-    host = fs.host
+    tables = feature_tables(tr)
     n, F = ids.numel(), back.shape[1]
     hit = row >= 0
-    from_host = (ids >= 0) & ~hit & (ids < host.shape[0])
+    from_host = (ids >= 0) & ~hit & (ids < fs.host.shape[0])
     es = back.element_size()
-    # device memory: the sorted ids, their order (int64) and each lane's
-    # row read once, each served row read, every output row written; the
-    # link: each distinct missed row once
-    least = bound(4 * n * 2 + 8 * n + int(hit.sum()) * F * es + n * F * es,
-                  link_bytes=distinct(ids[from_host]) * F * 4,
-                  link_bps=link_bps)
     print(f"  clique fetch: {n} lanes, {int(hit.sum())} served by the "
           f"clique, {int(((fetch['slot'] >= 0) & ~hit).sum())} overflow, "
           f"{int(from_host.sum())} from the host "
           f"({distinct(ids[from_host])} distinct rows)")
-    all_exact("clique_gather", co.clique_gather(back, row, ids, host),
-              co.clique_gather_plain(back, row, ids, host.on("cuda")), "fetch",
-              torch)
-    t = compare("clique_gather",
-                lambda: co.clique_gather(back, row, ids, host)[0],
-                lambda: co.clique_gather_plain(back, row, ids,
-                                               host.on("cuda"))[0],
-                exact, results, torch, f"fetch [{Kg}, {ids.shape[1]}] x {F}",
-                least=least)
-    main["clique_gather"] = [t]
+    pitch_probe(ids[from_host].unique().to(torch.int32), fs.host.shape[0],
+                "clique-HT fetch", torch)
+    for label, host in tables.items():
+        # device memory: the sorted ids, their order (int64) and each
+        # lane's row read once, each served row read, every output row
+        # written; the link: the F values of each distinct missed row
+        # once, in the table's type
+        least = bound(4 * n * 2 + 8 * n + int(hit.sum()) * F * es
+                      + n * F * es, link_bytes=distinct(ids[from_host]) * F
+                      * host.device.element_size(), link_bps=link_bps)
+        all_exact("clique_gather", co.clique_gather(back, row, ids, host),
+                  co.clique_gather_plain(back, row, ids, host.on("cuda")),
+                  f"fetch, {label} table", torch)
+        t = compare("clique_gather",
+                    lambda: co.clique_gather(back, row, ids, host)[0],
+                    lambda: co.clique_gather_plain(back, row, ids,
+                                                   host.on("cuda"))[0],
+                    exact, results, torch, f"fetch [{Kg}, {ids.shape[1]}] x"
+                    f" {F}, {label} table {tuple(host.shape)}", least=least)
+        if host is fs.host:
+            main["clique_gather"] = [t]
+    table_turns("clique_gather", "clique-HT fetch", {
+        label: lambda host=host: co.clique_gather(back, row, ids, host)
+        for label, host in tables.items()}, torch)
+    for host in list(tables.values())[:-1]:
+        host.close()
     # the rest of the fetch: the owners' serve (K1 a member) and the two
     # exchanges, and the whole fetch as the trainer calls it
     req = fetch["req"]
@@ -3343,7 +3624,7 @@ def clique_owners(tr, torch, hops, fetch):
     for o in range(Kg):
         smap, rows, _ = co.build_clique_cache(
             np.asarray(plan.feature_order), plan.feature_capacity,
-            fs.host.array, Kg,
+            tr.dataset.features, Kg,
             feat_dtype=dt, map_impl=map_impl, device="cuda", owners=[o])
         if not torch.equal(rows[0], fs.member_rows[o]):
             fail(f"clique owners: owner {o}'s feature shard built alone "
@@ -3389,7 +3670,9 @@ def clique_edges(torch, results):
     id; K12 at Kg 1, 4, 8 and 31, N from 1 to 1000 (and past one tile),
     all misses, no misses, one owner past R_req; K13 with all misses, no
     misses, overflow, an id that one member's lane finds and another's
-    overflows, no host table, f32 and bf16, widths 1, 100, 128 and 602;
+    overflows, no host table, f32 and bf16, widths 1, 100, 128 and 602,
+    f32 host tables, and bf16 ones at the bases and pitches of
+    ``k4_edges``;
     K14 with degree-0 rows, no requests, int64 pairs, fanouts 1 and 25, a
     window of 8 and one of 48 (not a power of two), two cliques, and each
     owner alone at its clique index (its shard only, the index folded in:
@@ -3397,7 +3680,6 @@ def clique_edges(torch, results):
     import numpy as np
     from legion_tpu_torch.cache import collective as co
     from legion_tpu_torch.cache.hashmap import HashMap32, hash_lookup_plain
-    from legion_tpu_torch.ops.host_memory import HostTable
     rng = np.random.default_rng(12)
     dev = "cuda"
     n_cases = 0
@@ -3437,10 +3719,16 @@ def clique_edges(torch, results):
         check("bucket_by_owner", co.bucket_by_owner(st, Kg, R_req, True),
               co.bucket_by_owner_plain(st, Kg, R_req), f"{M}x{N} Kg {Kg} {q}")
     V = 3000
-    for F, dt in ((100, torch.bfloat16), (128, torch.float32),
-                  (1, torch.float32), (602, torch.bfloat16)):
-        host_np = rng.standard_normal((V, F)).astype(np.float32)
-        host = HostTable(host_np, pin=True)
+    # f32 tables (the tables with None: no host table), then bf16 tables
+    # at each base and pitch of ``k4_edges``
+    tables = [(100, torch.bfloat16, 0, None), (128, torch.float32, 0, None),
+              (1, torch.float32, 0, None), (602, torch.bfloat16, 0, None)]
+    tables += [(F, torch.bfloat16, shift, P) for F in EDGE_WIDTHS
+               for shift in EDGE_BF16_SHIFTS for P in edge_pitches(F)]
+    for F, dt, shift, P in tables:
+        host = aligned_table(rng.standard_normal((V, F)).astype(np.float32),
+                             shift, P)
+        kind = "f32" if P is None else f"bf16 pitch {P} base % 128 {shift}"
         for q in ("mixed", "all miss", "no miss", "overflow", "shared"):
             M, N, Kg = 4, 500, 4
             ids = np.stack([rng.choice(V, N, replace=False)
@@ -3464,11 +3752,11 @@ def clique_edges(torch, results):
                                            Kg, R_req)
             back = torch.randn((M * Kg * R_req, F), device=dev).to(dt)
             it = torch.from_numpy(ids).to(dev)
-            for h in (host, None):
+            for h in (host, None) if P is None else (host,):
                 ref = co.clique_gather_plain(
                     back, row, it, None if h is None else h.on("cuda"))
                 check("clique_gather", co.clique_gather(back, row, it, h),
-                      ref, f"{q} F {F} {dt} host {h is not None}")
+                      ref, f"{q} F {F} {dt} host {h is not None and kind}")
         host.close()
     Vg = 5000
     deg = rng.integers(0, 200, Vg)
@@ -3604,10 +3892,11 @@ def clique_checks(tr, hds, torch):
     rec = clique_path(tr, torch, "clique-HT", 1, warmup=0, evaluate=False,
                       keep=True)[3]
     ids, _, batches, x = rec[0]
-    host = tr.feature_source.host.on("cuda")
+    feats = torch.from_numpy(hds.features).to("cuda")
     fid = ids[:, :tr.sampler_t.max_ids]
-    ref = host[fid.clamp(min=0).long()].to(x.dtype)
+    ref = feats[fid.clamp(min=0).long()].to(x.dtype)
     ref[fid < 0] = 0
+    del feats
     if not torch.equal(x, ref):
         bad = int((x != ref).any(-1).sum())
         fail(f"clique-HT: {bad} fetched rows differ from their host rows")
@@ -3705,6 +3994,7 @@ def phase_clique(hds, torch):
                       tr.sampler_t.config.fanouts))))
     counts["clique-HT"], step_ms, _, rec, _, ctr = clique_path(
         tr, torch, "clique-HT", CLIQUE_STEPS)
+    table_step_ab(tr, torch, "clique-HT")
     P = tr.sampler_t.cum_caps[tr.sampler_t.config.num_hops - 1]
     for i, ((ids, hits), c) in enumerate(zip(rec, ctr)):
         fid = ids[:, :N]
@@ -3972,11 +4262,7 @@ def main():
             print("  " + line.strip())
 
     if sys.argv[1:2] == ["--clique"]:
-        from legion_tpu_torch.data import synthesize_dataset
-        hds = synthesize_dataset(num_nodes=HOST_NODES,
-                                 avg_degree=HOST_AVG_DEGREE, feature_dim=100,
-                                 num_classes=32, batch_size=8000,
-                                 train_frac=0.08, seed=0)
+        hds = host_dataset()
         MEASURED["link_bps"] = bulk_link_bps(hds, torch)
         res, counts, _ = phase_clique(hds, torch)
         for n in ("hash_lookup", "bucket_by_owner", "clique_gather",
@@ -3987,14 +4273,30 @@ def main():
                   f"{r['bound_by']} | plain {r['plain_ms']:.4f} ms | library "
                   f"{r['library_ms']}")
         return
+    if sys.argv[1:2] == ["--link"]:
+        k4_edges(torch)
+        clique_edges(torch, {})
+        hds = host_dataset()
+        tr_h = host_trainer(hds, torch, "H", cache_bytes=CACHE_BYTES,
+                            feature_residency="host")
+        tr_ht = host_trainer(hds, torch, "HT", cache_bytes=CACHE_BYTES,
+                             feature_residency="host", topo_residency="host")
+        res = phase_host_kernels(tr_h, tr_ht, torch)
+        tr_h.close()
+        tr_ht.close()
+        del tr_h, tr_ht
+        torch.cuda.empty_cache()
+        res.update(phase_clique(hds, torch)[0])
+        for n in ("cached_gather", "clique_gather"):
+            r = res[n]
+            print(f"  {n:16s} kernel {r['ms']:.4f} ms | bound "
+                  f"{r['bound_ms']:.4f} ms by {r['bound_by']} | plain "
+                  f"{r['plain_ms']:.4f} ms | library {r['library_ms']}")
+        return
     if sys.argv[1:2] == ["--dist"]:
-        from legion_tpu_torch.data import synthesize_dataset
         k10_offsets(torch, 2)
         clique_edges(torch, {})
-        hds = synthesize_dataset(num_nodes=HOST_NODES,
-                                 avg_degree=HOST_AVG_DEGREE, feature_dim=100,
-                                 num_classes=32, batch_size=8000,
-                                 train_frac=0.08, seed=0)
+        hds = host_dataset()
         with tempfile.TemporaryDirectory(prefix="legion_cli_") as tmp:
             phase_dist(cli_dataset(hds, tmp), torch)
         return
@@ -4080,12 +4382,8 @@ def main():
 
     print("set-up: host-resident dataset (bench.py --features host) and "
           "trainers")
-    from legion_tpu_torch.data import synthesize_dataset
     t0 = time.perf_counter()
-    hds = synthesize_dataset(num_nodes=HOST_NODES,
-                             avg_degree=HOST_AVG_DEGREE, feature_dim=100,
-                             num_classes=32, batch_size=8000,
-                             train_frac=0.08, seed=0)
+    hds = host_dataset()
     g = hds.graph
     print(f"  datagen {time.perf_counter() - t0:.2f} s (numpy, host) | V "
           f"{hds.meta.num_nodes} E {hds.meta.num_edges} | host features "
@@ -4104,6 +4402,7 @@ def main():
     for name, tr in (("H", tr_h), ("HT", tr_ht)):
         print(f" {name}:")
         counts[name], step_ms[name] = phase_slice(tr, torch, name)
+        table_step_ab(tr, torch, name)
         if name in FUSED_PATHS:
             phase_fused(tr, torch, name)
         ib_ab[name] = phase_interbatch(tr, torch, name)

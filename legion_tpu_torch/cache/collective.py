@@ -32,8 +32,10 @@ would each hold.
 
 The builds are the JAX package's numpy, array for array; host rows are
 read with numpy (rounded to bf16 by torch, to nearest even, as the
-JAX package's C++ gather rounds). Each kernel's wrapper runs its plain
-version for CPU tensors and launches the kernel for CUDA tensors.
+JAX package's C++ gather rounds). A miss reads the trainer's host table,
+bf16 rows for a bf16 cache as JAX ships them (``cache/unified_cache.py``).
+Each kernel's wrapper runs its plain version for CPU tensors and launches
+the kernel for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ import numpy as np
 import torch
 
 from legion_tpu_torch.cache.hashmap import HashMap32, map_lookup
-from legion_tpu_torch.cache.unified_cache import K4_BLOCKS
+from legion_tpu_torch.cache.unified_cache import K4_BLOCKS, check_host_table
 from legion_tpu_torch.ops import kernels
 from legion_tpu_torch.ops.host_memory import HostTable
 from legion_tpu_torch.parallel.mesh import all_to_all
@@ -247,10 +249,11 @@ def clique_gather_plain(rows: torch.Tensor, lane_row: torch.Tensor,
                         ids: torch.Tensor, host: Optional[torch.Tensor]
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain K13 (the requester side of ``collective.py:160-218``): lane
-    (m, i) takes rows[lane_row[m, i]] where that is >= 0; else the f32
-    host row of ids[m, i] cast to rows' dtype (round to nearest even)
-    when ``host`` is given, a zero row for pads, ids past the host table
-    and without a host table. Returns (out [M, N, F], hits [M] int32)."""
+    (m, i) takes rows[lane_row[m, i]] where that is >= 0; else the first F
+    values of the host row of ids[m, i] (f32 cast to rows' dtype, round to
+    nearest even; bf16 as it is) when ``host`` is given, a zero row for
+    pads, ids past the host table and without a host table. Returns (out
+    [M, N, F], hits [M] int32)."""
     M, N = ids.shape
     r, i = lane_row.reshape(-1), ids.reshape(-1)
     hit = r >= 0
@@ -258,7 +261,8 @@ def clique_gather_plain(rows: torch.Tensor, lane_row: torch.Tensor,
     from_host = torch.zeros_like(hit)
     if host is not None:
         from_host = (i >= 0) & ~hit & (i < host.shape[0])
-        miss = host[torch.where(from_host, i, 0).long()].to(rows.dtype)
+        miss = host[torch.where(from_host, i, 0).long(),
+                    :rows.shape[1]].to(rows.dtype)
         out = torch.where(from_host[:, None], miss, out)
     out = torch.where((hit | from_host)[:, None], out, torch.zeros_like(out))
     return out.view(M, N, -1), hit.view(M, N).sum(1, dtype=torch.int32)
@@ -268,11 +272,12 @@ def clique_gather(rows: torch.Tensor, lane_row: torch.Tensor,
                   ids: torch.Tensor, host: Optional[HostTable]
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K13. rows [*, F] (bf16 or f32) the rows the owners sent back,
-    lane_row and ids [M, N] int32, host a registered [V, F] f32 table or
-    None -> (out [M, N, F] in rows' dtype, hits [M] int32). K4's kernel
-    with the slot read by lane: the ids of all members are sorted here,
-    together, so the kernel reads a missed host row once for every lane
-    of every member that asks for it, in address order, on K4's grid."""
+    lane_row and ids [M, N] int32, host a registered [V, P] table
+    (``check_host_table``) or None -> (out [M, N, F] in rows' dtype, hits
+    [M] int32). K4's kernel with the slot read by lane: the ids of all
+    members are sorted here, together, so the kernel reads a missed host
+    row once for every lane of every member that asks for it, in address
+    order, on K4's grid."""
     if ids.dtype != torch.int32 or lane_row.dtype != torch.int32 \
             or ids.dim() != 2 or lane_row.shape != ids.shape \
             or rows.dim() != 2 \
@@ -282,10 +287,8 @@ def clique_gather(rows: torch.Tensor, lane_row: torch.Tensor,
                          f"{tuple(lane_row.shape)}, ids {ids.dtype} "
                          f"{tuple(ids.shape)}")
     host_t = None if host is None else host.on(ids.device)
-    if host_t is not None and (host_t.dtype != torch.float32
-                               or host_t.shape[1] != rows.shape[1]):
-        raise ValueError(f"clique_gather: host {host_t.dtype} "
-                         f"{tuple(host_t.shape)}, rows {tuple(rows.shape)}")
+    if host_t is not None:
+        check_host_table("clique_gather", host_t, rows)
     if ids.device.type == "cpu":
         return clique_gather_plain(rows, lane_row, ids, host_t)
     if not (rows.device == lane_row.device == ids.device):
@@ -299,8 +302,11 @@ def clique_gather(rows: torch.Tensor, lane_row: torch.Tensor,
     rc = kernels.lib().lt_clique_gather(
         rows.data_ptr(), lane_row.data_ptr(),
         None if host_t is None else host_t.data_ptr(),
-        0 if host_t is None else host_t.shape[0], sorted_ids.data_ptr(),
-        order.data_ptr(), M * N, F, int(rows.dtype == torch.bfloat16),
+        0 if host_t is None else host_t.shape[0],
+        F if host_t is None else host_t.stride(0),
+        int(host_t is not None and host_t.dtype == torch.bfloat16),
+        sorted_ids.data_ptr(), order.data_ptr(), M * N, F,
+        int(rows.dtype == torch.bfloat16),
         out.data_ptr(), hits.data_ptr(), max(N, 1), M, K4_BLOCKS,
         kernels.stream_handle())
     kernels.check("clique_gather", rc)
@@ -532,7 +538,7 @@ class CliqueFeatureCache(_Clique):
         super().__init__(slot_map, group_size, num_cliques, request_slack,
                          group, first_owner)
         self.member_rows = member_rows     # [local, R, F]
-        self.host = host                   # [V, F] float32
+        self.host = host                   # [V, P] f32, or bf16 (bf16 rows)
         self.R = member_rows.shape[1]
         self.feat_dim = member_rows.shape[2]
 

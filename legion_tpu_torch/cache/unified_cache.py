@@ -14,7 +14,10 @@ and ``row_map[v]`` (sub-CSR row), -1 for a vertex not cached.
 (``csrc/cached_gather.cu``) straight from the pinned host table, inside
 the kernel, with no host sync and no staging copy. The wrapper sorts the
 ids first, so that the kernel reads each distinct missed row once, in
-address order.
+address order. For a bf16 cache the host table holds bf16 rows, as the
+JAX package ships a miss in the cache's dtype (``CachedFeatureSource.
+_host_gather``): half the link's bytes of an f32 row, and the same bits
+(``ops/host_memory.py::bf16_rows``).
 """
 
 from __future__ import annotations
@@ -124,17 +127,32 @@ class UnifiedCache:
 # K4 cached_gather
 # ---------------------------------------------------------------------------
 
+def check_host_table(name: str, host: torch.Tensor,
+                     rows: torch.Tensor) -> None:
+    """A host feature table that K4 or K13 reads for rows [*, F] of
+    ``rows``' dtype: [V, P] with its pitch P >= F, f32, or bf16 for bf16
+    rows (a bf16 table holds a bf16 cache's rows, already rounded)."""
+    if host.dim() != 2 or host.shape[1] < rows.shape[1] or not (
+            host.dtype == torch.float32
+            or host.dtype == torch.bfloat16 == rows.dtype):
+        raise ValueError(
+            f"{name}: a host table {host.dtype} {tuple(host.shape)} for "
+            f"rows {rows.dtype} {tuple(rows.shape)}: it must be f32, or "
+            "bf16 for bf16 rows, at least as wide as the rows")
+
+
 def cached_gather_plain(cache: UnifiedCache, host_rows: torch.Tensor,
                         ids: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Rows in the cache's dtype: cached rows for hits, the f32 host row
-    (cast to the cache's dtype, round to nearest even) for misses, zero
-    rows for ids < 0 and past the host table; and the hit count."""
+    """Rows in the cache's dtype: cached rows for hits, the first F values
+    of the host row (f32 cast to the cache's dtype, round to nearest even;
+    bf16 as it is) for misses, zero rows for ids < 0 and past the host
+    table; and the hit count."""
     slot, hit = cache.find_feat(ids)
     cached = cache.gather_cached(slot)
     from_host = (ids >= 0) & ~hit & (ids < host_rows.shape[0])
-    miss = host_rows[torch.where(from_host, ids, 0).long()].to(
-        cached.dtype)
+    miss = host_rows[torch.where(from_host, ids, 0).long(),
+                     :cached.shape[1]].to(cached.dtype)
     rows = torch.where(hit[:, None], cached,
                        torch.where(from_host[:, None], miss,
                                    torch.zeros_like(miss)))
@@ -161,30 +179,28 @@ def cached_gather(cache: UnifiedCache, host: HostTable, ids: torch.Tensor,
                   max_blocks: int = K4_BLOCKS
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4. cache rows [C, F] (bf16 or f32) and slot_map [V] on the card,
-    host [V, F] f32 registered host memory, ids [N] int32 -> (rows [N, F]
-    in the cache's dtype, hit count as a device int32 scalar). The ids are
-    sorted here (values and positions, on the card, no sync): equal ids
-    become neighbours, and the kernel reads a missed host row once for all
-    of them, in address order. ``max_blocks`` (> 0) caps the kernel's
-    grid."""
+    host [V, P] registered host memory (``check_host_table``), ids [N]
+    int32 -> (rows [N, F] in the cache's dtype, hit count as a device int32
+    scalar). The ids are sorted here (values and positions, on the card, no
+    sync): equal ids become neighbours, and the kernel reads a missed host
+    row once for all of them, in address order. ``max_blocks`` (> 0) caps
+    the kernel's grid."""
     rows_c, slot_map = cache.cache_rows, cache.slot_map
     if ids.dtype != torch.int32 or ids.dim() != 1:
         raise ValueError(f"cached_gather: ids {ids.dtype} "
                          f"{tuple(ids.shape)}")
     host_t = host.on(ids.device)     # raises if not readable there
+    check_host_table("cached_gather", host_t, rows_c)
     if ids.device.type == "cpu":
         return cached_gather_plain(cache, host_t, ids)
     if not (rows_c.device == slot_map.device == ids.device):
         raise ValueError("cached_gather: cache and ids on different "
                          "devices")
     if rows_c.dtype not in (torch.bfloat16, torch.float32) \
-            or host_t.dtype != torch.float32 \
-            or slot_map.dtype != torch.int32 \
-            or rows_c.shape[1] != host_t.shape[1]:
+            or slot_map.dtype != torch.int32:
         raise ValueError(
             f"cached_gather: cache {rows_c.dtype} {tuple(rows_c.shape)}, "
-            f"host {host_t.dtype} {tuple(host_t.shape)}, slot_map "
-            f"{slot_map.dtype}")
+            f"slot_map {slot_map.dtype}")
     rows_c, slot_map = rows_c.contiguous(), slot_map.contiguous()
     sorted_ids, order = sort_ids(ids)
     F = rows_c.shape[1]
@@ -193,7 +209,8 @@ def cached_gather(cache: UnifiedCache, host: HostTable, ids: torch.Tensor,
     hits = torch.zeros((), dtype=torch.int32, device=ids.device)
     rc = kernels.lib().lt_cached_gather(
         rows_c.data_ptr(), slot_map.data_ptr(), slot_map.shape[0],
-        host_t.data_ptr(), host_t.shape[0], sorted_ids.data_ptr(),
+        host_t.data_ptr(), host_t.shape[0], host_t.stride(0),
+        int(host_t.dtype == torch.bfloat16), sorted_ids.data_ptr(),
         order.data_ptr(), ids.shape[0], F,
         int(rows_c.dtype == torch.bfloat16), out.data_ptr(),
         hits.data_ptr(), int(max_blocks), kernels.stream_handle())
@@ -208,7 +225,7 @@ class CachedFeatureSource:
 
     def __init__(self, cache: UnifiedCache, host: HostTable):
         self.cache = cache
-        self.host = host          # [V, F] float32
+        self.host = host          # [V, P] f32, or bf16 for a bf16 cache
         # K4's grid cap
         self.max_blocks = K4_BLOCKS
 

@@ -33,11 +33,12 @@ LT_EXPORT int lt_host_unregister(void* ptr) {
 }
 
 // The link's practical rate for scattered rows: read rows `ids` of a
-// registered host table [*, row_bytes] (base and row_bytes multiples of 16)
-// as K4's miss path does, a warp a row, kProbeRows rows in flight, each row
-// asked for as its `align`-aligned span (16 = the row's own bytes) cut to
-// the table, and fold what arrives into *sink so that no load is dropped.
-// Nothing is converted or stored.
+// registered host table [*, row_bytes] (base a multiple of 16, row_bytes of
+// 2) as K4's miss path does, a warp a row, kProbeRows rows in flight, each
+// row asked for as its `align`-aligned span (16: the 16-byte chunks that
+// hold the row's own bytes, so the same 128-byte lines) cut to the table,
+// and fold what arrives into *sink so that no load is dropped. Nothing is
+// converted or stored.
 constexpr int kProbeRows = 4;
 
 __global__ void __launch_bounds__(kThreads) host_read_probe_kernel(
@@ -96,8 +97,8 @@ LT_EXPORT int lt_host_read_probe(const void* host, int64_t host_rows,
                                  int64_t n, int align, uint32_t* sink,
                                  void* stream) {
   if (n == 0) return (int)cudaSuccess;
-  if ((uintptr_t)host % 16 || row_bytes % 16 || align < 16 || align > 128 ||
-      (align & (align - 1)))
+  if ((uintptr_t)host % 16 || row_bytes <= 0 || row_bytes % 2 ||
+      align < 16 || align > 128 || (align & (align - 1)))
     return (int)cudaErrorInvalidValue;
   const int64_t per_block = kProbeRows * (kThreads / 32);
   int64_t blocks = (n + per_block - 1) / per_block;

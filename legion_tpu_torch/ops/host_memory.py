@@ -39,8 +39,46 @@ from legion_tpu_torch.ops import kernels
 # registered range start -> [end, references]
 _PINNED: Dict[int, List[int]] = {}
 
+# a table's dtype -> the CUDA array interface's typestr of its device view.
+# A uint16 table holds bf16 bits (numpy has no bf16, and the interface no
+# bf16 typestr): it is shared as int16 and both views are torch.bfloat16.
+BF16_BITS = np.dtype(np.uint16)
 _TYPESTR = {np.dtype(np.float32): "<f4", np.dtype(np.int64): "<i8",
-            np.dtype(np.int32): "<i4"}
+            np.dtype(np.int32): "<i4", BF16_BITS: "<i2"}
+
+
+def bf16_pitch(F: int) -> int:
+    """The pitch, in values, of a bf16 host feature table of width F: the
+    row padded to whole 128-byte lines (a multiple of 64 values), unless
+    that makes it longer than the f32 row it replaces; else F. A warp's
+    load from mapped host memory costs one link request for each 128-byte
+    line it touches, so a row of 100 bf16 values reads 2 lines at pitch 128
+    where it reads 2.5 on average at pitch 100 (offsets of 200 B a row),
+    and 4 as f32 (``chip_smoke.py::pitch_probe``)."""
+    P = -(-F // 64) * 64
+    return P if P <= 2 * F else F
+
+
+def bf16_rows(features: np.ndarray, pitch: int,
+              chunk: int = 1 << 10) -> np.ndarray:
+    """[V, pitch] bf16 bits (uint16) of ``features`` [V, F] f32, columns F
+    .. pitch-1 zero: each value rounded to nearest even by the JAX
+    package's host gather (``lg_gather_rows_bf16``), (bits + 0x7fff +
+    ((bits >> 16) & 1)) >> 16 in uint32 arithmetic. That is the cast to
+    bf16 on every value but some NaNs, which a cast keeps NaN: one whose
+    payload lies in the low 16 bits and rounds down is carried to inf, one
+    of 0xFFFF8000 or more wraps to zero. Built ``chunk`` rows at a time, so
+    a memmap is never read into RAM whole as f32."""
+    V, F = features.shape
+    if pitch < F:
+        raise ValueError(f"bf16_rows: pitch {pitch} under the width {F}")
+    out = np.zeros((V, pitch), BF16_BITS)
+    for lo in range(0, V, chunk):
+        b = np.ascontiguousarray(features[lo:lo + chunk],
+                                 np.float32).view(np.uint32)
+        out[lo:lo + chunk, :F] = (b + np.uint32(0x7FFF)
+                                  + ((b >> 16) & np.uint32(1))) >> 16
+    return out
 
 
 def _register(lo: int, hi: int) -> None:
@@ -119,7 +157,8 @@ class _DeviceArray:
 class HostTable:
     """A C-contiguous numpy array in host RAM that kernels read in place.
 
-    ``host`` is a CPU tensor over the same memory (no copy). With
+    ``host`` is a CPU tensor over the same memory (no copy), bf16 for a
+    uint16 array (``BF16_BITS``). With
     ``pin=True`` the array, which must be writable, is registered with the
     card, and ``device`` is a CUDA tensor over the same memory: reading it
     crosses PCIe. The array stays referenced for as long as it is
@@ -137,10 +176,12 @@ class HostTable:
                              "copy a read-only array (a memmap) into RAM "
                              "first")
         self.array = array
+        bf16 = array.dtype == BF16_BITS
         with warnings.catch_warnings():
             # a read-only memmap: torch warns that it may not write to it
             warnings.simplefilter("ignore", UserWarning)
-            self.host = torch.from_numpy(array)
+            self.host = torch.from_numpy(array.view(np.int16) if bf16
+                                         else array)
         self.device: Optional[torch.Tensor] = None
         self._ranges: List[int] = []
         if pin and array.nbytes:
@@ -148,6 +189,10 @@ class HostTable:
             self._ranges = pin_range(ptr, array.nbytes)
             self.device = torch.as_tensor(_DeviceArray(ptr, array),
                                           device="cuda")
+        if bf16:
+            self.host = self.host.view(torch.bfloat16)
+            if self.device is not None:
+                self.device = self.device.view(torch.bfloat16)
 
     @property
     def shape(self):

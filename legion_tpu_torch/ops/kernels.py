@@ -157,8 +157,8 @@ def lib() -> ctypes.CDLL:
     so.lt_segment_sum_bf16.argtypes = [p, p, p, i64, i64, i64, i64, p]
     for fn in (so.lt_windowed_draw_i32, so.lt_windowed_draw_i64):
         fn.argtypes = [p, p, p, p, i64, i32, i32, i64, p, p]
-    so.lt_cached_gather.argtypes = [p, p, i64, p, i64, p, p, i64, i64, i32,
-                                    p, p, i64, p]
+    so.lt_cached_gather.argtypes = [p, p, i64, p, i64, i64, i32, p, p, i64,
+                                    i64, i32, p, p, i64, p]
     for fn in (so.lt_csr_draw_i32, so.lt_csr_draw_i64):
         fn.argtypes = [p, i64, i32, p, p, p, p, p, i64, p, p, p]
     so.lt_gat_attend_fwd.argtypes = [p, p, p, p, p, p, f32, f32, p, p, p,
@@ -186,8 +186,8 @@ def lib() -> ctypes.CDLL:
     so.lt_hash_lookup.argtypes = [p, p, i64, i32, p, i64, p, p]
     so.lt_bucket_grid.argtypes = [i64, i64]
     so.lt_bucket_by_owner.argtypes = [p, i64, i64, i32, i32, p, p, p, p, p]
-    so.lt_clique_gather.argtypes = [p, p, p, i64, p, p, i64, i64, i32, p, p,
-                                    i64, i32, i64, p]
+    so.lt_clique_gather.argtypes = [p, p, p, i64, i64, i32, p, p, i64, i64,
+                                    i32, p, p, i64, i32, i64, p]
     for fn in (so.lt_clique_draw_i32, so.lt_clique_draw_i64):
         fn.argtypes = [p, p, i64, i64, i32, p, i64, i32, i64, i32, p, i32,
                        p, p]

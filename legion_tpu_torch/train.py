@@ -90,9 +90,12 @@ read-only array or a file mapping (the memmaps of ``LegionDataset.load``)
 is copied into RAM once (``in_ram``) before it is registered. Pinning locks
 every page of a table in RAM anyway, so the copy costs the RAM that
 pinning the mapped pages would, and the page cache of the files stays
-reclaimable. ``setup_s`` records the copy's seconds and bytes, and the
-registration's seconds. A dataset's arrays that go to the card are copied
-there as they are.
+reclaimable. With a bf16 feature cache the host feature table is bf16
+rows built once from the f32 features (``_feature_table``), and the f32
+array is read only by the cache fill, in place. ``setup_s`` records the
+copy's seconds and bytes, the bf16 table's, and the registration's
+seconds. A dataset's arrays that go to the card are copied there as they
+are.
 
 Checkpoints (``utils/checkpoint.py``): ``fit`` saves every
 ``checkpoint_every`` epochs; a state restored into a trainer takes the
@@ -127,7 +130,7 @@ from legion_tpu_torch.config import LegionConfig
 from legion_tpu_torch.models.common import make_model
 from legion_tpu_torch.models.lp_sage import check_thirds
 from legion_tpu_torch.ops import kernels
-from legion_tpu_torch.ops.host_memory import HostTable
+from legion_tpu_torch.ops.host_memory import HostTable, bf16_pitch, bf16_rows
 from legion_tpu_torch.parallel.mesh import Mesh, all_reduce, dp_size
 from legion_tpu_torch.pipeline.schedule import Mode, Schedule
 from legion_tpu_torch.sampling.access import (CachedTopoAccess,
@@ -371,6 +374,24 @@ class Trainer:
         self._host_tables.append(t)
         return t
 
+    def _feature_table(self, features: np.ndarray,
+                       feat_dtype: str) -> HostTable:
+        """The host feature table that K4 and K13 read a miss from, in the
+        cache's dtype, as the JAX package ships a miss
+        (``legion_tpu/cache/unified_cache.py:254-259``): for a bf16 cache,
+        bf16 rows at ``bf16_pitch`` built once from ``features``
+        (``bf16_rows``: half the link's bytes of an f32 row, the same bits
+        as the kernels' own rounding), its seconds and bytes in
+        ``setup_s["bf16_table"]`` and ``["bf16_table_bytes"]``; for an f32
+        cache, the f32 array (``_host_table``)."""
+        if feat_dtype != "bfloat16":
+            return self._host_table(features, np.float32)
+        t0 = time.perf_counter()
+        table = bf16_rows(features, bf16_pitch(features.shape[1]))
+        self.setup_s["bf16_table"] += time.perf_counter() - t0
+        self.setup_s["bf16_table_bytes"] += table.nbytes
+        return self._host_table(table, table.dtype)
+
     def _setup_storage(self, train_set0: np.ndarray) -> None:
         """Residency and the PreSc pipeline (``legion_tpu/train.py::
         Trainer._setup_storage``, its single-device, non-staged branch):
@@ -407,7 +428,13 @@ class Trainer:
         # and the bytes copied into RAM for host tables
         self.setup_s: Dict[str, float] = {"ram_copy": 0.0,
                                           "ram_copy_bytes": 0,
+                                          "bf16_table": 0.0,
+                                          "bf16_table_bytes": 0,
                                           "register": 0.0}
+        # a cache stored in bf16 holds twice the rows of a byte budget,
+        # and its misses come from a bf16 host table
+        feat_dtype = "bfloat16" \
+            if config.train.compute_dtype == "bfloat16" else "float32"
         if hasattr(dataset, "device_arrays"):
             if cache_cfg.enabled:
                 raise ValueError("host-cached storage needs a host dataset")
@@ -415,10 +442,15 @@ class Trainer:
             base_access = _hbm_access(self.csr)
             degrees = self.csr.degrees()
         else:
-            # the table K4 reads is in RAM; to the card, the array as it is
-            feats = host_feats = self._in_ram(dataset.features, np.float32) \
-                if feat_host else np.ascontiguousarray(dataset.features,
-                                                       np.float32)
+            # the f32 table K4 reads is in RAM (a bf16 one is built from
+            # the array as it is); to the card, the array as it is
+            if not feat_host:
+                feats = np.ascontiguousarray(dataset.features, np.float32)
+            elif feat_dtype == "bfloat16":
+                feats = dataset.features
+            else:
+                feats = self._in_ram(dataset.features, np.float32)
+            host_feats = feats
             if topo_host:
                 # presampling reads adjacency from host memory, as the
                 # reference's UVA pre_sample (operator_impl.cu:301-397)
@@ -484,9 +516,6 @@ class Trainer:
             self.feature_source = DeviceFeatureSource(table.contiguous())
             return
 
-        # a cache stored in bf16 holds twice the rows of a byte budget
-        feat_dtype = "bfloat16" \
-            if config.train.compute_dtype == "bfloat16" else "float32"
         bpf = 2 if feat_dtype == "bfloat16" else 4
         ea_eff = ea if topo_host else torch.zeros_like(ea)
         na_eff = na if feat_host else torch.zeros_like(na)
@@ -524,7 +553,7 @@ class Trainer:
                 raise ValueError("feature cache budget resolved to zero "
                                  "rows")
             self.feature_source = CachedFeatureSource(
-                cache, self._host_table(host_feats, np.float32))
+                cache, self._feature_table(host_feats, feat_dtype))
         else:
             self.feature_source = DeviceFeatureSource(
                 torch.from_numpy(host_feats).to(dev))
@@ -577,7 +606,7 @@ class Trainer:
                 host_feats, Kg, feat_dtype=feat_dtype, map_impl=map_impl,
                 device=dev, owners=owners)
             self.feature_source = CliqueFeatureCache(
-                slot_map, rows, self._host_table(host_feats, np.float32),
+                slot_map, rows, self._feature_table(host_feats, feat_dtype),
                 Kg, Kc, group=group, first_owner=o0)
         else:
             self.feature_source = DeviceFeatureSource(

@@ -38,7 +38,7 @@ from legion_tpu_torch.data import (LegionDataset, infer_meta,
                                    synthesize_dataset, write_legion_dataset)
 from legion_tpu_torch.graph import DeviceCSR
 from legion_tpu_torch.ops import host_memory
-from legion_tpu_torch.ops.host_memory import HostTable
+from legion_tpu_torch.ops.host_memory import HostTable, bf16_pitch, bf16_rows
 from legion_tpu_torch.sampling import access
 from legion_tpu_torch.sampling.access import CachedTopoAccess, DeviceCSRAccess
 from legion_tpu_torch.sampling.sampler import NeighborSampler
@@ -141,11 +141,29 @@ def _ids(jds, plan, rng, n=700):
     return rng.permutation(ids).astype(np.int32)
 
 
-@pytest.mark.parametrize("feat_dtype", ["float32", "bfloat16"])
-def test_cached_fetch_matches_jax(jds, feat_dtype):
+def host_rows_table(features, table):
+    """A fetch's host table: the f32 features ("f32"), or their bf16 rows
+    ("bf16"), padded by ``+k`` columns ("bf16+28": the trainer's pitch of
+    128 for 100 columns, ``bf16_pitch``)."""
+    if table == "f32":
+        return HostTable(features, pin=False)
+    pad = int(table.partition("+")[2] or 0)
+    return HostTable(bf16_rows(features, features.shape[1] + pad),
+                     pin=False)
+
+
+# (cache dtype, host table): an f32 cache reads f32 rows; a bf16 cache
+# reads the f32 rows and rounds them, or the bf16 rows the trainer builds
+FETCH_TABLES = [("float32", "f32"), ("bfloat16", "f32"),
+                ("bfloat16", "bf16"), ("bfloat16", "bf16+28")]
+
+
+@pytest.mark.parametrize("feat_dtype,table", FETCH_TABLES)
+def test_cached_fetch_matches_jax(jds, feat_dtype, table):
     """The port's CachedFeatureSource.fetch (K4's plain version) against
-    JAX's, jitted with its pure_callback: the same rows and hit count,
-    and the same rows as DeviceFeatureSource on the cast table."""
+    JAX's, jitted with its pure_callback, over each host table the cache
+    may read: the same rows and hit count, and the same rows as
+    DeviceFeatureSource on the cast table."""
     jplan, plan = _plan(jds, 500, 0)
     jc = JCache.build_from_host(jplan, jds.features, None, None, V,
                                 feat_dtype=feat_dtype)
@@ -153,7 +171,7 @@ def test_cached_fetch_matches_jax(jds, feat_dtype):
     xj, hj = jax.jit(lambda c, i: JCached(c, jds.features).fetch(i))(
         jc, jnp.asarray(ids))
     src = CachedFeatureSource(cache_from_jax(jc),
-                              HostTable(jds.features, pin=False))
+                              host_rows_table(jds.features, table))
     xp, hp = src.fetch(torch.from_numpy(ids))
     np.testing.assert_array_equal(_bits(xp), _bits(xj))
     assert hp.dtype == torch.int32 and int(hp) == int(hj)
@@ -558,8 +576,9 @@ def test_host_dataset_files_and_generator_match_jax(jds, tmp_path):
     t = HostTable(np.ascontiguousarray(loaded.features, np.float32),
                   pin=False)
     assert t.host.data_ptr() == loaded.features.ctypes.data  # no copy
-    # a cached trainer copies the read-only memmap into RAM once (the
-    # table it registers must be writable) and steps
+    # a cached trainer (a bf16 cache) builds its host table of bf16 rows
+    # from the read-only memmap (the table it registers must be writable
+    # RAM), copies no f32 features, and steps
     cfg = LegionConfig(
         dataset=meta,
         sampler=SamplerConfig(fanouts=(5, 3), batch_size=64,
@@ -573,7 +592,11 @@ def test_host_dataset_files_and_generator_match_jax(jds, tmp_path):
     table = tr.feature_source.host.array
     assert table.ctypes.data != loaded.features.ctypes.data
     assert table.flags.writeable
-    np.testing.assert_array_equal(table, loaded.features)
+    np.testing.assert_array_equal(
+        table, bf16_rows(np.asarray(loaded.features),
+                         bf16_pitch(meta.feature_dim)))
+    assert tr.setup_s["ram_copy_bytes"] == \
+        loaded.graph.indptr.nbytes + loaded.graph.indices.nbytes
     _, loss = tr.train_step(tr.init_state())
     assert np.isfinite(float(loss)) and 0 < int(tr.last_feat_hits) \
         < int(tr.last_slots)

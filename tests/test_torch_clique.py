@@ -40,7 +40,7 @@ from legion_tpu_torch.config import (CacheConfig, LegionConfig, MeshConfig,
 from legion_tpu_torch.data import synthesize_dataset
 from legion_tpu_torch.graph import DeviceCSR
 from legion_tpu_torch.ops import kernels
-from legion_tpu_torch.ops.host_memory import HostTable
+from legion_tpu_torch.ops.host_memory import HostTable, bf16_rows
 from legion_tpu_torch.pipeline import Mode
 from legion_tpu_torch.sampling.access import CachedTopoAccess
 from legion_tpu_torch.sampling.sampler import NeighborSampler
@@ -225,13 +225,20 @@ def _jax_fetch(jcache, member_rows, ids, cached_only):
 
 @pytest.mark.parametrize("case", ["mixed", "all miss", "no miss",
                                   "overflow"])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_fetch_equals_jax(feats, case, dtype):
+@pytest.mark.parametrize("dtype,table", [
+    ("float32", "f32"), ("bfloat16", "f32"), ("bfloat16", "bf16"),
+    ("bfloat16", "bf16+40")])
+def test_fetch_equals_jax(feats, case, dtype, table):
+    """The clique fetch against JAX's in ``shard_map``, over each host
+    table its misses may read (f32 rows; a bf16 cache's bf16 rows, at
+    the width and padded to 64 columns, whole 128-byte lines)."""
     f, order = feats
     jm, jrows, R = jax_build_cache(order, 240, f, Kg, feat_dtype=dtype)
     pm, prows, _ = build_clique_cache(order, 240, f, Kg, feat_dtype=dtype)
     jcache = JFeat(jnp.asarray(jm), f, Kg, R)
-    host = HostTable(f, pin=False)
+    host = HostTable(f, pin=False) if table == "f32" else HostTable(
+        bf16_rows(f, f.shape[1] + int(table.partition("+")[2] or 0)),
+        pin=False)
     pcache = CliqueFeatureCache(pm, prows, host, Kg)
     ids = _member_ids(order, case)
     it = torch.from_numpy(ids)

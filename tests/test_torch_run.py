@@ -22,7 +22,7 @@ from legion_tpu_torch.data import (LegionDataset, synthesize_dataset,
                                    synthesize_device_dataset,
                                    write_legion_dataset)
 from legion_tpu_torch.data.format import infer_meta
-from legion_tpu_torch.ops.host_memory import HostTable
+from legion_tpu_torch.ops.host_memory import HostTable, bf16_pitch, bf16_rows
 from legion_tpu_torch.tools import prepare
 from legion_tpu_torch.train import Trainer, in_ram
 from legion_tpu_torch.utils import (latest_step, restore_checkpoint,
@@ -442,9 +442,10 @@ def test_launcher_synthetic(tmp_path):
 
 
 def test_launcher_prepared_dataset_in_host_mode_and_resume(tmp_path):
-    """prepare -> the launcher in host mode (the features a RAM copy of the
-    memmap, the cache on) with a checkpoint -> ``--resume``: finite
-    losses, and the resumed counters as saved."""
+    """prepare -> the launcher in host mode (the cache on, bf16: the host
+    features the bf16 rows of the memmap, built in RAM, the f32 memmap
+    never copied) with a checkpoint -> ``--resume``: finite losses, and
+    the resumed counters as saved."""
     d = _prepared_dir(tmp_path)
     ck = str(tmp_path / "ck")
     argv = ["--dataset-name", "custom", "--dataset-path", d, "--features",
@@ -454,7 +455,10 @@ def test_launcher_prepared_dataset_in_host_mode_and_resume(tmp_path):
     tr, st, stats = run.main(argv)
     n = tr.schedule.train_step
     assert tr.cache_plan is not None
-    assert tr.setup_s["ram_copy_bytes"] == tr.dataset.features.nbytes
+    V, F = tr.dataset.features.shape
+    assert tr.setup_s["ram_copy_bytes"] == 0
+    assert tr.setup_s["bf16_table_bytes"] == V * bf16_pitch(F) * 2 == \
+        tr.feature_source.host.array.nbytes
     assert tr.feature_source.host.array.flags.writeable
     assert np.isfinite(stats[0].train_loss) and latest_step(ck) == n
     saved = {k: st[k] for k in ("train_ctr", "valid_ctr", "test_ctr")}
@@ -499,8 +503,10 @@ def test_in_ram_copies_read_only_and_file_backed_arrays(tmp_path):
 
 def test_trainer_copies_a_dataset_on_disk_into_ram(tmp_path):
     """A LegionDataset on disk in host mode (features and topology on the
-    host): every host table is a writable RAM copy equal to its memmap,
-    ``setup_s`` counts the copied bytes, and the trainer steps."""
+    host, a bf16 cache): every host table is writable RAM, the topology's
+    a copy equal to its memmap, the features' the bf16 rows of theirs;
+    ``setup_s`` counts the copied bytes and the bf16 table's, and the
+    trainer steps."""
     hds = synthesize_dataset(num_nodes=1500, avg_degree=8, feature_dim=24,
                              num_classes=4, batch_size=64, seed=2)
     d = str(tmp_path / "ds")
@@ -521,12 +527,15 @@ def test_trainer_copies_a_dataset_on_disk_into_ram(tmp_path):
     srcs = (loaded.graph.indptr, loaded.graph.indices, loaded.features)
     assert not any(s.flags.writeable for s in srcs)
     assert len(tr._host_tables) == 3
-    for t, src in zip(tr._host_tables, srcs):
+    refs = (srcs[0], srcs[1], bf16_rows(np.asarray(srcs[2]),
+                                        bf16_pitch(24)))
+    for t, ref in zip(tr._host_tables, refs):
         assert t.array.flags.writeable
-        np.testing.assert_array_equal(t.array, np.asarray(src))
+        np.testing.assert_array_equal(t.array, np.asarray(ref))
     assert {t.array.ctypes.data for t in tr._host_tables}.isdisjoint(
         {np.asarray(s).ctypes.data for s in srcs})
-    assert tr.setup_s["ram_copy_bytes"] == sum(s.nbytes for s in srcs)
+    assert tr.setup_s["ram_copy_bytes"] == sum(s.nbytes for s in srcs[:2])
+    assert tr.setup_s["bf16_table_bytes"] == refs[2].nbytes == 1500 * 24 * 2
     _, loss = tr.train_step(tr.init_state())
     assert np.isfinite(float(loss))
     tr.close()

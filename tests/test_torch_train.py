@@ -36,6 +36,7 @@ from legion_tpu_torch.config import (CacheConfig, LegionConfig, MeshConfig,
 from legion_tpu_torch.data import synthesize_dataset as host_synth
 from legion_tpu_torch.data import synthesize_device_dataset
 from legion_tpu_torch.ops import kernels
+from legion_tpu_torch.ops.host_memory import bf16_pitch, bf16_rows
 from legion_tpu_torch.pipeline import Mode
 from legion_tpu_torch.train import Trainer
 from legion_tpu_torch.utils.convert import (batch_from_jax, cache_from_jax,
@@ -240,10 +241,11 @@ def test_one_host_cached_train_step_matches_jax(jax_host_dataset,
 @pytest.mark.parametrize("topo_residency", ["hbm", "host"])
 def test_cached_trainer_steps_evaluates_and_fits_on_cpu(topo_residency):
     """A Trainer on a host LegionDataset with a partial feature cache
-    (and a host topology): the graph and features stay host numpy arrays
-    (not copied), train steps are finite, the cache serves some but not
-    all fetched slots (last_feat_hits < last_slots), and fit's epoch
-    metrics count the same hits."""
+    (and a host topology): the graph stays host numpy arrays (not copied),
+    the misses come from the bf16 rows of the features (the cache is
+    bf16), train steps are finite, the cache serves some but not all
+    fetched slots (last_feat_hits < last_slots), and fit's epoch metrics
+    count the same hits."""
     ds = host_synth(num_nodes=3000, avg_degree=20, feature_dim=100,
                     num_classes=8, batch_size=64, train_frac=0.08, seed=0)
     cfg = replace(_tiny_config(ds), cache=CacheConfig(
@@ -252,7 +254,9 @@ def test_cached_trainer_steps_evaluates_and_fits_on_cpu(topo_residency):
     tr = Trainer(ds, cfg, device="cpu")
     plan = tr.cache_plan
     assert 0 < plan.feature_capacity < 3000 and tr.feat_pad == 100
-    assert tr.feature_source.host.array is ds.features
+    np.testing.assert_array_equal(tr.feature_source.host.array,
+                                  bf16_rows(ds.features, bf16_pitch(100)))
+    assert tr.setup_s["ram_copy_bytes"] == 0
     if topo_residency == "host":
         assert tr.csr is None
         assert tr.graph_access.host_indptr.array is ds.graph.indptr
