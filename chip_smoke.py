@@ -1425,41 +1425,45 @@ def phase_slice(tr, torch, path):
 class StepRecorder:
     """Records what each train step of ``tr`` sampled and which dropout
     masks it drew, on the card, into rows indexed by the step's counter:
-    wrappers around the train sampler's ``sample`` and the models'
-    ``dropout_keep`` copy each batch's ids and per-hop edge counts, and a
-    checksum of each mask (its count of kept entries and the sum of their
-    flat positions), to row ``state["train_ctr_d"] - 1`` (K10 has advanced
-    the counter when the sampler runs; an ``interbatch`` state's batches
-    go to row ``state["carry_ctr_d"] - 1``, on the stream that samples
-    them). Inside a captured step the copies are captured too, so a
-    replay records its own step."""
+    a wrapper around the trainer's ``_batch`` copies every member's ids
+    and per-hop edge counts of each train batch to row ``state[ctr +
+    "_d"] - 1`` (K10 has advanced the counter: ``train_ctr_d`` in a plain
+    step, ``carry_ctr_d`` for an ``interbatch`` state's carry, on the
+    stream that samples it), and a wrapper around the models'
+    ``dropout_keep`` a checksum of each mask (its count of kept entries
+    and the sum of their flat positions) to row ``train_ctr_d - 1``.
+    Inside a captured step the copies are captured too, so a replay
+    records its own step."""
 
-    MASKS = 8      # dropout calls a step at most
+    MASKS = 8      # dropout calls of a member's step at most
 
     def __init__(self, tr, torch, steps):
         from legion_tpu_torch.models import common, gat
-        s = tr.sampler_t
-        self.torch, self.steps = torch, steps
-        self.ids = torch.zeros((steps, s.ids_len), dtype=torch.int32,
+        s, n = tr.sampler_t, tr.n_local
+        self.tr, self.torch, self.steps = tr, torch, steps
+        self.ids = torch.zeros((steps, n, s.ids_len), dtype=torch.int32,
                                device="cuda")
-        self.edges = torch.zeros((steps, s.config.num_hops),
+        self.edges = torch.zeros((steps, n, s.config.num_hops),
                                  dtype=torch.int32, device="cuda")
-        self.masks = torch.zeros((steps, self.MASKS, 2), dtype=torch.int64,
-                                 device="cuda")
+        self.masks = torch.zeros((steps, self.MASKS * n, 2),
+                                 dtype=torch.int64, device="cuda")
         self.state, self.j = None, 0
-        orig_sample, orig_keep = s.sample, common.dropout_keep
+        orig_batch, orig_keep = tr._batch, common.dropout_keep
 
-        def slot(ctr="train_ctr_d"):
-            return (self.state[ctr] - 1).remainder(steps).view(1)
+        def slot(state, ctr):
+            return (state[ctr + "_d"] - 1).remainder(steps).view(1)
 
-        def sample(*a, **kw):
-            b = orig_sample(*a, **kw)
-            self.j = 0
-            row = slot("carry_ctr_d" if "carry_ctr_d" in self.state
-                       else "train_ctr_d")
-            self.ids.index_copy_(0, row, b.node_ids.view(1, -1))
-            self.edges.index_copy_(0, row, b.num_edges.view(1, -1))
-            return b
+        def batch(state, sampler, bank, ybank, n_steps, ctr, tag):
+            out = orig_batch(state, sampler, bank, ybank, n_steps, ctr, tag)
+            if sampler is s:
+                bs = (out[0],) if tr.n_dev == 1 else out[0]
+                row = slot(state, ctr)
+                self.j = 0
+                self.ids.index_copy_(0, row, torch.stack(
+                    [b.node_ids for b in bs])[None])
+                self.edges.index_copy_(0, row, torch.stack(
+                    [b.num_edges for b in bs])[None])
+            return out
 
         def keep(*a, **kw):
             out = orig_keep(*a, **kw)
@@ -1468,12 +1472,12 @@ class StepRecorder:
                 pos = torch.arange(m.numel(), device="cuda")
                 row = torch.stack([m.sum(dtype=torch.int64),
                                    torch.where(m, pos, 0).sum()])
-                self.masks[:, self.j].index_copy_(0, slot(), row.view(1, 2))
+                self.masks[:, self.j].index_copy_(
+                    0, slot(self.state, "train_ctr"), row.view(1, 2))
                 self.j += 1
             return out
-        s.sample = sample
-        self._undo = [(s, "sample", orig_sample),
-                      (common, "dropout_keep", orig_keep),
+        tr._batch = batch
+        self._undo = [(common, "dropout_keep", orig_keep),
                       (gat, "dropout_keep", orig_keep)]
         common.dropout_keep = gat.dropout_keep = keep
 
@@ -1488,11 +1492,14 @@ class StepRecorder:
         return self.ids.clone(), self.edges.clone(), self.masks.clone()
 
     def close(self):
+        del self.tr._batch              # back to the class's method
         for obj, name, orig in self._undo:
-            if name == "sample":
-                del obj.sample          # back to the class's method
-            else:
-                setattr(obj, name, orig)
+            setattr(obj, name, orig)
+
+
+def coll_per_step(coll, steps):
+    """``COLLECTIVES`` counts over ``steps`` steps, a step."""
+    return {k: {f: n / steps for f, n in v.items()} for k, v in coll.items()}
 
 
 def rel_norm(params, ref):
@@ -1514,7 +1521,11 @@ def phase_fused(tr, torch, path, calls=2):
     the tolerance below, the position map is clean (map dedup), and the
     captured step launched every kernel of ``PATH_KERNELS[path]`` (the
     launches a fused path's step counts are the captured ones: a replay
-    runs no Python).
+    runs no Python). With members, every member's ids and masks. With a
+    process group, prints the collectives a step both ways, and fails
+    unless ``COLLECTIVES`` counted each replay's captured collectives
+    (``Trainer.graph_collectives``) and one all-reduce of the counters a
+    call.
 
     Tolerance: K2's and K7's backward sum in f32 by atomics, in an order
     that changes from run to run, so neither two eager runs nor a replay
@@ -1526,6 +1537,7 @@ def phase_fused(tr, torch, path, calls=2):
     update, moves them by far more, and the ids and masks are held
     exactly besides."""
     from legion_tpu_torch.ops import kernels
+    from legion_tpu_torch.parallel import mesh as pmesh
     K = FUSED_K
     steps = K * calls
     rec = StepRecorder(tr, torch, steps)
@@ -1533,7 +1545,9 @@ def phase_fused(tr, torch, path, calls=2):
         tr.fused_steps = 1
         state = tr.init_state()
         rec.bind(state)
+        pmesh.reset_collective_counts()
         eager = [tr.train_step(state)[1] for _ in range(steps)]
+        coll_e = pmesh.collective_counts()
         eager_loss = [float(torch.stack(eager[c * K:(c + 1) * K]).mean())
                       for c in range(calls)]
         params_e = [p.detach().clone() for p in state["model"].parameters()]
@@ -1543,11 +1557,14 @@ def phase_fused(tr, torch, path, calls=2):
         state = tr.init_state()
         rec.bind(state)
         kernels.reset_launch_counts()
+        pmesh.reset_collective_counts()
         t0 = time.perf_counter()
         fused = [float(tr.train_step(state)[1]) for _ in range(calls)]
         first_s = time.perf_counter() - t0
+        coll_f = pmesh.collective_counts()
         ids_f, edges_f, masks_f = rec.take()
         graph = dict(tr.graph_launches)
+        graph_coll = tr.graph_collectives
         launched = dict(kernels.LAUNCHES)
     finally:
         rec.close()
@@ -1558,7 +1575,7 @@ def phase_fused(tr, torch, path, calls=2):
     bad = [i for i in range(steps) if not (
         torch.equal(ids_e[i], ids_f[i]) and torch.equal(edges_e[i],
                                                         edges_f[i]))]
-    if bad or not bool((edges_e.sum(1) > 0).all()):
+    if bad or not bool((edges_e.sum((1, 2)) > 0).all()):
         fail(f"fused {path}: the sampled batches of steps {bad} differ from "
              "the eager steps'")
     n_masks = int((masks_e[0, :, 0] > 0).sum())
@@ -1581,6 +1598,19 @@ def phase_fused(tr, torch, path, calls=2):
         fail(f"fused {path}: the position map is not clean after replays")
     per_step = {k: v for k, v in graph.items() if v}
     print(f"  fused {path}: launches of the captured step {per_step}")
+    if tr._world is not None:
+        # a call: K steps' captured collectives (the eager first step
+        # counts as many), and what an eager step makes besides them once
+        # (the all-reduce of the counters)
+        want = {k: {f: steps * n + calls * (coll_e[k][f] // steps - n)
+                    for f, n in v.items()} for k, v in graph_coll.items()}
+        print(f"  fused {path}: collectives a step, eager "
+              f"{coll_per_step(coll_e, steps)} | replayed (COLLECTIVES) "
+              f"{coll_per_step(coll_f, steps)} | the captured step's "
+              f"{graph_coll}")
+        if coll_f != want or graph_coll["all_reduce"]["calls"] < 2:
+            fail(f"fused {path}: COLLECTIVES {coll_f} under replay, want "
+                 f"{want} ({calls} calls of {K} steps)")
     for name in PATH_KERNELS[path]:
         if graph.get(name, 0) <= 0:
             fail(f"fused {path}: the captured step launched no {name}")
@@ -1631,31 +1661,37 @@ def device_windows(prof, steps):
         len(by_stream)
 
 
-def ab_run(tr, torch, interbatch):
-    """One run of ``phase_interbatch``'s A/B from a fresh state:
-    WARMUP_STEPS steps, AB_STEPS steps timed by the host clock ending in
-    a sync (ms a step, and the host's ms a step before the sync: what
-    launching a step costs it while the launch queue has room), then
-    AB_PROFILED steps under ``torch.profiler`` (``device_windows``)."""
+def ab_run(tr, torch, interbatch, K=1):
+    """One run of an A/B from a fresh state, with ``interbatch`` or
+    ``fused_steps`` K: WARMUP_STEPS steps (a fused run's capture among
+    them), AB_STEPS steps timed by the host clock ending in a sync (ms a
+    step, and the host's ms a step before the sync: what launching a step
+    costs it while the launch queue has room), then AB_PROFILED steps
+    under ``torch.profiler`` (``device_windows``); a fused run takes
+    whole calls, each count rounded up to a multiple of K."""
     from torch.profiler import ProfilerActivity, profile
-    tr.interbatch = interbatch
+    tr.interbatch, tr.fused_steps = interbatch, K
     state = tr.init_state()
-    for _ in range(WARMUP_STEPS):
-        state, _ = tr.train_step(state)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(AB_STEPS):
-        state, _ = tr.train_step(state)
-    t1 = time.perf_counter()
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) / AB_STEPS * 1e3
-    host = (t1 - t0) / AB_STEPS * 1e3
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(AB_PROFILED):
+    try:
+        for _ in range(-(-WARMUP_STEPS // K)):
             state, _ = tr.train_step(state)
         torch.cuda.synchronize()
-    tr.interbatch = False
-    return ms, host, *device_windows(prof, AB_PROFILED)
+        calls = -(-AB_STEPS // K)
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            state, _ = tr.train_step(state)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / (calls * K) * 1e3
+        host = (t1 - t0) / (calls * K) * 1e3
+        pcalls = -(-AB_PROFILED // K)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(pcalls):
+                state, _ = tr.train_step(state)
+            torch.cuda.synchronize()
+    finally:
+        tr.interbatch, tr.fused_steps = False, 1
+    return ms, host, *device_windows(prof, pcalls * K)
 
 
 def table_step_ab(tr, torch, path):
@@ -1703,29 +1739,19 @@ def ab_line(label, ms, host, win, streams):
             f"{overlap:.3f} ms/step | {streams} stream(s)")
 
 
-def phase_interbatch(tr, torch, path):
+def interbatch_check(tr, torch, path):
     """``interbatch`` on ``path``: IB_STEPS pipelined steps against as many
     plain eager steps from a fresh ``init_state`` each (the same seeded
     weights, counters and key), then a valid pass. Fails unless every
     step's sampled ids and per-hop edge counts and every dropout mask's
-    checksum are equal exactly (``StepRecorder``; the carry's batches land
-    in the rows of their own counter), losses and parameters agree within
-    ``phase_fused``'s tolerance (K2's and K7's atomics), the launches of
-    the two runs are equal and cover ``PATH_KERNELS[path]``, the counters
-    count trained batches, and the position map is clean (map dedup).
-
-    Then an A/B in this call: plain, interbatch, interbatch, plain
-    (``ab_run``): ms a step, busy / span, the idle share and the time a
-    step in which the two streams run at once. In host mode (H, HT), K4
-    alone at the path's fetch under each grid cap of ``K4_CAPS``, then
-    under the two ends of the range in turn ``K4_PAIRS`` times more (its
-    ms, the two ends' medians, and exact against the trainer's grid),
-    then a plain and an interbatch run with K4's grid at the other end of
-    the range (1056 if the trainer's is smaller, else 66). Returns the
-    A/B's ms a step."""
+    checksum are equal exactly, every member's with members
+    (``StepRecorder``; the carry's batches land in the rows of their own
+    counter), losses and parameters agree within ``phase_fused``'s
+    tolerance (K2's and K7's atomics), the launches of the two runs are
+    equal and cover ``PATH_KERNELS[path]``, the counters count trained
+    batches, and the position map is clean (map dedup)."""
     from legion_tpu_torch.ops import kernels
     from legion_tpu_torch.pipeline import Mode
-    t_phase = time.perf_counter()
     n = IB_STEPS
     rec = StepRecorder(tr, torch, n + 1)
     got = {}
@@ -1761,7 +1787,7 @@ def phase_interbatch(tr, torch, path):
              "in the eval pass")
     bad = [i for i in range(n) if not (torch.equal(ids_p[i], ids_i[i])
                                        and torch.equal(e_p[i], e_i[i]))]
-    if bad or not bool((e_p.sum(1) > 0).all()):
+    if bad or not bool((e_p.sum((1, 2)) > 0).all()):
         fail(f"interbatch {path}: the sampled batches of steps {bad} differ "
              "from the plain steps'")
     if not torch.equal(m_p, m_i):
@@ -1789,6 +1815,20 @@ def phase_interbatch(tr, torch, path):
         fail(f"interbatch {path}: no launch of {missing}")
     print(f"  interbatch {path}: launches in {n} steps (equal to the plain "
           f"steps'): { {k: v for k, v in la_i.items() if v} }")
+
+
+def phase_interbatch(tr, torch, path):
+    """``interbatch_check`` on ``path``, then an A/B in this call: plain,
+    interbatch, interbatch, plain (``ab_run``): ms a step, busy / span,
+    the idle share and the time a step in which the two streams run at
+    once. In host mode (H, HT), K4 alone at the path's fetch under each
+    grid cap of ``K4_CAPS``, then under the two ends of the range in turn
+    ``K4_PAIRS`` times more (its ms, the two ends' medians, and exact
+    against the trainer's grid), then a plain and an interbatch run with
+    K4's grid at the other end of the range (1056 if the trainer's is
+    smaller, else 66). Returns the A/B's ms a step."""
+    t_phase = time.perf_counter()
+    interbatch_check(tr, torch, path)
 
     fs = tr.feature_source
     grid = f", K4 grid {fs.max_blocks}" if hasattr(fs, "max_blocks") else ""
@@ -1837,6 +1877,41 @@ def phase_interbatch(tr, torch, path):
             fs.max_blocks = grid
     print(f"  interbatch {path}: {time.perf_counter() - t_phase:.1f} s")
     return {k: [r[0] for r in v] for k, v in ab.items()}
+
+
+def phase_modes(tr, torch, path):
+    """The two modes of a path whose steps take members or a process
+    group: ``phase_fused`` and ``interbatch_check``, then an A/B in this
+    call: plain, ``fused_steps`` FUSED_K, interbatch, plain (``ab_run``):
+    ms a step, busy / span, the idle share and the time a step in which
+    two streams run at once. Returns {mode: [(ms a step, idle share)]}."""
+    t0 = time.perf_counter()
+    phase_fused(tr, torch, path)
+    interbatch_check(tr, torch, path)
+    print(f"  modes {path}: A/B in turn, {AB_STEPS} steps each after "
+          f"{WARMUP_STEPS} warm-up, then {AB_PROFILED} profiled (whole "
+          f"calls of {FUSED_K} when fused)")
+    ab = {}
+    for label, ib, K in (("plain", False, 1),
+                         (f"fused {FUSED_K}", False, FUSED_K),
+                         ("interbatch", True, 1), ("plain", False, 1)):
+        r = ab_run(tr, torch, ib, K)
+        _, union, span, _ = r[2]
+        ab.setdefault(label, []).append((r[0], 1 - union / span))
+        print(ab_line(label, *r))
+    print(f"  modes {path}: {time.perf_counter() - t0:.1f} s")
+    return ab
+
+
+def print_modes(modes):
+    """The A/B lines of ``phase_modes`` by path."""
+    print("modes A/B with members and in worlds of one rank, ms/step by "
+          "the host clock (idle share under the profiler; one call; no "
+          "claim):")
+    for path, runs in modes.items():
+        print(f"  {path}: " + " | ".join(
+            f"{k} " + ", ".join(f"{ms:.3f} ({idle:.3f})" for ms, idle in v)
+            for k, v in runs.items()))
 
 
 def one_batch(tr, torch, key=77):
@@ -3406,7 +3481,7 @@ def clique_trainer(hds, torch):
 
 
 def clique_batch(tr, torch, ctr=0):
-    """The pieces of one clique-HT train batch, as ``Trainer._member_step``
+    """The pieces of one clique-HT train batch, as ``Trainer._step_body``
     makes them: every member's seeds and key words at counter ``ctr``,
     each hop's frontiers [Kg, F_k] with their routing, owners' requests and
     misses' host draws, and the fetch's ids [Kg, max_ids]."""
@@ -3973,7 +4048,10 @@ def phase_clique(hds, torch):
     the data checks of ``clique_checks``; clique-HT-hash (hash maps)
     against clique-HT, and clique-H (the topology on the card) against
     the same members with every feature on the card (``clique_pair``).
-    Returns (kernel results, launch counts by path, main-path times)."""
+    clique-HT and clique-HT-hash also run ``phase_modes``: replayed and
+    pipelined member steps against eager ones, and the A/B of the modes.
+    Returns (kernel results, launch counts by path, main-path times, the
+    modes' A/B)."""
     from legion_tpu_torch.cache.hashmap import map_lookup
     from legion_tpu_torch.train import Trainer
     results, main, counts = {}, {}, {}
@@ -4007,10 +4085,14 @@ def phase_clique(hds, torch):
               f" lanes cached {resident}, served {int(c[3])}, overflow "
               f"{resident - int(c[3])}")
     clique_checks(tr, hds, torch)
+    print(" clique-HT with fused steps and interbatch:")
+    modes = {"clique-HT": phase_modes(tr, torch, "clique-HT")}
 
     print(" clique-HT-hash (hash maps) against clique-HT (direct):")
     counts["clique-HT-hash"] = clique_pair(tr_hash, tr, torch,
                                            "clique-HT-hash", "hash maps")
+    print(" clique-HT-hash with fused steps and interbatch:")
+    modes["clique-HT-hash"] = phase_modes(tr_hash, torch, "clique-HT-hash")
     tr_hash.close()
     tr.close()
     del tr, tr_hash
@@ -4037,7 +4119,7 @@ def phase_clique(hds, torch):
         counts["clique-HT"]["clique_draw_unsort"]
     counts["clique-HT"]["per_step"]["clique_draw"] += \
         counts["clique-HT"]["per_step"]["clique_draw_unsort"]
-    return results, counts, step_ms
+    return results, counts, step_ms, modes
 
 
 # the launcher's flags of phase 10 (after CLI_ARGS): 4 members of one
@@ -4047,14 +4129,14 @@ DIST_ARGS = ("--epoch", "1", "--devices", str(CLIQUE_KG), "--clique-size",
 
 
 class DistRecorder:
-    """Through the launcher: the topology on the host as well (the
-    launcher has no flag for it, in either package: ``run.build_config``
-    is wrapped), and for each train step its counter, loss, counters
-    (edges, slots, feature hits, topology hits and total), the
-    collectives' calls and bytes it made, and the members' ids (on the
-    card)."""
+    """Through the launcher: with ``topo_host``, the topology on the host
+    as well (the launcher has no flag for it, in either package:
+    ``run.build_config`` is wrapped), and for each train step its counter,
+    loss, counters (edges, slots, feature hits, topology hits and total),
+    the collectives' calls and bytes it made, and the members' ids (on
+    the card)."""
 
-    def __init__(self, torch):
+    def __init__(self, torch, topo_host=True):
         from dataclasses import replace
 
         from legion_tpu_torch import run
@@ -4067,6 +4149,8 @@ class DistRecorder:
 
         def build_config(args):
             cfg = build(args)
+            if not topo_host:
+                return cfg
             return replace(cfg, cache=replace(cfg.cache,
                                               topo_residency="host"))
 
@@ -4098,22 +4182,23 @@ class DistRecorder:
          Trainer._member_sample_fetch) = self._orig
 
 
-def dist_run(argv, torch, label):
-    """One launcher run of the members on the card (``DistRecorder``):
-    fails on a non-finite loss, a valid accuracy outside [0, 1], caches
-    other than the clique's, or a kernel of ``PATH_KERNELS["clique-HT"]``
-    not launched (or another launched). Returns (the recorder, its steps'
-    ms, the collectives of the whole run)."""
+def dist_run(argv, torch, label, path="clique-HT"):
+    """One launcher run on the card (``DistRecorder``; the topology on the
+    host on the clique-HT path): fails on a non-finite loss, a valid
+    accuracy outside [0, 1], caches other than the clique's on the
+    clique-HT path, or a kernel of ``PATH_KERNELS[path]`` not launched (or
+    another launched). Returns (the recorder, its steps' ms, the
+    collectives of the whole run, the trainer: the caller closes it)."""
     from legion_tpu_torch import run
     from legion_tpu_torch.cache.collective import (CliqueFeatureCache,
                                                    CliqueTopoCache)
     from legion_tpu_torch.ops import kernels
     from legion_tpu_torch.parallel import mesh as pmesh
     print(f" {label}: python -m legion_tpu_torch.run " + " ".join(argv)
-          + " (topology on the host)")
+          + (" (topology on the host)" if path == "clique-HT" else ""))
     kernels.reset_launch_counts()
     pmesh.reset_collective_counts()
-    rec = DistRecorder(torch)
+    rec = DistRecorder(torch, topo_host=path == "clique-HT")
     try:
         t0 = time.perf_counter()
         tr, state, stats = run.main(argv + ["--device", "cuda"])
@@ -4121,16 +4206,16 @@ def dist_run(argv, torch, label):
         secs = time.perf_counter() - t0
     finally:
         rec.close()
-    tr.close()
     counts = {k: v for k, v in kernels.LAUNCHES.items() if v}
-    coll = {k: dict(v) for k, v in pmesh.COLLECTIVES.items()}
-    if not (isinstance(tr.feature_source, CliqueFeatureCache)
+    coll = pmesh.collective_counts()
+    if path == "clique-HT" and not (
+            isinstance(tr.feature_source, CliqueFeatureCache)
             and isinstance(tr.graph_access, CliqueTopoCache)):
         fail(f"{label}: caches {type(tr.feature_source).__name__}, "
              f"{type(tr.graph_access).__name__}, not the clique's")
-    if set(counts) != set(PATH_KERNELS["clique-HT"]):
+    if set(counts) != set(PATH_KERNELS[path]):
         fail(f"{label}: launched {sorted(counts)}, want "
-             f"{sorted(PATH_KERNELS['clique-HT'])}")
+             f"{sorted(PATH_KERNELS[path])}")
     st, sm = stats[0], tr.epoch_metrics[0]
     if not (math.isfinite(st.train_loss) and 0.0 <= st.valid_acc <= 1.0):
         fail(f"{label}: loss {st.train_loss}, valid acc {st.valid_acc}")
@@ -4147,7 +4232,7 @@ def dist_run(argv, torch, label):
           f"edges/s {sm.edges_per_s:.1f} | feature hits {tot[2]}/{tot[1]} "
           f"slots | topology hits {tot[3]}/{tot[4]}")
     print(f"  {label} launches: {counts}")
-    return rec, ms, coll
+    return rec, ms, coll, tr
 
 
 def phase_dist(d, torch):
@@ -4163,50 +4248,174 @@ def phase_dist(d, torch):
     every step exactly and give the same first loss bit for bit; later
     losses within ``phase_fused``'s tolerance (K2's f32 atomics). Prints
     the collective calls and bytes a step, and the ms a step both ways.
-    The process group is destroyed at the end."""
+    Then that world's trainer in each mode (``phase_modes``: replayed and
+    pipelined steps against eager ones, the collectives a step under
+    replay, the A/B). Then a second world of one rank: one member on H's
+    dataset (``--devices 1 --clique-size 1``, the topology on the card:
+    layout (a) at Kg 1, a rank of plain data parallelism), through the
+    launcher and in each mode. Each process group is destroyed after its
+    runs. Returns the modes' A/B by world."""
     import socket
 
     import torch.distributed as dist
+
+    def world():
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+        s.close()
+        return ["--coordinator", f"127.0.0.1:{port}", "--num-processes",
+                "1", "--process-id", "0"]
     t0 = time.perf_counter()
-    base = ["--dataset-name", "custom", "--dataset-path", d, *CLI_ARGS,
-            *DIST_ARGS]
-    a, ms_a, _ = dist_run(base, torch, "members, no process group")
+    data = ["--dataset-name", "custom", "--dataset-path", d, *CLI_ARGS]
+    base = data + list(DIST_ARGS)
+    a, ms_a, _, tr = dist_run(base, torch, "members, no process group")
+    tr.close()
+    del tr
+    modes = {}
+    try:
+        b, ms_b, coll, tr = dist_run(base + world(), torch,
+                                     "members, a world of one rank (NCCL)")
+        if dist.get_backend() != "nccl":
+            fail(f"the world of one rank on the card ran on "
+                 f"{dist.get_backend()}")
+        if [x[0] for x in a.steps] != [x[0] for x in b.steps] or \
+                len(a.ids) != len(b.ids):
+            fail("the two runs took other train steps")
+        for i, (x, y) in enumerate(zip(a.ids, b.ids)):
+            if not torch.equal(x, y):
+                fail(f"step {i}: the world of one rank sampled other ids")
+        la = [float(x[1]) for x in a.steps]
+        lb = [float(x[1]) for x in b.steps]
+        rel = max(abs(x - y) / abs(x) for x, y in zip(la, lb))
+        if la[0] != lb[0] or rel > 1e-3:
+            fail(f"losses {la} against {lb}: first equal {la[0] == lb[0]}"
+                 f", max rel {rel}")
+        per = [x[3] for x in b.steps]
+        calls = {k: sorted({c[k]["calls"] for c in per}) for k in per[0]}
+        nbytes = {k: sorted({c[k]["bytes"] for c in per}) for k in per[0]}
+        print(f"  world of one rank against no process group: ids equal in "
+              f"all {len(la)} steps | losses {la} against {lb} (first "
+              f"equal, max rel {rel:.3g}) | collectives a train step: calls"
+              f" {calls}, bytes {nbytes} | whole run: {coll} | ms a step "
+              f"{ms_a:.3f} without, {ms_b:.3f} with (one call; no claim)")
+        print(" CLI-members-world1 with fused steps and interbatch:")
+        modes["CLI-members-world1"] = phase_modes(tr, torch, "clique-HT")
+        tr.close()
+        del tr
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+        _, _, _, tr = dist_run(
+            data + ["--epoch", "1", "--devices", "1", "--clique-size", "1"]
+            + world(), torch, "one member on H's dataset, a world of one "
+            "rank (NCCL)", path="cli")
+        print(" H-world1 with fused steps and interbatch:")
+        modes["H-world1"] = phase_modes(tr, torch, "cli")
+        tr.close()
+        del tr
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    print(f"  phase 10 seconds: {time.perf_counter() - t0:.3f}")
+    return modes
+
+
+# ``--dist4``: the launcher's flags of each of four ranks, one card each:
+# one clique of four members across the four processes (layout (b)), on
+# the launcher's synthetic graph at H's widths, features and topology on
+# the host behind the clique caches (the topology by ``DistRecorder``)
+DIST4_RANKS = 4
+DIST4_ARGS = ("--dataset-name", "synthetic", "--nodes", "2400000",
+              "--avg-degree", "15", "--feature-dim", "100", "--classes",
+              "32", "--epoch", "1", "--devices", "1", "--clique-size",
+              str(DIST4_RANKS), "--num-processes", str(DIST4_RANKS),
+              "--features", "host", "--cache-memory", str(CLIQUE_BYTES),
+              "--train-batch-size", "8000", "--fanout", "25", "10",
+              "--hidden", "256")
+DIST4_TIMEOUT = 600
+
+
+def dist4_rank(rank, port, torch):
+    """One rank of ``phase_dist4`` on card ``rank``: the launcher
+    (``dist_run``, NCCL) with ``DIST4_ARGS``, then ``phase_modes`` on its
+    trainer, every rank in the same order; prints its A/B as JSON last."""
+    import torch.distributed as dist
+
+    from legion_tpu_torch.ops import kernels
+    torch.cuda.set_device(rank)
+    kernels.lib()
+    try:
+        _, _, coll, tr = dist_run(
+            list(DIST4_ARGS) + ["--coordinator", f"127.0.0.1:{port}",
+                                "--process-id", str(rank)], torch,
+            f"rank {rank} of a clique across {DIST4_RANKS} cards (NCCL)")
+        if tr.mesh.clique_group is None or tr.n_local != 1:
+            fail(f"rank {rank}: not layout (b) (mesh {tr.mesh.shape})")
+        print(f"  rank {rank}: collectives of the launcher's run {coll}")
+        modes = phase_modes(tr, torch, "clique-HT")
+        tr.close()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    print(json.dumps(modes))
+
+
+def phase_dist4(torch):
+    """Four cards: ``DIST4_RANKS`` processes of this script, one a card
+    (``dist4_rank``), a clique across them in layout (b), where a step's
+    exchanges are ``all_to_all_single`` calls in the clique's NCCL group
+    and its gradients an all-reduce in the world's: the launcher's eager
+    epoch, then replayed steps (the all-to-alls and all-reduces captured)
+    and pipelined steps (the side stream's all-to-alls before the
+    caller's all-reduces) against eager ones on every rank, and the A/B.
+    Fails if a rank fails or the ranks take longer than DIST4_TIMEOUT
+    (then every rank is killed). Prints rank 0's output and every rank's
+    A/B."""
+    import socket
+    if torch.cuda.device_count() < DIST4_RANKS:
+        fail(f"--dist4 needs {DIST4_RANKS} cards, found "
+             f"{torch.cuda.device_count()}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()
+    print("  cards: " + " | ".join(smi))
     s = socket.socket()
     s.bind(("127.0.0.1", 0))
     port = s.getsockname()[1]
     s.close()
-    try:
-        b, ms_b, coll = dist_run(
-            base + ["--coordinator", f"127.0.0.1:{port}", "--num-processes",
-                    "1", "--process-id", "0"], torch,
-            "members, a world of one rank (NCCL)")
-        backend = dist.get_backend()
-    finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
-    if backend != "nccl":
-        fail(f"the world of one rank on the card ran on {backend}")
-    if [x[0] for x in a.steps] != [x[0] for x in b.steps] or \
-            len(a.ids) != len(b.ids):
-        fail("the two runs took other train steps")
-    for i, (x, y) in enumerate(zip(a.ids, b.ids)):
-        if not torch.equal(x, y):
-            fail(f"step {i}: the world of one rank sampled other ids")
-    la = [float(x[1]) for x in a.steps]
-    lb = [float(x[1]) for x in b.steps]
-    rel = max(abs(x - y) / abs(x) for x, y in zip(la, lb))
-    if la[0] != lb[0] or rel > 1e-3:
-        fail(f"losses {la} against {lb}: first equal {la[0] == lb[0]}, "
-             f"max rel {rel}")
-    per = [x[3] for x in b.steps]
-    calls = {k: sorted({c[k]["calls"] for c in per}) for k in per[0]}
-    nbytes = {k: sorted({c[k]["bytes"] for c in per}) for k in per[0]}
-    print(f"  world of one rank against no process group: ids equal in all "
-          f"{len(la)} steps | losses {la} against {lb} (first "
-          f"equal, max rel {rel:.3g}) | collectives a train step: calls "
-          f"{calls}, bytes {nbytes} | whole run: {coll} | ms a step "
-          f"{ms_a:.3f} without, {ms_b:.3f} with (one call; no claim)")
-    print(f"  phase 10 seconds: {time.perf_counter() - t0:.3f}")
+    with tempfile.TemporaryDirectory(prefix="legion_dist4_") as tmp:
+        logs = [os.path.join(tmp, f"rank{r}.log") for r in range(DIST4_RANKS)]
+        procs = []
+        for r, path in enumerate(logs):
+            with open(path, "w") as out:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--rank4",
+                     str(r), str(port)], stdout=out,
+                    stderr=subprocess.STDOUT, cwd=ROOT))
+        t0 = time.perf_counter()
+        try:
+            while any(p.poll() is None for p in procs):
+                if any(p.poll() not in (None, 0) for p in procs) or \
+                        time.perf_counter() - t0 > DIST4_TIMEOUT:
+                    break
+                time.sleep(0.5)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        texts = [open(path).read() for path in logs]
+    print(texts[0])
+    for r, (p, text) in enumerate(zip(procs, texts)):
+        last = text.strip().splitlines()[-1:] or [""]
+        print(f"  rank {r}: exit {p.returncode} | A/B {last[0]}")
+        if p.returncode != 0:
+            print(text[-4000:])
+            fail(f"--dist4: rank {r} exited with {p.returncode} after "
+                 f"{time.perf_counter() - t0:.1f} s")
+    print(f"  --dist4: {DIST4_RANKS} ranks in "
+          f"{time.perf_counter() - t0:.1f} s")
 
 
 def bulk_link_bps(hds, torch):
@@ -4241,6 +4450,9 @@ def main():
           f"{torch.cuda.get_device_name(0)}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:2] == ["--rank4"]:
+        dist4_rank(int(sys.argv[2]), int(sys.argv[3]), torch)
+        return
     if sys.argv[1:2] == ["--profile"]:
         from legion_tpu_torch.ops import kernels
         kernels.lib()
@@ -4264,7 +4476,8 @@ def main():
     if sys.argv[1:2] == ["--clique"]:
         hds = host_dataset()
         MEASURED["link_bps"] = bulk_link_bps(hds, torch)
-        res, counts, _ = phase_clique(hds, torch)
+        res, counts, _, modes = phase_clique(hds, torch)
+        print_modes(modes)
         for n in ("hash_lookup", "bucket_by_owner", "clique_gather",
                   "clique_draw"):
             r, c = res[n], counts[REPORTED_PATH[n]]
@@ -4293,12 +4506,15 @@ def main():
                   f"{r['bound_ms']:.4f} ms by {r['bound_by']} | plain "
                   f"{r['plain_ms']:.4f} ms | library {r['library_ms']}")
         return
+    if sys.argv[1:2] == ["--dist4"]:
+        phase_dist4(torch)
+        return
     if sys.argv[1:2] == ["--dist"]:
         k10_offsets(torch, 2)
         clique_edges(torch, {})
         hds = host_dataset()
         with tempfile.TemporaryDirectory(prefix="legion_cli_") as tmp:
-            phase_dist(cli_dataset(hds, tmp), torch)
+            print_modes(phase_dist(cli_dataset(hds, tmp), torch))
         return
 
     print("set-up: bench dataset and trainer")
@@ -4429,14 +4645,15 @@ def main():
         phase_cli(d, tmp, torch, step_ms["H"])
 
         print(f"phase 9: the clique caches, {CLIQUE_KG} members on the card")
-        res_c, counts_c, step_ms["clique-HT"] = phase_clique(hds, torch)
+        res_c, counts_c, step_ms["clique-HT"], modes = phase_clique(
+            hds, torch)
         results.update(res_c)
         counts.update(counts_c)
         del hds
 
         print(f"phase 10: the launcher's members ({CLIQUE_KG} on the card), "
-              "without and with a process group")
-        phase_dist(d, torch)
+              "without and with a process group, and one member in a world")
+        modes.update(phase_dist(d, torch))
 
     kern = [dict(name=n, route="cuda", source=KERNELS[n]["source"],
                  replaces=KERNELS[n]["replaces"],
@@ -4457,6 +4674,7 @@ def main():
               f"kernel {k['ms']:.4f} ms | bound {k['bound_ms']:.4f} ms by "
               f"{k['bound_by']} (share {k['bound_ms'] / k['ms']:.3f}) | plain "
               f"{k['plain_ms']:.4f} ms | library call {lib} ms")
+    print_modes(modes)
     print("interbatch A/B, ms/step by the host clock (one call; no claim):")
     for path, runs in ib_ab.items():
         print(f"  {path}: " + " | ".join(

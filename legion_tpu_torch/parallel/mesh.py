@@ -23,7 +23,9 @@ Two layouts, and only these (``layout``):
 
 Collectives go through ``all_reduce`` and ``all_to_all``, which refuse a
 CUDA tensor on a gloo group and count each call and its bytes in
-``COLLECTIVES`` (``reset_collective_counts`` zeroes them).
+``COLLECTIVES`` (``reset_collective_counts`` zeroes them). A collective
+captured in a CUDA graph is counted at each replay, not at capture
+(``add_collective_counts``).
 """
 
 from __future__ import annotations
@@ -48,6 +50,21 @@ COLLECTIVES: Dict[str, Dict[str, int]] = {
 def reset_collective_counts() -> None:
     for c in COLLECTIVES.values():
         c.update(calls=0, bytes=0)
+
+
+def collective_counts() -> Dict[str, Dict[str, int]]:
+    """A copy of ``COLLECTIVES``."""
+    return {k: dict(v) for k, v in COLLECTIVES.items()}
+
+
+def add_collective_counts(counts: Dict[str, Dict[str, int]],
+                          times: int = 1) -> None:
+    """``COLLECTIVES`` += times * counts, by kind and field: the
+    collectives of a captured step, which each replay runs again
+    (``Trainer._replay``) and the capture does not (times -1)."""
+    for k, v in counts.items():
+        for f, n in v.items():
+            COLLECTIVES[k][f] += times * n
 
 
 @dataclass(frozen=True)

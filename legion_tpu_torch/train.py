@@ -15,23 +15,37 @@ host keeps Python twins of the counters, and from them seeds the dropout
 generator with fold_in(step key, 7), as the JAX step folds 7 into its key
 for dropout. So a state's counters alone fix every later batch.
 
+A step is a host part (``_seed_train_dropout``: the dropout seeds from
+the host's counter) around a device part (``_step_body``: K10, the
+sampling, the fetch, the forward of every member, the backward, Adam
+and the counters), the unit a CUDA graph captures.
+
 ``TrainConfig.fused_steps`` = K: one ``train_step`` call takes K steps.
 On a card the first call runs an eager step, captures one step into a
 CUDA graph and replays it K-1 times; later calls replay it K times (the
-analog of JAX's ``lax.scan`` of K steps in one dispatch). On the CPU a
-call takes K eager steps. Either way the call returns the mean loss and
-sums the counters, and ``fit`` takes ``train_step // K`` calls an epoch.
+analog of JAX's ``lax.scan`` of K steps in one dispatch,
+``legion_tpu/train.py:702-748``). On the CPU a call takes K eager steps.
+Either way the call returns the mean loss and sums the counters, and
+``fit`` takes ``train_step // K`` calls an epoch.
 
-``TrainConfig.interbatch``: the state carries the next batch (sampled
-and fetched, with its seeds and labels), and a ``train_step`` trains on
-the carried batch N while it samples and fetches batch N+1 (JAX's
-pipelined step, ``legion_tpu/train.py:642-700``). On a card the update
-runs on the caller's stream and the sampling on the trainer's side
-stream; on the CPU the two halves run one after the other. The carry has
-a device counter of its own (``carry_ctr_d``, which K10 advances), so
-``train_ctr_d`` still counts trained batches, and a checkpoint means the
-same in both modes. Losses, parameters, ids, masks and counters equal the
-plain step's.
+``TrainConfig.interbatch``: the state carries the next batch of every
+member here (sampled and fetched, with its seeds and labels), and a
+``train_step`` trains on the carried batch N while it samples and fetches
+batch N+1 (JAX's pipelined step, ``legion_tpu/train.py:642-700``). On a
+card the update runs on the caller's stream and the sampling on the
+trainer's side stream; on the CPU the two halves run one after the
+other. The carry has a device counter of its own (``carry_ctr_d``, which
+K10 advances), so ``train_ctr_d`` still counts trained batches, and a
+checkpoint means the same in both modes. Losses, parameters, ids, masks
+and counters equal the plain step's.
+
+Both modes take members and process groups, as JAX's ``shard_map`` step
+takes any mesh: each member's model draws from its own dropout
+generator, and every generator is registered with a captured graph. The
+collectives of a step (the gradients' and the loss's all-reduce, layout
+(b)'s all-to-alls) are captured with it under NCCL; gloo ranks take
+eager steps. Under ``interbatch`` in layout (b), the update's all-reduces
+wait for the side stream's all-to-alls (``_interbatch_step``).
 
 Every state owns its parameters: ``init_state`` builds a new module and a
 new Adam, so a second ``init_state`` or a restore into the same trainer
@@ -47,7 +61,8 @@ their misses read by K4/K5 in place. Both dedup modes: with map dedup
 (the config's default) the state holds the sampler's [V] position map
 (``state["pos_map"]``), shared by the train and eval samplers and clean
 between batches. Also the train step (one step, ``fused_steps`` or
-``interbatch``), the eval step, ``run_eval`` and ``fit``. Not ported
+``interbatch``, with members and across processes), the eval step,
+``run_eval`` and ``fit``. Not ported
 (ROADMAP): the staged host pipeline (a TPU-runtime workaround).
 
 Members (``MeshConfig(num_cliques=Kc, clique_size=Kg)``, n_dev = Kc * Kg
@@ -55,16 +70,15 @@ Members (``MeshConfig(num_cliques=Kc, clique_size=Kg)``, n_dev = Kc * Kg
 on this one device, in one process. Member d draws its seeds from its own
 bank row (``seeds_for_partition(w, d, n_dev)``), its keys with d folded
 in after the tag (K10 writes [n_dev, L, 4] words), keeps its own row of
-``pos_map`` ([n_dev, S]) and seeds its dropout from fold_in(fold_in(step
-key, d), 7). The members sample in lockstep (``NeighborSampler.
-sample_members``: the clique topology cache answers every member's
-frontier of a hop at once) and fetch through the clique caches of
-``cache/collective.py`` (``_setup_clique``, JAX's
+``pos_map`` ([n_dev, S]) and draws its dropout from a generator of its
+own, seeded from fold_in(fold_in(step key, d), 7). The members sample in
+lockstep (``NeighborSampler.sample_members``: the clique topology cache
+answers every member's frontier of a hop at once) and fetch through the
+clique caches of ``cache/collective.py`` (``_setup_clique``, JAX's
 ``_setup_multidev_cache``). The loss is the members' mean, so one
 backward takes the mean of their gradients (``lax.pmean``), and one Adam
 step follows; counters and eval's correct and total are sums
-(``lax.psum``). ``fused_steps`` > 1 and ``interbatch`` take one member
-(ROADMAP A.7).
+(``lax.psum``).
 
 Across processes (``mesh``, ``parallel/mesh.py``; one process a card, a
 rank of ``torch.distributed``): the n_dev members of JAX's mesh are laid
@@ -77,13 +91,12 @@ dropout too. A step's loss is the mean over the rank's members; after the
 backward one flat all-reduce of the gradients, divided by W, gives
 ``lax.pmean``, so every rank runs the same Adam on the same bits. The loss
 is all-reduced the same way, the counters summed (one int32 vector a
-step), and eval's correct and total summed once at the end of
-``run_eval``. With cliques across ranks (layout (b)) a rank holds its own
+``train_step`` call), and eval's correct and total summed once at the end
+of ``run_eval``. With cliques across ranks (layout (b)) a rank holds its own
 shard of each clique cache, and the exchange is an all-to-all in the
 clique's group. ``fit`` prints and writes checkpoints on rank 0, with a
 barrier after each write. A mesh with a world group makes every
-collective call even at W = 1; ``fused_steps`` > 1 and ``interbatch``
-refuse it.
+collective call even at W = 1.
 
 Host tables are writable RAM: a table the kernels read in place that is a
 read-only array or a file mapping (the memmaps of ``LegionDataset.load``)
@@ -131,7 +144,9 @@ from legion_tpu_torch.models.common import make_model
 from legion_tpu_torch.models.lp_sage import check_thirds
 from legion_tpu_torch.ops import kernels
 from legion_tpu_torch.ops.host_memory import HostTable, bf16_pitch, bf16_rows
-from legion_tpu_torch.parallel.mesh import Mesh, all_reduce, dp_size
+from legion_tpu_torch.parallel.mesh import (Mesh, add_collective_counts,
+                                            all_reduce, collective_counts,
+                                            dp_size)
 from legion_tpu_torch.pipeline.schedule import Mode, Schedule
 from legion_tpu_torch.sampling.access import (CachedTopoAccess,
                                               DeviceCSRAccess,
@@ -227,12 +242,6 @@ class Trainer:
             self.n_local, self.first = mesh.n_local, mesh.first_member
             self._world, self._clique_group = (mesh.world_group,
                                                mesh.clique_group)
-        if (self.n_dev > 1 or self._world is not None) and (
-                config.train.fused_steps > 1 or config.train.interbatch):
-            raise NotImplementedError(
-                "fused_steps > 1 and interbatch take one member in one "
-                f"process; with {self.n_dev} members or a process group they "
-                "are ROADMAP.md A.7")
         if config.cache.enabled and config.cache.host_transfer not in (
                 "auto", "callback"):
             # "auto" and "callback" both mean the zero-copy kernels here
@@ -254,7 +263,11 @@ class Trainer:
         self.fused_steps = config.train.fused_steps
         self.interbatch = config.train.interbatch
         self._graph = self._side_stream = None
+        # a captured step's kernel launches and collective calls (the
+        # launches count once, at capture; a replay adds the collectives
+        # to ``COLLECTIVES``, since each replay runs them)
         self.graph_launches: Dict[str, int] = {}
+        self.graph_collectives: Dict[str, Dict[str, int]] = {}
         meta = dataset.meta
         V = meta.num_nodes
         scfg = config.sampler
@@ -323,7 +336,11 @@ class Trainer:
             self.sampler_e = NeighborSampler(
                 replace(eval_scfg, node_caps=ecaps), V)
 
-        self._drop_gen = torch.Generator(device=self.device)
+        # dropout generators, one a member here: member d's model draws
+        # from its own, seeded before every step or replay
+        self._drop_gens = [torch.Generator(device=self.device)
+                           for _ in range(self.n_local)]
+        self._drop_gen = self._drop_gens[0]
         # the host's copy of the base key of the state last made or
         # restored, for ``step_key`` (dropout reads the state's own)
         self._base_key = config.train.seed + 1
@@ -708,13 +725,10 @@ class Trainer:
 
     def _sample_ahead(self, state: Dict) -> None:
         """Sample and fetch the train batch at ``carry_ctr_d`` (K10
-        advances it) into the state's carry, on the current stream; on a
-        card, ``carry_ready`` marks the end of it there."""
-        sampler = self.sampler_t
-        seeds, y, keys = self._batch_inputs(
-            state, sampler, self.train_bank, self.train_ybank,
-            self.schedule.train_step, "carry_ctr", _TRAIN_TAG)
-        batch, x, hits = self._sample_fetch(state, sampler, seeds, keys)
+        advances it) of every member here into the state's carry, on the
+        current stream; on a card, ``carry_ready`` marks the end of it
+        there."""
+        batch, x, hits, seeds, y = self._train_batch(state, "carry_ctr")
         state.update(carry_batch=batch, carry_x=x, carry_hits=hits,
                      carry_seeds=seeds, carry_y=y)
         if self.device.type == "cuda":
@@ -737,16 +751,26 @@ class Trainer:
         same on the card."""
         return fold_in(fold_in(self._base_key, ctr), tag)
 
-    def _seed_dropout(self, key: int) -> None:
+    def _seed_dropout(self, key: int,
+                      gen: Optional[torch.Generator] = None) -> None:
         """Dropout draws from (fold_in(step key, 7), offset 0), as the JAX
-        step folds 7 into its key (``legion_tpu/train.py:612``)."""
-        self._drop_gen.manual_seed(fold_in(key, _DROPOUT_TAG) & (2**63 - 1))
+        step folds 7 into its key (``legion_tpu/train.py:612``); ``gen``
+        is a member's generator, the first by default."""
+        (gen or self._drop_gen).manual_seed(
+            fold_in(key, _DROPOUT_TAG) & (2**63 - 1))
 
     def _seed_train_dropout(self, state: Dict) -> None:
-        """``_seed_dropout`` for the train step at ``state["train_ctr"]``,
-        its key from the state's own base key."""
-        self._seed_dropout(fold_in(fold_in(state["base_key_h"],
-                                           state["train_ctr"]), _TRAIN_TAG))
+        """The host part of the train step at ``state["train_ctr"]``:
+        ``_seed_dropout`` from its key (the state's own base key), and
+        with members, member d's generator from fold_in(key, d) with its
+        global d (JAX's ``_device_key``)."""
+        key = fold_in(fold_in(state["base_key_h"], state["train_ctr"]),
+                      _TRAIN_TAG)
+        if self.n_dev == 1:
+            self._seed_dropout(key)
+            return
+        for d, gen in enumerate(self._drop_gens):
+            self._seed_dropout(fold_in(key, self.first + d), gen)
 
     def _batch_inputs(self, state: Dict, sampler: NeighborSampler,
                       bank: torch.Tensor, ybank: torch.Tensor, n: int,
@@ -782,30 +806,71 @@ class Trainer:
         self._seed_dropout(key)
         return self._update(state, batch, x, seeds, y)
 
-    def _update(self, state: Dict, batch: SampleBatch, x: torch.Tensor,
-                seeds: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        """Forward, backward and one Adam step with the dropout generator
-        as seeded (no host work: the captured part of a step)."""
+    def _batch(self, state: Dict, sampler: NeighborSampler,
+               bank: torch.Tensor, ybank: torch.Tensor, n: int, ctr: str,
+               tag: int):
+        """The batch at the device counter ``state[ctr + "_d"]`` of every
+        member here, sampled and fetched: (batch, x, feature hits, seeds,
+        labels). One member's as ``_batch_inputs`` and ``_sample_fetch``
+        give them; n members' as ``_member_inputs`` and
+        ``_member_sample_fetch`` do (a tuple of batches, x [n_local,
+        max_ids, F], the hits summed, seeds and labels [n_local, batch])."""
+        if self.n_dev == 1:
+            seeds, y, keys = self._batch_inputs(state, sampler, bank, ybank,
+                                                n, ctr, tag)
+            batch, x, hits = self._sample_fetch(state, sampler, seeds, keys)
+        else:
+            seeds, y, keys = self._member_inputs(state, sampler, bank, ybank,
+                                                 n, ctr, tag)
+            batch, x, hits = self._member_sample_fetch(state, sampler, seeds,
+                                                       keys)
+        return batch, x, hits, seeds, y
+
+    def _train_batch(self, state: Dict, ctr: str):
+        """``_batch`` of the train banks at ``state[ctr + "_d"]``."""
+        return self._batch(state, self.sampler_t, self.train_bank,
+                           self.train_ybank, self.schedule.train_step, ctr,
+                           _TRAIN_TAG)
+
+    def _update(self, state: Dict, batch, x: torch.Tensor,
+                seeds: torch.Tensor, y: torch.Tensor,
+                before_reduce=None) -> torch.Tensor:
+        """Forward, backward and one Adam step with the dropout generators
+        as seeded (no host work: the captured part of a step). With
+        members (``batch`` a tuple, x, seeds and y a row a member) the
+        loss is the members' mean (``lax.pmean``), so one backward gives
+        the mean of their gradients; member d's model draws from its own
+        generator. ``before_reduce`` as in ``_backward_step``."""
         model = state["model"]
         model.train()
         scfg = self.sampler_t.config
-        if self.is_lp:
-            loss = model.loss(x, batch, scfg, seeds >= 0, self._drop_gen)
-        else:
-            logits = model(x, batch, scfg, self._drop_gen)
-            loss = _masked_ce(logits, y, seeds >= 0)
-        return self._backward_step(state, loss)
 
-    def _backward_step(self, state: Dict, loss: torch.Tensor
-                       ) -> torch.Tensor:
+        def loss_of(x, batch, seeds, y, gen):
+            if self.is_lp:
+                return model.loss(x, batch, scfg, seeds >= 0, gen)
+            return _masked_ce(model(x, batch, scfg, gen), y, seeds >= 0)
+        if self.n_dev == 1:
+            loss = loss_of(x, batch, seeds, y, self._drop_gen)
+        else:
+            loss = torch.stack([
+                loss_of(x[d], b, seeds[d], y[d], self._drop_gens[d])
+                for d, b in enumerate(batch)]).mean()
+        return self._backward_step(state, loss, before_reduce)
+
+    def _backward_step(self, state: Dict, loss: torch.Tensor,
+                       before_reduce=None) -> torch.Tensor:
         """The backward of ``loss`` and one Adam step; with a process group
         the gradients and the returned loss are their means over the
         ranks (``lax.pmean``): one flat all-reduce of the gradients, and
-        one of the loss."""
+        one of the loss. ``before_reduce()``, when given, is called after
+        the backward and before the all-reduces (``_interbatch_step``
+        issues the next batch's sampling there)."""
         opt = state["opt"]
         opt.zero_grad(set_to_none=True)
         loss.backward()
         loss = loss.detach()
+        if before_reduce is not None:
+            before_reduce()
         if self._world is not None:
             W = self.mesh.world
             grads = [p.grad for p in state["model"].parameters()
@@ -819,17 +884,15 @@ class Trainer:
         return loss
 
     def _step_body(self, state: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
-        """One train step on device state alone (the unit a CUDA graph
-        captures): the batch at ``train_ctr_d``, its update, and the
+        """The device part of one train step (the unit a CUDA graph
+        captures): every member's batch at ``train_ctr_d`` (K10 with the
+        member fold, the sampling, the fetch), the update, and the
         per-step counters [edges, slots, feature hits, topology hits,
         topology total] as one int32 tensor: trained edges, fetched id
         slots, the slots the feature cache served, and the adjacency reads
-        the topology cache served (the live PCM analog)."""
-        sampler = self.sampler_t
-        seeds, y, keys = self._batch_inputs(
-            state, sampler, self.train_bank, self.train_ybank,
-            self.schedule.train_step, "train_ctr", _TRAIN_TAG)
-        batch, x, feat_hits = self._sample_fetch(state, sampler, seeds, keys)
+        the topology cache served (the live PCM analog), summed over the
+        members (``lax.psum``)."""
+        batch, x, feat_hits, seeds, y = self._train_batch(state, "train_ctr")
         loss = self._update(state, batch, x, seeds, y)
         return loss, self._counts(batch, feat_hits)
 
@@ -846,6 +909,8 @@ class Trainer:
             feat_hits.to(torch.int32), topo_hits, topo_total])
 
     def _eager_step(self, state: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One train step: its host part (the dropout seeds, and
+        ``train_ctr``) around its device part (``_step_body``)."""
         self._seed_train_dropout(state)
         out = self._step_body(state)
         state["train_ctr"] += 1
@@ -853,18 +918,28 @@ class Trainer:
 
     def _interbatch_step(self, state: Dict
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The pipelined step (``legion_tpu/train.py:642-669``): the update
-        on the carried batch N on the current stream, then the sampling
-        and fetch of batch N+1 into the carry, then the counters of batch
-        N. On a card the sampling runs on the side stream and overlaps the
-        update: the update waits for the end of batch N's fetch
-        (``carry_ready``), and the sampling waits for what the current
-        stream held before this update (the previous update, an eval pass
-        that wrote ``pos_map``), not for this update. Batch N's buffers
-        were allocated on the side stream; the carry that replaces them is
-        allocated there after that wait, so the allocator cannot hand them
-        out while the previous update still reads them (JAX's note on not
-        donating the carry, ``:674-677``)."""
+        """The pipelined step (``legion_tpu/train.py:642-669``): the
+        forward and backward on the carried batch N of every member here
+        on the current stream, then the sampling and fetch of batch N+1
+        into the carry, then the all-reduces and Adam of step N and the
+        counters of batch N. On a card the sampling runs on the side
+        stream and overlaps the update: the update waits for the end of
+        batch N's fetch (``carry_ready``), and the sampling waits for what
+        the current stream held before this update (the previous update,
+        an eval pass that wrote ``pos_map``), not for this update. Batch
+        N's buffers were allocated on the side stream; the carry that
+        replaces them is allocated there after that wait, so the allocator
+        cannot hand them out while the previous update still reads them
+        (JAX's note on not donating the carry, ``:674-677``).
+
+        With a clique group (layout (b)) the side stream's sampling makes
+        the clique's all-to-alls and the current stream the world's
+        all-reduces, on two NCCL communicators; two ranks that ran them in
+        other orders could each wait in a kernel for the other. So the
+        current stream waits for batch N+1's ``carry_ready`` before step
+        N's all-reduces: on every rank the all-to-alls of batch N+1 run
+        before the all-reduces of step N, and those before the all-to-alls
+        of batch N+2 (which wait for this step's updates)."""
         self._seed_train_dropout(state)
         cuda = self.device.type == "cuda"
         if cuda:
@@ -876,23 +951,32 @@ class Trainer:
             "carry_batch", "carry_x", "carry_hits", "carry_seeds",
             "carry_y"))
         state["train_ctr_d"].add_(1)    # what K10 does in the plain step
-        loss = self._update(state, batch, x, seeds, y)
-        if cuda:
+
+        def sample_next():
+            if not cuda:
+                self._sample_ahead(state)
+                return
             side = self._side()
             side.wait_event(before_update)
             with torch.cuda.stream(side):
                 self._sample_ahead(state)
-        else:
-            self._sample_ahead(state)
+            if self._clique_group is not None:
+                cur.wait_event(state["carry_ready"])
+        loss = self._update(state, batch, x, seeds, y, sample_next)
         state["train_ctr"] += 1
         return loss, self._counts(batch, hits)
 
     def _capture(self, state: Dict, stream) -> None:
         """Capture one step (``_step_body``, and the sums of its loss and
         counters into static tensors) into a CUDA graph on ``stream`` with
-        a private memory pool, as PyTorch's whole-network recipe does. The
-        dropout generator is registered with the graph, so that a replay
-        draws from the seed and offset it holds when the replay starts."""
+        a private memory pool, as PyTorch's whole-network recipe does.
+        Every member's dropout generator is registered with the graph, so
+        that a replay draws from the seed and offset each holds when the
+        replay starts. The collectives of the step (NCCL: the gradients'
+        and the loss's all-reduce, and in layout (b) the clique's
+        all-to-alls) are captured with it; the capture runs none of them,
+        so their counts go to ``graph_collectives`` and not to
+        ``COLLECTIVES``, which each replay adds them to."""
         if not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
             raise RuntimeError(
                 f"torch {torch.__version__} cannot register a generator "
@@ -904,20 +988,28 @@ class Trainer:
         self._counts_sum = torch.zeros((5,), dtype=torch.int32,
                                        device=self.device)
         graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(self._drop_gen)
+        for gen in self._drop_gens:
+            graph.register_generator_state(gen)
         before = dict(kernels.LAUNCHES)
+        coll = collective_counts()
         with torch.cuda.graph(graph, stream=stream):
             loss, counts = self._step_body(state)
             self._loss_sum.add_(loss)
             self._counts_sum.add_(counts)
         self.graph_launches = {k: v - before[k]
                                for k, v in kernels.LAUNCHES.items()}
+        self.graph_collectives = {
+            k: {f: n - coll[k][f] for f, n in v.items()}
+            for k, v in collective_counts().items()}
+        add_collective_counts(self.graph_collectives, -1)
         self._graph, self._graph_state = graph, state
 
     def _replay(self, state: Dict) -> None:
-        """One captured step: reseed dropout for this step, replay."""
+        """One captured step: reseed dropout for this step, replay, and
+        count the collectives it ran."""
         self._seed_train_dropout(state)
         self._graph.replay()
+        add_collective_counts(self.graph_collectives)
         state["train_ctr"] += 1
 
     def _fused_call(self, state: Dict, K: int
@@ -956,11 +1048,13 @@ class Trainer:
         CUDA-graph replays of one captured step; on the CPU, K eager steps.
         A capture or replay that fails raises: nothing falls back to eager
         steps. Under ``interbatch`` a call takes one pipelined step
-        (``_interbatch_step``) and the counters are the carried batch's."""
+        (``_interbatch_step``) and the counters are the carried batch's.
+        Each mode takes every member here; with a process group the
+        call's counters are summed over the ranks once, by one
+        all-reduce outside any captured step (the sums of JAX's per-step
+        ``psum``)."""
         K = self.fused_steps
-        if self.n_dev > 1:
-            loss, counts = self._member_step(state)
-        elif self.interbatch:
+        if self.interbatch:
             loss, counts = self._interbatch_step(state)
         elif K > 1 and self.device.type == "cuda":
             loss, counts = self._fused_call(state, K)
@@ -1011,39 +1105,6 @@ class Trainer:
         x, hits = fs.fetch(ids.reshape(-1))
         return batches, x.view(self.n_local, ids.shape[1], -1), hits
 
-    def _member_step(self, state: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
-        """One train step of all members here (``legion_tpu/train.py:
-        577-640`` in ``shard_map``): each member's batch and forward, its
-        dropout from fold_in(fold_in(step key, d), 7) with its global d;
-        the loss is the members' mean (``lax.pmean``), so one backward
-        gives the mean of their gradients (and of the ranks', by
-        ``_backward_step``), and one Adam step follows. The counters are
-        sums (``lax.psum``)."""
-        sampler = self.sampler_t
-        key = fold_in(fold_in(state["base_key_h"], state["train_ctr"]),
-                      _TRAIN_TAG)
-        seeds, y, keys = self._member_inputs(
-            state, sampler, self.train_bank, self.train_ybank,
-            self.schedule.train_step, "train_ctr", _TRAIN_TAG)
-        batches, x, feat_hits = self._member_sample_fetch(state, sampler,
-                                                          seeds, keys)
-        model = state["model"]
-        model.train()
-        scfg = sampler.config
-        losses = []
-        for d, batch in enumerate(batches):
-            self._seed_dropout(fold_in(key, self.first + d))
-            valid = seeds[d] >= 0
-            if self.is_lp:
-                losses.append(model.loss(x[d], batch, scfg, valid,
-                                         self._drop_gen))
-            else:
-                losses.append(_masked_ce(
-                    model(x[d], batch, scfg, self._drop_gen), y[d], valid))
-        loss = self._backward_step(state, torch.stack(losses).mean())
-        state["train_ctr"] += 1
-        return loss, self._counts(batches, feat_hits)
-
     def _eval_banks(self, mode: Mode):
         """(seed bank, label bank, steps, counter name) of an eval mode."""
         if mode == Mode.VALID:
@@ -1051,32 +1112,6 @@ class Trainer:
                     self.schedule.valid_step, "valid_ctr")
         return (self.test_bank, self.test_ybank, self.schedule.test_step,
                 "test_ctr")
-
-    @torch.no_grad()
-    def _member_eval_step(self, state: Dict, mode: Mode) -> None:
-        """``_eval_step`` for every member; correct and total are sums."""
-        sampler = self.sampler_e
-        bs = sampler.config.batch_size
-        bank, ybank, n, ctr = self._eval_banks(mode)
-        seeds, y, keys = self._member_inputs(state, sampler, bank, ybank, n,
-                                             ctr, _EVAL_TAG)
-        batches, x, _ = self._member_sample_fetch(state, sampler, seeds,
-                                                  keys)
-        model = state["model"]
-        model.eval()
-        for d, batch in enumerate(batches):
-            valid = seeds[d] >= 0
-            if self.is_lp:
-                t = valid[:bs // 3].sum(dtype=torch.int32).float()
-                loss = model.loss(x[d], batch, sampler.config, valid)
-                state["correct"] += loss * t
-                state["total"] += t
-            else:
-                pred = model(x[d], batch, sampler.config).argmax(dim=-1)
-                state["correct"] += ((pred == y[d]) & valid).sum(
-                    dtype=torch.int32)
-                state["total"] += valid.sum(dtype=torch.int32)
-        state[ctr] += 1
 
     def _topo_hit_count(self, batch, access,
                         sampler: Optional[NeighborSampler] = None
@@ -1124,34 +1159,42 @@ class Trainer:
 
     @torch.no_grad()
     def _eval_step(self, state: Dict, mode: Mode) -> None:
-        """One eval batch, eager (JAX's eval step is unfused), keys from
-        (base_key, the mode's counter, tag 1) by K10. Under ``interbatch``
-        on a card it first waits for the side stream, whose sampling
-        writes ``pos_map`` too."""
-        if self.n_dev > 1:
-            return self._member_eval_step(state, mode)
-        if self.interbatch and self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).wait_stream(self._side())
+        """One eval batch of every member here, eager (JAX's eval step is
+        unfused), keys from (base_key, the mode's counter, tag 1) by K10;
+        with members, correct and total are sums (``lax.psum``). First
+        ``_wait_side``: the side stream's sampling writes ``pos_map``
+        too."""
+        self._wait_side()
         sampler = self.sampler_e
         bs = sampler.config.batch_size
         bank, ybank, n, ctr = self._eval_banks(mode)
-        seeds, y, keys = self._batch_inputs(state, sampler, bank, ybank, n,
-                                            ctr, _EVAL_TAG)
-        batch, x, _ = self._sample_fetch(state, sampler, seeds, keys)
+        batches, x, _, seeds, y = self._batch(state, sampler, bank, ybank,
+                                              n, ctr, _EVAL_TAG)
+        if self.n_dev == 1:
+            batches, x, seeds, y = (batches,), x[None], seeds[None], y[None]
         model = state["model"]
         model.eval()
-        valid = seeds >= 0
-        if self.is_lp:
-            # the reference's valid_one_step (lp_sage.py:99-115,206-215)
-            t = valid[:bs // 3].sum(dtype=torch.int32).float()
-            loss = model.loss(x, batch, sampler.config, valid)
-            state["correct"] += loss * t
-            state["total"] += t
-        else:
-            pred = model(x, batch, sampler.config).argmax(dim=-1)
-            state["correct"] += ((pred == y) & valid).sum(dtype=torch.int32)
-            state["total"] += valid.sum(dtype=torch.int32)
+        for d, batch in enumerate(batches):
+            valid = seeds[d] >= 0
+            if self.is_lp:
+                # the reference's valid_one_step (lp_sage.py:99-115,
+                # 206-215)
+                t = valid[:bs // 3].sum(dtype=torch.int32).float()
+                loss = model.loss(x[d], batch, sampler.config, valid)
+                state["correct"] += loss * t
+                state["total"] += t
+            else:
+                pred = model(x[d], batch, sampler.config).argmax(dim=-1)
+                state["correct"] += ((pred == y[d]) & valid).sum(
+                    dtype=torch.int32)
+                state["total"] += valid.sum(dtype=torch.int32)
         state[ctr] += 1
+
+    def _wait_side(self) -> None:
+        """Under ``interbatch`` on a card, the current stream waits for the
+        trainer's side stream (the carry's sampling and fetch)."""
+        if self.interbatch and self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).wait_stream(self._side())
 
     def run_eval(self, state: Dict, mode: Mode) -> Tuple[Dict, float]:
         state["correct"] = torch.zeros_like(state["correct"])

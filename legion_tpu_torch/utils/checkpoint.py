@@ -72,8 +72,9 @@ def restore_checkpoint(path: str, trainer, step: int = -1) -> Dict:
     device twin (K10 reads the twin); the base key is set in the state
     (on the device and on the host, ``base_key_h``) and as the trainer's
     ``step_key`` key; then the carry is primed at the restored
-    ``train_ctr`` (``Trainer.prime_carry``, a no-op unless
-    ``interbatch``), as ``legion_tpu/utils/checkpoint.py:57-59`` does.
+    ``train_ctr`` (``Trainer.prime_carry``: every member's batch; a no-op
+    unless ``interbatch``), as ``legion_tpu/utils/checkpoint.py:57-59``
+    does.
     The file is read onto the trainer's device, whatever device wrote
     it."""
     path = os.path.abspath(path)

@@ -669,14 +669,3 @@ def test_other_models_train_with_members(host_ds, model, skw):
     assert torch.isfinite(losses).all()
     state, metric = tr.run_eval(tr.init_state(), Mode.VALID)
     assert np.isfinite(metric)
-
-
-@pytest.mark.parametrize("what", ["fused_steps", "interbatch"])
-def test_members_refuse_fused_and_interbatch(host_ds, what):
-    cfg = _cfg(host_ds)
-    from dataclasses import replace
-    cfg = replace(cfg, train=replace(cfg.train, **(
-        {"fused_steps": 2} if what == "fused_steps" else
-        {"interbatch": True})))
-    with pytest.raises(NotImplementedError, match="A.7"):
-        Trainer(host_ds, cfg, "cpu")

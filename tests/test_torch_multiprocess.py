@@ -9,7 +9,8 @@ returns the same losses and accuracies bit for bit; every sampled id, and
 every fetched row, equals the one-process run of the same members (itself
 held against JAX's ``shard_map`` in ``tests/test_torch_clique.py``); the
 losses equal that run's within rtol 1e-5 (the mean over the ranks sums in
-another order). Also: ``exchange`` over 2 and 4 ranks against the
+another order); the same in both layouts with ``fused_steps`` and with
+``interbatch``. Also: ``exchange`` over 2 and 4 ranks against the
 one-process transpose, a resumed 2-rank run against the unbroken one, and
 ``make_mesh``'s shapes and members against JAX's mesh, and its rule,
 without processes.
@@ -47,9 +48,10 @@ def _free_port() -> int:
 
 
 @contextlib.contextmanager
-def _overrides(cache):
-    """The launcher with ``cache`` fields set in its config: the topology
-    on the host and the map kind have no flag (in either package)."""
+def _overrides(cache, train=None):
+    """The launcher with ``cache`` and ``train`` fields set in its config:
+    the topology on the host, the map kind, ``fused_steps`` and
+    ``interbatch`` have no flag (in either package)."""
     from dataclasses import replace
 
     from legion_tpu_torch import run
@@ -57,7 +59,8 @@ def _overrides(cache):
 
     def build(args):
         cfg = orig(args)
-        return replace(cfg, cache=replace(cfg.cache, **cache))
+        return replace(cfg, cache=replace(cfg.cache, **cache),
+                       train=replace(cfg.train, **(train or {})))
     run.build_config = build
     try:
         yield
@@ -65,8 +68,8 @@ def _overrides(cache):
         run.build_config = orig
 
 
-def _launch(argv, cache):
-    """``run.main(argv)`` under ``_overrides(cache)``, recording every
+def _launch(argv, cache, train=None):
+    """``run.main(argv)`` under ``_overrides(cache, train)``, recording every
     train step's counter and loss and every train batch's ids and fetched
     rows. Returns (trainer, records, epoch stats)."""
     from legion_tpu_torch import run
@@ -90,7 +93,7 @@ def _launch(argv, cache):
     Trainer.train_step = train_step
     Trainer._member_sample_fetch = member_sample_fetch
     try:
-        with _overrides(cache):
+        with _overrides(cache, train):
             tr, _, stats = run.main(argv)
     finally:
         Trainer.train_step, Trainer._member_sample_fetch = step, fetch
@@ -108,7 +111,8 @@ def _result(tr, rec, stats):
 
 def _worker(spec):
     """One rank: ``spec["runs"]`` launcher runs (argv after the shared
-    ones) with the coordinator flags, or the exchange check; writes
+    ones) with the coordinator flags and each run's ``spec["train"]``
+    fields, or the exchange check; writes
     ``rank<r>.json`` (and ``.npz`` of the runs' ids and rows) to
     ``spec["out"]``."""
     torch.set_num_threads(1)
@@ -120,7 +124,8 @@ def _worker(spec):
           str(W), "--process-id", str(r)]
     results, arrays = [], {}
     for i, argv in enumerate(spec["runs"]):
-        tr, rec, stats = _launch(SYNTH + argv + mp, spec["cache"])
+        tr, rec, stats = _launch(SYNTH + argv + mp, spec["cache"],
+                                 spec["train"][i])
         results.append(_result(tr, rec, stats))
         arrays[f"ids{i}"] = np.stack(rec["ids"])
         arrays[f"x{i}"] = np.stack(rec["x"])
@@ -157,7 +162,7 @@ def _exchange_worker(spec, out):
         json.dump("ok", f)
 
 
-def _run_ranks(kind, world, tmp_path, runs=(), cache=None):
+def _run_ranks(kind, world, tmp_path, runs=(), cache=None, train=None):
     """Start ``world`` ranks of this file as processes; fail with a
     rank's output as soon as one fails (the others are killed), or at
     RANK_TIMEOUT. Returns each rank's json and npz."""
@@ -166,7 +171,8 @@ def _run_ranks(kind, world, tmp_path, runs=(), cache=None):
     procs, logs = [], [tmp_path / f"rank{r}.log" for r in range(world)]
     for r in range(world):
         spec = dict(kind=kind, rank=r, world=world, port=port,
-                    out=str(tmp_path), runs=list(runs), cache=cache or {})
+                    out=str(tmp_path), runs=list(runs), cache=cache or {},
+                    train=list(train or [{}] * len(runs)))
         with open(logs[r], "w") as log:
             procs.append(subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__),
@@ -244,6 +250,54 @@ def test_ranks_equal_each_other_and_one_process(case, tmp_path):
         np.testing.assert_array_equal(arr["x0"], np.stack(ref["x"])[:, mine])
     np.testing.assert_allclose(j0["loss"], ref["loss"], rtol=1e-5)
     assert all(np.isfinite(j0["loss"]))
+
+
+# (processes W, members a process, clique size, map) of the runs in each
+# mode: layout (a), a clique of 2 inside each of 2 processes, and layout
+# (b), one clique of 2 across 2 processes; host caches in both
+MODE_CASES = {
+    "a-2x2-kg2-hash": (2, 2, 2, "hash"),
+    "b-2x1-kg2-direct": (2, 1, 2, "direct"),
+}
+
+
+@pytest.mark.parametrize("case", list(MODE_CASES))
+def test_ranks_in_each_mode_equal_each_other_and_one_process(case,
+                                                             tmp_path):
+    """``fused_steps`` = K (a divisor of the epoch) and ``interbatch`` over
+    2 gloo ranks through the launcher, two epochs each, against the plain
+    steps of one process of the same members: every rank returns the same
+    losses and accuracies bit for bit; every train batch's ids and rows
+    equal the one-process run's for the rank's members (the pipelined run
+    samples one batch more, its last carry); a fused call's loss is the
+    mean of the K plain losses and a pipelined step's the plain one,
+    within rtol 1e-5 (the mean over the ranks sums in another order)."""
+    W, n, Kg, impl = MODE_CASES[case]
+    cache = _cache(True, impl)
+    tr, ref, _ = _launch(SYNTH + _argv(W * n, Kg, True), cache)
+    per_epoch = tr.schedule.train_step
+    steps = 2 * per_epoch
+    K = next(k for k in range(2, per_epoch + 1) if per_epoch % k == 0)
+    ranks = _run_ranks("train", W, tmp_path, [_argv(n, Kg, True)] * 2,
+                       cache, [{"fused_steps": K}, {"interbatch": True}])
+    ids, x = np.stack(ref["ids"]), np.stack(ref["x"])
+    loss_k = np.mean(np.reshape(ref["loss"], (-1, K)), axis=1)
+    j0 = ranks[0][0]
+    for r, (j, arr) in enumerate(ranks):
+        fused, ib = j
+        assert [(m["loss"], m["acc"]) for m in j] == \
+            [(m["loss"], m["acc"]) for m in j0]
+        assert fused["ctr"] == list(range(0, steps, K))
+        assert ib["ctr"] == list(range(steps))
+        mine = slice(r * n, (r + 1) * n)
+        np.testing.assert_array_equal(arr["ids0"], ids[:, mine])
+        np.testing.assert_array_equal(arr["x0"], x[:, mine])
+        assert arr["ids1"].shape[0] == steps + 1
+        np.testing.assert_array_equal(arr["ids1"][:steps], ids[:, mine])
+        np.testing.assert_array_equal(arr["x1"][:steps], x[:, mine])
+    np.testing.assert_allclose(j0[0]["loss"], loss_k, rtol=1e-5)
+    np.testing.assert_allclose(j0[1]["loss"], ref["loss"], rtol=1e-5)
+    assert all(np.isfinite(j0[1]["loss"]))
 
 
 def test_a_resumed_two_rank_run_continues_the_unbroken_one(tmp_path):
