@@ -99,8 +99,10 @@ CUDA card, nvcc (``$CUDA_HOME`` or ``/usr/local/cuda``) and no network.
      (hash map lookup), K12 (bucket by owner), K13 (the clique fetch,
      over the bf16 host table and an f32 one, then the two in turns) and
      K14 (the owners' draws and their unsort) against their plain
-     versions, timed, and at the edges of their shapes; 10 steps and an
-     eval pass with hit counters, overflow lanes and exchange bytes, the
+     versions, timed (also queued), and at the edges of their shapes,
+     and K12 and K14 replayed from a CUDA graph on new inputs; 10 steps
+     and an eval pass with hit counters, overflow lanes and exchange
+     bytes, the
      launches equal to ``PATH_KERNELS``; every member's fetched rows
      against their host rows and every drawn neighbour against the CSR;
      the same path with hash maps, and clique-H (the topology on the
@@ -130,7 +132,9 @@ step calls ``torch.cummax`` (the plain sort dedup). ``--profile PATHS --fused
 call, and fails if a fused run's profile lacks a kernel of its path. ``python3 chip_smoke.py
 --kernels`` stops after phase 2 and the GCN shapes of K2, K8 and K9, for
 work on K1-K3, K8 and K9. ``python3 chip_smoke.py --clique`` builds, makes
-the host dataset and runs phase 9 alone, for work on K11-K14. ``python3
+the host dataset and runs phase 9 alone, for work on K11-K14;
+``--clique-kernels`` stops phase 9 after K11-K14 at clique-HT's shapes,
+their edges and the replay check (``clique_replay``). ``python3
 chip_smoke.py --link`` builds, holds K4 and K11-K14 at their edges, makes
 the host dataset and runs phases 5 and 9, for work on the host reads of
 K4 and K13. ``python3 chip_smoke.py --dist`` builds, holds K10 and K14 at
@@ -413,6 +417,8 @@ def compare(name, kernel, plain, tol, results, torch, shape_note,
     q_ms = queued_ms(kernel, torch) if queued else None
     if queued:
         msg += f" | queued {q_ms:.4f} ms"
+        if least is not None:
+            msg += f" (share {least[0] / q_ms:.3f})"
     print(msg)
     r = results.setdefault(name, {"max_abs_err": 0.0})
     r["max_abs_err"] = max(r["max_abs_err"], err)
@@ -3571,26 +3577,40 @@ def clique_kernels(tr, tr_hash, torch, results, main):
             "hash_lookup", lambda: m.lookup(ids),
             lambda: hash_lookup_plain(m.keys, m.vals, m.probes, ids), exact,
             results, torch, f"{what} {tuple(ids.shape)}, {m.n_buckets} "
-            f"buckets, probes {m.probes}", least=hash_bound(m, ids, torch))
+            f"buckets, probes {m.probes}", least=hash_bound(m, ids, torch),
+            queued=True)
         main.setdefault("hash_lookup", []).append(t)
-    # K12, at the fetch and both hops: req, row and pos exact, then the
-    # trainer's call (no pos) timed
+    # K12, at the fetch and both hops, for the Kg members and for member 0
+    # alone (a rank of layout (b)): req, row and pos exact, then the
+    # trainer's call (no pos) timed, as launched and queued, the host's us
+    # a call, and a hop's target: twice the launch floor and the bound
+    floor = launch_floor(torch)
     for h, what in ((fetch, "fetch"), (hops[0], "hop 0"), (hops[1], "hop 1")):
-        slot = h["slot"].contiguous()
-        M, N = slot.shape
-        R_req = co.request_rows(N, Kg, 1.5)
-        all_exact("bucket_by_owner", co.bucket_by_owner(slot, Kg, R_req,
-                                                        True),
-                  co.bucket_by_owner_plain(slot, Kg, R_req), what, torch)
-        own = owner_of(slot)
-        t = compare(
-            "bucket_by_owner",
-            lambda: co.bucket_by_owner(slot, Kg, R_req)[1],
-            lambda: co.bucket_by_owner_plain(slot, Kg, R_req)[1],
-            exact, results, torch, f"{what} [{M}, {N}], R_req {R_req}",
-            least=bound(4 * M * N * 2 + 4 * M * Kg * R_req),
-            library=lambda: torch.sort(own, dim=1, stable=True))
-        main.setdefault("bucket_by_owner", []).append(t)
+        for slot in (h["slot"].contiguous(), h["slot"][:1].contiguous()):
+            M, N = slot.shape
+            R_req = co.request_rows(N, Kg, 1.5)
+            all_exact("bucket_by_owner", co.bucket_by_owner(slot, Kg, R_req,
+                                                            True),
+                      co.bucket_by_owner_plain(slot, Kg, R_req), what, torch)
+            own = owner_of(slot)
+            least = bound(4 * M * N * 2 + 4 * M * Kg * R_req)
+            t = compare(
+                "bucket_by_owner",
+                lambda: co.bucket_by_owner(slot, Kg, R_req)[1],
+                lambda: co.bucket_by_owner_plain(slot, Kg, R_req)[1],
+                exact, results, torch, f"{what} [{M}, {N}], R_req {R_req}",
+                least=least,
+                library=lambda: torch.sort(own, dim=1, stable=True),
+                queued=True)
+            if M == Kg:
+                main.setdefault("bucket_by_owner", []).append(t)
+            us = host_us(lambda: co.bucket_by_owner(slot, Kg, R_req), torch,
+                         200)
+            print(f"  bucket_by_owner {what} [{M}, {N}]: host_us_per_call "
+                  f"{us:.2f} | 2 x (launch floor + bound) "
+                  f"{2 * (floor + least[0]):.4f} ms")
+    k12_host_parts(hops[0]["slot"].contiguous(), Kg, torch)
+    k12_tile_count(fetch["slot"][0], Kg, torch)
     # K13, the fetch: rows and hits exact, over the trainer's table (bf16
     # rows for the bf16 cache), an f32 table of the same rows and their
     # bf16 rows unpadded, then the three timed in turns
@@ -3622,7 +3642,8 @@ def clique_kernels(tr, tr_hash, torch, results, main):
                     lambda: co.clique_gather_plain(back, row, ids,
                                                    host.on("cuda"))[0],
                     exact, results, torch, f"fetch [{Kg}, {ids.shape[1]}] x"
-                    f" {F}, {label} table {tuple(host.shape)}", least=least)
+                    f" {F}, {label} table {tuple(host.shape)}", least=least,
+                    queued=True)
         if host is fs.host:
             main["clique_gather"] = [t]
     table_turns("clique_gather", "clique-HT fetch", {
@@ -3641,38 +3662,98 @@ def clique_kernels(tr, tr_hash, torch, results, main):
           f"whole fetch (map, K12, serve, exchanges, K13) {ms_fetch:.4f} ms")
     # K14, both hops: the owners' draws, and the requesters' unsort with
     # the host draws of the lanes not served
-    for h in hops:
+    for k, h in enumerate(hops):
         recv, fo, keys = h["recv"], h["fanout"], h["keys"]
         valid = int((recv >= 0).sum())
         pe = tr.graph_access.member_pairs.element_size()
-        t = compare("clique_draw",
-                    lambda: co.clique_draw(acc.member_pairs,
-                                           acc.member_indices2d, recv, fo,
-                                           keys),
+
+        def draw():
+            return co.clique_draw(acc.member_pairs, acc.member_indices2d,
+                                  recv, fo, keys)
+        least = bound(4 * recv.numel() + 2 * pe * valid + 4 * valid * fo
+                      + 4 * recv.numel() * fo)
+        t = compare("clique_draw", draw,
                     lambda: co.clique_draw_plain(acc.member_pairs,
                                                  acc.member_indices2d, recv,
                                                  fo, keys),
                     exact, results, torch,
                     f"owners {tuple(recv.shape)} x {fo}, {valid} rows",
-                    least=bound(4 * recv.numel() + 2 * pe * valid
-                                + 4 * valid * fo + 4 * recv.numel() * fo))
+                    least=least, queued=True)
         main.setdefault("clique_draw", []).append(t)
-        drawn = co.clique_draw(acc.member_pairs, acc.member_indices2d, recv,
-                               fo, keys)
-        bk = co.exchange(drawn.view(1, Kg, Kg, -1, fo)).view(-1, fo)
+        print(f"  clique_draw hop {k}: host_us_per_call "
+              f"{host_us(draw, torch, 200):.2f} | 2 x (launch floor + "
+              f"bound) {2 * (floor + least[0]):.4f} ms")
+        bk = co.exchange(draw().view(1, Kg, Kg, -1, fo)).view(-1, fo)
         r, fill = h["row"], h["fill"]
         served = int((r >= 0).sum())
-        t = compare("clique_draw", lambda: co.clique_draw_unsort(bk, r, fill),
+
+        def unsort():
+            return co.clique_draw_unsort(bk, r, fill)
+        least = bound(4 * r.numel() * (1 + 2 * fo) + 4 * served * fo)
+        t = compare("clique_draw", unsort,
                     lambda: co.clique_draw_unsort_plain(bk, r, fill), exact,
                     results, torch, f"unsort {tuple(r.shape)} x {fo}, "
-                    f"{served} served",
-                    least=bound(4 * r.numel() * (1 + 2 * fo)
-                                + 4 * served * fo))
+                    f"{served} served", least=least, queued=True)
         main["clique_draw"].append(t)
+        print(f"  clique_draw_unsort hop {k}: host_us_per_call "
+              f"{host_us(unsort, torch, 200):.2f} | 2 x (launch floor + "
+              f"bound) {2 * (floor + least[0]):.4f} ms")
         print(f"  hop {fo}: {int((h['frontier'] >= 0).sum())} frontier "
               f"lanes, {int((h['slot'] >= 0).sum())} cached, {served} "
               f"served, {int(((h['slot'] >= 0) & (r < 0)).sum())} overflow")
     clique_owners(tr, torch, hops, fetch)
+
+
+def k12_host_parts(slot, Kg, torch):
+    """Where K12's host time goes, at hop 0's shape: the host's us a call
+    of the wrapper, of its three allocations, of the stream handle and of
+    the C entry point alone (one launch there) on buffers made once."""
+    from legion_tpu_torch.cache import collective as co
+    from legion_tpu_torch.ops import kernels
+    M, N = slot.shape
+    R_req = co.request_rows(N, Kg, 1.5)
+    words = co._k12_scratch(M, N, Kg)
+
+    def alloc():
+        return (torch.empty((words,), dtype=torch.int32, device="cuda"),
+                torch.empty((M, Kg, R_req), dtype=torch.int32, device="cuda"),
+                torch.empty((M, N), dtype=torch.int32, device="cuda"))
+    sc, req, row = alloc()
+    lib = kernels.lib()
+
+    def call():
+        lib.lt_bucket_by_owner(slot.data_ptr(), M, N, Kg, R_req,
+                               req.data_ptr(), row.data_ptr(), None,
+                               sc.data_ptr(), kernels.stream_handle())
+    parts = [host_us(f, torch, 1000) for f in (
+        lambda: co.bucket_by_owner(slot, Kg, R_req), alloc,
+        kernels.stream_handle, call)]
+    print(f"  bucket_by_owner hop 0 [{M}, {N}], host us a call: the wrapper "
+          f"{parts[0]:.2f} | its three allocations {parts[1]:.2f} | the "
+          f"stream handle {parts[2]:.2f} | the C call "
+          f"{parts[3]:.2f}")
+
+
+def k12_tile_count(lanes, Kg, torch):
+    """K12 for one member (M = 1, a rank of layout (b)) over 1, 3 and 12
+    times the fetch's lanes (member 0's, repeated), exact and queued, with
+    the share of the bound: a tile's prefix over the tiles before it reads
+    ceil(t / 512) rounds of 16-byte loads a lane, so a cost that grows
+    faster than the lanes shows as a falling share."""
+    from legion_tpu_torch.cache import collective as co
+    for times in (1, 3, 12):
+        slot = lanes.repeat(times)[None].contiguous()
+        N = slot.shape[1]
+        R_req = co.request_rows(N, Kg, 1.5)
+        all_exact("bucket_by_owner", co.bucket_by_owner(slot, Kg, R_req,
+                                                        True),
+                  co.bucket_by_owner_plain(slot, Kg, R_req),
+                  f"{times} x the fetch's lanes", torch)
+        q = queued_ms(lambda: co.bucket_by_owner(slot, Kg, R_req), torch)
+        least = bound(4 * N * 2 + 4 * Kg * R_req)
+        print(f"  bucket_by_owner [1, {N}] ({-(-N // 2048)} tiles), R_req "
+              f"{R_req}: queued {q:.4f} ms | bound {least[0]:.4f} ms "
+              f"(share {least[0] / q:.3f}) | {q / N * 1e6:.4f} ns a lane")
 
 
 def clique_owners(tr, torch, hops, fetch):
@@ -3742,8 +3823,11 @@ def clique_owners(tr, torch, hops, fetch):
 def clique_edges(torch, results):
     """K11-K14 at the edges of their shapes, exact against the plain
     versions: K11 at loads needing 2+ probe rounds, all misses, pads, one
-    id; K12 at Kg 1, 4, 8 and 31, N from 1 to 1000 (and past one tile),
-    all misses, no misses, one owner past R_req; K13 with all misses, no
+    id; K12 at Kg 1, 4, 8 and 31, M 1 to 8, N from 1 to 4,200,000 (one
+    block a member, its last lane, one lane past it, tiles of 2048 and
+    their last lane, past 2,000 tiles), all misses, no misses, half misses, one
+    owner past R_req (half the lanes to owner 1, or to owner Kg // 2),
+    every lane to one owner, at the fetch's size too; K13 with all misses, no
     misses, overflow, an id that one member's lane finds and another's
     overflows, no host table, f32 and bf16, widths 1, 100, 128 and 602,
     f32 host tables, and bf16 ones at the bases and pitches of
@@ -3751,7 +3835,9 @@ def clique_edges(torch, results):
     K14 with degree-0 rows, no requests, int64 pairs, fanouts 1 and 25, a
     window of 8 and one of 48 (not a power of two), two cliques, and each
     owner alone at its clique index (its shard only, the index folded in:
-    the slice of the all-owners draw)."""
+    the slice of the all-owners draw); at hop 1's shape with degree-0
+    rows and with no requests, the unsort there with and without fill, at
+    a width of 4 lanes a thread and of one."""
     import numpy as np
     from legion_tpu_torch.cache import collective as co
     from legion_tpu_torch.cache.hashmap import HashMap32, hash_lookup_plain
@@ -3778,17 +3864,38 @@ def clique_edges(torch, results):
         check("hash_lookup", [m.lookup(qt)],
               [hash_lookup_plain(m.keys, m.vals, m.probes, qt)],
               f"{q}, probes {m.probes}")
+    # K12: one block a member up to 8192 lanes, tiles of 2048 past it; at
+    # the fetch's size (1,418,112 lanes a member) and past 1,000 tiles
+    fetch_n = 1_418_112
     for M, N, Kg, q in ((4, 1, 4, "mixed"), (4, 1000, 4, "all miss"),
                         (4, 1000, 4, "no miss"), (4, 3000, 4, "skew"),
                         (2, 700, 1, "mixed"), (3, 257, 8, "mixed"),
-                        (1, 5000, 31, "mixed"), (8, 20000, 4, "skew")):
+                        (1, 5000, 31, "mixed"), (8, 20000, 4, "skew"),
+                        (4, 2048, 4, "half"), (4, 2049, 4, "half"),
+                        (4, 8192, 4, "half"), (4, 8193, 4, "half"),
+                        (2, 6 * 2048, 2, "half"),
+                        (2, 10 * 2048 + 1, 1, "half"),
+                        (4, 100_000, 31, "half"), (1, 100_000, 31, "skew"),
+                        (4, 20_000, 4, "one owner"),
+                        (1, 4_200_000, 4, "skew"),
+                        (1, 4_200_000, 4, "skew mid"),
+                        (4, fetch_n, 4, "all miss"),
+                        (4, fetch_n, 4, "skew"), (1, fetch_n, 4, "half"),
+                        (4, fetch_n, 4, "one owner")):
         slot = rng.integers(-1, 50 * Kg, (M, N)).astype(np.int32)
         if q == "all miss":
             slot[:] = -1
         if q == "no miss":
             slot = np.abs(slot)
+        if q == "half":
+            slot[rng.random((M, N)) < 0.5] = -1
         if q == "skew":
             slot[:, :N // 2] = Kg * rng.integers(0, 50, N // 2) + 1
+        if q == "skew mid":
+            slot[:, :N // 2] = Kg * rng.integers(0, 50, N // 2) + Kg // 2
+        if q == "one owner":
+            slot = Kg * rng.integers(0, 10 ** 6, (M, N)).astype(np.int32) \
+                + Kg - 1
         st = torch.from_numpy(slot).to(dev)
         R_req = co.request_rows(N, Kg, 1.5)
         check("bucket_by_owner", co.bucket_by_owner(st, Kg, R_req, True),
@@ -3877,7 +3984,98 @@ def clique_edges(torch, results):
             check("clique_draw_unsort", [co.clique_draw_unsort(back, row, fl)],
                   [co.clique_draw_unsort_plain(back, row, fl)],
                   f"Kc {Kc} Kg {Kg} fanout {fo} fill {fl is not None}")
+    # K14 at hop 1's shape of clique-HT: owners [1, 4, 192,288] x 10 over
+    # rows of which a fifth have degree 0, then no requests at all; the
+    # unsort [4, 128,192] x 10 (and one lane fewer: the one-lane form)
+    row_map, pairs, blocks, R = co.build_clique_topo(
+        order, 3000, indptr, indices, 4, window=64, device=dev)
+    Q, F, fo = 192_288, 128_192, 10
+    keys = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (4, 4))
+                            .astype(np.int32)).to(dev)
+    for q in ("mixed", "none"):
+        recv = rng.integers(-1, R, (1, 4, Q)).astype(np.int32)
+        recv[rng.random(recv.shape) < 0.5] = -1
+        if q == "none":
+            recv[:] = -1
+        rt = torch.from_numpy(recv).to(dev)
+        drawn = co.clique_draw(pairs, blocks, rt, fo, keys)
+        check("clique_draw", [drawn],
+              [co.clique_draw_plain(pairs, blocks, rt, fo, keys)],
+              f"hop 1's shape, {q} requests")
+        back = drawn.view(-1, fo)
+        for Fu in (F, F - 1):
+            row = rng.integers(-back.shape[0], back.shape[0], (4, Fu))
+            rw = torch.from_numpy(row.astype(np.int32)).to(dev).clamp(min=-1)
+            fill = torch.from_numpy(rng.integers(-1, Vg, (4, fo * Fu))
+                                    .astype(np.int32)).to(dev)
+            for fl in (None, fill):
+                check("clique_draw_unsort",
+                      [co.clique_draw_unsort(back, rw, fl)],
+                      [co.clique_draw_unsort_plain(back, rw, fl)],
+                      f"hop 1's shape [4, {Fu}], {q} requests, fill "
+                      f"{fl is not None}")
     print(f"  clique_edges: {n_cases} cases of K11-K14, exact")
+
+
+def clique_replay(torch):
+    """K12 (one block a member at hop 0's size, two passes at hop 1's) and
+    K14 captured in one CUDA graph and replayed twice on new inputs copied into
+    the captured ones: each replay exact against the plain versions."""
+    import numpy as np
+    from legion_tpu_torch.cache import collective as co
+    rng = np.random.default_rng(16)
+    dev, Kg, fo = "cuda", 4, 10
+
+    def ints(lo, hi, shape):
+        return torch.from_numpy(rng.integers(lo, hi, shape)
+                                .astype(np.int32)).to(dev)
+    Vg = 5000
+    deg = rng.integers(0, 200, Vg)
+    deg[rng.random(Vg) < 0.2] = 0
+    indptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int64)
+    indices = rng.integers(0, Vg, indptr[-1]).astype(np.int32)
+    _, pairs, blocks, R = co.build_clique_topo(
+        rng.permutation(Vg), 3000, indptr, indices, Kg, window=64,
+        device=dev)
+    sizes = (8000, 128_192)
+    slots = [ints(-1, 200 * Kg, (Kg, n)) for n in sizes]
+    R_reqs = [co.request_rows(n, Kg, 1.5) for n in sizes]
+    Q, F = Kg * R_reqs[1], sizes[1]
+    recv, keys = ints(-1, R, (1, Kg, Q)), ints(-2 ** 31, 2 ** 31, (Kg, 4))
+    back = ints(-1, Vg, (Kg * Q, fo))
+    row, fill = ints(-1, Kg * Q, (Kg, F)), ints(-1, Vg, (Kg, fo * F))
+    inputs = slots + [recv, keys, back, row, fill]
+
+    def calls():
+        out = [x for s, r in zip(slots, R_reqs)
+               for x in co.bucket_by_owner(s, Kg, r, True)]
+        return out + [co.clique_draw(pairs, blocks, recv, fo, keys),
+                      co.clique_draw_unsort(back, row, fill)]
+
+    def plain():
+        out = [x for s, r in zip(slots, R_reqs)
+               for x in co.bucket_by_owner_plain(s, Kg, r)]
+        return out + [co.clique_draw_plain(pairs, blocks, recv, fo, keys),
+                      co.clique_draw_unsort_plain(back, row, fill)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        outs = calls()
+    for rep in range(2):
+        for x in inputs:
+            new = torch.from_numpy(rng.integers(-1, 200 * Kg, x.shape)
+                                   .astype(np.int32)).to(dev)
+            x.copy_(new if x is not recv else new.remainder(R + 1) - 1)
+        g.replay()
+        torch.cuda.synchronize()
+        all_exact("clique replay", outs, plain(), f"replay {rep}", torch)
+    print(f"  clique_replay: K12 at [{Kg}, {sizes[0]}] and [{Kg}, "
+          f"{sizes[1]}] (req, row, pos) and K14 (draws, unsort) captured "
+          "once, replayed twice on new inputs: exact")
 
 
 class MemberRecorder:
@@ -4038,7 +4236,7 @@ def clique_pair(tr_a, tr_b, torch, path_a, label):
     return counts
 
 
-def phase_clique(hds, torch):
+def phase_clique(hds, torch, kernels_only=False):
     """Phase 9: the clique caches with Kg = 4 members on the card, on the
     host dataset: K11-K14 against their plain versions at the clique-HT
     path's shapes and at the edges of theirs; each owner alone, as a rank
@@ -4050,8 +4248,9 @@ def phase_clique(hds, torch):
     the same members with every feature on the card (``clique_pair``).
     clique-HT and clique-HT-hash also run ``phase_modes``: replayed and
     pipelined member steps against eager ones, and the A/B of the modes.
-    Returns (kernel results, launch counts by path, main-path times, the
-    modes' A/B)."""
+    ``kernels_only`` stops after the kernels, their edges and the replay
+    check. Returns (kernel results, launch counts by path, main-path times,
+    the modes' A/B)."""
     from legion_tpu_torch.cache.hashmap import map_lookup
     from legion_tpu_torch.train import Trainer
     results, main, counts = {}, {}, {}
@@ -4060,7 +4259,12 @@ def phase_clique(hds, torch):
                       device="cuda")
     clique_kernels(tr, tr_hash, torch, results, main)
     clique_edges(torch, results)
+    clique_replay(torch)
     add_main(results, main)
+    if kernels_only:
+        tr_hash.close()
+        tr.close()
+        return results, {}, None, {}
 
     print(" clique-HT:")
     fs, acc = tr.feature_source, tr.graph_access
@@ -4473,6 +4677,11 @@ def main():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print("  " + line.strip())
 
+    if sys.argv[1:2] == ["--clique-kernels"]:
+        hds = host_dataset()
+        MEASURED["link_bps"] = bulk_link_bps(hds, torch)
+        phase_clique(hds, torch, kernels_only=True)
+        return
     if sys.argv[1:2] == ["--clique"]:
         hds = host_dataset()
         MEASURED["link_bps"] = bulk_link_bps(hds, torch)

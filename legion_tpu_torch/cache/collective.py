@@ -40,6 +40,7 @@ the kernel for CUDA tensors.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -206,15 +207,25 @@ def bucket_by_owner_plain(slot: torch.Tensor, Kg: int, R_req: int
     return req[:, :Kg * R_req].reshape(M, Kg, R_req), row, pos
 
 
+@functools.lru_cache(maxsize=None)
+def _k12_scratch(M: int, N: int, Kg: int) -> int:
+    """The words of K12's scratch for these sizes (``csrc/clique.cu``:
+    the tiles' counts)."""
+    return kernels.lib().lt_bucket_scratch(M, N, Kg)
+
+
 def bucket_by_owner(slot: torch.Tensor, Kg: int, R_req: int,
                     with_pos: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor,
                                Optional[torch.Tensor]]:
     """K12, as ``bucket_by_owner_plain``: slot [M, N] int32 -> (req [M, Kg,
-    R_req], row [M, N], pos [M, N] when ``with_pos`` else None), in one
-    cooperative launch for all members."""
+    R_req], row [M, N], pos [M, N] when ``with_pos`` else None), for all
+    members at once: one launch where a member's lanes fit one block, else
+    a count pass and a rank pass over tiles of a member's lanes (the
+    tiles' counts in a scratch tensor)."""
     if slot.dtype != torch.int32 or slot.dim() != 2 or not 1 <= Kg < 32 \
-            or R_req < 1 or slot.shape[0] * Kg * R_req >= 2 ** 31 - 1:
+            or R_req < 1 or slot.shape[0] * Kg * R_req >= 2 ** 31 - 1 \
+            or slot.shape[1] >= 2 ** 30:
         raise ValueError(f"bucket_by_owner: slot {slot.dtype} "
                          f"{tuple(slot.shape)}, Kg {Kg}, R_req {R_req}")
     if slot.device.type == "cpu":
@@ -223,11 +234,7 @@ def bucket_by_owner(slot: torch.Tensor, Kg: int, R_req: int,
     slot = slot.contiguous()
     M, N = slot.shape
     dev = slot.device
-    G = kernels.lib().lt_bucket_grid(M, N)
-    if G <= 0:
-        raise RuntimeError(f"bucket_by_owner: {M} members do not fit one "
-                           "cooperative launch on this card")
-    scratch = torch.empty((M * G * (Kg + 1),), dtype=torch.int32,
+    scratch = torch.empty((_k12_scratch(M, N, Kg),), dtype=torch.int32,
                           device=dev)
     req = torch.empty((M, Kg, R_req), dtype=torch.int32, device=dev)
     row = torch.empty((M, N), dtype=torch.int32, device=dev)

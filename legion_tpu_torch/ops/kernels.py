@@ -184,7 +184,8 @@ def lib() -> ctypes.CDLL:
     so.lt_dedup_map_grid.argtypes = [i64, i64, i64]
     so.lt_step_keys.argtypes = [p, p, u32, i32, i32, i64, p, p]
     so.lt_hash_lookup.argtypes = [p, p, i64, i32, p, i64, p, p]
-    so.lt_bucket_grid.argtypes = [i64, i64]
+    so.lt_bucket_scratch.argtypes = [i64, i64, i32]
+    so.lt_bucket_scratch.restype = ctypes.c_int64
     so.lt_bucket_by_owner.argtypes = [p, i64, i64, i32, i32, p, p, p, p, p]
     so.lt_clique_gather.argtypes = [p, p, p, i64, i64, i32, p, p, i64, i64,
                                     i32, p, p, i64, i32, i64, p]
@@ -205,7 +206,7 @@ def lib() -> ctypes.CDLL:
                so.lt_map_register, so.lt_map_clear, so.lt_dedup_map,
                so.lt_dedup_map_fused, so.lt_dedup_map_grid,
                so.lt_grid_sync_probe, so.lt_step_keys, so.lt_hash_lookup,
-               so.lt_bucket_grid, so.lt_bucket_by_owner, so.lt_clique_gather,
+               so.lt_bucket_by_owner, so.lt_clique_gather,
                so.lt_clique_draw_i32, so.lt_clique_draw_i64,
                so.lt_clique_draw_unsort):
         fn.restype = ctypes.c_int
@@ -215,7 +216,9 @@ def lib() -> ctypes.CDLL:
 
 
 def stream_handle() -> int:
-    return torch.cuda.current_stream().cuda_stream
+    """The current CUDA stream's handle, read without building a
+    ``torch.cuda.Stream`` object (a few us of the host's time a launch)."""
+    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
 
 
 def check(name: str, rc: int) -> None:

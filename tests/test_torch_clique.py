@@ -32,7 +32,8 @@ from legion_tpu_torch.cache.collective import (CliqueFeatureCache,
                                                build_clique_cache,
                                                build_clique_topo,
                                                clique_draw,
-                                               clique_draw_plain, exchange,
+                                               clique_draw_plain,
+                                               clique_select, exchange,
                                                request_rows)
 from legion_tpu_torch.cache.hashmap import HashMap32
 from legion_tpu_torch.config import (CacheConfig, LegionConfig, MeshConfig,
@@ -172,6 +173,42 @@ def test_bucket_by_owner_equals_jax(case):
         overflow += int(((s >= 0) & ~inb).sum())
     assert (overflow > 0) == (case == "skewed past R_req")
     assert kernels.LAUNCHES["bucket_by_owner"] == 0
+
+
+# K12's kernel takes a member of at most 8192 lanes in one block and cuts
+# longer ones into tiles of 2048 (``csrc/clique.cu``)
+@pytest.mark.parametrize("kg", [1, 31])
+@pytest.mark.parametrize("N", [8192, 8193, 6 * 2048 + 5])
+def test_bucket_by_owner_equals_jax_at_tile_edges(kg, N):
+    """The plain K12 against JAX's ``_bucket_by_owner`` at the kernel's
+    tile edges: one block's lanes, one lane past them, several tiles of
+    2048; a third of the lanes missing, owner 0 past
+    R_req where Kg > 1."""
+    rng = np.random.default_rng(N + kg)
+    M = 2
+    slot = rng.integers(0, 40 * kg, (M, N)).astype(np.int32)
+    slot[rng.random((M, N)) < 1 / 3] = -1
+    slot[0, :N // 2] = kg * rng.integers(0, 40, N // 2)
+    R_req = request_rows(N, kg, 1.5)
+    req, row, pos = bucket_by_owner(torch.from_numpy(slot), kg, R_req,
+                                    with_pos=True)
+    for m in range(M):
+        s = slot[m]
+        owner = np.where(s >= 0, s % kg, kg).astype(np.int32)
+        local = np.where(s >= 0, s // kg, 0).astype(np.int32)
+        jreq, jinb, _, jpos, jinv = _bucket_by_owner(
+            jnp.asarray(owner), jnp.asarray(local), kg, R_req)
+        inv = np.asarray(jinv)
+        np.testing.assert_array_equal(req[m].numpy(), np.asarray(jreq))
+        np.testing.assert_array_equal(row[m].numpy() >= 0, np.asarray(jinb))
+        np.testing.assert_array_equal(pos[m].numpy(), np.asarray(jpos)[inv])
+        inb = row[m].numpy() >= 0
+        np.testing.assert_array_equal(
+            row[m].numpy()[inb],
+            ((m * kg + owner) * R_req + pos[m].numpy())[inb])
+    # owner 0's lanes of member 0 pass R_req (R_req > N at Kg 1)
+    overflow = (row[0].numpy() < 0).sum() > (slot[0] < 0).sum()
+    assert overflow == (kg > 1)
 
 
 def test_exchange_is_the_all_to_all():
@@ -399,6 +436,70 @@ def test_lookup_and_sample_equal_jax_with_its_draws(impl):
                     indices[indptr[v]:indptr[v + 1]].tolist())
     assert served.numpy()[:, :50].sum() == Kg * 40
     assert kernels.LAUNCHES["clique_draw"] == 0
+
+
+def _draw_local_jax(jp, jb, rows, keys, fanout, kg):
+    """JAX's ``_draw_local`` for every owner, its axis index the vmapped
+    owner axis: rows [Kg(owner), Kg, R_req] -> [Kg, Kg, R_req, fanout];
+    and its r0 and off, drawn as it draws them, as [1, Kg, Kg * R_req]
+    and [1, Kg, Kg * R_req, fanout] tensors."""
+    jt = JTopo(None, None, None, None, kg)
+    W, R = jb.shape[-1], jp.shape[1]
+
+    def one(pairs, blocks, r, key):
+        k0, k1 = jax.random.split(
+            jax.random.fold_in(key, jax.lax.axis_index("member")))
+        pd = pairs[jnp.clip(r, 0, R - 1)]
+        start = jnp.where(r >= 0, pd[..., 0], 0)
+        deg = jnp.where(r >= 0, pd[..., 1], 0)
+        r0 = jax.random.randint(k0, r.shape, 0, jnp.maximum(deg, 1),
+                                dtype=jnp.int32)
+        base = (start + r0) // W * W
+        lo = (jnp.maximum(base, start) - base).astype(jnp.int32)
+        hi = (jnp.minimum(base + W, start + deg) - base).astype(jnp.int32)
+        off = lo[..., None] + jax.random.randint(
+            k1, r.shape + (fanout,), 0, jnp.maximum(hi - lo, 1)[..., None],
+            dtype=jnp.int32)
+        return (jt.bind_shard(pairs, blocks)._draw_local(r, fanout, key),
+                r0, off)
+
+    out, r0, off = jax.jit(jax.vmap(one, axis_name="member"))(
+        jnp.asarray(jp), jnp.asarray(jb), jnp.asarray(rows), keys)
+    return (np.asarray(out), torch.from_numpy(np.array(r0).reshape(
+        1, kg, -1)), torch.from_numpy(np.array(off).reshape(
+            1, kg, -1, fanout)))
+
+
+# K14's draw kernel takes a warp of 32 requests at a time, 256 a block
+@pytest.mark.parametrize("kg,R_req", [(1, 256), (1, 257), (1, 773),
+                                      (31, 9)])
+def test_clique_select_equals_jax_draw_local_at_tile_edges(kg, R_req):
+    """``clique_select`` with JAX's r0 and off against JAX's
+    ``_draw_local`` of every owner (vmapped, its axis index the owner's),
+    at requests of an owner around one block of the kernel (Q = Kg *
+    R_req of 256 to 773), with degree-0 rows and empty requests."""
+    rng = np.random.default_rng(kg * 1000 + R_req)
+    indptr, indices = _graph(V=40 * kg, seed=kg)
+    deg = np.diff(indptr)
+    deg[rng.random(len(deg)) < 0.2] = 0      # rows with no neighbours
+    indptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int64)
+    indices = indices[:indptr[-1]]
+    order = np.argsort(-deg, kind="stable")
+    fanout = 7
+    _, jp, jb, R = jax_build_topo(order, 20 * kg, indptr, indices, kg,
+                                  window=8)
+    _, pp, pb, _ = build_clique_topo(order, 20 * kg, indptr, indices, kg,
+                                     window=8)
+    rows = rng.integers(-1, R, (kg, kg, R_req)).astype(np.int32)
+    rows[rng.random(rows.shape) < 0.3] = -1
+    keys = jax.random.split(jax.random.PRNGKey(R_req), kg)
+    want, r0, off = _draw_local_jax(np.asarray(jp), np.asarray(jb), rows,
+                                    keys, fanout, kg)
+    got = clique_select(pp, pb, torch.from_numpy(rows.reshape(1, kg, -1)),
+                        r0, off)
+    np.testing.assert_array_equal(got.numpy(),
+                                  want.reshape(1, kg, -1, fanout))
+    assert (want == -1).any() and (want >= 0).any()
 
 
 def test_clique_draws_are_neighbors():
