@@ -100,7 +100,12 @@ CUDA card, nvcc (``$CUDA_HOME`` or ``/usr/local/cuda``) and no network.
      over the bf16 host table and an f32 one, then the two in turns) and
      K14 (the owners' draws and their unsort) against their plain
      versions, timed (also queued), and at the edges of their shapes,
-     and K12 and K14 replayed from a CUDA graph on new inputs; 10 steps
+     and K11, K12 and K14 replayed from a CUDA graph on new inputs; K11
+     also at the counters' one topology-map lookup and at a uk2014-sized
+     map past L2 (``hash_scale``: 30M keys of V 787,801,471, 537 MB,
+     queried at the fetch's shape), each in turns with the parent's
+     kernel where ``_archive/parent`` holds a ``git archive`` of the
+     parent commit; 10 steps
      and an eval pass with hit counters, overflow lanes and exchange
      bytes, the
      launches equal to ``PATH_KERNELS``; every member's fetched rows
@@ -3490,8 +3495,10 @@ def clique_batch(tr, torch, ctr=0):
     """The pieces of one clique-HT train batch, as ``Trainer._step_body``
     makes them: every member's seeds and key words at counter ``ctr``,
     each hop's frontiers [Kg, F_k] with their routing, owners' requests and
-    misses' host draws, and the fetch's ids [Kg, max_ids]."""
+    misses' host draws, the fetch's ids [Kg, max_ids], and the ids of the
+    counters' one topology-map lookup (``train.py::topo_count_len``)."""
     from legion_tpu_torch.cache.hashmap import map_lookup
+    from legion_tpu_torch.train import topo_count_len
     s, acc, fs = tr.sampler_t, tr.graph_access, tr.feature_source
     state = {"base_key": torch.full((), tr.config.train.seed + 1,
                                     dtype=torch.int64, device="cuda"),
@@ -3517,12 +3524,14 @@ def clique_batch(tr, torch, ctr=0):
         cand = acc.sample_neighbors(fr, fo, keys[:, k])
         carries = [s._absorb(c, k, cand[d], False)
                    for d, c in enumerate(carries)]
-    ids = torch.stack([s._finish(c, clear=False).node_ids[:s.max_ids]
-                       for c in carries])
+    done = [s._finish(c, clear=False).node_ids for c in carries]
+    ids = torch.stack([d[:s.max_ids] for d in done])
+    n = topo_count_len(s, CLIQUE_KG, done[0].shape[0])
     slot = map_lookup(fs.slot_map, ids)
     req, row, _ = fs.route(ids)
     return hops, dict(ids=ids, slot=slot, req=req, row=row,
-                      back=fs._rows_back(req))
+                      back=fs._rows_back(req),
+                      count_ids=torch.stack([d[:n] for d in done]))
 
 
 def all_exact(name, got, ref, what, torch):
@@ -3552,6 +3561,163 @@ def hash_bound(m, ids, torch):
     return bound(8 * ids.numel() + 32 * rows + 4 * hits)
 
 
+PARENT = os.path.join(ROOT, "_archive", "parent")
+
+
+def k11_builds():
+    """K11's kernels to time in turns, by name: the parent's (its
+    ``hash_lookup.cu`` from a ``git archive`` of the parent commit in
+    ``_archive/parent``, where one is unpacked: the old [B, 8] keys and
+    values, built from source with kernels.NVCC_FLAGS into a library of
+    its own and called on contiguous copies of the map's halves), then
+    "tree", the package's own. Returns {name: make(map) -> fn(ids) ->
+    values}."""
+    import ctypes
+    from legion_tpu_torch.ops import kernels
+    makers = {}
+    src = os.path.join(PARENT, "legion_tpu_torch", "csrc", "hash_lookup.cu")
+    if os.path.exists(src):
+        out = os.path.join(str(kernels.BUILD_DIR), "k11")
+        os.makedirs(out, exist_ok=True)
+        so_path = os.path.join(out, "k11_parent.so")
+        t0 = time.perf_counter()
+        kernels._run_all([[kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared",
+                           "-o", so_path, src]])
+        print(f"  K11: built the parent's kernel in "
+              f"{time.perf_counter() - t0:.2f} s")
+        fn = ctypes.CDLL(so_path).lt_hash_lookup
+        fn.restype = ctypes.c_int
+        p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
+        fn.argtypes = [p, p, i64, i32, p, i64, p, p]
+
+        def parent(m):
+            import torch
+            keys, vals = m.keys.contiguous(), m.vals.contiguous()
+
+            def call(ids):
+                o = torch.empty_like(ids)
+                rc = fn(keys.data_ptr(), vals.data_ptr(), m.n_buckets,
+                        m.probes, ids.data_ptr(), ids.numel(), o.data_ptr(),
+                        kernels.stream_handle())
+                if rc != 0:
+                    fail(f"hash_lookup parent: launch failed ({rc})")
+                return o
+            call.keep = (keys, vals)
+            return call
+        makers["parent"] = parent
+    else:
+        print("  K11: no parent kernel (no _archive/parent): the tree's "
+              "kernel alone")
+    makers["tree"] = lambda m: m.lookup
+    return makers
+
+
+def k11_turns(what, m, ids, ref, least, builds, torch):
+    """K11 at one shape: every kernel of ``builds`` exact against ``ref``
+    (the plain version's values), then each timed in turns, forward and
+    back (the parent, the tree, the tree, the parent), as the host
+    launches it and queued, with its share of ``least``."""
+    fns = {k: make(m) for k, make in builds.items()}
+    for k, fn in fns.items():
+        if not torch.equal(fn(ids), ref):
+            fail(f"hash_lookup {k} {what}: differs from its plain version")
+    order = list(fns) + list(fns)[::-1]
+    got = {k: [] for k in fns}
+    for k in order:
+        got[k].append((cuda_ms(lambda: fns[k](ids), torch),
+                       queued_ms(lambda: fns[k](ids), torch)))
+    print(f"  hash_lookup turns, {what}: bound {least[0]:.4f} ms")
+    for k, v in got.items():
+        q = [b for _, b in v]
+        print(f"    {k:20s} launched {', '.join(f'{a:.4f}' for a, _ in v)}"
+              f" | queued {', '.join(f'{b:.4f}' for b in q)} ms (share "
+              f"{least[0] / min(q):.3f})")
+
+
+# the uk2014-sized feature map (tests/test_torch_hashmap.py's sizing:
+# 30M cached feature rows of V 787,801,471) and the fetch's shares at
+# clique-HT-hash: hits, absent ids, -1 pads at each member's tail
+UK_V, UK_KEYS = 787_801_471, 30_000_000
+UK_HIT, UK_PAD = 0.52, 0.035
+
+
+def uk2014_map(torch, n_ids):
+    """The map: UK_KEYS keys without repeats in [0, UK_V) (the unique of 3%
+    more draws, trimmed at random), values ``arange``, built by
+    ``HashMap32.build`` at load 0.5, moved to the card. The queries [Kg,
+    n_ids]: each member's ids ascending (as sort dedup leaves them),
+    UK_HIT of them keys, the rest absent ids but UK_PAD -1 pads at the
+    tail. Both come from a fixed seed; the first run saves the table, its
+    probes and the queries under ``legion_tpu_torch/_build/`` and a later
+    run in the same checkout loads them (the numpy build takes 80-105 s)."""
+    import numpy as np
+    from legion_tpu_torch.cache.hashmap import HashMap32
+    from legion_tpu_torch.ops import kernels
+    seed = 2014
+    path = os.path.join(str(kernels.BUILD_DIR),
+                        f"uk2014_map_{seed}_{UK_KEYS}_{CLIQUE_KG}x{n_ids}.npz")
+    t0 = time.perf_counter()
+    if os.path.exists(path):
+        with np.load(path) as z:
+            table, probes, q = z["table"], int(z["probes"]), z["ids"]
+        how = f"loaded from {os.path.relpath(path, ROOT)}"
+    else:
+        rng = np.random.default_rng(seed)
+        keys = np.unique(rng.integers(0, UK_V, UK_KEYS * 103 // 100))
+        if len(keys) < UK_KEYS:
+            fail(f"uk2014 map: {len(keys)} distinct keys drawn")
+        keys = rng.permutation(keys)[:UK_KEYS]
+        built = HashMap32.build(keys, np.arange(UK_KEYS, dtype=np.int32),
+                                load=0.5)
+        table, probes = built.table.numpy(), built.probes
+        sk = np.sort(keys)
+        n_pad = round(UK_PAD * n_ids)
+        n_hit = round(UK_HIT * n_ids)
+        n_abs = n_ids - n_pad - n_hit
+        rows = []
+        for _ in range(CLIQUE_KG):
+            hit = keys[rng.choice(UK_KEYS, n_hit, replace=False)]
+            cand = np.unique(rng.integers(0, UK_V, n_abs * 11 // 10))
+            at = np.minimum(np.searchsorted(sk, cand), UK_KEYS - 1)
+            cand = cand[sk[at] != cand]
+            cand = cand[rng.permutation(len(cand))[:n_abs]]
+            if len(cand) < n_abs:
+                fail("uk2014 queries: too few absent ids drawn")
+            rows.append(np.concatenate([
+                np.sort(np.concatenate([hit, cand])), np.full(n_pad, -1)]))
+        q = np.stack(rows).astype(np.int32)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path + ".tmp", "wb") as f:
+            np.savez(f, table=table, probes=probes, ids=q)
+        os.replace(path + ".tmp", path)
+        how = "built (numpy) and saved"
+    m = HashMap32(torch.from_numpy(table).to("cuda"), probes)
+    ids = torch.from_numpy(q).to("cuda")
+    pads = int((q[0] < 0).sum())
+    print(f"  uk2014-sized map: {UK_KEYS} keys of V {UK_V}, {m.n_buckets} "
+          f"buckets ({m.table.numel() * 4} B), probes {m.probes}; "
+          f"{how} in {time.perf_counter() - t0:.2f} s; queries "
+          f"{tuple(ids.shape)}, {pads} pads a member")
+    return m, ids
+
+
+def hash_scale(torch, results, builds, n_ids):
+    """K11 at the uk2014-sized map past L2 (``uk2014_map``), at the
+    fetch's shape: exact against its plain version, timed with its bound,
+    then in turns with the parent's kernel."""
+    from legion_tpu_torch.cache.hashmap import hash_lookup_plain
+    m, ids = uk2014_map(torch, n_ids)
+    ref = hash_lookup_plain(m.keys, m.vals, m.probes, ids)
+    least = hash_bound(m, ids, torch)
+    compare("hash_lookup", lambda: m.lookup(ids),
+            lambda: hash_lookup_plain(m.keys, m.vals, m.probes, ids), exact,
+            results, torch, f"uk2014-sized {tuple(ids.shape)}, {m.n_buckets}"
+            f" buckets, probes {m.probes}", least=least, queued=True)
+    k11_turns("uk2014-sized map", m, ids, ref, least, builds, torch)
+    del m, ids, ref
+    torch.cuda.empty_cache()
+
+
 def clique_kernels(tr, tr_hash, torch, results, main):
     """K11-K14 against their plain versions at clique-HT's shapes (one real
     batch of the Kg members), exact, timed, with their bounds; K12 beside
@@ -3568,18 +3734,27 @@ def clique_kernels(tr, tr_hash, torch, results, main):
     def owner_of(slot):
         return torch.where(slot >= 0, slot % Kg, Kg)
 
-    # K11, at the fetch and both hops, on the hash path's maps
+    # K11, at the fetch, both hops and the counters' lookup, on the hash
+    # path's maps; then in turns with the parent's kernel; then at the
+    # uk2014-sized map
+    builds = k11_builds()
     for m, ids, what in (
             (tr_hash.feature_source.slot_map, fetch["ids"], "fetch ids"),
             (tr_hash.graph_access.row_map, hops[0]["frontier"], "hop 0"),
-            (tr_hash.graph_access.row_map, hops[1]["frontier"], "hop 1")):
+            (tr_hash.graph_access.row_map, hops[1]["frontier"], "hop 1"),
+            (tr_hash.graph_access.row_map, fetch["count_ids"],
+             "counters")):
+        least = hash_bound(m, ids, torch)
         t = compare(
             "hash_lookup", lambda: m.lookup(ids),
             lambda: hash_lookup_plain(m.keys, m.vals, m.probes, ids), exact,
             results, torch, f"{what} {tuple(ids.shape)}, {m.n_buckets} "
-            f"buckets, probes {m.probes}", least=hash_bound(m, ids, torch),
-            queued=True)
+            f"buckets, probes {m.probes}", least=least, queued=True)
         main.setdefault("hash_lookup", []).append(t)
+        k11_turns(what, m, ids,
+                  hash_lookup_plain(m.keys, m.vals, m.probes, ids), least,
+                  builds, torch)
+    hash_scale(torch, results, builds, fetch["ids"].shape[1])
     # K12, at the fetch and both hops, for the Kg members and for member 0
     # alone (a rank of layout (b)): req, row and pos exact, then the
     # trainer's call (no pos) timed, as launched and queued, the host's us
@@ -3820,17 +3995,60 @@ def clique_owners(tr, torch, hops, fetch):
           "all-owners caches")
 
 
+def k11_edge_maps(rng, dev):
+    """K11's maps at its edges, each with its query sets: the tails of 4
+    ids a thread (1, 3, 4, 5 and 4·1000 + 1 ids), 2-D ids; a map of 2
+    buckets; a chain of buckets from bucket B - 1 that wraps past it (3 or
+    more probe rounds), with every query in that chain; the largest int32
+    id, present and absent. Yields (what, map, [query ids])."""
+    import numpy as np
+    from legion_tpu_torch.cache.hashmap import HashMap32, _hash
+    keys = rng.choice(10 ** 7, 5000, replace=False)
+    m = HashMap32.build(keys, np.arange(5000, dtype=np.int32), device=dev)
+    mixed = rng.permutation(np.concatenate([keys, rng.integers(
+        -1, 10 ** 7, 5000)]))
+    yield "tails", m, [mixed[:n] for n in (1, 3, 4, 5, 4001)] + [
+        mixed[:4 * 1001].reshape(4, 1001)]
+    two = rng.choice(1000, 12, replace=False)
+    m = HashMap32.build(two, np.arange(12, dtype=np.int32), load=0.9,
+                        device=dev)
+    if m.n_buckets != 2:
+        fail(f"k11 edges: {m.n_buckets} buckets, want 2")
+    yield "2 buckets", m, [np.concatenate([two, np.arange(-1, 1000)])]
+    cand = np.arange(1, 400_000)
+    last = cand[_hash(cand, 64) == 63]
+    others = np.setdiff1d(cand, last)
+    chain = np.concatenate([last[:30], rng.choice(others, 170,
+                                                  replace=False)])
+    m = HashMap32.build(chain, rng.integers(0, 2 ** 31 - 1, 200)
+                        .astype(np.int32), device=dev)
+    if m.n_buckets != 64 or m.probes < 3:
+        fail(f"k11 edges: {m.n_buckets} buckets, probes {m.probes}; want "
+             "64 and 3 or more")
+    yield "wrapping chain", m, [chain, last[:400], last[10:11]]
+    top = np.append(rng.choice(2 ** 31 - 1, 999, replace=False),
+                    2 ** 31 - 1)
+    for keep in (True, False):
+        k = top if keep else top[:-1]
+        m = HashMap32.build(k, np.arange(len(k), dtype=np.int32),
+                            device=dev)
+        yield f"id 2^31-1 {'present' if keep else 'absent'}", m, [
+            np.concatenate([top, [2 ** 31 - 1, 2 ** 31 - 2, -1]])]
+
+
 def clique_edges(torch, results):
     """K11-K14 at the edges of their shapes, exact against the plain
     versions: K11 at loads needing 2+ probe rounds, all misses, pads, one
-    id; K12 at Kg 1, 4, 8 and 31, M 1 to 8, N from 1 to 4,200,000 (one
-    block a member, its last lane, one lane past it, tiles of 2048 and
-    their last lane, past 2,000 tiles), all misses, no misses, half misses, one
-    owner past R_req (half the lanes to owner 1, or to owner Kg // 2),
-    every lane to one owner, at the fetch's size too; K13 with all misses, no
-    misses, overflow, an id that one member's lane finds and another's
-    overflows, no host table, f32 and bf16, widths 1, 100, 128 and 602,
-    f32 host tables, and bf16 ones at the bases and pitches of
+    id, and at ``k11_edge_maps``' edges, each 1-D query set also from a
+    base that is not 16-byte aligned; K12 at Kg 1, 4, 8 and 31, M 1 to 8,
+    N from 1 to 4,200,000 (one block a member, its last lane, one lane
+    past it, tiles of 2048 and their last lane, past 2,000 tiles), all
+    misses, no misses, half misses, one owner past R_req (half the lanes
+    to owner 1, or to owner Kg // 2), every lane to one owner, at the
+    fetch's size too; K13 with all misses, no misses, overflow, an id
+    that one member's lane finds and another's overflows, no host table,
+    f32 and bf16, widths 1, 100, 128 and 602, f32 host tables, and bf16
+    ones at the bases and pitches of
     ``k4_edges``;
     K14 with degree-0 rows, no requests, int64 pairs, fanouts 1 and 25, a
     window of 8 and one of 48 (not a power of two), two cliques, and each
@@ -3864,6 +4082,14 @@ def clique_edges(torch, results):
         check("hash_lookup", [m.lookup(qt)],
               [hash_lookup_plain(m.keys, m.vals, m.probes, qt)],
               f"{q}, probes {m.probes}")
+    for what, m, qs in k11_edge_maps(rng, dev):
+        for q in qs:
+            qt = torch.from_numpy(q.astype(np.int32)).to(dev)
+            # also one id in: a base that is not 16-byte aligned
+            for x in (qt, qt.view(-1)[1:]) if qt.dim() == 1 else (qt,):
+                check("hash_lookup", [m.lookup(x)],
+                      [hash_lookup_plain(m.keys, m.vals, m.probes, x)],
+                      f"{what}, ids {tuple(x.shape)}, probes {m.probes}")
     # K12: one block a member up to 8192 lanes, tiles of 2048 past it; at
     # the fetch's size (1,418,112 lanes a member) and past 1,000 tiles
     fetch_n = 1_418_112
@@ -4018,11 +4244,14 @@ def clique_edges(torch, results):
 
 
 def clique_replay(torch):
-    """K12 (one block a member at hop 0's size, two passes at hop 1's) and
-    K14 captured in one CUDA graph and replayed twice on new inputs copied into
-    the captured ones: each replay exact against the plain versions."""
+    """K11 (at hop 1's and the fetch's shapes, over maps of clique-HT-hash's
+    sizes), K12 (one block a member at hop 0's size, two passes at hop
+    1's) and K14 captured in one CUDA graph and replayed twice on new
+    inputs copied into the captured ones: each replay exact against the
+    plain versions."""
     import numpy as np
     from legion_tpu_torch.cache import collective as co
+    from legion_tpu_torch.cache.hashmap import HashMap32, hash_lookup_plain
     rng = np.random.default_rng(16)
     dev, Kg, fo = "cuda", 4, 10
 
@@ -4045,16 +4274,28 @@ def clique_replay(torch):
     back = ints(-1, Vg, (Kg * Q, fo))
     row, fill = ints(-1, Kg * Q, (Kg, F)), ints(-1, Vg, (Kg, fo * F))
     inputs = slots + [recv, keys, back, row, fill]
+    # K11: a topology map of 4,096 buckets at hop 1's [Kg, 128,192] ids,
+    # a feature map of 262,144 at the fetch's [Kg, 1,418,112], ids of H's
+    # 2.4M vertices
+    V = 2_400_000
+    maps = [HashMap32.build(k, np.arange(len(k), dtype=np.int32),
+                            device=dev)
+            for k in (rng.choice(V, 16_000, replace=False),
+                      rng.choice(V, 1_000_000, replace=False))]
+    hids = [ints(-1, V, (Kg, n)) for n in (sizes[1], 1_418_112)]
 
     def calls():
         out = [x for s, r in zip(slots, R_reqs)
                for x in co.bucket_by_owner(s, Kg, r, True)]
+        out += [m.lookup(i) for m, i in zip(maps, hids)]
         return out + [co.clique_draw(pairs, blocks, recv, fo, keys),
                       co.clique_draw_unsort(back, row, fill)]
 
     def plain():
         out = [x for s, r in zip(slots, R_reqs)
                for x in co.bucket_by_owner_plain(s, Kg, r)]
+        out += [hash_lookup_plain(m.keys, m.vals, m.probes, i)
+                for m, i in zip(maps, hids)]
         return out + [co.clique_draw_plain(pairs, blocks, recv, fo, keys),
                       co.clique_draw_unsort_plain(back, row, fill)]
     side = torch.cuda.Stream()
@@ -4070,12 +4311,16 @@ def clique_replay(torch):
             new = torch.from_numpy(rng.integers(-1, 200 * Kg, x.shape)
                                    .astype(np.int32)).to(dev)
             x.copy_(new if x is not recv else new.remainder(R + 1) - 1)
+        for x in hids:
+            x.copy_(ints(-1, V, x.shape))
         g.replay()
         torch.cuda.synchronize()
         all_exact("clique replay", outs, plain(), f"replay {rep}", torch)
-    print(f"  clique_replay: K12 at [{Kg}, {sizes[0]}] and [{Kg}, "
-          f"{sizes[1]}] (req, row, pos) and K14 (draws, unsort) captured "
-          "once, replayed twice on new inputs: exact")
+    print(f"  clique_replay: K11 at {[tuple(i.shape) for i in hids]} "
+          f"({[m.n_buckets for m in maps]} buckets), K12 at [{Kg}, "
+          f"{sizes[0]}] and [{Kg}, {sizes[1]}] (req, row, pos) and K14 "
+          "(draws, unsort) captured once, replayed twice on new inputs: "
+          "exact")
 
 
 class MemberRecorder:

@@ -10,9 +10,13 @@ default (one gather); this map is the billion-scale form:
            against 4 bytes x |V| for a direct table;
   lookup:  ``probes`` rounds of one 32-byte bucket row each.
 
-``HashMap32.build`` is the JAX package's numpy build, byte for byte; its
-tables go to the given device. ``lookup`` is K11 ``hash_lookup``
-(``csrc/hash_lookup.cu``) on a card and ``hash_lookup_plain`` on the CPU.
+``HashMap32.build`` is the JAX package's numpy build, byte for byte, into
+one [B, 16] int32 table: row b holds bucket b's 8 keys, then their 8
+values, so that a hit's value lies in the 64-byte row of its keys. JAX's
+[B, 8] ``keys`` and ``vals`` are the table's two halves (``HashMap32.keys``
+and ``.vals``, views). The table goes to the given device. ``lookup`` is
+K11 ``hash_lookup`` (``csrc/hash_lookup.cu``) on a card and
+``hash_lookup_plain`` on the CPU.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import torch
 from legion_tpu_torch.ops import kernels
 
 BUCKET = 8
+ROW = 2 * BUCKET                        # a table row: keys, then values
 _MULT = np.uint32(0x9E3779B1)          # Fibonacci hashing multiplier
 
 
@@ -52,10 +57,41 @@ def hash_lookup_plain(keys: torch.Tensor, vals: torch.Tensor, probes: int,
     return torch.where(ids >= 0, out, -1)
 
 
+def _table_of(keys: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """The [B, 16] table whose halves keys and vals are, read in place;
+    separate arrays are packed into one first (a copy)."""
+    B = keys.shape[0]
+    if keys.stride() == (ROW, 1) and vals.stride() == (ROW, 1) \
+            and vals.data_ptr() == keys.data_ptr() + 4 * BUCKET \
+            and keys.untyped_storage().data_ptr() \
+            == vals.untyped_storage().data_ptr():
+        return keys.as_strided((B, ROW), (ROW, 1))
+    return torch.cat([keys, vals], dim=1)
+
+
+def _lookup_in(table: torch.Tensor, probes: int,
+               ids: torch.Tensor) -> torch.Tensor:
+    """K11 over a [B, 16] table on a card."""
+    if ids.dtype != torch.int32 or ids.device != table.device:
+        raise ValueError(f"hash_lookup: ids {ids.dtype} on {ids.device}, "
+                         f"table on {table.device}")
+    ids = ids.contiguous()
+    out = torch.empty_like(ids)
+    rc = kernels.lib().lt_hash_lookup(
+        table.data_ptr(), table.shape[0], probes, ids.data_ptr(),
+        ids.numel(), out.data_ptr(), kernels.stream_handle())
+    kernels.check("hash_lookup", rc)
+    return out
+
+
 def hash_lookup(keys: torch.Tensor, vals: torch.Tensor, probes: int,
                 ids: torch.Tensor) -> torch.Tensor:
     """K11. keys/vals [B, 8] int32 (B a power of two), ids int32 of any
-    shape -> int32 values of the same shape, -1 when absent."""
+    shape -> int32 values of the same shape, -1 when absent. On a card
+    the kernel reads the [B, 16] table of a ``HashMap32`` in place when
+    keys and vals are its two halves. Other keys and vals are packed into
+    a new table on every call: a copy of 64 bytes a bucket (537 MB at
+    2^23 buckets) before the lookup. ``HashMap32.lookup`` never copies."""
     if keys.dtype != torch.int32 or vals.dtype != torch.int32 \
             or ids.dtype != torch.int32 or keys.dim() != 2 \
             or keys.shape[1] != BUCKET or vals.shape != keys.shape \
@@ -67,26 +103,29 @@ def hash_lookup(keys: torch.Tensor, vals: torch.Tensor, probes: int,
         return hash_lookup_plain(keys, vals, probes, ids)
     if not (keys.device == vals.device == ids.device):
         raise ValueError("hash_lookup: tensors on different devices")
-    keys, vals, ids = keys.contiguous(), vals.contiguous(), ids.contiguous()
-    out = torch.empty_like(ids)
-    rc = kernels.lib().lt_hash_lookup(
-        keys.data_ptr(), vals.data_ptr(), keys.shape[0], probes,
-        ids.data_ptr(), ids.numel(), out.data_ptr(), kernels.stream_handle())
-    kernels.check("hash_lookup", rc)
-    return out
+    return _lookup_in(_table_of(keys, vals), probes, ids)
 
 
 @dataclass
 class HashMap32:
     """Static int32 -> int32 map; -1 = absent. Query with ``lookup``."""
 
-    keys: torch.Tensor   # [B, BUCKET] int32, -1 = empty slot
-    vals: torch.Tensor   # [B, BUCKET] int32
+    table: torch.Tensor  # [B, 2 * BUCKET] int32: keys (-1 = empty), values
     probes: int          # max probe rounds needed at build time
 
     @property
+    def keys(self) -> torch.Tensor:
+        """[B, BUCKET] int32, -1 = empty slot: JAX's ``keys`` (a view)."""
+        return self.table[:, :BUCKET]
+
+    @property
+    def vals(self) -> torch.Tensor:
+        """[B, BUCKET] int32: JAX's ``vals`` (a view)."""
+        return self.table[:, BUCKET:]
+
+    @property
     def n_buckets(self) -> int:
-        return int(self.keys.shape[0])
+        return int(self.table.shape[0])
 
     @property
     def hbm_bytes(self) -> int:
@@ -100,8 +139,9 @@ class HashMap32:
         vals = np.asarray(vals, np.int32)
         n = len(ids)
         B = 1 << max(int(np.ceil(np.log2(max(n, 1) / (load * BUCKET)))), 1)
-        keys_t = np.full((B, BUCKET), -1, np.int32)
-        vals_t = np.zeros((B, BUCKET), np.int32)
+        table = np.zeros((B, ROW), np.int32)
+        keys_t, vals_t = table[:, :BUCKET], table[:, BUCKET:]
+        keys_t[:] = -1
         fill = np.zeros(B, np.int32)
         h0 = _hash(ids, B)
         pending = np.arange(n)
@@ -126,12 +166,13 @@ class HashMap32:
             fill[placed_b] += counts.astype(np.int32)
             pending = ps[~place]
             rounds += 1
-        return cls(torch.from_numpy(keys_t).to(device),
-                   torch.from_numpy(vals_t).to(device), max(rounds, 1))
+        return cls(torch.from_numpy(table).to(device), max(rounds, 1))
 
     def lookup(self, ids: torch.Tensor) -> torch.Tensor:
         """ids int32 (-1 pad) -> vals int32, -1 when absent (K11)."""
-        return hash_lookup(self.keys, self.vals, self.probes, ids)
+        if ids.device.type == "cpu":
+            return hash_lookup(self.keys, self.vals, self.probes, ids)
+        return _lookup_in(self.table, self.probes, ids)
 
 
 def map_lookup(m, ids: torch.Tensor) -> torch.Tensor:

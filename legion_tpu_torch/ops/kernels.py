@@ -183,7 +183,7 @@ def lib() -> ctypes.CDLL:
                                       p, i64, p, p]
     so.lt_dedup_map_grid.argtypes = [i64, i64, i64]
     so.lt_step_keys.argtypes = [p, p, u32, i32, i32, i64, p, p]
-    so.lt_hash_lookup.argtypes = [p, p, i64, i32, p, i64, p, p]
+    so.lt_hash_lookup.argtypes = [p, i64, i32, p, i64, p, p]
     so.lt_bucket_scratch.argtypes = [i64, i64, i32]
     so.lt_bucket_scratch.restype = ctypes.c_int64
     so.lt_bucket_by_owner.argtypes = [p, i64, i64, i32, i32, p, p, p, p, p]

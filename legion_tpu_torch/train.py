@@ -188,6 +188,19 @@ def _rows(ts: List[torch.Tensor]) -> torch.Tensor:
     return ts[0].unsqueeze(0) if len(ts) == 1 else torch.stack(ts)
 
 
+def topo_count_len(sampler: NeighborSampler, Kg: int, ids_len: int) -> int:
+    """Lanes of a batch's ids that ``Trainer._topo_hit_count`` looks up in
+    the topology map: the expanded frontier prefix, and with a clique
+    (``Kg`` > 1) every hop's window as well."""
+    L = sampler.config.num_hops
+    P = sampler.cum_caps[L - 1]
+    if Kg == 1:
+        return P
+    return min(ids_len, max(P, *(sampler.cum_caps[k]
+                                 + sampler.frontier_sizes[k]
+                                 for k in range(L))))
+
+
 def _masked_ce(logits: torch.Tensor, labels: torch.Tensor,
                valid: torch.Tensor) -> torch.Tensor:
     ce = F.cross_entropy(logits, labels.clamp(min=0).long(),
@@ -1136,10 +1149,7 @@ class Trainer:
         if row_map is None:
             return total, total    # all device-resident
         Kg = getattr(access, "Kg", 1)
-        n = P if Kg == 1 else min(
-            batches[0].node_ids.shape[0],
-            max(P, *(sampler.cum_caps[k] + sampler.frontier_sizes[k]
-                     for k in range(L))))
+        n = topo_count_len(sampler, Kg, batches[0].node_ids.shape[0])
         rm = map_lookup(row_map, _rows([b.node_ids[:n] for b in batches]))
         hits = (rm[:, :P] >= 0).sum(dtype=torch.int32)
         if Kg > 1:

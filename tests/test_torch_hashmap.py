@@ -10,8 +10,9 @@ import torch
 
 from legion_tpu.cache.hashmap import HashMap32 as JHashMap32
 from legion_tpu.cache.hashmap import map_lookup as jax_map_lookup
-from legion_tpu_torch.cache.hashmap import (BUCKET, HashMap32,
-                                            hash_lookup_plain, map_lookup)
+from legion_tpu_torch.cache.hashmap import (BUCKET, HashMap32, _hash,
+                                            _table_of, hash_lookup_plain,
+                                            map_lookup)
 from legion_tpu_torch.config import SamplerConfig
 from legion_tpu_torch.ops import kernels
 from legion_tpu_torch.sampling.sampler import NeighborSampler
@@ -38,6 +39,71 @@ def test_build_equals_jax(n, load):
     np.testing.assert_array_equal(pm.vals.numpy(), np.asarray(jm.vals))
     assert pm.probes == jm.probes
     assert pm.n_buckets == jm.n_buckets and pm.hbm_bytes == jm.hbm_bytes
+
+
+@pytest.mark.parametrize("n,load", CASES)
+def test_keys_and_vals_are_views_of_one_table(n, load):
+    """One [B, 16] table a map, keys then values in a row: ``keys`` and
+    ``vals`` are its halves, equal to JAX's arrays, and K11's wrapper
+    reads it in place (separate arrays are packed into the same table)."""
+    ids, vals, _ = _keys(n, load, n)
+    jm = JHashMap32.build(ids, vals, load=load)
+    pm = HashMap32.build(ids, vals, load=load)
+    t = pm.table
+    assert t.shape == (pm.n_buckets, 2 * BUCKET) and t.is_contiguous()
+    assert pm.keys.data_ptr() == t.data_ptr()
+    assert pm.vals.data_ptr() == t.data_ptr() + 4 * BUCKET
+    assert pm.keys.untyped_storage().data_ptr() == \
+        t.untyped_storage().data_ptr() == pm.vals.untyped_storage().data_ptr()
+    np.testing.assert_array_equal(t[:, :BUCKET].numpy(), np.asarray(jm.keys))
+    np.testing.assert_array_equal(t[:, BUCKET:].numpy(), np.asarray(jm.vals))
+    assert pm.hbm_bytes == jm.hbm_bytes == t.numel() * 4
+    assert _table_of(pm.keys, pm.vals).data_ptr() == t.data_ptr()
+    packed = _table_of(pm.keys.clone(), pm.vals.clone())
+    assert packed.data_ptr() != t.data_ptr() and torch.equal(packed, t)
+
+
+def _edge_map(case):
+    """(keys, values, load, query ids) of a map at an edge of K11's
+    shapes: the largest int32 id; a map of 2 buckets; a chain of buckets
+    that fills from bucket B - 1 and wraps past it (3 or more rounds),
+    every query in it."""
+    rng = np.random.default_rng(17)
+    if case == "max id":
+        keys = np.append(rng.choice(2 ** 31 - 1, 999, replace=False),
+                         2 ** 31 - 1)
+        q = np.concatenate([keys, [2 ** 31 - 1, 2 ** 31 - 2, 2 ** 31 - 3],
+                            rng.integers(0, 2 ** 31 - 1, 500), [-1]])
+        return keys, rng.integers(0, 2 ** 31 - 1, 1000), 0.5, q
+    if case == "2 buckets":
+        keys = rng.choice(1000, 12, replace=False)
+        return (keys, np.arange(12), 0.9,
+                np.concatenate([keys, np.arange(1000), [-1, -7]]))
+    # 64 buckets: 170 keys anywhere, 30 whose first bucket is 63
+    cand = np.arange(1, 400_000)
+    last = cand[_hash(cand, 64) == 63]
+    keys = np.concatenate([last[:30], rng.choice(np.setdiff1d(
+        np.arange(400_000), last), 170, replace=False)])
+    return keys, rng.integers(0, 2 ** 30, 200), 0.5, last[:200]
+
+
+@pytest.mark.parametrize("case", ["max id", "2 buckets", "wrapping chain"])
+def test_lookup_through_views_equals_jax_at_edges(case):
+    keys, vals, load, q = _edge_map(case)
+    jm = JHashMap32.build(keys, vals.astype(np.int32), load=load)
+    pm = HashMap32.build(keys, vals.astype(np.int32), load=load)
+    if case == "2 buckets":
+        assert pm.n_buckets == 2
+    if case == "wrapping chain":
+        assert pm.n_buckets == 64 and pm.probes >= 3
+        # keys of bucket 63's chain sit in buckets 0 and 1
+        k = pm.keys.numpy()
+        assert np.isin(k[:2], keys[:30]).any()
+    qt = q.astype(np.int32)
+    got = pm.lookup(torch.from_numpy(qt)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jm.lookup(jnp.asarray(qt))))
+    hit = np.isin(qt, keys)
+    assert (got[hit] >= 0).all() and (got[~hit] == -1).all()
 
 
 @pytest.mark.parametrize("n,load", CASES)
