@@ -14,12 +14,20 @@
 // heads and 128 bf16 columns that is 5.3 KB a row against about 41 kFLOP,
 // so the arithmetic has to stay out of the loads' way.
 //
-// Design, bf16 with H <= 8, fanout <= 15 and d_in = 128 (the path's
-// shape; the kernels take the width as a template constant): one warp per
-// frontier row i, persistent, eight warps a block.
+// Design, bf16 with H <= 8 and fanout <= 15, at d_in = 128 (the Device
+// path's padded table) or at a width of 4 to 112 in steps of 4 (GAT on a
+// host dataset fetches its cached rows 100 wide, unpadded). The kernels
+// take the staged width D as a template constant: 128 (the exact form,
+// d_in == D) and 112 (the padded form: the columns from d_in to D are
+// zero in the ring and in u, and the products take ceil(d_in / 16) k
+// steps of mma's 16). One warp per frontier row i, persistent, eight warps
+// a block.
 //   - A warp keeps kMmaStages row sets in flight in its own ring in shared
-//     memory, staged in bf16 by 16-byte cp.async copies: the loads of rows
-//     i + stride and i + 2 stride run under the arithmetic of row i. The
+//     memory, staged in bf16 by cp.async: 16-byte copies at 128; in the
+//     padded form a 16-byte-aligned row by 16-byte copies and its last 8
+//     bytes by one 8-byte copy, any other row (every second 200-byte row
+//     of a 100-wide table) by 8-byte copies. The loads of rows i + stride
+//     and i + 2 stride run under the arithmetic of row i. The
 //     per-row flags (lane validity, the dropout mask; in the backward also
 //     alpha and the LeakyReLU sign) are loaded one row ahead into registers.
 //   - Both small products run on the tensor cores (mma.sync m16n8k16, bf16
@@ -30,7 +38,7 @@
 //     ldmatrix.trans), so alpha never leaves registers. The softmax over
 //     the fanout is four values a lane and two shuffles.
 //   - xw goes back through the warp's consumed stage and out as 16-byte
-//     stores.
+//     stores (8-byte stores that stop at column d_in in the padded form).
 // The backward kernel has the same ring (lanes and dxw[i]) and takes
 // d alpha = dxw[i] x rows^T on the tensor cores.
 //
@@ -368,13 +376,19 @@ constexpr int kMmaPad = 8;        // bf16 of padding a staged row: ldmatrix's
                                   // eight rows then fall in distinct banks
 constexpr int kMmaMaxFanout = 15; // fanout lanes + the destination: 16 rows
 constexpr int kMmaMaxHeads = 8;
-constexpr int kMmaWidth = 128;    // d_in of the path; a multiple of 16
+constexpr int kMmaWidth = 128;    // the exact form's d_in (the Device path)
+constexpr int kMmaPadWidth = 112; // the padded form's staged width: d_in of
+                                  // 4 to 112 in steps of 4 (GAT-H's 100)
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n"
                :: "r"(smem_u32(dst)), "l"(src) : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -427,14 +441,51 @@ __host__ __device__ constexpr int stage_bytes(int rows) {
   return rows * (D + kMmaPad) * 2;
 }
 
-// Rows row_of(0 .. rows-1) of x (D wide) into the stage, 16 bytes a copy.
-template <int D, typename RowOf>
-__device__ __forceinline__ void stage_async(RowOf row_of, int rows,
+// Rows row_of(0 .. rows-1) of x (d_in wide) into the stage. The exact form
+// (d_in == D, rows 16-byte aligned) moves 16 bytes a copy. The padded form
+// takes a row at a time, a copy a lane: a 16-byte-aligned row by 16-byte
+// copies and, where d_in is not a multiple of 8, its last 8 bytes by an
+// 8-byte copy; any other row (8-byte aligned) by 8-byte copies. Columns
+// d_in .. D of the stage are left as they are (zero, ``zero_pad``).
+template <int D, bool kPad, typename RowOf>
+__device__ __forceinline__ void stage_async(RowOf row_of, int rows, int d_in,
                                             __nv_bfloat16* st, int lane) {
-  constexpr int kChunks = D / 8, LD = D + kMmaPad;
-  for (int c = lane; c < rows * kChunks; c += 32) {
-    const int r = c / kChunks, k = c - r * kChunks;
-    cp_async16(st + r * LD + 8 * k, row_of(r) + 8 * k);
+  constexpr int LD = D + kMmaPad;
+  if constexpr (!kPad) {
+    constexpr int kChunks = D / 8;
+    for (int c = lane; c < rows * kChunks; c += 32) {
+      const int r = c / kChunks, k = c - r * kChunks;
+      cp_async16(st + r * LD + 8 * k, row_of(r) + 8 * k);
+    }
+  } else {
+    const int n16 = d_in >> 3, n8 = d_in >> 2;
+    for (int r = 0; r < rows; ++r) {
+      const __nv_bfloat16* src = row_of(r);
+      __nv_bfloat16* dst = st + r * LD;
+      if (((uintptr_t)src & 15) == 0) {
+        if (lane < n16)
+          cp_async16(dst + 8 * lane, src + 8 * lane);
+        else if (lane == n16 && (n8 & 1))
+          cp_async8(dst + 8 * lane, src + 8 * lane);
+      } else if (lane < n8) {
+        cp_async8(dst + 4 * lane, src + 4 * lane);
+      }
+    }
+  }
+}
+
+// The padded form: zero columns d_in .. D of the warp's ring of `rows`
+// rows (d_in a multiple of 4). No copy or store writes them after, so
+// the k steps past d_in and the contraction's columns past it read zeros
+// for the whole kernel.
+template <int D>
+__device__ __forceinline__ void zero_pad(__nv_bfloat16* ring, int rows,
+                                         int d_in, int lane) {
+  constexpr int LD = D + kMmaPad;
+  const int words = (D - d_in) >> 1;
+  for (int t = lane; t < rows * words; t += 32) {
+    const int r = t / words, k = t - r * words;
+    reinterpret_cast<uint32_t*>(ring + r * LD + d_in)[k] = 0u;
   }
 }
 
@@ -461,15 +512,19 @@ __device__ __forceinline__ void load_flags(
   }
 }
 
-template <int D>
+// x's rows are dx wide (D in the exact form, d_in in the padded one); the
+// products take ks_n k steps of 16 (KS, or ceil(d_in / 16)).
+template <int D, bool kPad>
 __global__ void __launch_bounds__(kGatWarps * 32, 2) gat_attend_fwd_mma_kernel(
     const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ u_l,
     const __nv_bfloat16* __restrict__ u_r, const int32_t* __restrict__ src,
     const int32_t* __restrict__ hop_offset, const uint8_t* __restrict__ mask,
     float scale, float slope, __nv_bfloat16* __restrict__ xw,
     float* __restrict__ alpha_pre, uint8_t* __restrict__ neg, int64_t F,
-    int fanout, int H, int64_t aligned) {
+    int fanout, int H, int d_in, int64_t aligned) {
   constexpr int LD = D + kMmaPad, KS = D / 16, kChunks = D / 8;
+  const int dx = kPad ? d_in : D;
+  const int ks_n = kPad ? (d_in + 15) >> 4 : KS;
   extern __shared__ uint4 smem16[];
   __nv_bfloat16* zero_row = reinterpret_cast<__nv_bfloat16*>(smem16);
   const int rows = max(fanout + 1, H);   // a stage also carries xw out
@@ -479,8 +534,12 @@ __global__ void __launch_bounds__(kGatWarps * 32, 2) gat_attend_fwd_mma_kernel(
                + (size_t)warp * kMmaStages * stage_bytes<D>(rows);
   for (int t = threadIdx.x; t < LD; t += blockDim.x)
     zero_row[t] = __float2bfloat16(0.0f);
+  if constexpr (kPad)
+    zero_pad<D>(reinterpret_cast<__nv_bfloat16*>(ring), kMmaStages * rows,
+                d_in, lane);
   // [u_l | u_r]^T as the A operand of every k step: rows 0-7 the heads of
-  // u_l, rows 8-15 the heads of u_r; u is [D, H] row-major
+  // u_l, rows 8-15 the heads of u_r; u is [d_in, H] row-major, zero past
+  // d_in
   uint32_t ua[KS][4];
   {
     const uint16_t* ul = reinterpret_cast<const uint16_t*>(u_l);
@@ -492,7 +551,7 @@ __global__ void __launch_bounds__(kGatWarps * 32, 2) gat_attend_fwd_mma_kernel(
       for (int half = 0; half < 2; ++half) {
         const int k = k0 + 8 * half;
         uint32_t l = 0, r = 0;
-        if (g < H) {
+        if (g < H && (!kPad || k < d_in)) {
           l = (uint32_t)ul[k * H + g] | ((uint32_t)ul[(k + 1) * H + g] << 16);
           r = (uint32_t)ur[k * H + g] | ((uint32_t)ur[(k + 1) * H + g] << 16);
         }
@@ -506,9 +565,9 @@ __global__ void __launch_bounds__(kGatWarps * 32, 2) gat_attend_fwd_mma_kernel(
   const int64_t stride = (int64_t)gridDim.x * kGatWarps;
   const int64_t i0 = (int64_t)blockIdx.x * kGatWarps + warp;
   auto stage = [&](int64_t i, int slot) {
-    stage_async<D>([&](int r) {
-      return x + (r < fanout ? aligned + (int64_t)r * F + i : off + i) * D;
-    }, fanout + 1, reinterpret_cast<__nv_bfloat16*>(
+    stage_async<D, kPad>([&](int r) {
+      return x + (r < fanout ? aligned + (int64_t)r * F + i : off + i) * dx;
+    }, fanout + 1, d_in, reinterpret_cast<__nv_bfloat16*>(
         ring + slot * stage_bytes<D>(rows)), lane);
   };
 #pragma unroll
@@ -549,10 +608,12 @@ __global__ void __launch_bounds__(kGatWarps * 32, 2) gat_attend_fwd_mma_kernel(
       const uint32_t base = smem_u32(st) + sc_off;
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks) {
-        uint32_t b[4];
-        ldmatrix_x4(b, base + 32 * ks);
-        mma_bf16(s0, ua[ks], b[0], b[1]);
-        mma_bf16(s1, ua[ks], b[2], b[3]);
+        if (ks < ks_n) {
+          uint32_t b[4];
+          ldmatrix_x4(b, base + 32 * ks);
+          mma_bf16(s0, ua[ks], b[0], b[1]);
+          mma_bf16(s1, ua[ks], b[2], b[3]);
+        }
       }
     }
     // er[g]: the u_r row of column `fanout`, held by lane (g, (fanout%8)/2)
@@ -607,32 +668,46 @@ __global__ void __launch_bounds__(kGatWarps * 32, 2) gat_attend_fwd_mma_kernel(
       const uint32_t step = ct_row < fanout ? 32 : 0;
 #pragma unroll
       for (int np = 0; np < KS; ++np) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, base + step * np);
-        float c0[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        float c1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        mma_bf16(c0, pa, b[0], b[1]);
-        mma_bf16(c1, pa, b[2], b[3]);
-        o[np][0] = pack_bf16(c0[0], c0[1]);
-        o[np][1] = pack_bf16(c1[0], c1[1]);
+        if (np < ks_n) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, base + step * np);
+          float c0[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          float c1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          mma_bf16(c0, pa, b[0], b[1]);
+          mma_bf16(c1, pa, b[2], b[3]);
+          o[np][0] = pack_bf16(c0[0], c0[1]);
+          o[np][1] = pack_bf16(c1[0], c1[1]);
+        }
       }
     }
     __syncwarp();
-    // xw[i] through the consumed stage: head g, columns 16 np + 2q (+ 8)
+    // xw[i] through the consumed stage: head g, columns 16 np + 2q (+ 8);
+    // the padded form leaves the columns past d_in zero
     if (g < H) {
       uint32_t* orow = reinterpret_cast<uint32_t*>(st + g * LD) + q;
 #pragma unroll
       for (int np = 0; np < KS; ++np) {
-        orow[8 * np] = o[np][0];
-        orow[8 * np + 4] = o[np][1];
+        if (np < ks_n) {
+          const int col = 16 * np + 2 * q;
+          if (!kPad || col < d_in) orow[8 * np] = o[np][0];
+          if (!kPad || col + 8 < d_in) orow[8 * np + 4] = o[np][1];
+        }
       }
     }
     __syncwarp();
-    __nv_bfloat16* out = xw + i * H * D;
-    for (int c = lane; c < H * kChunks; c += 32) {
-      const int h = c / kChunks, k = c - h * kChunks;
-      *reinterpret_cast<uint4*>(out + h * D + 8 * k) =
-          *reinterpret_cast<const uint4*>(st + h * LD + 8 * k);
+    __nv_bfloat16* out = xw + i * H * dx;
+    if constexpr (!kPad) {
+      for (int c = lane; c < H * kChunks; c += 32) {
+        const int h = c / kChunks, k = c - h * kChunks;
+        *reinterpret_cast<uint4*>(out + h * D + 8 * k) =
+            *reinterpret_cast<const uint4*>(st + h * LD + 8 * k);
+      }
+    } else {
+      // [H, d_in] rows 8 bytes a lane, a head at a time
+      if (lane < (d_in >> 2))
+        for (int h = 0; h < H; ++h)
+          *reinterpret_cast<uint2*>(out + h * d_in + 4 * lane) =
+              *reinterpret_cast<const uint2*>(st + h * LD + 4 * lane);
     }
     __syncwarp();
     cur = nxt;
@@ -671,14 +746,17 @@ __device__ __forceinline__ void load_flags(
   }
 }
 
-template <int D>
+template <int D, bool kPad>
 __global__ void __launch_bounds__(kGatWarps * 32, 2) gat_attend_bwd_mma_kernel(
     const __nv_bfloat16* __restrict__ dxw, const __nv_bfloat16* __restrict__ x,
     const int32_t* __restrict__ src, const float* __restrict__ alpha_pre,
     const uint8_t* __restrict__ neg, const uint8_t* __restrict__ mask,
     float scale, float slope, float* __restrict__ d_el,
-    float* __restrict__ d_er, int64_t F, int fanout, int H, int64_t aligned) {
+    float* __restrict__ d_er, int64_t F, int fanout, int H, int d_in,
+    int64_t aligned) {
   constexpr int LD = D + kMmaPad, KS = D / 16;
+  const int dx = kPad ? d_in : D;
+  const int ks_n = kPad ? (d_in + 15) >> 4 : KS;
   extern __shared__ uint4 smem16[];
   __nv_bfloat16* zero_row = reinterpret_cast<__nv_bfloat16*>(smem16);
   const int rows = fanout + H;           // the lanes, then dxw[i]
@@ -688,14 +766,17 @@ __global__ void __launch_bounds__(kGatWarps * 32, 2) gat_attend_bwd_mma_kernel(
                + (size_t)warp * kMmaStages * stage_bytes<D>(rows);
   for (int t = threadIdx.x; t < LD; t += blockDim.x)
     zero_row[t] = __float2bfloat16(0.0f);
+  if constexpr (kPad)
+    zero_pad<D>(reinterpret_cast<__nv_bfloat16*>(ring), kMmaStages * rows,
+                d_in, lane);
   __syncthreads();
   const int64_t stride = (int64_t)gridDim.x * kGatWarps;
   const int64_t i0 = (int64_t)blockIdx.x * kGatWarps + warp;
   auto stage = [&](int64_t i, int slot) {
-    stage_async<D>([&](int r) {
-      return r < fanout ? x + (aligned + (int64_t)r * F + i) * D
-                        : dxw + (i * H + (r - fanout)) * D;
-    }, rows, reinterpret_cast<__nv_bfloat16*>(
+    stage_async<D, kPad>([&](int r) {
+      return r < fanout ? x + (aligned + (int64_t)r * F + i) * dx
+                        : dxw + (i * H + (r - fanout)) * dx;
+    }, rows, d_in, reinterpret_cast<__nv_bfloat16*>(
         ring + slot * stage_bytes<D>(rows)), lane);
   };
 #pragma unroll
@@ -734,11 +815,13 @@ __global__ void __launch_bounds__(kGatWarps * 32, 2) gat_attend_bwd_mma_kernel(
     float d0[4] = {0.0f, 0.0f, 0.0f, 0.0f}, d1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
-      uint32_t a[4], b[4];
-      ldmatrix_x4(a, a_on ? st + a_off + 32 * ks : zero_at);
-      ldmatrix_x4(b, b_on ? st + b_off + 32 * ks : zero_at);
-      mma_bf16(d0, a, b[0], b[1]);
-      mma_bf16(d1, a, b[2], b[3]);
+      if (ks < ks_n) {
+        uint32_t a[4], b[4];
+        ldmatrix_x4(a, a_on ? st + a_off + 32 * ks : zero_at);
+        ldmatrix_x4(b, b_on ? st + b_off + 32 * ks : zero_at);
+        mma_bf16(d0, a, b[0], b[1]);
+        mma_bf16(d1, a, b[2], b[3]);
+      }
     }
     const float dv[4] = {d0[0], d0[1], d1[0], d1[1]};
     float da[4];
@@ -769,11 +852,18 @@ __global__ void __launch_bounds__(kGatWarps * 32, 2) gat_attend_bwd_mma_kernel(
   }
 }
 
-// Whether a call takes the tensor-core path.
-static bool mma_ok(int fanout, int H, int d_in, const void* a, const void* b) {
-  return fanout <= kMmaMaxFanout && H <= kMmaMaxHeads &&
-         d_in == kMmaWidth && (uintptr_t)a % 16 == 0 &&
-         (uintptr_t)b % 16 == 0;
+// Which tensor-core form takes a call: kExact at d_in 128 with x and the
+// other row tensor (xw or dxw) 16-byte aligned, kPadded at a width of 4 to
+// 112 in steps of 4 with both 8-byte aligned, else kGeneral.
+enum MmaForm { kGeneral, kExact, kPadded };
+static MmaForm mma_form(int fanout, int H, int d_in, const void* a,
+                        const void* b) {
+  if (fanout > kMmaMaxFanout || H > kMmaMaxHeads) return kGeneral;
+  const uintptr_t al = (uintptr_t)a | (uintptr_t)b;
+  if (d_in == kMmaWidth && al % 16 == 0) return kExact;
+  if (d_in > 0 && d_in <= kMmaPadWidth && d_in % 4 == 0 && al % 8 == 0)
+    return kPadded;
+  return kGeneral;
 }
 
 // Launch a persistent tensor-core kernel: as many blocks as stay resident.
@@ -876,27 +966,58 @@ static int launch_bwd(const void* dxw, const void* x, const int32_t* src,
   return (int)cudaGetLastError();
 }
 
+template <int D, bool kPad>
+static int launch_fwd_mma(const void* x, const void* u_l, const void* u_r,
+                          const int32_t* src, const int32_t* hop_offset,
+                          const uint8_t* mask, float scale, float slope,
+                          void* xw, float* alpha_pre, uint8_t* neg, int64_t F,
+                          int fanout, int H, int d_in, int64_t aligned,
+                          void* stream) {
+  const int rows = fanout + 1 > H ? fanout + 1 : H;
+  return launch_mma(gat_attend_fwd_mma_kernel<D, kPad>, mma_smem<D>(rows), F,
+                    stream, (const __nv_bfloat16*)x,
+                    (const __nv_bfloat16*)u_l, (const __nv_bfloat16*)u_r, src,
+                    hop_offset, mask, scale, slope, (__nv_bfloat16*)xw,
+                    alpha_pre, neg, F, fanout, H, d_in, aligned);
+}
+
+template <int D, bool kPad>
+static int launch_bwd_mma(const void* dxw, const void* x, const int32_t* src,
+                          const float* alpha_pre, const uint8_t* neg,
+                          const uint8_t* mask, float scale, float slope,
+                          float* d_el, float* d_er, int64_t F, int fanout,
+                          int H, int d_in, int64_t aligned, void* stream) {
+  return launch_mma(gat_attend_bwd_mma_kernel<D, kPad>,
+                    mma_smem<D>(fanout + H), F, stream,
+                    (const __nv_bfloat16*)dxw, (const __nv_bfloat16*)x, src,
+                    alpha_pre, neg, mask, scale, slope, d_el, d_er, F, fanout,
+                    H, d_in, aligned);
+}
+
 // x [N, d_in], u_l/u_r [d_in, H], xw [F, H, d_in], all of x's dtype
-// (is_bf16); mask may be null (no dropout).
+// (is_bf16); mask may be null (no dropout). general != 0 takes the general
+// kernels where a tensor-core form would take the call (to time the two).
 LT_EXPORT int lt_gat_attend_fwd(const void* x, const void* u_l,
                                 const void* u_r, const int32_t* src,
                                 const int32_t* hop_offset,
                                 const uint8_t* mask, float scale, float slope,
                                 void* xw, float* alpha_pre, uint8_t* neg,
                                 int64_t F, int fanout, int H, int d_in,
-                                int64_t aligned, int is_bf16, void* stream) {
+                                int64_t aligned, int is_bf16, int general,
+                                void* stream) {
   if (fanout > kGatMaxFanout || H > kGatMaxHeads)
     return (int)cudaErrorInvalidValue;
   if (F == 0) return (int)cudaSuccess;
-  if (is_bf16 && mma_ok(fanout, H, d_in, x, xw)) {
-    const int rows = fanout + 1 > H ? fanout + 1 : H;
-    return launch_mma(gat_attend_fwd_mma_kernel<kMmaWidth>,
-                      mma_smem<kMmaWidth>(rows), F, stream,
-                      (const __nv_bfloat16*)x, (const __nv_bfloat16*)u_l,
-                      (const __nv_bfloat16*)u_r, src, hop_offset, mask, scale,
-                      slope, (__nv_bfloat16*)xw, alpha_pre, neg, F, fanout, H,
-                      aligned);
-  }
+  const MmaForm form = is_bf16 && !general
+      ? mma_form(fanout, H, d_in, x, xw) : kGeneral;
+  if (form == kExact)
+    return launch_fwd_mma<kMmaWidth, false>(
+        x, u_l, u_r, src, hop_offset, mask, scale, slope, xw, alpha_pre, neg,
+        F, fanout, H, d_in, aligned, stream);
+  if (form == kPadded)
+    return launch_fwd_mma<kMmaPadWidth, true>(
+        x, u_l, u_r, src, hop_offset, mask, scale, slope, xw, alpha_pre, neg,
+        F, fanout, H, d_in, aligned, stream);
   return is_bf16
       ? launch_fwd<__nv_bfloat16>(x, u_l, u_r, src, hop_offset, mask, scale,
                                   slope, xw, alpha_pre, neg, F, fanout, H,
@@ -912,17 +1033,20 @@ LT_EXPORT int lt_gat_attend_bwd(const void* dxw, const void* x,
                                 float scale, float slope, float* d_el,
                                 float* d_er, int64_t F, int fanout, int H,
                                 int d_in, int64_t aligned, int is_bf16,
-                                void* stream) {
+                                int general, void* stream) {
   if (fanout > kGatMaxFanout || H > kGatMaxHeads)
     return (int)cudaErrorInvalidValue;
   if (F == 0) return (int)cudaSuccess;
-  if (is_bf16 && mma_ok(fanout, H, d_in, x, dxw)) {
-    return launch_mma(gat_attend_bwd_mma_kernel<kMmaWidth>,
-                      mma_smem<kMmaWidth>(fanout + H), F, stream,
-                      (const __nv_bfloat16*)dxw, (const __nv_bfloat16*)x, src,
-                      alpha_pre, neg, mask, scale, slope, d_el, d_er, F,
-                      fanout, H, aligned);
-  }
+  const MmaForm form = is_bf16 && !general
+      ? mma_form(fanout, H, d_in, x, dxw) : kGeneral;
+  if (form == kExact)
+    return launch_bwd_mma<kMmaWidth, false>(
+        dxw, x, src, alpha_pre, neg, mask, scale, slope, d_el, d_er, F,
+        fanout, H, d_in, aligned, stream);
+  if (form == kPadded)
+    return launch_bwd_mma<kMmaPadWidth, true>(
+        dxw, x, src, alpha_pre, neg, mask, scale, slope, d_el, d_er, F,
+        fanout, H, d_in, aligned, stream);
   return is_bf16
       ? launch_bwd<__nv_bfloat16>(dxw, x, src, alpha_pre, neg, mask, scale,
                                   slope, d_el, d_er, F, fanout, H, d_in,

@@ -162,9 +162,9 @@ def lib() -> ctypes.CDLL:
     for fn in (so.lt_csr_draw_i32, so.lt_csr_draw_i64):
         fn.argtypes = [p, i64, i32, p, p, p, p, p, i64, p, p, p]
     so.lt_gat_attend_fwd.argtypes = [p, p, p, p, p, p, f32, f32, p, p, p,
-                                     i64, i32, i32, i32, i64, i32, p]
+                                     i64, i32, i32, i32, i64, i32, i32, p]
     so.lt_gat_attend_bwd.argtypes = [p, p, p, p, p, p, f32, f32, p, p, i64,
-                                     i32, i32, i32, i64, i32, p]
+                                     i32, i32, i32, i64, i32, i32, p]
     so.lt_hop_attention_fwd.argtypes = [p, p, p, p, p, f32, p, p, i64, i32,
                                         i32, i32, i64, i64, i32, p]
     so.lt_hop_attention_bwd.argtypes = [p, p, p, p, p, p, f32, p, p, i64,
@@ -269,13 +269,14 @@ def gather_rows_plain(table: torch.Tensor, ids: torch.Tensor
 
 def gather_rows(table: torch.Tensor, ids: torch.Tensor,
                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K1. table [V, F] (bf16 or f32), ids [N] int32 -> [N, F], written
-    into ``out`` (contiguous, [N, F] in the table's dtype) when given."""
+    """K1. table [V, F] (a float dtype of 2 bytes or more: the kernel
+    copies opaque words), ids [N] int32 -> [N, F], written into ``out``
+    (contiguous, [N, F] in the table's dtype) when given."""
     _require(table.dim() == 2 and ids.dim() == 1,
              f"gather_rows: table {tuple(table.shape)}, ids "
              f"{tuple(ids.shape)}")
     _require(ids.dtype == torch.int32, f"gather_rows: ids {ids.dtype}")
-    _require(table.dtype in (torch.bfloat16, torch.float32),
+    _require(table.dtype.is_floating_point and table.element_size() >= 2,
              f"gather_rows: table {table.dtype}")
     _require(out is None or (out.is_contiguous() and out.dtype == table.dtype
                              and tuple(out.shape) == (ids.shape[0],
@@ -478,7 +479,7 @@ class GatAttend(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, u_l, u_r, edge_src, hop_offset, fanout,
-                aligned_offset, slope, mask, scale):
+                aligned_offset, slope, mask, scale, general):
         E = edge_src.shape[0]
         F = E // fanout
         d_in, H = u_l.shape
@@ -492,16 +493,17 @@ class GatAttend(torch.autograd.Function):
             x.data_ptr(), u_l.data_ptr(), u_r.data_ptr(), edge_src.data_ptr(),
             hop_offset.data_ptr(), mptr, scale, slope, xw.data_ptr(),
             alpha.data_ptr(), neg.data_ptr(), F, fanout, H, d_in,
-            aligned_offset, int(x.dtype == torch.bfloat16), stream_handle())
+            aligned_offset, int(x.dtype == torch.bfloat16), int(general),
+            stream_handle())
         check("gat_attend", rc)
         ctx.save_for_backward(x, edge_src, hop_offset, alpha, neg, mask)
-        ctx.cfg = (fanout, aligned_offset, slope, scale)
+        ctx.cfg = (fanout, aligned_offset, slope, scale, general)
         return xw
 
     @staticmethod
     def backward(ctx, dxw):
         x, edge_src, hop_offset, alpha, neg, mask = ctx.saved_tensors
-        fanout, aligned_offset, slope, scale = ctx.cfg
+        fanout, aligned_offset, slope, scale, general = ctx.cfg
         E = edge_src.shape[0]
         F = E // fanout
         H = alpha.shape[2]
@@ -514,21 +516,26 @@ class GatAttend(torch.autograd.Function):
             alpha.data_ptr(), neg.data_ptr(),
             None if mask is None else mask.data_ptr(), scale, slope,
             d_el.data_ptr(), d_er.data_ptr(), F, fanout, H, d_in,
-            aligned_offset, int(x.dtype == torch.bfloat16), stream_handle())
+            aligned_offset, int(x.dtype == torch.bfloat16), int(general),
+            stream_handle())
         check("gat_attend_bwd", rc)
         x_lanes = x[aligned_offset:aligned_offset + E]
         du_l = x_lanes.t() @ d_el.reshape(E, H).to(x.dtype)
         du_r = slice_rows(x, hop_offset, F).t() @ d_er.to(x.dtype)
-        return (None, du_l, du_r) + (None,) * 7
+        return (None, du_l, du_r) + (None,) * 8
 
 
 def gat_attend(x: torch.Tensor, u_l: torch.Tensor, u_r: torch.Tensor,
                edge_src: torch.Tensor, hop_offset: torch.Tensor, fanout: int,
-               aligned_offset: int, slope: float, keep=None) -> torch.Tensor:
+               aligned_offset: int, slope: float, keep=None,
+               general: bool = False) -> torch.Tensor:
     """K6. x [N, d_in] (bf16 or f32; lanes at aligned_offset + f*F + i,
     destinations at hop_offset + i), u_l/u_r [d_in, H] in x's dtype,
     edge_src [fanout*F] int32 (-1 pads), keep = (bool mask [fanout, F, H],
-    scale) or None -> xw [F, H, d_in] in x's dtype."""
+    scale) or None -> xw [F, H, d_in] in x's dtype. bf16 with H <= 8 and
+    fanout <= 15 takes the tensor-core kernels at d_in 128, and at a width
+    of 4 to 112 in steps of 4 (``csrc/gat_attend.cu``); ``general`` takes
+    the general kernels there too (``chip_smoke.py`` times the two)."""
     _require(x.dim() == 2 and u_l.dim() == 2 and u_l.shape == u_r.shape
              and u_l.shape[0] == x.shape[1],
              f"gat_attend: x {tuple(x.shape)}, u_l {tuple(u_l.shape)}, "
@@ -554,7 +561,7 @@ def gat_attend(x: torch.Tensor, u_l: torch.Tensor, u_r: torch.Tensor,
     return GatAttend.apply(x.contiguous(), u_l.contiguous(),
                            u_r.contiguous(), edge_src.contiguous(),
                            hop_offset, fanout, int(aligned_offset),
-                           float(slope), mask, float(scale))
+                           float(slope), mask, float(scale), bool(general))
 
 
 class HopAttention(torch.autograd.Function):

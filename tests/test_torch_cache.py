@@ -131,6 +131,71 @@ def test_build_from_host_matches_jax(jds, feat_dtype):
             _bits(torch.from_numpy(jds.features[qf]).to(torch.bfloat16)))
 
 
+def _csr_with_empty_rows():
+    """A CSRGraph of 8 vertices whose rows 1, 4 and 6 are empty."""
+    from legion_tpu.graph import CSRGraph as JCSRGraph
+    src = np.array([0, 0, 2, 3, 3, 3, 5, 7, 7], np.int64)
+    dst = np.array([1, 4, 6, 0, 2, 5, 3, 0, 6], np.int64)
+    return JCSRGraph.from_edges(src, dst, 8)
+
+
+@pytest.mark.parametrize("case", ["features", "topology", "both", "none",
+                                  "empty_rows"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_build_matches_jax_and_build_from_host(jds, case, dtype):
+    """``UnifiedCache.build`` from device tensors (here CPU tensors: K1's
+    plain version) against JAX's ``build`` on the same plan, bit for bit:
+    features only, topology only, both, capacity 0, and a hot set whose
+    rows are all empty (JAX's edge budget max(degrees, 1) gives
+    ``sub_indices == [-1]``), with f32 and bf16 features. Where the hot
+    rows have edges it also equals ``build_from_host`` (whose bf16 cache
+    rounds the f32 rows as a cast to bf16 does)."""
+    g, feats = jds.graph, jds.features
+    caps = {"features": (400, 0), "topology": (0, 300), "both": (400, 300),
+            "none": (0, 0), "empty_rows": (3, 3)}[case]
+    if case == "empty_rows":
+        g = _csr_with_empty_rows()
+        feats = np.random.default_rng(1).standard_normal(
+            (8, 5)).astype(np.float32)
+        order = np.array([1, 4, 6, 0, 2, 3, 5, 7])
+        kw = dict(feature_capacity=3, topo_capacity=3, alpha=0.5,
+                  feature_order=order, topo_order=order,
+                  est_feat_saved_bytes=0.0, est_topo_saved_bytes=0.0)
+        jplan, plan = JPlan(**kw), CostModelResult(**kw)
+    else:
+        jplan, plan = _plan(jds, *caps)
+    jf = jnp.asarray(feats).astype(jnp.bfloat16 if dtype == "bfloat16"
+                                   else jnp.float32)
+    tf = torch.from_numpy(feats).to(torch.bfloat16 if dtype == "bfloat16"
+                                    else torch.float32)
+    jc = JCache.build(jplan, jf, g.to_device())
+    pc = UnifiedCache.build(plan, tf, DeviceCSR.from_numpy(
+        g.indptr, g.indices, "cpu"))
+    names = ("cache_rows", "slot_map", "sub_indptr", "sub_indices",
+             "row_map")
+    for name in names:
+        got, ref = getattr(pc, name), getattr(jc, name)
+        assert (got is None) == (ref is None), name
+        if got is not None:
+            np.testing.assert_array_equal(_bits(got), _bits(ref), name)
+    assert (pc.feature_capacity, pc.topo_capacity) == caps
+    if caps[0]:
+        assert pc.cache_rows.dtype == tf.dtype
+    if caps[1]:
+        assert pc.sub_indptr.dtype == torch.int64
+        assert pc.sub_indices.dtype == torch.int32
+    if case == "empty_rows":
+        np.testing.assert_array_equal(pc.sub_indices.numpy(), [-1])
+        np.testing.assert_array_equal(pc.sub_indptr.numpy(), [0, 0, 0, 0])
+        return
+    hc = UnifiedCache.build_from_host(plan, feats, g.indptr, g.indices, V,
+                                      feat_dtype=dtype)
+    for name in names:
+        got, ref = getattr(pc, name), getattr(hc, name)
+        if got is not None:
+            np.testing.assert_array_equal(_bits(got), _bits(ref), name)
+
+
 def _ids(jds, plan, rng, n=700):
     """Hot (cached), cold and pad ids."""
     hot = plan.feature_order[:plan.feature_capacity]

@@ -237,12 +237,14 @@ def test_gat_layer_aligned_streaming_matches_jax(dtype, drop, monkeypatch):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("H,d_in,fanout", [(3, 100, 10), (1, 128, 1),
-                                           (8, 128, 10), (8, 100, 33)])
+                                           (8, 128, 10), (8, 100, 33),
+                                           (8, 100, 10)])
 def test_gat_attend_plain_matches_jax_at_kernel_edges(H, d_in, fanout, dtype,
                                                       monkeypatch):
     """K6's plain version inside the aligned layer at the heads, widths and
     fanouts that ``chip_smoke.py`` holds the kernel to on the card (inside
-    and outside its tensor-core path), with injected attention dropout:
+    and outside its tensor-core forms; (8, 100, 10) is GAT-H's layer 0),
+    with injected attention dropout:
     output and gradients, F32_RTOL in f32 and BF16_RTOL in bf16."""
     rng = np.random.default_rng(5)
     F, d_out = 10, 8

@@ -543,9 +543,9 @@ def test_trainer_copies_a_dataset_on_disk_into_ram(tmp_path):
 
 def test_new_modules_are_covered_by_the_no_jax_check():
     """``test_torch_train.py::test_port_never_imports_jax`` imports every
-    ``*.py`` under the package: the launcher, checkpoints, tools and the
-    clique caches are among them."""
+    ``*.py`` under the package: the launcher, checkpoints, tools, the
+    clique caches and the homophilous dataset are among them."""
     found = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
     assert {"native.py", "run.py", "tools/prepare.py", "tools/__init__.py",
             "utils/checkpoint.py", "cache/hashmap.py",
-            "cache/collective.py"} <= found
+            "cache/collective.py", "data/homophilous.py"} <= found

@@ -155,3 +155,35 @@ def test_entry_points_help(module):
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert "usage" in out.stdout
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_homophilous_dataset_equals_the_example(seed, tmp_path):
+    """``legion_tpu_torch.data.homophilous_dataset`` against
+    ``examples/ab_accuracy.py::homophilous_dataset`` at a small size: the
+    meta and every array equal byte for byte, and so do the files
+    ``write_legion_dataset`` makes of them in both packages."""
+    import importlib.util
+
+    from legion_tpu.data.format import write_legion_dataset as jwrite
+    from legion_tpu_torch.data import homophilous_dataset, write_legion_dataset
+    spec = importlib.util.spec_from_file_location(
+        "ab_accuracy", REPO / "examples" / "ab_accuracy.py")
+    ab = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ab)
+    args = (3000, 7, 12, 5, 64)
+    ref = ab.homophilous_dataset(*args, seed=seed)
+    got = homophilous_dataset(*args, seed=seed)
+    assert vars(got.meta) == vars(ref.meta)
+    for name in ("features", "labels", "train_ids", "valid_ids",
+                 "test_ids"):
+        a, b = getattr(got, name), getattr(ref, name)
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), name
+    for name in ("indptr", "indices"):
+        a, b = getattr(got.graph, name), getattr(ref.graph, name)
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), name
+    for ds, write, d in ((got, write_legion_dataset, "port"),
+                         (ref, jwrite, "jax")):
+        write(str(tmp_path / d), ds.graph, ds.features, ds.labels,
+              ds.train_ids, ds.valid_ids, ds.test_ids)
+    assert _files(tmp_path / "port") == _files(tmp_path / "jax")

@@ -238,6 +238,89 @@ def test_one_host_cached_train_step_matches_jax(jax_host_dataset,
     tr.close()
 
 
+def test_one_gat_train_step_on_host_features_matches_jax(jax_host_dataset):
+    """GAT on host features (GAT-H): the port's ``CachedFeatureSource``
+    (K4's plain version) and JAX's (its host callback) over the same
+    partial cache, so that the aligned hop's lanes both hit and miss; rows
+    100 wide, unpadded (``feat_pad`` 100), f32. On JAX's batch, with JAX's
+    parameters and dropout 0: the fetch exactly, then the loss, every
+    gradient and the Adam-updated parameters within F32_RTOL."""
+    jds = jax_host_dataset
+    V = jds.meta.num_nodes
+    g = jds.graph
+    kw = dict(fanouts=(5, 3), batch_size=32, eval_batch_size=32,
+              dedup="sort", neighbor_window=16, dedup_last_hop=False,
+              node_caps=(32, 128, 0))
+    tkw = dict(model="gat", hidden_dim=16, dropout=0.0, gat_feat_drop=0.0,
+               gat_attn_drop=0.0, gat_heads=(4, 1), lr=3e-3,
+               compute_dtype="float32")
+    jcfg = JSamplerConfig(**kw)
+    qf = np.argsort(-np.bincount(g.indices, minlength=V), kind="stable")
+    plan = JPlan(feature_capacity=400, topo_capacity=0, alpha=1.0,
+                 feature_order=qf, topo_order=np.arange(V),
+                 est_feat_saved_bytes=0.0, est_topo_saved_bytes=0.0)
+    jc = JCache.build_from_host(plan, jds.features, None, None, V)
+    sampler = JSampler(jcfg, V)
+    seeds = np.asarray(jds.train_ids[:32], np.int32)
+    jb, _ = sampler.sample(JWindowed.from_csr(g.to_device(), 16),
+                           jnp.asarray(seeds), sampler.init_state(),
+                           jax.random.PRNGKey(4))
+    xj, hj = JCached(jc, jds.features).fetch(jb.node_ids[:sampler.max_ids])
+    model = jax_make_model(JTrainConfig(**tkw), jcfg, 100, 8, in_dim_pad=100)
+    params = model.init(jax.random.PRNGKey(0))
+    y = np.asarray(jds.labels)[seeds]
+
+    def loss_fn(p):
+        logits = model.apply(p, xj, jb, train=True, rng=None)
+        return jax_masked_ce(logits, jnp.asarray(y), jnp.asarray(seeds >= 0))
+
+    tx = optax.adam(3e-3)
+
+    @jax.jit
+    def jax_step(p):
+        loss, grads = jax.value_and_grad(loss_fn)(p)
+        updates, _ = tx.update(grads, tx.init(p), p)
+        return loss, grads, optax.apply_updates(p, updates)
+
+    loss_j, grads_j, new_j = jax_step(params)
+
+    ds = legion_dataset_from_jax(jds)
+    cfg = LegionConfig(dataset=ds.meta, sampler=SamplerConfig(**kw),
+                       cache=CacheConfig(cache_bytes=400 * 100 * 4,
+                                         presample_steps=2,
+                                         feature_residency="host"),
+                       train=TrainConfig(**tkw),
+                       mesh=MeshConfig.for_devices(1))
+    tr = Trainer(ds, cfg, device="cpu")
+    assert tr.feat_pad == 100
+    tr.feature_source = CachedFeatureSource(cache_from_jax(jc),
+                                            tr.feature_source.host)
+    state = tr.init_state()
+    assert state["model"].layers[0]["w"].shape == (100, 4, 16)
+    state["model"].load_state_dict(params_from_jax(params))
+    pb = batch_from_jax(jb)
+    nid = pb.node_ids[:tr.sampler_t.max_ids]
+    xp, hp = tr.feature_source.fetch(nid)
+    np.testing.assert_array_equal(_np(xp), _np(xj))
+    # the aligned last hop's lanes (layer 0's K6 input) hit and miss
+    ao = tr.sampler_t.config.aligned_hop_offset(1)
+    lanes = nid[ao:ao + pb.edge_src[1].shape[0]]
+    _, hit = tr.feature_source.cache.find_feat(lanes)
+    assert 0 < int(hit.sum()) < int((lanes >= 0).sum())
+    assert int(hp) == int(hj)
+    loss_p = tr._train_on(state, pb, xp, torch.from_numpy(seeds),
+                          tr.train_ybank[:32], key=0)
+    assert abs(float(loss_p) - float(loss_j)) <= F32_RTOL * abs(float(loss_j))
+    for i in range(2):
+        layer = state["model"].layers[i]
+        for k in ("w", "attn_l", "attn_r", "b"):
+            g_rel = _rel(layer[k].grad, grads_j["layers"][i][k])
+            p_rel = _rel(layer[k], new_j["layers"][i][k])
+            assert g_rel <= F32_RTOL and p_rel <= F32_RTOL, (i, k, g_rel,
+                                                             p_rel)
+    tr.close()
+
+
 @pytest.mark.parametrize("topo_residency", ["hbm", "host"])
 def test_cached_trainer_steps_evaluates_and_fits_on_cpu(topo_residency):
     """A Trainer on a host LegionDataset with a partial feature cache
