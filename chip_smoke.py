@@ -22,14 +22,24 @@ CUDA card, nvcc (``$CUDA_HOME`` or ``/usr/local/cuda``) and no network.
      K10 (the step keys from the device counters) at the main path's
      hops and at 1,000 random (base key, counter) pairs, exactly, also
      with 4 members and at member offsets (a rank's members of a world
-     of 8);
+     of 8); K1 at the Device path's prefix fetch (the ids before the
+     aligned last hop) and at the whole fetch; K15 (the hop aggregation)
+     in its three forms: (c) at layer 0 reading the aligned last hop's
+     rows from the feature table, (a) at layer 1 gathering its rows,
+     forward and forward + backward (K2's lane form, also alone), each
+     also in the host's time per call (``host_us``), and at
+     the edges of its shapes (``k15_edges``: forms, widths, dtypes,
+     pads, fanouts 1 and 33, the last offset, misaligned rows);
   3. drives the main path through the public API at the bench
      configuration (``bench.py`` defaults: 2.4M vertices, 120M edges,
      GraphSAGE [25,10], batch 8000, hidden 256, bf16 features, 64-wide
      windowed draws, sort dedup with a lane-aligned last hop, measured
      caps): train steps, then an eval pass, counting kernel launches; then
      the same with map dedup, the config's default (``device-map``),
-     checking that the position map is clean after it. After each of
+     checking that the position map is clean after it; on both (and on
+     lp_sage) one step on the prefix fetch against one on the whole
+     fetch and one with the plain aggregation, from the same
+     state (``prefix_check``: K1's ids, the loss, the hits). After each of
      Device, Device-map, GAT and HT, the same path with ``fused_steps = 4``
      (CUDA-graph replays of one captured step) against as many eager steps
      from the same state (``phase_fused``): every step's sampled ids and
@@ -52,9 +62,12 @@ CUDA card, nvcc (``$CUDA_HOME`` or ``/usr/local/cuda``) and no network.
      dtypes);
      GCN (exact last-hop dedup), after holding K7 at the exact-dedup GAT
      layer-0 shape of one of its batches, K2 at its out-degree shape
-     (one column), and K8 and K9 at its hop 1 (965,760 lanes);
+     (one column), K15 at both of its gathered hops (the sum; hop 0
+     with its backward), and K8 and K9 at its hop 1 (965,760 lanes);
      link-prediction SAGE (batch
-     7998, eval batch 510); each for train steps and an eval pass;
+     7998, eval batch 510), after holding K15 at its layer 1 (256-wide
+     f32 rows, forward and forward + backward); each for train steps
+     and an eval pass;
   4. checks the whole slice on the card against the same slice on the
      CPU (plain versions) at a small size, for GraphSAGE (sort and map
      dedup), GAT and GCN;
@@ -70,8 +83,9 @@ CUDA card, nvcc (``$CUDA_HOME`` or ``/usr/local/cuda``) and no network.
      degree figures), with the card's NUMA node, the process's CPUs and
      the nodes of the table's pages; holds K4 (over the bf16 table and an
      f32 table of the same rows, then the two in turns) and K5 against
-     their plain versions at HT's shapes and times both, and each at the
-     edges of its shapes (K4: widths, dtypes, f32 and bf16 tables at
+     their plain versions at HT's shapes and times both, K15's form (b)
+     at H's layer 0 (K4's 100-wide bf16 rows), and K4 and K5 at the
+     edges of their shapes (K4: widths, dtypes, f32 and bf16 tables at
      misaligned bases and padded pitches, pads and ids past the tables,
      all hits, all misses, no ids; K5:
      fanouts, frontier sizes, degrees from 0 to 70,000, offset types, a
@@ -150,8 +164,8 @@ step calls ``torch.cummax`` (the plain sort dedup). ``--profile PATHS --fused
 1,4,E,E,4,1`` does so for each ``fused_steps`` in turn (E: the epoch's
 ``train_step``), an A/B of single steps against CUDA-graph replays in one
 call, and fails if a fused run's profile lacks a kernel of its path. ``python3 chip_smoke.py
---kernels`` stops after phase 2 and the GCN shapes of K2, K8 and K9, for
-work on K1-K3, K8 and K9. ``python3 chip_smoke.py --clique`` builds, makes
+--kernels`` stops after phase 2 and the GCN shapes of K2, K8, K9 and K15,
+for work on K1-K3, K8, K9 and K15. ``python3 chip_smoke.py --clique`` builds, makes
 the host dataset and runs phase 9 alone, for work on K11-K14;
 ``--clique-kernels`` stops phase 9 after K11-K14 at clique-HT's shapes,
 their edges and the replay check (``clique_replay``). ``python3
@@ -210,25 +224,29 @@ KERNELS = {
                           replaces="legion_tpu/cache/collective.py:160"),
     "clique_draw": dict(source="legion_tpu_torch/csrc/clique.cu",
                         replaces="legion_tpu/cache/collective.py:337"),
+    "hop_mean": dict(source="legion_tpu_torch/csrc/hop_agg.cu",
+                     replaces="legion_tpu/ops/hop_agg.py:59"),
 }
 # the kernels each path must launch, and the path whose launches the
 # kernel line reports
 SORT_DEDUP = ("dedup_keys", "dedup_sort")
 CLIQUE_HT = ("gather_rows", "segment_sum", "csr_draw", "step_keys",
              "bucket_by_owner", "clique_gather", "clique_draw",
-             "clique_draw_unsort") + SORT_DEDUP
-# every path's step derives its keys by K10
+             "clique_draw_unsort", "hop_mean") + SORT_DEDUP
+# every path's step derives its keys by K10; every path but GAT's
+# aggregates by K15 (its gathered hop's backward is K2's lane form), and
+# K1 fetches on the paths with features on the card
 PATH_KERNELS = {
-    "device": ("gather_rows", "segment_sum", "windowed_draw", "step_keys")
-    + SORT_DEDUP,
+    "device": ("gather_rows", "segment_sum", "windowed_draw", "step_keys",
+               "hop_mean") + SORT_DEDUP,
     "device-map": ("gather_rows", "segment_sum", "windowed_draw",
-                   "dedup_map", "step_keys"),
-    "H": ("gather_rows", "segment_sum", "windowed_draw", "cached_gather",
-          "step_keys") + SORT_DEDUP,
-    "HT": ("gather_rows", "segment_sum", "cached_gather", "csr_draw",
-           "step_keys") + SORT_DEDUP,
-    "cache-off": ("gather_rows", "segment_sum", "windowed_draw", "step_keys")
-    + SORT_DEDUP,
+                   "dedup_map", "step_keys", "hop_mean"),
+    "H": ("segment_sum", "windowed_draw", "cached_gather", "step_keys",
+          "hop_mean") + SORT_DEDUP,
+    "HT": ("segment_sum", "cached_gather", "csr_draw", "step_keys",
+           "hop_mean") + SORT_DEDUP,
+    "cache-off": ("gather_rows", "segment_sum", "windowed_draw", "step_keys",
+                  "hop_mean") + SORT_DEDUP,
     "gat": ("gather_rows", "segment_sum", "windowed_draw", "gat_attend",
             "gat_attend_bwd", "hop_attention", "hop_attention_bwd",
             "step_keys") + SORT_DEDUP,
@@ -237,19 +255,20 @@ PATH_KERNELS = {
     "gat-H": ("gather_rows", "segment_sum", "windowed_draw", "cached_gather",
               "gat_attend", "gat_attend_bwd", "hop_attention",
               "hop_attention_bwd", "step_keys") + SORT_DEDUP,
-    "gcn": ("gather_rows", "segment_sum", "windowed_draw", "step_keys")
-    + SORT_DEDUP,
-    "lp_sage": ("gather_rows", "segment_sum", "windowed_draw", "step_keys")
-    + SORT_DEDUP,
+    "gcn": ("gather_rows", "segment_sum", "windowed_draw", "step_keys",
+            "hop_mean") + SORT_DEDUP,
+    "lp_sage": ("gather_rows", "segment_sum", "windowed_draw", "step_keys",
+                "hop_mean") + SORT_DEDUP,
     # the launcher on a dataset on disk, features on the host (phase 8)
-    "cli": ("gather_rows", "segment_sum", "windowed_draw", "cached_gather",
-            "step_keys") + SORT_DEDUP,
+    "cli": ("segment_sum", "windowed_draw", "cached_gather", "step_keys",
+            "hop_mean") + SORT_DEDUP,
     # 4 members of a clique on the card (phase 9): features and topology
     # on the host; the same with hash maps; the topology on the card
     "clique-HT": CLIQUE_HT,
     "clique-HT-hash": CLIQUE_HT + ("hash_lookup",),
     "clique-H": ("gather_rows", "segment_sum", "windowed_draw", "step_keys",
-                 "bucket_by_owner", "clique_gather") + SORT_DEDUP,
+                 "bucket_by_owner", "clique_gather", "hop_mean")
+    + SORT_DEDUP,
 }
 # the paths whose CUDA-graph replays phase_fused holds against eager steps
 FUSED_PATHS = ("device", "device-map", "gat", "HT")
@@ -271,7 +290,7 @@ REPORTED_PATH = {"gather_rows": "device", "segment_sum": "device",
                  "dedup_sort": "device", "dedup_map": "device-map",
                  "step_keys": "device", "hash_lookup": "clique-HT-hash",
                  "bucket_by_owner": "clique-HT", "clique_gather": "clique-HT",
-                 "clique_draw": "clique-HT"}
+                 "clique_draw": "clique-HT", "hop_mean": "device"}
 # bench.py --model gat --features host (GAT-H)
 GAT_H = dict(cache_bytes=CACHE_BYTES, feature_residency="host", model="gat")
 # bench.py --model X: lp_sage batches divide into thirds, GCN dedups the
@@ -643,12 +662,20 @@ def phase_kernels(tr, torch):
         idx = ids.clamp(min=0).long()
         return lambda: tbl.index_select(0, idx)
 
+    # the Device path fetches the ids before the aligned last hop (K15
+    # reads that hop's rows from the table); GAT and GCN fetch them all
+    head = nid[:tr._table_head(s, tr.init_state()["model"])]
     main["gather_rows"] = [compare(
-        "gather_rows", lambda: kernels.gather_rows(table, nid),
-        lambda: kernels.gather_rows_plain(table, nid), exact, results,
-        torch, f"fetch [{table.shape[0]},{table.shape[1]}] bf16 x "
-               f"{nid.shape[0]}", least=k1_least(table, nid),
-        library=k1_library(table, nid))]
+        "gather_rows", lambda: kernels.gather_rows(table, head),
+        lambda: kernels.gather_rows_plain(table, head), exact, results,
+        torch, f"prefix fetch [{table.shape[0]},{table.shape[1]}] bf16 x "
+               f"{head.shape[0]}", least=k1_least(table, head),
+        library=k1_library(table, head))]
+    compare("gather_rows", lambda: kernels.gather_rows(table, nid),
+            lambda: kernels.gather_rows_plain(table, nid), exact, results,
+            torch, f"whole fetch [{table.shape[0]},{table.shape[1]}] bf16 "
+                   f"x {nid.shape[0]}", least=k1_least(table, nid),
+            library=k1_library(table, nid))
     ids = torch.randint(0, table.shape[0], (1_247_232,), generator=g,
                         device=dev, dtype=torch.int32)
     ids[torch.rand(ids.shape, generator=g, device=dev) < 0.05] = -1
@@ -657,12 +684,7 @@ def phase_kernels(tr, torch):
             torch, f"bench ids {ids.shape[0]}, 5% pads")
     S1 = s.cum_caps[1]
     src0 = batch.edge_src[0]
-    hp = torch.randn((S1, 128), generator=g, device=dev).to(torch.bfloat16)
-    main["gather_rows"].append(compare(
-        "gather_rows", lambda: kernels.gather_rows(hp, src0),
-        lambda: kernels.gather_rows_plain(hp, src0), exact, results, torch,
-        f"layer-1 msgs [{S1},128] bf16 x {src0.shape[0]}",
-        least=k1_least(hp, src0), library=k1_library(hp, src0)))
+    k15_compares(tr, batch, torch, results, main)
 
     # K2: f32 atomic order
     dmsg = torch.randn((src0.shape[0], 128), generator=g,
@@ -691,9 +713,10 @@ def phase_kernels(tr, torch):
           f"lanes on {int((full > 0).sum())} distinct rows; the fullest "
           f"rows hold {full.sort(descending=True).values[:4].tolist()} | "
           f"zero-fill of [{S1},128] f32 alone {zero_ms:.4f} ms")
-    main["segment_sum"] = [k2_compare(src0, "layer-1 bwd (the batch's own)")]
+    k2_compare(src0, "a layer-1 bwd's per-lane rows (the batch's own)")
+    main["segment_sum"] = [k2_lanes_compare(tr, batch, torch, results)]
     # 200 calls: each is two launches, and the launch queue must not fill
-    print(f"  segment_sum    layer-1 bwd: host_us_per_call "
+    print(f"  segment_sum    per-lane rows: host_us_per_call "
           f"{host_us(lambda: kernels.segment_sum(dmsg, src0, S1), torch, 200):.2f}")
     # the same E, F, S under other skews: uniform segments; every lane in
     # one; 1% of the segments taking half of the lanes
@@ -718,14 +741,16 @@ def phase_kernels(tr, torch):
                 f32_atomic_order, results, torch,
                 f"bench E 200704 -> S 8192 {str(dt)[6:]}")
     k2_edges(torch, results)
+    k15_edges(torch, results)
     k3_edges(torch)
     # K8 and K9 at hop 0 of the bench batch, and at their edges
     dedup_compares(tr, torch, results, main)
     dedup_edges(torch, results)
     # per train step: the sum over the main path's launches of a kernel
-    # (K3: both hops; K1: feature fetch + layer-1 message gather; K2: the
-    # layer-1 backward; K8: hop 0's keys and its dedup; K9: the one call of
-    # the device-map path, register, hop 0 and the clear)
+    # (K3: both hops; K1: the prefix fetch; K15: layer 0 over the table and
+    # layer 1 gathered; K2: layer 1's backward, in its lane form; K8: hop
+    # 0's keys and its dedup; K9: the one call of the device-map path,
+    # register, hop 0 and the clear)
     add_main(results, main)
     return results
 
@@ -1370,6 +1395,393 @@ def k2_gcn_compare(tr, torch, results):
                                      ops=int((src >= 0).sum())),
             library=lambda: torch.zeros((n_src + 1, 1), device="cuda")
             .index_add_(0, idx, ones), queued=True)
+
+
+def k15_rows(src, ids=None, aligned=None):
+    """The row each lane of K15 reads (-1 for none), by form: src (a),
+    aligned + lane (b), the hop's ids (c)."""
+    import torch
+    E = src.shape[0]
+    if ids is not None:
+        r = ids[aligned:aligned + E]
+    elif aligned is not None:
+        r = aligned + torch.arange(E, device=src.device, dtype=torch.int32)
+    else:
+        r = src
+    return torch.where((src >= 0) & (r >= 0), r, -1)
+
+
+def k15_least(rows, src, fanout, num_dst, ids=None, aligned=None,
+              bwd=False):
+    """K15's bound for these inputs. Forward: src (and the hop's ids)
+    read, each distinct row the valid lanes name read once, out [num_dst,
+    d] and count written in f32, one f32 add a valid lane and column.
+    With ``bwd``, the backward's too: src, the hop's F rows of the output's
+    gradient and their counts read, the gradient of rows written once in
+    the rows' dtype (K2's f32 accumulator on a gathered hop is the
+    kernel's choice, not the function's), one add or division a valid
+    lane and column."""
+    r = k15_rows(src, ids, aligned)
+    d = rows.shape[1]
+    valid = int((r >= 0).sum())
+    dev = (nb(src) + (4 * src.shape[0] if ids is not None else 0)
+           + distinct(r) * d * rows.element_size() + num_dst * (4 * d + 4))
+    ops = valid * d
+    if bwd:
+        F = src.shape[0] // fanout
+        dev += nb(src) + F * (4 * d + 4) + nb(rows)
+        ops += valid * d
+    return bound(dev, ops=ops)
+
+
+def k15_library(rows, src, fanout, ids=None, aligned=None):
+    """One PyTorch call for K15's forward: ``embedding_bag`` (mean) over
+    the [F, fanout] lanes, pads mapped to ``padding_idx`` (the last row:
+    it differs from K15 only where a valid lane names that row, and it does
+    not place the rows at the hop's offset). Timed; used nowhere else."""
+    import torch
+    r = k15_rows(src, ids, aligned)
+    rows, V = rows.detach(), rows.shape[0]
+    idx = torch.where(r >= 0, r, V - 1).long().view(fanout, -1).t() \
+        .contiguous()
+    return lambda: torch.nn.functional.embedding_bag(
+        idx, rows, mode="mean", padding_idx=V - 1)
+
+
+def k15_pair(rows, src, fanout, off, num_dst, aligned=None, ids=None,
+             mean=True):
+    """The kernel and its plain version as ``compare`` takes them, no
+    gradient taken: each returns (out, count)."""
+    import torch
+    from legion_tpu_torch.ops import hop_agg, kernels
+
+    @torch.no_grad()
+    def kern():
+        return kernels.hop_mean(rows, src, fanout, off, num_dst, aligned,
+                                ids, mean)
+
+    @torch.no_grad()
+    def plain():
+        s, c = hop_agg.hop_neighbor_sum_plain(rows, src, fanout, off,
+                                              num_dst, aligned, ids)
+        return (s / c.clamp(min=1)[:, None] if mean else s), c
+    return kern, plain
+
+
+def k15_grad_pair(rows, src, fanout, off, num_dst, g_out, aligned=None,
+                  mean=True):
+    """Forward + backward of K15 and of its plain version for upstream
+    ``g_out``: each returns (out, d rows)."""
+    import torch
+    from legion_tpu_torch.ops import hop_agg, kernels
+
+    def run(fn):
+        def both():
+            out = fn(rows, src, fanout, off, num_dst, aligned)
+            return (out,) + torch.autograd.grad(out, rows, g_out)
+        return both
+    k = (lambda *a: kernels.hop_mean(*a, mean=mean)[0])
+    p = hop_agg.hop_neighbor_mean_plain if mean else \
+        (lambda *a: hop_agg.hop_neighbor_sum_plain(*a)[0])
+    return run(k), run(p)
+
+
+def k15_compares(tr, batch, torch, results, main):
+    """K15 against its plain versions at the Device path's shapes, from
+    one real batch: form (c) at layer 0 (the aligned last hop's rows read
+    from the feature table by id, the mean at the hop's offset of the
+    prefix), and form (a) at layer 1 (the hop-0 lanes gathered from [S1,
+    128] bf16 rows, W_neigh applied first), forward, and forward +
+    backward (K2's lane form). The count exactly; sums to f32 order
+    (``close_f32``); the bf16 gradient within a bf16 ulp (``bf16_ulp``:
+    f32 atomics, cast once)."""
+    s = tr.sampler_t
+    S = s.config.cum_sizes()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(15)
+    table = tr.feature_source.features
+    ids = batch.node_ids[:s.max_ids]
+    P, fo1, fo0 = S[1], s.config.fanouts[1], s.config.fanouts[0]
+    src1, off1 = batch.edge_src[1], batch.hop_offsets[1]
+    kern, plain = k15_pair(table, src1, fo1, off1, P, P, ids)
+    main["hop_mean"] = [compare(
+        "hop_mean", kern, plain, tuple_tol(close_f32, exact), results, torch,
+        f"(c) L0 table [{table.shape[0]},{table.shape[1]}] bf16 x "
+        f"{src1.shape[0]} lanes -> [{P}]", least=k15_least(
+            table, src1, fo1, P, ids, P),
+        library=k15_library(table, src1, fo1, ids, P), queued=True)]
+    print(f"  hop_mean       (c) L0: host_us_per_call "
+          f"{host_us(kern, torch, 200):.2f}")
+    src0, off0 = batch.edge_src[0], batch.hop_offsets[0]
+    hp = torch.randn((S[1], 128), generator=g, device="cuda").to(
+        torch.bfloat16).requires_grad_()
+    kern, plain = k15_pair(hp, src0, fo0, off0, S[0])
+    note = f"(a) L1 [{S[1]},128] bf16 x {src0.shape[0]} lanes -> [{S[0]}]"
+    main["hop_mean"].append(compare(
+        "hop_mean", kern, plain, tuple_tol(close_f32, exact), results, torch,
+        note + " fwd", least=k15_least(hp, src0, fo0, S[0]),
+        library=k15_library(hp, src0, fo0), queued=True))
+    g_out = torch.randn((S[0], 128), generator=g, device="cuda")
+    kb, pb = k15_grad_pair(hp, src0, fo0, off0, S[0], g_out)
+    compare("hop_mean", kb, pb, tuple_tol(close_f32, bf16_ulp), results,
+            torch, note + " fwd+bwd", least=k15_least(
+                hp, src0, fo0, S[0], bwd=True), queued=True)
+    # the host's share of the times as launched: checks, the autograd
+    # Function and the ctypes call of K15, and K2's lane form behind it
+    print(f"  hop_mean       (a) L1: host_us_per_call fwd "
+          f"{host_us(kern, torch, 200):.2f} | fwd+bwd "
+          f"{host_us(kb, torch, 200):.2f}")
+
+
+def k15_lp_compares(tr, torch, results):
+    """K15 at lp_sage's layer 1, from one of its batches: form (a) over
+    [S1, hidden] f32 rows (the mean first: the layer does not shrink
+    rows), forward, and forward + backward (K2's lane form over the f32
+    gradient of the mean). The count exactly; sums to f32 order
+    (``close_f32``); the f32 gradient to f32 atomics' order
+    (``f32_atomic_order``)."""
+    batch, _ = one_batch(tr, torch)
+    scfg = tr.sampler_t.config
+    S = scfg.cum_sizes()
+    H = tr.config.train.hidden_dim
+    g = torch.Generator(device="cuda")
+    g.manual_seed(18)
+    src0, off0, fo0 = batch.edge_src[0], batch.hop_offsets[0], \
+        scfg.fanouts[0]
+    h = torch.randn((S[1], H), generator=g, device="cuda").requires_grad_()
+    note = f"(a) lp_sage L1 [{S[1]},{H}] f32 x {src0.shape[0]} -> [{S[0]}]"
+    kern, plain = k15_pair(h, src0, fo0, off0, S[0])
+    compare("hop_mean", kern, plain, tuple_tol(close_f32, exact), results,
+            torch, note + " fwd", least=k15_least(h, src0, fo0, S[0]),
+            library=k15_library(h, src0, fo0), queued=True)
+    g_out = torch.randn((S[0], H), generator=g, device="cuda")
+    kb, pb = k15_grad_pair(h, src0, fo0, off0, S[0], g_out)
+    compare("hop_mean", kb, pb, tuple_tol(close_f32, f32_atomic_order),
+            results, torch, note + " fwd+bwd",
+            least=k15_least(h, src0, fo0, S[0], bwd=True), queued=True)
+
+
+def k2_lanes_compare(tr, batch, torch, results):
+    """K2's lane form at the Device path's layer-1 backward (K15's
+    backward on the gathered hop): the [S0, 128] f32 gradient of the mean,
+    read by lane, each row divided by its slot's count, summed into [S1,
+    128] f32 by the batch's own src. Returns the ``compare`` tuple."""
+    from legion_tpu_torch.ops import kernels
+    g = torch.Generator(device="cuda")
+    g.manual_seed(16)
+    s = tr.sampler_t
+    S0, S1, fo = s.config.cum_sizes()[0], s.cum_caps[1], s.config.fanouts[0]
+    src, off = batch.edge_src[0], batch.hop_offsets[0]
+    F = src.shape[0] // fo
+    dout = torch.randn((S0, 128), generator=g, device="cuda")
+    count = torch.randint(0, fo + 1, (S0,), generator=g,
+                          device="cuda").float()
+    valid = int((src >= 0).sum())
+    r = compare(
+        "segment_sum",
+        lambda: kernels.segment_sum_lanes(dout, src, S1, off, F, count),
+        lambda: kernels.segment_sum_lanes_plain(dout, src, S1, off, F,
+                                                count),
+        f32_atomic_order, results, torch,
+        f"lane form: layer-1 bwd [{S0},128] f32 by {src.shape[0]} lanes -> "
+        f"S {S1}", least=bound(nb(src) + F * (4 * 128 + 4) + 4 * S1 * 128,
+                               ops=2 * valid * 128), queued=True)
+    lanes = lambda: kernels.segment_sum_lanes(  # noqa: E731
+        dout, src, S1, off, F, count)
+    print(f"  segment_sum    lane form: host_us_per_call "
+          f"{host_us(lanes, torch, 200):.2f}")
+    return r
+
+
+def k15_gcn_compares(tr, torch, results):
+    """K15 at GCN's shapes (exact dedup: both hops gathered, the sum):
+    hop 1 at layer 0 over the fetched bf16 rows scaled as the model scales
+    them (965,760 lanes into W rows), forward (features take no
+    gradient); hop 0 at layer 1 over [S1, classes] f32 rows (188-byte
+    rows: 4-byte pieces), forward + backward."""
+    batch, x = one_batch(tr, torch)
+    scfg = tr.sampler_t.config
+    S = scfg.cum_sizes()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(17)
+    src1, off1 = batch.edge_src[1], batch.hop_offsets[1]
+    kern, plain = k15_pair(x, src1, scfg.fanouts[1], off1, S[1], mean=False)
+    compare("hop_mean", kern, plain, tuple_tol(close_f32, exact), results,
+            torch, f"(a) GCN hop 1 [{S[2]},{x.shape[1]}] bf16 x "
+                   f"{src1.shape[0]} -> [{S[1]}] sum",
+            least=k15_least(x, src1, scfg.fanouts[1], S[1]),
+            library=k15_library(x, src1, scfg.fanouts[1]), queued=True)
+    C = tr.dataset.meta.num_classes
+    h = torch.randn((S[1], C), generator=g, device="cuda").requires_grad_()
+    src0, off0 = batch.edge_src[0], batch.hop_offsets[0]
+    g_out = torch.randn((S[0], C), generator=g, device="cuda")
+    kb, pb = k15_grad_pair(h, src0, scfg.fanouts[0], off0, S[0], g_out,
+                           mean=False)
+    compare("hop_mean", kb, pb, tuple_tol(close_f32, f32_atomic_order),
+            results, torch, f"(a) GCN hop 0 [{S[1]},{C}] f32 x "
+                            f"{src0.shape[0]} -> [{S[0]}] sum fwd+bwd",
+            least=k15_least(h, src0, scfg.fanouts[0], S[0], bwd=True),
+            queued=True)
+
+
+def k15_aligned_compare(tr, torch, results):
+    """K15's form (b) at H's layer 0: the aligned last hop over K4's
+    fetched rows, 100 wide in bf16 (200-byte rows, 8-byte aligned: 8-byte
+    pieces), the mean at the hop's offset."""
+    batch, x = one_batch(tr, torch)
+    scfg = tr.sampler_t.config
+    S = scfg.cum_sizes()
+    src, off, fo = batch.edge_src[1], batch.hop_offsets[1], scfg.fanouts[1]
+    kern, plain = k15_pair(x, src, fo, off, S[1], S[1])
+    compare("hop_mean", kern, plain, tuple_tol(close_f32, exact), results,
+            torch, f"(b) H L0 [{x.shape[0]},{x.shape[1]}] bf16 (K4's rows) "
+                   f"x {src.shape[0]} -> [{S[1]}]",
+            least=k15_least(x, src, fo, S[1], aligned=S[1]),
+            library=k15_library(x, src, fo, aligned=S[1]), queued=True)
+
+
+# K15's edge cases: (fanout, F, num_dst, offset, pad fraction) for pads;
+# every lane a pad; fanout 1; fanout 33 (two rounds of 32 draws) at the
+# last offset; the last offset with rows one element past their
+# allocation (the narrowest pieces)
+K15_CASES = {"pads": (5, 37, 60, 11, 0.2),
+             "every lane a pad": (5, 37, 60, 11, 1.0),
+             "fanout 1": (1, 64, 64, 0, 0.1),
+             "fanout 33, last offset": (33, 19, 40, 21, 0.1),
+             "misaligned base, last offset": (5, 37, 60, 23, 0.2)}
+K15_WIDTHS = (1, 3, 47, 100, 128, 256)
+
+
+def k15_edges(torch, results):
+    """K15 at the edges of its shapes against its plain versions, each of
+    the three forms, sum and mean, bf16 and f32, widths ``K15_WIDTHS``,
+    the cases of ``K15_CASES``; forms (a) and (b) also forward + backward
+    of the mean. The count exactly, sums ``close_f32``; the gradient
+    ``bf16_ulp`` / ``f32_atomic_order`` on a gathered hop (K2's lane
+    form), exactly on an aligned one. Form (c)'s ids include one past the
+    table (clamped, as K1 clamps)."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(18)
+    n, worst, V, P = 0, 0.0, 300, 9
+
+    def rand(shape, dt, shift):
+        return torch.randn((math.prod(shape) + shift,), generator=g,
+                           device="cuda").to(dt)[shift:].view(shape)
+
+    for case, (fo, F, num_dst, offset, pad) in K15_CASES.items():
+        E = fo * F
+        shift = 1 if case.startswith("misaligned") else 0
+        off = torch.tensor(offset, dtype=torch.int32, device="cuda")
+        drop = torch.rand((E,), generator=g, device="cuda") < pad
+        gathered = torch.randint(0, V, (E,), generator=g, device="cuda",
+                                 dtype=torch.int32)
+        lanes = torch.arange(E, dtype=torch.int32, device="cuda")
+        ids = torch.randint(0, V, (P + E,), generator=g, device="cuda",
+                            dtype=torch.int32)
+        ids[P:][drop] = -1
+        # lane 0 names an id past the table, lane 1 a -1 id (a zero row
+        # that counts where the lane is valid)
+        ids[P], ids[P + 1] = V + 5, -1
+        forms = {"a": (torch.where(drop, -1, gathered), None, None, V),
+                 "b": (torch.where(drop, -1, P + lanes), P, None, P + E),
+                 "c": (torch.where(drop, -1, P + lanes), P, ids, V)}
+        for d in K15_WIDTHS:
+            for dt in (torch.bfloat16, torch.float32):
+                g_out = torch.randn((num_dst, d), generator=g, device="cuda")
+                for form, (src, ao, fid, n_rows) in forms.items():
+                    rows = rand((n_rows, d), dt, shift)
+                    what = (f"hop_mean edge {case} form ({form}) d {d} "
+                            f"{str(dt)[6:]}")
+                    if shift and rows.data_ptr() % 16 == 0:
+                        fail(f"{what}: the rows are not misaligned")
+                    for mean in (False, True):
+                        kern, plain = k15_pair(rows, src, fo, off, num_dst,
+                                               ao, fid, mean)
+                        err, ok = tuple_tol(close_f32, exact)(kern(),
+                                                              plain())
+                        if not ok:
+                            fail(f"{what} {'mean' if mean else 'sum'}: "
+                                 f"kernel disagrees with its plain version "
+                                 f"(max abs err {err})")
+                        n, worst = n + 1, max(worst, err)
+                    if form == "c":
+                        continue
+                    r = rows.detach().clone().requires_grad_()
+                    kb, pb = k15_grad_pair(r, src, fo, off, num_dst, g_out,
+                                           ao)
+                    dtol = exact if form == "b" else (
+                        bf16_ulp if dt == torch.bfloat16
+                        else f32_atomic_order)
+                    err, ok = tuple_tol(close_f32, dtol)(kb(), pb())
+                    if not ok:
+                        fail(f"{what} fwd+bwd: kernel disagrees with its "
+                             f"plain version (max abs err {err})")
+                    n, worst = n + 1, max(worst, err)
+    torch.cuda.synchronize()
+    print(f"  hop_mean       {n} edge cases (forms a/b/c, sum and mean, "
+          f"widths {'/'.join(map(str, K15_WIDTHS))}, bf16 and f32, "
+          f"{' / '.join(K15_CASES)}; a and b also fwd+bwd): all within "
+          f"tolerance, max_abs_err {worst:.3g}")
+    r = results["hop_mean"]
+    r["max_abs_err"] = max(r["max_abs_err"], worst)
+
+
+def prefix_check(tr, torch, path):
+    """The path's train step on the prefix fetch (K1 fetches the ids
+    before the aligned last hop, K15 reads that hop's rows from the table)
+    against the same step with the whole fetch (K1's rows of every id, K15
+    over them), and against the step the port took before K15 (the whole
+    fetch, and the aggregation as the plain chain of torch ops), each one
+    step from
+    ``init_state`` on the same batch: K1's ids a step, the feature-hit
+    counter equal in all three, the loss bit for bit against the whole
+    fetch (the same rows summed in the same order) and within rel 1e-4 of
+    the plain chain's (f32 sums in another order)."""
+    from legion_tpu_torch.models import graphsage
+    from legion_tpu_torch.ops import hop_agg, kernels
+    s = tr.sampler_t
+    head = tr._table_head(s, tr.init_state()["model"])
+    if head is None:
+        fail(f"{path}: the trainer fetches every id")
+    k1 = kernels.gather_rows
+    seen = []
+
+    def gather_rows(table, ids, out=None):
+        seen.append(ids.shape[0])
+        return k1(table, ids, out)
+
+    def step():
+        seen.clear()
+        state = tr.init_state()
+        kernels.gather_rows = gather_rows
+        try:
+            state, loss = tr.train_step(state)
+            torch.cuda.synchronize()
+        finally:
+            kernels.gather_rows = k1
+        return float(loss), int(tr.last_feat_hits), int(tr.last_slots), \
+            list(seen)
+
+    mean = graphsage.hop_neighbor_mean
+    runs = {"prefix": step()}
+    tr._table_head = lambda sampler, model: None
+    try:
+        runs["whole"] = step()
+        graphsage.hop_neighbor_mean = hop_agg.hop_neighbor_mean_plain
+        runs["plain"] = step()
+    finally:
+        del tr._table_head
+        graphsage.hop_neighbor_mean = mean
+    for k, (loss, hits, slots, k1_ids) in runs.items():
+        print(f"  {path} one step, {k} fetch: loss {loss!r} | feature hits "
+              f"{hits}/{slots} | K1 ids a step {k1_ids}")
+    (lp, hp, _, ip), (lw, hw, _, iw), (lc, hc, _, _) = runs.values()
+    if ip != [head] or iw != [s.max_ids]:
+        fail(f"{path}: K1 fetched {ip} ids on the prefix fetch and {iw} on "
+             f"the whole, not [{head}] and [{s.max_ids}]")
+    if not hp == hw == hc or lp != lw or abs(lp - lc) > 1e-4 * abs(lc):
+        fail(f"{path}: the prefix fetch's step disagrees with the whole "
+             f"fetch's or the plain chain's: {runs}")
 
 
 def phase_slice(tr, torch, path):
@@ -3381,11 +3793,22 @@ def profile_run(tr, torch, name, K):
         host.append((t1 - t0) / (calls * K) * 1e6)
     pcalls = -(-5 // K)
     steps = pcalls * K
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(pcalls):
-            state, _ = tr.train_step(state)
-        torch.cuda.synchronize()
+    # K1's ids a call in the profiled steps (a replay runs no Python)
+    from legion_tpu_torch.ops import kernels
+    k1, k1_ids = kernels.gather_rows, []
+
+    def gather_rows(table, ids, out=None):
+        k1_ids.append(ids.shape[0])
+        return k1(table, ids, out)
+    kernels.gather_rows = gather_rows
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(pcalls):
+                state, _ = tr.train_step(state)
+            torch.cuda.synchronize()
+    finally:
+        kernels.gather_rows = k1
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     # the host's time of one replay on an idle queue (many queued replays
     # would wait for room in the launch queue); the last, since replays
@@ -3414,6 +3837,11 @@ def profile_run(tr, torch, name, K):
           f"copies a step | peak mem {peak:.2f} GiB"
           + ("" if replay is None else
              f" | host us a replay (median of 20) {replay:.1f}"))
+
+    if K == 1:
+        print(f"    K1's ids a call in the profiled steps: "
+              f"{sorted(set(k1_ids))} ({len(k1_ids) / steps:g} calls a "
+              "step)")
 
     def per_step(r):
         return r.self_device_time_total / steps / 1e3
@@ -5329,6 +5757,7 @@ def main():
         del tr
         tr = Trainer(ds, bench_config(ds, model="gcn"), device="cuda")
         k2_gcn_compare(tr, torch, results)
+        k15_gcn_compares(tr, torch, results)
         dedup_compares(tr, torch, results, {}, gcn=True)
         return
 
@@ -5336,6 +5765,7 @@ def main():
           f"its steps as CUDA-graph replays (fused_steps {FUSED_K})")
     counts = {"device": phase_slice(tr, torch, "device")[0]}
     phase_fused(tr, torch, "device")
+    prefix_check(tr, torch, "device")
     del tr
     torch.cuda.empty_cache()
     print(" device-map (the same with map dedup, the config's default):")
@@ -5343,6 +5773,7 @@ def main():
     print(f"  caps {tr.compact_caps} | ids_len {tr.sampler_t.ids_len}")
     counts["device-map"] = phase_slice(tr, torch, "device-map")[0]
     phase_fused(tr, torch, "device-map")
+    prefix_check(tr, torch, "device-map")
     ib_ab = {"device-map": phase_interbatch(tr, torch, "device-map")}
     del tr
     torch.cuda.empty_cache()
@@ -5367,10 +5798,15 @@ def main():
         elif model == "gcn":
             k7_exact_compares(tr, torch, results)
             k2_gcn_compare(tr, torch, results)
+            k15_gcn_compares(tr, torch, results)
             dedup_compares(tr, torch, results, main_ms, gcn=True)
+        elif model == "lp_sage":
+            k15_lp_compares(tr, torch, results)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         counts[model] = phase_slice(tr, torch, model)[0]
+        if model == "lp_sage":
+            prefix_check(tr, torch, model)
         if model in FUSED_PATHS:
             phase_fused(tr, torch, model)
         if model in INTERBATCH_PATHS:
@@ -5404,6 +5840,7 @@ def main():
 
     print("phase 5: K4 and K5 against their plain versions at HT's shapes")
     results.update(phase_host_kernels(tr_h, tr_ht, torch))
+    k15_aligned_compare(tr_h, torch, results)
 
     print("phase 6: host-resident slice: H, HT, then the cache off")
     step_ms = {}

@@ -2,7 +2,9 @@
 ``legion_tpu/cache/unified_cache.py``).
 
 ``DeviceFeatureSource``: the whole feature table on the card (the
-reference's in-memory mode), fetched through K1.
+reference's in-memory mode), fetched through K1; ``fetch_head`` fetches a
+prefix only and leaves the aligned last hop's rows in the table, for K15
+to read at layer 0.
 
 ``UnifiedCache``: the hot feature rows and the hot-vertex sub-CSR in
 device memory, planned by the cost model (``cache/cost_model.py``) and
@@ -33,6 +35,7 @@ import torch
 from legion_tpu_torch.cache.cost_model import CostModelResult
 from legion_tpu_torch.graph import DeviceCSR
 from legion_tpu_torch.ops import kernels
+from legion_tpu_torch.ops.hop_agg import TableRows
 from legion_tpu_torch.ops.host_memory import HostTable
 
 
@@ -47,6 +50,15 @@ class DeviceFeatureSource:
         Through K1; features are data, so no gradient is taken."""
         rows = kernels.gather_rows(self.features, ids)
         return rows, (ids >= 0).sum(dtype=torch.int32)
+
+    def fetch_head(self, ids: torch.Tensor, n_head: int
+                   ) -> Tuple[TableRows, torch.Tensor]:
+        """``fetch`` with the rows of ids[n_head:] left in the table:
+        (TableRows of the rows of ids[:n_head], the table and ids; count of
+        the valid ids among all of ids, as ``fetch`` counts them)."""
+        rows = kernels.gather_rows(self.features, ids[:n_head])
+        return TableRows(rows, self.features, ids), \
+            (ids >= 0).sum(dtype=torch.int32)
 
 
 def _id_map(ids, num_nodes: int) -> torch.Tensor:

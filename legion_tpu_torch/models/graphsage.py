@@ -12,7 +12,7 @@ dtypes, so activations are cast to the weight dtype before each product.
 
 from __future__ import annotations
 
-from typing import Mapping, Optional
+from typing import Mapping, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -21,23 +21,29 @@ from torch import nn
 from legion_tpu_torch.config import SamplerConfig
 from legion_tpu_torch.models.common import (dropout, static_cum_sizes,
                                             xavier_uniform_padded)
-from legion_tpu_torch.ops.hop_agg import hop_neighbor_mean
+from legion_tpu_torch.ops.hop_agg import TableRows, hop_neighbor_mean
 from legion_tpu_torch.sampling.sampler import SampleBatch
 
 
 def sage_layer_apply(params: Mapping[str, torch.Tensor],
-                     h_src: torch.Tensor, edge_src: torch.Tensor,
-                     fanout: int, hop_offset: torch.Tensor, num_dst: int,
+                     h_src: Union[torch.Tensor, TableRows],
+                     edge_src: torch.Tensor, fanout: int,
+                     hop_offset: torch.Tensor, num_dst: int,
                      aligned_offset: Optional[int] = None) -> torch.Tensor:
     """One SAGEConv(mean) layer, [N_src, d_in] -> [num_dst, d_out].
 
     When the layer shrinks rows (d_in > padded d_out) and the hop needs a
     real per-edge gather, W_neigh is applied first (mean(h W) == mean(h) W)
-    at a width padded up to a multiple of 128, so the gather (K1) and its
-    backward scatter-add (K2) move d_out-wide rows. Otherwise the mean is
-    taken first (the lane-aligned hop, or a widening layer)."""
+    at a width padded up to a multiple of 128, so that the mean (K15) and
+    its backward (K2's lane form) move d_out-wide rows. Otherwise the mean
+    is taken first (the lane-aligned hop, or a widening layer). ``h_src``
+    may be ``TableRows`` on the aligned hop: the destinations' rows, and
+    the lanes' rows read from the feature table by K15."""
     w_self, w_neigh, b = params["w_self"], params["w_neigh"], params["b"]
     wdt = w_self.dtype
+    table = ids = None
+    if isinstance(h_src, TableRows):
+        h_src, table, ids = h_src
     h_dst = h_src[:num_dst]
     d_in, d_out = w_neigh.shape
     dp = max(-(-d_out // 128) * 128, 128)
@@ -50,8 +56,9 @@ def sage_layer_apply(params: Mapping[str, torch.Tensor],
             h_neigh = h_neigh[:, :d_out]
         out = h_dst.to(wdt) @ w_self + h_neigh.to(wdt)
     else:
-        h_neigh = hop_neighbor_mean(h_src, edge_src, fanout, hop_offset,
-                                    num_dst, aligned_offset)
+        h_neigh = hop_neighbor_mean(h_src if table is None else table,
+                                    edge_src, fanout, hop_offset, num_dst,
+                                    aligned_offset, ids)
         out = h_dst.to(wdt) @ w_self + h_neigh.to(wdt) @ w_neigh
     return out + b
 
@@ -59,6 +66,10 @@ def sage_layer_apply(params: Mapping[str, torch.Tensor],
 class GraphSAGE(nn.Module):
     """Parameters: ``layers.{i}.w_self`` / ``w_neigh`` [d_in, d_out] and
     ``layers.{i}.b`` [d_out], float32."""
+
+    # ``forward`` takes ``TableRows`` as feats: the trainer may then leave
+    # the aligned last hop's rows in the device feature table
+    reads_table_rows = True
 
     def __init__(self, in_dim: int, hidden_dim: int, num_classes: int,
                  num_layers: int, device: torch.device, dropout: float = 0.5,
@@ -97,12 +108,14 @@ class GraphSAGE(nn.Module):
                     device=dev))
             layer["b"].zero_()
 
-    def forward(self, feats: torch.Tensor, batch: SampleBatch,
-                sampler_cfg: SamplerConfig,
+    def forward(self, feats: Union[torch.Tensor, TableRows],
+                batch: SampleBatch, sampler_cfg: SamplerConfig,
                 generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
-        """feats [max_ids, in_dim_pad] -> logits [batch_size, classes].
-        Dropout runs in training mode when a generator is given."""
+        """feats [max_ids, in_dim_pad] (or ``TableRows`` of them, with the
+        aligned last hop left in the table) -> logits [batch_size,
+        classes]. Dropout runs in training mode when a generator is
+        given."""
         if sampler_cfg.num_hops != self.num_layers:
             raise ValueError("layer count must match sampling hops")
         S = static_cum_sizes(sampler_cfg)
@@ -110,7 +123,8 @@ class GraphSAGE(nn.Module):
         h = feats
         for i in range(L):
             k = L - 1 - i      # layer i aggregates hop k's edges
-            h = sage_layer_apply(self.layers[i], h[:S[k + 1]],
+            h = sage_layer_apply(self.layers[i], h if isinstance(
+                h, TableRows) else h[:S[k + 1]],
                                  batch.edge_src[k], sampler_cfg.fanouts[k],
                                  batch.hop_offsets[k], S[k],
                                  sampler_cfg.aligned_hop_offset(k))

@@ -17,8 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from legion_tpu_torch.config import SamplerConfig
-from legion_tpu_torch.models.common import dropout, static_cum_sizes
-from legion_tpu_torch.models.graphsage import GraphSAGE, sage_layer_apply
+from legion_tpu_torch.models.graphsage import GraphSAGE
 from legion_tpu_torch.sampling.sampler import SampleBatch
 
 
@@ -40,27 +39,9 @@ class LinkPredSAGE(GraphSAGE):
         super().__init__(in_dim, hidden_dim, hidden_dim, num_layers, device,
                          dropout=dropout, in_dim_pad=in_dim_pad)
 
-    def encode(self, feats: torch.Tensor, batch: SampleBatch,
-               sampler_cfg: SamplerConfig,
-               generator: Optional[torch.Generator] = None
-               ) -> torch.Tensor:
-        if sampler_cfg.num_hops != self.num_layers:
-            raise ValueError("layer count must match sampling hops")
-        S = static_cum_sizes(sampler_cfg)
-        L = self.num_layers
-        h = feats
-        for i in range(L):
-            k = L - 1 - i
-            h = sage_layer_apply(self.layers[i], h[:S[k + 1]],
-                                 batch.edge_src[k], sampler_cfg.fanouts[k],
-                                 batch.hop_offsets[k], S[k],
-                                 sampler_cfg.aligned_hop_offset(k))
-            if i != L - 1:
-                h = dropout(torch.relu(h), self.dropout_rate, generator,
-                            self.training)
-        return h[:sampler_cfg.batch_size]
-
-    forward = encode
+    # GraphSAGE's forward: with no compute dtype, activations stay in the
+    # weights' dtype between layers
+    encode = GraphSAGE.forward
 
     def loss(self, feats: torch.Tensor, batch: SampleBatch,
              sampler_cfg: SamplerConfig, seed_valid: torch.Tensor,

@@ -4,37 +4,62 @@
 ``hop_softmax_attention``).
 
 Lane f*F + i of hop k is draw f of frontier slot i, so a mean by
-destination is a sum over the leading axis of a [fanout, F, d] view. The
-aggregation is plain PyTorch; only the per-edge row gather of a hop that
-is not lane-aligned goes through a hand-written kernel (K1, backward K2).
-GAT's edge softmax and weighted sum is K7 on the card
-(``kernels.hop_attention``), with its plain version here.
+destination is a sum over the leading axis of a [fanout, F, d] view.
+``hop_neighbor_sum`` and ``hop_neighbor_mean`` are K15 ``hop_mean`` on the
+card (``kernels.hop_mean``, ``csrc/hop_agg.cu``), with their plain versions
+here: a lane's row is gathered by its local index (form (a)), sliced on a
+lane-aligned hop (b), or, on the aligned last hop of a batch whose
+features were fetched up to that hop only (``TableRows``), read from the
+feature table by the lane's id (c), as JAX's XLA sums the rows of that hop
+where it gathers them. GAT's edge softmax and weighted sum is K7 on the
+card (``kernels.hop_attention``), with its plain version here.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from legion_tpu_torch.ops import kernels
-from legion_tpu_torch.ops.segment import gather_rows
+
+
+class TableRows(NamedTuple):
+    """A batch's features with its aligned last hop left in the table:
+    ``head`` [P, F] holds the rows of ids[:P] (P the hop's aligned
+    offset), as the whole fetch would, and lane l of the hop reads
+    table[ids[P + l]] (K15's form (c), at layer 0). ``ids`` is the batch's
+    id prefix the whole fetch would read, [max_ids] int32."""
+    head: torch.Tensor
+    table: torch.Tensor
+    ids: torch.Tensor
 
 
 def hop_gather_msgs(h_src: torch.Tensor, src_l: torch.Tensor, fanout: int,
-                    aligned_offset: Optional[int] = None
+                    aligned_offset: Optional[int] = None,
+                    ids: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-edge messages [fanout, F, d] and validity [fanout, F]. On a
     lane-aligned hop (position == aligned_offset + lane) the gather is a
-    static slice."""
+    static slice; with ``ids``, h_src is the feature table and the slice's
+    rows are fetched from it (zero rows for ids < 0, as the fetch gives).
+    A gathered pad lane reads a clamped row, masked by its validity. A
+    bf16 gather is widened to f32 first, so that its gradient is summed in
+    f32 and cast once, as K15's backward does."""
     E = src_l.shape[0]
     F = E // fanout
     d = h_src.shape[1]
-    if aligned_offset is not None:
-        msgs = h_src[aligned_offset:aligned_offset + E].reshape(fanout, F, d)
+    if ids is not None:
+        msgs = kernels.gather_rows_plain(
+            h_src, ids[aligned_offset:aligned_offset + E])
+    elif aligned_offset is not None:
+        msgs = h_src[aligned_offset:aligned_offset + E]
     else:
-        msgs = gather_rows(h_src, src_l).reshape(fanout, F, d)
-    return msgs, (src_l >= 0).reshape(fanout, F)
+        # index_select: its gradient is an index_add_, which sums in a
+        # fixed order on the CPU (an index's accumulating put does not)
+        msgs = h_src.float().index_select(
+            0, src_l.clamp(0, h_src.shape[0] - 1).long())
+    return msgs.reshape(fanout, F, d), (src_l >= 0).reshape(fanout, F)
 
 
 def place_rows(rows: torch.Tensor, offset: torch.Tensor, num_dst: int
@@ -48,27 +73,66 @@ def place_rows(rows: torch.Tensor, offset: torch.Tensor, num_dst: int
     return out.index_copy(0, idx, rows)
 
 
-def hop_neighbor_sum(h_src: torch.Tensor, src_l: torch.Tensor, fanout: int,
-                     offset: torch.Tensor, num_dst: int,
-                     aligned_offset: Optional[int] = None
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(sum [num_dst, d], count [num_dst]) of valid neighbour rows per
-    destination; bf16 inputs accumulate in f32."""
-    msgs, valid = hop_gather_msgs(h_src, src_l, fanout, aligned_offset)
-    acc = torch.float32 if msgs.dtype == torch.bfloat16 else msgs.dtype
+def hop_neighbor_sum_plain(h_src: torch.Tensor, src_l: torch.Tensor,
+                           fanout: int, offset: torch.Tensor, num_dst: int,
+                           aligned_offset: Optional[int] = None,
+                           ids: Optional[torch.Tensor] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K15's plain version: (sum [num_dst, d], count [num_dst]) of valid
+    neighbour rows per destination, f32."""
+    msgs, valid = hop_gather_msgs(h_src, src_l, fanout, aligned_offset, ids)
     masked = torch.where(valid[..., None], msgs, torch.zeros_like(msgs))
-    msum = masked.sum(dim=0, dtype=acc)
-    cnt = valid.sum(dim=0).to(acc)
+    msum = masked.sum(dim=0, dtype=torch.float32)
+    cnt = valid.sum(dim=0).to(torch.float32)
     return place_rows(msum, offset, num_dst), place_rows(cnt, offset,
                                                          num_dst)
 
 
+def hop_neighbor_mean_plain(h_src: torch.Tensor, src_l: torch.Tensor,
+                            fanout: int, offset: torch.Tensor, num_dst: int,
+                            aligned_offset: Optional[int] = None,
+                            ids: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    s, c = hop_neighbor_sum_plain(h_src, src_l, fanout, offset, num_dst,
+                                  aligned_offset, ids)
+    return s / c.clamp(min=1)[:, None]
+
+
+def _on_cpu(*tensors) -> bool:
+    return all(t.device.type == "cpu" for t in tensors if t is not None)
+
+
+def hop_neighbor_sum(h_src: torch.Tensor, src_l: torch.Tensor, fanout: int,
+                     offset: torch.Tensor, num_dst: int,
+                     aligned_offset: Optional[int] = None,
+                     ids: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum [num_dst, d], count [num_dst]) f32 of the valid neighbour rows
+    of each destination; bf16 inputs accumulate in f32. With ``ids``,
+    h_src is the feature table and lane l's row is h_src[ids[
+    aligned_offset + l]]. CPU tensors take the plain version, CUDA tensors
+    K15; anything else raises."""
+    if _on_cpu(h_src, src_l, offset, ids):
+        kernels.hop_mean_checks(h_src, src_l, fanout, offset, num_dst,
+                                aligned_offset, ids)
+        return hop_neighbor_sum_plain(h_src, src_l, fanout, offset, num_dst,
+                                      aligned_offset, ids)
+    return kernels.hop_mean(h_src, src_l, fanout, offset, num_dst,
+                            aligned_offset, ids, mean=False)
+
+
 def hop_neighbor_mean(h_src: torch.Tensor, src_l: torch.Tensor, fanout: int,
                       offset: torch.Tensor, num_dst: int,
-                      aligned_offset: Optional[int] = None) -> torch.Tensor:
-    s, c = hop_neighbor_sum(h_src, src_l, fanout, offset, num_dst,
-                            aligned_offset)
-    return s / c.clamp(min=1)[:, None]
+                      aligned_offset: Optional[int] = None,
+                      ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The mean of ``hop_neighbor_sum``: sum / max(count, 1)."""
+    if _on_cpu(h_src, src_l, offset, ids):
+        kernels.hop_mean_checks(h_src, src_l, fanout, offset, num_dst,
+                                aligned_offset, ids)
+        return hop_neighbor_mean_plain(h_src, src_l, fanout, offset,
+                                       num_dst, aligned_offset, ids)
+    return kernels.hop_mean(h_src, src_l, fanout, offset, num_dst,
+                            aligned_offset, ids, mean=True)[0]
 
 
 def hop_softmax_attention_plain(z: torch.Tensor, scores: torch.Tensor,

@@ -1,4 +1,5 @@
-"""Hand-written CUDA kernels: build, bind, and the K1/K2/K6/K7 wrappers.
+"""Hand-written CUDA kernels: build, bind, and the K1/K2/K6/K7/K15
+wrappers.
 
 Build (route (b) of the port's kernel rule): at first use, nvcc compiles
 each ``legion_tpu_torch/csrc/*.cu`` in parallel (one nvcc per source) and
@@ -18,7 +19,12 @@ K6 ``gat_attend`` replaces the XLA attention of ``legion_tpu/models/gat.py::
 gat_layer_aligned_streaming`` and K7 ``hop_attention`` the XLA
 ``legion_tpu/ops/hop_agg.py::hop_softmax_attention``, each with a backward
 kernel (its launches counted under ``<name>_bwd``); K7's plain version
-lives with its caller in ``ops/hop_agg.py``.
+lives with its caller in ``ops/hop_agg.py``. K15 ``hop_mean`` replaces
+``legion_tpu/ops/hop_agg.py::hop_neighbor_sum`` / ``hop_neighbor_mean``
+(and, on the aligned last hop over the device feature table, the fetch of
+its rows); its plain versions live in ``ops/hop_agg.py``. Its backward is
+K2's lane form on a gathered hop (counted under ``segment_sum``) and its
+own kernel on an aligned one (``hop_mean_bwd``).
 K3 ``windowed_draw``, K5 ``csr_draw`` and K10 ``step_keys`` (a step's
 key words from the device counters, for K3 and K5 to read) live with
 their callers in ``sampling/access.py``, K4 ``cached_gather`` in ``cache/unified_cache.py``,
@@ -74,7 +80,8 @@ LAUNCHES: Dict[str, int] = {"gather_rows": 0, "segment_sum": 0,
                             "dedup_sort": 0, "dedup_map": 0, "step_keys": 0,
                             "hash_lookup": 0, "bucket_by_owner": 0,
                             "clique_gather": 0, "clique_draw": 0,
-                            "clique_draw_unsort": 0}
+                            "clique_draw_unsort": 0, "hop_mean": 0,
+                            "hop_mean_bwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -155,6 +162,12 @@ def lib() -> ctypes.CDLL:
     so.lt_gather_rows.argtypes = [p, p, p, i64, i64, i64, p]
     so.lt_segment_sum_f32.argtypes = [p, p, p, i64, i64, i64, i64, p]
     so.lt_segment_sum_bf16.argtypes = [p, p, p, i64, i64, i64, i64, p]
+    so.lt_segment_sum_lanes.argtypes = [p, p, p, i64, i64, i64, i64, p, i64,
+                                        i64, p, p]
+    so.lt_hop_mean.argtypes = [p, i64, i64, i32, p, p, i64, p, i64, i32, i64,
+                               i32, p, p, p]
+    so.lt_hop_mean_bwd.argtypes = [p, p, p, p, i64, i64, i64, i64, i64, i32,
+                                   p, i32, p]
     for fn in (so.lt_windowed_draw_i32, so.lt_windowed_draw_i64):
         fn.argtypes = [p, p, p, p, i64, i32, i32, i64, p, p]
     so.lt_cached_gather.argtypes = [p, p, i64, p, i64, i64, i32, p, p, i64,
@@ -196,7 +209,8 @@ def lib() -> ctypes.CDLL:
     so.lt_noop.argtypes = [p]
     so.lt_grid_sync_probe.argtypes = [i32, i32, p]
     for fn in (so.lt_noop, so.lt_gather_rows, so.lt_segment_sum_f32,
-               so.lt_segment_sum_bf16, so.lt_windowed_draw_i32,
+               so.lt_segment_sum_bf16, so.lt_segment_sum_lanes,
+               so.lt_hop_mean, so.lt_hop_mean_bwd, so.lt_windowed_draw_i32,
                so.lt_windowed_draw_i64, so.lt_cached_gather,
                so.lt_csr_draw_i32, so.lt_csr_draw_i64, so.lt_host_register,
                so.lt_host_unregister, so.lt_host_read_probe,
@@ -346,6 +360,52 @@ def segment_sum(data: torch.Tensor, seg: torch.Tensor,
         else lib().lt_segment_sum_bf16
     rc = fn(data.data_ptr(), seg.data_ptr(), out.data_ptr(), E, F, ld,
             num_segments, stream_handle())
+    check("segment_sum", rc)
+    return out
+
+
+def segment_sum_lanes_plain(dout: torch.Tensor, seg: torch.Tensor,
+                            num_segments: int, hop_offset: torch.Tensor,
+                            F: int, count: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """K2's lane form: ``segment_sum_plain`` of the rows dout[offset + e %
+    F] (each divided by max(count[offset + e % F], 1) when count is
+    given) over seg, offset clamped to [0, num_dst - F]."""
+    E = seg.shape[0]
+    off = hop_offset.reshape(()).long().clamp(0, dout.shape[0] - F)
+    dst = off + torch.arange(E, device=dout.device) % F
+    rows = dout.float()[dst]
+    if count is not None:
+        rows = rows / count[dst].clamp(min=1)[:, None]
+    return segment_sum_plain(rows, seg, num_segments)
+
+
+def segment_sum_lanes(dout: torch.Tensor, seg: torch.Tensor,
+                      num_segments: int, hop_offset: torch.Tensor, F: int,
+                      count: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K2's lane form on CUDA tensors, K15's backward on a gathered hop:
+    dout [num_dst, d] f32 (the gradient of K15's output), seg [fanout *
+    F] int32 (the hop's src_l) -> [num_segments, d] f32, lane e adding
+    dout[offset + e % F] (divided by max(count[...], 1), the mean's
+    count, when given) into its segment. Counted under ``segment_sum``."""
+    _require(dout.is_cuda and dout.dtype == torch.float32 and dout.dim() == 2
+             and seg.device == dout.device and seg.dtype == torch.int32
+             and hop_offset.device == dout.device
+             and hop_offset.dtype == torch.int32
+             and 0 < F <= dout.shape[0]
+             and (count is None or (count.device == dout.device
+                                    and count.dtype == torch.float32
+                                    and count.shape == dout.shape[:1])),
+             f"segment_sum_lanes: dout {dout.dtype} {tuple(dout.shape)} on "
+             f"{dout.device}, seg {seg.dtype} on {seg.device}, F {F}")
+    dout, seg = dout.contiguous(), seg.contiguous()
+    E, d = seg.shape[0], dout.shape[1]
+    out = torch.zeros((num_segments, d), dtype=torch.float32,
+                      device=dout.device)
+    rc = lib().lt_segment_sum_lanes(
+        dout.data_ptr(), seg.data_ptr(), out.data_ptr(), E, d, d,
+        num_segments, hop_offset.data_ptr(), F, dout.shape[0],
+        None if count is None else count.data_ptr(), stream_handle())
     check("segment_sum", rc)
     return out
 
@@ -639,3 +699,119 @@ def hop_attention(z2: torch.Tensor, scores: torch.Tensor,
         fanout, num_dst, heads,
         -1 if aligned_offset is None else int(aligned_offset), mask,
         float(scale))
+
+
+# ---------------------------------------------------------------------------
+# K15 hop_mean (the hop aggregation; backward: K2's lane form, or its own
+# kernel on an aligned hop)
+# ---------------------------------------------------------------------------
+
+def hop_mean_checks(rows: torch.Tensor, src_l: torch.Tensor, fanout: int,
+                    hop_offset: torch.Tensor, num_dst: int,
+                    aligned_offset: Optional[int], ids: Optional[torch.Tensor]
+                    ) -> None:
+    """Raise ValueError for what K15 and its plain versions do not take:
+    rows [N, d] bf16 or f32; src_l [fanout * F] int32 with F <= num_dst;
+    hop_offset an int32 scalar on src_l's device; with ``ids`` (form (c)),
+    ids [>= aligned_offset + E] int32 and an aligned_offset; the aligned
+    lanes inside rows (form (b)) or ids (form (c))."""
+    _require(rows.dim() == 2 and rows.dtype in (torch.bfloat16,
+                                                 torch.float32),
+             f"hop_mean: rows {rows.dtype} {tuple(rows.shape)}")
+    _require(fanout > 0 and src_l.dim() == 1 and src_l.dtype == torch.int32
+             and src_l.shape[0] % fanout == 0
+             and src_l.shape[0] // fanout <= num_dst,
+             f"hop_mean: src_l {src_l.dtype} {tuple(src_l.shape)}, fanout "
+             f"{fanout}, num_dst {num_dst}")
+    _require(hop_offset.numel() == 1 and hop_offset.dtype == torch.int32
+             and hop_offset.device == src_l.device,
+             f"hop_mean: hop_offset {hop_offset.dtype} "
+             f"{tuple(hop_offset.shape)} on {hop_offset.device}")
+    E = src_l.shape[0]
+    if ids is not None:
+        _require(aligned_offset is not None and ids.dim() == 1
+                 and ids.dtype == torch.int32
+                 and aligned_offset + E <= ids.shape[0],
+                 f"hop_mean: ids {ids.dtype} {tuple(ids.shape)} with the "
+                 f"aligned offset {aligned_offset} and {E} lanes")
+        _require(not rows.requires_grad,
+                 "hop_mean: rows read through ids (the feature table) take "
+                 "no gradient")
+    elif aligned_offset is not None:
+        _require(aligned_offset + E <= rows.shape[0],
+                 "hop_mean: the aligned lanes run past rows")
+
+
+class HopMean(torch.autograd.Function):
+    """K15, out and count; the gradient of rows (never of count): K2's
+    lane form on a gathered hop (summed in f32, cast once), the
+    ``hop_mean_bwd`` kernel on an aligned one."""
+
+    @staticmethod
+    def forward(ctx, rows, src_l, ids, hop_offset, fanout, num_dst, aligned,
+                mean):
+        E = src_l.shape[0]
+        F = E // fanout
+        d = rows.shape[1]
+        out = torch.empty((num_dst, d), dtype=torch.float32,
+                          device=rows.device)
+        count = torch.empty((num_dst,), dtype=torch.float32,
+                            device=rows.device)
+        rc = lib().lt_hop_mean(
+            rows.data_ptr(), rows.shape[0], d, int(rows.dtype ==
+                                                   torch.bfloat16),
+            src_l.data_ptr(), None if ids is None else ids.data_ptr(),
+            aligned, hop_offset.data_ptr(), F, fanout, num_dst, int(mean),
+            out.data_ptr(), count.data_ptr(), stream_handle())
+        check("hop_mean", rc)
+        ctx.mark_non_differentiable(count)
+        ctx.save_for_backward(src_l, hop_offset, count)
+        ctx.cfg = (rows.shape, rows.dtype, fanout, num_dst, aligned, mean)
+        return out, count
+
+    @staticmethod
+    def backward(ctx, dout, _dcount):
+        src_l, hop_offset, count = ctx.saved_tensors
+        shape, dtype, fanout, num_dst, aligned, mean = ctx.cfg
+        E, d = src_l.shape[0], shape[1]
+        F = E // fanout
+        dout = dout.float().contiguous()
+        if aligned >= 0:
+            drows = torch.zeros(shape, dtype=dtype, device=dout.device)
+            rc = lib().lt_hop_mean_bwd(
+                dout.data_ptr(), count.data_ptr(), src_l.data_ptr(),
+                hop_offset.data_ptr(), F, E, d, aligned, num_dst, int(mean),
+                drows.data_ptr(), int(dtype == torch.bfloat16),
+                stream_handle())
+            check("hop_mean_bwd", rc)
+            return (drows,) + (None,) * 7
+        drows = segment_sum_lanes(dout, src_l, shape[0], hop_offset, F,
+                                  count if mean else None)
+        return (drows.to(dtype),) + (None,) * 7
+
+
+def hop_mean(rows: torch.Tensor, src_l: torch.Tensor, fanout: int,
+             hop_offset: torch.Tensor, num_dst: int,
+             aligned_offset: Optional[int] = None,
+             ids: Optional[torch.Tensor] = None, mean: bool = True
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K15 on CUDA tensors (the CPU path is ``ops/hop_agg.py::
+    hop_neighbor_sum_plain``): (out [num_dst, d] f32, count [num_dst]
+    f32), out the sum (or with ``mean`` the mean) of each frontier slot's
+    valid rows at [offset, offset + F), zero elsewhere. A lane's row is
+    rows[src_l[lane]] (form (a)), rows[aligned_offset + lane] (b), or
+    rows[ids[aligned_offset + lane]] (c: rows is the feature table)."""
+    hop_mean_checks(rows, src_l, fanout, hop_offset, num_dst,
+                    aligned_offset, ids)
+    on = [rows, src_l, hop_offset] + ([] if ids is None else [ids])
+    _require(all(t.is_cuda and t.device == rows.device for t in on),
+             "hop_mean: inputs on " + ", ".join(str(t.device) for t in on))
+    _require(rows.shape[0] > 0, "hop_mean: no rows")
+    E = src_l.shape[0]
+    if ids is not None:
+        # the kernel reads the hop's lanes of ids from their start
+        ids = ids[aligned_offset:aligned_offset + E].contiguous()
+    aligned = -1 if aligned_offset is None or ids is not None \
+        else int(aligned_offset)
+    return HopMean.apply(rows.contiguous(), src_l.contiguous(), ids,
+                         hop_offset, fanout, num_dst, aligned, bool(mean))

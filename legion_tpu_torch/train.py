@@ -20,6 +20,13 @@ the host's counter) around a device part (``_step_body``: K10, the
 sampling, the fetch, the forward of every member, the backward, Adam
 and the counters), the unit a CUDA graph captures.
 
+With one member, features on the card (``DeviceFeatureSource``) and a
+model that reads ``TableRows`` (``reads_table_rows``), the fetch takes
+only the ids before the lane-aligned last hop (``_table_head``,
+``DeviceFeatureSource.fetch_head``): layer 0 reads that hop's rows from
+the feature table inside K15, as JAX's XLA sums them where it gathers
+them. The feature-hit counter counts every id.
+
 ``TrainConfig.fused_steps`` = K: one ``train_step`` call takes K steps.
 On a card the first call runs an eager step, captures one step into a
 CUDA graph and replays it K-1 times; later calls replay it K times (the
@@ -806,10 +813,30 @@ class Trainer:
                       ) -> Tuple[SampleBatch, torch.Tensor, torch.Tensor]:
         batch = sampler.sample(self.graph_access, seeds, keys,
                                pos_map=state["pos_map"])
-        # fetch only the model-visible id prefix
-        x, feat_hits = self.feature_source.fetch(
-            batch.node_ids[:sampler.max_ids])
+        # fetch only the model-visible id prefix, or of it the rows before
+        # the aligned last hop, whose rows layer 0 reads from the table
+        ids = batch.node_ids[:sampler.max_ids]
+        head = self._table_head(sampler, state["model"])
+        if head is None:
+            x, feat_hits = self.feature_source.fetch(ids)
+        else:
+            x, feat_hits = self.feature_source.fetch_head(ids, head)
         return batch, x, feat_hits
+
+    def _table_head(self, sampler: NeighborSampler,
+                    model: torch.nn.Module) -> Optional[int]:
+        """How many ids a batch of ``sampler`` fetches when its aligned
+        last hop's rows stay in the device feature table (K15's form (c)
+        reads them there at layer 0): the hop's aligned offset, for one
+        member here with a ``DeviceFeatureSource`` and a model that reads
+        ``TableRows`` (``reads_table_rows``); None (the whole fetch)
+        otherwise."""
+        if self.n_dev != 1 or not isinstance(self.feature_source,
+                                             DeviceFeatureSource) \
+                or not getattr(model, "reads_table_rows", False):
+            return None
+        cfg = sampler.config
+        return cfg.aligned_hop_offset(cfg.num_hops - 1)
 
     def _train_on(self, state: Dict, batch: SampleBatch, x: torch.Tensor,
                   seeds: torch.Tensor, y: torch.Tensor, key: int
@@ -1181,7 +1208,7 @@ class Trainer:
         batches, x, _, seeds, y = self._batch(state, sampler, bank, ybank,
                                               n, ctr, _EVAL_TAG)
         if self.n_dev == 1:
-            batches, x, seeds, y = (batches,), x[None], seeds[None], y[None]
+            batches, x, seeds, y = (batches,), (x,), seeds[None], y[None]
         model = state["model"]
         model.eval()
         for d, batch in enumerate(batches):
