@@ -26,10 +26,16 @@ CUDA card, nvcc (``$CUDA_HOME`` or ``/usr/local/cuda``) and no network.
      aligned last hop) and at the whole fetch; K15 (the hop aggregation)
      in its three forms: (c) at layer 0 reading the aligned last hop's
      rows from the feature table, (a) at layer 1 gathering its rows,
-     forward and forward + backward (K2's lane form, also alone), each
-     also in the host's time per call (``host_us``), and at
-     the edges of its shapes (``k15_edges``: forms, widths, dtypes,
-     pads, fanouts 1 and 33, the last offset, misaligned rows);
+     forward and forward + backward, each also in the host's time per
+     call (``host_us``), with where a call's host time goes
+     (``k15_host_parts``), and at the edges of its shapes (``k15_edges``:
+     forms, widths, dtypes, pads, fanouts 1 and 33, the last offset,
+     misaligned rows); its backward on a gathered hop (``hop_mean_grad``)
+     alone, with its grouping of the lanes by row exactly and two runs
+     the same bits, at layer 1 and at the edges of its shapes
+     (``k15_grad_edges``: a hub over many chunks, long and short runs,
+     pads, offsets wrapped and clamped, odd widths, runs wider than its
+     bitmap window);
   3. drives the main path through the public API at the bench
      configuration (``bench.py`` defaults: 2.4M vertices, 120M edges,
      GraphSAGE [25,10], batch 8000, hidden 256, bf16 features, 64-wide
@@ -62,12 +68,13 @@ CUDA card, nvcc (``$CUDA_HOME`` or ``/usr/local/cuda``) and no network.
      dtypes);
      GCN (exact last-hop dedup), after holding K7 at the exact-dedup GAT
      layer-0 shape of one of its batches, K2 at its out-degree shape
-     (one column), K15 at both of its gathered hops (the sum; hop 0
-     with its backward), and K8 and K9 at its hop 1 (965,760 lanes);
+     (one column, both hops), K15 at both of its gathered hops (the sum;
+     hop 0 with its backward, also alone), and K8 and K9 at its hop 1
+     (965,760 lanes);
      link-prediction SAGE (batch
      7998, eval batch 510), after holding K15 at its layer 1 (256-wide
-     f32 rows, forward and forward + backward); each for train steps
-     and an eval pass;
+     f32 rows, forward, forward + backward, the backward alone); each for
+     train steps and an eval pass;
   4. checks the whole slice on the card against the same slice on the
      CPU (plain versions) at a small size, for GraphSAGE (sort and map
      dedup), GAT and GCN;
@@ -165,8 +172,13 @@ step calls ``torch.cummax`` (the plain sort dedup). ``--profile PATHS --fused
 ``train_step``), an A/B of single steps against CUDA-graph replays in one
 call, and fails if a fused run's profile lacks a kernel of its path. ``python3 chip_smoke.py
 --kernels`` stops after phase 2 and the GCN shapes of K2, K8, K9 and K15,
-for work on K1-K3, K8, K9 and K15. ``python3 chip_smoke.py --clique`` builds, makes
-the host dataset and runs phase 9 alone, for work on K11-K14;
+for work on K1-K3, K8, K9 and K15. ``python3 chip_smoke.py --k15`` builds
+and holds K15 and its backward at the Device path's, GCN's and lp_sage's
+shapes with the host's breakdown (``phase_k15``); it also runs against a
+package from before ``hop_mean_grad`` (whose gathered backward is K2's
+lane form), for times in turns with it. ``python3 chip_smoke.py
+--clique`` builds, makes the host dataset and runs phase 9 alone, for
+work on K11-K14;
 ``--clique-kernels`` stops phase 9 after K11-K14 at clique-HT's shapes,
 their edges and the replay check (``clique_replay``). ``python3
 chip_smoke.py --link`` builds, holds K4 and K11-K14 at their edges, makes
@@ -226,27 +238,33 @@ KERNELS = {
                         replaces="legion_tpu/cache/collective.py:337"),
     "hop_mean": dict(source="legion_tpu_torch/csrc/hop_agg.cu",
                      replaces="legion_tpu/ops/hop_agg.py:59"),
+    # the gather's transpose in hop_gather_msgs, under jax.grad; its device
+    # functions are named hop_grad_*
+    "hop_mean_grad": dict(source="legion_tpu_torch/csrc/hop_agg.cu",
+                          replaces="legion_tpu/ops/hop_agg.py:43",
+                          symbol="hop_grad_"),
 }
 # the kernels each path must launch, and the path whose launches the
 # kernel line reports
 SORT_DEDUP = ("dedup_keys", "dedup_sort")
-CLIQUE_HT = ("gather_rows", "segment_sum", "csr_draw", "step_keys",
-             "bucket_by_owner", "clique_gather", "clique_draw",
-             "clique_draw_unsort", "hop_mean") + SORT_DEDUP
+CLIQUE_HT = ("gather_rows", "csr_draw", "step_keys", "bucket_by_owner",
+             "clique_gather", "clique_draw", "clique_draw_unsort",
+             "hop_mean", "hop_mean_grad") + SORT_DEDUP
 # every path's step derives its keys by K10; every path but GAT's
-# aggregates by K15 (its gathered hop's backward is K2's lane form), and
-# K1 fetches on the paths with features on the card
+# aggregates by K15 (its gathered hop's backward is hop_mean_grad), and
+# K1 fetches on the paths with features on the card; K2 runs GAT's
+# GatherRows backward and GCN's out-degree
 PATH_KERNELS = {
-    "device": ("gather_rows", "segment_sum", "windowed_draw", "step_keys",
-               "hop_mean") + SORT_DEDUP,
-    "device-map": ("gather_rows", "segment_sum", "windowed_draw",
-                   "dedup_map", "step_keys", "hop_mean"),
-    "H": ("segment_sum", "windowed_draw", "cached_gather", "step_keys",
-          "hop_mean") + SORT_DEDUP,
-    "HT": ("segment_sum", "cached_gather", "csr_draw", "step_keys",
-           "hop_mean") + SORT_DEDUP,
-    "cache-off": ("gather_rows", "segment_sum", "windowed_draw", "step_keys",
-                  "hop_mean") + SORT_DEDUP,
+    "device": ("gather_rows", "windowed_draw", "step_keys", "hop_mean",
+               "hop_mean_grad") + SORT_DEDUP,
+    "device-map": ("gather_rows", "windowed_draw", "dedup_map", "step_keys",
+                   "hop_mean", "hop_mean_grad"),
+    "H": ("windowed_draw", "cached_gather", "step_keys", "hop_mean",
+          "hop_mean_grad") + SORT_DEDUP,
+    "HT": ("cached_gather", "csr_draw", "step_keys", "hop_mean",
+           "hop_mean_grad") + SORT_DEDUP,
+    "cache-off": ("gather_rows", "windowed_draw", "step_keys", "hop_mean",
+                  "hop_mean_grad") + SORT_DEDUP,
     "gat": ("gather_rows", "segment_sum", "windowed_draw", "gat_attend",
             "gat_attend_bwd", "hop_attention", "hop_attention_bwd",
             "step_keys") + SORT_DEDUP,
@@ -256,19 +274,19 @@ PATH_KERNELS = {
               "gat_attend", "gat_attend_bwd", "hop_attention",
               "hop_attention_bwd", "step_keys") + SORT_DEDUP,
     "gcn": ("gather_rows", "segment_sum", "windowed_draw", "step_keys",
-            "hop_mean") + SORT_DEDUP,
-    "lp_sage": ("gather_rows", "segment_sum", "windowed_draw", "step_keys",
-                "hop_mean") + SORT_DEDUP,
+            "hop_mean", "hop_mean_grad") + SORT_DEDUP,
+    "lp_sage": ("gather_rows", "windowed_draw", "step_keys", "hop_mean",
+                "hop_mean_grad") + SORT_DEDUP,
     # the launcher on a dataset on disk, features on the host (phase 8)
-    "cli": ("segment_sum", "windowed_draw", "cached_gather", "step_keys",
-            "hop_mean") + SORT_DEDUP,
+    "cli": ("windowed_draw", "cached_gather", "step_keys", "hop_mean",
+            "hop_mean_grad") + SORT_DEDUP,
     # 4 members of a clique on the card (phase 9): features and topology
     # on the host; the same with hash maps; the topology on the card
     "clique-HT": CLIQUE_HT,
     "clique-HT-hash": CLIQUE_HT + ("hash_lookup",),
-    "clique-H": ("gather_rows", "segment_sum", "windowed_draw", "step_keys",
-                 "bucket_by_owner", "clique_gather", "hop_mean")
-    + SORT_DEDUP,
+    "clique-H": ("gather_rows", "windowed_draw", "step_keys",
+                 "bucket_by_owner", "clique_gather", "hop_mean",
+                 "hop_mean_grad") + SORT_DEDUP,
 }
 # the paths whose CUDA-graph replays phase_fused holds against eager steps
 FUSED_PATHS = ("device", "device-map", "gat", "HT")
@@ -283,14 +301,15 @@ AB_PROFILED = 3      # then steps under torch.profiler
 # blocks an SM, and one block on half of the SMs
 K4_CAPS = (1056, 528, 264, 132, 66)
 K4_PAIRS = 5      # then the two ends in turn, this many times more
-REPORTED_PATH = {"gather_rows": "device", "segment_sum": "device",
+REPORTED_PATH = {"gather_rows": "device", "segment_sum": "gcn",
                  "windowed_draw": "device", "cached_gather": "H",
                  "csr_draw": "HT", "gat_attend": "gat",
                  "hop_attention": "gat", "dedup_keys": "device",
                  "dedup_sort": "device", "dedup_map": "device-map",
                  "step_keys": "device", "hash_lookup": "clique-HT-hash",
                  "bucket_by_owner": "clique-HT", "clique_gather": "clique-HT",
-                 "clique_draw": "clique-HT", "hop_mean": "device"}
+                 "clique_draw": "clique-HT", "hop_mean": "device",
+                 "hop_mean_grad": "device"}
 # bench.py --model gat --features host (GAT-H)
 GAT_H = dict(cache_bytes=CACHE_BYTES, feature_residency="host", model="gat")
 # bench.py --model X: lp_sage batches divide into thirds, GCN dedups the
@@ -714,7 +733,6 @@ def phase_kernels(tr, torch):
           f"rows hold {full.sort(descending=True).values[:4].tolist()} | "
           f"zero-fill of [{S1},128] f32 alone {zero_ms:.4f} ms")
     k2_compare(src0, "a layer-1 bwd's per-lane rows (the batch's own)")
-    main["segment_sum"] = [k2_lanes_compare(tr, batch, torch, results)]
     # 200 calls: each is two launches, and the launch queue must not fill
     print(f"  segment_sum    per-lane rows: host_us_per_call "
           f"{host_us(lambda: kernels.segment_sum(dmsg, src0, S1), torch, 200):.2f}")
@@ -742,15 +760,16 @@ def phase_kernels(tr, torch):
                 f"bench E 200704 -> S 8192 {str(dt)[6:]}")
     k2_edges(torch, results)
     k15_edges(torch, results)
+    k15_grad_edges(torch, results)
     k3_edges(torch)
     # K8 and K9 at hop 0 of the bench batch, and at their edges
     dedup_compares(tr, torch, results, main)
     dedup_edges(torch, results)
     # per train step: the sum over the main path's launches of a kernel
     # (K3: both hops; K1: the prefix fetch; K15: layer 0 over the table and
-    # layer 1 gathered; K2: layer 1's backward, in its lane form; K8: hop
-    # 0's keys and its dedup; K9: the one call of the device-map path,
-    # register, hop 0 and the clear)
+    # layer 1 gathered; hop_mean_grad: layer 1's backward; K8: hop 0's
+    # keys and its dedup; K9: the one call of the device-map path,
+    # register, hop 0 and the clear; K2 from GCN's path, phase 3b)
     add_main(results, main)
     return results
 
@@ -1379,22 +1398,28 @@ def dedup_edges(torch, results):
 
 
 def k2_gcn_compare(tr, torch, results):
-    """K2 at GCN's out-degree shape: a column of ones over the hop-1 edge
-    list of one real batch of the GCN trainer (F = 1, a float an atomic),
-    as ``models/gcn.py::block_out_degree`` calls it. Counts are whole
-    numbers, so the sums are exact in any order."""
+    """K2 at GCN's out-degree shapes: a column of ones over each hop's
+    edge list of one real batch of the GCN trainer (F = 1, a float an
+    atomic), as ``models/gcn.py::block_out_degree`` calls it, once a layer
+    a step. Counts are whole numbers, so the sums are exact in any order.
+    Returns the ``compare`` tuples (K2's launches on GCN's path)."""
     from legion_tpu_torch.ops import kernels
     batch, _ = one_batch(tr, torch)
-    src, n_src = batch.edge_src[1], tr.sampler_t.config.cum_sizes()[2]
-    ones = torch.ones((src.shape[0], 1), device="cuda")
-    idx = torch.where(src >= 0, src, n_src).long()
-    compare("segment_sum", lambda: kernels.segment_sum(ones, src, n_src),
+    sizes = tr.sampler_t.config.cum_sizes()
+    times = []
+    for hop in (1, 0):
+        src, n_src = batch.edge_src[hop], sizes[hop + 1]
+        ones = torch.ones((src.shape[0], 1), device="cuda")
+        idx = torch.where(src >= 0, src, n_src).long()
+        times.append(compare(
+            "segment_sum", lambda: kernels.segment_sum(ones, src, n_src),
             lambda: kernels.segment_sum_plain(ones, src, n_src), exact,
-            results, torch, f"GCN out-degree E {src.shape[0]} -> S {n_src} "
-            f"f32, F 1", least=bound(nb(ones, src) + 4 * n_src,
-                                     ops=int((src >= 0).sum())),
+            results, torch, f"GCN out-degree hop {hop} E {src.shape[0]} -> "
+            f"S {n_src} f32, F 1", least=bound(nb(ones, src) + 4 * n_src,
+                                               ops=int((src >= 0).sum())),
             library=lambda: torch.zeros((n_src + 1, 1), device="cuda")
-            .index_add_(0, idx, ones), queued=True)
+            .index_add_(0, idx, ones), queued=True))
+    return times
 
 
 def k15_rows(src, ids=None, aligned=None):
@@ -1492,9 +1517,11 @@ def k15_compares(tr, batch, torch, results, main):
     from the feature table by id, the mean at the hop's offset of the
     prefix), and form (a) at layer 1 (the hop-0 lanes gathered from [S1,
     128] bf16 rows, W_neigh applied first), forward, and forward +
-    backward (K2's lane form). The count exactly; sums to f32 order
-    (``close_f32``); the bf16 gradient within a bf16 ulp (``bf16_ulp``:
-    f32 atomics, cast once)."""
+    backward (``hop_mean_grad``); the backward alone (``k15_grad_compare``)
+    and where the host's time of a call goes (``k15_host_parts``). The
+    count exactly; sums to f32 order (``close_f32``); the bf16 gradient
+    within a bf16 ulp (``bf16_ulp``: f32 sums, cast once)."""
+    from legion_tpu_torch.ops import kernels
     s = tr.sampler_t
     S = s.config.cum_sizes()
     g = torch.Generator(device="cuda")
@@ -1526,20 +1553,27 @@ def k15_compares(tr, batch, torch, results, main):
     compare("hop_mean", kb, pb, tuple_tol(close_f32, bf16_ulp), results,
             torch, note + " fwd+bwd", least=k15_least(
                 hp, src0, fo0, S[0], bwd=True), queued=True)
-    # the host's share of the times as launched: checks, the autograd
-    # Function and the ctypes call of K15, and K2's lane form behind it
-    print(f"  hop_mean       (a) L1: host_us_per_call fwd "
-          f"{host_us(kern, torch, 200):.2f} | fwd+bwd "
-          f"{host_us(kb, torch, 200):.2f}")
+    # the backward alone, on the forward's own count
+    with torch.no_grad():
+        count = kernels.hop_mean(hp, src0, fo0, off0, S[0])[1]
+    t = k15_grad_compare(f"(a) L1 bwd [{S[0]},128] f32 by {src0.shape[0]} "
+                         f"lanes -> [{S[1]},128] bf16, mean", g_out, src0,
+                         S[1], torch.bfloat16, off0, fo0, count, bf16_ulp,
+                         results, torch)
+    if t is not None:
+        main["hop_mean_grad"] = [t]
+    k15_host_parts(hp, src0, fo0, off0, S[0], g_out, count, torch)
 
 
 def k15_lp_compares(tr, torch, results):
     """K15 at lp_sage's layer 1, from one of its batches: form (a) over
     [S1, hidden] f32 rows (the mean first: the layer does not shrink
-    rows), forward, and forward + backward (K2's lane form over the f32
-    gradient of the mean). The count exactly; sums to f32 order
-    (``close_f32``); the f32 gradient to f32 atomics' order
-    (``f32_atomic_order``)."""
+    rows), forward, forward + backward, and the backward alone
+    (``hop_mean_grad`` over the f32 gradient of the mean). The count
+    exactly; sums to f32 order (``close_f32``); the f32 gradient to f32
+    order (``f32_atomic_order``: the plain version's ``index_add_`` adds by
+    atomics)."""
+    from legion_tpu_torch.ops import kernels
     batch, _ = one_batch(tr, torch)
     scfg = tr.sampler_t.config
     S = scfg.cum_sizes()
@@ -1559,38 +1593,199 @@ def k15_lp_compares(tr, torch, results):
     compare("hop_mean", kb, pb, tuple_tol(close_f32, f32_atomic_order),
             results, torch, note + " fwd+bwd",
             least=k15_least(h, src0, fo0, S[0], bwd=True), queued=True)
+    with torch.no_grad():
+        count = kernels.hop_mean(h, src0, fo0, off0, S[0])[1]
+    k15_grad_compare(f"(a) lp_sage L1 bwd [{S[0]},{H}] f32 -> [{S[1]},{H}] "
+                     "f32, mean", g_out, src0, S[1], torch.float32, off0,
+                     fo0, count, f32_atomic_order, results, torch)
 
 
-def k2_lanes_compare(tr, batch, torch, results):
-    """K2's lane form at the Device path's layer-1 backward (K15's
-    backward on the gathered hop): the [S0, 128] f32 gradient of the mean,
-    read by lane, each row divided by its slot's count, summed into [S1,
-    128] f32 by the batch's own src. Returns the ``compare`` tuple."""
-    from legion_tpu_torch.ops import kernels
-    g = torch.Generator(device="cuda")
-    g.manual_seed(16)
-    s = tr.sampler_t
-    S0, S1, fo = s.config.cum_sizes()[0], s.cum_caps[1], s.config.fanouts[0]
-    src, off = batch.edge_src[0], batch.hop_offsets[0]
-    F = src.shape[0] // fo
-    dout = torch.randn((S0, 128), generator=g, device="cuda")
-    count = torch.randint(0, fo + 1, (S0,), generator=g,
-                          device="cuda").float()
+def k15_grad_least(dout, src, num_rows, dtype, F, mean):
+    """``hop_mean_grad``'s bound for these inputs: src read, the hop's F
+    rows of d out (and for the mean their counts) read once, d rows
+    written once in the rows' dtype; one add a valid lane and column (and
+    a division for the mean)."""
+    import torch
+    d = dout.shape[1]
     valid = int((src >= 0).sum())
-    r = compare(
-        "segment_sum",
-        lambda: kernels.segment_sum_lanes(dout, src, S1, off, F, count),
-        lambda: kernels.segment_sum_lanes_plain(dout, src, S1, off, F,
-                                                count),
-        f32_atomic_order, results, torch,
-        f"lane form: layer-1 bwd [{S0},128] f32 by {src.shape[0]} lanes -> "
-        f"S {S1}", least=bound(nb(src) + F * (4 * 128 + 4) + 4 * S1 * 128,
-                               ops=2 * valid * 128), queued=True)
-    lanes = lambda: kernels.segment_sum_lanes(  # noqa: E731
-        dout, src, S1, off, F, count)
-    print(f"  segment_sum    lane form: host_us_per_call "
-          f"{host_us(lanes, torch, 200):.2f}")
-    return r
+    dev = (nb(src) + F * 4 * d + (4 * F if mean else 0)
+           + num_rows * d * torch.empty((), dtype=dtype).element_size())
+    return bound(dev, ops=valid * d * (2 if mean else 1))
+
+
+def k15_grad_fns(dout, src, num_rows, dtype, off, F, count):
+    """The gathered hop's backward alone and its plain version, as the
+    package runs them: ``hop_mean_grad``; in a package from before it (the
+    parent's, timed in turns with this one), K2's lane form, then the cast
+    to the rows' dtype."""
+    from legion_tpu_torch.ops import hop_agg, kernels
+    if hasattr(kernels, "hop_mean_grad"):
+        return (lambda: kernels.hop_mean_grad(dout, src, num_rows, dtype, off,
+                                              F, count),
+                lambda: hop_agg.hop_mean_grad_plain(dout, src, num_rows,
+                                                    dtype, off, F, count))
+    return (lambda: kernels.segment_sum_lanes(dout, src, num_rows, off, F,
+                                              count).to(dtype),
+            lambda: kernels.segment_sum_lanes_plain(dout, src, num_rows, off,
+                                                    F, count).to(dtype))
+
+
+def k15_grad_compare(note, dout, src, num_rows, dtype, off, fanout, count,
+                     tol, results, torch):
+    """``hop_mean_grad`` (d rows of a gathered hop from d out) against its
+    plain version, ``tol`` (f32 sums in another order), timed, queued and
+    in host us a call; its grouping of the lanes by row against
+    ``lanes_by_source_plain`` exactly; two runs the same bits. Returns the
+    ``compare`` tuple (None for a package from before the kernel, whose
+    backward is timed under ``segment_sum``)."""
+    from legion_tpu_torch.ops import hop_agg, kernels
+    F = src.shape[0] // fanout
+    kern, plain = k15_grad_fns(dout, src, num_rows, dtype, off, F, count)
+    new = hasattr(kernels, "hop_mean_grad")
+    if new:
+        got = kernels.lanes_by_source(src, num_rows)
+        ref = hop_agg.lanes_by_source_plain(src, num_rows)
+        if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+            fail(f"hop_mean_grad {note}: its grouping of the lanes differs "
+                 "from lanes_by_source_plain")
+        if not same_bits(kern(), kern(), torch):
+            fail(f"hop_mean_grad {note}: two runs differ in their bits")
+    t = compare("hop_mean_grad" if new else "segment_sum", kern, plain, tol,
+                results, torch, note, least=k15_grad_least(
+                    dout, src, num_rows, dtype, F, count is not None),
+                queued=True)
+    held = ("grouping exact, two runs the same bits" if new else
+            "K2's lane form: grouping and bits not checked")
+    print(f"  {'hop_mean_grad' if new else 'lane form':14s} {note}: {held} "
+          f"| host_us_per_call {host_us(kern, torch, 200):.2f}")
+    return t if new else None
+
+
+def k15_host_parts(rows, src, fanout, off, num_dst, g_out, count, torch):
+    """Where K15's host time goes at Device's layer 1 (form (a), bf16
+    rows that take a gradient), in host us a call (``host_us``: 1000
+    calls, 50 for forward + backward, whose nine launches a call would
+    otherwise fill the launch queue and time the card): ``hop_mean_checks``,
+    the outputs' allocations (two, as the wrapper makes them, and one split
+    into two views), the C entry point alone on buffers made once, the
+    wrapper under ``no_grad`` (a direct launch), the wrapper through the
+    autograd Function, forward + backward, the backward's wrapper alone,
+    beside an empty kernel's launch (``noop``)."""
+    from legion_tpu_torch.ops import kernels
+    lib, F, d = kernels.lib(), src.shape[0] // fanout, rows.shape[1]
+    buf = torch.empty(num_dst * (d + 1), device="cuda")
+    bf = int(rows.dtype == torch.bfloat16)
+
+    def call():
+        lib.lt_hop_mean(rows.data_ptr(), rows.shape[0], d, bf,
+                        src.data_ptr(), None, -1, off.data_ptr(), F, fanout,
+                        num_dst, 1, buf.data_ptr(),
+                        buf.data_ptr() + 4 * num_dst * d,
+                        kernels.stream_handle())
+
+    def one_buffer():
+        b = torch.empty(num_dst * (d + 1), device="cuda")
+        return b[:num_dst * d].view(num_dst, d), b[num_dst * d:]
+
+    def no_grad():
+        with torch.no_grad():
+            kernels.hop_mean(rows, src, fanout, off, num_dst)
+
+    def both():
+        out = kernels.hop_mean(rows, src, fanout, off, num_dst)[0]
+        torch.autograd.grad(out, rows, g_out)
+    bwd = k15_grad_fns(g_out, src, rows.shape[0], rows.dtype, off, F,
+                       count)[0]
+    parts = [("hop_mean_checks", lambda: kernels.hop_mean_checks(
+        rows, src, fanout, off, num_dst, None, None), 1000),
+        ("two allocations", lambda: (torch.empty(
+            (num_dst, d), device="cuda"), torch.empty(num_dst,
+                                                      device="cuda")), 1000),
+        ("one allocation, two views", one_buffer, 1000),
+        ("the C call", call, 1000), ("fwd under no_grad", no_grad, 1000),
+        ("fwd through the Function",
+         lambda: kernels.hop_mean(rows, src, fanout, off, num_dst), 1000),
+        ("fwd + bwd", both, 50), ("the bwd's wrapper", bwd, 50),
+        ("noop", kernels.noop, 1000)]
+    print("  hop_mean       (a) L1, host us a call: " + " | ".join(
+        f"{what} {host_us(fn, torch, n):.2f}" for what, fn, n in parts))
+
+
+# the backward's edge cases (``k15_grad_edges``): (rows, fanout, F,
+# num_dst, offset, pad fraction, hub fraction); every case also has two
+# lanes past the rows. A hub over many chunks; runs of 33-128 lanes
+# (sorted through a bitmap, summed in chunks); runs of 9-32 (a warp's
+# ranks); every lane a pad; F = num_dst; the offset negative (wrapped),
+# below -num_dst and past num_dst - F (clamped); one row; and runs spread
+# wider than a bitmap window (262,144 lanes)
+K15_GRAD_CASES = {"hub over chunks": (300, 25, 120, 150, 7, 0.1, 0.4),
+                  "runs of 33-128": (40, 10, 200, 230, 3, 0.1, 0.0),
+                  "runs of 9-32": (200, 5, 400, 400, 0, 0.1, 0.0),
+                  "every lane a pad": (50, 5, 37, 60, 11, 1.0, 0.0),
+                  "F = num_dst": (90, 10, 64, 64, 0, 0.2, 0.1),
+                  "offset negative, wrapped": (90, 10, 30, 70, -45, 0.2, 0.1),
+                  "offset below 0": (90, 10, 30, 70, -1000, 0.2, 0.1),
+                  "offset past the end": (90, 10, 30, 70, 1000, 0.2, 0.1),
+                  "one row": (1, 5, 37, 40, 2, 0.2, 0.0),
+                  "runs wider than a window": (10, 1, 300_000, 300_000, 0,
+                                               0.1, 0.0)}
+K15_GRAD_WIDTHS = (1, 3, 47, 128)
+
+
+def k15_grad_edges(torch, results):
+    """``hop_mean_grad`` at the edges of its shapes (``K15_GRAD_CASES``),
+    widths ``K15_GRAD_WIDTHS`` (2-byte stores of bf16 rows at odd widths,
+    a float a thread where d is not a multiple of 4; the widest case at
+    width 3 only), bf16 and f32, the mean (random counts, 0 among them)
+    and the sum: against its plain version (``bf16_ulp``,
+    ``f32_atomic_order``), its grouping against ``lanes_by_source_plain``
+    exactly, two runs the same bits."""
+    from legion_tpu_torch.ops import hop_agg, kernels
+    g = torch.Generator(device="cuda")
+    g.manual_seed(20)
+    n, worst = 0, 0.0
+    for case, (R, fo, F, num_dst, offset, pad, hub) in \
+            K15_GRAD_CASES.items():
+        E = fo * F
+        src = torch.randint(0, R, (E,), generator=g, device="cuda",
+                            dtype=torch.int32)
+        src[torch.rand((E,), generator=g, device="cuda") < hub] = R // 2
+        src[torch.rand((E,), generator=g, device="cuda") < pad] = -1
+        if pad < 1.0:
+            src[torch.randperm(E, generator=g, device="cuda")[:2]] = \
+                torch.tensor([R, R + 9], dtype=torch.int32, device="cuda")
+        off = torch.tensor(offset, dtype=torch.int32, device="cuda")
+        got = kernels.lanes_by_source(src, R)
+        ref = hop_agg.lanes_by_source_plain(src, R)
+        if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+            fail(f"hop_mean_grad edge {case}: its grouping of the lanes "
+                 "differs from lanes_by_source_plain")
+        widths = (3,) if E > 100_000 else K15_GRAD_WIDTHS
+        for d in widths:
+            dout = torch.randn((num_dst, d), generator=g, device="cuda")
+            count = torch.randint(0, fo + 1, (num_dst,), generator=g,
+                                  device="cuda").float()
+            for dt in (torch.bfloat16, torch.float32):
+                tol = bf16_ulp if dt == torch.bfloat16 else f32_atomic_order
+                for cnt in (count, None):
+                    what = (f"hop_mean_grad edge {case} d {d} {str(dt)[6:]}"
+                            f" {'mean' if cnt is not None else 'sum'}")
+                    kern, plain = k15_grad_fns(dout, src, R, dt, off, F, cnt)
+                    k = kern()
+                    err, ok = tol(k, plain())
+                    if not ok:
+                        fail(f"{what}: kernel disagrees with its plain "
+                             f"version (max abs err {err})")
+                    if not same_bits(k, kern(), torch):
+                        fail(f"{what}: two runs differ in their bits")
+                    n, worst = n + 1, max(worst, err)
+    torch.cuda.synchronize()
+    print(f"  hop_mean_grad  {n} edge cases ({' / '.join(K15_GRAD_CASES)}; "
+          f"widths {'/'.join(map(str, K15_GRAD_WIDTHS))}, bf16 and f32, "
+          f"mean and sum): grouping exact, two runs the same bits, all "
+          f"within tolerance, max_abs_err {worst:.3g}")
+    r = results.setdefault("hop_mean_grad", {"max_abs_err": 0.0})
+    r["max_abs_err"] = max(r["max_abs_err"], worst)
 
 
 def k15_gcn_compares(tr, torch, results):
@@ -1598,7 +1793,7 @@ def k15_gcn_compares(tr, torch, results):
     hop 1 at layer 0 over the fetched bf16 rows scaled as the model scales
     them (965,760 lanes into W rows), forward (features take no
     gradient); hop 0 at layer 1 over [S1, classes] f32 rows (188-byte
-    rows: 4-byte pieces), forward + backward."""
+    rows: 4-byte pieces), forward + backward, and the backward alone."""
     batch, x = one_batch(tr, torch)
     scfg = tr.sampler_t.config
     S = scfg.cum_sizes()
@@ -1622,6 +1817,33 @@ def k15_gcn_compares(tr, torch, results):
                             f"{src0.shape[0]} -> [{S[0]}] sum fwd+bwd",
             least=k15_least(h, src0, scfg.fanouts[0], S[0], bwd=True),
             queued=True)
+    k15_grad_compare(f"(a) GCN hop 0 bwd [{S[0]},{C}] f32 -> [{S[1]},{C}] "
+                     "f32, sum", g_out, src0, S[1], torch.float32, off0,
+                     scfg.fanouts[0], None, f32_atomic_order, results, torch)
+
+
+def phase_k15(torch):
+    """``--k15``: K15 and its backward alone at the Device path's shapes
+    (``k15_compares``, with the host's breakdown), then at GCN's
+    (``k15_gcn_compares``) and lp_sage's (``k15_lp_compares``), each from
+    one batch of its trainer at ``bench.py --model X`` settings."""
+    from legion_tpu_torch.data import synthesize_device_dataset
+    from legion_tpu_torch.train import Trainer
+    ds = synthesize_device_dataset("cuda")
+    results = {}
+    launch_floor(torch)
+    for model in ("graphsage", "gcn", "lp_sage"):
+        tr = Trainer(ds, bench_config(ds, model=model), device="cuda")
+        print(f" {model}: frontier sizes {tr.sampler_t.frontier_sizes} | "
+              f"edge sizes {tr.sampler_t.edge_sizes}")
+        if model == "graphsage":
+            k15_compares(tr, one_batch(tr, torch)[0], torch, results, {})
+        elif model == "gcn":
+            k15_gcn_compares(tr, torch, results)
+        else:
+            k15_lp_compares(tr, torch, results)
+        del tr
+        torch.cuda.empty_cache()
 
 
 def k15_aligned_compare(tr, torch, results):
@@ -1657,9 +1879,9 @@ def k15_edges(torch, results):
     the three forms, sum and mean, bf16 and f32, widths ``K15_WIDTHS``,
     the cases of ``K15_CASES``; forms (a) and (b) also forward + backward
     of the mean. The count exactly, sums ``close_f32``; the gradient
-    ``bf16_ulp`` / ``f32_atomic_order`` on a gathered hop (K2's lane
-    form), exactly on an aligned one. Form (c)'s ids include one past the
-    table (clamped, as K1 clamps)."""
+    ``bf16_ulp`` / ``f32_atomic_order`` on a gathered hop
+    (``hop_mean_grad``), exactly on an aligned one. Form (c)'s ids include
+    one past the table (clamped, as K1 clamps)."""
     g = torch.Generator(device="cuda")
     g.manual_seed(18)
     n, worst, V, P = 0, 0.0, 300, 9
@@ -1731,12 +1953,17 @@ def prefix_check(tr, torch, path):
     before the aligned last hop, K15 reads that hop's rows from the table)
     against the same step with the whole fetch (K1's rows of every id, K15
     over them), and against the step the port took before K15 (the whole
-    fetch, and the aggregation as the plain chain of torch ops), each one
-    step from
-    ``init_state`` on the same batch: K1's ids a step, the feature-hit
-    counter equal in all three, the loss bit for bit against the whole
-    fetch (the same rows summed in the same order) and within rel 1e-4 of
-    the plain chain's (f32 sums in another order)."""
+    fetch, and the aggregation as the plain chain of torch ops, its
+    backward ``index_add_``), each one step from ``init_state`` on the
+    same batch: K1's ids a step, the feature-hit counter equal in all
+    three; the loss bit for bit in all three (each sums a slot's draws in
+    draw order in f32); the updated parameters bit for bit against the
+    whole fetch (``hop_mean_grad`` gives the same bits from run to run)
+    and within norm-wise rel 2e-3 of the plain chain's, as ``phase_fused``
+    holds parameters (the plain gradient sums a row's lanes by f32 atomics,
+    in another order; Adam's first step moves a parameter by about lr
+    whatever its gradient's size, so a gradient within rounding of 0 that
+    lands on its other side moves it by 2 lr)."""
     from legion_tpu_torch.models import graphsage
     from legion_tpu_torch.ops import hop_agg, kernels
     s = tr.sampler_t
@@ -1759,10 +1986,13 @@ def prefix_check(tr, torch, path):
             torch.cuda.synchronize()
         finally:
             kernels.gather_rows = k1
+        params.append([p.detach().clone()
+                       for p in state["model"].parameters()])
         return float(loss), int(tr.last_feat_hits), int(tr.last_slots), \
             list(seen)
 
     mean = graphsage.hop_neighbor_mean
+    params = []
     runs = {"prefix": step()}
     tr._table_head = lambda sampler, model: None
     try:
@@ -1772,16 +2002,23 @@ def prefix_check(tr, torch, path):
     finally:
         del tr._table_head
         graphsage.hop_neighbor_mean = mean
+    p_whole = all(same_bits(a, b, torch)
+                  for a, b in zip(params[0], params[1]))
+    p_rel = rel_norm(params[0], params[2])
     for k, (loss, hits, slots, k1_ids) in runs.items():
         print(f"  {path} one step, {k} fetch: loss {loss!r} | feature hits "
               f"{hits}/{slots} | K1 ids a step {k1_ids}")
+    print(f"  {path} updated parameters: the prefix fetch's against the "
+          f"whole fetch's bit for bit: {p_whole} | against the plain "
+          f"chain's norm-wise rel {p_rel:.3g} (tol 2e-3)")
     (lp, hp, _, ip), (lw, hw, _, iw), (lc, hc, _, _) = runs.values()
     if ip != [head] or iw != [s.max_ids]:
         fail(f"{path}: K1 fetched {ip} ids on the prefix fetch and {iw} on "
              f"the whole, not [{head}] and [{s.max_ids}]")
-    if not hp == hw == hc or lp != lw or abs(lp - lc) > 1e-4 * abs(lc):
+    if not (hp == hw == hc and lp == lw == lc and p_whole and p_rel <= 2e-3):
         fail(f"{path}: the prefix fetch's step disagrees with the whole "
-             f"fetch's or the plain chain's: {runs}")
+             f"fetch's or the plain chain's: {runs}, parameters bit for bit "
+             f"{p_whole}, rel {p_rel}")
 
 
 def phase_slice(tr, torch, path):
@@ -3757,8 +3994,12 @@ def phase_cli(d, tmp, torch, h_step_ms):
 
 def kernel_symbol(name, key):
     """Whether the profiler's kernel name ``key`` is a device function of
-    the launch count ``name`` (``<kernel>_bwd`` names the backward)."""
+    the launch count ``name`` (``<kernel>_bwd`` names the backward; a
+    ``symbol`` in ``KERNELS`` names the device functions of its own)."""
     base, bwd = (name[:-4], True) if name.endswith("_bwd") else (name, False)
+    sym = KERNELS.get(name, {}).get("symbol")
+    if sym is not None:
+        return sym in key
     return base in key and ("bwd" in key) == bwd
 
 
@@ -5684,6 +5925,9 @@ def main():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print("  " + line.strip())
 
+    if sys.argv[1:2] == ["--k15"]:
+        phase_k15(torch)
+        return
     if sys.argv[1:2] == ["--clique-kernels"]:
         hds = host_dataset()
         MEASURED["link_bps"] = bulk_link_bps(hds, torch)
@@ -5797,7 +6041,7 @@ def main():
             k7_edges(torch, results)
         elif model == "gcn":
             k7_exact_compares(tr, torch, results)
-            k2_gcn_compare(tr, torch, results)
+            main_ms["segment_sum"] = k2_gcn_compare(tr, torch, results)
             k15_gcn_compares(tr, torch, results)
             dedup_compares(tr, torch, results, main_ms, gcn=True)
         elif model == "lp_sage":

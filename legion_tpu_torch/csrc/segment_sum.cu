@@ -36,13 +36,6 @@
 //  - any width or alignment that four-column chunks do not fit takes the
 //    same kernel with one column a thread and a float an atomic.
 //
-// The lane form (LANE = true) is K15 hop_mean's backward on a gathered
-// hop: the row of lane e is not data[e] but dout[offset + e % F], the
-// gradient of the destination slot the lane was summed into, divided by
-// max(count[offset + e % F], 1) for the mean. It reads the destinations'
-// gradient rows in place, so no [E, d] tensor of per-lane rows is built;
-// a lane's row and divisor are found once, when the tile is set up.
-//
 // Known divergence: JAX's transpose of a bf16 gather scatter-adds in bf16.
 // This kernel sums bf16 data in f32 and the caller casts once at the end,
 // which is the more precise of the two.
@@ -57,13 +50,6 @@ constexpr int kSlots = 2 * kTile;    // slots of its segment table (2^9)
 // COLS columns of a row as floats, from one load.
 template <typename T, int COLS>
 struct Chunk;
-
-// the lane form's division of a loaded chunk by its lane's divisor
-template <typename C>
-__device__ __forceinline__ void divide(C& v, float q) {
-#pragma unroll
-  for (int n = 0; n < (int)(sizeof(v.x) / sizeof(float)); ++n) v.x[n] /= q;
-}
 
 template <>
 struct Chunk<float, 1> {
@@ -101,27 +87,15 @@ struct Chunk<__nv_bfloat16, 4> {
 
 // cpl chunks a lane, 1 << tshift threads a lane (the least power of two
 // >= cpl, at most the block).
-// LANE: the lane form (data is dout [num_dst, F] with rows ld apart; the
-// row of lane e is row lane_off + e % Fd, divided by its divisor).
-template <typename T, int COLS, bool LANE>
+template <typename T, int COLS>
 __global__ void __launch_bounds__(kThreads) segment_sum_kernel(
     const T* __restrict__ data, const int32_t* __restrict__ seg,
     float* __restrict__ out, int64_t E, int F, int64_t ld, int64_t S,
-    int cpl, int tshift, const int32_t* __restrict__ hop_offset, int64_t Fd,
-    int64_t num_dst, const float* __restrict__ count) {
+    int cpl, int tshift) {
   __shared__ int32_t slot_sh[kTile];  // a lane's slot in the table, or -1
   __shared__ int32_t next_sh[kTile];  // the lane before it in its slot's list
   __shared__ int32_t key[kSlots];     // a slot's segment, -1 while it is free
   __shared__ int32_t head[kSlots];    // the last lane put on its list
-  // the lane form: a lane's row of data, and its divisor
-  __shared__ int32_t row_sh[LANE ? kTile : 1];
-  __shared__ float div_sh[LANE ? kTile : 1];
-  int64_t lane_off = 0;
-  if constexpr (LANE) {
-    // the hop's offset, clamped as K15's forward clamps it
-    const int64_t o = *hop_offset;
-    lane_off = o < 0 ? 0 : (o > num_dst - Fd ? num_dst - Fd : o);
-  }
   const int tpl = 1 << tshift;
   const int c0 = threadIdx.x & (tpl - 1);    // this thread's first chunk
   const int g = threadIdx.x >> tshift;       // its lane among the block's
@@ -137,13 +111,6 @@ __global__ void __launch_bounds__(kThreads) segment_sum_kernel(
       int32_t s = -1;
       if (e0 + t < E) s = seg[e0 + t];
       if (s >= S) s = -1;
-      if constexpr (LANE) {
-        if (s >= 0) {
-          const int32_t r = (int32_t)(lane_off + (e0 + t) % Fd);
-          row_sh[t] = r;
-          div_sh[t] = count == nullptr ? 1.0f : fmaxf(count[r], 1.0f);
-        }
-      }
       int h = -1;
       if (s >= 0) {
         h = (int)(((uint32_t)s * 2654435761u) >> 23);
@@ -175,15 +142,8 @@ __global__ void __launch_bounds__(kThreads) segment_sum_kernel(
       }
       for (int c = c0; c < cpl; c += tpl) {
         const T* col = data + e0 * ld + c * COLS;
-        // chunk c of lane t of the tile (the lane form: its row, divided)
-        auto load = [&](Chunk<T, COLS>& v, int t) {
-          if constexpr (LANE) {
-            v.load(data + (int64_t)row_sh[t] * ld + c * COLS);
-            divide(v, div_sh[t]);
-          } else {
-            v.load(col + t * ld);
-          }
-        };
+        // chunk c of lane t of the tile
+        auto load = [&](Chunk<T, COLS>& v, int t) { v.load(col + t * ld); };
         Chunk<T, COLS> v[kLanes];
 #pragma unroll
         for (int u = 0; u < kLanes; ++u)
@@ -238,41 +198,30 @@ __global__ void __launch_bounds__(kThreads) segment_sum_kernel(
   }
 }
 
-// The lane form's arguments: the hop's offset (a device scalar), its
-// frontier size Fd, the destinations' count num_dst, and count (null for
-// the sum).
-struct Lanes {
-  const int32_t* hop_offset = nullptr;
-  int64_t Fd = 1, num_dst = 1;
-  const float* count = nullptr;
-};
-
-template <typename T, int COLS, bool LANE>
+template <typename T, int COLS>
 static int launch_cols(const T* data, const int32_t* seg, float* out,
                        int64_t E, int64_t F, int64_t ld, int64_t S,
-                       const Lanes& ln, void* stream) {
+                       void* stream) {
   const int cpl = (int)(F / COLS);
   int tshift = 0;
   while ((1 << tshift) < cpl && (1 << tshift) < kThreads) ++tshift;
   const int64_t tiles = (E + kTile - 1) / kTile;
-  segment_sum_kernel<T, COLS, LANE><<<lt_grid(tiles * kThreads), kThreads,
-                                      0, (cudaStream_t)stream>>>(
-      data, seg, out, E, (int)F, ld, S, cpl, tshift, ln.hop_offset, ln.Fd,
-      ln.num_dst, ln.count);
+  segment_sum_kernel<T, COLS><<<lt_grid(tiles * kThreads), kThreads, 0,
+                                (cudaStream_t)stream>>>(
+      data, seg, out, E, (int)F, ld, S, cpl, tshift);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool LANE = false>
+template <typename T>
 static int launch(const T* data, const int32_t* seg, float* out, int64_t E,
-                  int64_t F, int64_t ld, int64_t S, void* stream,
-                  const Lanes& ln = Lanes()) {
+                  int64_t F, int64_t ld, int64_t S, void* stream) {
   if (E == 0 || F == 0 || S == 0) return (int)cudaSuccess;
   if (F > 2147483647LL || ld < F) return (int)cudaErrorInvalidValue;
   // four-column chunks need whole chunks a row and aligned loads and atomics
   if (F % 4 == 0 && ld % 4 == 0 && (uintptr_t)data % (4 * sizeof(T)) == 0 &&
       (uintptr_t)out % 16 == 0)
-    return launch_cols<T, 4, LANE>(data, seg, out, E, F, ld, S, ln, stream);
-  return launch_cols<T, 1, LANE>(data, seg, out, E, F, ld, S, ln, stream);
+    return launch_cols<T, 4>(data, seg, out, E, F, ld, S, stream);
+  return launch_cols<T, 1>(data, seg, out, E, F, ld, S, stream);
 }
 
 LT_EXPORT int lt_segment_sum_f32(const float* data, const int32_t* seg,
@@ -286,22 +235,4 @@ LT_EXPORT int lt_segment_sum_bf16(const __nv_bfloat16* data,
                                   int64_t F, int64_t ld, int64_t S,
                                   void* stream) {
   return launch<__nv_bfloat16>(data, seg, out, E, F, ld, S, stream);
-}
-
-// K15's backward on a gathered hop (the lane form): out [S, F] f32, zeroed
-// by the caller, += dout[offset + e % Fd] (divided by max(count[...], 1)
-// where count is given) for every lane e with 0 <= seg[e] < S. dout is
-// [num_dst, F] f32 with rows ld apart; num_dst >= Fd.
-LT_EXPORT int lt_segment_sum_lanes(const float* dout, const int32_t* seg,
-                                   float* out, int64_t E, int64_t F,
-                                   int64_t ld, int64_t S,
-                                   const int32_t* hop_offset, int64_t Fd,
-                                   int64_t num_dst, const float* count,
-                                   void* stream) {
-  if (Fd <= 0 || Fd > num_dst || num_dst > 2147483647LL)
-    return (int)cudaErrorInvalidValue;
-  Lanes ln;
-  ln.hop_offset = hop_offset, ln.Fd = Fd, ln.num_dst = num_dst;
-  ln.count = count;
-  return launch<float, true>(dout, seg, out, E, F, ld, S, stream, ln);
 }

@@ -35,7 +35,7 @@ def sage_layer_apply(params: Mapping[str, torch.Tensor],
     When the layer shrinks rows (d_in > padded d_out) and the hop needs a
     real per-edge gather, W_neigh is applied first (mean(h W) == mean(h) W)
     at a width padded up to a multiple of 128, so that the mean (K15) and
-    its backward (K2's lane form) move d_out-wide rows. Otherwise the mean
+    its backward (``hop_mean_grad``) move d_out-wide rows. Otherwise the mean
     is taken first (the lane-aligned hop, or a widening layer). ``h_src``
     may be ``TableRows`` on the aligned hop: the destinations' rows, and
     the lanes' rows read from the feature table by K15."""

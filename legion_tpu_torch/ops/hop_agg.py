@@ -11,8 +11,11 @@ here: a lane's row is gathered by its local index (form (a)), sliced on a
 lane-aligned hop (b), or, on the aligned last hop of a batch whose
 features were fetched up to that hop only (``TableRows``), read from the
 feature table by the lane's id (c), as JAX's XLA sums the rows of that hop
-where it gathers them. GAT's edge softmax and weighted sum is K7 on the
-card (``kernels.hop_attention``), with its plain version here.
+where it gathers them. Form (a)'s backward is ``kernels.hop_mean_grad`` on
+the card, with its plain versions here (``hop_mean_grad_plain``, and
+``lanes_by_source_plain`` for its grouping of lanes by row). GAT's edge
+softmax and weighted sum is K7 on the card (``kernels.hop_attention``),
+with its plain version here.
 """
 
 from __future__ import annotations
@@ -62,14 +65,25 @@ def hop_gather_msgs(h_src: torch.Tensor, src_l: torch.Tensor, fanout: int,
     return msgs.reshape(fanout, F, d), (src_l >= 0).reshape(fanout, F)
 
 
+def placed_offset(offset: torch.Tensor, F: int, num_dst: int
+                  ) -> torch.Tensor:
+    """Where [F, ...] rows land in [num_dst, ...], as JAX's
+    dynamic_update_slice places a start (and K15 does): a negative offset
+    wrapped by num_dst, then clamped to [0, num_dst - F]. The sampler's
+    offsets are in range already. A 0-dim int64 tensor."""
+    o = offset.reshape(()).long()
+    return torch.where(o < 0, o + num_dst, o).clamp(0, num_dst - F)
+
+
 def place_rows(rows: torch.Tensor, offset: torch.Tensor, num_dst: int
                ) -> torch.Tensor:
     """Embed [F, ...] rows at [offset, offset+F) of a zeroed [num_dst, ...]
-    buffer. ``offset`` is a device scalar; the sampler's buffer sizing
-    keeps offset + F <= num_dst (JAX would clamp there instead)."""
+    buffer; ``offset`` is a device scalar, placed by ``placed_offset``."""
     out = torch.zeros((num_dst,) + tuple(rows.shape[1:]), dtype=rows.dtype,
                       device=rows.device)
-    idx = offset.long() + torch.arange(rows.shape[0], device=rows.device)
+    F = rows.shape[0]
+    idx = placed_offset(offset, F, num_dst) + torch.arange(
+        F, device=rows.device)
     return out.index_copy(0, idx, rows)
 
 
@@ -96,6 +110,47 @@ def hop_neighbor_mean_plain(h_src: torch.Tensor, src_l: torch.Tensor,
     s, c = hop_neighbor_sum_plain(h_src, src_l, fanout, offset, num_dst,
                                   aligned_offset, ids)
     return s / c.clamp(min=1)[:, None]
+
+
+def lanes_by_source_plain(src_l: torch.Tensor, num_rows: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The grouping of ``hop_mean_grad``'s plain version: (lanes, starts)
+    int32, the valid lanes (src_l >= 0) grouped by the row they read (src
+    clamped to num_rows - 1, as the forward reads it), each group in
+    ascending lane order (a stable argsort of the rows, pads dropped);
+    group r is lanes[starts[r]:starts[r + 1]]."""
+    lanes = torch.nonzero(src_l >= 0).flatten()
+    rows = src_l[lanes].clamp(max=num_rows - 1).long()
+    order = torch.sort(rows, stable=True).indices
+    counts = torch.bincount(rows, minlength=num_rows)
+    starts = torch.zeros(num_rows + 1, dtype=torch.int64,
+                         device=src_l.device)
+    starts[1:] = torch.cumsum(counts, 0)
+    return lanes[order].to(torch.int32), starts.to(torch.int32)
+
+
+def hop_mean_grad_plain(dout: torch.Tensor, src_l: torch.Tensor,
+                        num_rows: int, dtype: torch.dtype,
+                        hop_offset: torch.Tensor, F: int,
+                        count: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """K15's backward on a gathered hop, plain: d rows [num_rows, d] in
+    ``dtype``, row r the f32 sum of dout[offset + lane % F] (divided by
+    max(count[offset + lane % F], 1) when the mean's ``count`` is given)
+    over the valid lanes that read r (src clamped to the last row), cast
+    once; offset placed by ``placed_offset``."""
+    E = src_l.shape[0]
+    dst = placed_offset(hop_offset, F, dout.shape[0]) + torch.arange(
+        E, device=dout.device) % F
+    rows = dout.float()[dst]
+    if count is not None:
+        rows = rows / count[dst].clamp(min=1)[:, None]
+    valid = src_l >= 0
+    out = torch.zeros((num_rows, dout.shape[1]), dtype=torch.float32,
+                      device=dout.device)
+    out.index_add_(0, src_l[valid].clamp(max=num_rows - 1).long(),
+                   rows[valid])
+    return out.to(dtype)
 
 
 def _on_cpu(*tensors) -> bool:

@@ -23,8 +23,9 @@ lives with its caller in ``ops/hop_agg.py``. K15 ``hop_mean`` replaces
 ``legion_tpu/ops/hop_agg.py::hop_neighbor_sum`` / ``hop_neighbor_mean``
 (and, on the aligned last hop over the device feature table, the fetch of
 its rows); its plain versions live in ``ops/hop_agg.py``. Its backward is
-K2's lane form on a gathered hop (counted under ``segment_sum``) and its
-own kernel on an aligned one (``hop_mean_bwd``).
+``hop_mean_grad`` on a gathered hop (the lanes grouped by row on the card,
+each row summed in lane order and written once; counted under
+``hop_mean_grad``) and its own kernel on an aligned one (``hop_mean_bwd``).
 K3 ``windowed_draw``, K5 ``csr_draw`` and K10 ``step_keys`` (a step's
 key words from the device counters, for K3 and K5 to read) live with
 their callers in ``sampling/access.py``, K4 ``cached_gather`` in ``cache/unified_cache.py``,
@@ -81,7 +82,7 @@ LAUNCHES: Dict[str, int] = {"gather_rows": 0, "segment_sum": 0,
                             "hash_lookup": 0, "bucket_by_owner": 0,
                             "clique_gather": 0, "clique_draw": 0,
                             "clique_draw_unsort": 0, "hop_mean": 0,
-                            "hop_mean_bwd": 0}
+                            "hop_mean_bwd": 0, "hop_mean_grad": 0}
 
 
 def reset_launch_counts() -> None:
@@ -162,12 +163,15 @@ def lib() -> ctypes.CDLL:
     so.lt_gather_rows.argtypes = [p, p, p, i64, i64, i64, p]
     so.lt_segment_sum_f32.argtypes = [p, p, p, i64, i64, i64, i64, p]
     so.lt_segment_sum_bf16.argtypes = [p, p, p, i64, i64, i64, i64, p]
-    so.lt_segment_sum_lanes.argtypes = [p, p, p, i64, i64, i64, i64, p, i64,
-                                        i64, p, p]
     so.lt_hop_mean.argtypes = [p, i64, i64, i32, p, p, i64, p, i64, i32, i64,
                                i32, p, p, p]
     so.lt_hop_mean_bwd.argtypes = [p, p, p, p, i64, i64, i64, i64, i64, i32,
                                    p, i32, p]
+    so.lt_hop_mean_grad.argtypes = [p, p, p, i64, p, i64, i64, i64, i64, p,
+                                    p, i32, p]
+    so.lt_hop_mean_grad_scratch.argtypes = [i64, i64, i64, i64]
+    so.lt_hop_mean_grad_scratch.restype = ctypes.c_int64
+    so.lt_lanes_by_source.argtypes = [p, i64, i64, p, p, p, p, p]
     for fn in (so.lt_windowed_draw_i32, so.lt_windowed_draw_i64):
         fn.argtypes = [p, p, p, p, i64, i32, i32, i64, p, p]
     so.lt_cached_gather.argtypes = [p, p, i64, p, i64, i64, i32, p, p, i64,
@@ -209,8 +213,9 @@ def lib() -> ctypes.CDLL:
     so.lt_noop.argtypes = [p]
     so.lt_grid_sync_probe.argtypes = [i32, i32, p]
     for fn in (so.lt_noop, so.lt_gather_rows, so.lt_segment_sum_f32,
-               so.lt_segment_sum_bf16, so.lt_segment_sum_lanes,
-               so.lt_hop_mean, so.lt_hop_mean_bwd, so.lt_windowed_draw_i32,
+               so.lt_segment_sum_bf16, so.lt_hop_mean, so.lt_hop_mean_bwd,
+               so.lt_hop_mean_grad,
+               so.lt_lanes_by_source, so.lt_windowed_draw_i32,
                so.lt_windowed_draw_i64, so.lt_cached_gather,
                so.lt_csr_draw_i32, so.lt_csr_draw_i64, so.lt_host_register,
                so.lt_host_unregister, so.lt_host_read_probe,
@@ -360,52 +365,6 @@ def segment_sum(data: torch.Tensor, seg: torch.Tensor,
         else lib().lt_segment_sum_bf16
     rc = fn(data.data_ptr(), seg.data_ptr(), out.data_ptr(), E, F, ld,
             num_segments, stream_handle())
-    check("segment_sum", rc)
-    return out
-
-
-def segment_sum_lanes_plain(dout: torch.Tensor, seg: torch.Tensor,
-                            num_segments: int, hop_offset: torch.Tensor,
-                            F: int, count: Optional[torch.Tensor] = None
-                            ) -> torch.Tensor:
-    """K2's lane form: ``segment_sum_plain`` of the rows dout[offset + e %
-    F] (each divided by max(count[offset + e % F], 1) when count is
-    given) over seg, offset clamped to [0, num_dst - F]."""
-    E = seg.shape[0]
-    off = hop_offset.reshape(()).long().clamp(0, dout.shape[0] - F)
-    dst = off + torch.arange(E, device=dout.device) % F
-    rows = dout.float()[dst]
-    if count is not None:
-        rows = rows / count[dst].clamp(min=1)[:, None]
-    return segment_sum_plain(rows, seg, num_segments)
-
-
-def segment_sum_lanes(dout: torch.Tensor, seg: torch.Tensor,
-                      num_segments: int, hop_offset: torch.Tensor, F: int,
-                      count: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K2's lane form on CUDA tensors, K15's backward on a gathered hop:
-    dout [num_dst, d] f32 (the gradient of K15's output), seg [fanout *
-    F] int32 (the hop's src_l) -> [num_segments, d] f32, lane e adding
-    dout[offset + e % F] (divided by max(count[...], 1), the mean's
-    count, when given) into its segment. Counted under ``segment_sum``."""
-    _require(dout.is_cuda and dout.dtype == torch.float32 and dout.dim() == 2
-             and seg.device == dout.device and seg.dtype == torch.int32
-             and hop_offset.device == dout.device
-             and hop_offset.dtype == torch.int32
-             and 0 < F <= dout.shape[0]
-             and (count is None or (count.device == dout.device
-                                    and count.dtype == torch.float32
-                                    and count.shape == dout.shape[:1])),
-             f"segment_sum_lanes: dout {dout.dtype} {tuple(dout.shape)} on "
-             f"{dout.device}, seg {seg.dtype} on {seg.device}, F {F}")
-    dout, seg = dout.contiguous(), seg.contiguous()
-    E, d = seg.shape[0], dout.shape[1]
-    out = torch.zeros((num_segments, d), dtype=torch.float32,
-                      device=dout.device)
-    rc = lib().lt_segment_sum_lanes(
-        dout.data_ptr(), seg.data_ptr(), out.data_ptr(), E, d, d,
-        num_segments, hop_offset.data_ptr(), F, dout.shape[0],
-        None if count is None else count.data_ptr(), stream_handle())
     check("segment_sum", rc)
     return out
 
@@ -702,8 +661,8 @@ def hop_attention(z2: torch.Tensor, scores: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# K15 hop_mean (the hop aggregation; backward: K2's lane form, or its own
-# kernel on an aligned hop)
+# K15 hop_mean (the hop aggregation; backward: hop_mean_grad on a gathered
+# hop, its own kernel on an aligned one)
 # ---------------------------------------------------------------------------
 
 def hop_mean_checks(rows: torch.Tensor, src_l: torch.Tensor, fanout: int,
@@ -714,56 +673,64 @@ def hop_mean_checks(rows: torch.Tensor, src_l: torch.Tensor, fanout: int,
     rows [N, d] bf16 or f32; src_l [fanout * F] int32 with F <= num_dst;
     hop_offset an int32 scalar on src_l's device; with ``ids`` (form (c)),
     ids [>= aligned_offset + E] int32 and an aligned_offset; the aligned
-    lanes inside rows (form (b)) or ids (form (c))."""
-    _require(rows.dim() == 2 and rows.dtype in (torch.bfloat16,
-                                                 torch.float32),
-             f"hop_mean: rows {rows.dtype} {tuple(rows.shape)}")
-    _require(fanout > 0 and src_l.dim() == 1 and src_l.dtype == torch.int32
-             and src_l.shape[0] % fanout == 0
-             and src_l.shape[0] // fanout <= num_dst,
-             f"hop_mean: src_l {src_l.dtype} {tuple(src_l.shape)}, fanout "
-             f"{fanout}, num_dst {num_dst}")
-    _require(hop_offset.numel() == 1 and hop_offset.dtype == torch.int32
-             and hop_offset.device == src_l.device,
-             f"hop_mean: hop_offset {hop_offset.dtype} "
-             f"{tuple(hop_offset.shape)} on {hop_offset.device}")
-    E = src_l.shape[0]
+    lanes inside rows (form (b)) or ids (form (c)). Each message is built
+    only when its check fails."""
+    if not (rows.dim() == 2 and rows.dtype in (torch.bfloat16,
+                                               torch.float32)):
+        raise ValueError(f"hop_mean: rows {rows.dtype} {tuple(rows.shape)}")
+    E = src_l.shape[0] if src_l.dim() == 1 else -1
+    if not (fanout > 0 and E >= 0 and src_l.dtype == torch.int32
+            and E % fanout == 0 and E // fanout <= num_dst):
+        raise ValueError(f"hop_mean: src_l {src_l.dtype} "
+                         f"{tuple(src_l.shape)}, fanout {fanout}, num_dst "
+                         f"{num_dst}")
+    if not (hop_offset.numel() == 1 and hop_offset.dtype == torch.int32
+            and hop_offset.device == src_l.device):
+        raise ValueError(f"hop_mean: hop_offset {hop_offset.dtype} "
+                         f"{tuple(hop_offset.shape)} on {hop_offset.device}")
     if ids is not None:
-        _require(aligned_offset is not None and ids.dim() == 1
-                 and ids.dtype == torch.int32
-                 and aligned_offset + E <= ids.shape[0],
-                 f"hop_mean: ids {ids.dtype} {tuple(ids.shape)} with the "
-                 f"aligned offset {aligned_offset} and {E} lanes")
-        _require(not rows.requires_grad,
-                 "hop_mean: rows read through ids (the feature table) take "
-                 "no gradient")
-    elif aligned_offset is not None:
-        _require(aligned_offset + E <= rows.shape[0],
-                 "hop_mean: the aligned lanes run past rows")
+        if not (aligned_offset is not None and ids.dim() == 1
+                and ids.dtype == torch.int32
+                and aligned_offset + E <= ids.shape[0]):
+            raise ValueError(f"hop_mean: ids {ids.dtype} "
+                             f"{tuple(ids.shape)} with the aligned offset "
+                             f"{aligned_offset} and {E} lanes")
+        if rows.requires_grad:
+            raise ValueError("hop_mean: rows read through ids (the feature "
+                             "table) take no gradient")
+    elif aligned_offset is not None and aligned_offset + E > rows.shape[0]:
+        raise ValueError("hop_mean: the aligned lanes run past rows")
+
+
+def _hop_mean_launch(rows, src_l, ids, hop_offset, fanout, num_dst, aligned,
+                     mean):
+    """K15's launch: (out [num_dst, d], count [num_dst]) f32. Two
+    allocations: one split into two views costs the host more (``chip_smoke.
+    py::k15_host_parts`` times both)."""
+    F = src_l.shape[0] // fanout
+    d = rows.shape[1]
+    out = torch.empty((num_dst, d), dtype=torch.float32, device=rows.device)
+    count = torch.empty(num_dst, dtype=torch.float32, device=rows.device)
+    rc = lib().lt_hop_mean(
+        rows.data_ptr(), rows.shape[0], d, rows.dtype == torch.bfloat16,
+        src_l.data_ptr(), None if ids is None else ids.data_ptr(), aligned,
+        hop_offset.data_ptr(), F, fanout, num_dst, mean, out.data_ptr(),
+        count.data_ptr(), stream_handle())
+    check("hop_mean", rc)
+    return out, count
 
 
 class HopMean(torch.autograd.Function):
-    """K15, out and count; the gradient of rows (never of count): K2's
-    lane form on a gathered hop (summed in f32, cast once), the
-    ``hop_mean_bwd`` kernel on an aligned one."""
+    """K15, out and count; the gradient of rows (never of count): the
+    ``hop_mean_grad`` kernels on a gathered hop (summed in f32, written
+    once in the rows' dtype), the ``hop_mean_bwd`` kernel on an aligned
+    one."""
 
     @staticmethod
     def forward(ctx, rows, src_l, ids, hop_offset, fanout, num_dst, aligned,
                 mean):
-        E = src_l.shape[0]
-        F = E // fanout
-        d = rows.shape[1]
-        out = torch.empty((num_dst, d), dtype=torch.float32,
-                          device=rows.device)
-        count = torch.empty((num_dst,), dtype=torch.float32,
-                            device=rows.device)
-        rc = lib().lt_hop_mean(
-            rows.data_ptr(), rows.shape[0], d, int(rows.dtype ==
-                                                   torch.bfloat16),
-            src_l.data_ptr(), None if ids is None else ids.data_ptr(),
-            aligned, hop_offset.data_ptr(), F, fanout, num_dst, int(mean),
-            out.data_ptr(), count.data_ptr(), stream_handle())
-        check("hop_mean", rc)
+        out, count = _hop_mean_launch(rows, src_l, ids, hop_offset, fanout,
+                                      num_dst, aligned, mean)
         ctx.mark_non_differentiable(count)
         ctx.save_for_backward(src_l, hop_offset, count)
         ctx.cfg = (rows.shape, rows.dtype, fanout, num_dst, aligned, mean)
@@ -775,7 +742,10 @@ class HopMean(torch.autograd.Function):
         shape, dtype, fanout, num_dst, aligned, mean = ctx.cfg
         E, d = src_l.shape[0], shape[1]
         F = E // fanout
-        dout = dout.float().contiguous()
+        if dout.dtype != torch.float32:
+            dout = dout.float()
+        if not dout.is_contiguous():
+            dout = dout.contiguous()
         if aligned >= 0:
             drows = torch.zeros(shape, dtype=dtype, device=dout.device)
             rc = lib().lt_hop_mean_bwd(
@@ -785,9 +755,9 @@ class HopMean(torch.autograd.Function):
                 stream_handle())
             check("hop_mean_bwd", rc)
             return (drows,) + (None,) * 7
-        drows = segment_sum_lanes(dout, src_l, shape[0], hop_offset, F,
-                                  count if mean else None)
-        return (drows.to(dtype),) + (None,) * 7
+        drows = hop_mean_grad(dout, src_l, shape[0], dtype, hop_offset, F,
+                              count if mean else None)
+        return (drows,) + (None,) * 7
 
 
 def hop_mean(rows: torch.Tensor, src_l: torch.Tensor, fanout: int,
@@ -800,18 +770,113 @@ def hop_mean(rows: torch.Tensor, src_l: torch.Tensor, fanout: int,
     f32), out the sum (or with ``mean`` the mean) of each frontier slot's
     valid rows at [offset, offset + F), zero elsewhere. A lane's row is
     rows[src_l[lane]] (form (a)), rows[aligned_offset + lane] (b), or
-    rows[ids[aligned_offset + lane]] (c: rows is the feature table)."""
+    rows[ids[aligned_offset + lane]] (c: rows is the feature table). Goes
+    through the autograd Function only when rows takes a gradient."""
     hop_mean_checks(rows, src_l, fanout, hop_offset, num_dst,
                     aligned_offset, ids)
-    on = [rows, src_l, hop_offset] + ([] if ids is None else [ids])
-    _require(all(t.is_cuda and t.device == rows.device for t in on),
-             "hop_mean: inputs on " + ", ".join(str(t.device) for t in on))
-    _require(rows.shape[0] > 0, "hop_mean: no rows")
-    E = src_l.shape[0]
+    dev = rows.get_device()
+    if not (dev >= 0 and src_l.get_device() == dev
+            and hop_offset.get_device() == dev
+            and (ids is None or ids.get_device() == dev)):
+        on = [rows, src_l, hop_offset] + ([] if ids is None else [ids])
+        raise ValueError("hop_mean: inputs on "
+                         + ", ".join(str(t.device) for t in on))
+    if rows.shape[0] == 0:
+        raise ValueError("hop_mean: no rows")
     if ids is not None:
         # the kernel reads the hop's lanes of ids from their start
-        ids = ids[aligned_offset:aligned_offset + E].contiguous()
-    aligned = -1 if aligned_offset is None or ids is not None \
-        else int(aligned_offset)
-    return HopMean.apply(rows.contiguous(), src_l.contiguous(), ids,
-                         hop_offset, fanout, num_dst, aligned, bool(mean))
+        E = src_l.shape[0]
+        ids = ids[aligned_offset:aligned_offset + E]
+        if not ids.is_contiguous():
+            ids = ids.contiguous()
+        aligned = -1
+    else:
+        aligned = -1 if aligned_offset is None else int(aligned_offset)
+    if not rows.is_contiguous():
+        rows = rows.contiguous()
+    if not src_l.is_contiguous():
+        src_l = src_l.contiguous()
+    if rows.requires_grad and torch.is_grad_enabled():
+        return HopMean.apply(rows, src_l, ids, hop_offset, fanout, num_dst,
+                             aligned, bool(mean))
+    return _hop_mean_launch(rows, src_l, ids, hop_offset, fanout, num_dst,
+                            aligned, bool(mean))
+
+
+@functools.lru_cache(maxsize=64)
+def _grad_scratch_words(S: int, E: int, d: int, F: int) -> int:
+    return lib().lt_hop_mean_grad_scratch(S, E, d, F)
+
+
+def hop_mean_grad(dout: torch.Tensor, src_l: torch.Tensor, num_rows: int,
+                  dtype: torch.dtype, hop_offset: torch.Tensor, F: int,
+                  count: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K15's backward on a gathered hop (form (a)), on CUDA tensors (the
+    plain version is ``ops/hop_agg.py::hop_mean_grad_plain``): d rows
+    [num_rows, d] in ``dtype`` (bf16 or f32), row r the f32 sum, in
+    ascending lane order, of dout[offset + lane % F] over the valid lanes
+    of src_l [fanout * F] int32 that read r (a src past the rows reads the
+    last row, as the forward does), each divided by max(count[offset +
+    lane % F], 1) when ``count`` (the mean's) is given; offset placed as
+    the forward places it. dout [num_dst, d] f32 contiguous. Every row
+    written once, the same bits from run to run."""
+    dev = dout.get_device()
+    if not (dev >= 0 and dout.dtype == torch.float32 and dout.dim() == 2
+            and dout.is_contiguous() and src_l.get_device() == dev
+            and src_l.dtype == torch.int32 and src_l.dim() == 1
+            and src_l.is_contiguous() and hop_offset.get_device() == dev
+            and hop_offset.dtype == torch.int32
+            and dtype in (torch.bfloat16, torch.float32) and num_rows > 0
+            and 0 < F <= dout.shape[0] and src_l.shape[0] % F == 0
+            and (count is None or (count.get_device() == dev
+                                   and count.dtype == torch.float32
+                                   and count.shape == dout.shape[:1]))):
+        raise ValueError(
+            f"hop_mean_grad: dout {dout.dtype} {tuple(dout.shape)} on "
+            f"{dout.device}, src_l {src_l.dtype} {tuple(src_l.shape)} on "
+            f"{src_l.device}, {num_rows} rows of {dtype}, F {F}")
+    dev = dout.device
+    E, d = src_l.shape[0], dout.shape[1]
+    scratch = torch.empty(_grad_scratch_words(num_rows, E, d, F),
+                          dtype=torch.int32, device=dev)
+    drows = torch.empty((num_rows, d), dtype=dtype, device=dev)
+    rc = lib().lt_hop_mean_grad(
+        dout.data_ptr(), None if count is None else count.data_ptr(),
+        src_l.data_ptr(), E, hop_offset.data_ptr(), F, dout.shape[0],
+        num_rows, d, scratch.data_ptr(), drows.data_ptr(),
+        dtype == torch.bfloat16, stream_handle())
+    check("hop_mean_grad", rc)
+    return drows
+
+
+def lanes_by_source(src_l: torch.Tensor, num_rows: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The grouping ``hop_mean_grad`` runs first, alone, on CUDA tensors
+    (the plain version is ``ops/hop_agg.py::lanes_by_source_plain``):
+    (lanes, starts) int32, the valid lanes of src_l grouped by the row
+    they read (src clamped to num_rows - 1), each group in ascending lane
+    order, group r lanes[starts[r]:starts[r + 1]]. For holding the kernels
+    against the plain version; on no path, not counted in ``LAUNCHES``."""
+    if not (src_l.is_cuda and src_l.dtype == torch.int32
+            and src_l.dim() == 1 and num_rows > 0):
+        raise ValueError(f"lanes_by_source: src_l {src_l.dtype} "
+                         f"{tuple(src_l.shape)} on {src_l.device}")
+    src_l = src_l.contiguous()
+    E, dev = src_l.shape[0], src_l.device
+    scratch = torch.empty(_grad_scratch_words(num_rows, E, 1, 0),
+                          dtype=torch.int32, device=dev)
+    lanes = torch.empty(max(E, 1), dtype=torch.int32, device=dev)
+    at = torch.empty(num_rows, dtype=torch.int32, device=dev)
+    cnt = torch.empty(num_rows, dtype=torch.int32, device=dev)
+    _check_probe("lanes_by_source", lib().lt_lanes_by_source(
+        src_l.data_ptr(), E, num_rows, scratch.data_ptr(), lanes.data_ptr(),
+        at.data_ptr(), cnt.data_ptr(), stream_handle()))
+    # the kernels keep the runs of more than 32 lanes after the others:
+    # read every run back in row order
+    starts = torch.zeros(num_rows + 1, dtype=torch.int64, device=dev)
+    starts[1:] = torch.cumsum(cnt, 0)
+    n = cnt.long()
+    k = torch.arange(int(starts[-1]), device=dev) - torch.repeat_interleave(
+        starts[:-1], n)
+    idx = torch.repeat_interleave(at.long(), n) + k
+    return lanes[idx], starts.to(torch.int32)

@@ -4,13 +4,18 @@ lane's id) against JAX's ``DeviceFeatureSource.fetch`` followed by
 ``hop_neighbor_mean`` on the aligned hop; GraphSAGE and ``lp_sage`` fed
 ``TableRows`` (the rows before the aligned last hop, and the table)
 against JAX's ``apply`` / ``loss`` on the whole fetch; a trainer's step and
-eval pass on the prefix fetch against the same on the whole fetch; and the
-wrapper's refusals. The kernel itself runs on the card only
-(``chip_smoke.py`` phase 2 holds it against these plain versions).
+eval pass on the prefix fetch against the same on the whole fetch; the
+gathered hop's backward (``hop_mean_grad_plain``) against ``jax.grad`` of
+JAX's ``hop_neighbor_sum`` / ``hop_neighbor_mean``, and its grouping of
+lanes by row (``lanes_by_source_plain``) against numpy's stable argsort;
+and the wrapper's refusals. The kernels themselves run on the card only
+(``chip_smoke.py`` phase 2 holds them against these plain versions).
 
 Tolerances: counts exactly; f32 sums taken in another order within
 F32_ATOL (absolute) or F32_RTOL (relative to the largest reference value);
-bf16 models within BF16_RTOL (``tests/test_torch_parity.py``). The prefix
+bf16 models and bf16 gradients of a gathered hop within BF16_RTOL
+(``tests/test_torch_parity.py``: JAX's gather transpose scatter-adds in
+bf16, the port sums in f32 and casts once). The prefix
 fetch and the whole fetch read the same bits in the same order on the
 CPU, so the port's two runs agree exactly.
 """
@@ -304,3 +309,116 @@ def test_wrapper_refuses_mixed_or_unsupported_inputs(what):
         hop_agg.hop_neighbor_mean(**args)
     with pytest.raises(ValueError, match="hop_mean"):
         hop_agg.hop_neighbor_sum(**args)
+
+
+def _gathered_hop(rng, n_rows, fanout, F, hub_frac, pad_frac=0.2):
+    """src_l [fanout * F] of a gathered hop: rows drawn at random, one hub
+    row taking about ``hub_frac`` of the lanes, pads, and two lanes past
+    the rows (they read the last row, as JAX's clipped gather does)."""
+    E = fanout * F
+    src = rng.integers(0, n_rows, E).astype(np.int32)
+    src[rng.random(E) < hub_frac] = n_rows // 2
+    src[rng.random(E) < pad_frac] = -1
+    src[rng.permutation(E)[:2]] = [n_rows, n_rows + 7]
+    return src
+
+
+# the hop's offset at both of JAX's clamps (dynamic_update_slice wraps a
+# negative start by num_dst, then clamps it to [0, num_dst - F]): below
+# -num_dst (placed at 0), past num_dst - F (placed there); and negative,
+# wrapped into range
+GRAD_OFFSETS = {"below 0": -10 ** 6, "past the end": 10 ** 6,
+                "negative, wrapped": -14}
+
+
+@pytest.mark.parametrize("offset", list(GRAD_OFFSETS))
+@pytest.mark.parametrize("op", ["mean", "sum"])
+@pytest.mark.parametrize("fanout", [1, 10, 25])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hop_mean_grad_plain_matches_jax_grad(dtype, fanout, op, offset):
+    """``hop_mean_grad_plain`` (K15's backward on a gathered hop) against
+    ``jax.grad`` of JAX's ``hop_neighbor_mean`` / ``hop_neighbor_sum``
+    with respect to the rows: pads, a hub row taking a third of the lanes,
+    lanes past the rows, the offset clamped. f32 within F32_RTOL of the
+    largest gradient (sums in another order). bf16 within BF16_RTOL of
+    JAX's gradient taken in f32 over the same bf16 row values and rounded
+    to bf16 once, as the port rounds it; and, on the rows that at most 8
+    lanes read, within BF16_RTOL of JAX's own bf16 gradient, whose gather
+    transpose scatter-adds in bf16 (on the hub row, about 100 lanes at
+    fanout 25, that drifts by up to 2.8e-2 of the largest gradient). It
+    also equals, bit for bit, the gradient autograd takes through the
+    plain forward (the CPU path)."""
+    rng = np.random.default_rng(fanout * 7 + len(op) + len(offset))
+    n_rows, F, d = 48, 12, 16
+    num_dst = F + 9
+    src = _gathered_hop(rng, n_rows, fanout, F, 1 / 3)
+    h = rng.standard_normal((n_rows, d)).astype(np.float32)
+    w = rng.standard_normal((num_dst, d)).astype(np.float32)
+    off = GRAD_OFFSETS[offset]
+    jop = jhop.hop_neighbor_mean if op == "mean" else \
+        (lambda *a: jhop.hop_neighbor_sum(*a)[0])
+
+    def jfn(hh):
+        out = jop(hh, jnp.asarray(src), fanout, jnp.int32(off), num_dst)
+        return jnp.sum(out.astype(jnp.float32) * w)
+
+    gj = jax.grad(jfn)(jnp.asarray(h, jdt(dtype)))
+    ht = torch.from_numpy(h).to(tdt(dtype))
+    if dtype == "bfloat16":
+        g32 = jax.grad(jfn)(jnp.asarray(np32(ht)))
+        lanes = np.bincount(np.minimum(src[src >= 0], n_rows - 1),
+                            minlength=n_rows)
+    src_t = torch.from_numpy(src)
+    off_t = torch.tensor(off, dtype=torch.int32)
+    _, count = hop_agg.hop_neighbor_sum_plain(ht, src_t, fanout, off_t,
+                                              num_dst)
+    got = hop_agg.hop_mean_grad_plain(
+        torch.from_numpy(w), src_t, n_rows, tdt(dtype), off_t, F,
+        count if op == "mean" else None)
+    assert got.dtype == tdt(dtype) and got.shape == (n_rows, d)
+    if dtype == "float32":
+        close(got, gj, F32_RTOL, f"d rows ({op})")
+    else:
+        close(got, np32(torch.from_numpy(np32(g32)).to(torch.bfloat16)),
+              BF16_RTOL, f"d rows ({op}) against JAX in f32")
+        few = lanes <= 8
+        err = np.abs(np32(got)[few] - np32(gj)[few]).max()
+        assert err <= BF16_RTOL * np.abs(np32(gj)).max(), err
+    # the last row takes the lanes past the rows, as in JAX
+    assert np.abs(np.asarray(gj, np.float32)[-1]).max() > 0
+    hr = ht.clone().requires_grad_()
+    fwd = hop_agg.hop_neighbor_mean if op == "mean" else \
+        (lambda *a: hop_agg.hop_neighbor_sum(*a)[0])
+    (fwd(hr, src_t, fanout, off_t, num_dst) * torch.from_numpy(w)).sum() \
+        .backward()
+    assert torch.equal(hr.grad, got)
+
+
+LANES_CASES = {"pads and a hub": (300, 40, 0.2, 1 / 3),
+               "every lane a pad": (60, 10, 1.0, 0.0),
+               "no pad, one row": (64, 1, 0.0, 0.0),
+               "more rows than lanes": (50, 500, 0.1, 0.0)}
+
+
+@pytest.mark.parametrize("case", list(LANES_CASES))
+def test_lanes_by_source_plain_matches_numpy_stable_argsort(case):
+    """``lanes_by_source_plain``: the valid lanes grouped by their clamped
+    row in ascending lane order and the groups' starts, against numpy's
+    stable argsort and bincount (lanes past the rows fall in the last
+    row's group)."""
+    E, n_rows, pad, hub = LANES_CASES[case]
+    rng = np.random.default_rng(E)
+    src = rng.integers(0, n_rows + 3, E).astype(np.int32)
+    src[rng.random(E) < hub] = n_rows // 2
+    src[rng.random(E) < pad] = -1
+    lanes, starts = hop_agg.lanes_by_source_plain(torch.from_numpy(src),
+                                                  n_rows)
+    valid = np.flatnonzero(src >= 0)
+    rows = np.minimum(src[valid], n_rows - 1)
+    ref = valid[np.argsort(rows, kind="stable")]
+    assert lanes.dtype == starts.dtype == torch.int32
+    np.testing.assert_array_equal(lanes.numpy(), ref)
+    np.testing.assert_array_equal(
+        starts.numpy(),
+        np.concatenate([[0], np.cumsum(np.bincount(rows,
+                                                   minlength=n_rows))]))
