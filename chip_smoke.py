@@ -19,10 +19,16 @@ CUDA card, nvcc (``$CUDA_HOME`` or ``/usr/local/cuda``) and no network.
      three calls and in the one cooperative call that the sampler makes)
      at hop 0 of the bench batch, bit for bit, timed the same three ways,
      and at the edges of their shapes (``k8_edges``, ``k9_edges``);
-     K10 (the step keys from the device counters) at the main path's
-     hops and at 1,000 random (base key, counter) pairs, exactly, also
-     with 4 members and at member offsets (a rank's members of a world
-     of 8); K1 at the Device path's prefix fetch (the ids before the
+     K10 (the step keys from the device counters, with the step's
+     dropout key) at the main path's hops and at 1,000 random (base key,
+     counter) pairs, exactly, also with 4 members and at member offsets
+     (a rank's members of a world of 8); K16 (dropout fused with the
+     activation and the cast before it, its keep bits drawn in the pass
+     and again in the backward) at the Device path's layer-0 output,
+     forward, forward + backward under autograd and the backward alone,
+     bit for bit, beside ``F.dropout``, and at the edges of its shapes
+     (``k16_edges``: every regime, rate 0, odd lane counts, a misaligned
+     base, three dtype pairs, three activations); K1 at the Device path's prefix fetch (the ids before the
      aligned last hop) and at the whole fetch; K15 (the hop aggregation)
      in its three forms: (c) at layer 0 reading the aligned last hop's
      rows from the feature table, (a) at layer 1 gathering its rows,
@@ -73,8 +79,10 @@ CUDA card, nvcc (``$CUDA_HOME`` or ``/usr/local/cuda``) and no network.
      (965,760 lanes);
      link-prediction SAGE (batch
      7998, eval batch 510), after holding K15 at its layer 1 (256-wide
-     f32 rows, forward, forward + backward, the backward alone); each for
-     train steps and an eval pass;
+     f32 rows, forward, forward + backward, the backward alone); each
+     after holding K16 at its shapes (GAT: layer 0's features, forward,
+     and layer 1's ELU, cast and dropout both ways), for train steps and
+     an eval pass;
   4. checks the whole slice on the card against the same slice on the
      CPU (plain versions) at a small size, for GraphSAGE (sort and map
      dedup), GAT and GCN;
@@ -103,7 +111,7 @@ CUDA card, nvcc (``$CUDA_HOME`` or ``/usr/local/cuda``) and no network.
      then GAT on the same dataset (gat-H, ``bench.py --model gat
      --features host``), after holding K6 at its layer 0 (K4's 100-wide
      cached rows: K6's padded tensor-core form, and its general kernels
-     timed beside it); then ``UnifiedCache.build`` from device tensors
+     timed beside it) and K16 at its dropout of those rows; then ``UnifiedCache.build`` from device tensors
      against ``build_from_host`` at H's and HT's plans, in f32 and bf16,
      bit for bit, with both set-up times;
   7. checks a small HT slice on the card against the same slice on the
@@ -130,9 +138,7 @@ CUDA card, nvcc (``$CUDA_HOME`` or ``/usr/local/cuda``) and no network.
      and K11, K12 and K14 replayed from a CUDA graph on new inputs; K11
      also at the counters' one topology-map lookup and at a uk2014-sized
      map past L2 (``hash_scale``: 30M keys of V 787,801,471, 537 MB,
-     queried at the fetch's shape), each in turns with the parent's
-     kernel where ``_archive/parent`` holds a ``git archive`` of the
-     parent commit; 10 steps
+     queried at the fetch's shape); 10 steps
      and an eval pass with hit counters, overflow lanes and exchange
      bytes, the
      launches equal to ``PATH_KERNELS``; every member's fetched rows
@@ -180,7 +186,11 @@ lane form), for times in turns with it. ``python3 chip_smoke.py
 --clique`` builds, makes the host dataset and runs phase 9 alone, for
 work on K11-K14;
 ``--clique-kernels`` stops phase 9 after K11-K14 at clique-HT's shapes,
-their edges and the replay check (``clique_replay``). ``python3
+their edges and the replay check (``clique_replay``), and times K11 in
+turns with the parent's kernel where ``_archive/parent`` holds a ``git
+archive`` of the parent commit. ``python3 chip_smoke.py --k16`` builds and
+holds K16 at every path's shapes and its edges, with K10's dropout key
+row (``phase_k16``). ``python3
 chip_smoke.py --link`` builds, holds K4 and K11-K14 at their edges, makes
 the host dataset and runs phases 5 and 9, for work on the host reads of
 K4 and K13. ``python3 chip_smoke.py --dist`` builds, holds K10 and K14 at
@@ -243,50 +253,56 @@ KERNELS = {
     "hop_mean_grad": dict(source="legion_tpu_torch/csrc/hop_agg.cu",
                           replaces="legion_tpu/ops/hop_agg.py:43",
                           symbol="hop_grad_"),
+    # XLA fuses the JAX package's dropout into its neighbours
+    "dropout_act": dict(source="legion_tpu_torch/csrc/dropout.cu",
+                        replaces="legion_tpu/models/common.py:71"),
 }
 # the kernels each path must launch, and the path whose launches the
 # kernel line reports
 SORT_DEDUP = ("dedup_keys", "dedup_sort")
+# every train step drops out by K16, forward and backward (GAT: layer 0's
+# features forward only, layer 1's ELU, cast and dropout both ways)
+DROPOUT = ("dropout_act", "dropout_act_bwd")
 CLIQUE_HT = ("gather_rows", "csr_draw", "step_keys", "bucket_by_owner",
              "clique_gather", "clique_draw", "clique_draw_unsort",
-             "hop_mean", "hop_mean_grad") + SORT_DEDUP
+             "hop_mean", "hop_mean_grad") + SORT_DEDUP + DROPOUT
 # every path's step derives its keys by K10; every path but GAT's
 # aggregates by K15 (its gathered hop's backward is hop_mean_grad), and
 # K1 fetches on the paths with features on the card; K2 runs GAT's
 # GatherRows backward and GCN's out-degree
 PATH_KERNELS = {
     "device": ("gather_rows", "windowed_draw", "step_keys", "hop_mean",
-               "hop_mean_grad") + SORT_DEDUP,
+               "hop_mean_grad") + SORT_DEDUP + DROPOUT,
     "device-map": ("gather_rows", "windowed_draw", "dedup_map", "step_keys",
-                   "hop_mean", "hop_mean_grad"),
+                   "hop_mean", "hop_mean_grad") + DROPOUT,
     "H": ("windowed_draw", "cached_gather", "step_keys", "hop_mean",
-          "hop_mean_grad") + SORT_DEDUP,
+          "hop_mean_grad") + SORT_DEDUP + DROPOUT,
     "HT": ("cached_gather", "csr_draw", "step_keys", "hop_mean",
-           "hop_mean_grad") + SORT_DEDUP,
+           "hop_mean_grad") + SORT_DEDUP + DROPOUT,
     "cache-off": ("gather_rows", "windowed_draw", "step_keys", "hop_mean",
-                  "hop_mean_grad") + SORT_DEDUP,
+                  "hop_mean_grad") + SORT_DEDUP + DROPOUT,
     "gat": ("gather_rows", "segment_sum", "windowed_draw", "gat_attend",
             "gat_attend_bwd", "hop_attention", "hop_attention_bwd",
-            "step_keys") + SORT_DEDUP,
+            "step_keys") + SORT_DEDUP + DROPOUT,
     # GAT on H's dataset (bench.py --model gat --features host): layer 0's
     # K6 on K4's 100-wide cached rows
     "gat-H": ("gather_rows", "segment_sum", "windowed_draw", "cached_gather",
               "gat_attend", "gat_attend_bwd", "hop_attention",
-              "hop_attention_bwd", "step_keys") + SORT_DEDUP,
+              "hop_attention_bwd", "step_keys") + SORT_DEDUP + DROPOUT,
     "gcn": ("gather_rows", "segment_sum", "windowed_draw", "step_keys",
-            "hop_mean", "hop_mean_grad") + SORT_DEDUP,
+            "hop_mean", "hop_mean_grad") + SORT_DEDUP + DROPOUT,
     "lp_sage": ("gather_rows", "windowed_draw", "step_keys", "hop_mean",
-                "hop_mean_grad") + SORT_DEDUP,
+                "hop_mean_grad") + SORT_DEDUP + DROPOUT,
     # the launcher on a dataset on disk, features on the host (phase 8)
     "cli": ("windowed_draw", "cached_gather", "step_keys", "hop_mean",
-            "hop_mean_grad") + SORT_DEDUP,
+            "hop_mean_grad") + SORT_DEDUP + DROPOUT,
     # 4 members of a clique on the card (phase 9): features and topology
     # on the host; the same with hash maps; the topology on the card
     "clique-HT": CLIQUE_HT,
     "clique-HT-hash": CLIQUE_HT + ("hash_lookup",),
     "clique-H": ("gather_rows", "windowed_draw", "step_keys",
                  "bucket_by_owner", "clique_gather", "hop_mean",
-                 "hop_mean_grad") + SORT_DEDUP,
+                 "hop_mean_grad") + SORT_DEDUP + DROPOUT,
 }
 # the paths whose CUDA-graph replays phase_fused holds against eager steps
 FUSED_PATHS = ("device", "device-map", "gat", "HT")
@@ -309,7 +325,7 @@ REPORTED_PATH = {"gather_rows": "device", "segment_sum": "gcn",
                  "step_keys": "device", "hash_lookup": "clique-HT-hash",
                  "bucket_by_owner": "clique-HT", "clique_gather": "clique-HT",
                  "clique_draw": "clique-HT", "hop_mean": "device",
-                 "hop_mean_grad": "device"}
+                 "hop_mean_grad": "device", "dropout_act": "device"}
 # bench.py --model gat --features host (GAT-H)
 GAT_H = dict(cache_bytes=CACHE_BYTES, feature_residency="host", model="gat")
 # bench.py --model X: lp_sage batches divide into thirds, GCN dedups the
@@ -704,6 +720,9 @@ def phase_kernels(tr, torch):
     S1 = s.cum_caps[1]
     src0 = batch.edge_src[0]
     k15_compares(tr, batch, torch, results, main)
+    # K16 at layer 0's output, forward and backward, and at its edges
+    k16_compares(tr, torch, results, main, "device")
+    k16_edges(torch, results)
 
     # K2: f32 atomic order
     dmsg = torch.randn((src0.shape[0], 128), generator=g,
@@ -897,12 +916,14 @@ def k3_edges(torch):
 def k10_compares(tr, torch, results, main, floor):
     """K10 against its plain version, exactly: at the main path's L (the
     Device trainer's hops) from its base key, timed like the others (one
-    launch a train step), and at 1,000 random (base_key in [0, 2^63), ctr
-    in [0, 2^31)) pairs, both tags, each also checked for its counter's
-    increment; eight of them against the host's fold_in chain. The same
-    pairs again with the clique paths' CLIQUE_KG members ([Kg, L, 4], the
-    member index folded in after the tag), eight of them against the host
-    chain fold_in(fold_in(fold_in(base, ctr), tag), d)."""
+    launch a train step, with the dropout key row), and at 1,000 random
+    (base_key in [0, 2^63), ctr in [0, 2^31)) pairs, both tags, with the
+    dropout key row (K16's words, fold_in(step, 7)), each also checked for
+    its counter's increment; eight of them against the host's fold_in
+    chain. The same pairs again with the clique paths' CLIQUE_KG members
+    ([Kg, L, 4] and [Kg, 2], the member index folded in after the tag),
+    eight of them against the host chain fold_in(fold_in(fold_in(base,
+    ctr), tag), d)."""
     import numpy as np
     from legion_tpu_torch.sampling import access
     L = tr.sampler_t.config.num_hops
@@ -913,11 +934,16 @@ def k10_compares(tr, torch, results, main, floor):
     cp = ck.clone()
 
     def k10():
-        return access.step_keys(base, ck, 0, L)
-    # the base key and the counter read, the counter and the words written
-    t = compare("step_keys", k10,
-                lambda: access.step_keys_plain(base, cp, 0, L), exact,
-                results, torch, f"L {L}, tag 0", least=bound(24 + 16 * L),
+        return torch.cat([w.reshape(-1) for w in access.step_keys(
+            base, ck, 0, L, dropout=True)])
+
+    def k10_plain():
+        return torch.cat([w.reshape(-1) for w in access.step_keys_plain(
+            base, cp, 0, L, dropout=True)])
+    # the base key and the counter read, the counter, the words and the
+    # dropout key written
+    t = compare("step_keys", k10, k10_plain, exact, results, torch,
+                f"L {L}, tag 0, dropout row", least=bound(32 + 16 * L),
                 queued=True)
     main["step_keys"] = [t]
     print(f"  step_keys      L {L}: queued {t[4] / floor:.2f} x launch_floor "
@@ -929,40 +955,52 @@ def k10_compares(tr, torch, results, main, floor):
     b_d = torch.from_numpy(bases).to(dev)
     c0 = torch.from_numpy(ctrs).to(dev)
     c_k, c_p = c0.clone(), c0.clone()
-    out_k = torch.stack([access.step_keys(b_d[i], c_k[i], i % 2, L)
-                         for i in range(n)])
-    out_p = torch.stack([access.step_keys_plain(b_d[i], c_p[i], i % 2, L)
-                         for i in range(n)])
-    host = torch.stack([access.hop_keys(access.fold_in(access.fold_in(
-        int(bases[i]), int(ctrs[i])), i % 2), L, dev) for i in range(8)])
-    if not (torch.equal(out_k, out_p) and torch.equal(out_k[:8], host)):
-        fail("step_keys: the kernel's words differ from its plain "
-             "version's or the host chain's")
+
+    def pairs(fn, c, *members):
+        out = [fn(b_d[i], c[i], i % 2, L, *members, dropout=True)
+               for i in range(n)]
+        return (torch.stack([o[0] for o in out]),
+                torch.stack([o[1] for o in out]))
+    (out_k, drop_k), (out_p, drop_p) = (
+        pairs(access.step_keys, c_k), pairs(access.step_keys_plain, c_p))
+    steps = [access.fold_in(access.fold_in(int(bases[i]), int(ctrs[i])),
+                            i % 2) for i in range(8)]
+    host = torch.stack([access.hop_keys(k, L, dev) for k in steps])
+    host_d = torch.stack([access.dropout_words(k, dev) for k in steps])
+    if not (torch.equal(out_k, out_p) and torch.equal(out_k[:8], host)
+            and torch.equal(drop_k, drop_p)
+            and torch.equal(drop_k[:8], host_d)):
+        fail("step_keys: the kernel's words or dropout key differ from its "
+             "plain version's or the host chain's")
     if not (torch.equal(c_k, c0 + 1) and torch.equal(c_p, c0 + 1)):
         fail("step_keys: a counter was not advanced by one")
     print(f"  step_keys      {n} random (base_key, ctr) pairs, tags 0 and 1: "
-          f"all exact, every counter advanced by one")
+          f"words and dropout key all exact, every counter advanced by "
+          f"one")
     # the member fold of the clique paths: [Kg, L, 4], member d's words
     # from fold_in(step, d), the device index folded in after the tag
     Kg = CLIQUE_KG
     c_k, c_p = c0.clone(), c0.clone()
-    out_k = torch.stack([access.step_keys(b_d[i], c_k[i], i % 2, L, Kg)
-                         for i in range(n)])
-    out_p = torch.stack([access.step_keys_plain(b_d[i], c_p[i], i % 2, L,
-                                                Kg) for i in range(n)])
+    (out_k, drop_k), (out_p, drop_p) = (
+        pairs(access.step_keys, c_k, Kg),
+        pairs(access.step_keys_plain, c_p, Kg))
     host = torch.stack([torch.stack([access.hop_keys(access.fold_in(
-        access.fold_in(access.fold_in(int(bases[i]), int(ctrs[i])), i % 2),
-        d), L, dev) for d in range(Kg)]) for i in range(8)])
+        k, d), L, dev) for d in range(Kg)]) for k in steps])
+    host_d = torch.stack([torch.stack([access.dropout_words(
+        access.fold_in(k, d), dev) for d in range(Kg)]) for k in steps])
     if tuple(out_k.shape) != (n, Kg, L, 4) or not (
-            torch.equal(out_k, out_p) and torch.equal(out_k[:8], host)):
-        fail(f"step_keys: with {Kg} members the kernel's words differ from "
-             f"its plain version's or the host chain's")
+            torch.equal(out_k, out_p) and torch.equal(out_k[:8], host)
+            and torch.equal(drop_k, drop_p)
+            and torch.equal(drop_k[:8], host_d)):
+        fail(f"step_keys: with {Kg} members the kernel's words or dropout "
+             f"keys differ from its plain version's or the host chain's")
     if not (torch.equal(c_k, c0 + 1) and torch.equal(c_p, c0 + 1)):
         fail(f"step_keys: with {Kg} members a counter was not advanced by "
              f"one")
-    print(f"  step_keys      {Kg} members [{Kg}, {L}, 4], the same {n} pairs, "
-          f"tags 0 and 1: all exact, eight equal to the host chain "
-          f"fold_in(fold_in(fold_in(base, ctr), tag), d)")
+    print(f"  step_keys      {Kg} members [{Kg}, {L}, 4] and [{Kg}, 2], the "
+          f"same {n} pairs, tags 0 and 1: all exact, eight equal to the "
+          f"host chain fold_in(fold_in(fold_in(base, ctr), tag), d) and "
+          f"its fold_in(., 7)")
     k10_offsets(torch, L)
 
 
@@ -1948,6 +1986,203 @@ def k15_edges(torch, results):
     r["max_abs_err"] = max(r["max_abs_err"], worst)
 
 
+# ---------------------------------------------------------------------------
+# K16 dropout_act
+# ---------------------------------------------------------------------------
+
+# a step's dropout key words (lo, hi) for the compares
+K16_WORDS = (0x2545F491, -0x4F6CDD1D)
+
+
+def k16_act(act, torch):
+    import torch.nn.functional as F
+    return {"relu": torch.relu, "elu": F.elu, "none": lambda t: t}[act]
+
+
+def bit_exact(k, p):
+    """Bit for bit, the sign of a zero too (``exact`` compares values)."""
+    import torch
+    err = (k.float() - p.float()).abs().max().item() if k.numel() else 0.0
+    return err, same_bits(k, p, torch)
+
+
+def k16_grad_check(note, x, act, out_dtype, rate, words, layer, dy, torch):
+    """K16 forward + backward through autograd (``dropout_act``: the
+    Function that launches the kernel both ways) against the plain chain
+    under autograd (``dropout_act_plain``) on the same x and dy: y and dx
+    bit for bit, or fail. Returns the max abs error of dx."""
+    from legion_tpu_torch.ops import dropout as kd
+    out = []
+    for fn in (kd.dropout_act, kd.dropout_act_plain):
+        xg = x.detach().requires_grad_()     # x's storage and offset
+        y = fn(xg, act, out_dtype, rate, words, layer)
+        out.append((y.detach(),) + torch.autograd.grad(y, xg, dy))
+    (yk, gk), (yp, gp) = out
+    err, ok = bit_exact(gk, gp)
+    if not (ok and bit_exact(yk, yp)[1]):
+        fail(f"dropout_act {note}: forward + backward differs from the "
+             f"plain chain's under autograd (dx max abs err {err})")
+    return err
+
+
+def k16_compare(note, x, act, out_dtype, rate, results, torch, grad=True,
+                layer=0):
+    """K16 against its plain version on x at one of the path's shapes:
+    the forward bit for bit, then (with ``grad``: where x takes a gradient
+    on the path) forward + backward under autograd bit for bit
+    (``k16_grad_check``) and the backward alone, at a dy made on the card.
+    Each is timed beside its plain version, its bound (forward: x read, y
+    written; backward: dy and x read, dx written) and its library call:
+    ``F.dropout`` on the activated, cast tensor (computing less: no
+    activation, no cast), and for the backward
+    ``native_dropout_backward`` with that call's mask. Returns the
+    forward's timing tuple and, with ``grad``, the backward's."""
+    import torch.nn.functional as F
+    from legion_tpu_torch.ops import dropout as kd
+    words = torch.tensor(K16_WORDS, dtype=torch.int32, device="cuda")
+    ydt = out_dtype or x.dtype
+    s = kd.make_spec(x.shape, rate, act, ydt, layer)
+    xs, ys, n = x.element_size(), torch.empty((), dtype=ydt).element_size(), \
+        x.numel()
+    h = k16_act(act, torch)(x).to(ydt)
+    what = (f"{note} {tuple(x.shape)} {str(x.dtype)[6:]} -> {str(ydt)[6:]}, "
+            f"{act}, rate {rate}, regime {s.regime}")
+
+    def plain_fwd():
+        with torch.no_grad():
+            return kd.dropout_act_plain(x, act, out_dtype, rate, words,
+                                        layer)
+    out = [compare("dropout_act",
+                   lambda: kd.dropout_act_fwd(x, words, rate, s), plain_fwd,
+                   bit_exact, results, torch, what + " fwd",
+                   least=bound(n * (xs + ys)),
+                   library=lambda: F.dropout(h, rate, training=True),
+                   queued=True)]
+    if not grad:
+        return out
+    g = torch.Generator(device="cuda")
+    g.manual_seed(16)
+    dy = torch.randn(x.shape, generator=g, device="cuda").to(ydt)
+    k16_grad_check(what, x, act, out_dtype, rate, words, layer, dy, torch)
+    mask = torch.native_dropout(h, rate, True)[1]
+    scale = 1.0 / (1.0 - rate)
+    out.append(compare(
+        "dropout_act", lambda: kd.dropout_act_bwd(dy, x, x.dtype, words,
+                                                  rate, s),
+        lambda: kd.dropout_act_bwd_plain(dy, x, x.dtype, words, rate, s),
+        bit_exact, results, torch, what + " bwd",
+        least=bound(n * (ys + (xs if act != "none" else 0) + xs)),
+        library=lambda: torch.ops.aten.native_dropout_backward(dy, mask,
+                                                               scale),
+        queued=True))
+    return out
+
+
+def k16_compares(tr, torch, results, main, path):
+    """K16 at the shapes ``path``'s train step gives it (``tr`` at
+    ``bench.py --model X`` settings): GraphSAGE (device), GCN, lp_sage:
+    layer 0's output [S[1], hidden] f32, ReLU, cast to the compute dtype
+    (bf16 on GraphSAGE), the path's dropout rate, forward and backward;
+    GAT (gat, gat-H): layer 0's fetched features (one real batch: 128
+    wide bf16 from the device table, 100 wide from K4's cached rows),
+    dropout alone, forward only (the features take no gradient), then on
+    gat layer 1's input [S[1], heads * hidden] f32, ELU, cast to bf16, both
+    ways. The Device path's forward and backward are the kernel line's
+    numbers."""
+    model = tr.init_state()["model"]
+    S = tr.sampler_t.config.cum_sizes()
+    tc = tr.config.train
+    g = torch.Generator(device="cuda")
+    g.manual_seed(61)
+    if path in ("gat", "gat-H"):
+        _, x = one_batch(tr, torch)
+        k16_compare(f"{path} L0 features", x, "none", None,
+                    tc.gat_feat_drop, results, torch, grad=False)
+        if path == "gat":
+            x1 = torch.randn((S[1], model.layer_in[1]), generator=g,
+                             device="cuda")
+            k16_compare(f"{path} L1 input", x1, "elu", model.cdt,
+                        tc.gat_feat_drop, results, torch, layer=1)
+        return
+    x = torch.randn((S[1], tc.hidden_dim), generator=g, device="cuda")
+    # GraphSAGE casts to its compute dtype before dropout; GCN and lp_sage
+    # (no compute dtype) stay in f32
+    t = k16_compare(f"{path} L0 output", x, "relu",
+                    getattr(model, "cdt", None), tc.dropout, results, torch)
+    if path == "device":
+        main["dropout_act"] = t
+
+
+def k16_edges(torch, results):
+    """K16 at the edges of its shapes, forward and forward + backward under
+    autograd, bit for bit against the plain chain: rate 0 (the activation
+    and the cast alone), every regime (rate 0.5 at a 32-multiple width;
+    the u8 regime at 2^20 lanes or more, rate 0.6 and 0.9; the per-lane
+    regime, rates 0.5 at width 100 and 0.6 at odd widths), lane counts
+    that are not a multiple of 4, 8 or 32, a base off 16-byte alignment
+    (the one-lane path), each in f32 -> f32, f32 -> bf16 and bf16 -> bf16
+    and with no activation, ReLU and ELU, at layers 0-3."""
+    import numpy as np
+    words = torch.tensor(K16_WORDS, dtype=torch.int32, device="cuda")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(62)
+    shapes = (((37, 33), 0.6), ((64, 256), 0.5), ((33, 100), 0.5),
+              ((1049, 1001), 0.6), ((1049, 1001), 0.0), ((4097, 256), 0.9),
+              ((7, 1), 0.3))
+    dtypes = ((torch.float32, None), (torch.float32, torch.bfloat16),
+              (torch.bfloat16, None))
+    rng = np.random.default_rng(63)
+    cases = 0
+    for (shape, rate), misaligned in [(c, False) for c in shapes] + [
+            (shapes[0], True), (shapes[3], True)]:
+        n = math.prod(shape)
+        for xdt, ydt in dtypes:
+            buf = (torch.randn((n + 3,), generator=g, device="cuda") * 3
+                   ).to(xdt)
+            x = (buf[3:] if misaligned else buf[:n]).view(shape)
+            dy = torch.randn(shape, generator=g, device="cuda").to(
+                ydt or xdt)
+            for act in ("none", "relu", "elu"):
+                layer = int(rng.integers(0, 4))
+                note = (f"edge {shape} {str(xdt)[6:]} -> "
+                        f"{str(ydt or xdt)[6:]} {act} rate {rate} layer "
+                        f"{layer}{' misaligned' if misaligned else ''}")
+                if act == "none" and ydt is None and rate == 0.0:
+                    continue        # nothing to do: x itself
+                k16_grad_check(note, x, act, ydt, rate, words, layer, dy,
+                               torch)
+                cases += 1
+    results.setdefault("dropout_act", {"max_abs_err": 0.0})
+    print(f"  dropout_act    k16_edges: {cases} cases (regimes 0-3, lane "
+          f"counts 1221, 1,050,049, 7; widths 1, 33, 100, 256, 1001; a "
+          f"misaligned base), forward + backward: all bit for bit")
+
+
+def phase_k16(torch):
+    """``--k16``: K16 alone at every path shape (``k16_compares``: Device,
+    GCN, lp_sage, GAT, then gat-H on the host dataset) and its edges, with
+    K10's dropout key row on 1,000 pairs (``k10_compares``)."""
+    from legion_tpu_torch.data import synthesize_device_dataset
+    from legion_tpu_torch.train import Trainer
+    ds = synthesize_device_dataset("cuda")
+    results, main = {}, {}
+    floor = launch_floor(torch)
+    for path in ("device", "gcn", "lp_sage", "gat"):
+        model = "graphsage" if path == "device" else path
+        tr = Trainer(ds, bench_config(ds, model=model), device="cuda")
+        if path == "device":
+            k10_compares(tr, torch, results, main, floor)
+        k16_compares(tr, torch, results, main, path)
+        del tr
+        torch.cuda.empty_cache()
+    k16_edges(torch, results)
+    del ds
+    torch.cuda.empty_cache()
+    tr = host_trainer(host_dataset(), torch, "gat-H", **GAT_H)
+    k16_compares(tr, torch, results, main, "gat-H")
+    tr.close()
+
+
 def prefix_check(tr, torch, path):
     """The path's train step on the prefix fetch (K1 fetches the ids
     before the aligned last hop, K15 reads that hop's rows from the table)
@@ -2114,16 +2349,18 @@ class StepRecorder:
     and per-hop edge counts of each train batch to row ``state[ctr +
     "_d"] - 1`` (K10 has advanced the counter: ``train_ctr_d`` in a plain
     step, ``carry_ctr_d`` for an ``interbatch`` state's carry, on the
-    stream that samples it), and a wrapper around the models'
-    ``dropout_keep`` a checksum of each mask (its count of kept entries
-    and the sum of their flat positions) to row ``train_ctr_d - 1``.
-    Inside a captured step the copies are captured too, so a replay
-    records its own step."""
+    stream that samples it), a wrapper around the models'
+    ``dropout_keep`` (attention dropout) a checksum of each mask (its
+    count of kept entries and the sum of their flat positions), and one
+    around their ``dropout_act`` (feature dropout, K16) the key that fixes
+    its mask (the step's dropout key words read on the card, and the
+    layer), to row ``train_ctr_d - 1``. Inside a captured step the copies
+    are captured too, so a replay records its own step."""
 
     MASKS = 8      # dropout calls of a member's step at most
 
     def __init__(self, tr, torch, steps):
-        from legion_tpu_torch.models import common, gat
+        from legion_tpu_torch.models import common, gat, gcn, graphsage
         s, n = tr.sampler_t, tr.n_local
         self.tr, self.torch, self.steps = tr, torch, steps
         self.ids = torch.zeros((steps, n, s.ids_len), dtype=torch.int32,
@@ -2134,6 +2371,7 @@ class StepRecorder:
                                  dtype=torch.int64, device="cuda")
         self.state, self.j = None, 0
         orig_batch, orig_keep = tr._batch, common.dropout_keep
+        orig_act = graphsage.dropout_act
 
         def slot(state, ctr):
             return (state[ctr + "_d"] - 1).remainder(steps).view(1)
@@ -2150,21 +2388,31 @@ class StepRecorder:
                     [b.num_edges for b in bs])[None])
             return out
 
+        def record(row):
+            self.masks[:, self.j].index_copy_(
+                0, slot(self.state, "train_ctr"), row.view(1, 2))
+            self.j += 1
+
         def keep(*a, **kw):
             out = orig_keep(*a, **kw)
             if out is not None and self.state is not None:
                 m = out[0].reshape(-1)
                 pos = torch.arange(m.numel(), device="cuda")
-                row = torch.stack([m.sum(dtype=torch.int64),
-                                   torch.where(m, pos, 0).sum()])
-                self.masks[:, self.j].index_copy_(
-                    0, slot(self.state, "train_ctr"), row.view(1, 2))
-                self.j += 1
+                record(torch.stack([m.sum(dtype=torch.int64),
+                                    torch.where(m, pos, 0).sum()]))
             return out
+
+        def act(x, kind, out_dtype, rate, words, layer, train=True):
+            if train and words is not None and self.state is not None:
+                w = words.long()
+                record(torch.stack([w[0] + (layer << 32), w[1]]))
+            return orig_act(x, kind, out_dtype, rate, words, layer, train)
         tr._batch = batch
         self._undo = [(common, "dropout_keep", orig_keep),
-                      (gat, "dropout_keep", orig_keep)]
+                      (gat, "dropout_keep", orig_keep)] + [
+            (m, "dropout_act", orig_act) for m in (gat, gcn, graphsage)]
         common.dropout_keep = gat.dropout_keep = keep
+        gat.dropout_act = gcn.dropout_act = graphsage.dropout_act = act
 
     def bind(self, state):
         self.torch.cuda.synchronize()     # the side stream's copies too
@@ -2263,7 +2511,7 @@ def phase_fused(tr, torch, path, calls=2):
     if bad or not bool((edges_e.sum((1, 2)) > 0).all()):
         fail(f"fused {path}: the sampled batches of steps {bad} differ from "
              "the eager steps'")
-    n_masks = int((masks_e[0, :, 0] > 0).sum())
+    n_masks = int((masks_e[0] != 0).any(-1).sum())
     if not torch.equal(masks_e, masks_f):
         fail(f"fused {path}: a replayed step's dropout masks differ from "
              f"the eager step's")
@@ -2478,7 +2726,7 @@ def interbatch_check(tr, torch, path):
     if not torch.equal(m_p, m_i):
         fail(f"interbatch {path}: a step's dropout masks differ from the "
              "plain step's")
-    n_masks = int((m_p[0, :, 0] > 0).sum())
+    n_masks = int((m_p[0] != 0).any(-1).sum())
     l_rel = max(abs(a - b) / abs(b) for a, b in zip(l_i, l_p))
     p_rel = rel_norm(p_i, p_p)
     print(f"  interbatch {path}: {n} pipelined steps against {n} plain "
@@ -4237,9 +4485,10 @@ def clique_batch(tr, torch, ctr=0):
              "train_ctr_d": torch.full((), ctr, dtype=torch.int64,
                                        device="cuda"),
              "pos_map": tr._init_pos_map()}
-    seeds, _, keys = tr._member_inputs(state, s, tr.train_bank,
-                                       tr.train_ybank, tr.schedule.train_step,
-                                       "train_ctr", 0)
+    seeds, _, keys, _ = tr._member_inputs(state, s, tr.train_bank,
+                                          tr.train_ybank,
+                                          tr.schedule.train_step,
+                                          "train_ctr", 0)
     hops = []
     carries = [s._begin(seeds[d], None, register=True)
                for d in range(CLIQUE_KG)]
@@ -4296,19 +4545,20 @@ def hash_bound(m, ids, torch):
 PARENT = os.path.join(ROOT, "_archive", "parent")
 
 
-def k11_builds():
-    """K11's kernels to time in turns, by name: the parent's (its
-    ``hash_lookup.cu`` from a ``git archive`` of the parent commit in
-    ``_archive/parent``, where one is unpacked: the old [B, 8] keys and
-    values, built from source with kernels.NVCC_FLAGS into a library of
-    its own and called on contiguous copies of the map's halves), then
-    "tree", the package's own. Returns {name: make(map) -> fn(ids) ->
-    values}."""
+def k11_builds(parent=False):
+    """K11's kernels to time in turns, by name: with ``parent`` (``--clique-
+    kernels`` only) the parent's (its ``hash_lookup.cu`` from a ``git
+    archive`` of the parent commit in ``_archive/parent``, where one is
+    unpacked: the old [B, 8] keys and values, built from source with
+    kernels.NVCC_FLAGS into a library of its own and called on contiguous
+    copies of the map's halves), then "tree", the package's own. Returns
+    {name: make(map) -> fn(ids) -> values}. A full run times the tree's
+    kernel alone, whatever ``_archive`` holds."""
     import ctypes
     from legion_tpu_torch.ops import kernels
     makers = {}
     src = os.path.join(PARENT, "legion_tpu_torch", "csrc", "hash_lookup.cu")
-    if os.path.exists(src):
+    if parent and os.path.exists(src):
         out = os.path.join(str(kernels.BUILD_DIR), "k11")
         os.makedirs(out, exist_ok=True)
         so_path = os.path.join(out, "k11_parent.so")
@@ -4338,8 +4588,8 @@ def k11_builds():
             return call
         makers["parent"] = parent
     else:
-        print("  K11: no parent kernel (no _archive/parent): the tree's "
-              "kernel alone")
+        print("  K11: the tree's kernel alone (the parent's in turns only "
+              "under --clique-kernels with _archive/parent)")
     makers["tree"] = lambda m: m.lookup
     return makers
 
@@ -4450,12 +4700,13 @@ def hash_scale(torch, results, builds, n_ids):
     torch.cuda.empty_cache()
 
 
-def clique_kernels(tr, tr_hash, torch, results, main):
+def clique_kernels(tr, tr_hash, torch, results, main, parent=False):
     """K11-K14 against their plain versions at clique-HT's shapes (one real
     batch of the Kg members), exact, timed, with their bounds; K12 beside
     ``torch.sort(owner, stable=True)``; K13 over the trainer's bf16 host
     table and the other ``feature_tables``, also in turns. K11 on
-    clique-HT-hash's maps."""
+    clique-HT-hash's maps, in turns with the parent's kernel when
+    ``parent`` (``k11_builds``)."""
     from legion_tpu_torch.cache import collective as co
     from legion_tpu_torch.cache.hashmap import hash_lookup_plain
     link_bps = MEASURED["link_bps"]
@@ -4469,7 +4720,7 @@ def clique_kernels(tr, tr_hash, torch, results, main):
     # K11, at the fetch, both hops and the counters' lookup, on the hash
     # path's maps; then in turns with the parent's kernel; then at the
     # uk2014-sized map
-    builds = k11_builds()
+    builds = k11_builds(parent)
     for m, ids, what in (
             (tr_hash.feature_source.slot_map, fetch["ids"], "fetch ids"),
             (tr_hash.graph_access.row_map, hops[0]["frontier"], "hop 0"),
@@ -5234,7 +5485,7 @@ def phase_clique(hds, torch, kernels_only=False):
     tr, budget = clique_trainer(hds, torch)
     tr_hash = Trainer(hds, clique_config(hds, budget, map_impl="hash"),
                       device="cuda")
-    clique_kernels(tr, tr_hash, torch, results, main)
+    clique_kernels(tr, tr_hash, torch, results, main, parent=kernels_only)
     clique_edges(torch, results)
     clique_replay(torch)
     add_main(results, main)
@@ -5928,6 +6179,9 @@ def main():
     if sys.argv[1:2] == ["--k15"]:
         phase_k15(torch)
         return
+    if sys.argv[1:2] == ["--k16"]:
+        phase_k16(torch)
+        return
     if sys.argv[1:2] == ["--clique-kernels"]:
         hds = host_dataset()
         MEASURED["link_bps"] = bulk_link_bps(hds, torch)
@@ -6046,6 +6300,7 @@ def main():
             dedup_compares(tr, torch, results, main_ms, gcn=True)
         elif model == "lp_sage":
             k15_lp_compares(tr, torch, results)
+        k16_compares(tr, torch, results, main_ms, model)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         counts[model] = phase_slice(tr, torch, model)[0]
@@ -6058,10 +6313,11 @@ def main():
         del tr
         torch.cuda.empty_cache()
     add_main(results, main_ms)
-    for name in ("gat_attend", "hop_attention"):
-        counts["gat"][name] += counts["gat"][name + "_bwd"]
-        counts["gat"]["per_step"][name] += \
-            counts["gat"]["per_step"][name + "_bwd"]
+    for path, name in (("gat", "gat_attend"), ("gat", "hop_attention"),
+                       ("device", "dropout_act")):
+        counts[path][name] += counts[path][name + "_bwd"]
+        counts[path]["per_step"][name] += \
+            counts[path]["per_step"][name + "_bwd"]
 
     print("phase 4: small-input slices, card vs CPU")
     del ds
@@ -6113,6 +6369,7 @@ def main():
           "--features host): K6 at its layer 0, then the gat-H path")
     tr = host_trainer(hds, torch, "gat-H", **GAT_H)
     k6_compares(tr, torch, results, {}, "gat-H")
+    k16_compares(tr, torch, results, {}, "gat-H")
     counts["gat-H"], step_ms["gat-H"] = phase_slice(tr, torch, "gat-H")
     tr.close()
     del tr

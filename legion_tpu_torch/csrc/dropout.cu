@@ -1,0 +1,344 @@
+// K16 dropout_act: inverted dropout fused with the activation before it and
+// the cast between them, y = drop(cast(act(x))), and its backward.
+//
+// Replaces legion_tpu/models/common.py::dropout (:71-99), which XLA fuses
+// on the TPU into the elementwise work around it: GraphSAGE's ReLU, bf16
+// cast and dropout (legion_tpu/models/graphsage.py:120-129), GCN's ReLU and
+// dropout, GAT's ELU and cast before the next layer's feature dropout
+// (legion_tpu/models/gat.py:209, :241-245).
+//
+// act is none, ReLU or ELU (alpha 1); x is f32 or bf16; y is x's dtype, or
+// bf16 from f32 x. Lane e is the row-major element index (numel < 2^32).
+// The keep bits come from the port's counter-based hash, keyed by
+// (ka, kb) = lt_fold_in(words, layer), words the step's dropout key that
+// K10 writes on the card (step_keys.cu), so no step-varying host word
+// enters a launch and a replayed CUDA graph draws each step's masks. The
+// regimes of the JAX package:
+//   1 (rate 0.5, 2-D, width % 32 == 0): bit e % 32 of lt_word(e / 32);
+//   2 (2^20 elements or more): byte e % 4 of lt_word(e / 4) below kq;
+//   3 (otherwise): (lt_word(e) >> 8) * 2^-24 < keep, in f32;
+//   0 (rate 0): every lane kept, no scaling (the activation and the cast).
+// The forward draws the bits and the backward draws them again: no mask is
+// ever stored, and the backward reads x (for the activation's derivative)
+// and dy only.
+//
+// Arithmetic: as PyTorch's ops take it on the card, so that the plain
+// version (ops/dropout.py::dropout_act_plain: relu / elu, .to, where and
+// divide under autograd) gives the same bits. In float, then rounded: the
+// activation to x's dtype (ReLU: NaN kept, else fmaxf(a, 0), as clamp_min;
+// ELU: a > 0 ? a : expm1f(a)), the cast to y's dtype, then a kept lane
+// divided by c = keep rounded to y's dtype (times c = 256 / kq in regime
+// 2), a dropped lane +0. Backward: a kept lane's dy divided by c (times c),
+// a dropped lane 0, widened to x's dtype, then ReLU's x <= 0 ? 0 : g, or
+// ELU's x <= 0 ? g * expf(x) : g (PyTorch's elu_backward on its input),
+// rounded to x's dtype. No -use_fast_math: '/' is IEEE round to nearest.
+//
+// Bound on this card: device-memory bytes (forward: x read, y written;
+// backward: dy and x read, dx written). The hash costs about 20 integer
+// operations a word, one word a lane only in regime 3, which takes small
+// tensors.
+// Design: a thread takes 8 consecutive lanes a step (one 16-byte vector of
+// bf16, two of f32), with streaming loads and stores (__ldcs / __stcs:
+// every byte is touched once), grid-stride over lt_grid blocks; it draws
+// the words its 8 lanes need (a word of regime 1 serves 32 lanes, of
+// regime 2 four) and unpacks its 8 keep bits. The lanes past the last whole
+// vector, or all lanes where a base is not 16-byte aligned, take the same
+// arithmetic one lane at a time.
+#include <cuda_bf16.h>
+
+#include "common.cuh"
+
+namespace {
+
+enum : int { kActNone = 0, kActRelu = 1, kActElu = 2 };
+
+struct Drop {
+  uint32_t ka, kb;
+  int regime;
+  uint32_t kq;  // regime 2's threshold on a byte
+  float keep;   // regime 3's threshold, keep in f32
+  float c;      // the divisor (regimes 1, 3) or factor (2), in y's dtype
+};
+
+__device__ __forceinline__ Drop make_drop(const int32_t* words,
+                                          uint32_t layer, int regime,
+                                          uint32_t kq, float keep, float c) {
+  Drop d{0u, 0u, regime, kq, keep, c};
+  if (regime != 0) {
+    LtKey k{(uint32_t)words[0], (uint32_t)words[1]};
+    k = lt_fold_in(k, (uint64_t)layer);
+    d.ka = k.lo;
+    d.kb = k.hi;
+  }
+  return d;
+}
+
+__device__ __forceinline__ bool keep_lane(const Drop& d, uint32_t e) {
+  switch (d.regime) {
+    case 1:
+      return (lt_word(d.ka, d.kb, e >> 5) >> (e & 31u)) & 1u;
+    case 2:
+      return ((lt_word(d.ka, d.kb, e >> 2) >> (8u * (e & 3u))) & 0xFFu) <
+             d.kq;
+    case 3:
+      return (float)(lt_word(d.ka, d.kb, e) >> 8) * 5.9604644775390625e-8f <
+             d.keep;
+    default:
+      return true;
+  }
+}
+
+// the keep bits of lanes e0 .. e0 + 7 (e0 % 8 == 0), bit j for lane e0 + j
+__device__ __forceinline__ uint32_t keep_bits8(const Drop& d, uint32_t e0) {
+  switch (d.regime) {
+    case 1:
+      return (lt_word(d.ka, d.kb, e0 >> 5) >> (e0 & 31u)) & 0xFFu;
+    case 2: {
+      uint32_t m = 0;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t w = lt_word(d.ka, d.kb, (e0 >> 2) + h);
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+          m |= (uint32_t)(((w >> (8 * b)) & 0xFFu) < d.kq) << (4 * h + b);
+      }
+      return m;
+    }
+    case 3: {
+      uint32_t m = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        m |= (uint32_t)((float)(lt_word(d.ka, d.kb, e0 + j) >> 8) *
+                            5.9604644775390625e-8f <
+                        d.keep)
+             << j;
+      return m;
+    }
+    default:
+      return 0xFFu;
+  }
+}
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+template <typename XT, typename YT>
+__device__ __forceinline__ YT fwd_lane(XT xv, int act, bool kept,
+                                       const Drop& d) {
+  float a = to_f(xv);
+  if (act == kActRelu)
+    a = isnan(a) ? a : fmaxf(a, 0.0f);
+  else if (act == kActElu)
+    a = a > 0.0f ? a : expm1f(a);
+  // the activation in x's dtype, then the cast
+  const YT cy = from_f<YT>(to_f(from_f<XT>(a)));
+  if (d.regime == 0) return cy;
+  if (!kept) return from_f<YT>(0.0f);
+  return d.regime == 2 ? from_f<YT>(to_f(cy) * d.c)
+                       : from_f<YT>(to_f(cy) / d.c);
+}
+
+template <typename XT, typename YT>
+__device__ __forceinline__ XT bwd_lane(YT dy, XT xv, int act, bool kept,
+                                       const Drop& d) {
+  float g = to_f(dy);
+  if (d.regime != 0) {
+    if (!kept)
+      g = 0.0f;
+    else
+      g = to_f(from_f<YT>(d.regime == 2 ? g * d.c : g / d.c));
+  }
+  // widened to x's dtype: exact
+  if (act == kActNone) return from_f<XT>(g);
+  const float x = to_f(xv);
+  if (act == kActRelu) return from_f<XT>(x <= 0.0f ? 0.0f : g);
+  return from_f<XT>(x <= 0.0f ? g * expf(x) : g);
+}
+
+// 8 values of T from / to 16-byte aligned memory, streaming
+template <typename T>
+struct Vec8;
+template <>
+struct Vec8<float> {
+  static __device__ __forceinline__ void load(const float* p, float v[8]) {
+    const float4 a = __ldcs(reinterpret_cast<const float4*>(p));
+    const float4 b = __ldcs(reinterpret_cast<const float4*>(p) + 1);
+    v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+    v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+  }
+  static __device__ __forceinline__ void store(float* p, const float v[8]) {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+    __stcs(reinterpret_cast<float4*>(p) + 1,
+           make_float4(v[4], v[5], v[6], v[7]));
+  }
+};
+template <>
+struct Vec8<__nv_bfloat16> {
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
+                                              __nv_bfloat16 v[8]) {
+    const uint4 a = __ldcs(reinterpret_cast<const uint4*>(p));
+    const uint32_t w[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      v[2 * i] = __ushort_as_bfloat16((unsigned short)(w[i] & 0xFFFFu));
+      v[2 * i + 1] = __ushort_as_bfloat16((unsigned short)(w[i] >> 16));
+    }
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p,
+                                               const __nv_bfloat16 v[8]) {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      w[i] = (uint32_t)__bfloat16_as_ushort(v[2 * i]) |
+             ((uint32_t)__bfloat16_as_ushort(v[2 * i + 1]) << 16);
+    __stcs(reinterpret_cast<uint4*>(p), make_uint4(w[0], w[1], w[2], w[3]));
+  }
+};
+
+template <typename XT, typename YT>
+__global__ void __launch_bounds__(kThreads)
+    dropout_act_fwd_kernel(const XT* __restrict__ x, YT* __restrict__ y,
+                           int64_t n, bool vec,
+                           const int32_t* __restrict__ words, uint32_t layer,
+                           int act, int regime, uint32_t kq, float keep,
+                           float c) {
+  const Drop d = make_drop(words, layer, regime, kq, keep, c);
+  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  const int64_t chunks = vec ? n / 8 : 0;
+  for (int64_t ch = tid; ch < chunks; ch += stride) {
+    const uint32_t e0 = (uint32_t)(ch * 8);
+    XT xv[8];
+    YT yv[8];
+    Vec8<XT>::load(x + ch * 8, xv);
+    const uint32_t m = keep_bits8(d, e0);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      yv[j] = fwd_lane<XT, YT>(xv[j], act, (m >> j) & 1u, d);
+    Vec8<YT>::store(y + ch * 8, yv);
+  }
+  for (int64_t e = chunks * 8 + tid; e < n; e += stride)
+    y[e] = fwd_lane<XT, YT>(x[e], act, keep_lane(d, (uint32_t)e), d);
+}
+
+template <typename XT, typename YT>
+__global__ void __launch_bounds__(kThreads)
+    dropout_act_bwd_kernel(const YT* __restrict__ dy,
+                           const XT* __restrict__ x, XT* __restrict__ dx,
+                           int64_t n, bool vec,
+                           const int32_t* __restrict__ words, uint32_t layer,
+                           int act, int regime, uint32_t kq, float keep,
+                           float c) {
+  const Drop d = make_drop(words, layer, regime, kq, keep, c);
+  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  const int64_t chunks = vec ? n / 8 : 0;
+  const XT zero = from_f<XT>(0.0f);
+  for (int64_t ch = tid; ch < chunks; ch += stride) {
+    const uint32_t e0 = (uint32_t)(ch * 8);
+    YT gv[8];
+    XT xv[8], dv[8];
+    Vec8<YT>::load(dy + ch * 8, gv);
+    if (act != kActNone) {
+      Vec8<XT>::load(x + ch * 8, xv);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) xv[j] = zero;
+    }
+    const uint32_t m = keep_bits8(d, e0);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      dv[j] = bwd_lane<XT, YT>(gv[j], xv[j], act, (m >> j) & 1u, d);
+    Vec8<XT>::store(dx + ch * 8, dv);
+  }
+  for (int64_t e = chunks * 8 + tid; e < n; e += stride)
+    dx[e] = bwd_lane<XT, YT>(dy[e], act != kActNone ? x[e] : zero, act,
+                             keep_lane(d, (uint32_t)e), d);
+}
+
+bool aligned16(const void* p) {
+  return p == nullptr || (uintptr_t)p % 16 == 0;
+}
+
+bool bad_args(int64_t n, const int32_t* words, int act, int regime) {
+  return n < 0 || n > (int64_t)0xFFFFFFFFll || act < kActNone ||
+         act > kActElu || regime < 0 || regime > 3 ||
+         (regime != 0 && words == nullptr);
+}
+
+}  // namespace
+
+// y = drop(cast(act(x))) over n contiguous lanes. x_bf16 / y_bf16 give the
+// dtypes (f32 -> f32, f32 -> bf16 or bf16 -> bf16); words: the step's two
+// dropout key words on the card (unused in regime 0); act 0 none, 1 ReLU,
+// 2 ELU; regime 0-3 as above, with kq (regime 2), keep in f32 (regime 3)
+// and c, keep or 256 / kq rounded to y's dtype.
+LT_EXPORT int lt_dropout_act_fwd(const void* x, int x_bf16, void* y,
+                                 int y_bf16, int64_t n,
+                                 const int32_t* words, uint32_t layer,
+                                 int act, int regime, uint32_t kq,
+                                 float keep, float c, void* stream) {
+  if (bad_args(n, words, act, regime) || (x_bf16 && !y_bf16))
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return (int)cudaSuccess;
+  const bool vec = aligned16(x) && aligned16(y);
+  const unsigned int grid = lt_grid((n + 7) / 8);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (!x_bf16 && !y_bf16)
+    dropout_act_fwd_kernel<float, float><<<grid, kThreads, 0, s>>>(
+        (const float*)x, (float*)y, n, vec, words, layer, act, regime, kq,
+        keep, c);
+  else if (!x_bf16)
+    dropout_act_fwd_kernel<float, __nv_bfloat16><<<grid, kThreads, 0, s>>>(
+        (const float*)x, (__nv_bfloat16*)y, n, vec, words, layer, act,
+        regime, kq, keep, c);
+  else
+    dropout_act_fwd_kernel<__nv_bfloat16, __nv_bfloat16>
+        <<<grid, kThreads, 0, s>>>((const __nv_bfloat16*)x,
+                                   (__nv_bfloat16*)y, n, vec, words, layer,
+                                   act, regime, kq, keep, c);
+  return (int)cudaGetLastError();
+}
+
+// dx = the backward of lt_dropout_act_fwd at dy (y's dtype) and x (read
+// unless act is 0; may then be null), dx in x's dtype.
+LT_EXPORT int lt_dropout_act_bwd(const void* dy, const void* x, int x_bf16,
+                                 void* dx, int y_bf16, int64_t n,
+                                 const int32_t* words, uint32_t layer,
+                                 int act, int regime, uint32_t kq,
+                                 float keep, float c, void* stream) {
+  if (bad_args(n, words, act, regime) || (x_bf16 && !y_bf16) ||
+      (act != kActNone && x == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return (int)cudaSuccess;
+  const bool vec = aligned16(dy) && aligned16(x) && aligned16(dx);
+  const unsigned int grid = lt_grid((n + 7) / 8);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (!x_bf16 && !y_bf16)
+    dropout_act_bwd_kernel<float, float><<<grid, kThreads, 0, s>>>(
+        (const float*)dy, (const float*)x, (float*)dx, n, vec, words, layer,
+        act, regime, kq, keep, c);
+  else if (!x_bf16)
+    dropout_act_bwd_kernel<float, __nv_bfloat16><<<grid, kThreads, 0, s>>>(
+        (const __nv_bfloat16*)dy, (const float*)x, (float*)dx, n, vec, words,
+        layer, act, regime, kq, keep, c);
+  else
+    dropout_act_bwd_kernel<__nv_bfloat16, __nv_bfloat16>
+        <<<grid, kThreads, 0, s>>>((const __nv_bfloat16*)dy,
+                                   (const __nv_bfloat16*)x,
+                                   (__nv_bfloat16*)dx, n, vec, words, layer,
+                                   act, regime, kq, keep, c);
+  return (int)cudaGetLastError();
+}

@@ -17,6 +17,11 @@
 // members first .. first + n - 1 of the world (a rank of a run across
 // processes writes its own); with n 0 (one device) no device index is
 // folded in, as before, and out is [L, 4].
+// With drop given, the same launch writes each member's dropout key,
+// fold_in(step_d, 7) (step_d = step without members; JAX's train step folds
+// 7 into its key for dropout, legion_tpu/train.py:612), as two words (lo,
+// hi) a member: [2], or [n, 2] with members. K16 (dropout.cu) folds a
+// layer index into it.
 //
 // fold_in is common.cuh::lt_fold_in (sampling/access.py::fold_in, bit for
 // bit). Every half is an explicit uint32 cast of the 64-bit value, never
@@ -31,10 +36,12 @@
 
 namespace {
 
+constexpr uint64_t kDropoutTag = 7;
+
 __global__ void __launch_bounds__(32) step_keys_kernel(
     const int64_t* __restrict__ base_key, int64_t* __restrict__ ctr,
     uint32_t tag, int32_t L, int32_t n_dev, int64_t first,
-    uint32_t* __restrict__ out) {
+    uint32_t* __restrict__ out, uint32_t* __restrict__ drop) {
   const uint64_t base = (uint64_t)base_key[0];
   const uint64_t c = (uint64_t)ctr[0];
   LtKey k{(uint32_t)(base & 0xFFFFFFFFull), (uint32_t)(base >> 32)};
@@ -50,6 +57,14 @@ __global__ void __launch_bounds__(32) step_keys_kernel(
     out[4 * t + 2] = s1.lo;
     out[4 * t + 3] = s1.hi;
   }
+  const int members = n_dev > 0 ? n_dev : 1;
+  for (int d = threadIdx.x; drop != nullptr && d < members;
+       d += blockDim.x) {
+    const LtKey sk = n_dev > 0 ? lt_fold_in(k, (uint64_t)(first + d)) : k;
+    const LtKey dk = lt_fold_in(sk, kDropoutTag);
+    drop[2 * d] = dk.lo;
+    drop[2 * d + 1] = dk.hi;
+  }
   __syncthreads();
   if (threadIdx.x == 0) ctr[0] = (int64_t)(c + 1);
 }
@@ -58,12 +73,13 @@ __global__ void __launch_bounds__(32) step_keys_kernel(
 
 // base_key and ctr: one int64 each on the card; out: [L, 4] uint32 when
 // n_dev is 0, else [n_dev, L, 4], row d with the device index first + d
-// folded in.
+// folded in; drop: null, or [2] uint32 when n_dev is 0, else [n_dev, 2].
 LT_EXPORT int lt_step_keys(const int64_t* base_key, int64_t* ctr,
                            uint32_t tag, int32_t L, int32_t n_dev,
-                           int64_t first, uint32_t* out, void* stream) {
+                           int64_t first, uint32_t* out, uint32_t* drop,
+                           void* stream) {
   if (L <= 0 || n_dev < 0 || first < 0) return (int)cudaErrorInvalidValue;
-  step_keys_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(base_key, ctr, tag, L,
-                                                      n_dev, first, out);
+  step_keys_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(
+      base_key, ctr, tag, L, n_dev, first, out, drop);
   return (int)cudaGetLastError();
 }

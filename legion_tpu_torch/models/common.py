@@ -1,5 +1,6 @@
-"""Shared model utilities: block geometry, initialisers, dropout, and the
-model factory (port of ``legion_tpu/models/common.py``).
+"""Shared model utilities: block geometry, initialisers, attention
+dropout's keep mask, and the model factory (port of
+``legion_tpu/models/common.py``).
 
 Block geometry: layer i (of L) aggregates over hop k = L-1-i; its input
 covers local positions [0, S[k+1]) and its output [0, S[k]), with S the
@@ -14,6 +15,7 @@ from typing import Optional, Tuple
 import torch
 
 from legion_tpu_torch.config import SamplerConfig, TrainConfig
+from legion_tpu_torch.ops.dropout import regime, u8_threshold
 
 
 def static_cum_sizes(cfg: SamplerConfig) -> Tuple[int, ...]:
@@ -51,68 +53,33 @@ def xavier_uniform_padded(logical_in: int, padded_in: int,
     return out
 
 
-def _u8_regime(shape: Tuple[int, ...], rate: float) -> bool:
-    """Dropout's second regime: u8 draws, for 2**20 elements or more
-    (rate 0.5 on a 32-multiple width takes the first regime first)."""
-    if rate == 0.5 and len(shape) == 2 and shape[-1] % 32 == 0:
-        return False
-    return len(shape) >= 2 and math.prod(shape) >= (1 << 20)
-
-
 def dropout_keep(shape: Tuple[int, ...], rate: float,
                  generator: Optional[torch.Generator],
                  device: Optional[torch.device] = None
                  ) -> Optional[Tuple[torch.Tensor, float]]:
-    """The keep mask (bool, ``shape``) and the scale of kept entries for
-    inverted dropout, in the three regimes of the JAX package (the masks
-    come from ``generator``, so the bits differ from JAX's); None when
-    nothing is dropped:
-      - rate 0.5 on [N, d] with d % 32 == 0: one random bit per element,
-        unpacked from 32-bit words;
-      - 2**20 elements or more: u8 draws against a threshold, keep rate
-        quantised to 1/256 and the scale taken from the quantised rate;
-      - otherwise a uniform draw per element."""
+    """Attention dropout's keep mask (bool, ``shape``) and the scale of
+    kept entries, drawn from ``generator`` in the three regimes of the JAX
+    package (``ops/dropout.py::regime``; the bits differ from JAX's); None
+    when nothing is dropped. K6 and K7 take it. Feature dropout draws its
+    bits from the step's key inside K16 (``ops/dropout.py``)."""
     if rate <= 0.0 or generator is None:
         return None
     keep = 1.0 - rate
-    if rate == 0.5 and len(shape) == 2 and shape[-1] % 32 == 0:
+    r = regime(tuple(shape), rate)
+    if r == 1:
         words = torch.randint(-2 ** 31, 2 ** 31, (shape[0], shape[1] // 32),
                               dtype=torch.int32, generator=generator,
                               device=device)
         shifts = torch.arange(32, dtype=torch.int32, device=device)
         mask = ((words[:, :, None] >> shifts) & 1).reshape(shape) != 0
         return mask, 1.0 / keep
-    if _u8_regime(shape, rate):
-        kq = min(max(round(keep * 256), 1), 255)
+    if r == 2:
+        kq = u8_threshold(rate)
         bits = torch.randint(0, 256, shape, dtype=torch.uint8,
                              generator=generator, device=device)
         return bits < kq, 256.0 / kq
     mask = torch.rand(shape, generator=generator, device=device) < keep
     return mask, 1.0 / keep
-
-
-def dropout(x: torch.Tensor, rate: float,
-            generator: Optional[torch.Generator], train: bool
-            ) -> torch.Tensor:
-    """Inverted dropout with the mask of ``dropout_keep``, as JAX applies
-    it (``legion_tpu/models/common.py:86``, ``:96``, ``:99``): kept entries
-    divided by keep, or in the u8 regime multiplied by 256 / kq, with the
-    constant in x's dtype (JAX's weakly typed scalar takes x's dtype) and
-    on x's device (a divisor on the host would turn the division into a
-    multiplication by its reciprocal on the card)."""
-    if not train:
-        return x
-    keep = dropout_keep(tuple(x.shape), rate, generator, x.device)
-    if keep is None:
-        return x
-    mask, scale = keep
-
-    def const(v):
-        return torch.full((), v, dtype=x.dtype, device=x.device)
-
-    kept = x * const(scale) if _u8_regime(tuple(x.shape), rate) \
-        else x / const(1.0 - rate)
-    return torch.where(mask, kept, const(0.0))
 
 
 def make_model(train_cfg: TrainConfig, sampler_cfg: SamplerConfig,

@@ -15,7 +15,11 @@ a gathered one (``gat_layer_apply``). The GEMMs around them are
 ``torch.matmul``.
 
 Feature dropout is drawn per slot: on an aligned hop two draws of one node
-are two slots with independent masks (as in JAX, ``gat.py:55-58``).
+are two slots with independent masks (as in JAX, ``gat.py:55-58``). It is
+one K16 pass a layer (``ops/dropout.py``), its bits from the step's dropout
+key; layer i > 0's pass also takes the ELU and the cast of layer i - 1's
+output. Attention dropout's masks come from a generator and go to K6 and
+K7 as (mask, scale).
 JAX rematerialises a bf16 layer 0 in the backward (``jax.checkpoint``,
 ``gat.py:223-231``) to fit a 16 GB TPU; on an 80 GB card the port keeps
 the activations.
@@ -26,14 +30,14 @@ from __future__ import annotations
 from typing import Mapping, Optional, Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from legion_tpu_torch.config import SamplerConfig
-from legion_tpu_torch.models.common import (dropout, dropout_keep,
-                                            static_cum_sizes, xavier_uniform,
+from legion_tpu_torch.models.common import (dropout_keep, static_cum_sizes,
+                                            xavier_uniform,
                                             xavier_uniform_padded)
 from legion_tpu_torch.ops import kernels
+from legion_tpu_torch.ops.dropout import dropout_act
 from legion_tpu_torch.ops.hop_agg import hop_softmax_attention, place_rows
 from legion_tpu_torch.ops.segment import gather_rows
 from legion_tpu_torch.sampling.sampler import SampleBatch
@@ -121,6 +125,9 @@ class GAT(nn.Module):
     (padded) feature width at i = 0, else hidden * H_{i-1}; its per-head
     output is hidden, or the class count for the last layer."""
 
+    # ``forward`` takes attention dropout's generator besides the key words
+    takes_generator = True
+
     def __init__(self, in_dim: int, hidden_dim: int, num_classes: int,
                  num_layers: int, device: torch.device,
                  heads: Sequence[int] = (8, 1), feat_drop: float = 0.6,
@@ -172,25 +179,29 @@ class GAT(nn.Module):
 
     def forward(self, feats: torch.Tensor, batch: SampleBatch,
                 sampler_cfg: SamplerConfig,
+                drop_key: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
         """feats [max_ids, in_dim_pad] -> logits [batch_size, classes].
-        Dropout (features, then attention, per layer) runs in training
-        mode when a generator is given."""
+        In training mode, feature dropout runs when the step's dropout key
+        words ``drop_key`` are given (layer i's bits from i), attention
+        dropout when ``generator`` is."""
         if sampler_cfg.num_hops != self.num_layers:
             raise ValueError("layer count must match sampling hops")
         S = static_cum_sizes(sampler_cfg)
         L = self.num_layers
-        train = self.training and generator is not None
-        h = feats
+        h, act, cdt = feats, "none", None
         for i in range(L):
             k = L - 1 - i
             fanout = sampler_cfg.fanouts[k]
             edge_src = batch.edge_src[k]
-            h = dropout(h, self.feat_drop, generator, train)
+            # the previous layer's ELU and cast, and this layer's dropout
+            h = dropout_act(h, act, cdt, self.feat_drop, drop_key, i,
+                            self.training)
             keep = _attn_keep((fanout, edge_src.shape[0] // fanout,
                                self.heads[i]), self.attn_drop, generator,
-                              train, h.device)
+                              self.training and generator is not None,
+                              h.device)
             ao = sampler_cfg.aligned_hop_offset(k)
             args = (self.layers[i], h[:S[k + 1]], edge_src, fanout,
                     batch.hop_offsets[k], S[k])
@@ -201,10 +212,9 @@ class GAT(nn.Module):
                 out = gat_layer_apply(*args, self.negative_slope, keep,
                                       None, self.cdt)
             if i != L - 1:
-                out = F.elu(out.reshape(out.shape[0], -1))
-                if self.cdt is not None:
-                    out = out.to(self.cdt)
+                # flatten the heads; ELU and the cast wait for the next
+                # layer's dropout
+                h, act, cdt = out.reshape(out.shape[0], -1), "elu", self.cdt
             else:
-                out = out.mean(dim=1)
-            h = out
+                h = out.mean(dim=1)
         return h[:sampler_cfg.batch_size]

@@ -19,9 +19,10 @@ import torch
 from torch import nn
 
 from legion_tpu_torch.config import SamplerConfig
-from legion_tpu_torch.models.common import (dropout, static_cum_sizes,
+from legion_tpu_torch.models.common import (static_cum_sizes,
                                             xavier_uniform_padded)
 from legion_tpu_torch.ops import kernels
+from legion_tpu_torch.ops.dropout import dropout_act
 from legion_tpu_torch.ops.hop_agg import hop_neighbor_sum
 from legion_tpu_torch.sampling.sampler import SampleBatch
 
@@ -113,10 +114,11 @@ class GCN(nn.Module):
 
     def forward(self, feats: torch.Tensor, batch: SampleBatch,
                 sampler_cfg: SamplerConfig,
-                generator: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
+                drop_key: Optional[torch.Tensor] = None) -> torch.Tensor:
         """feats [max_ids, in_dim_pad] -> logits [batch_size, classes].
-        Dropout runs in training mode when a generator is given."""
+        Dropout runs in training mode when the step's dropout key words
+        ``drop_key`` are given; between layers ReLU and dropout are one
+        K16 pass."""
         if sampler_cfg.num_hops != self.num_layers:
             raise ValueError("layer count must match sampling hops")
         S = static_cum_sizes(sampler_cfg)
@@ -129,6 +131,6 @@ class GCN(nn.Module):
                                 batch.hop_offsets[k], S[k],
                                 sampler_cfg.aligned_hop_offset(k))
             if i != L - 1:
-                h = dropout(torch.relu(h), self.dropout_rate, generator,
-                            self.training)
+                h = dropout_act(h, "relu", None, self.dropout_rate,
+                                drop_key, i, self.training)
         return h[:sampler_cfg.batch_size]

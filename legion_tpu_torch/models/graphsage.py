@@ -2,7 +2,8 @@
 
     h_N(v) = mean_{(u->v) in block} h_u
     h'_v   = h_v W_self + b + h_N(v) W_neigh
-    between layers: ReLU, cast to the compute dtype, dropout
+    between layers: ReLU, cast to the compute dtype, dropout (one K16
+    pass, ``ops/dropout.py``)
 
 Weights keep the JAX layout, ``[d_in, d_out]``, so converting parameters
 from the JAX package is a copy (``utils/convert.py::params_from_jax``).
@@ -19,8 +20,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from legion_tpu_torch.config import SamplerConfig
-from legion_tpu_torch.models.common import (dropout, static_cum_sizes,
+from legion_tpu_torch.models.common import (static_cum_sizes,
                                             xavier_uniform_padded)
+from legion_tpu_torch.ops.dropout import dropout_act
 from legion_tpu_torch.ops.hop_agg import TableRows, hop_neighbor_mean
 from legion_tpu_torch.sampling.sampler import SampleBatch
 
@@ -110,12 +112,11 @@ class GraphSAGE(nn.Module):
 
     def forward(self, feats: Union[torch.Tensor, TableRows],
                 batch: SampleBatch, sampler_cfg: SamplerConfig,
-                generator: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
+                drop_key: Optional[torch.Tensor] = None) -> torch.Tensor:
         """feats [max_ids, in_dim_pad] (or ``TableRows`` of them, with the
         aligned last hop left in the table) -> logits [batch_size,
-        classes]. Dropout runs in training mode when a generator is
-        given."""
+        classes]. Dropout runs in training mode when the step's dropout
+        key words ``drop_key`` are given (layer i's bits from i)."""
         if sampler_cfg.num_hops != self.num_layers:
             raise ValueError("layer count must match sampling hops")
         S = static_cum_sizes(sampler_cfg)
@@ -129,9 +130,7 @@ class GraphSAGE(nn.Module):
                                  batch.hop_offsets[k], S[k],
                                  sampler_cfg.aligned_hop_offset(k))
             if i != L - 1:
-                h = torch.relu(h)
-                if self.cdt is not None:
-                    # bf16 between layers, cast before dropout
-                    h = h.to(self.cdt)
-                h = dropout(h, self.dropout_rate, generator, self.training)
+                # ReLU, bf16 between layers (cast before dropout), dropout
+                h = dropout_act(h, "relu", self.cdt, self.dropout_rate,
+                                drop_key, i, self.training)
         return h[:sampler_cfg.batch_size]

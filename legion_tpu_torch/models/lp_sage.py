@@ -45,10 +45,11 @@ class LinkPredSAGE(GraphSAGE):
 
     def loss(self, feats: torch.Tensor, batch: SampleBatch,
              sampler_cfg: SamplerConfig, seed_valid: torch.Tensor,
-             generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """Mean link-prediction loss over the valid anchors."""
+             drop_key: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Mean link-prediction loss over the valid anchors; dropout in
+        training mode when the step's dropout key words are given."""
         check_thirds(sampler_cfg.batch_size)
-        h = self.encode(feats, batch, sampler_cfg, generator)
+        h = self.encode(feats, batch, sampler_cfg, drop_key)
         third = sampler_cfg.batch_size // 3
         h_a, h_p, h_n = h[:third], h[third:2 * third], h[2 * third:]
         pos = (h_a * h_p).sum(dim=-1)

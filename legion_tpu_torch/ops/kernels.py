@@ -38,7 +38,9 @@ K11 ``hash_lookup`` (the hash map's lookup) in ``cache/hashmap.py``; K12
 ``bucket_by_owner`` (a clique request's routing to its owners), K13
 ``clique_gather`` (the requester's rows, with the host misses) and K14
 ``clique_draw`` (the owners' draws, and ``clique_draw_unsort`` on the
-requester's side) in ``cache/collective.py``;
+requester's side) in ``cache/collective.py``; K16 ``dropout_act``
+(dropout fused with the activation and the cast before it, backward
+counted under ``dropout_act_bwd``) in ``ops/dropout.py``;
 host-memory registration for K4 and K5 is ``ops/host_memory.py``. The
 headers of ``csrc/*.cu`` say what bounds each kernel on the card.
 ``noop`` launches an empty kernel, the yardstick of a launch's cost, and
@@ -82,7 +84,8 @@ LAUNCHES: Dict[str, int] = {"gather_rows": 0, "segment_sum": 0,
                             "hash_lookup": 0, "bucket_by_owner": 0,
                             "clique_gather": 0, "clique_draw": 0,
                             "clique_draw_unsort": 0, "hop_mean": 0,
-                            "hop_mean_bwd": 0, "hop_mean_grad": 0}
+                            "hop_mean_bwd": 0, "hop_mean_grad": 0,
+                            "dropout_act": 0, "dropout_act_bwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -199,7 +202,7 @@ def lib() -> ctypes.CDLL:
     so.lt_dedup_map_fused.argtypes = [p, i64, p, i64, p, i64, p, i32, p, p,
                                       p, i64, p, p]
     so.lt_dedup_map_grid.argtypes = [i64, i64, i64]
-    so.lt_step_keys.argtypes = [p, p, u32, i32, i32, i64, p, p]
+    so.lt_step_keys.argtypes = [p, p, u32, i32, i32, i64, p, p, p]
     so.lt_hash_lookup.argtypes = [p, i64, i32, p, i64, p, p]
     so.lt_bucket_scratch.argtypes = [i64, i64, i32]
     so.lt_bucket_scratch.restype = ctypes.c_int64
@@ -210,6 +213,10 @@ def lib() -> ctypes.CDLL:
         fn.argtypes = [p, p, i64, i64, i32, p, i64, i32, i64, i32, p, i32,
                        p, p]
     so.lt_clique_draw_unsort.argtypes = [p, p, p, i64, i64, i32, p, p]
+    so.lt_dropout_act_fwd.argtypes = [p, i32, p, i32, i64, p, u32, i32, i32,
+                                      u32, f32, f32, p]
+    so.lt_dropout_act_bwd.argtypes = [p, p, i32, p, i32, i64, p, u32, i32,
+                                      i32, u32, f32, f32, p]
     so.lt_noop.argtypes = [p]
     so.lt_grid_sync_probe.argtypes = [i32, i32, p]
     for fn in (so.lt_noop, so.lt_gather_rows, so.lt_segment_sum_f32,
@@ -227,7 +234,8 @@ def lib() -> ctypes.CDLL:
                so.lt_grid_sync_probe, so.lt_step_keys, so.lt_hash_lookup,
                so.lt_bucket_by_owner, so.lt_clique_gather,
                so.lt_clique_draw_i32, so.lt_clique_draw_i64,
-               so.lt_clique_draw_unsort):
+               so.lt_clique_draw_unsort, so.lt_dropout_act_fwd,
+               so.lt_dropout_act_bwd):
         fn.restype = ctypes.c_int
     so.lt_error_string.argtypes = [ctypes.c_int]
     so.lt_error_string.restype = ctypes.c_char_p

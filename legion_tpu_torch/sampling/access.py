@@ -30,6 +30,9 @@ from legion_tpu_torch.ops.host_memory import HostTable
 
 M32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9
+# folded into a train step's key for its dropout key, as the JAX step does
+# (legion_tpu/train.py:612)
+DROPOUT_TAG = 7
 
 
 def _mul32(x, c: int):
@@ -127,7 +130,7 @@ def _key_arg(name: str, key, device) -> torch.Tensor:
 
 def step_keys_plain(base_key: torch.Tensor, ctr: torch.Tensor, tag: int,
                     num_hops: int, n_dev: int = 1, first: int = 0,
-                    n: Optional[int] = None) -> torch.Tensor:
+                    n: Optional[int] = None, dropout: bool = False):
     """Plain K10 in int64 torch ops: with step = fold_in(fold_in(base_key,
     ctr), tag), row k of the [num_hops, 4] int32 result is
     ``draw_keys(fold_in(step, k))`` as uint32 bits; then ctr += 1 in
@@ -137,7 +140,9 @@ def step_keys_plain(base_key: torch.Tensor, ctr: torch.Tensor, tag: int,
     n_dev by default), member d's from fold_in(step, d) (JAX's
     ``_device_key`` folds the device index after the tag): a rank that
     holds one member of many folds its own index. With one member in the
-    world no device index is folded in."""
+    world no device index is folded in. With ``dropout`` it returns
+    (words, drop): ``drop`` is each member's dropout key fold_in(step_d,
+    7) as int32 (lo, hi), [2] or [n, 2] (``dropout_words``)."""
     n = _check_members(n_dev, first, n)
     b, c = base_key.reshape(()), ctr.reshape(())
     lo, hi = fold_in_words(b & M32, (b >> 32) & M32, c)
@@ -147,10 +152,15 @@ def step_keys_plain(base_key: torch.Tensor, ctr: torch.Tensor, tag: int,
                            device=ctr.device)
         lo, hi = fold_in_words(lo, hi, dev[:, None])
     hop = torch.arange(num_hops, dtype=torch.int64, device=ctr.device)
-    lo, hi = fold_in_words(lo, hi, hop)
-    words = fold_in_words(lo, hi, 0) + fold_in_words(lo, hi, 1)
+    hlo, hhi = fold_in_words(lo, hi, hop)
+    words = _as_i32(torch.stack(fold_in_words(hlo, hhi, 0)
+                                + fold_in_words(hlo, hhi, 1), dim=-1))
     ctr.add_(1)
-    return _as_i32(torch.stack(words, dim=-1))
+    if not dropout:
+        return words
+    drop = torch.stack(fold_in_words(lo, hi, DROPOUT_TAG), dim=-1)
+    return words, _as_i32(drop.reshape(-1, 2) if n_dev > 1
+                          else drop.reshape(2))
 
 
 def _check_members(n_dev: int, first: int, n: Optional[int]) -> int:
@@ -165,12 +175,13 @@ def _check_members(n_dev: int, first: int, n: Optional[int]) -> int:
 
 def step_keys(base_key: torch.Tensor, ctr: torch.Tensor, tag: int,
               num_hops: int, n_dev: int = 1, first: int = 0,
-              n: Optional[int] = None) -> torch.Tensor:
+              n: Optional[int] = None, dropout: bool = False):
     """K10, as ``step_keys_plain``: base_key and ctr are int64 scalars on
     one device; one launch writes the [num_hops, 4] key words ([n,
     num_hops, 4] for members first .. first + n - 1 of n_dev > 1) and adds
     one to ctr, with no host word in the launch (a captured step replays
-    with each step's keys)."""
+    with each step's keys). With ``dropout`` the same launch also writes
+    each member's dropout key words, and it returns (words, drop)."""
     if base_key.dtype != torch.int64 or ctr.dtype != torch.int64 \
             or base_key.numel() != 1 or ctr.numel() != 1 \
             or base_key.device != ctr.device or num_hops <= 0 \
@@ -181,14 +192,28 @@ def step_keys(base_key: torch.Tensor, ctr: torch.Tensor, tag: int,
     n = _check_members(n_dev, first, n)
     dev = ctr.device
     if dev.type == "cpu":
-        return step_keys_plain(base_key, ctr, tag, num_hops, n_dev, first, n)
+        return step_keys_plain(base_key, ctr, tag, num_hops, n_dev, first, n,
+                               dropout)
     shape = (num_hops, 4) if n_dev == 1 else (n, num_hops, 4)
     out = torch.empty(shape, dtype=torch.int32, device=dev)
+    drop = torch.empty((2,) if n_dev == 1 else (n, 2), dtype=torch.int32,
+                       device=dev) if dropout else None
     rc = kernels.lib().lt_step_keys(base_key.data_ptr(), ctr.data_ptr(), tag,
                                     num_hops, 0 if n_dev == 1 else n, first,
-                                    out.data_ptr(), kernels.stream_handle())
+                                    out.data_ptr(),
+                                    None if drop is None else drop.data_ptr(),
+                                    kernels.stream_handle())
     kernels.check("step_keys", rc)
-    return out
+    return out if drop is None else (out, drop)
+
+
+def dropout_words(key: int, device) -> torch.Tensor:
+    """The [2] int32 (lo, hi) of fold_in(key, 7), the dropout key of the
+    step key ``key``, made on the host (K10 writes the same on the card for
+    a train step: ``step_keys(..., dropout=True)``)."""
+    k = fold_in(key, DROPOUT_TAG)
+    return torch.tensor(_as_i32([k & M32, k >> 32]), dtype=torch.int32,
+                        device=device)
 
 
 def hash_words(ka, kb, lanes: torch.Tensor) -> torch.Tensor:

@@ -10,13 +10,16 @@ ctr % steps), per-step counters stay device tensors, and the step's keys
 come from the device counters as JAX's do (``legion_tpu/train.py::
 _device_key``): K10 ``step_keys`` derives hop k's key words from
 fold_in(fold_in(fold_in(base_key, ctr), tag), k), tag 0 for a train step
-and 1 for an eval step, and advances the counter, one launch a step. The
-host keeps Python twins of the counters, and from them seeds the dropout
-generator with fold_in(step key, 7), as the JAX step folds 7 into its key
-for dropout. So a state's counters alone fix every later batch.
+and 1 for an eval step, and advances the counter, one launch a step. In a
+train step the same launch writes the step's dropout key, fold_in(step
+key, 7), as the JAX step folds 7 into its key for dropout (``legion_tpu/
+train.py:612``); feature dropout (K16) folds each layer into it on the
+card. The host keeps Python twins of the counters, and from them seeds
+GAT's attention-dropout generator with the same key. So a state's
+counters alone fix every later batch.
 
-A step is a host part (``_seed_train_dropout``: the dropout seeds from
-the host's counter) around a device part (``_step_body``: K10, the
+A step is a host part (``_seed_train_dropout``: the generators' seeds
+from the host's counter) around a device part (``_step_body``: K10, the
 sampling, the fetch, the forward of every member, the backward, Adam
 and the counters), the unit a CUDA graph captures.
 
@@ -47,17 +50,19 @@ checkpoint means the same in both modes. Losses, parameters, ids, masks
 and counters equal the plain step's.
 
 Both modes take members and process groups, as JAX's ``shard_map`` step
-takes any mesh: each member's model draws from its own dropout
-generator, and every generator is registered with a captured graph. The
-collectives of a step (the gradients' and the loss's all-reduce, layout
-(b)'s all-to-alls) are captured with it under NCCL; gloo ranks take
-eager steps. Under ``interbatch`` in layout (b), the update's all-reduces
-wait for the side stream's all-to-alls (``_interbatch_step``).
+takes any mesh: each member's model draws its feature dropout from its own
+row of K10's dropout keys (the carry holds its batch's, ``carry_dkey``) and
+its attention dropout from its own generator, and every generator is
+registered with a captured graph. The collectives of a step (the
+gradients' and the loss's all-reduce, layout (b)'s all-to-alls) are
+captured with it under NCCL; gloo ranks take eager steps. Under
+``interbatch`` in layout (b), the update's all-reduces wait for the side
+stream's all-to-alls (``_interbatch_step``).
 
 Every state owns its parameters: ``init_state`` builds a new module and a
 new Adam, so a second ``init_state`` or a restore into the same trainer
 leaves a live state as it was. The host's copy of the base key lives in
-the state too (``base_key_h``), since dropout is seeded from it.
+the state too (``base_key_h``), since the generators are seeded from it.
 
 Ported: storage set-up on one device (``_setup_storage``) for a device
 dataset and for a host ``LegionDataset``: measured buffer caps from
@@ -77,8 +82,9 @@ Members (``MeshConfig(num_cliques=Kc, clique_size=Kg)``, n_dev = Kc * Kg
 on this one device, in one process. Member d draws its seeds from its own
 bank row (``seeds_for_partition(w, d, n_dev)``), its keys with d folded
 in after the tag (K10 writes [n_dev, L, 4] words), keeps its own row of
-``pos_map`` ([n_dev, S]) and draws its dropout from a generator of its
-own, seeded from fold_in(fold_in(step key, d), 7). The members sample in
+``pos_map`` ([n_dev, S]) and draws its dropout from fold_in(fold_in(step
+key, d), 7): feature dropout from its row of K10's dropout keys, attention
+dropout from a generator of its own seeded with it. The members sample in
 lockstep (``NeighborSampler.sample_members``: the clique topology cache
 answers every member's frontier of a hop at once) and fetch through the
 clique caches of ``cache/collective.py`` (``_setup_clique``, JAX's
@@ -155,9 +161,11 @@ from legion_tpu_torch.parallel.mesh import (Mesh, add_collective_counts,
                                             all_reduce, collective_counts,
                                             dp_size)
 from legion_tpu_torch.pipeline.schedule import Mode, Schedule
-from legion_tpu_torch.sampling.access import (CachedTopoAccess,
+from legion_tpu_torch.sampling.access import (DROPOUT_TAG,
+                                              CachedTopoAccess,
                                               DeviceCSRAccess,
-                                              WindowedCSRAccess, fold_in,
+                                              WindowedCSRAccess,
+                                              dropout_words, fold_in,
                                               step_keys)
 from legion_tpu_torch.sampling.sampler import (INT32_MAX, NeighborSampler,
                                                SampleBatch)
@@ -165,8 +173,8 @@ from legion_tpu_torch.utils.checkpoint import save_checkpoint
 from legion_tpu_torch.utils.metrics import StepMetrics
 
 # fold_in tags, as in legion_tpu/train.py: a train step's key (:590, :606),
-# an eval step's (:765), dropout's (:612)
-_TRAIN_TAG, _EVAL_TAG, _DROPOUT_TAG = 0, 1, 7
+# an eval step's (:765); dropout's (:612) is access.DROPOUT_TAG
+_TRAIN_TAG, _EVAL_TAG = 0, 1
 _PRESAMPLE_OFFSET = 17
 
 
@@ -748,9 +756,10 @@ class Trainer:
         advances it) of every member here into the state's carry, on the
         current stream; on a card, ``carry_ready`` marks the end of it
         there."""
-        batch, x, hits, seeds, y = self._train_batch(state, "carry_ctr")
+        batch, x, hits, seeds, y, dkey = self._train_batch(state,
+                                                           "carry_ctr")
         state.update(carry_batch=batch, carry_x=x, carry_hits=hits,
-                     carry_seeds=seeds, carry_y=y)
+                     carry_seeds=seeds, carry_y=y, carry_dkey=dkey)
         if self.device.type == "cuda":
             state["carry_ready"] = torch.cuda.Event()
             state["carry_ready"].record()
@@ -777,7 +786,7 @@ class Trainer:
         step folds 7 into its key (``legion_tpu/train.py:612``); ``gen``
         is a member's generator, the first by default."""
         (gen or self._drop_gen).manual_seed(
-            fold_in(key, _DROPOUT_TAG) & (2**63 - 1))
+            fold_in(key, DROPOUT_TAG) & (2**63 - 1))
 
     def _seed_train_dropout(self, state: Dict) -> None:
         """The host part of the train step at ``state["train_ctr"]``:
@@ -795,18 +804,20 @@ class Trainer:
     def _batch_inputs(self, state: Dict, sampler: NeighborSampler,
                       bank: torch.Tensor, ybank: torch.Tensor, n: int,
                       ctr: str, tag: int):
-        """Seeds, labels and key words of the batch at the device counter
-        ``state[ctr + "_d"]``, read on the card (no host value enters):
-        lid = ctr % n selects the bank row, then K10 derives the keys and
-        advances the counter."""
+        """Seeds, labels, key words and dropout key words of the batch at
+        the device counter ``state[ctr + "_d"]``, read on the card (no host
+        value enters): lid = ctr % n selects the bank row, then K10 derives
+        the keys (with a train step's dropout key, fold_in(step key, 7);
+        None for an eval step) and advances the counter."""
         bs = sampler.config.batch_size
         ctr_d = state[ctr + "_d"]
         lid = (ctr_d % n).reshape(1)
         seeds = bank.view(n, bs).index_select(0, lid).reshape(bs)
         y = ybank.view(n, bs).index_select(0, lid).reshape(bs)
+        train = tag == _TRAIN_TAG
         keys = step_keys(state["base_key"], ctr_d, tag,
-                         sampler.config.num_hops)
-        return seeds, y, keys
+                         sampler.config.num_hops, dropout=train)
+        return (seeds, y) + (keys if train else (keys, None))
 
     def _sample_fetch(self, state: Dict, sampler: NeighborSampler,
                       seeds: torch.Tensor, keys: torch.Tensor
@@ -842,29 +853,32 @@ class Trainer:
                   seeds: torch.Tensor, y: torch.Tensor, key: int
                   ) -> torch.Tensor:
         """Forward, backward and one Adam step on one batch, dropout from
-        the step key ``key``."""
+        the step key ``key`` (its dropout key words made on the host)."""
         self._seed_dropout(key)
-        return self._update(state, batch, x, seeds, y)
+        return self._update(state, batch, x, seeds, y,
+                            dropout_words(key, self.device))
 
     def _batch(self, state: Dict, sampler: NeighborSampler,
                bank: torch.Tensor, ybank: torch.Tensor, n: int, ctr: str,
                tag: int):
         """The batch at the device counter ``state[ctr + "_d"]`` of every
         member here, sampled and fetched: (batch, x, feature hits, seeds,
-        labels). One member's as ``_batch_inputs`` and ``_sample_fetch``
-        give them; n members' as ``_member_inputs`` and
+        labels, dropout key words). One member's as ``_batch_inputs`` and
+        ``_sample_fetch`` give them; n members' as ``_member_inputs`` and
         ``_member_sample_fetch`` do (a tuple of batches, x [n_local,
-        max_ids, F], the hits summed, seeds and labels [n_local, batch])."""
+        max_ids, F], the hits summed, seeds and labels [n_local, batch],
+        the dropout key words [n_local, 2]). The dropout key is None for an
+        eval batch."""
         if self.n_dev == 1:
-            seeds, y, keys = self._batch_inputs(state, sampler, bank, ybank,
-                                                n, ctr, tag)
+            seeds, y, keys, dkey = self._batch_inputs(
+                state, sampler, bank, ybank, n, ctr, tag)
             batch, x, hits = self._sample_fetch(state, sampler, seeds, keys)
         else:
-            seeds, y, keys = self._member_inputs(state, sampler, bank, ybank,
-                                                 n, ctr, tag)
+            seeds, y, keys, dkey = self._member_inputs(
+                state, sampler, bank, ybank, n, ctr, tag)
             batch, x, hits = self._member_sample_fetch(state, sampler, seeds,
                                                        keys)
-        return batch, x, hits, seeds, y
+        return batch, x, hits, seeds, y, dkey
 
     def _train_batch(self, state: Dict, ctr: str):
         """``_batch`` of the train banks at ``state[ctr + "_d"]``."""
@@ -873,27 +887,32 @@ class Trainer:
                            _TRAIN_TAG)
 
     def _update(self, state: Dict, batch, x: torch.Tensor,
-                seeds: torch.Tensor, y: torch.Tensor,
+                seeds: torch.Tensor, y: torch.Tensor, dkey: torch.Tensor,
                 before_reduce=None) -> torch.Tensor:
-        """Forward, backward and one Adam step with the dropout generators
-        as seeded (no host work: the captured part of a step). With
-        members (``batch`` a tuple, x, seeds and y a row a member) the
-        loss is the members' mean (``lax.pmean``), so one backward gives
-        the mean of their gradients; member d's model draws from its own
-        generator. ``before_reduce`` as in ``_backward_step``."""
+        """Forward, backward and one Adam step (no host work: the captured
+        part of a step). Feature dropout draws from the dropout key words
+        ``dkey`` (K10's, on the card; K16 folds each layer in), GAT's
+        attention dropout from the generators as seeded. With members
+        (``batch`` a tuple, x, seeds, y and dkey a row a member) the loss
+        is the members' mean (``lax.pmean``), so one backward gives the
+        mean of their gradients; member d's model draws from its own key
+        row and generator. ``before_reduce`` as in ``_backward_step``."""
         model = state["model"]
         model.train()
         scfg = self.sampler_t.config
+        gen_kw = getattr(model, "takes_generator", False)
 
-        def loss_of(x, batch, seeds, y, gen):
+        def loss_of(x, batch, seeds, y, dkey, gen):
             if self.is_lp:
-                return model.loss(x, batch, scfg, seeds >= 0, gen)
-            return _masked_ce(model(x, batch, scfg, gen), y, seeds >= 0)
+                return model.loss(x, batch, scfg, seeds >= 0, dkey)
+            kw = {"generator": gen} if gen_kw else {}
+            return _masked_ce(model(x, batch, scfg, dkey, **kw), y,
+                              seeds >= 0)
         if self.n_dev == 1:
-            loss = loss_of(x, batch, seeds, y, self._drop_gen)
+            loss = loss_of(x, batch, seeds, y, dkey, self._drop_gen)
         else:
             loss = torch.stack([
-                loss_of(x[d], b, seeds[d], y[d], self._drop_gens[d])
+                loss_of(x[d], b, seeds[d], y[d], dkey[d], self._drop_gens[d])
                 for d, b in enumerate(batch)]).mean()
         return self._backward_step(state, loss, before_reduce)
 
@@ -932,8 +951,9 @@ class Trainer:
         slots, the slots the feature cache served, and the adjacency reads
         the topology cache served (the live PCM analog), summed over the
         members (``lax.psum``)."""
-        batch, x, feat_hits, seeds, y = self._train_batch(state, "train_ctr")
-        loss = self._update(state, batch, x, seeds, y)
+        batch, x, feat_hits, seeds, y, dkey = self._train_batch(state,
+                                                                "train_ctr")
+        loss = self._update(state, batch, x, seeds, y, dkey)
         return loss, self._counts(batch, feat_hits)
 
     def _counts(self, batch, feat_hits: torch.Tensor) -> torch.Tensor:
@@ -987,9 +1007,11 @@ class Trainer:
             cur.wait_event(state["carry_ready"])
             before_update = torch.cuda.Event()
             before_update.record(cur)
-        batch, x, hits, seeds, y = (state[k] for k in (
+        # batch N's dropout key travels in the carry with it: K10 has
+        # written batch N+1's by the time this update's forward reads it
+        batch, x, hits, seeds, y, dkey = (state[k] for k in (
             "carry_batch", "carry_x", "carry_hits", "carry_seeds",
-            "carry_y"))
+            "carry_y", "carry_dkey"))
         state["train_ctr_d"].add_(1)    # what K10 does in the plain step
 
         def sample_next():
@@ -1002,7 +1024,7 @@ class Trainer:
                 self._sample_ahead(state)
             if self._clique_group is not None:
                 cur.wait_event(state["carry_ready"])
-        loss = self._update(state, batch, x, seeds, y, sample_next)
+        loss = self._update(state, batch, x, seeds, y, dkey, sample_next)
         state["train_ctr"] += 1
         return loss, self._counts(batch, hits)
 
@@ -1118,16 +1140,19 @@ class Trainer:
         """``_batch_inputs`` for every member here: seeds and labels
         [n_local, batch] from each member's bank row at lid = ctr % n, and
         K10's [n_local, L, 4] words, member d's with its global index
-        folded in after the tag (JAX's ``_device_key``)."""
+        folded in after the tag (JAX's ``_device_key``), with a train
+        step's [n_local, 2] dropout key words (None for an eval step)."""
         bs = sampler.config.batch_size
         m = self.n_local
         ctr_d = state[ctr + "_d"]
         lid = (ctr_d % n).reshape(1)
         seeds = bank.view(m, n, bs).index_select(1, lid).reshape(m, bs)
         y = ybank.view(m, n, bs).index_select(1, lid).reshape(m, bs)
+        train = tag == _TRAIN_TAG
         keys = step_keys(state["base_key"], ctr_d, tag,
-                         sampler.config.num_hops, self.n_dev, self.first, m)
-        return seeds, y, keys
+                         sampler.config.num_hops, self.n_dev, self.first, m,
+                         dropout=train)
+        return (seeds, y) + (keys if train else (keys, None))
 
     def _member_sample_fetch(self, state: Dict, sampler: NeighborSampler,
                              seeds: torch.Tensor, keys: torch.Tensor):
@@ -1205,8 +1230,8 @@ class Trainer:
         sampler = self.sampler_e
         bs = sampler.config.batch_size
         bank, ybank, n, ctr = self._eval_banks(mode)
-        batches, x, _, seeds, y = self._batch(state, sampler, bank, ybank,
-                                              n, ctr, _EVAL_TAG)
+        batches, x, _, seeds, y, _ = self._batch(state, sampler, bank,
+                                                 ybank, n, ctr, _EVAL_TAG)
         if self.n_dev == 1:
             batches, x, seeds, y = (batches,), (x,), seeds[None], y[None]
         model = state["model"]

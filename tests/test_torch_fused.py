@@ -19,7 +19,7 @@ from legion_tpu_torch.config import (CacheConfig, LegionConfig, MeshConfig,
                                      SamplerConfig, TrainConfig)
 from legion_tpu_torch.data import synthesize_device_dataset
 from legion_tpu_torch.graph import DeviceCSR
-from legion_tpu_torch.models import common
+from legion_tpu_torch.ops import dropout as kdrop
 from legion_tpu_torch.ops import kernels
 from legion_tpu_torch.pipeline import Mode
 from legion_tpu_torch.sampling import access
@@ -357,21 +357,22 @@ def _jax_mask(key, x, rate):
 @pytest.mark.parametrize("shape,rate", [((300, 70), 0.6), ((64, 256), 0.5),
                                         ((1024, 1024), 0.6)])
 def test_dropout_equals_jax_bit_for_bit(shape, rate, dtype, monkeypatch):
-    """With JAX's mask injected, the port's dropout gives JAX's bits: it
-    divides by keep in the per-element and bit-unpacked regimes and
-    multiplies by 256 / kq in the u8 regime, each constant in x's dtype,
-    as JAX's weakly typed scalar is."""
+    """With JAX's mask injected (in place of the keyed mask of
+    ``ops/dropout.py::keep_mask_plain``), the port's dropout
+    (``dropout_act``, no activation, no cast) gives JAX's bits: it divides
+    by keep in the per-element and bit-unpacked regimes and multiplies by
+    256 / kq in the u8 regime, each constant in x's dtype, as JAX's weakly
+    typed scalar is."""
     rng = np.random.default_rng(11)
     x = rng.standard_normal(shape).astype(np.float32)
     xj = jnp.asarray(x, getattr(jnp, dtype))
     key = jax.random.PRNGKey(5)
     want = np.asarray(jax_dropout(xj, rate, key, True).astype(jnp.float32))
     mask = torch.from_numpy(np.array(_jax_mask(key, xj, rate)))
-    scale = common.dropout_keep(shape, rate, torch.Generator())[1]
-    monkeypatch.setattr(common, "dropout_keep",
-                        lambda *a, **k: (mask, scale))
+    monkeypatch.setattr(kdrop, "keep_mask_plain", lambda *a, **k: mask)
     xt = torch.from_numpy(x).to(getattr(torch, dtype))
-    got = common.dropout(xt, rate, torch.Generator(), True)
+    got = kdrop.dropout_act(xt, "none", None, rate,
+                            torch.zeros(2, dtype=torch.int32), 0)
     assert got.dtype == xt.dtype
     np.testing.assert_array_equal(got.float().numpy(), want)
 

@@ -6,8 +6,9 @@ plain member step, which ``tests/test_torch_clique.py`` holds against
 JAX's. On the CPU a fused call is K eager steps and a pipelined step runs
 its halves one after the other, so both must equal the plain steps bit
 for bit: losses, parameters, counters, sampled batches and ``pos_map``.
-Also: every member's dropout generator draws the masks that a generator
-seeded from fold_in(fold_in(step key, d), 7) draws; ``fit`` in each mode
+Also: every member's dropout draws from fold_in(fold_in(step key, d), 7):
+feature dropout from member d's row of K10's dropout keys, attention
+dropout from its generator; ``fit`` in each mode
 ends where the plain ``fit`` does; a restored member state continues a
 pipelined run bit for bit; the eval step waits for the side stream with
 members as with one member."""
@@ -22,7 +23,7 @@ from legion_tpu_torch.config import (CacheConfig, LegionConfig, MeshConfig,
 from legion_tpu_torch.data import synthesize_dataset
 from legion_tpu_torch.models import common
 from legion_tpu_torch.pipeline import Mode
-from legion_tpu_torch.sampling.access import fold_in
+from legion_tpu_torch.sampling.access import dropout_words, fold_in
 from legion_tpu_torch.train import Trainer
 from legion_tpu_torch.utils.checkpoint import (restore_checkpoint,
                                                save_checkpoint)
@@ -171,52 +172,66 @@ def test_interbatch_members_equal_plain_steps(host_ds, case):
 
 @pytest.mark.parametrize("mode", ["plain", "fused", "interbatch"])
 def test_member_generators_draw_the_seeded_masks(host_ds, mode):
-    """Every dropout mask of a member step comes from member d's own
-    generator, and equals the mask that a generator seeded from
-    fold_in(fold_in(fold_in(fold_in(base, ctr), 0), d), 7) draws in the
-    same order: the masks of the eager member step, which reseeded one
-    generator before each member's forward; in each mode, and for GAT
-    (feature and attention dropout)."""
+    """Every dropout mask of a member step is member d's, from its key
+    fold_in(fold_in(fold_in(fold_in(base, ctr), 0), d), 7): feature
+    dropout (K16's plain version) draws from member d's row of K10's
+    dropout keys, the words of that key, layer i's bits from i; attention
+    dropout (GAT) from member d's own generator, the masks that a
+    generator seeded with that key draws in the same order. In each
+    mode, and for GAT (feature and attention dropout)."""
+    from legion_tpu_torch.models import gat, graphsage
     model = "gat" if mode == "plain" else "graphsage"
     tr = Trainer(host_ds, _cfg(host_ds, "1x4-hash", model=model,
                                fused=2 if mode == "fused" else 1,
                                interbatch=mode == "interbatch"), "cpu")
-    drawn = []
-    orig = common.dropout_keep
+    feats, drawn = [], []
+    orig_keep, orig_act = common.dropout_keep, graphsage.dropout_act
 
     def keep(shape, rate, generator, device=None):
-        out = orig(shape, rate, generator, device)
+        out = orig_keep(shape, rate, generator, device)
         if out is not None:
             drawn.append((shape, rate, generator, out[0].clone()))
         return out
-    mods = [common]
-    if model == "gat":
-        from legion_tpu_torch.models import gat
-        mods.append(gat)
-    for m in mods:
-        m.dropout_keep = keep
+
+    def act(x, kind, out_dtype, rate, words, layer, train=True):
+        if train and words is not None:
+            feats.append((words.clone(), layer))
+        return orig_act(x, kind, out_dtype, rate, words, layer, train)
+    patched = [(common, "dropout_keep", keep), (gat, "dropout_keep", keep),
+               (graphsage, "dropout_act", act), (gat, "dropout_act", act)]
+    for m, name, fn in patched:
+        setattr(m, name, fn)
     try:
         state = tr.init_state()
         for _ in range(2):
             state, _ = tr.train_step(state)
     finally:
-        for m in mods:
-            m.dropout_keep = orig
+        common.dropout_keep = gat.dropout_keep = orig_keep
+        graphsage.dropout_act = gat.dropout_act = orig_act
     steps = state["train_ctr"]
     assert steps == (4 if mode == "fused" else 2)
     n = tr.n_local
-    assert len(drawn) % (steps * n) == 0 and drawn
-    calls = len(drawn) // (steps * n)
+    L = tr.sampler_t.config.num_hops
+    layers = list(range(L if model == "gat" else L - 1))
+    assert len(feats) == steps * n * len(layers)
+    assert len(drawn) == (steps * n * L if model == "gat" else 0)
     base = tr.config.train.seed + 1
     for c in range(steps):
         for d in range(n):
+            key = fold_in(fold_in(fold_in(base, c), 0), d)
+            j = (c * n + d) * len(layers)
+            for (words, layer), want in zip(feats[j:j + len(layers)],
+                                            layers):
+                assert layer == want
+                assert torch.equal(words, dropout_words(key, "cpu"))
+            if model != "gat":
+                continue
             ref = torch.Generator()
-            ref.manual_seed(fold_in(fold_in(fold_in(fold_in(base, c), 0), d),
-                                    7) & (2 ** 63 - 1))
-            for shape, rate, gen, mask in drawn[(c * n + d) * calls:
-                                                (c * n + d + 1) * calls]:
+            ref.manual_seed(fold_in(key, 7) & (2 ** 63 - 1))
+            for shape, rate, gen, mask in drawn[(c * n + d) * L:
+                                                (c * n + d + 1) * L]:
                 assert gen is tr._drop_gens[d]
-                assert torch.equal(mask, orig(shape, rate, ref)[0])
+                assert torch.equal(mask, orig_keep(shape, rate, ref)[0])
     tr.close()
 
 

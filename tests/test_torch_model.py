@@ -13,7 +13,8 @@ from legion_tpu.models import graphsage as jsage
 from legion_tpu.sampling.sampler import SampleBatch as JBatch
 from legion_tpu_torch.config import SamplerConfig
 from legion_tpu_torch.graph import DeviceCSR
-from legion_tpu_torch.models.common import dropout, xavier_uniform_padded
+from legion_tpu_torch.models.common import xavier_uniform_padded
+from legion_tpu_torch.ops.dropout import dropout_act
 from legion_tpu_torch.models.graphsage import GraphSAGE, sage_layer_apply
 from legion_tpu_torch.sampling.access import WindowedCSRAccess
 from legion_tpu_torch.sampling.sampler import NeighborSampler
@@ -155,15 +156,15 @@ def test_graphsage_forward_and_grads_match_jax(compute_dtype):
                                         ((64, 100), 0.3)])
 def test_dropout_regimes(shape, rate):
     """Bit-unpacked (rate 1/2), u8-threshold (>= 2**20 elements) and
-    per-element regimes: kept entries are scaled by 1/keep (by the
-    quantised keep in the u8 regime), the kept share ~ keep, the masks
-    follow the generator, and eval mode is the identity."""
+    per-element regimes of the keyed dropout (``ops/dropout.py``): kept
+    entries are scaled by 1/keep (by the quantised keep in the u8 regime),
+    the kept share ~ keep, the masks follow the key words and the layer,
+    and eval mode (or no key) is the identity."""
     x = torch.ones(shape)
-    g = torch.Generator()
-    g.manual_seed(0)
-    y = dropout(x, rate, g, train=True)
-    g.manual_seed(0)
-    assert torch.equal(y, dropout(x, rate, g, train=True))
+    words = torch.tensor([12345, -678], dtype=torch.int32)
+    y = dropout_act(x, "none", None, rate, words, 0)
+    assert torch.equal(y, dropout_act(x, "none", None, rate, words, 0))
+    assert not torch.equal(y, dropout_act(x, "none", None, rate, words, 1))
     keep = 1 - rate
     scale = 256 / round(keep * 256) if x.numel() >= (1 << 20) \
         and rate != 0.5 else 1 / keep
@@ -171,8 +172,8 @@ def test_dropout_regimes(shape, rate):
     assert vals <= {0.0, np.float32(scale)}, vals
     frac = float((y != 0).float().mean())
     assert abs(frac - keep) < 4 * np.sqrt(keep * (1 - keep) / x.numel())
-    assert dropout(x, rate, g, train=False) is x
-    assert dropout(x, rate, None, train=True) is x
+    assert dropout_act(x, "none", None, rate, words, 0, train=False) is x
+    assert dropout_act(x, "none", None, rate, None, 0) is x
 
 
 def test_xavier_uniform_padded():
