@@ -55,7 +55,8 @@ CUDA card, nvcc (``$CUDA_HOME`` or ``/usr/local/cuda``) and no network.
      Device, Device-map, GAT and HT, the same path with ``fused_steps = 4``
      (CUDA-graph replays of one captured step) against as many eager steps
      from the same state (``phase_fused``): every step's sampled ids and
-     dropout masks equal exactly, losses and parameters within the
+     the keys of its dropout masks (feature, and on GAT attention) equal
+     exactly, losses and parameters within the
      atomics' order, the captured step's launches against ``PATH_KERNELS``.
      After each of Device-map, GAT, H and HT, the same path with
      ``interbatch`` (the update on the carried batch on the current stream,
@@ -68,10 +69,12 @@ CUDA card, nvcc (``$CUDA_HOME`` or ``/usr/local/cuda``) and no network.
   3b. on the same device dataset, at ``bench.py --model X`` settings:
      GAT (heads (8,1), feature and attention dropout 0.6, aligned last
      hop), after holding K6 and K7 against their plain versions at its
-     shapes, forward and backward, with and without attention dropout,
-     and each at the edges of its shapes (heads, widths and fanouts inside
-     and outside K6's tensor-core path and K7's small-row kernels, both
-     dtypes);
+     shapes, forward and backward, with and without attention dropout
+     (its keep bits drawn in the kernels from the key), each form's keep
+     set lane for lane against ``keep_mask_plain``, forward and backward,
+     in regimes 2 and 3 (``k6_keep_sets``, ``k7_keep_sets``), and each at
+     the edges of its shapes (heads, widths and fanouts inside and outside
+     K6's tensor-core path and K7's small-row kernels, both dtypes);
      GCN (exact last-hop dedup), after holding K7 at the exact-dedup GAT
      layer-0 shape of one of its batches, K2 at its out-degree shape
      (one column, both hops), K15 at both of its gathered hops (the sum;
@@ -190,7 +193,10 @@ their edges and the replay check (``clique_replay``), and times K11 in
 turns with the parent's kernel where ``_archive/parent`` holds a ``git
 archive`` of the parent commit. ``python3 chip_smoke.py --k16`` builds and
 holds K16 at every path's shapes and its edges, with K10's dropout key
-row (``phase_k16``). ``python3
+row (``phase_k16``). ``python3 chip_smoke.py --attn`` builds and holds K6
+and K7 at the GAT path's shapes with their keep sets (``phase_attn``); it
+also runs against a package whose kernels read a keep mask, for times in
+turns with it. ``python3
 chip_smoke.py --link`` builds, holds K4 and K11-K14 at their edges, makes
 the host dataset and runs phases 5 and 9, for work on the host reads of
 K4 and K13. ``python3 chip_smoke.py --dist`` builds, holds K10 and K14 at
@@ -1668,14 +1674,34 @@ def k15_grad_fns(dout, src, num_rows, dtype, off, F, count):
                                                     F, count).to(dtype))
 
 
+def embedding_bag_bwd(dout, src, num_rows, dtype, off, fanout, mean,
+                      torch):
+    """The library yardstick of ``hop_mean_grad``: the backward alone of one
+    ``F.embedding_bag`` call (mode "mean", or "sum") over the hop's lanes,
+    a bag a destination row (its fanout draws), into a weight of the rows'
+    dtype with one extra zero row that the pads index as ``padding_idx``;
+    the forward runs once, outside the timing."""
+    import torch.nn.functional as tnf
+    F = src.shape[0] // fanout
+    idx = torch.where(src >= 0, src, num_rows).view(fanout, F).t().long()
+    w = torch.zeros((num_rows + 1, dout.shape[1]), dtype=dtype,
+                    device="cuda", requires_grad=True)
+    out = tnf.embedding_bag(idx, w, mode="mean" if mean else "sum",
+                            padding_idx=num_rows)
+    o = int(off)
+    g = dout[o:o + F].to(dtype)
+    return lambda: torch.autograd.grad(out, w, g, retain_graph=True)
+
+
 def k15_grad_compare(note, dout, src, num_rows, dtype, off, fanout, count,
                      tol, results, torch):
     """``hop_mean_grad`` (d rows of a gathered hop from d out) against its
     plain version, ``tol`` (f32 sums in another order), timed, queued and
     in host us a call; its grouping of the lanes by row against
-    ``lanes_by_source_plain`` exactly; two runs the same bits. Returns the
-    ``compare`` tuple (None for a package from before the kernel, whose
-    backward is timed under ``segment_sum``)."""
+    ``lanes_by_source_plain`` exactly; two runs the same bits; beside the
+    library call ``embedding_bag_bwd``. Returns the ``compare`` tuple (None
+    for a package from before the kernel, whose backward is timed under
+    ``segment_sum``)."""
     from legion_tpu_torch.ops import hop_agg, kernels
     F = src.shape[0] // fanout
     kern, plain = k15_grad_fns(dout, src, num_rows, dtype, off, F, count)
@@ -1691,6 +1717,8 @@ def k15_grad_compare(note, dout, src, num_rows, dtype, off, fanout, count,
     t = compare("hop_mean_grad" if new else "segment_sum", kern, plain, tol,
                 results, torch, note, least=k15_grad_least(
                     dout, src, num_rows, dtype, F, count is not None),
+                library=embedding_bag_bwd(dout, src, num_rows, dtype, off,
+                                          fanout, count is not None, torch),
                 queued=True)
     held = ("grouping exact, two runs the same bits" if new else
             "K2's lane form: grouping and bits not checked")
@@ -2342,6 +2370,11 @@ def phase_slice(tr, torch, path):
     return counts, step_ms
 
 
+# StepRecorder's mark of an attention mask's key: 256 + layer in its high
+# word (a feature mask's holds the layer)
+ATTN_MARK = 256
+
+
 class StepRecorder:
     """Records what each train step of ``tr`` sampled and which dropout
     masks it drew, on the card, into rows indexed by the step's counter:
@@ -2349,18 +2382,19 @@ class StepRecorder:
     and per-hop edge counts of each train batch to row ``state[ctr +
     "_d"] - 1`` (K10 has advanced the counter: ``train_ctr_d`` in a plain
     step, ``carry_ctr_d`` for an ``interbatch`` state's carry, on the
-    stream that samples it), a wrapper around the models'
-    ``dropout_keep`` (attention dropout) a checksum of each mask (its
-    count of kept entries and the sum of their flat positions), and one
-    around their ``dropout_act`` (feature dropout, K16) the key that fixes
-    its mask (the step's dropout key words read on the card, and the
-    layer), to row ``train_ctr_d - 1``. Inside a captured step the copies
-    are captured too, so a replay records its own step."""
+    stream that samples it), and wrappers around the models'
+    ``dropout_act`` (feature dropout, K16) and around K6's and K7's
+    wrappers (attention dropout, drawn in the kernels) the key that fixes
+    each mask (the step's dropout key words read on the card, and the
+    layer; attention's marked apart), to row ``train_ctr_d - 1``. Inside a
+    captured step the copies are captured too, so a replay records its
+    own step."""
 
     MASKS = 8      # dropout calls of a member's step at most
 
     def __init__(self, tr, torch, steps):
-        from legion_tpu_torch.models import common, gat, gcn, graphsage
+        from legion_tpu_torch.models import gat, gcn, graphsage
+        from legion_tpu_torch.ops import kernels
         s, n = tr.sampler_t, tr.n_local
         self.tr, self.torch, self.steps = tr, torch, steps
         self.ids = torch.zeros((steps, n, s.ids_len), dtype=torch.int32,
@@ -2370,8 +2404,8 @@ class StepRecorder:
         self.masks = torch.zeros((steps, self.MASKS * n, 2),
                                  dtype=torch.int64, device="cuda")
         self.state, self.j = None, 0
-        orig_batch, orig_keep = tr._batch, common.dropout_keep
-        orig_act = graphsage.dropout_act
+        orig_batch, orig_act = tr._batch, graphsage.dropout_act
+        orig_k6, orig_k7 = kernels.gat_attend, kernels.hop_attention
 
         def slot(state, ctr):
             return (state[ctr + "_d"] - 1).remainder(steps).view(1)
@@ -2393,14 +2427,24 @@ class StepRecorder:
                 0, slot(self.state, "train_ctr"), row.view(1, 2))
             self.j += 1
 
-        def keep(*a, **kw):
-            out = orig_keep(*a, **kw)
-            if out is not None and self.state is not None:
-                m = out[0].reshape(-1)
-                pos = torch.arange(m.numel(), device="cuda")
-                record(torch.stack([m.sum(dtype=torch.int64),
-                                    torch.where(m, pos, 0).sum()]))
-            return out
+        def attn(drop):
+            # the attention mask's key: the words, and the layer marked
+            # apart from a feature layer's
+            if drop is not None and self.state is not None:
+                w = drop.words.long()
+                record(torch.stack([(w[0] & 0xFFFFFFFF)
+                                    + ((ATTN_MARK + drop.layer) << 32),
+                                    w[1]]))
+
+        def k6(*a, **kw):
+            attn(kw["drop"] if "drop" in kw else
+                 (a[8] if len(a) > 8 else None))
+            return orig_k6(*a, **kw)
+
+        def k7(*a, **kw):
+            attn(kw["drop"] if "drop" in kw else
+                 (a[8] if len(a) > 8 else None))
+            return orig_k7(*a, **kw)
 
         def act(x, kind, out_dtype, rate, words, layer, train=True):
             if train and words is not None and self.state is not None:
@@ -2408,10 +2452,10 @@ class StepRecorder:
                 record(torch.stack([w[0] + (layer << 32), w[1]]))
             return orig_act(x, kind, out_dtype, rate, words, layer, train)
         tr._batch = batch
-        self._undo = [(common, "dropout_keep", orig_keep),
-                      (gat, "dropout_keep", orig_keep)] + [
+        self._undo = [(kernels, "gat_attend", orig_k6),
+                      (kernels, "hop_attention", orig_k7)] + [
             (m, "dropout_act", orig_act) for m in (gat, gcn, graphsage)]
-        common.dropout_keep = gat.dropout_keep = keep
+        kernels.gat_attend, kernels.hop_attention = k6, k7
         gat.dropout_act = gcn.dropout_act = graphsage.dropout_act = act
 
     def bind(self, state):
@@ -2428,6 +2472,16 @@ class StepRecorder:
         del self.tr._batch              # back to the class's method
         for obj, name, orig in self._undo:
             setattr(obj, name, orig)
+
+
+def mask_keys(masks, path, what):
+    """(mask keys, of them attention's) that ``StepRecorder`` wrote for the
+    first step; fails on a GAT path whose step drew no attention mask."""
+    n = int((masks[0] != 0).any(-1).sum())
+    n_attn = int(((masks[0][:, 0] >> 32) >= ATTN_MARK).sum())
+    if path.startswith("gat") and n_attn == 0:
+        fail(f"{what} {path}: no attention dropout mask recorded")
+    return n, n_attn
 
 
 def coll_per_step(coll, steps):
@@ -2449,8 +2503,8 @@ def phase_fused(tr, torch, path, calls=2):
     K-1 times; the next replays K times) against K * calls eager steps
     from the same state (``init_state`` again: the same seeded weights,
     counters, base key and a fresh Adam). Fails unless every step's
-    sampled ids and per-hop edge counts and every dropout mask's checksum
-    are equal exactly, the call losses and the parameters agree within
+    sampled ids and per-hop edge counts and the key of every dropout mask
+    (feature and attention) are equal exactly, the call losses and the parameters agree within
     the tolerance below, the position map is clean (map dedup), and the
     captured step launched every kernel of ``PATH_KERNELS[path]`` (the
     launches a fused path's step counts are the captured ones: a replay
@@ -2511,7 +2565,7 @@ def phase_fused(tr, torch, path, calls=2):
     if bad or not bool((edges_e.sum((1, 2)) > 0).all()):
         fail(f"fused {path}: the sampled batches of steps {bad} differ from "
              "the eager steps'")
-    n_masks = int((masks_e[0] != 0).any(-1).sum())
+    n_masks, n_attn = mask_keys(masks_e, path, "fused")
     if not torch.equal(masks_e, masks_f):
         fail(f"fused {path}: a replayed step's dropout masks differ from "
              f"the eager step's")
@@ -2519,7 +2573,8 @@ def phase_fused(tr, torch, path, calls=2):
     l_rel = max(abs(f - e) / abs(e) for f, e in zip(fused, eager_loss))
     print(f"  fused {path}: K {K}, {calls} calls = {steps} steps against "
           f"{steps} eager steps: ids and edge counts of every step exact, "
-          f"{n_masks} dropout masks a step exact | call losses {fused} vs "
+          f"{n_masks} dropout mask keys a step exact ({n_attn} attention) "
+          f"| call losses {fused} vs "
           f"eager {eager_loss} (max rel {l_rel:.3g}, tol 1e-3) | parameters "
           f"norm-wise rel {p_rel:.3g} (tol 2e-3) | first call (eager step, "
           f"capture, {K - 1} replays) + second {first_s:.3f} s")
@@ -2676,8 +2731,8 @@ def interbatch_check(tr, torch, path):
     """``interbatch`` on ``path``: IB_STEPS pipelined steps against as many
     plain eager steps from a fresh ``init_state`` each (the same seeded
     weights, counters and key), then a valid pass. Fails unless every
-    step's sampled ids and per-hop edge counts and every dropout mask's
-    checksum are equal exactly, every member's with members
+    step's sampled ids and per-hop edge counts and the key of every
+    dropout mask are equal exactly, every member's with members
     (``StepRecorder``; the carry's batches land in the rows of their own
     counter), losses and parameters agree within ``phase_fused``'s
     tolerance (K2's and K7's atomics), the launches of the two runs are
@@ -2726,12 +2781,13 @@ def interbatch_check(tr, torch, path):
     if not torch.equal(m_p, m_i):
         fail(f"interbatch {path}: a step's dropout masks differ from the "
              "plain step's")
-    n_masks = int((m_p[0] != 0).any(-1).sum())
+    n_masks, n_attn = mask_keys(m_p, path, "interbatch")
     l_rel = max(abs(a - b) / abs(b) for a, b in zip(l_i, l_p))
     p_rel = rel_norm(p_i, p_p)
     print(f"  interbatch {path}: {n} pipelined steps against {n} plain "
           f"steps: ids and edge counts of every step exact, {n_masks} "
-          f"dropout masks a step exact | losses max rel {l_rel:.3g} (tol "
+          f"dropout mask keys a step exact ({n_attn} attention) | losses "
+          f"max rel {l_rel:.3g} (tol "
           f"1e-3) | parameters norm-wise rel {p_rel:.3g} (tol 2e-3) | valid "
           f"metric {acc_i:.4f} vs plain {acc_p:.4f}")
     if not (l_rel <= 1e-3 and p_rel <= 2e-3):
@@ -2872,6 +2928,22 @@ def attn_pair(fn, args, grads_of, g_out, torch):
     return fwd, fwd_bwd
 
 
+def attn_drop(torch, shape, seed, layer=0, rate=0.6):
+    """Attention dropout for K6 and K7 at alpha ``shape``: the package's
+    ``AttnDrop`` (the keep bits drawn in the kernels from the dropout key
+    words of ``seed``); in a package from before it (the parent's, timed in
+    turns with this one) the (mask, scale) its kernels read, drawn from a
+    generator seeded with ``seed``."""
+    from legion_tpu_torch.ops import dropout as kdrop
+    if hasattr(kdrop, "AttnDrop"):
+        from legion_tpu_torch.sampling.access import dropout_words
+        return kdrop.AttnDrop(dropout_words(seed, "cuda"), layer, rate)
+    from legion_tpu_torch.models.common import dropout_keep
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    return dropout_keep(tuple(shape), rate, g, "cuda")
+
+
 def k6_compares(tr, torch, results, main, path="gat"):
     """K6 against its plain version at GAT layer 0 of ``path`` (one real
     batch: the aligned last hop's lanes of the fetched bf16 rows, 128 wide
@@ -2884,7 +2956,6 @@ def k6_compares(tr, torch, results, main, path="gat"):
     ten launches through autograd, and the host may take longer to launch
     them than the card takes to run them. The Device GAT path's forward +
     backward with dropout is the kernel line's number."""
-    from legion_tpu_torch.models.common import dropout_keep
     from legion_tpu_torch.ops import kernels
     p = tr.init_state()["model"].layers[0]   # the initial parameters
     batch, x = one_batch(tr, torch)
@@ -2895,25 +2966,25 @@ def k6_compares(tr, torch, results, main, path="gat"):
     fo, ao = scfg.fanouts[1], scfg.aligned_hop_offset(1)
     F, d_in = src.shape[0] // fo, x.shape[1]
     H = p["attn_l"].shape[0]
-    keep = dropout_keep((fo, F, H), 0.6, g, "cuda")
+    keep = attn_drop(torch, (fo, F, H), 11)
     print(f"  gat_attend     {path} layer 0: F {F} x fanout {fo} x heads {H} "
           f"x d_in {d_in} (x {tuple(x.shape)} {x.dtype}, aligned offset "
           f"{ao})")
 
-    def least(es, kp, bwd):
-        """K6's bound. Forward: the lanes and the destinations, u, the lane
-        ids and the mask read; xw, alpha and the sign written. Backward
-        (with its two du GEMMs): dxw, the lanes, the destinations, alpha,
-        the sign, the ids and the mask read; du written."""
+    def least(es, bwd):
+        """K6's bound. Forward: the lanes and the destinations, u and the
+        lane ids read; xw, alpha and the sign written. Backward (with its
+        two du GEMMs): dxw, the lanes, the destinations, alpha, the sign
+        and the ids read; du written. Dropout's keep bits are drawn from
+        the key (8 bytes), no mask."""
         rows, flags = (fo + 1) * F * d_in * es, fo * F * H
-        m = flags if kp is not None else 0
         peak = "bf16" if es == 2 else "f32"
-        fwd = bound(rows + 2 * d_in * H * es + nb(src) + m
+        fwd = bound(rows + 2 * d_in * H * es + nb(src)
                     + F * H * d_in * es + 5 * flags,
                     ops=2 * F * d_in * H * (2 * fo + 1), peak=peak)
         if not bwd:
             return fwd
-        b = bound(F * H * d_in * es + rows + 5 * flags + nb(src) + m
+        b = bound(F * H * d_in * es + rows + 5 * flags + nb(src)
                   + 2 * d_in * H * es,
                   ops=2 * F * d_in * H * (2 * fo + 1), peak=peak)
         return fwd[0] + b[0], fwd[1]
@@ -2946,10 +3017,9 @@ def k6_compares(tr, torch, results, main, path="gat"):
                         f"{' drop u8' if kp else ''}"
                         f"{' general' if general else ''}")
                 compare("gat_attend", kf, pf, tol, results, torch,
-                        note + " fwd", least=least(es, kp, False),
-                        queued=True)
+                        note + " fwd", least=least(es, False), queued=True)
                 t_b = compare("gat_attend", kb, pb, tol, results, torch,
-                              note + " fwd+bwd", least=least(es, kp, True),
+                              note + " fwd+bwd", least=least(es, True),
                               queued=True)
                 if path == "gat" and dt == torch.bfloat16 \
                         and kp is not None and not general:
@@ -2972,7 +3042,6 @@ def k6_edges(torch, results):
     that reference, where its d er cancels, further than the kernel's
     does); with the dropout mask and without; a tenth of the lanes
     invalid, and one row with no valid lane."""
-    from legion_tpu_torch.models.common import dropout_keep
     from legion_tpu_torch.ops import kernels
     g = torch.Generator(device="cuda")
     g.manual_seed(14)
@@ -2991,7 +3060,7 @@ def k6_edges(torch, results):
                     < 0.1] = -1
                 src.view(fo, F)[:, 3] = -1
                 off = torch.tensor(7, dtype=torch.int32, device="cuda")
-                keep = dropout_keep((fo, F, H), 0.6, g, "cuda")
+                keep = attn_drop(torch, (fo, F, H), 1000 * H + 10 * fo + d_in)
                 g32 = torch.randn((F, H, d_in), generator=g, device="cuda")
                 u64 = [t.double().requires_grad_() for t in u32]
                 for dt in (torch.bfloat16, torch.float32):
@@ -3026,18 +3095,18 @@ def k6_edges(torch, results):
     r["max_abs_err"] = max(r["max_abs_err"], worst)
 
 
-def k7_least(sl, z, fo, H, d, num_dst, kp, aligned):
+def k7_least(sl, z, fo, H, d, num_dst, aligned):
     """K7's bounds, (forward, forward + backward). Forward: each distinct
-    source row of z, the scores, the lane ids and the mask read; the
-    destinations and alpha written. Backward: the same rows, d out, alpha,
-    the ids and the mask read; d scores and dz written."""
+    source row of z, the scores and the lane ids read; the destinations
+    and alpha written. Backward: the same rows, d out, alpha and the ids
+    read; d scores and dz written. Dropout's keep bits are drawn from the
+    key, no mask."""
     F = sl.shape[0] // fo
     zrow, flags = H * d * z.element_size(), fo * F * H
-    m = flags if kp is not None else 0
     zrows = (sl.shape[0] if aligned else distinct(sl)) * zrow
-    fwd = bound(zrows + 8 * flags + nb(sl) + m + num_dst * H * d * 4,
+    fwd = bound(zrows + 8 * flags + nb(sl) + num_dst * H * d * 4,
                 ops=2 * flags * d)
-    bwd = bound(zrows + F * H * d * 4 + 8 * flags + nb(sl) + m
+    bwd = bound(zrows + F * H * d * 4 + 8 * flags + nb(sl)
                 + z.shape[0] * zrow, ops=4 * flags * d)
     return fwd, (fwd[0] + bwd[0], fwd[1])
 
@@ -3046,8 +3115,7 @@ def k7_compares(tr, torch, results, main):
     """K7 against its plain version at GAT layer 1 (one real batch of the
     GAT path: 8000 x 25 lanes, 1 head, z [S1, classes]), forward and
     forward + backward, bf16 and f32, with attention dropout in its
-    uniform regime and without; and once on an aligned hop."""
-    from legion_tpu_torch.models.common import dropout_keep
+    per-lane regime and without; and once on an aligned hop."""
     from legion_tpu_torch.ops import hop_agg, kernels
     batch, _ = one_batch(tr, torch)
     scfg = tr.sampler_t.config
@@ -3058,7 +3126,7 @@ def k7_compares(tr, torch, results, main):
     H, d = tr.config.train.gat_heads[1], tr.dataset.meta.num_classes
     g = torch.Generator(device="cuda")
     g.manual_seed(12)
-    keep = dropout_keep((fo, F, H), 0.6, g, "cuda")
+    keep = attn_drop(torch, (fo, F, H), 12, layer=1)
     z0 = torch.randn((S[1], H, d), generator=g, device="cuda")
     sc = torch.randn((fo, F, H), generator=g, device="cuda") \
         .requires_grad_()
@@ -3084,7 +3152,7 @@ def k7_compares(tr, torch, results, main):
             else f32_atomic_order
         note = (f"L1 {F}x{fo}x{H}x{d} z[{n}] {str(dt)[6:]}"
                 f"{' drop' if kp else ''}{' aligned' if ao else ''}")
-        fwd, both = k7_least(sl, z, fo, H, d, S[0], kp, ao is not None)
+        fwd, both = k7_least(sl, z, fo, H, d, S[0], ao is not None)
         compare("hop_attention", kf, pf, tuple_tol(close_f32), results,
                 torch, note + " fwd", least=fwd, queued=True)
         t_b = compare("hop_attention", kb, pb,
@@ -3099,7 +3167,6 @@ def k7_exact_compares(tr, torch, results):
     ``dedup_last_hop=True`` (the GCN trainer's), its hop-1 lanes x 8
     heads x 256 over z [S2, 2048] bf16, where JAX needs its chunked scan;
     forward and forward + backward, with u8-regime dropout and without."""
-    from legion_tpu_torch.models.common import dropout_keep
     from legion_tpu_torch.ops import hop_agg, kernels
     batch, _ = one_batch(tr, torch)
     scfg = tr.sampler_t.config
@@ -3109,7 +3176,7 @@ def k7_exact_compares(tr, torch, results):
     F = src.shape[0] // fo
     g = torch.Generator(device="cuda")
     g.manual_seed(13)
-    keep = dropout_keep((fo, F, H), 0.6, g, "cuda")
+    keep = attn_drop(torch, (fo, F, H), 13)
     z = torch.randn((S[2], H, d), generator=g, device="cuda") \
         .to(torch.bfloat16).requires_grad_()
     sc = torch.randn((fo, F, H), generator=g, device="cuda") \
@@ -3124,7 +3191,7 @@ def k7_exact_compares(tr, torch, results):
         pf, pb = attn_pair(plain, (z, sc), (z, sc), g_out, torch)
         note = (f"exact L0 {F}x{fo}x{H}x{d} z[{S[2]}] bf16"
                 f"{' drop u8' if kp else ''}")
-        fwd, both = k7_least(src, z, fo, H, d, S[1], kp, False)
+        fwd, both = k7_least(src, z, fo, H, d, S[1], False)
         compare("hop_attention", kf, pf, tuple_tol(close_f32), results,
                 torch, note + " fwd", iters=5, least=fwd)
         compare("hop_attention", kb, pb,
@@ -3144,7 +3211,6 @@ def k7_edges(torch, results):
     Tolerances as at the path's shapes: out and d scores ``close_f32``, dz
     ``bf16_ulp`` or ``f32_atomic_order``; at fanout 1, where d scores is
     zero but for rounding, it is held within 1e-5 d max|d out| max|z|."""
-    from legion_tpu_torch.models.common import dropout_keep
     from legion_tpu_torch.ops import hop_agg, kernels
     g = torch.Generator(device="cuda")
     g.manual_seed(15)
@@ -3185,7 +3251,7 @@ def k7_edges(torch, results):
                 src.view(fo, F)[:, 3] = -1
                 sc = torch.randn((fo, F, H), generator=g, device="cuda") \
                     .requires_grad_()
-                keep = dropout_keep((fo, F, H), 0.6, g, "cuda")
+                keep = attn_drop(torch, (fo, F, H), 100 * H + d + 7 * fo)
                 g_out = torch.randn((num_dst, H, d), generator=g,
                                     device="cuda")
                 for ao in (None, num_dst + 5):
@@ -3219,6 +3285,169 @@ def k7_edges(torch, results):
           f"tolerance, max_abs_err {worst:.3g}")
     r = results["hop_attention"]
     r["max_abs_err"] = max(r["max_abs_err"], worst)
+
+
+def keep_set_report(name, what, want, got_fwd, d_k, d_p, torch):
+    """Fail unless the kernel kept the lanes ``want`` (bool, valid lanes
+    only) in its forward (``got_fwd``) and its backward: per lane, the
+    kernel's gradient ``d_k`` within 1e-3 of the plain version's ``d_p``,
+    where a flipped lane moves it by 0.1 or more (inputs set so)."""
+    fwd_bad = int((got_fwd != want).sum())
+    bwd_bad = int(((d_k - d_p).abs() > 1e-3).sum())
+    kept = int(want.sum())
+    if fwd_bad or bwd_bad or not 0 < kept < want.numel():
+        fail(f"{name} keep set {what}: {fwd_bad} lanes apart forward, "
+             f"{bwd_bad} backward, {kept} of {want.numel()} kept")
+    return f"{what}: {kept} of {want.numel()} kept"
+
+
+def k6_keep_sets(tr, torch):
+    """K6's keep set, lane for lane, against ``keep_mask_plain`` of the key
+    at the attention fold, forward and backward, in every form: the exact
+    tensor-core form (bf16, width 128), the padded one (width 100) and the
+    general kernels (bf16 through ``general``, and f32), at GAT layer 0's
+    shape (one real batch's pads: 96,576 x 10 x 8, regime 2) and at its
+    first 12,000 rows (960,000 entries, regime 3); and the tensor-core
+    forms at 3 heads (their guard on heads past H). The inputs make every
+    lane visible: lane (f, i)'s row is one-hot at column f and u is 0, so
+    alpha is uniform over the valid lanes and xw[i, h, f] is lane (f, i,
+    h)'s alpha after dropout (0 where dropped); the backward's d xw[i, h,
+    f] = f + 1 gives d alpha = f + 1, and each lane's d el is held against
+    the plain version's (a flip moves it by at least 0.1)."""
+    from legion_tpu_torch.ops import dropout as kdrop
+    from legion_tpu_torch.ops import kernels
+    batch, _ = one_batch(tr, torch)
+    scfg = tr.sampler_t.config
+    fo = scfg.fanouts[1]
+    src_all = batch.edge_src[1].view(fo, -1)
+    F2 = src_all.shape[1]
+    off = torch.zeros((), dtype=torch.int32, device="cuda")
+    cases = [(F2, 8, 128, torch.bfloat16, False, "exact"),
+             (F2, 8, 100, torch.bfloat16, False, "padded"),
+             (F2, 8, 128, torch.bfloat16, True, "general bf16"),
+             (F2, 8, 128, torch.float32, False, "general f32"),
+             (12000, 8, 128, torch.bfloat16, False, "exact"),
+             (12000, 8, 100, torch.bfloat16, False, "padded"),
+             (12000, 8, 128, torch.bfloat16, True, "general bf16"),
+             (12000, 8, 128, torch.float32, False, "general f32"),
+             (F2, 3, 128, torch.bfloat16, False, "exact"),
+             (12000, 3, 100, torch.bfloat16, False, "padded")]
+    done = []
+    for F, H, d_in, dt, general, form in cases:
+        src = src_all[:, :F].contiguous().view(-1)
+        shape = (fo, F, H)
+        drop = attn_drop(torch, shape, 31 + F + H, layer=0)
+        reg = kdrop.regime(shape, drop.rate)
+        ao = F
+        x = torch.zeros((ao + fo * F, d_in), dtype=dt, device="cuda")
+        x[ao:].view(fo, F, d_in)[:, :, :fo] = torch.eye(
+            fo, dtype=dt, device="cuda")[:, None, :]
+        u = torch.zeros((d_in, H), dtype=dt, device="cuda")
+        valid = (src >= 0).view(fo, F, 1)
+        want = kdrop.keep_mask_plain(shape, drop.rate, drop.words,
+                                     kdrop.attn_fold(0)) & valid
+        xw, alpha, neg = kernels.gat_attend_fwd(x, u, u, src, off, fo, ao,
+                                                0.2, drop, general)
+        got = (xw[:, :, :fo].permute(2, 0, 1) != 0) & valid
+        dxw = torch.zeros((F, H, d_in), dtype=dt, device="cuda")
+        dxw[:, :, :fo] = torch.arange(1, fo + 1, dtype=dt, device="cuda")
+        d_el = kernels.gat_attend_bwd(dxw, x, src, alpha, neg, fo, ao, 0.2,
+                                      drop, general)[0]
+        el = torch.zeros(shape, device="cuda", requires_grad=True)
+        er = torch.zeros((F, H), device="cuda", requires_grad=True)
+        a_p = kernels.masked_fanout_softmax(
+            kernels.leaky_relu(el + er[None], 0.2), valid)
+        xw_p = kernels.gat_contract_plain(x, a_p, drop, ao)
+        d_el_p, = torch.autograd.grad(xw_p, el, dxw)
+        done.append(keep_set_report(
+            "gat_attend", f"{form} {F}x{fo}x{H}x{d_in} regime {reg}", want,
+            got, d_el, d_el_p, torch))
+        del x, xw, alpha, neg, dxw, d_el, el, er, a_p, xw_p, d_el_p
+    print(f"  gat_attend     keep sets lane for lane, fwd and bwd, equal to "
+          f"keep_mask_plain's: " + "; ".join(done))
+
+
+def k7_keep_sets(torch):
+    """K7's keep set, lane for lane, against ``keep_mask_plain`` of the key
+    at the attention fold, forward and backward, in both designs: the
+    small-row kernels (a head's slice of 64 bytes in bf16, 128 in f32) and
+    the general ones (33 columns), gathered, at GAT layer 1's shape (8000
+    rows x 25 draws x 1 head, regime 3) and at 42,000 rows (1,050,000
+    entries, regime 2). Lane (f, i) reads its own row, one-hot at column f,
+    and the scores are 0, so out[i, h, f] is the lane's alpha after
+    dropout; d out[i, h, f] = f + 1 gives d alpha = f + 1, and each lane's
+    d score is held against the plain version's. A tenth of the lanes are
+    pads, and row 3 has none valid."""
+    from legion_tpu_torch.ops import dropout as kdrop
+    from legion_tpu_torch.ops import hop_agg, kernels
+    g = torch.Generator(device="cuda")
+    g.manual_seed(16)
+    fo, H = 25, 1
+    off = torch.zeros((), dtype=torch.int32, device="cuda")
+    done = []
+    for F in (8000, 42000):
+        E = fo * F
+        src = torch.arange(E, dtype=torch.int32, device="cuda")
+        src[torch.rand((E,), generator=g, device="cuda") < 0.1] = -1
+        src.view(fo, F)[:, 3] = -1
+        shape = (fo, F, H)
+        drop = attn_drop(torch, shape, 47 + F, layer=1)
+        reg = kdrop.regime(shape, drop.rate)
+        valid = (src >= 0).view(fo, F, 1)
+        want = kdrop.keep_mask_plain(shape, drop.rate, drop.words,
+                                     kdrop.attn_fold(1)) & valid
+        for dt, d, form in ((torch.bfloat16, 32, "small-row bf16"),
+                            (torch.float32, 32, "small-row f32"),
+                            (torch.bfloat16, 33, "general bf16")):
+            z = torch.zeros((E, H, d), dtype=dt, device="cuda")
+            z.view(fo, F, H, d)[..., :fo] = torch.eye(
+                fo, dtype=dt, device="cuda")[:, None, None, :]
+            sc = torch.zeros(shape, device="cuda", requires_grad=True)
+            g_out = torch.zeros((F, H, d), device="cuda")
+            g_out[..., :fo] = torch.arange(1, fo + 1, device="cuda",
+                                           dtype=torch.float32)
+            out = kernels.hop_attention(z.view(E, H * d), sc, src, fo, off,
+                                        F, H, None, drop)
+            got = (out[:, :, :fo].permute(2, 0, 1) != 0) & valid
+            ds, = torch.autograd.grad(out, sc, g_out)
+            out_p = hop_agg.hop_softmax_attention_plain(z, sc, src, fo, off,
+                                                        F, drop)
+            ds_p, = torch.autograd.grad(out_p, sc, g_out)
+            done.append(keep_set_report(
+                "hop_attention", f"{form} {F}x{fo}x{H}x{d} regime {reg}",
+                want, got, ds, ds_p, torch))
+            del z, sc, out, ds, out_p, ds_p
+    print(f"  hop_attention  keep sets lane for lane, fwd and bwd, equal to "
+          f"keep_mask_plain's: " + "; ".join(done))
+
+
+def phase_attn(torch):
+    """``--attn``: K6 and K7 alone at the GAT path's shapes on the device
+    dataset (``k6_compares``, ``k7_compares``: bf16 and f32, with attention
+    dropout and without, each also queued) and, in a package that draws
+    the keep bits in the kernels, their keep sets (``k6_keep_sets``,
+    ``k7_keep_sets``). It also runs against a package from before that
+    (whose kernels read a mask, ``attn_drop``), for times in turns with
+    it; the last lines give the path's two times, K6's layer 0 forward +
+    backward and K7's layer 1 forward + backward, both bf16 with dropout,
+    as launched and queued."""
+    from legion_tpu_torch.data import synthesize_device_dataset
+    from legion_tpu_torch.ops import kernels
+    from legion_tpu_torch.train import Trainer
+    ds = synthesize_device_dataset("cuda")
+    tr = Trainer(ds, bench_config(ds, model="gat"), device="cuda")
+    results, main = {}, {}
+    k6_compares(tr, torch, results, main)
+    k7_compares(tr, torch, results, main)
+    if hasattr(kernels, "gat_attend_fwd"):
+        k6_keep_sets(tr, torch)
+        k7_keep_sets(torch)
+    for n in ("gat_attend", "hop_attention"):
+        ms, plain_ms, least, _, q_ms = main[n][0]
+        print(f"  {n} on the GAT path, fwd + bwd with dropout: kernel "
+              f"{ms:.4f} ms, queued {q_ms:.4f} ms, bound {least[0]:.4f} ms "
+              f"| plain {plain_ms:.4f} ms")
+    tr.close()
 
 
 def compare_slices(trs, torch, label):
@@ -6182,6 +6411,9 @@ def main():
     if sys.argv[1:2] == ["--k16"]:
         phase_k16(torch)
         return
+    if sys.argv[1:2] == ["--attn"]:
+        phase_attn(torch)
+        return
     if sys.argv[1:2] == ["--clique-kernels"]:
         hds = host_dataset()
         MEASURED["link_bps"] = bulk_link_bps(hds, torch)
@@ -6290,8 +6522,10 @@ def main():
               f"edge sizes {s.edge_sizes} | max_ids {s.max_ids}")
         if model == "gat":
             k6_compares(tr, torch, results, main_ms)
+            k6_keep_sets(tr, torch)
             k6_edges(torch, results)
             k7_compares(tr, torch, results, main_ms)
+            k7_keep_sets(torch)
             k7_edges(torch, results)
         elif model == "gcn":
             k7_exact_compares(tr, torch, results)

@@ -12,12 +12,9 @@
 // The keep bits come from the port's counter-based hash, keyed by
 // (ka, kb) = lt_fold_in(words, layer), words the step's dropout key that
 // K10 writes on the card (step_keys.cu), so no step-varying host word
-// enters a launch and a replayed CUDA graph draws each step's masks. The
-// regimes of the JAX package:
-//   1 (rate 0.5, 2-D, width % 32 == 0): bit e % 32 of lt_word(e / 32);
-//   2 (2^20 elements or more): byte e % 4 of lt_word(e / 4) below kq;
-//   3 (otherwise): (lt_word(e) >> 8) * 2^-24 < keep, in f32;
-//   0 (rate 0): every lane kept, no scaling (the activation and the cast).
+// enters a launch and a replayed CUDA graph draws each step's masks; the
+// regimes of the JAX package as dropout.cuh sets them out (regime 0, rate
+// 0: the activation and the cast alone).
 // The forward draws the bits and the backward draws them again: no mask is
 // ever stored, and the backward reads x (for the activation's derivative)
 // and dy only.
@@ -46,47 +43,11 @@
 // arithmetic one lane at a time.
 #include <cuda_bf16.h>
 
-#include "common.cuh"
+#include "dropout.cuh"
 
 namespace {
 
 enum : int { kActNone = 0, kActRelu = 1, kActElu = 2 };
-
-struct Drop {
-  uint32_t ka, kb;
-  int regime;
-  uint32_t kq;  // regime 2's threshold on a byte
-  float keep;   // regime 3's threshold, keep in f32
-  float c;      // the divisor (regimes 1, 3) or factor (2), in y's dtype
-};
-
-__device__ __forceinline__ Drop make_drop(const int32_t* words,
-                                          uint32_t layer, int regime,
-                                          uint32_t kq, float keep, float c) {
-  Drop d{0u, 0u, regime, kq, keep, c};
-  if (regime != 0) {
-    LtKey k{(uint32_t)words[0], (uint32_t)words[1]};
-    k = lt_fold_in(k, (uint64_t)layer);
-    d.ka = k.lo;
-    d.kb = k.hi;
-  }
-  return d;
-}
-
-__device__ __forceinline__ bool keep_lane(const Drop& d, uint32_t e) {
-  switch (d.regime) {
-    case 1:
-      return (lt_word(d.ka, d.kb, e >> 5) >> (e & 31u)) & 1u;
-    case 2:
-      return ((lt_word(d.ka, d.kb, e >> 2) >> (8u * (e & 3u))) & 0xFFu) <
-             d.kq;
-    case 3:
-      return (float)(lt_word(d.ka, d.kb, e) >> 8) * 5.9604644775390625e-8f <
-             d.keep;
-    default:
-      return true;
-  }
-}
 
 // the keep bits of lanes e0 .. e0 + 7 (e0 % 8 == 0), bit j for lane e0 + j
 __device__ __forceinline__ uint32_t keep_bits8(const Drop& d, uint32_t e0) {

@@ -28,8 +28,9 @@
 //     bytes by one 8-byte copy, any other row (every second 200-byte row
 //     of a 100-wide table) by 8-byte copies. The loads of rows i + stride
 //     and i + 2 stride run under the arithmetic of row i. The
-//     per-row flags (lane validity, the dropout mask; in the backward also
-//     alpha and the LeakyReLU sign) are loaded one row ahead into registers.
+//     per-row flags (lane validity, the dropout keep bits; in the backward
+//     also alpha and the LeakyReLU sign) are loaded, or drawn after the
+//     loads are issued, one row ahead into registers.
 //   - Both small products run on the tensor cores (mma.sync m16n8k16, bf16
 //     in, f32 accumulation). Scores: [u_l | u_r]^T (16 rows = 8 + 8 heads,
 //     held in registers for the whole kernel) times the staged rows (B from
@@ -55,11 +56,22 @@
 // and so is d alpha in the backward (the transpose of that contraction in
 // x's dtype); xw is accumulated in f32 and stored in x's dtype.
 //
+// Attention dropout (legion_tpu/models/gat.py:94) is drawn in the kernels:
+// the keep bit of (lane, head) at alpha's index e = (f*F + i)*H + h is
+// keep_lane of the step's dropout key folded with the layer's fold
+// (dropout.cuh; regime 2 at GAT's layer 0, whose alpha has more than 2^20
+// entries), and the backward draws it again: no mask is read or stored. A
+// kept alpha is divided by keep in f32 (times 256 / kq in regime 2) before
+// its rounding to x's dtype, and a kept d alpha likewise after its rounding,
+// as JAX's dropout and its transpose take them. In the tensor-core forms a
+// lane draws the bits of its four (lane, head) pairs of head g (none past
+// H) where it loads the row's flags.
+//
 // Saved for the backward: alpha before dropout [fanout, F, H] f32 and the
 // sign of the pre-activation (u8, 1 where el + er < 0).
 #include <cuda_bf16.h>
 
-#include "common.cuh"
+#include "dropout.cuh"
 
 constexpr int kGatWarps = 8;
 constexpr int kGatMaxFanout = 64;
@@ -198,11 +210,12 @@ template <typename T>
 __global__ void __launch_bounds__(kGatWarps * 32, 3) gat_attend_fwd_kernel(
     const T* __restrict__ x, const T* __restrict__ u_l,
     const T* __restrict__ u_r, const int32_t* __restrict__ src,
-    const int32_t* __restrict__ hop_offset, const uint8_t* __restrict__ mask,
-    float scale, float slope, T* __restrict__ xw,
-    float* __restrict__ alpha_pre, uint8_t* __restrict__ neg, int64_t F,
-    int fanout, int H, int d_in, int64_t aligned, bool vec) {
+    const int32_t* __restrict__ hop_offset, const DropArgs dargs, float slope,
+    T* __restrict__ xw, float* __restrict__ alpha_pre,
+    uint8_t* __restrict__ neg, int64_t F, int fanout, int H, int d_in,
+    int64_t aligned, bool vec) {
   extern __shared__ float4 sm4[];
+  const Drop drop = make_drop(dargs);
   float* sm = reinterpret_cast<float*>(sm4);
   const int G = group_lanes(H);
   const int ld = row_ld(d_in, G);
@@ -215,7 +228,7 @@ __global__ void __launch_bounds__(kGatWarps * 32, 3) gat_attend_fwd_kernel(
               + warp * FwdSmem::warp_floats(fanout, H, ld);  // [fo+1, ld]
   float* sc = xs + (fanout + 1) * ld;          // [fanout + 1, H]
   float* a = sc + (fanout + 1) * H;            // [fanout, H]
-  float* kp = a + fanout * H;                  // [fanout, H] keep factor
+  float* kp = a + fanout * H;                  // [fanout, H] kept: 1 or 0
   float* vl = kp + fanout * H;                 // [fanout] lane valid
   for (int t = threadIdx.x; t < H * ld; t += blockDim.x) {
     const int h = t / ld, k = t - h * ld;
@@ -241,7 +254,7 @@ __global__ void __launch_bounds__(kGatWarps * 32, 3) gat_attend_fwd_kernel(
       if (gq == 0 && gh < H) sc[r * H + gh] = g_round(v, (T*)nullptr);
     }
     __syncwarp();
-    // LeakyReLU and the keep factors, all (lane, head) pairs at once
+    // LeakyReLU and the keep bits, all (lane, head) pairs at once
     for (int t = lane; t < fanout * H; t += 32) {
       const int f = t / H, h = t - f * H;
       const int64_t idx = ((int64_t)f * F + i) * H + h;
@@ -249,7 +262,7 @@ __global__ void __launch_bounds__(kGatWarps * 32, 3) gat_attend_fwd_kernel(
       const bool ng = pre < 0.0f;
       neg[idx] = ng;
       a[t] = ng ? pre * slope : pre;
-      kp[t] = mask == nullptr ? 1.0f : (mask[idx] ? scale : 0.0f);
+      kp[t] = keep_lane(drop, (uint32_t)idx) ? 1.0f : 0.0f;
     }
     __syncwarp();
     if (lane < H) {                            // softmax over f, per head
@@ -267,7 +280,8 @@ __global__ void __launch_bounds__(kGatWarps * 32, 3) gat_attend_fwd_kernel(
       for (int f = 0; f < fanout; ++f) {
         const float p = a[f * H + h] / den;
         alpha_pre[((int64_t)f * F + i) * H + h] = p;
-        a[f * H + h] = g_round(p * kp[f * H + h], (T*)nullptr);
+        a[f * H + h] =
+            g_round(drop_f32(drop, kp[f * H + h] != 0.0f, p), (T*)nullptr);
       }
     }
     __syncwarp();
@@ -307,11 +321,11 @@ template <typename T>
 __global__ void __launch_bounds__(kGatWarps * 32, 2) gat_attend_bwd_kernel(
     const T* __restrict__ dxw, const T* __restrict__ x,
     const int32_t* __restrict__ src, const float* __restrict__ alpha_pre,
-    const uint8_t* __restrict__ neg, const uint8_t* __restrict__ mask,
-    float scale, float slope, float* __restrict__ d_el,
-    float* __restrict__ d_er, int64_t F, int fanout, int H, int d_in,
-    int64_t aligned, bool vec) {
+    const uint8_t* __restrict__ neg, const DropArgs dargs, float slope,
+    float* __restrict__ d_el, float* __restrict__ d_er, int64_t F,
+    int fanout, int H, int d_in, int64_t aligned, bool vec) {
   extern __shared__ float4 sm4[];
+  const Drop drop = make_drop(dargs);
   float* sm = reinterpret_cast<float*>(sm4);
   const int G = group_lanes(H);
   const int ld = row_ld(d_in, G);
@@ -322,7 +336,7 @@ __global__ void __launch_bounds__(kGatWarps * 32, 2) gat_attend_bwd_kernel(
   float* g = xs + fanout * ld;                 // [H, ld]
   float* da = g + H * ld;                      // [fanout, H]
   float* p = da + fanout * H;                  // [fanout, H] alpha
-  float* kp = p + fanout * H;                  // [fanout, H] keep factor
+  float* kp = p + fanout * H;                  // [fanout, H] kept: 1 or 0
   float* sl = kp + fanout * H;                 // [fanout, H] LeakyReLU'
   float* vl = sl + fanout * H;                 // [fanout] lane valid
   const int gh = lane / G, gq = lane - gh * G;
@@ -332,7 +346,7 @@ __global__ void __launch_bounds__(kGatWarps * 32, 2) gat_attend_bwd_kernel(
     for (int t = lane; t < fanout * H; t += 32) {
       const int64_t idx = ((int64_t)(t / H) * F + i) * H + t % H;
       p[t] = alpha_pre[idx];
-      kp[t] = mask == nullptr ? 1.0f : (mask[idx] ? scale : 0.0f);
+      kp[t] = keep_lane(drop, (uint32_t)idx) ? 1.0f : 0.0f;
       sl[t] = neg[idx] ? slope : 1.0f;
     }
     stage_rows(x, [&](int r) { return aligned + (int64_t)r * F + i; },
@@ -351,7 +365,8 @@ __global__ void __launch_bounds__(kGatWarps * 32, 2) gat_attend_bwd_kernel(
       const int h = lane;
       float s = 0.0f;
       for (int f = 0; f < fanout; ++f) {
-        da[f * H + h] *= kp[f * H + h];        // d alpha before dropout
+        // d alpha before dropout
+        da[f * H + h] = drop_f32(drop, kp[f * H + h] != 0.0f, da[f * H + h]);
         s += p[f * H + h] * da[f * H + h];
       }
       float der = 0.0f;
@@ -490,26 +505,41 @@ __device__ __forceinline__ void zero_pad(__nv_bfloat16* ring, int rows,
 }
 
 // What a lane needs of row i beside the staged rows, loaded a row ahead.
+// keep: bit t is lane_f(q, t)'s keep bit at head g (1 past the fanout or
+// H, and with no dropout).
 struct FwdFlags {
   int32_t src[4];
-  uint8_t keep[4];
+  uint32_t keep;
 };
 
-__device__ __forceinline__ void load_flags(
-    FwdFlags& fl, const int32_t* __restrict__ src,
-    const uint8_t* __restrict__ mask, int64_t i, int64_t F, int fanout,
-    int H, int g, int q) {
+// The four keep bits of head g at row i, drawn after the row's loads are
+// issued, in one word: the two rows in flight then hold two registers for
+// them. The exact form's forward sits at 126 of its 128 registers: a byte
+// a bit drawn between the loads, or a branch on the regime here, made it
+// spill, and its forward ran 27-36% slower.
+__device__ __forceinline__ uint32_t keep_bits4(const Drop& drop, int64_t i,
+                                               int64_t F, int fanout, int H,
+                                               int g, int q) {
+  uint32_t keep = 0xFu;
 #pragma unroll
   for (int t = 0; t < 4; ++t) {
     const int f = lane_f(q, t);
-    fl.src[t] = -1;
-    fl.keep[t] = 1;
-    if (f < fanout) {
-      fl.src[t] = src[(int64_t)f * F + i];
-      if (mask != nullptr && g < H)
-        fl.keep[t] = mask[((int64_t)f * F + i) * H + g];
-    }
+    if (f < fanout && g < H &&
+        !keep_lane(drop, (uint32_t)(((int64_t)f * F + i) * H + g)))
+      keep &= ~(1u << t);
   }
+  return keep;
+}
+
+__device__ __forceinline__ void load_flags(
+    FwdFlags& fl, const int32_t* __restrict__ src, const Drop& drop,
+    int64_t i, int64_t F, int fanout, int H, int g, int q) {
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    const int f = lane_f(q, t);
+    fl.src[t] = f < fanout ? src[(int64_t)f * F + i] : -1;
+  }
+  fl.keep = keep_bits4(drop, i, F, fanout, H, g, q);
 }
 
 // x's rows are dx wide (D in the exact form, d_in in the padded one); the
@@ -518,11 +548,12 @@ template <int D, bool kPad>
 __global__ void __launch_bounds__(kGatWarps * 32, 2) gat_attend_fwd_mma_kernel(
     const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ u_l,
     const __nv_bfloat16* __restrict__ u_r, const int32_t* __restrict__ src,
-    const int32_t* __restrict__ hop_offset, const uint8_t* __restrict__ mask,
-    float scale, float slope, __nv_bfloat16* __restrict__ xw,
-    float* __restrict__ alpha_pre, uint8_t* __restrict__ neg, int64_t F,
-    int fanout, int H, int d_in, int64_t aligned) {
+    const int32_t* __restrict__ hop_offset, const DropArgs dargs, float slope,
+    __nv_bfloat16* __restrict__ xw, float* __restrict__ alpha_pre,
+    uint8_t* __restrict__ neg, int64_t F, int fanout, int H, int d_in,
+    int64_t aligned) {
   constexpr int LD = D + kMmaPad, KS = D / 16, kChunks = D / 8;
+  const Drop drop = make_drop(dargs);
   const int dx = kPad ? d_in : D;
   const int ks_n = kPad ? (d_in + 15) >> 4 : KS;
   extern __shared__ uint4 smem16[];
@@ -576,7 +607,7 @@ __global__ void __launch_bounds__(kGatWarps * 32, 2) gat_attend_fwd_mma_kernel(
     cp_async_commit();
   }
   FwdFlags cur, nxt;
-  if (i0 < F) load_flags(cur, src, mask, i0, F, fanout, H, g, q);
+  if (i0 < F) load_flags(cur, src, drop, i0, F, fanout, H, g, q);
   // ldmatrix row addresses of this lane (matrix m = lane / 8, row lane % 8)
   const int lm = lane >> 3, lr = lane & 7;
   // scores' B operand: matrices (f 0-7, k 0-7), (f 0-7, k 8-15),
@@ -596,7 +627,7 @@ __global__ void __launch_bounds__(kGatWarps * 32, 2) gat_attend_fwd_mma_kernel(
       cp_async_commit();
     }
     if (i + stride < F)
-      load_flags(nxt, src, mask, i + stride, F, fanout, H, g, q);
+      load_flags(nxt, src, drop, i + stride, F, fanout, H, g, q);
     cp_async_wait<kMmaStages - 1>();
     __syncwarp();
     __nv_bfloat16* st = reinterpret_cast<__nv_bfloat16*>(
@@ -653,8 +684,7 @@ __global__ void __launch_bounds__(kGatWarps * 32, 2) gat_attend_fwd_mma_kernel(
         alpha_pre[idx] = p;
         neg[idx] = ng[t];
       }
-      const float kp = mask == nullptr ? 1.0f : (cur.keep[t] ? scale : 0.0f);
-      a[t] = round_bf16(p * kp);
+      a[t] = round_bf16(drop_f32(drop, (cur.keep >> t) & 1u, p));
     }
     // contraction: alpha [heads 0-7 | none, lanes 0-15] x rows
     const uint32_t pa[4] = {pack_bf16(a[0], a[1]), 0u, pack_bf16(a[2], a[3]),
@@ -718,21 +748,20 @@ __global__ void __launch_bounds__(kGatWarps * 32, 2) gat_attend_fwd_mma_kernel(
 struct BwdFlags {
   int32_t src[4];
   float p[4];
-  uint8_t keep[4];
+  uint32_t keep;
   uint8_t neg[4];
 };
 
 __device__ __forceinline__ void load_flags(
     BwdFlags& fl, const int32_t* __restrict__ src,
     const float* __restrict__ alpha_pre, const uint8_t* __restrict__ neg,
-    const uint8_t* __restrict__ mask, int64_t i, int64_t F, int fanout,
-    int H, int g, int q) {
+    const Drop& drop, int64_t i, int64_t F, int fanout, int H, int g,
+    int q) {
 #pragma unroll
   for (int t = 0; t < 4; ++t) {
     const int f = lane_f(q, t);
     fl.src[t] = -1;
     fl.p[t] = 0.0f;
-    fl.keep[t] = 1;
     fl.neg[t] = 0;
     if (f < fanout) {
       fl.src[t] = src[(int64_t)f * F + i];
@@ -740,21 +769,21 @@ __device__ __forceinline__ void load_flags(
         const int64_t idx = ((int64_t)f * F + i) * H + g;
         fl.p[t] = alpha_pre[idx];
         fl.neg[t] = neg[idx];
-        if (mask != nullptr) fl.keep[t] = mask[idx];
       }
     }
   }
+  fl.keep = keep_bits4(drop, i, F, fanout, H, g, q);
 }
 
 template <int D, bool kPad>
 __global__ void __launch_bounds__(kGatWarps * 32, 2) gat_attend_bwd_mma_kernel(
     const __nv_bfloat16* __restrict__ dxw, const __nv_bfloat16* __restrict__ x,
     const int32_t* __restrict__ src, const float* __restrict__ alpha_pre,
-    const uint8_t* __restrict__ neg, const uint8_t* __restrict__ mask,
-    float scale, float slope, float* __restrict__ d_el,
-    float* __restrict__ d_er, int64_t F, int fanout, int H, int d_in,
-    int64_t aligned) {
+    const uint8_t* __restrict__ neg, const DropArgs dargs, float slope,
+    float* __restrict__ d_el, float* __restrict__ d_er, int64_t F,
+    int fanout, int H, int d_in, int64_t aligned) {
   constexpr int LD = D + kMmaPad, KS = D / 16;
+  const Drop drop = make_drop(dargs);
   const int dx = kPad ? d_in : D;
   const int ks_n = kPad ? (d_in + 15) >> 4 : KS;
   extern __shared__ uint4 smem16[];
@@ -786,7 +815,7 @@ __global__ void __launch_bounds__(kGatWarps * 32, 2) gat_attend_bwd_mma_kernel(
   }
   BwdFlags cur, nxt;
   if (i0 < F)
-    load_flags(cur, src, alpha_pre, neg, mask, i0, F, fanout, H, g, q);
+    load_flags(cur, src, alpha_pre, neg, drop, i0, F, fanout, H, g, q);
   const int lm = lane >> 3, lr = lane & 7;
   // A operand, dxw[i] [heads, k]: matrices (h 0-7, k 0-7), (h 8-15, k 0-7),
   // (h 0-7, k 8-15), (h 8-15, k 8-15); heads past H are the zero row
@@ -806,7 +835,7 @@ __global__ void __launch_bounds__(kGatWarps * 32, 2) gat_attend_bwd_mma_kernel(
       cp_async_commit();
     }
     if (i + stride < F)
-      load_flags(nxt, src, alpha_pre, neg, mask, i + stride, F, fanout, H,
+      load_flags(nxt, src, alpha_pre, neg, drop, i + stride, F, fanout, H,
                  g, q);
     cp_async_wait<kMmaStages - 1>();
     __syncwarp();
@@ -828,9 +857,10 @@ __global__ void __launch_bounds__(kGatWarps * 32, 2) gat_attend_bwd_mma_kernel(
     float s = 0.0f;
 #pragma unroll
     for (int t = 0; t < 4; ++t) {
-      const float kp = mask == nullptr ? 1.0f : (cur.keep[t] ? scale : 0.0f);
-      // d alpha before dropout, rounded to bf16 as the products are
-      da[t] = cur.src[t] >= 0 ? round_bf16(dv[t]) * kp : 0.0f;
+      // d alpha after dropout rounded to bf16 as the products are, then
+      // through dropout's backward
+      da[t] = cur.src[t] >= 0
+          ? drop_f32(drop, (cur.keep >> t) & 1u, round_bf16(dv[t])) : 0.0f;
       s += cur.p[t] * da[t];
     }
     s += __shfl_xor_sync(0xffffffffu, s, 1);
@@ -926,10 +956,9 @@ static unsigned int row_blocks(int64_t F, int warps) {
 template <typename T>
 static int launch_fwd(const void* x, const void* u_l, const void* u_r,
                       const int32_t* src, const int32_t* hop_offset,
-                      const uint8_t* mask, float scale, float slope,
-                      void* xw, float* alpha_pre, uint8_t* neg, int64_t F,
-                      int fanout, int H, int d_in, int64_t aligned,
-                      void* stream) {
+                      const DropArgs& drop, float slope, void* xw,
+                      float* alpha_pre, uint8_t* neg, int64_t F, int fanout,
+                      int H, int d_in, int64_t aligned, void* stream) {
   if (F == 0) return (int)cudaSuccess;
   const int ld = row_ld(d_in, group_lanes(H));
   size_t smem = 0;
@@ -940,8 +969,8 @@ static int launch_fwd(const void* x, const void* u_l, const void* u_r,
   if (rc != 0) return rc;
   gat_attend_fwd_kernel<T><<<row_blocks(F, warps), warps * 32, smem,
                              (cudaStream_t)stream>>>(
-      (const T*)x, (const T*)u_l, (const T*)u_r, src, hop_offset, mask,
-      scale, slope, (T*)xw, alpha_pre, neg, F, fanout, H, d_in, aligned,
+      (const T*)x, (const T*)u_l, (const T*)u_r, src, hop_offset, drop,
+      slope, (T*)xw, alpha_pre, neg, F, fanout, H, d_in, aligned,
       vec_ok<T>(d_in, x, xw));
   return (int)cudaGetLastError();
 }
@@ -949,9 +978,9 @@ static int launch_fwd(const void* x, const void* u_l, const void* u_r,
 template <typename T>
 static int launch_bwd(const void* dxw, const void* x, const int32_t* src,
                       const float* alpha_pre, const uint8_t* neg,
-                      const uint8_t* mask, float scale, float slope,
-                      float* d_el, float* d_er, int64_t F, int fanout, int H,
-                      int d_in, int64_t aligned, void* stream) {
+                      const DropArgs& drop, float slope, float* d_el,
+                      float* d_er, int64_t F, int fanout, int H, int d_in,
+                      int64_t aligned, void* stream) {
   if (F == 0) return (int)cudaSuccess;
   const int ld = row_ld(d_in, group_lanes(H));
   size_t smem = 0;
@@ -961,96 +990,102 @@ static int launch_bwd(const void* dxw, const void* x, const int32_t* src,
   if (rc != 0) return rc;
   gat_attend_bwd_kernel<T><<<row_blocks(F, warps), warps * 32, smem,
                              (cudaStream_t)stream>>>(
-      (const T*)dxw, (const T*)x, src, alpha_pre, neg, mask, scale, slope,
-      d_el, d_er, F, fanout, H, d_in, aligned, vec_ok<T>(d_in, x, dxw));
+      (const T*)dxw, (const T*)x, src, alpha_pre, neg, drop, slope, d_el,
+      d_er, F, fanout, H, d_in, aligned, vec_ok<T>(d_in, x, dxw));
   return (int)cudaGetLastError();
 }
 
 template <int D, bool kPad>
 static int launch_fwd_mma(const void* x, const void* u_l, const void* u_r,
                           const int32_t* src, const int32_t* hop_offset,
-                          const uint8_t* mask, float scale, float slope,
-                          void* xw, float* alpha_pre, uint8_t* neg, int64_t F,
+                          const DropArgs& drop, float slope, void* xw,
+                          float* alpha_pre, uint8_t* neg, int64_t F,
                           int fanout, int H, int d_in, int64_t aligned,
                           void* stream) {
   const int rows = fanout + 1 > H ? fanout + 1 : H;
   return launch_mma(gat_attend_fwd_mma_kernel<D, kPad>, mma_smem<D>(rows), F,
                     stream, (const __nv_bfloat16*)x,
                     (const __nv_bfloat16*)u_l, (const __nv_bfloat16*)u_r, src,
-                    hop_offset, mask, scale, slope, (__nv_bfloat16*)xw,
-                    alpha_pre, neg, F, fanout, H, d_in, aligned);
+                    hop_offset, drop, slope, (__nv_bfloat16*)xw, alpha_pre,
+                    neg, F, fanout, H, d_in, aligned);
 }
 
 template <int D, bool kPad>
 static int launch_bwd_mma(const void* dxw, const void* x, const int32_t* src,
                           const float* alpha_pre, const uint8_t* neg,
-                          const uint8_t* mask, float scale, float slope,
-                          float* d_el, float* d_er, int64_t F, int fanout,
-                          int H, int d_in, int64_t aligned, void* stream) {
+                          const DropArgs& drop, float slope, float* d_el,
+                          float* d_er, int64_t F, int fanout, int H,
+                          int d_in, int64_t aligned, void* stream) {
   return launch_mma(gat_attend_bwd_mma_kernel<D, kPad>,
                     mma_smem<D>(fanout + H), F, stream,
                     (const __nv_bfloat16*)dxw, (const __nv_bfloat16*)x, src,
-                    alpha_pre, neg, mask, scale, slope, d_el, d_er, F, fanout,
-                    H, d_in, aligned);
+                    alpha_pre, neg, drop, slope, d_el, d_er, F, fanout, H,
+                    d_in, aligned);
 }
 
 // x [N, d_in], u_l/u_r [d_in, H], xw [F, H, d_in], all of x's dtype
-// (is_bf16); mask may be null (no dropout). general != 0 takes the general
-// kernels where a tensor-core form would take the call (to time the two).
+// (is_bf16). Attention dropout: words (the step's two dropout key words on
+// the card), fold, regime (0: none; words may then be null), kq, keep and
+// c as dropout.cuh takes them. general != 0 takes the general kernels where
+// a tensor-core form would take the call (to time the two).
 LT_EXPORT int lt_gat_attend_fwd(const void* x, const void* u_l,
                                 const void* u_r, const int32_t* src,
                                 const int32_t* hop_offset,
-                                const uint8_t* mask, float scale, float slope,
-                                void* xw, float* alpha_pre, uint8_t* neg,
-                                int64_t F, int fanout, int H, int d_in,
-                                int64_t aligned, int is_bf16, int general,
-                                void* stream) {
-  if (fanout > kGatMaxFanout || H > kGatMaxHeads)
+                                const int32_t* words, uint64_t fold,
+                                int regime, uint32_t kq, float keep, float c,
+                                float slope, void* xw, float* alpha_pre,
+                                uint8_t* neg, int64_t F, int fanout, int H,
+                                int d_in, int64_t aligned, int is_bf16,
+                                int general, void* stream) {
+  const DropArgs drop{words, fold, regime, kq, keep, c};
+  if (fanout > kGatMaxFanout || H > kGatMaxHeads || bad_drop(drop))
     return (int)cudaErrorInvalidValue;
   if (F == 0) return (int)cudaSuccess;
   const MmaForm form = is_bf16 && !general
       ? mma_form(fanout, H, d_in, x, xw) : kGeneral;
   if (form == kExact)
     return launch_fwd_mma<kMmaWidth, false>(
-        x, u_l, u_r, src, hop_offset, mask, scale, slope, xw, alpha_pre, neg,
-        F, fanout, H, d_in, aligned, stream);
+        x, u_l, u_r, src, hop_offset, drop, slope, xw, alpha_pre, neg, F,
+        fanout, H, d_in, aligned, stream);
   if (form == kPadded)
     return launch_fwd_mma<kMmaPadWidth, true>(
-        x, u_l, u_r, src, hop_offset, mask, scale, slope, xw, alpha_pre, neg,
-        F, fanout, H, d_in, aligned, stream);
+        x, u_l, u_r, src, hop_offset, drop, slope, xw, alpha_pre, neg, F,
+        fanout, H, d_in, aligned, stream);
   return is_bf16
-      ? launch_fwd<__nv_bfloat16>(x, u_l, u_r, src, hop_offset, mask, scale,
-                                  slope, xw, alpha_pre, neg, F, fanout, H,
-                                  d_in, aligned, stream)
-      : launch_fwd<float>(x, u_l, u_r, src, hop_offset, mask, scale, slope,
-                          xw, alpha_pre, neg, F, fanout, H, d_in, aligned,
+      ? launch_fwd<__nv_bfloat16>(x, u_l, u_r, src, hop_offset, drop, slope,
+                                  xw, alpha_pre, neg, F, fanout, H, d_in,
+                                  aligned, stream)
+      : launch_fwd<float>(x, u_l, u_r, src, hop_offset, drop, slope, xw,
+                          alpha_pre, neg, F, fanout, H, d_in, aligned,
                           stream);
 }
 
 LT_EXPORT int lt_gat_attend_bwd(const void* dxw, const void* x,
                                 const int32_t* src, const float* alpha_pre,
-                                const uint8_t* neg, const uint8_t* mask,
-                                float scale, float slope, float* d_el,
-                                float* d_er, int64_t F, int fanout, int H,
-                                int d_in, int64_t aligned, int is_bf16,
-                                int general, void* stream) {
-  if (fanout > kGatMaxFanout || H > kGatMaxHeads)
+                                const uint8_t* neg, const int32_t* words,
+                                uint64_t fold, int regime, uint32_t kq,
+                                float keep, float c, float slope,
+                                float* d_el, float* d_er, int64_t F,
+                                int fanout, int H, int d_in, int64_t aligned,
+                                int is_bf16, int general, void* stream) {
+  const DropArgs drop{words, fold, regime, kq, keep, c};
+  if (fanout > kGatMaxFanout || H > kGatMaxHeads || bad_drop(drop))
     return (int)cudaErrorInvalidValue;
   if (F == 0) return (int)cudaSuccess;
   const MmaForm form = is_bf16 && !general
       ? mma_form(fanout, H, d_in, x, dxw) : kGeneral;
   if (form == kExact)
     return launch_bwd_mma<kMmaWidth, false>(
-        dxw, x, src, alpha_pre, neg, mask, scale, slope, d_el, d_er, F,
-        fanout, H, d_in, aligned, stream);
+        dxw, x, src, alpha_pre, neg, drop, slope, d_el, d_er, F, fanout, H,
+        d_in, aligned, stream);
   if (form == kPadded)
     return launch_bwd_mma<kMmaPadWidth, true>(
-        dxw, x, src, alpha_pre, neg, mask, scale, slope, d_el, d_er, F,
-        fanout, H, d_in, aligned, stream);
+        dxw, x, src, alpha_pre, neg, drop, slope, d_el, d_er, F, fanout, H,
+        d_in, aligned, stream);
   return is_bf16
-      ? launch_bwd<__nv_bfloat16>(dxw, x, src, alpha_pre, neg, mask, scale,
-                                  slope, d_el, d_er, F, fanout, H, d_in,
-                                  aligned, stream)
-      : launch_bwd<float>(dxw, x, src, alpha_pre, neg, mask, scale, slope,
-                          d_el, d_er, F, fanout, H, d_in, aligned, stream);
+      ? launch_bwd<__nv_bfloat16>(dxw, x, src, alpha_pre, neg, drop, slope,
+                                  d_el, d_er, F, fanout, H, d_in, aligned,
+                                  stream)
+      : launch_bwd<float>(dxw, x, src, alpha_pre, neg, drop, slope, d_el,
+                          d_er, F, fanout, H, d_in, aligned, stream);
 }

@@ -36,11 +36,19 @@
 //     row, a thread a column, the softmax per head in shared memory.
 //
 // Invalid lanes carry alpha 0 and never reach expf; a row with no valid
-// lane gives zeros, not NaN. Dropped lanes (keep mask 0) are skipped.
-// alpha_pre is the softmax before dropout, saved for the backward.
+// lane gives zeros, not NaN. alpha_pre is the softmax before dropout,
+// saved for the backward.
+//
+// Attention dropout (legion_tpu/ops/hop_agg.py:120) is drawn in the
+// kernels: the keep bit of (lane, head) at alpha's index e = (f*F + i)*H + h
+// is keep_lane of the step's dropout key folded with the layer's fold
+// (dropout.cuh; regime 3 at GAT's layer 1, 2 from 2^20 entries on), drawn
+// where the softmax needs it, and drawn again in the backward: no mask is
+// read or stored. A kept alpha is divided by keep in f32 (times 256 / kq in
+// regime 2), as JAX's dropout; dropped lanes are skipped.
 #include <cuda_bf16.h>
 
-#include "common.cuh"
+#include "dropout.cuh"
 
 constexpr int kMaxFanout = 64;
 constexpr int kMaxHeads = 16;
@@ -60,8 +68,7 @@ __device__ __forceinline__ float lt_warp_sum(float v) {
   return v;
 }
 
-// Per-row set-up shared by both passes: source rows (-1 when invalid) and
-// the keep factor of every (lane, head).
+// Per-row set-up shared by both passes: source rows (-1 when invalid).
 __device__ __forceinline__ void load_rows(const int32_t* src, int64_t F,
                                           int64_t i, int fanout,
                                           int64_t aligned, int32_t* rows) {
@@ -80,20 +87,16 @@ __device__ __forceinline__ void zero_outside(float* out, int64_t r,
   for (int c = t; c < HD; c += step) out[r * HD + c] = 0.0f;
 }
 
-__device__ __forceinline__ float keep_of(const uint8_t* mask, float scale,
-                                         int64_t idx) {
-  return mask == nullptr ? 1.0f : (mask[idx] ? scale : 0.0f);
-}
-
 template <typename T>
 __global__ void hop_attention_fwd_kernel(
     const T* __restrict__ z, const float* __restrict__ scores,
     const int32_t* __restrict__ src, const int32_t* __restrict__ hop_offset,
-    const uint8_t* __restrict__ mask, float scale, float* __restrict__ out,
+    const DropArgs dargs, float* __restrict__ out,
     float* __restrict__ alpha_pre, int64_t F, int fanout, int H, int d,
     int64_t num_dst, int64_t aligned) {
   __shared__ int32_t rows[kMaxFanout];
   __shared__ float a[kMaxFanout * kMaxHeads];
+  const Drop drop = make_drop(dargs);
   const int64_t i = blockIdx.x;
   const int HD = H * d;
   if (i >= F) {
@@ -120,7 +123,7 @@ __global__ void hop_attention_fwd_kernel(
       const float p = a[f * H + h] / den;
       const int64_t idx = ((int64_t)f * F + i) * H + h;
       alpha_pre[idx] = p;
-      a[f * H + h] = p * keep_of(mask, scale, idx);
+      a[f * H + h] = drop_f32(drop, keep_lane(drop, (uint32_t)idx), p);
     }
   }
   __syncthreads();
@@ -142,13 +145,14 @@ template <typename T>
 __global__ void hop_attention_bwd_kernel(
     const float* __restrict__ dout, const T* __restrict__ z,
     const int32_t* __restrict__ src, const int32_t* __restrict__ hop_offset,
-    const float* __restrict__ alpha_pre, const uint8_t* __restrict__ mask,
-    float scale, float* __restrict__ dscores, void* __restrict__ dz,
-    int64_t F, int fanout, int H, int d, int64_t num_dst, int64_t aligned) {
+    const float* __restrict__ alpha_pre, const DropArgs dargs,
+    float* __restrict__ dscores, void* __restrict__ dz, int64_t F,
+    int fanout, int H, int d, int64_t num_dst, int64_t aligned) {
   __shared__ int32_t rows[kMaxFanout];
   __shared__ float p[kMaxFanout * kMaxHeads];     // alpha before dropout
-  __shared__ float kp[kMaxFanout * kMaxHeads];    // keep factor
+  __shared__ bool kp[kMaxFanout * kMaxHeads];     // kept
   __shared__ float da[kMaxFanout * kMaxHeads];    // d alpha after dropout
+  const Drop drop = make_drop(dargs);
   const int64_t i = blockIdx.x;
   const int HD = H * d;
   const int64_t dst = (int64_t)*hop_offset + i;
@@ -157,7 +161,7 @@ __global__ void hop_attention_bwd_kernel(
   for (int t = threadIdx.x; t < fanout * H; t += blockDim.x) {
     const int64_t idx = ((int64_t)(t / H) * F + i) * H + t % H;
     p[t] = alpha_pre[idx];
-    kp[t] = keep_of(mask, scale, idx);
+    kp[t] = keep_lane(drop, (uint32_t)idx);
     da[t] = 0.0f;
   }
   __syncthreads();
@@ -171,7 +175,7 @@ __global__ void hop_attention_bwd_kernel(
       const int c = c0 + threadIdx.x;
       const int h = (c < HD ? c : HD - 1) / d;
       float v = 0.0f;
-      if (c < HD && kp[f * H + h] != 0.0f)
+      if (c < HD && kp[f * H + h])
         v = dout[dst * HD + c] * lt_ld(zr + c);
       if (warp_heads) {
         v = lt_warp_sum(v);
@@ -182,14 +186,15 @@ __global__ void hop_attention_bwd_kernel(
     }
   }
   __syncthreads();
-  // softmax Jacobian per head: ds = p (dp - sum_f p dp), dp = da * keep
+  // softmax Jacobian per head: ds = p (dp - sum_f p dp), dp = da through
+  // dropout's backward (da / keep where kept, else 0)
   if (threadIdx.x < H) {
     const int h = threadIdx.x;
     float s = 0.0f;
     for (int f = 0; f < fanout; ++f)
-      s += p[f * H + h] * da[f * H + h] * kp[f * H + h];
+      s += p[f * H + h] * drop_f32(drop, kp[f * H + h], da[f * H + h]);
     for (int f = 0; f < fanout; ++f) {
-      const float g = da[f * H + h] * kp[f * H + h];
+      const float g = drop_f32(drop, kp[f * H + h], da[f * H + h]);
       dscores[((int64_t)f * F + i) * H + h] = p[f * H + h] * (g - s);
     }
   }
@@ -201,7 +206,7 @@ __global__ void hop_attention_bwd_kernel(
     const int64_t at = (int64_t)rows[f] * HD;
     for (int c = threadIdx.x; c < HD; c += blockDim.x) {
       const int h = c / d;
-      const float ap = p[f * H + h] * kp[f * H + h];
+      const float ap = drop_f32(drop, kp[f * H + h], p[f * H + h]);
       if (ap == 0.0f) continue;
       const float v = ap * dout[dst * HD + c];
       if (aligned >= 0)
@@ -244,7 +249,7 @@ __device__ __forceinline__ void unpack(const uint4& v, float (&x)[8]) {
 }
 
 // This lane's draw: its source row (-1 when invalid or past the fanout)
-// and its index into scores, alpha and the keep mask.
+// and its index into scores and alpha, which is also its dropout lane.
 __device__ __forceinline__ int32_t small_row(const int32_t* src, int64_t F,
                                              int64_t i, int H, int h,
                                              int fanout, int64_t aligned,
@@ -261,10 +266,11 @@ template <typename T, int C>
 __global__ void __launch_bounds__(kThreads) hop_attention_small_fwd_kernel(
     const T* __restrict__ z, const float* __restrict__ scores,
     const int32_t* __restrict__ src, const int32_t* __restrict__ hop_offset,
-    const uint8_t* __restrict__ mask, float scale, float* __restrict__ out,
+    const DropArgs dargs, float* __restrict__ out,
     float* __restrict__ alpha_pre, int64_t F, int fanout, int H,
     int64_t num_dst, int64_t aligned) {
   constexpr int E = 16 / sizeof(T), R = 32 / C, d = C * E;
+  const Drop drop = make_drop(dargs);
   const int lane = threadIdx.x & 31;
   const int64_t w = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
   const int HD = H * d;
@@ -287,7 +293,7 @@ __global__ void __launch_bounds__(kThreads) hop_attention_small_fwd_kernel(
   float a = 0.0f;
   if (lane < fanout) {
     alpha_pre[idx] = p;
-    a = p * keep_of(mask, scale, idx);
+    a = drop_f32(drop, keep_lane(drop, (uint32_t)idx), p);
   }
   const int64_t dst = offset + i;
   if (dst < 0 || dst >= num_dst) return;
@@ -336,10 +342,11 @@ template <typename T, int C>
 __global__ void __launch_bounds__(kThreads) hop_attention_small_bwd_kernel(
     const float* __restrict__ dout, const T* __restrict__ z,
     const int32_t* __restrict__ src, const int32_t* __restrict__ hop_offset,
-    const float* __restrict__ alpha_pre, const uint8_t* __restrict__ mask,
-    float scale, float* __restrict__ dscores, void* __restrict__ dz,
-    int64_t F, int fanout, int H, int64_t num_dst, int64_t aligned) {
+    const float* __restrict__ alpha_pre, const DropArgs dargs,
+    float* __restrict__ dscores, void* __restrict__ dz, int64_t F,
+    int fanout, int H, int64_t num_dst, int64_t aligned) {
   constexpr int E = 16 / sizeof(T), R = 32 / C, d = C * E;
+  const Drop drop = make_drop(dargs);
   const int lane = threadIdx.x & 31;
   const int64_t w = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (w >= F * H) return;
@@ -350,10 +357,11 @@ __global__ void __launch_bounds__(kThreads) hop_attention_small_bwd_kernel(
   const bool live = dst >= 0 && dst < num_dst;
   int64_t idx;
   const int32_t row = small_row(src, F, i, H, h, fanout, aligned, lane, &idx);
-  float p = 0.0f, kp = 0.0f;
+  float p = 0.0f;
+  bool kp = false;
   if (lane < fanout) {
     p = alpha_pre[idx];
-    kp = keep_of(mask, scale, idx);
+    kp = keep_lane(drop, (uint32_t)idx);
   }
   const int c = lane % C, g = lane / C;
   // this lane's chunk of the destination's d out row
@@ -376,21 +384,22 @@ __global__ void __launch_bounds__(kThreads) hop_attention_small_bwd_kernel(
       + ((int64_t)h * d * sizeof(T) + 16 * c);
   uint4 v[C];
   int32_t rf[C];
-  float pf[C], kf[C];
-  bool use[C];
+  float pf[C];
+  bool kf[C], use[C];
 #pragma unroll
   for (int l = 0; l < C; ++l) {
     rf[l] = __shfl_sync(0xffffffffu, row, l * R + g);
     pf[l] = __shfl_sync(0xffffffffu, p, l * R + g);
-    kf[l] = __shfl_sync(0xffffffffu, kp, l * R + g);
-    use[l] = live && rf[l] >= 0 && kf[l] != 0.0f;
+    kf[l] = __shfl_sync(0xffffffffu, (int)kp, l * R + g) != 0;
+    use[l] = live && rf[l] >= 0 && kf[l];
     v[l] = make_uint4(0, 0, 0, 0);
     if (use[l])
       v[l] = *reinterpret_cast<const uint4*>(
           zc + (int64_t)rf[l] * HD * sizeof(T));
   }
   // d alpha[f] = <dout[dst, h, :], z[row_f, h, :]>, summed over the chunks;
-  // then the softmax Jacobian: ds = p (dp - sum_f p dp), dp = da * keep
+  // then the softmax Jacobian: ds = p (dp - sum_f p dp), dp = da through
+  // dropout's backward
   float da[C];
   float s = 0.0f;
 #pragma unroll
@@ -403,22 +412,22 @@ __global__ void __launch_bounds__(kThreads) hop_attention_small_bwd_kernel(
     if (!use[l]) t = 0.0f;
 #pragma unroll
     for (int o = 1; o < C; o <<= 1) t += __shfl_xor_sync(0xffffffffu, t, o);
-    da[l] = t;
-    if (c == 0) s += pf[l] * t * kf[l];
+    da[l] = drop_f32(drop, kf[l], t);
+    if (c == 0) s += pf[l] * da[l];
   }
   s = lt_warp_sum(s);
 #pragma unroll
   for (int l = 0; l < C; ++l) {
     const int f = l * R + g;
     if (c == 0 && f < fanout)
-      dscores[((int64_t)f * F + i) * H + h] = pf[l] * (da[l] * kf[l] - s);
+      dscores[((int64_t)f * F + i) * H + h] = pf[l] * (da[l] - s);
   }
   if (!live) return;
   // dz[row_f, h, chunk] += alpha_post[f] * dout chunk: four floats an
   // atomic on a gathered hop, one 16-byte store in z's type on an aligned
 #pragma unroll
   for (int l = 0; l < C; ++l) {
-    const float ap = pf[l] * kf[l];
+    const float ap = drop_f32(drop, kf[l], pf[l]);
     if (rf[l] < 0 || ap == 0.0f) continue;
     const int64_t at = (int64_t)rf[l] * HD + h * d + c * E;
     if (aligned < 0) {
@@ -473,26 +482,26 @@ static int block_threads(int HD) {
 
 template <typename T>
 static int launch_fwd(const void* z, const float* scores, const int32_t* src,
-                      const int32_t* hop_offset, const uint8_t* mask,
-                      float scale, float* out, float* alpha_pre, int64_t F,
-                      int fanout, int H, int d, int64_t num_dst,
-                      int64_t aligned, void* stream) {
+                      const int32_t* hop_offset, const DropArgs& drop,
+                      float* out, float* alpha_pre, int64_t F, int fanout,
+                      int H, int d, int64_t num_dst, int64_t aligned,
+                      void* stream) {
   if (F + num_dst == 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
 #define LT_SMALL_FWD(C)                                                     \
   case C:                                                                   \
     hop_attention_small_fwd_kernel<T, C>                                    \
         <<<warp_blocks(F * H + num_dst), kThreads, 0, st>>>(                \
-            (const T*)z, scores, src, hop_offset, mask, scale, out,         \
-            alpha_pre, F, fanout, H, num_dst, aligned);                     \
+            (const T*)z, scores, src, hop_offset, drop, out, alpha_pre, F,  \
+            fanout, H, num_dst, aligned);                                   \
     break;
   switch (small_chunks<T>(fanout, d, z, out, nullptr)) {
     LT_SMALL_FWD(1) LT_SMALL_FWD(2) LT_SMALL_FWD(4) LT_SMALL_FWD(8)
     default:
       hop_attention_fwd_kernel<T><<<(unsigned int)(F + num_dst),
                                     block_threads(H * d), 0, st>>>(
-          (const T*)z, scores, src, hop_offset, mask, scale, out, alpha_pre,
-          F, fanout, H, d, num_dst, aligned);
+          (const T*)z, scores, src, hop_offset, drop, out, alpha_pre, F,
+          fanout, H, d, num_dst, aligned);
   }
 #undef LT_SMALL_FWD
   return (int)cudaGetLastError();
@@ -501,66 +510,72 @@ static int launch_fwd(const void* z, const float* scores, const int32_t* src,
 template <typename T>
 static int launch_bwd(const float* dout, const void* z, const int32_t* src,
                       const int32_t* hop_offset, const float* alpha_pre,
-                      const uint8_t* mask, float scale, float* dscores,
-                      void* dz, int64_t F, int fanout, int H, int d,
-                      int64_t num_dst, int64_t aligned, void* stream) {
+                      const DropArgs& drop, float* dscores, void* dz,
+                      int64_t F, int fanout, int H, int d, int64_t num_dst,
+                      int64_t aligned, void* stream) {
   if (F == 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
 #define LT_SMALL_BWD(C)                                                     \
   case C:                                                                   \
     hop_attention_small_bwd_kernel<T, C>                                    \
         <<<warp_blocks(F * H), kThreads, 0, st>>>(                          \
-            dout, (const T*)z, src, hop_offset, alpha_pre, mask, scale,     \
-            dscores, dz, F, fanout, H, num_dst, aligned);                   \
+            dout, (const T*)z, src, hop_offset, alpha_pre, drop, dscores,   \
+            dz, F, fanout, H, num_dst, aligned);                            \
     break;
   switch (small_chunks<T>(fanout, d, z, dout, dz)) {
     LT_SMALL_BWD(1) LT_SMALL_BWD(2) LT_SMALL_BWD(4) LT_SMALL_BWD(8)
     default:
       hop_attention_bwd_kernel<T><<<(unsigned int)F, block_threads(H * d),
                                     0, st>>>(
-          dout, (const T*)z, src, hop_offset, alpha_pre, mask, scale,
-          dscores, dz, F, fanout, H, d, num_dst, aligned);
+          dout, (const T*)z, src, hop_offset, alpha_pre, drop, dscores, dz,
+          F, fanout, H, d, num_dst, aligned);
   }
 #undef LT_SMALL_BWD
   return (int)cudaGetLastError();
 }
 
-// is_bf16 selects z's dtype; mask may be null (no dropout); aligned < 0
-// means a gathered hop. The forward writes all of out. dz is f32 on a
-// gathered hop and of z's dtype on an aligned one, zeroed by the caller.
+// is_bf16 selects z's dtype; aligned < 0 means a gathered hop. Attention
+// dropout: words (the step's two dropout key words on the card), fold,
+// regime (0: none; words may then be null), kq, keep and c as dropout.cuh
+// takes them. The forward writes all of out. dz is f32 on a gathered hop
+// and of z's dtype on an aligned one, zeroed by the caller.
 LT_EXPORT int lt_hop_attention_fwd(const void* z, const float* scores,
                                    const int32_t* src,
                                    const int32_t* hop_offset,
-                                   const uint8_t* mask, float scale,
-                                   float* out, float* alpha_pre, int64_t F,
-                                   int fanout, int H, int d, int64_t num_dst,
-                                   int64_t aligned, int is_bf16,
-                                   void* stream) {
-  if (fanout > kMaxFanout || H > kMaxHeads) return (int)cudaErrorInvalidValue;
+                                   const int32_t* words, uint64_t fold,
+                                   int regime, uint32_t kq, float keep,
+                                   float c, float* out, float* alpha_pre,
+                                   int64_t F, int fanout, int H, int d,
+                                   int64_t num_dst, int64_t aligned,
+                                   int is_bf16, void* stream) {
+  const DropArgs drop{words, fold, regime, kq, keep, c};
+  if (fanout > kMaxFanout || H > kMaxHeads || bad_drop(drop))
+    return (int)cudaErrorInvalidValue;
   return is_bf16
-      ? launch_fwd<__nv_bfloat16>(z, scores, src, hop_offset, mask, scale,
-                                  out, alpha_pre, F, fanout, H, d, num_dst,
+      ? launch_fwd<__nv_bfloat16>(z, scores, src, hop_offset, drop, out,
+                                  alpha_pre, F, fanout, H, d, num_dst,
                                   aligned, stream)
-      : launch_fwd<float>(z, scores, src, hop_offset, mask, scale, out,
-                          alpha_pre, F, fanout, H, d, num_dst, aligned,
-                          stream);
+      : launch_fwd<float>(z, scores, src, hop_offset, drop, out, alpha_pre,
+                          F, fanout, H, d, num_dst, aligned, stream);
 }
 
 LT_EXPORT int lt_hop_attention_bwd(const float* dout, const void* z,
                                    const int32_t* src,
                                    const int32_t* hop_offset,
                                    const float* alpha_pre,
-                                   const uint8_t* mask, float scale,
-                                   float* dscores, void* dz, int64_t F,
-                                   int fanout, int H, int d, int64_t num_dst,
-                                   int64_t aligned, int is_bf16,
-                                   void* stream) {
-  if (fanout > kMaxFanout || H > kMaxHeads) return (int)cudaErrorInvalidValue;
+                                   const int32_t* words, uint64_t fold,
+                                   int regime, uint32_t kq, float keep,
+                                   float c, float* dscores, void* dz,
+                                   int64_t F, int fanout, int H, int d,
+                                   int64_t num_dst, int64_t aligned,
+                                   int is_bf16, void* stream) {
+  const DropArgs drop{words, fold, regime, kq, keep, c};
+  if (fanout > kMaxFanout || H > kMaxHeads || bad_drop(drop))
+    return (int)cudaErrorInvalidValue;
   return is_bf16
-      ? launch_bwd<__nv_bfloat16>(dout, z, src, hop_offset, alpha_pre, mask,
-                                  scale, dscores, dz, F, fanout, H, d,
-                                  num_dst, aligned, stream)
-      : launch_bwd<float>(dout, z, src, hop_offset, alpha_pre, mask, scale,
-                          dscores, dz, F, fanout, H, d, num_dst, aligned,
-                          stream);
+      ? launch_bwd<__nv_bfloat16>(dout, z, src, hop_offset, alpha_pre, drop,
+                                  dscores, dz, F, fanout, H, d, num_dst,
+                                  aligned, stream)
+      : launch_bwd<float>(dout, z, src, hop_offset, alpha_pre, drop, dscores,
+                          dz, F, fanout, H, d, num_dst, aligned, stream);
 }

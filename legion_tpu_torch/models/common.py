@@ -1,6 +1,6 @@
-"""Shared model utilities: block geometry, initialisers, attention
-dropout's keep mask, and the model factory (port of
-``legion_tpu/models/common.py``).
+"""Shared model utilities: block geometry, initialisers and the model
+factory (port of ``legion_tpu/models/common.py``; its ``dropout`` is
+``ops/dropout.py``).
 
 Block geometry: layer i (of L) aggregates over hop k = L-1-i; its input
 covers local positions [0, S[k+1]) and its output [0, S[k]), with S the
@@ -15,7 +15,6 @@ from typing import Optional, Tuple
 import torch
 
 from legion_tpu_torch.config import SamplerConfig, TrainConfig
-from legion_tpu_torch.ops.dropout import regime, u8_threshold
 
 
 def static_cum_sizes(cfg: SamplerConfig) -> Tuple[int, ...]:
@@ -51,35 +50,6 @@ def xavier_uniform_padded(logical_in: int, padded_in: int,
                       device=device)
     out[:logical_in] = w
     return out
-
-
-def dropout_keep(shape: Tuple[int, ...], rate: float,
-                 generator: Optional[torch.Generator],
-                 device: Optional[torch.device] = None
-                 ) -> Optional[Tuple[torch.Tensor, float]]:
-    """Attention dropout's keep mask (bool, ``shape``) and the scale of
-    kept entries, drawn from ``generator`` in the three regimes of the JAX
-    package (``ops/dropout.py::regime``; the bits differ from JAX's); None
-    when nothing is dropped. K6 and K7 take it. Feature dropout draws its
-    bits from the step's key inside K16 (``ops/dropout.py``)."""
-    if rate <= 0.0 or generator is None:
-        return None
-    keep = 1.0 - rate
-    r = regime(tuple(shape), rate)
-    if r == 1:
-        words = torch.randint(-2 ** 31, 2 ** 31, (shape[0], shape[1] // 32),
-                              dtype=torch.int32, generator=generator,
-                              device=device)
-        shifts = torch.arange(32, dtype=torch.int32, device=device)
-        mask = ((words[:, :, None] >> shifts) & 1).reshape(shape) != 0
-        return mask, 1.0 / keep
-    if r == 2:
-        kq = u8_threshold(rate)
-        bits = torch.randint(0, 256, shape, dtype=torch.uint8,
-                             generator=generator, device=device)
-        return bits < kq, 256.0 / kq
-    mask = torch.rand(shape, generator=generator, device=device) < keep
-    return mask, 1.0 / keep
 
 
 def make_model(train_cfg: TrainConfig, sampler_cfg: SamplerConfig,

@@ -18,8 +18,9 @@ Feature dropout is drawn per slot: on an aligned hop two draws of one node
 are two slots with independent masks (as in JAX, ``gat.py:55-58``). It is
 one K16 pass a layer (``ops/dropout.py``), its bits from the step's dropout
 key; layer i > 0's pass also takes the ELU and the cast of layer i - 1's
-output. Attention dropout's masks come from a generator and go to K6 and
-K7 as (mask, scale).
+output. Attention dropout draws from the same key inside K6 and K7
+(``ops/dropout.py::AttnDrop``), layer i's bits from ``attn_fold(i)``, so
+every mask of a step follows the key K10 writes on the card.
 JAX rematerialises a bf16 layer 0 in the backward (``jax.checkpoint``,
 ``gat.py:223-231``) to fit a 16 GB TPU; on an 80 GB card the port keeps
 the activations.
@@ -33,35 +34,29 @@ import torch
 from torch import nn
 
 from legion_tpu_torch.config import SamplerConfig
-from legion_tpu_torch.models.common import (dropout_keep, static_cum_sizes,
+from legion_tpu_torch.models.common import (static_cum_sizes,
                                             xavier_uniform,
                                             xavier_uniform_padded)
 from legion_tpu_torch.ops import kernels
-from legion_tpu_torch.ops.dropout import dropout_act
+from legion_tpu_torch.ops.dropout import AttnDrop, dropout_act
 from legion_tpu_torch.ops.hop_agg import hop_softmax_attention, place_rows
 from legion_tpu_torch.ops.segment import gather_rows
 from legion_tpu_torch.sampling.sampler import SampleBatch
-
-
-def _attn_keep(shape, rate: float, generator: Optional[torch.Generator],
-               train: bool, device):
-    """Attention dropout's (mask, scale), drawn before the kernel runs."""
-    if not train:
-        return None
-    return dropout_keep(tuple(shape), rate, generator, device)
 
 
 def gat_layer_aligned_streaming(params: Mapping[str, torch.Tensor],
                                 h_src: torch.Tensor, edge_src: torch.Tensor,
                                 fanout: int, hop_offset: torch.Tensor,
                                 num_dst: int, aligned_offset: int,
-                                negative_slope: float = 0.2, keep=None,
+                                negative_slope: float = 0.2,
+                                drop: Optional[AttnDrop] = None,
                                 compute_dtype=None) -> torch.Tensor:
     """Multi-head GATConv on a lane-aligned hop, by the projection commute
     (e_l = x . (W a_l), sum_f alpha_f (x_f W) = (sum_f alpha_f x_f) W): the
     [E, H*d_out] projection is never built. K6 takes the scores, softmax,
     dropout and the fanout contraction; then xw @ W per head.
-    ``keep`` is attention dropout's (mask [fanout, F, H], scale) or None.
+    ``drop`` is attention dropout (the step's dropout key words, the
+    layer, the rate; K6 draws the keep bits) or None.
     Returns [num_dst, H, d_out] f32."""
     H, d_out = params["attn_l"].shape
     d_in = h_src.shape[1]
@@ -76,7 +71,7 @@ def gat_layer_aligned_streaming(params: Mapping[str, torch.Tensor],
     u_l = torch.einsum("khd,hd->kh", w, al)
     u_r = torch.einsum("khd,hd->kh", w, ar)
     xw = kernels.gat_attend(h_src, u_l, u_r, edge_src, hop_offset, fanout,
-                            aligned_offset, negative_slope, keep)
+                            aligned_offset, negative_slope, drop)
     # [F, H, d_in] x [d_in, H, d_out] per head in the compute dtype: the
     # GEMM accumulates in f32 and rounds once, as JAX's f32
     # preferred_element_type followed by its cast to h_src's dtype
@@ -88,7 +83,8 @@ def gat_layer_aligned_streaming(params: Mapping[str, torch.Tensor],
 def gat_layer_apply(params: Mapping[str, torch.Tensor], h_src: torch.Tensor,
                     edge_src: torch.Tensor, fanout: int,
                     hop_offset: torch.Tensor, num_dst: int,
-                    negative_slope: float = 0.2, keep=None,
+                    negative_slope: float = 0.2,
+                    drop: Optional[AttnDrop] = None,
                     aligned_offset: Optional[int] = None,
                     compute_dtype=None) -> torch.Tensor:
     """One multi-head GATConv over a gathered (or aligned) hop: z = h W in
@@ -115,7 +111,7 @@ def gat_layer_apply(params: Mapping[str, torch.Tensor], h_src: torch.Tensor,
     e = kernels.leaky_relu(el_e.reshape(fanout, F_, H) + er_dst[None],
                            negative_slope)
     out = hop_softmax_attention(z, e, edge_src, fanout, hop_offset, num_dst,
-                                keep, aligned_offset)
+                                drop, aligned_offset)
     return out + params["b"][None]
 
 
@@ -124,9 +120,6 @@ class GAT(nn.Module):
     ``attn_r``, ``b`` [H_i, d_out], float32. Layer i's input is the
     (padded) feature width at i = 0, else hidden * H_{i-1}; its per-head
     output is hidden, or the class count for the last layer."""
-
-    # ``forward`` takes attention dropout's generator besides the key words
-    takes_generator = True
 
     def __init__(self, in_dim: int, hidden_dim: int, num_classes: int,
                  num_layers: int, device: torch.device,
@@ -179,18 +172,17 @@ class GAT(nn.Module):
 
     def forward(self, feats: torch.Tensor, batch: SampleBatch,
                 sampler_cfg: SamplerConfig,
-                drop_key: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
+                drop_key: Optional[torch.Tensor] = None) -> torch.Tensor:
         """feats [max_ids, in_dim_pad] -> logits [batch_size, classes].
-        In training mode, feature dropout runs when the step's dropout key
-        words ``drop_key`` are given (layer i's bits from i), attention
-        dropout when ``generator`` is."""
+        In training mode, with the step's dropout key words ``drop_key``,
+        feature and attention dropout draw from them (layer i's bits from
+        folds i and ``attn_fold(i)``)."""
         if sampler_cfg.num_hops != self.num_layers:
             raise ValueError("layer count must match sampling hops")
         S = static_cum_sizes(sampler_cfg)
         L = self.num_layers
         h, act, cdt = feats, "none", None
+        attn = self.training and drop_key is not None and self.attn_drop > 0
         for i in range(L):
             k = L - 1 - i
             fanout = sampler_cfg.fanouts[k]
@@ -198,18 +190,15 @@ class GAT(nn.Module):
             # the previous layer's ELU and cast, and this layer's dropout
             h = dropout_act(h, act, cdt, self.feat_drop, drop_key, i,
                             self.training)
-            keep = _attn_keep((fanout, edge_src.shape[0] // fanout,
-                               self.heads[i]), self.attn_drop, generator,
-                              self.training and generator is not None,
-                              h.device)
+            drop = AttnDrop(drop_key, i, self.attn_drop) if attn else None
             ao = sampler_cfg.aligned_hop_offset(k)
             args = (self.layers[i], h[:S[k + 1]], edge_src, fanout,
                     batch.hop_offsets[k], S[k])
             if ao is not None:
                 out = gat_layer_aligned_streaming(
-                    *args, ao, self.negative_slope, keep, self.cdt)
+                    *args, ao, self.negative_slope, drop, self.cdt)
             else:
-                out = gat_layer_apply(*args, self.negative_slope, keep,
+                out = gat_layer_apply(*args, self.negative_slope, drop,
                                       None, self.cdt)
             if i != L - 1:
                 # flatten the heads; ELU and the cast wait for the next

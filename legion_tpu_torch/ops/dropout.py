@@ -28,6 +28,14 @@ arithmetic, on CUDA tensors K16 (forward ``dropout_act``, backward
 ``dropout_act_bwd`` in ``kernels.LAUNCHES``) or a raise. Its autograd
 Function saves x (the activation's derivative reads it) and the key words,
 never a mask.
+
+GAT's attention dropout (``legion_tpu/models/gat.py:94``,
+``legion_tpu/ops/hop_agg.py:120``) draws the same way inside K6 and K7
+(``AttnDrop``): alpha [fanout, F, H] f32, lane e its row-major index
+(f * F + i) * H + h, layer i's key ``fold_in(words, attn_fold(i))``; alpha
+is never 2-D, so regime 2 or 3. ``attn_dropout_plain`` is their plain
+arithmetic, JAX's: a kept entry divided by keep (times 256 / kq in regime
+2) in f32.
 """
 
 from __future__ import annotations
@@ -39,7 +47,8 @@ import torch
 import torch.nn.functional as F
 
 from legion_tpu_torch.ops import kernels
-from legion_tpu_torch.sampling.access import M32, fold_in_words, hash_words
+from legion_tpu_torch.sampling.access import (ATTN_TAG, M32, fold_in_words,
+                                              hash_words)
 
 ACTS = {"none": 0, "relu": 1, "elu": 2}
 # lanes are 32-bit counters
@@ -112,6 +121,55 @@ def keep_mask_plain(shape: Tuple[int, ...], rate: float,
     u = (hash_words(ka, kb, torch.arange(n, device=dev)) >> 8).to(
         torch.float32) * 2.0 ** -24
     return (u < _const(1.0 - rate, torch.float32, dev)).reshape(shape)
+
+
+def attn_fold(layer: int) -> int:
+    """What attention layer ``layer`` folds into the step's dropout key:
+    the layer in the low 32 bits and ``ATTN_TAG`` in the high ones, so its
+    masks differ from the layer's feature masks (fold ``layer``)."""
+    return (ATTN_TAG << 32) | layer
+
+
+class AttnDrop(NamedTuple):
+    """Attention dropout of one GAT layer, as K6 and K7 take it: the
+    step's dropout key words ([2] int32 on alpha's device), the layer and
+    the rate. Its keep bits are ``keep_mask_plain(alpha.shape, rate,
+    words, attn_fold(layer))``."""
+    words: torch.Tensor
+    layer: int
+    rate: float
+
+
+def attn_spec(shape, drop: Optional[AttnDrop]) -> DropSpec:
+    """The K6 / K7 launch's dropout arguments for alpha of ``shape``
+    (regime 0 with no ``drop``); raises ValueError on what the kernels do
+    not take."""
+    if drop is None:
+        return make_spec(shape, 0.0, "none", torch.float32, 0)
+    n = math.prod(shape)
+    kernels._require(n <= MAX_LANES,
+                     f"attention dropout: {n} alpha entries, more than the "
+                     f"{MAX_LANES} a 32-bit lane counter takes")
+    w = drop.words
+    kernels._require(w.dtype == torch.int32 and w.numel() == 2
+                     and w.is_contiguous(),
+                     f"attention dropout: key words {w.dtype} "
+                     f"{tuple(w.shape)}, want 2 contiguous int32")
+    return make_spec(shape, drop.rate, "none", torch.float32,
+                     attn_fold(drop.layer))
+
+
+def attn_dropout_plain(alpha: torch.Tensor, drop: Optional[AttnDrop]
+                       ) -> torch.Tensor:
+    """Attention dropout of alpha (f32) in plain torch ops, differentiable:
+    JAX's ``where(mask, alpha / keep, 0)`` (``alpha * (256 / kq)`` in
+    regime 2) with the mask K6 and K7 draw; alpha itself with no
+    ``drop``."""
+    if drop is None:
+        return alpha
+    attn_spec(tuple(alpha.shape), drop)
+    return dropout_act_plain(alpha, "none", None, drop.rate, drop.words,
+                             attn_fold(drop.layer))
 
 
 def _act_plain(x: torch.Tensor, act: str) -> torch.Tensor:

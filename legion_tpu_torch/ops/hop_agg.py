@@ -25,6 +25,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from legion_tpu_torch.ops import kernels
+from legion_tpu_torch.ops.dropout import attn_dropout_plain
 
 
 class TableRows(NamedTuple):
@@ -193,23 +194,24 @@ def hop_neighbor_mean(h_src: torch.Tensor, src_l: torch.Tensor, fanout: int,
 def hop_softmax_attention_plain(z: torch.Tensor, scores: torch.Tensor,
                                 src_l: torch.Tensor, fanout: int,
                                 offset: torch.Tensor, num_dst: int,
-                                keep=None,
+                                drop=None,
                                 aligned_offset: Optional[int] = None
                                 ) -> torch.Tensor:
     """K7's plain version: a sum over fanout slices, which never builds
     the [fanout, F, H, d] edge messages (JAX's dense and chunked branches
     compute the same sum). Pads read row 0 and carry alpha 0. z is widened
     to f32 once, so the gradient of a bf16 z is summed in f32 and cast
-    once, as K7 does (JAX's gather transpose sums in bf16). Returns f32
-    (JAX returns z's dtype from its chunked branch)."""
+    once, as K7 does (JAX's gather transpose sums in bf16). Attention
+    dropout (``drop``, an ``ops/dropout.py::AttnDrop``, or None) is
+    ``attn_dropout_plain``, JAX's arithmetic on K7's keep bits. Returns
+    f32 (JAX returns z's dtype from its chunked branch)."""
     E = src_l.shape[0]
     F = E // fanout
     N, H, d = z.shape
     z2 = z.reshape(N, H * d).float()
     valid = (src_l >= 0).reshape(fanout, F)[..., None]
-    alpha = kernels.masked_fanout_softmax(scores, valid)   # [fo, F, H]
-    if keep is not None:
-        alpha = torch.where(keep[0], alpha * keep[1], 0.0)
+    alpha = attn_dropout_plain(kernels.masked_fanout_softmax(scores, valid),
+                               drop)                       # [fo, F, H]
     out = torch.zeros((F, H, d), dtype=torch.float32, device=z.device)
     for f in range(fanout):
         if aligned_offset is not None:
@@ -222,17 +224,18 @@ def hop_softmax_attention_plain(z: torch.Tensor, scores: torch.Tensor,
 
 def hop_softmax_attention(z: torch.Tensor, scores: torch.Tensor,
                           src_l: torch.Tensor, fanout: int,
-                          offset: torch.Tensor, num_dst: int, keep=None,
+                          offset: torch.Tensor, num_dst: int, drop=None,
                           aligned_offset: Optional[int] = None
                           ) -> torch.Tensor:
     """GAT's per-destination softmax and weighted sum over a hop. z
     [N_src, H, d] projected rows; scores [fanout, F, H] f32 edge scores
-    (LeakyReLU applied, fanout-major); keep = (bool mask, scale) of
-    attention dropout, or None. Returns [num_dst, H, d] f32. CPU tensors
-    take the plain version; CUDA tensors K7."""
+    (LeakyReLU applied, fanout-major); ``drop`` attention dropout (an
+    ``ops/dropout.py::AttnDrop``: the step's dropout key words, the layer,
+    the rate) or None. Returns [num_dst, H, d] f32. CPU tensors take the
+    plain version; CUDA tensors K7, which draws the keep bits itself."""
     if z.device.type == "cpu" and scores.device.type == "cpu":
         return hop_softmax_attention_plain(z, scores, src_l, fanout, offset,
-                                           num_dst, keep, aligned_offset)
+                                           num_dst, drop, aligned_offset)
     N, H, d = z.shape
     return kernels.hop_attention(z.reshape(N, H * d), scores, src_l, fanout,
-                                 offset, num_dst, H, aligned_offset, keep)
+                                 offset, num_dst, H, aligned_offset, drop)

@@ -181,14 +181,16 @@ def lib() -> ctypes.CDLL:
                                     i64, i32, p, p, i64, p]
     for fn in (so.lt_csr_draw_i32, so.lt_csr_draw_i64):
         fn.argtypes = [p, i64, i32, p, p, p, p, p, i64, p, p, p]
-    so.lt_gat_attend_fwd.argtypes = [p, p, p, p, p, p, f32, f32, p, p, p,
-                                     i64, i32, i32, i32, i64, i32, i32, p]
-    so.lt_gat_attend_bwd.argtypes = [p, p, p, p, p, p, f32, f32, p, p, i64,
-                                     i32, i32, i32, i64, i32, i32, p]
-    so.lt_hop_attention_fwd.argtypes = [p, p, p, p, p, f32, p, p, i64, i32,
-                                        i32, i32, i64, i64, i32, p]
-    so.lt_hop_attention_bwd.argtypes = [p, p, p, p, p, p, f32, p, p, i64,
-                                        i32, i32, i32, i64, i64, i32, p]
+    # attention dropout's arguments: words, fold, regime, kq, keep, c
+    drop = [p, ctypes.c_uint64, i32, u32, f32, f32]
+    so.lt_gat_attend_fwd.argtypes = [p, p, p, p, p] + drop + [
+        f32, p, p, p, i64, i32, i32, i32, i64, i32, i32, p]
+    so.lt_gat_attend_bwd.argtypes = [p, p, p, p, p] + drop + [
+        f32, p, p, i64, i32, i32, i32, i64, i32, i32, p]
+    so.lt_hop_attention_fwd.argtypes = [p, p, p, p] + drop + [
+        p, p, i64, i32, i32, i32, i64, i64, i32, p]
+    so.lt_hop_attention_bwd.argtypes = [p, p, p, p, p] + drop + [
+        p, p, i64, i32, i32, i32, i64, i64, i32, p]
     so.lt_host_register.argtypes = [p, i64, ctypes.POINTER(ctypes.c_void_p)]
     so.lt_host_unregister.argtypes = [p]
     so.lt_host_read_probe.argtypes = [p, i64, i64, p, i64, i32, p, p]
@@ -418,18 +420,6 @@ def _attn_checks(name: str, fanout: int, heads: int, src: torch.Tensor,
              f"{tuple(hop_offset.shape)} on {hop_offset.device}")
 
 
-def _mask_arg(name: str, mask, shape, device) -> Tuple[object, object]:
-    """(mask tensor kept alive, pointer or None) for a bool keep mask."""
-    if mask is None:
-        return None, None
-    _require(mask.dtype == torch.bool and tuple(mask.shape) == tuple(shape)
-             and mask.device == device,
-             f"{name}: keep mask {mask.dtype} {tuple(mask.shape)} on "
-             f"{mask.device}, want bool {tuple(shape)}")
-    mask = mask.contiguous()
-    return mask, mask.data_ptr()
-
-
 def slice_rows(t: torch.Tensor, offset: torch.Tensor, n: int
                 ) -> torch.Tensor:
     """t[offset : offset + n] for a device scalar offset (no host sync)."""
@@ -456,14 +446,15 @@ def gat_scores_plain(x: torch.Tensor, u_l: torch.Tensor, u_r: torch.Tensor,
     return el, er, alpha
 
 
-def gat_contract_plain(x: torch.Tensor, alpha: torch.Tensor, keep,
+def gat_contract_plain(x: torch.Tensor, alpha: torch.Tensor, drop,
                        aligned_offset: int) -> torch.Tensor:
     """K6's fanout contraction (``gat.py:94-99``): alpha [fanout, F, H]
-    f32 through attention dropout, cast to x's dtype, then xw[i, h, k] =
-    sum_f alpha[f, i, h] x[aligned_offset + f*F + i, k] in x's dtype."""
+    f32 through attention dropout (``drop``, an ``ops/dropout.py::
+    AttnDrop`` or None), cast to x's dtype, then xw[i, h, k] = sum_f
+    alpha[f, i, h] x[aligned_offset + f*F + i, k] in x's dtype."""
+    from legion_tpu_torch.ops.dropout import attn_dropout_plain
     fanout, F, _ = alpha.shape
-    if keep is not None:
-        alpha = torch.where(keep[0], alpha * keep[1], 0.0)
+    alpha = attn_dropout_plain(alpha, drop)
     x_lanes = x[aligned_offset:aligned_offset + fanout * F]
     return torch.einsum("fih,fik->ihk", alpha.to(x.dtype),
                         x_lanes.reshape(fanout, F, x.shape[1]))
@@ -472,12 +463,12 @@ def gat_contract_plain(x: torch.Tensor, alpha: torch.Tensor, keep,
 def gat_attend_plain(x: torch.Tensor, u_l: torch.Tensor, u_r: torch.Tensor,
                      edge_src: torch.Tensor, hop_offset: torch.Tensor,
                      fanout: int, aligned_offset: int, slope: float,
-                     keep=None) -> torch.Tensor:
+                     drop=None) -> torch.Tensor:
     """K6's plain version, with the casts of ``gat.py:83-99``. Returns xw
     [F, H, d_in] in x's dtype."""
     alpha = gat_scores_plain(x, u_l, u_r, edge_src, hop_offset, fanout,
                              aligned_offset, slope)[2]
-    return gat_contract_plain(x, alpha, keep, aligned_offset)
+    return gat_contract_plain(x, alpha, drop, aligned_offset)
 
 
 def leaky_relu(x: torch.Tensor, slope: float) -> torch.Tensor:
@@ -498,71 +489,107 @@ def masked_fanout_softmax(s: torch.Tensor, valid: torch.Tensor
     return e / e.sum(dim=0, keepdim=True).clamp(min=fi.tiny)
 
 
+def _drop_args(shape, drop) -> Tuple:
+    """The dropout arguments of a K6 / K7 launch for alpha of ``shape``:
+    the key words' pointer, the fold, the regime, kq, keep and c. (Imported
+    here: ``ops/dropout.py`` imports this module.)"""
+    from legion_tpu_torch.ops.dropout import attn_spec
+    s = attn_spec(tuple(shape), drop)
+    return (None if drop is None else drop.words.data_ptr(), s.layer,
+            s.regime, s.kq, s.keep, s.c)
+
+
+def _words(drop):
+    """The dropout key words of ``drop`` (None without dropout)."""
+    return None if drop is None else drop.words
+
+
+def gat_attend_fwd(x, u_l, u_r, edge_src, hop_offset, fanout: int,
+                   aligned_offset: int, slope: float, drop, general: bool):
+    """K6's forward launch (no autograd; ``GatAttend`` calls it): (xw
+    [F, H, d_in] in x's dtype, alpha before dropout [fanout, F, H] f32,
+    the LeakyReLU sign [fanout, F, H] u8). Contiguous CUDA tensors."""
+    E = edge_src.shape[0]
+    F = E // fanout
+    d_in, H = u_l.shape
+    xw = torch.empty((F, H, d_in), dtype=x.dtype, device=x.device)
+    alpha = torch.empty((fanout, F, H), dtype=torch.float32,
+                        device=x.device)
+    neg = torch.empty((fanout, F, H), dtype=torch.uint8, device=x.device)
+    dargs = _drop_args(alpha.shape, drop)
+    rc = lib().lt_gat_attend_fwd(
+        x.data_ptr(), u_l.data_ptr(), u_r.data_ptr(), edge_src.data_ptr(),
+        hop_offset.data_ptr(), *dargs, slope, xw.data_ptr(),
+        alpha.data_ptr(), neg.data_ptr(), F, fanout, H, d_in,
+        aligned_offset, int(x.dtype == torch.bfloat16), int(general),
+        stream_handle())
+    check("gat_attend", rc)
+    return xw, alpha, neg
+
+
+def gat_attend_bwd(dxw, x, edge_src, alpha, neg, fanout: int,
+                   aligned_offset: int, slope: float, drop, general: bool):
+    """K6's backward launch (no autograd): (d_el [fanout, F, H], d_er
+    [F, H]) f32, the keep bits drawn again from ``drop``."""
+    F, H = alpha.shape[1], alpha.shape[2]
+    d_el = torch.empty_like(alpha)
+    d_er = torch.empty((F, H), dtype=torch.float32, device=x.device)
+    dargs = _drop_args(alpha.shape, drop)
+    rc = lib().lt_gat_attend_bwd(
+        dxw.data_ptr(), x.data_ptr(), edge_src.data_ptr(), alpha.data_ptr(),
+        neg.data_ptr(), *dargs, slope, d_el.data_ptr(), d_er.data_ptr(), F,
+        fanout, H, x.shape[1], aligned_offset,
+        int(x.dtype == torch.bfloat16), int(general), stream_handle())
+    check("gat_attend_bwd", rc)
+    return d_el, d_er
+
+
 class GatAttend(torch.autograd.Function):
     """K6, backward K6's second kernel: d_el [fanout, F, H] and d_er
     [F, H], then du_l = x_lanes^T d_el and du_r = x_dst^T d_er by
     ``torch.matmul`` in x's dtype, as JAX's transpose of ``x @ u``. x gets
-    no gradient (it is the fetched feature table)."""
+    no gradient (it is the fetched feature table). Saves the dropout key
+    words, never a mask: the backward draws the keep bits again."""
 
     @staticmethod
     def forward(ctx, x, u_l, u_r, edge_src, hop_offset, fanout,
-                aligned_offset, slope, mask, scale, general):
-        E = edge_src.shape[0]
-        F = E // fanout
-        d_in, H = u_l.shape
-        xw = torch.empty((F, H, d_in), dtype=x.dtype, device=x.device)
-        alpha = torch.empty((fanout, F, H), dtype=torch.float32,
-                            device=x.device)
-        neg = torch.empty((fanout, F, H), dtype=torch.uint8,
-                          device=x.device)
-        mask, mptr = _mask_arg("gat_attend", mask, (fanout, F, H), x.device)
-        rc = lib().lt_gat_attend_fwd(
-            x.data_ptr(), u_l.data_ptr(), u_r.data_ptr(), edge_src.data_ptr(),
-            hop_offset.data_ptr(), mptr, scale, slope, xw.data_ptr(),
-            alpha.data_ptr(), neg.data_ptr(), F, fanout, H, d_in,
-            aligned_offset, int(x.dtype == torch.bfloat16), int(general),
-            stream_handle())
-        check("gat_attend", rc)
-        ctx.save_for_backward(x, edge_src, hop_offset, alpha, neg, mask)
-        ctx.cfg = (fanout, aligned_offset, slope, scale, general)
+                aligned_offset, slope, drop, general):
+        xw, alpha, neg = gat_attend_fwd(x, u_l, u_r, edge_src, hop_offset,
+                                        fanout, aligned_offset, slope, drop,
+                                        general)
+        ctx.save_for_backward(x, edge_src, hop_offset, alpha, neg,
+                              _words(drop))
+        ctx.cfg = (fanout, aligned_offset, slope, drop, general)
         return xw
 
     @staticmethod
     def backward(ctx, dxw):
-        x, edge_src, hop_offset, alpha, neg, mask = ctx.saved_tensors
-        fanout, aligned_offset, slope, scale, general = ctx.cfg
+        x, edge_src, hop_offset, alpha, neg, _ = ctx.saved_tensors
+        fanout, aligned_offset, slope, drop, general = ctx.cfg
         E = edge_src.shape[0]
-        F = E // fanout
-        H = alpha.shape[2]
-        d_in = x.shape[1]
-        dxw = dxw.to(x.dtype).contiguous()
-        d_el = torch.empty_like(alpha)
-        d_er = torch.empty((F, H), dtype=torch.float32, device=x.device)
-        rc = lib().lt_gat_attend_bwd(
-            dxw.data_ptr(), x.data_ptr(), edge_src.data_ptr(),
-            alpha.data_ptr(), neg.data_ptr(),
-            None if mask is None else mask.data_ptr(), scale, slope,
-            d_el.data_ptr(), d_er.data_ptr(), F, fanout, H, d_in,
-            aligned_offset, int(x.dtype == torch.bfloat16), int(general),
-            stream_handle())
-        check("gat_attend_bwd", rc)
+        F, H = alpha.shape[1], alpha.shape[2]
+        d_el, d_er = gat_attend_bwd(dxw.to(x.dtype).contiguous(), x,
+                                    edge_src, alpha, neg, fanout,
+                                    aligned_offset, slope, drop, general)
         x_lanes = x[aligned_offset:aligned_offset + E]
         du_l = x_lanes.t() @ d_el.reshape(E, H).to(x.dtype)
         du_r = slice_rows(x, hop_offset, F).t() @ d_er.to(x.dtype)
-        return (None, du_l, du_r) + (None,) * 8
+        return (None, du_l, du_r) + (None,) * 7
 
 
 def gat_attend(x: torch.Tensor, u_l: torch.Tensor, u_r: torch.Tensor,
                edge_src: torch.Tensor, hop_offset: torch.Tensor, fanout: int,
-               aligned_offset: int, slope: float, keep=None,
+               aligned_offset: int, slope: float, drop=None,
                general: bool = False) -> torch.Tensor:
     """K6. x [N, d_in] (bf16 or f32; lanes at aligned_offset + f*F + i,
     destinations at hop_offset + i), u_l/u_r [d_in, H] in x's dtype,
-    edge_src [fanout*F] int32 (-1 pads), keep = (bool mask [fanout, F, H],
-    scale) or None -> xw [F, H, d_in] in x's dtype. bf16 with H <= 8 and
-    fanout <= 15 takes the tensor-core kernels at d_in 128, and at a width
-    of 4 to 112 in steps of 4 (``csrc/gat_attend.cu``); ``general`` takes
-    the general kernels there too (``chip_smoke.py`` times the two)."""
+    edge_src [fanout*F] int32 (-1 pads), ``drop`` attention dropout
+    (``ops/dropout.py::AttnDrop``: the step's dropout key words on x's
+    device, the layer, the rate; its keep bits drawn in the kernels) or
+    None -> xw [F, H, d_in] in x's dtype. bf16 with H <= 8 and fanout <= 15
+    takes the tensor-core kernels at d_in 128, and at a width of 4 to 112
+    in steps of 4 (``csrc/gat_attend.cu``); ``general`` takes the general
+    kernels there too (``chip_smoke.py`` times the two)."""
     _require(x.dim() == 2 and u_l.dim() == 2 and u_l.shape == u_r.shape
              and u_l.shape[0] == x.shape[1],
              f"gat_attend: x {tuple(x.shape)}, u_l {tuple(u_l.shape)}, "
@@ -572,10 +599,10 @@ def gat_attend(x: torch.Tensor, u_l: torch.Tensor, u_r: torch.Tensor,
              f"gat_attend: x {x.dtype}, u {u_l.dtype}/{u_r.dtype}")
     _require(aligned_offset + edge_src.shape[0] <= x.shape[0],
              "gat_attend: the aligned lanes run past x")
-    tensors = (x, u_l, u_r, edge_src, hop_offset)
-    if all(t.device.type == "cpu" for t in tensors):
+    tensors = (x, u_l, u_r, edge_src, hop_offset, _words(drop))
+    if all(t.device.type == "cpu" for t in tensors if t is not None):
         return gat_attend_plain(x, u_l, u_r, edge_src, hop_offset, fanout,
-                                aligned_offset, slope, keep)
+                                aligned_offset, slope, drop)
     _require(x.is_cuda and u_l.device == x.device and u_r.device == x.device,
              f"gat_attend: x on {x.device}, u_l on {u_l.device}, u_r on "
              f"{u_r.device}")
@@ -584,11 +611,14 @@ def gat_attend(x: torch.Tensor, u_l: torch.Tensor, u_r: torch.Tensor,
     _require(not x.requires_grad,
              "gat_attend: x must not require grad (the aligned hop feeds "
              "layer 0, whose input is the fetched feature table)")
-    mask, scale = keep if keep is not None else (None, 1.0)
+    if drop is not None:
+        _require(drop.words.device == x.device,
+                 f"gat_attend: dropout key words on {drop.words.device}, x "
+                 f"on {x.device}")
     return GatAttend.apply(x.contiguous(), u_l.contiguous(),
                            u_r.contiguous(), edge_src.contiguous(),
                            hop_offset, fanout, int(aligned_offset),
-                           float(slope), mask, float(scale), bool(general))
+                           float(slope), drop, bool(general))
 
 
 class HopAttention(torch.autograd.Function):
@@ -596,56 +626,58 @@ class HopAttention(torch.autograd.Function):
     gathered hop dz is summed in f32 by atomics and cast to z's dtype
     once; on an aligned hop every lane owns its row, and the kernel
     stores dz in z's dtype. The forward kernel writes every row of out
-    (zeros outside the hop), so out is not zero-filled here."""
+    (zeros outside the hop), so out is not zero-filled here. Saves the
+    dropout key words, never a mask: the backward draws the keep bits
+    again."""
 
     @staticmethod
     def forward(ctx, z2, scores, src_l, hop_offset, fanout, num_dst, heads,
-                aligned_offset, mask, scale):
+                aligned_offset, drop):
         fo, F, H = scores.shape
         d = z2.shape[1] // heads
         out = torch.empty((num_dst, H, d), dtype=torch.float32,
                           device=z2.device)
         alpha = torch.empty_like(scores)
-        mask, mptr = _mask_arg("hop_attention", mask, scores.shape,
-                               z2.device)
+        dargs = _drop_args(scores.shape, drop)
         rc = lib().lt_hop_attention_fwd(
             z2.data_ptr(), scores.data_ptr(), src_l.data_ptr(),
-            hop_offset.data_ptr(), mptr, scale, out.data_ptr(),
-            alpha.data_ptr(), F, fanout, H, d, num_dst, aligned_offset,
+            hop_offset.data_ptr(), *dargs, out.data_ptr(), alpha.data_ptr(),
+            F, fanout, H, d, num_dst, aligned_offset,
             int(z2.dtype == torch.bfloat16), stream_handle())
         check("hop_attention", rc)
-        ctx.save_for_backward(z2, src_l, hop_offset, alpha, mask)
-        ctx.cfg = (fanout, num_dst, aligned_offset, scale)
+        ctx.save_for_backward(z2, src_l, hop_offset, alpha, _words(drop))
+        ctx.cfg = (fanout, num_dst, aligned_offset, drop)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        z2, src_l, hop_offset, alpha, mask = ctx.saved_tensors
-        fanout, num_dst, aligned_offset, scale = ctx.cfg
+        z2, src_l, hop_offset, alpha, _ = ctx.saved_tensors
+        fanout, num_dst, aligned_offset, drop = ctx.cfg
         fo, F, H = alpha.shape
         d = z2.shape[1] // H
         dout = dout.float().contiguous()
         dscores = torch.empty_like(alpha)
         dz = torch.zeros(z2.shape, device=z2.device, dtype=torch.float32
                          if aligned_offset < 0 else z2.dtype)
+        dargs = _drop_args(alpha.shape, drop)
         rc = lib().lt_hop_attention_bwd(
             dout.data_ptr(), z2.data_ptr(), src_l.data_ptr(),
-            hop_offset.data_ptr(), alpha.data_ptr(),
-            None if mask is None else mask.data_ptr(), scale,
+            hop_offset.data_ptr(), alpha.data_ptr(), *dargs,
             dscores.data_ptr(), dz.data_ptr(), F, fanout, H, d, num_dst,
             aligned_offset, int(z2.dtype == torch.bfloat16), stream_handle())
         check("hop_attention_bwd", rc)
-        return (dz.to(z2.dtype), dscores) + (None,) * 8
+        return (dz.to(z2.dtype), dscores) + (None,) * 7
 
 
 def hop_attention(z2: torch.Tensor, scores: torch.Tensor,
                   src_l: torch.Tensor, fanout: int, hop_offset: torch.Tensor,
-                  num_dst: int, heads: int, aligned_offset=None, keep=None
+                  num_dst: int, heads: int, aligned_offset=None, drop=None
                   ) -> torch.Tensor:
     """K7 on CUDA tensors (the CPU path is ``ops/hop_agg.py::
     hop_softmax_attention_plain``). z2 [N, H*d] bf16 or f32, scores
-    [fanout, F, H] f32 -> [num_dst, H, d] f32, zero outside
-    [offset, offset + F)."""
+    [fanout, F, H] f32, ``drop`` attention dropout (``ops/dropout.py::
+    AttnDrop``, its keep bits drawn in the kernels) or None -> [num_dst,
+    H, d] f32, zero outside [offset, offset + F)."""
     _require(z2.is_cuda and scores.device == z2.device,
              f"hop_attention: z on {z2.device}, scores on {scores.device}")
     _require(z2.dim() == 2 and z2.dtype in (torch.bfloat16, torch.float32)
@@ -660,12 +692,14 @@ def hop_attention(z2: torch.Tensor, scores: torch.Tensor,
     _require(aligned_offset is None
              or aligned_offset + src_l.shape[0] <= z2.shape[0],
              "hop_attention: the aligned lanes run past z")
-    mask, scale = keep if keep is not None else (None, 1.0)
+    if drop is not None:
+        _require(drop.words.device == z2.device,
+                 f"hop_attention: dropout key words on {drop.words.device}, "
+                 f"z on {z2.device}")
     return HopAttention.apply(
         z2.contiguous(), scores.contiguous(), src_l.contiguous(), hop_offset,
         fanout, num_dst, heads,
-        -1 if aligned_offset is None else int(aligned_offset), mask,
-        float(scale))
+        -1 if aligned_offset is None else int(aligned_offset), drop)
 
 
 # ---------------------------------------------------------------------------

@@ -33,6 +33,10 @@ _GOLDEN = 0x9E3779B9
 # folded into a train step's key for its dropout key, as the JAX step does
 # (legion_tpu/train.py:612)
 DROPOUT_TAG = 7
+# the high 32 bits of GAT's attention-dropout fold into that dropout key
+# (``ops/dropout.py::attn_fold``): layer i's feature masks fold i, its
+# attention masks (ATTN_TAG << 32) | i
+ATTN_TAG = 1
 
 
 def _mul32(x, c: int):

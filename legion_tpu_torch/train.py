@@ -13,15 +13,15 @@ fold_in(fold_in(fold_in(base_key, ctr), tag), k), tag 0 for a train step
 and 1 for an eval step, and advances the counter, one launch a step. In a
 train step the same launch writes the step's dropout key, fold_in(step
 key, 7), as the JAX step folds 7 into its key for dropout (``legion_tpu/
-train.py:612``); feature dropout (K16) folds each layer into it on the
-card. The host keeps Python twins of the counters, and from them seeds
-GAT's attention-dropout generator with the same key. So a state's
-counters alone fix every later batch.
+train.py:612``); feature dropout (K16) and GAT's attention dropout (K6,
+K7) fold each layer into it on the card (``ops/dropout.py``). So a
+state's counters alone fix every later batch, and every random stream of
+a step but the initial weights comes from K10's keys. The host keeps
+Python twins of the counters.
 
-A step is a host part (``_seed_train_dropout``: the generators' seeds
-from the host's counter) around a device part (``_step_body``: K10, the
-sampling, the fetch, the forward of every member, the backward, Adam
-and the counters), the unit a CUDA graph captures.
+A step is its device part (``_step_body``: K10, the sampling, the fetch,
+the forward of every member, the backward, Adam and the counters), the
+unit a CUDA graph captures, and the host's count of it.
 
 With one member, features on the card (``DeviceFeatureSource``) and a
 model that reads ``TableRows`` (``reads_table_rows``), the fetch takes
@@ -50,19 +50,19 @@ checkpoint means the same in both modes. Losses, parameters, ids, masks
 and counters equal the plain step's.
 
 Both modes take members and process groups, as JAX's ``shard_map`` step
-takes any mesh: each member's model draws its feature dropout from its own
-row of K10's dropout keys (the carry holds its batch's, ``carry_dkey``) and
-its attention dropout from its own generator, and every generator is
-registered with a captured graph. The collectives of a step (the
-gradients' and the loss's all-reduce, layout (b)'s all-to-alls) are
-captured with it under NCCL; gloo ranks take eager steps. Under
+takes any mesh: each member's model draws its dropout (feature and
+attention) from its own row of K10's dropout keys (the carry holds its
+batch's, ``carry_dkey``), so a captured graph reads each step's keys from
+the buffers K10 rewrites and registers no generator. The collectives of a
+step (the gradients' and the loss's all-reduce, layout (b)'s
+all-to-alls) are captured with it under NCCL; gloo ranks take eager
+steps. Under
 ``interbatch`` in layout (b), the update's all-reduces wait for the side
 stream's all-to-alls (``_interbatch_step``).
 
 Every state owns its parameters: ``init_state`` builds a new module and a
 new Adam, so a second ``init_state`` or a restore into the same trainer
-leaves a live state as it was. The host's copy of the base key lives in
-the state too (``base_key_h``), since the generators are seeded from it.
+leaves a live state as it was.
 
 Ported: storage set-up on one device (``_setup_storage``) for a device
 dataset and for a host ``LegionDataset``: measured buffer caps from
@@ -83,8 +83,7 @@ on this one device, in one process. Member d draws its seeds from its own
 bank row (``seeds_for_partition(w, d, n_dev)``), its keys with d folded
 in after the tag (K10 writes [n_dev, L, 4] words), keeps its own row of
 ``pos_map`` ([n_dev, S]) and draws its dropout from fold_in(fold_in(step
-key, d), 7): feature dropout from its row of K10's dropout keys, attention
-dropout from a generator of its own seeded with it. The members sample in
+key, d), 7), its row of K10's dropout keys. The members sample in
 lockstep (``NeighborSampler.sample_members``: the clique topology cache
 answers every member's frontier of a hop at once) and fetch through the
 clique caches of ``cache/collective.py`` (``_setup_clique``, JAX's
@@ -125,8 +124,8 @@ are.
 
 Checkpoints (``utils/checkpoint.py``): ``fit`` saves every
 ``checkpoint_every`` epochs; a state restored into a trainer takes the
-checkpoint's base key on the device (K10) and on the host (dropout, and
-the trainer's ``step_key``), and its carry is primed anew.
+checkpoint's base key on the device (K10) and as the trainer's
+``step_key`` key, and its carry is primed anew.
 """
 
 from __future__ import annotations
@@ -161,8 +160,7 @@ from legion_tpu_torch.parallel.mesh import (Mesh, add_collective_counts,
                                             all_reduce, collective_counts,
                                             dp_size)
 from legion_tpu_torch.pipeline.schedule import Mode, Schedule
-from legion_tpu_torch.sampling.access import (DROPOUT_TAG,
-                                              CachedTopoAccess,
+from legion_tpu_torch.sampling.access import (CachedTopoAccess,
                                               DeviceCSRAccess,
                                               WindowedCSRAccess,
                                               dropout_words, fold_in,
@@ -364,13 +362,8 @@ class Trainer:
             self.sampler_e = NeighborSampler(
                 replace(eval_scfg, node_caps=ecaps), V)
 
-        # dropout generators, one a member here: member d's model draws
-        # from its own, seeded before every step or replay
-        self._drop_gens = [torch.Generator(device=self.device)
-                           for _ in range(self.n_local)]
-        self._drop_gen = self._drop_gens[0]
         # the host's copy of the base key of the state last made or
-        # restored, for ``step_key`` (dropout reads the state's own)
+        # restored, for ``step_key``
         self._base_key = config.train.seed + 1
         self.test_acc: Optional[float] = None
 
@@ -705,7 +698,6 @@ class Trainer:
         state = {"model": model, "opt": opt,
                  "base_key": torch.full((), self._base_key,
                                         dtype=torch.int64, device=dev),
-                 "base_key_h": self._base_key,
                  "train_ctr": 0, "valid_ctr": 0, "test_ctr": 0,
                  "train_ctr_d": ctr(), "valid_ctr_d": ctr(),
                  "test_ctr_d": ctr(), "correct": zero(), "total": zero(),
@@ -780,27 +772,6 @@ class Trainer:
         same on the card."""
         return fold_in(fold_in(self._base_key, ctr), tag)
 
-    def _seed_dropout(self, key: int,
-                      gen: Optional[torch.Generator] = None) -> None:
-        """Dropout draws from (fold_in(step key, 7), offset 0), as the JAX
-        step folds 7 into its key (``legion_tpu/train.py:612``); ``gen``
-        is a member's generator, the first by default."""
-        (gen or self._drop_gen).manual_seed(
-            fold_in(key, DROPOUT_TAG) & (2**63 - 1))
-
-    def _seed_train_dropout(self, state: Dict) -> None:
-        """The host part of the train step at ``state["train_ctr"]``:
-        ``_seed_dropout`` from its key (the state's own base key), and
-        with members, member d's generator from fold_in(key, d) with its
-        global d (JAX's ``_device_key``)."""
-        key = fold_in(fold_in(state["base_key_h"], state["train_ctr"]),
-                      _TRAIN_TAG)
-        if self.n_dev == 1:
-            self._seed_dropout(key)
-            return
-        for d, gen in enumerate(self._drop_gens):
-            self._seed_dropout(fold_in(key, self.first + d), gen)
-
     def _batch_inputs(self, state: Dict, sampler: NeighborSampler,
                       bank: torch.Tensor, ybank: torch.Tensor, n: int,
                       ctr: str, tag: int):
@@ -854,7 +825,6 @@ class Trainer:
                   ) -> torch.Tensor:
         """Forward, backward and one Adam step on one batch, dropout from
         the step key ``key`` (its dropout key words made on the host)."""
-        self._seed_dropout(key)
         return self._update(state, batch, x, seeds, y,
                             dropout_words(key, self.device))
 
@@ -890,29 +860,26 @@ class Trainer:
                 seeds: torch.Tensor, y: torch.Tensor, dkey: torch.Tensor,
                 before_reduce=None) -> torch.Tensor:
         """Forward, backward and one Adam step (no host work: the captured
-        part of a step). Feature dropout draws from the dropout key words
-        ``dkey`` (K10's, on the card; K16 folds each layer in), GAT's
-        attention dropout from the generators as seeded. With members
-        (``batch`` a tuple, x, seeds, y and dkey a row a member) the loss
-        is the members' mean (``lax.pmean``), so one backward gives the
-        mean of their gradients; member d's model draws from its own key
-        row and generator. ``before_reduce`` as in ``_backward_step``."""
+        part of a step). Dropout draws from the dropout key words ``dkey``
+        (K10's, on the card; K16, and GAT's K6 and K7, fold each layer
+        in). With members (``batch`` a tuple, x, seeds, y and dkey a row a
+        member) the loss is the members' mean (``lax.pmean``), so one
+        backward gives the mean of their gradients; member d's model draws
+        from its own key row. ``before_reduce`` as in
+        ``_backward_step``."""
         model = state["model"]
         model.train()
         scfg = self.sampler_t.config
-        gen_kw = getattr(model, "takes_generator", False)
 
-        def loss_of(x, batch, seeds, y, dkey, gen):
+        def loss_of(x, batch, seeds, y, dkey):
             if self.is_lp:
                 return model.loss(x, batch, scfg, seeds >= 0, dkey)
-            kw = {"generator": gen} if gen_kw else {}
-            return _masked_ce(model(x, batch, scfg, dkey, **kw), y,
-                              seeds >= 0)
+            return _masked_ce(model(x, batch, scfg, dkey), y, seeds >= 0)
         if self.n_dev == 1:
-            loss = loss_of(x, batch, seeds, y, dkey, self._drop_gen)
+            loss = loss_of(x, batch, seeds, y, dkey)
         else:
             loss = torch.stack([
-                loss_of(x[d], b, seeds[d], y[d], dkey[d], self._drop_gens[d])
+                loss_of(x[d], b, seeds[d], y[d], dkey[d])
                 for d, b in enumerate(batch)]).mean()
         return self._backward_step(state, loss, before_reduce)
 
@@ -969,9 +936,8 @@ class Trainer:
             feat_hits.to(torch.int32), topo_hits, topo_total])
 
     def _eager_step(self, state: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
-        """One train step: its host part (the dropout seeds, and
-        ``train_ctr``) around its device part (``_step_body``)."""
-        self._seed_train_dropout(state)
+        """One train step: its device part (``_step_body``), then
+        ``train_ctr``."""
         out = self._step_body(state)
         state["train_ctr"] += 1
         return out
@@ -1000,7 +966,6 @@ class Trainer:
         N's all-reduces: on every rank the all-to-alls of batch N+1 run
         before the all-reduces of step N, and those before the all-to-alls
         of batch N+2 (which wait for this step's updates)."""
-        self._seed_train_dropout(state)
         cuda = self.device.type == "cuda"
         if cuda:
             cur = torch.cuda.current_stream(self.device)
@@ -1032,26 +997,18 @@ class Trainer:
         """Capture one step (``_step_body``, and the sums of its loss and
         counters into static tensors) into a CUDA graph on ``stream`` with
         a private memory pool, as PyTorch's whole-network recipe does.
-        Every member's dropout generator is registered with the graph, so
-        that a replay draws from the seed and offset each holds when the
-        replay starts. The collectives of the step (NCCL: the gradients'
-        and the loss's all-reduce, and in layout (b) the clique's
-        all-to-alls) are captured with it; the capture runs none of them,
-        so their counts go to ``graph_collectives`` and not to
+        The step draws its dropout from the key words K10 writes into the
+        graph's own buffers, so a replay draws its own step's masks and no
+        generator is registered. The collectives of the step (NCCL: the
+        gradients' and the loss's all-reduce, and in layout (b) the
+        clique's all-to-alls) are captured with it; the capture runs none
+        of them, so their counts go to ``graph_collectives`` and not to
         ``COLLECTIVES``, which each replay adds them to."""
-        if not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
-            raise RuntimeError(
-                f"torch {torch.__version__} cannot register a generator "
-                "with a CUDA graph: replayed steps would repeat the first "
-                "step's dropout masks (fused_steps needs "
-                "CUDAGraph.register_generator_state)")
         self._loss_sum = torch.zeros((), dtype=torch.float32,
                                      device=self.device)
         self._counts_sum = torch.zeros((5,), dtype=torch.int32,
                                        device=self.device)
         graph = torch.cuda.CUDAGraph()
-        for gen in self._drop_gens:
-            graph.register_generator_state(gen)
         before = dict(kernels.LAUNCHES)
         coll = collective_counts()
         with torch.cuda.graph(graph, stream=stream):
@@ -1067,9 +1024,7 @@ class Trainer:
         self._graph, self._graph_state = graph, state
 
     def _replay(self, state: Dict) -> None:
-        """One captured step: reseed dropout for this step, replay, and
-        count the collectives it ran."""
-        self._seed_train_dropout(state)
+        """One captured step: replay, and count the collectives it ran."""
         self._graph.replay()
         add_collective_counts(self.graph_collectives)
         state["train_ctr"] += 1

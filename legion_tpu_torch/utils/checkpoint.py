@@ -4,8 +4,8 @@ with ``torch.save`` in place of Orbax).
 What is saved is what the JAX package saves (``_SAVED_KEYS``): the model's
 parameters, Adam's state, the three schedule counters and the base key,
 everything that fixes the rest of a run. The step keys are a pure function
-of (base key, counter, tag) (``Trainer.step_key``, K10) and dropout is
-reseeded from the counter before every step, so no generator state is
+of (base key, counter, tag) (``Trainer.step_key``, K10), and so is every
+dropout mask (drawn from K10's dropout key), so no generator state is
 saved. The position map, the eval accumulators and the ``interbatch``
 carry are scratch (the map is clean between batches; the carry is the
 batch at ``train_ctr``, sampled again after a restore) and come fresh
@@ -70,8 +70,7 @@ def restore_checkpoint(path: str, trainer, step: int = -1) -> Dict:
     Adam keeps the trainer's ``capturable``, so its step counts come back
     on the parameters' device; each counter is set on the host and in its
     device twin (K10 reads the twin); the base key is set in the state
-    (on the device and on the host, ``base_key_h``) and as the trainer's
-    ``step_key`` key; then the carry is primed at the restored
+    (on the device) and as the trainer's ``step_key`` key; then the carry is primed at the restored
     ``train_ctr`` (``Trainer.prime_carry``: every member's batch; a no-op
     unless ``interbatch``), as ``legion_tpu/utils/checkpoint.py:57-59``
     does.
@@ -95,5 +94,5 @@ def restore_checkpoint(path: str, trainer, step: int = -1) -> Dict:
         state[k] = int(ck[k])
         state[k + "_d"].fill_(state[k])
     state["base_key"].fill_(ck["base_key"])
-    state["base_key_h"] = trainer._base_key = int(ck["base_key"])
+    trainer._base_key = int(ck["base_key"])
     return trainer.prime_carry(state)

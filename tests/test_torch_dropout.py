@@ -3,8 +3,10 @@ the keyed keep bits against the host's hash chain, each regime's kept
 share, distinct masks by layer, member and counter, the fused forward and
 backward (the autograd Function with the mask drawn again) against the
 unfused torch chain bit for bit, the lane limit, K10's dropout key row,
-and GraphSAGE and GAT slices with dropout on against the JAX package with
-the port's masks injected into its ``dropout``.
+a layer's feature and attention masks apart, and GraphSAGE and GAT slices
+with dropout on (GAT: feature dropout alone, and feature and attention
+dropout) against the JAX package with the port's masks injected into its
+``dropout``.
 
 The kernel itself runs only on a card: ``chip_smoke.py`` holds it against
 ``dropout_act_plain`` there, forward and backward, exactly.
@@ -24,6 +26,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+import legion_tpu.models.common as jcommon
 import legion_tpu.models.gat as jgat
 import legion_tpu.models.graphsage as jsage
 from legion_tpu.config import SamplerConfig as JSamplerConfig
@@ -36,7 +39,7 @@ from legion_tpu_torch.sampling.access import (M32, dropout_words, fold_in,
                                               hash32, step_keys_plain)
 from legion_tpu_torch.utils.convert import params_from_jax
 from test_torch_parity import (BF16_RTOL, F32_RTOL, batch_and_feats, close,
-                               jdt, tdt)
+                               inject_masks, jdt, tdt)
 
 WORDS = torch.tensor([0x1234567, -0x2345678], dtype=torch.int32)
 # (shape, rate) of each regime: 1 bit-unpacked, 2 u8 bytes, 3 per lane
@@ -118,6 +121,29 @@ def test_layers_members_and_counters_draw_different_masks(reg):
             same = float((masks[a] == masks[b]).float().mean())
             assert not torch.equal(masks[a], masks[b]), (a, b)
             assert abs(same - agree) < 0.02, (a, b, same, agree)
+
+
+@pytest.mark.parametrize("shape", [(25, 4000, 1), (10, 20000, 8)])
+def test_a_layers_feature_and_attention_masks_differ(shape):
+    """A layer's attention mask (fold ``attn_fold(i)``) is not its feature
+    mask (fold i) over the same lanes: the two agree on a share within 5
+    sigma of keep^2 + (1 - keep)^2, as independent masks do (regime 3 at
+    GAT layer 1's alpha, and regime 2; keep quantised to kq / 256 there)."""
+    rate = 0.6
+    for layer in (0, 1):
+        feat = kdrop.keep_mask_plain(shape, rate, WORDS, layer)
+        attn = kdrop.keep_mask_plain(shape, rate, WORDS,
+                                     kdrop.attn_fold(layer))
+        assert kdrop.attn_fold(layer) != layer
+        assert not torch.equal(feat, attn)
+        n = math.prod(shape)
+        k = 1.0 - rate
+        if kdrop.regime(shape, rate) == 2:
+            k = kdrop.u8_threshold(rate) / 256
+        agree = k * k + (1 - k) * (1 - k)
+        same = float((feat == attn).double().mean())
+        assert abs(same - agree) <= 5 * math.sqrt(agree * (1 - agree) / n), \
+            (layer, same, agree)
 
 
 def _chain(x, act, out_dtype, rate, words, layer):
@@ -214,6 +240,29 @@ def test_refusals():
     with pytest.raises(ValueError, match="tensors on"):
         kdrop.dropout_act(torch.zeros(4, 32, device="meta"), "relu", None,
                           0.5, WORDS, 0)
+
+
+def test_attention_dropout_refusals():
+    """Attention dropout (``AttnDrop``, K6 and K7) refuses what its kernels
+    do not take, on the CPU as on a card: alpha of 2**32 entries or more
+    (lanes are 32-bit counters), and key words that are not 2 contiguous
+    int32; K6's and K7's wrappers refuse words on another device than
+    their tensors rather than fall back."""
+    from legion_tpu_torch.ops import hop_agg
+    with pytest.raises(ValueError, match="alpha entries"):
+        kdrop.attn_spec((1 << 16, 1 << 16, 1), kdrop.AttnDrop(WORDS, 0, 0.6))
+    z, sc = torch.zeros((8, 1, 4)), torch.zeros((2, 3, 1))
+    src, off = torch.zeros(6, dtype=torch.int32), torch.tensor(0)
+    for words in (WORDS.long(), torch.zeros(3, dtype=torch.int32)):
+        with pytest.raises(ValueError, match="key words"):
+            hop_agg.hop_softmax_attention(z, sc, src, 2, off, 4,
+                                          kdrop.AttnDrop(words, 1, 0.6))
+    meta = kdrop.AttnDrop(WORDS.to("meta"), 0, 0.6)
+    with pytest.raises(ValueError, match="gat_attend: x on"):
+        kernels.gat_attend(torch.zeros((8, 4)), torch.zeros((4, 1)),
+                           torch.zeros((4, 1)), src,
+                           torch.tensor(0, dtype=torch.int32), 2, 0, 0.2,
+                           meta)
 
 
 @pytest.mark.parametrize("n_dev,first,n", [(1, 0, None), (4, 0, None),
@@ -354,11 +403,66 @@ def test_gat_slice_with_feature_dropout_matches_jax(compute_dtype,
     (_, lj), gj = jax.value_and_grad(jfn, has_aux=True)(params)
     assert [layer for _, layer in applied] == [0, 1]
     pm.train()
-    lp = pm(torch.from_numpy(x).to(tdt(compute_dtype)), pb, scfg, WORDS,
-            torch.Generator())
+    lp = pm(torch.from_numpy(x).to(tdt(compute_dtype)), pb, scfg, WORDS)
     (lp * torch.from_numpy(w)).sum().backward()
     tol = F32_RTOL if compute_dtype == "float32" else BF16_RTOL
     close(lp, lj, tol, "logits")
     for i, layer in enumerate(gj["layers"]):
         for k in layer:
             close(pm.layers[i][k].grad, layer[k], tol, f"layer {i} {k}")
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_gat_slice_with_feature_and_attention_dropout_matches_jax(
+        compute_dtype, monkeypatch):
+    """GAT (heads (4, 1), hidden 16) in training mode with feature and
+    attention dropout both at 0.6: layer 0 on the aligned last hop (K6's
+    plain version), layer 1 on a gathered hop (K7's), every mask drawn
+    from the step's dropout key (features at fold i, attention at
+    ``attn_fold(i)``), against the JAX package with each of those masks
+    injected into its ``dropout`` in call order (features 0, attention 0,
+    features 1, attention 1) and scaled by JAX; the loss and every
+    parameter gradient, F32_RTOL in f32 and BF16_RTOL in bf16."""
+    scfg, jcfg = SamplerConfig(**SLICE_KW), JSamplerConfig(**SLICE_KW)
+    rng = np.random.default_rng(23)
+    pb, jb, x = batch_and_feats(rng, scfg)
+    classes = 10
+    jm = jgat.GAT(jcfg, 100, 16, classes, heads=(4, 1), feat_drop=0.6,
+                  attn_drop=0.6, in_dim_pad=128,
+                  compute_dtype=compute_dtype)
+    params = jm.init(jax.random.PRNGKey(0))
+    pm = GAT(100, 16, classes, num_layers=2, device="cpu", heads=(4, 1),
+             feat_drop=0.6, attn_drop=0.6, in_dim_pad=128,
+             compute_dtype=compute_dtype)
+    pm.load_state_dict(params_from_jax(params))
+    w = rng.standard_normal((32, classes)).astype(np.float32)
+    folds = [0, kdrop.attn_fold(0), 1, kdrop.attn_fold(1)]
+    applied = inject_masks(monkeypatch, (jgat, jcommon), folds, WORDS)
+
+    def jfn(p):
+        logits = jm.apply(p, jnp.asarray(x, jdt(compute_dtype)), jb,
+                          train=True, rng=jax.random.PRNGKey(3))
+        return jnp.sum(logits * w), logits
+
+    # eager, not jit: XLA's fusion drops some of the bf16 roundings of the
+    # op-by-op program, which the port keeps
+    (loss_j, lj), gj = jax.value_and_grad(jfn, has_aux=True)(params)
+    assert [fold for _, fold in applied] == folds
+    assert [len(shape) for shape, _ in applied] == [2, 3, 2, 3]
+    pm.train()
+    lp = pm(torch.from_numpy(x).to(tdt(compute_dtype)), pb, scfg, WORDS)
+    loss_p = (lp * torch.from_numpy(w)).sum()
+    loss_p.backward()
+    tol = F32_RTOL if compute_dtype == "float32" else BF16_RTOL
+    close(lp, lj, tol, "logits")
+    assert abs(float(loss_p.detach()) - float(loss_j)) <= tol * float(
+        np.abs(np.asarray(lj, np.float32) * w).sum())
+    for i, layer in enumerate(gj["layers"]):
+        for k in layer:
+            close(pm.layers[i][k].grad, layer[k], tol, f"layer {i} {k}")
+    # the attention masks are the key's: without them, other logits
+    pm.attn_drop = 0.0
+    with torch.no_grad():
+        other = pm(torch.from_numpy(x).to(tdt(compute_dtype)), pb, scfg,
+                   WORDS)
+    assert not torch.equal(other, lp.detach())

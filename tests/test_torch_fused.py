@@ -2,8 +2,10 @@
 keys, on the CPU: K10 ``step_keys``' plain version against the host
 ``fold_in`` chain, one fused call against K single steps, keys that depend
 only on the counters, ``fit``'s divisibility rule, and dropout's scale
-against JAX's."""
+against JAX's (feature dropout, and attention dropout's in both of its
+regimes)."""
 
+import math
 from dataclasses import replace
 
 import jax
@@ -14,6 +16,7 @@ import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
+import legion_tpu.models.common as jcommon
 from legion_tpu.models.common import dropout as jax_dropout
 from legion_tpu_torch.config import (CacheConfig, LegionConfig, MeshConfig,
                                      SamplerConfig, TrainConfig)
@@ -26,6 +29,7 @@ from legion_tpu_torch.sampling import access
 from legion_tpu_torch.sampling.access import (draw_keys, fold_in, hop_keys,
                                               step_keys, step_keys_plain)
 from legion_tpu_torch.train import Trainer
+from test_torch_parity import inject_masks
 
 
 def _host_words(base: int, ctr: int, tag: int, L: int) -> np.ndarray:
@@ -377,13 +381,27 @@ def test_dropout_equals_jax_bit_for_bit(shape, rate, dtype, monkeypatch):
     np.testing.assert_array_equal(got.float().numpy(), want)
 
 
-def test_attention_dropout_multiply_is_within_one_ulp():
-    """K6 and K7 take (mask, scale) and multiply alpha (f32) by 1/keep;
-    JAX divides by keep in f32. At GAT's rate 0.6 the two are at most one
-    f32 ulp apart."""
-    alpha = torch.rand(1 << 16)
-    keep = 1.0 - 0.6
-    mul = alpha * (1.0 / keep)
-    div = alpha / torch.tensor(keep, dtype=torch.float32)
-    ulp = (mul.view(torch.int32).long() - div.view(torch.int32).long()).abs()
-    assert int(ulp.max()) <= 1
+@pytest.mark.parametrize("shape", [(25, 800, 1), (10, 13108, 8)])
+def test_attention_dropout_equals_jax_bit_for_bit(shape, monkeypatch):
+    """Attention dropout's plain arithmetic (``ops/dropout.py::
+    attn_dropout_plain``, what K6 and K7 compute) equals JAX's
+    ``dropout`` bit for bit, given the mask (the port's, drawn from the
+    key at the attention fold and injected into JAX's draw): in regime 3
+    (alpha divided by keep in f32) and in regime 2 (2^20 entries or more:
+    alpha times 256 / kq), the sign of a zero too."""
+    rate, layer = 0.6, 1
+    words = torch.tensor([0x7F3A, 0x1BADB0], dtype=torch.int32)
+    alpha = np.random.default_rng(8).random(shape).astype(np.float32)
+    reg = kdrop.regime(shape, rate)
+    assert reg == (2 if math.prod(shape) >= 1 << 20 else 3)
+    applied = inject_masks(monkeypatch, (jcommon,), [kdrop.attn_fold(layer)],
+                           words)
+    want = np.asarray(jcommon.dropout(jnp.asarray(alpha), rate,
+                                      jax.random.PRNGKey(0), True))
+    assert applied == [(shape, kdrop.attn_fold(layer))]
+    got = kdrop.attn_dropout_plain(torch.from_numpy(alpha),
+                                   kdrop.AttnDrop(words, layer, rate))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.view(np.int32))
+    assert 0 < int((got != 0).sum()) < got.numel()

@@ -4,8 +4,11 @@ branches, gathered and aligned hops) and K6 (inside
 ``gat_layer_aligned_streaming``), ``gat_layer_apply``, the whole model,
 and one train step. The CUDA kernels
 are held against these same plain versions on the card by
-``chip_smoke.py``. Attention dropout is held by injection: the same keep
-mask goes to both packages. Inputs are made with numpy from a seed.
+``chip_smoke.py``. Attention dropout is held by injection: the port's
+keep mask, drawn from the step's dropout key at the attention fold, goes
+into the JAX package's ``dropout``, which scales it by its own arithmetic
+(regime 3 below 2^20 alpha entries, regime 2 from there). Inputs are made
+with numpy from a seed.
 
 Tolerances (``tests/test_torch_parity.py``): F32_RTOL = 1e-5 and
 BF16_RTOL = 2e-2, the max abs error relative to the largest reference
@@ -28,11 +31,13 @@ from legion_tpu_torch.config import SamplerConfig
 from legion_tpu_torch.models.gat import (GAT, gat_layer_aligned_streaming,
                                          gat_layer_apply)
 from legion_tpu_torch.ops import hop_agg
+from legion_tpu_torch.ops.dropout import AttnDrop, attn_fold, regime
 from legion_tpu_torch.utils.convert import params_from_jax
 from test_torch_parity import (BF16_RTOL, F32_RTOL, batch_and_feats, close,
-                               jdt, one_train_step, rel, tdt)
+                               inject_masks, jdt, one_train_step, rel, tdt)
 
-KEEP = 0.4          # attention keep rate of the injected masks
+RATE = 0.6          # attention dropout rate of the injected masks
+WORDS = torch.tensor([0x5A17, -0x33C0FFE], dtype=torch.int32)
 
 
 def _lanes(rng, fanout, F, n_src, aligned_offset=None, dead_row=3):
@@ -48,18 +53,15 @@ def _lanes(rng, fanout, F, n_src, aligned_offset=None, dead_row=3):
     return src
 
 
-def _inject(monkeypatch, module, mask):
-    """Replace the JAX package's dropout in ``module`` by the given keep
-    mask at keep rate KEEP; returns the port's (mask, scale)."""
-    jmask = jnp.asarray(mask)
-
-    def fixed(x, rate, key, train):
-        if not train or rate <= 0.0 or key is None:
-            return x
-        return jnp.where(jmask, x * (1.0 / KEEP), 0).astype(x.dtype)
-
-    monkeypatch.setattr(module, "dropout", fixed)
-    return torch.from_numpy(mask), 1.0 / KEEP
+def _inject(monkeypatch, shape, layer=1):
+    """Give the JAX package's attention dropout (``gat.py``'s and, through
+    ``hop_agg.py``'s import, ``common.py``'s ``dropout``) the port's keep
+    mask of attention layer ``layer`` for alpha of ``shape``, drawn from
+    WORDS, and leave the scaling to JAX; returns the port's AttnDrop and
+    the list of (shape, fold) JAX applied."""
+    applied = inject_masks(monkeypatch, (jgat, jcommon), [attn_fold(layer)],
+                           WORDS)
+    return AttnDrop(WORDS, layer, RATE), applied
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -153,33 +155,43 @@ def test_hop_softmax_attention_plain_matches_jax_at_kernel_edges(
     close(st.grad, gs_j, tol, "d scores")
 
 
-def test_hop_softmax_attention_dropout_matches_jax(monkeypatch):
-    """The same keep mask given to both sides: output and gradients."""
+# alpha shapes (fanout, F, H) and head width d of each dropout regime:
+# fewer than 2^20 alpha entries (per entry) and 2^20 (u8 bytes)
+ATTN_REGIMES = {3: ((4, 10, 2), 8), 2: ((4, 1 << 18, 1), 1)}
+
+
+@pytest.mark.parametrize("reg", [3, 2])
+def test_hop_softmax_attention_dropout_matches_jax(reg, monkeypatch):
+    """K7's plain version with attention dropout drawn from the key (the
+    attention fold of layer 1) against JAX's ``hop_softmax_attention``
+    with that mask injected into its ``dropout``, in regime 3 and in
+    regime 2 (2^20 alpha entries at d = 1): output and gradients, F32_RTOL."""
     rng = np.random.default_rng(1)
-    fanout, F, H, d = 4, 10, 2, 8
-    num_dst, offset = 24, 4
+    (fanout, F, H), d = ATTN_REGIMES[reg]
+    assert regime((fanout, F, H), RATE) == reg
+    num_dst, offset = F + 14, 4
     n_src = num_dst + fanout * F
     src = _lanes(rng, fanout, F, n_src)
-    mask = rng.random((fanout, F, H)) < KEEP
-    keep = _inject(monkeypatch, jcommon, mask)
+    drop, applied = _inject(monkeypatch, (fanout, F, H))
     z = rng.standard_normal((n_src, H, d)).astype(np.float32)
     scores = rng.standard_normal((fanout, F, H)).astype(np.float32)
     w = rng.standard_normal((num_dst, H, d)).astype(np.float32)
 
     def jfn(zz, ss):
         out = jhop.hop_softmax_attention(zz, ss, jnp.asarray(src), fanout,
-                                         jnp.int32(offset), num_dst, 1 - KEEP,
+                                         jnp.int32(offset), num_dst, RATE,
                                          True, jax.random.PRNGKey(0))
         return jnp.sum(out * w), out
 
     (_, out_j), (gz_j, gs_j) = jax.value_and_grad(
         jfn, argnums=(0, 1), has_aux=True)(jnp.asarray(z),
                                            jnp.asarray(scores))
+    assert applied == [((fanout, F, H), attn_fold(1))]
     zt = torch.from_numpy(z).requires_grad_()
     st = torch.from_numpy(scores).requires_grad_()
     out_p = hop_agg.hop_softmax_attention(
         zt, st, torch.from_numpy(src), fanout,
-        torch.tensor(offset, dtype=torch.int32), num_dst, keep)
+        torch.tensor(offset, dtype=torch.int32), num_dst, drop)
     (out_p * torch.from_numpy(w)).sum().backward()
     close(out_p, out_j, F32_RTOL, "out")
     close(zt.grad, gz_j, F32_RTOL, "d z")
@@ -193,29 +205,34 @@ def _gat_params(rng, d_in, H, d_out):
             "b": rng.standard_normal((H, d_out))}
 
 
-@pytest.mark.parametrize("drop", [False, True])
+@pytest.mark.parametrize("drop", [False, True, "u8"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_gat_layer_aligned_streaming_matches_jax(dtype, drop, monkeypatch):
     """K6's plain version inside the aligned layer: output and gradients
-    for w, attn_l, attn_r and b, with and without (injected) attention
-    dropout."""
+    for w, attn_l, attn_r and b, without attention dropout and with it,
+    drawn from the key and injected into JAX's ``dropout``: regime 3
+    (True: 120 alpha entries) and regime 2 ("u8": 2^20 entries at d_in 4),
+    F32_RTOL in f32 and BF16_RTOL in bf16."""
     rng = np.random.default_rng(2)
-    fanout, F, H, d_in, d_out = 4, 10, 3, 16, 8
-    num_dst, offset = 25, 5
+    fanout, F, H, d_in, d_out = (4, 1 << 16, 4, 4, 2) if drop == "u8" \
+        else (4, 10, 3, 16, 8)
+    num_dst, offset = F + 15, 5
     n_src = num_dst + fanout * F
     src = _lanes(rng, fanout, F, n_src, num_dst)
     h = rng.standard_normal((n_src, d_in)).astype(np.float32)
     p = {k: v.astype(np.float32) for k, v in
          _gat_params(rng, d_in, H, d_out).items()}
     w_out = rng.standard_normal((num_dst, H, d_out)).astype(np.float32)
-    keep = _inject(monkeypatch, jgat, rng.random((fanout, F, H)) < KEEP) \
-        if drop else None
+    adrop, applied = _inject(monkeypatch, (fanout, F, H), 0) if drop \
+        else (None, [])
+    if drop:
+        assert regime((fanout, F, H), RATE) == (2 if drop == "u8" else 3)
     cdt_j = jnp.bfloat16 if dtype == "bfloat16" else None
 
     def jfn(params):
         out = jgat.gat_layer_aligned_streaming(
             params, jnp.asarray(h, jdt(dtype)), jnp.asarray(src), fanout,
-            jnp.int32(offset), num_dst, num_dst, 0.2, 1 - KEEP, drop,
+            jnp.int32(offset), num_dst, num_dst, 0.2, RATE, bool(drop),
             jax.random.PRNGKey(0), cdt_j)
         return jnp.sum(out * w_out), out
 
@@ -223,11 +240,12 @@ def test_gat_layer_aligned_streaming_matches_jax(dtype, drop, monkeypatch):
     # op-by-op program, which the port mirrors
     (_, out_j), g_j = jax.value_and_grad(jfn, has_aux=True)(
         {k: jnp.asarray(v) for k, v in p.items()})
+    assert applied == ([((fanout, F, H), attn_fold(0))] if drop else [])
     pt = {k: torch.from_numpy(v).requires_grad_() for k, v in p.items()}
     out_p = gat_layer_aligned_streaming(
         pt, torch.from_numpy(h).to(tdt(dtype)), torch.from_numpy(src),
         fanout, torch.tensor(offset, dtype=torch.int32), num_dst, num_dst,
-        0.2, keep, torch.bfloat16 if dtype == "bfloat16" else None)
+        0.2, adrop, torch.bfloat16 if dtype == "bfloat16" else None)
     (out_p * torch.from_numpy(w_out)).sum().backward()
     tol = F32_RTOL if dtype == "float32" else BF16_RTOL
     close(out_p, out_j, tol, "out")
@@ -244,8 +262,9 @@ def test_gat_attend_plain_matches_jax_at_kernel_edges(H, d_in, fanout, dtype,
     """K6's plain version inside the aligned layer at the heads, widths and
     fanouts that ``chip_smoke.py`` holds the kernel to on the card (inside
     and outside its tensor-core forms; (8, 100, 10) is GAT-H's layer 0),
-    with injected attention dropout:
-    output and gradients, F32_RTOL in f32 and BF16_RTOL in bf16."""
+    with attention dropout drawn from the key and injected into JAX's
+    ``dropout``: output and gradients, F32_RTOL in f32 and BF16_RTOL in
+    bf16."""
     rng = np.random.default_rng(5)
     F, d_out = 10, 8
     num_dst, offset = 25, 5
@@ -256,13 +275,13 @@ def test_gat_attend_plain_matches_jax_at_kernel_edges(H, d_in, fanout, dtype,
          _gat_params(rng, d_in, H, d_out).items()}
     p["w"] *= (16 / d_in) ** 0.5        # scores of order one at any width
     w_out = rng.standard_normal((num_dst, H, d_out)).astype(np.float32)
-    keep = _inject(monkeypatch, jgat, rng.random((fanout, F, H)) < KEEP)
+    adrop, _ = _inject(monkeypatch, (fanout, F, H), 0)
     cdt_j = jnp.bfloat16 if dtype == "bfloat16" else None
 
     def jfn(params):
         out = jgat.gat_layer_aligned_streaming(
             params, jnp.asarray(h, jdt(dtype)), jnp.asarray(src), fanout,
-            jnp.int32(offset), num_dst, num_dst, 0.2, 1 - KEEP, True,
+            jnp.int32(offset), num_dst, num_dst, 0.2, RATE, True,
             jax.random.PRNGKey(0), cdt_j)
         return jnp.sum(out * w_out), out
 
@@ -272,7 +291,7 @@ def test_gat_attend_plain_matches_jax_at_kernel_edges(H, d_in, fanout, dtype,
     out_p = gat_layer_aligned_streaming(
         pt, torch.from_numpy(h).to(tdt(dtype)), torch.from_numpy(src),
         fanout, torch.tensor(offset, dtype=torch.int32), num_dst, num_dst,
-        0.2, keep, torch.bfloat16 if dtype == "bfloat16" else None)
+        0.2, adrop, torch.bfloat16 if dtype == "bfloat16" else None)
     (out_p * torch.from_numpy(w_out)).sum().backward()
     tol = F32_RTOL if dtype == "float32" else BF16_RTOL
     close(out_p, out_j, tol, "out")

@@ -6,9 +6,9 @@ plain member step, which ``tests/test_torch_clique.py`` holds against
 JAX's. On the CPU a fused call is K eager steps and a pipelined step runs
 its halves one after the other, so both must equal the plain steps bit
 for bit: losses, parameters, counters, sampled batches and ``pos_map``.
-Also: every member's dropout draws from fold_in(fold_in(step key, d), 7):
-feature dropout from member d's row of K10's dropout keys, attention
-dropout from its generator; ``fit`` in each mode
+Also: every member's dropout draws from fold_in(fold_in(step key, d), 7),
+member d's row of K10's dropout keys, feature dropout at fold i and GAT's
+attention dropout at ``attn_fold(i)``; ``fit`` in each mode
 ends where the plain ``fit`` does; a restored member state continues a
 pipelined run bit for bit; the eval step waits for the side stream with
 members as with one member."""
@@ -21,7 +21,7 @@ import torch
 from legion_tpu_torch.config import (CacheConfig, LegionConfig, MeshConfig,
                                      SamplerConfig, TrainConfig)
 from legion_tpu_torch.data import synthesize_dataset
-from legion_tpu_torch.models import common
+from legion_tpu_torch.ops import dropout as kdrop
 from legion_tpu_torch.pipeline import Mode
 from legion_tpu_torch.sampling.access import dropout_words, fold_in
 from legion_tpu_torch.train import Trainer
@@ -173,65 +173,56 @@ def test_interbatch_members_equal_plain_steps(host_ds, case):
 @pytest.mark.parametrize("mode", ["plain", "fused", "interbatch"])
 def test_member_generators_draw_the_seeded_masks(host_ds, mode):
     """Every dropout mask of a member step is member d's, from its key
-    fold_in(fold_in(fold_in(fold_in(base, ctr), 0), d), 7): feature
-    dropout (K16's plain version) draws from member d's row of K10's
-    dropout keys, the words of that key, layer i's bits from i; attention
-    dropout (GAT) from member d's own generator, the masks that a
-    generator seeded with that key draws in the same order. In each
-    mode, and for GAT (feature and attention dropout)."""
-    from legion_tpu_torch.models import gat, graphsage
-    model = "gat" if mode == "plain" else "graphsage"
-    tr = Trainer(host_ds, _cfg(host_ds, "1x4-hash", model=model,
+    fold_in(fold_in(fold_in(fold_in(base, ctr), 0), d), 7), in each mode,
+    on GAT (feature and attention dropout at 0.6): feature dropout (K16's
+    plain version) draws from member d's row of K10's dropout keys, the
+    words of that key, layer i's bits from i; attention dropout (K6's and
+    K7's plain versions) from the same words, layer i's mask equal to
+    ``keep_mask_plain`` of that key at ``attn_fold(i)``, in layer order.
+    No generator is left to seed: the masks follow the key alone."""
+    from legion_tpu_torch.models import gat
+    tr = Trainer(host_ds, _cfg(host_ds, "1x4-hash", model="gat",
                                fused=2 if mode == "fused" else 1,
                                interbatch=mode == "interbatch"), "cpu")
     feats, drawn = [], []
-    orig_keep, orig_act = common.dropout_keep, graphsage.dropout_act
+    orig_mask, orig_act = kdrop.keep_mask_plain, gat.dropout_act
 
-    def keep(shape, rate, generator, device=None):
-        out = orig_keep(shape, rate, generator, device)
-        if out is not None:
-            drawn.append((shape, rate, generator, out[0].clone()))
+    def mask_of(shape, rate, words, fold):
+        out = orig_mask(shape, rate, words, fold)
+        if fold >> 32:
+            drawn.append((shape, rate, words.clone(), fold, out.clone()))
         return out
 
     def act(x, kind, out_dtype, rate, words, layer, train=True):
         if train and words is not None:
             feats.append((words.clone(), layer))
         return orig_act(x, kind, out_dtype, rate, words, layer, train)
-    patched = [(common, "dropout_keep", keep), (gat, "dropout_keep", keep),
-               (graphsage, "dropout_act", act), (gat, "dropout_act", act)]
-    for m, name, fn in patched:
-        setattr(m, name, fn)
+    kdrop.keep_mask_plain, gat.dropout_act = mask_of, act
     try:
         state = tr.init_state()
         for _ in range(2):
             state, _ = tr.train_step(state)
     finally:
-        common.dropout_keep = gat.dropout_keep = orig_keep
-        graphsage.dropout_act = gat.dropout_act = orig_act
+        kdrop.keep_mask_plain, gat.dropout_act = orig_mask, orig_act
     steps = state["train_ctr"]
     assert steps == (4 if mode == "fused" else 2)
+    assert not hasattr(tr, "_drop_gens")
     n = tr.n_local
     L = tr.sampler_t.config.num_hops
-    layers = list(range(L if model == "gat" else L - 1))
-    assert len(feats) == steps * n * len(layers)
-    assert len(drawn) == (steps * n * L if model == "gat" else 0)
+    assert len(feats) == len(drawn) == steps * n * L
     base = tr.config.train.seed + 1
     for c in range(steps):
         for d in range(n):
             key = fold_in(fold_in(fold_in(base, c), 0), d)
-            j = (c * n + d) * len(layers)
-            for (words, layer), want in zip(feats[j:j + len(layers)],
-                                            layers):
-                assert layer == want
-                assert torch.equal(words, dropout_words(key, "cpu"))
-            if model != "gat":
-                continue
-            ref = torch.Generator()
-            ref.manual_seed(fold_in(key, 7) & (2 ** 63 - 1))
-            for shape, rate, gen, mask in drawn[(c * n + d) * L:
-                                                (c * n + d + 1) * L]:
-                assert gen is tr._drop_gens[d]
-                assert torch.equal(mask, orig_keep(shape, rate, ref)[0])
+            want = dropout_words(key, "cpu")
+            j = (c * n + d) * L
+            for i, (words, layer) in enumerate(feats[j:j + L]):
+                assert layer == i and torch.equal(words, want)
+            for i, (shape, rate, words, fold, mask) in enumerate(
+                    drawn[j:j + L]):
+                assert fold == kdrop.attn_fold(i) and rate == 0.6
+                assert torch.equal(words, want)
+                assert torch.equal(mask, orig_mask(shape, rate, want, fold))
     tr.close()
 
 

@@ -148,3 +148,42 @@ def one_train_step(jds, model: str, compute_dtype: str, sampler_kw: dict,
                         grads_j["layers"][i][k], layer[k],
                         new_j["layers"][i][k]))
     return float(loss_p), float(loss_j), out
+
+
+def inject_masks(monkeypatch, modules, folds, words, shapes=None):
+    """Make the JAX package's ``dropout`` (as ``modules`` name it) draw the
+    port's keep masks and leave the scaling to JAX's own arithmetic: call
+    i with a positive rate in training draws ``keep_mask_plain(x.shape,
+    rate, words, folds[i])`` (a feature layer's fold is the layer, an
+    attention layer's ``attn_fold(layer)``), handed to JAX's ``dropout``
+    as the bits its regime reads (the mask packed 32 lanes a word for the
+    bit-unpacked regime, uint8 0 or 255 for the u8 regime's compare below
+    kq, the mask itself for ``bernoulli``). Returns the list
+    of (shape, fold) applied, in call order."""
+    import legion_tpu.models.common as jcommon
+    from legion_tpu_torch.ops.dropout import keep_mask_plain
+    orig = jcommon.dropout
+    applied = []
+
+    def fixed(x, rate, key, train):
+        if not train or rate <= 0.0 or key is None:
+            return x
+        fold = folds[len(applied)]
+        shape = tuple(x.shape)
+        applied.append((shape, fold))
+        mask = jnp.asarray(keep_mask_plain(shape, rate, words, fold).numpy())
+        def bits(k, s, dtype):
+            if dtype == jnp.uint32:        # the bit-unpacked regime
+                b = mask.reshape(tuple(s) + (32,)).astype(jnp.uint32)
+                return jnp.sum(b << jnp.arange(32, dtype=jnp.uint32),
+                               axis=-1, dtype=jnp.uint32)
+            return jnp.where(mask, 0, 255).astype(dtype)
+
+        with monkeypatch.context() as m:
+            m.setattr(jax.random, "bits", bits)
+            m.setattr(jax.random, "bernoulli", lambda k, p, s: mask)
+            return orig(x, rate, key, train)
+
+    for module in modules:
+        monkeypatch.setattr(module, "dropout", fixed)
+    return applied

@@ -280,6 +280,51 @@ def test_restore_continues_bit_for_bit(ds, case, tmp_path):
         assert bool((st2["pos_map"] == INT32_MAX).all())
 
 
+@pytest.mark.parametrize("mode", ["plain", "fused2", "interbatch"])
+def test_gat_restore_mid_run_continues_with_attention_dropout(
+        ds, mode, tmp_path, monkeypatch):
+    """GAT with feature and attention dropout at 0.6 (the config's
+    defaults): 3 calls, a checkpoint, 2 more; a fresh trainer restored from
+    the checkpoint takes the same 2 calls to the same losses and
+    parameters bit for bit, drawing at every attention layer of every step
+    the unbroken run's masks (the same dropout key words and attention
+    fold where the plain versions draw them), in plain steps, fused
+    calls and pipelined steps."""
+    from legion_tpu_torch.ops import dropout as kdrop
+    fused = 2 if mode == "fused2" else 1
+    cfg = _config(ds, model="gat", fused=fused,
+                  interbatch=mode == "interbatch")
+    assert cfg.train.gat_attn_drop == cfg.train.gat_feat_drop == 0.6
+    drawn = []
+    orig = kdrop.keep_mask_plain
+
+    def mask_of(shape, rate, words, fold):
+        if fold >> 32:
+            drawn.append((shape, words.clone(), fold))
+        return orig(shape, rate, words, fold)
+    monkeypatch.setattr(kdrop, "keep_mask_plain", mask_of)
+    tr = Trainer(ds, cfg, "cpu")
+    st, _ = _steps(tr, tr.init_state(), 3)
+    ck = str(tmp_path / "ck")
+    save_checkpoint(ck, st, st["train_ctr"])
+    drawn.clear()
+    st, la = _steps(tr, st, 2)
+    run_a = list(drawn)
+    assert len(run_a) == 2 * fused * 2
+    assert [f for _, _, f in run_a] == [kdrop.attn_fold(i) for i in (0, 1)] \
+        * (2 * fused)
+    drawn.clear()
+    tr2 = Trainer(ds, cfg, "cpu")
+    st2, lb = _steps(tr2, restore_checkpoint(ck, tr2), 2)
+    assert len(drawn) == len(run_a)
+    for (sa, wa, fa), (sb, wb, fb) in zip(run_a, drawn):
+        assert sa == sb and fa == fb and torch.equal(wa, wb)
+    for a, b in zip(la, lb):
+        assert torch.equal(a, b)
+    for a, b in zip(_params(st), _params(st2)):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("dedup", ["sort", "map"])
 def test_clique_members_restore_continues_bit_for_bit(dedup, tmp_path):
     """A trainer of 4 members behind clique caches (features and topology
@@ -365,7 +410,7 @@ def test_a_restore_leaves_a_live_state_alone(ds, interbatch, tmp_path):
     st, la = _steps(tr, tr.init_state(), 3)
     before = _params(st)
     rs = restore_checkpoint(ck, tr)
-    assert rs["base_key_h"] == int(rs["base_key"]) != st["base_key_h"]
+    assert tr._base_key == int(rs["base_key"]) != int(st["base_key"])
     for a, b in zip(before, _params(st)):
         assert torch.equal(a, b)
     st, lb = _steps(tr, st, 2)
