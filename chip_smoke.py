@@ -474,13 +474,17 @@ def grid_sync(torch, blocks, what, floor):
 
 
 def compare(name, kernel, plain, tol, results, torch, shape_note,
-            iters=TIMING_ITERS, least=None, library=None, queued=False):
+            iters=TIMING_ITERS, least=None, library=None, queued=False,
+            library_bytes=None):
     """Run kernel and plain once, check, then time plain, kernel, kernel,
     plain. tol(k, p) -> (max_abs_err, ok). ``least`` is the kernel's
     ``bound`` for these inputs, ``library`` one PyTorch call that computes
-    the same function (timed, used nowhere else). ``queued`` also times the
-    kernel with the host's launch time hidden (``queued_ms``), for a kernel
-    that the host cannot launch as fast as the card runs it. Returns
+    the same function (timed, used nowhere else), ``library_bytes`` the
+    device-memory bytes that call moves where they differ from the
+    kernel's (printed with that call's own bound and share). ``queued``
+    also times the kernel with the host's launch time hidden
+    (``queued_ms``), for a kernel that the host cannot launch as fast as
+    the card runs it. Returns
     (kernel ms, plain ms, least, library ms or None, queued ms or None)."""
     k, p = kernel(), plain()
     torch.cuda.synchronize()
@@ -502,6 +506,10 @@ def compare(name, kernel, plain, tol, results, torch, shape_note,
                 f"{least[0] / ms:.3f})")
     if lib_ms is not None:
         msg += f" | library call {lib_ms:.4f} ms"
+        if library_bytes is not None:
+            lb = bound(library_bytes)[0]
+            msg += (f" ({library_bytes} B, its bound {lb:.4f} ms, share "
+                    f"{lb / lib_ms:.3f})")
     q_ms = queued_ms(kernel, torch) if queued else None
     if queued:
         msg += f" | queued {q_ms:.4f} ms"
@@ -1051,9 +1059,12 @@ def k8_compare(note, skey, stag, P, cum, ids, cap, results, torch,
                main=None):
     """K8 against its plain version (exact: src_l, n_new and the ids
     buffer) on one hop's sorted keys, with its bound, queued time and the
-    host's time a call. No single PyTorch call computes these positions,
-    so there is no library call. Each call rewrites the same ids block, so
-    repeated calls do the same work."""
+    host's time a call. No single PyTorch call computes these positions;
+    the library call timed beside it, ``torch.unique_consecutive`` of the
+    sorted keys with their runs, computes less (the distinct ids and each
+    entry's run: no authority, no positions, no lane order, no ids block)
+    and waits for the host to size its output. Each call rewrites the
+    same ids block, so repeated calls do the same work."""
     from legion_tpu_torch.sampling import sampler as smp
     ids_k, ids_p = ids.clone(), ids.clone()
 
@@ -1066,7 +1077,9 @@ def k8_compare(note, skey, stag, P, cum, ids, cap, results, torch,
     # the sorted keys and tags read; src_l and the ids block written
     least = bound(nb(skey, stag) + 4 * E + 4 * min(E, cap))
     t = compare("dedup_sort", kern, plain, tuple_tol(exact, exact, exact),
-                results, torch, note, least=least, queued=True)
+                results, torch, note, least=least, queued=True,
+                library=lambda: torch.unique_consecutive(
+                    skey, return_inverse=True))
     print(f"  dedup_sort     {note}: host_us_per_call "
           f"{host_us(kern, torch, 200):.2f}")
     if main is not None:
@@ -2036,9 +2049,10 @@ def bit_exact(k, p):
 
 def k16_grad_check(note, x, act, out_dtype, rate, words, layer, dy, torch):
     """K16 forward + backward through autograd (``dropout_act``: the
-    Function that launches the kernel both ways) against the plain chain
-    under autograd (``dropout_act_plain``) on the same x and dy: y and dx
-    bit for bit, or fail. Returns the max abs error of dx."""
+    Function that launches the kernel both ways; with ReLU its backward
+    reads the forward's passes mask) against the plain chain under
+    autograd (``dropout_act_plain``) on the same x and dy: y and dx bit for
+    bit, or fail. Returns the max abs error of dx."""
     from legion_tpu_torch.ops import dropout as kd
     out = []
     for fn in (kd.dropout_act, kd.dropout_act_plain):
@@ -2053,18 +2067,52 @@ def k16_grad_check(note, x, act, out_dtype, rate, words, layer, dy, torch):
     return err
 
 
+def k16_mask_check(note, x, out_dtype, rate, words, layer, dy, torch):
+    """K16's ReLU forward with its passes mask and the backward from that
+    mask alone (no x, no key words), bit for bit against
+    ``passes_mask_plain`` and ``dropout_act_bwd_plain`` given the plain
+    mask, or fail; y too unless x holds a NaN (its bits past the
+    activation are the card's NaN). Returns the max abs error of dx."""
+    from legion_tpu_torch.ops import dropout as kd
+    ydt = out_dtype or x.dtype
+    s = kd.make_spec(x.shape, rate, "relu", ydt, layer)
+    yk, mk = kd.dropout_act_fwd(x, words, rate, s, with_mask=True)
+    mp = kd.passes_mask_plain(x, rate, words, layer)
+    if not same_bits(mk, mp, torch):
+        fail(f"dropout_act {note}: the passes mask differs from "
+             f"passes_mask_plain's ({int((mk != mp).sum())} bytes)")
+    if not bool(x.float().isnan().any()):
+        yp = kd.dropout_act_plain(x, "relu", out_dtype, rate, words, layer)
+        if not bit_exact(yk, yp)[1]:
+            fail(f"dropout_act {note}: the forward that writes the mask "
+                 "differs from the plain chain")
+    gk = kd.dropout_act_bwd(dy, mk, x.dtype, None, rate, s)
+    gp = kd.dropout_act_bwd_plain(dy, mp, x.dtype, None, rate, s)
+    err, ok = bit_exact(gk, gp)
+    if not ok:
+        fail(f"dropout_act {note}: the backward from the mask differs from "
+             f"its plain version (max abs err {err})")
+    return err
+
+
 def k16_compare(note, x, act, out_dtype, rate, results, torch, grad=True,
                 layer=0):
     """K16 against its plain version on x at one of the path's shapes:
-    the forward bit for bit, then (with ``grad``: where x takes a gradient
-    on the path) forward + backward under autograd bit for bit
-    (``k16_grad_check``) and the backward alone, at a dy made on the card.
-    Each is timed beside its plain version, its bound (forward: x read, y
-    written; backward: dy and x read, dx written) and its library call:
-    ``F.dropout`` on the activated, cast tensor (computing less: no
-    activation, no cast), and for the backward
-    ``native_dropout_backward`` with that call's mask. Returns the
-    forward's timing tuple and, with ``grad``, the backward's."""
+    the forward bit for bit (with ``grad`` and ReLU, the forward that also
+    writes the passes mask, and the mask), then (with ``grad``: where x
+    takes a gradient on the path) forward + backward under autograd bit for
+    bit (``k16_grad_check``) and the backward alone (ReLU's from the
+    kernel's mask), at a dy made on the card. Each is timed beside its
+    plain version, its bound (forward: x read, y and a ReLU mask of
+    ceil(n / 8) bytes written; ReLU backward: dy and the mask read, dx
+    written; ELU backward: dy and x read, dx written) and its library
+    call with that call's own bytes and share: ``F.dropout`` on the
+    activated, cast tensor (``native_dropout``: h read, y and a 1-byte
+    mask written; no activation, no cast), and for the backward
+    ``native_dropout_backward`` with that call's mask (dy and the 1-byte
+    mask read, dx written in dy's dtype; no activation's derivative, no
+    widening). Returns the forward's timing tuple and, with ``grad``, the
+    backward's."""
     import torch.nn.functional as F
     from legion_tpu_torch.ops import dropout as kd
     words = torch.tensor(K16_WORDS, dtype=torch.int32, device="cuda")
@@ -2072,20 +2120,28 @@ def k16_compare(note, x, act, out_dtype, rate, results, torch, grad=True,
     s = kd.make_spec(x.shape, rate, act, ydt, layer)
     xs, ys, n = x.element_size(), torch.empty((), dtype=ydt).element_size(), \
         x.numel()
+    relu = act == "relu" and grad
+    mb = -(-n // 8) if relu else 0
     h = k16_act(act, torch)(x).to(ydt)
     what = (f"{note} {tuple(x.shape)} {str(x.dtype)[6:]} -> {str(ydt)[6:]}, "
             f"{act}, rate {rate}, regime {s.regime}")
 
     def plain_fwd():
         with torch.no_grad():
-            return kd.dropout_act_plain(x, act, out_dtype, rate, words,
-                                        layer)
+            y = kd.dropout_act_plain(x, act, out_dtype, rate, words, layer)
+            return (y, kd.passes_mask_plain(x, rate, words, layer)) \
+                if relu else y
+    lib_fwd = n * (2 * ys + 1)
+    least_fwd = bound(n * (xs + ys) + mb)
     out = [compare("dropout_act",
-                   lambda: kd.dropout_act_fwd(x, words, rate, s), plain_fwd,
-                   bit_exact, results, torch, what + " fwd",
-                   least=bound(n * (xs + ys)),
+                   (lambda: kd.dropout_act_fwd(x, words, rate, s, True))
+                   if relu else
+                   (lambda: kd.dropout_act_fwd(x, words, rate, s)[0]),
+                   plain_fwd,
+                   tuple_tol(bit_exact, bit_exact) if relu else bit_exact,
+                   results, torch, what + " fwd", least=least_fwd,
                    library=lambda: F.dropout(h, rate, training=True),
-                   queued=True)]
+                   library_bytes=lib_fwd, queued=True)]
     if not grad:
         return out
     g = torch.Generator(device="cuda")
@@ -2094,15 +2150,26 @@ def k16_compare(note, x, act, out_dtype, rate, results, torch, grad=True,
     k16_grad_check(what, x, act, out_dtype, rate, words, layer, dy, torch)
     mask = torch.native_dropout(h, rate, True)[1]
     scale = 1.0 / (1.0 - rate)
+    if relu:
+        k16_mask_check(what, x, out_dtype, rate, words, layer, dy, torch)
+        mk = kd.dropout_act_fwd(x, words, rate, s, True)[1]
+        mp = kd.passes_mask_plain(x, rate, words, layer)
+        kern = lambda: kd.dropout_act_bwd(dy, mk, x.dtype, None, rate, s)
+        plain = lambda: kd.dropout_act_bwd_plain(dy, mp, x.dtype, None, rate,
+                                                 s)
+        least_bwd = bound(n * (ys + xs) + mb)
+    else:
+        held = x if act == "elu" else None
+        kern = lambda: kd.dropout_act_bwd(dy, held, x.dtype, words, rate, s)
+        plain = lambda: kd.dropout_act_bwd_plain(dy, held, x.dtype, words,
+                                                 rate, s)
+        least_bwd = bound(n * (ys + (xs if act == "elu" else 0) + xs))
     out.append(compare(
-        "dropout_act", lambda: kd.dropout_act_bwd(dy, x, x.dtype, words,
-                                                  rate, s),
-        lambda: kd.dropout_act_bwd_plain(dy, x, x.dtype, words, rate, s),
-        bit_exact, results, torch, what + " bwd",
-        least=bound(n * (ys + (xs if act != "none" else 0) + xs)),
+        "dropout_act", kern, plain, bit_exact, results, torch, what + " bwd",
+        least=least_bwd,
         library=lambda: torch.ops.aten.native_dropout_backward(dy, mask,
                                                                scale),
-        queued=True))
+        library_bytes=n * (2 * ys + 1), queued=True))
     return out
 
 
@@ -2110,13 +2177,13 @@ def k16_compares(tr, torch, results, main, path):
     """K16 at the shapes ``path``'s train step gives it (``tr`` at
     ``bench.py --model X`` settings): GraphSAGE (device), GCN, lp_sage:
     layer 0's output [S[1], hidden] f32, ReLU, cast to the compute dtype
-    (bf16 on GraphSAGE), the path's dropout rate, forward and backward;
-    GAT (gat, gat-H): layer 0's fetched features (one real batch: 128
-    wide bf16 from the device table, 100 wide from K4's cached rows),
-    dropout alone, forward only (the features take no gradient), then on
-    gat layer 1's input [S[1], heads * hidden] f32, ELU, cast to bf16, both
-    ways. The Device path's forward and backward are the kernel line's
-    numbers."""
+    (bf16 on GraphSAGE), the path's dropout rate, forward (with the passes
+    mask) and backward (from the mask); GAT (gat, gat-H): layer 0's
+    fetched features (one real batch: 128 wide bf16 from the device
+    table, 100 wide from K4's cached rows), dropout alone, forward only
+    (the features take no gradient), then on gat layer 1's input [S[1],
+    heads * hidden] f32, ELU, cast to bf16, both ways. The Device path's
+    forward and backward are the kernel line's numbers."""
     model = tr.init_state()["model"]
     S = tr.sampler_t.config.cum_sizes()
     tc = tr.config.train
@@ -2147,29 +2214,39 @@ def k16_edges(torch, results):
     and the cast alone), every regime (rate 0.5 at a 32-multiple width;
     the u8 regime at 2^20 lanes or more, rate 0.6 and 0.9; the per-lane
     regime, rates 0.5 at width 100 and 0.6 at odd widths), lane counts
-    that are not a multiple of 4, 8 or 32, a base off 16-byte alignment
-    (the one-lane path), each in f32 -> f32, f32 -> bf16 and bf16 -> bf16
-    and with no activation, ReLU and ELU, at layers 0-3."""
+    that are not a multiple of 4, 8 or 32, x and dy on a base off 16-byte
+    alignment (the one-lane paths of the forward and of each backward),
+    each in f32 -> f32, f32 -> bf16 and bf16 -> bf16
+    and with no activation, ReLU and ELU, at layers 0-3; x holds +-0 and
+    +-1e-30 at its first lanes. With ReLU also the forward's passes mask
+    and the backward from it alone (``k16_mask_check``), on x with a NaN
+    among them (it passes) as well."""
     import numpy as np
     words = torch.tensor(K16_WORDS, dtype=torch.int32, device="cuda")
     g = torch.Generator(device="cuda")
     g.manual_seed(62)
     shapes = (((37, 33), 0.6), ((64, 256), 0.5), ((33, 100), 0.5),
               ((1049, 1001), 0.6), ((1049, 1001), 0.0), ((4097, 256), 0.9),
-              ((7, 1), 0.3))
+              ((7, 1), 0.3), ((37, 33), 0.0))
     dtypes = ((torch.float32, None), (torch.float32, torch.bfloat16),
               (torch.bfloat16, None))
+    specials = torch.tensor([0.0, -0.0, 1e-30, -1e-30, 1.0, -1.0],
+                            device="cuda")
     rng = np.random.default_rng(63)
-    cases = 0
+    cases = masks = 0
     for (shape, rate), misaligned in [(c, False) for c in shapes] + [
-            (shapes[0], True), (shapes[3], True)]:
+            (shapes[0], True), (shapes[3], True), (shapes[7], True)]:
         n = math.prod(shape)
         for xdt, ydt in dtypes:
-            buf = (torch.randn((n + 3,), generator=g, device="cuda") * 3
-                   ).to(xdt)
+            buf = torch.randn((n + 3,), generator=g, device="cuda") * 3
+            xb = buf[3:] if misaligned else buf[:n]
+            k = min(n, specials.numel())
+            xb[:k] = specials[:k]
+            buf = buf.to(xdt)
             x = (buf[3:] if misaligned else buf[:n]).view(shape)
-            dy = torch.randn(shape, generator=g, device="cuda").to(
+            dbuf = torch.randn((n + 3,), generator=g, device="cuda").to(
                 ydt or xdt)
+            dy = (dbuf[3:] if misaligned else dbuf[:n]).view(shape)
             for act in ("none", "relu", "elu"):
                 layer = int(rng.integers(0, 4))
                 note = (f"edge {shape} {str(xdt)[6:]} -> "
@@ -2180,16 +2257,30 @@ def k16_edges(torch, results):
                 k16_grad_check(note, x, act, ydt, rate, words, layer, dy,
                                torch)
                 cases += 1
+                if act == "relu":
+                    k16_mask_check(note, x, ydt, rate, words, layer, dy,
+                                   torch)
+                    # a NaN in x's place (keeping its base), then back
+                    lane = x.view(-1)[min(n, 5) - 1:min(n, 5)]
+                    held = lane.clone()
+                    lane.fill_(float("nan"))
+                    k16_mask_check(note + " NaN", x, ydt, rate, words,
+                                   layer, dy, torch)
+                    lane.copy_(held)
+                    masks += 2
     results.setdefault("dropout_act", {"max_abs_err": 0.0})
     print(f"  dropout_act    k16_edges: {cases} cases (regimes 0-3, lane "
           f"counts 1221, 1,050,049, 7; widths 1, 33, 100, 256, 1001; a "
-          f"misaligned base), forward + backward: all bit for bit")
+          f"misaligned base), forward + backward: all bit for bit; ReLU's "
+          f"passes mask and its backward from the mask alone in {masks} "
+          f"(x with +-0, +-1e-30, and a NaN): all bit for bit")
 
 
 def phase_k16(torch):
     """``--k16``: K16 alone at every path shape (``k16_compares``: Device,
-    GCN, lp_sage, GAT, then gat-H on the host dataset) and its edges, with
-    K10's dropout key row on 1,000 pairs (``k10_compares``)."""
+    GCN, lp_sage, GAT, then gat-H on the host dataset), and its edges,
+    with K10's
+    dropout key row on 1,000 pairs (``k10_compares``)."""
     from legion_tpu_torch.data import synthesize_device_dataset
     from legion_tpu_torch.train import Trainer
     ds = synthesize_device_dataset("cuda")
@@ -4527,7 +4618,8 @@ def profile_run(tr, torch, name, K):
             torch.cuda.synchronize()
     finally:
         kernels.gather_rows = k1
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    peak_b = torch.cuda.max_memory_allocated()
+    peak = peak_b / 2 ** 30
     # the host's time of one replay on an idle queue (many queued replays
     # would wait for room in the launch queue); the last, since replays
     # outside train_step advance the device counter alone
@@ -4552,7 +4644,8 @@ def profile_run(tr, torch, name, K):
           + f" | profiled: kernels {busy / steps / 1e3:.3f} ms/step over a "
           f"span of {span / steps / 1e3:.3f} ms/step (idle share "
           f"{1 - busy / span:.3f}), {len(on_card) / steps:.0f} kernels and "
-          f"copies a step | peak mem {peak:.2f} GiB"
+          f"copies a step | peak mem {peak:.2f} GiB "
+          f"({peak_b / 1e6:.1f} MB)"
           + ("" if replay is None else
              f" | host us a replay (median of 20) {replay:.1f}"))
 
@@ -4560,6 +4653,9 @@ def profile_run(tr, torch, name, K):
         print(f"    K1's ids a call in the profiled steps: "
               f"{sorted(set(k1_ids))} ({len(k1_ids) / steps:g} calls a "
               "step)")
+        state = peak_owners(tr, state, torch, name)
+        if name in ("device", "gcn", "lp_sage"):
+            k16_host_us(tr, state, torch, name)
 
     def per_step(r):
         return r.self_device_time_total / steps / 1e3
@@ -4600,6 +4696,95 @@ def profile_run(tr, torch, name, K):
         print(f"    every kernel of {name} runs inside the replays: "
               f"{', '.join(PATH_KERNELS[name])}")
     tr.fused_steps = 1
+
+
+def repo_frame(frames):
+    """The innermost frame of an allocation's Python stack in the port
+    (``file:line function``), else its innermost frame."""
+    for f in frames:
+        if "legion_tpu_torch" in f["filename"]:
+            return (f"{f['filename'].split('legion_tpu_torch/')[-1]}:"
+                    f"{f['line']} {f['name']}")
+    return (f"{frames[0]['filename'].rsplit('/', 1)[-1]}:{frames[0]['line']} "
+            f"{frames[0]['name']}") if frames else "no Python frame (autograd)"
+
+
+def peak_at(events, base):
+    """Replay an allocator trace (``torch.cuda.memory._snapshot()``'s
+    device trace: ``alloc`` adds a block, ``free_completed`` takes it back,
+    as ``memory_allocated`` counts them) from ``base`` bytes: the peak, the
+    event index where it falls, and the blocks allocated in the trace that
+    are live there, {addr: event}."""
+    live, cur, peak, at, held = {}, base, base, -1, {}
+    for i, e in enumerate(events):
+        if e["action"] == "alloc":
+            live[e["addr"]] = e
+            cur += e["size"]
+        elif e["action"] == "free_completed" and e["addr"] in live:
+            cur -= live.pop(e["addr"])["size"]
+        else:
+            continue
+        if cur > peak:
+            peak, at, held = cur, i, dict(live)
+    return peak, at, held
+
+
+def peak_owners(tr, state, torch, name, top=8):
+    """One more train step with the allocator's history recorded: where
+    its peak of allocated memory falls (the allocation that reached it, by
+    its innermost frame in the port) and the blocks of the step that are
+    live there, summed by that frame, largest first; what was allocated
+    before the step (the dataset, the state) is one line. Returns the
+    step's state."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.memory._record_memory_history(max_entries=1_000_000,
+                                             stacks="python")
+    try:
+        state, _ = tr.train_step(state)
+        torch.cuda.synchronize()
+        snap = torch.cuda.memory._snapshot()
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    events = snap["device_traces"][torch.cuda.current_device()]
+    peak, at, held = peak_at(events, base)
+    by = {}
+    for e in held.values():
+        k = repo_frame(e.get("frames") or [])
+        n, b = by.get(k, (0, 0))
+        by[k] = (n + 1, b + e["size"])
+    reached = repo_frame(events[at].get("frames") or []) if at >= 0 else \
+        "no allocation of the step"
+    print(f"    {name} peak of one step {peak / 1e6:.1f} MB ({base / 1e6:.1f}"
+          f" MB held before the step), reached at {reached}; the step's "
+          f"blocks live there ({len(held)}, "
+          f"{sum(b for _, b in by.values()) / 1e6:.1f} MB), by frame: "
+          + "; ".join(f"{k} {b / 1e6:.1f} MB ({n})" for k, (n, b) in
+                      sorted(by.items(), key=lambda kv: -kv[1][1])[:top]))
+    return state
+
+
+def k16_host_us(tr, state, torch, name, calls=200):
+    """The host's microseconds of one K16 call at the path's layer 0 as
+    its step makes it (``dropout_act``: ReLU, the cast, the path's rate,
+    forward and backward under autograd), ``calls`` calls and a sync (few
+    enough that the launch queue never fills); the same call in the
+    parent's package in turns reads what the step's host pays for K16."""
+    from legion_tpu_torch.ops import dropout as kd
+    S = tr.sampler_t.config.cum_sizes()
+    tc = tr.config.train
+    cdt = getattr(state["model"], "cdt", None)
+    words = torch.tensor(K16_WORDS, dtype=torch.int32, device="cuda")
+    x = torch.randn((S[1], tc.hidden_dim), device="cuda").requires_grad_()
+    dy = torch.randn((S[1], tc.hidden_dim), device="cuda").to(cdt or x.dtype)
+
+    def call():
+        y = kd.dropout_act(x, "relu", cdt, tc.dropout, words, 0)
+        torch.autograd.grad(y, x, dy)
+    takes = [host_us(call, torch, calls) for _ in range(3)]
+    print(f"    {name} K16 fwd + bwd at layer 0, host us a call "
+          f"({calls} calls, 3 takes): "
+          + ", ".join(f"{t:.1f}" for t in takes))
 
 
 def phase_profile(names, torch, fused=("1",)):
@@ -5013,6 +5198,9 @@ def clique_kernels(tr, tr_hash, torch, results, main, parent=False):
           f"({distinct(ids[from_host])} distinct rows)")
     pitch_probe(ids[from_host].unique().to(torch.int32), fs.host.shape[0],
                 "clique-HT fetch", torch)
+    # the library call, K4's: the missed lanes' rows read from the mapped
+    # host table by one index (computing less: no served rows, no order)
+    idx = ids[from_host].long()
     for label, host in tables.items():
         # device memory: the sorted ids, their order (int64) and each
         # lane's row read once, each served row read, every output row
@@ -5030,7 +5218,8 @@ def clique_kernels(tr, tr_hash, torch, results, main, parent=False):
                                                    host.on("cuda"))[0],
                     exact, results, torch, f"fetch [{Kg}, {ids.shape[1]}] x"
                     f" {F}, {label} table {tuple(host.shape)}", least=least,
-                    queued=True)
+                    queued=True,
+                    library=lambda: host.device[idx, :F])
         if host is fs.host:
             main["clique_gather"] = [t]
     table_turns("clique_gather", "clique-HT fetch", {

@@ -1,8 +1,8 @@
 """K16 ``dropout_act``: inverted dropout fused with the activation before it
 and the cast between them, ``y = drop(cast(act(x)))``, with its keep bits
-drawn from the port's counter-based hash inside the pass and drawn again in
-the backward (port of ``legion_tpu/models/common.py::dropout``, which XLA
-fuses into its neighbours on the TPU; kernel ``csrc/dropout.cu``).
+drawn from the port's counter-based hash inside the pass (port of
+``legion_tpu/models/common.py::dropout``, which XLA fuses into its
+neighbours on the TPU; kernel ``csrc/dropout.cu``).
 
 The bits: lane e is the row-major element index; a layer's key is
 ``fold_in(words, layer)`` with ``words`` the step's dropout key (K10 writes
@@ -25,9 +25,12 @@ tests inject these masks into the JAX package's ``dropout``.
 
 ``dropout_act`` is the entry the models call: on CPU tensors the plain
 arithmetic, on CUDA tensors K16 (forward ``dropout_act``, backward
-``dropout_act_bwd`` in ``kernels.LAUNCHES``) or a raise. Its autograd
-Function saves x (the activation's derivative reads it) and the key words,
-never a mask.
+``dropout_act_bwd`` in ``kernels.LAUNCHES``) or a raise. What its autograd
+Function saves for the backward: with ReLU only the "passes" mask that the
+forward writes, one bit a lane (kept and not x <= 0; ``passes_mask_plain``),
+so the backward reads dy and ceil(n / 8) bytes; with ELU x (its derivative
+reads it) and the key words, the keep bits drawn again; with no activation
+the key words.
 
 GAT's attention dropout (``legion_tpu/models/gat.py:94``,
 ``legion_tpu/ops/hop_agg.py:120``) draws the same way inside K6 and K7
@@ -123,6 +126,30 @@ def keep_mask_plain(shape: Tuple[int, ...], rate: float,
     return (u < _const(1.0 - rate, torch.float32, dev)).reshape(shape)
 
 
+def passes_mask_plain(x: torch.Tensor, rate: float, words: torch.Tensor,
+                      layer: int) -> torch.Tensor:
+    """ReLU's "passes" mask as K16's forward writes it: lane e kept (by
+    ``keep_mask_plain``; every lane at rate 0) and not x <= 0 (a NaN
+    passes), bit e % 8 of byte e // 8, ceil(n / 8) uint8 bytes on x's
+    device, the last byte's bits past n zero."""
+    passes = ~(x <= 0)
+    keep = keep_mask_plain(tuple(x.shape), rate, words, layer)
+    if keep is not None:
+        passes = passes & keep
+    n = passes.numel()
+    bits = torch.zeros(-(-n // 8) * 8, dtype=torch.uint8, device=x.device)
+    bits[:n] = passes.reshape(-1)
+    shifts = torch.arange(8, dtype=torch.uint8, device=x.device)
+    return (bits.view(-1, 8) << shifts).sum(1, dtype=torch.uint8)
+
+
+def unpack_mask(mask: torch.Tensor, shape: Tuple[int, ...]) -> torch.Tensor:
+    """The bool tensor of ``shape`` that a packed mask holds."""
+    shifts = torch.arange(8, dtype=torch.uint8, device=mask.device)
+    bits = (mask[:, None] >> shifts) & 1
+    return bits.reshape(-1)[:math.prod(shape)].bool().reshape(shape)
+
+
 def attn_fold(layer: int) -> int:
     """What attention layer ``layer`` folds into the step's dropout key:
     the layer in the low 32 bits and ``ATTN_TAG`` in the high ones, so its
@@ -201,14 +228,25 @@ def dropout_act_plain(x: torch.Tensor, act: str,
     return torch.where(mask, kept, _const(0.0, h.dtype, h.device))
 
 
-def dropout_act_bwd_plain(dy: torch.Tensor, x: Optional[torch.Tensor],
-                          x_dtype: torch.dtype, words: torch.Tensor,
+def dropout_act_bwd_plain(dy: torch.Tensor, saved: Optional[torch.Tensor],
+                          x_dtype: torch.dtype, words: Optional[torch.Tensor],
                           rate: float, s: DropSpec) -> torch.Tensor:
     """K16's backward in plain torch ops: the chain's backward as autograd
-    takes it, with the mask drawn again: where, then the divide's (or
-    multiply's) backward, the cast's, then the activation's (ReLU's
-    threshold on x, which is <= 0 exactly where its result is; ELU's
-    ``elu_backward`` on its input)."""
+    takes it. ``saved`` is what the forward left: ReLU's passes mask
+    (``passes_mask_plain``), where dx is dy through the divide's (or
+    multiply's) backward and the cast's, else +0, with no keep bits drawn
+    and no x read (ReLU's threshold on x is <= 0 exactly where its result
+    is); ELU's x, and None with no activation, where the mask is drawn
+    again from ``words``: where, the divide's backward, the cast's, then
+    ELU's ``elu_backward`` on its input."""
+    if s.act == "relu":
+        g = dy
+        if s.regime != 0:
+            g = g * _const(s.c, g.dtype, g.device) if s.regime == 2 \
+                else g / _const(1.0 - rate, g.dtype, g.device)
+        g = g.to(x_dtype)
+        return torch.where(unpack_mask(saved, tuple(dy.shape)), g,
+                           _const(0.0, x_dtype, g.device))
     mask = keep_mask_plain(tuple(dy.shape), rate, words, s.layer)
     g = dy
     if mask is not None:
@@ -216,10 +254,8 @@ def dropout_act_bwd_plain(dy: torch.Tensor, x: Optional[torch.Tensor],
         g = g * _const(s.c, g.dtype, g.device) if s.regime == 2 \
             else g / _const(1.0 - rate, g.dtype, g.device)
     g = g.to(x_dtype)
-    if s.act == "relu":
-        return torch.ops.aten.threshold_backward(g, x, 0)
     if s.act == "elu":
-        return torch.ops.aten.elu_backward(g, 1.0, 1.0, 1.0, False, x)
+        return torch.ops.aten.elu_backward(g, 1.0, 1.0, 1.0, False, saved)
     return g
 
 
@@ -227,29 +263,41 @@ def _is_bf16(t: torch.dtype) -> int:
     return int(t == torch.bfloat16)
 
 
-def _launch_fwd(x: torch.Tensor, words: torch.Tensor,
-                s: DropSpec) -> torch.Tensor:
+def _launch_fwd(x: torch.Tensor, words: torch.Tensor, s: DropSpec,
+                with_mask: bool
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     x = x.contiguous()
     y = torch.empty(x.shape, dtype=s.out_dtype, device=x.device)
+    mask = torch.empty((-(-x.numel() // 8),), dtype=torch.uint8,
+                       device=x.device) if with_mask else None
     rc = kernels.lib().lt_dropout_act_fwd(
         x.data_ptr(), _is_bf16(x.dtype), y.data_ptr(), _is_bf16(s.out_dtype),
-        x.numel(), words.data_ptr(), s.layer, ACTS[s.act], s.regime, s.kq,
-        s.keep, s.c, kernels.stream_handle())
+        None if mask is None else mask.data_ptr(), x.numel(),
+        words.data_ptr(), s.layer, ACTS[s.act], s.regime, s.kq, s.keep, s.c,
+        kernels.stream_handle())
     kernels.check("dropout_act", rc)
-    return y
+    return y, mask
 
 
-def _launch_bwd(dy: torch.Tensor, x: Optional[torch.Tensor],
-                x_dtype: torch.dtype, words: torch.Tensor,
+def _launch_bwd(dy: torch.Tensor, saved: Optional[torch.Tensor],
+                x_dtype: torch.dtype, words: Optional[torch.Tensor],
                 s: DropSpec) -> torch.Tensor:
     dy = dy.contiguous()
-    x = None if x is None else x.contiguous()
+    relu = s.act == "relu"
+    x = None if relu or saved is None else saved.contiguous()
+    mask = saved if relu else None
+    if relu and not (mask.dtype == torch.uint8 and mask.is_contiguous()
+                     and mask.numel() == -(-dy.numel() // 8)):
+        raise ValueError(
+            f"dropout_act_bwd: mask {mask.dtype} {tuple(mask.shape)}, want "
+            f"{-(-dy.numel() // 8)} contiguous uint8 bytes")
     dx = torch.empty(dy.shape, dtype=x_dtype, device=dy.device)
     rc = kernels.lib().lt_dropout_act_bwd(
-        dy.data_ptr(), None if x is None else x.data_ptr(), _is_bf16(x_dtype),
-        dx.data_ptr(), _is_bf16(dy.dtype), dy.numel(), words.data_ptr(),
-        s.layer, ACTS[s.act], s.regime, s.kq, s.keep, s.c,
-        kernels.stream_handle())
+        dy.data_ptr(), None if x is None else x.data_ptr(),
+        None if mask is None else mask.data_ptr(), _is_bf16(x_dtype),
+        dx.data_ptr(), _is_bf16(dy.dtype), dy.numel(),
+        None if words is None else words.data_ptr(), s.layer, ACTS[s.act],
+        s.regime, s.kq, s.keep, s.c, kernels.stream_handle())
     kernels.check("dropout_act_bwd", rc)
     return dx
 
@@ -266,39 +314,59 @@ def _on_cpu(*tensors) -> bool:
 
 
 def dropout_act_fwd(x: torch.Tensor, words: torch.Tensor, rate: float,
-                    s: DropSpec) -> torch.Tensor:
-    """K16's forward (no autograd): on the CPU the plain chain."""
+                    s: DropSpec, with_mask: bool = False
+                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """K16's forward (no autograd): y, and with ``with_mask`` (ReLU) the
+    passes mask for the backward, else None; on the CPU the plain chain
+    and ``passes_mask_plain``."""
     if _on_cpu(x, words):
         with torch.no_grad():
-            return dropout_act_plain(x, s.act, s.out_dtype, rate, words,
-                                     s.layer)
-    return _launch_fwd(x, words, s)
+            y = dropout_act_plain(x, s.act, s.out_dtype, rate, words,
+                                  s.layer)
+            return y, (passes_mask_plain(x, rate, words, s.layer)
+                       if with_mask else None)
+    return _launch_fwd(x, words, s, with_mask)
 
 
-def dropout_act_bwd(dy: torch.Tensor, x: Optional[torch.Tensor],
-                    x_dtype: torch.dtype, words: torch.Tensor, rate: float,
-                    s: DropSpec) -> torch.Tensor:
-    """K16's backward: d x from d y, the mask drawn again."""
-    if _on_cpu(dy, x, words):
-        return dropout_act_bwd_plain(dy, x, x_dtype, words, rate, s)
-    return _launch_bwd(dy, x, x_dtype, words, s)
+def dropout_act_bwd(dy: torch.Tensor, saved: Optional[torch.Tensor],
+                    x_dtype: torch.dtype, words: Optional[torch.Tensor],
+                    rate: float, s: DropSpec) -> torch.Tensor:
+    """K16's backward: d x from d y and what the forward saved (ReLU's
+    passes mask, ELU's x, or None), the keep bits drawn again from
+    ``words`` but with ReLU."""
+    if _on_cpu(dy, saved, words):
+        return dropout_act_bwd_plain(dy, saved, x_dtype, words, rate, s)
+    return _launch_bwd(dy, saved, x_dtype, words, s)
 
 
 class DropoutAct(torch.autograd.Function):
-    """K16 forward and backward. Saves x (unless the activation is none)
-    and the key words; the backward draws the mask again."""
+    """K16 forward and backward. Saves ReLU's passes mask alone, ELU's x
+    and the key words, or (no activation) the key words."""
 
     @staticmethod
     def forward(ctx, x, words, rate, s):
         ctx.rate, ctx.spec, ctx.x_dtype = rate, s, x.dtype
-        ctx.save_for_backward(None if s.act == "none" else x, words)
-        return dropout_act_fwd(x, words, rate, s)
+        y, mask = dropout_act_fwd(x, words, rate, s,
+                                  with_mask=s.act == "relu")
+        if s.act == "relu":
+            ctx.save_for_backward(mask)
+        elif s.act == "elu":
+            ctx.save_for_backward(x, words)
+        else:
+            ctx.save_for_backward(words)
+        return y
 
     @staticmethod
     def backward(ctx, dy):
-        x, words = ctx.saved_tensors
-        return dropout_act_bwd(dy, x, ctx.x_dtype, words, ctx.rate,
-                               ctx.spec), None, None, None
+        s, saved = ctx.spec, ctx.saved_tensors
+        if s.act == "relu":
+            held, words = saved[0], None
+        elif s.act == "elu":
+            held, words = saved
+        else:
+            held, words = None, saved[0]
+        return dropout_act_bwd(dy, held, ctx.x_dtype, words, ctx.rate,
+                               s), None, None, None
 
 
 def _check(x: torch.Tensor, act: str, out_dtype: torch.dtype,
@@ -325,8 +393,10 @@ def dropout_act(x: torch.Tensor, act: str, out_dtype: Optional[torch.dtype],
     ``words`` ([2] int32 on x's device). Out of training, or with no key,
     the activation and the cast alone (plain torch ops, as an eval pass
     runs them). In training one K16 launch forward and one backward on a
-    card (none backward when x takes no gradient); the plain arithmetic on
-    the CPU. More than 2**32 - 1 lanes raise ValueError."""
+    card (none backward when x takes no gradient; with ReLU the forward
+    then writes the 1-bit passes mask that the backward reads in place of
+    x); the plain arithmetic on the CPU. More than 2**32 - 1 lanes raise
+    ValueError."""
     if not train or words is None:
         h = _act_plain(x, act)
         return h if out_dtype is None else h.to(out_dtype)
@@ -337,4 +407,4 @@ def dropout_act(x: torch.Tensor, act: str, out_dtype: Optional[torch.dtype],
         return x
     if x.requires_grad and torch.is_grad_enabled():
         return DropoutAct.apply(x, words, rate, s)
-    return dropout_act_fwd(x, words, rate, s)
+    return dropout_act_fwd(x, words, rate, s)[0]

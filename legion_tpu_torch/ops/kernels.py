@@ -215,9 +215,9 @@ def lib() -> ctypes.CDLL:
         fn.argtypes = [p, p, i64, i64, i32, p, i64, i32, i64, i32, p, i32,
                        p, p]
     so.lt_clique_draw_unsort.argtypes = [p, p, p, i64, i64, i32, p, p]
-    so.lt_dropout_act_fwd.argtypes = [p, i32, p, i32, i64, p, u32, i32, i32,
-                                      u32, f32, f32, p]
-    so.lt_dropout_act_bwd.argtypes = [p, p, i32, p, i32, i64, p, u32, i32,
+    so.lt_dropout_act_fwd.argtypes = [p, i32, p, i32, p, i64, p, u32, i32,
+                                      i32, u32, f32, f32, p]
+    so.lt_dropout_act_bwd.argtypes = [p, p, p, i32, p, i32, i64, p, u32, i32,
                                       i32, u32, f32, f32, p]
     so.lt_noop.argtypes = [p]
     so.lt_grid_sync_probe.argtypes = [i32, i32, p]

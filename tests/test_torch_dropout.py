@@ -180,11 +180,13 @@ def _bits(t):
                                              (100, 33, 0.0)])
 def test_fused_equals_the_unfused_chain_bit_for_bit(dtypes, act, width, rows,
                                                     rate):
-    """``dropout_act`` (the autograd Function: the forward draws the mask,
-    the backward draws it again and saves none) against the unfused chain:
-    y and dx bit for bit, f32 and bf16, widths 100 and 256, every regime
-    (rows 4096 x 256 and 10486 x 100 are past 2**20 lanes: u8) and rate 0,
-    with dy made from a numpy seed."""
+    """``dropout_act`` (the autograd Function: the forward draws the mask;
+    ReLU's backward reads the 1-bit passes mask the forward wrote and
+    nothing else it saved, ELU's draws the mask again from the saved key
+    words and reads the saved x, no activation's saves the key words
+    alone) against the unfused chain: y and dx bit for bit, f32 and bf16,
+    widths 100 and 256, every regime (rows 4096 x 256 and 10486 x 100 are
+    past 2**20 lanes: u8) and rate 0, with dy made from a numpy seed."""
     xdt, ydt = (tdt(d) if d else None for d in dtypes)
     rng = np.random.default_rng(rows + width)
     x0 = torch.from_numpy(rng.standard_normal((rows, width)).astype(
@@ -201,12 +203,134 @@ def test_fused_equals_the_unfused_chain_bit_for_bit(dtypes, act, width, rows,
     if act == "none" and ydt is None and rate == 0.0:
         assert ya is xa
         return
-    saved = [t for t in ya.grad_fn.saved_tensors if t is not None]
-    assert all(t.dtype != torch.bool for t in saved)
-    assert len(saved) == (1 if act == "none" else 2)
+    saved = ya.grad_fn.saved_tensors
+    if act == "relu":
+        # the passes mask alone: ceil(n / 8) bytes, no x, no key words
+        assert len(saved) == 1 and saved[0].dtype == torch.uint8
+        assert tuple(saved[0].shape) == (-(-x0.numel() // 8),)
+    elif act == "elu":
+        assert len(saved) == 2
+        assert torch.equal(_bits(saved[0]), _bits(x0))
+        assert torch.equal(saved[1], WORDS)
+    else:
+        assert len(saved) == 1 and torch.equal(saved[0], WORDS)
     ya.backward(dy)
     yb.backward(dy)
     assert torch.equal(_bits(xa.grad), _bits(xb.grad))
+
+
+# (shape, rate) of ReLU's mask cases: each regime, rate 0, and lane counts
+# that are not a multiple of 8 (1221, 7, 1,050,049)
+MASK_CASES = [((512, 64), 0.5), ((33, 96), 0.5), ((2048, 512), 0.6),
+              ((1049, 1001), 0.6), ((300, 70), 0.6), ((37, 33), 0.6),
+              ((7, 1), 0.3), ((37, 33), 0.0), ((64, 256), 0.0)]
+# lanes 0-6 of x: each side of ReLU's threshold, and a NaN (passes)
+SPECIALS = [0.0, -0.0, 1e-30, -1e-30, float("nan"), 1.0, -1.0]
+
+
+def _mask_x(shape, dtype, nan=True):
+    rng = np.random.default_rng(math.prod(shape))
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    x.view(-1)[:len(SPECIALS)] = torch.tensor(SPECIALS)[:x.numel()]
+    if not nan:
+        x = torch.nan_to_num(x, nan=2.0)
+    return x.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,rate", MASK_CASES)
+def test_passes_mask_packs_keep_and_not_x_le_0(shape, rate, dtype):
+    """``passes_mask_plain`` (what K16's ReLU forward writes) is the keep
+    mask and not x <= 0, packed bit e % 8 of byte e // 8 in ceil(n / 8)
+    bytes, the bits past n zero: in every regime, at rate 0 (not x <= 0
+    alone), at lane counts that are not a multiple of 8, with x holding
+    +-0, +-1e-30 and a NaN (which passes, as ``threshold_backward``
+    lets it); the CPU forward returns it only when asked."""
+    x = _mask_x(shape, tdt(dtype))
+    layer = 2
+    mask = kdrop.passes_mask_plain(x, rate, WORDS, layer)
+    n = x.numel()
+    assert mask.dtype == torch.uint8 and tuple(mask.shape) == (-(-n // 8),)
+    keep = kdrop.keep_mask_plain(shape, rate, WORDS, layer)
+    want = ~(x <= 0) if keep is None else keep & ~(x <= 0)
+    packed = np.packbits(want.reshape(-1).numpy(), bitorder="little")
+    assert np.array_equal(mask.numpy(), packed)
+    assert torch.equal(kdrop.unpack_mask(mask, shape), want)
+    # the NaN lane passes where it is kept
+    assert bool(want.view(-1)[4]) == (keep is None or bool(keep.view(-1)[4]))
+    s = kdrop.make_spec(shape, rate, "relu", x.dtype, layer)
+    y, m = kdrop.dropout_act_fwd(x, WORDS, rate, s, with_mask=True)
+    assert torch.equal(m, mask)
+    assert kdrop.dropout_act_fwd(x, WORDS, rate, s)[1] is None
+
+
+@pytest.mark.parametrize("dtypes", [("float32", None), ("float32", "bfloat16"),
+                                    ("bfloat16", None)])
+@pytest.mark.parametrize("shape,rate", MASK_CASES)
+def test_relu_backward_from_the_mask_equals_the_chain_bit_for_bit(
+        shape, rate, dtypes):
+    """ReLU's backward from the passes mask alone (``dropout_act_bwd``
+    given the mask, no x and no key words) equals the unfused chain's
+    autograd bit for bit (the sign of a zero too), as does the autograd
+    Function's: every regime, rate 0, lane counts not a multiple of 8, x
+    holding +-0, +-1e-30 and a NaN, f32 -> f32, f32 -> bf16 and bf16 ->
+    bf16."""
+    xdt, ydt = (tdt(d) if d else None for d in dtypes)
+    x0 = _mask_x(shape, xdt)
+    rng = np.random.default_rng(7 + math.prod(shape))
+    dy = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                          ).to(ydt or xdt)
+    layer = 3
+    xb = x0.clone().requires_grad_()
+    yb = _chain(xb, "relu", ydt, rate, WORDS, layer)
+    yb.backward(dy)
+    s = kdrop.make_spec(shape, rate, "relu", ydt or xdt, layer)
+    mask = kdrop.passes_mask_plain(x0, rate, WORDS, layer)
+    dx = kdrop.dropout_act_bwd(dy, mask, xdt, None, rate, s)
+    assert dx.dtype == xdt
+    assert torch.equal(_bits(dx), _bits(xb.grad))
+    xa = x0.clone().requires_grad_()
+    ya = kdrop.dropout_act(xa, "relu", ydt, rate, WORDS, layer)
+    assert torch.equal(_bits(ya), _bits(yb))
+    ya.backward(dy)
+    assert torch.equal(_bits(xa.grad), _bits(xb.grad))
+
+
+@pytest.mark.parametrize("dtypes", [("float32", None), ("float32", "bfloat16"),
+                                    ("bfloat16", None)])
+@pytest.mark.parametrize("shape,rate", [((64, 256), 0.5), ((2048, 512), 0.6),
+                                        ((37, 33), 0.6)])
+def test_relu_backward_from_the_mask_matches_jax_grad(shape, rate, dtypes,
+                                                      monkeypatch):
+    """The port's ReLU backward from the passes mask equals ``jax.grad``
+    of JAX's ``relu``, the cast and ``legion_tpu/models/common.py::
+    dropout`` (the port's keep mask injected, scaled by JAX) bit for bit,
+    in each regime (bit-unpacked, u8, per lane, 1221 lanes) and dtype
+    pair. x holds +-0 and +-1e-30, no NaN: JAX's ReLU gradient stops a
+    NaN, PyTorch's ``threshold_backward`` lets it pass."""
+    xdt, ydt = dtypes
+    layer = 1
+    x = _mask_x(shape, tdt(xdt), nan=False)
+    rng = np.random.default_rng(9 + math.prod(shape))
+    dy = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                          ).to(tdt(ydt or xdt))
+    applied = inject_masks(monkeypatch, (jcommon,), [layer], WORDS)
+    dyj = jnp.asarray(dy.float().numpy(), jdt(ydt or xdt))
+
+    def f(xj):
+        h = jax.nn.relu(xj)
+        if ydt is not None:
+            h = h.astype(jdt(ydt))
+        return jnp.sum(jcommon.dropout(h, rate, jax.random.PRNGKey(0),
+                                       True) * dyj)
+
+    gj = jax.grad(f)(jnp.asarray(x.float().numpy(), jdt(xdt)))
+    assert [fold for _, fold in applied] == [layer]
+    s = kdrop.make_spec(shape, rate, "relu", tdt(ydt or xdt), layer)
+    mask = kdrop.passes_mask_plain(x, rate, WORDS, layer)
+    dx = kdrop.dropout_act_bwd(dy, mask, x.dtype, None, rate, s)
+    want = torch.from_numpy(np.array(gj.astype(jnp.float32))).to(x.dtype)
+    assert torch.equal(_bits(dx), _bits(want))
 
 
 def test_no_gradient_saves_nothing_and_cpu_launches_nothing():
