@@ -85,7 +85,21 @@ CUDA card, nvcc (``$CUDA_HOME`` or ``/usr/local/cuda``) and no network.
      f32 rows, forward, forward + backward, the backward alone); each
      after holding K16 at its shapes (GAT: layer 0's features, forward,
      and layer 1's ELU, cast and dropout both ways), for train steps and
-     an eval pass;
+     an eval pass. On GCN's trainer first the segment ops that no model
+     calls (``phase_segment``): the ids of its layer-0 block (965,760
+     lanes into 104,576 rows, pads and all), the max and the mean over
+     [E, 128] bf16 rows and the softmax over [E, 8] scores in f32 and
+     bf16, once through ``legion_tpu_torch.ops`` under autograd with the
+     counts of the "segment" path, then K17 ``segment_max`` (bit for bit,
+     beside ``scatter_reduce_`` "amax"), K18 ``segment_softmax`` and the
+     mean (K2, K1) against their plain versions, both ways, timed, and at
+     the edges of their shapes (``segment_edges``: f32, bf16, int32; [E],
+     [E, F], [E, H, F]; E 1, 7, 2^20 + 3; NaN, +-0, +-inf, ties, pads,
+     ids past S, empty segments, initial tied, all pads, a misaligned
+     base);
+  3c. the Device path at three hops (fanouts [15, 10, 5], GraphSAGE with
+     3 layers): train steps and an eval pass, ms a step and peak
+     memory (``phase_three_hop``);
   4. checks the whole slice on the card against the same slice on the
      CPU (plain versions) at a small size, for GraphSAGE (sort and map
      dedup), GAT and GCN;
@@ -197,6 +211,9 @@ row (``phase_k16``). ``python3 chip_smoke.py --attn`` builds and holds K6
 and K7 at the GAT path's shapes with their keep sets (``phase_attn``); it
 also runs against a package whose kernels read a keep mask, for times in
 turns with it. ``python3
+chip_smoke.py --segment`` builds, runs ``phase_segment`` and
+``segment_edges`` on GCN's trainer and phase 3c, for work on K17 and K18
+(about 50 s of command time). ``python3
 chip_smoke.py --link`` builds, holds K4 and K11-K14 at their edges, makes
 the host dataset and runs phases 5 and 9, for work on the host reads of
 K4 and K13. ``python3 chip_smoke.py --dist`` builds, holds K10 and K14 at
@@ -262,6 +279,12 @@ KERNELS = {
     # XLA fuses the JAX package's dropout into its neighbours
     "dropout_act": dict(source="legion_tpu_torch/csrc/dropout.cu",
                         replaces="legion_tpu/models/common.py:71"),
+    # the JAX package's segment ops that no model calls (XLA): on the
+    # "segment" path of phase_segment
+    "segment_max": dict(source="legion_tpu_torch/csrc/segment_max.cu",
+                        replaces="legion_tpu/ops/segment.py:54"),
+    "segment_softmax": dict(source="legion_tpu_torch/csrc/segment_softmax.cu",
+                            replaces="legion_tpu/ops/segment.py:67"),
 }
 # the kernels each path must launch, and the path whose launches the
 # kernel line reports
@@ -309,6 +332,14 @@ PATH_KERNELS = {
     "clique-H": ("gather_rows", "windowed_draw", "step_keys",
                  "bucket_by_owner", "clique_gather", "hop_mean",
                  "hop_mean_grad") + SORT_DEDUP + DROPOUT,
+    # the Device path at three hops (phase 3c): the same kernels
+    "device-3hop": ("gather_rows", "windowed_draw", "step_keys", "hop_mean",
+                    "hop_mean_grad") + SORT_DEDUP + DROPOUT,
+    # the segment ops through legion_tpu_torch.ops (phase_segment): the
+    # max and the softmax both ways, the mean's sums (K2) and its
+    # backward's gather (K1)
+    "segment": ("segment_max", "segment_max_bwd", "segment_softmax",
+                "segment_softmax_bwd", "segment_sum", "gather_rows"),
 }
 # the paths whose CUDA-graph replays phase_fused holds against eager steps
 FUSED_PATHS = ("device", "device-map", "gat", "HT")
@@ -331,7 +362,8 @@ REPORTED_PATH = {"gather_rows": "device", "segment_sum": "gcn",
                  "step_keys": "device", "hash_lookup": "clique-HT-hash",
                  "bucket_by_owner": "clique-HT", "clique_gather": "clique-HT",
                  "clique_draw": "clique-HT", "hop_mean": "device",
-                 "hop_mean_grad": "device", "dropout_act": "device"}
+                 "hop_mean_grad": "device", "dropout_act": "device",
+                 "segment_max": "segment", "segment_softmax": "segment"}
 # bench.py --model gat --features host (GAT-H)
 GAT_H = dict(cache_bytes=CACHE_BYTES, feature_residency="host", model="gat")
 # bench.py --model X: lp_sage batches divide into thirds, GCN dedups the
@@ -625,11 +657,12 @@ def tuple_tol(*tols):
 
 
 def bench_config(ds, cache_bytes=0, feature_residency="hbm",
-                 topo_residency="hbm", model="graphsage", dedup="sort"):
+                 topo_residency="hbm", model="graphsage", dedup="sort",
+                 fanouts=(25, 10)):
     from legion_tpu_torch.config import (CacheConfig, LegionConfig,
                                          MeshConfig, SamplerConfig,
                                          TrainConfig)
-    skw = dict(fanouts=(25, 10), batch_size=8000, auto_compact=True,
+    skw = dict(fanouts=fanouts, batch_size=8000, auto_compact=True,
                eval_batch_size=512, dedup=dedup, cap_headroom=1.03,
                neighbor_window=64, dedup_last_hop=False)
     skw.update(MODEL_SAMPLER.get(model, {}))
@@ -640,8 +673,39 @@ def bench_config(ds, cache_bytes=0, feature_residency="hbm",
                           feature_residency=feature_residency,
                           topo_residency=topo_residency),
         train=TrainConfig(model=model, hidden_dim=256, epochs=1,
-                          lr=3e-3, dropout=0.5, fused_steps=1),
+                          lr=3e-3, dropout=0.5, fused_steps=1,
+                          num_layers=len(fanouts)),
         mesh=MeshConfig.for_devices(1))
+
+
+THREE_HOP = (15, 10, 5)
+
+
+def phase_three_hop(ds, torch, smi):
+    """Phase 3's Device trainer at three hops (fanouts [15, 10, 5],
+    GraphSAGE num_layers 3, hidden 256, batch 8000): warm-up and timed
+    train steps and an eval pass (``phase_slice``: every kernel of the
+    Device path launched, the losses finite), with its ms a step and
+    peak memory beside the card's name and power limit. Returns the
+    launch counts."""
+    from legion_tpu_torch.train import Trainer
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = Trainer(ds, bench_config(ds, fanouts=THREE_HOP), device="cuda")
+    torch.cuda.synchronize()
+    s = tr.sampler_t
+    print(f" device-3hop: fanouts {list(THREE_HOP)}, {len(THREE_HOP)} "
+          f"layers | set-up {time.perf_counter() - t0:.2f} s | caps "
+          f"{tr.compact_caps} | frontier sizes {s.frontier_sizes} | edge "
+          f"sizes {s.edge_sizes} | max_ids {s.max_ids}")
+    counts, step_ms = phase_slice(tr, torch, "device-3hop")
+    print(f"  device-3hop: {step_ms:.3f} ms a step, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MB allocated "
+          f"| {smi}")
+    del tr
+    torch.cuda.empty_cache()
+    return counts
 
 
 def phase_kernels(tr, torch):
@@ -1477,6 +1541,346 @@ def k2_gcn_compare(tr, torch, results):
             library=lambda: torch.zeros((n_src + 1, 1), device="cuda")
             .index_add_(0, idx, ones), queued=True))
     return times
+
+
+def nan_tol(tol):
+    """``tol`` on the finite elements of the plain version, once the
+    kernel holds the same NaN and infinity wherever the plain version
+    holds one (K18 spreads a NaN lane's NaN over its segment; the mean
+    sums infinities)."""
+    def check(k, p):
+        k, p = k.float(), p.float()
+        odd = ~p.isfinite()
+        same = (k == p) | (k.isnan() & p.isnan())
+        if not bool(same[odd].all().item()):
+            return float("nan"), False
+        return tol(k.masked_fill(odd, 0), p.masked_fill(odd, 0))
+    return check
+
+
+def seg_mean_plain(data, ids, S):
+    """The segment mean by its kernels' plain versions: K2's f32 sums of
+    the rows and of a column of ones, divided, cast."""
+    from legion_tpu_torch.ops import kernels
+    ones = data.new_ones((data.shape[0], 1)).float()
+    cnt = kernels.segment_sum_plain(ones, ids, S).clamp_min(1.0)
+    return (kernels.segment_sum_plain(data, ids, S) / cnt).to(data.dtype)
+
+
+def seg_grad(fn, x, g, torch):
+    """fn(x) and its gradient at g, through autograd."""
+    xg = x.detach().requires_grad_()
+    y = fn(xg)
+    return y.detach(), torch.autograd.grad(y, xg, g)[0]
+
+
+SEG_F32 = nan_tol(f32_atomic_order)    # K18 f32: rtol 1e-5 (the atomics)
+SEG_BF16 = nan_tol(bf16_ulp)           # K18 bf16: one bf16 ulp
+
+
+def phase_segment(tr, torch, results, main):
+    """The JAX package's segment ops that no model calls (K17
+    ``segment_max``, K18 ``segment_softmax``, and the mean by K2 and K1)
+    at full-size shapes from one real batch of ``tr`` (the GCN trainer,
+    exact last-hop dedup): the ids are its layer-0 block's ``edge_dst``,
+    pads and all. First the path: each op once through ``legion_tpu_torch.
+    ops`` under autograd, forward and backward, the counts set to 0 just
+    before and read just after (``PATH_KERNELS["segment"]``: the max and
+    the mean over [E, 128] bf16 rows, the softmax over [E, 8] scores in
+    f32 and in bf16, a DGL GATConv edge softmax). Then each kernel against
+    its plain version at those shapes, timed: K17 bit for bit, K18 f32
+    within rtol 1e-5 (its atomics) and bf16 within one ulp, the mean
+    within one bf16 ulp. Returns the launch counts."""
+    from legion_tpu_torch import ops
+    from legion_tpu_torch.ops import kernels
+    from legion_tpu_torch.ops import segment as sg
+    batch, _ = one_batch(tr, torch)
+    ids = batch.edge_dst[1]
+    S = tr.sampler_t.config.cum_sizes()[1]
+    E = ids.shape[0]
+    valid = int((ids >= 0).sum())
+    g = torch.Generator(device="cuda")
+    g.manual_seed(24)
+    rows = torch.randn((E, 128), generator=g, device="cuda") \
+        .to(torch.bfloat16)
+    scores = {dt: (2 * torch.randn((E, 8), generator=g, device="cuda"))
+              .to(dt) for dt in (torch.float32, torch.bfloat16)}
+    g_rows = torch.randn((S, 128), generator=g, device="cuda") \
+        .to(torch.bfloat16)
+    g_sc = {dt: torch.randn((E, 8), generator=g, device="cuda").to(dt)
+            for dt in scores}
+    print(f"  segment ops at GCN's layer-0 block: E {E} lanes ({valid} "
+          f"valid), S {S} segments")
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    out_max, d_max = seg_grad(
+        lambda x: ops.masked_segment_max(x, ids, S), rows, g_rows, torch)
+    out_mean, d_mean = seg_grad(
+        lambda x: ops.masked_segment_mean(x, ids, S), rows, g_rows, torch)
+    soft = {dt: seg_grad(lambda x: ops.segment_softmax(x, ids, S), s,
+                         g_sc[dt], torch) for dt, s in scores.items()}
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    print(f"  launches on the segment path: "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    for name in PATH_KERNELS["segment"]:
+        if counts[name] <= 0:
+            fail(f"kernel {name} was not launched on the segment path")
+    for what, t, shape in (("max", out_max, (S, 128)),
+                           ("mean", out_mean, (S, 128)),
+                           ("d max", d_max, (E, 128)),
+                           ("d mean", d_mean, (E, 128))) + tuple(
+            (f"softmax {str(dt)[6:]} {i}", soft[dt][i], (E, 8))
+            for dt in soft for i in (0, 1)):
+        if tuple(t.shape) != shape or not bool(t.float().isfinite().all()):
+            fail(f"segment path: {what} {tuple(t.shape)} not finite of "
+                 f"shape {shape}")
+    p32 = soft[torch.float32][0].float()
+    if not bool((p32[ids < 0] == 0).all()):
+        fail("segment path: a pad lane's softmax is not 0")
+    sums = torch.zeros((S + 1, 8), device="cuda").index_add_(
+        0, torch.where(ids >= 0, ids, S).long(), p32)[:S]
+    has = torch.zeros(S + 1, dtype=torch.bool, device="cuda")
+    has[torch.where(ids >= 0, ids, S).long()] = True
+    if not bool(((sums[has[:S]] - 1).abs() <= 1e-5).all()):
+        fail("segment path: a segment's softmax does not sum to 1")
+    counts["per_step"] = dict(counts)     # the path is one pass
+
+    # K17 against its plain version, the library's scatter_reduce_ beside
+    init = torch.tensor(torch.finfo(torch.bfloat16).min,
+                        dtype=torch.bfloat16)
+    key = int(sg.order_keys_plain(init))
+    idx = torch.where(ids >= 0, ids, S).long()[:, None].expand(E, 128)
+    row_b = valid * 128 * 2
+    note = f"[{E},128] bf16 -> [{S},128]"
+    fwd = compare("segment_max", lambda: sg.segment_max_fwd(rows, ids, S,
+                                                            key),
+                  lambda: sg.segment_max_plain(rows, ids, S, key), bit_exact,
+                  results, torch, note + " fwd",
+                  least=bound(row_b + nb(ids) + S * 256, ops=valid * 128),
+                  library=lambda: torch.full(
+                      (S + 1, 128), float(init), dtype=torch.bfloat16,
+                      device="cuda").scatter_reduce_(0, idx, rows, "amax"),
+                  queued=True)
+    if not same_bits(sg.segment_max_fwd(rows, ids, S, key), out_max, torch):
+        fail("segment_max: the path's forward differs from the kernel's")
+    bwd = compare("segment_max", lambda: sg.segment_max_bwd(
+        rows, ids, out_max, g_rows, float(init)),
+        lambda: sg.segment_max_bwd_plain(rows, ids, out_max, g_rows,
+                                         float(init)), bit_exact, results,
+        torch, note + " bwd",
+        least=bound(row_b + nb(ids) + 2 * S * 256 + E * 256,
+                    ops=valid * 128), queued=True)
+    main["segment_max"] = [fwd, bwd]
+
+    def max_plain_both():
+        o = sg.segment_max_plain(rows, ids, S, key)
+        return o, sg.segment_max_bwd_plain(rows, ids, o, g_rows, float(init))
+    compare("segment_max", lambda: seg_grad(
+        lambda x: ops.masked_segment_max(x, ids, S), rows, g_rows, torch),
+        max_plain_both, tuple_tol(bit_exact, bit_exact), results, torch,
+        note + " fwd+bwd (autograd; plain: both plain versions)",
+        least=bound(row_b + nb(ids) + 2 * S * 256 + E * 256,
+                    ops=2 * valid * 128), queued=True)
+
+    # K18, f32 and bf16, each way
+    main["segment_softmax"] = []
+    for dt, s in scores.items():
+        es = s.element_size()
+        tol = SEG_F32 if dt == torch.float32 else SEG_BF16
+        note = f"[{E},8] {str(dt)[6:]}, S {S}"
+        p = soft[dt][0]
+        main["segment_softmax"].append(compare(
+            "segment_softmax", lambda s=s: sg.segment_softmax_fwd(s, ids, S),
+            lambda s=s: sg.segment_softmax_plain(s, ids, S), tol, results,
+            torch, note + " fwd",
+            least=bound(valid * 8 * es + nb(ids) + E * 8 * es,
+                        ops=3 * valid * 8), queued=True))
+        main["segment_softmax"].append(compare(
+            "segment_softmax",
+            lambda p=p, dt=dt: sg.segment_softmax_bwd(p, g_sc[dt], ids, S),
+            lambda p=p, dt=dt: sg.segment_softmax_bwd_plain(p, g_sc[dt],
+                                                            ids, S),
+            tol, results, torch, note + " bwd",
+            least=bound(2 * valid * 8 * es + nb(ids) + E * 8 * es,
+                        ops=4 * valid * 8), queued=True))
+        # forward + backward under autograd against the plain chain: in
+        # bf16 the two backwards read p's one ulp apart, which moves dx by
+        # up to ulp(p) |g - sum p g|: 2^-7 max|g| more
+        gmax = g_sc[dt].float().abs().max().item()
+        both_tol = tol if dt == torch.float32 else nan_tol(
+            lambda k, p, gmax=gmax: bf16_ulp(k, p, 2.0 ** -7 * gmax
+                                            / max(p.abs().max().item(),
+                                                  1e-30)))
+
+        def plain_both(s=s, dt=dt):
+            pp = sg.segment_softmax_plain(s, ids, S)
+            return pp, sg.segment_softmax_bwd_plain(pp, g_sc[dt], ids, S)
+        compare("segment_softmax", lambda s=s, dt=dt: seg_grad(
+            lambda x: ops.segment_softmax(x, ids, S), s, g_sc[dt], torch),
+            plain_both, tuple_tol(tol, both_tol), results, torch,
+            note + " fwd+bwd (autograd; plain chain)",
+            least=bound(2 * valid * 8 * es + nb(ids) + 2 * E * 8 * es,
+                        ops=7 * valid * 8), queued=True)
+
+    # the mean: K2 twice forward, K1 backward; the library's "mean" beside
+    compare("mean (K2, K1)", lambda: ops.masked_segment_mean(rows, ids, S),
+            lambda: seg_mean_plain(rows, ids, S), nan_tol(bf16_ulp),
+            {}, torch, f"[{E},128] bf16 -> [{S},128] fwd",
+            least=bound(row_b + nb(ids) + S * 256, ops=valid * 129),
+            library=lambda: torch.zeros(
+                (S + 1, 128), dtype=torch.bfloat16, device="cuda")
+            .scatter_reduce_(0, idx, rows, "mean", include_self=False),
+            queued=True)
+    compare("mean (K2, K1)",
+            lambda: seg_grad(lambda x: ops.masked_segment_mean(x, ids, S),
+                             rows, g_rows, torch),
+            lambda: seg_grad(lambda x: seg_mean_plain(x, ids, S), rows,
+                             g_rows, torch),
+            tuple_tol(nan_tol(bf16_ulp), nan_tol(bf16_ulp)), {}, torch,
+            f"[{E},128] bf16 fwd+bwd",
+            least=bound(row_b + nb(ids) + 2 * S * 256 + E * 256,
+                        ops=valid * 257), queued=True)
+    return counts
+
+
+SEG_SIZES = (1, 7, 2 ** 20 + 3)
+SEG_SHAPES = ((), (5,), (3, 4))       # trailing dims: [E], [E, F], [E, H, F]
+
+
+def seg_edge_inputs(E, tail, dtype, rng, torch):
+    """(data, ids, S) for an edge case: random values with ties, the
+    special values of the type at random lanes, pads, ids past S and empty
+    segments (only even ids below S are drawn)."""
+    S = max(3, E // 5)
+    shape = (E,) + tail
+    if dtype == torch.int32:
+        data = torch.randint(-5, 5, shape, generator=rng, device="cuda",
+                             dtype=torch.int32)
+        specials = (-2 ** 31, 2 ** 31 - 1, 0)
+    else:
+        data = torch.randint(-4, 4, shape, generator=rng,
+                             device="cuda").float()
+        data += torch.randn(shape, generator=rng, device="cuda") \
+            * (torch.rand(shape, generator=rng, device="cuda") < 0.5)
+        specials = (float("nan"), 0.0, -0.0, float("inf"), float("-inf"),
+                    torch.finfo(dtype).min)
+        data = data.to(dtype)
+    flat = data.view(-1)
+    for v in specials:
+        n = max(1, flat.numel() // 97)
+        at = torch.randint(0, flat.numel(), (n,), generator=rng,
+                           device="cuda")
+        flat[at] = torch.tensor(v, dtype=dtype, device="cuda")
+    ids = 2 * torch.randint(0, (S + 1) // 2, (E,), generator=rng,
+                            device="cuda", dtype=torch.int32)
+    r = torch.rand(E, generator=rng, device="cuda")
+    ids = torch.where(r < 0.1, -1, torch.where(r < 0.15, S + 2, ids)) \
+        .to(torch.int32)
+    return data, ids, S
+
+
+def segment_edges(torch, results):
+    """K17 and K18 (and the mean) at the edges of their shapes against the
+    plain versions: f32, bf16 and int32 (the max's forward alone) over
+    [E], [E, F] and [E, H, F], E 1, 7 and 2^20 + 3, NaN, +-0, +-inf,
+    finfo.min (iinfo's ends), ties, pads, ids past S, empty segments;
+    initial by default and tied with a lane (and the max of an all-pad
+    input); data on a base one element past an aligned one. Through the
+    public ops under autograd on the card against the plain versions of
+    the folded [E, F]: K17 both ways bit for bit, K18 f32 rtol 1e-5 and
+    bf16 one ulp, the mean one bf16 ulp."""
+    from legion_tpu_torch import ops
+    from legion_tpu_torch.ops import segment as sg
+    rng = torch.Generator(device="cuda")
+    rng.manual_seed(17)
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16, torch.int32):
+        for E in SEG_SIZES:
+            for tail in SEG_SHAPES:
+                for misaligned in (False, True):
+                    data, ids, S = seg_edge_inputs(E, tail, dtype, rng,
+                                                   torch)
+                    if misaligned:
+                        buf = torch.empty(data.numel() + 1, dtype=dtype,
+                                          device="cuda")
+                        buf[1:] = data.view(-1)
+                        data = buf[1:].view(data.shape)
+                    if E == 1 and misaligned:
+                        ids = torch.full_like(ids, -1)     # all padding
+                    case = (f"{str(dtype)[6:]} E {E} tail {tail}"
+                            f"{' misaligned' if misaligned else ''}")
+                    n += seg_edge_case(case, data, ids, S, ops, sg, torch,
+                                       results)
+    print(f"  segment_edges: {n} cases, K17 bit for bit, K18 and the mean "
+          "within their tolerances")
+
+
+def seg_edge_case(case, data, ids, S, ops, sg, torch, results):
+    """One edge case of ``segment_edges``; fails on a difference. Returns
+    the number of comparisons made."""
+    E, dtype = data.shape[0], data.dtype
+    F = data[0].numel() if E else 1
+    d2 = data.reshape(E, F)
+    tie = d2[0, 0].item() if E else 0.0
+    n = 0
+    for initial in (None, tie):
+        if dtype == torch.int32:
+            init = torch.tensor(torch.iinfo(dtype).min if initial is None
+                                else int(initial), dtype=dtype)
+        else:
+            init = torch.tensor(torch.finfo(dtype).min if initial is None
+                                else initial, dtype=dtype)
+        key = int(sg.order_keys_plain(init))
+        g = torch.randn((S, F), device="cuda").to(dtype) \
+            if dtype != torch.int32 else None
+        if g is None:
+            k = ops.masked_segment_max(data, ids, S, init.item())
+            kd = None
+        else:
+            k, kd = seg_grad(
+                lambda x: ops.masked_segment_max(x, ids, S, init.item()),
+                data, g.reshape((S,) + tuple(data.shape[1:])), torch)
+        p = sg.segment_max_plain(d2, ids, S, key)
+        if not same_bits(k.reshape(S, F), p, torch):
+            fail(f"segment_max edge {case} initial {initial}: the forward "
+                 "differs from its plain version")
+        n += 1
+        if kd is not None:
+            pd = sg.segment_max_bwd_plain(d2, ids, p, g, float(init))
+            if not same_bits(kd.reshape(E, F), pd, torch):
+                fail(f"segment_max edge {case} initial {initial}: the "
+                     "backward differs from its plain version")
+            n += 1
+    if dtype == torch.int32:
+        return n
+    tol = SEG_F32 if dtype == torch.float32 else SEG_BF16
+    gs = torch.randn(data.shape, device="cuda").to(dtype)
+    k, kd = seg_grad(lambda x: ops.segment_softmax(x, ids, S), data, gs,
+                     torch)
+    p = sg.segment_softmax_plain(d2, ids, S)
+    # the backward on the p that the kernel's backward read (its forward's)
+    pd = sg.segment_softmax_bwd_plain(k.reshape(E, F), gs.reshape(E, F),
+                                      ids, S)
+    for what, a, b in (("forward", k.reshape(E, F), p),
+                       ("backward", kd.reshape(E, F), pd)):
+        err, ok = tol(a, b)
+        if not ok:
+            fail(f"segment_softmax edge {case}: the {what} differs from its "
+                 f"plain version (max abs err {err})")
+        r = results.setdefault("segment_softmax", {"max_abs_err": 0.0})
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+    # the mean without the finfo.min lanes: two of them overflow to -inf,
+    # and whether a +inf lane meets that -inf (NaN) or a finite sum first
+    # (+inf) depends on the order of K2's atomics
+    dm = data.masked_fill(data == torch.finfo(dtype).min, 0)
+    km = ops.masked_segment_mean(dm, ids, S).reshape(S, F)
+    err, ok = tol(km, seg_mean_plain(dm.reshape(E, F), ids, S))
+    if not ok:
+        fail(f"masked_segment_mean edge {case}: differs from the plain "
+             f"sums (max abs err {err})")
+    return n + 3
 
 
 def k15_rows(src, ids=None, aligned=None):
@@ -6670,6 +7074,15 @@ def main():
           f"| edge sizes {s.edge_sizes} | max_ids {s.max_ids} | ids_len "
           f"{s.ids_len}")
 
+    if sys.argv[1:2] == ["--segment"]:
+        del tr
+        tr = Trainer(ds, bench_config(ds, model="gcn"), device="cuda")
+        phase_segment(tr, torch, {}, {})
+        segment_edges(torch, {})
+        del tr
+        phase_three_hop(ds, torch, smi)
+        return
+
     print("phase 2: kernels against their plain versions")
     results = phase_kernels(tr, torch)
     if sys.argv[1:2] == ["--kernels"]:
@@ -6717,6 +7130,8 @@ def main():
             k7_keep_sets(torch)
             k7_edges(torch, results)
         elif model == "gcn":
+            counts["segment"] = phase_segment(tr, torch, results, main_ms)
+            segment_edges(torch, results)
             k7_exact_compares(tr, torch, results)
             main_ms["segment_sum"] = k2_gcn_compare(tr, torch, results)
             k15_gcn_compares(tr, torch, results)
@@ -6735,9 +7150,12 @@ def main():
             ib_ab[model] = phase_interbatch(tr, torch, model)
         del tr
         torch.cuda.empty_cache()
+    print("phase 3c: the Device path at three hops")
+    counts["device-3hop"] = phase_three_hop(ds, torch, smi)
     add_main(results, main_ms)
     for path, name in (("gat", "gat_attend"), ("gat", "hop_attention"),
-                       ("device", "dropout_act")):
+                       ("device", "dropout_act"), ("segment", "segment_max"),
+                       ("segment", "segment_softmax")):
         counts[path][name] += counts[path][name + "_bwd"]
         counts[path]["per_step"][name] += \
             counts[path]["per_step"][name + "_bwd"]

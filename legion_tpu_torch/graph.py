@@ -47,6 +47,10 @@ class CSRGraph:
     def degrees(self) -> np.ndarray:
         return np.diff(self.indptr)
 
+    def neighbors(self, v: int) -> np.ndarray:
+        """v's out-neighbours: a view of ``indices``."""
+        return self.indices[self.indptr[v]:self.indptr[v + 1]]
+
     @classmethod
     def from_edges(cls, src: np.ndarray, dst: np.ndarray, num_nodes: int,
                    drop_self_loops: bool = True) -> "CSRGraph":

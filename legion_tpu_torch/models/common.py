@@ -52,6 +52,23 @@ def xavier_uniform_padded(logical_in: int, padded_in: int,
     return out
 
 
+def torch_linear_init(generator: torch.Generator, in_dim: int,
+                      out_dim: int, bias: bool = True,
+                      dtype=torch.float32) -> dict:
+    """torch.nn.Linear's default init, as the JAX package's
+    ``torch_linear_init``: w [in, out] and b [out] from U(-1/sqrt(in),
+    1/sqrt(in)), drawn by ``generator`` on its device; no "b" without
+    ``bias``."""
+    bound = 1.0 / math.sqrt(in_dim)
+
+    def uniform(shape):
+        u = torch.rand(shape, generator=generator, dtype=dtype,
+                       device=generator.device)
+        return u * (2 * bound) - bound
+    w = uniform((in_dim, out_dim))
+    return {"w": w, "b": uniform((out_dim,))} if bias else {"w": w}
+
+
 def make_model(train_cfg: TrainConfig, sampler_cfg: SamplerConfig,
                in_dim: int, num_classes: int, device: torch.device,
                in_dim_pad: Optional[int] = None):

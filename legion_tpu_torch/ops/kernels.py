@@ -40,7 +40,10 @@ K11 ``hash_lookup`` (the hash map's lookup) in ``cache/hashmap.py``; K12
 ``clique_draw`` (the owners' draws, and ``clique_draw_unsort`` on the
 requester's side) in ``cache/collective.py``; K16 ``dropout_act``
 (dropout fused with the activation and the cast before it, backward
-counted under ``dropout_act_bwd``) in ``ops/dropout.py``;
+counted under ``dropout_act_bwd``) in ``ops/dropout.py``; K17
+``segment_max`` and K18 ``segment_softmax`` (the JAX package's segment
+max and softmax, on no path; backwards counted under ``<name>_bwd``) in
+``ops/segment.py``;
 host-memory registration for K4 and K5 is ``ops/host_memory.py``. The
 headers of ``csrc/*.cu`` say what bounds each kernel on the card.
 ``noop`` launches an empty kernel, the yardstick of a launch's cost, and
@@ -85,7 +88,9 @@ LAUNCHES: Dict[str, int] = {"gather_rows": 0, "segment_sum": 0,
                             "clique_gather": 0, "clique_draw": 0,
                             "clique_draw_unsort": 0, "hop_mean": 0,
                             "hop_mean_bwd": 0, "hop_mean_grad": 0,
-                            "dropout_act": 0, "dropout_act_bwd": 0}
+                            "dropout_act": 0, "dropout_act_bwd": 0,
+                            "segment_max": 0, "segment_max_bwd": 0,
+                            "segment_softmax": 0, "segment_softmax_bwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -219,6 +224,14 @@ def lib() -> ctypes.CDLL:
                                       i32, u32, f32, f32, p]
     so.lt_dropout_act_bwd.argtypes = [p, p, p, i32, p, i32, i64, p, u32, i32,
                                       i32, u32, f32, f32, p]
+    so.lt_segment_max_fwd.argtypes = [p, i32, p, i64, i64, i64, u32, p, p,
+                                      p]
+    so.lt_segment_max_bwd.argtypes = [p, i32, p, p, p, f32, i64, i64, i64, p,
+                                      p, p]
+    so.lt_segment_softmax_fwd.argtypes = [p, i32, p, i64, i64, i64, p, p, p,
+                                          p]
+    so.lt_segment_softmax_bwd.argtypes = [p, p, i32, p, i64, i64, i64, p, p,
+                                          p]
     so.lt_noop.argtypes = [p]
     so.lt_grid_sync_probe.argtypes = [i32, i32, p]
     for fn in (so.lt_noop, so.lt_gather_rows, so.lt_segment_sum_f32,
@@ -237,7 +250,9 @@ def lib() -> ctypes.CDLL:
                so.lt_bucket_by_owner, so.lt_clique_gather,
                so.lt_clique_draw_i32, so.lt_clique_draw_i64,
                so.lt_clique_draw_unsort, so.lt_dropout_act_fwd,
-               so.lt_dropout_act_bwd):
+               so.lt_dropout_act_bwd, so.lt_segment_max_fwd,
+               so.lt_segment_max_bwd, so.lt_segment_softmax_fwd,
+               so.lt_segment_softmax_bwd):
         fn.restype = ctypes.c_int
     so.lt_error_string.argtypes = [ctypes.c_int]
     so.lt_error_string.restype = ctypes.c_char_p

@@ -90,14 +90,16 @@ def batch_and_feats(rng, scfg, V=500, E=8000, in_pad=128, in_dim=100):
 
 
 def one_train_step(jds, model: str, compute_dtype: str, sampler_kw: dict,
-                   bs: int):
+                   bs: int, train_kw: dict = None):
     """JAX's train step (``train.py:601-623``: loss, grads, one Adam
     update) and the port's ``Trainer._train_on`` on the same converted
-    dataset, parameters and (injected) JAX batch, dropout 0. Returns
+    dataset, parameters and (injected) JAX batch, dropout 0; ``train_kw``
+    overrides the train config (hidden 32, GAT heads (4, 1)). Returns
     (loss_p, loss_j, [(name, grad_p, grad_j, new_p, new_j), ...])."""
     tkw = dict(model=model, hidden_dim=32, dropout=0.0, gat_feat_drop=0.0,
                gat_attn_drop=0.0, gat_heads=(4, 1), lr=3e-3,
                compute_dtype=compute_dtype)
+    tkw.update(train_kw or {})
     jcfg = JSamplerConfig(**sampler_kw)
     V = jds.meta.num_nodes
     sampler = JSampler(jcfg, V)
