@@ -92,11 +92,16 @@ CUDA card, nvcc (``$CUDA_HOME`` or ``/usr/local/cuda``) and no network.
      bf16, once through ``legion_tpu_torch.ops`` under autograd with the
      counts of the "segment" path, then K17 ``segment_max`` (bit for bit,
      beside ``scatter_reduce_`` "amax"), K18 ``segment_softmax`` and the
-     mean (K2, K1) against their plain versions, both ways, timed, and at
-     the edges of their shapes (``segment_edges``: f32, bf16, int32; [E],
-     [E, F], [E, H, F]; E 1, 7, 2^20 + 3; NaN, +-0, +-inf, ties, pads,
-     ids past S, empty segments, initial tied, all pads, a misaligned
-     base);
+     mean (K2, K1) against their plain versions, both ways, timed; the
+     grouping of the lanes by segment that K17 and K18 run first, exactly
+     against its plain version, and its time alone; K18 the same bits in
+     two runs; each backward on the grouping its forward wrote, as
+     autograd runs it; the same at the block's ids under a seeded
+     permutation (``seg_shuffled``); and at the edges of
+     their shapes (``segment_edges``: f32, bf16, int32; [E], [E, F], [E,
+     H, F]; E 1, 7, 2^20 + 3; NaN, +-0, +-inf, ties, pads, ids past S,
+     empty segments, initial tied, all pads, a misaligned base; hubs: one
+     segment with half of 2^20 + 3 lanes, and every lane in one);
   3c. the Device path at three hops (fanouts [15, 10, 5], GraphSAGE with
      3 layers): train steps and an eval pass, ms a step and peak
      memory (``phase_three_hop``);
@@ -213,7 +218,9 @@ also runs against a package whose kernels read a keep mask, for times in
 turns with it. ``python3
 chip_smoke.py --segment`` builds, runs ``phase_segment`` and
 ``segment_edges`` on GCN's trainer and phase 3c, for work on K17 and K18
-(about 50 s of command time). ``python3
+(about 80 s of command time); where ``_archive/parent`` holds a ``git
+archive`` of the parent commit, it also builds the parent's K17 and K18
+and times them in turns with the tree's (``seg_turns``). ``python3
 chip_smoke.py --link`` builds, holds K4 and K11-K14 at their edges, makes
 the host dataset and runs phases 5 and 9, for work on the host reads of
 K4 and K13. ``python3 chip_smoke.py --dist`` builds, holds K10 and K14 at
@@ -1574,11 +1581,11 @@ def seg_grad(fn, x, g, torch):
     return y.detach(), torch.autograd.grad(y, xg, g)[0]
 
 
-SEG_F32 = nan_tol(f32_atomic_order)    # K18 f32: rtol 1e-5 (the atomics)
+SEG_F32 = nan_tol(f32_atomic_order)    # K18 f32: rtol 1e-5 (sum order)
 SEG_BF16 = nan_tol(bf16_ulp)           # K18 bf16: one bf16 ulp
 
 
-def phase_segment(tr, torch, results, main):
+def phase_segment(tr, torch, results, main, turns=False):
     """The JAX package's segment ops that no model calls (K17
     ``segment_max``, K18 ``segment_softmax``, and the mean by K2 and K1)
     at full-size shapes from one real batch of ``tr`` (the GCN trainer,
@@ -1589,8 +1596,16 @@ def phase_segment(tr, torch, results, main):
     the mean over [E, 128] bf16 rows, the softmax over [E, 8] scores in
     f32 and in bf16, a DGL GATConv edge softmax). Then each kernel against
     its plain version at those shapes, timed: K17 bit for bit, K18 f32
-    within rtol 1e-5 (its atomics) and bf16 within one ulp, the mean
-    within one bf16 ulp. Returns the launch counts."""
+    within rtol 1e-5 and bf16 within one ulp, the mean within one bf16
+    ulp; the grouping of the lanes by segment that K17 and K18 run first
+    exactly against its plain version and timed alone
+    (``seg_grouping_time``), K18 the same bits in two runs; each backward
+    reads the grouping its forward wrote, as autograd runs it. Then the
+    same at the block's ids under a fixed seeded permutation
+    (``seg_shuffled``), and, with ``turns`` where
+    ``_archive/parent`` holds a ``git archive`` of the parent commit, the
+    parent's K17 and K18 timed in turns with these (``seg_turns``).
+    Returns the launch counts."""
     from legion_tpu_torch import ops
     from legion_tpu_torch.ops import kernels
     from legion_tpu_torch.ops import segment as sg
@@ -1663,10 +1678,13 @@ def phase_segment(tr, torch, results, main):
                       (S + 1, 128), float(init), dtype=torch.bfloat16,
                       device="cuda").scatter_reduce_(0, idx, rows, "amax"),
                   queued=True)
-    if not same_bits(sg.segment_max_fwd(rows, ids, S, key), out_max, torch):
+    # the backward reads the grouping its forward wrote, as autograd runs it
+    groups = sg.segment_groups_buffer(ids, S)
+    if not same_bits(sg.segment_max_fwd(rows, ids, S, key, groups), out_max,
+                     torch):
         fail("segment_max: the path's forward differs from the kernel's")
     bwd = compare("segment_max", lambda: sg.segment_max_bwd(
-        rows, ids, out_max, g_rows, float(init)),
+        rows, ids, out_max, g_rows, float(init), groups),
         lambda: sg.segment_max_bwd_plain(rows, ids, out_max, g_rows,
                                          float(init)), bit_exact, results,
         torch, note + " bwd",
@@ -1691,6 +1709,10 @@ def phase_segment(tr, torch, results, main):
         tol = SEG_F32 if dt == torch.float32 else SEG_BF16
         note = f"[{E},8] {str(dt)[6:]}, S {S}"
         p = soft[dt][0]
+        sgr = sg.segment_groups_buffer(ids, S)
+        if not same_bits(sg.segment_softmax_fwd(s, ids, S, sgr), p, torch):
+            fail("segment_softmax: the path's forward differs from the "
+                 "kernel's")
         main["segment_softmax"].append(compare(
             "segment_softmax", lambda s=s: sg.segment_softmax_fwd(s, ids, S),
             lambda s=s: sg.segment_softmax_plain(s, ids, S), tol, results,
@@ -1699,7 +1721,8 @@ def phase_segment(tr, torch, results, main):
                         ops=3 * valid * 8), queued=True))
         main["segment_softmax"].append(compare(
             "segment_softmax",
-            lambda p=p, dt=dt: sg.segment_softmax_bwd(p, g_sc[dt], ids, S),
+            lambda p=p, dt=dt, sgr=sgr: sg.segment_softmax_bwd(
+                p, g_sc[dt], ids, S, sgr),
             lambda p=p, dt=dt: sg.segment_softmax_bwd_plain(p, g_sc[dt],
                                                             ids, S),
             tol, results, torch, note + " bwd",
@@ -1724,6 +1747,15 @@ def phase_segment(tr, torch, results, main):
             least=bound(2 * valid * 8 * es + nb(ids) + 2 * E * 8 * es,
                         ops=7 * valid * 8), queued=True)
 
+    seg_groups_check(ids, S, sg, torch, "the block's ids")
+    for dt, x in scores.items():
+        seg_same_bits(x, g_sc[dt], ids, S, sg, torch,
+                      f"[{E},8] {str(dt)[6:]}")
+    seg_grouping_time(ids, S, sg, torch)
+    seg_shuffled(rows, ids, S, g_rows, scores, g_sc, sg, torch)
+    if turns:
+        seg_turns(rows, ids, S, g_rows, scores, g_sc, sg, torch)
+
     # the mean: K2 twice forward, K1 backward; the library's "mean" beside
     compare("mean (K2, K1)", lambda: ops.masked_segment_mean(rows, ids, S),
             lambda: seg_mean_plain(rows, ids, S), nan_tol(bf16_ulp),
@@ -1745,16 +1777,298 @@ def phase_segment(tr, torch, results, main):
     return counts
 
 
+def seg_groups_check(ids, S, sg, torch, what):
+    """The groupings of K18 (each run in ascending lane order) and K17 (in
+    any order; sorted here) by ``segment_groups`` (the same launches, read
+    back in segment order) exactly against ``segment_groups_plain``; fails
+    on a difference. Returns the valid lanes."""
+    ref = sg.segment_groups_plain(ids, S)
+    for sort in (True, False):
+        lanes, starts = sg.segment_groups(ids, S, sort)
+        if not sort:     # each run's lanes in order: sort by (run, lane)
+            run = torch.repeat_interleave(
+                torch.arange(S, device=ids.device),
+                (starts[1:] - starts[:-1]).long())
+            lanes = lanes[torch.sort(run * ids.shape[0] + lanes).indices]
+        if not (exact(lanes, ref[0])[1] and exact(starts, ref[1])[1]):
+            fail(f"segment grouping at {what} (sorted {sort}): the "
+                 "kernels' grouping differs from segment_groups_plain")
+    return int(ref[1][-1])
+
+
+def seg_same_bits(x, g, ids, S, sg, torch, what):
+    """K18 forward and backward twice on the same inputs (the backward on
+    the forward's grouping): the same bits (no atomic adds a sum); fails
+    otherwise."""
+    gr = sg.segment_groups_buffer(ids, S)
+    for name, fn in (
+            ("forward", lambda: sg.segment_softmax_fwd(x, ids, S, gr)),
+            ("backward", lambda: sg.segment_softmax_bwd(x, g, ids, S, gr))):
+        if not same_bits(fn(), fn(), torch):
+            fail(f"segment_softmax {what}: two runs of the {name} differ")
+
+
+def seg_grouping_time(ids, S, sg, torch):
+    """The grouping of the lanes by segment that K17's forward (each run
+    in any order) and K18's (sorted into lane order) run first, launched
+    alone, queued: its share of their times. Their backwards read the
+    forward's and do not group."""
+    from legion_tpu_torch.ops import kernels
+    E = ids.shape[0]
+    groups = sg.segment_groups_buffer(ids, S)
+    tmp = torch.empty(kernels.lib().lt_segment_groups_words(S, E, 1),
+                      dtype=torch.int32, device=ids.device)
+    for sort, who in ((False, "K17, unsorted"), (True, "K18, sorted")):
+        def run(sort=sort):
+            kernels._check_probe("segment_groups",
+                                 kernels.lib().lt_segment_groups(
+                                     ids.data_ptr(), E, S, groups.data_ptr(),
+                                     tmp.data_ptr(), int(sort),
+                                     kernels.stream_handle()))
+        print(f"  the grouping ({who}): queued {queued_ms(run, torch):.4f} "
+              "ms")
+
+
+def seg_shuffled(rows, ids, S, g_rows, scores, g_sc, sg, torch):
+    """K17 and K18 at the block's ids under a fixed seeded permutation of
+    the lanes (the same multiset of ids, so a segment's rows lie at
+    random): the grouping exactly, K17 bit for bit both ways, K18 within
+    its tolerances and the same bits in two runs; each timed queued
+    beside the block's own order, each backward on its forward's
+    grouping."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(25)
+    perm = torch.randperm(ids.shape[0], generator=gen, device="cuda")
+    sh = ids[perm].contiguous()
+    seg_groups_check(sh, S, sg, torch, "the shuffled ids")
+    init = torch.tensor(torch.finfo(torch.bfloat16).min,
+                        dtype=torch.bfloat16)
+    key = int(sg.order_keys_plain(init))
+    note = f"[{ids.shape[0]},128] bf16, shuffled ids"
+    out = sg.segment_max_plain(rows, sh, S, key)
+
+    def grouped(fwd):
+        """{id of the ids: the grouping that fwd(ids, groups) wrote}, for
+        the shuffled ids and the block's: what each backward reads."""
+        got = {}
+        for i in (sh, ids):
+            got[id(i)] = sg.segment_groups_buffer(i, S)
+            fwd(i, got[id(i)])
+        return got
+    mg = grouped(lambda i, gr: sg.segment_max_fwd(rows, i, S, key, gr))
+    cases = [("segment_max", note + " fwd", bit_exact,
+              lambda i: sg.segment_max_fwd(rows, i, S, key),
+              lambda: sg.segment_max_plain(rows, sh, S, key)),
+             ("segment_max", note + " bwd", bit_exact,
+              lambda i: sg.segment_max_bwd(rows, i, out, g_rows, float(init),
+                                           mg[id(i)]),
+              lambda: sg.segment_max_bwd_plain(rows, sh, out, g_rows,
+                                               float(init)))]
+    for dt, x in scores.items():
+        tol = SEG_F32 if dt == torch.float32 else SEG_BF16
+        p = sg.segment_softmax_plain(x, sh, S).to(dt)
+        n = f"[{ids.shape[0]},8] {str(dt)[6:]}, shuffled ids"
+        sgr = grouped(lambda i, gr, x=x: sg.segment_softmax_fwd(x, i, S, gr))
+        cases += [("segment_softmax", n + " fwd", tol,
+                   lambda i, x=x: sg.segment_softmax_fwd(x, i, S),
+                   lambda x=x: sg.segment_softmax_plain(x, sh, S)),
+                  ("segment_softmax", n + " bwd", tol,
+                   lambda i, p=p, dt=dt, sgr=sgr: sg.segment_softmax_bwd(
+                       p, g_sc[dt], i, S, sgr[id(i)]),
+                   lambda p=p, dt=dt: sg.segment_softmax_bwd_plain(
+                       p, g_sc[dt], sh, S))]
+        seg_same_bits(x, g_sc[dt], sh, S, sg, torch, n)
+    for name, what, tol, kern, plain in cases:
+        err, ok = tol(kern(sh), plain())
+        if not ok:
+            fail(f"{name} {what}: kernel disagrees with its plain version "
+                 f"(max abs err {err})")
+        t_sh = queued_ms(lambda: kern(sh), torch)
+        t_id = queued_ms(lambda: kern(ids), torch)
+        print(f"  {name:14s} {what:44s} max_abs_err {err:.3g} | queued "
+              f"{t_sh:.4f} ms (the block's order {t_id:.4f})")
+
+
+def seg_parent_lib():
+    """The parent commit's K17 and K18 (``_archive/parent``, a ``git
+    archive`` of it), built from its sources with kernels.NVCC_FLAGS into
+    a library of their own; None where no archive is unpacked."""
+    import ctypes
+    from legion_tpu_torch.ops import kernels
+    src = [os.path.join(PARENT, "legion_tpu_torch", "csrc", f)
+           for f in ("segment_max.cu", "segment_softmax.cu")]
+    if not all(os.path.exists(f) for f in src):
+        return None
+    out = os.path.join(str(kernels.BUILD_DIR), "seg_parent")
+    os.makedirs(out, exist_ok=True)
+    so_path = os.path.join(out, "seg_parent.so")
+    t0 = time.perf_counter()
+    kernels._run_all([[kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared",
+                       "-o", so_path, *src]])
+    print(f"  K17, K18: built the parent's kernels in "
+          f"{time.perf_counter() - t0:.2f} s")
+    so = ctypes.CDLL(so_path)
+    p, i64, i32, u32, f32 = (ctypes.c_void_p, ctypes.c_int64,
+                             ctypes.c_int32, ctypes.c_uint32, ctypes.c_float)
+    so.lt_segment_max_fwd.argtypes = [p, i32, p, i64, i64, i64, u32, p, p, p]
+    so.lt_segment_max_bwd.argtypes = [p, i32, p, p, p, f32, i64, i64, i64, p,
+                                      p, p]
+    so.lt_segment_softmax_fwd.argtypes = [p, i32, p, i64, i64, i64, p, p, p,
+                                          p]
+    so.lt_segment_softmax_bwd.argtypes = [p, p, i32, p, i64, i64, i64, p, p,
+                                          p]
+    for fn in (so.lt_segment_max_fwd, so.lt_segment_max_bwd,
+               so.lt_segment_softmax_fwd, so.lt_segment_softmax_bwd):
+        fn.restype = ctypes.c_int
+    return so
+
+
+def seg_parent_calls(so, sg, torch):
+    """The parent's four wrappers over ``so`` (its [S, F] key, count and
+    sum buffers from ``torch.empty``), as its ops/segment.py called them."""
+    from legion_tpu_torch.ops import kernels
+
+    def run(name, rc):
+        if rc != 0:
+            fail(f"the parent's {name}: launch failed ({rc})")
+
+    def max_fwd(data, ids, S, key):
+        (E, F), dev = data.shape, data.device
+        keys = torch.empty(S * F, dtype=torch.int32, device=dev)
+        out = torch.empty((S, F), dtype=data.dtype, device=dev)
+        run("segment_max", so.lt_segment_max_fwd(
+            data.data_ptr(), sg.SEG_TYPES[data.dtype], ids.data_ptr(), E, F,
+            S, key, keys.data_ptr(), out.data_ptr(), kernels.stream_handle()))
+        return out
+
+    def max_bwd(data, ids, out, g, init):
+        (E, F), S = data.shape, out.shape[0]
+        cnt = torch.empty(S * F, dtype=torch.int32, device=data.device)
+        dx = torch.empty_like(data)
+        run("segment_max_bwd", so.lt_segment_max_bwd(
+            data.data_ptr(), sg.SEG_TYPES[data.dtype], ids.data_ptr(),
+            out.data_ptr(), g.data_ptr(), init, E, F, S, cnt.data_ptr(),
+            dx.data_ptr(), kernels.stream_handle()))
+        return dx
+
+    def soft_fwd(x, ids, S):
+        (E, H), dev = x.shape, x.device
+        mk = torch.empty(S * H, dtype=torch.int32, device=dev)
+        den = torch.empty(S * H, dtype=torch.float32, device=dev)
+        p = torch.empty_like(x)
+        run("segment_softmax", so.lt_segment_softmax_fwd(
+            x.data_ptr(), sg.SEG_TYPES[x.dtype], ids.data_ptr(), E, H, S,
+            mk.data_ptr(), den.data_ptr(), p.data_ptr(),
+            kernels.stream_handle()))
+        return p
+
+    def soft_bwd(p, g, ids, S):
+        E, H = p.shape
+        sums = torch.empty(S * H, dtype=torch.float32, device=p.device)
+        dx = torch.empty_like(p)
+        run("segment_softmax_bwd", so.lt_segment_softmax_bwd(
+            p.data_ptr(), g.data_ptr(), sg.SEG_TYPES[p.dtype],
+            ids.data_ptr(), E, H, S, sums.data_ptr(), dx.data_ptr(),
+            kernels.stream_handle()))
+        return dx
+    return max_fwd, max_bwd, soft_fwd, soft_bwd
+
+
+def seg_turns(rows, ids, S, g_rows, scores, g_sc, sg, torch):
+    """The parent's K17 and K18 (``seg_parent_lib``) and this tree's, in
+    turns (parent, tree, tree, parent), queued, at the GCN block and at
+    its shuffled ids: each way, and forward + backward (the parent's two
+    wrappers; the tree's through autograd). The tree's backward reads the
+    grouping its forward wrote, as under autograd; the parent's takes no
+    grouping. The parent's outputs are held against the tree's first,
+    each way: K17 bit for bit, K18 within its tolerances."""
+    so = seg_parent_lib()
+    if so is None:
+        print("  K17, K18: no parent archive, the tree's kernels alone")
+        return
+    from legion_tpu_torch import ops
+    max_fwd, max_bwd, soft_fwd, soft_bwd = seg_parent_calls(so, sg, torch)
+    init = torch.tensor(torch.finfo(torch.bfloat16).min,
+                        dtype=torch.bfloat16)
+    key, fi = int(sg.order_keys_plain(init)), float(init)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(25)
+    sh = ids[torch.randperm(ids.shape[0], generator=gen,
+                            device="cuda")].contiguous()
+    for order, i in (("block", ids), ("shuffled", sh)):
+        mg = sg.segment_groups_buffer(i, S)
+        out = sg.segment_max_fwd(rows, i, S, key, mg)
+        pairs = [(f"K17 fwd {order}", bit_exact,
+                  lambda i=i: max_fwd(rows, i, S, key),
+                  lambda i=i: sg.segment_max_fwd(rows, i, S, key)),
+                 (f"K17 bwd {order}", bit_exact,
+                  lambda i=i, out=out: max_bwd(rows, i, out, g_rows, fi),
+                  lambda i=i, out=out, mg=mg: sg.segment_max_bwd(
+                      rows, i, out, g_rows, fi, mg))]
+        if order == "block":
+            pairs.append((
+                "K17 fwd+bwd block", tuple_tol(bit_exact, bit_exact),
+                lambda: (lambda o: (o, max_bwd(rows, ids, o, g_rows, fi)))(
+                    max_fwd(rows, ids, S, key)),
+                lambda: seg_grad(lambda x: ops.masked_segment_max(x, ids, S),
+                                 rows, g_rows, torch)))
+        for dt, x in scores.items():
+            tol = SEG_F32 if dt == torch.float32 else SEG_BF16
+            n = f"K18 {str(dt)[6:]}"
+            sgr = sg.segment_groups_buffer(i, S)
+            p = sg.segment_softmax_fwd(x, i, S, sgr)
+            pairs += [(f"{n} fwd {order}", tol,
+                       lambda x=x, i=i: soft_fwd(x, i, S),
+                       lambda x=x, i=i: sg.segment_softmax_fwd(x, i, S)),
+                      (f"{n} bwd {order}", tol,
+                       lambda p=p, dt=dt, i=i: soft_bwd(p, g_sc[dt], i, S),
+                       lambda p=p, dt=dt, i=i, sgr=sgr:
+                       sg.segment_softmax_bwd(p, g_sc[dt], i, S, sgr))]
+            if order == "block":    # each way held above: timed alone
+                pairs.append((
+                    f"{n} fwd+bwd block", None,
+                    lambda x=x, dt=dt: (lambda q: (q, soft_bwd(
+                        q, g_sc[dt], ids, S)))(soft_fwd(x, ids, S)),
+                    lambda x=x, dt=dt: seg_grad(
+                        lambda z: ops.segment_softmax(z, ids, S), x,
+                        g_sc[dt], torch)))
+        for what, tol, parent, tree in pairs:
+            err, ok = tol(parent(), tree()) if tol else (0.0, True)
+            if not ok:
+                fail(f"{what}: the parent's kernel and the tree's disagree "
+                     f"(max abs err {err})")
+            t = [queued_ms(f, torch) for f in (parent, tree, tree, parent)]
+            print(f"  in turns {what:26s} queued ms: parent {t[0]:.4f}, "
+                  f"{t[3]:.4f} | tree {t[1]:.4f}, {t[2]:.4f} | tree / parent "
+                  f"{(t[1] + t[2]) / (t[0] + t[3]):.3f}")
+
+
 SEG_SIZES = (1, 7, 2 ** 20 + 3)
 SEG_SHAPES = ((), (5,), (3, 4))       # trailing dims: [E], [E, F], [E, H, F]
+SEG_HUBS = ("half", "all")            # one segment takes half, or every lane
 
 
-def seg_edge_inputs(E, tail, dtype, rng, torch):
+def seg_edge_inputs(E, tail, dtype, rng, torch, hub=None):
     """(data, ids, S) for an edge case: random values with ties, the
     special values of the type at random lanes, pads, ids past S and empty
-    segments (only even ids below S are drawn)."""
+    segments (only even ids below S are drawn). With ``hub`` "half", one
+    segment takes a random half of the lanes; with "all", every lane is in
+    one segment; a hub's data are small integers alone (a tie in every
+    eighth lane, no special value to make the whole hub NaN)."""
     S = max(3, E // 5)
     shape = (E,) + tail
+    if hub is not None:
+        data = torch.randint(-4, 4, shape, generator=rng, device="cuda",
+                             dtype=torch.int32)
+        if dtype != torch.int32:
+            data = data.to(dtype)
+        ids = 2 * torch.randint(0, (S + 1) // 2, (E,), generator=rng,
+                                device="cuda", dtype=torch.int32)
+        if hub == "all":
+            ids.fill_(2)
+        else:
+            ids[torch.rand(E, generator=rng, device="cuda") < 0.5] = 2
+        return data, ids, S
     if dtype == torch.int32:
         data = torch.randint(-5, 5, shape, generator=rng, device="cuda",
                              dtype=torch.int32)
@@ -1787,7 +2101,9 @@ def segment_edges(torch, results):
     [E], [E, F] and [E, H, F], E 1, 7 and 2^20 + 3, NaN, +-0, +-inf,
     finfo.min (iinfo's ends), ties, pads, ids past S, empty segments;
     initial by default and tied with a lane (and the max of an all-pad
-    input); data on a base one element past an aligned one. Through the
+    input); data on a base one element past an aligned one; and hubs at
+    2^20 + 3 lanes over [E] and [E, 8] (``SEG_HUBS``: one segment with
+    half of the lanes, and every lane in one segment). Through the
     public ops under autograd on the card against the plain versions of
     the folded [E, F]: K17 both ways bit for bit, K18 f32 rtol 1e-5 and
     bf16 one ulp, the mean one bf16 ulp."""
@@ -1813,12 +2129,75 @@ def segment_edges(torch, results):
                             f"{' misaligned' if misaligned else ''}")
                     n += seg_edge_case(case, data, ids, S, ops, sg, torch,
                                        results)
+        # hubs: K17 and K18 split a segment of more than 32 lanes into
+        # chunks and combine them
+        for hub in SEG_HUBS:
+            for tail in ((), (8,)):
+                data, ids, S = seg_edge_inputs(SEG_SIZES[-1], tail, dtype,
+                                               rng, torch, hub)
+                case = f"{str(dtype)[6:]} E {SEG_SIZES[-1]} tail {tail} hub " \
+                       f"{hub} ({int((ids == 2).sum())} lanes)"
+                n += seg_edge_case(case, data, ids, S, ops, sg, torch,
+                                   results, hub=2)
+                seg_groups_check(ids, S, sg, torch, case)
+                if dtype != torch.int32:
+                    d2 = data.reshape(data.shape[0], -1)
+                    seg_same_bits(d2, torch.randn_like(d2.float()).to(dtype),
+                                  ids, S, sg, torch, case)
     print(f"  segment_edges: {n} cases, K17 bit for bit, K18 and the mean "
-          "within their tolerances")
+          "within their tolerances; at the hubs the grouping exactly and "
+          "K18 the same bits in two runs")
 
 
-def seg_edge_case(case, data, ids, S, ops, sg, torch, results):
-    """One edge case of ``segment_edges``; fails on a difference. Returns
+def seg_softmax_f64(x, ids, S, sg, torch):
+    """K18's plain arithmetic carried in f64 (m from the plain version's
+    keys, exact), rounded once to x's dtype. The reference at a hub: an f32
+    sum of 2^19 to 2^20 exps is good to about 1e-3 in any order, the plain
+    version's ``index_add_`` included (its small terms vanish against the
+    running sum); K18 sums a hub's chunks with compensation."""
+    valid = (ids >= 0) & (ids < S)
+    row = torch.where(valid, ids, S).long()
+    v = valid[:, None]
+    m = sg.segment_max_plain(x, ids, S, sg.KEY_POS_ZERO).double()
+    m = torch.cat([m, m.new_zeros((1, x.shape[1]))])
+    e = torch.where(v, torch.exp(torch.where(v, x.double() - m[row], 0.0)),
+                    0.0)
+    d = torch.zeros(m.shape, dtype=torch.float64, device=x.device) \
+        .index_add_(0, row, e).clamp_min(torch.finfo(torch.float32).tiny)
+    return torch.where(v, e / d[row], 0.0).to(x.dtype)
+
+
+def seg_softmax_bwd_f64(p, g, ids, S, torch):
+    """K18's backward arithmetic in f64 on p and g, rounded once: the
+    reference at a hub, as ``seg_softmax_f64`` for the forward."""
+    valid = (ids >= 0) & (ids < S)
+    row = torch.where(valid, ids, S).long()
+    v = valid[:, None]
+    pg = torch.where(v, p.double() * g.double(), 0.0)
+    sums = torch.zeros((S + 1, p.shape[1]), dtype=torch.float64,
+                       device=p.device).index_add_(0, row, pg)
+    return torch.where(v, p.double() * (g.double() - sums[row]),
+                       0.0).to(p.dtype)
+
+
+def split_tol(tol, mask):
+    """``tol`` on the rows of ``mask`` (a hub's lanes) and on the others
+    apart, so that a hub's small values are held to their own scale."""
+    def check(k, p):
+        errs, oks = [], []
+        for m in (mask, ~mask):
+            if bool(m.any()):
+                e, o = tol(k[m], p[m])
+                errs.append(e)
+                oks.append(o)
+        return max(errs), all(oks)
+    return check
+
+
+def seg_edge_case(case, data, ids, S, ops, sg, torch, results, hub=None):
+    """One edge case of ``segment_edges``; fails on a difference. With
+    ``hub`` (the hub's segment), K18 is held against its arithmetic in f64
+    (``seg_softmax_f64``), the hub's lanes apart from the others. Returns
     the number of comparisons made."""
     E, dtype = data.shape[0], data.dtype
     F = data[0].numel() if E else 1
@@ -1859,13 +2238,19 @@ def seg_edge_case(case, data, ids, S, ops, sg, torch, results):
     gs = torch.randn(data.shape, device="cuda").to(dtype)
     k, kd = seg_grad(lambda x: ops.segment_softmax(x, ids, S), data, gs,
                      torch)
-    p = sg.segment_softmax_plain(d2, ids, S)
     # the backward on the p that the kernel's backward read (its forward's)
-    pd = sg.segment_softmax_bwd_plain(k.reshape(E, F), gs.reshape(E, F),
-                                      ids, S)
+    if hub is None:
+        p = sg.segment_softmax_plain(d2, ids, S)
+        pd = sg.segment_softmax_bwd_plain(k.reshape(E, F), gs.reshape(E, F),
+                                          ids, S)
+    else:
+        p = seg_softmax_f64(d2, ids, S, sg, torch)
+        pd = seg_softmax_bwd_f64(k.reshape(E, F), gs.reshape(E, F), ids, S,
+                                 torch)
+    k18_tol = tol if hub is None else split_tol(tol, ids == hub)
     for what, a, b in (("forward", k.reshape(E, F), p),
                        ("backward", kd.reshape(E, F), pd)):
-        err, ok = tol(a, b)
+        err, ok = k18_tol(a, b)
         if not ok:
             fail(f"segment_softmax edge {case}: the {what} differs from its "
                  f"plain version (max abs err {err})")
@@ -7077,7 +7462,7 @@ def main():
     if sys.argv[1:2] == ["--segment"]:
         del tr
         tr = Trainer(ds, bench_config(ds, model="gcn"), device="cuda")
-        phase_segment(tr, torch, {}, {})
+        phase_segment(tr, torch, {}, {}, turns=True)
         segment_edges(torch, {})
         del tr
         phase_three_hop(ds, torch, smi)

@@ -89,6 +89,7 @@
 #include <climits>
 
 #include "dedup.cuh"
+#include "lane_groups.cuh"
 
 constexpr int kRounds = 4;        // rows in flight a thread (forward)
 constexpr int kStage = 12288;     // staged lanes a tile at most (48 KB)
@@ -409,8 +410,8 @@ LT_EXPORT int lt_hop_mean_bwd(const float* dout, const float* count,
 // hop_mean_grad: the backward of form (a)
 // ---------------------------------------------------------------------------
 
-constexpr int kLong = 32;           // a run sorted by one thread up to this;
-                                    // longer: by a block, and summed in chunks
+// kLong (lane_groups.cuh): a run sorted by one thread up to this; longer:
+// by a block, and summed in chunks
 constexpr int kGRounds = 4;         // rows of d out in flight a thread
 constexpr int kWalkRows = 31;       // rows of a walk at most
 constexpr int kWalkSpan = 32;       // a walk's rows start within one span
@@ -433,13 +434,6 @@ struct GradScratch {
   int64_t words;
 };
 
-__host__ __device__ inline int64_t grad_max_longs(int64_t E) {
-  return E / (kLong + 1) + 1;
-}
-// a run of n > kLong lanes has ceil(n / kLong) < 2 n / kLong chunks
-__host__ __device__ inline int64_t grad_max_chunks(int64_t E) {
-  return 2 * E / kLong + 1;
-}
 // a walk ends at kWalkRows rows or where a row starts in the next span
 __host__ __device__ inline int64_t grad_max_walks(int64_t S, int64_t E) {
   return S / kWalkRows + E / kWalkSpan + 2;
@@ -454,7 +448,7 @@ static GradScratch grad_scratch(int32_t* base, int64_t S, int64_t E,
     at += (n + 3) / 4 * 4;  // 16-byte aligned pieces
     return p;
   };
-  const int64_t chunks = grad_max_chunks(E);
+  const int64_t chunks = lt_max_chunks(E);
   g.cnt = take(S + 3);
   g.counters = g.cnt == nullptr ? nullptr : g.cnt + S;
   g.start = take(S);
@@ -464,7 +458,7 @@ static GradScratch grad_scratch(int32_t* base, int64_t S, int64_t E,
   g.pos = take(E);
   g.lanes = take(E);
   g.walks = take(grad_max_walks(S, E));
-  g.longs = reinterpret_cast<int4*>(take(4 * grad_max_longs(E)));
+  g.longs = reinterpret_cast<int4*>(take(4 * lt_max_longs(E)));
   g.items = reinterpret_cast<int2*>(take(2 * chunks));
   g.part = reinterpret_cast<float*>(take(chunks * d));
   g.dq = reinterpret_cast<float*>(take(F * d));
@@ -472,10 +466,6 @@ static GradScratch grad_scratch(int32_t* base, int64_t S, int64_t E,
   return g;
 }
 
-// Count: cnt[r] = the valid lanes whose clamped src is r; ticket[e] = a
-// lane's place among them (any order: the sort fixes it). A block combines
-// its tile's lanes of one row in shared memory first (a hub row takes one
-// atomic a tile, not one a lane).
 // Count: cnt[r] = the valid lanes whose clamped src is r; ticket[e] = a
 // lane's place among them (any order: the sort fixes it). A block combines
 // its tile's lanes of one row in shared memory first: a row takes one
@@ -1154,7 +1144,7 @@ static int group_lanes(const int32_t* src, int64_t E, int64_t S,
   // the long runs' items (windows of the lane space a run), then the
   // short runs' blocks
   const int wins = (int)((E + 32LL * kBitWords - 1) / (32LL * kBitWords));
-  int64_t lb = grad_max_longs(E) * (wins > 0 ? wins : 1);
+  int64_t lb = lt_max_longs(E) * (wins > 0 ? wins : 1);
   if (lb > 132 * 4) lb = 132 * 4;
   const unsigned rb = lt_grid(S);
   hop_grad_sort_kernel<<<(unsigned)lb + rb, kThreads, 0, s>>>(
@@ -1181,14 +1171,14 @@ static int launch_gather(const float* dout, const float* count,
                          int64_t num_dst, const GradScratch& g, int64_t S,
                          int64_t E, int d, T* drows, cudaStream_t s) {
   constexpr int kWarps = kThreads / 32;
-  int64_t cb = (grad_max_chunks(E) - 1 + kWarps - 1) / kWarps;
+  int64_t cb = (lt_max_chunks(E) - 1 + kWarps - 1) / kWarps;
   if (cb > 132 * 2) cb = 132 * 2;
   const int64_t wb = (grad_max_walks(S, E) + kWarps - 1) / kWarps;
   hop_grad_gather_kernel<T, COLS><<<(unsigned)(cb + wb), kThreads, 0, s>>>(
       dout, count, hop_offset, F, num_dst, g.cnt, g.sstart, g.lanes,
       g.counters, g.longs, g.items, g.walks, g.dq, g.part, (int32_t)S, d,
       (int)cb, drows);
-  int64_t lb = grad_max_longs(E);
+  int64_t lb = lt_max_longs(E);
   if (lb > 132 * 4) lb = 132 * 4;
   hop_grad_combine_kernel<T, COLS><<<(unsigned)lb, kThreads, 0, s>>>(
       g.counters, g.longs, g.part, d, drows);
@@ -1248,4 +1238,197 @@ LT_EXPORT int lt_lanes_by_source(const int32_t* src, int64_t E, int64_t S,
       rc = (int)cudaMemcpyAsync(to[i], from[i], n[i] * sizeof(int32_t),
                                 cudaMemcpyDeviceToDevice, s);
   return rc != 0 ? rc : (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// the segment ops' grouping (K17, K18): count, scan, fill, then (sorted,
+// K18's) hop_mean_grad's sort, into the kept words of lane_groups.cuh
+// ---------------------------------------------------------------------------
+
+// The count and the fill take kSegPer lanes a thread, lanes e0 + 32 u +
+// (the thread's lane) of its warp's span, every load (and atomic) of the
+// thread in flight together.
+constexpr int kSegPer = 4;
+
+// Count: ticket[e] = a valid lane's place among its segment's (any order:
+// the sort fixes it), cnt[s] their number, an atomic a lane; except that
+// the lanes of a warp that share its first valid lane's segment take one
+// atomic together, so a hub's lanes do not queue on one word one by one
+// (__match_any_sync for every segment measured slower).
+__global__ void __launch_bounds__(kThreads) seg_count_kernel(
+    const int32_t* __restrict__ seg, int64_t E, int32_t S,
+    int32_t* __restrict__ cnt, int32_t* __restrict__ ticket) {
+  const int lane = threadIdx.x & 31;
+  const int64_t span = 32 * kSegPer;
+  const int64_t nw = (int64_t)gridDim.x * (kThreads / 32);
+  for (int64_t e0 = ((int64_t)blockIdx.x * (kThreads / 32) +
+                     (threadIdx.x >> 5)) * span;
+       e0 < E; e0 += nw * span) {
+    int32_t s[kSegPer];
+#pragma unroll
+    for (int u = 0; u < kSegPer; ++u) {
+      const int64_t e = e0 + 32 * u + lane;
+      s[u] = e < E ? __ldg(seg + e) : -1;
+      if (s[u] >= S) s[u] = -1;
+    }
+    unsigned peers[kSegPer];
+    int base[kSegPer];
+#pragma unroll
+    for (int u = 0; u < kSegPer; ++u) {
+      const unsigned act = __ballot_sync(0xffffffffu, s[u] >= 0);
+      const int32_t lead = __shfl_sync(0xffffffffu, s[u],
+                                       act ? __ffs(act) - 1 : 0);
+      const unsigned same = __ballot_sync(0xffffffffu,
+                                          s[u] >= 0 && s[u] == lead);
+      peers[u] = s[u] < 0 ? 0u : s[u] == lead ? same : 1u << lane;
+      base[u] = 0;
+      if (s[u] >= 0 && lane == __ffs(peers[u]) - 1)
+        base[u] = atomicAdd(cnt + s[u], __popc(peers[u]));
+    }
+#pragma unroll
+    for (int u = 0; u < kSegPer; ++u) {
+      if (s[u] < 0) continue;
+      const int b = __shfl_sync(peers[u], base[u], __ffs(peers[u]) - 1);
+      ticket[e0 + 32 * u + lane] =
+          b + __popc(peers[u] & ((1u << lane) - 1u));
+    }
+  }
+}
+
+// Fill: pos[start[s] + ticket[e]] = e for each valid lane e of segment s.
+__global__ void __launch_bounds__(kThreads) seg_fill_kernel(
+    const int32_t* __restrict__ seg, int64_t E, int32_t S,
+    const int32_t* __restrict__ start, const int32_t* __restrict__ ticket,
+    int32_t* __restrict__ pos) {
+  const int lane = threadIdx.x & 31;
+  const int64_t span = 32 * kSegPer;
+  const int64_t nw = (int64_t)gridDim.x * (kThreads / 32);
+  for (int64_t e0 = ((int64_t)blockIdx.x * (kThreads / 32) +
+                     (threadIdx.x >> 5)) * span;
+       e0 < E; e0 += nw * span) {
+    int32_t s[kSegPer], t[kSegPer], at[kSegPer];
+#pragma unroll
+    for (int u = 0; u < kSegPer; ++u) {
+      const int64_t e = e0 + 32 * u + lane;
+      s[u] = e < E ? __ldg(seg + e) : -1;
+      if (s[u] >= S) s[u] = -1;
+      t[u] = s[u] >= 0 ? __ldg(ticket + e) : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kSegPer; ++u) at[u] = s[u] >= 0 ? start[s[u]] : 0;
+#pragma unroll
+    for (int u = 0; u < kSegPer; ++u)
+      if (s[u] >= 0) pos[at[u] + t[u]] = (int32_t)(e0 + 32 * u + lane);
+  }
+}
+
+// Scan, one pass: start[r] = the valid lanes of the segments before r;
+// the runs of more than kLong lanes on `longs` as (segment, first chunk,
+// start, lanes). A block a tile of kSegRows segments, tiles numbered by a
+// ticket in the order blocks start, the prefix by decoupled look-back
+// (dedup.cuh). A block numbers its long runs and their chunks with one
+// 64-bit atomic on counters[0..1], so the list's first chunks increase
+// with its index (lt_chunk searches it).
+__global__ void __launch_bounds__(kThreads) seg_scan_kernel(
+    const int32_t* __restrict__ cnt, int32_t S, int32_t* __restrict__ start,
+    int32_t* __restrict__ counters, int4* __restrict__ longs,
+    uint64_t* __restrict__ status, int32_t* __restrict__ tiles) {
+  __shared__ int tile_sh, pre_sh;
+  __shared__ unsigned long long base_sh;
+  if (threadIdx.x == 0) tile_sh = atomicAdd(tiles, 1);
+  __syncthreads();
+  const int64_t t = tile_sh;
+  const int64_t r0 = t * kSegRows + threadIdx.x * 8;
+  int v[8];
+  lt_load4(cnt, r0, S, 0, v);
+  lt_load4(cnt, r0 + 4, S, 0, v + 4);
+  int n = 0, nl = 0, nc = 0;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    n += v[k];
+    if (v[k] > kLong) ++nl, nc += (v[k] + kLong - 1) / kLong;
+  }
+  int ex, exl, exc, tot, totl, totc, el, tl;
+  lt_block_scan_sum_max(n, -1, &ex, &el, &tot, &tl);
+  lt_block_scan_sum_max(nl, -1, &exl, &el, &totl, &tl);
+  lt_block_scan_sum_max(nc, -1, &exc, &el, &totc, &tl);
+  if (threadIdx.x < 32) {
+    int pc, pl;
+    lt_tile_lookback(status, t, tot, -1, &pc, &pl);
+    if (threadIdx.x == 0) {
+      pre_sh = pc;
+      base_sh = totl > 0 ? atomicAdd(reinterpret_cast<unsigned long long*>(
+                                         counters),
+                                     ((unsigned long long)totc << 32) |
+                                         (unsigned)totl)
+                         : 0ull;
+    }
+  }
+  __syncthreads();
+  int rs = pre_sh + ex;
+  int li = (int)(base_sh & 0xffffffffull) + exl;
+  int ci = (int)(base_sh >> 32) + exc;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int64_t r = r0 + k;
+    if (r >= S) break;
+    start[r] = rs;
+    if (v[k] > kLong) {
+      longs[li++] = make_int4((int)r, ci, rs, v[k]);
+      ci += (v[k] + kLong - 1) / kLong;
+    }
+    rs += v[k];
+  }
+}
+
+// Words of the kept grouping (tmp == 0) or of its build's scratch (tmp !=
+// 0) for E lanes into S segments.
+LT_EXPORT int64_t lt_segment_groups_words(int64_t S, int64_t E, int tmp) {
+  return tmp ? lt_seg_tmp_words(E) : lt_groups_layout(S, E).words;
+}
+
+int lt_group_segments(const int32_t* seg, int64_t E, int64_t S,
+                      int32_t* groups, int32_t* tmp, bool sorted,
+                      cudaStream_t stream) {
+  if (E < 0 || S < 0 || E >= 2147483647LL || S >= 2147483647LL - 3)
+    return (int)cudaErrorInvalidValue;
+  const LtLaneGroups g = lt_lane_groups(groups, S, E);
+  const LtSegTmp w = lt_seg_tmp(tmp, E);
+  int rc = (int)cudaMemsetAsync(g.cnt, 0, g.zero_words * sizeof(int32_t),
+                                stream);
+  if (rc != 0 || S == 0) return rc;
+  const unsigned lb_lanes = lt_grid((E + kSegPer - 1) / kSegPer);
+  if (E > 0)
+    seg_count_kernel<<<lb_lanes, kThreads, 0, stream>>>(seg, E, (int)S, g.cnt,
+                                                        w.ticket);
+  seg_scan_kernel<<<(unsigned)((S + kSegRows - 1) / kSegRows), kThreads, 0,
+                    stream>>>(g.cnt, (int)S, g.start, g.counters, g.longs,
+                              g.status, g.tiles);
+  // unsorted, the fill writes the runs where they stay
+  if (E > 0)
+    seg_fill_kernel<<<lb_lanes, kThreads, 0, stream>>>(
+        seg, E, (int)S, g.start, w.ticket, sorted ? w.pos : g.lanes);
+  if (!sorted) return (int)cudaGetLastError();
+  const int wins = (int)((E + 32LL * kBitWords - 1) / (32LL * kBitWords));
+  int64_t lb = lt_max_longs(E) * (wins > 0 ? wins : 1);
+  if (lb > 132 * 4) lb = 132 * 4;
+  hop_grad_sort_kernel<<<(unsigned)lb + lt_grid(S), kThreads, 0, stream>>>(
+      g.start, g.cnt, (int)S, E, w.pos, g.counters, g.longs, (int)lb,
+      wins > 0 ? wins : 1, g.lanes);
+  return (int)cudaGetLastError();
+}
+
+// The grouping alone into `groups` (for holding it against its plain
+// version: ops/segment.py::segment_groups reads it back).
+LT_EXPORT int lt_segment_groups(const int32_t* seg, int64_t E, int64_t S,
+                                int32_t* groups, int32_t* tmp, int sorted,
+                                void* stream) {
+  return lt_group_segments(seg, E, S, groups, tmp, sorted != 0,
+                           (cudaStream_t)stream);
+}
+
+// Word offsets in the kept grouping: cnt, start, lanes.
+LT_EXPORT void lt_segment_groups_layout(int64_t S, int64_t E, int64_t* at) {
+  const LtGroupsLayout l = lt_groups_layout(S, E);
+  at[0] = l.cnt, at[1] = l.start, at[2] = l.lanes;
 }

@@ -113,14 +113,17 @@ def hop_neighbor_mean_plain(h_src: torch.Tensor, src_l: torch.Tensor,
     return s / c.clamp(min=1)[:, None]
 
 
-def lanes_by_source_plain(src_l: torch.Tensor, num_rows: int
+def lanes_by_source_plain(src_l: torch.Tensor, num_rows: int,
+                          drop: bool = False
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The grouping of ``hop_mean_grad``'s plain version: (lanes, starts)
     int32, the valid lanes (src_l >= 0) grouped by the row they read (src
     clamped to num_rows - 1, as the forward reads it), each group in
     ascending lane order (a stable argsort of the rows, pads dropped);
-    group r is lanes[starts[r]:starts[r + 1]]."""
-    lanes = torch.nonzero(src_l >= 0).flatten()
+    group r is lanes[starts[r]:starts[r + 1]]. With ``drop`` (the segment
+    ops' rule, K17 and K18) a src >= num_rows is left out like a pad."""
+    valid = (src_l >= 0) & (src_l < num_rows) if drop else src_l >= 0
+    lanes = torch.nonzero(valid).flatten()
     rows = src_l[lanes].clamp(max=num_rows - 1).long()
     order = torch.sort(rows, stable=True).indices
     counts = torch.bincount(rows, minlength=num_rows)

@@ -180,6 +180,13 @@ def lib() -> ctypes.CDLL:
     so.lt_hop_mean_grad_scratch.argtypes = [i64, i64, i64, i64]
     so.lt_hop_mean_grad_scratch.restype = ctypes.c_int64
     so.lt_lanes_by_source.argtypes = [p, i64, i64, p, p, p, p, p]
+    so.lt_segment_groups_words.argtypes = [i64, i64, i32]
+    so.lt_segment_groups_words.restype = ctypes.c_int64
+    so.lt_segment_groups.argtypes = [p, i64, i64, p, p, i32, p]
+    so.lt_segment_groups_layout.argtypes = [i64, i64, p]
+    so.lt_segment_groups_layout.restype = None
+    so.lt_segment_part_words.argtypes = [i64, i64]
+    so.lt_segment_part_words.restype = ctypes.c_int64
     for fn in (so.lt_windowed_draw_i32, so.lt_windowed_draw_i64):
         fn.argtypes = [p, p, p, p, i64, i32, i32, i64, p, p]
     so.lt_cached_gather.argtypes = [p, p, i64, p, i64, i64, i32, p, p, i64,
@@ -224,14 +231,16 @@ def lib() -> ctypes.CDLL:
                                       i32, u32, f32, f32, p]
     so.lt_dropout_act_bwd.argtypes = [p, p, p, i32, p, i32, i64, p, u32, i32,
                                       i32, u32, f32, f32, p]
+    # the segment ops: ..., groups, tmp (the forward's build), part, out,
+    # stream
     so.lt_segment_max_fwd.argtypes = [p, i32, p, i64, i64, i64, u32, p, p,
-                                      p]
+                                      p, p, p]
     so.lt_segment_max_bwd.argtypes = [p, i32, p, p, p, f32, i64, i64, i64, p,
-                                      p, p]
+                                      p, p, p]
     so.lt_segment_softmax_fwd.argtypes = [p, i32, p, i64, i64, i64, p, p, p,
-                                          p]
+                                          p, p]
     so.lt_segment_softmax_bwd.argtypes = [p, p, i32, p, i64, i64, i64, p, p,
-                                          p]
+                                          p, p]
     so.lt_noop.argtypes = [p]
     so.lt_grid_sync_probe.argtypes = [i32, i32, p]
     for fn in (so.lt_noop, so.lt_gather_rows, so.lt_segment_sum_f32,
@@ -252,7 +261,7 @@ def lib() -> ctypes.CDLL:
                so.lt_clique_draw_unsort, so.lt_dropout_act_fwd,
                so.lt_dropout_act_bwd, so.lt_segment_max_fwd,
                so.lt_segment_max_bwd, so.lt_segment_softmax_fwd,
-               so.lt_segment_softmax_bwd):
+               so.lt_segment_softmax_bwd, so.lt_segment_groups):
         fn.restype = ctypes.c_int
     so.lt_error_string.argtypes = [ctypes.c_int]
     so.lt_error_string.restype = ctypes.c_char_p
@@ -928,9 +937,16 @@ def lanes_by_source(src_l: torch.Tensor, num_rows: int
     _check_probe("lanes_by_source", lib().lt_lanes_by_source(
         src_l.data_ptr(), E, num_rows, scratch.data_ptr(), lanes.data_ptr(),
         at.data_ptr(), cnt.data_ptr(), stream_handle()))
-    # the kernels keep the runs of more than 32 lanes after the others:
-    # read every run back in row order
-    starts = torch.zeros(num_rows + 1, dtype=torch.int64, device=dev)
+    # the kernels keep the runs of more than 32 lanes after the others
+    return runs_in_order(lanes, at, cnt)
+
+
+def runs_in_order(lanes: torch.Tensor, at: torch.Tensor, cnt: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A grouping's runs (row r's lanes[at[r]:at[r] + cnt[r]]) read back
+    in row order: (lanes, starts) int32, as the plain versions give it."""
+    dev = lanes.device
+    starts = torch.zeros(cnt.shape[0] + 1, dtype=torch.int64, device=dev)
     starts[1:] = torch.cumsum(cnt, 0)
     n = cnt.long()
     k = torch.arange(int(starts[-1]), device=dev) - torch.repeat_interleave(

@@ -8,10 +8,13 @@ over a column of ones) with K1 as its backward; the max to K17
 ``segment_max`` (``csrc/segment_max.cu``) and the softmax to K18
 ``segment_softmax`` (``csrc/segment_softmax.cu``), each with its
 backward kernel (launches under ``segment_max_bwd`` and
-``segment_softmax_bwd``). The max, the softmax and the mean are
-differentiable with JAX's gradients. The K17 and K18 wrappers here run
-their plain PyTorch versions for CPU tensors only; CUDA tensors launch
-the kernel, any other device raises.
+``segment_softmax_bwd``). K17 and K18 work segment by segment: their
+forward first groups the valid lanes by segment (``csrc/hop_agg.cu``'s
+grouping, whose plain version is ``segment_groups_plain``), and their
+backward reads that grouping, which the autograd Functions keep. The max, the
+softmax and the mean are differentiable with JAX's gradients. The K17
+and K18 wrappers here run their plain PyTorch versions for CPU tensors
+only; CUDA tensors launch the kernel, any other device raises.
 
 Where the port differs from the JAX functions (ROADMAP C):
 
@@ -33,12 +36,15 @@ Where the port differs from the JAX functions (ROADMAP C):
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from legion_tpu_torch.ops import kernels
+from legion_tpu_torch.ops.hop_agg import lanes_by_source_plain
 
 # element types as csrc/segment_keys.cuh numbers them
 SEG_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
@@ -130,6 +136,86 @@ def _on_cpu(name: str, *tensors: torch.Tensor) -> bool:
 
 
 # ---------------------------------------------------------------------------
+# the grouping of the lanes by segment (K17, K18)
+# ---------------------------------------------------------------------------
+
+def segment_groups_plain(seg: torch.Tensor, S: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(lanes, starts) int32: the valid lanes (0 <= seg < S) grouped by
+    segment, each group in ascending lane order, group s
+    lanes[starts[s]:starts[s + 1]]; what the kernels' grouping holds."""
+    return lanes_by_source_plain(seg, S, drop=True)
+
+
+@functools.lru_cache(maxsize=64)
+def _words(S: int, E: int, tmp: bool) -> int:
+    return kernels.lib().lt_segment_groups_words(S, E, int(tmp))
+
+
+def segment_groups(seg: torch.Tensor, S: int, sort: bool = True
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The grouping K18 (``sort``) or K17 (each run in any order) runs
+    first, alone, read back as ``segment_groups_plain`` gives it: the
+    kernels' for CUDA ids, the plain version for CPU ids. For holding the
+    kernels against the plain version; on no path, not counted in
+    ``LAUNCHES``."""
+    kernels._require(seg.dim() == 1 and seg.dtype == torch.int32,
+                     f"segment_groups: ids {seg.dtype} {tuple(seg.shape)}")
+    if _on_cpu("segment_groups", seg):
+        return segment_groups_plain(seg, S)
+    seg = seg.contiguous()
+    E = seg.shape[0]
+    groups, tmp = _group_args(seg, S, None, "segment_groups")
+    kernels._check_probe("segment_groups", kernels.lib().lt_segment_groups(
+        seg.data_ptr(), E, S, groups.data_ptr(), tmp.data_ptr(), int(sort),
+        kernels.stream_handle()))
+    at = (ctypes.c_int64 * 3)()
+    kernels.lib().lt_segment_groups_layout(S, E, at)
+    cnt, start, lanes = (groups[o:o + n] for o, n in zip(at, (S, S, E)))
+    return kernels.runs_in_order(lanes, start, cnt)
+
+
+def segment_groups_buffer(seg: torch.Tensor, S: int
+                          ) -> Optional[torch.Tensor]:
+    """Where a K17 or K18 forward on CUDA ids writes its grouping of the
+    lanes, for its backward (int32 words, ``csrc/lane_groups.cuh``); None
+    for CPU ids, whose plain versions keep no grouping."""
+    if seg.device.type == "cpu":
+        return None
+    return torch.empty(_words(S, seg.shape[0], False), dtype=torch.int32,
+                       device=seg.device)
+
+
+def _group_args(seg: torch.Tensor, S: int, groups: Optional[torch.Tensor],
+                name: str):
+    """(groups, tmp) for a forward: ``groups`` (checked) or a buffer of
+    its own, and the build's scratch."""
+    if groups is None:
+        groups = segment_groups_buffer(seg, S)
+    return (_given(seg, S, groups, name),
+            torch.empty(_words(S, seg.shape[0], True), dtype=torch.int32,
+                        device=seg.device))
+
+
+def _given(seg: torch.Tensor, S: int, groups: Optional[torch.Tensor],
+           name: str) -> torch.Tensor:
+    """``groups``, checked to be a grouping buffer for seg's shape."""
+    kernels._require(isinstance(groups, torch.Tensor)
+                     and groups.dtype == torch.int32
+                     and groups.device == seg.device
+                     and groups.numel() == _words(S, seg.shape[0], False),
+                     f"{name}: groups are not a grouping of seg "
+                     "(segment_groups_buffer, filled by the forward)")
+    return groups
+
+
+def _part(E: int, cols: int, device) -> torch.Tensor:
+    """Scratch for the chunks of a call's long runs (hubs)."""
+    return torch.empty(kernels.lib().lt_segment_part_words(E, cols),
+                       dtype=torch.int32, device=device)
+
+
+# ---------------------------------------------------------------------------
 # K17 segment_max
 # ---------------------------------------------------------------------------
 
@@ -142,20 +228,26 @@ def segment_max_plain(data: torch.Tensor, seg: torch.Tensor, S: int,
 
 
 def segment_max_fwd(data: torch.Tensor, seg: torch.Tensor, S: int,
-                    init_key: int) -> torch.Tensor:
+                    init_key: int, groups: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
     """K17's forward. data [E, F] f32, bf16 or int32, seg [E] int32,
     init_key the key of initial in data's dtype -> [S, F] of data's
-    dtype."""
+    dtype. On CUDA the call groups the lanes by segment first, into
+    ``groups`` where given (``segment_groups_buffer``: the grouping the
+    backward reads); on the CPU ``groups`` is None."""
     _check("segment_max", SEG_TYPES, data, seg)
     if _on_cpu("segment_max", data, seg):
+        kernels._require(groups is None, "segment_max: groups on the CPU")
         return segment_max_plain(data, seg, S, init_key)
     data, seg = data.contiguous(), seg.contiguous()
     E, F = data.shape
-    keys = torch.empty(S * F, dtype=torch.int32, device=data.device)
+    groups, tmp = _group_args(seg, S, groups, "segment_max")
     out = torch.empty((S, F), dtype=data.dtype, device=data.device)
     rc = kernels.lib().lt_segment_max_fwd(
         data.data_ptr(), SEG_TYPES[data.dtype], seg.data_ptr(), E, F, S,
-        init_key, keys.data_ptr(), out.data_ptr(), kernels.stream_handle())
+        init_key, groups.data_ptr(), tmp.data_ptr(),
+        _part(E, F, data.device).data_ptr(), out.data_ptr(),
+        kernels.stream_handle())
     kernels.check("segment_max", rc)
     return out
 
@@ -187,9 +279,12 @@ def segment_max_bwd_plain(data: torch.Tensor, seg: torch.Tensor,
 
 
 def segment_max_bwd(data: torch.Tensor, seg: torch.Tensor, out: torch.Tensor,
-                    g: torch.Tensor, initial: float) -> torch.Tensor:
+                    g: torch.Tensor, initial: float,
+                    groups: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K17's backward (``segment_max_bwd_plain``'s arithmetic). data
-    [E, F], out and g [S, F], f32 or bf16 -> [E, F]."""
+    [E, F], out and g [S, F], f32 or bf16 -> [E, F]. On CUDA ``groups``
+    is the grouping that the forward of out wrote (required; the
+    backward does not group); on the CPU it is not read."""
     _check("segment_max_bwd", FLOATS, data, seg)
     kernels._require(out.dtype == g.dtype == data.dtype
                      and out.shape == g.shape and out.dim() == 2
@@ -200,24 +295,30 @@ def segment_max_bwd(data: torch.Tensor, seg: torch.Tensor, out: torch.Tensor,
         return segment_max_bwd_plain(data, seg, out, g, initial)
     data, seg, out, g = (t.contiguous() for t in (data, seg, out, g))
     (E, F), S = data.shape, out.shape[0]
-    cnt = torch.empty(S * F, dtype=torch.int32, device=data.device)
+    groups = _given(seg, S, groups, "segment_max_bwd")
     dx = torch.empty_like(data)
     rc = kernels.lib().lt_segment_max_bwd(
         data.data_ptr(), SEG_TYPES[data.dtype], seg.data_ptr(),
-        out.data_ptr(), g.data_ptr(), initial, E, F, S, cnt.data_ptr(),
-        dx.data_ptr(), kernels.stream_handle())
+        out.data_ptr(), g.data_ptr(), initial, E, F, S, groups.data_ptr(),
+        _part(E, F, data.device).data_ptr(), dx.data_ptr(),
+        kernels.stream_handle())
     kernels.check("segment_max_bwd", rc)
     return dx
 
 
 class SegmentMax(torch.autograd.Function):
-    """K17 both ways; ``initial`` already in data's dtype."""
+    """K17 both ways; ``initial`` already in data's dtype. On CUDA the
+    forward's grouping of the lanes is kept for the backward
+    (``ctx.groups``; None on the CPU)."""
 
     @staticmethod
     def forward(ctx, data, seg, num_segments, initial):
         init = torch.tensor(initial, dtype=data.dtype)
-        out = segment_max_fwd(data, seg, num_segments,
-                              int(order_keys_plain(init)))
+        key = int(order_keys_plain(init))
+        if not ctx.needs_input_grad[0]:
+            return segment_max_fwd(data, seg, num_segments, key)
+        ctx.groups = segment_groups_buffer(seg, num_segments)
+        out = segment_max_fwd(data, seg, num_segments, key, ctx.groups)
         ctx.save_for_backward(data, seg, out)
         ctx.initial = float(init)
         return out
@@ -225,8 +326,8 @@ class SegmentMax(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         data, seg, out = ctx.saved_tensors
-        return (segment_max_bwd(data, seg, out, g, ctx.initial), None, None,
-                None)
+        return (segment_max_bwd(data, seg, out, g, ctx.initial, ctx.groups),
+                None, None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -250,20 +351,27 @@ def segment_softmax_plain(x: torch.Tensor, seg: torch.Tensor, S: int
     return torch.where(v, e / d[row], 0.0).to(x.dtype)
 
 
-def segment_softmax_fwd(x: torch.Tensor, seg: torch.Tensor, S: int
+def segment_softmax_fwd(x: torch.Tensor, seg: torch.Tensor, S: int,
+                        groups: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
-    """K18's forward. x [E, H] f32 or bf16, seg [E] int32 -> p [E, H]."""
+    """K18's forward. x [E, H] f32 or bf16, seg [E] int32 -> p [E, H].
+    On CUDA the call groups the lanes by segment first, each group in
+    ascending lane order, into ``groups`` where given
+    (``segment_groups_buffer``: the grouping the backward reads); on the
+    CPU ``groups`` is None."""
     _check("segment_softmax", FLOATS, x, seg)
     if _on_cpu("segment_softmax", x, seg):
+        kernels._require(groups is None,
+                         "segment_softmax: groups on the CPU")
         return segment_softmax_plain(x, seg, S)
     x, seg = x.contiguous(), seg.contiguous()
     E, H = x.shape
-    mkeys = torch.empty(S * H, dtype=torch.int32, device=x.device)
-    denom = torch.empty(S * H, dtype=torch.float32, device=x.device)
+    groups, tmp = _group_args(seg, S, groups, "segment_softmax")
     p = torch.empty_like(x)
     rc = kernels.lib().lt_segment_softmax_fwd(
         x.data_ptr(), SEG_TYPES[x.dtype], seg.data_ptr(), E, H, S,
-        mkeys.data_ptr(), denom.data_ptr(), p.data_ptr(),
+        groups.data_ptr(), tmp.data_ptr(),
+        _part(E, 2 * H, x.device).data_ptr(), p.data_ptr(),
         kernels.stream_handle())
     kernels.check("segment_softmax", rc)
     return p
@@ -283,9 +391,12 @@ def segment_softmax_bwd_plain(p: torch.Tensor, g: torch.Tensor,
 
 
 def segment_softmax_bwd(p: torch.Tensor, g: torch.Tensor, seg: torch.Tensor,
-                        S: int) -> torch.Tensor:
+                        S: int, groups: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
     """K18's backward. p and g [E, H] f32 or bf16, seg [E] int32 -> dx
-    [E, H] in p's dtype."""
+    [E, H] in p's dtype. On CUDA ``groups`` is the grouping that the
+    forward of p wrote (required; its lane order fixes the sums' order,
+    and the backward does not group); on the CPU it is not read."""
     _check("segment_softmax_bwd", FLOATS, p, seg)
     kernels._require(g.dtype == p.dtype and g.shape == p.shape,
                      f"segment_softmax_bwd: p {p.dtype} {tuple(p.shape)}, "
@@ -294,21 +405,26 @@ def segment_softmax_bwd(p: torch.Tensor, g: torch.Tensor, seg: torch.Tensor,
         return segment_softmax_bwd_plain(p, g, seg, S)
     p, g, seg = p.contiguous(), g.contiguous(), seg.contiguous()
     E, H = p.shape
-    sums = torch.empty(S * H, dtype=torch.float32, device=p.device)
+    groups = _given(seg, S, groups, "segment_softmax_bwd")
     dx = torch.empty_like(p)
     rc = kernels.lib().lt_segment_softmax_bwd(
         p.data_ptr(), g.data_ptr(), SEG_TYPES[p.dtype], seg.data_ptr(), E, H,
-        S, sums.data_ptr(), dx.data_ptr(), kernels.stream_handle())
+        S, groups.data_ptr(), _part(E, H, p.device).data_ptr(),
+        dx.data_ptr(), kernels.stream_handle())
     kernels.check("segment_softmax_bwd", rc)
     return dx
 
 
 class SegmentSoftmax(torch.autograd.Function):
-    """K18 both ways; saves p and the ids."""
+    """K18 both ways; saves p, the ids and, on CUDA, the forward's
+    grouping of the lanes (``ctx.groups``; None on the CPU)."""
 
     @staticmethod
     def forward(ctx, x, seg, num_segments):
-        p = segment_softmax_fwd(x, seg, num_segments)
+        if not ctx.needs_input_grad[0]:
+            return segment_softmax_fwd(x, seg, num_segments)
+        ctx.groups = segment_groups_buffer(seg, num_segments)
+        p = segment_softmax_fwd(x, seg, num_segments, ctx.groups)
         ctx.save_for_backward(p, seg)
         ctx.num_segments = num_segments
         return p
@@ -316,7 +432,8 @@ class SegmentSoftmax(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         p, seg = ctx.saved_tensors
-        return segment_softmax_bwd(p, g, seg, ctx.num_segments), None, None
+        return (segment_softmax_bwd(p, g, seg, ctx.num_segments, ctx.groups),
+                None, None)
 
 
 # ---------------------------------------------------------------------------

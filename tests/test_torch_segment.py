@@ -372,6 +372,128 @@ def test_ops_export_the_jax_names_and_refuse_other_devices():
         P.segment_softmax(x.int(), ids, 2)
 
 
+# (E, S, pad share, past-S share, hub share): the grouping of K17 and K18
+GROUP_CASES = {"pads and ids past S": (400, 37, 0.2, 0.2, 0.0),
+               "empty segments": (30, 200, 0.1, 0.1, 0.0),
+               "a hub": (3000, 50, 0.1, 0.1, 0.6),
+               "all dropped": (64, 8, 0.5, 1.0, 0.0),
+               "one segment": (100, 1, 0.1, 0.1, 0.0),
+               "no lane": (0, 5, 0.0, 0.0, 0.0)}
+
+
+def _group_ids(case):
+    E, S, pad, past, hub = GROUP_CASES[case]
+    rng = np.random.default_rng(E + S)
+    ids = rng.integers(0, S, E).astype(np.int32)
+    ids[rng.random(E) < hub] = S // 2
+    past = rng.random(E) < past
+    ids[past] = S + rng.integers(0, 3, int(past.sum()))
+    ids[rng.random(E) < pad] = -1
+    return ids, S
+
+
+@pytest.mark.parametrize("case", list(GROUP_CASES))
+def test_segment_groups_plain_drops_ids_past_the_segments(case):
+    """``segment_groups_plain`` (the grouping K17 and K18 run first): the
+    lanes with 0 <= id < S grouped by id in ascending lane order, and the
+    groups' starts, against numpy's stable argsort and bincount; a pad or
+    an id >= S is in no group."""
+    ids, S = _group_ids(case)
+    lanes, starts = P.segment_groups_plain(torch.from_numpy(ids), S)
+    valid = np.flatnonzero((ids >= 0) & (ids < S))
+    ref = valid[np.argsort(ids[valid], kind="stable")]
+    assert lanes.dtype == starts.dtype == torch.int32
+    np.testing.assert_array_equal(lanes.numpy(), ref)
+    np.testing.assert_array_equal(
+        starts.numpy(),
+        np.concatenate([[0], np.cumsum(np.bincount(ids[valid],
+                                                   minlength=S))]))
+
+
+def test_hop_mean_grads_grouping_still_clamps():
+    """``hop_mean_grad``'s grouping is unchanged by the segment ops' drop
+    rule: by default a src >= num_rows reads (and is grouped with) the
+    last row; with ``drop`` it is left out."""
+    from legion_tpu_torch.ops import hop_agg
+    src = torch.tensor([3, 0, 9, -1, 4, 2, 3, 7], dtype=torch.int32)
+    lanes, starts = hop_agg.lanes_by_source_plain(src, 4)
+    assert lanes.tolist() == [1, 5, 0, 2, 4, 6, 7]
+    assert starts.tolist() == [0, 1, 1, 2, 7]
+    lanes, starts = hop_agg.lanes_by_source_plain(src, 4, drop=True)
+    assert lanes.tolist() == [1, 5, 0, 6]
+    assert starts.tolist() == [0, 1, 1, 2, 4]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("op", ["max", "softmax"])
+def test_saved_grouping_matches_plain_chain_and_jax(op, dtype):
+    """``SegmentMax`` and ``SegmentSoftmax`` with a segment of more than
+    32 lanes: the forward and the gradient equal the plain chain (the
+    forward's plain version, then the backward's on its output) bit for
+    bit and JAX's ``jax.grad`` within the tolerances of the cases above.
+    On CUDA the Functions keep the forward's grouping for the backward
+    (``ctx.groups``; ``chip_smoke.py`` holds that path on the card); on
+    the CPU they keep none (``segment_groups_buffer`` is None), since the
+    plain backwards read none, and a forward refuses a grouping buffer.
+    Without a gradient to take no grouping is kept."""
+    rng = np.random.default_rng(7)
+    S = 11
+    ids = rng.integers(-2, S + 2, 120).astype(np.int32)
+    ids[:40] = 3                                  # a segment of > 32 lanes
+    if op == "softmax":   # JAX's softmax keeps an id >= S (ROADMAP C)
+        ids[ids >= S] = -1
+    x = rng.integers(-3, 4, (120, 8)).astype(np.float32) \
+        + (rng.standard_normal((120, 8)) * (op == "softmax")).astype(
+            np.float32)
+    xj, xt = _both(x, dtype)
+    tid = torch.from_numpy(ids)
+    if op == "max":
+        w = rng.standard_normal((S, 8)).astype(np.float32)
+        wj, wt = _both(w, dtype)
+        port = lambda d: P.masked_segment_max(d, tid, S)
+        jfn = lambda d: J.masked_segment_max(d, jnp.asarray(ids), S)
+        key = int(P.order_keys_plain(torch.tensor(
+            torch.finfo(xt.dtype).min, dtype=xt.dtype)))
+        out_p = P.segment_max_plain(xt, tid, S, key)
+        grad_p = P.segment_max_bwd_plain(xt, tid, out_p, wt,
+                                         float(torch.finfo(xt.dtype).min))
+    else:
+        w = rng.standard_normal((120, 8)).astype(np.float32)
+        wj, wt = _both(w, dtype)
+        port = lambda d: P.segment_softmax(d, tid, S)
+        jfn = lambda d: J.segment_softmax(d, jnp.asarray(ids), S)
+        out_p = P.segment_softmax_plain(xt, tid, S)
+        grad_p = P.segment_softmax_bwd_plain(out_p, wt, tid, S)
+    xg = xt.clone().requires_grad_()
+    out = port(xg)
+    node = out.grad_fn                    # the op's reshape, then the Function
+    while not hasattr(node, "groups"):
+        node = node.next_functions[0][0]
+    assert node.groups is None and P.segment_groups_buffer(tid, S) is None
+    words = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="groups on the CPU"):
+        if op == "max":
+            P.segment_max_fwd(xt, tid, S, key, words)
+        else:
+            P.segment_softmax_fwd(xt, tid, S, words)
+    out.backward(wt)
+    _same(out, out_p, "forward against the plain chain")
+    _same(xg.grad, grad_p, "gradient against the plain chain")
+    jout, jgrad = _jax_vjp(jfn, xj, wj, jit=True)
+    if dtype == "float32" and op == "max":
+        _same(out, jout)
+        np.testing.assert_array_equal(_np(xg.grad), _np(jgrad))
+    else:
+        rtol = F32_RTOL if dtype == "float32" else BF16_RTOL
+        _close(out, jout, rtol, "forward")
+        if op == "max":
+            got, ref = _np(xg.grad), _np(jgrad)
+            assert (np.abs(got - ref) <= _ulp_bf16(ref)).all()
+        else:
+            _close(xg.grad, jgrad, rtol, "grad", _grad_scale(out, w))
+    assert port(xt).grad_fn is None
+
+
 def test_csr_neighbors_match_jax():
     """``CSRGraph.neighbors`` against the JAX package's, every vertex of a
     graph with empty rows."""
