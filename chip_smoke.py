@@ -380,9 +380,10 @@ MODEL_SAMPLER = {"gat": {}, "gcn": dict(dedup_last_hop=True),
 
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense): device
-# memory bytes/s, and operations/s by input type
+# memory bytes/s, and operations/s by input type (f64 outside the tensor
+# cores; int32 adds, which the data sheet does not list, at f32's rate)
 HBM_BPS = 3.35e12
-PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
+PEAK_OPS = {"bf16": 989e12, "f32": 67e12, "f64": 34e12}
 # this run's measurements that later phases read: the link's bulk-copy
 # rate (phase 5)
 MEASURED = {}
@@ -596,6 +597,43 @@ def bf16_ulp(k, p, atol=1e-5):
     ulp = ulp_bf16(kf.abs().maximum(pf.abs()))
     ok = bool((diff <= ulp + atol * pf.abs().max()).all().item())
     return diff.max().item(), ok
+
+
+def ulp_f16(v):
+    """One f16 ulp (11 significant bits; 2^-24 below the normal range) of
+    each element of v."""
+    return (v.float().abs().clamp(min=2.0 ** -14).log2().floor() - 10).exp2()
+
+
+def f16_ulp(k, p, atol=1e-5):
+    """f16 outputs of f32 arithmetic taken in another order, rounded once:
+    one f16 ulp of the larger value, elementwise, plus ``atol`` *
+    max|ref|."""
+    kf, pf = k.float(), p.float()
+    if not kf.numel():
+        return 0.0, k.shape == p.shape
+    diff = (kf - pf).abs()
+    ulp = ulp_f16(kf.abs().maximum(pf.abs()))
+    ok = bool((diff <= ulp + atol * pf.abs().max()).all().item())
+    return diff.max().item(), ok
+
+
+def f64_order(k, p):
+    """f64 sums by atomics in any order: within 1e-12 of max|ref|
+    elementwise."""
+    if not k.numel():
+        return 0.0, k.shape == p.shape
+    diff = (k - p).abs()
+    ok = bool((diff <= 1e-12 * p.abs().max()).all().item())
+    return diff.max().item(), ok and k.dtype == p.dtype
+
+
+def k2_tol(dtype):
+    """K2's tolerance for data of ``dtype``: its sums in another order (in
+    f32 for f32, bf16 and f16 data, in f64 for f64), exact for int32."""
+    import torch
+    return {torch.float64: f64_order, torch.int32: exact}.get(
+        dtype, f32_atomic_order)
 
 
 def k6_bf16_tol(args, torch, allow=None, du_atol=2.0 ** -11, quiet=False,
@@ -880,19 +918,24 @@ def phase_kernels(tr, torch):
 
 def k2_edges(torch, results):
     """K2 at the edges of its shapes against the plain version
-    (``f32_atomic_order``): widths 1, 3, 4, 8, 100, 128, 130, 256 (chunks
-    of eight, of four and of one column), bf16 and f32, 1003 lanes into
-    37 segments: uniform ids with a tenth dropped, all -1, all >= S, one
-    hub, one segment (S = 1), no lane, one lane; and data that is
-    misaligned: a view that slices one column off a wider tensor (rows a
-    stride apart, read in place) and a contiguous one whose first byte is
-    one element past a 16-byte boundary."""
+    (``k2_tol``: f32 atomic order, f64 1e-12, int32 exact): widths 1, 3,
+    4, 8, 100, 128, 130, 256 (chunks of eight, of four and of one
+    column), bf16, f32, f16, f64 and int32 (values across the whole int32
+    range: the sums wrap), 1003 lanes into 37 segments: uniform ids with
+    a tenth dropped, all -1, all >= S, one hub, one segment (S = 1), no
+    lane, one lane; and data that is misaligned: a view that slices one
+    column off a wider tensor (rows a stride apart, read in place) and a
+    contiguous one whose first byte is one element past a 16-byte
+    boundary."""
     from legion_tpu_torch.ops import kernels
     g = torch.Generator(device="cuda")
     g.manual_seed(16)
     E, S, n, worst = 1003, 37, 0, 0.0
 
     def rand(shape, dt):
+        if dt == torch.int32:
+            return torch.randint(-2 ** 31, 2 ** 31 - 1, shape, generator=g,
+                                 device="cuda", dtype=dt)
         return torch.randn(shape, generator=g, device="cuda").to(dt)
 
     uniform = torch.randint(0, S, (E,), generator=g, device="cuda",
@@ -905,7 +948,8 @@ def k2_edges(torch, results):
             "S = 1": (uniform.clamp(max=0), 1),
             "E = 0": (uniform[:0], S), "E = 1": (uniform[:1] * 0 + 3, S)}
     for F in (1, 3, 4, 8, 100, 128, 130, 256):
-        for dt in (torch.bfloat16, torch.float32):
+        for dt in (torch.bfloat16, torch.float32, torch.float16,
+                   torch.float64, torch.int32):
             cases = [(what, rand((seg.shape[0], F), dt), seg, num)
                      for what, (seg, num) in segs.items()]
             sliced = rand((E, F + 1), dt)[:, 1:]
@@ -918,17 +962,18 @@ def k2_edges(torch, results):
             for what, data, seg, num in cases:
                 k = kernels.segment_sum(data, seg, num)
                 p_ = kernels.segment_sum_plain(data, seg, num)
-                err, ok = f32_atomic_order(k, p_)
-                if not ok or k.shape != p_.shape:
+                err, ok = k2_tol(dt)(k, p_)
+                if not ok or k.shape != p_.shape or k.dtype != p_.dtype:
                     fail(f"segment_sum edge F {F} {dt} {what}: kernel "
                          f"disagrees with its plain version (max abs err "
                          f"{err})")
                 n, worst = n + 1, max(worst, err)
     torch.cuda.synchronize()
     print(f"  segment_sum    {n} edge cases (widths 1/3/4/8/100/128/130/256,"
-          f" bf16 and f32, uniform / all -1 / all >= S / one hub / S = 1 / "
-          f"E = 0 / E = 1, a column sliced off, a misaligned base): all "
-          f"within tolerance, max_abs_err {worst:.3g}")
+          f" bf16, f32, f16, f64 and int32, uniform / all -1 / all >= S / "
+          f"one hub / S = 1 / E = 0 / E = 1, a column sliced off, a "
+          f"misaligned base): all within tolerance (int32 exactly), "
+          f"max_abs_err {worst:.3g}")
     r = results["segment_sum"]
     r["max_abs_err"] = max(r["max_abs_err"], worst)
 
@@ -1583,6 +1628,7 @@ def seg_grad(fn, x, g, torch):
 
 SEG_F32 = nan_tol(f32_atomic_order)    # K18 f32: rtol 1e-5 (sum order)
 SEG_BF16 = nan_tol(bf16_ulp)           # K18 bf16: one bf16 ulp
+SEG_F16 = nan_tol(f16_ulp)             # K18 f16: one f16 ulp
 
 
 def phase_segment(tr, torch, results, main, turns=False):
@@ -1592,9 +1638,10 @@ def phase_segment(tr, torch, results, main, turns=False):
     exact last-hop dedup): the ids are its layer-0 block's ``edge_dst``,
     pads and all. First the path: each op once through ``legion_tpu_torch.
     ops`` under autograd, forward and backward, the counts set to 0 just
-    before and read just after (``PATH_KERNELS["segment"]``: the max and
-    the mean over [E, 128] bf16 rows, the softmax over [E, 8] scores in
-    f32 and in bf16, a DGL GATConv edge softmax). Then each kernel against
+    before and read just after (``PATH_KERNELS["segment"]``: the max, the
+    mean and the sum over [E, 128] bf16 rows, the softmax over [E, 8]
+    scores in f32 and in bf16, a DGL GATConv edge softmax). Then each
+    kernel against
     its plain version at those shapes, timed: K17 bit for bit, K18 f32
     within rtol 1e-5 and bf16 within one ulp, the mean within one bf16
     ulp; the grouping of the lanes by segment that K17 and K18 run first
@@ -1604,7 +1651,8 @@ def phase_segment(tr, torch, results, main, turns=False):
     same at the block's ids under a fixed seeded permutation
     (``seg_shuffled``), and, with ``turns`` where
     ``_archive/parent`` holds a ``git archive`` of the parent commit, the
-    parent's K17 and K18 timed in turns with these (``seg_turns``).
+    parent's K17 and K18 timed in turns with these (``seg_turns``). Last,
+    the forms for JAX's other dtypes and ids (``seg_forms``).
     Returns the launch counts."""
     from legion_tpu_torch import ops
     from legion_tpu_torch.ops import kernels
@@ -1633,6 +1681,8 @@ def phase_segment(tr, torch, results, main, turns=False):
         lambda x: ops.masked_segment_max(x, ids, S), rows, g_rows, torch)
     out_mean, d_mean = seg_grad(
         lambda x: ops.masked_segment_mean(x, ids, S), rows, g_rows, torch)
+    out_sum, d_sum = seg_grad(
+        lambda x: ops.masked_segment_sum(x, ids, S), rows, g_rows, torch)
     soft = {dt: seg_grad(lambda x: ops.segment_softmax(x, ids, S), s,
                          g_sc[dt], torch) for dt, s in scores.items()}
     torch.cuda.synchronize()
@@ -1644,8 +1694,10 @@ def phase_segment(tr, torch, results, main, turns=False):
             fail(f"kernel {name} was not launched on the segment path")
     for what, t, shape in (("max", out_max, (S, 128)),
                            ("mean", out_mean, (S, 128)),
+                           ("sum", out_sum, (S, 128)),
                            ("d max", d_max, (E, 128)),
-                           ("d mean", d_mean, (E, 128))) + tuple(
+                           ("d mean", d_mean, (E, 128)),
+                           ("d sum", d_sum, (E, 128))) + tuple(
             (f"softmax {str(dt)[6:]} {i}", soft[dt][i], (E, 8))
             for dt in soft for i in (0, 1)):
         if tuple(t.shape) != shape or not bool(t.float().isfinite().all()):
@@ -1698,9 +1750,15 @@ def phase_segment(tr, torch, results, main, turns=False):
     compare("segment_max", lambda: seg_grad(
         lambda x: ops.masked_segment_max(x, ids, S), rows, g_rows, torch),
         max_plain_both, tuple_tol(bit_exact, bit_exact), results, torch,
-        note + " fwd+bwd (autograd; plain: both plain versions)",
+        note + " fwd+bwd (autograd; plain: both plain versions; library: "
+        "scatter_reduce amax under autograd)",
         least=bound(row_b + nb(ids) + 2 * S * 256 + E * 256,
-                    ops=2 * valid * 128), queued=True)
+                    ops=2 * valid * 128),
+        library=lambda: seg_grad(lambda x: torch.full(
+            (S + 1, 128), float(init), dtype=torch.bfloat16,
+            device="cuda").scatter_reduce(0, idx, x, "amax",
+                                          include_self=False)[:S],
+            rows, g_rows, torch), queued=True)
 
     # K18, f32 and bf16, each way
     main["segment_softmax"] = []
@@ -1771,10 +1829,182 @@ def phase_segment(tr, torch, results, main, turns=False):
             lambda: seg_grad(lambda x: seg_mean_plain(x, ids, S), rows,
                              g_rows, torch),
             tuple_tol(nan_tol(bf16_ulp), nan_tol(bf16_ulp)), {}, torch,
-            f"[{E},128] bf16 fwd+bwd",
+            f"[{E},128] bf16 fwd+bwd (library: scatter_reduce mean under "
+            "autograd)",
             least=bound(row_b + nb(ids) + 2 * S * 256 + E * 256,
-                        ops=valid * 257), queued=True)
+                        ops=valid * 257),
+            library=lambda: seg_grad(lambda x: torch.zeros(
+                (S + 1, 128), dtype=torch.bfloat16,
+                device="cuda").scatter_reduce(0, idx, x, "mean",
+                                              include_self=False)[:S],
+                rows, g_rows, torch), queued=True)
+    seg_forms(rows, ids, S, g_rows, scores, g_sc, sg, torch, results)
     return counts
+
+
+def seg_forms(rows, ids, S, g_rows, scores, g_sc, sg, torch, results):
+    """The forms the public segment ops take for JAX's other dtypes and
+    ids, at the block's shapes, each against its plain version and timed
+    as ``compare`` times (queued too), with its bound and a library call:
+    K2 int32 as [E] and [E, 8] exactly (values across the whole int32
+    range: the sums wrap), f16 [E, 128] in f32 atomic order, f64 [E, 8]
+    within 1e-12; K17 f16 [E, 128] both ways bit for bit; K18 f16 [E, 8]
+    both ways within one f16 ulp; K1 over 1-byte rows (uint8 [S, 13]:
+    1-byte words) exactly. Then, through ``legion_tpu_torch.ops`` on the
+    card: ``masked_segment_sum``'s result has a grad_fn and its gradient
+    (K1) equals the plain version's bit for bit; ``gather_rows``'
+    gradient with ids >= V equals the plain version's (K2 into the last
+    row); int64 ids, an id past 2^32 among them, give the int32 ids'
+    results bit for bit. Fails on any difference."""
+    from legion_tpu_torch import ops
+    from legion_tpu_torch.ops import kernels
+    E = ids.shape[0]
+    valid = int(((ids >= 0) & (ids < S)).sum())
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(26)
+    idx = torch.where((ids >= 0) & (ids < S), ids, S).long()
+
+    def lib_sum(data):
+        return lambda: torch.zeros((S + 1, data.shape[1]), dtype=data.dtype,
+                                   device="cuda").index_add_(0, idx, data)
+
+    # K2's new forms
+    forms = [("int32", torch.randint(-2 ** 31, 2 ** 31 - 1, (E, F),
+                                     generator=gen, device="cuda",
+                                     dtype=torch.int32), "f32")
+             for F in (1, 8)]
+    forms += [("f16", rows.to(torch.float16), "f32"),
+              ("f64", torch.randn((E, 8), generator=gen, device="cuda",
+                                  dtype=torch.float64), "f64")]
+    for what, data, peak in forms:
+        F, es = data.shape[1], data.element_size()
+        acc = kernels.SUM_ACC[data.dtype].itemsize
+        shape = f"[{E}]" if F == 1 else f"[{E},{F}]"
+        compare("segment_sum", lambda d=data: kernels.segment_sum(d, ids, S),
+                lambda d=data: kernels.segment_sum_plain(d, ids, S),
+                k2_tol(data.dtype), results, torch,
+                f"{what} {shape} -> [{S}] rows" + (
+                    " (library: index_add_ in f16)" if what == "f16"
+                    else ""),
+                least=bound(valid * F * es + nb(ids) + S * F * acc,
+                            ops=valid * F, peak=peak),
+                library=lib_sum(data), queued=True)
+
+    # K17 f16 both ways, bit for bit
+    x16 = rows.to(torch.float16)
+    g16 = g_rows.to(torch.float16)
+    init = torch.tensor(torch.finfo(torch.float16).min, dtype=torch.float16)
+    key = int(sg.order_keys_plain(init))
+    note = f"[{E},128] f16 -> [{S},128]"
+    compare("segment_max", lambda: sg.segment_max_fwd(x16, ids, S, key),
+            lambda: sg.segment_max_plain(x16, ids, S, key), bit_exact,
+            results, torch, note + " fwd",
+            least=bound(valid * 256 + nb(ids) + S * 256, ops=valid * 128),
+            library=lambda: torch.full(
+                (S + 1, 128), float(init), dtype=torch.float16,
+                device="cuda").scatter_reduce_(
+                    0, idx[:, None].expand(E, 128), x16, "amax"),
+            queued=True)
+    groups = sg.segment_groups_buffer(ids, S)
+    out16 = sg.segment_max_fwd(x16, ids, S, key, groups)
+    compare("segment_max", lambda: sg.segment_max_bwd(
+        x16, ids, out16, g16, float(init), groups),
+        lambda: sg.segment_max_bwd_plain(x16, ids, out16, g16, float(init)),
+        bit_exact, results, torch, note + " bwd",
+        least=bound(valid * 256 + nb(ids) + 2 * S * 256 + E * 256,
+                    ops=valid * 128), queued=True)
+
+    # K18 f16 both ways, one f16 ulp
+    s16 = scores[torch.float32].to(torch.float16)
+    gs16 = g_sc[torch.float32].to(torch.float16)
+    note = f"[{E},8] f16, S {S}"
+    compare("segment_softmax", lambda: sg.segment_softmax_fwd(s16, ids, S),
+            lambda: sg.segment_softmax_plain(s16, ids, S), SEG_F16, results,
+            torch, note + " fwd",
+            least=bound(valid * 16 + nb(ids) + E * 16, ops=3 * valid * 8),
+            queued=True)
+    sgr = sg.segment_groups_buffer(ids, S)
+    p16 = sg.segment_softmax_fwd(s16, ids, S, sgr)
+    compare("segment_softmax", lambda: sg.segment_softmax_bwd(
+        p16, gs16, ids, S, sgr),
+        lambda: sg.segment_softmax_bwd_plain(p16, gs16, ids, S), SEG_F16,
+        results, torch, note + " bwd",
+        least=bound(2 * valid * 16 + nb(ids) + E * 16, ops=4 * valid * 8),
+        queued=True)
+
+    # K1 over 1-byte rows: uint8 [S, 13], the block's ids
+    tbl = torch.randint(0, 256, (S, 13), generator=gen, device="cuda",
+                        dtype=torch.uint8)
+    compare("gather_rows", lambda: kernels.gather_rows(tbl, ids),
+            lambda: kernels.gather_rows_plain(tbl, ids), exact, results,
+            torch, f"uint8 [{S},13] x {E} (1-byte words)",
+            least=bound(nb(ids) + (distinct(ids) + E) * 13),
+            library=lambda: tbl.index_select(0, ids.clamp(min=0).long()),
+            queued=True)
+
+    # masked_segment_sum differentiates on the card (SegmentSum, K1 back)
+    x = rows.float()
+    gf = g_rows.float()
+    back = torch.where(ids < S, ids, -1)
+    out, dx = seg_grad(lambda t: ops.masked_segment_sum(t, ids, S), x, gf,
+                       torch)
+    probe = ops.masked_segment_sum(x.detach().requires_grad_(), ids, S)
+    if probe.grad_fn is None:
+        fail("masked_segment_sum on the card: no grad_fn")
+    if not (f32_atomic_order(out, kernels.segment_sum_plain(x, ids, S))[1]
+            and same_bits(dx, kernels.gather_rows_plain(gf, back), torch)):
+        fail("masked_segment_sum on the card: forward or gradient differs "
+             "from the plain version's")
+    compare("segment_sum", lambda: seg_grad(
+        lambda t: ops.masked_segment_sum(t, ids, S), x, gf, torch),
+        lambda: (kernels.segment_sum_plain(x, ids, S),
+                 kernels.gather_rows_plain(gf, back)),
+        tuple_tol(f32_atomic_order, bit_exact), results, torch,
+        f"masked_segment_sum f32 [{E},128] fwd+bwd (K2, K1; library: "
+        f"index_add under autograd)",
+        least=bound(valid * 512 + nb(ids) + S * 512 + S * 512 + E * 512,
+                    ops=valid * 128),
+        library=lambda: seg_grad(lambda t: torch.zeros(
+            (S + 1, 128), device="cuda").index_add(0, idx, t)[:S], x, gf,
+            torch), queued=True)
+
+    # gather_rows' gradient with ids past the table: into its last row
+    V = S
+    over = torch.where(torch.rand(E, generator=gen, device="cuda") < 0.1,
+                       V + ids.abs() % 7, ids).to(torch.int32)
+    tab = torch.randn((V, 8), generator=gen, device="cuda")
+    gg = torch.randn((E, 8), generator=gen, device="cuda")
+    _, dt = seg_grad(lambda t: ops.gather_rows(t, over), tab, gg, torch)
+    ref = kernels.segment_sum_plain(gg, over.clamp_max(V - 1), V)
+    err, ok = f32_atomic_order(dt, ref)
+    dropped = kernels.segment_sum_plain(gg, over, V)
+    if not ok or f32_atomic_order(dropped, ref)[1]:
+        fail(f"gather_rows' gradient with ids >= V: differs from the plain "
+             f"version's (max abs err {err}), or the test ids miss row V-1")
+    print(f"  gather_rows    gradient, {int((over >= V).sum())} of {E} ids "
+          f">= V into row V-1: within f32 atomic order of the plain "
+          f"version (max abs err {err:.3g})")
+
+    # int64 ids, an id past 2^32 among them, against the int32 ids that
+    # mean the same: a dropped lane in the segment ops, the last row in
+    # the gather
+    at = torch.arange(0, E, 101, device="cuda")
+    big, i32, i32g = ids.long(), ids.clone(), ids.clone()
+    big[at], i32[at], i32g[at] = 2 ** 32 + 1, -1, V - 1
+    d32 = forms[1][1]
+    for what, fn, same in (
+            ("masked_segment_max bf16", lambda i: ops.masked_segment_max(
+                rows, i, S), i32),
+            ("segment_softmax f32", lambda i: ops.segment_softmax(
+                scores[torch.float32], i, S), i32),
+            ("masked_segment_sum int32", lambda i: ops.masked_segment_sum(
+                d32, i, S), i32),
+            ("gather_rows f32", lambda i: ops.gather_rows(tab, i), i32g)):
+        if not same_bits(fn(big), fn(same), torch):
+            fail(f"{what}: int64 ids differ from the int32 ids' result")
+    print(f"  int64 ids ({at.numel()} of them 2^32 + 1): the max, the "
+          "softmax, the int32 sum and the gather equal the int32 ids' "
+          "results bit for bit")
 
 
 def seg_groups_check(ids, S, sg, torch, what):
@@ -1834,8 +2064,8 @@ def seg_shuffled(rows, ids, S, g_rows, scores, g_sc, sg, torch):
     the lanes (the same multiset of ids, so a segment's rows lie at
     random): the grouping exactly, K17 bit for bit both ways, K18 within
     its tolerances and the same bits in two runs; each timed queued
-    beside the block's own order, each backward on its forward's
-    grouping."""
+    beside the block's own order (and its plain version as launched),
+    each backward on its forward's grouping."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(25)
     perm = torch.randperm(ids.shape[0], generator=gen, device="cuda")
@@ -1886,19 +2116,23 @@ def seg_shuffled(rows, ids, S, g_rows, scores, g_sc, sg, torch):
         t_sh = queued_ms(lambda: kern(sh), torch)
         t_id = queued_ms(lambda: kern(ids), torch)
         print(f"  {name:14s} {what:44s} max_abs_err {err:.3g} | queued "
-              f"{t_sh:.4f} ms (the block's order {t_id:.4f})")
+              f"{t_sh:.4f} ms (the block's order {t_id:.4f}) | plain "
+              f"{cuda_ms(plain, torch, 3):.4f} ms")
 
 
 def seg_parent_lib():
     """The parent commit's K17 and K18 (``_archive/parent``, a ``git
     archive`` of it), built from its sources with kernels.NVCC_FLAGS into
-    a library of their own; None where no archive is unpacked."""
+    a library of their own: (the library, None), or (None, why not) where
+    no archive is unpacked or its library does not load (a parent whose
+    K17 and K18 group the lanes by segment needs ``hop_agg.cu`` too, and
+    its entry points differ from the bindings below)."""
     import ctypes
     from legion_tpu_torch.ops import kernels
     src = [os.path.join(PARENT, "legion_tpu_torch", "csrc", f)
            for f in ("segment_max.cu", "segment_softmax.cu")]
     if not all(os.path.exists(f) for f in src):
-        return None
+        return None, "no parent archive"
     out = os.path.join(str(kernels.BUILD_DIR), "seg_parent")
     os.makedirs(out, exist_ok=True)
     so_path = os.path.join(out, "seg_parent.so")
@@ -1907,7 +2141,12 @@ def seg_parent_lib():
                        "-o", so_path, *src]])
     print(f"  K17, K18: built the parent's kernels in "
           f"{time.perf_counter() - t0:.2f} s")
-    so = ctypes.CDLL(so_path)
+    try:
+        so = ctypes.CDLL(so_path)
+    except OSError as e:
+        return None, f"the parent's library does not load ({e})"
+    if hasattr(so, "lt_segment_groups_words"):
+        return None, "the parent's K17 and K18 group by segment"
     p, i64, i32, u32, f32 = (ctypes.c_void_p, ctypes.c_int64,
                              ctypes.c_int32, ctypes.c_uint32, ctypes.c_float)
     so.lt_segment_max_fwd.argtypes = [p, i32, p, i64, i64, i64, u32, p, p, p]
@@ -1920,7 +2159,7 @@ def seg_parent_lib():
     for fn in (so.lt_segment_max_fwd, so.lt_segment_max_bwd,
                so.lt_segment_softmax_fwd, so.lt_segment_softmax_bwd):
         fn.restype = ctypes.c_int
-    return so
+    return so, None
 
 
 def seg_parent_calls(so, sg, torch):
@@ -1982,9 +2221,9 @@ def seg_turns(rows, ids, S, g_rows, scores, g_sc, sg, torch):
     grouping its forward wrote, as under autograd; the parent's takes no
     grouping. The parent's outputs are held against the tree's first,
     each way: K17 bit for bit, K18 within its tolerances."""
-    so = seg_parent_lib()
+    so, why = seg_parent_lib()
     if so is None:
-        print("  K17, K18: no parent archive, the tree's kernels alone")
+        print(f"  K17, K18: {why}; the tree's kernels alone")
         return
     from legion_tpu_torch import ops
     max_fwd, max_bwd, soft_fwd, soft_bwd = seg_parent_calls(so, sg, torch)
@@ -2097,8 +2336,8 @@ def seg_edge_inputs(E, tail, dtype, rng, torch, hub=None):
 
 def segment_edges(torch, results):
     """K17 and K18 (and the mean) at the edges of their shapes against the
-    plain versions: f32, bf16 and int32 (the max's forward alone) over
-    [E], [E, F] and [E, H, F], E 1, 7 and 2^20 + 3, NaN, +-0, +-inf,
+    plain versions: f32, bf16, f16 and int32 (the max's forward alone)
+    over [E], [E, F] and [E, H, F], E 1, 7 and 2^20 + 3, NaN, +-0, +-inf,
     finfo.min (iinfo's ends), ties, pads, ids past S, empty segments;
     initial by default and tied with a lane (and the max of an all-pad
     input); data on a base one element past an aligned one; and hubs at
@@ -2106,13 +2345,14 @@ def segment_edges(torch, results):
     half of the lanes, and every lane in one segment). Through the
     public ops under autograd on the card against the plain versions of
     the folded [E, F]: K17 both ways bit for bit, K18 f32 rtol 1e-5 and
-    bf16 one ulp, the mean one bf16 ulp."""
+    bf16 and f16 one ulp, the mean one ulp of its dtype. Then
+    ``public_edges``."""
     from legion_tpu_torch import ops
     from legion_tpu_torch.ops import segment as sg
     rng = torch.Generator(device="cuda")
     rng.manual_seed(17)
     n = 0
-    for dtype in (torch.float32, torch.bfloat16, torch.int32):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16, torch.int32):
         for E in SEG_SIZES:
             for tail in SEG_SHAPES:
                 for misaligned in (False, True):
@@ -2147,6 +2387,165 @@ def segment_edges(torch, results):
     print(f"  segment_edges: {n} cases, K17 bit for bit, K18 and the mean "
           "within their tolerances; at the hubs the grouping exactly and "
           "K18 the same bits in two runs")
+    public_edges(torch)
+
+
+def public_edges(torch):
+    """The five public ops on the card against the same calls on the CPU
+    (their plain versions), at the edges of the shapes and dtypes they
+    take: ``masked_segment_sum`` and ``masked_segment_mean`` in f32, bf16,
+    f16, f64 and int32 over [E], [E, 5] and [E, 3, 4], E 1, 7 (on a base
+    one element past an aligned one) and 1003, forward, and in f32 and
+    f64 the sum's gradient (K1) bit for bit; ``gather_rows`` of bool,
+    uint8, int8, f16, int32, f32 and f64 tables of widths 1, 3, 13 and
+    16 on aligned and misaligned bases, V 1 and 37, by [N] and [2, 4] ids
+    with pads and ids past V (int32 and int64), exactly, and its gradient
+    in f32 and f64; and the empty cases: E = 0, S = 0, ids with a zero
+    dimension, [E, 0] rows, for every op. Sums and means within their
+    order's tolerance (one ulp in bf16 and f16; int32 exactly), the rest
+    bit for bit; fails on a difference, a wrong shape or dtype, or a
+    launch error."""
+    from legion_tpu_torch import ops
+    rng = torch.Generator(device="cuda")
+    rng.manual_seed(26)
+    n = 0
+
+    def on_cpu(*ts):
+        return [t.cpu() if isinstance(t, torch.Tensor) else t for t in ts]
+
+    def check(what, k, p, tol):
+        nonlocal n
+        k = k.cpu()
+        if k.shape != p.shape or k.dtype != p.dtype:
+            fail(f"public edge {what}: {k.dtype} {tuple(k.shape)} against "
+                 f"the CPU's {p.dtype} {tuple(p.shape)}")
+        err, ok = tol(k, p) if k.numel() else (0.0, True)
+        if not ok:
+            fail(f"public edge {what}: differs from the CPU's plain "
+                 f"versions (max abs err {err})")
+        n += 1
+
+    def rand(shape, dt, misaligned=False):
+        size = math.prod(shape)
+        if dt == torch.bool:
+            flat = torch.rand(size + 1, generator=rng, device="cuda") < 0.5
+        elif not dt.is_floating_point:
+            lo, hi = (-2 ** 31, 2 ** 31 - 1) if dt == torch.int32 else (
+                (0, 256) if dt == torch.uint8 else (-128, 128))
+            flat = torch.randint(lo, hi, (size + 1,), generator=rng,
+                                 device="cuda", dtype=dt)
+        else:
+            flat = torch.randn(size + 1, generator=rng, device="cuda").to(dt)
+        return flat[int(misaligned):size + int(misaligned)].view(shape)
+
+    # by the result's dtype: sums in another order (bf16 and f16 rounded
+    # once from them: one ulp apart at most), int32 exactly
+    out_tol = {torch.float32: f32_atomic_order, torch.float64: f64_order,
+               torch.bfloat16: bf16_ulp, torch.float16: f16_ulp,
+               torch.int32: exact}
+    for dt in (torch.float32, torch.bfloat16, torch.float16, torch.float64,
+               torch.int32):
+        for E in (1, 7, 1003):
+            S = max(3, E // 5)
+            ids = torch.randint(-1, S + 2, (E,), generator=rng,
+                                device="cuda", dtype=torch.int32)
+            for tail in SEG_SHAPES:
+                data = rand((E,) + tail, dt, misaligned=E == 7)
+                what = f"{str(dt)[6:]} E {E} tail {tail}"
+                check("sum " + what, ops.masked_segment_sum(data, ids, S),
+                      ops.masked_segment_sum(*on_cpu(data, ids, S)),
+                      out_tol[dt])
+                mean = ops.masked_segment_mean(data, ids, S)
+                check("mean " + what, mean,
+                      ops.masked_segment_mean(*on_cpu(data, ids, S)),
+                      out_tol[mean.dtype])
+                if dt in (torch.float32, torch.float64):
+                    g = rand((S,) + tail, dt)
+                    kd = seg_grad(lambda x: ops.masked_segment_sum(
+                        x, ids, S), data, g, torch)[1]
+                    pd = seg_grad(lambda x: ops.masked_segment_sum(
+                        x, ids.cpu(), S), data.cpu(), g.cpu(), torch)[1]
+                    check("sum's gradient " + what, kd, pd, bit_exact_cpu)
+    for dt in (torch.bool, torch.uint8, torch.int8, torch.float16,
+               torch.int32, torch.float32, torch.float64):
+        for V in (1, 37):
+            for F in (1, 3, 13, 16):
+                for misaligned in (False, True):
+                    table = rand((V, F), dt, misaligned)
+                    for ishape in ((50,), (2, 4)):
+                        for idt in (torch.int32, torch.int64):
+                            idx = torch.randint(-1, V + 3, ishape,
+                                                generator=rng, device="cuda",
+                                                dtype=idt)
+                            check(f"gather {str(dt)[6:]} [{V},{F}] "
+                                  f"{'misaligned ' * misaligned}ids "
+                                  f"{ishape} {str(idt)[6:]}",
+                                  ops.gather_rows(table, idx),
+                                  ops.gather_rows(*on_cpu(table, idx)),
+                                  bit_exact_cpu)
+            if dt in (torch.float32, torch.float64):
+                table = rand((V, 3, 2), dt)
+                idx = torch.randint(-1, V + 3, (5, 8), generator=rng,
+                                    device="cuda", dtype=torch.int32)
+                g = rand((5, 8, 3, 2), dt)
+                kd = seg_grad(lambda t: ops.gather_rows(t, idx), table, g,
+                              torch)[1]
+                pd = seg_grad(lambda t: ops.gather_rows(t, idx.cpu()),
+                              table.cpu(), g.cpu(), torch)[1]
+                check(f"gather's gradient {str(dt)[6:]} V {V}", kd, pd,
+                      out_tol[dt])
+    empties = [
+        ("sum E 0", lambda i: ops.masked_segment_sum(
+            i(torch.zeros((0, 3))), i(torch.zeros(0, dtype=torch.int32)),
+            4)),
+        ("sum S 0", lambda i: ops.masked_segment_sum(
+            i(torch.ones((3, 2))), i(torch.zeros(3, dtype=torch.int32)), 0)),
+        ("sum int32 [E, 0]", lambda i: ops.masked_segment_sum(
+            i(torch.ones((3, 0), dtype=torch.int32)),
+            i(torch.zeros(3, dtype=torch.int32)), 2)),
+        ("mean [E, 0]", lambda i: ops.masked_segment_mean(
+            i(torch.ones((3, 0))), i(torch.zeros(3, dtype=torch.int32)), 2)),
+        ("mean int32 E 0", lambda i: ops.masked_segment_mean(
+            i(torch.zeros(0, dtype=torch.int32)),
+            i(torch.zeros(0, dtype=torch.int32)), 2)),
+        ("max f16 E 0", lambda i: ops.masked_segment_max(
+            i(torch.zeros((0, 2), dtype=torch.float16)),
+            i(torch.zeros(0, dtype=torch.int64)), 3)),
+        ("max S 0", lambda i: ops.masked_segment_max(
+            i(torch.ones((3, 2))), i(torch.zeros(3, dtype=torch.int32)), 0)),
+        ("max [E, 0]", lambda i: ops.masked_segment_max(
+            i(torch.ones((3, 0))), i(torch.zeros(3, dtype=torch.int32)), 2)),
+        ("softmax f16 E 0", lambda i: ops.segment_softmax(
+            i(torch.zeros(0, dtype=torch.float16)),
+            i(torch.zeros(0, dtype=torch.int32)), 2)),
+        ("softmax S 0", lambda i: ops.segment_softmax(
+            i(torch.ones((3, 2))), i(torch.zeros(3, dtype=torch.int32)), 0)),
+        ("softmax [E, 0]", lambda i: ops.segment_softmax(
+            i(torch.ones((3, 0))), i(torch.zeros(3, dtype=torch.int32)), 2)),
+        ("gather V 1", lambda i: ops.gather_rows(
+            i(torch.tensor([[1.5, -2.0]])),
+            i(torch.tensor([0, 3, -1], dtype=torch.int32)))),
+        ("gather [2, 0] ids", lambda i: ops.gather_rows(
+            i(torch.ones((5, 2))), i(torch.zeros((2, 0), dtype=torch.int32)))),
+        ("gather [V, 0] rows", lambda i: ops.gather_rows(
+            i(torch.ones((5, 0))),
+            i(torch.tensor([1, 7], dtype=torch.int32)))),
+        ("gather V 0, no id", lambda i: ops.gather_rows(
+            i(torch.ones((0, 3))), i(torch.zeros(0, dtype=torch.int32))))]
+    for what, fn in empties:
+        check(what, fn(lambda t: t.cuda()), fn(lambda t: t), bit_exact_cpu)
+    torch.cuda.synchronize()
+    print(f"  public_edges: {n} cases (the sum and the mean in five dtypes, "
+          "the gather in seven, int64 ids, the empty cases), each against "
+          "the CPU's plain versions: within tolerance")
+
+
+def bit_exact_cpu(k, p):
+    """``bit_exact`` for two tensors on the CPU (any dtype)."""
+    import torch
+    err = (k.double() - p.double()).abs().max().item() if k.numel() \
+        else 0.0
+    return err, same_bits(k, p, torch)
 
 
 def seg_softmax_f64(x, ids, S, sg, torch):
@@ -2234,7 +2633,8 @@ def seg_edge_case(case, data, ids, S, ops, sg, torch, results, hub=None):
             n += 1
     if dtype == torch.int32:
         return n
-    tol = SEG_F32 if dtype == torch.float32 else SEG_BF16
+    tol = {torch.float32: SEG_F32, torch.bfloat16: SEG_BF16,
+           torch.float16: SEG_F16}[dtype]
     gs = torch.randn(data.shape, device="cuda").to(dtype)
     k, kd = seg_grad(lambda x: ops.segment_softmax(x, ids, S), data, gs,
                      torch)
@@ -7462,8 +7862,10 @@ def main():
     if sys.argv[1:2] == ["--segment"]:
         del tr
         tr = Trainer(ds, bench_config(ds, model="gcn"), device="cuda")
-        phase_segment(tr, torch, {}, {}, turns=True)
-        segment_edges(torch, {})
+        res = {}
+        phase_segment(tr, torch, res, {}, turns=True)
+        segment_edges(torch, res)
+        k2_edges(torch, res)
         del tr
         phase_three_hop(ds, torch, smi)
         return

@@ -9,8 +9,9 @@
 // Design: the rows are copied as opaque words, so one kernel serves every
 // dtype of the same width. A thread moves one 16-byte word when the row
 // width allows it (16 threads per 256-byte row: a row is read by
-// neighbouring threads as one coalesced 256-byte segment), else 4- or
-// 2-byte words. Ids past the table clamp to its last row, as the JAX
+// neighbouring threads as one coalesced 256-byte segment), else 4-, 2- or
+// 1-byte words (the last for 1-byte elements, bool, int8 or uint8, in rows
+// of odd width). Ids past the table clamp to its last row, as the JAX
 // gather clamps.
 #include "common.cuh"
 
@@ -58,7 +59,10 @@ LT_EXPORT int lt_gather_rows(const void* table, const int32_t* ids,
   if (row_bytes % 4 == 0 && (uintptr_t)table % 4 == 0 &&
       (uintptr_t)out % 4 == 0)
     return launch<uint32_t>(table, ids, out, n, num_rows, row_bytes, s);
-  return launch<uint16_t>(table, ids, out, n, num_rows, row_bytes, s);
+  if (row_bytes % 2 == 0 && (uintptr_t)table % 2 == 0 &&
+      (uintptr_t)out % 2 == 0)
+    return launch<uint16_t>(table, ids, out, n, num_rows, row_bytes, s);
+  return launch<uint8_t>(table, ids, out, n, num_rows, row_bytes, s);
 }
 
 LT_EXPORT const char* lt_error_string(int code) {

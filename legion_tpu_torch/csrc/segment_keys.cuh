@@ -5,13 +5,14 @@
 #pragma once
 
 #include <cstdint>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <initializer_list>
 
 #include "lane_groups.cuh"
 
 // Element types, as ops/segment.py::SEG_TYPES numbers them.
-enum LtSegType : int { kSegF32 = 0, kSegBF16 = 1, kSegI32 = 2 };
+enum LtSegType : int { kSegF32 = 0, kSegBF16 = 1, kSegI32 = 2, kSegF16 = 3 };
 
 // The key of an f32's bits: unsigned max of keys is float max. Every NaN
 // maps to the top key, so a NaN lane makes its segment NaN; -0 ranks
@@ -39,6 +40,13 @@ __device__ __forceinline__ uint16_t lt_bf16_rn(float f) {
   const uint32_t u = __float_as_uint(f);
   if (f != f) return 0x7FC0u;
   return (uint16_t)((u + 0x7FFFu + ((u >> 16) & 1u)) >> 16);
+}
+
+// f16 bits of a float, rounded to nearest even; a NaN is 0x7E00, as the CPU
+// cast and the plain versions' NaN (the card's cast may give other bits).
+__device__ __forceinline__ uint16_t lt_f16_rn(float f) {
+  if (f != f) return 0x7E00u;
+  return __half_as_ushort(__float2half_rn(f));
 }
 
 // An element type's storage, its key, its value as a float and the
@@ -79,6 +87,26 @@ struct SegT<kSegBF16> {
   }
   static __device__ __forceinline__ uint32_t store(float f) {
     return lt_bf16_rn(f);
+  }
+};
+
+// f16: the key of the exact f32 widening, decoded back to f16 exactly (a
+// key of an f16 value is one of an f32 that f16 holds; the top key, a
+// NaN, decodes to 0x7E00).
+template <>
+struct SegT<kSegF16> {
+  using T = uint16_t;
+  static __device__ __forceinline__ float val(uint32_t b) {
+    return __half2float(__ushort_as_half((unsigned short)b));
+  }
+  static __device__ __forceinline__ uint32_t key(uint32_t b) {
+    return lt_f32_key(__float_as_uint(val(b)));
+  }
+  static __device__ __forceinline__ uint32_t unkey(uint32_t k) {
+    return lt_f16_rn(__uint_as_float(lt_f32_unkey(k)));
+  }
+  static __device__ __forceinline__ uint32_t store(float f) {
+    return lt_f16_rn(f);
   }
 };
 

@@ -1,7 +1,7 @@
 // K17 segment_max: out[s, f] = max(initial, max of data[e, f] over the
 // lanes e with seg[e] == s), and its gradient; lanes with seg[e] < 0 or
-// >= S are dropped. data is [E, F] f32, bf16 or int32 (the backward f32
-// or bf16), out [S, F] of the same type.
+// >= S are dropped. data is [E, F] f32, bf16, f16 or int32 (the backward
+// f32, bf16 or f16), out [S, F] of the same type.
 //
 // Replaces legion_tpu/ops/segment.py::masked_segment_max (:54-64), an XLA
 // scatter-max, and its gradient under jax.grad, XLA's scatter-max JVP
@@ -17,8 +17,8 @@
 // equally among the lanes equal to it (float equality: -0 == +0, a NaN
 // equals nothing), and initial counts as one more such lane where it
 // equals out[s, f]; each tied lane gets g[s, f] * (1 / n) (JAX's product,
-// in f32; in bf16 n, 1 / n and the product each rounded to bf16, as JAX
-// computes them in bf16), every other lane +0.
+// in f32; in bf16 or f16 n, 1 / n and the product each rounded to the
+// type, as JAX computes them there), every other lane +0.
 //
 // Bound on this card: device-memory bytes (forward: the valid lanes' rows
 // and the ids read, out written; backward: the valid rows, the ids, out
@@ -209,6 +209,13 @@ __device__ __forceinline__ float tied_grad<kSegBF16>(float g, int n) {
   const float nb = SegT<kSegBF16>::val(lt_bf16_rn((float)n));
   const float r = SegT<kSegBF16>::val(lt_bf16_rn(__fdiv_rn(1.0f, nb)));
   return __fmul_rn(g, r);  // exact: two 8-bit significands
+}
+
+template <>
+__device__ __forceinline__ float tied_grad<kSegF16>(float g, int n) {
+  const float nh = SegT<kSegF16>::val(lt_f16_rn((float)n));
+  const float r = SegT<kSegF16>::val(lt_f16_rn(__fdiv_rn(1.0f, nh)));
+  return __fmul_rn(g, r);  // exact: two 11-bit significands
 }
 
 // Bit k: the piece's column k equals out's (float equality).
@@ -498,11 +505,13 @@ LT_EXPORT int lt_segment_max_fwd(const void* data, int type,
       return forward<kSegBF16>(data, g, E, F, S, init_key, part, out, st);
     case kSegI32:
       return forward<kSegI32>(data, g, E, F, S, init_key, part, out, st);
+    case kSegF16:
+      return forward<kSegF16>(data, g, E, F, S, init_key, part, out, st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// data [E, F], out and g [S, F], dx [E, F], all f32 or all bf16; init
+// data [E, F], out and g [S, F], dx [E, F], all f32, bf16 or f16; init
 // initial in data's type, widened; groups the grouping that the forward
 // wrote; part as the forward's.
 LT_EXPORT int lt_segment_max_bwd(const void* data, int type,
@@ -521,6 +530,9 @@ LT_EXPORT int lt_segment_max_bwd(const void* data, int type,
     case kSegBF16:
       return backward<kSegBF16>(data, seg, out, g, init, lg, E, F, S, part,
                                 dx, st);
+    case kSegF16:
+      return backward<kSegF16>(data, seg, out, g, init, lg, E, F, S, part,
+                               dx, st);
   }
   return (int)cudaErrorInvalidValue;
 }

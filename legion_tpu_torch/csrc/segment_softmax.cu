@@ -2,7 +2,7 @@
 // tiny) over the lanes e of segment s = seg[e], with m[s, h] = max(0, max
 // of x[e, h] in s) and d[s, h] the sum of the lanes' exp; lanes with
 // seg[e] < 0 or >= S give 0. And its backward, dx = p * (g - sum over the
-// segment of p * g). x is [E, H] f32 or bf16, p the same.
+// segment of p * g). x is [E, H] f32, bf16 or f16, p the same.
 //
 // Replaces legion_tpu/ops/segment.py::segment_softmax (:67-80), XLA (a
 // scatter-max, a scatter-add and two gathers), and its gradient under
@@ -12,12 +12,13 @@
 //
 // All in f32, rounded once to x's type: m from K17's order-preserving keys
 // (segment_keys.cuh) after a max with +0's key, e = expf(x - m), p = e *
-// (1 / max(d, tiny)) (tiny = FLT_MIN, bf16's too; a NaN d stays NaN; the
-// plain version divides, a rounding apart). JAX computes a bf16 softmax
-// in bf16, rounding after each op; this kernel rounds once (ROADMAP C).
-// Within rtol 1e-5 in f32 and one bf16 ulp of the plain version
-// (ops/segment.py::segment_softmax_plain), and the same bits from run to
-// run: no atomic adds a sum.
+// (1 / max(d, tiny)) (tiny = FLT_MIN, bf16's too, and f16 data's, whose d
+// is an f32 sum; a NaN d stays NaN; the plain version divides, a rounding
+// apart). JAX computes a bf16 or f16
+// softmax in that type, rounding after each op; this kernel rounds once
+// (ROADMAP C). Within rtol 1e-5 in f32 and one bf16 or f16 ulp of the
+// plain version (ops/segment.py::segment_softmax_plain), and the same
+// bits from run to run: no atomic adds a sum.
 //
 // Bound on this card: device-memory bytes (forward: x and the ids read, p
 // written; backward: p, g and the ids read, dx written).
@@ -395,13 +396,17 @@ int softmax(const void* x, const void* y, int type, const int32_t* seg,
                                           st)
                  : launch<kSegBF16, false>(x, y, seg, g, E, H, S, part, out,
                                            st);
+    case kSegF16:
+      return bwd ? launch<kSegF16, true>(x, y, seg, g, E, H, S, part, out, st)
+                 : launch<kSegF16, false>(x, y, seg, g, E, H, S, part, out,
+                                          st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// x and p [E, H] of ``type`` (f32 or bf16), seg [E] int32. groups: where
+// x and p [E, H] of ``type`` (f32, bf16 or f16), seg [E] int32. groups: where
 // the call writes seg's grouping (lt_segment_groups_words(S, E, 0) int32
 // words), built with tmp (lt_segment_groups_words(S, E, 1) words); part:
 // lt_segment_part_words(E, 2 H) words.
@@ -413,7 +418,7 @@ LT_EXPORT int lt_segment_softmax_fwd(const void* x, int type,
                  stream);
 }
 
-// p, g and dx [E, H] of ``type`` (f32 or bf16), seg [E] int32; groups the
+// p, g and dx [E, H] of ``type`` (f32, bf16 or f16), seg [E] int32; groups the
 // grouping that the forward wrote; part: lt_segment_part_words(E, H) words.
 LT_EXPORT int lt_segment_softmax_bwd(const void* p, const void* g, int type,
                                      const int32_t* seg, int64_t E, int64_t H,

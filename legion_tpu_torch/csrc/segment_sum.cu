@@ -1,7 +1,9 @@
 // K2 segment_sum: out[s] += data[e] for every e with seg[e] == s; lanes
-// with seg[e] < 0 (or >= S) are dropped. data is [E, F] bf16 or f32 with a
-// row stride of ld elements, out is [S, F] float32 and must be zeroed by
-// the caller.
+// with seg[e] < 0 (or >= S) are dropped. data is [E, F] with a row stride
+// of ld elements, out is [S, F] and must be zeroed by the caller: f32,
+// bf16 or f16 data into an f32 out, f64 into f64, int32 into int32 (an
+// exact sum that wraps modulo 2^32, as XLA's int32 scatter-add does; it
+// equals JAX's bit for bit, whatever the order of the atomics).
 //
 // Replaces legion_tpu/ops/pallas_segment.py::segment_sum_pallas, which
 // keeps the whole [S, F] f32 accumulator in VMEM across a sequential grid.
@@ -34,12 +36,20 @@
 //    seg[e] is read once a lane, and a thread has kLanes lanes in flight,
 //    all of their loads issued before the first atomic;
 //  - any width or alignment that four-column chunks do not fit takes the
-//    same kernel with one column a thread and a float an atomic.
+//    same kernel with one column a thread and a float an atomic;
+//  - f64 and int32 take the one-column form alone (atomicAdd on a double,
+//    native on sm_90, and on a 32-bit word: there is no four-column f64
+//    or s32 reduction), with the same tile lists, so a hub still takes one
+//    atomic a tile. The four-column form takes the f32 accumulators: f32,
+//    bf16 and f16 data.
 //
 // Known divergence: JAX's transpose of a bf16 gather scatter-adds in bf16.
 // This kernel sums bf16 data in f32 and the caller casts once at the end,
 // which is the more precise of the two.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -47,17 +57,19 @@ constexpr int kLanes = 4;            // lanes of a thread in flight
 constexpr int kTile = kThreads;      // lanes of a block's tile
 constexpr int kSlots = 2 * kTile;    // slots of its segment table (2^9)
 
-// COLS columns of a row as floats, from one load.
+// COLS columns of a row in the accumulator's type Acc, from one load.
 template <typename T, int COLS>
 struct Chunk;
 
 template <>
 struct Chunk<float, 1> {
+  using Acc = float;
   float x[1];
   __device__ __forceinline__ void load(const float* p) { x[0] = __ldcs(p); }
 };
 template <>
 struct Chunk<float, 4> {
+  using Acc = float;
   float x[4];
   __device__ __forceinline__ void load(const float* p) {
     const float4 v = __ldcs(reinterpret_cast<const float4*>(p));
@@ -66,6 +78,7 @@ struct Chunk<float, 4> {
 };
 template <>
 struct Chunk<__nv_bfloat16, 1> {
+  using Acc = float;
   float x[1];
   __device__ __forceinline__ void load(const __nv_bfloat16* p) {
     x[0] = __uint_as_float(
@@ -74,6 +87,7 @@ struct Chunk<__nv_bfloat16, 1> {
 };
 template <>
 struct Chunk<__nv_bfloat16, 4> {
+  using Acc = float;
   float x[4];
   // a 32-bit word holds two bf16: the low half is the first
   __device__ __forceinline__ void load(const __nv_bfloat16* p) {
@@ -84,14 +98,56 @@ struct Chunk<__nv_bfloat16, 4> {
     x[3] = __uint_as_float(v.y & 0xffff0000u);
   }
 };
+template <>
+struct Chunk<__half, 1> {
+  using Acc = float;
+  float x[1];
+  __device__ __forceinline__ void load(const __half* p) {
+    x[0] = __half2float(
+        __ushort_as_half(__ldcs(reinterpret_cast<const unsigned short*>(p))));
+  }
+};
+template <>
+struct Chunk<__half, 4> {
+  using Acc = float;
+  float x[4];
+  // a 32-bit word holds two f16: the low half is the first
+  __device__ __forceinline__ void load(const __half* p) {
+    const uint2 v = __ldcs(reinterpret_cast<const uint2*>(p));
+    x[0] = __half2float(__ushort_as_half((unsigned short)(v.x & 0xffffu)));
+    x[1] = __half2float(__ushort_as_half((unsigned short)(v.x >> 16)));
+    x[2] = __half2float(__ushort_as_half((unsigned short)(v.y & 0xffffu)));
+    x[3] = __half2float(__ushort_as_half((unsigned short)(v.y >> 16)));
+  }
+};
+template <>
+struct Chunk<double, 1> {
+  using Acc = double;
+  double x[1];
+  __device__ __forceinline__ void load(const double* p) { x[0] = __ldcs(p); }
+};
+// int32 summed as uint32: the same bits, wrapping modulo 2^32 with no
+// signed overflow
+template <>
+struct Chunk<int32_t, 1> {
+  using Acc = uint32_t;
+  uint32_t x[1];
+  __device__ __forceinline__ void load(const int32_t* p) {
+    x[0] = (uint32_t)__ldcs(p);
+  }
+};
+
+template <typename T>
+using AccOf = typename Chunk<T, 1>::Acc;
 
 // cpl chunks a lane, 1 << tshift threads a lane (the least power of two
 // >= cpl, at most the block).
 template <typename T, int COLS>
 __global__ void __launch_bounds__(kThreads) segment_sum_kernel(
     const T* __restrict__ data, const int32_t* __restrict__ seg,
-    float* __restrict__ out, int64_t E, int F, int64_t ld, int64_t S,
+    AccOf<T>* __restrict__ out, int64_t E, int F, int64_t ld, int64_t S,
     int cpl, int tshift) {
+  using A = AccOf<T>;
   __shared__ int32_t slot_sh[kTile];  // a lane's slot in the table, or -1
   __shared__ int32_t next_sh[kTile];  // the lane before it in its slot's list
   __shared__ int32_t key[kSlots];     // a slot's segment, -1 while it is free
@@ -154,7 +210,7 @@ __global__ void __launch_bounds__(kThreads) segment_sum_kernel(
 #pragma unroll 1
         for (int u = 0; more >> u; ++u) {
           if (!((more >> u) & 1)) continue;
-          float sum[COLS] = {};
+          A sum[COLS] = {};
           int m = next_sh[j0 + u * gpb];
           while (m >= 0) {
             int at[4];
@@ -184,7 +240,7 @@ __global__ void __launch_bounds__(kThreads) segment_sum_kernel(
 #pragma unroll
         for (int u = 0; u < kLanes; ++u) {
           if (s[u] < 0) continue;
-          float* o = out + (int64_t)s[u] * F + c * COLS;
+          A* o = out + (int64_t)s[u] * F + c * COLS;
           if constexpr (COLS == 1)
             atomicAdd(o, v[u].x[0]);
           else
@@ -199,7 +255,7 @@ __global__ void __launch_bounds__(kThreads) segment_sum_kernel(
 }
 
 template <typename T, int COLS>
-static int launch_cols(const T* data, const int32_t* seg, float* out,
+static int launch_cols(const T* data, const int32_t* seg, AccOf<T>* out,
                        int64_t E, int64_t F, int64_t ld, int64_t S,
                        void* stream) {
   const int cpl = (int)(F / COLS);
@@ -213,14 +269,17 @@ static int launch_cols(const T* data, const int32_t* seg, float* out,
 }
 
 template <typename T>
-static int launch(const T* data, const int32_t* seg, float* out, int64_t E,
+static int launch(const T* data, const int32_t* seg, AccOf<T>* out, int64_t E,
                   int64_t F, int64_t ld, int64_t S, void* stream) {
   if (E == 0 || F == 0 || S == 0) return (int)cudaSuccess;
   if (F > 2147483647LL || ld < F) return (int)cudaErrorInvalidValue;
-  // four-column chunks need whole chunks a row and aligned loads and atomics
-  if (F % 4 == 0 && ld % 4 == 0 && (uintptr_t)data % (4 * sizeof(T)) == 0 &&
-      (uintptr_t)out % 16 == 0)
-    return launch_cols<T, 4>(data, seg, out, E, F, ld, S, stream);
+  // four-column chunks (f32 accumulators alone) need whole chunks a row and
+  // aligned loads and atomics
+  if constexpr (std::is_same<AccOf<T>, float>::value) {
+    if (F % 4 == 0 && ld % 4 == 0 &&
+        (uintptr_t)data % (4 * sizeof(T)) == 0 && (uintptr_t)out % 16 == 0)
+      return launch_cols<T, 4>(data, seg, out, E, F, ld, S, stream);
+  }
   return launch_cols<T, 1>(data, seg, out, E, F, ld, S, stream);
 }
 
@@ -235,4 +294,24 @@ LT_EXPORT int lt_segment_sum_bf16(const __nv_bfloat16* data,
                                   int64_t F, int64_t ld, int64_t S,
                                   void* stream) {
   return launch<__nv_bfloat16>(data, seg, out, E, F, ld, S, stream);
+}
+
+LT_EXPORT int lt_segment_sum_f16(const __half* data, const int32_t* seg,
+                                 float* out, int64_t E, int64_t F, int64_t ld,
+                                 int64_t S, void* stream) {
+  return launch<__half>(data, seg, out, E, F, ld, S, stream);
+}
+
+LT_EXPORT int lt_segment_sum_f64(const double* data, const int32_t* seg,
+                                 double* out, int64_t E, int64_t F, int64_t ld,
+                                 int64_t S, void* stream) {
+  return launch<double>(data, seg, out, E, F, ld, S, stream);
+}
+
+// out int32, wrapping modulo 2^32
+LT_EXPORT int lt_segment_sum_i32(const int32_t* data, const int32_t* seg,
+                                 int32_t* out, int64_t E, int64_t F,
+                                 int64_t ld, int64_t S, void* stream) {
+  return launch<int32_t>(data, seg, reinterpret_cast<uint32_t*>(out), E, F,
+                         ld, S, stream);
 }

@@ -169,8 +169,8 @@ def lib() -> ctypes.CDLL:
     p, i64, i32, u32, f32 = (ctypes.c_void_p, ctypes.c_int64,
                              ctypes.c_int32, ctypes.c_uint32, ctypes.c_float)
     so.lt_gather_rows.argtypes = [p, p, p, i64, i64, i64, p]
-    so.lt_segment_sum_f32.argtypes = [p, p, p, i64, i64, i64, i64, p]
-    so.lt_segment_sum_bf16.argtypes = [p, p, p, i64, i64, i64, i64, p]
+    for name in SUM_FN.values():
+        getattr(so, name).argtypes = [p, p, p, i64, i64, i64, i64, p]
     so.lt_hop_mean.argtypes = [p, i64, i64, i32, p, p, i64, p, i64, i32, i64,
                                i32, p, p, p]
     so.lt_hop_mean_bwd.argtypes = [p, p, p, p, i64, i64, i64, i64, i64, i32,
@@ -243,8 +243,9 @@ def lib() -> ctypes.CDLL:
                                           p, p]
     so.lt_noop.argtypes = [p]
     so.lt_grid_sync_probe.argtypes = [i32, i32, p]
-    for fn in (so.lt_noop, so.lt_gather_rows, so.lt_segment_sum_f32,
-               so.lt_segment_sum_bf16, so.lt_hop_mean, so.lt_hop_mean_bwd,
+    for fn in (so.lt_noop, so.lt_gather_rows,
+               *(getattr(so, n) for n in SUM_FN.values()), so.lt_hop_mean,
+               so.lt_hop_mean_bwd,
                so.lt_hop_mean_grad,
                so.lt_lanes_by_source, so.lt_windowed_draw_i32,
                so.lt_windowed_draw_i64, so.lt_cached_gather,
@@ -322,15 +323,13 @@ def gather_rows_plain(table: torch.Tensor, ids: torch.Tensor
 
 def gather_rows(table: torch.Tensor, ids: torch.Tensor,
                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K1. table [V, F] (a float dtype of 2 bytes or more: the kernel
-    copies opaque words), ids [N] int32 -> [N, F], written into ``out``
+    """K1. table [V, F] of any dtype (the kernel copies opaque words of 16,
+    4, 2 or 1 bytes), ids [N] int32 -> [N, F], written into ``out``
     (contiguous, [N, F] in the table's dtype) when given."""
     _require(table.dim() == 2 and ids.dim() == 1,
              f"gather_rows: table {tuple(table.shape)}, ids "
              f"{tuple(ids.shape)}")
     _require(ids.dtype == torch.int32, f"gather_rows: ids {ids.dtype}")
-    _require(table.dtype.is_floating_point and table.element_size() >= 2,
-             f"gather_rows: table {table.dtype}")
     _require(out is None or (out.is_contiguous() and out.dtype == table.dtype
                              and tuple(out.shape) == (ids.shape[0],
                                                       table.shape[1])
@@ -359,28 +358,50 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor,
 # K2 segment_sum
 # ---------------------------------------------------------------------------
 
+# K2's accumulator by data dtype: f32 for f32, bf16 and f16, f64 for f64,
+# int32 (wrapping modulo 2^32) for int32
+SUM_ACC = {torch.float32: torch.float32, torch.bfloat16: torch.float32,
+           torch.float16: torch.float32, torch.float64: torch.float64,
+           torch.int32: torch.int32}
+
+
+# K2's C entry point by data dtype
+SUM_FN = {torch.float32: "lt_segment_sum_f32",
+          torch.bfloat16: "lt_segment_sum_bf16",
+          torch.float16: "lt_segment_sum_f16",
+          torch.float64: "lt_segment_sum_f64",
+          torch.int32: "lt_segment_sum_i32"}
+
+
 def segment_sum_plain(data: torch.Tensor, seg: torch.Tensor,
                       num_segments: int) -> torch.Tensor:
-    """out[s] = sum of data[e] (in f32) over e with seg[e] == s; seg < 0
-    or >= num_segments is dropped."""
+    """out[s] = sum of data[e] over e with seg[e] == s, in ``SUM_ACC``'s
+    type (int32 summed in int64 and wrapped modulo 2^32); seg < 0 or >=
+    num_segments is dropped."""
     keep = (seg >= 0) & (seg < num_segments)
     idx = torch.where(keep, seg, num_segments).long()
-    out = torch.zeros((num_segments + 1, data.shape[1]),
-                      dtype=torch.float32, device=data.device)
-    out.index_add_(0, idx, data.float())
-    return out[:num_segments]
+    acc = SUM_ACC[data.dtype]
+    wide = torch.int64 if acc == torch.int32 else acc
+    out = torch.zeros((num_segments + 1, data.shape[1]), dtype=wide,
+                      device=data.device)
+    out.index_add_(0, idx, data.to(wide))
+    out = out[:num_segments]
+    if acc == torch.int32:
+        out = ((out + 2 ** 31) % 2 ** 32 - 2 ** 31).to(torch.int32)
+    return out
 
 
 def segment_sum(data: torch.Tensor, seg: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
-    """K2. data [E, F] (bf16 or f32), seg [E] int32 -> [S, F] float32."""
+    """K2. data [E, F] (f32, bf16, f16, f64 or int32), seg [E] int32 ->
+    [S, F] in ``SUM_ACC``'s type of data's: f32, f64 or int32 (an exact
+    sum, wrapping modulo 2^32)."""
     _require(data.dim() == 2 and seg.dim() == 1
              and seg.shape[0] == data.shape[0],
              f"segment_sum: data {tuple(data.shape)}, seg "
              f"{tuple(seg.shape)}")
     _require(seg.dtype == torch.int32, f"segment_sum: seg {seg.dtype}")
-    _require(data.dtype in (torch.bfloat16, torch.float32),
-             f"segment_sum: data {data.dtype}")
+    _require(data.dtype in SUM_ACC, f"segment_sum: data {data.dtype}")
     if data.device.type == "cpu" and seg.device.type == "cpu":
         return segment_sum_plain(data, seg, num_segments)
     _require(data.is_cuda and seg.device == data.device,
@@ -393,19 +414,20 @@ def segment_sum(data: torch.Tensor, seg: torch.Tensor,
     else:
         data, ld = data.contiguous(), F
     seg = seg.contiguous()
-    out = torch.zeros((num_segments, F), dtype=torch.float32,
+    out = torch.zeros((num_segments, F), dtype=SUM_ACC[data.dtype],
                       device=data.device)
-    fn = lib().lt_segment_sum_f32 if data.dtype == torch.float32 \
-        else lib().lt_segment_sum_bf16
-    rc = fn(data.data_ptr(), seg.data_ptr(), out.data_ptr(), E, F, ld,
-            num_segments, stream_handle())
+    rc = getattr(lib(), SUM_FN[data.dtype])(
+        data.data_ptr(), seg.data_ptr(), out.data_ptr(), E, F, ld,
+        num_segments, stream_handle())
     check("segment_sum", rc)
     return out
 
 
 class GatherRows(torch.autograd.Function):
-    """K1 with K2 as its backward: d table = segment_sum(d out, ids),
-    cast back to the table's dtype (pad lanes get no gradient)."""
+    """K1 with K2 as its backward: d table = segment_sum(d out, ids), an id
+    past the table summed into its last row (the row K1 read, as the
+    transpose of JAX's clipped gather adds), cast back to the table's
+    dtype (pad lanes get no gradient)."""
 
     @staticmethod
     def forward(ctx, table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -417,7 +439,8 @@ class GatherRows(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_out: torch.Tensor):
         (ids,) = ctx.saved_tensors
-        g = segment_sum(grad_out, ids, ctx.num_rows)
+        g = segment_sum(grad_out, ids.clamp_max(ctx.num_rows - 1),
+                        ctx.num_rows)
         return g.to(ctx.table_dtype), None
 
 

@@ -14,6 +14,8 @@ in f32 (the mean's gradient exact), and K2's 2e-2 in bf16 (JAX rounds a
 bf16 softmax after each op, the port once).
 """
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -38,11 +40,13 @@ NAN, INF = np.nan, np.inf
 
 def _jdt(dtype):
     return {"float32": jnp.float32, "bfloat16": jnp.bfloat16,
+            "float16": jnp.float16, "float64": jnp.float64,
             "int32": jnp.int32}[dtype]
 
 
 def _tdt(dtype):
     return {"float32": torch.float32, "bfloat16": torch.bfloat16,
+            "float16": torch.float16, "float64": torch.float64,
             "int32": torch.int32}[dtype]
 
 
@@ -340,11 +344,26 @@ def test_masked_segment_mean_counts_exactly_past_bf16():
     _close(grad, jgrad, BF16_RTOL, "grad")
 
 
+def test_masked_segment_mean_counts_exactly_past_f16():
+    """A deliberate divergence (ROADMAP C): 3000 lanes of 3.0 in one f16
+    segment. JAX counts and sums in f16, its count stops at 2048, and its
+    mean is 4.0; the port counts exactly and sums in f32: 3.0."""
+    ids = np.zeros(3000, np.int32)
+    ref = J.masked_segment_mean(jnp.full((3000,), 3.0, jnp.float16),
+                                jnp.asarray(ids), 1)
+    got = P.masked_segment_mean(torch.full((3000,), 3.0,
+                                           dtype=torch.float16),
+                                torch.from_numpy(ids), 1)
+    assert float(ref[0]) == 4.0 and float(got[0]) == 3.0
+    assert got.dtype == torch.float16
+
+
 def test_ops_export_the_jax_names_and_refuse_other_devices():
     """The port's ops package exports the five names of ``legion_tpu.ops``;
     the K17 and K18 wrappers take CPU tensors to their plain versions
-    without counting a launch, refuse other devices and dtypes, and count
-    forward and backward launches apart."""
+    without counting a launch, refuse other devices and dtypes (f64 in the
+    max), take int64 ids as int32 ones, and count forward and backward
+    launches apart."""
     assert set(pops.__all__) == set(jops.__all__)
     assert all(callable(getattr(pops, n)) for n in pops.__all__)
     assert {"segment_max", "segment_max_bwd", "segment_softmax",
@@ -364,10 +383,10 @@ def test_ops_export_the_jax_names_and_refuse_other_devices():
         P.segment_max_bwd(x.detach(), ids, meta[:2], meta[:2], 0.0)
     with pytest.raises(ValueError, match="segment_softmax_bwd: tensors on"):
         P.segment_softmax_bwd(meta, meta, ids, 2)
-    with pytest.raises(ValueError, match="data torch.float16"):
-        P.masked_segment_max(x.half(), ids, 2)
-    with pytest.raises(ValueError, match="segment ids torch.int64"):
-        P.segment_softmax(x, ids.long(), 2)
+    with pytest.raises(ValueError, match="data torch.float64"):
+        P.masked_segment_max(x.double(), ids, 2)
+    # int64 ids give the int32 ids' result, bit for bit
+    _same(P.segment_softmax(x, ids.long(), 2), P.segment_softmax(x, ids, 2))
     with pytest.raises(ValueError, match="data torch.int32"):
         P.segment_softmax(x.int(), ids, 2)
 
@@ -492,6 +511,388 @@ def test_saved_grouping_matches_plain_chain_and_jax(op, dtype):
         else:
             _close(xg.grad, jgrad, rtol, "grad", _grad_scale(out, w))
     assert port(xt).grad_fn is None
+
+
+# ---------------------------------------------------------------------------
+# the public ops at JAX's ranks, dtypes and ids (ROADMAP C.1-C.3)
+# ---------------------------------------------------------------------------
+
+PUB_E, PUB_S = 40, 9
+PUB_SHAPES = [(PUB_E,), (PUB_E, 3), (PUB_E, 2, 3)]
+# the sums' and the mean's tolerance, of the largest value: f32 sums in
+# another order; bf16 and f16 K2's 2e-2 (JAX sums in the data's dtype, the
+# port in f32, rounding once); f64 1e-12; int32 exact
+SUM_RTOL = {"float32": F32_RTOL, "bfloat16": BF16_RTOL,
+            "float16": BF16_RTOL, "float64": 1e-12, "int32": 0.0}
+# f16's softmax: JAX rounds after each f16 op, the port once
+F16_SOFTMAX_RTOL = 4e-3
+
+
+def _pub_ids(rng, E=PUB_E, S=PUB_S):
+    """[E] int32 ids with pads, ids past S and an empty segment (S - 2)."""
+    ids = rng.integers(-2, S + 2, E).astype(np.int32)
+    ids[ids == S - 2] = 0
+    return ids
+
+
+def _inputs(shape, dtype, rng):
+    if dtype == "int32":
+        x = rng.integers(-1000, 1000, shape).astype(np.int32)
+        return jnp.asarray(x), torch.from_numpy(x)
+    return _both(rng.standard_normal(shape).astype(np.float32), dtype)
+
+
+def _ulp_f16(v):
+    """One f16 ulp of each value (11 significant bits; 2^-24 below the
+    normal range)."""
+    v = np.maximum(np.abs(v.astype(np.float32)), 2.0 ** -14)
+    return np.exp2(np.floor(np.log2(v)) - 10)
+
+
+@pytest.mark.parametrize("shape", PUB_SHAPES)
+@pytest.mark.parametrize("dtype", sorted(SUM_RTOL))
+def test_sum_and_mean_match_jax_at_every_rank_and_dtype(shape, dtype):
+    """``masked_segment_sum`` and ``masked_segment_mean`` at [E], [E, F]
+    and [E, a, b] in f32, bf16, f16, f64 and int32, with pads, ids past S
+    and an empty segment: JAX's dtype (the int32 mean's f32) and shape,
+    its values within ``SUM_RTOL`` of the largest (int32 sums exact, the
+    int32 mean bit for bit). For floats the gradients too (C.3): the
+    sum's g[seg] bit for bit, 0 for a pad or an id >= S; the mean's g /
+    count bit for bit in f32 and f64, within ``SUM_RTOL`` in bf16 and
+    f16."""
+    rng = np.random.default_rng(len(shape) + len(dtype))
+    ids = _pub_ids(rng)
+    tid = torch.from_numpy(ids)
+    xj, xt = _inputs(shape, dtype, rng)
+    w = rng.standard_normal((PUB_S,) + shape[1:]).astype(np.float32)
+    for name in ("masked_segment_sum", "masked_segment_mean"):
+        def jfn(d, name=name):
+            return getattr(J, name)(d, jnp.asarray(ids), PUB_S)
+
+        def pfn(d, name=name):
+            return getattr(P, name)(d, tid, PUB_S)
+        if dtype == "int32":
+            ref, got = jfn(xj), pfn(xt)
+            assert got.dtype == (torch.int32 if name.endswith("sum")
+                                 else torch.float32)
+            assert np.asarray(ref).dtype == got.numpy().dtype
+            _same(got, ref, name)
+            continue
+        wj, wt = _both(w, dtype)
+        jout, jgrad = _jax_vjp(jfn, xj, wj)
+        out, grad = _port_vjp(pfn, xt, wt)
+        assert out.dtype == xt.dtype and out.shape == (PUB_S,) + shape[1:]
+        _close(out, jout, SUM_RTOL[dtype], name)
+        if name.endswith("sum") or dtype in ("float32", "float64"):
+            _same(grad, jgrad, name + " grad")
+        else:
+            _close(grad, jgrad, SUM_RTOL[dtype], name + " grad")
+        assert (grad[(tid < 0) | (tid >= PUB_S)] == 0).all()
+
+
+def test_int32_sum_wraps_and_the_int32_mean_is_jaxs_bit_for_bit():
+    """int32 sums are exact and wrap modulo 2^32, as XLA's int32
+    scatter-add does: two lanes of 2^30 give -2^31 (in the public sum and
+    in K2's plain version, which sums in int64 and wraps), lanes across
+    the whole int32 range equal JAX's bit for bit. The int32 mean
+    converts the sum and the exact count to f32 and divides once, as
+    JAX's true division does: bit for bit."""
+    two = torch.full((2, 1), 2 ** 30, dtype=torch.int32)
+    zero = torch.zeros(2, dtype=torch.int32)
+    assert P.masked_segment_sum(two[:, 0], zero, 1).tolist() == [-2 ** 31]
+    assert kernels.segment_sum_plain(two, zero, 1).tolist() == [[-2 ** 31]]
+    rng = np.random.default_rng(31)
+    x = rng.integers(-2 ** 31, 2 ** 31, (PUB_E, 2)).astype(np.int32)
+    x[:6] = 2 ** 31 - 1
+    ids = _pub_ids(rng)
+    ids[:6] = 1
+    for name in ("masked_segment_sum", "masked_segment_mean"):
+        ref = getattr(J, name)(jnp.asarray(x), jnp.asarray(ids), PUB_S)
+        got = getattr(P, name)(torch.from_numpy(x), torch.from_numpy(ids),
+                               PUB_S)
+        assert np.asarray(ref).dtype == got.numpy().dtype
+        _same(got, ref, name)
+
+
+def _special_f16(rng, shape):
+    """f16 small integers (ties), a NaN, -0.0 and +0.0."""
+    x = rng.integers(-3, 4, shape).astype(np.float16)
+    flat = x.reshape(-1)
+    flat[rng.choice(flat.size, 4, replace=False)] = [np.nan, -0.0, 0.0,
+                                                      -0.0]
+    return x
+
+
+@pytest.mark.parametrize("shape", PUB_SHAPES)
+def test_f16_max_and_softmax_match_jax(shape):
+    """f16, the plain versions of K17's and K18's f16 forms: the max bit
+    for bit (ties, a NaN, the sign of a zero), its gradient within one f16
+    ulp (JAX rounds n, 1 / n and the product to f16, as the port does);
+    the softmax within 4e-3 of the largest value, its gradient within
+    4e-3 of the largest p * g term (JAX rounds after each f16 op, the
+    port once; ids past S are pads here, ROADMAP C)."""
+    rng = np.random.default_rng(16 + len(shape))
+    ids = _pub_ids(rng)
+    tid = torch.from_numpy(ids)
+    x = _special_f16(rng, shape)
+    w = rng.standard_normal((PUB_S,) + shape[1:]).astype(np.float16)
+    jout, jgrad = _jax_vjp(lambda d: J.masked_segment_max(
+        d, jnp.asarray(ids), PUB_S), jnp.asarray(x, jnp.float16),
+        jnp.asarray(w, jnp.float16))
+    out, grad = _port_vjp(lambda d: P.masked_segment_max(d, tid, PUB_S),
+                          torch.from_numpy(x), torch.from_numpy(w))
+    assert out.dtype == torch.float16
+    _same(out, jout, "max")
+    got, ref = _np(grad).astype(np.float32), np.asarray(jgrad, np.float32)
+    assert (np.abs(got - ref) <= _ulp_f16(ref)).all()
+    assert (got != 0).sum() >= (ref != 0).sum() > 0
+    ids = np.where(ids >= PUB_S, -1, ids).astype(np.int32)
+    s = (rng.standard_normal(shape) * 2).astype(np.float16)
+    w = rng.standard_normal(shape).astype(np.float16)
+    jout, jgrad = _jax_vjp(lambda d: J.segment_softmax(
+        d, jnp.asarray(ids), PUB_S), jnp.asarray(s, jnp.float16),
+        jnp.asarray(w, jnp.float16))
+    p, grad = _port_vjp(lambda d: P.segment_softmax(
+        d, torch.from_numpy(ids), PUB_S), torch.from_numpy(s),
+        torch.from_numpy(w))
+    assert p.dtype == torch.float16 and p.shape == shape
+    _close(p.float(), np.asarray(jout, np.float32), F16_SOFTMAX_RTOL,
+           "softmax")
+    _close(grad.float(), np.asarray(jgrad, np.float32), F16_SOFTMAX_RTOL,
+           "softmax grad", _grad_scale(p.float(), w.astype(np.float32)))
+
+
+# int64 ids past int32 (each narrowed to the int32 id that means the same)
+BIG_IDS = {2 ** 32 + 1: -1, 2 ** 31 + 1: -1, -2 ** 32: -1, 2 ** 40 + 2: -1}
+
+
+@pytest.mark.parametrize("id_dtype", ["int64", "int16", "uint8", "uint16",
+                                      "uint32"])
+def test_ids_of_any_integer_dtype_give_the_int32_result(id_dtype):
+    """Every public op with int64, int16, uint8, uint16 or uint32 ids (the
+    unsigned: no pads) equals the same op with the int32 ids that mean the
+    same, bit for bit, forward and gradient; the sum and the gather equal
+    JAX's given
+    ids of that dtype (``jnp.asarray(..., dtype)``). int64 ids past int32
+    are clamped before they are narrowed: 2^32 + 1 is dropped by the
+    segment ops, not wrapped to 1 (JAX's scatters truncate an int64 id to
+    its low 32 bits, ROADMAP C; JAX is given the dropped id there), and
+    reads the last row in the gather, as JAX's clip does."""
+    rng = np.random.default_rng(64)
+    lo = 0 if id_dtype.startswith("uint") else -1
+    ids = rng.integers(lo, PUB_S + 2, PUB_E).astype(np.int64)
+    i32 = ids.astype(np.int32)
+    big = ids.copy()
+    if id_dtype == "int64":
+        at = rng.choice(PUB_E, len(BIG_IDS), replace=False)
+        big[at] = list(BIG_IDS)
+        i32[at] = list(BIG_IDS.values())
+    big = big.astype(id_dtype)
+    x = rng.standard_normal((PUB_E, 3)).astype(np.float32)
+    w = rng.standard_normal((PUB_S, 3)).astype(np.float32)
+    for op in ("masked_segment_sum", "masked_segment_mean",
+               "masked_segment_max", "segment_softmax"):
+        g = w if op != "segment_softmax" else x[::-1].copy()
+        by = [_port_vjp(lambda d, i=i: getattr(P, op)(d, i, PUB_S),
+                        torch.from_numpy(x), torch.from_numpy(g))
+              for i in (torch.from_numpy(big), torch.from_numpy(i32))]
+        _same(by[0][0], by[1][0], op)
+        _same(by[0][1], by[1][1], op + " grad")
+    ref = J.masked_segment_sum(jnp.asarray(x), jnp.asarray(
+        np.where(i32 < 0, -1, big.astype(np.int64)), _jdt_id(id_dtype)),
+        PUB_S)
+    _close(P.masked_segment_sum(torch.from_numpy(x), torch.from_numpy(big),
+                                PUB_S), ref, F32_RTOL, "sum against JAX")
+    gid = big.reshape(4, -1)
+    ref = J.gather_rows(jnp.asarray(w), jnp.asarray(gid, _jdt_id(id_dtype)))
+    got = P.gather_rows(torch.from_numpy(w), torch.from_numpy(gid))
+    pad = torch.from_numpy(gid.astype(np.int64) < 0)
+    assert got.shape == ref.shape and (got[pad] == 0).all()
+    _same(got[~pad], np.asarray(ref)[~pad.numpy()], "gather")
+
+
+def _jdt_id(id_dtype):
+    return {"int64": jnp.int64, "int16": jnp.int16, "uint8": jnp.uint8,
+            "uint16": jnp.uint16, "uint32": jnp.uint32}[id_dtype]
+
+
+# name: (table, ids): gather_rows' tables of every rank and some dtypes,
+# ids of two shapes with pads and ids past V (V = 7)
+GATHER_CASES = {
+    "[V] f32, [2, 4] ids": ((7,), np.float32, (2, 4)),
+    "[V, 3] int32": ((7, 3), np.int32, (9,)),
+    "[V, 5] bool": ((7, 5), np.bool_, (2, 4)),
+    "[V, 3] uint8": ((7, 3), np.uint8, (2, 4)),
+    "[V, 2, 3] f64": ((7, 2, 3), np.float64, (2, 4)),
+    "[V] f16": ((7,), np.float16, (9,)),
+}
+
+
+@pytest.mark.parametrize("case", list(GATHER_CASES))
+def test_gather_rows_takes_any_table_and_id_shape(case):
+    """``gather_rows`` of [V], [V, F] and [V, a, b] tables of f32, int32,
+    bool, uint8, f64 and f16 by [N] and [2, 4] ids with pads and ids past
+    V: JAX's ``table[clip(idx, 0, V - 1)]`` of shape ``idx.shape +
+    table.shape[1:]`` in the table's dtype, bit for bit; a pad's row is
+    zero where JAX's is row 0 (the recorded divergence "Pad rows")."""
+    tshape, dtype, ishape = GATHER_CASES[case]
+    rng = np.random.default_rng(len(case))
+    table = rng.integers(0, 100, tshape).astype(dtype) if dtype != np.bool_ \
+        else rng.random(tshape) < 0.5
+    if dtype in (np.float32, np.float64, np.float16):
+        table = (table + rng.standard_normal(tshape)).astype(dtype)
+    idx = rng.integers(-1, 10, ishape).astype(np.int32)
+    ref = np.asarray(J.gather_rows(jnp.asarray(table), jnp.asarray(idx)))
+    got = P.gather_rows(torch.from_numpy(table), torch.from_numpy(idx))
+    assert got.shape == ref.shape and got.numpy().dtype == ref.dtype
+    pad = idx < 0
+    np.testing.assert_array_equal(got.numpy()[~pad], ref[~pad])
+    assert not got.numpy()[pad].any()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16",
+                                   "float64"])
+def test_gather_rows_gradient_matches_jax_grad(dtype):
+    """The gradient of ``gather_rows`` under autograd against
+    ``jax.grad``, [V, 2, 3] tables by [5, 8] ids (C.2): rows summed into
+    clip(id, 0, V - 1), an id >= V into row V - 1, the row the forward
+    read. Pads' cotangents are 0 for JAX, whose clipped gather sends them
+    to row 0; the port's pads add nothing, whatever their cotangent.
+    f32 within rtol 1e-5 (sums in another order), bf16 and f16 2e-2 (JAX
+    sums in the dtype), f64 1e-12."""
+    rng = np.random.default_rng(2)
+    V = 7
+    idx = rng.integers(-1, V + 3, (5, 8)).astype(np.int32)
+    idx[0, :3] = [V, V + 2, V - 1]
+    tj, tt = _both(rng.standard_normal((V, 2, 3)).astype(np.float32), dtype)
+    w = rng.standard_normal((5, 8, 2, 3)).astype(np.float32)
+    wj, wt = _both(np.where((idx < 0)[..., None, None], 0, w), dtype)
+    _, jgrad = _jax_vjp(lambda t: J.gather_rows(t, jnp.asarray(idx)), tj, wj)
+    out, grad = _port_vjp(lambda t: P.gather_rows(t, torch.from_numpy(idx)),
+                          tt, _both(w, dtype)[1])
+    assert grad.dtype == tt.dtype and grad.shape == tt.shape
+    _close(grad, jgrad, SUM_RTOL[dtype], "grad")
+
+
+def test_gradients_of_the_c2_and_c3_examples():
+    """C.2: a [7, 2] table, ids [2, 6, 9, 0], the gradient of sum(): row 6
+    gets [2, 2] (the id 9 reads row 6), as ``jax.grad`` gives. C.3: ids
+    [0, 5, 1, -1, 2] into 3 segments, out weighted by [1, 2, 3]: the
+    gradient [1, 0, 2, 0, 3], as ``jax.grad`` gives."""
+    t = np.arange(14, dtype=np.float32).reshape(7, 2)
+    ids = np.array([2, 6, 9, 0], np.int32)
+    ref = jax.grad(lambda a: J.gather_rows(a, jnp.asarray(ids)).sum())(
+        jnp.asarray(t))
+    tt = torch.from_numpy(t).requires_grad_()
+    P.gather_rows(tt, torch.from_numpy(ids)).sum().backward()
+    _same(tt.grad, ref)
+    assert tt.grad[6].tolist() == [2.0, 2.0]
+    seg = np.array([0, 5, 1, -1, 2], np.int32)
+    wts = np.array([1.0, 2.0, 3.0], np.float32)
+    ref = jax.grad(lambda a: (J.masked_segment_sum(
+        a, jnp.asarray(seg), 3) * wts).sum())(jnp.ones(5, jnp.float32))
+    x = torch.ones(5, requires_grad=True)
+    (P.masked_segment_sum(x, torch.from_numpy(seg), 3)
+     * torch.from_numpy(wts)).sum().backward()
+    _same(x.grad, ref)
+    assert x.grad.tolist() == [1.0, 0.0, 2.0, 0.0, 3.0]
+
+
+IDS3 = torch.tensor([0, 1, -1], dtype=torch.int32)
+REFUSALS = {
+    "sum int64": (lambda: P.masked_segment_sum(
+        torch.ones(3, dtype=torch.int64), IDS3, 2),
+        "masked_segment_sum: data torch.int64"),
+    "sum bool": (lambda: P.masked_segment_sum(
+        torch.ones(3, dtype=torch.bool), IDS3, 2),
+        "masked_segment_sum: data torch.bool"),
+    "mean int64": (lambda: P.masked_segment_mean(
+        torch.ones(3, dtype=torch.int64), IDS3, 2),
+        "masked_segment_mean: data torch.int64"),
+    "max f64": (lambda: P.masked_segment_max(
+        torch.ones(3, dtype=torch.float64), IDS3, 2),
+        "masked_segment_max: data torch.float64"),
+    "max int64": (lambda: P.masked_segment_max(
+        torch.ones(3, dtype=torch.int64), IDS3, 2),
+        "masked_segment_max: data torch.int64"),
+    "softmax f64": (lambda: P.segment_softmax(
+        torch.ones(3, dtype=torch.float64), IDS3, 2),
+        "segment_softmax: data torch.float64"),
+    "softmax int32": (lambda: P.segment_softmax(
+        torch.ones(3, dtype=torch.int32), IDS3, 2),
+        "segment_softmax: data torch.int32"),
+    "float ids": (lambda: P.masked_segment_sum(torch.ones(3), IDS3.float(),
+                                               2),
+                  "masked_segment_sum: ids torch.float32"),
+    "uint64 ids": (lambda: P.gather_rows(
+        torch.ones(3), torch.zeros(2, dtype=torch.uint64)),
+        "gather_rows: ids torch.uint64"),
+    "bool ids": (lambda: P.segment_softmax(torch.ones(3), IDS3 > 0, 2),
+                 "segment_softmax: ids torch.bool"),
+    "S of 2^31": (lambda: P.masked_segment_sum(torch.ones(3), IDS3.long(),
+                                               2 ** 31),
+                  "masked_segment_sum: 2147483648 segments"),
+    "ids [E, 1]": (lambda: P.masked_segment_sum(torch.ones(3), IDS3[:, None],
+                                                2),
+                   "masked_segment_sum: data (3,), segment ids (3, 1)"),
+    "empty table": (lambda: P.gather_rows(torch.ones((0, 2)), IDS3),
+                    "gather_rows: an empty table"),
+    "complex gradient": (lambda: P.gather_rows(
+        torch.ones(3, dtype=torch.complex64, requires_grad=True), IDS3),
+        "gather_rows: no gradient for data torch.complex64"),
+}
+
+
+@pytest.mark.parametrize("case", list(REFUSALS))
+def test_public_ops_refuse_what_the_contract_leaves_out(case):
+    """Outside the contract each public op raises a ValueError that names
+    the function and what it refused (the refused dtypes are deliberate
+    divergences, ROADMAP C); none falls back to plain PyTorch."""
+    fn, msg = REFUSALS[case]
+    with pytest.raises(ValueError, match=re.escape(msg)):
+        fn()
+
+
+def test_empty_shapes_match_jax():
+    """E = 0, S = 0, V = 1, ids with a zero dimension and [E, 0] rows: each
+    op gives JAX's shape, dtype and values (zeros, the max's initial), and
+    the sum's and the gather's gradients their shapes."""
+    cases = [
+        ("sum E 0", lambda m, i: m.masked_segment_sum(
+            i(np.zeros((0, 3), np.float32)), i(np.zeros(0, np.int32)), 4)),
+        ("sum S 0", lambda m, i: m.masked_segment_sum(
+            i(np.ones((3, 2), np.float32)), i(np.zeros(3, np.int32)), 0)),
+        ("mean [E, 0]", lambda m, i: m.masked_segment_mean(
+            i(np.ones((3, 0), np.float32)), i(np.zeros(3, np.int32)), 2)),
+        ("mean int32 E 0", lambda m, i: m.masked_segment_mean(
+            i(np.zeros((0,), np.int32)), i(np.zeros(0, np.int32)), 2)),
+        ("max E 0", lambda m, i: m.masked_segment_max(
+            i(np.zeros((0, 2), np.float16)), i(np.zeros(0, np.int32)), 3)),
+        ("max S 0", lambda m, i: m.masked_segment_max(
+            i(np.ones((3, 2), np.float32)), i(np.zeros(3, np.int32)), 0)),
+        ("softmax E 0", lambda m, i: m.segment_softmax(
+            i(np.zeros((0,), np.float32)), i(np.zeros(0, np.int32)), 2)),
+        ("gather V 1", lambda m, i: m.gather_rows(
+            i(np.array([[1.5, -2.0]], np.float32)),
+            i(np.array([0, 3, 1], np.int32)))),
+        ("gather [2, 0] ids", lambda m, i: m.gather_rows(
+            i(np.ones((5, 2), np.float32)), i(np.zeros((2, 0), np.int32)))),
+        ("gather V 0, no id", lambda m, i: m.gather_rows(
+            i(np.ones((0, 3), np.float32)), i(np.zeros(0, np.int32)))),
+    ]
+    for what, fn in cases:
+        ref = np.asarray(fn(J, jnp.asarray))
+        got = fn(P, torch.from_numpy)
+        assert got.shape == ref.shape, what
+        assert got.numpy().dtype == ref.dtype, what
+        np.testing.assert_array_equal(got.numpy(), ref, err_msg=what)
+    x = torch.zeros((0, 3), requires_grad=True)
+    P.masked_segment_sum(x, torch.zeros(0, dtype=torch.int32), 4).sum() \
+        .backward()
+    assert x.grad.shape == (0, 3)
+    t = torch.ones((5, 2), requires_grad=True)
+    P.gather_rows(t, torch.zeros((2, 0), dtype=torch.int32)).sum().backward()
+    assert torch.equal(t.grad, torch.zeros(5, 2))
 
 
 def test_csr_neighbors_match_jax():
