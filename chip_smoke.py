@@ -136,6 +136,18 @@ CUDA card, nvcc (``$CUDA_HOME`` or ``/usr/local/cuda``) and no network.
      timed beside it) and K16 at its dropout of those rows; then ``UnifiedCache.build`` from device tensors
      against ``build_from_host`` at H's and HT's plans, in f32 and bf16,
      bit for bit, with both set-up times;
+     then the staged host pipeline (phase 6d, ``phase_staged``) on H, HT
+     and clique-HT: K19 ``miss_compact`` and K20 ``staged_assemble`` at
+     each path's fetch, K5's device-only form and K21 ``merge_draws`` at
+     its hops, and the host half's C++ (the gather of the missed rows,
+     the host's draws), each bit for bit against its plain version, timed
+     beside its bound, with the bulk copy's rate; the assembled rows
+     against the zero-copy fetch and the split draws against
+     ``sample_neighbors``, bit for bit; each staged trainer's 5 losses,
+     counters and valid accuracy against the zero-copy trainer of the
+     same seed; both trainers in turns (ms a step, the host half's hidden
+     share); and the four kernels and the host half at the edges of their
+     shapes (``staged_edges``);
   7. checks a small HT slice on the card against the same slice on the
      CPU;
   8. writes phase 5's host dataset to disk in Legion's layout and trains
@@ -226,7 +238,9 @@ the host dataset and runs phases 5 and 9, for work on the host reads of
 K4 and K13. ``python3 chip_smoke.py --dist`` builds, holds K10 and K14 at
 their offsets (and K11-K14 at their edges), makes the host dataset and
 runs phase 10 alone, for work on ``legion_tpu_torch/parallel``. ``python3
-chip_smoke.py --int64`` builds and runs phase 12 alone.
+chip_smoke.py --int64`` builds and runs phase 12 alone. ``python3
+chip_smoke.py --staged`` builds, makes the host dataset and runs phase 6d
+alone, for work on the staged host pipeline.
 """
 
 import json
@@ -292,6 +306,17 @@ KERNELS = {
                         replaces="legion_tpu/ops/segment.py:54"),
     "segment_softmax": dict(source="legion_tpu_torch/csrc/segment_softmax.cu",
                             replaces="legion_tpu/ops/segment.py:67"),
+    # the staged host pipeline (host_transfer="staged"): program A's
+    # lookup and compaction, program B's assembly (XLA in the JAX
+    # package), the per-hop merge and the device-only draws
+    "miss_compact": dict(source="legion_tpu_torch/csrc/staged.cu",
+                         replaces="legion_tpu/pipeline/staged.py:112"),
+    "staged_assemble": dict(source="legion_tpu_torch/csrc/staged.cu",
+                            replaces="legion_tpu/pipeline/staged.py:375"),
+    "merge_draws": dict(source="legion_tpu_torch/csrc/staged.cu",
+                        replaces="legion_tpu/sampling/access.py:78"),
+    "csr_draw_device": dict(source="legion_tpu_torch/csrc/csr_draw.cu",
+                            replaces="legion_tpu/sampling/access.py:279"),
 }
 # the kernels each path must launch, and the path whose launches the
 # kernel line reports
@@ -347,6 +372,19 @@ PATH_KERNELS = {
     # backward's gather (K1)
     "segment": ("segment_max", "segment_max_bwd", "segment_softmax",
                 "segment_softmax_bwd", "segment_sum", "gather_rows"),
+    # the staged host pipeline (phase 6d): K19 and K20 in place of K4 or
+    # K13; with host topology K5's device-only form (one member) or the
+    # clique's draws, and K21, in place of K5's host reads
+    "H-staged": ("windowed_draw", "miss_compact", "staged_assemble",
+                 "step_keys", "hop_mean", "hop_mean_grad") + SORT_DEDUP
+    + DROPOUT,
+    "HT-staged": ("csr_draw_device", "merge_draws", "miss_compact",
+                  "staged_assemble", "step_keys", "hop_mean",
+                  "hop_mean_grad") + SORT_DEDUP + DROPOUT,
+    "clique-HT-staged": ("gather_rows", "bucket_by_owner", "clique_gather",
+                         "clique_draw", "clique_draw_unsort", "merge_draws",
+                         "miss_compact", "staged_assemble", "step_keys",
+                         "hop_mean", "hop_mean_grad") + SORT_DEDUP + DROPOUT,
 }
 # the paths whose CUDA-graph replays phase_fused holds against eager steps
 FUSED_PATHS = ("device", "device-map", "gat", "HT")
@@ -370,7 +408,10 @@ REPORTED_PATH = {"gather_rows": "device", "segment_sum": "gcn",
                  "bucket_by_owner": "clique-HT", "clique_gather": "clique-HT",
                  "clique_draw": "clique-HT", "hop_mean": "device",
                  "hop_mean_grad": "device", "dropout_act": "device",
-                 "segment_max": "segment", "segment_softmax": "segment"}
+                 "segment_max": "segment", "segment_softmax": "segment",
+                 "miss_compact": "H-staged", "staged_assemble": "H-staged",
+                 "merge_draws": "HT-staged",
+                 "csr_draw_device": "HT-staged"}
 # bench.py --model gat --features host (GAT-H)
 GAT_H = dict(cache_bytes=CACHE_BYTES, feature_residency="host", model="gat")
 # bench.py --model X: lp_sage batches divide into thirds, GCN dedups the
@@ -703,7 +744,7 @@ def tuple_tol(*tols):
 
 def bench_config(ds, cache_bytes=0, feature_residency="hbm",
                  topo_residency="hbm", model="graphsage", dedup="sort",
-                 fanouts=(25, 10)):
+                 fanouts=(25, 10), host_transfer="auto", map_impl="auto"):
     from legion_tpu_torch.config import (CacheConfig, LegionConfig,
                                          MeshConfig, SamplerConfig,
                                          TrainConfig)
@@ -716,7 +757,8 @@ def bench_config(ds, cache_bytes=0, feature_residency="hbm",
         sampler=SamplerConfig(**skw),
         cache=CacheConfig(presample_steps=8, cache_bytes=cache_bytes,
                           feature_residency=feature_residency,
-                          topo_residency=topo_residency),
+                          topo_residency=topo_residency,
+                          host_transfer=host_transfer, map_impl=map_impl),
         train=TrainConfig(model=model, hidden_dim=256, epochs=1,
                           lr=3e-3, dropout=0.5, fused_steps=1,
                           num_layers=len(fanouts)),
@@ -4948,23 +4990,9 @@ def phase_host_kernels(tr_h, tr_ht, torch):
     ref = access.csr_draw(f1, 10, 6, *host, *cached)
     if not bool((acc.row_map >= 0).any()):
         # HT's plan gave the topology cache no rows: hold K5's hit path
-        # on a topology-only cache of the same budget, filled in HT's
-        # topology order (the alpha = 0 end of the cost model's sweep)
-        import numpy as np
-        from legion_tpu_torch.cache.cost_model import CostModelResult
-        from legion_tpu_torch.cache.unified_cache import UnifiedCache
-        p, hg = tr_ht.cache_plan, tr_ht.dataset.graph
-        row_bytes = 8 + 4 * np.diff(hg.indptr)[p.topo_order]
-        cap = int(np.searchsorted(np.cumsum(row_bytes), CACHE_BYTES,
-                                  side="right"))
-        tc = UnifiedCache.build_from_host(
-            CostModelResult(0, cap, 0.0, p.feature_order, p.topo_order, 0.0,
-                            0.0), None, hg.indptr, hg.indices,
-            hg.num_nodes, device="cuda")
+        # on a topology-only cache of the same budget
+        tc = topo_only_cache(tr_ht, "csr_draw")
         cached = (tc.row_map, tc.sub_indptr, tc.sub_indices)
-        print(f"  csr_draw: HT's plan cached no topology rows; hit paths "
-              f"below use a topology-only cache of {cap} rows "
-              f"({tc.sub_indices.shape[0]} edges)")
     rows = torch.nonzero(cached[0] >= 0).flatten().to(torch.int32)
     fh = rows[torch.randint(0, rows.numel(), f1.shape, generator=g,
                             device="cuda")]
@@ -5036,6 +5064,28 @@ def phase_host_kernels(tr_h, tr_ht, torch):
     # per train step of HT: K4 once (the fetch), K5 once per hop
     add_main(results, main)
     return results
+
+
+def topo_only_cache(tr, label):
+    """A topology-only cache of CACHE_BYTES for the host trainer ``tr``,
+    filled in its plan's topology order (the alpha = 0 end of the cost
+    model's sweep): HT's own plan at that budget caches no topology
+    rows, so K5's cached branch needs this one to draw anything."""
+    import numpy as np
+    from legion_tpu_torch.cache.cost_model import CostModelResult
+    from legion_tpu_torch.cache.unified_cache import UnifiedCache
+    p, hg = tr.cache_plan, tr.dataset.graph
+    row_bytes = 8 + 4 * np.diff(hg.indptr)[p.topo_order]
+    cap = int(np.searchsorted(np.cumsum(row_bytes), CACHE_BYTES,
+                              side="right"))
+    tc = UnifiedCache.build_from_host(
+        CostModelResult(0, cap, 0.0, p.feature_order, p.topo_order, 0.0,
+                        0.0), None, hg.indptr, hg.indices, hg.num_nodes,
+        device="cuda")
+    print(f"  {label}: HT's plan cached no topology rows; hit paths below "
+          f"use a topology-only cache of {cap} rows "
+          f"({tc.sub_indices.shape[0]} edges)")
+    return tc
 
 
 def k5_link(acc, f, fo, key, what, torch):
@@ -6034,7 +6084,8 @@ CLIQUE_AB_STEPS = 3           # the hash and clique-H runs, each side
 
 
 def clique_config(ds, cache_bytes, topo_residency="host",
-                  map_impl="direct", feature_residency="host"):
+                  map_impl="direct", feature_residency="host",
+                  host_transfer="auto"):
     """The bench configuration (batch 8000 a member, [25,10], hidden 256,
     bf16, sort dedup with the aligned last hop) for a clique of
     CLIQUE_KG members on the card."""
@@ -6042,7 +6093,8 @@ def clique_config(ds, cache_bytes, topo_residency="host",
     from legion_tpu_torch.config import MeshConfig
     cfg = bench_config(ds, cache_bytes=cache_bytes,
                        feature_residency=feature_residency,
-                       topo_residency=topo_residency)
+                       topo_residency=topo_residency,
+                       host_transfer=host_transfer)
     return replace(cfg, cache=replace(cfg.cache, map_impl=map_impl),
                    mesh=MeshConfig(num_cliques=1, clique_size=CLIQUE_KG))
 
@@ -7728,6 +7780,693 @@ def phase_int64(torch, results):
     torch.cuda.empty_cache()
 
 
+# the staged host pipeline (host_transfer="staged"), phase 6d and --staged:
+# steps held against the zero-copy trainer, and the steps of the A/B of
+# the two in turns
+STAGED_STEPS = 5
+STAGED_TURN_STEPS = 8
+
+
+def staged_ids(tr, a):
+    """The fetch's ids [n, M] of program A's batch ``a``."""
+    import torch
+    M = tr.sampler_t.max_ids
+    if tr.n_dev == 1:
+        return a.batch.node_ids[:M][None]
+    return torch.stack([b.node_ids[:M] for b in a.batch])
+
+
+def staged_batch(tr, torch, ctr=0):
+    """Program A of the staged trainer's train batch at ``ctr``, from a
+    fresh sampler state and counter (the pipeline's own are left alone)."""
+    key = torch.full((), tr._base_key, dtype=torch.int64, device="cuda")
+    c = torch.full((), ctr, dtype=torch.int64, device="cuda")
+    a = tr._staged._train_sample(tr._init_pos_map(), key, c, counts=False)
+    torch.cuda.synchronize()
+    return a
+
+
+def compacted_exact(k, p):
+    """K19's outputs, every field equal."""
+    import torch
+    fields = ("m_ids", "m_pos", "rank", "n_miss", "hits") + (
+        ("payload",) if p.payload is not None else ())
+    ok = all(getattr(k, f).shape == getattr(p, f).shape
+             and torch.equal(getattr(k, f), getattr(p, f)) for f in fields)
+    err = (k.rank.float() - p.rank.float()).abs().max().item() \
+        if k.rank.numel() else 0.0
+    return err, ok
+
+
+def pair_exact(k, p):
+    """(lanes, served) of K5's device-only form, both equal."""
+    import torch
+    ok = torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+    err = (k[0].float() - p[0].float()).abs().max().item() \
+        if k[0].numel() else 0.0
+    return err, ok
+
+
+def compact_form(tr, ids):
+    """K19's lookup operand on ``tr``'s path: the direct map, K11's slots
+    or the clique's served lanes."""
+    pipe = tr._staged
+    if pipe.staged_clique:
+        return dict(hit=tr.feature_source.fetch_cached(ids)[1])
+    if pipe._hash is not None:
+        return dict(slot=pipe._hash.lookup(ids))
+    return dict(table=pipe._table)
+
+
+def compact_bytes(ids, form):
+    """K19's least bytes: the ids, the lookup (a map entry a valid id, or
+    the slots or flags), the three [n, M] outputs (and the map's payload),
+    n_miss and hits."""
+    n, M = ids.shape
+    valid = int((ids >= 0).sum())
+    if "table" in form:
+        return nb(ids) + 4 * valid + 16 * n * M + 8 * n
+    return nb(ids) + nb(next(iter(form.values()))) + 12 * n * M + 8 * n
+
+
+def host_copy(t, torch):
+    """A pinned host copy of a device tensor."""
+    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    h.copy_(t)
+    return h
+
+
+def host_half_check(tr, a, torch, path):
+    """The staged trainer's host half on its batch: the C++ gather against
+    its plain version bit for bit, its time and rate by the host clock,
+    and the bulk copy's time and rate by CUDA events. Returns (the device
+    staging buffer the copy filled, the shipped rows a member)."""
+    from legion_tpu_torch.ops.host_memory import (gather_host_rows,
+                                                  gather_host_rows_plain,
+                                                  host_threads)
+    pipe = tr._staged
+    cap = pipe.miss_cap
+    ids_h = host_copy(a.comp.m_ids[:, :cap].contiguous(), torch)
+    n_miss = a.comp.n_miss.tolist()
+    ks = [min(v, cap) for v in n_miss]
+    F, dt = pipe.feat_dim, pipe.dtype
+    pin = torch.empty((pipe.n, cap, F), dtype=dt, pin_memory=True)
+    ref = torch.zeros((pipe.n, cap, F), dtype=dt)
+    takes, ptakes = [], []
+    for rep in range(4):
+        t0 = time.perf_counter()
+        for m, k in enumerate(ks):
+            gather_host_rows(pipe.host, ids_h[m, :k], pin[m, :k])
+        takes.append(time.perf_counter() - t0)
+    for rep in range(2):
+        t0 = time.perf_counter()
+        for m, k in enumerate(ks):
+            gather_host_rows_plain(pipe.host, ids_h[m, :k], ref[m, :k])
+        ptakes.append(time.perf_counter() - t0)
+    for m, k in enumerate(ks):
+        if not same_bits(pin[m, :k], ref[m, :k], torch):
+            fail(f"gather_host_rows {path}: the C++ gather differs from its "
+                 "plain version")
+    rows = sum(ks)
+    nbytes = rows * F * pin.element_size()
+    ms = statistics.mean(takes[1:]) * 1e3
+    print(f"  host gather {path}: {rows} rows of {F} {str(dt)[6:]} "
+          f"({nbytes} B), {host_threads()} threads: C++ {ms:.3f} ms "
+          f"({nbytes / ms / 1e6:.2f} GB/s; takes "
+          f"{', '.join(f'{x * 1e3:.3f}' for x in takes)} ms) | plain "
+          f"{statistics.mean(ptakes) * 1e3:.3f} ms | bit for bit")
+    dev = torch.empty((pipe.n, cap, F), dtype=dt, device="cuda")
+
+    def copy():
+        for m, k in enumerate(ks):
+            if k:
+                dev[m, :k].copy_(pin[m, :k], non_blocking=True)
+    cms = cuda_ms(copy, torch, 10)
+    print(f"  bulk copy {path}: {nbytes} B in {len(ks)} copies, {cms:.4f} ms"
+          f" ({nbytes / cms / 1e6:.2f} GB/s) | miss_cap {cap} | n_miss "
+          f"{n_miss} | eval_miss_cap {pipe.eval_miss_cap}")
+    copy()
+    torch.cuda.synchronize()
+    return dev, ks
+
+
+def staged_kernels(tr, torch, results, main, path):
+    """K19 and K20 at the staged path's shapes (program A's batch at
+    counter 0), each bit for bit against its plain version and timed,
+    the host half (``host_half_check``), and K20's rows against the
+    zero-copy fetch of the same ids (K4, or K13 with members): the same
+    rows bit for bit."""
+    from legion_tpu_torch.pipeline.staged import (miss_compact,
+                                                  miss_compact_plain,
+                                                  staged_assemble,
+                                                  staged_assemble_plain)
+    a = staged_batch(tr, torch)
+    ids = staged_ids(tr, a)
+    form = compact_form(tr, ids)
+    n, M = ids.shape
+    comp = miss_compact(ids, **form)
+    miss = comp.rank >= 0
+    main.setdefault("miss_compact", []).append(compare(
+        "miss_compact", lambda: miss_compact(ids, **form),
+        lambda: miss_compact_plain(ids, **form), compacted_exact, results,
+        torch, f"{path} fetch [{n}, {M}], {int(comp.n_miss.sum())} missed",
+        least=bound(compact_bytes(ids, form)),
+        library=lambda: torch.nonzero(miss), queued=True))
+    dev, ks = host_half_check(tr, a, torch, path)
+    cap = tr._staged.miss_cap
+    rows, slot = a.rows, a.slot
+    row = dev.shape[2] * dev.element_size()
+    F = dev.shape[2]
+    # rows read: each distinct cached row and each shipped row once (the
+    # slot form), or one row a lane (the clique's rows of the lanes); x
+    # written once
+    read = distinct(slot) + sum(ks) if slot is not None else n * M
+    least = bound(nb(comp.rank) + (0 if slot is None else nb(slot))
+                  + (read + n * M) * row)
+    main.setdefault("staged_assemble", []).append(compare(
+        "staged_assemble",
+        lambda: staged_assemble(rows, slot, dev, comp.rank, cap),
+        lambda: staged_assemble_plain(rows, slot, dev, comp.rank, cap),
+        bit_exact, results, torch,
+        f"{path} x [{n}, {M}, {F}] {str(dev.dtype)[6:]}, {sum(ks)} shipped",
+        least=least, queued=True))
+    x = staged_assemble(rows, slot, dev, comp.rank, cap)
+    fs = tr.feature_source
+    zc = fs.fetch(ids)[0] if tr.n_dev > 1 else fs.fetch(ids[0])[0][None]
+    if not same_bits(x, zc, torch):
+        fail(f"{path}: the staged rows differ from the zero-copy fetch")
+    print(f"  {path}: the assembled rows equal the zero-copy fetch's "
+          f"{tuple(zc.shape)} bit for bit")
+    return a
+
+
+def device_draw(acc, front, fo, keys, tables, results, main, torch, what):
+    """K5's device-only form on ``tables`` (row_map, sub_indptr,
+    sub_indices), bit for bit against its plain version and timed into
+    ``main``. Returns (lanes, served)."""
+    from legion_tpu_torch.sampling import access as A
+    row_map, sub_ip, _ = tables
+    lanes, served = A.csr_draw_cached(front, fo, keys, *tables)
+    F = front.shape[0]
+    valid = int((front >= 0).sum())
+    nsv = int(served.sum())
+    r = row_map[front.clamp(min=0).long()].clamp(min=0).long()
+    nzdeg = int(((sub_ip[r + 1] - sub_ip[r] > 0) & served).sum())
+    # the frontier, a map entry a valid slot, a served slot's two offsets
+    # and its draws' neighbours; the lanes and served out
+    least = bound(nb(front) + 4 * valid + 16 * nsv + 4 * nzdeg * fo
+                  + 4 * F * fo + F)
+    main.setdefault("csr_draw_device", []).append(compare(
+        "csr_draw_device",
+        lambda: A.csr_draw_cached(front, fo, keys, *tables),
+        lambda: A.csr_draw_cached_plain(front, fo, keys, *tables),
+        pair_exact, results, torch, f"{what} {F} x {fo}, {nsv}/{valid} "
+        "served", least=least, queued=True))
+    return lanes, served
+
+
+def host_half_draws(acc, front, served, fo, keys, n, torch, what):
+    """The host's C++ draws of the unserved slots, bit for bit against
+    their plain version and timed by the host clock; on the card."""
+    from legion_tpu_torch.ops.host_memory import host_draw_plain
+    miss = torch.where(served, -1, front)
+    miss_h, keys_h = host_copy(miss, torch), host_copy(keys, torch)
+    out = torch.empty(tuple(miss.shape) + (fo,), dtype=torch.int32,
+                      pin_memory=True)
+    takes = []
+    for rep in range(3):
+        t0 = time.perf_counter()
+        acc.host_draw(miss_h, fo, keys_h, out)
+        takes.append(time.perf_counter() - t0)
+    hb = acc.fallback if n > 1 else acc
+    ref = host_draw_plain(hb.host_indptr.host, hb.host_indices.host,
+                          miss_h, fo, keys_h)
+    if not torch.equal(out, ref):
+        fail(f"host_draw {what}: the C++ draws differ from their plain "
+             "version")
+    print(f"  host draw {what}: {int((miss >= 0).sum())} slots x {fo} on "
+          f"the host, C++ {', '.join(f'{x * 1e3:.3f}' for x in takes)} ms "
+          "| bit for bit")
+    return out.to("cuda")
+
+
+def merge_checked(lanes, served, host, fo, n, results, main, torch, what):
+    """K21 bit for bit against its plain version and timed into ``main``.
+    Returns the merged lanes."""
+    from legion_tpu_torch.sampling import access as A
+    F = served.shape[-1]
+    nsv = int(served.sum())
+    # served, then a served slot's lanes or an unserved slot's host draws
+    # (fanout int32 either way), the merged lanes out
+    least = bound(nb(served) + 4 * fo * n * F + nb(lanes))
+    main.setdefault("merge_draws", []).append(compare(
+        "merge_draws",
+        lambda: A.merge_draws(lanes, served, host, fo),
+        lambda: A.merge_draws_plain(lanes, served, host, fo),
+        exact, results, torch, f"{what} [{n}, {F}] x {fo}, {nsv} served",
+        least=least, queued=True,
+        library=lambda: torch.where(
+            served.view(n, 1, F), lanes.view(n, fo, F),
+            host.view(n, F, fo).transpose(1, 2))))
+    return A.merge_draws(lanes, served, host, fo)
+
+
+def split_hops(tr, torch, results, main, path):
+    """The staged path's hops, one batch: K5's device-only form (one
+    member) or the clique's draws, the host's draws (C++ against plain,
+    bit for bit, and timed) and K21, each kernel bit for bit against its
+    plain version and timed, and the merge against ``sample_neighbors``
+    (the zero-copy draws) exactly. With one member, the path's plan
+    caches no topology rows, so K5's device-only form and K21 are also
+    driven on the same frontiers against a topology-only cache of the
+    same budget (``topo_only_cache``), whose rows they do draw: those are
+    the times ``main`` keeps for K5's form, and the merge of those draws
+    must equal ``sample_neighbors`` too."""
+    from legion_tpu_torch.sampling import access as A
+    acc = tr.graph_access
+    s = tr.sampler_t
+    n = tr.n_dev
+    bs = s.config.batch_size
+    bank = tr.train_bank.view(n, -1) if n > 1 else tr.train_bank[None]
+    carries = [s.begin(bank[m, :bs].contiguous()) for m in range(n)]
+    tc = topo_only_cache(tr, f"{path} hops") if n == 1 else None
+    for k, fo in enumerate(s.config.fanouts):
+        front = torch.stack([s.hop_frontier(c, k) for c in carries])
+        keys = A.key_tensor([91 + 7 * m + k for m in range(n)], "cuda")
+        if n == 1:
+            front, keys = front[0], keys[0]
+            lanes, served = device_draw(
+                acc, front, fo, keys, (acc.row_map, acc.sub_indptr,
+                                       acc.sub_indices),
+                results, {}, torch, f"{path} hop {k}")
+        else:
+            lanes, served = acc.lookup(front, fo, keys)
+        host = host_half_draws(acc, front, served, fo, keys, n, torch,
+                               f"{path} hop {k}")
+        merged = merge_checked(lanes, served, host, fo, n, results, main,
+                               torch, f"{path} hop {k}")
+        want = acc.sample_neighbors(front, fo, keys)
+        if not torch.equal(merged, want):
+            fail(f"{path} hop {k}: the split draws differ from "
+                 "sample_neighbors")
+        if tc is not None:
+            what = f"{path} hop {k}, topology-only cache"
+            t_lanes, t_served = device_draw(
+                acc, front, fo, keys, (tc.row_map, tc.sub_indptr,
+                                       tc.sub_indices),
+                results, main, torch, what)
+            t_host = host_half_draws(acc, front, t_served, fo, keys, n,
+                                     torch, what)
+            if not torch.equal(merge_checked(t_lanes, t_served, t_host, fo,
+                                             n, results, {}, torch, what),
+                               want):
+                fail(f"{what}: the split draws differ from "
+                     "sample_neighbors")
+        merged = merged.view(n, -1)
+        carries = [s.hop_absorb(c, k, merged[m])
+                   for m, c in enumerate(carries)]
+    print(f"  {path}: the split draws of both hops equal sample_neighbors "
+          "bit for bit" + (", with the path's cache and the topology-only"
+                           " one" if tc is not None else ""))
+
+
+def staged_pair(tr_zc, tr_st, torch, path):
+    """The staged trainer against the zero-copy one of the same seed:
+    STAGED_STEPS losses and counters, then a valid pass (JAX's tolerance,
+    rtol 1e-5 / atol 1e-6; on GraphSAGE equality is what happens)."""
+    from legion_tpu_torch.pipeline import Mode
+    s_zc, s_st = tr_zc.init_state(), tr_st.init_state()
+    got = {"zero-copy": [], "staged": []}
+    for _ in range(STAGED_STEPS):
+        for tr, s, lb in ((tr_zc, s_zc, "zero-copy"), (tr_st, s_st,
+                                                        "staged")):
+            _, loss = tr.train_step(s)
+            got[lb].append(torch.stack([loss.float()] + [
+                getattr(tr, c).float() for c in (
+                    "last_edges", "last_slots", "last_feat_hits",
+                    "last_topo_hits", "last_topo_total")]))
+    a, b = (torch.stack(got[k]).cpu() for k in ("zero-copy", "staged"))
+    if not torch.equal(a[:, 1:], b[:, 1:]):
+        fail(f"{path}-staged: counters {b[:, 1:].tolist()} against the "
+             f"zero-copy trainer's {a[:, 1:].tolist()}")
+    if not torch.allclose(b[:, 0], a[:, 0], rtol=1e-5, atol=1e-6):
+        fail(f"{path}-staged: losses {b[:, 0].tolist()} against the "
+             f"zero-copy trainer's {a[:, 0].tolist()}")
+    _, acc_zc = tr_zc.run_eval(s_zc, Mode.VALID)
+    _, acc_st = tr_st.run_eval(s_st, Mode.VALID)
+    if abs(acc_zc - acc_st) > 1e-6:
+        fail(f"{path}-staged: valid acc {acc_st} against {acc_zc}")
+    print(f"  {path}-staged against zero-copy: {STAGED_STEPS} losses "
+          f"{b[:, 0].tolist()} (zero-copy {a[:, 0].tolist()}, "
+          f"{'equal' if torch.equal(a, b) else 'within rtol 1e-5'}) | "
+          f"counters equal | valid acc {acc_st:.6f} (zero-copy "
+          f"{acc_zc:.6f}) | overflows {tr_st._staged.miss_overflows} train, "
+          f"{tr_st._staged.eval_miss_overflows} eval")
+
+
+def staged_turn(tr, torch):
+    """ms a step by the host clock over STAGED_TURN_STEPS steps after
+    WARMUP_STEPS, a sync at the end; for a staged trainer also the host
+    half's means (gather ms, ms from the ids' arrival to the copy's issue,
+    the caller's ms waiting for it) and n_miss a step."""
+    s = tr.init_state()
+    for _ in range(WARMUP_STEPS):
+        s, _ = tr.train_step(s)
+    torch.cuda.synchronize()
+    half = []
+    t0 = time.perf_counter()
+    for _ in range(STAGED_TURN_STEPS):
+        s, _ = tr.train_step(s)
+        p = tr._staged
+        if p is not None:
+            half.append((p.last_gather_s, p.last_half_s, p.last_wait_s,
+                         sum(p.last_n_miss)))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / STAGED_TURN_STEPS * 1e3
+    if not half:
+        return ms, None
+    g, h, w, nm = (statistics.mean(v) for v in zip(*half))
+    return ms, (g * 1e3, h * 1e3, w * 1e3, nm, max(v[3] for v in half))
+
+
+def staged_turns(tr_zc, tr_st, torch, path):
+    """The zero-copy and staged trainers in turns (zero-copy, staged,
+    staged, zero-copy) in one process: ms a step, and how much of the host
+    half the step hides. Returns {label: [ms, ms]}."""
+    runs = {"zero-copy": [], "staged": []}
+    halves = []
+    for lb, tr in (("zero-copy", tr_zc), ("staged", tr_st),
+                   ("staged", tr_st), ("zero-copy", tr_zc)):
+        ms, half = staged_turn(tr, torch)
+        runs[lb].append(ms)
+        if half:
+            halves.append(half)
+    g, h, w, nm, worst = (statistics.mean(v) for v in zip(*halves))
+    grown = statistics.mean(runs["staged"]) - statistics.mean(
+        runs["zero-copy"])
+    print(f"  {path} in turns, ms a step (host clock): zero-copy "
+          f"{', '.join(f'{x:.3f}' for x in runs['zero-copy'])} | staged "
+          f"{', '.join(f'{x:.3f}' for x in runs['staged'])} (one call; no "
+          f"claim): the staged step {grown:+.3f} ms")
+    print(f"  {path}-staged host half a step: gather {g:.3f} ms, ids to "
+          f"copy issued {h:.3f} ms, the caller waited {w:.3f} ms (hidden "
+          f"{max(0.0, 1 - w / h) if h else 1.0:.3f} of it from the caller; "
+          f"{1 - grown / h if h else 1.0:.3f} of it from the step's growth "
+          f"over zero-copy) | n_miss "
+          f"{nm:.0f} a step (worst {worst:.0f}) | miss_cap "
+          f"{tr_st._staged.miss_cap} | overflows "
+          f"{tr_st._staged.miss_overflows}")
+    return runs
+
+
+def staged_edges(torch, results):
+    """K19, K20, K21 and K5's device-only form at the edges of their shapes,
+    bit for bit against their plain versions: all hits, all misses, pads,
+    an empty batch (all pads, and no lanes), n_miss past the cap and a cap
+    of 0, tile edges, 4 members, f32 and bf16 rows of 1 to 128 columns at
+    a misaligned base; K5: nothing cached, everything cached, fanouts 1,
+    25 and 33; K21: nothing or everything served. Also the host half's
+    C++ against its plain version: ids past the table, pads, no ids, rows
+    of degree 0 and vertices past V."""
+    from legion_tpu_torch.ops.host_memory import (
+        HostTable, gather_host_rows, gather_host_rows_plain, host_draw,
+        host_draw_plain)
+    from legion_tpu_torch.pipeline.staged import (miss_compact,
+                                                  miss_compact_plain,
+                                                  staged_assemble,
+                                                  staged_assemble_plain)
+    from legion_tpu_torch.sampling import access as A
+    g = torch.Generator(device="cuda")
+    g.manual_seed(77)
+    V = 5000
+    n_cases = 0
+
+    def rand_ids(n, M, pad, V=V):
+        ids = torch.randint(0, V, (n, M), generator=g, device="cuda",
+                            dtype=torch.int32)
+        return torch.where(torch.rand((n, M), generator=g, device="cuda")
+                           < pad, -1, ids)
+
+    def check(name, k, p, tol, what):
+        err, ok = tol(k, p)
+        r = results.setdefault(name, {"max_abs_err": 0.0})
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        if not ok:
+            fail(f"{name} edge {what}: kernel disagrees with its plain "
+                 "version")
+
+    for n in (1, 4):
+        for M in (0, 1, 2047, 2049, 70001):
+            for pad, hot in ((0.0, 0.5), (0.2, 0.0), (0.2, 1.0), (1.0, 0.5),
+                             (0.3, 0.5)):
+                ids = rand_ids(n, M, pad)
+                table = torch.where(
+                    torch.rand(V, generator=g, device="cuda") < hot,
+                    torch.arange(V, dtype=torch.int32, device="cuda"), -1)
+                slot = torch.where(ids >= 0, table[
+                    ids.clamp(min=0).long()], -1).to(torch.int32)
+                hit = (slot >= 0) & (torch.rand(
+                    (n, M), generator=g, device="cuda") < 0.8)
+                for form in (dict(table=table), dict(slot=slot),
+                             dict(hit=hit)):
+                    k = miss_compact(ids, **form)
+                    check("miss_compact", k, miss_compact_plain(ids, **form),
+                          compacted_exact, f"n {n} M {M} pad {pad} hot "
+                          f"{hot} {list(form)[0]}")
+                    n_cases += 1
+                for dt in (torch.float32, torch.bfloat16):
+                    for F in (1, 3, 100, 128):
+                        nm = int(k.n_miss.max()) if M else 0
+                        for cap in {0, max(nm // 2, 1), nm + 5}:
+                            C = 300
+                            rows = torch.randn((C + 1, F), generator=g,
+                                               device="cuda").to(dt)[1:]
+                            st = torch.randn((n, cap, F), generator=g,
+                                             device="cuda").to(dt)
+                            sl = torch.where(slot >= 0, slot % C, -1)
+                            check("staged_assemble",
+                                  staged_assemble(rows, sl, st, k.rank, cap),
+                                  staged_assemble_plain(rows, sl, st, k.rank,
+                                                        cap), bit_exact,
+                                  f"n {n} M {M} F {F} {dt} cap {cap}")
+                            lane_rows = torch.randn(
+                                (n, M, F), generator=g, device="cuda").to(dt)
+                            check("staged_assemble",
+                                  staged_assemble(lane_rows, None, st,
+                                                  k.rank, cap),
+                                  staged_assemble_plain(lane_rows, None, st,
+                                                        k.rank, cap),
+                                  bit_exact,
+                                  f"lane rows n {n} M {M} F {F} {dt} cap "
+                                  f"{cap}")
+                            n_cases += 2
+    # K20 at a misaligned base: rows and staged at an 8-byte offset
+    rows = torch.randn((301, 100), generator=g, device="cuda").to(
+        torch.bfloat16).view(-1)[4:].view(-1)[:300 * 100].view(300, 100)
+    ids = rand_ids(1, 3000, 0.1, V=300)
+    k = miss_compact(ids, table=torch.where(
+        torch.rand(300, generator=g, device="cuda") < 0.5,
+        torch.arange(300, dtype=torch.int32, device="cuda"), -1))
+    st = torch.randn((1, 3001, 100), generator=g, device="cuda").to(
+        torch.bfloat16).view(-1)[4:4 + 3000 * 100].view(1, 3000, 100)
+    check("staged_assemble",
+          staged_assemble(rows, k.payload, st, k.rank, 3000),
+          staged_assemble_plain(rows, k.payload, st, k.rank, 3000),
+          bit_exact, "misaligned bf16 rows")
+    n_cases += 1
+    # K21 and K5's device-only form
+    ip = torch.sort(torch.randint(0, 70_000, (V + 1,), generator=g,
+                                  device="cuda")).values
+    ip[0] = 0
+    ip[V // 2:V // 2 + 50] = ip[V // 2]          # rows of degree 0
+    E = int(ip[-1])
+    ix = torch.randint(0, V, (E,), generator=g, device="cuda",
+                       dtype=torch.int32)
+    for share in (0.0, 0.5, 1.0):
+        hot = torch.nonzero(torch.rand(V, generator=g, device="cuda")
+                            < share).flatten()
+        row_map = torch.full((V,), -1, dtype=torch.int32, device="cuda")
+        row_map[hot] = torch.arange(hot.numel(), dtype=torch.int32,
+                                    device="cuda")
+        deg = ip[hot + 1] - ip[hot]
+        sub_ip = torch.cat([torch.zeros(1, dtype=torch.int64, device="cuda"),
+                            torch.cumsum(deg, 0)])
+        pos = torch.repeat_interleave(ip[hot], deg) + (
+            torch.arange(int(deg.sum()), device="cuda")
+            - torch.repeat_interleave(sub_ip[:-1], deg))
+        sub_ix = ix[pos] if pos.numel() else torch.full(
+            (1,), -1, dtype=torch.int32, device="cuda")
+        if hot.numel() == 0:     # a sub-CSR of no rows, as all_miss's
+            sub_ip = torch.zeros(2, dtype=torch.int64, device="cuda")
+        for F in (1, 777, 8000):
+            for fo in (1, 25, 33):
+                front = rand_ids(1, F, 0.1)[0]
+                front[:3] = V + 5                  # past V: clamped
+                key = A.key_tensor(F * 100 + fo, "cuda")
+                check("csr_draw_device",
+                      A.csr_draw_cached(front, fo, key, row_map, sub_ip,
+                                        sub_ix),
+                      A.csr_draw_cached_plain(front, fo, key, row_map,
+                                              sub_ip, sub_ix),
+                      pair_exact, f"F {F} fanout {fo} share {share}")
+                lanes, served = A.csr_draw_cached(front, fo, key, row_map,
+                                                  sub_ip, sub_ix)
+                host = torch.randint(-1, V, (F, fo), generator=g,
+                                     device="cuda", dtype=torch.int32)
+                check("merge_draws", A.merge_draws(lanes, served, host, fo),
+                      A.merge_draws_plain(lanes, served, host, fo), exact,
+                      f"F {F} fanout {fo} share {share}")
+                n_cases += 2
+    for n, F, fo in ((4, 1000, 10), (2, 1, 1), (3, 0, 5)):
+        lanes = torch.randint(-1, V, (n, fo * F), generator=g,
+                              device="cuda", dtype=torch.int32)
+        served = torch.rand((n, F), generator=g, device="cuda") < 0.5
+        host = torch.randint(-1, V, (n, F, fo), generator=g, device="cuda",
+                             dtype=torch.int32)
+        check("merge_draws", A.merge_draws(lanes, served, host, fo),
+              A.merge_draws_plain(lanes, served, host, fo), exact,
+              f"members {n} F {F} fanout {fo}")
+        n_cases += 1
+    # the host half's C++ at its edges
+    ip_h, ix_h = ip.cpu(), ix.cpu()
+    feats = torch.randn((V, 128))
+    for dt in (torch.float32, torch.bfloat16):
+        tab = feats.to(dt)
+        for F in (1, 100, 128):
+            for n_ids in (0, 1, 5000, 100_000):
+                ids = torch.randint(-5, V + 5, (n_ids,), dtype=torch.int32)
+                out = torch.empty((n_ids, F), dtype=dt, pin_memory=True)
+                ref = torch.empty((n_ids, F), dtype=dt)
+                gather_host_rows(tab, ids, out)
+                gather_host_rows_plain(tab, ids, ref)
+                if not same_bits(out, ref, torch):
+                    fail(f"gather_host_rows edge {dt} F {F} n {n_ids}")
+                n_cases += 1
+    for n, F, fo in ((1, 0, 5), (1, 9000, 25), (4, 3000, 10), (2, 7, 33)):
+        front = torch.randint(-1, V + 3, (n, F), dtype=torch.int32)
+        keys = A.key_tensor([F + m for m in range(n)], "cpu")
+        out = torch.empty((n, F, fo), dtype=torch.int32, pin_memory=True)
+        host_draw(ip_h, ix_h, front, fo, keys, out)
+        if not torch.equal(out, host_draw_plain(ip_h, ix_h, front, fo,
+                                                keys)):
+            fail(f"host_draw edge members {n} F {F} fanout {fo}")
+        n_cases += 1
+    print(f"  staged_edges: {n_cases} cases of K19, K20, K21, K5's "
+          "device-only form and the host half, bit for bit")
+
+
+def staged_trainers(hds, torch, path, budget=None):
+    """The zero-copy and the staged trainer of ``path`` (H, HT or
+    clique-HT; clique-HT at the budget ``clique_trainer`` settled on)."""
+    from legion_tpu_torch.train import Trainer
+    if path == "clique-HT":
+        mk = lambda tf: Trainer(hds, clique_config(  # noqa: E731
+            hds, budget, host_transfer=tf), device="cuda")
+    else:
+        kw = dict(cache_bytes=CACHE_BYTES, feature_residency="host")
+        if path == "HT":
+            kw["topo_residency"] = "host"
+        mk = lambda tf: host_trainer(  # noqa: E731
+            hds, torch, f"{path}-{tf}", host_transfer=tf, **kw)
+    t0 = time.perf_counter()
+    tr_zc = mk("auto")
+    t1 = time.perf_counter()
+    tr_st = mk("staged")
+    torch.cuda.synchronize()
+    p = tr_st._staged
+    print(f"  {path}: zero-copy set-up {t1 - t0:.2f} s | staged set-up "
+          f"{time.perf_counter() - t1:.2f} s (with the probes) | miss_cap "
+          f"{p.miss_cap} of M {tr_st.sampler_t.max_ids} | eval_miss_cap "
+          f"{p.eval_miss_cap} of {tr_st.sampler_e.max_ids} | members "
+          f"{p.n} | rows {str(p.dtype)[6:]}")
+    return tr_zc, tr_st
+
+
+def staged_hash(hds, tr_zc, torch, results):
+    """H-staged with ``map_impl="hash"``: the single-card hash map over
+    the cached rows, looked up by K11, then K19's slot form. K19 and K20
+    at the path's shapes bit for bit, the assembled rows against the
+    zero-copy fetch, and the staged trainer's losses, counters and valid
+    accuracy against the zero-copy trainer's, with K11, K19 and K20
+    launched in those steps."""
+    from legion_tpu_torch.ops import kernels
+    tr = host_trainer(hds, torch, "H-staged-hash", cache_bytes=CACHE_BYTES,
+                      feature_residency="host", host_transfer="staged",
+                      map_impl="hash")
+    if tr._staged._hash is None:
+        fail("H-staged-hash: the pipeline built no hash map")
+    staged_kernels(tr, torch, results, {}, "H-hash")
+    before = dict(kernels.LAUNCHES)
+    staged_pair(tr_zc, tr, torch, "H-hash")
+    torch.cuda.synchronize()
+    ran = {k: kernels.LAUNCHES[k] - before[k]
+           for k in ("hash_lookup", "miss_compact", "staged_assemble")}
+    if not all(ran.values()):
+        fail(f"H-staged-hash: launches in its steps {ran}")
+    print(f"  H-staged-hash: launches in {STAGED_STEPS} steps and a valid "
+          f"pass {ran}")
+    tr.close()
+    del tr
+    torch.cuda.empty_cache()
+
+
+def phase_staged(hds, torch):
+    """Phase 6d (and ``--staged``): the staged host pipeline on H, HT and
+    clique-HT (4 members on the card, at the budget ``clique_trainer``
+    settles on). For each: K19 and K20 at the path's shapes, bit for bit
+    and timed, the host half (C++ gather and bulk copy), the assembled
+    rows against the zero-copy fetch; on HT and clique-HT the hops' split
+    draws (K5's device-only form, the host's draws, K21) against
+    ``sample_neighbors``; the staged trainer's losses, counters and valid
+    accuracy against the zero-copy trainer's (``staged_pair``); the
+    staged path through ``phase_slice`` (its launches); both trainers'
+    ms a step in turns with the host half's hidden share. Then
+    ``staged_edges``. Returns (kernel results, launch counts by path, the
+    turns by path)."""
+    results, main, counts, turns = {}, {}, {}, {}
+    budget = None
+    for path in ("H", "HT", "clique-HT"):
+        print(f" {path}-staged:")
+        if path == "clique-HT":
+            tr0, budget = clique_trainer(hds, torch)
+            tr0.close()
+            del tr0
+            torch.cuda.empty_cache()
+        tr_zc, tr_st = staged_trainers(hds, torch, path, budget)
+        staged_kernels(tr_st, torch, results,
+                       main if path == "H" else {}, path)
+        if path != "H":
+            split_hops(tr_st, torch, results,
+                       main if path == "HT" else {}, path)
+        staged_pair(tr_zc, tr_st, torch, path)
+        counts[f"{path}-staged"], _ = phase_slice(tr_st, torch,
+                                                  f"{path}-staged")
+        turns[path] = staged_turns(tr_zc, tr_st, torch, path)
+        if path == "H":
+            staged_hash(hds, tr_zc, torch, results)
+        tr_st.close()
+        tr_zc.close()
+        del tr_zc, tr_st
+        torch.cuda.empty_cache()
+    staged_edges(torch, results)
+    add_main(results, main)
+    return results, counts, turns
+
+
+def staged_summary(res, counts):
+    """The staged kernels' numbers a train step of their paths."""
+    for n in ("miss_compact", "staged_assemble", "merge_draws",
+              "csr_draw_device"):
+        r, c = res[n], counts[REPORTED_PATH[n]]
+        lib = "none" if r["library_ms"] is None else \
+            f"{r['library_ms']:.4f} ms"
+        print(f"  {n:16s} launches a step {c['per_step'][n]:g} | kernel "
+              f"{r['ms']:.4f} ms | queued {r['queued_ms']:.4f} ms | bound "
+              f"{r['bound_ms']:.4f} ms by {r['bound_by']} (share "
+              f"{r['bound_ms'] / r['queued_ms']:.3f} queued) | plain "
+              f"{r['plain_ms']:.4f} ms | library {lib}")
+
+
 def bulk_link_bps(hds, torch):
     """The bulk-copy rate from the registered feature table (as
     ``link_probe`` measures it), for the bounds of ``--clique`` runs."""
@@ -7832,6 +8571,13 @@ def main():
         return
     if sys.argv[1:2] == ["--dist4"]:
         phase_dist4(torch)
+        return
+    if sys.argv[1:2] == ["--staged"]:
+        hds = host_dataset()
+        MEASURED["link_bps"] = bulk_link_bps(hds, torch)
+        print("phase 6d: the staged host pipeline on H, HT and clique-HT")
+        res, counts, _ = phase_staged(hds, torch)
+        staged_summary(res, counts)
         return
     if sys.argv[1:2] == ["--int64"]:
         print("phase 12: K3 and K5 past offset 2^31")
@@ -8007,6 +8753,11 @@ def main():
           "build_from_host, at H's and HT's plans")
     phase_build(hds, plans, torch)
 
+    print("phase 6d: the staged host pipeline on H, HT and clique-HT")
+    res_s, counts_s, staged_ab = phase_staged(hds, torch)
+    results.update(res_s)
+    counts.update(counts_s)
+
     print("phase 7: small-input HT slice, card vs CPU")
     phase_host_reference(torch)
 
@@ -8057,6 +8808,12 @@ def main():
     print_modes(modes)
     print("interbatch A/B, ms/step by the host clock (one call; no claim):")
     for path, runs in ib_ab.items():
+        print(f"  {path}: " + " | ".join(
+            f"{k} {', '.join(f'{v:.3f}' for v in ms)}"
+            for k, ms in runs.items()))
+    print("staged against zero-copy, in turns, ms/step by the host clock "
+          "(one call; no claim):")
+    for path, runs in staged_ab.items():
         print(f"  {path}: " + " | ".join(
             f"{k} {', '.join(f'{v:.3f}' for v in ms)}"
             for k, ms in runs.items()))

@@ -52,7 +52,7 @@ from legion_tpu_torch.ops import kernels
 from legion_tpu_torch.ops.host_memory import HostTable
 from legion_tpu_torch.parallel.mesh import all_to_all
 from legion_tpu_torch.sampling.access import (M32, bounded, fold_in_words,
-                                              hash_words)
+                                              hash_words, merge_draws)
 
 
 def _slot_map(hot: np.ndarray, V: int, map_impl: str, device):
@@ -660,6 +660,21 @@ class CliqueTopoCache(_Clique):
         nbr = clique_draw_unsort(self._draws(req, fanout, keys, draws),
                                  lane_row)
         return nbr, lane_row >= 0
+
+    # the split-draw API (``sampling/access.py::GraphAccess``): the host
+    # draws member m's misses with m's own hop words, as the fallback's K5
+    # draws them in ``sample_neighbors``
+    @property
+    def needs_host_draws(self) -> bool:
+        return getattr(self.fallback, "needs_host_draws", False)
+
+    def host_draw(self, frontier: torch.Tensor, fanout: int, keys,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """[Kc * local, F] miss frontier and [Kc * local, 4] key words on
+        the host -> [Kc * local, F, fanout]: the fallback's host draws."""
+        return self.fallback.host_draw(frontier, fanout, keys, out)
+
+    merge_draws = staticmethod(merge_draws)
 
     def sample_neighbors(self, frontier: torch.Tensor, fanout: int,
                          keys: torch.Tensor, draws=None) -> torch.Tensor:

@@ -236,8 +236,10 @@ class CacheConfig:
     # how cache-miss feature rows reach the device. In the port "auto" and
     # "callback" both mean the zero-copy kernels: K4 (features) and K5
     # (topology) read a miss from the registered host table inside the
-    # step. "staged" (the JAX package's split sample/train programs for
-    # runtimes without host callbacks) is not ported and raises.
+    # step. "staged" is the JAX package's split sample/train programs
+    # (pipeline/staged.py): a batch's missed rows are gathered on the host
+    # into a pinned buffer and shipped as one bulk copy, and with host
+    # topology the host draws the uncached rows' neighbours between hops.
     host_transfer: str = "auto"
     # id->slot map implementation: "direct" = [V] int32 table (one gather,
     # fastest; 4B/vertex/map), "hash" = bucketed open-addressing map

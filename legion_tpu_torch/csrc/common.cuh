@@ -22,8 +22,9 @@ inline unsigned int lt_grid(int64_t work) {
 
 // Counter-based random words (no state, no library): a keyed double
 // application of the "lowbias32" integer hash. The Python side mirrors it
-// bit for bit in int64 arithmetic (sampling/access.py::hash32).
-__device__ __forceinline__ uint32_t lt_hash32(uint32_t x) {
+// bit for bit in int64 arithmetic (sampling/access.py::hash32), and the
+// host draws of host_half.cu call the same functions.
+__host__ __device__ __forceinline__ uint32_t lt_hash32(uint32_t x) {
   x ^= x >> 16;
   x *= 0x7feb352du;
   x ^= x >> 15;
@@ -32,13 +33,15 @@ __device__ __forceinline__ uint32_t lt_hash32(uint32_t x) {
   return x;
 }
 
-__device__ __forceinline__ uint32_t lt_word(uint32_t ka, uint32_t kb,
-                                            uint32_t lane) {
+__host__ __device__ __forceinline__ uint32_t lt_word(uint32_t ka,
+                                                     uint32_t kb,
+                                                     uint32_t lane) {
   return lt_hash32(lt_hash32(lane ^ ka) ^ kb);
 }
 
 // Uniform integer in [0, m) from a 32-bit word: (w * m) >> 32.
-__device__ __forceinline__ uint32_t lt_bounded(uint32_t w, uint32_t m) {
+__host__ __device__ __forceinline__ uint32_t lt_bounded(uint32_t w,
+                                                        uint32_t m) {
   return (uint32_t)(((uint64_t)w * (uint64_t)m) >> 32);
 }
 

@@ -44,6 +44,15 @@
 // Reading a short host row whole would ask for more lines than its draws
 // fall on, and one 16-byte load of both offsets asks for the same line as
 // two 8-byte loads: neither is done.
+//
+// The device-only form (`device_only` = 1; the staged pipeline's
+// CachedTopoAccess.lookup, which replaces legion_tpu/sampling/access.py::
+// CachedTopoAccess.lookup, :279-297): a slot whose vertex the row_map does
+// not hold draws nothing (-1 on its lanes) and no host memory is read
+// (indptr and indices may be null); `served` [F], when given, gets 1 for a
+// valid slot that row_map holds, else 0 (written by the lane that reads the
+// slot's row). The host draws the unserved slots (host_half.cu) with the
+// same words, so the merge equals the full form bit for bit.
 #include "common.cuh"
 
 constexpr int kPasses = 4;  // slots of a lane group in flight
@@ -56,7 +65,7 @@ __global__ void __launch_bounds__(kThreads) csr_draw_kernel(
     const int32_t* __restrict__ sub_indices, const Off* __restrict__ indptr,
     const int32_t* __restrict__ indices, int64_t num_nodes,
     const uint32_t* __restrict__ keys, int32_t* __restrict__ out,
-    int gshift) {
+    uint8_t* __restrict__ served, int device_only, int gshift) {
   const uint32_t ka = keys[0], kb = keys[1];
   const int lane = threadIdx.x & 31;
   const int G = 1 << gshift;                  // lanes of a group
@@ -85,6 +94,8 @@ __global__ void __launch_bounds__(kThreads) csr_draw_kernel(
           start = sub_indptr[row];
           end = sub_indptr[row + 1];
           hit = 1;
+        } else if (device_only) {
+          end = start;                        // not served: no draw
         } else {
           start = (long long)indptr[vc];
           end = (long long)indptr[vc + 1];
@@ -92,6 +103,7 @@ __global__ void __launch_bounds__(kThreads) csr_draw_kernel(
         const long long d = end - start;
         deg = d <= 0 ? 0u : (uint32_t)(d < 2147483647LL ? d : 2147483647LL);
       }
+      if (served != nullptr) served[i0 + gl] = (uint8_t)hit;
     }
     for (int fb = 0; fb < fanout; fb += G) {
       const int f = fb + gl;
@@ -123,8 +135,10 @@ static int launch(const int32_t* frontier, int64_t F, int32_t fanout,
                   const int32_t* row_map, const int64_t* sub_indptr,
                   const int32_t* sub_indices, const Off* indptr,
                   const int32_t* indices, int64_t num_nodes,
-                  const uint32_t* keys, int32_t* out, void* stream) {
-  if (F == 0 || fanout == 0) return (int)cudaSuccess;
+                  const uint32_t* keys, int32_t* out, uint8_t* served,
+                  int device_only, void* stream) {
+  if (F == 0) return (int)cudaSuccess;
+  if (fanout == 0 && served == nullptr) return (int)cudaSuccess;
   int gshift = 0;
   while (gshift < 5 && (1 << gshift) < fanout) ++gshift;
   // a warp takes (32 >> gshift) * min(kPasses, 1 << gshift) slots at a time
@@ -132,21 +146,24 @@ static int launch(const int32_t* frontier, int64_t F, int32_t fanout,
   csr_draw_kernel<Off><<<lt_grid((F + spw - 1) / spw * 32), kThreads, 0,
                          (cudaStream_t)stream>>>(
       frontier, F, fanout, row_map, sub_indptr, sub_indices, indptr, indices,
-      num_nodes, keys, out, gshift);
+      num_nodes, keys, out, served, device_only, gshift);
   return (int)cudaGetLastError();
 }
 
 // row_map may be null (no cache: every slot draws from the full CSR).
+// With device_only = 1 (row_map given) indptr and indices are not read and
+// may be null; served [F] may be null.
 LT_EXPORT int lt_csr_draw_i32(const int32_t* frontier, int64_t F,
                               int32_t fanout, const int32_t* row_map,
                               const int64_t* sub_indptr,
                               const int32_t* sub_indices,
                               const int32_t* indptr, const int32_t* indices,
                               int64_t num_nodes, const uint32_t* keys,
-                              int32_t* out, void* stream) {
+                              int32_t* out, uint8_t* served, int device_only,
+                              void* stream) {
   return launch<int32_t>(frontier, F, fanout, row_map, sub_indptr,
                          sub_indices, indptr, indices, num_nodes, keys, out,
-                         stream);
+                         served, device_only, stream);
 }
 
 LT_EXPORT int lt_csr_draw_i64(const int32_t* frontier, int64_t F,
@@ -155,8 +172,9 @@ LT_EXPORT int lt_csr_draw_i64(const int32_t* frontier, int64_t F,
                               const int32_t* sub_indices,
                               const int64_t* indptr, const int32_t* indices,
                               int64_t num_nodes, const uint32_t* keys,
-                              int32_t* out, void* stream) {
+                              int32_t* out, uint8_t* served, int device_only,
+                              void* stream) {
   return launch<int64_t>(frontier, F, fanout, row_map, sub_indptr,
                          sub_indices, indptr, indices, num_nodes, keys, out,
-                         stream);
+                         served, device_only, stream);
 }

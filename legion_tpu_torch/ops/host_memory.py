@@ -23,11 +23,21 @@ table registers only the bytes not registered yet and holds a reference
 on every range it covers. The device address of registered memory is its
 host address (unified addressing, as on every 64-bit Linux system with a
 Hopper card); registration checks it.
+
+The staged pipeline's host half lives here too (``pipeline/staged.py``):
+``gather_host_rows`` fills the pinned staging buffer with a batch's
+missed rows for one bulk copy, and ``host_draw`` draws the neighbours of
+the frontier slots the card did not serve. They are host work by design,
+as the JAX package's ``native.gather_rows`` and ``native.sample_neighbors``
+are: multi-threaded C++ (``csrc/host_half.cu``) into pinned memory (a
+trainer on a card), or their plain PyTorch versions into pageable memory
+(a trainer on the CPU, and the comparisons).
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 import warnings
 from typing import Dict, List, Optional
 
@@ -260,3 +270,135 @@ def word_probe(host: HostTable, at: torch.Tensor) -> None:
     if rc != 0:
         msg = kernels.lib().lt_error_string(rc).decode()
         raise RuntimeError(f"word_probe launch failed: {msg} ({rc})")
+
+
+# ---------------------------------------------------------------------------
+# The staged pipeline's host half (csrc/host_half.cu)
+# ---------------------------------------------------------------------------
+
+def host_threads() -> int:
+    """The host threads of a gather or a draw: the process's CPUs (the JAX
+    package's ``native._nthreads``)."""
+    return max(1, len(os.sched_getaffinity(0)))
+
+
+def _host_args(name: str, *tensors: torch.Tensor) -> None:
+    for t in tensors:
+        if t.device.type != "cpu" or not t.is_contiguous():
+            raise ValueError(f"{name}: host tensors, contiguous; got "
+                             f"{tuple(t.shape)} on {t.device}")
+
+
+def gather_host_rows_plain(table: torch.Tensor, ids: torch.Tensor,
+                           out: torch.Tensor) -> torch.Tensor:
+    """Plain ``gather_host_rows``: out[j] = the first F values of
+    table[ids[j]], a zero row for ids[j] < 0 or past the table."""
+    F = out.shape[1]
+    ok = (ids >= 0) & (ids < table.shape[0])
+    rows = table[torch.where(ok, ids, 0).long(), :F]
+    return out.copy_(torch.where(ok[:, None], rows, torch.zeros_like(rows)))
+
+
+def gather_host_rows(table: torch.Tensor, ids: torch.Tensor,
+                     out: torch.Tensor) -> torch.Tensor:
+    """Host work, not a fallback: rows ``ids`` [n] int32 of a host table
+    [V, P] (f32, or the bf16 rows of ``bf16_rows``: ``HostTable.host``)
+    into ``out`` [n, F] of the table's dtype, F <= P, as
+    ``gather_host_rows_plain``. Into a pinned ``out`` (the staging buffer
+    of a trainer on a card) by the C++ of ``csrc/host_half.cu`` over
+    ``host_threads()`` threads; into pageable memory by the plain
+    version."""
+    _host_args("gather_host_rows", ids, out)
+    if table.dim() != 2 or table.stride(1) != 1 or table.device.type != "cpu" \
+            or out.dim() != 2 or out.dtype != table.dtype \
+            or out.shape[1] > table.shape[1] or ids.dtype != torch.int32 \
+            or ids.dim() != 1 or out.shape[0] != ids.shape[0]:
+        raise ValueError(f"gather_host_rows: table {table.dtype} "
+                         f"{tuple(table.shape)}, ids {ids.dtype} "
+                         f"{tuple(ids.shape)}, out {out.dtype} "
+                         f"{tuple(out.shape)}")
+    if not out.is_pinned():
+        return gather_host_rows_plain(table, ids, out)
+    es = table.element_size()
+    rc = kernels.lib().lt_host_gather_rows(
+        table.data_ptr(), table.shape[0], table.stride(0) * es,
+        ids.data_ptr(), ids.shape[0], out.shape[1] * es, out.data_ptr(),
+        host_threads())
+    if rc != 0:
+        raise RuntimeError(f"gather_host_rows failed ({rc})")
+    return out
+
+
+def _draw_shapes(frontier: torch.Tensor, fanout: int, keys):
+    """(n, F, keys [n, 4] int32 words) of a host draw: frontier [F] with
+    keys [4] (or an int key), or [n, F] with [n, 4]."""
+    from legion_tpu_torch.sampling.access import _as_i32, draw_keys
+    n = 1 if frontier.dim() == 1 else frontier.shape[0]
+    if not isinstance(keys, torch.Tensor):
+        keys = torch.tensor([_as_i32(draw_keys(keys))], dtype=torch.int32)
+    if frontier.dtype != torch.int32 or frontier.dim() not in (1, 2) \
+            or keys.dtype != torch.int32 or keys.numel() != 4 * n \
+            or fanout < 0:
+        raise ValueError(f"host_draw: frontier {frontier.dtype} "
+                         f"{tuple(frontier.shape)}, keys {keys.dtype} "
+                         f"{tuple(keys.shape)}, fanout {fanout}")
+    return n, frontier.shape[-1], keys.reshape(n, 4).contiguous()
+
+
+def host_draw_plain(indptr: torch.Tensor, indices: torch.Tensor,
+                    frontier: torch.Tensor, fanout: int, keys,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain ``host_draw``: slot i of member m draws f at lane f*F + i
+    with member m's first two key words, from its vertex's row of the
+    host CSR (the vertex clamped to V - 1), -1 for a pad or degree 0:
+    K5's draws of a miss (``sampling/access.py::csr_draw_plain``)."""
+    from legion_tpu_torch.sampling.access import M32, bounded, hash_words
+    n, F, keys = _draw_shapes(frontier, fanout, keys)
+    V = indptr.shape[0] - 1
+    f2 = frontier.reshape(n, F)
+    valid = (f2 >= 0) & (V > 0)
+    vc = f2.clamp(0, max(V - 1, 0)).long()
+    zero = torch.zeros((), dtype=torch.int64)
+    start = torch.where(valid, indptr[vc].long(), zero)
+    deg = torch.where(valid, indptr[vc + 1].long(), zero) - start
+    k = keys.long() & M32
+    lane = (torch.arange(fanout, dtype=torch.int64)[None, None, :] * F
+            + torch.arange(F, dtype=torch.int64)[None, :, None]) & M32
+    r = bounded(hash_words(k[:, 0, None, None], k[:, 1, None, None], lane),
+                deg.clamp(1, 2 ** 31 - 1)[..., None])
+    ok = (deg > 0)[..., None].expand_as(r)
+    pos = torch.where(ok, start[..., None] + r, zero)
+    nbr = indices[pos] if indices.numel() else torch.zeros_like(
+        pos, dtype=torch.int32)
+    res = torch.where(ok, nbr, torch.full_like(nbr, -1)).to(torch.int32)
+    res = res.reshape(frontier.shape + (fanout,))
+    return res if out is None else out.copy_(res)
+
+
+def host_draw(indptr: torch.Tensor, indices: torch.Tensor,
+              frontier: torch.Tensor, fanout: int, keys,
+              out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Host work, not a fallback: the host CSR's draws (indptr [V+1]
+    int64, indices [E] int32, both host tensors) for a frontier [F] (or
+    [n, F]) int32 on the host (-1 for a slot that needs none) with the
+    hop's key words keys [4] ([n, 4]) int32 (or an int key) -> [F, fanout]
+    ([n, F, fanout]) int32, as ``host_draw_plain``. Into a pinned ``out``
+    (a trainer on a card) by the C++ of ``csrc/host_half.cu`` over
+    ``host_threads()`` threads; otherwise by the plain version."""
+    n, F, kw = _draw_shapes(frontier, fanout, keys)
+    _host_args("host_draw", indptr, indices, frontier, kw)
+    if indptr.dtype != torch.int64 or indices.dtype != torch.int32:
+        raise ValueError(f"host_draw: indptr {indptr.dtype}, indices "
+                         f"{indices.dtype}")
+    if out is None or not out.is_pinned():
+        return host_draw_plain(indptr, indices, frontier, fanout, kw, out)
+    if out.dtype != torch.int32 or not out.is_contiguous() \
+            or tuple(out.shape) != tuple(frontier.shape) + (fanout,):
+        raise ValueError(f"host_draw: out {out.dtype} {tuple(out.shape)}")
+    rc = kernels.lib().lt_host_draw_i64(
+        indptr.data_ptr(), indices.data_ptr(), indptr.shape[0] - 1,
+        frontier.data_ptr(), n, F, fanout, kw.data_ptr(), out.data_ptr(),
+        host_threads())
+    if rc != 0:
+        raise RuntimeError(f"host_draw failed ({rc})")
+    return out

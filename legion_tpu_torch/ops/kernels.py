@@ -43,7 +43,11 @@ requester's side) in ``cache/collective.py``; K16 ``dropout_act``
 counted under ``dropout_act_bwd``) in ``ops/dropout.py``; K17
 ``segment_max`` and K18 ``segment_softmax`` (the JAX package's segment
 max and softmax, on no path; backwards counted under ``<name>_bwd``) in
-``ops/segment.py``;
+``ops/segment.py``; the staged host pipeline's K19 ``miss_compact`` and
+K20 ``staged_assemble`` in ``pipeline/staged.py``, K21 ``merge_draws`` and
+K5's device-only form (counted under ``csr_draw_device``) in
+``sampling/access.py``, and its host half (``csrc/host_half.cu``: C++
+threads on the host, no kernel, not counted) in ``ops/host_memory.py``;
 host-memory registration for K4 and K5 is ``ops/host_memory.py``. The
 headers of ``csrc/*.cu`` say what bounds each kernel on the card.
 ``noop`` launches an empty kernel, the yardstick of a launch's cost, and
@@ -90,7 +94,9 @@ LAUNCHES: Dict[str, int] = {"gather_rows": 0, "segment_sum": 0,
                             "hop_mean_bwd": 0, "hop_mean_grad": 0,
                             "dropout_act": 0, "dropout_act_bwd": 0,
                             "segment_max": 0, "segment_max_bwd": 0,
-                            "segment_softmax": 0, "segment_softmax_bwd": 0}
+                            "segment_softmax": 0, "segment_softmax_bwd": 0,
+                            "csr_draw_device": 0, "miss_compact": 0,
+                            "staged_assemble": 0, "merge_draws": 0}
 
 
 def reset_launch_counts() -> None:
@@ -156,7 +162,7 @@ def build() -> Tuple[float, str]:
                            for p, o in zip(cu, objs)])
         lib_tmp = os.path.join(tmp, so.name)
         report += _run_all([[nvcc, *GENCODE, "-shared", "-o", lib_tmp,
-                             *objs]])
+                             *objs, "-lpthread"]])
         os.replace(lib_tmp, so)
     return time.time() - t0, report
 
@@ -192,7 +198,7 @@ def lib() -> ctypes.CDLL:
     so.lt_cached_gather.argtypes = [p, p, i64, p, i64, i64, i32, p, p, i64,
                                     i64, i32, p, p, i64, p]
     for fn in (so.lt_csr_draw_i32, so.lt_csr_draw_i64):
-        fn.argtypes = [p, i64, i32, p, p, p, p, p, i64, p, p, p]
+        fn.argtypes = [p, i64, i32, p, p, p, p, p, i64, p, p, p, i32, p]
     # attention dropout's arguments: words, fold, regime, kq, keep, c
     drop = [p, ctypes.c_uint64, i32, u32, f32, f32]
     so.lt_gat_attend_fwd.argtypes = [p, p, p, p, p] + drop + [
@@ -241,6 +247,15 @@ def lib() -> ctypes.CDLL:
                                           p, p]
     so.lt_segment_softmax_bwd.argtypes = [p, p, i32, p, i64, i64, i64, p, p,
                                           p, p]
+    so.lt_miss_compact_scratch.argtypes = [i64, i64]
+    so.lt_miss_compact_scratch.restype = ctypes.c_int64
+    so.lt_miss_compact.argtypes = [p, i64, i64, p, i64, p, p, p, p, p, p, p,
+                                   p, p, p]
+    so.lt_staged_assemble.argtypes = [p, i64, p, p, p, i64, i64, i64, i64, p,
+                                      p]
+    so.lt_merge_draws.argtypes = [p, p, p, i64, i64, i32, p, p]
+    so.lt_host_gather_rows.argtypes = [p, i64, i64, p, i64, i64, p, i32]
+    so.lt_host_draw_i64.argtypes = [p, p, i64, p, i64, i64, i32, p, p, i32]
     so.lt_noop.argtypes = [p]
     so.lt_grid_sync_probe.argtypes = [i32, i32, p]
     for fn in (so.lt_noop, so.lt_gather_rows,
@@ -262,7 +277,9 @@ def lib() -> ctypes.CDLL:
                so.lt_clique_draw_unsort, so.lt_dropout_act_fwd,
                so.lt_dropout_act_bwd, so.lt_segment_max_fwd,
                so.lt_segment_max_bwd, so.lt_segment_softmax_fwd,
-               so.lt_segment_softmax_bwd, so.lt_segment_groups):
+               so.lt_segment_softmax_bwd, so.lt_segment_groups,
+               so.lt_miss_compact, so.lt_staged_assemble, so.lt_merge_draws,
+               so.lt_host_gather_rows, so.lt_host_draw_i64):
         fn.restype = ctypes.c_int
     so.lt_error_string.argtypes = [ctypes.c_int]
     so.lt_error_string.restype = ctypes.c_char_p

@@ -26,7 +26,7 @@ import torch
 
 from legion_tpu_torch.graph import DeviceCSR
 from legion_tpu_torch.ops import kernels
-from legion_tpu_torch.ops.host_memory import HostTable
+from legion_tpu_torch.ops.host_memory import HostTable, host_draw
 
 M32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9
@@ -232,9 +232,18 @@ def bounded(words: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
 
 
 class GraphAccess:
-    """Interface: draw ``fanout`` neighbours per frontier vertex."""
+    """Interface: draw ``fanout`` neighbours per frontier vertex.
+
+    The split-draw API (``legion_tpu/sampling/access.py:47-84``) is the
+    staged pipeline's (``pipeline/staged.py``): a hop is ``lookup`` on the
+    card, ``host_draw`` on the host for the slots it did not serve, and
+    ``merge_draws`` (K21), which equals ``sample_neighbors`` bit for bit.
+    The host draws with the hop's own key words, as K5 draws a miss (the
+    JAX package hands its host sampler a seed, ``host_seed``, which has no
+    counterpart here)."""
 
     num_nodes: int
+    needs_host_draws = False
 
     def sample_neighbors(self, frontier: torch.Tensor, fanout: int,
                          key) -> torch.Tensor:
@@ -244,6 +253,24 @@ class GraphAccess:
         the hop's [4] int32 key words on the frontier's device, or an int
         key."""
         raise NotImplementedError
+
+    def lookup(self, frontier: torch.Tensor, fanout: int, key
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Draws on the card alone: (lanes [fanout*F] fanout-major, served
+        [F] bool). A slot not served draws on the host (``host_draw``).
+        By default every valid slot is served by ``sample_neighbors``."""
+        return self.sample_neighbors(frontier, fanout, key), frontier >= 0
+
+    def host_draw(self, frontier: torch.Tensor, fanout: int, key,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The host's draws [F, fanout] for a frontier on the host whose
+        served slots are -1."""
+        raise NotImplementedError
+
+    @staticmethod
+    def merge_draws(lanes: torch.Tensor, served: torch.Tensor,
+                    host_nbr: torch.Tensor, fanout: int) -> torch.Tensor:
+        return merge_draws(lanes, served, host_nbr, fanout)
 
 
 def _frontier_rows(row_pairs: torch.Tensor, frontier: torch.Tensor,
@@ -366,18 +393,137 @@ def csr_draw(frontier: torch.Tensor, fanout: int, key,
         raise ValueError("csr_draw: dtypes/shapes " + ", ".join(
             f"{t.dtype}{tuple(t.shape)}" for t in
             (frontier, indptr, indices) + cached if t is not None))
+    return _csr_launch("csr_draw", frontier, fanout, key, cached,
+                       (indptr, indices), indptr.dtype, indptr.shape[0] - 1,
+                       None)
+
+
+def _csr_launch(name: str, frontier, fanout: int, key, cached, full,
+                off_dtype, num_nodes: int, served: Optional[torch.Tensor]
+                ) -> torch.Tensor:
+    """K5's launch: ``full`` = (indptr, indices), or (None, None) for the
+    device-only form (which then fills ``served``)."""
+    dev = frontier.device
     tabs = [None if t is None else t.contiguous()
-            for t in (frontier,) + cached + (indptr, indices)]
+            for t in (frontier,) + tuple(cached) + tuple(full)]
     ptrs = [0 if t is None else t.data_ptr() for t in tabs]
     F = frontier.shape[0]
     out = torch.empty((fanout * F,), dtype=torch.int32, device=dev)
-    words = _key_arg("csr_draw", key, dev)
+    words = _key_arg(name, key, dev)
     lib = kernels.lib()
-    fn = lib.lt_csr_draw_i32 if indptr.dtype == torch.int32 \
+    fn = lib.lt_csr_draw_i32 if off_dtype == torch.int32 \
         else lib.lt_csr_draw_i64
-    rc = fn(ptrs[0], F, fanout, *ptrs[1:], indptr.shape[0] - 1,
-            words.data_ptr(), out.data_ptr(), kernels.stream_handle())
-    kernels.check("csr_draw", rc)
+    rc = fn(ptrs[0], F, fanout, *ptrs[1:], num_nodes, words.data_ptr(),
+            out.data_ptr(), None if served is None else served.data_ptr(),
+            int(served is not None), kernels.stream_handle())
+    kernels.check(name, rc)
+    return out
+
+
+def csr_draw_cached_plain(frontier: torch.Tensor, fanout: int, key,
+                          row_map: torch.Tensor, sub_indptr: torch.Tensor,
+                          sub_indices: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain K5 in its device-only form: ``csr_draw_plain``'s draws for
+    the slots whose vertex ``row_map`` holds (served), -1 on every lane of
+    the others, whose rows are not read."""
+    V = row_map.shape[0]
+    F = frontier.shape[0]
+    dev = frontier.device
+    row = row_map[frontier.clamp(0, V - 1).long()]
+    served = (frontier >= 0) & (row >= 0)
+    r = row.clamp(0, sub_indptr.shape[0] - 2).long()
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    start = torch.where(served, sub_indptr[r], zero)
+    deg = torch.where(served, sub_indptr[r + 1], zero) - start
+    lanes = torch.arange(fanout * F, dtype=torch.int64,
+                         device=dev).view(fanout, F)
+    ka, kb = key_words(key)[:2]
+    pos = start[None, :] + bounded(hash_words(ka, kb, lanes),
+                                   deg.clamp(1, 2 ** 31 - 1)[None, :])
+    ok = (deg > 0)[None, :].expand_as(pos)
+    if sub_indices.numel() == 0:
+        return torch.full((fanout * F,), -1, dtype=torch.int32,
+                          device=dev), served
+    nbr = sub_indices[torch.where(ok, pos, 0)]
+    return torch.where(ok, nbr, torch.full_like(nbr, -1)).reshape(-1), served
+
+
+def csr_draw_cached(frontier: torch.Tensor, fanout: int, key,
+                    row_map: torch.Tensor, sub_indptr: torch.Tensor,
+                    sub_indices: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5's device-only form (``CachedTopoAccess.lookup``, ``legion_tpu/
+    sampling/access.py:279-297``), as ``csr_draw_cached_plain``: frontier
+    [F] int32 -> (lanes [fanout*F] int32 fanout-major, served [F] bool),
+    the draws of the slots the cached sub-CSR holds and -1 elsewhere, no
+    host memory read; one launch, which also writes ``served``."""
+    dev = frontier.device
+    if dev.type == "cpu":
+        return csr_draw_cached_plain(frontier, fanout, key, row_map,
+                                     sub_indptr, sub_indices)
+    cached = (row_map, sub_indptr, sub_indices)
+    if any(t.device != dev for t in cached):
+        raise ValueError("csr_draw_cached: tensors on different devices")
+    if frontier.dtype != torch.int32 or frontier.dim() != 1 \
+            or row_map.dtype != torch.int32 \
+            or sub_indptr.dtype != torch.int64 \
+            or sub_indices.dtype != torch.int32:
+        raise ValueError("csr_draw_cached: dtypes/shapes " + ", ".join(
+            f"{t.dtype}{tuple(t.shape)}" for t in (frontier,) + cached))
+    served = torch.empty((frontier.shape[0],), dtype=torch.bool, device=dev)
+    out = _csr_launch("csr_draw_device", frontier, fanout, key, cached,
+                      (None, None), torch.int64, row_map.shape[0], served)
+    return out, served
+
+
+# ---------------------------------------------------------------------------
+# K21 merge_draws
+# ---------------------------------------------------------------------------
+
+def _merge_shapes(lanes, served, host_nbr, fanout: int):
+    n = 1 if served.dim() == 1 else served.shape[0]
+    F = served.shape[-1]
+    if served.dtype != torch.bool or served.dim() not in (1, 2) \
+            or lanes.dtype != torch.int32 or host_nbr.dtype != torch.int32 \
+            or lanes.numel() != n * fanout * F \
+            or tuple(host_nbr.shape[-2:]) != (F, fanout) \
+            or host_nbr.numel() != n * F * fanout:
+        raise ValueError(f"merge_draws: lanes {lanes.dtype} "
+                         f"{tuple(lanes.shape)}, served {served.dtype} "
+                         f"{tuple(served.shape)}, host {host_nbr.dtype} "
+                         f"{tuple(host_nbr.shape)}, fanout {fanout}")
+    return n, F
+
+
+def merge_draws_plain(lanes: torch.Tensor, served: torch.Tensor,
+                      host_nbr: torch.Tensor, fanout: int) -> torch.Tensor:
+    """Plain K21: ``jnp.where(jnp.tile(served, fanout), lanes,
+    host_nbr.T.reshape(-1))`` for each member row."""
+    n, F = _merge_shapes(lanes, served, host_nbr, fanout)
+    out = torch.where(served.reshape(n, 1, F), lanes.reshape(n, fanout, F),
+                      host_nbr.reshape(n, F, fanout).transpose(1, 2))
+    return out.reshape(lanes.shape)
+
+
+def merge_draws(lanes: torch.Tensor, served: torch.Tensor,
+                host_nbr: torch.Tensor, fanout: int) -> torch.Tensor:
+    """K21, as ``merge_draws_plain``: lanes [fanout*F] (or [n, fanout*F])
+    int32 fanout-major, served [F] ([n, F]) bool, the host's draws [F,
+    fanout] ([n, F, fanout]) int32 -> the merged lanes in lanes' shape; the
+    transpose of the host's draws is done in the kernel."""
+    if lanes.device.type == "cpu":
+        return merge_draws_plain(lanes, served, host_nbr, fanout)
+    n, F = _merge_shapes(lanes, served, host_nbr, fanout)
+    if served.device != lanes.device or host_nbr.device != lanes.device:
+        raise ValueError("merge_draws: tensors on different devices")
+    lanes, served = lanes.contiguous(), served.contiguous()
+    host_nbr = host_nbr.contiguous()
+    out = torch.empty_like(lanes)
+    rc = kernels.lib().lt_merge_draws(
+        lanes.data_ptr(), served.data_ptr(), host_nbr.data_ptr(), n, F,
+        fanout, out.data_ptr(), kernels.stream_handle())
+    kernels.check("merge_draws", rc)
     return out
 
 
@@ -405,7 +551,15 @@ class CachedTopoAccess(GraphAccess):
     the draws equal ``DeviceCSRAccess``'s on the whole graph bit for bit,
     whatever the cache holds. (The JAX package draws its misses with
     ``native.sample_neighbors``'s own generator instead.) Like the JAX
-    package, it ignores ``neighbor_window``."""
+    package, it ignores ``neighbor_window``.
+
+    Split draws (the staged pipeline): ``lookup`` is K5's device-only form
+    (``all_miss`` serves nothing, as JAX's ``CachedTopoAccess`` over a
+    row_map of -1 and its ``HostFallbackAccess.lookup``), ``host_draw``
+    the host's C++ draws from the host CSR with the same words
+    (``ops/host_memory.py::host_draw``)."""
+
+    needs_host_draws = True
 
     def __init__(self, row_map: torch.Tensor, sub_indptr: torch.Tensor,
                  sub_indices: torch.Tensor, host_indptr: HostTable,
@@ -431,6 +585,16 @@ class CachedTopoAccess(GraphAccess):
         return csr_draw(frontier, fanout, key, self.host_indptr,
                         self.host_indices, self.row_map, self.sub_indptr,
                         self.sub_indices)
+
+    def lookup(self, frontier, fanout, key):
+        return csr_draw_cached(frontier, fanout, key, self.row_map,
+                               self.sub_indptr, self.sub_indices)
+
+    def host_draw(self, frontier, fanout, key, out=None):
+        """[F, fanout] (or [n, F, fanout] for [n, F] and keys [n, 4]) draws
+        from the host CSR, for a frontier and key words on the host."""
+        return host_draw(self.host_indptr.host, self.host_indices.host,
+                         frontier, fanout, key, out)
 
 
 # ---------------------------------------------------------------------------

@@ -74,8 +74,17 @@ their misses read by K4/K5 in place. Both dedup modes: with map dedup
 (``state["pos_map"]``), shared by the train and eval samplers and clean
 between batches. Also the train step (one step, ``fused_steps`` or
 ``interbatch``, with members and across processes), the eval step,
-``run_eval`` and ``fit``. Not ported
-(ROADMAP): the staged host pipeline (a TPU-runtime workaround).
+``run_eval`` and ``fit``.
+
+``CacheConfig.host_transfer="staged"`` with host features: the staged
+host pipeline (``pipeline/staged.py``, JAX's ``StagedHostPipeline``)
+takes the train and eval steps. It samples and looks the features up on
+a side stream (with host topology, host draws between the hops), ships
+the missed rows as one bulk copy from a pinned buffer that a worker
+thread fills, and assembles them before the update; one step ahead, as
+JAX's lookahead. It takes neither ``fused_steps`` > 1 (refused) nor
+``interbatch`` (ignored), as in JAX. "auto" and "callback" mean the
+zero-copy kernels (K4, K5, K13).
 
 Members (``MeshConfig(num_cliques=Kc, clique_size=Kg)``, n_dev = Kc * Kg
 > 1): the devices of JAX's ("clique", "member") mesh are a leading axis
@@ -268,14 +277,11 @@ class Trainer:
             self.n_local, self.first = mesh.n_local, mesh.first_member
             self._world, self._clique_group = (mesh.world_group,
                                                mesh.clique_group)
-        if config.cache.enabled and config.cache.host_transfer not in (
-                "auto", "callback"):
+        if config.cache.host_transfer not in ("auto", "callback", "staged"):
             # "auto" and "callback" both mean the zero-copy kernels here
-            raise NotImplementedError(
-                f"host_transfer={config.cache.host_transfer!r}: the port "
-                "reads host misses in place inside its kernels; the staged "
-                "split-program pipeline exists for TPU runtimes and is not "
-                "ported")
+            raise ValueError(
+                f"host_transfer={config.cache.host_transfer!r}: 'auto', "
+                "'callback' or 'staged'")
         if config.train.fused_steps < 1:
             raise ValueError(
                 f"fused_steps={config.train.fused_steps}: at least 1")
@@ -285,10 +291,13 @@ class Trainer:
                 "to interbatch (legion_tpu/train.py:191-193)")
         # train steps a ``train_step`` call takes (fit's unit of work), and
         # whether a step trains on the carry while it samples the next
-        # batch; a state is made for one of the two modes (``init_state``)
+        # batch; a state is made for one of the two modes (``init_state``).
+        # The staged pipeline has its own lookahead and takes neither
+        # (set after the storage)
         self.fused_steps = config.train.fused_steps
         self.interbatch = config.train.interbatch
         self._graph = self._side_stream = None
+        self._staged = None
         # a captured step's kernel launches and collective calls (the
         # launches count once, at capture; a replay adds the collectives
         # to ``COLLECTIVES``, since each replay runs them)
@@ -352,6 +361,13 @@ class Trainer:
 
         self._setup_storage(train_sets[0])
         self._check_ranks_agree()
+        if self._staged_host:
+            if self.fused_steps > 1:
+                raise ValueError(
+                    "fused_steps applies to the fused single-program path, "
+                    "not to the staged pipeline (legion_tpu/train.py:192-194)")
+            # JAX's staged trainer ignores interbatch (train.py:516, :872)
+            self.interbatch = False
 
         if self.compact_caps is not None:
             # the measured train caps bound an eval batch's growth too
@@ -366,6 +382,8 @@ class Trainer:
         # restored, for ``step_key``
         self._base_key = config.train.seed + 1
         self.test_acc: Optional[float] = None
+        if self._staged_host:
+            self._build_staged_steps()
 
     # ------------------------------------------------------------------
     def _check_ranks_agree(self) -> None:
@@ -454,6 +472,9 @@ class Trainer:
         self.compact_caps = None
         feat_host = cache_cfg.enabled and \
             cache_cfg.feature_residency == "host"
+        # the staged pipeline ships the feature misses (host features only,
+        # as in legion_tpu/train.py:372-385, :471-482)
+        self._staged_host = feat_host and cache_cfg.host_transfer == "staged"
         topo_host = cache_cfg.enabled and cache_cfg.topo_residency == "host"
 
         def _hbm_access(csr):
@@ -650,8 +671,21 @@ class Trainer:
             self.feature_source = DeviceFeatureSource(
                 torch.from_numpy(host_feats).to(dev))
 
+    # -- the staged host pipeline (CacheConfig.host_transfer="staged") -----
+    # owned by pipeline/staged.py::StagedHostPipeline, which probes its own
+    # caps and keeps its counters (JAX's seams on the trainer,
+    # legion_tpu/train.py:823-852, are the pipeline's members here)
+
+    def _build_staged_steps(self) -> None:
+        from legion_tpu_torch.pipeline.staged import StagedHostPipeline
+        self._staged = StagedHostPipeline(self)
+
     def close(self) -> None:
-        """Unregister the host tables. Safe to call more than once."""
+        """Tear down the staged pipeline (its pending host half, its
+        worker, its pinned buffers), then unregister the host tables. Safe
+        to call more than once."""
+        if self._staged is not None:
+            self._staged.close()
         for t in self._host_tables:
             t.close()
         self._host_tables = []
@@ -1070,6 +1104,8 @@ class Trainer:
         call's counters are summed over the ranks once, by one
         all-reduce outside any captured step (the sums of JAX's per-step
         ``psum``)."""
+        if self._staged_host:
+            return self._staged.train_step(state)
         K = self.fused_steps
         if self.interbatch:
             loss, counts = self._interbatch_step(state)
@@ -1081,11 +1117,16 @@ class Trainer:
                 torch.stack([o[0] for o in outs]).mean()
             counts = outs[0][1] if K == 1 else \
                 torch.stack([o[1] for o in outs]).sum(0, dtype=torch.int32)
+        self._set_counts(counts)
+        return state, loss
+
+    def _set_counts(self, counts: torch.Tensor) -> None:
+        """A ``train_step`` call's counters into ``last_*``; with a process
+        group summed over the ranks first, by one all-reduce."""
         if self._world is not None:
             counts = all_reduce(counts, self._world)
         (self.last_edges, self.last_slots, self.last_feat_hits,
          self.last_topo_hits, self.last_topo_total) = counts.unbind()
-        return state, loss
 
     # -- the members here (n_dev > 1) --------------------------------------
 
@@ -1182,11 +1223,19 @@ class Trainer:
         ``_wait_side``: the side stream's sampling writes ``pos_map``
         too."""
         self._wait_side()
+        bank, ybank, n, ctr = self._eval_banks(mode)
+        batches, x, _, seeds, y, _ = self._batch(state, self.sampler_e, bank,
+                                                 ybank, n, ctr, _EVAL_TAG)
+        self._eval_on(state, batches, x, seeds, y)
+        state[ctr] += 1
+
+    def _eval_on(self, state: Dict, batches, x, seeds: torch.Tensor,
+                 y: torch.Tensor) -> None:
+        """An eval batch's forward, added to ``correct`` and ``total``
+        (one member's batch, or the members' tuple with x, seeds and y a
+        row a member)."""
         sampler = self.sampler_e
         bs = sampler.config.batch_size
-        bank, ybank, n, ctr = self._eval_banks(mode)
-        batches, x, _, seeds, y, _ = self._batch(state, sampler, bank,
-                                                 ybank, n, ctr, _EVAL_TAG)
         if self.n_dev == 1:
             batches, x, seeds, y = (batches,), (x,), seeds[None], y[None]
         model = state["model"]
@@ -1205,7 +1254,6 @@ class Trainer:
                 state["correct"] += ((pred == y[d]) & valid).sum(
                     dtype=torch.int32)
                 state["total"] += valid.sum(dtype=torch.int32)
-        state[ctr] += 1
 
     def _wait_side(self) -> None:
         """Under ``interbatch`` on a card, the current stream waits for the
@@ -1219,7 +1267,10 @@ class Trainer:
         n = self.schedule.valid_step if mode == Mode.VALID \
             else self.schedule.test_step
         for _ in range(n):
-            self._eval_step(state, mode)
+            if self._staged_host:
+                self._staged.eval_steps[mode](state)
+            else:
+                self._eval_step(state, mode)
         if self._world is not None:
             both = all_reduce(torch.stack([state["correct"],
                                            state["total"]]), self._world)

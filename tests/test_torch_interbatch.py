@@ -139,11 +139,12 @@ def test_interbatch_pipeline_exact_equivalence(ds, hds, case):
         t1.close()
 
 
-def test_interbatch_fit_and_refusals(ds):
+def test_interbatch_fit_and_refusals(ds, hds):
     """``fit`` under interbatch takes one step a call and ends where the
     plain ``fit`` does (losses, valid and test accuracy, parameters, the
     counters); ``interbatch`` with ``fused_steps`` > 1 is refused, as
-    JAX's ``fused_steps applies to the fused single-program path``."""
+    JAX's ``fused_steps applies to the fused single-program path``; with
+    the staged host pipeline ``interbatch`` is ignored, as in JAX."""
     cfg = replace(_config(ds, "sort"), train=replace(
         _config(ds, "sort").train, epochs=2))
     t0, t1 = Trainer(ds, cfg, "cpu"), Trainer(ds, _interbatch(cfg), "cpu")
@@ -169,8 +170,13 @@ def test_interbatch_fit_and_refusals(ds):
     with pytest.raises(ValueError, match="fused single-program path"):
         Trainer(ds, _interbatch(replace(cfg, train=replace(
             cfg.train, fused_steps=2))), "cpu")
-    hcfg = replace(cfg, cache=CacheConfig(cache_bytes=1000,
-                                          feature_residency="host",
-                                          host_transfer="staged"))
-    with pytest.raises(NotImplementedError, match="staged"):
-        Trainer(ds, _interbatch(hcfg), "cpu")
+    # JAX's rule (legion_tpu/train.py:516, :872): staged with interbatch
+    # builds, and its step is the staged pipeline's, with no carry
+    hcfg = _config(hds, "host")
+    hcfg = replace(hcfg, cache=replace(hcfg.cache, host_transfer="staged"))
+    tr = Trainer(hds, _interbatch(hcfg), "cpu")
+    assert tr._staged_host and not tr.interbatch
+    s, loss = tr.train_step(tr.init_state())
+    assert "carry_batch" not in s and tr._staged._ctr == 1
+    assert torch.isfinite(loss) and s["train_ctr"] == 1
+    tr.close()

@@ -9,8 +9,8 @@ returns the same losses and accuracies bit for bit; every sampled id, and
 every fetched row, equals the one-process run of the same members (itself
 held against JAX's ``shard_map`` in ``tests/test_torch_clique.py``); the
 losses equal that run's within rtol 1e-5 (the mean over the ranks sums in
-another order); the same in both layouts with ``fused_steps`` and with
-``interbatch``. Also: ``exchange`` over 2 and 4 ranks against the
+another order); the same in both layouts with ``fused_steps``, with
+``interbatch`` and with the staged host pipeline. Also: ``exchange`` over 2 and 4 ranks against the
 one-process transpose, a resumed 2-rank run against the unbroken one, and
 ``make_mesh``'s shapes and members against JAX's mesh, and its rule,
 without processes.
@@ -106,7 +106,8 @@ def _result(tr, rec, stats):
                 acc=[s.valid_acc for s in stats] + [tr.test_acc],
                 first=tr.first, n_local=tr.n_local,
                 feature_source=type(tr.feature_source).__name__,
-                graph_access=type(tr.graph_access).__name__)
+                graph_access=type(tr.graph_access).__name__,
+                staged=tr._staged_host)
 
 
 def _worker(spec):
@@ -127,8 +128,9 @@ def _worker(spec):
         tr, rec, stats = _launch(SYNTH + argv + mp, spec["cache"],
                                  spec["train"][i])
         results.append(_result(tr, rec, stats))
-        arrays[f"ids{i}"] = np.stack(rec["ids"])
-        arrays[f"x{i}"] = np.stack(rec["x"])
+        if rec["ids"]:      # the staged pipeline fetches on its own
+            arrays[f"ids{i}"] = np.stack(rec["ids"])
+            arrays[f"x{i}"] = np.stack(rec["x"])
     np.savez(out + ".npz", **arrays)
     with open(out + ".json", "w") as f:
         json.dump(results, f)
@@ -298,6 +300,40 @@ def test_ranks_in_each_mode_equal_each_other_and_one_process(case,
     np.testing.assert_allclose(j0[0]["loss"], loss_k, rtol=1e-5)
     np.testing.assert_allclose(j0[1]["loss"], ref["loss"], rtol=1e-5)
     assert all(np.isfinite(j0[1]["loss"]))
+
+
+# (processes W, members a process, clique size) of the staged runs: layout
+# (a), one member a process, and layout (b), a clique of 2 across 2
+# processes; features and topology on the host in both
+STAGED_CASES = {"a-2x1-kg1": (2, 1, 1), "b-2x1-kg2": (2, 1, 2)}
+
+
+@pytest.mark.parametrize("case", list(STAGED_CASES))
+def test_staged_ranks_equal_each_other_and_one_process(case, tmp_path):
+    """``host_transfer="staged"`` over 2 gloo ranks through the launcher,
+    two epochs: every rank returns the same losses and accuracies bit for
+    bit; the losses equal one process's staged run of the same members
+    within rtol 1e-5 (the mean over the ranks sums in another order), and
+    that run's losses and accuracies equal its zero-copy run's."""
+    W, n, Kg = STAGED_CASES[case]
+    zero_copy = _cache(True, "direct")
+    staged = dict(zero_copy, host_transfer="staged")
+    ranks = _run_ranks("train", W, tmp_path, [_argv(n, Kg, True)], staged)
+    tr, ref, ref_stats = _launch(SYNTH + _argv(W * n, Kg, True), staged)
+    tz, zc, zc_stats = _launch(SYNTH + _argv(W * n, Kg, True), zero_copy)
+    assert tr._staged_host and not tz._staged_host
+    np.testing.assert_allclose(ref["loss"], zc["loss"], rtol=1e-5,
+                               atol=1e-6)
+    assert [s.valid_acc for s in ref_stats] == \
+        [s.valid_acc for s in zc_stats] and tr.test_acc == tz.test_acc
+    j0 = ranks[0][0][0]
+    assert len(j0["loss"]) == 2 * tr.schedule.train_step >= 2
+    for j, _ in ranks:
+        assert j[0]["loss"] == j0["loss"] and j[0]["acc"] == j0["acc"]
+        assert j[0]["ctr"] == list(range(len(j0["loss"])))
+        assert j[0]["staged"]
+    np.testing.assert_allclose(j0["loss"], ref["loss"], rtol=1e-5)
+    assert all(np.isfinite(j0["loss"]))
 
 
 def test_a_resumed_two_rank_run_continues_the_unbroken_one(tmp_path):

@@ -359,15 +359,22 @@ def test_cached_trainer_steps_evaluates_and_fits_on_cpu(topo_residency):
 
 
 def test_staged_host_transfer_is_refused():
-    """The staged split-program pipeline is a TPU-runtime workaround; the
-    port refuses it rather than fall back to a copy."""
-    ds = host_synth(num_nodes=500, avg_degree=8, feature_dim=16,
+    """host_transfer="staged" is not refused: it builds the staged
+    pipeline and trains one step with a finite loss (1500 nodes, since a
+    schedule needs a batch of train seeds; tests/test_torch_staged.py
+    holds the pipeline against the zero-copy trainer)."""
+    ds = host_synth(num_nodes=1500, avg_degree=8, feature_dim=16,
                     num_classes=4, batch_size=64, seed=0)
     cfg = replace(_tiny_config(ds), cache=CacheConfig(
         cache_bytes=10_000, feature_residency="host",
         host_transfer="staged"))
-    with pytest.raises(NotImplementedError, match="staged"):
-        Trainer(ds, cfg, device="cpu")
+    tr = Trainer(ds, cfg, device="cpu")
+    assert tr._staged_host
+    assert 0 < tr._staged.miss_cap <= tr.sampler_t.max_ids
+    state, loss = tr.train_step(tr.init_state())
+    assert np.isfinite(float(loss)) and state["train_ctr"] == 1
+    assert 0 < int(tr.last_feat_hits) < int(tr.last_slots)
+    tr.close()
 
 
 def _tiny_config(ds, **sampler_kw):
