@@ -2162,31 +2162,44 @@ def seg_shuffled(rows, ids, S, g_rows, scores, g_sc, sg, torch):
               f"{cuda_ms(plain, torch, 3):.4f} ms")
 
 
-def seg_parent_lib():
-    """The parent commit's K17 and K18 (``_archive/parent``, a ``git
-    archive`` of it), built from its sources with kernels.NVCC_FLAGS into
-    a library of their own: (the library, None), or (None, why not) where
-    no archive is unpacked or its library does not load (a parent whose
-    K17 and K18 group the lanes by segment needs ``hop_agg.cu`` too, and
-    its entry points differ from the bindings below)."""
+def parent_lib(label, files, name):
+    """The parent commit's ``files`` (from ``legion_tpu_torch/csrc`` of
+    ``_archive/parent``, a ``git archive`` of it) built from source with
+    kernels.NVCC_FLAGS into a library of their own,
+    ``legion_tpu_torch/_build/<name>/<name>.so``. Returns (the library,
+    None), or (None, why not) where no archive is unpacked or the library
+    does not load."""
     import ctypes
     from legion_tpu_torch.ops import kernels
     src = [os.path.join(PARENT, "legion_tpu_torch", "csrc", f)
-           for f in ("segment_max.cu", "segment_softmax.cu")]
+           for f in files]
     if not all(os.path.exists(f) for f in src):
         return None, "no parent archive"
-    out = os.path.join(str(kernels.BUILD_DIR), "seg_parent")
+    out = os.path.join(str(kernels.BUILD_DIR), name)
     os.makedirs(out, exist_ok=True)
-    so_path = os.path.join(out, "seg_parent.so")
+    so_path = os.path.join(out, f"{name}.so")
     t0 = time.perf_counter()
     kernels._run_all([[kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared",
                        "-o", so_path, *src]])
-    print(f"  K17, K18: built the parent's kernels in "
+    print(f"  {label}: built the parent's kernels in "
           f"{time.perf_counter() - t0:.2f} s")
     try:
-        so = ctypes.CDLL(so_path)
+        return ctypes.CDLL(so_path), None
     except OSError as e:
         return None, f"the parent's library does not load ({e})"
+
+
+def seg_parent_lib():
+    """The parent commit's K17 and K18 (``parent_lib``): (the library,
+    None), or (None, why not) where ``parent_lib`` has none or the
+    parent's K17 and K18 group the lanes by segment (they need
+    ``hop_agg.cu`` too, and their entry points differ from the bindings
+    below)."""
+    import ctypes
+    so, why = parent_lib("K17, K18", ("segment_max.cu", "segment_softmax.cu"),
+                         "seg_parent")
+    if so is None:
+        return None, why
     if hasattr(so, "lt_segment_groups_words"):
         return None, "the parent's K17 and K18 group by segment"
     p, i64, i32, u32, f32 = (ctypes.c_void_p, ctypes.c_int64,
@@ -6249,26 +6262,35 @@ def k11_builds(parent=False):
     return makers
 
 
-def k11_turns(what, m, ids, ref, least, builds, torch):
-    """K11 at one shape: every kernel of ``builds`` exact against ``ref``
-    (the plain version's values), then each timed in turns, forward and
-    back (the parent, the tree, the tree, the parent), as the host
-    launches it and queued, with its share of ``least``."""
-    fns = {k: make(m) for k, make in builds.items()}
-    for k, fn in fns.items():
-        if not torch.equal(fn(ids), ref):
-            fail(f"hash_lookup {k} {what}: differs from its plain version")
-    order = list(fns) + list(fns)[::-1]
-    got = {k: [] for k in fns}
-    for k in order:
-        got[k].append((cuda_ms(lambda: fns[k](ids), torch),
-                       queued_ms(lambda: fns[k](ids), torch)))
-    print(f"  hash_lookup turns, {what}: bound {least[0]:.4f} ms")
-    for k, v in got.items():
+def kernel_turns(name, what, fns, ref, tol, least, torch):
+    """One kernel's forms at one shape (``fns`` {label: call}): each held
+    against ``ref`` (its plain version's output) with ``tol``, then timed
+    in turns (the labels, then back: parent, tree, tree, parent), as the
+    host launches them and queued, with the share of ``least`` queued."""
+    for lb, fn in fns.items():
+        err, ok = tol(fn(), ref)
+        if not ok:
+            fail(f"{name} {lb} {what}: differs from its plain version "
+                 f"(max abs err {err})")
+    got = {lb: [] for lb in fns}
+    for lb in list(fns) + list(fns)[::-1]:
+        got[lb].append((cuda_ms(fns[lb], torch), queued_ms(fns[lb], torch)))
+    print(f"  {name} turns, {what}: bound {least[0]:.4f} ms")
+    for lb, v in got.items():
         q = [b for _, b in v]
-        print(f"    {k:20s} launched {', '.join(f'{a:.4f}' for a, _ in v)}"
+        print(f"    {lb:12s} launched {', '.join(f'{a:.4f}' for a, _ in v)}"
               f" | queued {', '.join(f'{b:.4f}' for b in q)} ms (share "
               f"{least[0] / min(q):.3f})")
+
+
+def k11_turns(what, m, ids, ref, least, builds, torch):
+    """K11 at one shape: every kernel of ``builds`` exact against ``ref``
+    (the plain version's values), then each timed in turns
+    (``kernel_turns``)."""
+    fns = {k: make(m) for k, make in builds.items()}
+    kernel_turns("hash_lookup", what, {
+        k: (lambda fn=fn: fn(ids)) for k, fn in fns.items()}, ref, exact,
+        least, torch)
 
 
 # the uk2014-sized feature map (tests/test_torch_hashmap.py's sizing:
@@ -7785,6 +7807,186 @@ def phase_int64(torch, results):
 # the two in turns
 STAGED_STEPS = 5
 STAGED_TURN_STEPS = 8
+# K19's lanes a tile (csrc/staged.cu kCompactTile), for its edge cases
+K19_TILE = 1024
+STAGED_PARENT = {}
+# K19's rank pass sums the words of its member's earlier tiles in this loop
+# (csrc/staged.cu): tiles^2 / 2 words a call. K19_PROBE holds the tree's
+# K19 built with the loop's read replaced by one read of the tile's
+# exclusive prefix, which the harness sets (``k19_prefix_probe``)
+K19_PREFIX_LOOP = ("for (int k = threadIdx.x; k < tile; k += "
+                   "kCompactThreads) {\n      const int2 c = "
+                   "cnt[m * tiles + k];")
+K19_PREFIX_READ = ("if (threadIdx.x == 0) {\n      const int2 c = "
+                   "k19_probe_pre[t];")
+K19_PROBE = {}
+
+
+def staged_parent_lib():
+    """The parent commit's K19 and K21 (``parent_lib``: its
+    ``staged.cu``), built once a run: (the library, None), or (None, why
+    not)."""
+    if not STAGED_PARENT:
+        import ctypes
+        so, why = parent_lib("K19, K21", ("staged.cu",), "staged_parent")
+        if so is not None:
+            p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
+            so.lt_miss_compact_scratch.argtypes = [i64, i64]
+            so.lt_miss_compact_scratch.restype = ctypes.c_int64
+            so.lt_miss_compact.argtypes = [p, i64, i64, p, i64, p, p, p, p,
+                                           p, p, p, p, p, p]
+            so.lt_merge_draws.argtypes = [p, p, p, i64, i64, i32, p, p]
+            so.lt_miss_compact.restype = ctypes.c_int
+            so.lt_merge_draws.restype = ctypes.c_int
+        STAGED_PARENT.update(so=so, why=why)
+    return STAGED_PARENT["so"], STAGED_PARENT["why"]
+
+
+def k19_prefix_probe():
+    """The tree's ``csrc/staged.cu`` built once a run into
+    ``legion_tpu_torch/_build/k19_probe/`` with K19_PREFIX_LOOP replaced
+    by K19_PREFIX_READ: the rank pass reads each tile's exclusive prefix
+    (misses, hits) from ``k19_probe_pre``, set by
+    ``lt_k19_probe_prefix``, instead of summing the words of the tiles
+    before it. Given the right prefix its outputs are the tree's, bit for
+    bit; its time against the tree's is that sum's. (the library, None),
+    or (None, why not)."""
+    if not K19_PROBE:
+        import ctypes
+        from legion_tpu_torch.ops import kernels
+        csrc = os.path.join(ROOT, "legion_tpu_torch", "csrc")
+        with open(os.path.join(csrc, "staged.cu")) as f:
+            src = f.read()
+        so, why = None, None
+        if src.count(K19_PREFIX_LOOP) != 1:
+            why = "K19_PREFIX_LOOP is not once in staged.cu"
+        else:
+            out = os.path.join(str(kernels.BUILD_DIR), "k19_probe")
+            os.makedirs(out, exist_ok=True)
+            cu = os.path.join(out, "staged_probe.cu")
+            with open(cu, "w") as f:
+                f.write('#include "common.cuh"\n'
+                        "__device__ const int2* k19_probe_pre;\n"
+                        + src.replace(K19_PREFIX_LOOP, K19_PREFIX_READ)
+                        + "\nLT_EXPORT int lt_k19_probe_prefix(const void* p)"
+                        " {\n  return (int)cudaMemcpyToSymbol(k19_probe_pre,"
+                        " &p, sizeof(p));\n}\n")
+            so_path = os.path.join(out, "k19_probe.so")
+            kernels._run_all([[kernels._nvcc(), *kernels.NVCC_FLAGS, "-I",
+                               csrc, "-shared", "-o", so_path, cu]])
+            so = ctypes.CDLL(so_path)
+            p, i64 = ctypes.c_void_p, ctypes.c_int64
+            so.lt_miss_compact_scratch.argtypes = [i64, i64]
+            so.lt_miss_compact_scratch.restype = ctypes.c_int64
+            so.lt_miss_compact.argtypes = [p, i64, i64, p, i64, p, p, p, p,
+                                           p, p, p, p, p, p]
+            so.lt_k19_probe_prefix.argtypes = [p]
+            for fn in (so.lt_miss_compact, so.lt_k19_probe_prefix):
+                fn.restype = ctypes.c_int
+        K19_PROBE.update(so=so, why=why)
+    return K19_PROBE["so"], K19_PROBE["why"]
+
+
+def compact_call(fn, scratch_words, ids, form, cnt=None):
+    """K19 through the C entry ``fn`` (the parent's kernel, or the tree's
+    and its prefix probe's, with its ``scratch_words``), on the buffers
+    the wrapper ``pipeline/staged.py::miss_compact`` makes (``cnt``, the
+    n_miss, hits and scratch words, where given). A Compacted."""
+    import torch
+    from legion_tpu_torch.ops import kernels
+    from legion_tpu_torch.pipeline.staged import Compacted
+    table, slot, hit = (form.get(k) for k in ("table", "slot", "hit"))
+    src = next(iter(form.values())).contiguous()
+    n, M = ids.shape
+    out = torch.empty((4 if table is not None else 3, n, M),
+                      dtype=torch.int32, device=ids.device)
+    if cnt is None:
+        cnt = torch.empty((2 * n + scratch_words(n, M),), dtype=torch.int32,
+                          device=ids.device)
+    payload = out[3] if table is not None else None
+    rc = fn(ids.data_ptr(), n, M,
+            None if table is None else src.data_ptr(),
+            0 if table is None else table.shape[0],
+            None if slot is None else src.data_ptr(),
+            None if hit is None else src.data_ptr(),
+            None if payload is None else payload.data_ptr(),
+            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+            cnt[:n].data_ptr(), cnt[n:2 * n].data_ptr(),
+            cnt[2 * n:].data_ptr(), kernels.stream_handle())
+    if rc != 0:
+        fail(f"miss_compact through {fn.__name__}: launch failed ({rc})")
+    return Compacted(slot if payload is None else payload, out[0], out[1],
+                     out[2], cnt[:n], cnt[n:2 * n])
+
+
+def merge_call(fn, lanes, served, host, fo):
+    """K21 through the C entry ``fn`` (the parent's kernel), as the
+    wrapper ``sampling/access.py::merge_draws`` calls it."""
+    import torch
+    from legion_tpu_torch.ops import kernels
+    n = 1 if served.dim() == 1 else served.shape[0]
+    out = torch.empty_like(lanes)
+    rc = fn(lanes.data_ptr(), served.data_ptr(), host.data_ptr(), n,
+            served.shape[-1], fo, out.data_ptr(), kernels.stream_handle())
+    if rc != 0:
+        fail(f"merge_draws through {fn.__name__}: launch failed ({rc})")
+    return out
+
+
+def compact_turns(ids, form, least, what, torch):
+    """K19 at a path's fetch in turns: the parent's kernel (where
+    ``staged_parent_lib`` has one) and the tree's, each bit for bit; then
+    the tree's against its prefix probe (``k19_prefix_probe``), queued in
+    turns (tree, probe, probe, tree): the share of the tree's time that
+    the rank pass's sum over the member's earlier tiles takes."""
+    from legion_tpu_torch.ops import kernels
+    from legion_tpu_torch.pipeline.staged import (miss_compact,
+                                                  miss_compact_plain)
+    so, why = staged_parent_lib()
+    fns = {}
+    if so is None:
+        print(f"  miss_compact turns: {why}; the tree's kernel alone")
+    else:
+        fns["parent"] = lambda: compact_call(
+            so.lt_miss_compact, so.lt_miss_compact_scratch, ids, form)
+    fns["tree"] = lambda: miss_compact(ids, **form)
+    kernel_turns("miss_compact", what, fns, miss_compact_plain(ids, **form),
+                 compacted_exact, least, torch)
+    probe, why = k19_prefix_probe()
+    if probe is None:
+        print(f"  miss_compact prefix probe: {why}; not timed")
+        return
+    # each tile's exclusive prefix of (misses, hits) from the tree's tile
+    # words (the scratch's head: a count pass writes them whole)
+    lib = kernels.lib()
+    n, M = ids.shape
+    tiles = -(-M // K19_TILE)
+    cnt = torch.empty((2 * n + lib.lt_miss_compact_scratch(n, M),),
+                      dtype=torch.int32, device=ids.device)
+    compact_call(lib.lt_miss_compact, lib.lt_miss_compact_scratch, ids,
+                 form, cnt)
+    words = cnt[2 * n:2 * n + 2 * n * tiles].view(n, tiles, 2)
+    pre = (torch.cumsum(words, 1, dtype=torch.int32) - words).contiguous()
+    if probe.lt_k19_probe_prefix(pre.data_ptr()) != 0:
+        fail("miss_compact prefix probe: setting the prefix failed")
+    calls = {"tree": lambda: compact_call(
+        lib.lt_miss_compact, lib.lt_miss_compact_scratch, ids, form),
+        "prefix read": lambda: compact_call(
+            probe.lt_miss_compact, probe.lt_miss_compact_scratch, ids, form)}
+    ref = miss_compact_plain(ids, **form)
+    for lb, fn in calls.items():
+        if not compacted_exact(fn(), ref)[1]:
+            fail(f"miss_compact prefix probe: {lb} differs from the plain "
+                 f"version, {what}")
+    got = {lb: [] for lb in calls}
+    for lb in ("tree", "prefix read", "prefix read", "tree"):
+        got[lb].append(queued_ms(calls[lb], torch))
+    tree, cut = min(got["tree"]), min(got["prefix read"])
+    print(f"  miss_compact prefix probe, {what}: {n * tiles} tiles; queued "
+          f"tree {', '.join(f'{t:.4f}' for t in got['tree'])}, prefix read "
+          f"{', '.join(f'{t:.4f}' for t in got['prefix read'])} ms; the sum "
+          f"over earlier tiles {tree - cut:.4f} ms, share "
+          f"{(tree - cut) / tree:.3f} of the tree's")
 
 
 def staged_ids(tr, a):
@@ -7926,12 +8128,14 @@ def staged_kernels(tr, torch, results, main, path):
     n, M = ids.shape
     comp = miss_compact(ids, **form)
     miss = comp.rank >= 0
+    what = f"{path} fetch [{n}, {M}], {int(comp.n_miss.sum())} missed"
+    least = bound(compact_bytes(ids, form))
     main.setdefault("miss_compact", []).append(compare(
         "miss_compact", lambda: miss_compact(ids, **form),
         lambda: miss_compact_plain(ids, **form), compacted_exact, results,
-        torch, f"{path} fetch [{n}, {M}], {int(comp.n_miss.sum())} missed",
-        least=bound(compact_bytes(ids, form)),
-        library=lambda: torch.nonzero(miss), queued=True))
+        torch, what, least=least, library=lambda: torch.nonzero(miss),
+        queued=True))
+    compact_turns(ids, form, least, what, torch)
     dev, ks = host_half_check(tr, a, torch, path)
     cap = tr._staged.miss_cap
     rows, slot = a.rows, a.slot
@@ -8019,15 +8223,25 @@ def merge_checked(lanes, served, host, fo, n, results, main, torch, what):
     # served, then a served slot's lanes or an unserved slot's host draws
     # (fanout int32 either way), the merged lanes out
     least = bound(nb(served) + 4 * fo * n * F + nb(lanes))
+    what = f"{what} [{n}, {F}] x {fo}, {nsv} served"
     main.setdefault("merge_draws", []).append(compare(
         "merge_draws",
         lambda: A.merge_draws(lanes, served, host, fo),
         lambda: A.merge_draws_plain(lanes, served, host, fo),
-        exact, results, torch, f"{what} [{n}, {F}] x {fo}, {nsv} served",
-        least=least, queued=True,
+        exact, results, torch, what, least=least, queued=True,
         library=lambda: torch.where(
             served.view(n, 1, F), lanes.view(n, fo, F),
             host.view(n, F, fo).transpose(1, 2))))
+    so, why = staged_parent_lib()
+    if so is None:
+        print(f"  merge_draws turns: {why}; not timed in turns")
+    else:
+        kernel_turns("merge_draws", what, {
+            "parent": lambda: merge_call(so.lt_merge_draws, lanes, served,
+                                         host, fo),
+            "tree": lambda: A.merge_draws(lanes, served, host, fo)},
+            A.merge_draws_plain(lanes, served, host, fo), exact, least,
+            torch)
     return A.merge_draws(lanes, served, host, fo)
 
 
@@ -8184,10 +8398,13 @@ def staged_edges(torch, results):
     bit for bit against their plain versions: all hits, all misses, pads,
     an empty batch (all pads, and no lanes), n_miss past the cap and a cap
     of 0, tile edges, 4 members, f32 and bf16 rows of 1 to 128 columns at
-    a misaligned base; K5: nothing cached, everything cached, fanouts 1,
-    25 and 33; K21: nothing or everything served. Also the host half's
-    C++ against its plain version: ids past the table, pads, no ids, rows
-    of degree 0 and vertices past V."""
+    a misaligned base; K19 at its tiles' edges, past 32 tiles, at more
+    tiles than resident blocks, 4 members of different n_miss; K5:
+    nothing cached, everything cached, fanouts 1, 25 and 33; K21: nothing,
+    half or everything served, fanouts 1 to 13000, 4 members. Also the
+    host half's C++ against its plain version: ids past the table, pads,
+    no ids, rows of degree 0 and vertices past V."""
+    from legion_tpu_torch.ops import kernels
     from legion_tpu_torch.ops.host_memory import (
         HostTable, gather_host_rows, gather_host_rows_plain, host_draw,
         host_draw_plain)
@@ -8274,6 +8491,37 @@ def staged_edges(torch, results):
           staged_assemble_plain(rows, k.payload, st, k.rank, 3000),
           bit_exact, "misaligned bf16 rows")
     n_cases += 1
+    # K19 at its tiles' edges (a tile less a lane, one tile, one more), past
+    # 32 tiles, at more tiles than the card holds blocks at once (rank-pass
+    # blocks that start before the count pass ends), and 4 members of
+    # different n_miss (pads 5%, 40%, 90% and all), each in the map, slot
+    # and served forms
+    lib = kernels.lib()
+    if not lib.lt_miss_compact_scratch(1, 1) == lib.lt_miss_compact_scratch(
+            1, K19_TILE) < lib.lt_miss_compact_scratch(1, K19_TILE + 1):
+        fail(f"staged_edges: K19_TILE {K19_TILE} is not staged.cu's tile")
+    resident = torch.cuda.get_device_properties(0).multi_processor_count * 8
+    member_pad = torch.tensor([0.05, 0.4, 0.9, 1.0], device="cuda")
+    for n, M in ((1, K19_TILE - 1), (1, K19_TILE), (1, K19_TILE + 1),
+                 (1, 40 * K19_TILE + 7), (1, resident * 3 // 2 * K19_TILE
+                                          + 5),
+                 (4, K19_TILE - 1), (4, K19_TILE + 1), (4, 33 * K19_TILE)):
+        ids = rand_ids(n, M, 0.0)
+        ids = torch.where(torch.rand((n, M), generator=g, device="cuda")
+                          < member_pad[:n, None], -1, ids)
+        table = torch.where(torch.rand(V, generator=g, device="cuda") < 0.5,
+                            torch.arange(V, dtype=torch.int32,
+                                         device="cuda"), -1)
+        slot = torch.where(ids >= 0, table[ids.clamp(min=0).long()],
+                           -1).to(torch.int32)
+        hit = (slot >= 0) & (torch.rand((n, M), generator=g, device="cuda")
+                             < 0.8)
+        for form in (dict(table=table), dict(slot=slot), dict(hit=hit)):
+            k = miss_compact(ids, **form)
+            check("miss_compact", k, miss_compact_plain(ids, **form),
+                  compacted_exact, f"tile edge n {n} M {M} "
+                  f"{list(form)[0]}, n_miss {k.n_miss.tolist()}")
+            n_cases += 1
     # K21 and K5's device-only form
     ip = torch.sort(torch.randint(0, 70_000, (V + 1,), generator=g,
                                   device="cuda")).values
@@ -8317,16 +8565,25 @@ def staged_edges(torch, results):
                       A.merge_draws_plain(lanes, served, host, fo), exact,
                       f"F {F} fanout {fo} share {share}")
                 n_cases += 2
-    for n, F, fo in ((4, 1000, 10), (2, 1, 1), (3, 0, 5)):
-        lanes = torch.randint(-1, V, (n, fo * F), generator=g,
-                              device="cuda", dtype=torch.int32)
-        served = torch.rand((n, F), generator=g, device="cuda") < 0.5
-        host = torch.randint(-1, V, (n, F, fo), generator=g, device="cuda",
-                             dtype=torch.int32)
-        check("merge_draws", A.merge_draws(lanes, served, host, fo),
-              A.merge_draws_plain(lanes, served, host, fo), exact,
-              f"members {n} F {F} fanout {fo}")
-        n_cases += 1
+    # K21 with members: fanouts 1 to 64 at F not a multiple of a block's
+    # slots (member rows off 16-byte alignment where F * fanout is odd),
+    # and fanouts of 1000 (a few slots a block) and 13000 (cut in chunks
+    # of columns); nothing, half or everything served
+    shapes = [(4, 1000, 10), (2, 1, 1), (3, 0, 5)] + [
+        (4, F, fo) for fo in (1, 10, 25, 33, 64)
+        for F in (777, 8001, 40_003)] + [
+        (4, F, fo) for fo in (1000, 13000) for F in (3, 41)]
+    for n, F, fo in shapes:
+        for share in (0.0, 0.5, 1.0):
+            lanes = torch.randint(-1, V, (n, fo * F), generator=g,
+                                  device="cuda", dtype=torch.int32)
+            served = torch.rand((n, F), generator=g, device="cuda") < share
+            host = torch.randint(-1, V, (n, F, fo), generator=g,
+                                 device="cuda", dtype=torch.int32)
+            check("merge_draws", A.merge_draws(lanes, served, host, fo),
+                  A.merge_draws_plain(lanes, served, host, fo), exact,
+                  f"members {n} F {F} fanout {fo} served {share}")
+            n_cases += 1
     # the host half's C++ at its edges
     ip_h, ix_h = ip.cpu(), ix.cpu()
     feats = torch.randn((V, 128))

@@ -145,8 +145,9 @@ def miss_compact(ids: torch.Tensor, table: Optional[torch.Tensor] = None,
                  hit: Optional[torch.Tensor] = None) -> Compacted:
     """K19, as ``miss_compact_plain``: ids [n, M] int32 (-1 pad) with the
     direct [V] map (looked up in the kernel), slots from K11, or the
-    clique's served lanes. Three launches from one C call: a count of each
-    tile's misses, a scan of the tiles, the ranked scatter."""
+    clique's served lanes. Two launches from one C call: a count pass
+    (each tile's misses and hits, its misses as ballot words) and a rank
+    pass (the ranked misses written as one run a tile)."""
     _compact_args(ids, table, slot, hit)
     if ids.device.type == "cpu":
         return miss_compact_plain(ids, table, slot, hit)
@@ -157,7 +158,7 @@ def miss_compact(ids: torch.Tensor, table: Optional[torch.Tensor] = None,
     n, M = ids.shape
     dev = ids.device
     # m_ids, m_pos, rank (and the map's payload) in one allocation; n_miss,
-    # hits and the tiles' counts in another
+    # hits and the kernel's scratch in another
     out = torch.empty((4 if table is not None else 3, n, M),
                       dtype=torch.int32, device=dev)
     cnt = torch.empty((2 * n + kernels.lib().lt_miss_compact_scratch(n, M),),

@@ -2,12 +2,13 @@
 package's and against the port's zero-copy trainer, on the CPU.
 
 K19's and K20's plain versions against JAX's ``StagedHostPipeline.
-_feature_tail`` and ``_assemble`` (exact, overflow included); the split
-draws merged by K21 against ``sample_neighbors`` (bit for bit); staged
-trainers against zero-copy trainers of the same seed (host features, host
-features and topology, 4 members with both caches), the miss cap's
-overflow, the lookahead across an eval pass and a restore, and the mode
-rules (``tests/test_staged_host.py``'s, for the port).
+_feature_tail`` and ``_assemble`` (exact, overflow included, K19 also at
+its card kernel's tile edges); K21's against ``GraphAccess.merge_draws``;
+the split draws merged by K21 against ``sample_neighbors`` (bit for
+bit); staged trainers against zero-copy trainers of the same seed (host
+features, host features and topology, 4 members with both caches), the
+miss cap's overflow, the lookahead across an eval pass and a restore, and
+the mode rules (``tests/test_staged_host.py``'s, for the port).
 """
 
 import warnings
@@ -25,6 +26,7 @@ from legion_tpu.cache.hashmap import HashMap32 as JHashMap32
 from legion_tpu.cache.unified_cache import UnifiedCache as JCache
 from legion_tpu.data import synthesize_dataset as jax_host_synth
 from legion_tpu.pipeline.staged import StagedHostPipeline as JStaged
+from legion_tpu.sampling.access import GraphAccess as JGraphAccess
 from legion_tpu_torch.cache.collective import (CliqueTopoCache,
                                                build_clique_topo)
 from legion_tpu_torch.cache.hashmap import HashMap32
@@ -39,7 +41,8 @@ from legion_tpu_torch.pipeline.staged import (StagedHostPipeline,
                                               miss_compact_plain,
                                               staged_assemble_plain)
 from legion_tpu_torch.sampling.access import (CachedTopoAccess,
-                                              csr_draw_plain, key_tensor)
+                                              csr_draw_plain, key_tensor,
+                                              merge_draws_plain)
 from legion_tpu_torch.train import Trainer
 from legion_tpu_torch.utils import restore_checkpoint
 from legion_tpu_torch.utils.convert import (cache_from_jax,
@@ -82,8 +85,8 @@ def _jax_tail(lookup, ids, clique=False):
         staged_clique=clique)
     batch = SimpleNamespace(node_ids=jnp.asarray(ids),
                             num_edges=jnp.zeros(2, jnp.int32))
-    out = JStaged._feature_tail(fake, SimpleNamespace(max_ids=M), batch,
-                                None, lookup, jnp.zeros((1, 1, 1)))
+    out = JStaged._feature_tail(fake, SimpleNamespace(max_ids=len(ids)),
+                                batch, None, lookup, jnp.zeros((1, 1, 1)))
     _, payload, m_ids, m_pos, n_miss, hits = out[:6]
     return (np.asarray(payload), np.asarray(m_ids), np.asarray(m_pos),
             int(n_miss), int(hits))
@@ -129,6 +132,85 @@ def test_miss_compact_equals_jax_feature_tail(form, case):
     rank = np.full(M, -1, np.int32)
     rank[m_pos[:n_miss]] = np.arange(n_miss)
     np.testing.assert_array_equal(_np(got.rank[0]), rank)
+
+
+# K19's tiles hold 1024 lanes of one member (csrc/staged.cu kCompactTile)
+TILE = 1024
+
+
+@pytest.mark.parametrize("form,n,m", [
+    ("map", 1, TILE - 1), ("map", 1, TILE), ("map", 1, TILE + 1),
+    ("hash", 1, 3 * TILE + 5), ("map", 4, TILE + 1), ("hash", 4, TILE + 1),
+    ("clique", 4, TILE + 1)])
+def test_miss_compact_equals_jax_at_tile_edges(form, n, m):
+    """K19's plain version equals JAX's ``_feature_tail`` member by member
+    at the card kernel's tile edges (a tile less a lane, one tile, one
+    more, several tiles) and for 4 members of different n_miss (pads 5%,
+    40%, 90% and all), exactly: m_ids, m_pos, n_miss, hits, the payload
+    and each lane's rank."""
+    rng = np.random.default_rng(m + n)
+    nv = 3 * m
+    ids = rng.integers(0, nv, (n, m)).astype(np.int32)
+    pad = np.array([0.05, 0.4, 0.9, 1.0])[:n, None]
+    ids[rng.random((n, m)) < pad] = -1
+    hot = rng.permutation(nv)[:nv // 2].astype(np.int64)
+    table = np.full(nv, -1, np.int32)
+    table[hot] = np.arange(len(hot), dtype=np.int32)
+    it = torch.from_numpy(ids)
+    hit = (ids >= 0) & (table[np.clip(ids, 0, nv - 1)] >= 0) \
+        & (rng.random((n, m)) < 0.7)
+    vals = np.arange(len(hot), dtype=np.int32)
+    if form == "map":
+        got = miss_compact_plain(it, table=torch.from_numpy(table))
+        lookup = jnp.asarray(table)
+    elif form == "hash":
+        got = miss_compact_plain(it, slot=HashMap32.build(hot, vals)
+                                 .lookup(it))
+        lookup = JHashMap32.build(hot, vals)
+    else:
+        got = miss_compact_plain(it, hit=torch.from_numpy(hit))
+    n_miss = []
+    for k in range(n):
+        if form == "clique":
+            class Lookup:
+                def fetch_cached(self, nid, rows, k=k):
+                    return jnp.zeros((m, 4)), jnp.asarray(hit[k])
+            want = _jax_tail(Lookup(), ids[k], clique=True)
+        else:
+            want = _jax_tail(lookup, ids[k])
+        payload, m_ids, m_pos, nm, hits = want
+        np.testing.assert_array_equal(_np(got.m_ids[k]), m_ids)
+        np.testing.assert_array_equal(_np(got.m_pos[k]), m_pos)
+        assert int(got.n_miss[k]) == nm and int(got.hits[k]) == hits
+        if form != "clique":
+            np.testing.assert_array_equal(_np(got.payload[k]), payload)
+        rank = np.full(m, -1, np.int32)
+        rank[m_pos[:nm]] = np.arange(nm)
+        np.testing.assert_array_equal(_np(got.rank[k]), rank)
+        n_miss.append(nm)
+    assert len(set(n_miss)) == n      # the members' n_miss all differ
+
+
+@pytest.mark.parametrize("fanout", [1, 25, 33])
+@pytest.mark.parametrize("F", [257, 777])
+def test_merge_draws_equals_jax_merge_draws(fanout, F):
+    """K21's plain version equals JAX's ``GraphAccess.merge_draws``
+    exactly, for each of 4 members (nothing, half, most and everything
+    served), at F not a multiple of the card kernel's slots a block."""
+    rng = np.random.default_rng(fanout * F)
+    n = 4
+    lanes = rng.integers(-1, 10_000, (n, fanout * F)).astype(np.int32)
+    served = rng.random((n, F)) < np.array([0.0, 0.5, 0.9, 1.0])[:, None]
+    host = rng.integers(-1, 10_000, (n, F, fanout)).astype(np.int32)
+    got = merge_draws_plain(torch.from_numpy(lanes),
+                            torch.from_numpy(served),
+                            torch.from_numpy(host), fanout)
+    assert tuple(got.shape) == (n, fanout * F)
+    for k in range(n):
+        want = JGraphAccess.merge_draws(jnp.asarray(lanes[k]),
+                                        jnp.asarray(served[k]),
+                                        jnp.asarray(host[k]), fanout)
+        np.testing.assert_array_equal(_np(got[k]), np.asarray(want))
 
 
 # ---------------------------------------------------------------------------
